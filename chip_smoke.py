@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 serving path once on an NVIDIA GPU.
+"""Drive the PyTorch port's int8 serving paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,12 +7,20 @@ Builds the port's CUDA kernels from vq_vae_transformer_arc_welding_tpu_torch/csr
 builds the bench model (__graft_entry__._build's configuration) at full
 width from a seed, calibrates `WeldingQualityPipeline(precision="int8",
 encoder_impl="fused", max_batch=80)` on 8 windows and answers requests
-of 80, 37 and 1 windows through `classify`. Then it checks that both
-kernels were launched by that run, compares each kernel with its plain
-PyTorch version at the main path's shapes, compares the kernel path's
-labels with the plain path's, and times kernels and classify with CUDA
-events, each in turns with its plain version (median and quartiles of
-10 after warm-up).
+of 80, 37 and 1 windows through `classify` (block_fusion='attn'). Then
+it drives every other int8 path of `entry.make_pipeline_quantized` on
+the same requests: block_fusion 'full', 'attn8', 'full8', 'attn-bf16',
+'full-bf16', and fused_attention=True with fused_mlp both ways and
+fused_qkv=False. Each path's launch counts are set to 0 just before it
+and read just after: a path must launch exactly its own kernels, every
+kernel must be launched by some path, and each path's labels must equal
+its plain path's where the plain margin exceeds 1e-3.
+
+Then every kernel is held against its plain PyTorch version at the main
+path's shapes (B=80, T=321, C=512, on the bench model's activations),
+and timed with CUDA events in turns with it (median and quartiles of 10
+after warm-up), as are classify and the 'attn', 'full', 'attn8' and
+'full8' pipelines at batch 80, each against its plain path.
 
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
@@ -39,11 +47,51 @@ N_CALIB = 8
 REPS = 10
 # acceptance bounds
 MAX_ID_FLIP = 1e-3          # kernel 1: id flip rate against the plain chain
-MAX_H8_DIFF_FRAC = 1e-3     # kernel 2: share of h8 entries that differ
-MAX_H8_STEP = 1             # kernel 2: largest |delta h8|
-MAX_XMID_ERR = 1e-3         # kernel 2: largest |delta x_mid|
+MAX_INT8_DIFF_FRAC = 1e-3   # int8 outputs (h8, g8, y8): share that differs
+MAX_INT8_STEP = 1           # int8 outputs: largest |delta|
+MAX_F32_ERR = 1e-3          # f32 outputs (x_mid, block and MLP out)
 LABEL_MARGIN = 1e-3         # labels compared where |logit0 - logit1| > this
 MIN_DISTINCT_FRAC = 0.25    # codebook scaled if fewer of K codes are used
+
+ENC, ATTN, ATTN8 = ("encoder_chain_f32", "attn_block_quant",
+                    "attn_block_quant_int8attn")
+FULL, FULL8 = "block_quant", "block_quant_int8attn"
+MLP, QKV, CAUSAL = ("mlp_quant", "qkv_attention_quant",
+                    "causal_attention_quant")
+# name, make_pipeline_quantized options, the kernels the path launches
+PATHS = (
+    ("attn", {"block_fusion": "attn"}, {ENC, ATTN}),
+    ("full", {"block_fusion": "full"}, {ENC, FULL}),
+    ("attn8", {"block_fusion": "attn8"}, {ENC, ATTN8}),
+    ("full8", {"block_fusion": "full8"}, {ENC, FULL8}),
+    ("attn-bf16", {"block_fusion": "attn-bf16"}, {ENC, ATTN}),
+    ("full-bf16", {"block_fusion": "full-bf16"}, {ENC, FULL}),
+    ("fused_attention", {"block_fusion": None, "fused_attention": True},
+     {ENC, QKV}),
+    ("fused_attention+fused_mlp", {"block_fusion": None,
+                                   "fused_attention": True,
+                                   "fused_mlp": True}, {ENC, QKV, MLP}),
+    ("fused_attention+fused_qkv=False", {"block_fusion": None,
+                                         "fused_attention": True,
+                                         "fused_qkv": False}, {ENC, CAUSAL}),
+)
+TIMED_PATHS = ("attn", "full", "attn8", "full8")
+# the output whose error against the plain version the record reports
+OUTPUT = {ATTN: "end.x_mid", ATTN8: "end.x_mid", FULL: "end.out",
+          FULL8: "end.out", MLP: "out", QKV: "y8", CAUSAL: "y8"}
+SRC = "vq_vae_transformer_arc_welding_tpu_torch/csrc/"
+TPU = "vq_vae_transformer_arc_welding_tpu/ops/"
+# kernel: (source, the pallas_call it replaces)
+RECORD = {
+    ENC: ("encoder_chain.cu", "pallas_encoder.py:311"),
+    ATTN: ("attn_block_quant.cu", "pallas_block_quant.py:255"),
+    ATTN8: ("attn_block_quant.cu", "pallas_block_quant.py:255"),
+    FULL: ("block_quant.cu", "pallas_block_quant.py:307"),
+    FULL8: ("block_quant.cu", "pallas_block_quant.py:307"),
+    MLP: ("mlp_quant.cu", "pallas_mlp_quant.py:67"),
+    QKV: ("attn_quant.cu", "pallas_attn_quant.py:164"),
+    CAUSAL: ("attn_quant.cu", "pallas_attn_quant.py:214"),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -110,15 +158,69 @@ def on_plain_path(fn):
 
 @contextlib.contextmanager
 def plain_path():
-    """The same serving path with every kernel wrapper replaced by its
+    """The same serving paths with every kernel wrapper replaced by its
     plain PyTorch version (the CUDA wrappers would launch the kernels)."""
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-        fused_block_quant as fbq, fused_encoder as fenc)
-    with mock.patch.object(fenc, "fused_encoder_eval",
-                           fenc.fused_encoder_eval_reference), \
-            mock.patch.object(fbq, "attn_block_quant",
-                              fbq.fused_attn_block_quant_reference):
+        fused_attn_quant as fattn, fused_block_quant as fbq,
+        fused_encoder as fenc, fused_mlp_quant as fmlp)
+    with contextlib.ExitStack() as stack:
+        for mod, name, plain in (
+                (fenc, "fused_encoder_eval",
+                 fenc.fused_encoder_eval_reference),
+                (fbq, "attn_block_quant",
+                 fbq.fused_attn_block_quant_reference),
+                (fbq, "block_quant", fbq.fused_block_quant_reference),
+                (fmlp, "mlp_quant", fmlp.mlp_quant_reference),
+                (fattn, "qkv_attention_quant",
+                 fattn.qkv_attention_quant_reference),
+                (fattn, "fused_causal_attention_quant",
+                 fattn.causal_attention_quant_reference)):
+            stack.enter_context(mock.patch.object(mod, name, plain))
         yield
+
+
+def int8_diff(a, b) -> tuple[float, int]:
+    """(share of entries that differ, largest |difference|)."""
+    d = (a.int() - b.int()).abs()
+    return float(d.ne(0).float().mean()), int(d.max())
+
+
+class Worst:
+    """The worst differences seen per (kernel, tensor), checked against
+    the bounds; `bound=False` records a difference without a bound."""
+
+    def __init__(self):
+        self.frac, self.step, self.err, self.free = {}, {}, {}, {}
+
+    def int8(self, key, a, b) -> str:
+        frac, step = int8_diff(a, b)
+        self.frac[key] = max(self.frac.get(key, 0.0), frac)
+        self.step[key] = max(self.step.get(key, 0), step)
+        return f"{key.split('.')[-1]} differs in {frac:.3e}, step {step}"
+
+    def f32(self, key, a, b, bound=True) -> str:
+        err = float((a - b).abs().max())
+        table = self.err if bound else self.free
+        table[key] = max(table.get(key, 0.0), err)
+        return f"{key.split('.')[-1]} err {err:.3e}"
+
+    def check(self) -> None:
+        for key, frac in self.frac.items():
+            check(frac <= MAX_INT8_DIFF_FRAC,
+                  f"{key}: int8 output differs in {frac} of entries")
+            check(self.step[key] <= MAX_INT8_STEP,
+                  f"{key}: int8 step {self.step[key]}")
+        for key, err in self.err.items():
+            check(err <= MAX_F32_ERR, f"{key}: f32 error {err}")
+
+    def output_err(self, name, out) -> float:
+        """The kernel's error at its output `out` against the plain
+        version on the same input: f32, or the largest int8 step."""
+        key = f"{name}.{out}"
+        for table in (self.err, self.free):
+            if key in table:
+                return table[key]
+        return float(self.step[key])
 
 
 def main() -> int:
@@ -131,11 +233,13 @@ def main() -> int:
     from vq_vae_transformer_arc_welding_tpu_torch.entry import (
         build, make_pipeline_quantized)
     from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
-        qdot, qdot_prequantized)
+        qdot)
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-        fused_block_quant as fbq, fused_encoder as fenc)
-    from vq_vae_transformer_arc_welding_tpu_torch.ops.activations import (
-        new_gelu)
+        fused_attn_quant as fattn, fused_block_quant as fbq,
+        fused_encoder as fenc, fused_mlp_quant as fmlp)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.int8 import (
+        int8_matmul, quantize_act)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
     from vq_vae_transformer_arc_welding_tpu_torch.serve import (
         CYCLE_LEN, WeldingQualityPipeline, with_start_token)
 
@@ -195,14 +299,15 @@ def main() -> int:
         log(f"request of {n}: ids {ids.shape}, "
             f"{np.unique(ids).size} distinct ids")
 
-    # -- 4. the main path: three requests through classify ---------------------
+    # -- 4. the main path: three requests through classify ('attn') --------
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     outs = [pipe.classify(r) for r in reqs]
-    counts = dict(kernels.launches)
-    log(f"main path: launches {json.dumps(counts)}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched by classify")
+    counts = {k: n for k, n in kernels.launches.items() if n}
+    log(f"main path: classify launches {json.dumps(counts)}")
+    check(set(counts) == {ENC, ATTN},
+          f"classify launched {sorted(counts)}, expected {ENC} and {ATTN}")
+    launched = {name: ("classify", n) for name, n in counts.items()}
     for n, (labels, probs) in zip(REQUESTS, outs):
         check(labels.shape == (n,) and probs.shape == (n, 2),
               f"classify({n}) shapes {labels.shape} {probs.shape}")
@@ -214,11 +319,51 @@ def main() -> int:
         log(f"classify({n}): label counts {np.bincount(labels, minlength=2)}"
             f", probs[0] {probs[0].tolist()}")
     log(f"saturation monitor: last rate {pipe.last_saturation_rate}")
+    qp = pipe.qparams
+
+    # -- 5. every int8 path end to end, against its plain path --------------
+    fns = {}
+    with torch.inference_mode():
+        xreqs = [torch.from_numpy(r).to(dev) for r in reqs]
+        for name, kw, want in PATHS:
+            fn = fns[name] = make_pipeline_quantized(vq, tr, qp, **kw)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            logits = [fn(xr) for xr in xreqs]
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in kernels.launches.items() if n}
+            check(set(counts) == want,
+                  f"path {name} launched {sorted(counts)}, expected "
+                  f"{sorted(want)}")
+            for k, n in counts.items():
+                launched.setdefault(k, (name, n))
+            checked = rest = 0
+            max_dlogit = 0.0
+            for xr, lk in zip(xreqs, logits):
+                check(lk.shape == (len(xr), 2) and bool(
+                    torch.isfinite(lk).all()), f"path {name}: logits")
+                with plain_path():
+                    lp = fn(xr)
+                sure = (lp[:, 0] - lp[:, 1]).abs() > LABEL_MARGIN
+                same = lk.argmax(-1) == lp.argmax(-1)
+                check(bool(same[sure].all()),
+                      f"path {name}: labels differ where the plain margin "
+                      f"exceeds {LABEL_MARGIN}: {int((~same & sure).sum())}")
+                checked += int(sure.sum())
+                rest += int((~sure).sum())
+                max_dlogit = max(max_dlogit, float((lk - lp).abs().max()))
+            log(f"path {name}: launches {json.dumps(counts)}; labels equal "
+                f"the plain path's on all {checked} windows whose plain "
+                f"|logit0-logit1| > {LABEL_MARGIN}; {rest} within the "
+                f"margin; max |dlogit| {max_dlogit:.3e}")
+    check(set(launched) == set(kernels.launches),
+          f"kernels no path launched: "
+          f"{sorted(set(kernels.launches) - set(launched))}")
 
     with torch.inference_mode():
-        x80 = torch.from_numpy(reqs[0]).to(dev)
+        x80 = xreqs[0]
 
-        # -- 5. kernel 1 against its plain version ---------------------------
+        # -- 6. kernel 1 against its plain version ---------------------------
         h = vq.patch_embed_out(x80.reshape(-1, CYCLE_LEN, 2))
         b_, p_, c_ = h.shape
         flat = h.reshape(b_ * p_, c_).contiguous()
@@ -247,7 +392,7 @@ def main() -> int:
             ids_k = vq.nearest(vq.sep_conv(yk.reshape(b_, p_, c_)))
             ids_p = vq.nearest(vq.sep_conv(yp.reshape(b_, p_, c_)))
             flip = float((ids_k != ids_p).float().mean())
-            log(f"kernel encoder_chain_f32 use_bn={use_bn}: {b_ * p_} rows x "
+            log(f"kernel {ENC} use_bn={use_bn}: {b_ * p_} rows x "
                 f"{nb} resblocks, max abs err {err:.3e}, max rel err "
                 f"{rel:.3e}, id flips {flip:.3e} "
                 f"({int((ids_k != ids_p).sum())} of {ids_k.numel()}; "
@@ -257,84 +402,170 @@ def main() -> int:
             if not use_bn:
                 k1_err = err
         w0, v0 = weights[:2 * grp], vecs[:10 * grp]
-        k1 = timed_in_turns({
+        times = {ENC: timed_in_turns({
             "kernel": lambda: fenc.fused_encoder_eval(flat, w0, v0,
                                                       use_bn=False),
             "plain": lambda: fenc.fused_encoder_eval_reference(
-                flat, w0, v0, use_bn=False)})
-        log(f"kernel encoder_chain_f32 time ({b_ * p_} x {c_}, {grp} "
-            f"resblocks per call): {fmt_ms(k1['kernel'])}, plain "
-            f"{fmt_ms(k1['plain'])}")
+                flat, w0, v0, use_bn=False)})}
+        log(f"kernel {ENC} time ({b_ * p_} x {c_}, {grp} resblocks per "
+            f"call): {fmt_ms(times[ENC]['kernel'])}, plain "
+            f"{fmt_ms(times[ENC]['plain'])}")
 
-        # -- 6. kernel 2 against its plain version at B=80 ------------------------
+        # -- 7. the int8 kernels against their plain versions at B=80 -------
+        # each block fed the plain stream of the block before, on the
+        # bench model's activations for request 0
         ids = fenc.encode_indices_fused(vq, (weights, vecs),
                                         x80.reshape(-1, CYCLE_LEN, 2))
         ids = with_start_token(ids.reshape(len(reqs[0]), -1),
                                pipe.start_token)
-        qp = pipe.qparams
         xs = qp["tok_emb"][ids.long()] + tr.pe[None, :ids.shape[1]]
-        worst = {"h8_diff_frac": 0.0, "h8_max_step": 0, "x_mid_err": 0.0}
-        args0 = None
+        nh = tr.n_head
+        worst = Worst()
+
+        def kernel_calls(attn_args, full_args, mlp_args, qkv_args,
+                         causal_args):
+            """Each int8 kernel's call and its plain version's."""
+            return {
+                ATTN: (lambda: fbq.attn_block_quant(*attn_args, n_head=nh),
+                       lambda: fbq.fused_attn_block_quant_reference(
+                           *attn_args, n_head=nh)),
+                ATTN8: (lambda: fbq.attn_block_quant(
+                    *attn_args, n_head=nh, int8_attn=True),
+                    lambda: fbq.fused_attn_block_quant_reference(
+                        *attn_args, n_head=nh, int8_attn=True)),
+                FULL: (lambda: fbq.block_quant(*full_args, n_head=nh),
+                       lambda: fbq.fused_block_quant_reference(
+                           *full_args, n_head=nh)),
+                FULL8: (lambda: fbq.block_quant(*full_args, n_head=nh,
+                                                int8_attn=True),
+                        lambda: fbq.fused_block_quant_reference(
+                            *full_args, n_head=nh, int8_attn=True)),
+                MLP: (lambda: fmlp.mlp_quant(*mlp_args),
+                      lambda: fmlp.mlp_quant_reference(*mlp_args)),
+                QKV: (lambda: fattn.qkv_attention_quant(*qkv_args,
+                                                        n_head=nh),
+                      lambda: fattn.qkv_attention_quant_reference(
+                          *qkv_args, n_head=nh)),
+                CAUSAL: (lambda: fattn.fused_causal_attention_quant(
+                    *causal_args, n_head=nh),
+                    lambda: fattn.causal_attention_quant_reference(
+                        *causal_args, n_head=nh)),
+            }
+
+        def stages(name, x, sc, w, scales, vc, v3c, v4c, int8_attn):
+            """The kernel's intermediates (sc, its scratch), each against
+            the plain step fed the kernel's own input to that step, so
+            that a one-step flip upstream does not count downstream."""
+            notes = [
+                worst.int8(f"{name}.h8a", sc["h8a"], quantize_act(
+                    layer_norm(x, vc[0], vc[1]), scales[0])),
+                worst.f32(f"{name}.qkv", sc["qkv"], int8_matmul(
+                    sc["h8a"], w["c_attn"]).float() * v3c[0] + v3c[1]),
+                worst.int8(f"{name}.y8", sc["y8"], quantize_act(
+                    fattn.attention_core_reference(
+                        sc["qkv"], nh, int8_attn=int8_attn), scales[1]))]
+            x_mid = sc["x_mid"]
+            notes += [
+                worst.f32(f"{name}.x_mid", x_mid, x + (int8_matmul(
+                    sc["y8"], w["c_proj"]).float() * vc[4] + vc[5])),
+                worst.int8(f"{name}.h8", sc["h8"], quantize_act(
+                    layer_norm(x_mid, vc[2], vc[3]), scales[2]))]
+            if "g8" in sc:
+                notes += [
+                    worst.int8(f"{name}.g8", sc["g8"],
+                               fmlp.fc_gelu_q8_reference(
+                                   sc["h8"], w["c_fc"], v4c, scales[3])),
+                    worst.f32(f"{name}.out", sc["out"], x_mid + (
+                        int8_matmul(sc["g8"], w["m_proj"]).float() * vc[6]
+                        + vc[7]))]
+            return ", ".join(notes)
+
+        calls = {}
         for i, blk in enumerate(qp["blocks"]):
-            scales, vc, v3c = blk["attn_operands"]
-            args = (xs.contiguous(), blk["c_attn"].w_int8,
-                    blk["c_proj"].w_int8, scales, vc, v3c)
-            args0 = args0 or args
-            xm_k, h8_k = fbq.attn_block_quant(*args, n_head=tr.n_head)
-            xm_p, h8_p = fbq.fused_attn_block_quant_reference(
-                *args, n_head=tr.n_head)
-            d = (h8_k.int() - h8_p.int()).abs()
-            frac, step = float(d.ne(0).float().mean()), int(d.max())
-            xerr = float((xm_k - xm_p).abs().max())
-            log(f"kernel attn_block_quant block {i} {tuple(xs.shape)}: h8 "
-                f"differs in {frac:.3e} of entries (bound "
-                f"{MAX_H8_DIFF_FRAC}), max |dh8| {step} (bound "
-                f"{MAX_H8_STEP}), max |dx_mid| {xerr:.3e} (bound "
-                f"{MAX_XMID_ERR})")
-            worst = {"h8_diff_frac": max(worst["h8_diff_frac"], frac),
-                     "h8_max_step": max(worst["h8_max_step"], step),
-                     "x_mid_err": max(worst["x_mid_err"], xerr)}
-            xs = xm_p + qdot(new_gelu(qdot_prequantized(h8_p, blk["c_fc"])),
-                             blk["m_proj"])
-        check(worst["h8_diff_frac"] <= MAX_H8_DIFF_FRAC,
-              f"kernel 2 h8 differs in {worst['h8_diff_frac']}")
-        check(worst["h8_max_step"] <= MAX_H8_STEP,
-              f"kernel 2 |dh8| {worst['h8_max_step']}")
-        check(worst["x_mid_err"] <= MAX_XMID_ERR,
-              f"kernel 2 |dx_mid| {worst['x_mid_err']}")
-        k2 = timed_in_turns({
-            "kernel": lambda: fbq.attn_block_quant(*args0, n_head=tr.n_head),
-            "plain": lambda: fbq.fused_attn_block_quant_reference(
-                *args0, n_head=tr.n_head)})
-        log(f"kernel attn_block_quant time (B={len(reqs[0])}, T={tr.seq_len}, "
-            f"C={tr.d_model}): {fmt_ms(k2['kernel'])}, plain "
-            f"{fmt_ms(k2['plain'])}")
+            scales, vc, v3c, v4c = blk["block_operands"]
+            w = {k: blk[k].w_int8 for k in ("c_attn", "c_proj", "c_fc",
+                                             "m_proj")}
+            xs = xs.contiguous()
+            attn_args = (xs, w["c_attn"], w["c_proj"], scales, vc[:6], v3c)
+            full_args = (xs, w["c_attn"], w["c_proj"], w["c_fc"],
+                         w["m_proj"], scales, vc, v3c, v4c)
+            notes = []
+            for name, int8_attn in ((ATTN, False), (ATTN8, True)):
+                sc = {}
+                xm_k, h8_k = fbq.attn_block_quant(
+                    *attn_args, n_head=nh, int8_attn=int8_attn, scratch=sc)
+                xm_p, h8_p = fbq.fused_attn_block_quant_reference(
+                    *attn_args, n_head=nh, int8_attn=int8_attn)
+                sc.update(x_mid=xm_k, h8=h8_k)
+                # end to end: PR 1's bounds for the f32 attention; the
+                # int8 attention's x_mid is held stage by stage
+                end = [worst.int8(f"{name}.end.h8", h8_k, h8_p),
+                       worst.f32(f"{name}.end.x_mid", xm_k, xm_p,
+                                 bound=not int8_attn)]
+                notes.append(f"{name}: end to end {', '.join(end)}; stages "
+                             + stages(name, xs, sc, w, scales, vc, v3c, v4c,
+                                      int8_attn))
+                if not int8_attn:
+                    x_mid = xm_p
+            for name, int8_attn in ((FULL, False), (FULL8, True)):
+                sc = {}
+                out_k = fbq.block_quant(*full_args, n_head=nh,
+                                        int8_attn=int8_attn, scratch=sc)
+                out_p = fbq.fused_block_quant_reference(
+                    *full_args, n_head=nh, int8_attn=int8_attn)
+                sc["out"] = out_k
+                end = worst.f32(f"{name}.end.out", out_k, out_p, bound=False)
+                notes.append(f"{name}: end to end {end}; stages "
+                             + stages(name, xs, sc, w, scales, vc, v3c, v4c,
+                                      int8_attn))
+                if not int8_attn:
+                    nxt = out_p
+            h2 = layer_norm(x_mid, blk["ln2_scale"], blk["ln2_bias"])
+            mlp_args = (h2.contiguous(), w["c_fc"], w["m_proj"], scales[2:],
+                        v4c, vc[6:])
+            sc = {}
+            out_k = fmlp.mlp_quant(*mlp_args, scratch=sc)
+            h8_p = quantize_act(h2, scales[2])
+            g8_p = fmlp.fc_gelu_q8_reference(h8_p, w["c_fc"], v4c, scales[3])
+            out_p = fmlp.mlp_quant_reference(*mlp_args)
+            notes.append(f"{MLP}: " + ", ".join([
+                worst.int8(f"{MLP}.h8", sc["h8"], h8_p),
+                worst.int8(f"{MLP}.g8", sc["g8"], g8_p),
+                worst.f32(f"{MLP}.out", out_k, out_p)]))
+            h1 = layer_norm(xs, blk["ln1_scale"], blk["ln1_bias"]).contiguous()
+            qkv_args = (h1, w["c_attn"], scales[:2], v3c)
+            notes.append(f"{QKV}: " + worst.int8(
+                f"{QKV}.y8", fattn.qkv_attention_quant(*qkv_args, n_head=nh),
+                fattn.qkv_attention_quant_reference(*qkv_args, n_head=nh)))
+            qkv = qdot(h1, blk["c_attn"]).contiguous()
+            y_scale = blk["c_proj"].act_scale
+            notes.append(f"{CAUSAL}: " + worst.int8(
+                f"{CAUSAL}.y8", fattn.fused_causal_attention_quant(
+                    qkv, y_scale, n_head=nh),
+                fattn.causal_attention_quant_reference(qkv, y_scale,
+                                                       n_head=nh)))
+            log(f"block {i} {tuple(xs.shape)}: " + "; ".join(notes))
+            if i == 0:
+                calls = kernel_calls(attn_args, full_args, mlp_args,
+                                     qkv_args, (qkv, y_scale))
+            xs = nxt
+        worst.check()
+        log(f"int8 kernels: worst int8 share {json.dumps(worst.frac)}, "
+            f"worst int8 step {json.dumps(worst.step)}, worst f32 err "
+            f"{json.dumps(worst.err)}; bounds {MAX_INT8_DIFF_FRAC}, "
+            f"{MAX_INT8_STEP}, {MAX_F32_ERR}; end to end without a bound "
+            f"(downstream of an int8 step) {json.dumps(worst.free)}")
+        shape = f"B={len(reqs[0])}, T={tr.seq_len}, C={tr.d_model}"
+        for name, (kfn, pfn) in calls.items():
+            times[name] = timed_in_turns({"kernel": kfn, "plain": pfn})
+            log(f"kernel {name} time ({shape}, block 0): "
+                f"{fmt_ms(times[name]['kernel'])}, plain "
+                f"{fmt_ms(times[name]['plain'])}")
 
-        # -- 7. end to end: kernel path against the plain path -------------------
-        fn = make_pipeline_quantized(vq, tr, qp, block_fusion="attn")
-        checked = rest = 0
-        max_dlogit = 0.0
-        for r in reqs:
-            xr = torch.from_numpy(r).to(dev)
-            lk = fn(xr)
-            with plain_path():
-                lp = fn(xr)
-            margin = (lp[:, 0] - lp[:, 1]).abs()
-            sure = margin > LABEL_MARGIN
-            same = lk.argmax(-1) == lp.argmax(-1)
-            check(bool(same[sure].all()),
-                  f"labels differ where the plain margin exceeds "
-                  f"{LABEL_MARGIN}: {int((~same & sure).sum())}")
-            checked += int(sure.sum())
-            rest += int((~sure).sum())
-            max_dlogit = max(max_dlogit, float((lk - lp).abs().max()))
-        log(f"end to end: labels equal on all {checked} windows whose plain "
-            f"|logit0-logit1| > {LABEL_MARGIN}; {rest} windows within the "
-            f"margin; max |dlogit| {max_dlogit:.3e}")
-
-    # -- 8. classify at batch 80: kernel path, plain path, f32 path -------------
+    # -- 8. windows/s at batch 80: classify and the fused pipelines ---------
     # classify returns numpy arrays, so each call ends synchronized and
-    # the events span the whole request, host work included
+    # the events span the whole request, host work included; the
+    # pipelines return device logits, and the events span their launches
     f32 = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80)
     f32_labels, _ = f32.classify(reqs[0])
     cls = timed_in_turns({
@@ -342,26 +573,31 @@ def main() -> int:
         "plain path": on_plain_path(lambda: pipe.classify(reqs[0])),
         "f32 path": lambda: f32.classify(reqs[0])})
     n80 = len(reqs[0])
+
+    def rate(t):
+        return f"{n80 / (t[0] / 1e3):.1f} windows/s at {fmt_ms(t)}"
+
     log(f"classify batch {n80}: " + ", ".join(
-        f"{name} {n80 / (t[0] / 1e3):.1f} windows/s at {fmt_ms(t)}"
-        for name, t in cls.items())
+        f"{name} {rate(t)}" for name, t in cls.items())
         + f"; int8 vs f32 label agreement "
         f"{float((outs[0][0] == f32_labels).mean()):.3f}; gpu {smi}")
+    with torch.inference_mode():
+        for name in TIMED_PATHS:
+            fn = fns[name]
+            t = timed_in_turns({"kernel": lambda: fn(x80),
+                                "plain": on_plain_path(lambda: fn(x80))})
+            log(f"make_pipeline_quantized({name}) batch {n80}: kernel path "
+                f"{rate(t['kernel'])}, plain path {rate(t['plain'])}; "
+                f"gpu {smi}")
 
-    src = "vq_vae_transformer_arc_welding_tpu_torch/csrc/"
     record = {"kernels": [
-        {"name": "encoder_chain_f32", "route": "cuda",
-         "source": src + "encoder_chain.cu",
-         "replaces": "vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py:311",
-         "launches": counts["encoder_chain_f32"], "max_abs_err": k1_err,
-         "ms": k1["kernel"][0], "plain_ms": k1["plain"][0]},
-        {"name": "attn_block_quant", "route": "cuda",
-         "source": src + "attn_block_quant.cu",
-         "replaces": "vq_vae_transformer_arc_welding_tpu/ops/pallas_block_quant.py:255",
-         "launches": counts["attn_block_quant"],
-         "max_abs_err": worst["x_mid_err"], "ms": k2["kernel"][0],
-         "plain_ms": k2["plain"][0]},
-    ]}
+        {"name": name, "route": "cuda", "source": SRC + src,
+         "replaces": TPU + replaces, "path": launched[name][0],
+         "launches": launched[name][1],
+         "max_abs_err": k1_err if name == ENC else worst.output_err(
+             name, OUTPUT[name]),
+         "ms": times[name]["kernel"][0], "plain_ms": times[name]["plain"][0]}
+        for name, (src, replaces) in RECORD.items()]}
     print(json.dumps(record), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ runs there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: kernel 1 keeps the f32 residual stream within 1e-4 of its
-magnitude (the two sum 512-term dot products in other orders); kernel 2
-may move at most 0.1% of the int8 outputs, by one step, and x_mid by
-1e-3 (an ulp of LayerNorm or attention difference can cross a rounding
-boundary).
+magnitude (the two sum 512-term dot products in other orders); the int8
+kernels (#2 in both attention variants, #6, #8, #10, #11) may move at
+most 0.1% of their int8 outputs, by one step, and their f32 outputs by
+1e-3 (an ulp of LayerNorm, attention, exp or tanh difference can cross
+a rounding boundary).
 """
 import numpy as np
 import pytest
@@ -18,7 +19,8 @@ import torch
 
 from vq_vae_transformer_arc_welding_tpu_torch import kernels
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-    fused_block_quant as fbq, fused_encoder as fenc, int8)
+    fused_attn_quant as fattn, fused_block_quant as fbq,
+    fused_encoder as fenc, fused_mlp_quant as fmlp, int8)
 
 pytestmark = pytest.mark.cuda
 
@@ -61,32 +63,112 @@ def test_encoder_kernel_matches_plain(dev, use_bn):
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-def _block_operands(c: int, seed: int = 0):
+def _block_operands(c: int, seed: int = 0, full: bool = False):
+    """w_qkv, w_proj, scales, vc, v3c (and w_fc, w_mp, v4c when full)
+    at magnitudes like a calibrated block's."""
     rng = np.random.default_rng(seed)
     w_qkv = torch.from_numpy(rng.integers(-127, 128, (3 * c, c), np.int8))
     w_proj = torch.from_numpy(rng.integers(-127, 128, (c, c), np.int8))
     scales = torch.tensor([30.0, 200.0, 30.0, 30.0])
-    vc = torch.from_numpy(np.stack([
-        rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
-        rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
-        np.full(c, 2e-5), rng.standard_normal(c) * 0.01]).astype(np.float32))
+    rows = [rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
+            rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
+            np.full(c, 2e-5), rng.standard_normal(c) * 0.01]
+    if full:
+        rows += [np.full(c, 2e-5), rng.standard_normal(c) * 0.01]
+    vc = torch.from_numpy(np.stack(rows).astype(np.float32))
     v3c = torch.from_numpy(np.stack([
         np.full(3 * c, 1e-3), rng.standard_normal(3 * c) * 0.1]).astype(
             np.float32))
-    return w_qkv, w_proj, scales, vc, v3c
+    if not full:
+        return w_qkv, w_proj, scales, vc, v3c
+    w_fc = torch.from_numpy(rng.integers(-127, 128, (4 * c, c), np.int8))
+    w_mp = torch.from_numpy(rng.integers(-127, 128, (c, 4 * c), np.int8))
+    v4c = torch.from_numpy(np.stack([       # GELU inputs of order 1
+        np.full(4 * c, 3e-5), rng.standard_normal(4 * c) * 0.1]).astype(
+            np.float32))
+    return w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c
 
 
-@pytest.mark.parametrize("b,t,c,n_head", [(3, 45, 128, 2), (2, 321, 512, 8)])
-def test_attn_block_kernel_matches_plain(dev, b, t, c, n_head):
+def _int8_close(out, ref):
+    diff = (out.int() - ref.int()).abs()
+    assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
+
+
+SHAPES = [(3, 45, 128, 2), (2, 321, 512, 8)]
+
+
+def _launched(name, fn):
+    before = kernels.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("int8_attn", [False, True])
+@pytest.mark.parametrize("b,t,c,n_head", SHAPES)
+def test_attn_block_kernel_matches_plain(dev, b, t, c, n_head, int8_attn):
     x = torch.randn(b, t, c, generator=torch.Generator().manual_seed(2))
     args = [a.to(dev).contiguous() for a in (x, *_block_operands(c))]
-    xm, h8 = fbq.attn_block_quant(*args, n_head=n_head)
-    xm_ref, h8_ref = fbq.fused_attn_block_quant_reference(*args,
-                                                          n_head=n_head)
-    torch.cuda.synchronize()
-    diff = (h8.int() - h8_ref.int()).abs()
-    assert diff.max() <= 1 and (diff != 0).float().mean() <= 1e-3
+    name = ("attn_block_quant_int8attn" if int8_attn
+            else "attn_block_quant")
+    xm, h8 = _launched(name, lambda: fbq.attn_block_quant(
+        *args, n_head=n_head, int8_attn=int8_attn))
+    xm_ref, h8_ref = fbq.fused_attn_block_quant_reference(
+        *args, n_head=n_head, int8_attn=int8_attn)
+    _int8_close(h8, h8_ref)
     assert (xm - xm_ref).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("int8_attn", [False, True])
+@pytest.mark.parametrize("b,t,c,n_head", SHAPES)
+def test_block_kernel_matches_plain(dev, b, t, c, n_head, int8_attn):
+    x = torch.randn(b, t, c, generator=torch.Generator().manual_seed(3))
+    args = [a.to(dev).contiguous()
+            for a in (x, *_block_operands(c, full=True))]
+    name = "block_quant_int8attn" if int8_attn else "block_quant"
+    out = _launched(name, lambda: fbq.block_quant(
+        *args, n_head=n_head, int8_attn=int8_attn))
+    ref = fbq.fused_block_quant_reference(*args, n_head=n_head,
+                                          int8_attn=int8_attn)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("b,t,c,n_head", SHAPES)
+def test_mlp_kernel_matches_plain(dev, b, t, c, n_head):
+    h = torch.randn(b, t, c, generator=torch.Generator().manual_seed(4))
+    _, _, w_fc, w_mp, scales, vc, _, v4c = _block_operands(c, full=True)
+    args = [a.to(dev).contiguous()
+            for a in (h, w_fc, w_mp, scales[2:], v4c, vc[6:])]
+    out = _launched("mlp_quant", lambda: fmlp.mlp_quant(*args))
+    ref = fmlp.mlp_quant_reference(*args)
+    assert (out - ref).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize("block_rows", [None, 8])
+@pytest.mark.parametrize("b,t,c,n_head", SHAPES)
+def test_qkv_attention_kernel_matches_plain(dev, b, t, c, n_head,
+                                            block_rows):
+    h = torch.randn(b, t, c, generator=torch.Generator().manual_seed(5))
+    w_qkv, _, scales, _, v3c = _block_operands(c)
+    args = [a.to(dev).contiguous() for a in (h, w_qkv, scales[:2], v3c)]
+    y8 = _launched("qkv_attention_quant", lambda: fattn.qkv_attention_quant(
+        *args, n_head=n_head, block_rows=block_rows))
+    _int8_close(y8, fattn.qkv_attention_quant_reference(*args,
+                                                        n_head=n_head))
+
+
+@pytest.mark.parametrize("b,t,c,n_head", SHAPES)
+def test_causal_attention_kernel_matches_plain(dev, b, t, c, n_head):
+    g = torch.Generator().manual_seed(6)
+    qkv = (torch.randn(b, t, 3 * c, generator=g) * 2).to(dev)
+    y_scale = torch.tensor(200.0, device=dev)
+    y8 = _launched("causal_attention_quant",
+                   lambda: fattn.fused_causal_attention_quant(
+                       qkv, y_scale, n_head=n_head))
+    _int8_close(y8, fattn.causal_attention_quant_reference(qkv, y_scale,
+                                                           n_head=n_head))
 
 
 @pytest.mark.parametrize("m,k,n", [(321, 512, 1536), (80, 321, 2), (8, 512, 1)])
@@ -113,3 +195,39 @@ def test_wrapper_rejects_bad_operands(dev):
     with pytest.raises(ValueError):      # the kernel is built for hidden 512
         fenc.fused_encoder_eval(x[:, :256].contiguous(), w[:, :256, :256],
                                 v[:, :256], use_bn=False)
+
+
+def test_int8_wrappers_reject_bad_operands(dev):
+    """Wrong dtype, shape, device, contiguity or head width: ValueError
+    before any launch."""
+    c = 128
+    w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c = (
+        a.to(dev) for a in _block_operands(c, full=True))
+    x = torch.zeros(2, 9, c, device=dev)
+    before = dict(kernels.launches)
+    bad = [
+        lambda: fbq.attn_block_quant(x.double(), w_qkv, w_proj, scales,
+                                     vc[:6], v3c, n_head=2),
+        lambda: fbq.attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c,
+                                     n_head=2),             # vc (8, C)
+        lambda: fbq.attn_block_quant(x, w_qkv, w_proj, scales, vc[:6], v3c,
+                                     n_head=4),             # head width 32
+        lambda: fbq.block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales,
+                                vc[:6], v3c, v4c, n_head=2),
+        lambda: fbq.block_quant(x, w_qkv, w_proj, w_fc.cpu(), w_mp, scales,
+                                vc, v3c, v4c, n_head=2, int8_attn=True),
+        lambda: fmlp.mlp_quant(x[:, ::2], w_fc, w_mp, scales[2:], v4c,
+                               vc[6:]),
+        lambda: fmlp.mlp_quant(x, w_fc, w_mp, scales, v4c, vc[6:]),
+        lambda: fattn.qkv_attention_quant(x, w_qkv, scales[:2], v3c[:, :c],
+                                          n_head=2),
+        lambda: fattn.qkv_attention_quant(x, w_qkv, scales[:2], v3c,
+                                          n_head=2, block_rows=12),
+        lambda: fattn.fused_causal_attention_quant(
+            torch.zeros(2, 9, 3 * c, device=dev, dtype=torch.float16),
+            scales[1], n_head=2),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert kernels.launches == before

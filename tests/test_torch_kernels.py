@@ -1,4 +1,4 @@
-"""The port's two kernel modules against the JAX package's Pallas kernels.
+"""The port's kernel modules against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its plain PyTorch version; the JAX side
 runs its Pallas kernel in interpret mode, as the JAX package's own
@@ -17,11 +17,17 @@ import jax.numpy as jnp
 from vq_vae_transformer_arc_welding_tpu.models.quantized import (
     calibrate_activation_absmax as jax_calibrate,
     quantize_transformer as jax_quantize)
+from vq_vae_transformer_arc_welding_tpu.models.quantized import qdot as jqdot
 from vq_vae_transformer_arc_welding_tpu.ops import (
-    pallas_block_quant as jbq, pallas_encoder as jenc)
+    pallas_attn_quant as jattn, pallas_block_quant as jbq,
+    pallas_encoder as jenc, pallas_mlp_quant as jmlp)
+from vq_vae_transformer_arc_welding_tpu.ops.norm import layer_norm as jln
 from vq_vae_transformer_arc_welding_tpu_torch import bridge, kernels
+from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import qdot
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-    fused_block_quant as fbq, fused_encoder as fenc)
+    fused_attn_quant as fattn, fused_block_quant as fbq,
+    fused_encoder as fenc, fused_mlp_quant as fmlp)
+from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
 
 import torch_port_helpers as H
 
@@ -74,48 +80,182 @@ def test_group_size_follows_jax_rule(hidden, group):
     assert fenc.group_size_for(hidden) == group
 
 
-# -- kernel 2: attention half of an int8 block --------------------------------
+# -- kernels 2 and 6: attention half and whole int8 block --------------------
+#
+# Tolerances. Int8 boundaries (h8, y8) equal except that at most 0.1% of
+# entries may differ by one: LayerNorm's mean and variance, and the
+# attention's sums, are taken in another order by XLA and PyTorch, and
+# an ulp of difference can carry a value across a rounding boundary.
+# f32 streams (x_mid, the block output) to 1e-3, the contract of the JAX
+# package's test_block_fusion_label_parity, with int8_attn too (at these
+# inputs every value came out bit-equal).
+
+T_CASES = (11, 33)     # T=11 as the JAX package's tests; 33 is ragged
+
+
+def _int8_close(port, ref, frac=1e-3):
+    diff = np.abs(_np(port).astype(np.int32) - np.asarray(ref).astype(
+        np.int32))
+    assert diff.max() <= 1 and (diff != 0).mean() <= frac, (
+        diff.max(), (diff != 0).mean())
+
 
 @functools.cache
 def _calibrated_block():
-    """The JAX block-0 qparams and a matching residual stream x."""
+    """The JAX model, qparams and the residual stream x entering block 0,
+    with the bridged port qparams."""
     jm, params = H.jax_transformer()
     ids = jnp.asarray(H.token_ids(5, seed=3))
     jqp = jax_quantize(params, act_absmax=jax_calibrate(jm, params, ids))
     x = jnp.take(jqp["tok_emb"], ids, axis=0) + jm.pe[None, :ids.shape[1]]
-    return jm, jqp, x
+    return jm, jqp, x, bridge.qparams_from_jax(jqp)
 
 
-def test_block_operands_match_jax():
+@pytest.mark.parametrize("full", [False, True])
+def test_block_operands_match_jax(full):
     """Bit-equal to the JAX packing, and packed once into the block by
-    the bridge (as quantize_transformer does) with the same values."""
-    _, jqp, x = _calibrated_block()
-    ref = jbq._block_operands(x, jqp["blocks"][0], full=False)[:3]
-    blk = bridge.qparams_from_jax(jqp)["blocks"][0]
-    for port, packed, r in zip(fbq._block_operands(blk),
-                               blk["attn_operands"], ref):
-        np.testing.assert_array_equal(_np(port), np.asarray(r))
+    the bridge (as quantize_transformer does) with the same values: the
+    full-block rows included."""
+    _, jqp, x, qp = _calibrated_block()
+    ref = jbq._block_operands(x, jqp["blocks"][0], full=full)
+    blk = qp["blocks"][0]
+    port = fbq._block_operands(blk, full=full)
+    assert (port[3] is None) == (not full) == (ref[3] is None)
+    for got, r in zip(port, ref):
+        if r is not None:
+            np.testing.assert_array_equal(_np(got), np.asarray(r))
+    for packed, r in zip(blk["block_operands"],
+                         jbq._block_operands(x, jqp["blocks"][0], full=True)):
         np.testing.assert_array_equal(_np(packed), np.asarray(r))
 
 
-def test_fused_attn_block_quant_matches_jax():
-    """h8 equal except that at most 0.1% of entries may differ by one:
-    LayerNorm's mean and variance are sums taken in another order by
-    XLA and PyTorch, and an ulp of difference can carry a value across
-    a rounding boundary. x_mid to 1e-3, the contract of the JAX
-    package's test_block_fusion_label_parity."""
-    jm, jqp, x = _calibrated_block()
-    qp = bridge.qparams_from_jax(jqp)
+@pytest.mark.parametrize("t", T_CASES)
+@pytest.mark.parametrize("int8_attn", [False, True])
+def test_fused_attn_block_quant_matches_jax(int8_attn, t):
+    """Both blocks, each fed the JAX x_mid stream of the block before."""
+    jm, jqp, x, qp = _calibrated_block()
+    x = x[:, :t]
     for jblk, blk in zip(jqp["blocks"], qp["blocks"]):
-        xm_ref, h8_ref = jbq.fused_attn_block_quant(x, jblk, n_head=jm.n_head)
+        xm_ref, h8_ref = jbq.fused_attn_block_quant(x, jblk, n_head=jm.n_head,
+                                                    int8_attn=int8_attn)
         xm, h8 = fbq.fused_attn_block_quant(torch.from_numpy(np.array(x)),
-                                            blk, n_head=jm.n_head)
+                                            blk, n_head=jm.n_head,
+                                            int8_attn=int8_attn)
         assert h8.dtype == torch.int8 and xm.shape == x.shape
-        diff = np.abs(_np(h8).astype(np.int32)
-                      - np.asarray(h8_ref).astype(np.int32))
-        assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3
+        _int8_close(h8, h8_ref)
         assert np.abs(_np(xm) - np.asarray(xm_ref)).max() < 1e-3
         x = xm_ref
+
+
+@pytest.mark.parametrize("t", T_CASES)
+@pytest.mark.parametrize("int8_attn", [False, True])
+def test_fused_block_quant_matches_jax(int8_attn, t):
+    """Kernel #6, both blocks chained on the JAX stream."""
+    jm, jqp, x, qp = _calibrated_block()
+    x = x[:, :t]
+    for jblk, blk in zip(jqp["blocks"], qp["blocks"]):
+        ref = jbq.fused_block_quant(x, jblk, n_head=jm.n_head,
+                                    int8_attn=int8_attn)
+        out = fbq.fused_block_quant(torch.from_numpy(np.array(x)), blk,
+                                    n_head=jm.n_head, int8_attn=int8_attn)
+        assert out.dtype == torch.float32 and out.shape == x.shape
+        assert np.abs(_np(out) - np.asarray(ref)).max() < 1e-3
+        x = ref
+
+
+@pytest.mark.parametrize("t", T_CASES)
+def test_int8_attention_core_matches_jax(rng, t):
+    """The plain int8 attention core against pallas_block_quant's
+    _attn_core(int8_attn=True), one batch row at a time, on a qkv drawn
+    at random: the scores are exact integer sums scaled once, so only
+    exp and the row sums differ by ulps."""
+    qkv = rng.standard_normal((3, t, 96)).astype(np.float32)
+    sm_scale = 1.0 / np.sqrt(8)
+    ref = np.stack([np.asarray(jbq._attn_core(jnp.asarray(q), 4, 8, t,
+                                              sm_scale, int8_attn=True))
+                    for q in qkv])
+    out = fattn.attention_core_reference(torch.from_numpy(qkv), 4,
+                                         int8_attn=True)
+    np.testing.assert_allclose(_np(out), ref, rtol=0, atol=1e-5)
+
+
+# -- kernel 8: int8 MLP -------------------------------------------------------
+
+@pytest.mark.parametrize("t", T_CASES)
+def test_fused_mlp_quant_matches_jax(t):
+    """The port's fused_mlp_quant (its signature is JAX's, weights in the
+    port's layout) on the ln2 output of block 0. h8 is the same q8 of the
+    same h and the products are exact; a g8 = q8(new_gelu(.)) value at a
+    rounding boundary may flip by one (tanh differs by ulps), which moves
+    the output by one m_proj weight step: 1e-3."""
+    jm, jqp, x, qp = _calibrated_block()
+    x = x[:, :t]
+    jblk, blk = jqp["blocks"][0], qp["blocks"][0]
+    h = jln(x, jblk["ln2_scale"], jblk["ln2_bias"])
+    fc, mp = jblk["c_fc"], jblk["m_proj"]
+    ref = jmlp.fused_mlp_quant(h, fc.w_int8, fc.scale, fc.bias, fc.act_scale,
+                               mp.w_int8, mp.scale, mp.bias, mp.act_scale)
+    pfc, pmp = blk["c_fc"], blk["m_proj"]
+    out = fmlp.fused_mlp_quant(torch.from_numpy(np.array(h)), pfc.w_int8,
+                               pfc.scale, pfc.bias, pfc.act_scale, pmp.w_int8,
+                               pmp.scale, pmp.bias, pmp.act_scale)
+    assert out.shape == h.shape
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=1e-3)
+    # the packed operands give the same values as the per-call packing
+    scales, vc, _, v4c = blk["block_operands"]
+    packed = fmlp.mlp_quant(torch.from_numpy(np.array(h)), pfc.w_int8,
+                            pmp.w_int8, scales[2:], v4c, vc[6:])
+    torch.testing.assert_close(packed, out, rtol=0, atol=0)
+
+
+# -- kernels 10 and 11: attention with an int8 output -------------------------
+
+@pytest.mark.parametrize("t", T_CASES)
+@pytest.mark.parametrize("block_rows", [None, 8])
+def test_fused_qkv_attention_quant_matches_jax(block_rows, t):
+    """y8 from the ln1 output of block 0; block_rows=8 tiles JAX's
+    scores by causal row blocks and changes nothing in the port."""
+    jm, jqp, x, qp = _calibrated_block()
+    x = x[:, :t]
+    jblk, blk = jqp["blocks"][0], qp["blocks"][0]
+    h = jln(x, jblk["ln1_scale"], jblk["ln1_bias"])
+    ca, cp = jblk["c_attn"], jblk["c_proj"]
+    ref = jattn.fused_qkv_attention_quant(
+        h, ca.w_int8, ca.scale / ca.act_scale, ca.bias, ca.act_scale,
+        cp.act_scale, n_head=jm.n_head, block_rows=block_rows)
+    pca = blk["c_attn"]
+    out = fattn.fused_qkv_attention_quant(
+        torch.from_numpy(np.array(h)), pca.w_int8, pca.scale / pca.act_scale,
+        pca.bias, pca.act_scale, blk["c_proj"].act_scale, n_head=jm.n_head,
+        block_rows=block_rows)
+    assert out.dtype == torch.int8 and out.shape == h.shape
+    _int8_close(out, ref)
+
+
+@pytest.mark.parametrize("t", T_CASES)
+def test_fused_causal_attention_quant_matches_jax(t):
+    jm, jqp, x, qp = _calibrated_block()
+    x = x[:, :t]
+    jblk, blk = jqp["blocks"][0], qp["blocks"][0]
+    qkv = jqdot(jln(x, jblk["ln1_scale"], jblk["ln1_bias"]), jblk["c_attn"])
+    ref = jattn.fused_causal_attention_quant(qkv, jblk["c_proj"].act_scale,
+                                             n_head=jm.n_head)
+    pqkv = qdot(layer_norm(torch.from_numpy(np.array(x)), blk["ln1_scale"],
+                           blk["ln1_bias"]), blk["c_attn"])
+    out = fattn.fused_causal_attention_quant(pqkv, blk["c_proj"].act_scale,
+                                             n_head=jm.n_head)
+    assert out.dtype == torch.int8 and out.shape == x.shape
+    _int8_close(out, ref)
+
+
+def test_block_rows_must_be_a_multiple_of_8():
+    h = torch.zeros(1, 3, 32)
+    with pytest.raises(ValueError):
+        fattn.qkv_attention_quant(h, None, None, None, n_head=4, block_rows=4)
+    with pytest.raises(ValueError):
+        jattn.fused_qkv_attention_quant(
+            jnp.zeros((1, 3, 32)), jnp.zeros((32, 96), jnp.int8),
+            jnp.ones(96), jnp.zeros(96), 1.0, 1.0, n_head=4, block_rows=4)
 
 
 def test_kernel2_reference_normalizes_after_pv():
@@ -145,9 +285,18 @@ def test_wrappers_raise_off_cpu_and_cuda():
         fenc.fused_encoder_eval(x, torch.empty((2, 64, 64), device="meta"),
                                 torch.empty((10, 64), device="meta"),
                                 use_bn=False)
-    with pytest.raises(ValueError):
-        fbq.attn_block_quant(torch.empty((1, 3, 64), device="meta"),
-                             *(None,) * 5, n_head=4)
+    meta = torch.empty((1, 3, 64), device="meta")
+    for call in (
+            lambda: fbq.attn_block_quant(meta, *(None,) * 5, n_head=4),
+            lambda: fbq.attn_block_quant(meta, *(None,) * 5, n_head=4,
+                                         int8_attn=True),
+            lambda: fbq.block_quant(meta, *(None,) * 8, n_head=4),
+            lambda: fmlp.mlp_quant(meta, *(None,) * 5),
+            lambda: fattn.qkv_attention_quant(meta, *(None,) * 3, n_head=4),
+            lambda: fattn.fused_causal_attention_quant(
+                torch.empty((1, 3, 192), device="meta"), None, n_head=4)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_kernel_sources_call_no_library_products():
@@ -157,8 +306,11 @@ def test_kernel_sources_call_no_library_products():
         src = path.read_text().lower()
         for word in ("cublas", "cudnn", "cutlass::gemm"):
             assert word not in src, (path.name, word)
-    assert set(kernels.launches) == {"encoder_chain_f32", "attn_block_quant"}
-    for mod in (fenc, fbq):
+    assert set(kernels.launches) == {
+        "encoder_chain_f32", "attn_block_quant", "attn_block_quant_int8attn",
+        "block_quant", "block_quant_int8attn", "mlp_quant",
+        "qkv_attention_quant", "causal_attention_quant"}
+    for mod in (fenc, fbq, fattn, fmlp):
         src = Path(mod.__file__).read_text()
         cuda_branch = src[src.index("kernels.require"):]
         for word in ("_int_mm", "matmul", "scaled_dot_product", "compile",
@@ -167,8 +319,22 @@ def test_kernel_sources_call_no_library_products():
 
 
 def test_launch_counts_untouched_on_cpu():
+    """Every wrapper on CPU tensors runs its plain version and counts
+    nothing."""
     kernels.reset_launch_counts()
     x = torch.zeros((3, 64))
     fenc.fused_encoder_eval(x, torch.zeros((2, 64, 64)), torch.zeros((10, 64)),
                             use_bn=False)
-    assert kernels.launches == {"encoder_chain_f32": 0, "attn_block_quant": 0}
+    blk = _calibrated_block()[3]["blocks"][0]
+    xs = torch.zeros((1, 5, 32))
+    for int8_attn in (False, True):
+        fbq.fused_attn_block_quant(xs, blk, n_head=4, int8_attn=int8_attn)
+        fbq.fused_block_quant(xs, blk, n_head=4, int8_attn=int8_attn)
+    scales, vc, v3c, v4c = blk["block_operands"]
+    fmlp.mlp_quant(xs, blk["c_fc"].w_int8, blk["m_proj"].w_int8, scales[2:],
+                   v4c, vc[6:])
+    fattn.qkv_attention_quant(xs, blk["c_attn"].w_int8, scales[:2], v3c,
+                              n_head=4)
+    fattn.fused_causal_attention_quant(torch.zeros((1, 5, 96)), scales[1],
+                                       n_head=4)
+    assert set(kernels.launches.values()) == {0}

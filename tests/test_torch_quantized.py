@@ -3,7 +3,10 @@
 Quantized weights and scales must be bit-equal; calibration absmax
 values within rtol 1e-5 (f32 forwards summed in another order); the
 plain int8 chain's logits within 1e-4 on identical (bridged) qparams,
-and labels equal.
+and labels equal. The fused variants of quantized_classify keep the
+JAX package's own contracts with the plain chain
+(tests/test_quantized.py): 1e-3 for 'attn', 'full' and the
+fused_attention paths, 2e-2 for 'attn8' and 'full8', 5e-2 for '-bf16'.
 """
 import functools
 
@@ -107,33 +110,86 @@ def test_row_clip_fracs_match_jax(rng):
         np.asarray(jq._row_clip_frac_prequant(jnp.asarray(h8))))
 
 
-@pytest.mark.parametrize("block_fusion,tol", [(None, 1e-4), ("attn", 1e-3)])
-def test_quantized_classify_matches_jax(block_fusion, tol):
-    """Bridged JAX qparams, so both run on identical scales. 'attn' on
-    the JAX side is the Pallas kernel in interpret mode; its contract
-    with the plain chain is 1e-3 (test_block_fusion_label_parity)."""
+CLASSIFY_CASES = [
+    ({}, 1e-4), ({"block_fusion": "attn"}, 1e-3),
+    ({"block_fusion": "full"}, 1e-3), ({"block_fusion": "attn8"}, 2e-2),
+    ({"block_fusion": "full8"}, 2e-2), ({"block_fusion": "attn-bf16"}, 5e-2),
+    ({"block_fusion": "full-bf16"}, 5e-2), ({"fused_attention": True}, 1e-3),
+    ({"fused_attention": True, "fused_mlp": True}, 1e-3),
+    ({"fused_attention": True, "fused_qkv": False}, 1e-3),
+    ({"fused_attention": True, "attn_block_rows": 8}, 1e-3),
+]
+
+
+@pytest.mark.parametrize("kw,tol", CLASSIFY_CASES,
+                         ids=lambda v: str(v) if isinstance(v, dict) else "")
+def test_quantized_classify_matches_jax(kw, tol):
+    """Bridged JAX qparams, so both run on identical scales. The fused
+    variants on the JAX side are the Pallas kernels in interpret mode.
+    The in-path saturation rows are compared where JAX collects them
+    (the unfused and attention-half paths)."""
     jm, _, _, jqp, port, _ = _calibrated()
     ids = H.token_ids(4, seed=9)
-    ref_rows, rows = [], []
-    ref = jq.quantized_classify(jm, jqp, jnp.asarray(ids),
-                                block_fusion=block_fusion, sat_rows=ref_rows)
+    monitored = (kw.get("block_fusion") or "attn").startswith("attn") \
+        and not kw.get("fused_attention")
+    ref_rows = [] if monitored else None
+    rows = [] if monitored else None
+    ref = jq.quantized_classify(jm, jqp, jnp.asarray(ids), sat_rows=ref_rows,
+                                **kw)
     out = pq.quantized_classify(port, bridge.qparams_from_jax(jqp),
-                                torch.from_numpy(ids),
-                                block_fusion=block_fusion, sat_rows=rows)
+                                torch.from_numpy(ids), sat_rows=rows, **kw)
+    assert out.dtype == torch.float32 and out.shape == (4, 2)
     np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=tol)
     np.testing.assert_array_equal(_np(out).argmax(-1),
                                   np.asarray(ref).argmax(-1))
-    assert len(rows) == len(ref_rows)
-    np.testing.assert_allclose(_np(torch.stack(rows)), np.stack(ref_rows),
-                               atol=1e-6)
+    if monitored:
+        assert len(rows) == len(ref_rows)
+        np.testing.assert_allclose(_np(torch.stack(rows)),
+                                   np.stack(ref_rows), atol=1e-6)
 
 
-def test_quantized_classify_rejects_unported_fusion():
-    _, _, jam, _, port, _ = _calibrated()
-    qp = pq.quantize_transformer(port, jam)
-    with pytest.raises(NotImplementedError):
-        pq.quantized_classify(port, qp, torch.from_numpy(H.token_ids(1)),
-                              block_fusion="full")
+@pytest.mark.parametrize("kw", [
+    {"block_fusion": "attn", "fused_attention": True},
+    {"block_fusion": "full", "fused_mlp": True},
+    {"fused_attention": True, "sat_rows": []},
+    {"fused_mlp": True},
+    {"block_fusion": "full", "sat_rows": []},
+], ids=lambda kw: ",".join(sorted(kw)))
+def test_quantized_classify_raises_like_jax(kw):
+    """The JAX package's ValueErrors: block_fusion with fused_attention
+    or fused_* options, sat_rows with fused_attention, fused_* options
+    without fused_attention, and in-path monitoring of a full block."""
+    jm, _, _, jqp, port, _ = _calibrated()
+    ids = H.token_ids(1)
+    with pytest.raises(ValueError):
+        jq.quantized_classify(jm, jqp, jnp.asarray(ids), **kw)
+    with pytest.raises(ValueError):
+        pq.quantized_classify(port, bridge.qparams_from_jax(jqp),
+                              torch.from_numpy(ids), **kw)
+
+
+def test_saturation_stats_matches_jax():
+    """The drift probe on bridged qparams whose act scales were
+    calibrated at half the absmax, so that every site clips: the same
+    sites in the same order, each fraction equal, and their mean."""
+    jm, params, jam, _, port, _ = _calibrated()
+    jqp = jq.quantize_transformer(params, {k: v / 2 for k, v in jam.items()})
+    ids = H.token_ids(4, seed=13)
+    ref_all, ref = jq.saturation_stats(jm, jqp, jnp.asarray(ids))
+    got_all, got = pq.saturation_stats(port, bridge.qparams_from_jax(jqp),
+                                       torch.from_numpy(ids))
+    assert list(got) == list(ref)
+    assert sum(float(v) > 0 for v in got.values()) >= len(got) // 2
+    for site in ref:
+        assert float(got[site]) == pytest.approx(float(ref[site]), abs=1e-6)
+    assert float(got_all) == pytest.approx(float(ref_all), abs=1e-6)
+
+
+def test_saturation_stats_needs_calibration():
+    port = H.port_transformer()
+    with pytest.raises(ValueError):
+        pq.saturation_stats(port, pq.quantize_transformer(port),
+                            torch.from_numpy(H.token_ids(1)))
 
 
 def test_fused_block_needs_calibration():

@@ -5,8 +5,11 @@ encoder_impl="fused")` in both packages on bridged weights, one ragged
 request. int8: the JAX calibration's qparams are bridged in, so both
 run on identical scales; labels equal and probs within 1e-3 (the fused
 attention normalizes after P@V, the JAX contract's 1e-3). f32: probs
-within 1e-5. Also: the port imports without jax, and chip_smoke.py
-refuses to run without a CUDA device.
+within 1e-5. The saturation probe gives JAX's numbers on the rows it
+is given. Each block_fusion and fused_attention option of
+make_pipeline_quantized reaches its kernels' entries. Also: the port
+imports without jax, and chip_smoke.py refuses to run without a CUDA
+device.
 """
 import functools
 import json
@@ -19,11 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from vq_vae_transformer_arc_welding_tpu.models import quantized as jq
 from vq_vae_transformer_arc_welding_tpu.serve import (
     WeldingQualityPipeline as JaxPipeline)
 from vq_vae_transformer_arc_welding_tpu_torch import bridge, entry
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-    fused_block_quant as fbq, fused_encoder as fenc)
+    fused_attn_quant as fattn, fused_block_quant as fbq,
+    fused_encoder as fenc, fused_mlp_quant as fmlp)
 from vq_vae_transformer_arc_welding_tpu_torch.serve import (
     WeldingQualityPipeline)
 
@@ -102,18 +109,118 @@ def test_chunking_does_not_change_results():
     np.testing.assert_array_equal(pipe.classify(x)[1], whole.classify(x)[1])
 
 
+PIPELINE_OPTIONS = [
+    {"block_fusion": "attn"}, {"block_fusion": "full"},
+    {"block_fusion": "attn8"}, {"block_fusion": "full8"},
+    {"block_fusion": "attn-bf16"}, {"block_fusion": "full-bf16"},
+    {"block_fusion": None, "fused_attention": True},
+    {"block_fusion": None, "fused_attention": True, "fused_mlp": True},
+    {"block_fusion": None, "fused_attention": True, "fused_qkv": False},
+]
+
+
 def test_classify_packs_operands_once(monkeypatch):
     """The kernels' weight operands are packed at construction and at
-    calibration; classify repacks nothing."""
+    calibration, the full-block rows included; classify and every
+    make_pipeline_quantized path repack nothing per call."""
     pipe = _port_pipeline("int8")
     pipe.calibrate(H.windows(6, seed=4))
+    for blk in pipe.qparams["blocks"]:
+        scales, vc, v3c, v4c = blk["block_operands"]
+        assert vc.shape == (8, 32) and v4c.shape == (2, 128)
+    fns = [entry.make_pipeline_quantized(pipe.vq_model, pipe.tr_model,
+                                         pipe.qparams, **kw)
+           for kw in PIPELINE_OPTIONS]
     calls = []
     for mod, name in ((fenc, "pack_encoder"), (fbq, "_block_operands")):
         real = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name: (
-            calls.append(_n), _r(*a))[1])
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
     labels, _ = pipe.classify(H.windows(REQUEST, seed=12))
-    assert labels.shape == (REQUEST,) and calls == []
+    assert labels.shape == (REQUEST,)
+    x = torch.from_numpy(H.windows(2, seed=12))
+    for fn in fns:
+        assert fn(x).shape == (2, 2)
+    assert calls == []
+
+
+@pytest.mark.parametrize("kw", PIPELINE_OPTIONS + [{"block_fusion": None}],
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
+def test_make_pipeline_quantized_reaches_its_kernels(monkeypatch, kw):
+    """Each option reaches the operand-level entries of its kernels
+    (int8_attn as the option says), once per block, and no others."""
+    vq, tr = H.port_vqvae(False), H.port_transformer()
+    qparams = bridge.qparams_from_jax(_jax_int8()[0].qparams)
+    calls = []
+    for mod, name in ((fbq, "attn_block_quant"), (fbq, "block_quant"),
+                      (fmlp, "mlp_quant"), (fattn, "qkv_attention_quant"),
+                      (fattn, "fused_causal_attention_quant")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append((_n, k.get("int8_attn", False))), _r(*a, **k))[1])
+    fn = entry.make_pipeline_quantized(vq, tr, qparams, **kw)
+    out = fn(torch.from_numpy(H.windows(3, seed=14)))
+    assert out.shape == (3, 2) and torch.isfinite(out).all()
+    bf = kw.get("block_fusion")
+    if bf is not None:
+        name = "block_quant" if bf.startswith("full") else "attn_block_quant"
+        want = {(name, bf.split("-")[0].endswith("8"))}
+    elif kw.get("fused_attention"):
+        want = {("qkv_attention_quant" if kw.get("fused_qkv", True)
+                 else "fused_causal_attention_quant", False)}
+        if kw.get("fused_mlp"):
+            want.add(("mlp_quant", False))
+    else:
+        want = set()
+    assert set(calls) == want
+    assert len(calls) == len(want) * tr.n_blocks
+
+
+@functools.cache
+def _jax_int8_tight():
+    """A JAX int8 pipeline whose act scales were calibrated at half the
+    absmax, so that every site clips."""
+    jp = _jax_pipeline("int8")
+    jp.qparams = jq.quantize_transformer(
+        jp.tr_params, {k: v / 2 for k, v in _jax_int8()[1].items()})
+    return jp
+
+
+@pytest.mark.parametrize("n", [8, REQUEST])
+def test_saturation_rate_matches_jax(n):
+    """n = max_batch: against the JAX pipeline's saturation_rate, which
+    pads nothing then. n = 5: against JAX saturation_stats on the same
+    five rows, since the JAX pipeline would pad them to max_batch by
+    repeating the last; the port computes the rows it is given."""
+    jp = _jax_int8_tight()
+    x = H.windows(n, seed=15)
+    pipe = _port_pipeline("int8", max_batch=8)
+    pipe.qparams = bridge.qparams_from_jax(jp.qparams)
+    rate, per_site = pipe.saturation_rate(x)
+    if n == jp.max_batch:
+        ref_rate, ref_sites = jp.saturation_rate(x)
+    else:
+        ids = np.concatenate([np.full((n, 1), jp.start_token, np.int32),
+                              jp.encode_tokens(x)], axis=1)
+        r, sites = jq.saturation_stats(jp.tr_model, jp.qparams,
+                                        jnp.asarray(ids))
+        ref_rate, ref_sites = float(r), {k: float(v) for k, v in
+                                         sites.items()}
+    assert per_site.keys() == ref_sites.keys()
+    assert rate > 0
+    assert rate == pytest.approx(ref_rate, abs=1e-6)
+    for site, v in ref_sites.items():
+        assert per_site[site] == pytest.approx(v, abs=1e-6), site
+
+
+def test_saturation_rate_refuses_without_calibration():
+    with pytest.raises(RuntimeError):
+        _port_pipeline("int8").saturation_rate(H.windows(1))
+    pipe = _port_pipeline("int8")
+    pipe.qparams = bridge.qparams_from_jax(_jax_int8()[0].qparams)
+    with pytest.raises(ValueError):
+        pipe.saturation_rate(H.windows(0))
 
 
 def test_int8_classify_requires_calibration():
@@ -145,7 +252,9 @@ def test_port_imports_without_jax():
             "vq_vae_transformer_arc_welding_tpu_torch.entry, "
             "vq_vae_transformer_arc_welding_tpu_torch.bridge, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_encoder, "
-            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_block_quant\n"
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_block_quant, "
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_mlp_quant, "
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn_quant\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'vq_vae_transformer_arc_welding_tpu.')) for m in sys.modules "
             "if sys.modules[m] is not None)\n"

@@ -117,8 +117,8 @@ def qlinear_from_jax(q, device=None) -> QLinear:
 
 def qparams_from_jax(qp, device=None) -> dict:
     """JAX quantize_transformer(...) output -> the port's qparams, with
-    calibrated blocks packed for the fused kernel as the port's
-    quantize_transformer packs them."""
+    calibrated blocks packed once for the fused kernels (the full-block
+    operands included) as the port's quantize_transformer packs them."""
     def v(a):
         return _t(a).to(device)
 

@@ -3,6 +3,8 @@
 // Rounding rules that keep the kernels comparable with the plain
 // PyTorch versions and with the JAX reference:
 //  - exact-erf GELU with erff, torch's formula (x * 0.5) * (1 + erf(x / sqrt 2));
+//  - tanh GELU (new_gelu) with tanhf, which is within 2 ulp of the
+//    libraries' tanh: a g8 value at a rounding boundary may flip by one;
 //  - int8 quantization rounds half to even (rintf), never roundf;
 //  - a product followed by a sum that the reference computes as two
 //    roundings is written with __fmul_rn / __fadd_rn, which nvcc never
@@ -17,6 +19,15 @@ namespace arcweld {
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
+}
+
+// GPT-2 tanh GELU in the reference's order, one rounding per op:
+// (0.5 * x) * (1 + tanh(sqrt(2/pi) * (x + ((0.044715 * x) * x) * x)))
+// The constants are the f32 roundings of the Python floats.
+__device__ __forceinline__ float new_gelu(float x) {
+  const float x3 = __fmul_rn(__fmul_rn(__fmul_rn(0x1.6e4e26p-5f, x), x), x);
+  const float u = __fmul_rn(0x1.988454p-1f, __fadd_rn(x, x3));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, tanhf(u)));
 }
 
 // clip(round_half_even(v * s), -127, 127)

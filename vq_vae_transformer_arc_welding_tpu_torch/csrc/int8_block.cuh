@@ -1,0 +1,75 @@
+// The launch functions of the calibrated-int8 transformer kernels.
+//
+// int8_block.cu holds the device kernels and these host functions; the
+// C entries (attn_block_quant.cu, block_quant.cu, mlp_quant.cu,
+// attn_quant.cu) compose them. Every function launches on stream `s`
+// and returns cudaGetLastError() after its last launch. q8 is
+// clip(round-half-even(v * s), -127, 127).
+#pragma once
+
+#include "common.cuh"
+
+namespace arcweld {
+
+constexpr int HEAD_DIM = 64;    // head width the attention is written for
+constexpr int LN_MAX_C = 1024;  // widest LayerNorm row
+
+// out[r, :] = q8(LN(x[r, :]) * scale + bias, *qscale); x (rows, c) f32
+cudaError_t launch_ln_q8(const float* x, const float* scale,
+                         const float* bias, const float* qscale, int8_t* out,
+                         int rows, int c, cudaStream_t s);
+
+// out[i] = q8(x[i], *qscale) for n values, n a multiple of 4
+cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
+                      size_t n, cudaStream_t s);
+
+// out[m, n] = float(sum_k a[m, k] w[n, k]) * cs[n] + cb[n] (+ resid[m, n])
+// a (rows, k), w (n_cols, k) int8, k and n_cols multiples of 64; out f32
+cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* cs,
+                        const float* cb, const float* resid, float* out,
+                        int rows, int n_cols, int k, cudaStream_t s);
+
+// out[m, n] = q8(new_gelu(float(sum_k a[m, k] w[n, k]) * cs[n] + cb[n]),
+//                *qscale), int8
+cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
+                                const float* cs, const float* cb,
+                                const float* qscale, int8_t* out, int rows,
+                                int n_cols, int k, cudaStream_t s);
+
+// y8 (batch, t, C) = q8(causal attention of qkv (batch, t, 3C), *qscale),
+// C = n_head * HEAD_DIM. int8_attn: scores and P@V on int8 operands
+// quantized with per (batch, head) scales, which are written to
+// head_scales (batch, 3, n_head) f32 first; otherwise head_scales is
+// unused and may be null.
+cudaError_t launch_attention(const float* qkv, const float* qscale,
+                             int8_t* y8, float* head_scales, int batch, int t,
+                             int n_head, float sm_scale, bool int8_attn,
+                             cudaStream_t s);
+
+// The attention half of a block (kernel #2):
+//   h8a = q8(LN1(x)), qkv = h8a @ Wqkv dequantized + bias,
+//   y8 = attention(qkv), x_mid = x + (y8 @ Wproj dequantized + bias),
+//   h8 = q8(LN2(x_mid)).
+// scales (4,) [s_attn, s_proj, s_fc, s_mproj]; vc rows [ln1_s, ln1_b,
+// ln2_s, ln2_b, deq_proj, b_proj]; v3c rows [deq_qkv, b_qkv].
+cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
+                             const int8_t* w_proj, const float* scales,
+                             const float* vc, const float* v3c, int8_t* h8a,
+                             float* qkv, int8_t* y8, float* head_scales,
+                             float* x_mid, int8_t* h8, int batch, int t,
+                             int c, int n_head, float sm_scale,
+                             bool int8_attn, cudaStream_t s);
+
+// The int8 MLP from its quantized input (the MLP half of kernel #6, and
+// kernel #8 after its q8 prologue):
+//   g8 = q8(new_gelu(h8 @ Wfc * fc_deq + fc_bias), *g_scale)
+//   out = g8 @ Wmp * mp_deq + mp_bias (+ resid)
+// h8 (rows, c), w_fc (c4, c), w_mp (c, c4) int8; g8 (rows, c4) scratch.
+cudaError_t launch_mlp(const int8_t* h8, const int8_t* w_fc,
+                       const int8_t* w_mp, const float* fc_deq,
+                       const float* fc_bias, const float* g_scale,
+                       const float* mp_deq, const float* mp_bias,
+                       const float* resid, int8_t* g8, float* out, int rows,
+                       int c, int c4, cudaStream_t s);
+
+}  // namespace arcweld

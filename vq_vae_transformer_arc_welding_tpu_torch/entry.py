@@ -48,10 +48,16 @@ def make_pipeline(vq: VQVAEPatch, tr: TransformerDecoder):
 
 
 def make_pipeline_quantized(vq: VQVAEPatch, tr: TransformerDecoder, qparams,
-                            block_fusion: str | None = "attn"):
-    """The int8 classify step: fused f32 encoder (kernel 1) and the
-    calibrated int8 transformer with the fused attention half per block
-    (kernel 2). `qparams` must carry calibrated activation scales. The
+                            block_fusion: str | None = "attn",
+                            **classify_kw):
+    """The int8 classify step: fused f32 encoder (kernel #1) and the
+    calibrated int8 transformer, `quantized_classify(block_fusion=...)`:
+    'attn' (the default, kernel #2 per block), 'full' (#6), 'attn8' and
+    'full8' (their int8-attention variants), each also with '-bf16', or
+    None. `classify_kw` goes to quantized_classify as it is: with
+    block_fusion=None, fused_attention=True and the fused_* options
+    select the fused attention kernels (#10, #11) and the fused MLP
+    (#8). `qparams` must carry calibrated activation scales. The
     encoder's kernel operands are packed once, here."""
     from .models.quantized import quantized_classify
     from .ops.fused_encoder import encode_indices_fused, pack_encoder
@@ -66,6 +72,6 @@ def make_pipeline_quantized(vq: VQVAEPatch, tr: TransformerDecoder, qparams,
         return quantized_classify(
             tr, qparams, with_start_token(ids.reshape(b, -1),
                                           vq.num_embeddings),
-            block_fusion=block_fusion)
+            block_fusion=block_fusion, **classify_kw)
 
     return fn

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Plays the role of vq_vae_transformer_arc_welding_tpu/native/build.py
-for the GPU: at first use, one nvcc call compiles every `csrc/*.cu`
-for Hopper (sm_90a) into a shared library with a plain C interface,
-which is loaded with ctypes. The library's name carries a hash of the
+for the GPU: at first use, one nvcc process per `csrc/*.cu`, all
+started together, compiles the sources for Hopper (sm_90a), and one
+more links them into a shared library with a plain C interface, which
+is loaded with ctypes. The library's name carries a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses
 the build. The build directory (`_build/`, beside `csrc/`) is listed
 in .gitignore. Nothing is built or imported at module import time.
@@ -13,7 +14,9 @@ as `c_int`, and returns `cudaGetLastError()` after its launches;
 `check` raises on anything but 0.
 
 `launches` counts, per kernel, the calls that went to the card. A
-wrapper adds one where it launches its kernel and nowhere else.
+wrapper adds one where it launches its kernel and nowhere else. The
+int8-attention variants of kernels #2 and #6 are counted apart
+(`VARIANTS`), so that a run shows which of the two it launched.
 """
 from __future__ import annotations
 
@@ -29,18 +32,32 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = SRC_DIR.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, weights, vecs, out, n_rows, c, n_blocks, use_bn, stream
     "encoder_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, x_mid, h8,
-    # batch, t, c, n_head, sm_scale, stream
-    "attn_block_quant": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, head_scales,
+    # x_mid, h8, batch, t, c, n_head, sm_scale, int8_attn, stream
+    "attn_block_quant": [_P] * 12 + [_I] * 4 + [_F, _I, _P],
+    # x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, h8a, qkv, y8,
+    # head_scales, x_mid, h8, g8, out, batch, t, c, c4, n_head, sm_scale,
+    # int8_attn, stream
+    "block_quant": [_P] * 17 + [_I] * 5 + [_F, _I, _P],
+    # h, w_fc, w_mp, scales, v4c, vmp, h8, g8, out, rows, c, c4, stream
+    "mlp_quant": [_P] * 9 + [_I] * 3 + [_P],
+    # qkv, y_scale, y8, batch, t, n_head, sm_scale, stream
+    "causal_attention_quant": [_P] * 3 + [_I] * 3 + [_F, _P],
+    # h, w_qkv, scales, v3c, h8, qkv, y8, batch, t, c, n_head, sm_scale,
+    # stream
+    "qkv_attention_quant": [_P] * 7 + [_I] * 4 + [_F, _P],
 }
+# the C entries above whose int8_attn=1 launches are counted apart
+VARIANTS = {"attn_block_quant": "attn_block_quant_int8attn",
+            "block_quant": "block_quant_int8attn"}
 
-launches = {name: 0 for name in _SIGNATURES}
+launches = {name: 0 for name in (*_SIGNATURES, *VARIANTS.values())}
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +72,22 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands side by side; raise with the errors of any that
+    failed, after all have ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library."""
@@ -67,11 +100,14 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                               f"{' '.join(cmd)}\n{res.stderr}")
+        objs = [so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o")
+                for src in sources]
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objs)])
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -93,6 +129,18 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_heads(name: str, c: int, n_head: int,
+                  max_c: int | None = None) -> None:
+    """Raise unless the attention kernels take width C with n_head
+    heads: C a multiple of 64 (up to max_c) and the head width the
+    kernels are written for."""
+    hd = library().attn_block_quant_head_dim()
+    if c % 64 or c != n_head * hd or (max_c is not None and c > max_c):
+        limit = f" up to {max_c}" if max_c is not None else ""
+        raise ValueError(f"{name}: C={c} with {n_head} heads not supported: "
+                         f"C a multiple of 64{limit}, head width {hd}")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -3,9 +3,12 @@
 Port of vq_vae_transformer_arc_welding_tpu/models/quantized.py:
 `QLinear`, `quantize_linear`, `qdot`, `qdot_prequantized`,
 `quantize_transformer`, `calibrate_activation_absmax`, the plain int8
-chain `quantized_backbone`, the whole-block variant
-`quantized_backbone_block` (`block_fusion='attn'`), `quantized_classify`
-and the in-path saturation counters `_row_clip_frac*`.
+chain `quantized_backbone`, the drift probe `saturation_stats`, the
+whole-block variants `quantized_backbone_block` (`block_fusion` 'attn',
+'full', 'attn8', 'full8', each with or without '-bf16'), the fused
+attention path `quantized_backbone_fused` (`fused_attention=True`),
+`quantized_classify` and the in-path saturation counters
+`_row_clip_frac*`.
 
 Every Linear is quantized per output channel to symmetric int8;
 activations are quantized per tensor with a calibrated scale
@@ -24,9 +27,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import fused_attn_quant, fused_mlp_quant
 from ..ops.activations import gelu, new_gelu
 from ..ops.attention import causal_attention_core, merge_heads, split_heads
-from ..ops.fused_block_quant import fused_attn_block_quant, pack_block
+from ..ops.fused_block_quant import (fused_attn_block_quant,
+                                     fused_block_quant, pack_block,
+                                     packed_operands)
 from ..ops.int8 import int8_matmul, quantize_act
 from ..ops.norm import layer_norm
 from .transformer import linear
@@ -75,7 +81,7 @@ def quantize_transformer(model, act_absmax: dict | None = None) -> dict:
     """Quantize every Linear of a TransformerDecoder. `act_absmax`
     (from calibrate_activation_absmax) bakes static activation scales
     in; without it scales are dynamic per call. Calibrated blocks also
-    carry the fused attention kernel's packed operands (`pack_block`)."""
+    carry the fused kernels' packed operands (`pack_block`)."""
     am = act_absmax or {}
     ch = model.class_head
 
@@ -151,61 +157,175 @@ def _embed(model, qparams, x_ids):
     return qparams["tok_emb"][x_ids.long()] + model.pe[None, :t]
 
 
-def quantized_backbone(model, qparams, x_ids, sat_rows: list | None = None):
-    """The plain int8 chain: every op separate, attention unfused."""
+def quantized_backbone(model, qparams, x_ids, sat_stats: dict | None = None,
+                       sat_rows: list | None = None):
+    """The plain int8 chain: every op separate, attention unfused.
+    sat_stats collects each site's clipped fraction (a 0-d tensor) by
+    site name; sat_rows the per-row fractions (B,)."""
 
-    def sat(a, q):
-        if sat_rows is not None and q.act_scale is not None:
-            sat_rows.append(_row_clip_frac(a, q.act_scale))
+    def sat(site, a, q):
+        if q.act_scale is not None:
+            if sat_stats is not None:
+                sat_stats[site] = ((a.abs() * q.act_scale) > 127.5).float(
+                ).mean()
+            if sat_rows is not None:
+                sat_rows.append(_row_clip_frac(a, q.act_scale))
         return a
 
     x = _embed(model, qparams, x_ids)
-    for blk in qparams["blocks"]:
+    for i, blk in enumerate(qparams["blocks"]):
         h = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
-        qkv = qdot(sat(h, blk["c_attn"]), blk["c_attn"])
+        qkv = qdot(sat(f"b{i}_attn_in", h, blk["c_attn"]), blk["c_attn"])
         q, k, v = qkv.split(model.d_model, dim=-1)
         q, k, v = (split_heads(z, model.n_head) for z in (q, k, v))
         y = merge_heads(causal_attention_core(q, k, v))
-        x = x + qdot(sat(y, blk["c_proj"]), blk["c_proj"])
+        x = x + qdot(sat(f"b{i}_proj_in", y, blk["c_proj"]), blk["c_proj"])
         h = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
-        mid = new_gelu(qdot(sat(h, blk["c_fc"]), blk["c_fc"]))
-        x = x + qdot(sat(mid, blk["m_proj"]), blk["m_proj"])
+        mid = new_gelu(qdot(sat(f"b{i}_fc_in", h, blk["c_fc"]), blk["c_fc"]))
+        x = x + qdot(sat(f"b{i}_mproj_in", mid, blk["m_proj"]),
+                     blk["m_proj"])
     return layer_norm(x, qparams["ln_f_scale"], qparams["ln_f_bias"])
 
 
-def quantized_backbone_block(model, qparams, x_ids,
+def saturation_stats(model, qparams, x_ids):
+    """Per-site clipped-activation fractions of the calibrated int8 path
+    on `x_ids`, plus the overall mean: the drift probe that covers the
+    sites the fused kernels hide (the 'full' variants expose none).
+    Runs the plain int8 chain, whose scales and quantization points are
+    the fused kernels'. Returns (overall, per_site) as 0-d tensors."""
+    stats: dict = {}
+    x = quantized_backbone(model, qparams, x_ids, sat_stats=stats)
+    ch = qparams["class_head"]
+    if ch["l1"].act_scale is not None:
+        stats["l1_in"] = ((x.abs() * ch["l1"].act_scale) > 127.5).float(
+        ).mean()
+    h = gelu(qdot(x, ch["l1"]).squeeze(-1))
+    if ch["l2"].act_scale is not None:
+        stats["l2_in"] = ((h.abs() * ch["l2"].act_scale) > 127.5).float(
+        ).mean()
+    if not stats:
+        raise ValueError("saturation_stats needs calibrated act scales")
+    overall = sum(stats.values()) / len(stats)
+    return overall, stats
+
+
+def quantized_backbone_block(model, qparams, x_ids, *, full_block=False,
+                             int8_attn=False, stream_dtype=None,
                              sat_rows: list | None = None):
-    """Backbone with each block's attention half in one fused call
-    (ops/fused_block_quant.py): ln1 -> int8 qkv -> attention -> int8
-    c_proj -> residual -> ln2 -> int8, returning (x_mid, h8). The int8
-    MLP stays outside. h8 matches the plain chain at every int8
-    boundary; the f32 stream agrees to ~1e-3 (attention normalizes
-    after P@V). sat_rows collects the sites visible outside the fused
-    call: the rail count of h8 and the f32 m_proj input."""
-    x = _embed(model, qparams, x_ids)
+    """Backbone with whole-block fusion (ops/fused_block_quant.py).
+    full_block: one kernel per block (#6); otherwise each block's
+    attention half in one kernel (#2), returning (x_mid, h8), and the
+    int8 MLP outside it. int8_attn: scores and P@V on int8 operands.
+    stream_dtype (torch.bfloat16 for the '-bf16' variants): the
+    residual stream between kernels is rounded to it where the JAX
+    kernels write it: the attention half's x_mid (h8 is computed from
+    the f32 x_mid before that) and the block output; the kernels take
+    and give f32, so the casts run outside them.
+
+    h8 matches the plain chain at every int8 boundary; the f32 stream
+    agrees to ~1e-3 (attention normalizes after P@V). sat_rows
+    (attention-half variants only) collects the sites visible outside
+    the fused call: the rail count of h8 and the f32 m_proj input."""
+    if sat_rows is not None and full_block:
+        raise ValueError(
+            "in-path saturation monitoring needs the attn-half block "
+            "fusion (the full-block kernel exposes no quantization "
+            "sites); use block_fusion='attn' or the saturation_stats "
+            "probe")
+
+    def stream(a):
+        return a if stream_dtype is None else a.to(stream_dtype)
+
+    x = stream(_embed(model, qparams, x_ids))
     for blk in qparams["blocks"]:
-        x_mid, h8 = fused_attn_block_quant(x, blk, n_head=model.n_head)
+        if full_block:
+            x = stream(fused_block_quant(x.float(), blk, n_head=model.n_head,
+                                         int8_attn=int8_attn))
+            continue
+        x_mid, h8 = fused_attn_block_quant(x.float(), blk,
+                                           n_head=model.n_head,
+                                           int8_attn=int8_attn)
         g = new_gelu(qdot_prequantized(h8, blk["c_fc"]))
         if sat_rows is not None:
             sat_rows.append(_row_clip_frac_prequant(h8))
             if blk["m_proj"].act_scale is not None:
                 sat_rows.append(_row_clip_frac(g, blk["m_proj"].act_scale))
-        x = x_mid + qdot(g, blk["m_proj"])
+        x = stream(stream(x_mid).float() + qdot(g, blk["m_proj"]))
+    return layer_norm(x.float(), qparams["ln_f_scale"],
+                      qparams["ln_f_bias"])
+
+
+def quantized_backbone_fused(model, qparams, x_ids, *, fused_mlp=False,
+                             fused_qkv=True, attn_block_rows=None):
+    """Backbone with the fused attention + int8 output kernels
+    (ops/fused_attn_quant.py): fused_qkv (default) pulls the int8 qkv
+    projection in (#10), else qkv = qdot(h, c_attn) feeds the attention
+    kernel (#11). fused_mlp runs the MLP as one kernel (#8), else as
+    the qdot chain. Needs calibrated act scales; reads the block's
+    packed operands."""
+    x = _embed(model, qparams, x_ids)
+    for blk in qparams["blocks"]:
+        if blk["c_proj"].act_scale is None:
+            raise ValueError("fused path needs calibrated act scales")
+        h = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
+        if fused_qkv:
+            scales, _, v3c, _ = packed_operands(blk)
+            y8 = fused_attn_quant.qkv_attention_quant(
+                h, blk["c_attn"].w_int8, scales[:2], v3c,
+                n_head=model.n_head, block_rows=attn_block_rows)
+        else:
+            y8 = fused_attn_quant.fused_causal_attention_quant(
+                qdot(h, blk["c_attn"]), blk["c_proj"].act_scale,
+                n_head=model.n_head)
+        x = x + qdot_prequantized(y8, blk["c_proj"])
+        h = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
+        if fused_mlp:
+            scales, vc, _, v4c = packed_operands(blk)
+            x = x + fused_mlp_quant.mlp_quant(
+                h, blk["c_fc"].w_int8, blk["m_proj"].w_int8, scales[2:], v4c,
+                vc[6:])
+        else:
+            x = x + qdot(new_gelu(qdot(h, blk["c_fc"])), blk["m_proj"])
     return layer_norm(x, qparams["ln_f_scale"], qparams["ln_f_bias"])
 
 
-def quantized_classify(model, qparams, x_ids, *,
+def quantized_classify(model, qparams, x_ids, *, fused_attention=False,
                        block_fusion: str | None = None,
-                       sat_rows: list | None = None) -> torch.Tensor:
-    """(B, T) ids -> (B, 2) class logits. block_fusion: None (plain
-    chain) or 'attn' (fused attention half per block). The JAX
-    package's 'full', 'attn8' and '-bf16' variants are not ported yet."""
-    if block_fusion == "attn":
-        x = quantized_backbone_block(model, qparams, x_ids, sat_rows=sat_rows)
-    elif block_fusion is None:
-        x = quantized_backbone(model, qparams, x_ids, sat_rows=sat_rows)
+                       sat_rows: list | None = None,
+                       **fused_kw) -> torch.Tensor:
+    """(B, T) ids -> (B, 2) class logits. block_fusion: None | 'attn' |
+    'full' | 'attn8' | 'full8': whole-block fusion
+    (quantized_backbone_block); the '8' variants also run the score and
+    P@V products on int8 operands. A '-bf16' suffix (e.g. 'attn-bf16')
+    carries the residual stream between kernels in bfloat16. It
+    replaces fused_attention, which runs quantized_backbone_fused with
+    the fused_* options (fused_mlp, fused_qkv, attn_block_rows).
+
+    sat_rows: pass a list to collect per-row clipped-activation
+    fractions (B,) from the sites visible in-path plus the class head:
+    on the unfused and attention-half paths only."""
+    if block_fusion is not None:
+        if fused_attention or fused_kw:
+            raise ValueError(
+                "block_fusion replaces the fused_attention path; do not "
+                "combine it with fused_attention/fused_* options")
+        bf, stream_dtype = block_fusion, None
+        if bf.endswith("-bf16"):
+            bf, stream_dtype = bf[:-5], torch.bfloat16
+        x = quantized_backbone_block(
+            model, qparams, x_ids, full_block=bf.startswith("full"),
+            int8_attn=bf.endswith("8"), stream_dtype=stream_dtype,
+            sat_rows=sat_rows)
+    elif fused_attention:
+        if sat_rows is not None:
+            raise ValueError(
+                "in-path saturation monitoring is wired for the unfused "
+                "and block_fusion='attn' paths; use saturation_stats")
+        x = quantized_backbone_fused(model, qparams, x_ids, **fused_kw)
     else:
-        raise NotImplementedError(f"block_fusion={block_fusion!r}")
+        if fused_kw:
+            raise ValueError("fused_* options need fused_attention=True")
+        x = quantized_backbone(model, qparams, x_ids, sat_rows=sat_rows)
     ch = qparams["class_head"]
     if sat_rows is not None and ch["l1"].act_scale is not None:
         sat_rows.append(_row_clip_frac(x, ch["l1"].act_scale))
@@ -213,4 +333,3 @@ def quantized_classify(model, qparams, x_ids, *,
     if sat_rows is not None and ch["l2"].act_scale is not None:
         sat_rows.append(_row_clip_frac(h, ch["l2"].act_scale))
     return qdot(h, ch["l2"])
-

@@ -1,43 +1,51 @@
-"""The attention half of a calibrated-int8 transformer block, fused.
+"""Whole-block fusion for the calibrated-int8 transformer.
 
-Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_block_quant.py
-(`_block_operands` and `fused_attn_block_quant`, the pallas_call at
-:255, `int8_attn=False` only). The kernel is `csrc/attn_block_quant.cu`
-(`attn_block_quant`, a sequence of five launches);
-`fused_attn_block_quant_reference` is its plain PyTorch version, with
-the Pallas kernel's op order: the softmax denominator is applied after
-the P@V product.
+Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_block_quant.py:
+`_block_operands`, `fused_attn_block_quant` (the pallas_call at :255,
+kernel #2) and `fused_block_quant` (the pallas_call at :307, kernel
+#6), each with both values of `int8_attn`. The kernels are
+`csrc/attn_block_quant.cu` (`attn_block_quant`) and
+`csrc/block_quant.cu` (`block_quant`), sequences of launches built in
+`csrc/int8_block.cu`; `fused_attn_block_quant_reference` and
+`fused_block_quant_reference` are their plain PyTorch versions, with
+the Pallas kernels' op order (ops/fused_attn_quant.py::
+attention_core_reference: the softmax denominator is applied after the
+P@V product).
+
+`attn_batched` is not ported: it chose how Mosaic lowers the same math
+(per-head loop or head-batched dots) and was bit-identical to the
+loop, so it has no counterpart here.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 
 Operands are packed once per calibrated block (`pack_block`, called by
-`quantize_transformer` and `bridge.qparams_from_jax`), not per call.
-
-The 'attn8' (int8 scores) and 'full' (MLP inside) variants are not
-ported yet.
+`quantize_transformer` and `bridge.qparams_from_jax`), not per call,
+with the full-block rows: the attention half reads `vc[:6]`, the MLP
+`vc[6:]` and `v4c`.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from .. import kernels
-from .attention import merge_heads, split_heads
+from .fused_attn_quant import attention_core_reference, sm_scale
+from .fused_mlp_quant import mlp_from_h8_reference
 from .int8 import int8_matmul, quantize_act
 from .norm import layer_norm
 
-_KERNEL = "attn_block_quant"
+_ATTN = "attn_block_quant"
+_FULL = "block_quant"
 _QLINEARS = ("c_attn", "c_proj", "c_fc", "m_proj")
 
 
-def _block_operands(blk: dict) -> tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
-    """Pack one quantized block into the kernel's operands:
-    scales (4,) [s_attn, s_proj, s_fc, s_mproj]; vc (6, C) rows
+def _block_operands(blk: dict, full: bool = False):
+    """Pack one quantized block into the kernels' operands, as JAX
+    does: scales (4,) [s_attn, s_proj, s_fc, s_mproj]; vc (6, C) rows
     [ln1 scale, ln1 bias, ln2 scale, ln2 bias, c_proj dequant, c_proj
-    bias]; v3c (2, 3C) rows [c_attn dequant, c_attn bias]."""
+    bias], (8, C) with [m_proj dequant, m_proj bias] when `full`; v3c
+    (2, 3C) [c_attn dequant, c_attn bias]; v4c (2, 4C) [c_fc dequant,
+    c_fc bias] when `full`, else None."""
     ca, cp, fc, mp = (blk[name] for name in _QLINEARS)
     for q, name in zip((ca, cp, fc, mp), _QLINEARS):
         if q.act_scale is None:
@@ -45,57 +53,92 @@ def _block_operands(blk: dict) -> tuple[torch.Tensor, torch.Tensor,
                              f"scales ({name})")
     scales = torch.stack([q.act_scale.reshape(()).float()
                           for q in (ca, cp, fc, mp)])
-    vc = torch.stack([blk["ln1_scale"], blk["ln1_bias"], blk["ln2_scale"],
-                      blk["ln2_bias"], cp.scale / cp.act_scale, cp.bias])
-    v3c = torch.stack([ca.scale / ca.act_scale, ca.bias])
-    return scales.contiguous(), vc.float().contiguous(), v3c.contiguous()
+    rows = [blk["ln1_scale"], blk["ln1_bias"], blk["ln2_scale"],
+            blk["ln2_bias"], cp.scale / cp.act_scale, cp.bias]
+    if full:
+        rows += [mp.scale / mp.act_scale, mp.bias]
+    vc = torch.stack(rows).float().contiguous()
+    v3c = torch.stack([ca.scale / ca.act_scale, ca.bias]).contiguous()
+    v4c = (torch.stack([fc.scale / fc.act_scale, fc.bias]).contiguous()
+           if full else None)
+    return scales.contiguous(), vc, v3c, v4c
 
 
 def pack_block(blk: dict) -> dict:
-    """`blk` with its kernel operands, `_block_operands(blk)`, under
-    "attn_operands", so that serving packs them once and not per call.
-    A block without calibrated act scales (dynamic int8) is returned as
-    it is; the fused path refuses it."""
+    """`blk` with its kernel operands, `_block_operands(blk, full=True)`,
+    under "block_operands", so that serving packs them once and not per
+    call. A block without calibrated act scales (dynamic int8) is
+    returned as it is; the fused paths refuse it."""
     if any(blk[name].act_scale is None for name in _QLINEARS):
         return blk
-    return {**blk, "attn_operands": _block_operands(blk)}
+    return {**blk, "block_operands": _block_operands(blk, full=True)}
+
+
+def packed_operands(blk: dict):
+    """The block's packed (scales, vc, v3c, v4c); raises for a block
+    without calibrated act scales."""
+    if "block_operands" not in blk:
+        raise ValueError("fused block path needs calibrated act scales: a "
+                         "block from quantize_transformer(model, "
+                         "act_absmax) or bridge.qparams_from_jax")
+    return blk["block_operands"]
 
 
 def fused_attn_block_quant_reference(x, w_qkv, w_proj, scales, vc, v3c, *,
-                                     n_head: int):
-    """Plain PyTorch version of the kernel. x: (B, T, C) f32; w_qkv
-    (3C, C), w_proj (C, C) int8 in (out, in) layout; operands as
+                                     n_head: int, int8_attn: bool = False):
+    """Plain version of kernel #2. x: (B, T, C) f32; w_qkv (3C, C),
+    w_proj (C, C) int8 in (out, in) layout; operands as
     `_block_operands` packs them. Returns (x_mid f32, h8 int8)."""
-    b, t, c = x.shape
-    sm_scale = 1.0 / math.sqrt(c // n_head)
     h8 = quantize_act(layer_norm(x, vc[0], vc[1]), scales[0])
     qkv = int8_matmul(h8, w_qkv).float() * v3c[0] + v3c[1]
-    q, k, v = (split_heads(z, n_head) for z in qkv.split(c, dim=-1))
-    s = (q @ k.transpose(-1, -2)) * sm_scale
-    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-    s = s.masked_fill(~causal, float("-inf"))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    y = merge_heads((p @ v) / p.sum(dim=-1, keepdim=True))
+    y = attention_core_reference(qkv, n_head, int8_attn=int8_attn)
     y8 = quantize_act(y, scales[1])
     x_mid = x + (int8_matmul(y8, w_proj).float() * vc[4] + vc[5])
     return x_mid, quantize_act(layer_norm(x_mid, vc[2], vc[3]), scales[2])
 
 
-def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int):
-    """Operand-level entry: the kernel on CUDA, the plain version on CPU."""
+def fused_block_quant_reference(x, w_qkv, w_proj, w_fc, w_mp, scales, vc,
+                                v3c, v4c, *, n_head: int,
+                                int8_attn: bool = False):
+    """Plain version of kernel #6: kernel #2's plain version, then the
+    int8 MLP and its residual. vc (8, C). Returns the next residual
+    stream (B, T, C) f32."""
+    x_mid, h8 = fused_attn_block_quant_reference(
+        x, w_qkv, w_proj, scales, vc, v3c, n_head=n_head, int8_attn=int8_attn)
+    return x_mid + mlp_from_h8_reference(h8, w_fc, w_mp, scales[3], v4c,
+                                         vc[6:])
+
+
+def _attn_scratch(b, t, c, n_head, int8_attn, dev):
+    """h8a, y8 (B, T, C) int8, qkv (B, T, 3C) f32 and the int8
+    attention's per-head scales (B, 3, n_head) f32."""
+    h8a = torch.empty((b, t, c), dtype=torch.int8, device=dev)
+    y8 = torch.empty_like(h8a)
+    qkv = torch.empty((b, t, 3 * c), dtype=torch.float32, device=dev)
+    head_scales = torch.empty((b, 3, n_head) if int8_attn else (1,),
+                              dtype=torch.float32, device=dev)
+    return h8a, y8, qkv, head_scales
+
+
+def _count(name: str, int8_attn: bool) -> None:
+    kernels.launches[kernels.VARIANTS[name] if int8_attn else name] += 1
+
+
+def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
+                     int8_attn: bool = False, scratch: dict | None = None):
+    """Operand-level entry of #2: the kernel on CUDA, the plain version
+    on the CPU. scratch: a dict that receives the kernel's
+    intermediates, "h8a", "qkv", "y8" and "head_scales", to check them
+    stage by stage (CUDA only)."""
     if x.device.type == "cpu":
-        return fused_attn_block_quant_reference(x, w_qkv, w_proj, scales, vc,
-                                                v3c, n_head=n_head)
+        return fused_attn_block_quant_reference(
+            x, w_qkv, w_proj, scales, vc, v3c, n_head=n_head,
+            int8_attn=int8_attn)
     if x.device.type != "cuda":
-        raise ValueError(f"{_KERNEL}: no kernel for device {x.device}")
+        raise ValueError(f"{_ATTN}: no kernel for device {x.device}")
     b, t, c = x.shape
     dev = x.device
-    lib = kernels.library()
-    hd = lib.attn_block_quant_head_dim()
-    if c % 64 or c > 1024 or c != n_head * hd:
-        raise ValueError(f"{_KERNEL}: C={c} with {n_head} heads not "
-                         f"supported: C a multiple of 64 up to 1024, head "
-                         f"width {hd}")
+    kernels.require_heads(_ATTN, c, n_head, max_c=1024)
     kernels.require(x, "x", torch.float32, (b, t, c), dev)
     kernels.require(w_qkv, "w_qkv", torch.int8, (3 * c, c), dev)
     kernels.require(w_proj, "w_proj", torch.int8, (c, c), dev)
@@ -106,30 +149,95 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int):
     h8 = torch.empty((b, t, c), dtype=torch.int8, device=dev)
     if b * t == 0:
         return x_mid, h8
-    h8a = torch.empty_like(h8)
-    y8 = torch.empty_like(h8)
-    qkv = torch.empty((b, t, 3 * c), dtype=torch.float32, device=dev)
-    kernels.launches[_KERNEL] += 1
+    h8a, y8, qkv, head_scales = _attn_scratch(b, t, c, n_head, int8_attn,
+                                              dev)
+    if scratch is not None:
+        scratch.update(h8a=h8a, qkv=qkv, y8=y8, head_scales=head_scales)
+    lib = kernels.library()
+    _count(_ATTN, int8_attn)
     err = lib.attn_block_quant(
         x.data_ptr(), w_qkv.data_ptr(), w_proj.data_ptr(), scales.data_ptr(),
         vc.data_ptr(), v3c.data_ptr(), h8a.data_ptr(), qkv.data_ptr(),
-        y8.data_ptr(), x_mid.data_ptr(), h8.data_ptr(), b, t, c, n_head,
-        1.0 / math.sqrt(c // n_head), kernels.stream_ptr(dev))
-    kernels.check(err, _KERNEL)
+        y8.data_ptr(), head_scales.data_ptr(), x_mid.data_ptr(),
+        h8.data_ptr(), b, t, c, n_head, sm_scale(c, n_head),
+        int(int8_attn), kernels.stream_ptr(dev))
+    kernels.check(err, _ATTN)
     return x_mid, h8
 
 
-def fused_attn_block_quant(x: torch.Tensor, blk: dict, *, n_head: int):
+def block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, *,
+                n_head: int, int8_attn: bool = False,
+                scratch: dict | None = None):
+    """Operand-level entry of #6: the kernel on CUDA, the plain version
+    on the CPU. scratch: as for attn_block_quant, plus "x_mid", "h8"
+    and "g8" (CUDA only)."""
+    if x.device.type == "cpu":
+        return fused_block_quant_reference(
+            x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c,
+            n_head=n_head, int8_attn=int8_attn)
+    if x.device.type != "cuda":
+        raise ValueError(f"{_FULL}: no kernel for device {x.device}")
+    b, t, c = x.shape
+    c4 = w_fc.shape[0]
+    dev = x.device
+    kernels.require_heads(_FULL, c, n_head, max_c=1024)
+    if c4 % 64:
+        raise ValueError(f"{_FULL}: 4C={c4} must be a multiple of 64")
+    kernels.require(x, "x", torch.float32, (b, t, c), dev)
+    kernels.require(w_qkv, "w_qkv", torch.int8, (3 * c, c), dev)
+    kernels.require(w_proj, "w_proj", torch.int8, (c, c), dev)
+    kernels.require(w_fc, "w_fc", torch.int8, (c4, c), dev)
+    kernels.require(w_mp, "w_mp", torch.int8, (c, c4), dev)
+    kernels.require(scales, "scales", torch.float32, (4,), dev)
+    kernels.require(vc, "vc", torch.float32, (8, c), dev)
+    kernels.require(v3c, "v3c", torch.float32, (2, 3 * c), dev)
+    kernels.require(v4c, "v4c", torch.float32, (2, c4), dev)
+    out = torch.empty_like(x)
+    if b * t == 0:
+        return out
+    h8a, y8, qkv, head_scales = _attn_scratch(b, t, c, n_head, int8_attn,
+                                              dev)
+    x_mid = torch.empty_like(x)
+    h8 = torch.empty_like(h8a)
+    g8 = torch.empty((b, t, c4), dtype=torch.int8, device=dev)
+    if scratch is not None:
+        scratch.update(h8a=h8a, qkv=qkv, y8=y8, head_scales=head_scales,
+                       x_mid=x_mid, h8=h8, g8=g8)
+    lib = kernels.library()
+    _count(_FULL, int8_attn)
+    err = lib.block_quant(
+        x.data_ptr(), w_qkv.data_ptr(), w_proj.data_ptr(), w_fc.data_ptr(),
+        w_mp.data_ptr(), scales.data_ptr(), vc.data_ptr(), v3c.data_ptr(),
+        v4c.data_ptr(), h8a.data_ptr(), qkv.data_ptr(), y8.data_ptr(),
+        head_scales.data_ptr(), x_mid.data_ptr(), h8.data_ptr(),
+        g8.data_ptr(), out.data_ptr(), b, t, c, c4, n_head,
+        sm_scale(c, n_head), int(int8_attn),
+        kernels.stream_ptr(dev))
+    kernels.check(err, _FULL)
+    return out
+
+
+def fused_attn_block_quant(x: torch.Tensor, blk: dict, *, n_head: int,
+                           int8_attn: bool = False):
     """ln1 + int8 qkv + attention + int8 c_proj + residual + ln2 + int8
     quantize for one calibrated block (an entry of
     quantize_transformer(model, act_absmax)["blocks"], packed by
     `pack_block`). x: (B, T, C) f32. Returns (x_mid f32 (B, T, C), h8
     int8 (B, T, C)): the post-attention residual stream and the
-    quantized ln2 output for c_fc."""
-    if "attn_operands" not in blk:
-        raise ValueError("fused block path needs calibrated act scales: a "
-                         "block from quantize_transformer(model, "
-                         "act_absmax) or bridge.qparams_from_jax")
-    scales, vc, v3c = blk["attn_operands"]
+    quantized ln2 output for c_fc. int8_attn: scores and P@V on int8
+    operands with per (batch, head) scales."""
+    scales, vc, v3c, _ = packed_operands(blk)
     return attn_block_quant(x, blk["c_attn"].w_int8, blk["c_proj"].w_int8,
-                            scales, vc, v3c, n_head=n_head)
+                            scales, vc[:6], v3c, n_head=n_head,
+                            int8_attn=int8_attn)
+
+
+def fused_block_quant(x: torch.Tensor, blk: dict, *, n_head: int,
+                      int8_attn: bool = False) -> torch.Tensor:
+    """One whole calibrated-int8 transformer block: fused_attn_block_quant
+    plus the int8 MLP and its residual. Returns the next residual
+    stream (B, T, C) f32."""
+    scales, vc, v3c, v4c = packed_operands(blk)
+    return block_quant(x, blk["c_attn"].w_int8, blk["c_proj"].w_int8,
+                       blk["c_fc"].w_int8, blk["m_proj"].w_int8, scales, vc,
+                       v3c, v4c, n_head=n_head, int8_attn=int8_attn)

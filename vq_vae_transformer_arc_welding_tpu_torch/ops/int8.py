@@ -1,7 +1,6 @@
 """int8 activation quantization and exact int8 x int8 products.
 
-The primitives that models/quantized.py and ops/fused_block_quant.py
-share. Counterparts: `_q8` and `_idot` of
+The primitives that models/quantized.py and the fused ops share. Counterparts: `_q8` and `_idot` of
 vq_vae_transformer_arc_welding_tpu/ops/pallas_block_quant.py, and the
 quantize step and int8 product inside `qdot` of
 vq_vae_transformer_arc_welding_tpu/models/quantized.py. Rounding is
@@ -44,3 +43,20 @@ def int8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no exact int8 product for ({a2.shape[0]}, {k}) x "
                          f"({k}, {n}) on {a8.device}")
     return out.reshape(*a8.shape[:-1], n)
+
+
+def int8_bmm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """(..., M, K) int8 @ (..., K, N) int8 -> (..., M, N) int32, exact:
+    the score and P@V products of the int8 attention. CPU: an int32
+    product. CUDA: an f32 product, exact while K * 127^2 < 2^24 (64-wide
+    heads, T up to 1040), which needs TF32 off."""
+    k = a8.shape[-1]
+    if a8.device.type == "cpu":
+        return a8.to(torch.int32) @ b8.to(torch.int32)
+    if k * 127 * 127 >= _F32_EXACT:
+        raise ValueError(f"no exact batched int8 product with K={k} on "
+                         f"{a8.device}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("exact f32 int8 product needs "
+                           "torch.backends.cuda.matmul.allow_tf32=False")
+    return (a8.float() @ b8.float()).to(torch.int32)

@@ -2,8 +2,9 @@
 
 Port of vq_vae_transformer_arc_welding_tpu/serve.py
 (`WeldingQualityPipeline`: `__init__`, `calibrate`, `classify`,
-`encode_tokens`, the in-path saturation monitor). Artifacts, OOD
-scores, sampling, meshes and the int8 encoder are not ported yet.
+`encode_tokens`, the in-path saturation monitor, the `saturation_rate`
+probe). Artifacts, OOD scores, sampling, meshes and the int8 encoder
+are not ported yet.
 
 Chunking follows data/latent.py::_chunked_device_map: requests run in
 chunks of at most `max_batch` windows. The JAX version padded every
@@ -118,6 +119,11 @@ class WeldingQualityPipeline:
             logits = self.tr_model.apply(ids, generate=False)
         return torch.softmax(logits, dim=-1)
 
+    def _saturation_fn(self, x: torch.Tensor):
+        from .models.quantized import saturation_stats
+        ids = with_start_token(self._encode_fn(x), self.start_token)
+        return saturation_stats(self.tr_model, self.qparams, ids)
+
     # -- public API ------------------------------------------------------------
 
     @torch.inference_mode()
@@ -178,6 +184,25 @@ class WeldingQualityPipeline:
         else:
             probs = out
         return probs.argmax(-1), probs
+
+    def saturation_rate(self, windows: np.ndarray):
+        """Clipped-activation fraction of the calibrated int8 path on
+        `windows` (up to max_batch of them): (overall, per_site dict),
+        from the plain int8 chain (`saturation_stats`).
+
+        0 on the calibration distribution; rises when serving drifts
+        beyond what calibrate() saw. Past saturation_threshold,
+        recalibrate on recent windows or serve precision='f32'. The JAX
+        version padded the windows up to max_batch by repeating the
+        last one, to compile once; this one computes the rows it is
+        given."""
+        if self.qparams is None:
+            raise RuntimeError("saturation_rate requires calibrate() first")
+        x = self._windows(windows, "saturation_rate")[: self.max_batch]
+        with torch.inference_mode():
+            overall, per_site = self._saturation_fn(
+                torch.as_tensor(x).to(self.device))
+        return float(overall), {k: float(v) for k, v in per_site.items()}
 
     def encode_tokens(self, windows: np.ndarray) -> np.ndarray:
         """(N, n_cycles*200, 2) -> (N, n_cycles*16) int32 codebook ids,
