@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 serving paths once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,11 +16,27 @@ and read just after: a path must launch exactly its own kernels, every
 kernel must be launched by some path, and each path's labels must equal
 its plain path's where the plain margin exceeds 1e-3.
 
+Then the encoder paths on the same requests, each with its counts set
+to 0 before it: `encode_indices_fused` at the default group and at
+group_size=1, `encode_indices_fused_mono`, and
+`encode_indices_fused_edges` at the default group and at group_size=2.
+Each must launch exactly its own kernels, as often as its groups say,
+and its ids must equal the plain encoder's (flips at most 1e-3). A
+`vq_impl='pallas'` model goes through `entry.make_pipeline`,
+`WeldingQualityPipeline.classify`, `encode_tokens` and `ood_score`,
+which must launch the nearest-code kernel and answer as the 'xla'
+model does. A pipeline with `encoder_precision='int8'` calibrates and
+answers the requests through none of the encoder kernels.
+
 Then every kernel is held against its plain PyTorch version at the main
-path's shapes (B=80, T=321, C=512, on the bench model's activations),
-and timed with CUDA events in turns with it (median and quartiles of 10
-after warm-up), as are classify and the 'attn', 'full', 'attn8' and
-'full8' pipelines at batch 80, each against its plain path.
+paths' shapes (25,600 encoder rows; B=80, T=321, C=512 on the bench
+model's activations), and timed with CUDA events in turns with it
+(median and quartiles of 10 after warm-up), as are the encoder paths
+against each other, classify and the 'attn', 'full', 'attn8' and
+'full8' pipelines at batch 80, each against its plain path, and the
+edges encoder followed by the 'full' transformer against the 'full'
+pipeline. Each kernel's bound, the least time the card could take for
+the same work, is computed from the shapes of this run (`kernel_work`).
 
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
@@ -46,15 +62,20 @@ REQUESTS = (80, 37, 1)
 N_CALIB = 8
 REPS = 10
 # acceptance bounds
-MAX_ID_FLIP = 1e-3          # kernel 1: id flip rate against the plain chain
+MAX_ID_FLIP = 1e-3          # encoder kernels and paths: id flips against plain
+MAX_FLIP_GAP = 1e-5         # a flipped id's float64 distance gap, of |z|^2
+MAX_OOD_ERR = 1e-5          # OOD scores of the 'pallas' against the 'xla' model
 MAX_INT8_DIFF_FRAC = 1e-3   # int8 outputs (h8, g8, y8): share that differs
 MAX_INT8_STEP = 1           # int8 outputs: largest |delta|
 MAX_F32_ERR = 1e-3          # f32 outputs (x_mid, block and MLP out)
 LABEL_MARGIN = 1e-3         # labels compared where |logit0 - logit1| > this
 MIN_DISTINCT_FRAC = 0.25    # codebook scaled if fewer of K codes are used
+TILE_ROWS = 32              # rows per block of the encoder kernels' tile
 
 ENC, ATTN, ATTN8 = ("encoder_chain_f32", "attn_block_quant",
                     "attn_block_quant_int8attn")
+RES, ENTRY, EXIT, NEAREST = ("resblock_f32", "encoder_entry_f32",
+                             "encoder_exit_f32", "nearest_codes_f32")
 FULL, FULL8 = "block_quant", "block_quant_int8attn"
 MLP, QKV, CAUSAL = ("mlp_quant", "qkv_attention_quant",
                     "causal_attention_quant")
@@ -76,6 +97,15 @@ PATHS = (
                                          "fused_qkv": False}, {ENC, CAUSAL}),
 )
 TIMED_PATHS = ("attn", "full", "attn8", "full8")
+# encoder path: launches per encode at the bench model (8 resblocks,
+# default group 4)
+ENCODER_PATHS = {
+    "encode_indices_fused": {ENC: 2},
+    "encode_indices_fused(group_size=1)": {RES: 8},
+    "encode_indices_fused_mono": {ENC: 1},
+    "encode_indices_fused_edges": {ENTRY: 1, EXIT: 1},
+    "encode_indices_fused_edges(group_size=2)": {ENTRY: 1, ENC: 2, EXIT: 1},
+}
 # the output whose error against the plain version the record reports
 OUTPUT = {ATTN: "end.x_mid", ATTN8: "end.x_mid", FULL: "end.out",
           FULL8: "end.out", MLP: "out", QKV: "y8", CAUSAL: "y8"}
@@ -84,6 +114,10 @@ TPU = "vq_vae_transformer_arc_welding_tpu/ops/"
 # kernel: (source, the pallas_call it replaces)
 RECORD = {
     ENC: ("encoder_chain.cu", "pallas_encoder.py:311"),
+    RES: ("encoder_resblock.cu", "pallas_encoder.py:106"),
+    ENTRY: ("encoder_edges.cu", "pallas_encoder.py:404"),
+    EXIT: ("encoder_edges.cu", "pallas_encoder.py:436"),
+    NEAREST: ("nearest_codes.cu", "pallas_vq.py:59"),
     ATTN: ("attn_block_quant.cu", "pallas_block_quant.py:255"),
     ATTN8: ("attn_block_quant.cu", "pallas_block_quant.py:255"),
     FULL: ("block_quant.cu", "pallas_block_quant.py:307"),
@@ -92,6 +126,60 @@ RECORD = {
     QKV: ("attn_quant.cu", "pallas_attn_quant.py:164"),
     CAUSAL: ("attn_quant.cu", "pallas_attn_quant.py:214"),
 }
+
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# FP32 outside the tensor cores, int8 in them, device memory
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+PEAK_BYTES = 3.35e12
+
+
+def kernel_work(n_rows, c, grp, patch, d, k, b, t, n_head):
+    """{kernel: (bytes, {type: operations})} at this run's shapes: the
+    bytes each kernel must move (every input read once, every output
+    written once) and the operations of its products by operand type (a
+    multiply-add is two; LayerNorm, GELU, softmax and the other
+    elementwise work are left out, so a bound is a lower one).
+    n_rows x c encoder rows, grp resblocks per chain call, a (k, d)
+    codebook; the transformer's (b, t, c) stream with n_head heads."""
+    f4 = 4
+    x = n_rows * c * f4                         # the encoder's residual stream
+    block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
+    block_ops = n_rows * 2 * (2 * c * c)
+    m = b * t
+    xs = m * c * f4                             # the transformer's stream
+    attn = b * n_head * (t * (t + 1) // 2) * (c // n_head) * 2 * 2
+    qkv, proj, mlp = (2 * m * c * 3 * c, 2 * m * c * c, 2 * 2 * m * c * 4 * c)
+    w_attn, w_mlp = 4 * c * c, 8 * c * c        # int8 weights
+    return {
+        ENC: (2 * x + grp * block_w, {"f32": grp * block_ops}),
+        RES: (2 * x + block_w, {"f32": block_ops}),
+        ENTRY: (n_rows * patch * f4 + (patch + 1) * c * f4 + x
+                + grp * block_w,
+                {"f32": n_rows * 2 * patch * c + grp * block_ops}),
+        EXIT: (x + grp * block_w + (c + 1) * d * f4 + k * d * f4
+               + n_rows * 4,
+               {"f32": grp * block_ops + n_rows * 2 * d * (c + k)}),
+        NEAREST: (n_rows * d * f4 + k * d * f4 + n_rows * 4,
+                  {"f32": n_rows * 2 * d * k}),
+        ATTN: (2 * xs + m * c + w_attn, {"int8": qkv + proj, "f32": attn}),
+        ATTN8: (2 * xs + m * c + w_attn, {"int8": qkv + proj + attn}),
+        FULL: (2 * xs + w_attn + w_mlp,
+               {"int8": qkv + proj + mlp, "f32": attn}),
+        FULL8: (2 * xs + w_attn + w_mlp, {"int8": qkv + proj + mlp + attn}),
+        MLP: (2 * xs + w_mlp, {"int8": mlp}),
+        QKV: (xs + m * c + 3 * c * c, {"int8": qkv, "f32": attn}),
+        CAUSAL: (3 * xs + m * c, {"f32": attn}),
+    }
+
+
+def bound_of(work) -> tuple[float, str]:
+    """(the least time in ms, what sets it): the larger of bytes over the
+    memory rate and operations over the peak rate of their type."""
+    n_bytes, ops = work
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 class CheckFailed(RuntimeError):
@@ -162,11 +250,18 @@ def plain_path():
     plain PyTorch version (the CUDA wrappers would launch the kernels)."""
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
         fused_attn_quant as fattn, fused_block_quant as fbq,
-        fused_encoder as fenc, fused_mlp_quant as fmlp)
+        fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
     with contextlib.ExitStack() as stack:
         for mod, name, plain in (
                 (fenc, "fused_encoder_eval",
                  fenc.fused_encoder_eval_reference),
+                (fenc, "resblock_eval", fenc.fused_resblock_eval_reference),
+                (fenc, "fused_encoder_entry_eval",
+                 fenc.fused_encoder_entry_eval_reference),
+                (fenc, "fused_encoder_exit_eval",
+                 fenc.fused_encoder_exit_eval_reference),
+                (fvq, "nearest_codes_pallas",
+                 fvq.nearest_codes_pallas_reference),
                 (fbq, "attn_block_quant",
                  fbq.fused_attn_block_quant_reference),
                 (fbq, "block_quant", fbq.fused_block_quant_reference),
@@ -177,6 +272,39 @@ def plain_path():
                  fattn.causal_attention_quant_reference)):
             stack.enter_context(mock.patch.object(mod, name, plain))
         yield
+
+
+def counted(fn):
+    """(fn(), the kernels it launched): the launch counts are set to 0
+    just before the call and read just after it."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: n for name, n in kernels.launches.items() if n}
+
+
+def flip_rate(ids, ref) -> float:
+    """Share of ids (two tensors or two arrays of one shape) that differ."""
+    diff = ids != ref
+    return float(diff.mean() if isinstance(diff, np.ndarray)
+                 else diff.float().mean())
+
+
+def worst_flip_gap(z, codebook, ids, ref) -> float:
+    """Over the rows where ids and ref differ: the largest gap between the
+    two chosen codes' squared distances to z, computed in float64,
+    relative to |z|^2. A flip at a near-tie has a gap of f32 rounding
+    size (~1e-7); a wrong argmin has one of order 1."""
+    rows = (ids != ref).nonzero().squeeze(1)
+    if rows.numel() == 0:
+        return 0.0
+    zz = z[rows].double()
+    d_ids, d_ref = (((zz - codebook[i[rows].long()].double()) ** 2).sum(1)
+                    for i in (ids, ref))
+    return float(((d_ids - d_ref).abs() / (zz ** 2).sum(1)).max())
 
 
 def int8_diff(a, b) -> tuple[float, int]:
@@ -231,15 +359,17 @@ def main() -> int:
         return 2
     from vq_vae_transformer_arc_welding_tpu_torch import kernels
     from vq_vae_transformer_arc_welding_tpu_torch.entry import (
-        build, make_pipeline_quantized)
+        build, make_pipeline, make_pipeline_quantized)
     from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
-        qdot)
+        qdot, quantized_classify)
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
         fused_attn_quant as fattn, fused_block_quant as fbq,
-        fused_encoder as fenc, fused_mlp_quant as fmlp)
+        fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
     from vq_vae_transformer_arc_welding_tpu_torch.ops.int8 import (
         int8_matmul, quantize_act)
     from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.patching import patchify
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.vq import nearest_codes
     from vq_vae_transformer_arc_welding_tpu_torch.serve import (
         CYCLE_LEN, WeldingQualityPipeline, with_start_token)
 
@@ -260,7 +390,9 @@ def main() -> int:
 
     # -- 2. the bench model at full width, random weights from SEED --------------
     t0 = time.perf_counter()
-    vq, tr = build(seed=SEED, device=dev)
+    vq, tr = build(seed=SEED)
+    check(vq.codebook.device.type == "cuda" and tr.pe.device.type == "cuda",
+          "build() without a device did not build on the card")
     k = vq.num_embeddings
     n_params = sum(p.numel() for m in (vq, tr) for p in m.parameters())
     log(f"model: VQ-VAE hidden {vq.hidden_dim}, {vq.n_resblocks} resblocks, "
@@ -300,10 +432,7 @@ def main() -> int:
             f"{np.unique(ids).size} distinct ids")
 
     # -- 4. the main path: three requests through classify ('attn') --------
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    outs = [pipe.classify(r) for r in reqs]
-    counts = {k: n for k, n in kernels.launches.items() if n}
+    outs, counts = counted(lambda: [pipe.classify(r) for r in reqs])
     log(f"main path: classify launches {json.dumps(counts)}")
     check(set(counts) == {ENC, ATTN},
           f"classify launched {sorted(counts)}, expected {ENC} and {ATTN}")
@@ -327,16 +456,12 @@ def main() -> int:
         xreqs = [torch.from_numpy(r).to(dev) for r in reqs]
         for name, kw, want in PATHS:
             fn = fns[name] = make_pipeline_quantized(vq, tr, qp, **kw)
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            logits = [fn(xr) for xr in xreqs]
-            torch.cuda.synchronize()
-            counts = {k: n for k, n in kernels.launches.items() if n}
+            logits, counts = counted(lambda: [fn(xr) for xr in xreqs])
             check(set(counts) == want,
                   f"path {name} launched {sorted(counts)}, expected "
                   f"{sorted(want)}")
-            for k, n in counts.items():
-                launched.setdefault(k, (name, n))
+            for kernel, n in counts.items():
+                launched.setdefault(kernel, (name, n))
             checked = rest = 0
             max_dlogit = 0.0
             for xr, lk in zip(xreqs, logits):
@@ -356,6 +481,119 @@ def main() -> int:
                 f"the plain path's on all {checked} windows whose plain "
                 f"|logit0-logit1| > {LABEL_MARGIN}; {rest} within the "
                 f"margin; max |dlogit| {max_dlogit:.3e}")
+
+        # -- 5b. the encoder paths, each against the plain encoder ----------
+        packed = fenc.pack_encoder(vq)
+        edges = fenc.pack_encoder_edges(vq)
+        encoders = {
+            "encode_indices_fused":
+                lambda c: fenc.encode_indices_fused(vq, packed, c),
+            "encode_indices_fused(group_size=1)":
+                lambda c: fenc.encode_indices_fused(vq, packed, c,
+                                                    group_size=1),
+            "encode_indices_fused_mono":
+                lambda c: fenc.encode_indices_fused_mono(vq, packed, c),
+            "encode_indices_fused_edges":
+                lambda c: fenc.encode_indices_fused_edges(vq, packed, edges,
+                                                          c),
+            "encode_indices_fused_edges(group_size=2)":
+                lambda c: fenc.encode_indices_fused_edges(vq, packed, edges,
+                                                          c, group_size=2),
+        }
+        cycles = [xr.reshape(-1, CYCLE_LEN, 2) for xr in xreqs]
+        plain_ids = [vq.encode_indices(c) for c in cycles]
+        for name, per_encode in ENCODER_PATHS.items():
+            ids, counts = counted(lambda: [encoders[name](c)
+                                           for c in cycles])
+            want = {kernel: n * len(cycles)
+                    for kernel, n in per_encode.items()}
+            check(counts == want, f"{name} launched {json.dumps(counts)}, "
+                                  f"expected {json.dumps(want)}")
+            for kernel, n in counts.items():
+                launched.setdefault(kernel, (name, n))
+            flips = [flip_rate(i, p) for i, p in zip(ids, plain_ids)]
+            for i, p in zip(ids, plain_ids):
+                check(i.shape == p.shape and i.dtype == torch.int32,
+                      f"{name}: ids {tuple(i.shape)} {i.dtype}")
+            check(max(flips) <= MAX_ID_FLIP,
+                  f"{name}: id flip rate {max(flips)} against the plain "
+                  f"encoder")
+            log(f"encoder path {name}: launches {json.dumps(counts)} over "
+                f"{len(cycles)} encodes; id flips against vq.encode_indices "
+                f"{flips} (bound {MAX_ID_FLIP})")
+
+    # -- 5c. vq_impl='pallas' through the entry points ----------------------
+    vq_p, _ = build(seed=SEED, vq_impl="pallas")
+    vq_p.load_state_dict(vq.state_dict())        # the scaled codebook
+    f32 = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80)
+    f32_p = WeldingQualityPipeline(vq_p, tr, n_cycles=N_CYCLES, max_batch=80)
+    one_cycle = reqs[1].reshape(-1, CYCLE_LEN, 2)       # 740 single cycles
+    entries = {
+        "make_pipeline": lambda v, pl: [
+            make_pipeline(v, tr)(xr).argmax(-1).cpu().numpy()
+            for xr in xreqs],
+        "classify": lambda v, pl: [pl.classify(r)[0] for r in reqs],
+        "encode_tokens": lambda v, pl: [pl.encode_tokens(r) for r in reqs],
+        "ood_score": lambda v, pl: [pl.ood_score(one_cycle)],
+    }
+    for name, entry_fn in entries.items():
+        ref, counts = counted(lambda: entry_fn(vq, f32))
+        check(counts == {}, f"{name} of the 'xla' model launched "
+                            f"{json.dumps(counts)}")
+        got, counts = counted(lambda: entry_fn(vq_p, f32_p))
+        n_chunks = (-(-len(one_cycle) // 80) if name == "ood_score"
+                    else len(reqs))
+        check(counts == {NEAREST: n_chunks},
+              f"{name} of the 'pallas' model launched {json.dumps(counts)}, "
+              f"expected {NEAREST} x {n_chunks}")
+        launched.setdefault(NEAREST, (f"vq_impl='pallas' {name}", n_chunks))
+        if name == "ood_score":
+            worst_diff = float(np.abs(got[0] - ref[0]).max())
+            check(got[0].shape == (len(one_cycle),)
+                  and bool(np.isfinite(got[0]).all()), "ood_score: values")
+            check(worst_diff <= MAX_OOD_ERR,
+                  f"ood_score: 'pallas' and 'xla' differ by {worst_diff}")
+            note = (f"scores of {len(one_cycle)} cycles within "
+                    f"{worst_diff:.3e} of the 'xla' model's (bound "
+                    f"{MAX_OOD_ERR}), mean {float(got[0].mean()):.6g}")
+        else:
+            flips = [flip_rate(g, r) for g, r in zip(got, ref)]
+            bound = MAX_ID_FLIP if name == "encode_tokens" else 0.0
+            check(max(flips) <= bound,
+                  f"{name}: 'pallas' and 'xla' models differ in {flips}")
+            note = (f"{'ids' if name == 'encode_tokens' else 'labels'} "
+                    f"differ from the 'xla' model's in {flips} of entries "
+                    f"(bound {bound})")
+        log(f"vq_impl='pallas' {name}: launches {json.dumps(counts)}; "
+            + note)
+
+    # -- 5d. the int8 encoder: no encoder kernel on its path ---------------------
+    pipe8 = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80,
+                                   precision="int8",
+                                   encoder_precision="int8")
+    t0 = time.perf_counter()
+    pipe8.calibrate(calib)
+    log(f"int8 encoder: calibrated {len(pipe8.qenc['blocks'])} resblocks "
+        f"and sep_conv on {N_CALIB * N_CYCLES} cycles in "
+        f"{time.perf_counter() - t0:.1f} s")
+    (outs8, ids8), counts = counted(lambda: (
+        [pipe8.classify(r) for r in reqs],
+        [pipe8.encode_tokens(r) for r in reqs]))
+    check(set(counts) == {ATTN},
+          f"the int8-encoder pipeline launched {sorted(counts)}, expected "
+          f"only {ATTN}")
+    for n, (labels, probs), ids, r in zip(REQUESTS, outs8, ids8, reqs):
+        check(labels.shape == (n,) and bool(np.isfinite(probs).all())
+              and set(np.unique(labels).tolist()) <= {0, 1},
+              f"int8 encoder classify({n})")
+        ref_ids = f32.encode_tokens(r)
+        check(ids.shape == ref_ids.shape and ids.dtype == np.int32
+              and 0 <= ids.min() and ids.max() < vq.num_embeddings,
+              f"int8 encoder ids of request {n}")
+        log(f"int8 encoder request of {n}: ids differ from the f32 "
+            f"encoder's in {flip_rate(ids, ref_ids):.4f} of entries; "
+            f"label counts {np.bincount(labels, minlength=2)}")
+
     check(set(launched) == set(kernels.launches),
           f"kernels no path launched: "
           f"{sorted(set(kernels.launches) - set(launched))}")
@@ -410,6 +648,120 @@ def main() -> int:
         log(f"kernel {ENC} time ({b_ * p_} x {c_}, {grp} resblocks per "
             f"call): {fmt_ms(times[ENC]['kernel'])}, plain "
             f"{fmt_ms(times[ENC]['plain'])}")
+
+        # -- 6b. kernels 3, 4, 5 and 7 against their plain versions -----------
+        # at the same 25,600 rows: #3 on block 0, #4 on the first group,
+        # #5 on the last group fed the plain first group's output, #7 on
+        # the plain encoder's z
+        n_rows = b_ * p_
+        patches = patchify(x80.reshape(-1, CYCLE_LEN, 2),
+                           vq.patch_size).reshape(n_rows, vq.patch_size)
+        w_pe, b_pe, w_sep, b_sep = edges
+        last = (nb - 1) // grp * grp
+        enc_err = {ENC: k1_err, RES: 0.0, ENTRY: 0.0, EXIT: 0.0, NEAREST: 0.0}
+        id_flips = {EXIT: 0.0, NEAREST: 0.0}
+        # the bench model's own operands (no BatchNorm) last: the timings
+        # below reuse that pass's activations
+        for use_bn, v in ((True, bn_vecs), (False, vecs)):
+            first = (weights[:2 * grp], v[:10 * grp])
+            final = (weights[2 * last:], v[10 * last:])
+            rk = fenc.resblock_eval(flat, weights[0], weights[1], v[:10],
+                                    use_bn=use_bn)
+            rp = fenc.fused_resblock_eval_reference(
+                flat, weights[0], weights[1], v[:10], use_bn=use_bn)
+            ek = fenc.fused_encoder_entry_eval(patches, w_pe, b_pe, *first,
+                                               use_bn=use_bn)
+            ep = fenc.fused_encoder_entry_eval_reference(
+                patches, w_pe, b_pe, *first, use_bn=use_bn)
+            z = vq.sep_conv(fenc.fused_encoder_eval_reference(
+                ep, *final, use_bn=use_bn).reshape(b_, p_, c_)).reshape(
+                    n_rows, -1)
+            # the random BatchNorm rows move z away from the model's
+            # codebook: that pass searches K of its own z rows instead
+            cb = (z[::n_rows // len(vq.codebook)][:len(vq.codebook)]
+                  .contiguous() if use_bn else vq.codebook)
+            xk = fenc.fused_encoder_exit_eval(ep, *final, w_sep, b_sep, cb,
+                                              use_bn=use_bn)
+            xp = fenc.fused_encoder_exit_eval_reference(
+                ep, *final, w_sep, b_sep, cb, use_bn=use_bn)
+            nk = fvq.nearest_codes_pallas(z, cb)
+            npl = fvq.nearest_codes_pallas_reference(z, cb)
+            nxla = nearest_codes(z, cb)
+            for name, yk, yp in ((RES, rk, rp), (ENTRY, ek, ep)):
+                err = float((yk - yp).abs().max())
+                check(bool(torch.isfinite(yk).all()) and yk.shape == yp.shape,
+                      f"kernel {name}: output")
+                check(err <= MAX_F32_ERR, f"kernel {name}: f32 error {err}")
+                enc_err[name] = max(enc_err[name], err)
+                log(f"kernel {name} use_bn={use_bn}: {n_rows} rows, max abs "
+                    f"err {err:.3e} of {float(yp.abs().max()):.3e} (bound "
+                    f"{MAX_F32_ERR})")
+            for name, ik, ip in ((EXIT, xk, xp), (NEAREST, nk, npl)):
+                check(ik.shape == (n_rows,) and ik.dtype == torch.int32
+                      and 0 <= int(ik.min()) and int(ik.max()) < len(cb),
+                      f"kernel {name}: ids")
+                check(ik.unique().numel() >= MIN_DISTINCT_FRAC * len(cb),
+                      f"kernel {name}: only {ik.unique().numel()} codes in "
+                      f"use: the argmin is not exercised")
+                flip = flip_rate(ik, ip)
+                gap = worst_flip_gap(z, cb, ik, ip)
+                check(flip <= MAX_ID_FLIP, f"kernel {name}: id flips {flip}")
+                check(gap <= MAX_FLIP_GAP,
+                      f"kernel {name}: a flipped id is no near-tie: its "
+                      f"distance differs by {gap} of |z|^2")
+                id_flips[name] = max(id_flips[name], flip)
+                enc_err[name] = max(enc_err[name],
+                                    float((ik - ip).abs().max()))
+                log(f"kernel {name} use_bn={use_bn}: {n_rows} rows, id flips "
+                    f"against plain {flip:.3e} (bound {MAX_ID_FLIP}), each a "
+                    f"near-tie within {gap:.3e} of |z|^2 (bound "
+                    f"{MAX_FLIP_GAP}), {ik.unique().numel()} distinct ids; "
+                    f"against "
+                    f"ops/vq.nearest_codes {flip_rate(ik, nxla):.3e}")
+        v0 = vecs[:10]
+        first = (weights[:2 * grp], vecs[:10 * grp])
+        final = (weights[2 * last:], vecs[10 * last:])
+        for name, args, kfn, pfn in (
+                (RES, (flat, weights[0], weights[1], v0), fenc.resblock_eval,
+                 fenc.fused_resblock_eval_reference),
+                (ENTRY, (patches, w_pe, b_pe, *first),
+                 fenc.fused_encoder_entry_eval,
+                 fenc.fused_encoder_entry_eval_reference),
+                (EXIT, (ep, *final, w_sep, b_sep, cb),
+                 fenc.fused_encoder_exit_eval,
+                 fenc.fused_encoder_exit_eval_reference)):
+            times[name] = timed_in_turns({
+                "kernel": lambda: kfn(*args, use_bn=False),
+                "plain": lambda: pfn(*args, use_bn=False)})
+        times[NEAREST] = timed_in_turns({
+            "kernel": lambda: fvq.nearest_codes_pallas(z, cb),
+            "plain": lambda: fvq.nearest_codes_pallas_reference(z, cb)})
+        for name in (RES, ENTRY, EXIT, NEAREST):
+            log(f"kernel {name} time ({n_rows} rows, C={c_}): "
+                f"{fmt_ms(times[name]['kernel'])}, plain "
+                f"{fmt_ms(times[name]['plain'])}")
+
+        # -- 6c. how the tile fills the card, and what #5 adds to #1 ---------
+        # one block per SM: rows beyond the last whole wave of blocks cost
+        # a wave of their own; #5 over #1 at 1 and at `grp` resblocks
+        # shows whether its epilogue slows the chain before it
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        whole = n_rows // (TILE_ROWS * sms) * TILE_ROWS * sms
+        ends = (w_sep, b_sep, vq.codebook)
+        fill = timed_in_turns({
+            f"#1 x{grp} {n_rows} rows": lambda: fenc.fused_encoder_eval(
+                flat, *first, use_bn=False),
+            f"#1 x{grp} {whole} rows": lambda: fenc.fused_encoder_eval(
+                flat[:whole], *first, use_bn=False),
+            f"#5 x{grp} {n_rows} rows": lambda: fenc.fused_encoder_exit_eval(
+                flat, *first, *ends, use_bn=False),
+            f"#1 x1 {n_rows} rows": lambda: fenc.fused_encoder_eval(
+                flat, weights[:2], vecs[:10], use_bn=False),
+            f"#5 x1 {n_rows} rows": lambda: fenc.fused_encoder_exit_eval(
+                flat, weights[:2], vecs[:10], *ends, use_bn=False)})
+        log(f"tile fill ({sms} SMs, {TILE_ROWS} rows a block, {whole} rows "
+            f"fill whole waves): "
+            + "; ".join(f"{name} {fmt_ms(t)}" for name, t in fill.items()))
 
         # -- 7. the int8 kernels against their plain versions at B=80 -------
         # each block fed the plain stream of the block before, on the
@@ -566,7 +918,6 @@ def main() -> int:
     # classify returns numpy arrays, so each call ends synchronized and
     # the events span the whole request, host work included; the
     # pipelines return device logits, and the events span their launches
-    f32 = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80)
     f32_labels, _ = f32.classify(reqs[0])
     cls = timed_in_turns({
         "kernel path": lambda: pipe.classify(reqs[0]),
@@ -590,14 +941,57 @@ def main() -> int:
                 f"{rate(t['kernel'])}, plain path {rate(t['plain'])}; "
                 f"gpu {smi}")
 
+    # -- 9. the encoder paths against each other, and the edges end to end ----
+    with torch.inference_mode():
+        c80 = cycles[0]
+        enc_times = timed_in_turns({
+            "vq.encode_indices (plain)": lambda: vq.encode_indices(c80),
+            **{name: (lambda fn=fn: fn(c80))
+               for name, fn in encoders.items()}})
+        log(f"encoder paths, {len(c80)} cycles ({n_rows} rows): "
+            + "; ".join(f"{name} {fmt_ms(t)}"
+                        for name, t in enc_times.items()) + f"; gpu {smi}")
+
+        def edges_full(x):
+            """encode_indices_fused_edges, then the 'full' int8
+            transformer: make_pipeline_quantized('full') with the
+            encoder's ends inside the kernels."""
+            ids = fenc.encode_indices_fused_edges(
+                vq, packed, edges, x.reshape(-1, CYCLE_LEN, 2))
+            return quantized_classify(
+                tr, qp, with_start_token(ids.reshape(len(x), -1),
+                                         vq.num_embeddings),
+                block_fusion="full")
+
+        le, lf = edges_full(x80), fns["full"](x80)
+        check(bool((le.argmax(-1) == lf.argmax(-1)).all()),
+              "edges + 'full' and the 'full' pipeline disagree on labels")
+        t = timed_in_turns({"edges": lambda: edges_full(x80),
+                            "grouped": lambda: fns["full"](x80)})
+        log(f"encode_indices_fused_edges + 'full' batch {n80}: "
+            f"{rate(t['edges'])}; make_pipeline_quantized(full) "
+            f"{rate(t['grouped'])}; max |dlogit| "
+            f"{float((le - lf).abs().max()):.3e}; gpu {smi}")
+
+    work = kernel_work(n_rows, c_, grp, vq.patch_size, vq.embedding_dim,
+                       vq.num_embeddings, n80, tr.seq_len, tr.n_head)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],
          "launches": launched[name][1],
-         "max_abs_err": k1_err if name == ENC else worst.output_err(
-             name, OUTPUT[name]),
-         "ms": times[name]["kernel"][0], "plain_ms": times[name]["plain"][0]}
+         "max_abs_err": enc_err[name] if name in enc_err
+         else worst.output_err(name, OUTPUT[name]),
+         **({"id_flip_rate": id_flips[name]} if name in id_flips else {}),
+         "ms": times[name]["kernel"][0], "plain_ms": times[name]["plain"][0],
+         "bound_ms": bound_of(work[name])[0],
+         "bound_by": bound_of(work[name])[1],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
         for name, (src, replaces) in RECORD.items()]}
+    for entry in record["kernels"]:
+        log(f"kernel {entry['name']}: {entry['ms']:.4f} ms, bound "
+            f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+            f"({entry['bound_ms'] / entry['ms']:.1%} of the time taken)")
     print(json.dumps(record), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,8 @@ from vq_vae_transformer_arc_welding_tpu.models.quantized import (
     calibrate_activation_absmax as jax_calibrate,
     quantize_transformer as jax_quantize)
 from vq_vae_transformer_arc_welding_tpu.models.quantized import qdot as jqdot
+from vq_vae_transformer_arc_welding_tpu.models import (
+    VQVAEPatch as JaxVQVAEPatch)
 from vq_vae_transformer_arc_welding_tpu.ops import (
     pallas_attn_quant as jattn, pallas_block_quant as jbq,
     pallas_encoder as jenc, pallas_mlp_quant as jmlp)
@@ -26,7 +28,7 @@ from vq_vae_transformer_arc_welding_tpu_torch import bridge, kernels
 from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import qdot
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
     fused_attn_quant as fattn, fused_block_quant as fbq,
-    fused_encoder as fenc, fused_mlp_quant as fmlp)
+    fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
 from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
 
 import torch_port_helpers as H
@@ -80,6 +82,218 @@ def test_group_size_follows_jax_rule(hidden, group):
     assert fenc.group_size_for(hidden) == group
 
 
+# -- kernels 3, 4 and 5: one resblock and the encoder's two ends -------------
+#
+# f32 outputs to 1e-5, as kernel 1 (the A&S erf of the Pallas kernels);
+# ids equal: the two libraries sum the distances' dot products in other
+# orders, which could move an argmin only at a near-tie, and these
+# inputs hold none.
+
+def _packed(batch_norm):
+    """The JAX pack of the small encoder as numpy and as torch tensors."""
+    jm, params, state = H.jax_vqvae(batch_norm)
+    w, v = (np.array(a) for a in jenc._pack_encoder(jm, params, state))
+    return params, w, v, torch.from_numpy(w), torch.from_numpy(v)
+
+
+def _edge_operands(params):
+    """w_pe (25, 64), b_pe, w_sep (64, 16), b_sep of the small encoder."""
+    w_sep = np.asarray(params["sep_conv"]["w"])
+    return tuple(np.array(a, np.float32) for a in (
+        params["patch_embed"]["kernel"], params["patch_embed"]["bias"],
+        w_sep[:, :, w_sep.shape[-1] // 2].T, params["sep_conv"]["b"]))
+
+
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_fused_resblock_eval_matches_jax(rng, batch_norm):
+    """Kernel 3 with the JAX function's operands; no test of the JAX
+    package runs it, so it runs here in interpret mode. The
+    operand-level entry on views of the pack gives the same values."""
+    _, w, v, tw, tv = _packed(batch_norm)
+    x = rng.standard_normal((200, 64)).astype(np.float32)
+    ref = jenc.fused_resblock_eval(
+        jnp.asarray(x), w[0], v[0], tuple(v[1:5]), w[1], v[5], tuple(v[6:10]),
+        tile_rows=64, use_bn=batch_norm)
+    out = fenc.fused_resblock_eval(
+        torch.from_numpy(x), tw[0], tv[0], tuple(tv[1:5]), tw[1], tv[5],
+        tuple(tv[6:10]), use_bn=batch_norm)
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=1e-5)
+    packed = fenc.resblock_eval(torch.from_numpy(x), tw[0], tw[1], tv[:10],
+                                use_bn=batch_norm)
+    torch.testing.assert_close(packed, out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_encoder_resblocks_fused_matches_jax(batch_norm):
+    """One launch per resblock on views of the pack, against the JAX loop
+    that repacks per call."""
+    jm, params, state = H.jax_vqvae(batch_norm)
+    vq = H.port_vqvae(batch_norm)
+    h = np.random.default_rng(3).standard_normal((5, 16, 64)).astype(
+        np.float32)
+    ref = jenc.encoder_resblocks_fused(jm, params, state, jnp.asarray(h),
+                                       tile_rows=64)
+    with torch.no_grad():
+        out = fenc.encoder_resblocks_fused(vq, fenc.pack_encoder(vq),
+                                           torch.from_numpy(h))
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_fused_encoder_entry_eval_matches_jax(rng, batch_norm):
+    params, w, v, tw, tv = _packed(batch_norm)
+    w_pe, b_pe, _, _ = _edge_operands(params)
+    patches = rng.standard_normal((200, 25)).astype(np.float32)
+    ref = jenc.fused_encoder_entry_eval(jnp.asarray(patches), w_pe, b_pe, w,
+                                        v, tile_rows=64, use_bn=batch_norm)
+    out = fenc.fused_encoder_entry_eval(
+        *map(torch.from_numpy, (patches, w_pe, b_pe)), tw, tv,
+        use_bn=batch_norm)
+    assert out.shape == (200, 64)
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["random", "tie"])
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_fused_encoder_exit_eval_matches_jax(rng, batch_norm, tie):
+    """ids bit-equal on a codebook drawn at the spread of z; with codes
+    2 and 11 the same vector, the nearest to row 5, neither side ever
+    answers 11."""
+    params, w, v, tw, tv = _packed(batch_norm)
+    _, _, w_sep, b_sep = _edge_operands(params)
+    x = rng.standard_normal((200, 64)).astype(np.float32)
+    z = _np(fenc.fused_encoder_eval(torch.from_numpy(x), tw, tv,
+                                    use_bn=batch_norm)) @ w_sep + b_sep
+    cb = (rng.standard_normal((32, 16)) * z.std()).astype(np.float32)
+    if tie:
+        cb[2] = cb[11] = z[5]       # row 5's own z: its nearest, twice
+    ref = jenc.fused_encoder_exit_eval(jnp.asarray(x), w, v, w_sep, b_sep,
+                                       cb, tile_rows=64, use_bn=batch_norm)
+    ids = fenc.fused_encoder_exit_eval(
+        torch.from_numpy(x), tw, tv,
+        *map(torch.from_numpy, (w_sep, b_sep, cb)), use_bn=batch_norm)
+    assert ids.dtype == torch.int32 and ids.shape == (200,)
+    assert len(np.unique(_np(ids))) > 8
+    np.testing.assert_array_equal(_np(ids), np.asarray(ref))
+    if tie:
+        assert (_np(ids) == 2).any() and not (_np(ids) == 11).any()
+
+
+def _port_variant(name, vq, x):
+    packed, edges = fenc.pack_encoder(vq), fenc.pack_encoder_edges(vq)
+    if name == "group1":
+        return fenc.encode_indices_fused(vq, packed, x, group_size=1)
+    if name == "mono":
+        return fenc.encode_indices_fused_mono(vq, packed, x)
+    return fenc.encode_indices_fused_edges(
+        vq, packed, edges, x, group_size=1 if name == "edges" else 2)
+
+
+def _jax_variant(name, jm, params, state, x):
+    if name == "group1":
+        return jenc.encode_indices_fused(jm, params, state, x, tile_rows=64,
+                                         group_size=1)
+    if name == "mono":
+        return jenc.encode_indices_fused_mono(jm, params, state, x,
+                                              tile_rows=64)
+    return jenc.encode_indices_fused_edges(
+        jm, params, state, x, tile_rows=64,
+        group_size=1 if name == "edges" else 2)
+
+
+@pytest.mark.parametrize("name", ["group1", "mono", "edges",
+                                  "edges-fallback"])
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_encode_indices_variants_match_jax(batch_norm, name):
+    """group_size=1 (kernel 3 per block), the mono chain, the edges at
+    group 1 (entry, exit) and at group 2, where two resblocks are fewer
+    than two groups and the edges fall back to encode_indices_fused: ids
+    bit-equal to JAX's and to the default path's, as the JAX package's
+    test_fused_encoder_resblock_parity holds them."""
+    jm, params, state = H.jax_vqvae(batch_norm)
+    x = H.windows(48, seed=1).reshape(-1, 200, 2)[:48]
+    ref = _jax_variant(name, jm, params, state, jnp.asarray(x))
+    vq = H.port_vqvae(batch_norm)
+    with torch.no_grad():
+        ids = _port_variant(name, vq, torch.from_numpy(x))
+        default = fenc.encode_indices_fused(vq, fenc.pack_encoder(vq),
+                                            torch.from_numpy(x))
+    assert ids.dtype == torch.int32 and ids.shape == (48, 16)
+    np.testing.assert_array_equal(_np(ids), np.asarray(ref))
+    np.testing.assert_array_equal(_np(ids), _np(default))
+
+
+@pytest.mark.parametrize("name,want", [
+    ("default", {"fused_encoder_eval": 1}),
+    ("group1", {"resblock_eval": 5}),
+    ("mono", {"fused_encoder_eval": 1}),
+    ("edges", {"fused_encoder_entry_eval": 1, "fused_encoder_eval": 1,
+               "fused_encoder_exit_eval": 1}),
+    ("edges-fallback", {"fused_encoder_eval": 2}),
+])
+def test_encoder_paths_reach_their_kernels(monkeypatch, name, want):
+    """Five resblocks: each path calls the wrappers of its own kernels
+    and no others. The edges at group 2 are entry (blocks 0-1), one
+    middle chain group (2-3) and exit (4), with ids equal to JAX's; at
+    group 3 five blocks are fewer than two groups, so two chain calls."""
+    jm = JaxVQVAEPatch(hidden_dim=64, input_dim=2, num_embeddings=H.K,
+                       embedding_dim=16, n_resblocks=5, learning_rate=1e-3,
+                       batch_norm=False)
+    params, state = jm.init(1)
+    vq = bridge.vqvae_from_jax(jm.hparams, params, state, device="cpu")
+    packed, edges = fenc.pack_encoder(vq), fenc.pack_encoder_edges(vq)
+    calls = {}
+    for fn in ("fused_encoder_eval", "resblock_eval",
+               "fused_encoder_entry_eval", "fused_encoder_exit_eval"):
+        real = getattr(fenc, fn)
+        monkeypatch.setattr(fenc, fn, lambda *a, _r=real, _n=fn, **k: (
+            calls.__setitem__(_n, calls.get(_n, 0) + 1), _r(*a, **k))[1])
+    x = H.windows(3, seed=2).reshape(-1, 200, 2)
+    tx = torch.from_numpy(x)
+    with torch.no_grad():
+        if name == "default":
+            ids = fenc.encode_indices_fused(vq, packed, tx)
+        elif name in ("group1", "mono"):
+            ids = _port_variant(name, vq, tx)
+        else:
+            gs = 2 if name == "edges" else 3
+            ids = fenc.encode_indices_fused_edges(vq, packed, edges, tx,
+                                                  group_size=gs)
+            ref = jenc.encode_indices_fused_edges(
+                jm, params, state, jnp.asarray(x), tile_rows=64,
+                group_size=gs)
+            np.testing.assert_array_equal(_np(ids), np.asarray(ref))
+        plain = vq.encode_indices(tx)
+    assert calls == want
+    np.testing.assert_array_equal(_np(ids), _np(plain))
+
+
+# -- kernel 7: nearest-code search --------------------------------------------
+
+@pytest.mark.parametrize("n,d,k,tie", [(3000, 32, 256, False),
+                                       (512, 8, 16, True),
+                                       (77, 16, 32, False)])
+def test_nearest_codes_pallas_matches_jax(rng, n, d, k, tie):
+    """The three cases of the JAX package's tests/test_pallas.py: ids
+    equal the JAX kernel's (interpret mode) and both packages' plain
+    nearest_codes; with code 11 a copy of code 2, no id is 11."""
+    from vq_vae_transformer_arc_welding_tpu.ops.pallas_vq import (
+        nearest_codes_pallas as jax_nearest)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.vq import nearest_codes
+    z = rng.standard_normal((n, d)).astype(np.float32)
+    cb = rng.standard_normal((k, d)).astype(np.float32)
+    if tie:
+        cb[11] = cb[2]
+    ref = np.asarray(jax_nearest(jnp.asarray(z), jnp.asarray(cb)))
+    tz, tcb = torch.from_numpy(z), torch.from_numpy(cb)
+    ids = fvq.nearest_codes_pallas(tz, tcb)
+    assert ids.dtype == torch.int32 and ids.shape == (n,)
+    np.testing.assert_array_equal(_np(ids), ref)
+    np.testing.assert_array_equal(_np(ids), _np(nearest_codes(tz, tcb)))
+    if tie:
+        assert not (_np(ids) == 11).any()
+
+
 # -- kernels 2 and 6: attention half and whole int8 block --------------------
 #
 # Tolerances. Int8 boundaries (h8, y8) equal except that at most 0.1% of
@@ -108,7 +322,7 @@ def _calibrated_block():
     ids = jnp.asarray(H.token_ids(5, seed=3))
     jqp = jax_quantize(params, act_absmax=jax_calibrate(jm, params, ids))
     x = jnp.take(jqp["tok_emb"], ids, axis=0) + jm.pe[None, :ids.shape[1]]
-    return jm, jqp, x, bridge.qparams_from_jax(jqp)
+    return jm, jqp, x, H.port_qparams(jqp)
 
 
 @pytest.mark.parametrize("full", [False, True])
@@ -285,6 +499,17 @@ def test_wrappers_raise_off_cpu_and_cuda():
         fenc.fused_encoder_eval(x, torch.empty((2, 64, 64), device="meta"),
                                 torch.empty((10, 64), device="meta"),
                                 use_bn=False)
+    w, v = (torch.empty(s, device="meta") for s in ((2, 64, 64), (10, 64)))
+    cb = torch.empty((32, 16), device="meta")
+    for call in (
+            lambda: fenc.resblock_eval(x, w[0], w[1], v, use_bn=False),
+            lambda: fenc.fused_encoder_entry_eval(
+                torch.empty((4, 25), device="meta"), None, None, w, v),
+            lambda: fenc.fused_encoder_exit_eval(x, w, v, None, None, cb),
+            lambda: fvq.nearest_codes_pallas(
+                torch.empty((4, 16), device="meta"), cb)):
+        with pytest.raises(ValueError):
+            call()
     meta = torch.empty((1, 3, 64), device="meta")
     for call in (
             lambda: fbq.attn_block_quant(meta, *(None,) * 5, n_head=4),
@@ -307,10 +532,11 @@ def test_kernel_sources_call_no_library_products():
         for word in ("cublas", "cudnn", "cutlass::gemm"):
             assert word not in src, (path.name, word)
     assert set(kernels.launches) == {
-        "encoder_chain_f32", "attn_block_quant", "attn_block_quant_int8attn",
-        "block_quant", "block_quant_int8attn", "mlp_quant",
-        "qkv_attention_quant", "causal_attention_quant"}
-    for mod in (fenc, fbq, fattn, fmlp):
+        "encoder_chain_f32", "resblock_f32", "encoder_entry_f32",
+        "encoder_exit_f32", "nearest_codes_f32", "attn_block_quant",
+        "attn_block_quant_int8attn", "block_quant", "block_quant_int8attn",
+        "mlp_quant", "qkv_attention_quant", "causal_attention_quant"}
+    for mod in (fenc, fvq, fbq, fattn, fmlp):
         src = Path(mod.__file__).read_text()
         cuda_branch = src[src.index("kernels.require"):]
         for word in ("_int_mm", "matmul", "scaled_dot_product", "compile",
@@ -323,8 +549,22 @@ def test_launch_counts_untouched_on_cpu():
     nothing."""
     kernels.reset_launch_counts()
     x = torch.zeros((3, 64))
-    fenc.fused_encoder_eval(x, torch.zeros((2, 64, 64)), torch.zeros((10, 64)),
-                            use_bn=False)
+    w, v = torch.zeros((2, 64, 64)), torch.zeros((10, 64))
+    fenc.fused_encoder_eval(x, w, v, use_bn=False)
+    fenc.resblock_eval(x, w[0], w[1], v, use_bn=False)
+    fenc.fused_encoder_entry_eval(torch.zeros((3, 25)), torch.zeros((25, 64)),
+                                  torch.zeros(64), w, v, use_bn=False)
+    fenc.fused_encoder_exit_eval(x, w, v, torch.zeros((64, 16)),
+                                 torch.zeros(16), torch.ones((32, 16)),
+                                 use_bn=False)
+    fvq.nearest_codes_pallas(torch.zeros((3, 16)), torch.ones((32, 16)))
+    vq = H.port_vqvae(False, vq_impl="pallas")
+    cycles = torch.zeros((2, 200, 2))
+    with torch.no_grad():
+        vq.encode_indices(cycles)
+        fenc.encode_indices_fused_edges(vq, fenc.pack_encoder(vq),
+                                        fenc.pack_encoder_edges(vq), cycles,
+                                        group_size=1)
     blk = _calibrated_block()[3]["blocks"][0]
     xs = torch.zeros((1, 5, 32))
     for int8_attn in (False, True):

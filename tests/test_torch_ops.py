@@ -224,6 +224,48 @@ def test_vqvae_encode_matches_jax(batch_norm):
                                                jnp.asarray(x))))
 
 
+def test_vq_impl_pallas_matches_xla_model():
+    """The runtime option: ids equal the 'xla' model's and JAX's
+    vq_impl='pallas' model's, hparams unchanged, as the JAX package's
+    test_model_with_pallas_vq_matches_xla_model; the nearest-code search
+    goes through ops/fused_vq.py."""
+    from vq_vae_transformer_arc_welding_tpu.models import VQVAEPatch as JVQ
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import fused_vq
+    jm, params, state = H.jax_vqvae(False)
+    jp = JVQ(**jm.hparams, vq_impl="pallas")
+    m_x, m_p = H.port_vqvae(False), H.port_vqvae(False, vq_impl="pallas")
+    assert m_p.hparams == m_x.hparams and "vq_impl" not in m_p.hparams
+    assert m_p._nearest_fn() is fused_vq.nearest_codes_pallas
+    assert m_x._nearest_fn() is vq.nearest_codes
+    x = H.windows(6, seed=3)[:, :200]
+    with torch.no_grad():
+        ids_x = m_x.encode_indices(torch.from_numpy(x))
+        ids_p = m_p.encode_indices(torch.from_numpy(x))
+    np.testing.assert_array_equal(_np(ids_p), _np(ids_x))
+    np.testing.assert_array_equal(
+        _np(ids_p), np.asarray(jp.encode_indices(params, state,
+                                                 jnp.asarray(x))))
+    with pytest.raises(ValueError):
+        H.port_vqvae(False, vq_impl="triton")
+
+
+@pytest.mark.parametrize("vq_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_encode_zq_and_forward_ood_match_jax(batch_norm, vq_impl):
+    """z_q (B, 16, D) and the per-cycle OOD score, the mean over (P, D)
+    of (z_q - z_e)^2, to 1e-5."""
+    jm, params, state = H.jax_vqvae(batch_norm)
+    port = H.port_vqvae(batch_norm, vq_impl=vq_impl)
+    x = H.windows(6, seed=4)[:, :200]
+    with torch.no_grad():
+        zq = port.encode_zq(torch.from_numpy(x))
+        ood = port.forward_ood(torch.from_numpy(x))
+    assert zq.shape == (6, 16, 16) and ood.shape == (6,)
+    _close(zq, jm.encode_zq(params, state, jnp.asarray(x)))
+    _close(ood, jm.forward_ood(params, state, jnp.asarray(x)))
+    assert float(ood.min()) > 0
+
+
 def test_port_state_dict_uses_reference_keys():
     """The keys vq_vae_transformer_arc_welding_tpu/train/torch_import.py
     reads from a reference Lightning checkpoint."""

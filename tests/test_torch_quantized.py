@@ -7,6 +7,8 @@ and labels equal. The fused variants of quantized_classify keep the
 JAX package's own contracts with the plain chain
 (tests/test_quantized.py): 1e-3 for 'attn', 'full' and the
 fused_attention paths, 2e-2 for 'attn8' and 'full8', 5e-2 for '-bf16'.
+The int8 encoder: weights and scales bit-equal, absmax within rtol
+1e-5, ids within 1% of JAX's on bridged qenc.
 """
 import functools
 
@@ -17,7 +19,6 @@ import torch
 import jax.numpy as jnp
 
 from vq_vae_transformer_arc_welding_tpu.models import quantized as jq
-from vq_vae_transformer_arc_welding_tpu_torch import bridge
 from vq_vae_transformer_arc_welding_tpu_torch.models import quantized as pq
 from vq_vae_transformer_arc_welding_tpu_torch.ops import int8
 
@@ -136,7 +137,7 @@ def test_quantized_classify_matches_jax(kw, tol):
     rows = [] if monitored else None
     ref = jq.quantized_classify(jm, jqp, jnp.asarray(ids), sat_rows=ref_rows,
                                 **kw)
-    out = pq.quantized_classify(port, bridge.qparams_from_jax(jqp),
+    out = pq.quantized_classify(port, H.port_qparams(jqp),
                                 torch.from_numpy(ids), sat_rows=rows, **kw)
     assert out.dtype == torch.float32 and out.shape == (4, 2)
     np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=tol)
@@ -164,7 +165,7 @@ def test_quantized_classify_raises_like_jax(kw):
     with pytest.raises(ValueError):
         jq.quantized_classify(jm, jqp, jnp.asarray(ids), **kw)
     with pytest.raises(ValueError):
-        pq.quantized_classify(port, bridge.qparams_from_jax(jqp),
+        pq.quantized_classify(port, H.port_qparams(jqp),
                               torch.from_numpy(ids), **kw)
 
 
@@ -176,7 +177,7 @@ def test_saturation_stats_matches_jax():
     jqp = jq.quantize_transformer(params, {k: v / 2 for k, v in jam.items()})
     ids = H.token_ids(4, seed=13)
     ref_all, ref = jq.saturation_stats(jm, jqp, jnp.asarray(ids))
-    got_all, got = pq.saturation_stats(port, bridge.qparams_from_jax(jqp),
+    got_all, got = pq.saturation_stats(port, H.port_qparams(jqp),
                                        torch.from_numpy(ids))
     assert list(got) == list(ref)
     assert sum(float(v) > 0 for v in got.values()) >= len(got) // 2
@@ -198,3 +199,68 @@ def test_fused_block_needs_calibration():
     with pytest.raises(ValueError):
         pq.quantized_classify(port, qp, torch.from_numpy(H.token_ids(2)),
                               block_fusion="attn")
+
+
+# -- the opt-in int8 encoder ----------------------------------------------------
+
+@functools.cache
+def _calibrated_encoder(batch_norm):
+    """JAX (model, params, state, enc_absmax, qenc), the port's model and
+    the calibration cycles."""
+    jm, params, state = H.jax_vqvae(batch_norm)
+    cyc = H.windows(8, seed=20).reshape(-1, 200, 2)
+    jam = jq.calibrate_encoder_absmax(jm, params, state, jnp.asarray(cyc))
+    return (jm, params, state, jam, jq.quantize_encoder(jm, params, jam),
+            H.port_vqvae(batch_norm), cyc)
+
+
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_calibrate_encoder_absmax_matches_jax(batch_norm):
+    _, _, _, jam, _, port, cyc = _calibrated_encoder(batch_norm)
+    am = pq.calibrate_encoder_absmax(port, torch.from_numpy(cyc))
+    assert set(am) == set(jam) == {"b0_c1", "b0_c2", "b1_c1", "b1_c2", "sep"}
+    for site in jam:
+        np.testing.assert_allclose(am[site], jam[site], rtol=1e-5)
+
+
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_quantize_encoder_bit_equal_to_jax(batch_norm):
+    """On the JAX absmax table: int8 weights (transposed), per-channel
+    scales, biases and act scales equal; the bridged qenc is the same."""
+    _, _, _, jam, jqenc, port, _ = _calibrated_encoder(batch_norm)
+    qenc = pq.quantize_encoder(port, jam)
+    bridged = H.port_qenc(jqenc)
+    refs = [b[k] for b in jqenc["blocks"] for k in ("c1", "c2")]
+    refs.append(jqenc["sep"])
+    for tree in (qenc, bridged):
+        got = [b[k] for b in tree["blocks"] for k in ("c1", "c2")]
+        got.append(tree["sep"])
+        assert len(got) == len(refs) == 5
+        for q, ref in zip(got, refs):
+            np.testing.assert_array_equal(_np(q.w_int8),
+                                          np.asarray(ref.w_int8).T)
+            np.testing.assert_array_equal(_np(q.scale), np.asarray(ref.scale))
+            np.testing.assert_array_equal(_np(q.bias), np.asarray(ref.bias))
+            assert np.float32(q.act_scale.item()) == np.asarray(
+                ref.act_scale)
+
+
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_encode_indices_quantized_matches_jax(batch_norm):
+    """ids on the bridged int8 weights and scales: at most 1% may differ
+    from JAX's (the f32 steps between the int8 products are summed in
+    another order, and a value at a rounding boundary moves by one
+    step). Measured: 0 of 1,024 ids differ, with and without BatchNorm.
+    Against the port's own f32 encoder the int8 encoder stays under the
+    JAX package's 5% bound."""
+    jm, params, state, _, jqenc, port, _ = _calibrated_encoder(batch_norm)
+    x = H.windows(32, seed=21).reshape(-1, 200, 2)
+    ref = np.asarray(jq.encode_indices_quantized(jm, jqenc, params, state,
+                                                 jnp.asarray(x)))
+    with torch.no_grad():
+        ids = pq.encode_indices_quantized(port, H.port_qenc(jqenc),
+                                          torch.from_numpy(x))
+        ids_f = port.encode_indices(torch.from_numpy(x))
+    assert ids.dtype == torch.int32 and ids.shape == ref.shape
+    assert (_np(ids) != ref).mean() <= 0.01
+    assert (_np(ids) != _np(ids_f)).mean() < 0.05

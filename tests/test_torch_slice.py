@@ -7,9 +7,13 @@ run on identical scales; labels equal and probs within 1e-3 (the fused
 attention normalizes after P@V, the JAX contract's 1e-3). f32: probs
 within 1e-5. The saturation probe gives JAX's numbers on the rows it
 is given. Each block_fusion and fused_attention option of
-make_pipeline_quantized reaches its kernels' entries. Also: the port
-imports without jax, and chip_smoke.py refuses to run without a CUDA
-device.
+make_pipeline_quantized reaches its kernels' entries. A
+`vq_impl='pallas'` model reaches the nearest-code kernel's wrapper
+through `make_pipeline`, `encode_tokens`, `calibrate`, `classify` and
+`ood_score`; `encoder_precision='int8'` serves every entry from the
+int8 encoder after `calibrate()`. Also: the port imports without jax,
+`build()` and the bridge without a device raise where there is no GPU,
+and chip_smoke.py refuses to run without a CUDA device.
 """
 import functools
 import json
@@ -30,7 +34,7 @@ from vq_vae_transformer_arc_welding_tpu.serve import (
 from vq_vae_transformer_arc_welding_tpu_torch import bridge, entry
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
     fused_attn_quant as fattn, fused_block_quant as fbq,
-    fused_encoder as fenc, fused_mlp_quant as fmlp)
+    fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
 from vq_vae_transformer_arc_welding_tpu_torch.serve import (
     WeldingQualityPipeline)
 
@@ -40,19 +44,20 @@ REPO = Path(__file__).resolve().parent.parent
 REQUEST = 5          # ragged against max_batch 4: chunks of 4 and 1
 
 
-def _jax_pipeline(precision, batch_norm=False):
+def _jax_pipeline(precision, batch_norm=False, **kw):
     jm, params, state = H.jax_vqvae(batch_norm)
     tm, tp = H.jax_transformer()
     return JaxPipeline((jm, params, state), (tm, tp), n_cycles=H.N_CYCLES,
                        max_batch=8, precision=precision,
-                       encoder_impl="fused")
+                       encoder_impl="fused", **kw)
 
 
-def _port_pipeline(precision, batch_norm=False, max_batch=4):
-    return WeldingQualityPipeline(H.port_vqvae(batch_norm),
+def _port_pipeline(precision, batch_norm=False, max_batch=4,
+                   vq_impl="xla", **kw):
+    return WeldingQualityPipeline(H.port_vqvae(batch_norm, vq_impl),
                                   H.port_transformer(), n_cycles=H.N_CYCLES,
                                   max_batch=max_batch, precision=precision,
-                                  encoder_impl="fused")
+                                  encoder_impl="fused", **kw)
 
 
 @functools.cache
@@ -67,7 +72,7 @@ def test_slice_int8_matches_jax():
     x = H.windows(REQUEST, seed=5)
     ref_labels, ref_probs = jp.classify(x)
     pipe = _port_pipeline("int8")
-    pipe.qparams = bridge.qparams_from_jax(jp.qparams)
+    pipe.qparams = H.port_qparams(jp.qparams)
     labels, probs = pipe.classify(x)
     np.testing.assert_array_equal(labels, ref_labels)
     np.testing.assert_allclose(probs, ref_probs, rtol=0, atol=1e-3)
@@ -100,10 +105,146 @@ def test_encode_tokens_matches_jax():
     np.testing.assert_array_equal(ids, ref)
 
 
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_ood_score_matches_jax(batch_norm):
+    """Per-cycle scores in chunks of max_batch (9 cycles against 4), to
+    1e-5."""
+    cycles = H.windows(9, seed=16)[:, :200]
+    ref = _jax_pipeline("f32", batch_norm).ood_score(cycles)
+    ood = _port_pipeline("f32", batch_norm).ood_score(cycles)
+    assert ood.shape == (9,) and ood.dtype == np.float32
+    np.testing.assert_allclose(ood, np.asarray(ref), rtol=0, atol=1e-5)
+
+
+def test_vq_impl_pallas_reaches_its_kernel(monkeypatch):
+    """With the runtime option set, every entry that runs the plain
+    encoder searches the nearest code through ops/fused_vq.py, once per
+    chunk: encode_tokens, calibrate, classify(encoder_impl='xla'),
+    ood_score and entry.make_pipeline. Ids, labels and scores equal the
+    'xla' model's."""
+    calls = []
+    real = fvq.nearest_codes_pallas
+    monkeypatch.setattr(fvq, "nearest_codes_pallas", lambda z, cb: (
+        calls.append(z.shape[0]), real(z, cb))[1])
+    x = H.windows(REQUEST, seed=17)
+    tr = H.port_transformer()
+    pipes = {impl: WeldingQualityPipeline(
+        H.port_vqvae(False, impl), tr, n_cycles=H.N_CYCLES, max_batch=4,
+        precision="int8") for impl in ("xla", "pallas")}
+    out = {}
+    for impl, pipe in pipes.items():
+        pipe.calibrate(H.windows(6, seed=4))
+        out[impl] = (pipe.encode_tokens(x), *pipe.classify(x),
+                     pipe.ood_score(x[:, :200]),
+                     entry.make_pipeline(pipe.vq_model, tr)(
+                         torch.from_numpy(x)).numpy())
+    # calibrate 2 chunks, then 2 chunks each of encode_tokens, classify
+    # and ood_score, and make_pipeline's one call; none from 'xla'
+    rows = H.N_CYCLES * 16      # z rows per window; 16 per single cycle
+    assert calls == [4 * rows, 2 * rows] + [4 * rows, 1 * rows] * 2 + [
+        4 * 16, 1 * 16, REQUEST * rows]
+    for got, want in zip(out["pallas"], out["xla"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@functools.cache
+def _jax_int8_encoder():
+    jp = _jax_pipeline("f32", encoder_precision="int8")
+    jp.calibrate(H.windows(6, seed=4))
+    return jp
+
+
+def test_int8_encoder_pipeline_matches_jax():
+    """encoder_precision='int8': calibrate() quantizes the encoder on
+    the sample's cycles, then every entry serves from it. On bridged
+    qenc the ids differ from JAX's in at most 1% of entries (measured:
+    none); the port's own calibration gives the same int8 weights and
+    act scales within rtol 1e-5."""
+    jp = _jax_int8_encoder()
+    x = H.windows(REQUEST, seed=18)
+    ref = jp.encode_tokens(x)
+    pipe = _port_pipeline("f32", encoder_precision="int8")
+    pipe.calibrate(H.windows(6, seed=4))
+    for q, jq_ in zip(
+            [b[k] for b in pipe.qenc["blocks"] for k in ("c1", "c2")]
+            + [pipe.qenc["sep"]],
+            [b[k] for b in jp.qenc["blocks"] for k in ("c1", "c2")]
+            + [jp.qenc["sep"]]):
+        np.testing.assert_array_equal(q.w_int8.numpy(),
+                                      np.asarray(jq_.w_int8).T)
+        np.testing.assert_allclose(q.act_scale.item(),
+                                   float(jq_.act_scale), rtol=1e-5)
+    pipe.qenc = H.port_qenc(jp.qenc)
+    ids = pipe.encode_tokens(x)
+    assert ids.shape == ref.shape and ids.dtype == np.int32
+    assert (ids != ref).mean() <= 0.01
+    labels, probs = pipe.classify(x)
+    ref_labels, ref_probs = jp.classify(x)
+    if (ids == ref).all():
+        np.testing.assert_allclose(probs, ref_probs, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(labels, ref_labels)
+
+
+def test_int8_encoder_serves_every_entry(monkeypatch):
+    """After calibrate() neither the fused nor the plain f32 encoder
+    runs: classify, encode_tokens and the int8 calibration's own ids all
+    come from encode_indices_quantized."""
+    from vq_vae_transformer_arc_welding_tpu_torch.models import quantized
+    pipe = _port_pipeline("int8", encoder_precision="int8")
+    calls = []
+    real = quantized.encode_indices_quantized
+    monkeypatch.setattr(quantized, "encode_indices_quantized",
+                        lambda *a: (calls.append(1), real(*a))[1])
+    for mod, name in ((fenc, "fused_encoder_eval"),
+                      (type(pipe.vq_model), "encode_indices")):
+        monkeypatch.setattr(mod, name, lambda *a, **k: pytest.fail(
+            "the f32 encoder ran"))
+    pipe.calibrate(H.windows(6, seed=4))
+    assert pipe.qenc is not None and pipe.qparams is not None
+    n_calibrate = len(calls)
+    labels, _ = pipe.classify(H.windows(REQUEST, seed=19))
+    ids = pipe.encode_tokens(H.windows(REQUEST, seed=19))
+    assert labels.shape == (REQUEST,) and ids.shape == (REQUEST, 32)
+    assert n_calibrate == 2 and len(calls) == 6
+
+
+def test_int8_encoder_requires_calibration():
+    pipe = _port_pipeline("f32", encoder_precision="int8")
+    for call in (pipe.classify, pipe.encode_tokens):
+        with pytest.raises(RuntimeError, match="encoder_precision='int8'"):
+            call(H.windows(1))
+    with pytest.raises(ValueError):
+        _port_pipeline("f32", encoder_precision="int4")
+
+
+def test_build_without_a_device_needs_the_card():
+    """device=None means the card in the entry points: on a host without
+    one, build() and the bridge raise and return no CPU model; asked in
+    words, they build on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    jm, params, state = H.jax_vqvae(False)
+    tm, tp = H.jax_transformer()
+    jp, _ = _jax_int8()
+    small = dict(d_model=32, n_blocks=1, n_heads=4, hidden=64, n_res=1,
+                 k=32, d=16)
+    for call in (
+            lambda: entry.build(**small),
+            lambda: bridge.vqvae_from_jax(jm.hparams, params, state),
+            lambda: bridge.transformer_from_jax(tm.hparams, tp),
+            lambda: bridge.qparams_from_jax(jp.qparams),
+            lambda: bridge.qenc_from_jax(_jax_int8_encoder().qenc)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+    vq, tr = entry.build(**small, device="cpu", vq_impl="pallas")
+    assert vq.codebook.device.type == tr.pe.device.type == "cpu"
+    assert vq.vq_impl == "pallas"
+
+
 def test_chunking_does_not_change_results():
     x = H.windows(REQUEST, seed=8)
     pipe = _port_pipeline("int8", max_batch=2)
-    pipe.qparams = bridge.qparams_from_jax(_jax_int8()[0].qparams)
+    pipe.qparams = H.port_qparams(_jax_int8()[0].qparams)
     whole = _port_pipeline("int8", max_batch=8)
     whole.qparams = pipe.qparams
     np.testing.assert_array_equal(pipe.classify(x)[1], whole.classify(x)[1])
@@ -151,7 +292,7 @@ def test_make_pipeline_quantized_reaches_its_kernels(monkeypatch, kw):
     """Each option reaches the operand-level entries of its kernels
     (int8_attn as the option says), once per block, and no others."""
     vq, tr = H.port_vqvae(False), H.port_transformer()
-    qparams = bridge.qparams_from_jax(_jax_int8()[0].qparams)
+    qparams = H.port_qparams(_jax_int8()[0].qparams)
     calls = []
     for mod, name in ((fbq, "attn_block_quant"), (fbq, "block_quant"),
                       (fmlp, "mlp_quant"), (fattn, "qkv_attention_quant"),
@@ -196,7 +337,7 @@ def test_saturation_rate_matches_jax(n):
     jp = _jax_int8_tight()
     x = H.windows(n, seed=15)
     pipe = _port_pipeline("int8", max_batch=8)
-    pipe.qparams = bridge.qparams_from_jax(jp.qparams)
+    pipe.qparams = H.port_qparams(jp.qparams)
     rate, per_site = pipe.saturation_rate(x)
     if n == jp.max_batch:
         ref_rate, ref_sites = jp.saturation_rate(x)
@@ -218,7 +359,7 @@ def test_saturation_rate_refuses_without_calibration():
     with pytest.raises(RuntimeError):
         _port_pipeline("int8").saturation_rate(H.windows(1))
     pipe = _port_pipeline("int8")
-    pipe.qparams = bridge.qparams_from_jax(_jax_int8()[0].qparams)
+    pipe.qparams = H.port_qparams(_jax_int8()[0].qparams)
     with pytest.raises(ValueError):
         pipe.saturation_rate(H.windows(0))
 
@@ -252,6 +393,7 @@ def test_port_imports_without_jax():
             "vq_vae_transformer_arc_welding_tpu_torch.entry, "
             "vq_vae_transformer_arc_welding_tpu_torch.bridge, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_encoder, "
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_vq, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_block_quant, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_mlp_quant, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn_quant\n"

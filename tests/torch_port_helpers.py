@@ -3,7 +3,8 @@
 One small configuration is built in the JAX package from a seed and
 bridged into the port, so both run on identical weights: hidden 64,
 2 resblocks, K=32, D=16; transformer d32, 2 blocks, 4 heads, 2 cycles
-(33 tokens). Inputs are made with numpy and handed to both.
+(33 tokens). Inputs are made with numpy and handed to both. The bridge
+builds on the card by default; these tests ask for the CPU in words.
 """
 from __future__ import annotations
 
@@ -55,14 +56,25 @@ def jax_transformer():
     return tr, params
 
 
-def port_vqvae(batch_norm: bool):
+def port_vqvae(batch_norm: bool, vq_impl: str = "xla"):
     vq, params, state = jax_vqvae(batch_norm)
-    return bridge.vqvae_from_jax(vq.hparams, params, state)
+    return bridge.vqvae_from_jax(vq.hparams, params, state, device="cpu",
+                                 vq_impl=vq_impl)
 
 
 def port_transformer():
     tr, params = jax_transformer()
-    return bridge.transformer_from_jax(tr.hparams, params)
+    return bridge.transformer_from_jax(tr.hparams, params, device="cpu")
+
+
+def port_qparams(jax_qparams) -> dict:
+    """JAX quantize_transformer output -> the port's qparams, on the CPU."""
+    return bridge.qparams_from_jax(jax_qparams, device="cpu")
+
+
+def port_qenc(jax_qenc) -> dict:
+    """JAX quantize_encoder output -> the port's qenc, on the CPU."""
+    return bridge.qenc_from_jax(jax_qenc, device="cpu")
 
 
 def windows(n: int, seed: int = 0) -> np.ndarray:

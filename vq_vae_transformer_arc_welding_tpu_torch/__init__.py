@@ -5,8 +5,14 @@ which stays the reference every module here is tested against. This
 package imports torch and numpy only, never jax. Module names mirror
 the JAX package; every ported module names its counterpart by path.
 
-What is ported so far is the f32 and calibrated-int8 serving path
-(`serve.WeldingQualityPipeline.classify`, `entry.make_pipeline*`).
-Its two hand-written CUDA kernels live in `csrc/` and are built on
-first use by `kernels.library()`.
+What is ported: the f32 and calibrated-int8 serving path
+(`serve.WeldingQualityPipeline` with `classify`, `encode_tokens`,
+`ood_score` and the int8 encoder; `entry.make_pipeline*`), every
+configuration of the int8 transformer (`models/quantized.py`), and
+every encoder path (`ops/fused_encoder.py`, `ops/fused_vq.py`). Its
+hand-written CUDA kernels, one per TPU kernel on those paths, live in
+`csrc/` and are built on first use by `kernels.library()`. Sampling,
+training, the decoder and the EMA VQ are not ported yet. Entry points
+(`entry.build`, `bridge.*`) put their tensors on the card unless the
+caller names another device.
 """

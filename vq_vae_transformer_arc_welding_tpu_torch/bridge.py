@@ -2,10 +2,13 @@
 
 Plays the role of vq_vae_transformer_arc_welding_tpu/train/torch_import.py
 in the other direction: the JAX package's `(vq_params, vq_state)` and
-`tr_params` pytrees, and its `quantize_transformer` output, become the
-port's modules and qparams, so that both packages run on identical
-weights and identical int8 scales. Leaves may be numpy arrays or JAX
-arrays (anything `np.asarray` takes); nothing here imports jax.
+`tr_params` pytrees, and its `quantize_transformer` and
+`quantize_encoder` outputs, become the port's modules, qparams and
+qenc, so that both packages run on identical weights and identical
+int8 scales. Every function builds on the card unless the caller names
+another device (the tests pass `device="cpu"`). Leaves may be numpy
+arrays or JAX arrays (anything `np.asarray` takes); nothing here
+imports jax.
 BatchNorm states and QLinears are read by attribute (`.mean`, `.var`,
 `.w_int8`, `.scale`, `.bias`, `.act_scale`).
 """
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from .models import TransformerDecoder, VQVAEPatch
+from .models.base import serving_device
 from .models.quantized import QLinear
 from .ops.fused_block_quant import pack_block
 
@@ -39,12 +43,14 @@ def _load(module: torch.nn.Module, sd: dict, derived=()) -> None:
                        f"unexpected {unexpected}")
 
 
-def vqvae_from_jax(hparams: dict, params, state, device=None) -> VQVAEPatch:
-    """JAX VQVAEPatch (hparams, params, state) -> the port's encoder."""
+def vqvae_from_jax(hparams: dict, params, state, device=None,
+                   vq_impl: str = "xla") -> VQVAEPatch:
+    """JAX VQVAEPatch (hparams, params, state) -> the port's encoder.
+    vq_impl is the runtime option of both models; it is not an hparam."""
     if hparams.get("use_improved_vq"):
         raise NotImplementedError("the EMA (improved) VQ is not ported")
     model = VQVAEPatch(**{k: hparams[k] for k in _VQ_HPARAMS if k in hparams},
-                       device=device)
+                       vq_impl=vq_impl, device=serving_device(device))
     pe = np.asarray(params["patch_embed"]["kernel"])     # (patch, H)
     sd = {"patch_embed.proj.weight": _t(pe.T[:, None, :]),
           "patch_embed.proj.bias": _t(params["patch_embed"]["bias"])}
@@ -74,7 +80,8 @@ def transformer_from_jax(hparams: dict, params,
     """JAX TransformerDecoder (hparams, params) -> the port's decoder.
     JAX stores Linear weights (in, out); the port (out, in)."""
     model = TransformerDecoder(
-        **{k: hparams[k] for k in _TR_HPARAMS if k in hparams}, device=device)
+        **{k: hparams[k] for k in _TR_HPARAMS if k in hparams},
+        device=serving_device(device))
     ch = params["class_head"]
     sd = {"embedding.latent_embedding.weight": _t(params["tok_emb"]),
           "transformer.ln_f.weight": _t(params["ln_f_scale"]),
@@ -108,6 +115,7 @@ def transformer_from_jax(hparams: dict, params,
 
 def qlinear_from_jax(q, device=None) -> QLinear:
     """A JAX QLinear ((in, out) int8) -> the port's ((out, in) int8)."""
+    device = serving_device(device)
     w = torch.from_numpy(np.array(np.asarray(q.w_int8).T, order="C"))
     act = (None if q.act_scale is None else torch.tensor(
         np.float32(np.asarray(q.act_scale)), device=device))
@@ -119,6 +127,8 @@ def qparams_from_jax(qp, device=None) -> dict:
     """JAX quantize_transformer(...) output -> the port's qparams, with
     calibrated blocks packed once for the fused kernels (the full-block
     operands included) as the port's quantize_transformer packs them."""
+    device = serving_device(device)
+
     def v(a):
         return _t(a).to(device)
 
@@ -134,4 +144,13 @@ def qparams_from_jax(qp, device=None) -> dict:
             **{k: qlinear_from_jax(blk[k], device)
                for k in ("c_attn", "c_proj", "c_fc", "m_proj")},
         }) for blk in qp["blocks"]],
+    }
+
+
+def qenc_from_jax(qenc, device=None) -> dict:
+    """JAX quantize_encoder(...) output -> the port's qenc."""
+    return {
+        "blocks": [{k: qlinear_from_jax(blk[k], device) for k in ("c1", "c2")}
+                   for blk in qenc["blocks"]],
+        "sep": qlinear_from_jax(qenc["sep"], device),
     }

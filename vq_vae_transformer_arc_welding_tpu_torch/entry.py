@@ -5,13 +5,15 @@ Port of __graft_entry__.py (`_build`, `make_pipeline`,
 K=256, D=32, patch 25, no BatchNorm) and the transformer (d512,
 8 blocks, 8 heads, 321 tokens: 20 cycles x 16 tokens + start token,
 258 classes) that `bench.py` times. Weights are random, drawn from a
-torch.Generator seeded with `seed`.
+torch.Generator seeded with `seed`. `build` puts the models on the card
+unless the caller names another device.
 """
 from __future__ import annotations
 
 import torch
 
 from .models import TransformerDecoder, VQVAEPatch
+from .models.base import serving_device
 from .serve import CYCLE_LEN, with_start_token
 
 N_CYCLES = 20
@@ -19,13 +21,17 @@ N_CYCLES = 20
 
 def build(d_model: int = 512, n_blocks: int = 8, n_heads: int = 8,
           hidden: int = 512, k: int = 256, d: int = 32, n_res: int = 8,
-          seed: int = 0,
-          device=None) -> tuple[VQVAEPatch, TransformerDecoder]:
-    """(vq, tr) at the bench configuration, in eval mode on `device`."""
+          seed: int = 0, device=None,
+          vq_impl: str = "xla") -> tuple[VQVAEPatch, TransformerDecoder]:
+    """(vq, tr) at the bench configuration, in eval mode on `device`:
+    the card when it is None (and an error where there is none), the
+    CPU only when asked. vq_impl: the VQ-VAE's nearest-code option."""
+    device = serving_device(device)
     gen = torch.Generator().manual_seed(seed)
     vq = VQVAEPatch(hidden_dim=hidden, input_dim=2, num_embeddings=k,
                     embedding_dim=d, n_resblocks=n_res, learning_rate=1e-3,
-                    batch_norm=False, generator=gen, device=device)
+                    batch_norm=False, vq_impl=vq_impl, generator=gen,
+                    device=device)
     seq_len = N_CYCLES * vq.enc_out_len + 1
     tr = TransformerDecoder(d_model=d_model, n_classes=k + 2,
                             seq_len=seq_len, n_blocks=n_blocks,

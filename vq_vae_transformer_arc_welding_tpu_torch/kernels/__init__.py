@@ -38,6 +38,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, weights, vecs, out, n_rows, c, n_blocks, use_bn, stream
     "encoder_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1, w2, vec, out, n_rows, c, use_bn, stream
+    "resblock_f32": [_P] * 5 + [_I] * 3 + [_P],
+    # patches, w_pe, b_pe, weights, vecs, out, n_rows, patch, c, n_blocks,
+    # use_bn, stream
+    "encoder_entry_f32": [_P] * 6 + [_I] * 5 + [_P],
+    # x, weights, vecs, w_sep, b_sep, codebook, ids, n_rows, c, n_blocks,
+    # use_bn, d_emb, k_codes, stream
+    "encoder_exit_f32": [_P] * 7 + [_I] * 6 + [_P],
+    # z, codebook, ids, n_rows, d_emb, k_codes, stream
+    "nearest_codes_f32": [_P] * 3 + [_I] * 3 + [_P],
     # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, head_scales,
     # x_mid, h8, batch, t, c, n_head, sm_scale, int8_attn, stream
     "attn_block_quant": [_P] * 12 + [_I] * 4 + [_F, _I, _P],

@@ -49,6 +49,13 @@ class BatchNormParams(Params):
             self.bias.zero_()
 
 
+def serving_device(device=None) -> torch.device:
+    """The device an entry point builds on: the one asked for, else the
+    card. Without a card the allocation that follows raises; nothing
+    carries on on the CPU unasked."""
+    return torch.device("cuda" if device is None else device)
+
+
 def assign(param: torch.Tensor, value: torch.Tensor) -> None:
     """Copy a CPU-drawn initial value into a parameter on its device."""
     with torch.no_grad():

@@ -7,8 +7,10 @@ chain `quantized_backbone`, the drift probe `saturation_stats`, the
 whole-block variants `quantized_backbone_block` (`block_fusion` 'attn',
 'full', 'attn8', 'full8', each with or without '-bf16'), the fused
 attention path `quantized_backbone_fused` (`fused_attention=True`),
-`quantized_classify` and the in-path saturation counters
-`_row_clip_frac*`.
+`quantized_classify`, the in-path saturation counters
+`_row_clip_frac*`, and the opt-in int8 encoder
+(`calibrate_encoder_absmax`, `quantize_encoder`,
+`encode_indices_quantized`).
 
 Every Linear is quantized per output channel to symmetric int8;
 activations are quantized per tensor with a calibrated scale
@@ -30,11 +32,13 @@ import torch
 from ..ops import fused_attn_quant, fused_mlp_quant
 from ..ops.activations import gelu, new_gelu
 from ..ops.attention import causal_attention_core, merge_heads, split_heads
+from ..ops.conv import center_tap_dense
 from ..ops.fused_block_quant import (fused_attn_block_quant,
                                      fused_block_quant, pack_block,
                                      packed_operands)
 from ..ops.int8 import int8_matmul, quantize_act
-from ..ops.norm import layer_norm
+from ..ops.norm import batch_norm_apply, layer_norm
+from ..ops.vq import nearest_codes
 from .transformer import linear
 
 
@@ -333,3 +337,82 @@ def quantized_classify(model, qparams, x_ids, *, fused_attention=False,
     if sat_rows is not None and ch["l2"].act_scale is not None:
         sat_rows.append(_row_clip_frac(h, ch["l2"].act_scale))
     return qdot(h, ch["l2"])
+
+
+# -- opt-in int8 VQ-VAE encoder for serving -----------------------------------
+#
+# The encoder's center-tap products (two per resblock and sep_conv)
+# become calibrated int8 `qdot`s; patch-embed, GELU, eval BatchNorm and
+# the VQ distances and argmin stay f32. The JAX package has no Pallas
+# kernel here, so these stay plain products too. The ids are no longer
+# bit-comparable with the f32 encoder's: quantization noise can flip
+# codes near Voronoi boundaries.
+
+
+def _bn(h: torch.Tensor, bn) -> torch.Tensor:
+    return batch_norm_apply(h, bn.weight, bn.bias, bn.running_mean,
+                            bn.running_var)
+
+
+@torch.no_grad()
+def calibrate_encoder_absmax(model, sample_cycles: torch.Tensor,
+                             margin: float = 1.25) -> dict:
+    """Eval-mode encoder forward on calibration cycles, recording the
+    absmax input of every center-tap product (x margin): sites
+    `b{i}_c1`, `b{i}_c2` and `sep`."""
+    am: dict[str, float] = {}
+
+    def rec(site, x):
+        am[site] = float(x.abs().max()) * margin
+        return x
+
+    h = model.patch_embed_out(sample_cycles)
+    for i, blk in enumerate(model.resblocks):
+        conv1, bn1, conv2, bn2 = (blk.block[j] for j in (1, 2, 4, 5))
+        c = center_tap_dense(rec(f"b{i}_c1", gelu(h)), conv1.weight,
+                             conv1.bias)
+        if model.batch_norm:
+            c = _bn(c, bn1)
+        c = center_tap_dense(rec(f"b{i}_c2", gelu(c)), conv2.weight,
+                             conv2.bias)
+        if model.batch_norm:
+            c = _bn(c, bn2)
+        h = h + c
+    rec("sep", h)
+    return am
+
+
+def quantize_encoder(model, enc_absmax: dict) -> dict:
+    """Per-output-channel int8 QLinears for every center-tap product of
+    the encoder (the conv kernel's center tap (O, I) is the port's
+    QLinear layout)."""
+    def tap(conv, site):
+        w = conv.weight
+        return quantize_linear(w[:, :, w.shape[-1] // 2], conv.bias,
+                               act_absmax=enc_absmax[site])
+
+    return {
+        "blocks": [{"c1": tap(blk.block[1], f"b{i}_c1"),
+                    "c2": tap(blk.block[4], f"b{i}_c2")}
+                   for i, blk in enumerate(model.resblocks)],
+        "sep": tap(model.encoder[1].shared_conv, "sep"),
+    }
+
+
+def encode_indices_quantized(model, qenc: dict,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode encode + nearest-code ids with int8 center-tap products;
+    the VQ distances and argmin stay f32 on the int8 z_e. x: (B,
+    seq_len, input_dim) -> (B, enc_out_len) int32."""
+    h = model.patch_embed_out(x)
+    for blk, q in zip(model.resblocks, qenc["blocks"]):
+        c = qdot(gelu(h), q["c1"])
+        if model.batch_norm:
+            c = _bn(c, blk.block[2])
+        c = qdot(gelu(c), q["c2"])
+        if model.batch_norm:
+            c = _bn(c, blk.block[5])
+        h = h + c
+    z_e = qdot(h, qenc["sep"])
+    flat = z_e.reshape(-1, model.embedding_dim)
+    return nearest_codes(flat, model.codebook).reshape(z_e.shape[:-1])

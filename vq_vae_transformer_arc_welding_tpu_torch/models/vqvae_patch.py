@@ -2,11 +2,13 @@
 
 Port of vq_vae_transformer_arc_welding_tpu/models/vqvae_patch.py
 (`VQVAEPatch`: hparams, encoder parameters, `encode`,
-`encode_indices`). Attribute paths are the reference Lightning keys
+`encode_indices`, `encode_zq`, `forward_ood` and the `vq_impl` runtime
+option). Attribute paths are the reference Lightning keys
 that vq_vae_transformer_arc_welding_tpu/train/torch_import.py reads:
 `patch_embed.proj.*`, `encoder.0.shared_conv.{i}.block.{1,2,4,5}.*`,
 `encoder.1.shared_conv.*` and `vector_quantization.embedding.weight`.
-The decoder, training forward and losses are not ported yet.
+The decoder, the training forward, the losses and the EMA (improved) VQ
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from ..ops.activations import gelu
 from ..ops.conv import center_tap_dense
 from ..ops.norm import batch_norm_apply
 from ..ops.patching import patch_embed
-from ..ops.vq import nearest_codes
+from ..ops.vq import nearest_codes, vq_lookup
 from .base import BatchNormParams, Node, Params, assign
 from .initializers import uniform, xavier_conv1d
 
@@ -50,15 +52,23 @@ class ResBlock(nn.Module):
 
 class VQVAEPatch(nn.Module):
     """hparams mirror the JAX VQVAEPatch constructor; the classic VQ
-    (codebook in `vector_quantization.embedding.weight`) only."""
+    (codebook in `vector_quantization.embedding.weight`) only.
+
+    vq_impl is a runtime option, not an hparam: 'xla' (the name is the
+    JAX package's) searches the nearest code in plain PyTorch
+    (ops/vq.nearest_codes); 'pallas' (again the JAX name) runs the fused
+    nearest-code kernel, CUDA on the card (ops/fused_vq.py)."""
 
     def __init__(self, hidden_dim: int, input_dim: int, num_embeddings: int,
                  embedding_dim: int, n_resblocks: int,
                  learning_rate: float = 1e-3, dropout_p: float = 0.1,
                  patch_size: int = 25, seq_len: int = 200,
                  batch_norm: bool = True, beta: float = 0.25, *,
+                 vq_impl: str = "xla",
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
+        if vq_impl not in ("xla", "pallas"):
+            raise ValueError(f"vq_impl {vq_impl!r}: 'xla' or 'pallas'")
         if (seq_len * input_dim) % patch_size:
             raise ValueError(f"patch_size {patch_size} does not divide "
                              f"{seq_len} x {input_dim} samples")
@@ -70,6 +80,7 @@ class VQVAEPatch(nn.Module):
         self.patch_size = patch_size
         self.seq_len = seq_len
         self.batch_norm = batch_norm
+        self.vq_impl = vq_impl
         # tokens per cycle: 200 // 25 * 2 = 16
         self.enc_out_len = seq_len // patch_size * input_dim
         self.hparams = dict(
@@ -134,11 +145,28 @@ class VQVAEPatch(nn.Module):
             h = blk(h)
         return self.sep_conv(h)
 
+    def _nearest_fn(self):
+        if self.vq_impl == "pallas":
+            from ..ops.fused_vq import nearest_codes_pallas
+            return nearest_codes_pallas
+        return nearest_codes
+
     def nearest(self, z_e: torch.Tensor) -> torch.Tensor:
-        """z_e (B, P, D) -> (B, P) int32 codebook ids."""
+        """z_e (B, P, D) -> (B, P) int32 codebook ids, by `vq_impl`."""
         flat = z_e.reshape(-1, self.embedding_dim)
-        return nearest_codes(flat, self.codebook).reshape(z_e.shape[:-1])
+        return self._nearest_fn()(flat, self.codebook).reshape(z_e.shape[:-1])
 
     def encode_indices(self, x: torch.Tensor) -> torch.Tensor:
         """Frozen-encoder token ids (B, enc_out_len), int32."""
         return self.nearest(self.encode(x))
+
+    def encode_zq(self, x: torch.Tensor) -> torch.Tensor:
+        """Frozen-encoder quantized vectors (B, enc_out_len, D)."""
+        return vq_lookup(self.encode_indices(x), self.codebook)
+
+    def forward_ood(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-sample OOD score, the latent quantization error: the mean
+        over (P, D) of (z_q - z_e)^2. x: (B, seq_len, C) -> (B,)."""
+        z_e = self.encode(x)
+        z_q = vq_lookup(self.nearest(z_e), self.codebook)
+        return ((z_q - z_e) ** 2).mean(dim=(1, 2))

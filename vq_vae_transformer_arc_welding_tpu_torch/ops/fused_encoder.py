@@ -1,28 +1,42 @@
-"""The eval-mode encoder resblock chain as one kernel per group of blocks.
+"""The eval-mode encoder on fused kernels: resblock groups and the edges.
 
-Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py
-(`_pack_encoder` as `pack_encoder`, `encode_indices_fused` and
-`fused_encoder_eval`, the pallas_call at :311). The kernel is
-`csrc/encoder_chain.cu` (`encoder_chain_f32`, hidden 512, the bench
-model's width); `fused_encoder_eval_reference` is its plain PyTorch
-version.
+Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py, all of
+it but the `compute_dtype` (bf16 product) variant, whose argument is
+left out here:
+
+- `fused_encoder_eval` (pallas_call at :311), kernel #1 ->
+  `fused_encoder_eval`, `encoder_chain_f32` in csrc/encoder_chain.cu;
+- `fused_resblock_eval` (:106), #3 -> `resblock_eval` and
+  `fused_resblock_eval`, `resblock_f32` in csrc/encoder_resblock.cu;
+- `fused_encoder_entry_eval` (:404), #4 -> `fused_encoder_entry_eval`,
+  `encoder_entry_f32` in csrc/encoder_edges.cu;
+- `fused_encoder_exit_eval` (:436), #5 -> `fused_encoder_exit_eval`,
+  `encoder_exit_f32` in csrc/encoder_edges.cu;
+
+and `_pack_encoder` as `pack_encoder`, `encoder_resblocks_fused`,
+`encode_indices_fused`, `encode_indices_fused_mono` and
+`encode_indices_fused_edges`. Each `*_reference` is its kernel's plain
+PyTorch version. The kernels are built for hidden 512, the bench
+model's width.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 
-The weights are packed once (`pack_encoder`, at pipeline
-construction) and passed to `encode_indices_fused`, not repacked per
-request.
+The weights are packed once (`pack_encoder` and, for the edges,
+`pack_encoder_edges`, at pipeline construction) and passed to the
+`encode_indices_*` functions, not repacked per request as the JAX
+functions repack them under jit; the per-resblock path takes views of
+the same pack.
 
-GELU: the kernel uses the exact erf (`erff`), like the plain version
-and the JAX package's XLA encoder. The Pallas kernel's Abramowitz &
+GELU: the kernels use the exact erf (`erff`), like the plain versions
+and the JAX package's XLA encoder. The Pallas kernels' Abramowitz &
 Stegun erf was a workaround for Mosaic and is not carried over.
 
-Group size: `encode_indices_fused` keeps the JAX rule, as many blocks
-per call as fit 8 MB of f32 weights, i.e. 4 at hidden 512, so the port
-makes the same calls as the reference. On Hopper the weights come from
-L2 whatever the group, so the group size only sets how often the
-(N, C) residual stream crosses device memory between calls.
+Group size: the default keeps the JAX rule, as many blocks per call as
+fit 8 MB of f32 weights, i.e. 4 at hidden 512, so the port makes the
+same calls as the reference. On Hopper the weights come from L2
+whatever the group, so the group size only sets how often the (N, C)
+residual stream crosses device memory between calls.
 """
 from __future__ import annotations
 
@@ -31,9 +45,13 @@ import torch
 from .. import kernels
 from .activations import gelu
 from .norm import batch_norm_apply
+from .patching import patchify
+from .vq import nearest_codes
 
-_KERNEL = "encoder_chain_f32"
+_CHAIN, _RESBLOCK = "encoder_chain_f32", "resblock_f32"
+_ENTRY, _EXIT = "encoder_entry_f32", "encoder_exit_f32"
 _KERNEL_WIDTH = 512
+_TILE_FLOATS = 32 * _KERNEL_WIDTH   # the kernels' A tile, reused by the exit
 
 
 def _center_tap(kernel: torch.Tensor) -> torch.Tensor:
@@ -60,73 +78,310 @@ def pack_encoder(model) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(ws).contiguous(), torch.stack(vs).contiguous()
 
 
+def pack_encoder_edges(model) -> tuple[torch.Tensor, ...]:
+    """The operands of the encoder's two ends, contiguous: patch-embed
+    w_pe (patch, C) and b_pe (C,), sep_conv's center tap w_sep (C, D) in
+    (in, out) layout and b_sep (D,)."""
+    pe, sep = model.patch_embed.proj, model.encoder[1].shared_conv
+    return (pe.weight[:, 0, :].t().contiguous(), pe.bias,
+            _center_tap(sep.weight).t().contiguous(), sep.bias)
+
+
+# -- plain versions ------------------------------------------------------------
+
+def fused_resblock_eval_reference(x: torch.Tensor, w1: torch.Tensor,
+                                  w2: torch.Tensor, vec: torch.Tensor, *,
+                                  use_bn: bool) -> torch.Tensor:
+    """Plain version of the one-resblock kernel. x (N, C); w1, w2 (C, C)
+    in (in, out) layout; vec (10, C). Returns (N, C)."""
+    c = gelu(x) @ w1 + vec[0]
+    if use_bn:
+        c = batch_norm_apply(c, vec[3], vec[4], vec[1], vec[2])
+    c = gelu(c) @ w2 + vec[5]
+    if use_bn:
+        c = batch_norm_apply(c, vec[8], vec[9], vec[6], vec[7])
+    return x + c
+
+
 def fused_encoder_eval_reference(x: torch.Tensor, weights: torch.Tensor,
                                  vecs: torch.Tensor, *,
                                  use_bn: bool) -> torch.Tensor:
-    """Plain PyTorch version of the kernel. x: (N, C) f32; weights
+    """Plain version of the chain kernel. x: (N, C) f32; weights
     (2n, C, C) in (in, out) layout; vecs (10n, C). Returns (N, C)."""
     for i in range(weights.shape[0] // 2):
-        v = vecs[10 * i:10 * (i + 1)]
-        c = gelu(x) @ weights[2 * i] + v[0]
-        if use_bn:
-            c = batch_norm_apply(c, v[3], v[4], v[1], v[2])
-        c = gelu(c) @ weights[2 * i + 1] + v[5]
-        if use_bn:
-            c = batch_norm_apply(c, v[8], v[9], v[6], v[7])
-        x = x + c
+        x = fused_resblock_eval_reference(
+            x, weights[2 * i], weights[2 * i + 1],
+            vecs[10 * i:10 * (i + 1)], use_bn=use_bn)
     return x
+
+
+def fused_encoder_entry_eval_reference(patches, w_pe, b_pe, weights, vecs, *,
+                                       use_bn: bool) -> torch.Tensor:
+    """Plain version of the entry kernel: patch-embed, then the chain."""
+    return fused_encoder_eval_reference(patches @ w_pe + b_pe, weights, vecs,
+                                        use_bn=use_bn)
+
+
+def fused_encoder_exit_eval_reference(x, weights, vecs, w_sep, b_sep,
+                                      codebook, *,
+                                      use_bn: bool) -> torch.Tensor:
+    """Plain version of the exit kernel: the chain, sep_conv, and the
+    nearest code by the z^2 + e^2 - 2 z.e distances with the first index
+    among the minima, which is ops/vq.nearest_codes. Returns (N,) int32."""
+    x = fused_encoder_eval_reference(x, weights, vecs, use_bn=use_bn)
+    return nearest_codes(x @ w_sep + b_sep, codebook)
+
+
+# -- wrappers ------------------------------------------------------------------
+
+def _on_card(name: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version's case); raises for any
+    device that is neither."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    return True
+
+
+def _require_chain(name: str, c: int, weights, vecs, dev) -> int:
+    """Check a group's packed operands; returns its number of blocks."""
+    nb = weights.shape[0] // 2
+    if c != _KERNEL_WIDTH or weights.shape[0] != 2 * nb or nb < 1:
+        raise ValueError(f"{name}: hidden {c} / {weights.shape[0]} "
+                         f"matrices not supported (hidden "
+                         f"{_KERNEL_WIDTH}, an even count)")
+    kernels.require(weights, "weights", torch.float32, (2 * nb, c, c), dev)
+    kernels.require(vecs, "vecs", torch.float32, (10 * nb, c), dev)
+    return nb
 
 
 def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
                        vecs: torch.Tensor, *, use_bn: bool) -> torch.Tensor:
     """n = weights.shape[0] // 2 eval resblocks on (N, C) f32 rows."""
-    if x.device.type == "cpu":
+    if not _on_card(_CHAIN, x):
         return fused_encoder_eval_reference(x, weights, vecs, use_bn=use_bn)
-    if x.device.type != "cuda":
-        raise ValueError(f"{_KERNEL}: no kernel for device {x.device}")
     n, c = x.shape
-    nb = weights.shape[0] // 2
-    if c != _KERNEL_WIDTH or weights.shape[0] != 2 * nb or nb < 1:
-        raise ValueError(f"{_KERNEL}: hidden {c} / {weights.shape[0]} "
-                         f"matrices not supported (hidden "
-                         f"{_KERNEL_WIDTH}, an even count)")
+    nb = _require_chain(_CHAIN, c, weights, vecs, x.device)
     kernels.require(x, "x", torch.float32, (n, c), x.device)
-    kernels.require(weights, "weights", torch.float32, (2 * nb, c, c),
-                    x.device)
-    kernels.require(vecs, "vecs", torch.float32, (10 * nb, c), x.device)
     out = torch.empty_like(x)
     if n == 0:
         return out
     lib = kernels.library()
-    kernels.launches[_KERNEL] += 1
+    kernels.launches[_CHAIN] += 1
     err = lib.encoder_chain_f32(x.data_ptr(), weights.data_ptr(),
                                 vecs.data_ptr(), out.data_ptr(), n, c, nb,
                                 int(use_bn), kernels.stream_ptr(x.device))
-    kernels.check(err, _KERNEL)
+    kernels.check(err, _CHAIN)
     return out
 
+
+def resblock_eval(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  vec: torch.Tensor, *, use_bn: bool) -> torch.Tensor:
+    """One eval resblock on (N, C) f32 rows, operand-level: w1, w2 (C, C)
+    in (in, out) layout, vec (10, C) as a resblock's rows of
+    `pack_encoder`."""
+    if not _on_card(_RESBLOCK, x):
+        return fused_resblock_eval_reference(x, w1, w2, vec, use_bn=use_bn)
+    n, c = x.shape
+    dev = x.device
+    if c != _KERNEL_WIDTH:
+        raise ValueError(f"{_RESBLOCK}: hidden {c} not supported (hidden "
+                         f"{_KERNEL_WIDTH})")
+    kernels.require(x, "x", torch.float32, (n, c), dev)
+    kernels.require(w1, "w1", torch.float32, (c, c), dev)
+    kernels.require(w2, "w2", torch.float32, (c, c), dev)
+    kernels.require(vec, "vec", torch.float32, (10, c), dev)
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    lib = kernels.library()
+    kernels.launches[_RESBLOCK] += 1
+    err = lib.resblock_f32(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                           vec.data_ptr(), out.data_ptr(), n, c, int(use_bn),
+                           kernels.stream_ptr(dev))
+    kernels.check(err, _RESBLOCK)
+    return out
+
+
+def fused_resblock_eval(x, w1, b1, bn1, w2, b2, bn2, *,
+                        use_bn: bool = True) -> torch.Tensor:
+    """The JAX function's signature: x (N, C) f32; w1/w2 (C, C) center-tap
+    matrices already in (in, out) layout; b1/b2 (C,); bn1/bn2 (mean, var,
+    scale, bias) tuples of (C,) eval statistics (zeros when use_bn is
+    False). Stacks the (10, C) vector rows and runs `resblock_eval`."""
+    vec = torch.stack([b1, *bn1, b2, *bn2]).float()
+    return resblock_eval(x, w1, w2, vec, use_bn=use_bn)
+
+
+def fused_encoder_entry_eval(patches, w_pe, b_pe, weights, vecs, *,
+                             use_bn: bool = True) -> torch.Tensor:
+    """patch-embed + the first resblock group in one kernel. patches
+    (N, patch) f32 from ops/patching.patchify; w_pe (patch, C); b_pe
+    (C,). Returns (N, C) f32; the patch-embed output stays in the
+    kernel."""
+    if not _on_card(_ENTRY, patches):
+        return fused_encoder_entry_eval_reference(patches, w_pe, b_pe,
+                                                  weights, vecs,
+                                                  use_bn=use_bn)
+    n, pz = patches.shape
+    c = w_pe.shape[1]
+    dev = patches.device
+    nb = _require_chain(_ENTRY, c, weights, vecs, dev)
+    if not 1 <= pz <= _KERNEL_WIDTH:
+        raise ValueError(f"{_ENTRY}: patch size {pz} not supported (1 to "
+                         f"{_KERNEL_WIDTH})")
+    kernels.require(patches, "patches", torch.float32, (n, pz), dev)
+    kernels.require(w_pe, "w_pe", torch.float32, (pz, c), dev)
+    kernels.require(b_pe, "b_pe", torch.float32, (c,), dev)
+    out = torch.empty((n, c), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = kernels.library()
+    kernels.launches[_ENTRY] += 1
+    err = lib.encoder_entry_f32(patches.data_ptr(), w_pe.data_ptr(),
+                                b_pe.data_ptr(), weights.data_ptr(),
+                                vecs.data_ptr(), out.data_ptr(), n, pz, c, nb,
+                                int(use_bn), kernels.stream_ptr(dev))
+    kernels.check(err, _ENTRY)
+    return out
+
+
+def fused_encoder_exit_eval(x, weights, vecs, w_sep, b_sep, codebook, *,
+                            use_bn: bool = True) -> torch.Tensor:
+    """The last resblock group + sep_conv + the nearest code in one
+    kernel. x (N, C) f32; w_sep (C, D); b_sep (D,); codebook (K, D).
+    Returns (N,) int32 ids; z and the distances stay in the kernel."""
+    if not _on_card(_EXIT, x):
+        return fused_encoder_exit_eval_reference(x, weights, vecs, w_sep,
+                                                 b_sep, codebook,
+                                                 use_bn=use_bn)
+    n, c = x.shape
+    k, d = codebook.shape
+    dev = x.device
+    nb = _require_chain(_EXIT, c, weights, vecs, dev)
+    if d not in (8, 16, 32, 64) or not 1 <= k * (d + 2) <= _TILE_FLOATS:
+        raise ValueError(f"{_EXIT}: a ({k}, {d}) codebook is not supported: "
+                         f"D of 8, 16, 32 or 64 and K * (D + 2) up to "
+                         f"{_TILE_FLOATS}")
+    kernels.require(x, "x", torch.float32, (n, c), dev)
+    kernels.require(w_sep, "w_sep", torch.float32, (c, d), dev)
+    kernels.require(b_sep, "b_sep", torch.float32, (d,), dev)
+    kernels.require(codebook, "codebook", torch.float32, (k, d), dev)
+    if codebook.data_ptr() % 16:
+        raise ValueError(f"{_EXIT}: codebook must be 16-byte aligned")
+    ids = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return ids
+    lib = kernels.library()
+    kernels.launches[_EXIT] += 1
+    err = lib.encoder_exit_f32(x.data_ptr(), weights.data_ptr(),
+                               vecs.data_ptr(), w_sep.data_ptr(),
+                               b_sep.data_ptr(), codebook.data_ptr(),
+                               ids.data_ptr(), n, c, nb, int(use_bn), d, k,
+                               kernels.stream_ptr(dev))
+    kernels.check(err, _EXIT)
+    return ids
+
+
+# -- the encoder on the kernels ------------------------------------------------
 
 def group_size_for(hidden: int) -> int:
     """Resblocks per call: as many as fit 8 MB of f32 weights (the JAX rule)."""
     return max(1, (8 << 20) // (2 * hidden * hidden * 4))
 
 
-def encode_indices_fused(model, packed: tuple[torch.Tensor, torch.Tensor],
-                         x: torch.Tensor) -> torch.Tensor:
-    """VQVAEPatch.encode_indices with the resblock chain on the fused
-    kernel, `group_size_for(hidden)` blocks per call; patch-embed,
-    sep_conv and the nearest-code argmin stay plain PyTorch. packed:
-    `pack_encoder(model)`. x: (B, seq_len, input_dim) -> (B,
-    enc_out_len) int32."""
-    group_size = group_size_for(model.hidden_dim)
-    h = model.patch_embed_out(x)
+def _chain_groups(flat, weights, vecs, s0: int, s1: int, group_size: int,
+                  use_bn: bool) -> torch.Tensor:
+    """Resblocks s0..s1 through the chain kernel, group_size per call."""
+    for g0 in range(s0, s1, group_size):
+        g1 = min(g0 + group_size, s1)
+        flat = fused_encoder_eval(flat, weights[2 * g0:2 * g1],
+                                  vecs[10 * g0:10 * g1], use_bn=use_bn)
+    return flat
+
+
+def _sep_nearest(model, flat: torch.Tensor, b: int, p: int) -> torch.Tensor:
+    """sep_conv and the plain nearest-code search on the chain's output,
+    whatever the model's vq_impl (as the JAX functions)."""
+    z_e = model.sep_conv(flat.reshape(b, p, -1))
+    return nearest_codes(z_e.reshape(-1, model.embedding_dim),
+                         model.codebook).reshape(b, p)
+
+
+def encoder_resblocks_fused(model, packed, h: torch.Tensor) -> torch.Tensor:
+    """All encoder resblocks, one launch of the one-resblock kernel each,
+    on views of `packed`. h: (B, P, C) patch-embed output -> (B, P, C),
+    the input to sep_conv."""
     b, p, c = h.shape
     weights, vecs = packed
     flat = h.reshape(b * p, c)
+    for i in range(model.n_resblocks):
+        flat = resblock_eval(flat, weights[2 * i], weights[2 * i + 1],
+                             vecs[10 * i:10 * (i + 1)],
+                             use_bn=model.batch_norm)
+    return flat.reshape(b, p, c)
+
+
+def encode_indices_fused(model, packed: tuple[torch.Tensor, torch.Tensor],
+                         x: torch.Tensor, *,
+                         group_size: int | None = None) -> torch.Tensor:
+    """VQVAEPatch.encode_indices with the resblock chain on the fused
+    kernels; patch-embed, sep_conv and the nearest-code argmin stay
+    plain PyTorch. group_size: resblocks per call (default
+    `group_size_for(hidden)`); above 1 the chain kernel runs each group,
+    at 1 the one-resblock kernel runs each block. packed:
+    `pack_encoder(model)`. x: (B, seq_len, input_dim) -> (B,
+    enc_out_len) int32."""
+    if group_size is None:
+        group_size = group_size_for(model.hidden_dim)
+    h = model.patch_embed_out(x)
+    b, p, c = h.shape
+    if group_size > 1:
+        flat = _chain_groups(h.reshape(b * p, c), *packed, 0,
+                             model.n_resblocks, group_size, model.batch_norm)
+    else:
+        flat = encoder_resblocks_fused(model, packed, h)
+    return _sep_nearest(model, flat, b, p)
+
+
+def encode_indices_fused_mono(model, packed,
+                              x: torch.Tensor) -> torch.Tensor:
+    """encode_indices_fused with the whole resblock stack in one launch
+    of the chain kernel."""
+    h = model.patch_embed_out(x)
+    b, p, c = h.shape
+    weights, vecs = packed
+    flat = fused_encoder_eval(h.reshape(b * p, c), weights, vecs,
+                              use_bn=model.batch_norm)
+    return _sep_nearest(model, flat, b, p)
+
+
+def encode_indices_fused_edges(model, packed, edges, x: torch.Tensor, *,
+                               group_size: int | None = None) -> torch.Tensor:
+    """encode_indices_fused with the encoder's ends in the kernels too:
+    patch-embed rides the first group's kernel, sep_conv and the
+    nearest-code argmin the last one's: cycles in, int32 ids out, and
+    only the residual stream between launches. Needs at least two
+    groups; with fewer it is encode_indices_fused. packed:
+    `pack_encoder(model)`; edges: `pack_encoder_edges(model)`."""
+    if group_size is None:
+        group_size = group_size_for(model.hidden_dim)
     nb = model.n_resblocks
-    for s0 in range(0, nb, group_size):
-        s1 = min(s0 + group_size, nb)
-        flat = fused_encoder_eval(flat, weights[2 * s0:2 * s1],
-                                  vecs[10 * s0:10 * s1],
-                                  use_bn=model.batch_norm)
-    return model.nearest(model.sep_conv(flat.reshape(b, p, c)))
+    if nb < 2 * group_size:
+        return encode_indices_fused(model, packed, x, group_size=group_size)
+    b = x.shape[0]
+    patches = patchify(x, model.patch_size)
+    n_p = patches.shape[1]
+    weights, vecs = packed
+    w_pe, b_pe, w_sep, b_sep = edges
+    use_bn = model.batch_norm
+    last = (nb - 1) // group_size * group_size     # the last group's start
+    flat = fused_encoder_entry_eval(
+        patches.reshape(b * n_p, model.patch_size), w_pe, b_pe,
+        weights[:2 * group_size], vecs[:10 * group_size], use_bn=use_bn)
+    flat = _chain_groups(flat, weights, vecs, group_size, last, group_size,
+                         use_bn)
+    ids = fused_encoder_exit_eval(flat, weights[2 * last:], vecs[10 * last:],
+                                  w_sep, b_sep, model.codebook, use_bn=use_bn)
+    return ids.reshape(b, n_p)

@@ -2,9 +2,10 @@
 
 Port of vq_vae_transformer_arc_welding_tpu/serve.py
 (`WeldingQualityPipeline`: `__init__`, `calibrate`, `classify`,
-`encode_tokens`, the in-path saturation monitor, the `saturation_rate`
-probe). Artifacts, OOD scores, sampling, meshes and the int8 encoder
-are not ported yet.
+`encode_tokens`, `ood_score`, the in-path saturation monitor, the
+`saturation_rate` probe, and the opt-in int8 encoder,
+`encoder_precision='int8'`). Artifacts, sampling and meshes are not
+ported yet.
 
 Chunking follows data/latent.py::_chunked_device_map: requests run in
 chunks of at most `max_batch` windows. The JAX version padded every
@@ -43,15 +44,25 @@ class WeldingQualityPipeline:
 
     def __init__(self, vqvae, transformer, n_cycles: int,
                  max_batch: int = 64, precision: str = "f32",
-                 start_token: int | None = None, encoder_impl: str = "xla",
+                 start_token: int | None = None,
+                 encoder_precision: str = "f32", encoder_impl: str = "xla",
                  monitor_saturation: bool = True):
         """precision: 'f32' (exact) or 'int8' (calibrated int8 with the
         fused attention half per block; call calibrate() first).
+
+        encoder_precision: 'int8' (opt-in, call calibrate() first)
+        quantizes the encoder's center-tap products. It then serves
+        every entry, encode_tokens() included, and the codebook ids are
+        no longer bit-comparable with the f32 encoder's: measure the
+        flip rate and the label agreement on your checkpoint first
+        (models/quantized.encode_indices_quantized).
 
         encoder_impl: 'xla' keeps classify()'s encoder on the plain
         PyTorch path (the name is the JAX package's); 'fused' runs the
         resblock chain through the encoder kernel. encode_tokens() and
         calibrate() always use the plain encoder, as in the JAX package.
+        With a `vq_impl='pallas'` model the plain encoder's nearest-code
+        search is the fused kernel of ops/fused_vq.py.
         The kernel's weight operands are packed here, once: the pipeline
         serves the encoder weights it was constructed with, as the JAX
         pipeline serves the params it was given.
@@ -65,6 +76,9 @@ class WeldingQualityPipeline:
         rely on full f32 accumulation."""
         if precision not in ("f32", "int8"):
             raise ValueError(f"precision {precision!r}: 'f32' or 'int8'")
+        if encoder_precision not in ("f32", "int8"):
+            raise ValueError(f"encoder_precision {encoder_precision!r}: "
+                             f"'f32' or 'int8'")
         if encoder_impl not in ("xla", "fused"):
             raise ValueError(f"encoder_impl {encoder_impl!r}: 'xla' or "
                              f"'fused'")
@@ -76,7 +90,9 @@ class WeldingQualityPipeline:
         self.n_cycles = n_cycles
         self.max_batch = max_batch
         self.precision = precision
+        self.encoder_precision = encoder_precision
         self.encoder_impl = encoder_impl
+        self.qenc = None
         self._encoder_pack = None
         if encoder_impl == "fused":
             with torch.no_grad():
@@ -90,14 +106,23 @@ class WeldingQualityPipeline:
 
     # -- per-chunk cores ---------------------------------------------------
 
+    def _encode_cycles(self, cycles: torch.Tensor, *, fused: bool):
+        if self.encoder_precision == "int8":
+            if self.qenc is None:
+                raise RuntimeError(
+                    "encoder_precision='int8' requires calibrate(sample) "
+                    "first")
+            from .models.quantized import encode_indices_quantized
+            return encode_indices_quantized(self.vq_model, self.qenc, cycles)
+        if fused and self._encoder_pack is not None:
+            return encode_indices_fused(self.vq_model, self._encoder_pack,
+                                        cycles)
+        return self.vq_model.encode_indices(cycles)
+
     def _encode_fn(self, x: torch.Tensor, *, fused: bool = False):
         b = x.shape[0]
         cycles = x.reshape(b * self.n_cycles, CYCLE_LEN, 2)
-        if fused and self._encoder_pack is not None:
-            ids = encode_indices_fused(self.vq_model, self._encoder_pack,
-                                       cycles)
-        else:
-            ids = self.vq_model.encode_indices(cycles)
+        ids = self._encode_cycles(cycles, fused=fused)
         return ids.reshape(b, self.n_cycles * self.vq_model.enc_out_len)
 
     def _classify_fn(self, x: torch.Tensor):
@@ -148,11 +173,21 @@ class WeldingQualityPipeline:
                   max_samples: int | None = None) -> dict:
         """Calibrate the int8 activation scales on representative windows
         (required before classify() when precision='int8'). Returns the
-        absmax table."""
+        absmax table. With encoder_precision='int8' it first calibrates
+        and quantizes the encoder on the sample's cycles; the ids the
+        transformer is calibrated on then come from the int8 encoder."""
         from .models.quantized import (calibrate_activation_absmax,
                                        quantize_transformer)
         if max_samples is not None:
             sample_windows = sample_windows[:max_samples]
+        if self.encoder_precision == "int8":
+            from .models.quantized import (calibrate_encoder_absmax,
+                                           quantize_encoder)
+            cyc = torch.as_tensor(self._windows(sample_windows, "calibrate")
+                                  ).reshape(-1, CYCLE_LEN, 2).to(self.device)
+            with torch.inference_mode():
+                enc_am = calibrate_encoder_absmax(self.vq_model, cyc)
+                self.qenc = quantize_encoder(self.vq_model, enc_am)
         ids = self.encode_tokens(sample_windows)
         with torch.inference_mode():
             ids = with_start_token(torch.as_tensor(ids).to(self.device),
@@ -206,6 +241,14 @@ class WeldingQualityPipeline:
 
     def encode_tokens(self, windows: np.ndarray) -> np.ndarray:
         """(N, n_cycles*200, 2) -> (N, n_cycles*16) int32 codebook ids,
-        always from the plain (exact) encoder."""
+        from the plain (exact) encoder, or from the int8 encoder when
+        encoder_precision='int8'."""
         return self._batched(self._encode_fn,
                              self._windows(windows, "encode_tokens"))
+
+    def ood_score(self, cycles: np.ndarray) -> np.ndarray:
+        """(N, 200, 2) single cycles -> per-sample quantization-error
+        OOD score (N,), `VQVAEPatch.forward_ood` in chunks of
+        max_batch."""
+        return self._batched(self.vq_model.forward_ood,
+                             self._windows(cycles, "ood_score"))
