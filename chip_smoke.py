@@ -38,6 +38,22 @@ edges encoder followed by the 'full' transformer against the 'full'
 pipeline. Each kernel's bound, the least time the card could take for
 the same work, is computed from the shapes of this run (`kernel_work`).
 
+Then token sampling, at the sampling batch of 16 and 320 KV-cached
+steps: `sample_tokens` on the calibrated pipeline (fresh and from a
+prompt), `generate_kv` greedy as 'xla', 'fused' (which must launch the
+block-decode kernel once per block and token and nothing else), with a
+bf16 cache, bf16 weights and `cache_buckets=64`, `quantized_generate_kv`
+at batch 16 and 1, the attention-half kernel driven through
+`fused_decode_attn` per block, and an `attention_impl='pallas'` model
+through `make_pipeline` and `generate`. Free-running ids part for good
+after one flip, so each variant is held by forced sequence: along the
+'xla' ids its step logits against the plain step's at every position,
+and where a free run leaves the 'xla' ids the plain top-2 margin there
+must be a near-tie. The three kernels are held against their plain
+versions on the model's own activations (every cache row but `pos`
+bit-equal to before), every variant's ms per token is timed, and a
+device trace counts the operations and the device time of a token.
+
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
 its power limit as nvidia-smi reports them, and the one before that
@@ -71,6 +87,16 @@ MAX_F32_ERR = 1e-3          # f32 outputs (x_mid, block and MLP out)
 LABEL_MARGIN = 1e-3         # labels compared where |logit0 - logit1| > this
 MIN_DISTINCT_FRAC = 0.25    # codebook scaled if fewer of K codes are used
 TILE_ROWS = 32              # rows per block of the encoder kernels' tile
+SAMPLE_BATCH = 16           # streams per generation (scripts/bench_decode.py)
+SAMPLE_STEPS = 320          # KV-cached steps from one start token
+DECODE_POSITIONS = (0, 127, 128, 320)   # the decode kernels are held here
+TIMED_POSITIONS = (160, 320)            # and timed here; the record: the first
+MAX_STEP_ERR = 1e-4         # f32 step logits against the plain step's
+MAX_BF16_STEP_ERR = 5e-2    # the same with a bf16 cache or bf16 weights
+MAX_Q_STEP_ERR = 5e-2       # int8 cached step against the full int8 forward
+NEAR_TIE = 1e-3             # a plain top-2 margin below this may flip
+MAX_DECODE_ERR = 1e-4       # #12, #13: residual stream against plain
+MAX_ROW_ERR = 2e-5          # #12, #13: the written K/V row; #9: its output
 
 ENC, ATTN, ATTN8 = ("encoder_chain_f32", "attn_block_quant",
                     "attn_block_quant_int8attn")
@@ -79,6 +105,8 @@ RES, ENTRY, EXIT, NEAREST = ("resblock_f32", "encoder_entry_f32",
 FULL, FULL8 = "block_quant", "block_quant_int8attn"
 MLP, QKV, CAUSAL = ("mlp_quant", "qkv_attention_quant",
                     "causal_attention_quant")
+FLASH, DEC_ATTN, DEC_BLOCK = ("flash_attention_f32", "decode_attn_f32",
+                              "block_decode_f32")
 # name, make_pipeline_quantized options, the kernels the path launches
 PATHS = (
     ("attn", {"block_fusion": "attn"}, {ENC, ATTN}),
@@ -125,6 +153,9 @@ RECORD = {
     MLP: ("mlp_quant.cu", "pallas_mlp_quant.py:67"),
     QKV: ("attn_quant.cu", "pallas_attn_quant.py:164"),
     CAUSAL: ("attn_quant.cu", "pallas_attn_quant.py:214"),
+    FLASH: ("flash_attn.cu", "pallas_attn.py:73"),
+    DEC_ATTN: ("decode.cu", "pallas_decode.py:149"),
+    DEC_BLOCK: ("decode.cu", "pallas_decode.py:371"),
 }
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -133,14 +164,16 @@ PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 
-def kernel_work(n_rows, c, grp, patch, d, k, b, t, n_head):
+def kernel_work(n_rows, c, grp, patch, d, k, b, t, n_head, dec_b, dec_pos):
     """{kernel: (bytes, {type: operations})} at this run's shapes: the
     bytes each kernel must move (every input read once, every output
     written once) and the operations of its products by operand type (a
     multiply-add is two; LayerNorm, GELU, softmax and the other
     elementwise work are left out, so a bound is a lower one).
     n_rows x c encoder rows, grp resblocks per chain call, a (k, d)
-    codebook; the transformer's (b, t, c) stream with n_head heads."""
+    codebook; the transformer's (b, t, c) stream with n_head heads; a
+    decode step of dec_b streams at position dec_pos, which reads the
+    dec_pos cache rows before it and writes one."""
     f4 = 4
     x = n_rows * c * f4                         # the encoder's residual stream
     block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
@@ -150,7 +183,17 @@ def kernel_work(n_rows, c, grp, patch, d, k, b, t, n_head):
     attn = b * n_head * (t * (t + 1) // 2) * (c // n_head) * 2 * 2
     qkv, proj, mlp = (2 * m * c * 3 * c, 2 * m * c * c, 2 * 2 * m * c * 4 * c)
     w_attn, w_mlp = 4 * c * c, 8 * c * c        # int8 weights
+    # a decode step: f32 weights with their biases and LayerNorm rows,
+    # the token rows in and out, the K and V rows read and written
+    dec_attn_w = (w_attn + 6 * c) * f4
+    dec_mlp_w = (w_mlp + 7 * c) * f4
+    dec_io = (2 * dec_b * c + 2 * dec_b * (dec_pos + 1) * c) * f4
+    dec_attn_ops = dec_b * 2 * (w_attn + 2 * (dec_pos + 1) * c)
     return {
+        FLASH: (4 * xs, {"f32": 4 * b * n_head * t * t * (c // n_head) // 2}),
+        DEC_ATTN: (dec_attn_w + dec_io, {"f32": dec_attn_ops}),
+        DEC_BLOCK: (dec_attn_w + dec_mlp_w + dec_io,
+                    {"f32": dec_attn_ops + dec_b * 2 * w_mlp}),
         ENC: (2 * x + grp * block_w, {"f32": grp * block_ops}),
         RES: (2 * x + block_w, {"f32": block_ops}),
         ENTRY: (n_rows * patch * f4 + (patch + 1) * c * f4 + x
@@ -204,12 +247,14 @@ def gpu_name_and_power() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def timed_in_turns(fns: dict, reps: int = REPS, warmup: int = 3) -> dict:
+def timed_in_turns(fns: dict, reps: int = REPS, warmup: int = 3,
+                   per: int = 1) -> dict:
     """Time of each fn() in ms, CUDA events around each call, after
     warm-up. The functions take turns and the order flips every
     repetition (a b, b a, ...), so that a drift of clocks or load falls
-    on all of them alike. Returns {name: (median, first quartile,
-    third quartile)}."""
+    on all of them alike. `per`: the units of work in one fn() (tokens
+    of a generation, kernel calls of a loop); times are per unit.
+    Returns {name: (median, first quartile, third quartile)}."""
     import torch
     for _ in range(warmup):
         for fn in fns.values():
@@ -224,12 +269,36 @@ def timed_in_turns(fns: dict, reps: int = REPS, warmup: int = 3) -> dict:
             fns[name]()
             end.record()
             end.synchronize()
-            times[name].append(start.elapsed_time(end))
+            times[name].append(start.elapsed_time(end) / per)
     out = {}
     for name, ts in times.items():
         q1, _, q3 = statistics.quantiles(ts, n=4)
         out[name] = (statistics.median(ts), q1, q3)
     return out
+
+
+def device_profile(fn):
+    """What one fn() puts on the card, from torch.profiler's device
+    trace: (operations, their summed device time in ms, the five names
+    that take most of it as [(name, count, ms)]). (0, None, []) where the
+    trace holds no device event. fn() runs once before, untraced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in dev)
+    if not n:
+        return 0, None, []
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    return (n, sum(e.self_device_time_total for e in dev) / 1e3,
+            [(e.key.replace("(anonymous namespace)::", "").replace(
+                "void ", ""), e.count, e.self_device_time_total / 1e3)
+             for e in dev[:5]])
 
 
 def fmt_ms(t: tuple) -> str:
@@ -249,10 +318,16 @@ def plain_path():
     """The same serving paths with every kernel wrapper replaced by its
     plain PyTorch version (the CUDA wrappers would launch the kernels)."""
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-        fused_attn_quant as fattn, fused_block_quant as fbq,
+        fused_attn as fflash, fused_attn_quant as fattn,
+        fused_block_quant as fbq, fused_decode as fdec,
         fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
     with contextlib.ExitStack() as stack:
         for mod, name, plain in (
+                (fflash, "flash_causal_attention",
+                 fflash.flash_causal_attention_reference),
+                (fdec, "fused_decode_attn", fdec.fused_decode_attn_reference),
+                (fdec, "fused_block_decode",
+                 fdec.fused_block_decode_reference),
                 (fenc, "fused_encoder_eval",
                  fenc.fused_encoder_eval_reference),
                 (fenc, "resblock_eval", fenc.fused_resblock_eval_reference),
@@ -349,6 +424,404 @@ class Worst:
             if key in table:
                 return table[key]
         return float(self.step[key])
+
+
+def first_departures(ids, ref):
+    """Per row, the first index where ids leaves ref, or -1."""
+    diff = ids != ref
+    first = diff.int().argmax(dim=1)
+    return [int(f) if bool(d.any()) else -1 for f, d in zip(first, diff)]
+
+
+def sampling_phase(vq, tr, pipe, req, smi: str) -> dict:
+    """Token sampling at full width (see the module docstring). Returns
+    what the kernels' record needs of #9, #12 and #13: `launched`
+    {kernel: (path, launches)}, `err`, `times` and `library_ms`."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import (
+        build, make_pipeline)
+    from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
+        quantized_generate_kv, quantized_lm_logits)
+    from vq_vae_transformer_arc_welding_tpu_torch.models.transformer import (
+        linear)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_attn as fflash, fused_decode as fdec)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.activations import (
+        new_gelu)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.attention import (
+        merge_heads, split_heads)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+
+    dev = tr.pe.device
+    qp = pipe.qparams
+    nb, nh, c, t = tr.n_blocks, tr.n_head, tr.d_model, tr.seq_len
+    bs, steps = SAMPLE_BATCH, SAMPLE_STEPS
+    launched, err, times = {}, {}, {}
+
+    def valid_ids(ids, shape, what):
+        check(tuple(ids.shape) == shape, f"{what}: ids {tuple(ids.shape)}")
+        check(0 <= int(ids.min()) and int(ids.max()) < tr.n_classes,
+              f"{what}: ids out of range")
+
+    # -- S1. sample_tokens on the calibrated pipeline: no decode kernel ----
+    prompt = pipe.encode_tokens(req[:bs])[:, :32]
+    (fresh, cont), counts = counted(lambda: (
+        pipe.sample_tokens(bs, top_k=5, seed=SEED, num_steps=steps),
+        pipe.sample_tokens(prompt=prompt, top_k=5, seed=SEED, num_steps=64)))
+    check(counts == {}, f"sample_tokens launched {json.dumps(counts)}")
+    valid_ids(fresh, (bs, steps), "sample_tokens(n)")
+    valid_ids(cont, (bs, 32 + 64), "sample_tokens(prompt)")
+    check(bool((cont[:, :32] == prompt).all()),
+          "sample_tokens(prompt): the prompt is not kept")
+    check(bool((fresh == pipe.sample_tokens(bs, top_k=5, seed=SEED,
+                                            num_steps=steps)).all()),
+          "sample_tokens: the same seed gave other ids")
+    log(f"sample_tokens: {bs} fresh sequences of {steps} ids, "
+        f"{np.unique(fresh).size} distinct; a 32-id prompt continued by 64; "
+        f"no kernel launched")
+
+    # -- S2. generate_kv greedy, every variant, free and forced --------------
+    start = torch.full((bs, 1), pipe.start_token, dtype=torch.int32,
+                       device=dev)
+    variants = {
+        "xla": {},
+        "fused": {"decode_impl": "fused"},
+        "bf16 cache": {"cache_dtype": torch.bfloat16},
+        "bf16 weights": {"param_dtype": torch.bfloat16},
+        "cache_buckets=64": {"cache_buckets": 64},
+    }
+    bound_of_variant = {"bf16 cache": MAX_BF16_STEP_ERR,
+                        "bf16 weights": MAX_BF16_STEP_ERR}
+    free = {}
+    for name, kw in variants.items():
+        free[name], counts = counted(
+            lambda: tr.generate_kv(start, num_steps=steps, **kw))
+        valid_ids(free[name], (bs, 1 + steps), f"generate_kv {name}")
+        want = {DEC_BLOCK: nb * steps} if name == "fused" else {}
+        check(counts == want, f"generate_kv {name} launched "
+                              f"{json.dumps(counts)}, expected {want}")
+        if name == "fused":
+            launched[DEC_BLOCK] = ("generate_kv(decode_impl='fused')",
+                                   counts[DEC_BLOCK])
+    ids = free["xla"]
+
+    def forced(run, model=tr):
+        """The step logits (steps, B, n_classes) of `run` when every draw
+        is replaced by the next id of `ids`: the sampler's own loop, its
+        `_sample_from_logits` handed the forced ids."""
+        seen = []
+
+        def draw(last, *_args, **_kw):
+            seen.append(last.float().clone())
+            return ids[:, len(seen)]
+
+        with mock.patch.object(model, "_sample_from_logits", draw):
+            run()
+        check(len(seen) == steps, f"forced run drew {len(seen)} times")
+        return torch.stack(seen)
+
+    plain = forced(lambda: tr.generate_kv(start, num_steps=steps))
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]               # (steps, B)
+    check(bool((plain.argmax(-1).t() == ids[:, 1:])[margin.t() > 1e-6].all()),
+          "the 'xla' ids are not the argmax of their own step logits")
+    for name, kw in variants.items():
+        if name == "xla":
+            continue
+        bound = bound_of_variant.get(name, MAX_STEP_ERR)
+        tie = max(NEAR_TIE, 2 * bound)
+        got = forced(lambda: tr.generate_kv(start, num_steps=steps, **kw))
+        worst = float((got - plain).abs().max())
+        check(worst <= bound, f"generate_kv {name}: forced step logits "
+                              f"differ from the plain step's by {worst}")
+        same = got.argmax(-1) == plain.argmax(-1)
+        check(bool(same[margin > tie].all()),
+              f"generate_kv {name}: argmax differs where the plain top-2 "
+              f"margin exceeds {tie}")
+        firsts = first_departures(free[name], ids)
+        for row, j in enumerate(firsts):
+            if j < 0:
+                continue
+            m = float(margin[j - 1, row])      # the logits that drew id j
+            check(m <= tie, f"generate_kv {name}: row {row} leaves the "
+                            f"'xla' ids at {j}, where the plain top-2 "
+                            f"margin is {m}, no near-tie")
+        gone = [j for j in firsts if j >= 0]
+        log(f"generate_kv {name}: batch {bs}, {steps} steps; forced step "
+            f"logits within {worst:.3e} of the plain step's (bound {bound}); "
+            f"argmax differs at {int((~same).sum())} of {same.numel()} "
+            f"draws, none with a plain margin above {tie}; the free run "
+            f"leaves the 'xla' ids in {len(gone)} of {bs} rows"
+            + (f", first at step {min(gone)}" if gone else "")
+            + f"; {int((margin <= NEAR_TIE).sum())} of {margin.numel()} "
+              f"plain margins are below {NEAR_TIE}")
+        if name == "fused":
+            err["generate_kv fused"] = worst
+
+    # -- S3. kernel #12 driven through its own function -------------------
+    hd = c // nh
+
+    def caches_bhtd(b):
+        return [(torch.zeros(b, nh, t, hd, device=dev),
+                 torch.zeros(b, nh, t, hd, device=dev)) for _ in range(nb)]
+
+    def step_attn_half(tok, pos, caches):
+        """A token step with fused_decode_attn per block and the plain
+        MLP after it."""
+        x = tr._embed_token(tok, pos)
+        for blk, (k_c, v_c) in zip(tr.blocks, caches):
+            x, _, _ = fdec.fused_decode_attn(x, blk, k_c, v_c, pos,
+                                             n_head=nh)
+            h = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
+            x = x + linear(new_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj)
+        ln_f = tr.transformer.ln_f
+        return layer_norm(x, ln_f.weight, ln_f.bias)[:, 0] \
+            @ tr.lm_head.weight.t()
+
+    n12 = min(64, steps - 1)
+    with torch.inference_mode():
+        caches = caches_bhtd(bs)
+        tr._prefill(ids[:, :1], caches)
+        got12, counts = counted(lambda: torch.stack(
+            [step_attn_half(ids[:, p], p, caches)
+             for p in range(1, 1 + n12)]))
+    check(counts == {DEC_ATTN: nb * n12},
+          f"fused_decode_attn steps launched {json.dumps(counts)}")
+    launched[DEC_ATTN] = (f"fused_decode_attn per block, {n12} token steps",
+                          counts[DEC_ATTN])
+    worst = float((got12 - plain[1:1 + n12]).abs().max())
+    check(worst <= MAX_STEP_ERR, f"fused_decode_attn steps: logits differ "
+                                 f"from the plain step's by {worst}")
+    log(f"fused_decode_attn per block over {n12} forced steps: launches "
+        f"{json.dumps(counts)}; step logits within {worst:.3e} of the plain "
+        f"step's (bound {MAX_STEP_ERR})")
+
+    # -- S4. #12 and #13 against plain on the model's activations ----------
+    # caches filled by a prefill over the 'xla' ids; each block fed the
+    # plain output of the block before; row `pos` zeroed before the call
+    with torch.inference_mode():
+        full = caches_bhtd(bs)
+        tr._prefill(ids[:, :t], full)
+        flat = [tuple(merge_heads(z).contiguous() for z in kv) for kv in full]
+        err[DEC_ATTN] = err[DEC_BLOCK] = 0.0
+        row_err = {DEC_ATTN: 0.0, DEC_BLOCK: 0.0}
+        for pos in DECODE_POSITIONS:
+            x = tr._embed_token(ids[:, pos], pos)
+            for i, blk in enumerate(tr.blocks):
+                for name, kfn, pfn, src, row in (
+                        (DEC_ATTN, fdec.fused_decode_attn,
+                         fdec.fused_decode_attn_reference, full[i],
+                         lambda z: z[:, :, pos]),
+                        (DEC_BLOCK, fdec.fused_block_decode,
+                         fdec.fused_block_decode_reference, flat[i],
+                         lambda z: z[:, pos])):
+                    before = [z.clone() for z in src]
+                    for z in before:
+                        row(z).zero_()
+                    kk, kv = (z.clone() for z in before)
+                    pk, pv = (z.clone() for z in before)
+                    out_k, _, _ = kfn(x, blk, kk, kv, pos, n_head=nh)
+                    out_p, _, _ = pfn(x, blk, pk, pv, pos, n_head=nh)
+                    e = float((out_k - out_p).abs().max())
+                    check(bool(torch.isfinite(out_k).all())
+                          and e <= MAX_DECODE_ERR,
+                          f"kernel {name} block {i} pos {pos}: output "
+                          f"differs from plain by {e}")
+                    err[name] = max(err[name], e)
+                    for got, ref, was in ((kk, pk, before[0]),
+                                          (kv, pv, before[1])):
+                        e = float((row(got) - row(ref)).abs().max())
+                        check(e <= MAX_ROW_ERR,
+                              f"kernel {name} block {i} pos {pos}: the "
+                              f"written row differs from plain by {e}")
+                        row_err[name] = max(row_err[name], e)
+                        row(got).zero_()
+                        check(torch.equal(got, was),
+                              f"kernel {name} block {i} pos {pos}: a cache "
+                              f"row other than {pos} changed")
+                    if name == DEC_BLOCK:
+                        nxt = out_p
+                x = nxt
+        for name in (DEC_ATTN, DEC_BLOCK):
+            log(f"kernel {name}: {nb} blocks at pos {DECODE_POSITIONS}, batch "
+                f"{bs}: output within {err[name]:.3e} of plain (bound "
+                f"{MAX_DECODE_ERR}), the written K/V row within "
+                f"{row_err[name]:.3e} (bound {MAX_ROW_ERR}), every other "
+                f"cache row bit-equal to before")
+
+        # times: one token's calls over the 8 blocks, each with its own
+        # caches, so that weights and caches come from device memory as in
+        # a generation (270 MB a token against 50 MB of L2)
+        x = tr._embed_token(ids[:, 1], 1)
+        for pos in TIMED_POSITIONS:
+            for name, kfn, pfn, store in (
+                    (DEC_ATTN, fdec.fused_decode_attn,
+                     fdec.fused_decode_attn_reference, full),
+                    (DEC_BLOCK, fdec.fused_block_decode,
+                     fdec.fused_block_decode_reference, flat)):
+                def token(fn, store=store, pos=pos):
+                    for blk, (k_c, v_c) in zip(tr.blocks, store):
+                        fn(x, blk, k_c, v_c, pos, n_head=nh)
+                tm = timed_in_turns({"kernel": lambda: token(kfn),
+                                     "plain": lambda: token(pfn)}, per=nb)
+                if pos == TIMED_POSITIONS[0]:
+                    times[name] = tm
+                log(f"kernel {name} time (batch {bs}, pos {pos}, mean of one "
+                    f"token's {nb} calls): {fmt_ms(tm['kernel'])}, plain "
+                    f"{fmt_ms(tm['plain'])}")
+
+    # -- S5. kernel #9: against the plain core, then through the entries ----
+    library_ms = {}
+    with torch.inference_mode():
+        ids80 = torch.cat([torch.full((len(req), 1), pipe.start_token,
+                                      device=dev, dtype=torch.int32),
+                           torch.from_numpy(pipe.encode_tokens(req)).to(dev)],
+                          dim=1)
+        blk = tr.blocks[0]
+        err[FLASH] = 0.0
+        for b in (len(req), bs):
+            h = layer_norm(tr.embed(ids80[:b]), blk.ln_1.weight,
+                           blk.ln_1.bias)
+            qkv = linear(h, blk.attn.c_attn) * 8.0   # scores of order 1
+            q, k, v = (split_heads(z, nh) for z in qkv.split(c, dim=-1))
+            out = fflash.flash_causal_attention(q, k, v)
+            ref = fflash.flash_causal_attention_reference(q, k, v)
+            e = float((out - ref).abs().max())
+            check(out.shape == (b, nh, t, hd) and bool(
+                torch.isfinite(out).all()) and e <= MAX_ROW_ERR,
+                f"kernel {FLASH} at batch {b}: differs from plain by {e}")
+            err[FLASH] = max(err[FLASH], e)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            tm = timed_in_turns({
+                "kernel": lambda: fflash.flash_causal_attention(q, k, v),
+                "plain": lambda: fflash.flash_causal_attention_reference(
+                    q, k, v),
+                "library": lambda: sdpa(q, k, v, is_causal=True)})
+            e_lib = float((sdpa(q, k, v, is_causal=True) - ref).abs().max())
+            if b == len(req):
+                times[FLASH], library_ms[FLASH] = tm, tm["library"][0]
+            log(f"kernel {FLASH} ({b}, {nh}, {t}, {hd}), q, k, v read in "
+                f"place from the packed qkv: within {e:.3e} of plain (bound "
+                f"{MAX_ROW_ERR}); {fmt_ms(tm['kernel'])}, plain "
+                f"{fmt_ms(tm['plain'])}, scaled_dot_product_attention "
+                f"{fmt_ms(tm['library'])} (within {e_lib:.3e} of plain)")
+
+        _, tr_p = build(seed=SEED, attention_impl="pallas")
+        tr_p.load_state_dict(tr.state_dict())
+        x80 = torch.from_numpy(req).to(dev)
+        lp, counts = counted(lambda: make_pipeline(vq, tr_p)(x80))
+        check(counts == {FLASH: nb}, f"make_pipeline of the 'pallas' model "
+                                     f"launched {json.dumps(counts)}")
+        launched[FLASH] = ("attention_impl='pallas' make_pipeline",
+                           counts[FLASH])
+        lx = make_pipeline(vq, tr)(x80)
+        worst = float((lp - lx).abs().max())
+        sure = (lx[:, 0] - lx[:, 1]).abs() > LABEL_MARGIN
+        check(worst <= MAX_STEP_ERR, f"'pallas' model: logits differ from "
+                                     f"the 'xla' model's by {worst}")
+        check(bool((lp.argmax(-1) == lx.argmax(-1))[sure].all()),
+              "'pallas' model: labels differ from the 'xla' model's")
+        short, counts = counted(lambda: tr_p.generate(start, num_steps=4))
+        check(counts == {FLASH: nb * 4},
+              f"generate of the 'pallas' model launched {json.dumps(counts)}")
+        valid_ids(short, (bs, 5), "generate of the 'pallas' model")
+        log(f"attention_impl='pallas': make_pipeline batch {len(req)} "
+            f"launches {FLASH} x {nb}, logits within {worst:.3e} of the "
+            f"'xla' model's (bound {MAX_STEP_ERR}), labels equal on "
+            f"{int(sure.sum())} windows outside the margin; generate of 4 "
+            f"steps launches it {nb * 4} times, ids equal the 'xla' "
+            f"model's: {bool((short == tr.generate(start, num_steps=4)).all())}")
+        f32_times = timed_in_turns({
+            "pallas": lambda: make_pipeline(vq, tr_p)(x80),
+            "xla": lambda: make_pipeline(vq, tr)(x80)})
+        log(f"make_pipeline (f32) batch {len(req)}: attention_impl='pallas' "
+            f"{fmt_ms(f32_times['pallas'])}, 'xla' "
+            f"{fmt_ms(f32_times['xla'])}; gpu {smi}")
+
+    # -- S6. quantized_generate_kv at batch 16 and 1 ------------------------
+    for b in (bs, 1):
+        st = start[:b]
+        qids, counts = counted(lambda: quantized_generate_kv(
+            tr, qp, st, num_steps=steps))
+        check(counts == {}, f"quantized_generate_kv launched "
+                            f"{json.dumps(counts)}")
+        valid_ids(qids, (b, 1 + steps), f"quantized_generate_kv batch {b}")
+        ids = qids                       # forced() follows these ids now
+        got = forced(lambda: quantized_generate_kv(tr, qp, st,
+                                                   num_steps=steps))
+        with torch.inference_mode():
+            ref = quantized_lm_logits(tr, qp, qids[:, :steps]).transpose(0, 1)
+        worst = float((got - ref).abs().max())
+        check(worst <= MAX_Q_STEP_ERR,
+              f"quantized_generate_kv batch {b}: cached step logits differ "
+              f"from the full int8 forward's by {worst}")
+        top2 = ref.topk(2, dim=-1).values
+        sure = top2[..., 0] - top2[..., 1] > 2 * MAX_Q_STEP_ERR
+        check(bool((got.argmax(-1) == ref.argmax(-1))[sure].all()),
+              f"quantized_generate_kv batch {b}: argmax differs from the "
+              f"full int8 forward's outside the margin")
+        log(f"quantized_generate_kv batch {b}, {steps} steps: ids valid, "
+            f"{np.unique(qids.cpu().numpy()).size} distinct; cached step "
+            f"logits within {worst:.3e} of quantized_lm_logits on the same "
+            f"ids (bound {MAX_Q_STEP_ERR}); argmax equal on "
+            f"{int(sure.sum())} draws outside the margin")
+
+    # -- S7. ms per token of every variant, batch 16 and batch 1 -------------
+    for b in (bs, 1):
+        st = start[:b]
+        runs = {name: (lambda kw=kw: tr.generate_kv(st, num_steps=steps,
+                                                    **kw))
+                for name, kw in variants.items()}
+        runs["bf16 cache + weights, cache_buckets=64"] = (
+            lambda: tr.generate_kv(st, num_steps=steps,
+                                   cache_dtype=torch.bfloat16,
+                                   param_dtype=torch.bfloat16,
+                                   cache_buckets=64))
+        runs["fused, plain version"] = on_plain_path(runs["fused"])
+        runs["quantized_generate_kv"] = (
+            lambda: quantized_generate_kv(tr, qp, st, num_steps=steps))
+        tm = timed_in_turns(runs, reps=5, warmup=1, per=steps)
+        log(f"ms per token, batch {b}, {steps} steps (prefill of the start "
+            f"token included): "
+            + "; ".join(f"{name} {fmt_ms(v)}" for name, v in tm.items())
+            + f"; gpu {smi}")
+
+    return {"launched": launched, "err": err, "times": times,
+            "library_ms": library_ms}
+
+
+
+def sampling_trace(tr, pipe) -> None:
+    """Where a token's time goes: the device operations and the device
+    time of a token of 'xla', 'fused' and the int8 sampler, from
+    torch.profiler. It runs after every timing of the script: a process
+    that has traced once launches more slowly afterwards."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
+        quantized_generate_kv)
+    bs, steps, qp = SAMPLE_BATCH, SAMPLE_STEPS, pipe.qparams
+    start = torch.full((bs, 1), pipe.start_token, dtype=torch.int32,
+                       device=tr.pe.device)
+    # the fused step reads the cache up to `pos`, so it is traced over the
+    # whole generation; the eager steps read the whole cache at every
+    # position, and a fifth of the steps says the same of them in less time
+    few = max(1, steps // 5)
+    for name, n, run in (
+            ("xla", few, lambda: tr.generate_kv(start, num_steps=few)),
+            ("fused", steps, lambda: tr.generate_kv(
+                start, num_steps=steps, decode_impl="fused")),
+            ("quantized_generate_kv", few, lambda: quantized_generate_kv(
+                tr, qp, start, num_steps=few))):
+        n_ops, busy, top = device_profile(run)
+        if busy is None:
+            log(f"device trace of {name}: no device event, not measured")
+            continue
+        log(f"device trace of {name}, batch {bs}, {n} steps and the "
+            f"prefill of the start token: "
+            f"{n_ops / n:.1f} device operations and {busy / n:.4f} ms of "
+            f"device time per token; most of it: "
+            + "; ".join(f"{key[:60]} x {cnt / n:.1f} a token, "
+                        f"{ms / n:.4f} ms" for key, cnt, ms in top))
 
 
 def main() -> int:
@@ -593,6 +1066,10 @@ def main() -> int:
         log(f"int8 encoder request of {n}: ids differ from the f32 "
             f"encoder's in {flip_rate(ids, ref_ids):.4f} of entries; "
             f"label counts {np.bincount(labels, minlength=2)}")
+
+    # -- 5e. token sampling, kernels #9, #12 and #13 ---------------------
+    sampling = sampling_phase(vq, tr, pipe, reqs[0], smi)
+    launched.update(sampling["launched"])
 
     check(set(launched) == set(kernels.launches),
           f"kernels no path launched: "
@@ -973,8 +1450,13 @@ def main() -> int:
             f"{rate(t['grouped'])}; max |dlogit| "
             f"{float((le - lf).abs().max()):.3e}; gpu {smi}")
 
+    sampling_trace(tr, pipe)
+    times.update(sampling["times"])
+    enc_err.update({name: e for name, e in sampling["err"].items()
+                    if name in RECORD})
     work = kernel_work(n_rows, c_, grp, vq.patch_size, vq.embedding_dim,
-                       vq.num_embeddings, n80, tr.seq_len, tr.n_head)
+                       vq.num_embeddings, n80, tr.seq_len, tr.n_head,
+                       SAMPLE_BATCH, TIMED_POSITIONS[0])
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],
@@ -985,8 +1467,8 @@ def main() -> int:
          "ms": times[name]["kernel"][0], "plain_ms": times[name]["plain"][0],
          "bound_ms": bound_of(work[name])[0],
          "bound_by": bound_of(work[name])[1],
-         # no single PyTorch call computes any of these functions
-         "library_ms": None}
+         # but for #9, no single PyTorch call computes these functions
+         "library_ms": sampling["library_ms"].get(name)}
         for name, (src, replaces) in RECORD.items()]}
     for entry in record["kernels"]:
         log(f"kernel {entry['name']}: {entry['ms']:.4f} ms, bound "

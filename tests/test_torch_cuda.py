@@ -13,15 +13,20 @@ difference moves an argmin only at a near-tie; 0 expected); the int8
 kernels (#2 in both attention variants, #6, #8, #10, #11) may move at
 most 0.1% of their int8 outputs, by one step, and their f32 outputs by
 1e-3 (an ulp of LayerNorm, attention, exp or tanh difference can cross
-a rounding boundary).
+a rounding boundary). The f32 attention kernel (#9) and the decode
+kernels (#12, #13) sum 64- to 2048-term products in other orders than
+the plain versions and may contract FMAs: 2e-5 on the attention output
+and the written cache row, 1e-4 on the residual stream; every cache row
+but `pos` must stay bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
-from vq_vae_transformer_arc_welding_tpu_torch import kernels
+from vq_vae_transformer_arc_welding_tpu_torch import entry, kernels
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-    fused_attn_quant as fattn, fused_block_quant as fbq,
+    attention, fused_attn, fused_attn_quant as fattn,
+    fused_block_quant as fbq, fused_decode,
     fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq, int8)
 
 pytestmark = pytest.mark.cuda
@@ -311,9 +316,13 @@ def test_causal_attention_kernel_matches_plain(dev, b, t, c, n_head):
                                                            n_head=n_head))
 
 
-@pytest.mark.parametrize("m,k,n", [(321, 512, 1536), (80, 321, 2), (8, 512, 1)])
+@pytest.mark.parametrize("m,k,n", [(321, 512, 1536), (80, 321, 2), (8, 512, 1),
+                                   (16, 2048, 512), (1, 2048, 512),
+                                   (16, 512, 258), (1, 512, 258)])
 def test_int8_matmul_exact_on_cuda(dev, m, k, n):
-    """_int_mm where its shape rules hold, exact f32 otherwise."""
+    """_int_mm where its shape rules hold (the 1 to 16 rows of a decode
+    step padded up to its minimum), exact f32 otherwise (lm_head's 258
+    columns)."""
     rng = np.random.default_rng(3)
     a = rng.integers(-127, 128, (m, k), np.int8)
     w = rng.integers(-127, 128, (n, k), np.int8)
@@ -366,6 +375,164 @@ def test_int8_wrappers_reject_bad_operands(dev):
         lambda: fattn.fused_causal_attention_quant(
             torch.zeros(2, 9, 3 * c, device=dev, dtype=torch.float16),
             scales[1], n_head=2),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert kernels.launches == before
+
+
+# -- kernel #9 ------------------------------------------------------------------
+
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
+@pytest.mark.parametrize("b,h,t", [(3, 2, 45), (2, 8, 321), (1, 1, 64),
+                                   (1, 3, 65)])
+def test_flash_attention_kernel_matches_plain(dev, b, h, t, packed):
+    """packed: q, k, v are the strided views split_heads cuts out of a
+    (B, T, 3C) qkv, which the kernel reads in place."""
+    g = torch.Generator().manual_seed(7)
+    if packed:
+        qkv = torch.randn(b, t, 3 * h * 64, generator=g).to(dev)
+        q, k, v = (attention.split_heads(z, h)
+                   for z in qkv.split(h * 64, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, h, t, 64, generator=g).to(dev)
+                   for _ in range(3))
+    out = _launched("flash_attention_f32",
+                    lambda: fused_attn.flash_causal_attention(q, k, v))
+    ref = fused_attn.flash_causal_attention_reference(q, k, v)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 2e-5
+    merged = attention.merge_heads(out)
+    assert merged.data_ptr() == out.data_ptr()      # a view, no copy
+
+
+def test_flash_attention_gradients_on_cuda(dev):
+    g = torch.Generator().manual_seed(8)
+
+    def grads(fn):
+        leaves = [torch.randn(2, 2, 70, 64, generator=g.manual_seed(8 + i))
+                  .to(dev).requires_grad_(True) for i in range(3)]
+        (fn(*leaves) ** 2).sum().backward()
+        return [z.grad for z in leaves]
+
+    for got, want in zip(grads(fused_attn.flash_causal_attention),
+                         grads(attention.causal_attention_core)):
+        assert (got - want).abs().max() <= 1e-4
+
+
+def test_flash_wrapper_rejects_bad_operands(dev):
+    q = torch.zeros(2, 2, 9, 64, device=dev)
+    before = dict(kernels.launches)
+    bad = [lambda: fused_attn.flash_causal_attention(q[..., :32], q[..., :32],
+                                                     q[..., :32]),
+           lambda: fused_attn.flash_causal_attention(q.double(), q, q),
+           lambda: fused_attn.flash_causal_attention(q, q[:, :, :8], q),
+           lambda: fused_attn.flash_causal_attention(q, q.cpu(), q)]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert kernels.launches == before
+
+
+# -- kernels #12 and #13 -------------------------------------------------------
+
+def _decode_block(dev, c, n_head, seed=0):
+    """A transformer Block on the card with every operand random, the
+    biases and LayerNorm rows included (GPT-2 init leaves them 0 and 1)."""
+    _, tr = entry.build(d_model=c, n_blocks=1, n_heads=n_head, hidden=64,
+                        n_res=1, k=32, d=16, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    blk = tr.blocks[0]
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if p.ndim == 1:
+                noise = torch.randn(p.shape, generator=g).to(dev) * 0.1
+                p.copy_(noise + (1.0 if "ln" in name and "weight" in name
+                                 else 0.0))
+            else:
+                p.copy_(torch.randn(p.shape, generator=g).to(dev)
+                        * p.shape[1] ** -0.5)
+    return blk
+
+
+DECODE_SHAPES = [(3, 128, 2, 45, (0, 17, 44)),
+                 (16, 512, 8, 321, (0, 127, 128, 320)),
+                 (1, 512, 8, 321, (160,)),
+                 (20, 256, 4, 70, (69,))]      # two tiles of 16 rows
+
+
+@pytest.mark.parametrize("b,c,n_head,t,positions", DECODE_SHAPES)
+def test_block_decode_kernel_matches_plain(dev, b, c, n_head, t, positions):
+    blk = _decode_block(dev, c, n_head)
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(b, 1, c, generator=g).to(dev)
+    kc = torch.randn(b, t, c, generator=g).to(dev)
+    vc = torch.randn(b, t, c, generator=g).to(dev)
+    for pos in positions:
+        k0, v0 = kc.clone(), vc.clone()
+        kr, vr = kc.clone(), vc.clone()
+        out, ok, ov = _launched("block_decode_f32",
+                                lambda: fused_decode.fused_block_decode(
+                                    x, blk, kc, vc, pos, n_head=n_head))
+        ref, _, _ = fused_decode.fused_block_decode_reference(
+            x, blk, kr, vr, pos, n_head=n_head)
+        assert ok is kc and ov is vc
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-4
+        rest = torch.arange(t, device=dev) != pos
+        for got, want, before in ((kc, kr, k0), (vc, vr, v0)):
+            assert (got[:, pos] - want[:, pos]).abs().max() <= 2e-5
+            assert torch.equal(got[:, rest], before[:, rest])
+
+
+@pytest.mark.parametrize("b,c,n_head,t,positions", DECODE_SHAPES)
+def test_decode_attn_kernel_matches_plain(dev, b, c, n_head, t, positions):
+    blk = _decode_block(dev, c, n_head)
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(b, 1, c, generator=g).to(dev)
+    kc = torch.randn(b, n_head, t, c // n_head, generator=g).to(dev)
+    vc = torch.randn(b, n_head, t, c // n_head, generator=g).to(dev)
+    for pos in positions:
+        k0, v0 = kc.clone(), vc.clone()
+        kr, vr = kc.clone(), vc.clone()
+        out, _, _ = _launched("decode_attn_f32",
+                              lambda: fused_decode.fused_decode_attn(
+                                  x, blk, kc, vc, pos, n_head=n_head))
+        ref, _, _ = fused_decode.fused_decode_attn_reference(
+            x, blk, kr, vr, pos, n_head=n_head)
+        assert (out - ref).abs().max() <= 1e-4
+        rest = torch.arange(t, device=dev) != pos
+        for got, want, before in ((kc, kr, k0), (vc, vr, v0)):
+            assert (got[:, :, pos] - want[:, :, pos]).abs().max() <= 2e-5
+            assert torch.equal(got[:, :, rest], before[:, :, rest])
+
+
+def test_decode_wrappers_reject_bad_operands(dev):
+    blk = _decode_block(dev, 128, 2)
+    x = torch.zeros(2, 1, 128, device=dev)
+    flat = torch.zeros(2, 9, 128, device=dev)
+    heads = torch.zeros(2, 2, 9, 64, device=dev)
+    before = dict(kernels.launches)
+    bad = [
+        lambda: fused_decode.fused_block_decode(x, blk, flat, flat, 9,
+                                                n_head=2),      # pos == T
+        lambda: fused_decode.fused_block_decode(x, blk, flat, flat, -1,
+                                                n_head=2),
+        lambda: fused_decode.fused_block_decode(
+            x, blk, flat, flat, torch.tensor(3, device=dev), n_head=2),
+        lambda: fused_decode.fused_block_decode(x, blk, heads, heads, 0,
+                                                n_head=2),      # layout
+        lambda: fused_decode.fused_block_decode(x, blk, flat.bfloat16(),
+                                                flat.bfloat16(), 0, n_head=2),
+        lambda: fused_decode.fused_block_decode(x, blk, flat, flat, 0,
+                                                n_head=4),      # head width 32
+        lambda: fused_decode.fused_block_decode(x.expand(2, 2, 128), blk,
+                                                flat, flat, 0, n_head=2),
+        lambda: fused_decode.fused_decode_attn(x, blk, flat, flat, 0,
+                                               n_head=2),       # layout
+        lambda: fused_decode.fused_decode_attn(x, blk, heads, heads.cpu(), 0,
+                                               n_head=2),
     ]
     for call in bad:
         with pytest.raises(ValueError):

@@ -27,8 +27,9 @@ from vq_vae_transformer_arc_welding_tpu.ops.norm import layer_norm as jln
 from vq_vae_transformer_arc_welding_tpu_torch import bridge, kernels
 from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import qdot
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-    fused_attn_quant as fattn, fused_block_quant as fbq,
-    fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
+    fused_attn as fflash, fused_attn_quant as fattn,
+    fused_block_quant as fbq, fused_decode as fdec, fused_encoder as fenc,
+    fused_mlp_quant as fmlp, fused_vq as fvq)
 from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
 
 import torch_port_helpers as H
@@ -535,8 +536,9 @@ def test_kernel_sources_call_no_library_products():
         "encoder_chain_f32", "resblock_f32", "encoder_entry_f32",
         "encoder_exit_f32", "nearest_codes_f32", "attn_block_quant",
         "attn_block_quant_int8attn", "block_quant", "block_quant_int8attn",
-        "mlp_quant", "qkv_attention_quant", "causal_attention_quant"}
-    for mod in (fenc, fvq, fbq, fattn, fmlp):
+        "mlp_quant", "qkv_attention_quant", "causal_attention_quant",
+        "flash_attention_f32", "decode_attn_f32", "block_decode_f32"}
+    for mod in (fenc, fvq, fbq, fattn, fmlp, fdec, fflash):
         src = Path(mod.__file__).read_text()
         cuda_branch = src[src.index("kernels.require"):]
         for word in ("_int_mm", "matmul", "scaled_dot_product", "compile",
@@ -577,4 +579,15 @@ def test_launch_counts_untouched_on_cpu():
                               n_head=4)
     fattn.fused_causal_attention_quant(torch.zeros((1, 5, 96)), scales[1],
                                        n_head=4)
+    tr = H.port_transformer()
+    hd = tr.d_model // tr.n_head
+    tok = torch.zeros((2, 1, tr.d_model))
+    fdec.fused_decode_attn(tok, tr.blocks[0],
+                           torch.zeros((2, tr.n_head, 8, hd)),
+                           torch.zeros((2, tr.n_head, 8, hd)), 3,
+                           n_head=tr.n_head)
+    fdec.fused_block_decode(tok, tr.blocks[0], torch.zeros((2, 8, tr.d_model)),
+                            torch.zeros((2, 8, tr.d_model)), 3,
+                            n_head=tr.n_head)
+    fflash.flash_causal_attention(*torch.zeros((3, 1, 2, 5, 8)))
     assert set(kernels.launches.values()) == {0}

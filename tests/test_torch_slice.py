@@ -396,7 +396,9 @@ def test_port_imports_without_jax():
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_vq, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_block_quant, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_mlp_quant, "
-            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn_quant\n"
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn_quant, "
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_decode, "
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'vq_vae_transformer_arc_welding_tpu.')) for m in sys.modules "
             "if sys.modules[m] is not None)\n"

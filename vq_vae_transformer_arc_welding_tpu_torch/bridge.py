@@ -75,13 +75,15 @@ def vqvae_from_jax(hparams: dict, params, state, device=None,
     return model.eval()
 
 
-def transformer_from_jax(hparams: dict, params,
-                         device=None) -> TransformerDecoder:
+def transformer_from_jax(hparams: dict, params, device=None,
+                         attention_impl: str = "xla") -> TransformerDecoder:
     """JAX TransformerDecoder (hparams, params) -> the port's decoder.
-    JAX stores Linear weights (in, out); the port (out, in)."""
+    JAX stores Linear weights (in, out); the port (out, in).
+    attention_impl is the runtime option of both models; it is not an
+    hparam."""
     model = TransformerDecoder(
         **{k: hparams[k] for k in _TR_HPARAMS if k in hparams},
-        device=serving_device(device))
+        attention_impl=attention_impl, device=serving_device(device))
     ch = params["class_head"]
     sd = {"embedding.latent_embedding.weight": _t(params["tok_emb"]),
           "transformer.ln_f.weight": _t(params["ln_f_scale"]),

@@ -21,11 +21,13 @@ N_CYCLES = 20
 
 def build(d_model: int = 512, n_blocks: int = 8, n_heads: int = 8,
           hidden: int = 512, k: int = 256, d: int = 32, n_res: int = 8,
-          seed: int = 0, device=None,
-          vq_impl: str = "xla") -> tuple[VQVAEPatch, TransformerDecoder]:
+          seed: int = 0, device=None, vq_impl: str = "xla",
+          attention_impl: str = "xla"
+          ) -> tuple[VQVAEPatch, TransformerDecoder]:
     """(vq, tr) at the bench configuration, in eval mode on `device`:
     the card when it is None (and an error where there is none), the
-    CPU only when asked. vq_impl: the VQ-VAE's nearest-code option."""
+    CPU only when asked. vq_impl: the VQ-VAE's nearest-code option;
+    attention_impl: the transformer's attention option."""
     device = serving_device(device)
     gen = torch.Generator().manual_seed(seed)
     vq = VQVAEPatch(hidden_dim=hidden, input_dim=2, num_embeddings=k,
@@ -35,7 +37,8 @@ def build(d_model: int = 512, n_blocks: int = 8, n_heads: int = 8,
     seq_len = N_CYCLES * vq.enc_out_len + 1
     tr = TransformerDecoder(d_model=d_model, n_classes=k + 2,
                             seq_len=seq_len, n_blocks=n_blocks,
-                            n_head=n_heads, generator=gen, device=device)
+                            n_head=n_heads, attention_impl=attention_impl,
+                            generator=gen, device=device)
     return vq.eval(), tr.eval()
 
 

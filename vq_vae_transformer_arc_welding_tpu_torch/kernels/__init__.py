@@ -34,7 +34,8 @@ BUILD_DIR = SRC_DIR.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 _SIGNATURES = {
     # x, weights, vecs, out, n_rows, c, n_blocks, use_bn, stream
     "encoder_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -62,6 +63,16 @@ _SIGNATURES = {
     # h, w_qkv, scales, v3c, h8, qkv, y8, batch, t, c, n_head, sm_scale,
     # stream
     "qkv_attention_quant": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # q, k, v, out, batch, n_head, t, the inputs' strides (batch, head,
+    # row) and the output's, in floats, sm_scale, stream
+    "flash_attention_f32": [_P] * 4 + [_I] * 3 + [_L] * 6 + [_F, _P],
+    # x, ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj, kc, vc, scratch,
+    # x_mid, batch, t, c, n_head, pos, sm_scale, stream
+    "decode_attn_f32": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # x, ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_s, ln2_b, w_fc,
+    # b_fc, w_mp, b_mp, kc, vc, scratch, out, batch, t, c, c4, n_head,
+    # pos, sm_scale, stream
+    "block_decode_f32": [_P] * 17 + [_I] * 6 + [_F, _P],
 }
 # the C entries above whose int8_attn=1 launches are counted apart
 VARIANTS = {"attn_block_quant": "attn_block_quant_int8attn",

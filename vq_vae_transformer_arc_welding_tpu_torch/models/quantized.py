@@ -8,7 +8,9 @@ whole-block variants `quantized_backbone_block` (`block_fusion` 'attn',
 'full', 'attn8', 'full8', each with or without '-bf16'), the fused
 attention path `quantized_backbone_fused` (`fused_attention=True`),
 `quantized_classify`, the in-path saturation counters
-`_row_clip_frac*`, and the opt-in int8 encoder
+`_row_clip_frac*`, the int8 sampler (`quantized_lm_logits`,
+`_q_attn_cached`, `_q_token_step`, `_q_prefill`,
+`quantized_generate_kv`), and the opt-in int8 encoder
 (`calibrate_encoder_absmax`, `quantize_encoder`,
 `encode_indices_quantized`).
 
@@ -25,6 +27,7 @@ package stores (in, out).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -337,6 +340,118 @@ def quantized_classify(model, qparams, x_ids, *, fused_attention=False,
     if sat_rows is not None and ch["l2"].act_scale is not None:
         sat_rows.append(_row_clip_frac(h, ch["l2"].act_scale))
     return qdot(h, ch["l2"])
+
+
+def quantized_lm_logits(model, qparams, x_ids) -> torch.Tensor:
+    """(B, T) ids -> (B, T, n_classes) next-token logits through the
+    plain int8 chain and the int8 lm_head."""
+    return qdot(quantized_backbone(model, qparams, x_ids),
+                qparams["lm_head"])
+
+
+# -- int8 KV-cached autoregressive sampling -----------------------------------
+#
+# For full-int8 deployments: the control flow of the f32 generate_kv
+# with every Linear an int8 product and the weights stored in int8 (a
+# quarter of the f32 weights' memory). The products are plain
+# `qdot`s, as in the JAX package: a decode step has one row per stream
+# (ops/int8.int8_matmul pads those up to torch._int_mm's minimum), and
+# lm_head's 258 columns take the exact-f32 route. serve.sample_tokens
+# keeps the f32 sampler, whose ids equal the reference's; for the
+# card's ms per token of both see PERF.md.
+
+
+def _q_attn_cached(model, blk, x_tok, k_cache, v_cache, pos: int):
+    """One-token attention against (B, H, T, D) caches with int8
+    projections (mirrors TransformerDecoder._attn_cached). The caches
+    are updated in place."""
+    qkv = qdot(x_tok, blk["c_attn"])                  # (B, 1, 3C)
+    q, k, v = (split_heads(z, model.n_head)
+               for z in qkv.split(model.d_model, dim=-1))
+    k_cache[:, :, pos] = k[:, :, 0]
+    v_cache[:, :, pos] = v[:, :, 0]
+    att = (q @ k_cache.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    att = att.masked_fill(model.key_pos[:k_cache.shape[2]] > pos,
+                          float("-inf"))
+    y = torch.softmax(att, dim=-1) @ v_cache
+    return qdot(merge_heads(y), blk["c_proj"]), k_cache, v_cache
+
+
+def _q_token_step(model, qparams, tok, pos: int, caches):
+    """One token (B,) at position `pos` through the int8 blocks against
+    the caches. Returns (logits (B, n_classes), caches)."""
+    x = qparams["tok_emb"][tok.long()][:, None] + model.pe[pos]
+    for blk, (k_c, v_c) in zip(qparams["blocks"], caches):
+        h = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
+        a, _, _ = _q_attn_cached(model, blk, h, k_c, v_c, pos)
+        x = x + a
+        h = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
+        x = x + qdot(new_gelu(qdot(h, blk["c_fc"])), blk["m_proj"])
+    x = layer_norm(x, qparams["ln_f_scale"], qparams["ln_f_bias"])
+    return qdot(x[:, 0], qparams["lm_head"]), caches
+
+
+def _q_prefill(model, qparams, x_ids, caches):
+    """Batched single-forward prompt prefill with int8 products, writing
+    every block's K/V in place (mirrors TransformerDecoder._prefill)."""
+    t0 = x_ids.shape[1]
+    x = _embed(model, qparams, x_ids)
+    for blk, (k_c, v_c) in zip(qparams["blocks"], caches):
+        h = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"])
+        q, k, v = (split_heads(z, model.n_head) for z in
+                   qdot(h, blk["c_attn"]).split(model.d_model, dim=-1))
+        k_c[:, :, :t0] = k
+        v_c[:, :, :t0] = v
+        y = merge_heads(causal_attention_core(q, k, v))
+        x = x + qdot(y, blk["c_proj"])
+        h = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
+        x = x + qdot(new_gelu(qdot(h, blk["c_fc"])), blk["m_proj"])
+    x = layer_norm(x, qparams["ln_f_scale"], qparams["ln_f_bias"])
+    return qdot(x[:, -1], qparams["lm_head"]), caches
+
+
+@torch.inference_mode()
+def quantized_generate_kv(model, qparams, x_ids, *, do_sample: bool = False,
+                          top_k: int | None = None,
+                          generator: torch.Generator | None = None,
+                          num_steps: int | None = None,
+                          noise=None) -> torch.Tensor:
+    """Int8 KV-cached sampling, the control flow of
+    TransformerDecoder.generate_kv (batched prefill; KV steps while the
+    context fits seq_len; full-recompute tail once the reference's
+    context cropping kicks in) with every Linear an int8 product.
+
+    Self-consistency contract (tests): greedy output equals a greedy
+    loop over quantized_lm_logits full-recompute forwards."""
+    steps, buf, noise = model._start(x_ids, num_steps, do_sample, generator,
+                                     noise)
+    b, t0 = buf.shape[0], buf.shape[1] - steps
+    sample = dict(do_sample=do_sample, top_k=top_k)
+
+    def window_logits(window):
+        return quantized_lm_logits(model, qparams, window)
+
+    n_kv = max(0, min(steps, model.seq_len - t0 + 1))
+    if n_kv == 0:
+        return model._recompute_scan(buf, t0, noise, logits_fn=window_logits,
+                                     **sample)
+    cache_len = model.seq_len
+    shape = (b, model.n_head, cache_len, model.d_model // model.n_head)
+    caches = [tuple(torch.zeros(shape, device=buf.device) for _ in range(2))
+              for _ in qparams["blocks"]]
+    logits, caches = _q_prefill(model, qparams, buf[:, :t0], caches)
+    for i in range(n_kv):
+        cur = t0 + i
+        nxt = model._sample_from_logits(
+            logits, noise[i] if do_sample else None, **sample)
+        buf[:, cur] = nxt
+        logits, caches = _q_token_step(model, qparams, nxt,
+                                       min(cur, cache_len - 1), caches)
+    if steps > n_kv:
+        buf = model._recompute_scan(
+            buf, t0 + n_kv, noise[n_kv:] if do_sample else None,
+            logits_fn=window_logits, **sample)
+    return buf
 
 
 # -- opt-in int8 VQ-VAE encoder for serving -----------------------------------

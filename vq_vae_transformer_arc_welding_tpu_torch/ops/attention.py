@@ -1,9 +1,19 @@
-"""Causal multi-head attention core, without dropout (serving only).
+"""Causal multi-head self-attention, eval mode.
 
 Port of vq_vae_transformer_arc_welding_tpu/ops/attention.py
-(`split_heads`, `merge_heads`, `causal_attention_core`): 1/sqrt(d)
-scaling, -inf causal mask, f32 softmax. Calibration and the plain int8
-chain use it.
+(`split_heads`, `merge_heads`, `causal_attention_core`,
+`causal_self_attention`): fused qkv projection, 1/sqrt(d) scaling, -inf
+causal mask, f32 softmax, output projection. `impl='pallas'` (the JAX
+package's name for the option) runs the core as one fused kernel,
+ops/fused_attn.flash_causal_attention; `'xla'` is the plain core, which
+calibration, the plain int8 chain, `_prefill` and the cached decode
+step also use.
+
+The port has no training mode yet, so attention and residual dropout
+are not applied, and the JAX package's fall-back from the fused kernel
+to the plain core under attention dropout has no counterpart.
+
+Linear weights are in torch's (out, in) layout.
 """
 from __future__ import annotations
 
@@ -32,3 +42,23 @@ def causal_attention_core(q: torch.Tensor, k: torch.Tensor,
     causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     att = att.masked_fill(~causal, float("-inf"))
     return torch.softmax(att, dim=-1) @ v
+
+
+def causal_self_attention(x: torch.Tensor, attn, *, n_head: int,
+                          impl: str = "xla") -> torch.Tensor:
+    """Full attention layer: qkv projection -> core -> output projection.
+
+    attn: a holder of `c_attn` and `c_proj` (weight (out, in) and bias),
+    as a transformer Block's `attn`. impl: 'xla' (the plain core) or
+    'pallas' (the fused kernel). x: (B, T, C) -> (B, T, C)."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"attention impl {impl!r}: 'xla' or 'pallas'")
+    c = x.shape[-1]
+    qkv = x @ attn.c_attn.weight.t() + attn.c_attn.bias
+    q, k, v = (split_heads(z, n_head) for z in qkv.split(c, dim=-1))
+    if impl == "pallas":
+        from .fused_attn import flash_causal_attention
+        y = flash_causal_attention(q, k, v)
+    else:
+        y = causal_attention_core(q, k, v)
+    return merge_heads(y) @ attn.c_proj.weight.t() + attn.c_proj.bias

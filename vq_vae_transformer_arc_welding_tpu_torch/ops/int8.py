@@ -13,6 +13,8 @@ import torch
 # exact-f32 bound for an int8 product: |sum| <= K * 127^2 must stay
 # below 2^24, the last integer every f32 represents
 _F32_EXACT = 1 << 24
+# torch._int_mm takes more than 16 rows; fewer are padded up to this
+_INT_MM_ROWS = 32
 
 
 def quantize_act(x: torch.Tensor, scale) -> torch.Tensor:
@@ -23,17 +25,22 @@ def quantize_act(x: torch.Tensor, scale) -> torch.Tensor:
 def int8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """(..., K) int8 @ (N, K)^T int8 -> (..., N) int32, exact.
 
-    CPU: an int32 product. CUDA: torch._int_mm where its shape rules
-    hold (more than 16 rows, K and N multiples of 8); otherwise an f32
-    product, exact while K * 127^2 < 2^24 (the class head: l1 has N=1,
-    l2 K=321), which needs TF32 off as the serving pipeline sets it."""
+    CPU: an int32 product. CUDA: torch._int_mm where K and N are
+    multiples of 8; it wants more than 16 rows, so the one to 16 rows of
+    a decode step (a token per stream) are padded with zero rows and the
+    padding cut off again. Otherwise an f32 product, exact while
+    K * 127^2 < 2^24 (the class head: l1 has N=1, l2 K=321; lm_head:
+    N=258), which needs TF32 off as the serving pipeline sets it."""
     k = a8.shape[-1]
     n = w8.shape[0]
     a2 = a8.reshape(-1, k)
     if a8.device.type == "cpu":
         out = a2.to(torch.int32) @ w8.to(torch.int32).t()
-    elif a2.shape[0] > 16 and k % 8 == 0 and n % 8 == 0:
-        out = torch._int_mm(a2, w8.t())
+    elif k % 8 == 0 and n % 8 == 0:
+        m = a2.shape[0]
+        if m <= 16:
+            a2 = torch.nn.functional.pad(a2, (0, 0, 0, _INT_MM_ROWS - m))
+        out = torch._int_mm(a2, w8.t())[:m]
     elif k * 127 * 127 < _F32_EXACT:
         if torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("exact f32 int8 product needs "

@@ -2,10 +2,9 @@
 
 Port of vq_vae_transformer_arc_welding_tpu/serve.py
 (`WeldingQualityPipeline`: `__init__`, `calibrate`, `classify`,
-`encode_tokens`, `ood_score`, the in-path saturation monitor, the
-`saturation_rate` probe, and the opt-in int8 encoder,
-`encoder_precision='int8'`). Artifacts, sampling and meshes are not
-ported yet.
+`encode_tokens`, `ood_score`, `sample_tokens`, the in-path saturation
+monitor, the `saturation_rate` probe, and the opt-in int8 encoder,
+`encoder_precision='int8'`). Artifacts and meshes are not ported yet.
 
 Chunking follows data/latent.py::_chunked_device_map: requests run in
 chunks of at most `max_batch` windows. The JAX version padded every
@@ -252,3 +251,49 @@ class WeldingQualityPipeline:
         max_batch."""
         return self._batched(self.vq_model.forward_ood,
                              self._windows(cycles, "ood_score"))
+
+    def sample_tokens(self, n: int | None = None, *,
+                      prompt: np.ndarray | None = None,
+                      top_k: int | None = None, seed: int = 0,
+                      num_steps: int | None = None,
+                      cache_dtype=None, param_dtype=None,
+                      cache_buckets: int | None = None) -> np.ndarray:
+        """Autoregressively sample latent token sequences from the
+        generation head (KV-cached: batched prefill, recompute tail once
+        the context outgrows seq_len).
+
+        Either `n` fresh sequences from the start token, or
+        continuations of `prompt` (N, t) token ids: the prompt is
+        prefixed with the start token, prefilled in one forward, and
+        `num_steps` (default seq_len) tokens are appended. Returns the
+        sampled ids without the start token (prompt included when
+        given), as a numpy array. `seed` seeds a torch.Generator on the
+        serving device.
+
+        cache_dtype=torch.bfloat16 stores the K/V caches in bf16 (scores
+        are still summed in f32); param_dtype=torch.bfloat16 also
+        streams the decode step's weight matrices in bf16; cache_buckets
+        lets early steps read only a cache prefix. Each can move ids
+        near probability ties, so the default stays the exact f32 path;
+        see `TransformerDecoder.generate_kv`, and PERF.md for the card's
+        ms per token of each.
+
+        Sampling stays f32 even in an int8 pipeline, which keeps the
+        ids equal to the reference's; models/quantized.py's
+        quantized_generate_kv exists for full-int8 deployments where the
+        weights' memory matters more."""
+        if prompt is not None:
+            prompt = torch.as_tensor(np.asarray(prompt, np.int32)).to(
+                self.device)
+            start = with_start_token(prompt, self.start_token)
+        else:
+            if n is None:
+                raise ValueError("pass n (fresh samples) or prompt")
+            start = torch.full((n, 1), self.start_token, dtype=torch.int32,
+                               device=self.device)
+        out = self.tr_model.generate_kv(
+            start, do_sample=True, top_k=top_k,
+            generator=torch.Generator(device=self.device).manual_seed(seed),
+            num_steps=num_steps, cache_dtype=cache_dtype,
+            param_dtype=param_dtype, cache_buckets=cache_buckets)
+        return out[:, 1:].cpu().numpy()
