@@ -54,6 +54,25 @@ versions on the model's own activations (every cache row but `pos`
 bit-equal to before), every variant's ms per token is timed, and a
 device trace counts the operations and the device time of a token.
 
+Then the deployment path. The bf16 encoder (kernel #1's `compute_dtype`
+variant): `encode_indices_fused(compute_dtype=torch.bfloat16)` on the
+three requests must launch the bf16 chain once per encode and nothing
+else, `group_size=1` must give the same ids, the ids are held against
+the plain bf16 path and against the f32 encoder (flips near-ties), and
+`make_pipeline_quantized(encoder_dtype=torch.bfloat16)` against the
+f32-encoder pipeline; the kernel is held against its plain version at
+25,600 rows per resblock (each fed the plain stream) and over all
+eight, with and without BatchNorm, and timed in turns with #1's two f32
+launches and end to end. bf16 serving: `precision='bf16'` `classify`
+against f32. Deployment: the int8 pipeline gets a scaler fitted on a
+synthetic CSV, `save_artifact`, and `load_artifact` without a device or
+calibration windows must answer bit-equal, with bit-equal int8 tables;
+`from_checkpoints` on the artifact's two files gives the f32 answers;
+`cli.score_quality.main` scores the CSV at stride 1 (at least 4,000
+windows), its file is checked and must not depend on `--chunk`. The
+latent data module encodes whole splits on the card for two tasks:
+tokens as `encode_tokens` gives them, `pipeline_depth=2` bit-equal to 1.
+
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
 its power limit as nvidia-smi reports them, and the one before that
@@ -64,9 +83,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -97,9 +118,20 @@ MAX_Q_STEP_ERR = 5e-2       # int8 cached step against the full int8 forward
 NEAR_TIE = 1e-3             # a plain top-2 margin below this may flip
 MAX_DECODE_ERR = 1e-4       # #12, #13: residual stream against plain
 MAX_ROW_ERR = 2e-5          # #12, #13: the written K/V row; #9: its output
+# the bf16 encoder chain: a last-bit difference in a gelu output can move
+# one product input by 2^-8 of its value, ~2e-4 of the output's scale
+MAX_BF16_BLOCK_ERR = 1e-3   # one resblock, of the output's largest magnitude
+MAX_BF16_ID_FLIP = 5e-3     # ids against the plain bf16 path
+MAX_BF16_FLIP_GAP = 1e-2    # such a flip's float64 distance gap, of |z|^2
+MAX_BF16_F32_FLIP = 0.10    # ids against the f32 encoder (the JAX test's bar)
+MAX_BF16_F32_GAP = 0.1      # their gap: bf16 rounding of z, no wrong argmin
+BF16_PROB_MARGIN = 1e-2     # bf16 serving: labels held where |p0 - p1| > this
+CSV_CYCLES_PER_RUN = 300    # 22 runs: 6,600 cycles, 6,182 windows at stride 1
+MIN_SCORED_WINDOWS = 4000
 
 ENC, ATTN, ATTN8 = ("encoder_chain_f32", "attn_block_quant",
                     "attn_block_quant_int8attn")
+ENC_BF16 = "encoder_chain_bf16"
 RES, ENTRY, EXIT, NEAREST = ("resblock_f32", "encoder_entry_f32",
                              "encoder_exit_f32", "nearest_codes_f32")
 FULL, FULL8 = "block_quant", "block_quant_int8attn"
@@ -142,6 +174,7 @@ TPU = "vq_vae_transformer_arc_welding_tpu/ops/"
 # kernel: (source, the pallas_call it replaces)
 RECORD = {
     ENC: ("encoder_chain.cu", "pallas_encoder.py:311"),
+    ENC_BF16: ("encoder_chain_bf16.cu", "pallas_encoder.py:311"),
     RES: ("encoder_resblock.cu", "pallas_encoder.py:106"),
     ENTRY: ("encoder_edges.cu", "pallas_encoder.py:404"),
     EXIT: ("encoder_edges.cu", "pallas_encoder.py:436"),
@@ -159,21 +192,23 @@ RECORD = {
 }
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
-# FP32 outside the tensor cores, int8 in them, device memory
-PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+# FP32 outside the tensor cores, bf16 and int8 in them, device memory
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 
-def kernel_work(n_rows, c, grp, patch, d, k, b, t, n_head, dec_b, dec_pos):
+def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
+                dec_pos):
     """{kernel: (bytes, {type: operations})} at this run's shapes: the
     bytes each kernel must move (every input read once, every output
     written once) and the operations of its products by operand type (a
     multiply-add is two; LayerNorm, GELU, softmax and the other
     elementwise work are left out, so a bound is a lower one).
-    n_rows x c encoder rows, grp resblocks per chain call, a (k, d)
-    codebook; the transformer's (b, t, c) stream with n_head heads; a
-    decode step of dec_b streams at position dec_pos, which reads the
-    dec_pos cache rows before it and writes one."""
+    n_rows x c encoder rows, grp resblocks per f32 chain call and all
+    n_res per bf16 chain call, a (k, d) codebook; the transformer's
+    (b, t, c) stream with n_head heads; a decode step of dec_b streams
+    at position dec_pos, which reads the dec_pos cache rows before it
+    and writes one."""
     f4 = 4
     x = n_rows * c * f4                         # the encoder's residual stream
     block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
@@ -195,6 +230,8 @@ def kernel_work(n_rows, c, grp, patch, d, k, b, t, n_head, dec_b, dec_pos):
         DEC_BLOCK: (dec_attn_w + dec_mlp_w + dec_io,
                     {"f32": dec_attn_ops + dec_b * 2 * w_mlp}),
         ENC: (2 * x + grp * block_w, {"f32": grp * block_ops}),
+        ENC_BF16: (2 * x + n_res * (2 * c * c * 2 + 10 * c * f4),
+                   {"bf16": n_res * block_ops}),
         RES: (2 * x + block_w, {"f32": block_ops}),
         ENTRY: (n_rows * patch * f4 + (patch + 1) * c * f4 + x
                 + grp * block_w,
@@ -824,6 +861,479 @@ def sampling_trace(tr, pipe) -> None:
                         f"{ms / n:.4f} ms" for key, cnt, ms in top))
 
 
+def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
+    """The bf16 encoder at full width (see the module docstring). Returns
+    what the kernels' record needs of the bf16 chain: `launched`, `err`
+    and `times`."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import (
+        make_pipeline_quantized)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_encoder as fenc)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import CYCLE_LEN
+
+    bf = torch.bfloat16
+    nb, c, d = vq.n_resblocks, vq.hidden_dim, vq.embedding_dim
+    dev = vq.codebook.device
+    launched, err, times = {}, {}, {}
+    with torch.inference_mode():
+        packed = fenc.pack_encoder(vq)
+        packed_bf = fenc.pack_encoder(vq, bf)
+        check(packed_bf[0].dtype == bf and packed_bf[1].dtype == torch.float32,
+              "pack_encoder(compute_dtype=) types")
+        check(fenc.group_size_for(c, 2) >= nb,
+              "the default bf16 group does not hold the whole stack")
+        cycles = [xr.reshape(-1, CYCLE_LEN, 2) for xr in xreqs]
+
+        def encode(cyc, **kw):
+            return fenc.encode_indices_fused(vq, packed_bf, cyc,
+                                             compute_dtype=bf, **kw)
+
+        # -- B1. the encoder path: one launch per encode, nothing else -----
+        ids, counts = counted(lambda: [encode(cyc) for cyc in cycles])
+        check(counts == {ENC_BF16: len(cycles)},
+              f"encode_indices_fused(bf16) launched {json.dumps(counts)}")
+        ids1, counts1 = counted(lambda: [encode(cyc, group_size=1)
+                                         for cyc in cycles])
+        check(counts1 == {ENC_BF16: nb * len(cycles)},
+              f"encode_indices_fused(bf16, group_size=1) launched "
+              f"{json.dumps(counts1)}")
+        check(all(torch.equal(a, b) for a, b in zip(ids, ids1)),
+              "bf16 encoder: group_size=1 gives other ids than the default")
+        with plain_path():
+            plain = [encode(cyc) for cyc in cycles]
+        exact = [vq.encode_indices(cyc) for cyc in cycles]
+        for n, cyc, i, pl, ex in zip(REQUESTS, cycles, ids, plain, exact):
+            check(i.shape == ex.shape and i.dtype == torch.int32,
+                  f"bf16 encoder ids {tuple(i.shape)} {i.dtype}")
+            h = vq.patch_embed_out(cyc)
+            z_plain = vq.sep_conv(fenc.fused_encoder_eval_reference(
+                h.reshape(-1, c), *packed_bf, use_bn=vq.batch_norm,
+                compute_dtype=bf).reshape(h.shape)).reshape(-1, d)
+            z_exact = vq.encode(cyc).reshape(-1, d)
+            flat = i.reshape(-1)
+            f_plain, f_exact = flip_rate(i, pl), flip_rate(i, ex)
+            g_plain = worst_flip_gap(z_plain, vq.codebook, flat,
+                                     pl.reshape(-1))
+            g_exact = worst_flip_gap(z_exact, vq.codebook, flat,
+                                     ex.reshape(-1))
+            check(f_plain <= MAX_BF16_ID_FLIP and g_plain <= MAX_BF16_FLIP_GAP,
+                  f"bf16 encoder, request of {n}: ids differ from the plain "
+                  f"bf16 path's in {f_plain}, worst gap {g_plain}")
+            check(f_exact <= MAX_BF16_F32_FLIP and g_exact <= MAX_BF16_F32_GAP,
+                  f"bf16 encoder, request of {n}: ids differ from the f32 "
+                  f"encoder's in {f_exact}, worst gap {g_exact}")
+            log(f"bf16 encoder, request of {n}: {ENC_BF16} x 1 per encode "
+                f"(x {nb} at group_size=1, the same ids); id flips against "
+                f"the plain bf16 path {f_plain:.3e} (bound "
+                f"{MAX_BF16_ID_FLIP}), each a near-tie within {g_plain:.3e} "
+                f"of |z|^2 (bound {MAX_BF16_FLIP_GAP}); against the f32 "
+                f"encoder {f_exact:.3e} (bound {MAX_BF16_F32_FLIP}), within "
+                f"{g_exact:.3e} (bound {MAX_BF16_F32_GAP})")
+
+        # -- B2. make_pipeline_quantized(encoder_dtype=) ----------------------
+        fn_bf = make_pipeline_quantized(vq, tr, qp, encoder_dtype=bf)
+        fn_32 = make_pipeline_quantized(vq, tr, qp)
+        logits, counts = counted(lambda: [fn_bf(xr) for xr in xreqs])
+        check(set(counts) == {ENC_BF16, ATTN}
+              and counts[ENC_BF16] == len(xreqs),
+              f"make_pipeline_quantized(encoder_dtype=bf16) launched "
+              f"{json.dumps(counts)}")
+        launched[ENC_BF16] = (
+            "make_pipeline_quantized(encoder_dtype=torch.bfloat16)",
+            counts[ENC_BF16])
+        agree = sure_n = 0
+        for xr, lk in zip(xreqs, logits):
+            check(lk.shape == (len(xr), 2) and bool(torch.isfinite(lk).all()),
+                  "bf16-encoder pipeline: logits")
+            l32 = fn_32(xr)
+            sure = (l32[:, 0] - l32[:, 1]).abs() > LABEL_MARGIN
+            agree += int((lk.argmax(-1) == l32.argmax(-1))[sure].sum())
+            sure_n += int(sure.sum())
+        log(f"make_pipeline_quantized(encoder_dtype=bf16): launches "
+            f"{json.dumps(counts)}; labels equal the f32-encoder pipeline's "
+            f"on {agree} of {sure_n} windows whose f32-encoder "
+            f"|logit0-logit1| > {LABEL_MARGIN} (not forced: ids may differ)")
+
+        # -- B3. the kernel against its plain version at 25,600 rows ----------
+        h = vq.patch_embed_out(cycles[0])
+        flat = h.reshape(-1, c).contiguous()
+        n_rows = flat.shape[0]
+        weights, vecs = packed
+        wb = packed_bf[0]
+        gen = torch.Generator().manual_seed(SEED + 1)
+        bn = vecs.clone().view(nb, 2, 5, c)
+        bn[:, :, 1] = (torch.randn(nb, 2, c, generator=gen) * 0.2).to(dev)
+        bn[:, :, 2] = (torch.rand(nb, 2, c, generator=gen) * 1.5 + 0.5).to(dev)
+        bn[:, :, 3] = (torch.rand(nb, 2, c, generator=gen) + 0.5).to(dev)
+        bn[:, :, 4] = (torch.randn(nb, 2, c, generator=gen) * 0.1).to(dev)
+        bn_vecs = bn.reshape(10 * nb, c).contiguous()
+        err[ENC_BF16] = 0.0
+        for use_bn, v in ((True, bn_vecs), (False, vecs)):
+            x, worst_rel, worst_abs = flat, 0.0, 0.0
+            for i in range(nb):     # each resblock fed the plain stream
+                wi, vi = wb[2 * i:2 * i + 2], v[10 * i:10 * i + 10]
+                yk = fenc.fused_encoder_eval(x, wi, vi, use_bn=use_bn,
+                                             compute_dtype=bf)
+                yp = fenc.fused_encoder_eval_reference(
+                    x, wi, vi, use_bn=use_bn, compute_dtype=bf)
+                e, scale = float((yk - yp).abs().max()), float(yp.abs().max())
+                check(bool(torch.isfinite(yk).all())
+                      and e <= MAX_BF16_BLOCK_ERR * scale,
+                      f"kernel {ENC_BF16} use_bn={use_bn} resblock {i}: "
+                      f"differs from plain by {e} of {scale}")
+                worst_rel = max(worst_rel, e / scale)
+                worst_abs = max(worst_abs, e)
+                x = yp
+            err[ENC_BF16] = max(err[ENC_BF16], worst_abs)
+            y8 = fenc.fused_encoder_eval(flat, wb, v, use_bn=use_bn,
+                                         compute_dtype=bf)
+            check(bool(torch.isfinite(y8).all()),
+                  f"kernel {ENC_BF16} x{nb}: non-finite")
+            e8 = float((y8 - x).abs().max())
+            f32_8 = fenc.fused_encoder_eval_reference(flat, weights, v,
+                                                      use_bn=use_bn)
+            note = ""
+            if not use_bn:      # the model's own codebook fits these z only
+                ids_k = vq.nearest(vq.sep_conv(y8.reshape(h.shape)))
+                ids_p = vq.nearest(vq.sep_conv(x.reshape(h.shape)))
+                flip = flip_rate(ids_k, ids_p)
+                check(flip <= MAX_BF16_ID_FLIP,
+                      f"kernel {ENC_BF16} x{nb}: id flips {flip}")
+                note = (f", id flips {flip:.3e} (bound {MAX_BF16_ID_FLIP})")
+            log(f"kernel {ENC_BF16} use_bn={use_bn}: {n_rows} rows, per "
+                f"resblock on the plain stream max abs err {worst_abs:.3e}, "
+                f"{worst_rel:.3e} of the output's scale (bound "
+                f"{MAX_BF16_BLOCK_ERR}); all {nb} in one launch against the "
+                f"plain chain {e8:.3e} of {float(x.abs().max()):.3e}{note}; "
+                f"the plain bf16 chain against the plain f32 chain "
+                f"{float((x - f32_8).abs().max()):.3e}")
+
+        # -- B4. times, in turns -------------------------------------------
+        grp = fenc.group_size_for(c)
+
+        def f32_groups():
+            y = flat
+            for s0 in range(0, nb, grp):
+                y = fenc.fused_encoder_eval(
+                    y, weights[2 * s0:2 * (s0 + grp)],
+                    vecs[10 * s0:10 * (s0 + grp)], use_bn=False)
+            return y
+
+        tm = timed_in_turns({
+            "kernel": lambda: fenc.fused_encoder_eval(
+                flat, wb, vecs, use_bn=False, compute_dtype=bf),
+            "plain": lambda: fenc.fused_encoder_eval_reference(
+                flat, wb, vecs, use_bn=False, compute_dtype=bf),
+            "f32": f32_groups,
+            "one": lambda: fenc.fused_encoder_eval(
+                flat, wb[:2], vecs[:10], use_bn=False, compute_dtype=bf)})
+        times[ENC_BF16] = tm
+        ops = n_rows * nb * 2 * (2 * c * c)
+        log(f"kernel {ENC_BF16} time ({n_rows} x {c}, {nb} resblocks in one "
+            f"launch): {fmt_ms(tm['kernel'])}, "
+            f"{ops / tm['kernel'][0] / 1e9:.1f} TFLOP/s; plain bf16 "
+            f"{fmt_ms(tm['plain'])}; {ENC} x {nb // grp} launches of {grp} "
+            f"{fmt_ms(tm['f32'])}; one resblock {fmt_ms(tm['one'])}; "
+            f"gpu {smi}")
+        c80, x80 = cycles[0], xreqs[0]
+        enc = timed_in_turns({
+            "bf16": lambda: encode(c80),
+            "f32": lambda: fenc.encode_indices_fused(vq, packed, c80)})
+        log(f"encode_indices_fused, {len(c80)} cycles: compute_dtype=bf16 "
+            f"{fmt_ms(enc['bf16'])}, f32 {fmt_ms(enc['f32'])}; gpu {smi}")
+        fn_bf_full = make_pipeline_quantized(vq, tr, qp, block_fusion="full",
+                                             encoder_dtype=bf)
+        e2e = timed_in_turns({"bf16": lambda: fn_bf_full(x80),
+                              "f32": lambda: full_fn(x80)})
+        n80 = len(x80)
+        log(f"make_pipeline_quantized(full) batch {n80}: encoder_dtype=bf16 "
+            f"{n80 / (e2e['bf16'][0] / 1e3):.1f} windows/s at "
+            f"{fmt_ms(e2e['bf16'])}, f32 encoder "
+            f"{n80 / (e2e['f32'][0] / 1e3):.1f} windows/s at "
+            f"{fmt_ms(e2e['f32'])}; gpu {smi}")
+    return {"launched": launched, "err": err, "times": times}
+
+
+def same_qlinear(a, b) -> bool:
+    import torch
+    pairs = ((a.w_int8, b.w_int8), (a.scale, b.scale), (a.bias, b.bias),
+             (a.act_scale, b.act_scale))
+    return all((u is None and v is None) or (
+        u is not None and v is not None and torch.equal(u, v))
+        for u, v in pairs)
+
+
+def same_qparams(a: dict, b: dict) -> bool:
+    """Two qparams bit-equal: every int8 table, scale and packed operand."""
+    import torch
+    ok = all(torch.equal(a[k], b[k]) for k in ("tok_emb", "ln_f_scale",
+                                               "ln_f_bias"))
+    ok = ok and same_qlinear(a["lm_head"], b["lm_head"])
+    ok = ok and all(same_qlinear(a["class_head"][k], b["class_head"][k])
+                    for k in ("l1", "l2"))
+    for x, y in zip(a["blocks"], b["blocks"]):
+        ok = ok and all(same_qlinear(x[k], y[k])
+                        for k in ("c_attn", "c_proj", "c_fc", "m_proj"))
+        ok = ok and all(torch.equal(u, v) for u, v in zip(
+            x["block_operands"], y["block_operands"]))
+    return ok and len(a["blocks"]) == len(b["blocks"])
+
+
+def host_seconds(fn) -> float:
+    """Host clock around fn() and a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def deployment_phase(vq, tr, pipe, f32, req, smi: str) -> None:
+    """bf16 serving, artifacts, checkpoints, the CSV scorer and the latent
+    data module at full width (see the module docstring)."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.cli import score_quality
+    from vq_vae_transformer_arc_welding_tpu_torch.data import (
+        asimow, latent, synthetic)
+    from vq_vae_transformer_arc_welding_tpu_torch.data.scaler import (
+        StandardScaler)
+    from vq_vae_transformer_arc_welding_tpu_torch.data.splits import (
+        get_val_test_ids)
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import build
+    from vq_vae_transformer_arc_welding_tpu_torch.native.build import (
+        native_load_error)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        WeldingQualityPipeline)
+
+    n80 = len(req)
+    f32_labels, f32_probs = f32.classify(req)
+
+    # -- D1. bf16 serving ---------------------------------------------------
+    # the pipeline sets the option on the transformer it is given, so it
+    # gets one of its own with the same weights
+    _, tr_b = build(seed=SEED)
+    tr_b.load_state_dict(tr.state_dict())
+    pipe_b = WeldingQualityPipeline(vq, tr_b, n_cycles=N_CYCLES, max_batch=80,
+                                    precision="bf16")
+    check(tr_b.compute_dtype == torch.bfloat16 and tr.compute_dtype is None,
+          "precision='bf16' did not set its own transformer's compute_dtype")
+    (labels_b, probs_b), counts = counted(lambda: pipe_b.classify(req))
+    check(counts == {}, f"bf16 classify launched {json.dumps(counts)}")
+    check(probs_b.shape == (n80, 2) and probs_b.dtype == np.float32
+          and bool(np.isfinite(probs_b).all())
+          and bool(np.allclose(probs_b.sum(-1), 1.0, atol=1e-5)),
+          "bf16 classify: probs")
+    sure = np.abs(f32_probs[:, 0] - f32_probs[:, 1]) > BF16_PROB_MARGIN
+    check(bool((labels_b == f32_labels)[sure].all()),
+          f"bf16 classify: labels differ from f32 where |p0-p1| exceeds "
+          f"{BF16_PROB_MARGIN}")
+    check(not np.array_equal(probs_b, f32_probs),
+          "bf16 classify gave the f32 bits: the option did nothing")
+    tm = timed_in_turns({"bf16": lambda: pipe_b.classify(req),
+                         "f32": lambda: f32.classify(req)})
+    log(f"classify precision='bf16' batch {n80}: labels equal f32's on all "
+        f"{int(sure.sum())} windows with |p0-p1| > {BF16_PROB_MARGIN} "
+        f"({int((labels_b != f32_labels).sum())} differ within it), worst "
+        f"|dprob| {float(np.abs(probs_b - f32_probs).max()):.3e}; "
+        f"{n80 / (tm['bf16'][0] / 1e3):.1f} windows/s at "
+        f"{fmt_ms(tm['bf16'])}, f32 {n80 / (tm['f32'][0] / 1e3):.1f} "
+        f"windows/s at {fmt_ms(tm['f32'])}; gpu {smi}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- D2. a synthetic CSV in the ASIMoW schema, and the scaler ------
+        csv = os.path.join(tmp, "processed_asimow_dataset.csv")
+        t0 = time.perf_counter()
+        synthetic.write_synthetic_csv(csv, n_cycles_per_run=CSV_CYCLES_PER_RUN,
+                                      seed=SEED)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vi, _, exp, run = asimow.load_asimow_csv(csv)
+        parse_s = time.perf_counter() - t0
+        check(native_load_error() is None,
+              f"the native CSV parser did not load: {native_load_error()}")
+        check(vi.shape[1:] == (200, 2) and vi.dtype == np.float32
+              and bool(np.isfinite(vi).all()), "load_asimow_csv: arrays")
+        log(f"synthetic CSV: {len(vi)} cycles, "
+            f"{os.path.getsize(csv) / 1e6:.1f} MB, written in "
+            f"{write_s:.1f} s, "
+            f"parsed by the native parser in {parse_s:.3f} s; gpu {smi}")
+        pipe.scaler = StandardScaler().fit(vi)
+
+        # -- D3. artifact: save, load without a device, bit-equal answers --
+        (labels, probs) = pipe.classify(req)
+        art = pipe.save_artifact(os.path.join(tmp, "artifact"))
+        t0 = time.perf_counter()
+        loaded = WeldingQualityPipeline.load_artifact(art)
+        load_s = time.perf_counter() - t0
+        check(loaded.device.type == "cuda"
+              and loaded.tr_model.pe.device.type == "cuda",
+              "load_artifact without a device did not build on the card")
+        check(loaded.precision == "int8" and loaded.encoder_impl == "fused"
+              and loaded.max_batch == pipe.max_batch
+              and loaded.start_token == pipe.start_token,
+              "load_artifact: serving configuration")
+        check(same_qparams(loaded.qparams, pipe.qparams),
+              "load_artifact: the int8 tables are not bit-equal to the "
+              "saved pipeline's")
+        check(bool(np.array_equal(loaded.scaler.mean_, pipe.scaler.mean_))
+              and bool(np.array_equal(loaded.scaler.scale_,
+                                      pipe.scaler.scale_)),
+              "load_artifact: scaler")
+        (labels2, probs2), counts = counted(lambda: loaded.classify(req))
+        check(set(counts) == {ENC, ATTN},
+              f"the loaded pipeline launched {sorted(counts)}")
+        check(bool(np.array_equal(probs2, probs))
+              and bool(np.array_equal(labels2, labels)),
+              "the loaded artifact does not answer bit-equal to the saved "
+              "pipeline")
+        log(f"artifact: saved ({', '.join(sorted(os.listdir(art)))}), loaded "
+            f"on {loaded.device} in {load_s:.2f} s without calibration "
+            f"windows; int8 tables bit-equal; classify({n80}) bit-equal to "
+            f"the saved pipeline's, launches {json.dumps(counts)}; gpu {smi}")
+        from_ckpt = WeldingQualityPipeline.from_checkpoints(
+            os.path.join(art, "vqvae.ckpt"),
+            os.path.join(art, "transformer.ckpt"), n_cycles=N_CYCLES,
+            max_batch=80)
+        check(from_ckpt.device.type == "cuda",
+              "from_checkpoints without a device did not build on the card")
+        labels3, probs3 = from_ckpt.classify(req)
+        check(bool(np.array_equal(labels3, f32_labels))
+              and bool(np.array_equal(probs3, f32_probs)),
+              "from_checkpoints does not give the f32 pipeline's answers")
+        log(f"from_checkpoints on the artifact's two .ckpt files: f32 "
+            f"classify({n80}) bit-equal to the f32 pipeline's")
+
+        # -- D4. the scorer over the CSV at stride 1 ----------------------------
+        keys, sizes = np.unique(np.stack([exp, run], axis=1), axis=0,
+                                return_counts=True)
+        expected = int(np.maximum(sizes - N_CYCLES + 1, 0).sum())
+        check(expected >= MIN_SCORED_WINDOWS,
+              f"the CSV holds only {expected} windows")
+        out = os.path.join(tmp, "scores.csv")
+        parser = score_quality.build_parser()
+        args = parser.parse_args(["--artifact", art, "--data-path", csv,
+                                  "--out", out, "--stride", "1"])
+        total_s = [0.0]
+
+        def score():
+            total_s[0] = host_seconds(lambda: score_quality.main(args))
+
+        _, counts = counted(score)
+        check(set(counts) == {ENC, ATTN},
+              f"the scorer launched {sorted(counts)}, expected {ENC} and "
+              f"{ATTN}")
+        lines = open(out).read().strip().split("\n")
+        check(lines[0] ==
+              "experiment,welding_run,start_cycle,label,p_bad,p_good",
+              f"scorer header {lines[0]!r}")
+        rows = [ln.split(",") for ln in lines[1:]]
+        check(len(rows) == expected,
+              f"scorer wrote {len(rows)} rows, expected {expected}")
+        check(all(len(r) == 6 and r[3] in ("0", "1")
+                  and abs(float(r[4]) + float(r[5]) - 1.0) < 1e-5
+                  for r in rows), "scorer rows")
+        check({(int(r[0]), int(r[1])) for r in rows}
+              == {(int(e), int(w)) for e, w in keys},
+              "scorer: runs are not grouped by (experiment, welding_run)")
+        out2 = os.path.join(tmp, "scores_chunked.csv")
+        score_quality.main(parser.parse_args(
+            ["--artifact", art, "--data-path", csv, "--out", out2,
+             "--stride", "1", "--chunk", "512"]))
+        check(open(out2).read() == open(out).read(),
+              "the scorer's output depends on --chunk")
+        n_bad = sum(r[3] == "0" for r in rows)
+        log(f"score_quality: {len(rows)} windows of {N_CYCLES} cycles from "
+            f"{len(keys)} runs at --stride 1 in {total_s[0]:.2f} s, "
+            f"{len(rows) / total_s[0]:.1f} windows/s end to end (artifact "
+            f"load, CSV parse, scaling, classify, writing); parsing takes "
+            f"{parse_s:.3f} s, {parse_s / total_s[0]:.1%} of it; "
+            f"{n_bad} flagged bad; the same file at --chunk 512; launches "
+            f"{json.dumps(counts)}; gpu {smi}")
+
+        # -- D5. the latent data module: whole splits encoded on the card -------
+        split_ids = get_val_test_ids()
+        val_ids, test_ids = split_ids["val_ids"], split_ids["test_ids"]
+        base = asimow.ASIMoWDataModule(
+            "classification", N_CYCLES, val_ids, test_ids,
+            data_directory_path=tmp, shuffle=False)
+        base.setup()
+        tokens = {name: f32.encode_tokens(getattr(base, name).x)
+                  for name in ("train", "val", "test")}
+        mods = {}
+        for task in ("autoregressive_ids_classification", "classification"):
+            for depth in (1, 2):
+                dm = latent.LatentPredDataModule(
+                    vq, task, N_CYCLES, val_ids, test_ids,
+                    data_directory_path=tmp, shuffle_val_test=False,
+                    pipeline_depth=depth)
+                secs = [0.0]
+
+                def setup(dm=dm, secs=secs):
+                    secs[0] = host_seconds(dm.setup)
+
+                _, counts = counted(setup)
+                check(counts == {}, f"LatentPredDataModule({task}) launched "
+                                    f"{json.dumps(counts)}: its encoder is "
+                                    f"the plain exact one")
+                mods[task, depth] = dm
+                log(f"LatentPredDataModule({task}, pipeline_depth={depth})"
+                    f".setup(): train {dm.train.x.shape} {dm.train.x.dtype}, "
+                    f"val {dm.val.x.shape}, test {dm.test.x.shape} in "
+                    f"{secs[0]:.2f} s (CSV cache, windows, scaling, encode); "
+                    f"gpu {smi}")
+            one, two = mods[task, 1], mods[task, 2]
+            for name in ("train", "val", "test"):
+                a, b = getattr(one, name), getattr(two, name)
+                check(all((u is None and v is None) or np.array_equal(u, v)
+                          for u, v in zip(a, b)),
+                      f"LatentPredDataModule({task}): pipeline_depth=2 is "
+                      f"not bit-equal to 1 on {name}")
+        ar = mods["autoregressive_ids_classification", 2]
+        zq = mods["classification", 2]
+        codebook = vq.codebook.detach().cpu().numpy()
+        for name in ("train", "val", "test"):
+            sp, want = getattr(ar, name), tokens[name]
+            got = sp.x[:, 1:]
+            check(got.shape == want.shape and sp.x.dtype == np.int64
+                  and bool((sp.x[:, 0] == ar.num_classes - 2).all()),
+                  f"latent ids of {name}: shape or start token")
+            # encode_tokens runs chunks of 80 windows, the data module of
+            # 4,096 cycles: the same plain encoder on other batch sizes,
+            # whose products may be summed in another order
+            flips = flip_rate(got, want.astype(np.int64))
+            check(flips <= MAX_ID_FLIP,
+                  f"latent ids of {name} differ from encode_tokens in "
+                  f"{flips}")
+            check(bool(np.array_equal(sp.cond, getattr(base, name).y)),
+                  f"latent labels of {name}")
+            lat = getattr(zq, name).x
+            n = len(lat)
+            check(lat.dtype == np.float32 and bool(np.array_equal(
+                lat, codebook[got.reshape(n, N_CYCLES, -1)].reshape(
+                    n, N_CYCLES, -1))),
+                f"latent z_q of {name} is not the codebook rows of its ids")
+            log(f"latent {name}: {n} windows, ids differ from "
+                f"pipe.encode_tokens in {flips:.3e} of entries (bound "
+                f"{MAX_ID_FLIP}), z_q bit-equal to the codebook rows of "
+                f"the ids")
+        allx = np.concatenate([base.train.x, base.val.x, base.test.x])
+        n_cyc = len(allx) * N_CYCLES
+        secs = {1: [], 2: []}
+        for rep in range(4):
+            for depth in (1, 2) if rep % 2 == 0 else (2, 1):
+                dm = mods["autoregressive_ids_classification", depth]
+                s = host_seconds(lambda: dm._encode_split(allx))
+                if rep:                       # the first round warms up
+                    secs[depth].append(s)
+        med = {k: statistics.median(v) for k, v in secs.items()}
+        log(f"latent encode of {len(allx)} windows ({n_cyc} cycles, chunks "
+            f"of 4096): pipeline_depth=1 {n_cyc / med[1]:.0f} cycles/s "
+            f"({med[1]:.3f} s), pipeline_depth=2 {n_cyc / med[2]:.0f} "
+            f"cycles/s ({med[2]:.3f} s), medians of 3; gpu {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1070,6 +1580,10 @@ def main() -> int:
     # -- 5e. token sampling, kernels #9, #12 and #13 ---------------------
     sampling = sampling_phase(vq, tr, pipe, reqs[0], smi)
     launched.update(sampling["launched"])
+
+    # -- 5f. the bf16 encoder, kernel #1's compute_dtype variant -------------
+    bf16 = bf16_encoder_phase(vq, tr, qp, xreqs, fns["full"], smi)
+    launched.update(bf16["launched"])
 
     check(set(launched) == set(kernels.launches),
           f"kernels no path launched: "
@@ -1450,11 +1964,16 @@ def main() -> int:
             f"{rate(t['grouped'])}; max |dlogit| "
             f"{float((le - lf).abs().max()):.3e}; gpu {smi}")
 
+    # -- 10. bf16 serving, artifacts, the scorer, the latent data module ------
+    deployment_phase(vq, tr, pipe, f32, reqs[0], smi)
+
     sampling_trace(tr, pipe)
     times.update(sampling["times"])
+    times.update(bf16["times"])
     enc_err.update({name: e for name, e in sampling["err"].items()
                     if name in RECORD})
-    work = kernel_work(n_rows, c_, grp, vq.patch_size, vq.embedding_dim,
+    enc_err.update(bf16["err"])
+    work = kernel_work(n_rows, c_, grp, nb, vq.patch_size, vq.embedding_dim,
                        vq.num_embeddings, n80, tr.seq_len, tr.n_head,
                        SAMPLE_BATCH, TIMED_POSITIONS[0])
     record = {"kernels": [

@@ -17,7 +17,12 @@ a rounding boundary). The f32 attention kernel (#9) and the decode
 kernels (#12, #13) sum 64- to 2048-term products in other orders than
 the plain versions and may contract FMAs: 2e-5 on the attention output
 and the written cache row, 1e-4 on the residual stream; every cache row
-but `pos` must stay bit-equal.
+but `pos` must stay bit-equal. The bf16 encoder chain (#1's
+`compute_dtype` variant) rounds each product input to bf16: an ulp of
+f32 difference in a gelu output can move one input by 2^-8 of its
+value, so a resblock's output is held within 1e-3 of its largest
+magnitude (one such flip is ~2e-4 of it), per resblock and fed the same
+x, and the whole chain by the ids it leads to.
 """
 import numpy as np
 import pytest
@@ -68,6 +73,73 @@ def test_encoder_kernel_matches_plain(dev, use_bn):
     assert kernels.launches["encoder_chain_f32"] == before + 1
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("use_bn", [False, True])
+@pytest.mark.parametrize("n,n_blocks", [(1000, 1), (77, 2), (25601, 1)])
+def test_bf16_encoder_kernel_matches_plain(dev, n, n_blocks, use_bn):
+    c = 512
+    w, v = (a.to(dev) for a in _encoder_operands(c, n_blocks, use_bn))
+    x = torch.randn(n, c, generator=torch.Generator().manual_seed(1)).to(dev)
+    before = dict(kernels.launches)
+    wb = w.bfloat16()
+    out = fenc.fused_encoder_eval(x, wb, v, use_bn=use_bn,
+                                  compute_dtype=torch.bfloat16)
+    ref = fenc.fused_encoder_eval_reference(x, wb, v, use_bn=use_bn,
+                                            compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.launches["encoder_chain_bf16"] == \
+        before["encoder_chain_bf16"] + 1
+    assert kernels.launches["encoder_chain_f32"] == before["encoder_chain_f32"]
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-3 * ref.abs().max()
+    # f32 weights are cast inside the wrapper: the same launch, bit-equal
+    again = fenc.fused_encoder_eval(x, w, v, use_bn=use_bn,
+                                    compute_dtype=torch.bfloat16)
+    assert torch.equal(again, out)
+    # and the rounding is really there: the f32 chain is further away
+    f32 = fenc.fused_encoder_eval_reference(x, w, v, use_bn=use_bn)
+    assert (out - ref).abs().max() < (out - f32).abs().max()
+
+
+def test_bf16_encoder_wrapper_rejects_bad_operands(dev):
+    w, v = (a.to(dev) for a in _encoder_operands(512, 1, False))
+    x = torch.randn(8, 512, device=dev)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fenc.fused_encoder_eval(x, w, v, use_bn=False,
+                                compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        fenc.fused_encoder_eval(x, w.half(), v, use_bn=False,
+                                compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not supported"):
+        fenc.fused_encoder_eval(x[:, :256].contiguous(), w[:, :256, :256]
+                                .contiguous().bfloat16(), v[:, :256]
+                                .contiguous(), use_bn=False,
+                                compute_dtype=torch.bfloat16)
+
+
+def test_bf16_encode_indices_launches_one_chain(dev):
+    """The bf16 encoder at the bench model: one launch of the bf16 chain
+    per encode whatever the group, ids within the JAX test's bar of the
+    f32 encoder's (under 10% on random weights)."""
+    vq, _ = entry.build(seed=0)
+    packed = fenc.pack_encoder(vq, torch.bfloat16)
+    x = torch.randn(40, 200, 2, generator=torch.Generator().manual_seed(2))
+    x = x.to(dev)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        ids = fenc.encode_indices_fused(vq, packed, x,
+                                        compute_dtype=torch.bfloat16)
+        counts = {k: n for k, n in kernels.launches.items() if n}
+        assert counts == {"encoder_chain_bf16": 1}
+        kernels.reset_launch_counts()
+        ids1 = fenc.encode_indices_fused(vq, packed, x, group_size=1,
+                                         compute_dtype=torch.bfloat16)
+        assert kernels.launches["encoder_chain_bf16"] == vq.n_resblocks
+        assert torch.equal(ids, ids1)
+        exact = vq.encode_indices(x)
+    assert ids.dtype == torch.int32 and ids.shape == exact.shape
+    assert (ids != exact).float().mean() < 0.10
 
 
 RAGGED_ROWS = [77, 25601]     # a part tile, and one row past 800 tiles

@@ -83,6 +83,118 @@ def test_group_size_follows_jax_rule(hidden, group):
     assert fenc.group_size_for(hidden) == group
 
 
+# -- kernel 1's bf16 variant (compute_dtype) ---------------------------------
+#
+# Both products' inputs are rounded to bf16 and summed in f32. Against
+# the Pallas kernel in interpret mode the plain version agrees to f32
+# rounding (2e-7) but for the rows a flip reaches: the A&S erf of the
+# Pallas gelu differs from the exact erf by up to 1.5e-7, which moves a
+# gelu output across a bf16 rounding boundary in about one element of
+# 10^4, and one moved input changes a row's sums by ~2^-9 x |h| x |w|,
+# 1e-4 to 3e-4 here. So: every element within 5e-4, the mean difference
+# within 5e-6, while the f32 chain is 1e-4 away on average (the rounding
+# that the two share). The same flips can move an id at a near-tie: at
+# most 1% of the ids may differ from JAX's.
+
+@pytest.mark.parametrize("n_blocks", [1, 2])
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_fused_encoder_bf16_chain_matches_jax(rng, batch_norm, n_blocks):
+    jm, params, state = H.jax_vqvae(batch_norm)
+    w, v = (np.array(a) for a in jenc._pack_encoder(jm, params, state))
+    w, v = w[:2 * n_blocks], v[:10 * n_blocks]
+    x = rng.standard_normal((200, 64)).astype(np.float32)
+    ref = np.asarray(jenc.fused_encoder_eval(
+        jnp.asarray(x), w, v, tile_rows=64, use_bn=batch_norm,
+        compute_dtype=jnp.bfloat16))
+    tx, tw, tv = map(torch.from_numpy, (x, w, v))
+    out = fenc.fused_encoder_eval(tx, tw, tv, use_bn=batch_norm,
+                                  compute_dtype=torch.bfloat16)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), ref, rtol=0, atol=5e-4)
+    assert np.abs(_np(out) - ref).mean() < 5e-6
+    # a bf16 pack gives the bits of the f32 pack cast per call
+    packed = fenc.fused_encoder_eval(tx, tw.bfloat16(), tv, use_bn=batch_norm,
+                                     compute_dtype=torch.bfloat16)
+    assert torch.equal(packed, out)
+    # and the rounding is there: the f32 chain is much further away
+    f32 = fenc.fused_encoder_eval(tx, tw, tv, use_bn=batch_norm)
+    assert (out - f32).abs().mean() > 1e-4
+    assert np.abs(ref - _np(f32)).mean() > 1e-4
+
+
+@pytest.mark.parametrize("batch_norm", [False, True])
+def test_encode_indices_fused_bf16_matches_jax(batch_norm):
+    """Ids of the bf16 encoder: within 1% of JAX's bf16 ids, under the
+    JAX test's 10% of the f32 encoder's on random weights, and
+    group_size=1 takes the chain kernel too and gives the same ids."""
+    jm, params, state = H.jax_vqvae(batch_norm)
+    x = H.windows(48, seed=1).reshape(-1, 200, 2)[:48]
+    ref = np.asarray(jenc.encode_indices_fused(
+        jm, params, state, jnp.asarray(x), tile_rows=64,
+        compute_dtype=jnp.bfloat16))
+    vq = H.port_vqvae(batch_norm)
+    packed = fenc.pack_encoder(vq, torch.bfloat16)
+    assert packed[0].dtype == torch.bfloat16
+    assert packed[1].dtype == torch.float32
+    tx = torch.from_numpy(x)
+    with torch.no_grad():
+        ids = fenc.encode_indices_fused(vq, packed, tx,
+                                        compute_dtype=torch.bfloat16)
+        ids1 = fenc.encode_indices_fused(vq, packed, tx, group_size=1,
+                                         compute_dtype=torch.bfloat16)
+        from_f32 = fenc.encode_indices_fused(vq, fenc.pack_encoder(vq), tx,
+                                             compute_dtype=torch.bfloat16)
+        exact = vq.encode_indices(tx)
+    assert ids.dtype == torch.int32 and ids.shape == ref.shape
+    assert (_np(ids) != ref).mean() <= 0.01
+    assert (ids != exact).float().mean() < 0.10
+    assert torch.equal(ids, ids1) and torch.equal(ids, from_f32)
+
+
+@pytest.mark.parametrize("group_size,want", [(None, 1), (1, 5), (2, 3)])
+def test_bf16_encoder_takes_the_chain_at_every_group(monkeypatch,
+                                                     group_size, want):
+    """With a compute dtype the chain wrapper runs every group, 1
+    included; the one-resblock wrapper is never called."""
+    jm = JaxVQVAEPatch(hidden_dim=64, input_dim=2, num_embeddings=H.K,
+                       embedding_dim=16, n_resblocks=5, learning_rate=1e-3,
+                       batch_norm=False)
+    vq = bridge.vqvae_from_jax(jm.hparams, *jm.init(1), device="cpu")
+    calls = []
+    real = fenc.fused_encoder_eval
+    monkeypatch.setattr(fenc, "fused_encoder_eval", lambda *a, **k: (
+        calls.append((a[1].dtype, k["compute_dtype"])), real(*a, **k))[1])
+    monkeypatch.setattr(fenc, "resblock_eval", None)
+    with torch.no_grad():
+        fenc.encode_indices_fused(
+            vq, fenc.pack_encoder(vq, torch.bfloat16),
+            torch.from_numpy(H.windows(1, seed=2).reshape(-1, 200, 2)),
+            group_size=group_size, compute_dtype=torch.bfloat16)
+    assert calls == [(torch.bfloat16, torch.bfloat16)] * want
+
+
+@pytest.mark.parametrize("hidden,group", [(64, 512), (512, 8), (1024, 2),
+                                          (2048, 1)])
+def test_group_size_of_bf16_weights_follows_jax_rule(hidden, group):
+    assert fenc.group_size_for(hidden, 2) == group
+
+
+def test_bf16_plain_product_sums_in_f32():
+    """The plain version's product is bf16 inputs summed in f32, not a
+    bf16 matmul (which would round the sum as well)."""
+    g = torch.Generator().manual_seed(0)
+    h, w = torch.randn(16, 64, generator=g), torch.randn(64, 64, generator=g)
+    got = fenc._dot(h, w, torch.bfloat16)
+    want = (h.bfloat16().double() @ w.bfloat16().double()).float()
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max() < 1e-5
+    assert (got - (h.bfloat16() @ w.bfloat16()).float()).abs().max() > 1e-3
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fenc.fused_encoder_eval(h, w[None].repeat(2, 1, 1),
+                                torch.zeros(10, 64), use_bn=False,
+                                compute_dtype=torch.float16)
+
+
 # -- kernels 3, 4 and 5: one resblock and the encoder's two ends -------------
 #
 # f32 outputs to 1e-5, as kernel 1 (the A&S erf of the Pallas kernels);
@@ -533,8 +645,9 @@ def test_kernel_sources_call_no_library_products():
         for word in ("cublas", "cudnn", "cutlass::gemm"):
             assert word not in src, (path.name, word)
     assert set(kernels.launches) == {
-        "encoder_chain_f32", "resblock_f32", "encoder_entry_f32",
-        "encoder_exit_f32", "nearest_codes_f32", "attn_block_quant",
+        "encoder_chain_f32", "encoder_chain_bf16", "resblock_f32",
+        "encoder_entry_f32", "encoder_exit_f32", "nearest_codes_f32",
+        "attn_block_quant",
         "attn_block_quant_int8attn", "block_quant", "block_quant_int8attn",
         "mlp_quant", "qkv_attention_quant", "causal_attention_quant",
         "flash_attention_f32", "decode_attn_f32", "block_decode_f32"}
@@ -553,6 +666,8 @@ def test_launch_counts_untouched_on_cpu():
     x = torch.zeros((3, 64))
     w, v = torch.zeros((2, 64, 64)), torch.zeros((10, 64))
     fenc.fused_encoder_eval(x, w, v, use_bn=False)
+    fenc.fused_encoder_eval(x, w, v, use_bn=False,
+                            compute_dtype=torch.bfloat16)
     fenc.resblock_eval(x, w[0], w[1], v, use_bn=False)
     fenc.fused_encoder_entry_eval(torch.zeros((3, 25)), torch.zeros((25, 64)),
                                   torch.zeros(64), w, v, use_bn=False)

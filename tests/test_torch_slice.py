@@ -398,8 +398,16 @@ def test_port_imports_without_jax():
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_mlp_quant, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn_quant, "
             "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_decode, "
-            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn\n"
-            "assert not any(m == 'jax' or m.startswith(('jax.', "
+            "vq_vae_transformer_arc_welding_tpu_torch.ops.fused_attn, "
+            "vq_vae_transformer_arc_welding_tpu_torch.data, "
+            "vq_vae_transformer_arc_welding_tpu_torch.data.synthetic, "
+            "vq_vae_transformer_arc_welding_tpu_torch.native.csv_loader, "
+            "vq_vae_transformer_arc_welding_tpu_torch.train.checkpoint, "
+            "vq_vae_transformer_arc_welding_tpu_torch.train.torch_import, "
+            "vq_vae_transformer_arc_welding_tpu_torch.cli.shared, "
+            "vq_vae_transformer_arc_welding_tpu_torch.cli.score_quality\n"
+            "assert not any(m in ('jax', 'flax', 'msgpack', 'orbax') or "
+            "m.startswith(('jax.', 'flax.', 'orbax.', "
             "'vq_vae_transformer_arc_welding_tpu.')) for m in sys.modules "
             "if sys.modules[m] is not None)\n"
             "print('ok')")

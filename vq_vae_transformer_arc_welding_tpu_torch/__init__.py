@@ -1,4 +1,5 @@
-"""PyTorch / CUDA port of the arc-welding serving path for NVIDIA Hopper.
+"""PyTorch / CUDA port of the arc-welding serving and deployment path
+for NVIDIA Hopper.
 
 Counterpart of the JAX package `vq_vae_transformer_arc_welding_tpu/`,
 which stays the reference every module here is tested against. This
@@ -10,11 +11,18 @@ What is ported: the f32 and calibrated-int8 serving path
 `ood_score`, `sample_tokens` and the int8 encoder;
 `entry.make_pipeline*`), every configuration of the int8 transformer
 (`models/quantized.py`), every encoder path (`ops/fused_encoder.py`,
-`ops/fused_vq.py`), and token sampling (`generate`, `generate_kv`,
-`quantized_generate_kv`; `ops/fused_decode.py`, `ops/fused_attn.py`).
-Its hand-written CUDA kernels, one per TPU kernel of the JAX package,
-live in `csrc/` and are built on first use by `kernels.library()`.
-Training, the decoder and the EMA VQ are not ported yet. Entry points
-(`entry.build`, `bridge.*`) put their tensors on the card unless the
-caller names another device.
+`ops/fused_vq.py`), token sampling (`generate`, `generate_kv`,
+`quantized_generate_kv`; `ops/fused_decode.py`, `ops/fused_attn.py`),
+and the deployment path: checkpoints (`train/checkpoint.py`, `Model.save`
+/ `Model.load`), reference Lightning files (`train/torch_import.py`),
+artifacts and `from_checkpoints` (`serve.py`), bf16 serving, the bf16
+encoder, the numpy data modules and the native CSV parser (`data/`,
+`native/`), the latent data module (`data/latent.py`) and the scorer
+(`cli/score_quality.py`).
+Its hand-written CUDA kernels, one per TPU kernel of the JAX package
+and variant, live in `csrc/` and are built on first use by
+`kernels.library()`. Training, the decoder, the EMA VQ and multi-GPU
+serving are not ported yet. Entry points (`entry.build`, `bridge.*`,
+`Model.load`, `load_artifact`, `from_checkpoints`, the scorer) put their
+tensors on the card unless the caller names another device.
 """

@@ -5,7 +5,9 @@ in the other direction: the JAX package's `(vq_params, vq_state)` and
 `tr_params` pytrees, and its `quantize_transformer` and
 `quantize_encoder` outputs, become the port's modules, qparams and
 qenc, so that both packages run on identical weights and identical
-int8 scales. Every function builds on the card unless the caller names
+int8 scales; `artifact_from_jax` turns a whole JAX serving pipeline
+(trees, manifest fields, absmax tables, scaler) into a port pipeline
+that `save_artifact` can write. Every function builds on the card unless the caller names
 another device (the tests pass `device="cpu"`). Leaves may be numpy
 arrays or JAX arrays (anything `np.asarray` takes); nothing here
 imports jax.
@@ -21,6 +23,7 @@ from .models import TransformerDecoder, VQVAEPatch
 from .models.base import serving_device
 from .models.quantized import QLinear
 from .ops.fused_block_quant import pack_block
+from .serve import WeldingQualityPipeline
 
 _VQ_HPARAMS = ("hidden_dim", "input_dim", "num_embeddings", "embedding_dim",
                "n_resblocks", "learning_rate", "dropout_p", "patch_size",
@@ -156,3 +159,41 @@ def qenc_from_jax(qenc, device=None) -> dict:
                    for blk in qenc["blocks"]],
         "sep": qlinear_from_jax(qenc["sep"], device),
     }
+
+
+def artifact_from_jax(vq_hparams: dict, vq_params, vq_state,
+                      tr_hparams: dict, tr_params, manifest: dict,
+                      act_absmax: dict | None = None,
+                      enc_absmax: dict | None = None, scaler=None,
+                      device=None) -> WeldingQualityPipeline:
+    """A JAX WeldingQualityPipeline's state -> the port's pipeline.
+
+    vq_* / tr_*: the JAX models' hparams and numpy (or JAX) trees.
+    manifest: the fields of the JAX pipeline's manifest.json (`n_cycles`,
+    `max_batch`, `precision`, `encoder_precision`, `encoder_impl`,
+    `start_token`, `monitor_saturation`, `saturation_threshold`).
+    act_absmax / enc_absmax: the tables its `calibrate` measured
+    (`_act_absmax`, `_enc_absmax`), from which the int8 tables are
+    derived here as `load_artifact` derives them. scaler: an object with
+    `mean_` and `scale_`, copied into the port's StandardScaler."""
+    from .data.scaler import StandardScaler
+    vq = vqvae_from_jax(vq_hparams, vq_params, vq_state, device=device)
+    tr = transformer_from_jax(tr_hparams, tr_params, device=device)
+    pipe = WeldingQualityPipeline(
+        vq, tr, manifest["n_cycles"], max_batch=manifest["max_batch"],
+        precision=manifest["precision"], start_token=manifest["start_token"],
+        encoder_precision=manifest["encoder_precision"],
+        encoder_impl=manifest["encoder_impl"],
+        monitor_saturation=manifest.get("monitor_saturation", True))
+    pipe.saturation_threshold = manifest.get(
+        "saturation_threshold", WeldingQualityPipeline.saturation_threshold)
+    if enc_absmax:
+        pipe._set_encoder_calibration(
+            {k: float(v) for k, v in enc_absmax.items()})
+    if act_absmax:
+        pipe._set_calibration({k: float(v) for k, v in act_absmax.items()})
+    if scaler is not None:
+        pipe.scaler = StandardScaler()
+        pipe.scaler.mean_ = np.asarray(scaler.mean_, np.float64)
+        pipe.scaler.scale_ = np.asarray(scaler.scale_, np.float64)
+    return pipe

@@ -1,7 +1,7 @@
 """The bench model and its classify pipelines.
 
 Port of __graft_entry__.py (`_build`, `make_pipeline`,
-`make_pipeline_quantized`): the VQ-VAE (hidden 512, 8 resblocks,
+`make_pipeline_quantized` with its `encoder_dtype`): the VQ-VAE (hidden 512, 8 resblocks,
 K=256, D=32, patch 25, no BatchNorm) and the transformer (d512,
 8 blocks, 8 heads, 321 tokens: 20 cycles x 16 tokens + start token,
 258 classes) that `bench.py` times. Weights are random, drawn from a
@@ -58,7 +58,7 @@ def make_pipeline(vq: VQVAEPatch, tr: TransformerDecoder):
 
 def make_pipeline_quantized(vq: VQVAEPatch, tr: TransformerDecoder, qparams,
                             block_fusion: str | None = "attn",
-                            **classify_kw):
+                            encoder_dtype=None, **classify_kw):
     """The int8 classify step: fused f32 encoder (kernel #1) and the
     calibrated int8 transformer, `quantized_classify(block_fusion=...)`:
     'attn' (the default, kernel #2 per block), 'full' (#6), 'attn8' and
@@ -66,18 +66,27 @@ def make_pipeline_quantized(vq: VQVAEPatch, tr: TransformerDecoder, qparams,
     None. `classify_kw` goes to quantized_classify as it is: with
     block_fusion=None, fused_attention=True and the fused_* options
     select the fused attention kernels (#10, #11) and the fused MLP
-    (#8). `qparams` must carry calibrated activation scales. The
-    encoder's kernel operands are packed once, here."""
+    (#8). `qparams` must carry calibrated activation scales.
+
+    encoder_dtype: None = the exact f32 encoder (ids bit-comparable
+    with the plain encoder, the default contract). torch.bfloat16 = the
+    encoder's products on the bf16 tensor cores with f32 sums
+    (`encode_indices_fused(compute_dtype=)`): ids can differ near
+    Voronoi boundaries, so measure label agreement first.
+
+    The encoder's kernel operands are packed once, here, in the
+    encoder's dtype."""
     from .models.quantized import quantized_classify
     from .ops.fused_encoder import encode_indices_fused, pack_encoder
 
     with torch.no_grad():
-        packed = pack_encoder(vq)
+        packed = pack_encoder(vq, encoder_dtype)
 
     @torch.inference_mode()
     def fn(x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
-        ids = encode_indices_fused(vq, packed, x.reshape(-1, CYCLE_LEN, 2))
+        ids = encode_indices_fused(vq, packed, x.reshape(-1, CYCLE_LEN, 2),
+                                   compute_dtype=encoder_dtype)
         return quantized_classify(
             tr, qparams, with_start_token(ids.reshape(b, -1),
                                           vq.num_embeddings),

@@ -39,6 +39,8 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 _SIGNATURES = {
     # x, weights, vecs, out, n_rows, c, n_blocks, use_bn, stream
     "encoder_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same with bf16 weights: both products on the bf16 tensor cores
+    "encoder_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w1, w2, vec, out, n_rows, c, use_bn, stream
     "resblock_f32": [_P] * 5 + [_I] * 3 + [_P],
     # patches, w_pe, b_pe, weights, vecs, out, n_rows, patch, c, n_blocks,

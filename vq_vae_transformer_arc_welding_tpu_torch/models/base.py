@@ -11,6 +11,8 @@ from a torch.Generator.
 """
 from __future__ import annotations
 
+import re
+
 import torch
 from torch import nn
 
@@ -60,3 +62,44 @@ def assign(param: torch.Tensor, value: torch.Tensor) -> None:
     """Copy a CPU-drawn initial value into a parameter on its device."""
     with torch.no_grad():
         param.copy_(value)
+
+
+def load_state_dict_checked(module: nn.Module, sd: dict,
+                            skipped: re.Pattern | None = None) -> None:
+    """`load_state_dict` that names what it lets pass: keys of `sd` that
+    match `skipped` are left out, and any other unexpected or missing
+    key raises KeyError."""
+    if skipped is not None:
+        sd = {k: v for k, v in sd.items() if not skipped.match(k)}
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    if missing or unexpected:
+        raise KeyError(f"state_dict mismatch: missing {list(missing)}, "
+                       f"unexpected {list(unexpected)}")
+
+
+class Checkpointed:
+    """`save` / `load` of a model through train/checkpoint.py (the JAX
+    package's `Module.save` / `Module.load`). A subclass has `hparams`,
+    its constructor's keyword arguments; runtime options (`vq_impl`,
+    `attention_impl`, `compute_dtype`) are not hparams and are given to
+    `load` again."""
+
+    hparams: dict
+
+    def save(self, path: str, extra: dict | None = None) -> None:
+        from ..train.checkpoint import save_checkpoint
+        save_checkpoint(path, type(self).__name__, self.hparams,
+                        self.state_dict(), extra)
+
+    @classmethod
+    def load(cls, path: str, device=None, **runtime):
+        """The model of a file written by `save`, in eval mode on
+        `device`: the card when it is None (and an error where there is
+        none). Raises ValueError on another model's checkpoint."""
+        from ..train.checkpoint import load_checkpoint
+        name, hparams, sd, _ = load_checkpoint(path)
+        if name != cls.__name__:
+            raise ValueError(f"checkpoint is for {name}, not {cls.__name__}")
+        model = cls(**hparams, **runtime, device=serving_device(device))
+        load_state_dict_checked(model, sd)
+        return model.eval()

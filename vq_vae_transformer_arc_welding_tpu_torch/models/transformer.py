@@ -2,7 +2,8 @@
 
 Port of vq_vae_transformer_arc_welding_tpu/models/transformer.py
 (`sinusoidal_pe`, `TransformerDecoder`: `embed`, the block body,
-`backbone`, `heads`, `apply`, and the samplers: `_sample_from_logits`,
+`backbone`, `heads`, `apply`, the `compute_dtype` runtime option of the
+eval forward, `save` / `load`, and the samplers: `_sample_from_logits`,
 `_recompute_scan`, `generate`, `_attn_cached`, `_token_step`,
 `_token_step_fused`, `_prefill`, `generate_kv`). Attribute paths are the
 reference keys read by
@@ -10,8 +11,7 @@ vq_vae_transformer_arc_welding_tpu/train/torch_import.py:139-169
 (`embedding.latent_embedding.weight`, `transformer.h.{i}.ln_1.*`,
 `transformer.h.{i}.attn.c_attn.*`, `class_head.linear_1.weight`, ...).
 Linear weights are in torch's (out, in) layout, so `x @ W.t()`.
-Dropout, the losses, `compute_dtype` and the stacked block layout are
-not ported yet.
+Dropout, the losses and the stacked block layout are not ported yet.
 
 Sampling draws as `jax.random.categorical` does: Gumbel noise added to
 the logits, then argmax. The noise comes from an explicit
@@ -25,6 +25,7 @@ it.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -34,7 +35,7 @@ from ..ops.activations import gelu, new_gelu
 from ..ops.attention import (causal_attention_core, causal_self_attention,
                              merge_heads, split_heads)
 from ..ops.norm import layer_norm
-from .base import Node, Params, assign
+from .base import Checkpointed, Node, Params, assign
 from .initializers import gpt2_embedding, gpt2_linear
 
 
@@ -71,6 +72,21 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.float() @ w.float().t()
 
 
+def cast_params(holder: nn.Module, dtype: torch.dtype):
+    """A holder's tensors cast to `dtype`, under the same attribute
+    paths: Params become namespaces of tensors, Nodes namespaces of
+    their children, ModuleLists lists. Integer buffers keep their type."""
+    if isinstance(holder, nn.ModuleList):
+        return [cast_params(child, dtype) for child in holder]
+    out = SimpleNamespace()
+    for name, t in (*holder.named_parameters(recurse=False),
+                    *holder.named_buffers(recurse=False)):
+        setattr(out, name, t.to(dtype) if t.is_floating_point() else t)
+    for name, child in holder.named_children():
+        setattr(out, name, cast_params(child, dtype))
+    return out
+
+
 class Block(nn.Module):
     """Pre-LN block: ln_1 -> attn -> residual -> ln_2 -> tanh-GELU MLP."""
 
@@ -90,7 +106,7 @@ class Block(nn.Module):
             c_proj=Params(device, weight=(d, 4 * d), bias=(d,)))
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Checkpointed, nn.Module):
     """hparams mirror the JAX TransformerDecoder constructor."""
 
     def __init__(self, d_model: int = 64, n_classes: int = 131,
@@ -98,11 +114,19 @@ class TransformerDecoder(nn.Module):
                  res_dropout: float = 0.1, att_dropout: float = 0.0,
                  learning_rate: float = 1e-3, class_h_bias: bool = False,
                  class_h_dropout: bool = False, pe_max_len: int = 512,
-                 attention_impl: str = "xla", *,
+                 attention_impl: str = "xla", *, compute_dtype=None,
                  generator: torch.Generator | None = None, device=None):
         """attention_impl: 'xla' (the plain attention core) or 'pallas'
         (the fused kernel of ops/fused_attn.py) in the block body; a
-        runtime option, not an hparam, named as in the JAX package."""
+        runtime option, not an hparam, named as in the JAX package.
+
+        compute_dtype: another runtime option (an attribute, as in the
+        JAX package, so serving can set it on a loaded model). None
+        keeps exact f32. torch.bfloat16: `apply` casts the parameters
+        and the embedded stream to bf16, LayerNorm outputs and the
+        blocks' products are bf16 (half the traffic between ops), the
+        attention scores and softmax stay f32, and the heads sum in f32
+        into f32 logits. The samplers keep f32."""
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} is not a multiple of "
@@ -110,7 +134,11 @@ class TransformerDecoder(nn.Module):
         if attention_impl not in ("xla", "pallas"):
             raise ValueError(f"attention_impl {attention_impl!r}: 'xla' or "
                              f"'pallas'")
+        if compute_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: None (f32) or "
+                             f"torch.bfloat16")
         pe_max_len = max(pe_max_len, seq_len)
+        self.compute_dtype = compute_dtype
         self.d_model = d_model
         self.n_classes = n_classes
         self.seq_len = seq_len
@@ -186,12 +214,16 @@ class TransformerDecoder(nn.Module):
     # -- forward --------------------------------------------------------
 
     def embed(self, x_ids: torch.Tensor) -> torch.Tensor:
-        """Token embedding + positional encoding, (B, T, d_model)."""
+        """Token embedding + positional encoding, (B, T, d_model), summed
+        in f32 and then cast to the compute dtype where one is set."""
         t = x_ids.shape[1]
-        return (self.embedding.latent_embedding.weight[x_ids.long()]
-                + self.pe[None, :t])
+        x = (self.embedding.latent_embedding.weight[x_ids.long()]
+             + self.pe[None, :t])
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
-    def block_body(self, x: torch.Tensor, blk: Block) -> torch.Tensor:
+    def block_body(self, x: torch.Tensor, blk) -> torch.Tensor:
+        """blk: a Block, or its `cast_params`. Every product follows the
+        stream's type; the attention core keeps f32 scores."""
         h = layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
         x = x + causal_self_attention(h, blk.attn, n_head=self.n_head,
                                       impl=self.attention_impl)
@@ -201,18 +233,34 @@ class TransformerDecoder(nn.Module):
 
     def backbone(self, x_ids: torch.Tensor) -> torch.Tensor:
         x = self.embed(x_ids)
-        for blk in self.blocks:
+        # with a compute dtype the parameters are cast per call, as the
+        # JAX package casts them in `embed`: the f32 module stays the
+        # one copy of the weights
+        tf = (self.transformer if self.compute_dtype is None
+              else cast_params(self.transformer, self.compute_dtype))
+        for blk in tf.h:
             x = self.block_body(x, blk)
-        ln_f = self.transformer.ln_f
-        return layer_norm(x, ln_f.weight, ln_f.bias)
+        return layer_norm(x, tf.ln_f.weight, tf.ln_f.bias)
 
     def heads(self, x: torch.Tensor, *, generate: bool = True) -> torch.Tensor:
         """lm_head logits (B, T, n_classes), or the class head's two-stage
-        d -> 1, exact GELU, seq_len -> 2 logits (B, 2)."""
+        d -> 1, exact GELU, seq_len -> 2 logits (B, 2). With a compute
+        dtype the weights are rounded to it and every product is summed
+        in f32 into f32 logits."""
+        if self.compute_dtype is None:
+            if generate:
+                return x @ self.lm_head.weight.t()
+            h = gelu(linear(x, self.class_head.linear_1).squeeze(-1))
+            return linear(h, self.class_head.linear_2)
+        cdt = self.compute_dtype
         if generate:
-            return x @ self.lm_head.weight.t()
-        h = gelu(linear(x, self.class_head.linear_1).squeeze(-1))
-        return linear(h, self.class_head.linear_2)
+            return dot_f32(x, self.lm_head.weight.to(cdt))
+        l1, l2 = self.class_head.linear_1, self.class_head.linear_2
+        h = dot_f32(x, l1.weight.to(cdt))
+        if self.class_h_bias:
+            h = h + l1.bias.to(cdt)
+        logits = gelu(h.squeeze(-1)) @ l2.weight.to(cdt).float().t()
+        return logits + l2.bias.to(cdt) if self.class_h_bias else logits
 
     def apply(self, x_ids: torch.Tensor, *, generate: bool = True):
         return self.heads(self.backbone(x_ids), generate=generate)

@@ -2,8 +2,8 @@
 
 Port of vq_vae_transformer_arc_welding_tpu/models/vqvae_patch.py
 (`VQVAEPatch`: hparams, encoder parameters, `encode`,
-`encode_indices`, `encode_zq`, `forward_ood` and the `vq_impl` runtime
-option). Attribute paths are the reference Lightning keys
+`encode_indices`, `encode_zq`, `forward_ood`, the `vq_impl` runtime
+option, and `save` / `load` through train/checkpoint.py). Attribute paths are the reference Lightning keys
 that vq_vae_transformer_arc_welding_tpu/train/torch_import.py reads:
 `patch_embed.proj.*`, `encoder.0.shared_conv.{i}.block.{1,2,4,5}.*`,
 `encoder.1.shared_conv.*` and `vector_quantization.embedding.weight`.
@@ -20,7 +20,7 @@ from ..ops.conv import center_tap_dense
 from ..ops.norm import batch_norm_apply
 from ..ops.patching import patch_embed
 from ..ops.vq import nearest_codes, vq_lookup
-from .base import BatchNormParams, Node, Params, assign
+from .base import BatchNormParams, Checkpointed, Node, Params, assign
 from .initializers import uniform, xavier_conv1d
 
 
@@ -50,7 +50,7 @@ class ResBlock(nn.Module):
         return x + h
 
 
-class VQVAEPatch(nn.Module):
+class VQVAEPatch(Checkpointed, nn.Module):
     """hparams mirror the JAX VQVAEPatch constructor; the classic VQ
     (codebook in `vector_quantization.embedding.weight`) only.
 

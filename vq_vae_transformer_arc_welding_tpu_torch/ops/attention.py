@@ -13,7 +13,8 @@ The port has no training mode yet, so attention and residual dropout
 are not applied, and the JAX package's fall-back from the fused kernel
 to the plain core under attention dropout has no counterpart.
 
-Linear weights are in torch's (out, in) layout.
+Linear weights are in torch's (out, in) layout. With a bf16 input the
+projections are bf16 and the core runs in f32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -56,9 +57,14 @@ def causal_self_attention(x: torch.Tensor, attn, *, n_head: int,
     c = x.shape[-1]
     qkv = x @ attn.c_attn.weight.t() + attn.c_attn.bias
     q, k, v = (split_heads(z, n_head) for z in qkv.split(c, dim=-1))
+    if x.dtype != torch.float32:
+        # a bf16 stream (the transformer's compute_dtype): the
+        # projections follow it, the scores and the softmax stay f32
+        q, k, v = q.float(), k.float(), v.float()
     if impl == "pallas":
         from .fused_attn import flash_causal_attention
         y = flash_causal_attention(q, k, v)
     else:
         y = causal_attention_core(q, k, v)
-    return merge_heads(y) @ attn.c_proj.weight.t() + attn.c_proj.bias
+    y = merge_heads(y).to(x.dtype)
+    return y @ attn.c_proj.weight.t() + attn.c_proj.bias

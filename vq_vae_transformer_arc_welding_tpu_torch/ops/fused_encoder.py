@@ -1,11 +1,13 @@
 """The eval-mode encoder on fused kernels: resblock groups and the edges.
 
-Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py, all of
-it but the `compute_dtype` (bf16 product) variant, whose argument is
-left out here:
+Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py:
 
 - `fused_encoder_eval` (pallas_call at :311), kernel #1 ->
   `fused_encoder_eval`, `encoder_chain_f32` in csrc/encoder_chain.cu;
+  with `compute_dtype=torch.bfloat16` (`_resblock_chain`'s `cdt`,
+  :209-232) `encoder_chain_bf16` in csrc/encoder_chain_bf16.cu: both
+  products' inputs rounded to bf16 and multiplied on the tensor cores,
+  sums and everything else in f32;
 - `fused_resblock_eval` (:106), #3 -> `resblock_eval` and
   `fused_resblock_eval`, `resblock_f32` in csrc/encoder_resblock.cu;
 - `fused_encoder_entry_eval` (:404), #4 -> `fused_encoder_entry_eval`,
@@ -26,15 +28,17 @@ The weights are packed once (`pack_encoder` and, for the edges,
 `pack_encoder_edges`, at pipeline construction) and passed to the
 `encode_indices_*` functions, not repacked per request as the JAX
 functions repack them under jit; the per-resblock path takes views of
-the same pack.
+the same pack. A bf16 pack (`pack_encoder(model, torch.bfloat16)`) is made
+once too; the functions cast an f32 pack they are handed with a
+compute dtype, per call, as the JAX kernel recasts under jit.
 
 GELU: the kernels use the exact erf (`erff`), like the plain versions
 and the JAX package's XLA encoder. The Pallas kernels' Abramowitz &
 Stegun erf was a workaround for Mosaic and is not carried over.
 
 Group size: the default keeps the JAX rule, as many blocks per call as
-fit 8 MB of f32 weights, i.e. 4 at hidden 512, so the port makes the
-same calls as the reference. On Hopper the weights come from L2
+fit 8 MB of weights, i.e. 4 at hidden 512 in f32 and all 8 in bf16, so
+the port makes the same calls as the reference. On Hopper the weights come from L2
 whatever the group, so the group size only sets how often the (N, C)
 residual stream crosses device memory between calls.
 """
@@ -49,6 +53,7 @@ from .patching import patchify
 from .vq import nearest_codes
 
 _CHAIN, _RESBLOCK = "encoder_chain_f32", "resblock_f32"
+_CHAIN_BF16 = "encoder_chain_bf16"
 _ENTRY, _EXIT = "encoder_entry_f32", "encoder_exit_f32"
 _KERNEL_WIDTH = 512
 _TILE_FLOATS = 32 * _KERNEL_WIDTH   # the kernels' A tile, reused by the exit
@@ -58,11 +63,14 @@ def _center_tap(kernel: torch.Tensor) -> torch.Tensor:
     return kernel[:, :, kernel.shape[-1] // 2]
 
 
-def pack_encoder(model) -> tuple[torch.Tensor, torch.Tensor]:
+def pack_encoder(model, compute_dtype: torch.dtype | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stack every resblock's center-tap weights, transposed to (in, out),
     as (2n, C, C), and its vector rows [b1, bn1 mean, var, scale, bias,
     b2, bn2 mean, var, scale, bias] as (10n, C); BN rows are zeros when
-    the model has no BatchNorm."""
+    the model has no BatchNorm. compute_dtype (torch.bfloat16): the
+    weights rounded to it, for the functions' `compute_dtype` variant;
+    the vector rows stay f32."""
     ws, vs = [], []
     c = model.hidden_dim
     zero = torch.zeros(c, device=model.codebook.device)
@@ -75,7 +83,10 @@ def pack_encoder(model) -> tuple[torch.Tensor, torch.Tensor]:
                        bn.bias]
             else:
                 vs += [conv.bias, zero, zero, zero, zero]
-    return torch.stack(ws).contiguous(), torch.stack(vs).contiguous()
+    weights = torch.stack(ws).contiguous()
+    if compute_dtype is not None:
+        weights = weights.to(_compute_dtype(compute_dtype))
+    return weights, torch.stack(vs).contiguous()
 
 
 def pack_encoder_edges(model) -> tuple[torch.Tensor, ...]:
@@ -89,29 +100,51 @@ def pack_encoder_edges(model) -> tuple[torch.Tensor, ...]:
 
 # -- plain versions ------------------------------------------------------------
 
+def _compute_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype {compute_dtype}: None (f32) or "
+                         f"torch.bfloat16")
+    return compute_dtype
+
+
+def _dot(h: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """h @ w in f32; with a compute dtype both inputs are rounded to it
+    first and the products are still summed in f32 (a bf16 `@` would
+    round the sum as well)."""
+    if compute_dtype is None:
+        return h @ w
+    return h.to(compute_dtype).float() @ w.to(compute_dtype).float()
+
+
 def fused_resblock_eval_reference(x: torch.Tensor, w1: torch.Tensor,
                                   w2: torch.Tensor, vec: torch.Tensor, *,
-                                  use_bn: bool) -> torch.Tensor:
+                                  use_bn: bool,
+                                  compute_dtype=None) -> torch.Tensor:
     """Plain version of the one-resblock kernel. x (N, C); w1, w2 (C, C)
-    in (in, out) layout; vec (10, C). Returns (N, C)."""
-    c = gelu(x) @ w1 + vec[0]
+    in (in, out) layout; vec (10, C). Returns (N, C). compute_dtype: the
+    type both products' inputs are rounded to (see `_dot`)."""
+    c = _dot(gelu(x), w1, compute_dtype) + vec[0]
     if use_bn:
         c = batch_norm_apply(c, vec[3], vec[4], vec[1], vec[2])
-    c = gelu(c) @ w2 + vec[5]
+    c = _dot(gelu(c), w2, compute_dtype) + vec[5]
     if use_bn:
         c = batch_norm_apply(c, vec[8], vec[9], vec[6], vec[7])
     return x + c
 
 
 def fused_encoder_eval_reference(x: torch.Tensor, weights: torch.Tensor,
-                                 vecs: torch.Tensor, *,
-                                 use_bn: bool) -> torch.Tensor:
-    """Plain version of the chain kernel. x: (N, C) f32; weights
-    (2n, C, C) in (in, out) layout; vecs (10n, C). Returns (N, C)."""
+                                 vecs: torch.Tensor, *, use_bn: bool,
+                                 compute_dtype=None) -> torch.Tensor:
+    """Plain version of the chain kernels. x: (N, C) f32; weights
+    (2n, C, C) in (in, out) layout, f32 or already in the compute dtype;
+    vecs (10n, C). Returns (N, C) f32."""
+    if compute_dtype is not None:
+        _compute_dtype(compute_dtype)
     for i in range(weights.shape[0] // 2):
         x = fused_resblock_eval_reference(
             x, weights[2 * i], weights[2 * i + 1],
-            vecs[10 * i:10 * (i + 1)], use_bn=use_bn)
+            vecs[10 * i:10 * (i + 1)], use_bn=use_bn,
+            compute_dtype=compute_dtype)
     return x
 
 
@@ -144,35 +177,54 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
     return True
 
 
-def _require_chain(name: str, c: int, weights, vecs, dev) -> int:
-    """Check a group's packed operands; returns its number of blocks."""
+def _require_chain(name: str, c: int, weights, vecs, dev,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Check a group's packed operands (weights of `dtype`); returns its
+    number of blocks."""
     nb = weights.shape[0] // 2
     if c != _KERNEL_WIDTH or weights.shape[0] != 2 * nb or nb < 1:
         raise ValueError(f"{name}: hidden {c} / {weights.shape[0]} "
                          f"matrices not supported (hidden "
                          f"{_KERNEL_WIDTH}, an even count)")
-    kernels.require(weights, "weights", torch.float32, (2 * nb, c, c), dev)
+    kernels.require(weights, "weights", dtype, (2 * nb, c, c), dev)
     kernels.require(vecs, "vecs", torch.float32, (10 * nb, c), dev)
     return nb
 
 
 def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
-                       vecs: torch.Tensor, *, use_bn: bool) -> torch.Tensor:
-    """n = weights.shape[0] // 2 eval resblocks on (N, C) f32 rows."""
-    if not _on_card(_CHAIN, x):
-        return fused_encoder_eval_reference(x, weights, vecs, use_bn=use_bn)
+                       vecs: torch.Tensor, *, use_bn: bool,
+                       compute_dtype=None) -> torch.Tensor:
+    """n = weights.shape[0] // 2 eval resblocks on (N, C) f32 rows.
+
+    compute_dtype: None = exact f32 products (`encoder_chain_f32`, ids
+    bit-comparable with the plain encoder). torch.bfloat16 = both
+    products' inputs rounded to bf16, sums in f32
+    (`encoder_chain_bf16`, on the tensor cores); everything else stays
+    f32. f32 weights are cast here, per call; pass a bf16 pack
+    (`pack_encoder(model, torch.bfloat16)`) to cast once."""
+    if compute_dtype is None:
+        name, dtype = _CHAIN, torch.float32
+    else:
+        name, dtype = _CHAIN_BF16, _compute_dtype(compute_dtype)
+    if not _on_card(name, x):
+        return fused_encoder_eval_reference(x, weights, vecs, use_bn=use_bn,
+                                            compute_dtype=compute_dtype)
+    if compute_dtype is not None and weights.dtype == torch.float32:
+        weights = weights.to(dtype)
     n, c = x.shape
-    nb = _require_chain(_CHAIN, c, weights, vecs, x.device)
+    nb = _require_chain(name, c, weights, vecs, x.device, dtype)
     kernels.require(x, "x", torch.float32, (n, c), x.device)
+    if weights.data_ptr() % 16:
+        raise ValueError(f"{name}: weights must be 16-byte aligned")
     out = torch.empty_like(x)
     if n == 0:
         return out
     lib = kernels.library()
-    kernels.launches[_CHAIN] += 1
-    err = lib.encoder_chain_f32(x.data_ptr(), weights.data_ptr(),
-                                vecs.data_ptr(), out.data_ptr(), n, c, nb,
-                                int(use_bn), kernels.stream_ptr(x.device))
-    kernels.check(err, _CHAIN)
+    kernels.launches[name] += 1
+    err = getattr(lib, name)(x.data_ptr(), weights.data_ptr(),
+                             vecs.data_ptr(), out.data_ptr(), n, c, nb,
+                             int(use_bn), kernels.stream_ptr(x.device))
+    kernels.check(err, name)
     return out
 
 
@@ -286,18 +338,21 @@ def fused_encoder_exit_eval(x, weights, vecs, w_sep, b_sep, codebook, *,
 
 # -- the encoder on the kernels ------------------------------------------------
 
-def group_size_for(hidden: int) -> int:
-    """Resblocks per call: as many as fit 8 MB of f32 weights (the JAX rule)."""
-    return max(1, (8 << 20) // (2 * hidden * hidden * 4))
+def group_size_for(hidden: int, weight_bytes: int = 4) -> int:
+    """Resblocks per call: as many as fit 8 MB of weights of
+    `weight_bytes` each (the JAX rule): 4 in f32 and 8 in bf16 at
+    hidden 512."""
+    return max(1, (8 << 20) // (2 * hidden * hidden * weight_bytes))
 
 
 def _chain_groups(flat, weights, vecs, s0: int, s1: int, group_size: int,
-                  use_bn: bool) -> torch.Tensor:
+                  use_bn: bool, compute_dtype=None) -> torch.Tensor:
     """Resblocks s0..s1 through the chain kernel, group_size per call."""
     for g0 in range(s0, s1, group_size):
         g1 = min(g0 + group_size, s1)
         flat = fused_encoder_eval(flat, weights[2 * g0:2 * g1],
-                                  vecs[10 * g0:10 * g1], use_bn=use_bn)
+                                  vecs[10 * g0:10 * g1], use_bn=use_bn,
+                                  compute_dtype=compute_dtype)
     return flat
 
 
@@ -325,21 +380,35 @@ def encoder_resblocks_fused(model, packed, h: torch.Tensor) -> torch.Tensor:
 
 def encode_indices_fused(model, packed: tuple[torch.Tensor, torch.Tensor],
                          x: torch.Tensor, *,
-                         group_size: int | None = None) -> torch.Tensor:
+                         group_size: int | None = None,
+                         compute_dtype=None) -> torch.Tensor:
     """VQVAEPatch.encode_indices with the resblock chain on the fused
     kernels; patch-embed, sep_conv and the nearest-code argmin stay
     plain PyTorch. group_size: resblocks per call (default
     `group_size_for(hidden)`); above 1 the chain kernel runs each group,
     at 1 the one-resblock kernel runs each block. packed:
     `pack_encoder(model)`. x: (B, seq_len, input_dim) -> (B,
-    enc_out_len) int32."""
+    enc_out_len) int32.
+
+    compute_dtype: None = exact f32, the default serving contract.
+    torch.bfloat16 = the products' inputs in bf16 (see
+    `fused_encoder_eval`): ids may differ from the f32 encoder's near
+    Voronoi boundaries. The chain kernel then runs at every group size,
+    1 included, and the default group is 8 MB of bf16 weights. packed:
+    `pack_encoder(model, torch.bfloat16)`; an f32 pack is cast here."""
+    wbytes = 4
+    if compute_dtype is not None:
+        wbytes = 2
+        if packed[0].dtype != _compute_dtype(compute_dtype):
+            packed = (packed[0].to(compute_dtype), packed[1])
     if group_size is None:
-        group_size = group_size_for(model.hidden_dim)
+        group_size = group_size_for(model.hidden_dim, wbytes)
     h = model.patch_embed_out(x)
     b, p, c = h.shape
-    if group_size > 1:
+    if group_size > 1 or compute_dtype is not None:
         flat = _chain_groups(h.reshape(b * p, c), *packed, 0,
-                             model.n_resblocks, group_size, model.batch_norm)
+                             model.n_resblocks, group_size, model.batch_norm,
+                             compute_dtype)
     else:
         flat = encoder_resblocks_fused(model, packed, h)
     return _sep_nearest(model, flat, b, p)

@@ -1,24 +1,28 @@
 """Batched serving: welding windows -> quality labels.
 
 Port of vq_vae_transformer_arc_welding_tpu/serve.py
-(`WeldingQualityPipeline`: `__init__`, `calibrate`, `classify`,
-`encode_tokens`, `ood_score`, `sample_tokens`, the in-path saturation
-monitor, the `saturation_rate` probe, and the opt-in int8 encoder,
-`encoder_precision='int8'`). Artifacts and meshes are not ported yet.
+(`WeldingQualityPipeline`: `__init__` with `precision` 'f32', 'bf16' and
+'int8', `calibrate`, `classify`, `encode_tokens`, `ood_score`,
+`sample_tokens`, the in-path saturation monitor, the `saturation_rate`
+probe, the opt-in int8 encoder, `encoder_precision='int8'`, the
+`scaler` attribute, and the deployment side: `save_artifact`,
+`load_artifact`, `from_checkpoints`). The `mesh` argument waits for
+multi-GPU serving.
 
-Chunking follows data/latent.py::_chunked_device_map: requests run in
-chunks of at most `max_batch` windows. The JAX version padded every
-chunk up to `max_batch` so that one compiled graph served every size;
-PyTorch runs eagerly and compiles nothing, so a chunk keeps its own
-size and no padding rows are computed.
+Requests run through data/latent.py::_chunked_device_map in chunks of
+at most `max_batch` windows, two chunks in flight; a chunk keeps its
+own size (nothing is compiled, so nothing is padded).
 """
 from __future__ import annotations
 
+import json
+import os
 import warnings
 
 import numpy as np
 import torch
 
+from .data.latent import _chunked_device_map
 from .ops.fused_encoder import encode_indices_fused, pack_encoder
 
 # samples per welding cycle (data/asimow.py::CYCLE_LEN of the JAX package)
@@ -46,8 +50,12 @@ class WeldingQualityPipeline:
                  start_token: int | None = None,
                  encoder_precision: str = "f32", encoder_impl: str = "xla",
                  monitor_saturation: bool = True):
-        """precision: 'f32' (exact) or 'int8' (calibrated int8 with the
-        fused attention half per block; call calibrate() first).
+        """precision: 'f32' (exact), 'bf16' (the transformer's
+        `compute_dtype`: bf16 activations and products between the ops,
+        f32 scores and logits; it sets the option on the transformer it
+        is given, as the JAX pipeline does) or 'int8' (calibrated int8
+        with the fused attention half per block; call calibrate()
+        first).
 
         encoder_precision: 'int8' (opt-in, call calibrate() first)
         quantizes the encoder's center-tap products. It then serves
@@ -73,8 +81,9 @@ class WeldingQualityPipeline:
         codebook ids must stay bit-comparable with the exact f32
         reference, and the exact-f32 int8 products of the class head
         rely on full f32 accumulation."""
-        if precision not in ("f32", "int8"):
-            raise ValueError(f"precision {precision!r}: 'f32' or 'int8'")
+        if precision not in ("f32", "bf16", "int8"):
+            raise ValueError(f"precision {precision!r}: 'f32', 'bf16' or "
+                             f"'int8'")
         if encoder_precision not in ("f32", "int8"):
             raise ValueError(f"encoder_precision {encoder_precision!r}: "
                              f"'f32' or 'int8'")
@@ -85,6 +94,8 @@ class WeldingQualityPipeline:
         torch.backends.cudnn.allow_tf32 = False
         self.vq_model = vqvae.eval()
         self.tr_model = transformer.eval()
+        if precision == "bf16":
+            self.tr_model.compute_dtype = torch.bfloat16
         self.device = vqvae.codebook.device
         self.n_cycles = n_cycles
         self.max_batch = max_batch
@@ -100,8 +111,149 @@ class WeldingQualityPipeline:
         self.start_token = (start_token if start_token is not None
                             else vqvae.num_embeddings)
         self.qparams = None
+        # the absmax tables calibrate() measured; an artifact stores
+        # them and the int8 tables are derived from them again at load
+        self._act_absmax: dict | None = None
+        self._enc_absmax: dict | None = None
         self.last_saturation_rate: float | None = None
         self.needs_recalibration = False
+        # optional data.scaler.StandardScaler with the train split's
+        # statistics. classify() takes scaled windows; a deployment
+        # (save_artifact, cli/score_quality.py) attaches the training
+        # scaler here to normalize raw sensor windows with it.
+        self.scaler = None
+
+    # -- artifacts ---------------------------------------------------------
+    #
+    # A deployed pipeline is more than its two checkpoints: the int8
+    # path adds the activation absmax tables that a restart would have
+    # to measure again on representative traffic. An artifact is one
+    # directory with the whole serving state. manifest.json,
+    # calibration.json and scaler.json carry the JAX package's keys and
+    # values for the same pipeline; the two .ckpt files are this
+    # package's (train/checkpoint.py). The int8 tables are derived from
+    # weights and absmax at load, bit-identical to the saved pipeline's.
+
+    ARTIFACT_VERSION = 1
+
+    def save_artifact(self, artifact_dir: str) -> str:
+        """Persist weights, serving configuration, int8 calibration and
+        the scaler to a directory. `load_artifact` restores it without
+        calibration windows."""
+        os.makedirs(artifact_dir, exist_ok=True)
+        self.vq_model.save(os.path.join(artifact_dir, "vqvae.ckpt"))
+        self.tr_model.save(os.path.join(artifact_dir, "transformer.ckpt"))
+        manifest = {
+            "artifact_version": self.ARTIFACT_VERSION,
+            "n_cycles": self.n_cycles,
+            "max_batch": self.max_batch,
+            "precision": self.precision,
+            "encoder_precision": self.encoder_precision,
+            "encoder_impl": self.encoder_impl,
+            "start_token": int(self.start_token),
+            "saturation_threshold": float(self.saturation_threshold),
+            "monitor_saturation": bool(self.monitor_saturation),
+            "calibrated": self.qparams is not None,
+            "encoder_calibrated": self.qenc is not None,
+            "has_scaler": self.scaler is not None,
+        }
+        with open(os.path.join(artifact_dir, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+        with open(os.path.join(artifact_dir, "calibration.json"), "w") as f:
+            json.dump({"act_absmax": self._act_absmax,
+                       "enc_absmax": self._enc_absmax}, f, indent=2)
+        if self.scaler is not None:
+            with open(os.path.join(artifact_dir, "scaler.json"), "w") as f:
+                json.dump({"mean": np.asarray(self.scaler.mean_).tolist(),
+                           "scale": np.asarray(self.scaler.scale_).tolist()},
+                          f, indent=2)
+        return artifact_dir
+
+    @classmethod
+    def load_artifact(cls, artifact_dir: str, max_batch: int | None = None,
+                      device=None):
+        """Rebuild a pipeline from `save_artifact`'s directory, on
+        `device`: the card when it is None (and an error where there is
+        none). The int8 tables are derived again from the stored
+        weights and absmax tables; `max_batch` may be overridden for
+        the new deployment."""
+        from .models import TransformerDecoder, VQVAEPatch
+        with open(os.path.join(artifact_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        if manifest["artifact_version"] > cls.ARTIFACT_VERSION:
+            raise ValueError(
+                f"artifact version {manifest['artifact_version']} is newer "
+                f"than this build supports ({cls.ARTIFACT_VERSION})")
+        vq = VQVAEPatch.load(os.path.join(artifact_dir, "vqvae.ckpt"),
+                             device=device)
+        tr = TransformerDecoder.load(
+            os.path.join(artifact_dir, "transformer.ckpt"), device=device)
+        pipe = cls(vq, tr, manifest["n_cycles"],
+                   max_batch=(max_batch if max_batch is not None
+                              else manifest["max_batch"]),
+                   precision=manifest["precision"],
+                   start_token=manifest["start_token"],
+                   encoder_precision=manifest["encoder_precision"],
+                   encoder_impl=manifest["encoder_impl"],
+                   monitor_saturation=manifest.get("monitor_saturation",
+                                                   True))
+        pipe.saturation_threshold = manifest.get(
+            "saturation_threshold", cls.saturation_threshold)
+        cal_path = os.path.join(artifact_dir, "calibration.json")
+        cal = {}
+        if os.path.exists(cal_path):
+            with open(cal_path) as f:
+                cal = json.load(f)
+        if manifest.get("encoder_calibrated"):
+            if not cal.get("enc_absmax"):
+                raise ValueError("manifest says encoder_calibrated but "
+                                 "calibration.json has no enc_absmax")
+            pipe._set_encoder_calibration(cal["enc_absmax"])
+        if manifest.get("calibrated"):
+            if not cal.get("act_absmax"):
+                raise ValueError("manifest says calibrated but "
+                                 "calibration.json has no act_absmax")
+            pipe._set_calibration(cal["act_absmax"])
+        if manifest.get("has_scaler"):
+            from .data.scaler import StandardScaler
+            with open(os.path.join(artifact_dir, "scaler.json")) as f:
+                sc = json.load(f)
+            scaler = StandardScaler()
+            scaler.mean_ = np.asarray(sc["mean"], np.float64)
+            scaler.scale_ = np.asarray(sc["scale"], np.float64)
+            pipe.scaler = scaler
+        return pipe
+
+    @classmethod
+    def from_checkpoints(cls, vqvae_ckpt: str, transformer_ckpt: str,
+                         n_cycles: int = 20, max_batch: int = 64,
+                         precision: str = "f32",
+                         start_token: int | None = None,
+                         encoder_precision: str = "f32",
+                         encoder_impl: str = "xla", device=None):
+        """A pipeline from two checkpoint files, each this package's
+        (`Model.save`) or a reference Lightning .ckpt, on `device` (the
+        card when it is None)."""
+        from .cli.shared import load_transformer_any, load_vqvae_any
+        return cls(load_vqvae_any(vqvae_ckpt, device=device),
+                   load_transformer_any(transformer_ckpt, device=device),
+                   n_cycles, max_batch, precision=precision,
+                   start_token=start_token,
+                   encoder_precision=encoder_precision,
+                   encoder_impl=encoder_impl)
+
+    def _set_encoder_calibration(self, enc_absmax: dict) -> None:
+        from .models.quantized import quantize_encoder
+        self._enc_absmax = dict(enc_absmax)
+        with torch.inference_mode():
+            self.qenc = quantize_encoder(self.vq_model, self._enc_absmax)
+
+    def _set_calibration(self, act_absmax: dict) -> None:
+        from .models.quantized import quantize_transformer
+        self._act_absmax = dict(act_absmax)
+        with torch.inference_mode():
+            self.qparams = quantize_transformer(self.tr_model,
+                                                act_absmax=self._act_absmax)
 
     # -- per-chunk cores ---------------------------------------------------
 
@@ -154,12 +306,8 @@ class WeldingQualityPipeline:
     def _batched(self, fn, x: np.ndarray):
         """fn over chunks of at most max_batch rows; outputs (an array or
         a tuple of arrays) are concatenated along the batch."""
-        outs = [fn(torch.as_tensor(x[s:s + self.max_batch]).to(self.device))
-                for s in range(0, len(x), self.max_batch)]
-        if isinstance(outs[0], tuple):
-            return tuple(torch.cat(parts).cpu().numpy()
-                         for parts in zip(*outs))
-        return torch.cat(outs).cpu().numpy()
+        return _chunked_device_map(fn, x, chunk=self.max_batch,
+                                   device=self.device)
 
     @staticmethod
     def _windows(windows, what: str) -> np.ndarray:
@@ -175,24 +323,22 @@ class WeldingQualityPipeline:
         absmax table. With encoder_precision='int8' it first calibrates
         and quantizes the encoder on the sample's cycles; the ids the
         transformer is calibrated on then come from the int8 encoder."""
-        from .models.quantized import (calibrate_activation_absmax,
-                                       quantize_transformer)
+        from .models.quantized import calibrate_activation_absmax
         if max_samples is not None:
             sample_windows = sample_windows[:max_samples]
         if self.encoder_precision == "int8":
-            from .models.quantized import (calibrate_encoder_absmax,
-                                           quantize_encoder)
+            from .models.quantized import calibrate_encoder_absmax
             cyc = torch.as_tensor(self._windows(sample_windows, "calibrate")
                                   ).reshape(-1, CYCLE_LEN, 2).to(self.device)
             with torch.inference_mode():
                 enc_am = calibrate_encoder_absmax(self.vq_model, cyc)
-                self.qenc = quantize_encoder(self.vq_model, enc_am)
+            self._set_encoder_calibration(enc_am)
         ids = self.encode_tokens(sample_windows)
         with torch.inference_mode():
             ids = with_start_token(torch.as_tensor(ids).to(self.device),
                                    self.start_token)
             am = calibrate_activation_absmax(self.tr_model, ids)
-            self.qparams = quantize_transformer(self.tr_model, act_absmax=am)
+        self._set_calibration(am)
         return am
 
     def _note_saturation(self, rate: float) -> None:
