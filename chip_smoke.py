@@ -36,7 +36,13 @@ against each other, classify and the 'attn', 'full', 'attn8' and
 'full8' pipelines at batch 80, each against its plain path, and the
 edges encoder followed by the 'full' transformer against the 'full'
 pipeline. Each kernel's bound, the least time the card could take for
-the same work, is computed from the shapes of this run (`kernel_work`).
+the same work, is computed from the shapes of this run (`kernel_work`);
+for the f32 attention kernels (#2, #6, #9, #10, #11: scores on the FP32
+cores, P@V in split TF32 on the tensor cores) also with P@V on the FP32
+cores. Right after the build, `-Xptxas -v` of the two instantiations of
+the attention tile (csrc/attention_tc.cuh) gives their registers and
+spills; at the end, a torch.profiler trace of the 'attn' and 'full'
+pipelines gives the f32 attention's device time per call.
 
 Then token sampling, at the sampling batch of 16 and 320 KV-cached
 steps: `sample_tokens` on the calibrated pipeline (fresh and from a
@@ -192,9 +198,14 @@ RECORD = {
 }
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
-# FP32 outside the tensor cores, bf16 and int8 in them, device memory
-PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# FP32 outside the tensor cores, TF32, bf16 and int8 in them, device memory
+PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
+# the f32 attention (csrc/attention_tc.cuh): its scores are FP32 FMA
+# chains, its P@V runs on the tensor cores in split TF32, three TF32
+# products for each f32 one
+TF32_SPLIT = 3
+F32_ATTENTION = (FLASH, ATTN, FULL, QKV, CAUSAL)
 
 
 def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
@@ -208,7 +219,10 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     n_res per bf16 chain call, a (k, d) codebook; the transformer's
     (b, t, c) stream with n_head heads; a decode step of dec_b streams
     at position dec_pos, which reads the dec_pos cache rows before it
-    and writes one."""
+    and writes one. The f32 attention (F32_ATTENTION) counts its causal
+    scores as FP32 operations and its P@V TF32_SPLIT times as TF32;
+    `on_fp32_cores` gives the same work with P@V on the FP32 cores, as
+    it ran before."""
     f4 = 4
     x = n_rows * c * f4                         # the encoder's residual stream
     block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
@@ -216,6 +230,7 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     m = b * t
     xs = m * c * f4                             # the transformer's stream
     attn = b * n_head * (t * (t + 1) // 2) * (c // n_head) * 2 * 2
+    f32_attn = {"f32": attn // 2, "tf32": TF32_SPLIT * (attn // 2)}
     qkv, proj, mlp = (2 * m * c * 3 * c, 2 * m * c * c, 2 * 2 * m * c * 4 * c)
     w_attn, w_mlp = 4 * c * c, 8 * c * c        # int8 weights
     # a decode step: f32 weights with their biases and LayerNorm rows,
@@ -225,7 +240,7 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     dec_io = (2 * dec_b * c + 2 * dec_b * (dec_pos + 1) * c) * f4
     dec_attn_ops = dec_b * 2 * (w_attn + 2 * (dec_pos + 1) * c)
     return {
-        FLASH: (4 * xs, {"f32": 4 * b * n_head * t * t * (c // n_head) // 2}),
+        FLASH: (4 * xs, f32_attn),
         DEC_ATTN: (dec_attn_w + dec_io, {"f32": dec_attn_ops}),
         DEC_BLOCK: (dec_attn_w + dec_mlp_w + dec_io,
                     {"f32": dec_attn_ops + dec_b * 2 * w_mlp}),
@@ -241,15 +256,26 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
                {"f32": grp * block_ops + n_rows * 2 * d * (c + k)}),
         NEAREST: (n_rows * d * f4 + k * d * f4 + n_rows * 4,
                   {"f32": n_rows * 2 * d * k}),
-        ATTN: (2 * xs + m * c + w_attn, {"int8": qkv + proj, "f32": attn}),
+        ATTN: (2 * xs + m * c + w_attn, {"int8": qkv + proj, **f32_attn}),
         ATTN8: (2 * xs + m * c + w_attn, {"int8": qkv + proj + attn}),
         FULL: (2 * xs + w_attn + w_mlp,
-               {"int8": qkv + proj + mlp, "f32": attn}),
+               {"int8": qkv + proj + mlp, **f32_attn}),
         FULL8: (2 * xs + w_attn + w_mlp, {"int8": qkv + proj + mlp + attn}),
         MLP: (2 * xs + w_mlp, {"int8": mlp}),
-        QKV: (xs + m * c + 3 * c * c, {"int8": qkv, "f32": attn}),
-        CAUSAL: (3 * xs + m * c, {"f32": attn}),
+        QKV: (xs + m * c + 3 * c * c, {"int8": qkv, **f32_attn}),
+        CAUSAL: (3 * xs + m * c, f32_attn),
     }
+
+
+def on_fp32_cores(work):
+    """The same work with the split-TF32 products counted once, as FP32
+    operations outside the tensor cores (the bound before P@V ran on
+    them)."""
+    n_bytes, ops = work
+    ops = dict(ops)
+    if "tf32" in ops:
+        ops["f32"] = ops.get("f32", 0) + ops.pop("tf32") // TF32_SPLIT
+    return n_bytes, ops
 
 
 def bound_of(work) -> tuple[float, str]:
@@ -316,9 +342,9 @@ def timed_in_turns(fns: dict, reps: int = REPS, warmup: int = 3,
 
 def device_profile(fn):
     """What one fn() puts on the card, from torch.profiler's device
-    trace: (operations, their summed device time in ms, the five names
-    that take most of it as [(name, count, ms)]). (0, None, []) where the
-    trace holds no device event. fn() runs once before, untraced."""
+    trace: (operations, their summed device time in ms, every name as
+    [(name, count, ms)], most time first). (0, None, []) where the trace
+    holds no device event. fn() runs once before, untraced."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -335,7 +361,44 @@ def device_profile(fn):
     return (n, sum(e.self_device_time_total for e in dev) / 1e3,
             [(e.key.replace("(anonymous namespace)::", "").replace(
                 "void ", ""), e.count, e.self_device_time_total / 1e3)
-             for e in dev[:5]])
+             for e in dev])
+
+
+# the sources that instantiate csrc/attention_tc.cuh, and the kernels
+PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu")
+PTXAS_KERNEL = "attention_kernel"    # flash_attention_kernel, attention_kernel
+
+
+def ptxas_start() -> list:
+    """nvcc -Xptxas -v on PTXAS_SOURCES, started beside the library's
+    build: [(source, process)]."""
+    from vq_vae_transformer_arc_welding_tpu_torch import kernels
+    out = kernels.BUILD_DIR / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    return [(src, subprocess.Popen(
+        [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         str(out / f"{src}.o"), str(kernels.SRC_DIR / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in PTXAS_SOURCES]
+
+
+def ptxas_report(procs: list) -> None:
+    """Log what ptxas says of each attention tile: registers, stack and
+    spills."""
+    for src, proc in procs:
+        text, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc -Xptxas -v {src}: {text[-2000:]}")
+        kernel, said = None, {}
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                kernel = (line.split("'")[1] if PTXAS_KERNEL in line
+                          else None)
+            elif kernel and ("spill" in line or "Used" in line):
+                said.setdefault(kernel, []).append(
+                    line.replace("ptxas info    :", "").strip())
+        check(bool(said), f"nvcc -Xptxas -v {src}: no {PTXAS_KERNEL}")
+        for kernel, lines in said.items():
+            log(f"ptxas {src} {kernel}: " + "; ".join(lines))
 
 
 def fmt_ms(t: tuple) -> str:
@@ -858,7 +921,34 @@ def sampling_trace(tr, pipe) -> None:
             f"{n_ops / n:.1f} device operations and {busy / n:.4f} ms of "
             f"device time per token; most of it: "
             + "; ".join(f"{key[:60]} x {cnt / n:.1f} a token, "
-                        f"{ms / n:.4f} ms" for key, cnt, ms in top))
+                        f"{ms / n:.4f} ms" for key, cnt, ms in top[:5]))
+
+
+def pipeline_trace(fns: dict, x) -> None:
+    """Where a batch's device time goes on 'attn' and 'full', from
+    torch.profiler over three calls: device time per call and the f32
+    attention's part of it (attention_kernel: attention_tc.cuh's tile
+    with the int8 epilogue)."""
+    calls = 3
+    for name in ("attn", "full"):
+        fn = fns[name]
+        n_ops, busy, names = device_profile(
+            lambda: [fn(x) for _ in range(calls)])
+        if busy is None:
+            log(f"device trace of make_pipeline_quantized({name}): no device "
+                f"event, not measured")
+            continue
+        attn = [(cnt, ms) for key, cnt, ms in names
+                if key.startswith("attention_kernel(")]
+        attn_n, attn_ms = (sum(v) for v in zip(*attn)) if attn else (0, 0.0)
+        log(f"device trace of make_pipeline_quantized({name}) batch {len(x)}, "
+            f"{calls} calls: {n_ops / calls:.1f} device operations and "
+            f"{busy / calls:.4f} ms of device time per call; the f32 "
+            f"attention (attention_kernel) x {attn_n / calls:.1f} a call, "
+            f"{attn_ms / calls:.4f} ms a call ({attn_ms / busy:.1%}); most "
+            f"of it: " + "; ".join(
+                f"{key[:60]} x {cnt / calls:.1f}, {ms / calls:.4f} ms"
+                for key, cnt, ms in names[:10]))
 
 
 def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
@@ -1367,9 +1457,11 @@ def main() -> int:
 
     # -- 1. build the kernels from csrc/ ------------------------------------
     t0 = time.perf_counter()
+    ptxas = ptxas_start()
     kernels.library()
     log(f"build: kernels from {kernels.SRC_DIR.name}/ ready in "
         f"{time.perf_counter() - t0:.1f} s")
+    ptxas_report(ptxas)
 
     # -- 2. the bench model at full width, random weights from SEED --------------
     t0 = time.perf_counter()
@@ -1968,6 +2060,7 @@ def main() -> int:
     deployment_phase(vq, tr, pipe, f32, reqs[0], smi)
 
     sampling_trace(tr, pipe)
+    pipeline_trace(fns, x80)
     times.update(sampling["times"])
     times.update(bf16["times"])
     enc_err.update({name: e for name, e in sampling["err"].items()
@@ -1990,9 +2083,16 @@ def main() -> int:
          "library_ms": sampling["library_ms"].get(name)}
         for name, (src, replaces) in RECORD.items()]}
     for entry in record["kernels"]:
-        log(f"kernel {entry['name']}: {entry['ms']:.4f} ms, bound "
+        name = entry["name"]
+        fp32 = ""
+        if name in F32_ATTENTION:
+            ms, by = bound_of(on_fp32_cores(work[name]))
+            fp32 = (f"; with the attention's P@V on the FP32 cores too "
+                    f"{ms:.4f} ms by {by}")
+        log(f"kernel {name}: {entry['ms']:.4f} ms, bound "
             f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
-            f"({entry['bound_ms'] / entry['ms']:.1%} of the time taken)")
+            f"({entry['bound_ms'] / entry['ms']:.1%} of the time taken)"
+            + fp32)
     print(json.dumps(record), flush=True)
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -479,6 +479,119 @@ def test_flash_attention_kernel_matches_plain(dev, b, h, t, packed):
     assert merged.data_ptr() == out.data_ptr()      # a view, no copy
 
 
+# sequence lengths around the attention tile's edges: its 16-row warp
+# tiles, its 64-row blocks and 64-key stages, the bench T = 321 = 5*64 + 1
+RAGGED_T = [1, 15, 16, 17, 63, 64, 65, 320, 321, 385]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_flash_attention_ragged_t(dev, t, packed):
+    g = torch.Generator().manual_seed(t)
+    if packed:
+        qkv = torch.randn(2, t, 3 * 3 * 64, generator=g).to(dev)
+        q, k, v = (attention.split_heads(z, 3)
+                   for z in qkv.split(3 * 64, dim=-1))
+    else:
+        q, k, v = (torch.randn(2, 3, t, 64, generator=g).to(dev)
+                   for _ in range(3))
+    out = _launched("flash_attention_f32",
+                    lambda: fused_attn.flash_causal_attention(q, k, v))
+    ref = fused_attn.flash_causal_attention_reference(q, k, v)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 2e-5
+
+
+@pytest.mark.parametrize("int8_attn", [False, True])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_attn_block_kernel_ragged_t(dev, t, int8_attn):
+    """q, k, v of order 2 and y quantized to their range, as calibration
+    leaves them (_block_operands' qkv of order 50 saturates y8). Held
+    stage by stage, as chip_smoke holds #2: each step against its plain
+    version fed the kernel's own input, so that a y8 step allowed by the
+    int8 contract does not count again in x_mid."""
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+    x = torch.randn(2, t, 128, generator=torch.Generator().manual_seed(t))
+    w_qkv, w_proj, scales, vc, v3c = _block_operands(128)
+    scales[1] = 127.0 / 4.0
+    v3c[0] = 4e-5
+    x, w_qkv, w_proj, scales, vc, v3c = (
+        a.to(dev).contiguous() for a in (x, w_qkv, w_proj, scales, vc, v3c))
+    name = ("attn_block_quant_int8attn" if int8_attn
+            else "attn_block_quant")
+    sc = {}
+    xm, h8 = _launched(name, lambda: fbq.attn_block_quant(
+        x, w_qkv, w_proj, scales, vc, v3c, n_head=2, int8_attn=int8_attn,
+        scratch=sc))
+    y8 = int8.quantize_act(fattn.attention_core_reference(
+        sc["qkv"], 2, int8_attn=int8_attn), scales[1])
+    _int8_close(sc["y8"], y8)
+    xm_ref = x + (int8.int8_matmul(sc["y8"], w_proj).float() * vc[4] + vc[5])
+    assert (xm - xm_ref).abs().max() <= 1e-3
+    _int8_close(h8, int8.quantize_act(layer_norm(xm, vc[2], vc[3]),
+                                      scales[2]))
+
+
+@pytest.mark.parametrize("scale", [2.0, 8.0], ids=["qkv", "qkv_x8"])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_causal_attention_kernel_ragged_t(dev, t, scale):
+    """#11, the f32 attention launch alone; x8 gives scores in the tens,
+    as chip_smoke's #9 inputs have."""
+    g = torch.Generator().manual_seed(t)
+    qkv = (torch.randn(2, t, 3 * 128, generator=g) * scale).to(dev)
+    y_scale = torch.tensor(200.0 / scale, device=dev)
+    y8 = _launched("causal_attention_quant",
+                   lambda: fattn.fused_causal_attention_quant(
+                       qkv, y_scale, n_head=2))
+    _int8_close(y8, fattn.causal_attention_quant_reference(qkv, y_scale,
+                                                           n_head=2))
+
+
+def test_flash_attention_large_scores(dev):
+    """The bench model's activations times 8, as chip_smoke feeds #9:
+    scores reach the tens, where a score's rounding moves p the most."""
+    from vq_vae_transformer_arc_welding_tpu_torch.models.transformer import (
+        linear)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+    _, tr = entry.build(n_blocks=1, seed=0, device=dev)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 321))).to(dev)
+    ids[:, 0] = 256
+    blk = tr.blocks[0]
+    with torch.inference_mode():
+        h = layer_norm(tr.embed(ids), blk.ln_1.weight, blk.ln_1.bias)
+        qkv = linear(h, blk.attn.c_attn) * 8.0
+        q, k, v = (attention.split_heads(z, 8) for z in qkv.split(512, -1))
+        out = _launched("flash_attention_f32",
+                        lambda: fused_attn.flash_causal_attention(q, k, v))
+        ref = fused_attn.flash_causal_attention_reference(q, k, v)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 2e-5
+
+
+def test_d192_model_raises_before_the_attention_kernel(dev):
+    """A d_model 192 model with 8 heads (head width 24) has no kernel
+    path: make_pipeline_quantized raises ValueError at the first block,
+    before any attention kernel is launched. Only the encoder (hidden
+    512) has run by then."""
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        WeldingQualityPipeline)
+    vq, tr = entry.build(d_model=192, n_blocks=1, n_heads=8, seed=0,
+                         device=dev)
+    windows = np.random.default_rng(0).standard_normal(
+        (2, entry.N_CYCLES * 200, 2)).astype(np.float32)
+    pipe = WeldingQualityPipeline(vq, tr, n_cycles=entry.N_CYCLES,
+                                  precision="int8")
+    pipe.calibrate(windows)
+    fn = entry.make_pipeline_quantized(vq, tr, pipe.qparams)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="attn_block_quant"):
+        fn(torch.from_numpy(windows).to(dev))
+    torch.cuda.synchronize()
+    assert {k for k, n in kernels.launches.items() if n} <= {
+        "encoder_chain_f32"}
+
+
 def test_flash_attention_gradients_on_cuda(dev):
     g = torch.Generator().manual_seed(8)
 

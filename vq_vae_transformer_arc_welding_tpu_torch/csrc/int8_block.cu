@@ -13,38 +13,46 @@
 //                         m16n8k32 s8, exact s32 sums) with one of two
 //                         epilogues: dequant + bias (+ residual) to f32,
 //                         or dequant + bias -> tanh GELU -> q8 to int8;
-//   attention_kernel      per (batch, head, 64-query tile): keys and
-//                         values stream through shared memory 64 at a
-//                         time up to the tile's causal limit (68.6 KB a
-//                         block, three blocks an SM); scores and P@V are
-//                         register-tiled FP32 FMAs, 4 rows x 4 columns a
-//                         thread; the row max is kept online and the
-//                         division by the row sum waits until after P@V;
-//                         the output is quantized straight to int8;
+//   attention_kernel      attention_tc.cuh's causal tile on the packed
+//                         qkv: 128 query rows a block (16 a warp) laid
+//                         from the end of T, keys and values
+//                         double-buffered through shared memory by
+//                         cp.async, Q K^T as FP32 FMA chains over the
+//                         head dims in order (the plain GEMM's rounding),
+//                         P@V in split TF32 on the tensor cores
+//                         (mma.sync m16n8k8, hi*hi + hi*lo + lo*hi), the
+//                         softmax in FP32 with the row max kept online
+//                         and the division by the row sum after P@V; the
+//                         output is quantized straight to int8;
 //   head_absmax_kernel    per (batch, head): 127 / absmax of q, k and v
 //                         over the valid rows (int8 attention);
-//   attention_int8_kernel the same tiles with q, k, v quantized by those
-//                         scales: scores are exact integer sums, scaled
-//                         once; P is quantized with the FINAL row max, so
-//                         the keys are walked twice (pass 1 finds the
-//                         max, pass 2 recomputes the same exact scores);
-//                         P@V sums p8 * v8 exactly.
+//   attention_int8_kernel 64-query tiles on FP32 FMAs, 4 rows x 4
+//                         columns a thread, with q, k, v quantized by
+//                         those scales: scores are exact integer sums,
+//                         scaled once; P is quantized with the FINAL row
+//                         max, so the keys are walked twice (pass 1
+//                         finds the max, pass 2 recomputes the same
+//                         exact scores); P@V sums p8 * v8 exactly.
 // Integer sums run as FP32 FMAs on integer values: every partial sum is
 // an integer below 2^24 (64 * 127^2 for a score, 321 * 127^2 for P@V at
 // T = 321), so it is exact in any order, as the TPU's int32 sums are.
 // What bounds them on an H100: the GEMMs use mma.sync, not yet wgmma
-// with TMA; the attention does not use the tensor cores; the f32 qkv
-// and the int8 (rows, 4C) MLP intermediate make a round trip through
-// device memory (158 MB and 52.6 MB at batch 80), the traffic the TPU
-// kernels avoided. The TPU's 8-row padding of T has no counterpart:
-// every kernel masks the ragged edge.
+// with TMA; the f32 attention's scores run on the FP32 cores and its P@V
+// on the tensor cores three times over (split TF32), the int8
+// attention's products on the FP32 cores; the f32 qkv and the int8
+// (rows, 4C) MLP intermediate make a round trip through device memory
+// (158 MB and 52.6 MB at batch 80), the traffic the TPU kernels avoided. The TPU's 8-row padding of T has no
+// counterpart: every kernel masks the ragged edge.
 #include "int8_block.cuh"
+
+#include "attention_tc.cuh"
 
 #include <algorithm>
 
 namespace {
 
 using arcweld::HEAD_DIM;
+namespace attn_tc = arcweld::attn_tc;
 
 constexpr int LN_WARPS = 8;
 constexpr int LN_MAX_PER_LANE = arcweld::LN_MAX_C / 32;
@@ -188,6 +196,9 @@ int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
   }
 }
 
+// The int8 attention's tiles (attention_int8_kernel): one block per
+// (64-query tile, head, batch), thread (ty, tx) = (tid / 16, tid % 16)
+// owns query rows 4ty..4ty+3 and score / output columns 4tx..4tx+3.
 constexpr int QT = 64;            // queries per attention block
 constexpr int KT = 64;            // keys per shared-memory tile
 constexpr int HD = HEAD_DIM;
@@ -273,101 +284,36 @@ __device__ __forceinline__ void pv_tile(const float* p_s, const float* v_s,
   }
 }
 
-// One block per (64-query tile, head, batch), heaviest tiles first.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns query rows 4ty..4ty+3 and
-// score columns / output columns 4tx..4tx+3. Keys stream through shared
-// memory 64 at a time up to the tile's causal limit; the row max is
-// kept online (numerators rescaled when it grows), and the division by
-// the row sum comes after P@V, as in the TPU kernel:
-//   y8[b, i, h*64 + e] = q8((sum_j p_ij v_je) / sum_j p_ij, *qscale),
-//   p_ij = exp(s_ij - max_j s_ij), s_ij = (q_i . k_j) * sm_scale, j <= i
-__global__ void __launch_bounds__(AT_THREADS)
+// The f32 attention (#2, #6, #10, #11): attention_tc.cuh's tile on
+// the packed qkv, its output quantized straight to int8:
+//   y8[b, i, h*64 + e] = q8((sum_j p_ij v_je) / sum_j p_ij, *qscale)
+struct StoreQ8 {
+  int8_t* y8;
+  int t, c;
+  float qs;
+  __device__ __forceinline__ void operator()(int b, int h, int row, int col,
+                                             float y0, float y1,
+                                             float l) const {
+    *reinterpret_cast<char2*>(y8 + ((size_t)b * t + row) * c + h * HD +
+                              col) =
+        make_char2(arcweld::q8(__fdiv_rn(y0, l), qs),
+                   arcweld::q8(__fdiv_rn(y1, l), qs));
+  }
+};
+
+static_assert(attn_tc::HD == HD, "one head width for both attentions");
+using AttentionTile = attn_tc::Tile<8, 1, 64, 2>;
+
+__global__ void __launch_bounds__(AttentionTile::THREADS,
+                                  AttentionTile::MIN_BLOCKS)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ qscale,
-                 int8_t* __restrict__ y8, int t, int n_head, float sm_scale) {
-  extern __shared__ float4 sm4[];
-  float* q_s = reinterpret_cast<float*>(sm4);   // QT x PAD, [row][e]
-  float* k_s = q_s + QT * PAD;                   // HD x PAD, [e][key]
-  float* v_s = k_s + HD * PAD;                   // KT x HD, [key][e]
-  float* p_s = v_s + KT * HD;                    // QT x PAD, [row][key]
-  const int c = n_head * HD, c3 = 3 * c;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * QT;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const float* base = qkv + (size_t)b * t * c3 + h * HD;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int r0 = 4 * ty, c0 = 4 * tx;
-
-  for (int idx = tid; idx < QT * HD; idx += AT_THREADS) {
-    const int r = idx / HD, e = idx % HD;
-    q_s[r * PAD + e] = q0 + r < t ? base[(size_t)(q0 + r) * c3 + e] : 0.0f;
-  }
-  float m[4], l[4], o[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[r][j] = 0.0f;
-  }
-
-  const int kv_end = min(t, q0 + QT);
-  for (int k0 = 0; k0 < kv_end; k0 += KT) {
-    __syncthreads();   // the previous tile's k, v and p are consumed
-    for (int idx = tid; idx < KT * HD; idx += AT_THREADS) {
-      const int j = idx / HD, e = idx % HD;
-      const bool ok = k0 + j < t;
-      const float* row = base + (size_t)(k0 + j) * c3 + e;
-      k_s[e * PAD + j] = ok ? row[c] : 0.0f;
-      v_s[idx] = ok ? row[2 * c] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-    score_tile(q_s, k_s, r0, c0, s);
-
-    // online softmax numerators; rows past t still see keys < t
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + r0 + r;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + c0 + j;
-        s[r][j] = (kj <= qi && kj < t) ? __fmul_rn(s[r][j], sm_scale)
-                                       : -INFINITY;
-        tmax = fmaxf(tmax, s[r][j]);
-      }
-      const float m_new = fmaxf(m[r], group16_max(tmax));
-      const float alpha = expf(m[r] - m_new);   // 0 on the first tile
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[r][j] = expf(s[r][j] - m_new);
-        psum += s[r][j];
-      }
-      l[r] = l[r] * alpha + group16_sum(psum);
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[r][j] *= alpha;
-      *reinterpret_cast<float4*>(p_s + (r0 + r) * PAD + c0) =
-          make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
-    }
-    __syncthreads();
-    pv_tile(p_s, v_s, r0, c0, o);
-  }
-
-  const float qs = *qscale;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + r0 + r;
-    if (qi >= t) continue;
-    char4 out;
-    out.x = arcweld::q8(__fdiv_rn(o[r][0], l[r]), qs);
-    out.y = arcweld::q8(__fdiv_rn(o[r][1], l[r]), qs);
-    out.z = arcweld::q8(__fdiv_rn(o[r][2], l[r]), qs);
-    out.w = arcweld::q8(__fdiv_rn(o[r][3], l[r]), qs);
-    *reinterpret_cast<char4*>(y8 + ((size_t)b * t + qi) * c + h * HD + c0) =
-        out;
-  }
+                 int8_t* __restrict__ y8, int t, int n_head, float sm_scale,
+                 bool vec16) {
+  const int c = n_head * HD;
+  const attn_tc::Operands in{qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
+                             HD, 3LL * c, t, sm_scale, vec16};
+  attn_tc::causal_attention_tile<AttentionTile>(in,
+                                                StoreQ8{y8, t, c, *qscale});
 }
 
 // head_scales[b, which, h] = 127 / max(max_{i < t, e} |qkv[b, i, which*C +
@@ -395,7 +341,7 @@ head_absmax_kernel(const float* __restrict__ qkv, float* __restrict__ scales,
 }
 
 // The int8-attention variant (pallas_block_quant.py::_attn_core,
-// int8_attn=True), same blocks and thread tiles as attention_kernel:
+// int8_attn=True), heaviest query tiles first:
 //   s_ij = float(sum_e q8_ie k8_je) * (sm_scale / (sq * sk)),
 //   p_ij = exp(s_ij - max_j s_ij), l_i = sum_j p_ij (unquantized),
 //   y8_i = q8(float(sum_j q8(p_ij, 127) v8_j) / (127 * sv) / l_i, *qscale)
@@ -559,18 +505,23 @@ cudaError_t launch_attention(const float* qkv, const float* qscale,
                              int8_t* y8, float* head_scales, int batch, int t,
                              int n_head, float sm_scale, bool int8_attn,
                              cudaStream_t s) {
-  const size_t smem = attention_smem();
-  dim3 grid((t + QT - 1) / QT, n_head, batch);
   cudaError_t e;
+  if (batch < 1 || batch > 65535 || t < 1) return cudaErrorInvalidValue;
   if (!int8_attn) {
     e = cudaFuncSetAttribute(attention_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)AttentionTile::SMEM);
     if (e != cudaSuccess) return e;
-    attention_kernel<<<grid, AT_THREADS, smem, s>>>(qkv, qscale, y8, t, n_head,
-                                                    sm_scale);
+    const int c = n_head * HD;
+    attention_kernel<<<AttentionTile::grid(batch, n_head, t),
+                       AttentionTile::THREADS, AttentionTile::SMEM, s>>>(
+        qkv, qscale, y8, t, n_head, sm_scale,
+        attn_tc::rows_aligned16(qkv, qkv + c, qkv + 2 * c,
+                                (long long)t * 3 * c, HD, 3LL * c));
     return cudaGetLastError();
   }
+  const size_t smem = attention_smem();
+  dim3 grid((t + QT - 1) / QT, n_head, batch);
   if (head_scales == nullptr) return cudaErrorInvalidValue;
   head_absmax_kernel<<<dim3(3 * n_head, batch), 256, 0, s>>>(qkv, head_scales,
                                                              t, n_head);

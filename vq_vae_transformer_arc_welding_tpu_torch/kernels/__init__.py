@@ -88,7 +88,7 @@ def reset_launch_counts() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
@@ -125,9 +125,9 @@ def library() -> ctypes.CDLL:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         objs = [so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o")
                 for src in sources]
-        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                   for src, obj in zip(sources, objs)])
-        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+        _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objs)]])
         for obj in objs:
             obj.unlink()
