@@ -36,13 +36,19 @@ against each other, classify and the 'attn', 'full', 'attn8' and
 'full8' pipelines at batch 80, each against its plain path, and the
 edges encoder followed by the 'full' transformer against the 'full'
 pipeline. Each kernel's bound, the least time the card could take for
-the same work, is computed from the shapes of this run (`kernel_work`);
-for the f32 attention kernels (#2, #6, #9, #10, #11: scores on the FP32
-cores, P@V in split TF32 on the tensor cores) also with P@V on the FP32
-cores. Right after the build, `-Xptxas -v` of the two instantiations of
-the attention tile (csrc/attention_tc.cuh) gives their registers and
-spills; at the end, a torch.profiler trace of the 'attn' and 'full'
-pipelines gives the f32 attention's device time per call.
+the same work, is computed from the shapes of this run (`kernel_work`):
+the f32 attention (#2, #6, #9, #10, #11) counts both of its products in
+split TF32 on the tensor cores, and beside that bound the log gives two
+more: with the scores on the FP32 cores (as the tile computes them) and
+with both products there (as before the tile used the tensor cores).
+Right after the build, `-Xptxas -v` of the two instantiations of the
+attention tile (csrc/attention_tc.cuh) gives their registers and
+spills. The f32 attention kernels and scaled_dot_product_attention on
+#9's inputs are timed again ten calls in a row between two events, so
+that the host's launch hides behind the card's work; at the end,
+torch.profiler traces give their device time per call (with each
+kernel's launches, so that a lost event shows), and the f32 attention's
+device time per call of the 'attn' and 'full' pipelines.
 
 Then token sampling, at the sampling batch of 16 and 320 KV-cached
 steps: `sample_tokens` on the calibrated pipeline (fresh and from a
@@ -201,15 +207,14 @@ RECORD = {
 # FP32 outside the tensor cores, TF32, bf16 and int8 in them, device memory
 PEAK_OPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
-# the f32 attention (csrc/attention_tc.cuh): its scores are FP32 FMA
-# chains, its P@V runs on the tensor cores in split TF32, three TF32
-# products for each f32 one
+# an f32-accurate product on the tensor cores: three TF32 products
+# (hi*hi + hi*lo + lo*hi, csrc/attention_tc.cuh)
 TF32_SPLIT = 3
 F32_ATTENTION = (FLASH, ATTN, FULL, QKV, CAUSAL)
 
 
 def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
-                dec_pos):
+                dec_pos, fp32_products=0):
     """{kernel: (bytes, {type: operations})} at this run's shapes: the
     bytes each kernel must move (every input read once, every output
     written once) and the operations of its products by operand type (a
@@ -219,10 +224,10 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     n_res per bf16 chain call, a (k, d) codebook; the transformer's
     (b, t, c) stream with n_head heads; a decode step of dec_b streams
     at position dec_pos, which reads the dec_pos cache rows before it
-    and writes one. The f32 attention (F32_ATTENTION) counts its causal
-    scores as FP32 operations and its P@V TF32_SPLIT times as TF32;
-    `on_fp32_cores` gives the same work with P@V on the FP32 cores, as
-    it ran before."""
+    and writes one. The f32 attention (F32_ATTENTION) has two products
+    of equal size over its causal scores, Q K^T and P@V: each counts
+    TF32_SPLIT times as TF32, but the first `fp32_products` of them
+    (0, 1 or 2) once as FP32 on the CUDA cores."""
     f4 = 4
     x = n_rows * c * f4                         # the encoder's residual stream
     block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
@@ -230,7 +235,9 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     m = b * t
     xs = m * c * f4                             # the transformer's stream
     attn = b * n_head * (t * (t + 1) // 2) * (c // n_head) * 2 * 2
-    f32_attn = {"f32": attn // 2, "tf32": TF32_SPLIT * (attn // 2)}
+    f32_attn = {kind: n for kind, n in (
+        ("f32", fp32_products * (attn // 2)),
+        ("tf32", (2 - fp32_products) * TF32_SPLIT * (attn // 2))) if n}
     qkv, proj, mlp = (2 * m * c * 3 * c, 2 * m * c * c, 2 * 2 * m * c * 4 * c)
     w_attn, w_mlp = 4 * c * c, 8 * c * c        # int8 weights
     # a decode step: f32 weights with their biases and LayerNorm rows,
@@ -265,17 +272,6 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         QKV: (xs + m * c + 3 * c * c, {"int8": qkv, **f32_attn}),
         CAUSAL: (3 * xs + m * c, f32_attn),
     }
-
-
-def on_fp32_cores(work):
-    """The same work with the split-TF32 products counted once, as FP32
-    operations outside the tensor cores (the bound before P@V ran on
-    them)."""
-    n_bytes, ops = work
-    ops = dict(ops)
-    if "tf32" in ops:
-        ops["f32"] = ops.get("f32", 0) + ops.pop("tf32") // TF32_SPLIT
-    return n_bytes, ops
 
 
 def bound_of(work) -> tuple[float, str]:
@@ -344,16 +340,23 @@ def device_profile(fn):
     """What one fn() puts on the card, from torch.profiler's device
     trace: (operations, their summed device time in ms, every name as
     [(name, count, ms)], most time first). (0, None, []) where the trace
-    holds no device event. fn() runs once before, untraced."""
+    holds no device event. fn() runs three times in the session and only
+    the last is kept: a trace loses some of the first events it should
+    record (up to half of ten short calls on an H100), and the two
+    warm-up runs take that loss."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the step's own range may be drawn on the device's timeline too
     dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
     n = sum(e.count for e in dev)
     if not n:
         return 0, None, []
@@ -536,7 +539,8 @@ def first_departures(ids, ref):
 def sampling_phase(vq, tr, pipe, req, smi: str) -> dict:
     """Token sampling at full width (see the module docstring). Returns
     what the kernels' record needs of #9, #12 and #13: `launched`
-    {kernel: (path, launches)}, `err`, `times` and `library_ms`."""
+    {kernel: (path, launches)}, `err`, `times`, `library_ms` and
+    `flash_qkv`, #9's q, k, v at the request's batch."""
     import torch
     from vq_vae_transformer_arc_welding_tpu_torch.entry import (
         build, make_pipeline)
@@ -800,6 +804,7 @@ def sampling_phase(vq, tr, pipe, req, smi: str) -> dict:
             e_lib = float((sdpa(q, k, v, is_causal=True) - ref).abs().max())
             if b == len(req):
                 times[FLASH], library_ms[FLASH] = tm, tm["library"][0]
+                flash_qkv = (q, k, v)
             log(f"kernel {FLASH} ({b}, {nh}, {t}, {hd}), q, k, v read in "
                 f"place from the packed qkv: within {e:.3e} of plain (bound "
                 f"{MAX_ROW_ERR}); {fmt_ms(tm['kernel'])}, plain "
@@ -887,7 +892,7 @@ def sampling_phase(vq, tr, pipe, req, smi: str) -> dict:
             + f"; gpu {smi}")
 
     return {"launched": launched, "err": err, "times": times,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "flash_qkv": flash_qkv}
 
 
 
@@ -922,6 +927,30 @@ def sampling_trace(tr, pipe) -> None:
             f"device time per token; most of it: "
             + "; ".join(f"{key[:60]} x {cnt / n:.1f} a token, "
                         f"{ms / n:.4f} ms" for key, cnt, ms in top[:5]))
+
+
+def in_a_row(fns: dict, calls: int = 10) -> dict:
+    """Time of one call of each fn when `calls` calls run in a row
+    between two CUDA events, in turns (timed_in_turns, per=calls): once
+    the host runs ahead of the card, the card's own time per call."""
+    return timed_in_turns({name: (lambda fn=fn: [fn() for _ in range(calls)])
+                           for name, fn in fns.items()}, per=calls)
+
+
+def kernel_trace(fns: dict, calls: int = 10) -> dict:
+    """Device time of one call of each fn, from torch.profiler over
+    `calls` calls in a row: what CUDA events around one call see
+    without the host's launch. {name: (ms, device operations, [(kernel,
+    launches, ms a launch)]) per call}, (None, 0, []) where the trace
+    holds no device event."""
+    out = {}
+    for name, fn in fns.items():
+        n_ops, busy, names = device_profile(
+            lambda: [fn() for _ in range(calls)])
+        out[name] = (None, 0, []) if busy is None else (
+            busy / calls, n_ops / calls,
+            [(key, cnt / calls, ms / cnt) for key, cnt, ms in names])
+    return out
 
 
 def pipeline_trace(fns: dict, x) -> None:
@@ -1436,8 +1465,9 @@ def main() -> int:
     from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
         qdot, quantized_classify)
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
-        fused_attn_quant as fattn, fused_block_quant as fbq,
-        fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
+        fused_attn as fflash, fused_attn_quant as fattn,
+        fused_block_quant as fbq, fused_encoder as fenc,
+        fused_mlp_quant as fmlp, fused_vq as fvq)
     from vq_vae_transformer_arc_welding_tpu_torch.ops.int8 import (
         int8_matmul, quantize_act)
     from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
@@ -2059,16 +2089,43 @@ def main() -> int:
     # -- 10. bf16 serving, artifacts, the scorer, the latent data module ------
     deployment_phase(vq, tr, pipe, f32, reqs[0], smi)
 
+    # -- 11. the f32 attention kernels and SDPA without the host's launch ----
+    fq, fk, fv = sampling["flash_qkv"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attention_fns = {
+        FLASH: lambda: fflash.flash_causal_attention(fq, fk, fv),
+        "scaled_dot_product_attention": lambda: sdpa(fq, fk, fv,
+                                                     is_causal=True),
+        **{name: calls[name][0] for name in F32_ATTENTION if name != FLASH}}
+    with torch.inference_mode():
+        row = in_a_row(attention_fns)
+    log(f"ms per call, 10 calls in a row between two events ({shape}; #9 "
+        f"and scaled_dot_product_attention on the same q, k, v): "
+        + "; ".join(f"{name} {fmt_ms(t)}" for name, t in row.items())
+        + f"; gpu {smi}")
+
     sampling_trace(tr, pipe)
     pipeline_trace(fns, x80)
+    with torch.inference_mode():
+        traced = kernel_trace(attention_fns)
+    device_ms = {name: ms for name, (ms, _, _) in traced.items()}
+    for name, (ms, n_ops, kernels_of) in traced.items():
+        log(f"device trace of {name} ({shape}), 10 calls: "
+            + ("not measured" if ms is None else
+               f"{ms:.4f} ms and {n_ops:.1f} device operations a call: "
+               + "; ".join(f"{key[:50]} x {n:.1f}, {each:.4f} ms each"
+                           for key, n, each in kernels_of))
+            + f"; gpu {smi}")
     times.update(sampling["times"])
     times.update(bf16["times"])
     enc_err.update({name: e for name, e in sampling["err"].items()
                     if name in RECORD})
     enc_err.update(bf16["err"])
-    work = kernel_work(n_rows, c_, grp, nb, vq.patch_size, vq.embedding_dim,
-                       vq.num_embeddings, n80, tr.seq_len, tr.n_head,
-                       SAMPLE_BATCH, TIMED_POSITIONS[0])
+    work, scores_fp32, both_fp32 = (
+        kernel_work(n_rows, c_, grp, nb, vq.patch_size, vq.embedding_dim,
+                    vq.num_embeddings, n80, tr.seq_len, tr.n_head,
+                    SAMPLE_BATCH, TIMED_POSITIONS[0], fp32_products=n)
+        for n in (0, 1, 2))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],
@@ -2080,15 +2137,20 @@ def main() -> int:
          "bound_ms": bound_of(work[name])[0],
          "bound_by": bound_of(work[name])[1],
          # but for #9, no single PyTorch call computes these functions
-         "library_ms": sampling["library_ms"].get(name)}
+         "library_ms": sampling["library_ms"].get(name),
+         **({"device_ms": device_ms[name]} if name in device_ms else {}),
+         **({"library_device_ms": device_ms["scaled_dot_product_attention"]}
+            if name == FLASH else {})}
         for name, (src, replaces) in RECORD.items()]}
     for entry in record["kernels"]:
         name = entry["name"]
         fp32 = ""
         if name in F32_ATTENTION:
-            ms, by = bound_of(on_fp32_cores(work[name]))
-            fp32 = (f"; with the attention's P@V on the FP32 cores too "
-                    f"{ms:.4f} ms by {by}")
+            fp32 = "; ".join(
+                f"{what} {ms:.4f} ms by {by}" for what, (ms, by) in (
+                    ("; the attention's scores on the FP32 cores",
+                     bound_of(scores_fp32[name])),
+                    ("both its products there", bound_of(both_fp32[name]))))
         log(f"kernel {name}: {entry['ms']:.4f} ms, bound "
             f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
             f"({entry['bound_ms'] / entry['ms']:.1%} of the time taken)"

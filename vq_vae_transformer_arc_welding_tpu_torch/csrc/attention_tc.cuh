@@ -6,21 +6,20 @@
 //   o[b, h, i, :] = (sum_j p_ij v_j) / sum_j p_ij,
 //   p_ij = exp(s_ij - max_j s_ij), s_ij = (q_i . k_j) * sm_scale, j <= i
 //
-// Work split. A block of WARPS warps takes 16 * MT * WARPS query rows of one
-// (batch, head); each warp owns MT m16 tiles of mma.sync (both kernels take
-// Tile<8, 1, 64, 2>: 8 warps of 16 rows, 64-key stages, two blocks an SM;
-// scripts/bench_attention_variants.py times the others). The row tiles are
-// laid from the end of the sequence: block z takes the rows [T - R (z + 1),
-// T - R z), so a ragged T leaves its short tile at rows 0.., whose causal
-// limit is a few keys, and never gives a block of R rows one row that walks
-// every key (T = 321, R = 128: the short tile is rows 0 .. 64). Rows below 0
-// are idle. Grid (heads, batch, row tiles): the heaviest tiles of every
-// (batch, head) come first. Keys and values stream through shared memory KT
-// at a time up to the block's causal limit, in a double buffer filled by
-// cp.async (zero-filled past T); inside a stage each warp skips the 8-key
-// column blocks beyond its own last row. The softmax is FP32: the row max is
-// kept online (numerators rescaled when it grows) and the division by the
-// row sum comes after P@V, in the epilogue.
+// Work split. A block of WARPS = 8 warps takes QROWS = 128 query rows of
+// one (batch, head), 16 a warp (one m16 tile of mma.sync); two blocks
+// share an SM. The row tiles are laid from the end of the sequence: block
+// z takes the rows [T - 128 (z + 1), T - 128 z), so a ragged T leaves its
+// short tile at rows 0.., whose causal limit is a few keys, and never
+// gives a block of 128 rows one row that walks every key (T = 321: the
+// short tile is rows 0 .. 64). Rows below 0 are idle. Grid (heads, batch,
+// row tiles): the heaviest tiles of every (batch, head) come first. Keys
+// and values stream through shared memory KT = 64 at a time up to the
+// block's causal limit, in a double buffer filled by cp.async (zero-filled
+// past T); inside a stage each warp skips the 8-key column blocks beyond
+// its own last row. The softmax is FP32: the row max is kept online
+// (numerators rescaled when it grows) and the division by the row sum
+// comes after P@V, in the epilogue.
 //
 // Products. Q K^T is an FP32 FMA chain over the head dims in order (q_i0
 // k_j0 first), the order of a plain f32 GEMM, so the scores round as the
@@ -42,14 +41,14 @@
 // load free of bank conflicts.
 //
 // What bounds it on an H100 (at the bench shape, T = 321, B = 80, H = 8):
-// operations, 4.2 GFLOP of FP32 score FMAs (67 TFLOP/s: 0.063 ms) and 3 x
-// 4.2 GFLOP of TF32 products (495 TFLOP/s: 0.026 ms), against the bytes of
-// q, k, v and the output (210 MB f32, 3.35 TB/s: 0.063 ms). In practice
-// shared memory paces the score loop: for each head dim a thread's 2 MT
-// rows x 16 keys (32 MT FMAs) read 2 MT + 16 floats, and an SM delivers 32
-// floats a clock to 128 FMA lanes. Two m16 tiles a warp nearly halve the
-// reads per FMA, but their registers leave an SM 8 warps instead of 16,
-// and the tile is then slower.
+// the bytes of q, k, v and the output (210 MB f32, 3.35 TB/s: 0.063 ms);
+// both products in split TF32 would take 6 x 4.2 GFLOP at 495 TFLOP/s
+// (0.051 ms). As the tile runs them, 4.2 GFLOP of FP32 score FMAs take
+// 0.063 ms at 67 TFLOP/s. In practice shared memory paces the score loop:
+// for each head dim a thread's 2 rows x 16 keys (32 FMAs) read 18 floats,
+// and an SM delivers 32 floats a clock to 128 FMA lanes. Two m16 tiles a
+// warp nearly halve the reads per FMA, but their registers leave an SM 8
+// warps instead of 16, and that tile was slower (PERF.md, Findings).
 #pragma once
 
 #include "common.cuh"
@@ -61,22 +60,18 @@ constexpr int HD = 64;                  // head width
 constexpr int WROWS = 16;               // query rows per warp: one m16 tile
 constexpr int RS = HD + 4;              // row stride of Q, K and V tiles
 
-template <int WARPS_, int MT_, int KT_, int MIN_BLOCKS_>
-struct Tile {
-  static constexpr int WARPS = WARPS_;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int MT = MT_;                 // m16 tiles per warp
-  static constexpr int QROWS = WROWS * MT * WARPS;  // query rows per block
-  static constexpr int KT = KT_;                 // keys per stage
-  static constexpr int NB = KT / 8;              // 8-key column blocks
-  static constexpr int MIN_BLOCKS = MIN_BLOCKS_; // blocks an SM must hold
-  static constexpr int STAGE = 2 * KT * RS;      // K then V, floats
-  static constexpr size_t SMEM = sizeof(float) * (QROWS * RS + 2 * STAGE);
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MIN_BLOCKS = 2;           // blocks an SM must hold
+constexpr int QROWS = WROWS * WARPS;    // query rows per block
+constexpr int KT = 64;                  // keys per stage
+constexpr int NB = KT / 8;              // 8-key column blocks
+constexpr int STAGE = 2 * KT * RS;      // K then V, floats
+constexpr size_t SMEM = sizeof(float) * (QROWS * RS + 2 * STAGE);
 
-  static dim3 grid(int batch, int n_head, int t) {
-    return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
-  }
-};
+inline dim3 grid(int batch, int n_head, int t) {
+  return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
+}
 
 // q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e (floats).
 // vec16: every row starts 16-byte aligned (the pointers and the strides),
@@ -162,9 +157,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [r0, r0 + N) of x (64 floats each, row i at base + i * st) into
-// dst, RS floats apart, by THREADS threads; rows outside [0, t) are
-// zero-filled
-template <int N, int THREADS>
+// dst, RS floats apart, by the block's THREADS threads; rows outside
+// [0, t) are zero-filled
+template <int N>
 __device__ __forceinline__ void copy_rows(float* dst, const float* x,
                                           long long base, long long st,
                                           int r0, int t, bool vec16) {
@@ -201,26 +196,26 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The tile of block (h, b, z) = blockIdx, T::THREADS threads, T::SMEM
-// bytes of dynamic shared memory. A warp owns T::MT m16 tiles of rows;
-// thread (warp, g = lane / 4, tg = lane % 4) holds rows g and g + 8 of
-// each, and of each 8-column block the columns 2 tg, 2 tg + 1 (mma's
-// accumulator layout). store(b, h, row, col, y0, y1, l) writes columns
-// col, col + 1 of a valid row: y / l.
-template <class T, class Store>
+// The tile of block (h, b, z) = blockIdx, THREADS threads, SMEM bytes
+// of dynamic shared memory. A warp owns one m16 tile of rows; thread
+// (warp, g = lane / 4, tg = lane % 4) holds rows g and g + 8 of it, and
+// of each 8-column block the columns 2 tg, 2 tg + 1 (mma's accumulator
+// layout). store(b, h, row, col, y0, y1, l) writes columns col, col + 1
+// of a valid row: y / l.
+template <class Store>
 __device__ __forceinline__ void causal_attention_tile(const Operands& in,
                                                       const Store& store) {
-  constexpr int NB = T::NB, KT = T::KT, MT = T::MT, R = 2 * MT;
+  constexpr int R = 2;                  // a thread's rows: g, g + 8
   extern __shared__ float4 smem4[];
   float* const q_s = reinterpret_cast<float*>(smem4);  // QROWS x RS
-  float* const stages = q_s + T::QROWS * RS;  // 2 x (K: KT x RS, V: KT x RS)
+  float* const stages = q_s + QROWS * RS;  // 2 x (K: KT x RS, V: KT x RS)
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q_end = in.t - T::QROWS * (int)blockIdx.z;  // rows < q_end
+  const int q_end = in.t - QROWS * (int)blockIdx.z;     // rows < q_end
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tg = lane % 4;
-  const int w_first = WROWS * MT * warp;                // in the block
-  const int w0 = q_end - T::QROWS + w_first;            // may be < 0
-  const int w_end = w0 + WROWS * MT;
+  const int w_first = WROWS * warp;                     // in the block
+  const int w0 = q_end - QROWS + w_first;               // may be < 0
+  const int w_end = w0 + WROWS;
   const long long base = b * in.sb + h * in.sh;
   const int n_tiles = (q_end + KT - 1) / KT;
   // thread row r (0 .. R-1) is w0 + g + 8 r; a row below 0 attends to
@@ -229,15 +224,13 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
 #pragma unroll
   for (int r = 0; r < R; ++r) lim[r] = max(w0 + g + 8 * r, 0);
 
-  copy_rows<T::QROWS, T::THREADS>(q_s, in.q, base, in.st, q_end - T::QROWS,
-                                  in.t, in.vec16);
-  copy_rows<KT, T::THREADS>(stages, in.k, base, in.st, 0, in.t, in.vec16);
-  copy_rows<KT, T::THREADS>(stages + KT * RS, in.v, base, in.st, 0, in.t,
-                            in.vec16);
+  copy_rows<QROWS>(q_s, in.q, base, in.st, q_end - QROWS, in.t, in.vec16);
+  copy_rows<KT>(stages, in.k, base, in.st, 0, in.t, in.vec16);
+  copy_rows<KT>(stages + KT * RS, in.v, base, in.st, 0, in.t, in.vec16);
   cp_async_commit();
 
-  // o[mt][n]: rows g, g + 8 of m tile mt, head dims 8 n + 2 tg, + 1
-  float o[MT][HD / 8][4] = {};
+  // o[n]: rows g (0, 1) and g + 8 (2, 3), head dims 8 n + 2 tg, + 1
+  float o[HD / 8][4] = {};
   float m[R], l[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -249,16 +242,15 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * KT;
     if (it + 1 < n_tiles) {
-      float* next = stages + ((it + 1) & 1) * T::STAGE;
-      copy_rows<KT, T::THREADS>(next, in.k, base, in.st, k0 + KT, in.t,
-                                in.vec16);
-      copy_rows<KT, T::THREADS>(next + KT * RS, in.v, base, in.st, k0 + KT,
-                                in.t, in.vec16);
+      float* next = stages + ((it + 1) & 1) * STAGE;
+      copy_rows<KT>(next, in.k, base, in.st, k0 + KT, in.t, in.vec16);
+      copy_rows<KT>(next + KT * RS, in.v, base, in.st, k0 + KT, in.t,
+                    in.vec16);
     }
     cp_async_commit();
     cp_async_wait<1>();   // this stage's copies (and Q's) have landed
     __syncthreads();
-    const float* k_s = stages + (it & 1) * T::STAGE;
+    const float* k_s = stages + (it & 1) * STAGE;
     const float* v_s = k_s + KT * RS;
     // the 8-key column blocks this warp needs: keys below w_end
     const int nb = min(max((w_end - k0 + 7) / 8, 0), NB);
@@ -331,8 +323,8 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
         l[r] = l[r] * alpha + ps;   // this thread's columns; summed at the end
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n) {
-          o[r / 2][n][2 * (r % 2)] *= alpha;
-          o[r / 2][n][2 * (r % 2) + 1] *= alpha;
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
         }
       }
 
@@ -340,23 +332,18 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
 #pragma unroll
       for (int j = 0; j < NB; ++j) {
         if (j < nb) {
-          uint32_t ph[MT][4], pl[MT][4];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            split_tf32(s[2 * mt][j][0], ph[mt][0], pl[mt][0]);  // g, 2tg
-            split_tf32(s[2 * mt + 1][j][0], ph[mt][1], pl[mt][1]);  // g+8
-            split_tf32(s[2 * mt][j][1], ph[mt][2], pl[mt][2]);  // g, 2tg+1
-            split_tf32(s[2 * mt + 1][j][1], ph[mt][3], pl[mt][3]);
-          }
+          uint32_t ph[4], pl[4];
+          split_tf32(s[0][j][0], ph[0], pl[0]);   // row g, key 2 tg
+          split_tf32(s[1][j][0], ph[1], pl[1]);   // row g + 8
+          split_tf32(s[0][j][1], ph[2], pl[2]);   // row g, key 2 tg + 1
+          split_tf32(s[1][j][1], ph[3], pl[3]);
           const float* vr = v_s + (8 * j + 2 * tg) * RS + g;
 #pragma unroll
           for (int n = 0; n < HD / 8; ++n) {
             uint32_t bh0, bl0, bh1, bl1;
             split_tf32(vr[8 * n], bh0, bl0);
             split_tf32(vr[RS + 8 * n], bh1, bl1);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-              mma3(o[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+            mma3(o[n], ph, pl, bh0, bh1, bl0, bl1);
           }
         }
       }
@@ -372,8 +359,7 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
     if (row < 0) continue;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
-      store(b, h, row, 8 * n + 2 * tg, o[r / 2][n][2 * (r % 2)],
-            o[r / 2][n][2 * (r % 2) + 1], l[r]);
+      store(b, h, row, 8 * n + 2 * tg, o[n][2 * r], o[n][2 * r + 1], l[r]);
   }
 }
 

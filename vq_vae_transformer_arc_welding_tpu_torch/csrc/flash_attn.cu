@@ -24,8 +24,6 @@ namespace {
 
 using namespace arcweld::attn_tc;
 
-using FlashTile = Tile<8, 1, 64, 2>;
-
 // o[b, h, row, col .. col + 1] = y / l, element (b, h, i, e) at
 // b*sb + h*sh + i*st + e
 struct StoreF32 {
@@ -41,10 +39,10 @@ struct StoreF32 {
 
 // __grid_constant__: the tile takes its operands by reference, which
 // would otherwise copy the parameters to the stack
-__global__ void __launch_bounds__(FlashTile::THREADS, FlashTile::MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_attention_kernel(const __grid_constant__ Operands in,
                        const __grid_constant__ StoreF32 out) {
-  causal_attention_tile<FlashTile>(in, out);
+  causal_attention_tile(in, out);
 }
 
 }  // namespace
@@ -61,18 +59,16 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
   if (batch < 1 || batch > 65535 || n_head < 1 || t < 1 ||
       (sob | soh | sot) % 2 != 0 || reinterpret_cast<uintptr_t>(o) % 8 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = FlashTile::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)SMEM);
   if (e != cudaSuccess) return e;
   const Operands in{static_cast<const float*>(q),
                     static_cast<const float*>(k),
                     static_cast<const float*>(v),
                     sb, sh, st, t, sm_scale,
                     rows_aligned16(q, k, v, sb, sh, st)};
-  flash_attention_kernel<<<FlashTile::grid(batch, n_head, t),
-                           FlashTile::THREADS, smem,
+  flash_attention_kernel<<<grid(batch, n_head, t), THREADS, SMEM,
                            static_cast<cudaStream_t>(stream)>>>(
       in, StoreF32{static_cast<float*>(o), sob, soh, sot});
   return cudaGetLastError();

@@ -302,18 +302,14 @@ struct StoreQ8 {
 };
 
 static_assert(attn_tc::HD == HD, "one head width for both attentions");
-using AttentionTile = attn_tc::Tile<8, 1, 64, 2>;
-
-__global__ void __launch_bounds__(AttentionTile::THREADS,
-                                  AttentionTile::MIN_BLOCKS)
+__global__ void __launch_bounds__(attn_tc::THREADS, attn_tc::MIN_BLOCKS)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ qscale,
                  int8_t* __restrict__ y8, int t, int n_head, float sm_scale,
                  bool vec16) {
   const int c = n_head * HD;
   const attn_tc::Operands in{qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
                              HD, 3LL * c, t, sm_scale, vec16};
-  attn_tc::causal_attention_tile<AttentionTile>(in,
-                                                StoreQ8{y8, t, c, *qscale});
+  attn_tc::causal_attention_tile(in, StoreQ8{y8, t, c, *qscale});
 }
 
 // head_scales[b, which, h] = 127 / max(max_{i < t, e} |qkv[b, i, which*C +
@@ -510,11 +506,11 @@ cudaError_t launch_attention(const float* qkv, const float* qscale,
   if (!int8_attn) {
     e = cudaFuncSetAttribute(attention_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)AttentionTile::SMEM);
+                             (int)attn_tc::SMEM);
     if (e != cudaSuccess) return e;
     const int c = n_head * HD;
-    attention_kernel<<<AttentionTile::grid(batch, n_head, t),
-                       AttentionTile::THREADS, AttentionTile::SMEM, s>>>(
+    attention_kernel<<<attn_tc::grid(batch, n_head, t), attn_tc::THREADS,
+                       attn_tc::SMEM, s>>>(
         qkv, qscale, y8, t, n_head, sm_scale,
         attn_tc::rows_aligned16(qkv, qkv + c, qkv + 2 * c,
                                 (long long)t * 3 * c, HD, 3LL * c));

@@ -10,8 +10,9 @@ scores.
 What the TPU shaped and this port drops: the padding of T to a multiple
 of 8 and the GROUP = 4 (batch, head) pairs per program. The CUDA kernel
 takes any T, masks the ragged edge itself, and runs one block per
-64-query tile, head and batch. It is written for 64-wide heads and
-raises for another width.
+128-query tile (laid from the end of T), head and batch: the tile of
+csrc/attention_tc.cuh, with P@V in split TF32 on the tensor cores. It
+is written for 64-wide heads and raises for another width.
 
 The kernel reads q, k and v through their strides, so the views that
 `split_heads` cuts out of a packed (B, T, 3C) qkv are read in place; the
