@@ -41,14 +41,22 @@ the f32 attention (#2, #6, #9, #10, #11) counts both of its products in
 split TF32 on the tensor cores, and beside that bound the log gives two
 more: with the scores on the FP32 cores (as the tile computes them) and
 with both products there (as before the tile used the tensor cores).
+The int8 GEMM that #2, #6, #8 and #10 share (csrc/int8_gemm_sm90.cuh)
+is launched alone at its four shapes in a block (qkv, c_proj, c_fc,
+m_proj; 25,680 rows at batch 80) on block 0's own operands, and must be
+bit-equal to the plain stage and to what #6 wrote at that stage.
 Right after the build, `-Xptxas -v` of the two instantiations of the
-attention tile (csrc/attention_tc.cuh) gives their registers and
-spills. The f32 attention kernels and scaled_dot_product_attention on
-#9's inputs are timed again ten calls in a row between two events, so
-that the host's launch hides behind the card's work; at the end,
-torch.profiler traces give their device time per call (with each
-kernel's launches, so that a lost event shows), and the f32 attention's
-device time per call of the 'attn' and 'full' pipelines.
+attention tile (csrc/attention_tc.cuh) and of the GEMM's two gives
+their registers and spills, and the GEMM's PTX must hold
+`wgmma.mma_async` and `cp.async.bulk.tensor`. The f32 attention kernels
+and scaled_dot_product_attention on #9's inputs are timed again ten
+calls in a row between two events, so that the host's launch hides
+behind the card's work; at the end, torch.profiler traces give their
+device time per call (with each kernel's launches, so that a lost event
+shows), the f32 attention's and the int8 GEMM's device time per call of
+the 'attn' and 'full' pipelines, and the GEMM's device time per launch
+at each shape beside its bound and beside torch._int_mm on the same
+operands (s32 out, no epilogue).
 
 Then token sampling, at the sampling batch of 16 and 320 KV-cached
 steps: `sample_tokens` on the calibrated pipeline (fresh and from a
@@ -151,6 +159,12 @@ MLP, QKV, CAUSAL = ("mlp_quant", "qkv_attention_quant",
                     "causal_attention_quant")
 FLASH, DEC_ATTN, DEC_BLOCK = ("flash_attention_f32", "decode_attn_f32",
                               "block_decode_f32")
+# the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
+# its four shapes in a block of width C: (N / C, K / C, int8 GELU+q8
+# output, f32 residual read)
+GEMM = "int8_gemm"
+GEMM_SHAPES = {"qkv": (3, 1, False, False), "c_proj": (1, 1, False, True),
+               "c_fc": (4, 1, True, False), "m_proj": (1, 4, False, True)}
 # name, make_pipeline_quantized options, the kernels the path launches
 PATHS = (
     ("attn", {"block_fusion": "attn"}, {ENC, ATTN}),
@@ -224,10 +238,12 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     n_res per bf16 chain call, a (k, d) codebook; the transformer's
     (b, t, c) stream with n_head heads; a decode step of dec_b streams
     at position dec_pos, which reads the dec_pos cache rows before it
-    and writes one. The f32 attention (F32_ATTENTION) has two products
-    of equal size over its causal scores, Q K^T and P@V: each counts
-    TF32_SPLIT times as TF32, but the first `fp32_products` of them
-    (0, 1 or 2) once as FP32 on the CUDA cores."""
+    and writes one. `int8_gemm <shape>`: the int8 GEMM alone at the
+    four shapes of a block (GEMM_SHAPES). The f32 attention
+    (F32_ATTENTION) has two products of equal size over its causal
+    scores, Q K^T and P@V: each counts TF32_SPLIT times as TF32, but the
+    first `fp32_products` of them (0, 1 or 2) once as FP32 on the CUDA
+    cores."""
     f4 = 4
     x = n_rows * c * f4                         # the encoder's residual stream
     block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
@@ -246,7 +262,15 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     dec_mlp_w = (w_mlp + 7 * c) * f4
     dec_io = (2 * dec_b * c + 2 * dec_b * (dec_pos + 1) * c) * f4
     dec_attn_ops = dec_b * 2 * (w_attn + 2 * (dec_pos + 1) * c)
+    # the GEMM alone: a, w, the column scale and bias, the output (int8
+    # or f32) and the residual where it reads one
+    gemm = {f"{GEMM} {shape}": (
+        m * kc * c + nc * c * kc * c + 2 * nc * c * f4
+        + m * nc * c * (1 if q8 else f4) + (m * nc * c * f4 if resid else 0),
+        {"int8": 2 * m * nc * c * kc * c})
+        for shape, (nc, kc, q8, resid) in GEMM_SHAPES.items()}
     return {
+        **gemm,
         FLASH: (4 * xs, f32_attn),
         DEC_ATTN: (dec_attn_w + dec_io, {"f32": dec_attn_ops}),
         DEC_BLOCK: (dec_attn_w + dec_mlp_w + dec_io,
@@ -367,41 +391,60 @@ def device_profile(fn):
              for e in dev])
 
 
-# the sources that instantiate csrc/attention_tc.cuh, and the kernels
+# the sources that instantiate csrc/attention_tc.cuh and the int8 GEMM
+# (csrc/int8_gemm_sm90.cuh), and the kernels ptxas reports on
 PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu")
-PTXAS_KERNEL = "attention_kernel"    # flash_attention_kernel, attention_kernel
+PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel")
+# the GEMM's PTX must hold Hopper's tensor-core product and TMA copies
+GEMM_PTX = ("wgmma.mma_async", "cp.async.bulk.tensor")
 
 
 def ptxas_start() -> list:
-    """nvcc -Xptxas -v on PTXAS_SOURCES, started beside the library's
-    build: [(source, process)]."""
+    """nvcc -Xptxas -v on PTXAS_SOURCES, and nvcc -ptx on int8_block.cu,
+    started beside the library's build: [(source, process)], the PTX
+    last."""
     from vq_vae_transformer_arc_welding_tpu_torch import kernels
     out = kernels.BUILD_DIR / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
-    return [(src, subprocess.Popen(
-        [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-         str(out / f"{src}.o"), str(kernels.SRC_DIR / src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for src in PTXAS_SOURCES]
+    cmds = [(src, [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+                   "-c", "-o", str(out / f"{src}.o"),
+                   str(kernels.SRC_DIR / src)]) for src in PTXAS_SOURCES]
+    cmds.append(("int8_block.ptx", [
+        kernels.nvcc(), *kernels.NVCC_FLAGS, "-ptx", "-o",
+        str(out / "int8_block.ptx"), str(kernels.SRC_DIR / "int8_block.cu")]))
+    return [(src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for src, cmd in cmds]
 
 
 def ptxas_report(procs: list) -> None:
-    """Log what ptxas says of each attention tile: registers, stack and
-    spills."""
-    for src, proc in procs:
+    """Log what ptxas says of the attention tiles and the int8 GEMM
+    (registers, stack and spills), and count the GEMM's wgmma and TMA
+    instructions in int8_block.cu's PTX."""
+    from vq_vae_transformer_arc_welding_tpu_torch import kernels
+    *objs, (_, ptx) = procs
+    for src, proc in objs:
         text, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc -Xptxas -v {src}: {text[-2000:]}")
         kernel, said = None, {}
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                kernel = (line.split("'")[1] if PTXAS_KERNEL in line
-                          else None)
+                kernel = next((line.split("'")[1] for name in PTXAS_KERNELS
+                               if name in line), None)
             elif kernel and ("spill" in line or "Used" in line):
                 said.setdefault(kernel, []).append(
                     line.replace("ptxas info    :", "").strip())
-        check(bool(said), f"nvcc -Xptxas -v {src}: no {PTXAS_KERNEL}")
+        check(bool(said), f"nvcc -Xptxas -v {src}: none of {PTXAS_KERNELS}")
         for kernel, lines in said.items():
             log(f"ptxas {src} {kernel}: " + "; ".join(lines))
+    text, _ = ptx.communicate()
+    check(ptx.returncode == 0, f"nvcc -ptx int8_block.cu: {text[-2000:]}")
+    body = (kernels.BUILD_DIR / "ptxas" / "int8_block.ptx").read_text()
+    found = {op: body.count(op) for op in GEMM_PTX}
+    check(all(found.values()), f"int8_block.cu's PTX lacks one of "
+                               f"{GEMM_PTX}: {found}")
+    log("int8_block.cu PTX: " + ", ".join(
+        f"{op} x {n}" for op, n in found.items()))
 
 
 def fmt_ms(t: tuple) -> str:
@@ -955,9 +998,10 @@ def kernel_trace(fns: dict, calls: int = 10) -> dict:
 
 def pipeline_trace(fns: dict, x) -> None:
     """Where a batch's device time goes on 'attn' and 'full', from
-    torch.profiler over three calls: device time per call and the f32
-    attention's part of it (attention_kernel: attention_tc.cuh's tile
-    with the int8 epilogue)."""
+    torch.profiler over three calls: device time per call, and the parts
+    of it of the f32 attention (attention_kernel: attention_tc.cuh's
+    tile with the int8 epilogue) and of the int8 GEMM
+    (int8_gemm_sm90_kernel, both epilogues)."""
     calls = 3
     for name in ("attn", "full"):
         fn = fns[name]
@@ -967,17 +1011,68 @@ def pipeline_trace(fns: dict, x) -> None:
             log(f"device trace of make_pipeline_quantized({name}): no device "
                 f"event, not measured")
             continue
-        attn = [(cnt, ms) for key, cnt, ms in names
-                if key.startswith("attention_kernel(")]
-        attn_n, attn_ms = (sum(v) for v in zip(*attn)) if attn else (0, 0.0)
+        parts = []
+        for what, pick in (
+                ("the f32 attention (attention_kernel)",
+                 lambda key: key.startswith("attention_kernel(")),
+                ("the int8 GEMM (int8_gemm_sm90_kernel)",
+                 lambda key: "int8_gemm" in key)):
+            got = [(cnt, ms) for key, cnt, ms in names if pick(key)]
+            n, ms = (sum(v) for v in zip(*got)) if got else (0, 0.0)
+            parts.append(f"{what} x {n / calls:.1f} a call, "
+                         f"{ms / calls:.4f} ms a call ({ms / busy:.1%})")
         log(f"device trace of make_pipeline_quantized({name}) batch {len(x)}, "
             f"{calls} calls: {n_ops / calls:.1f} device operations and "
-            f"{busy / calls:.4f} ms of device time per call; the f32 "
-            f"attention (attention_kernel) x {attn_n / calls:.1f} a call, "
-            f"{attn_ms / calls:.4f} ms a call ({attn_ms / busy:.1%}); most "
-            f"of it: " + "; ".join(
+            f"{busy / calls:.4f} ms of device time per call; "
+            + "; ".join(parts) + "; most of it: " + "; ".join(
                 f"{key[:60]} x {cnt / calls:.1f}, {ms / calls:.4f} ms"
                 for key, cnt, ms in names[:10]))
+
+
+def gemm_cases(x, sc, w, scales, vc, v3c, v4c) -> dict:
+    """The int8 GEMM's four calls in #6 (block_quant) on block input x
+    and the block's scratch sc: {shape: (int8_gemm's operands, the
+    output #6 itself wrote at that stage)}."""
+    m = x.shape[0] * x.shape[1]
+
+    def rows(t):
+        return t.reshape(m, t.shape[-1])
+    return {
+        "qkv": ((rows(sc["h8a"]), w["c_attn"], v3c[0], v3c[1], None, None),
+                rows(sc["qkv"])),
+        "c_proj": ((rows(sc["y8"]), w["c_proj"], vc[4], vc[5], rows(x),
+                    None), rows(sc["x_mid"])),
+        "c_fc": ((rows(sc["h8"]), w["c_fc"], v4c[0], v4c[1], None,
+                  scales[3]), rows(sc["g8"])),
+        "m_proj": ((rows(sc["g8"]), w["m_proj"], vc[6], vc[7],
+                    rows(sc["x_mid"]), None), rows(sc["out"])),
+    }
+
+
+def gemm_phase(cases: dict) -> dict:
+    """The int8 GEMM alone at the four shapes of a block at batch 80, on
+    the bench model's block 0 operands (gemm_cases): each launch must be
+    bit-equal to the plain stage and to what #6 wrote at that stage.
+    Returns {shape: (the GEMM's call, torch._int_mm's call on the same
+    a and w)}, for the traces at the end."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import int8_gemm as ig
+    calls = {}
+    for shape, (args, in_kernel) in cases.items():
+        out, counts = counted(lambda: ig.int8_gemm(*args))
+        check(counts == {GEMM: 1}, f"{GEMM} {shape} launched {counts}")
+        ref = ig.int8_gemm_reference(*args)
+        a, w = args[:2]
+        same = [torch.equal(out, ref), torch.equal(out, in_kernel)]
+        log(f"{GEMM} {shape} ({a.shape[0]} x {w.shape[0]} x {a.shape[1]}, "
+            f"{'GELU+q8 int8' if out.dtype == torch.int8 else 'f32'}"
+            f"{' + residual' if args[4] is not None else ''}): "
+            f"bit-equal to the plain stage {same[0]}, to #6's own output "
+            f"{same[1]}")
+        check(all(same), f"{GEMM} {shape}: not bit-equal ({same})")
+        calls[shape] = (lambda args=args: ig.int8_gemm(*args),
+                        lambda a=a, w=w: torch._int_mm(a, w.t()))
+    return calls
 
 
 def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
@@ -1707,9 +1802,10 @@ def main() -> int:
     bf16 = bf16_encoder_phase(vq, tr, qp, xreqs, fns["full"], smi)
     launched.update(bf16["launched"])
 
-    check(set(launched) == set(kernels.launches),
+    # the GEMM alone is the GEMM phase's (section 7): no path launches it
+    check(set(launched) == set(kernels.launches) - {GEMM},
           f"kernels no path launched: "
-          f"{sorted(set(kernels.launches) - set(launched))}")
+          f"{sorted(set(kernels.launches) - {GEMM} - set(launched))}")
 
     with torch.inference_mode():
         x80 = xreqs[0]
@@ -1985,6 +2081,9 @@ def main() -> int:
                                       int8_attn))
                 if not int8_attn:
                     nxt = out_p
+                    if i == 0:
+                        gemm_calls = gemm_phase(gemm_cases(
+                            xs, sc, w, scales, vc, v3c, v4c))
             h2 = layer_norm(x_mid, blk["ln2_scale"], blk["ln2_bias"])
             mlp_args = (h2.contiguous(), w["c_fc"], w["m_proj"], scales[2:],
                         v4c, vc[6:])
@@ -2126,6 +2225,22 @@ def main() -> int:
                     vq.num_embeddings, n80, tr.seq_len, tr.n_head,
                     SAMPLE_BATCH, TIMED_POSITIONS[0], fp32_products=n)
         for n in (0, 1, 2))
+    with torch.inference_mode():
+        gemm_traced = kernel_trace({
+            (shape, what): fn for shape, fns in gemm_calls.items()
+            for what, fn in zip(("kernel", "_int_mm"), fns)})
+    for shape, (nc, kc, _, _) in GEMM_SHAPES.items():
+        ms, lib_ms = (gemm_traced[shape, what][0]
+                      for what in ("kernel", "_int_mm"))
+        bound, by = bound_of(work[f"{GEMM} {shape}"])
+        log(f"device trace of {GEMM} {shape} (M={n80 * tr.seq_len}, "
+            f"N={nc * c_}, K={kc * c_}), 10 calls: "
+            + ("not measured" if None in (ms, lib_ms) else
+               f"{ms:.4f} ms a launch, bound {bound:.4f} ms by {by} "
+               f"({bound / ms:.1%} of the time taken); torch._int_mm "
+               f"(s32 out, no epilogue) {lib_ms:.4f} ms, the GEMM "
+               f"{ms / lib_ms:.3f}x of it")
+            + f"; gpu {smi}")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],

@@ -13,9 +13,12 @@ difference moves an argmin only at a near-tie; 0 expected); the int8
 kernels (#2 in both attention variants, #6, #8, #10, #11) may move at
 most 0.1% of their int8 outputs, by one step, and their f32 outputs by
 1e-3 (an ulp of LayerNorm, attention, exp or tanh difference can cross
-a rounding boundary). The f32 attention kernel (#9) and the decode
-kernels (#12, #13) sum 64- to 2048-term products in other orders than
-the plain versions and may contract FMAs: 2e-5 on the attention output
+a rounding boundary). The int8 GEMM that #2, #6, #8 and #10 share,
+launched alone, is held bit for bit against its plain stage: its s32
+sums are exact and its epilogue rounds as the plain version does. The
+f32 attention kernel (#9) and the decode kernels (#12, #13) sum 64- to
+2048-term products in other orders than the plain versions and may
+contract FMAs: 2e-5 on the attention output
 and the written cache row, 1e-4 on the residual stream; every cache row
 but `pos` must stay bit-equal. The bf16 encoder chain (#1's
 `compute_dtype` variant) rounds each product input to bf16: an ulp of
@@ -32,7 +35,8 @@ from vq_vae_transformer_arc_welding_tpu_torch import entry, kernels
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
     attention, fused_attn, fused_attn_quant as fattn,
     fused_block_quant as fbq, fused_decode,
-    fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq, int8)
+    fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq, int8,
+    int8_gemm)
 
 pytestmark = pytest.mark.cuda
 
@@ -402,6 +406,98 @@ def test_int8_matmul_exact_on_cuda(dev, m, k, n):
                            torch.from_numpy(w).to(dev))
     np.testing.assert_array_equal(out.cpu().numpy(),
                                   a.astype(np.int64) @ w.astype(np.int64).T)
+
+
+# -- the int8 GEMM of #2, #6, #8 and #10 ------------------------------------
+
+# rows: ragged around the 64-row warpgroup and 128-row tile, one sequence
+# (321) and batch 80 of the bench model (25,680 = 200 x 128 + 80)
+GEMM_ROWS = [1, 17, 63, 64, 65, 127, 128, 129, 321, 25680]
+# (N, K) of qkv, c_proj, c_fc and m_proj at C = 512, 128, 192 and 1024
+GEMM_NK = [(n, k) for c in (512, 128, 192, 1024)
+           for n, k in ((3 * c, c), (c, c), (4 * c, c), (c, 4 * c))]
+GEMM_EPILOGUES = ["f32", "f32+resid", "gelu_q8"]
+
+
+def _gemm_operands(m, n, k, epilogue, seed=0):
+    """Inputs +-127, each row of a and w leaning to one sign by its own
+    odds, so that sums reach +-K * 127^2, past 2^24 at K >= 2048, where
+    the s32 -> f32 conversion rounds (the odd entries make it round).
+    Scales put y near 1 (GELU inputs of order 1, q8 outputs across the
+    int8 range)."""
+    rng = np.random.default_rng(seed)
+
+    def lean(rows):
+        x = np.where(rng.random((rows, k)) < rng.random((rows, 1)), 127, -127)
+        # one entry in a hundred anywhere in -127..127: sums of +-127^2
+        # alone are 16129 times an integer of K's parity, so at K = 2048
+        # they are even and below 2^25, where f32 holds them exactly
+        odd = rng.random((rows, k)) < 0.01
+        x[odd] = rng.integers(-127, 128, int(odd.sum()))
+        return x.astype(np.int8)
+    a8, w8 = lean(m), lean(n)
+    cs = (4.0 / (k * 127 * 127) * rng.uniform(0.5, 1.5, n)).astype(np.float32)
+    cb = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    resid = (rng.standard_normal((m, n)).astype(np.float32)
+             if epilogue == "f32+resid" else None)
+    qscale = np.float32(30.0) if epilogue == "gelu_q8" else None
+    return a8, w8, cs, cb, resid, qscale
+
+
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("m", GEMM_ROWS)
+def test_int8_gemm_bit_equal_to_plain(dev, m, n, k, epilogue):
+    """The GEMM (wgmma, TMA, persistent tiles) against the plain stage,
+    bit for bit: s32 sums are exact in any order and the epilogue rounds
+    as the plain version does."""
+    a8, w8, cs, cb, resid, qscale = (
+        None if v is None else torch.as_tensor(v).to(dev)
+        for v in _gemm_operands(m, n, k, epilogue, seed=m + n + k))
+    out = _launched("int8_gemm", lambda: int8_gemm.int8_gemm(
+        a8, w8, cs, cb, resid, qscale))
+    ref = int8_gemm.int8_gemm_reference(a8, w8, cs, cb, resid, qscale)
+    assert out.dtype == ref.dtype and out.shape == ref.shape == (m, n)
+    assert torch.equal(out, ref)
+    if epilogue == "gelu_q8" and m >= 128:     # the int8 range is used
+        assert int(out.max()) > 60 and int(out.min()) < 0
+
+
+def test_int8_gemm_sums_pass_2_24(dev):
+    """The operands above reach sums past 2^24 at K = 2048, where the
+    conversion to f32 rounds some of them."""
+    a8, w8, *_ = _gemm_operands(129, 512, 2048, "f32")
+    acc = int8.int8_matmul(torch.from_numpy(a8).to(dev),
+                           torch.from_numpy(w8).to(dev))
+    assert int(acc.abs().max()) > 2 ** 24
+    assert bool((acc.float().long() != acc.long()).any())
+
+
+def test_int8_gemm_rejects_bad_operands(dev):
+    """N or K off a multiple of 64, wrong dtype, shape, device or
+    contiguity, or both epilogues at once: ValueError before a launch."""
+    a8, w8, cs, cb, resid, _ = (
+        None if v is None else torch.as_tensor(v).to(dev)
+        for v in _gemm_operands(65, 128, 128, "f32+resid"))
+    qs = torch.tensor(30.0, device=dev)
+    before = dict(kernels.launches)
+    bad = [
+        lambda: int8_gemm.int8_gemm(a8[:, :96].contiguous(), w8[:, :96],
+                                    cs, cb),
+        lambda: int8_gemm.int8_gemm(a8, w8[:96], cs[:96], cb[:96]),
+        lambda: int8_gemm.int8_gemm(a8.float(), w8, cs, cb),
+        lambda: int8_gemm.int8_gemm(a8, w8.cpu(), cs, cb),
+        lambda: int8_gemm.int8_gemm(a8[:, ::2], w8[:, :64].contiguous(),
+                                    cs, cb),
+        lambda: int8_gemm.int8_gemm(a8, w8, cs[:64], cb),
+        lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, resid[:64]),
+        lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, resid, qs),
+        lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, qscale=qs[None]),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert kernels.launches == before
 
 
 def test_wrapper_rejects_bad_operands(dev):

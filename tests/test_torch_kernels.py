@@ -29,7 +29,7 @@ from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import qdot
 from vq_vae_transformer_arc_welding_tpu_torch.ops import (
     fused_attn as fflash, fused_attn_quant as fattn,
     fused_block_quant as fbq, fused_decode as fdec, fused_encoder as fenc,
-    fused_mlp_quant as fmlp, fused_vq as fvq)
+    fused_mlp_quant as fmlp, fused_vq as fvq, int8_gemm as ig)
 from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
 
 import torch_port_helpers as H
@@ -650,8 +650,9 @@ def test_kernel_sources_call_no_library_products():
         "attn_block_quant",
         "attn_block_quant_int8attn", "block_quant", "block_quant_int8attn",
         "mlp_quant", "qkv_attention_quant", "causal_attention_quant",
-        "flash_attention_f32", "decode_attn_f32", "block_decode_f32"}
-    for mod in (fenc, fvq, fbq, fattn, fmlp, fdec, fflash):
+        "flash_attention_f32", "decode_attn_f32", "block_decode_f32",
+        "int8_gemm"}
+    for mod in (fenc, fvq, fbq, fattn, fmlp, fdec, fflash, ig):
         src = Path(mod.__file__).read_text()
         cuda_branch = src[src.index("kernels.require"):]
         for word in ("_int_mm", "matmul", "scaled_dot_product", "compile",

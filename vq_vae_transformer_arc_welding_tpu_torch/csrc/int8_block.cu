@@ -9,10 +9,11 @@
 // stops fitting, built from these pieces:
 //   ln_q8_kernel          one warp per row: LayerNorm + quantize;
 //   q8_kernel             quantize, four values a thread;
-//   int8_gemm_kernel      int8 GEMM on the tensor cores (mma.sync
-//                         m16n8k32 s8, exact s32 sums) with one of two
-//                         epilogues: dequant + bias (+ residual) to f32,
-//                         or dequant + bias -> tanh GELU -> q8 to int8;
+//   int8_gemm_sm90_kernel int8 GEMM (int8_gemm_sm90.cuh): wgmma s8 fed
+//                         by TMA, a persistent tile walk, exact s32 sums,
+//                         with one of two epilogues: dequant + bias
+//                         (+ residual) to f32, or dequant + bias -> tanh
+//                         GELU -> q8 to int8, stored by TMA;
 //   attention_kernel      attention_tc.cuh's causal tile on the packed
 //                         qkv: 128 query rows a block (16 a warp) laid
 //                         from the end of T, keys and values
@@ -36,16 +37,17 @@
 // Integer sums run as FP32 FMAs on integer values: every partial sum is
 // an integer below 2^24 (64 * 127^2 for a score, 321 * 127^2 for P@V at
 // T = 321), so it is exact in any order, as the TPU's int32 sums are.
-// What bounds them on an H100: the GEMMs use mma.sync, not yet wgmma
-// with TMA; the f32 attention's scores run on the FP32 cores and its P@V
-// on the tensor cores three times over (split TF32), the int8
-// attention's products on the FP32 cores; the f32 qkv and the int8
-// (rows, 4C) MLP intermediate make a round trip through device memory
-// (158 MB and 52.6 MB at batch 80), the traffic the TPU kernels avoided. The TPU's 8-row padding of T has no
-// counterpart: every kernel masks the ragged edge.
+// What bounds them on an H100: the f32 attention's scores run on the
+// FP32 cores and its P@V on the tensor cores three times over (split
+// TF32), the int8 attention's products on the FP32 cores; the f32 qkv
+// and the int8 (rows, 4C) MLP intermediate make a round trip through
+// device memory (158 MB and 52.6 MB at batch 80), the traffic the TPU
+// kernels avoided. The TPU's 8-row padding of T has no counterpart: every
+// kernel masks the ragged edge.
 #include "int8_block.cuh"
 
 #include "attention_tc.cuh"
+#include "int8_gemm_sm90.cuh"
 
 #include <algorithm>
 
@@ -104,95 +106,6 @@ q8_kernel(const float4* __restrict__ x, const float* __restrict__ qscale,
     const float4 v = x[i];
     out[i] = make_char4(arcweld::q8(v.x, qs), arcweld::q8(v.y, qs),
                         arcweld::q8(v.z, qs), arcweld::q8(v.w, qs));
-  }
-}
-
-constexpr int GB = 64;           // GEMM tile: 64 x 64 outputs
-constexpr int GKW = 16;          // 16 int32 words = 64 int8 of K per stage
-constexpr int GSTRIDE = GKW + 4; // 20 words: fragment loads hit 32 banks
-
-// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), exact s32 sums
-__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4], int b0,
-                                       int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// y[m, n] = float(sum_k a[m, k] * w[n, k]) * cs[n] + cb[n], then
-//   GELU_Q8 = false: out f32 = y (+ resid[m, n]);
-//   GELU_Q8 = true:  out int8 = q8(new_gelu(y), *qscale).
-// a (M, K) and w (N, K) int8, both K-contiguous: the row.col operand
-// layout of mma.m16n8k32, so a fragment register is one 32-bit word of
-// a shared-memory row. Warp w computes the 16 x 32 sub-tile at rows
-// 16*(w/2), columns 32*(w%2) of the block's 64 x 64 tile. Needs K and
-// N multiples of 64.
-template <bool GELU_Q8>
-__global__ void __launch_bounds__(256)
-int8_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
-                 const float* __restrict__ cs, const float* __restrict__ cb,
-                 const float* __restrict__ resid,
-                 const float* __restrict__ qscale, void* __restrict__ out,
-                 int m_rows, int n_cols, int k) {
-  __shared__ __align__(16) int a_s[GB][GSTRIDE];
-  __shared__ __align__(16) int w_s[GB][GSTRIDE];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tg = lane % 4;        // mma group, thread in group
-  const int wm = (warp / 2) * 16, wn = (warp % 2) * 32;
-  const int m0 = blockIdx.y * GB, n0 = blockIdx.x * GB;
-  const int lr = tid / 4, lw = (tid % 4) * 4;   // loader: row, first word
-  int acc[4][4] = {};
-  for (int k0 = 0; k0 < k; k0 += 4 * GKW) {
-    int4 av = make_int4(0, 0, 0, 0);
-    if (m0 + lr < m_rows)
-      av = *reinterpret_cast<const int4*>(a + (size_t)(m0 + lr) * k + k0 +
-                                          4 * lw);
-    const int4 wv = *reinterpret_cast<const int4*>(
-        w + (size_t)(n0 + lr) * k + k0 + 4 * lw);
-    *reinterpret_cast<int4*>(&a_s[lr][lw]) = av;
-    *reinterpret_cast<int4*>(&w_s[lr][lw]) = wv;
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < GKW; ks += 8) {       // two k32 steps
-      const int kw = ks + tg;
-      const int af[4] = {a_s[wm + g][kw], a_s[wm + g + 8][kw],
-                         a_s[wm + g][kw + 4], a_s[wm + g + 8][kw + 4]};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int* wr = w_s[wn + 8 * j + g];
-        mma_s8(acc[j], af, wr[kw], wr[kw + 4]);
-      }
-    }
-    __syncthreads();
-  }
-  const float qs = GELU_Q8 ? *qscale : 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + wn + 8 * j + 2 * tg;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + g + 8 * half;
-      if (m >= m_rows) continue;
-      float y0 = __fadd_rn(__fmul_rn((float)acc[j][2 * half], cs[n]), cb[n]);
-      float y1 = __fadd_rn(__fmul_rn((float)acc[j][2 * half + 1], cs[n + 1]),
-                           cb[n + 1]);
-      const size_t at = (size_t)m * n_cols + n;
-      if constexpr (GELU_Q8) {
-        *reinterpret_cast<char2*>(static_cast<int8_t*>(out) + at) =
-            make_char2(arcweld::q8(arcweld::new_gelu(y0), qs),
-                       arcweld::q8(arcweld::new_gelu(y1), qs));
-      } else {
-        if (resid != nullptr) {
-          const float2 r = *reinterpret_cast<const float2*>(resid + at);
-          y0 = __fadd_rn(r.x, y0);
-          y1 = __fadd_rn(r.y, y1);
-        }
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
-            make_float2(y0, y1);
-      }
-    }
   }
 }
 
@@ -479,22 +392,16 @@ cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
 cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* cs,
                         const float* cb, const float* resid, float* out,
                         int rows, int n_cols, int k, cudaStream_t s) {
-  if (n_cols % GB != 0 || k % GB != 0) return cudaErrorInvalidValue;
-  dim3 grid(n_cols / GB, (rows + GB - 1) / GB);
-  int8_gemm_kernel<false><<<grid, 256, 0, s>>>(a, w, cs, cb, resid, nullptr,
-                                               out, rows, n_cols, k);
-  return cudaGetLastError();
+  return gemm90::launch<false>(a, w, cs, cb, resid, nullptr, out, rows,
+                               n_cols, k, s);
 }
 
 cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                                 const float* cs, const float* cb,
                                 const float* qscale, int8_t* out, int rows,
                                 int n_cols, int k, cudaStream_t s) {
-  if (n_cols % GB != 0 || k % GB != 0) return cudaErrorInvalidValue;
-  dim3 grid(n_cols / GB, (rows + GB - 1) / GB);
-  int8_gemm_kernel<true><<<grid, 256, 0, s>>>(a, w, cs, cb, nullptr, qscale,
-                                              out, rows, n_cols, k);
-  return cudaGetLastError();
+  return gemm90::launch<true>(a, w, cs, cb, nullptr, qscale, out, rows,
+                              n_cols, k, s);
 }
 
 cudaError_t launch_attention(const float* qkv, const float* qscale,

@@ -24,7 +24,9 @@ cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
                       size_t n, cudaStream_t s);
 
 // out[m, n] = float(sum_k a[m, k] w[n, k]) * cs[n] + cb[n] (+ resid[m, n])
-// a (rows, k), w (n_cols, k) int8, k and n_cols multiples of 64; out f32
+// a (rows, k), w (n_cols, k) int8, k and n_cols multiples of 64; out f32.
+// a, w, out and resid 16-byte aligned, cs and cb 8-byte (both GEMMs:
+// int8_gemm_sm90.cuh)
 cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* cs,
                         const float* cb, const float* resid, float* out,
                         int rows, int n_cols, int k, cudaStream_t s);

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "block_quant": [_P] * 17 + [_I] * 5 + [_F, _I, _P],
     # h, w_fc, w_mp, scales, v4c, vmp, h8, g8, out, rows, c, c4, stream
     "mlp_quant": [_P] * 9 + [_I] * 3 + [_P],
+    # a, w, cs, cb, resid, qscale, out, rows, n, k, stream: the int8 GEMM
+    # of #2, #6, #8 and #10 alone (card tests and chip_smoke.py)
+    "int8_gemm": [_P] * 7 + [_I] * 3 + [_P],
     # qkv, y_scale, y8, batch, t, n_head, sm_scale, stream
     "causal_attention_quant": [_P] * 3 + [_I] * 3 + [_F, _P],
     # h, w_qkv, scales, v3c, h8, qkv, y8, batch, t, c, n_head, sm_scale,
