@@ -41,20 +41,27 @@ the f32 attention (#2, #6, #9, #10, #11) counts both of its products in
 split TF32 on the tensor cores, and beside that bound the log gives two
 more: with the scores on the FP32 cores (as the tile computes them) and
 with both products there (as before the tile used the tensor cores).
+The f32 encoder chain (#1, #3) counts its products in split TF32 too,
+as its tile (csrc/encoder_tc.cuh) runs them, and the log gives its
+bound on the FP32 cores beside it; #1 is held within 1e-4 of the plain
+chain's largest magnitude, and its id flips must be near-ties.
 The int8 GEMM that #2, #6, #8 and #10 share (csrc/int8_gemm_sm90.cuh)
 is launched alone at its four shapes in a block (qkv, c_proj, c_fc,
 m_proj; 25,680 rows at batch 80) on block 0's own operands, and must be
 bit-equal to the plain stage and to what #6 wrote at that stage.
 Right after the build, `-Xptxas -v` of the two instantiations of the
-attention tile (csrc/attention_tc.cuh) and of the GEMM's two gives
-their registers and spills, and the GEMM's PTX must hold
-`wgmma.mma_async` and `cp.async.bulk.tensor`. The f32 attention kernels
+attention tile (csrc/attention_tc.cuh), of the GEMM's two and of the
+encoder tile's two (#1, #3) gives their registers and spills (a spill
+fails the run), and the GEMM's PTX must hold `wgmma.mma_async` and
+`cp.async.bulk.tensor`, the encoder chain's its TF32 `wgmma`, the TMA
+copy and `cvt.rna.tf32.f32`. The f32 attention kernels
 and scaled_dot_product_attention on #9's inputs are timed again ten
 calls in a row between two events, so that the host's launch hides
 behind the card's work; at the end, torch.profiler traces give their
 device time per call (with each kernel's launches, so that a lost event
-shows), the f32 attention's and the int8 GEMM's device time per call of
-the 'attn' and 'full' pipelines, and the GEMM's device time per launch
+shows), the f32 attention's, the int8 GEMM's and the encoder chain's
+(#1) device time per call of the 'attn' and 'full' pipelines, #1's and
+#3's device time per launch at 25,600 rows, and the GEMM's device time per launch
 at each shape beside its bound and beside torch._int_mm on the same
 operands (s32 out, no epilogue).
 
@@ -104,6 +111,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -127,7 +135,8 @@ MAX_INT8_STEP = 1           # int8 outputs: largest |delta|
 MAX_F32_ERR = 1e-3          # f32 outputs (x_mid, block and MLP out)
 LABEL_MARGIN = 1e-3         # labels compared where |logit0 - logit1| > this
 MIN_DISTINCT_FRAC = 0.25    # codebook scaled if fewer of K codes are used
-TILE_ROWS = 32              # rows per block of the encoder kernels' tile
+TILE_ROWS = 64              # rows a tile of #1 and #3 (csrc/encoder_tc.cuh)
+MAX_CHAIN_REL = 1e-4        # #1, #3 against plain, of the output's magnitude
 SAMPLE_BATCH = 16           # streams per generation (scripts/bench_decode.py)
 SAMPLE_STEPS = 320          # KV-cached steps from one start token
 DECODE_POSITIONS = (0, 127, 128, 320)   # the decode kernels are held here
@@ -225,6 +234,8 @@ PEAK_BYTES = 3.35e12
 # (hi*hi + hi*lo + lo*hi, csrc/attention_tc.cuh)
 TF32_SPLIT = 3
 F32_ATTENTION = (FLASH, ATTN, FULL, QKV, CAUSAL)
+# the f32 encoder kernels on the split-TF32 tile (csrc/encoder_tc.cuh)
+F32_ENCODER = (ENC, RES)
 
 
 def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
@@ -243,7 +254,9 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     (F32_ATTENTION) has two products of equal size over its causal
     scores, Q K^T and P@V: each counts TF32_SPLIT times as TF32, but the
     first `fp32_products` of them (0, 1 or 2) once as FP32 on the CUDA
-    cores."""
+    cores. The f32 encoder chain (F32_ENCODER) counts its products
+    TF32_SPLIT times as TF32, or once as FP32 with fp32_products=2; the
+    encoder's two ends (#4, #5) run on the FP32 cores."""
     f4 = 4
     x = n_rows * c * f4                         # the encoder's residual stream
     block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
@@ -254,6 +267,10 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     f32_attn = {kind: n for kind, n in (
         ("f32", fp32_products * (attn // 2)),
         ("tf32", (2 - fp32_products) * TF32_SPLIT * (attn // 2))) if n}
+
+    def f32_enc(ops):
+        return ({"f32": ops} if fp32_products == 2
+                else {"tf32": TF32_SPLIT * ops})
     qkv, proj, mlp = (2 * m * c * 3 * c, 2 * m * c * c, 2 * 2 * m * c * 4 * c)
     w_attn, w_mlp = 4 * c * c, 8 * c * c        # int8 weights
     # a decode step: f32 weights with their biases and LayerNorm rows,
@@ -275,10 +292,10 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         DEC_ATTN: (dec_attn_w + dec_io, {"f32": dec_attn_ops}),
         DEC_BLOCK: (dec_attn_w + dec_mlp_w + dec_io,
                     {"f32": dec_attn_ops + dec_b * 2 * w_mlp}),
-        ENC: (2 * x + grp * block_w, {"f32": grp * block_ops}),
+        ENC: (2 * x + grp * block_w, f32_enc(grp * block_ops)),
         ENC_BF16: (2 * x + n_res * (2 * c * c * 2 + 10 * c * f4),
                    {"bf16": n_res * block_ops}),
-        RES: (2 * x + block_w, {"f32": block_ops}),
+        RES: (2 * x + block_w, f32_enc(block_ops)),
         ENTRY: (n_rows * patch * f4 + (patch + 1) * c * f4 + x
                 + grp * block_w,
                 {"f32": n_rows * 2 * patch * c + grp * block_ops}),
@@ -391,43 +408,63 @@ def device_profile(fn):
              for e in dev])
 
 
-# the sources that instantiate csrc/attention_tc.cuh and the int8 GEMM
-# (csrc/int8_gemm_sm90.cuh), and the kernels ptxas reports on
-PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu")
-PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel")
-# the GEMM's PTX must hold Hopper's tensor-core product and TMA copies
-GEMM_PTX = ("wgmma.mma_async", "cp.async.bulk.tensor")
+# the sources that instantiate csrc/attention_tc.cuh, the int8 GEMM
+# (csrc/int8_gemm_sm90.cuh) and the encoder tile (csrc/encoder_tc.cuh),
+# and the kernels ptxas reports on
+PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu", "encoder_chain.cu",
+                 "encoder_resblock.cu")
+PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel",
+                 "encoder_chain_kernel", "resblock_kernel")
+# what each source's PTX must hold: Hopper's tensor-core product (in
+# TF32, with A split by cvt.rna, for the encoder) and TMA copies
+PTX_OPS = {
+    "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
+    "encoder_chain.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
+                         "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
+}
 
 
 def ptxas_start() -> list:
-    """nvcc -Xptxas -v on PTXAS_SOURCES, and nvcc -ptx on int8_block.cu,
-    started beside the library's build: [(source, process)], the PTX
-    last."""
+    """nvcc -Xptxas -v on PTXAS_SOURCES, and nvcc -ptx on the sources of
+    PTX_OPS, started beside the library's build: [(source, process)]."""
     from vq_vae_transformer_arc_welding_tpu_torch import kernels
     out = kernels.BUILD_DIR / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     cmds = [(src, [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
                    "-c", "-o", str(out / f"{src}.o"),
                    str(kernels.SRC_DIR / src)]) for src in PTXAS_SOURCES]
-    cmds.append(("int8_block.ptx", [
+    cmds += [(f"{src}.ptx", [
         kernels.nvcc(), *kernels.NVCC_FLAGS, "-ptx", "-o",
-        str(out / "int8_block.ptx"), str(kernels.SRC_DIR / "int8_block.cu")]))
+        str(out / f"{src}.ptx"), str(kernels.SRC_DIR / src)])
+        for src in PTX_OPS]
     return [(src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True))
             for src, cmd in cmds]
 
 
 def ptxas_report(procs: list) -> None:
-    """Log what ptxas says of the attention tiles and the int8 GEMM
-    (registers, stack and spills), and count the GEMM's wgmma and TMA
-    instructions in int8_block.cu's PTX."""
+    """Log what ptxas says of the attention tiles, the int8 GEMM and the
+    encoder tile (registers, stack and spills, and any warning of
+    serialized wgmma), fail on a spill, and count the tensor-core and
+    TMA instructions in the PTX of PTX_OPS."""
     from vq_vae_transformer_arc_welding_tpu_torch import kernels
-    *objs, (_, ptx) = procs
-    for src, proc in objs:
+    for src, proc in procs:
         text, _ = proc.communicate()
+        if src.endswith(".ptx"):
+            name = src[:-len(".ptx")]
+            check(proc.returncode == 0, f"nvcc -ptx {name}: {text[-2000:]}")
+            body = (kernels.BUILD_DIR / "ptxas" / src).read_text()
+            found = {op: body.count(op) for op in PTX_OPS[name]}
+            check(all(found.values()), f"{name}'s PTX lacks one of "
+                                       f"{PTX_OPS[name]}: {found}")
+            log(f"{name} PTX: " + ", ".join(
+                f"{op} x {n}" for op, n in found.items()))
+            continue
         check(proc.returncode == 0, f"nvcc -Xptxas -v {src}: {text[-2000:]}")
         kernel, said = None, {}
         for line in text.splitlines():
+            if "wgmma" in line and "arning" in line:
+                log(f"ptxas {src}: {line.strip()}")
             if "Compiling entry function" in line:
                 kernel = next((line.split("'")[1] for name in PTXAS_KERNELS
                                if name in line), None)
@@ -437,14 +474,9 @@ def ptxas_report(procs: list) -> None:
         check(bool(said), f"nvcc -Xptxas -v {src}: none of {PTXAS_KERNELS}")
         for kernel, lines in said.items():
             log(f"ptxas {src} {kernel}: " + "; ".join(lines))
-    text, _ = ptx.communicate()
-    check(ptx.returncode == 0, f"nvcc -ptx int8_block.cu: {text[-2000:]}")
-    body = (kernels.BUILD_DIR / "ptxas" / "int8_block.ptx").read_text()
-    found = {op: body.count(op) for op in GEMM_PTX}
-    check(all(found.values()), f"int8_block.cu's PTX lacks one of "
-                               f"{GEMM_PTX}: {found}")
-    log("int8_block.cu PTX: " + ", ".join(
-        f"{op} x {n}" for op, n in found.items()))
+            spills = [int(n) for line in lines
+                      for n in re.findall(r"(\d+) bytes spill", line)]
+            check(not any(spills), f"ptxas {src} {kernel} spills")
 
 
 def fmt_ms(t: tuple) -> str:
@@ -457,6 +489,12 @@ def on_plain_path(fn):
         with plain_path():
             return fn()
     return run
+
+
+def without_split(plain):
+    """plain, taking and ignoring the f32 encoder wrappers' `split`
+    operand (the split-TF32 weights only their kernels read)."""
+    return lambda *a, split=None, **k: plain(*a, **k)
 
 
 @contextlib.contextmanager
@@ -475,8 +513,9 @@ def plain_path():
                 (fdec, "fused_block_decode",
                  fdec.fused_block_decode_reference),
                 (fenc, "fused_encoder_eval",
-                 fenc.fused_encoder_eval_reference),
-                (fenc, "resblock_eval", fenc.fused_resblock_eval_reference),
+                 without_split(fenc.fused_encoder_eval_reference)),
+                (fenc, "resblock_eval",
+                 without_split(fenc.fused_resblock_eval_reference)),
                 (fenc, "fused_encoder_entry_eval",
                  fenc.fused_encoder_entry_eval_reference),
                 (fenc, "fused_encoder_exit_eval",
@@ -1000,8 +1039,9 @@ def pipeline_trace(fns: dict, x) -> None:
     """Where a batch's device time goes on 'attn' and 'full', from
     torch.profiler over three calls: device time per call, and the parts
     of it of the f32 attention (attention_kernel: attention_tc.cuh's
-    tile with the int8 epilogue) and of the int8 GEMM
-    (int8_gemm_sm90_kernel, both epilogues)."""
+    tile with the int8 epilogue), of the int8 GEMM
+    (int8_gemm_sm90_kernel, both epilogues) and of the f32 encoder
+    chain (encoder_chain_kernel, #1), each also per launch."""
     calls = 3
     for name in ("attn", "full"):
         fn = fns[name]
@@ -1016,11 +1056,14 @@ def pipeline_trace(fns: dict, x) -> None:
                 ("the f32 attention (attention_kernel)",
                  lambda key: key.startswith("attention_kernel(")),
                 ("the int8 GEMM (int8_gemm_sm90_kernel)",
-                 lambda key: "int8_gemm" in key)):
+                 lambda key: "int8_gemm" in key),
+                ("the f32 encoder chain (encoder_chain_kernel)",
+                 lambda key: key.startswith("encoder_chain_kernel("))):
             got = [(cnt, ms) for key, cnt, ms in names if pick(key)]
             n, ms = (sum(v) for v in zip(*got)) if got else (0, 0.0)
             parts.append(f"{what} x {n / calls:.1f} a call, "
-                         f"{ms / calls:.4f} ms a call ({ms / busy:.1%})")
+                         f"{ms / calls:.4f} ms a call ({ms / busy:.1%})"
+                         + (f", {ms / n:.4f} ms a launch" if n else ""))
         log(f"device trace of make_pipeline_quantized({name}) batch {len(x)}, "
             f"{calls} calls: {n_ops / calls:.1f} device operations and "
             f"{busy / calls:.4f} ms of device time per call; "
@@ -1231,7 +1274,8 @@ def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
             for s0 in range(0, nb, grp):
                 y = fenc.fused_encoder_eval(
                     y, weights[2 * s0:2 * (s0 + grp)],
-                    vecs[10 * s0:10 * (s0 + grp)], use_bn=False)
+                    vecs[10 * s0:10 * (s0 + grp)], use_bn=False,
+                    split=packed.split[2 * s0:2 * (s0 + grp)])
             return y
 
         tm = timed_in_turns({
@@ -1814,7 +1858,8 @@ def main() -> int:
         h = vq.patch_embed_out(x80.reshape(-1, CYCLE_LEN, 2))
         b_, p_, c_ = h.shape
         flat = h.reshape(b_ * p_, c_).contiguous()
-        weights, vecs = fenc.pack_encoder(vq)
+        weights, vecs = packed
+        split = packed.split          # #1's and #3's operand, made once
         nb, grp = vq.n_resblocks, fenc.group_size_for(vq.hidden_dim)
         gen = torch.Generator().manual_seed(SEED)
         bn = vecs.clone().view(nb, 2, 5, c_)
@@ -1823,35 +1868,46 @@ def main() -> int:
         bn[:, :, 3] = (torch.rand(nb, 2, c_, generator=gen) + 0.5).to(dev)
         bn[:, :, 4] = (torch.randn(nb, 2, c_, generator=gen) * 0.1).to(dev)
         bn_vecs = bn.reshape(10 * nb, c_).contiguous()
-        k1_err = None
+        k1_err, k1_flip = None, 0.0
         for use_bn, v in ((False, vecs), (True, bn_vecs)):
-            def chain(fn):
+            def chain(kernel):
                 y = flat
                 for s0 in range(0, nb, grp):
                     s1 = min(s0 + grp, nb)
-                    y = fn(y, weights[2 * s0:2 * s1], v[10 * s0:10 * s1],
-                           use_bn=use_bn)
+                    args = (y, weights[2 * s0:2 * s1], v[10 * s0:10 * s1])
+                    y = (fenc.fused_encoder_eval(
+                        *args, use_bn=use_bn, split=split[2 * s0:2 * s1])
+                        if kernel else fenc.fused_encoder_eval_reference(
+                            *args, use_bn=use_bn))
                 return y
-            yk = chain(fenc.fused_encoder_eval)
-            yp = chain(fenc.fused_encoder_eval_reference)
+            yk, yp = chain(True), chain(False)
             err = float((yk - yp).abs().max())
             rel = err / float(yp.abs().max())
+            z_p = vq.sep_conv(yp.reshape(b_, p_, c_)).reshape(b_ * p_, -1)
             ids_k = vq.nearest(vq.sep_conv(yk.reshape(b_, p_, c_)))
-            ids_p = vq.nearest(vq.sep_conv(yp.reshape(b_, p_, c_)))
-            flip = float((ids_k != ids_p).float().mean())
+            ids_p = vq.nearest(z_p.reshape(b_, p_, -1))
+            flip = flip_rate(ids_k, ids_p)
+            gap = worst_flip_gap(z_p, vq.codebook, ids_k.reshape(-1),
+                                 ids_p.reshape(-1))
             log(f"kernel {ENC} use_bn={use_bn}: {b_ * p_} rows x "
                 f"{nb} resblocks, max abs err {err:.3e}, max rel err "
-                f"{rel:.3e}, id flips {flip:.3e} "
+                f"{rel:.3e} (bound {MAX_CHAIN_REL}), id flips {flip:.3e} "
                 f"({int((ids_k != ids_p).sum())} of {ids_k.numel()}; "
-                f"bound {MAX_ID_FLIP})")
+                f"bound {MAX_ID_FLIP}), each a near-tie within {gap:.3e} "
+                f"of |z|^2 (bound {MAX_FLIP_GAP})")
             check(bool(torch.isfinite(yk).all()), "kernel 1: non-finite")
+            check(rel <= MAX_CHAIN_REL, f"kernel 1: max rel err {rel}")
             check(flip <= MAX_ID_FLIP, f"kernel 1 id flip rate {flip}")
+            check(gap <= MAX_FLIP_GAP,
+                  f"kernel 1: a flipped id is no near-tie: its distance "
+                  f"differs by {gap} of |z|^2")
+            k1_flip = max(k1_flip, flip)
             if not use_bn:
                 k1_err = err
-        w0, v0 = weights[:2 * grp], vecs[:10 * grp]
+        w0, v0, sp0 = weights[:2 * grp], vecs[:10 * grp], split[:2 * grp]
         times = {ENC: timed_in_turns({
             "kernel": lambda: fenc.fused_encoder_eval(flat, w0, v0,
-                                                      use_bn=False),
+                                                      use_bn=False, split=sp0),
             "plain": lambda: fenc.fused_encoder_eval_reference(
                 flat, w0, v0, use_bn=False)})}
         log(f"kernel {ENC} time ({b_ * p_} x {c_}, {grp} resblocks per "
@@ -1868,14 +1924,14 @@ def main() -> int:
         w_pe, b_pe, w_sep, b_sep = edges
         last = (nb - 1) // grp * grp
         enc_err = {ENC: k1_err, RES: 0.0, ENTRY: 0.0, EXIT: 0.0, NEAREST: 0.0}
-        id_flips = {EXIT: 0.0, NEAREST: 0.0}
+        id_flips = {ENC: k1_flip, EXIT: 0.0, NEAREST: 0.0}
         # the bench model's own operands (no BatchNorm) last: the timings
         # below reuse that pass's activations
         for use_bn, v in ((True, bn_vecs), (False, vecs)):
             first = (weights[:2 * grp], v[:10 * grp])
             final = (weights[2 * last:], v[10 * last:])
             rk = fenc.resblock_eval(flat, weights[0], weights[1], v[:10],
-                                    use_bn=use_bn)
+                                    use_bn=use_bn, split=split[:2])
             rp = fenc.fused_resblock_eval_reference(
                 flat, weights[0], weights[1], v[:10], use_bn=use_bn)
             ek = fenc.fused_encoder_entry_eval(patches, w_pe, b_pe, *first,
@@ -1901,6 +1957,10 @@ def main() -> int:
                 check(bool(torch.isfinite(yk).all()) and yk.shape == yp.shape,
                       f"kernel {name}: output")
                 check(err <= MAX_F32_ERR, f"kernel {name}: f32 error {err}")
+                if name == RES:
+                    check(err <= MAX_CHAIN_REL * float(yp.abs().max()),
+                          f"kernel {RES}: max abs err {err} of "
+                          f"{float(yp.abs().max())}")
                 enc_err[name] = max(enc_err[name], err)
                 log(f"kernel {name} use_bn={use_bn}: {n_rows} rows, max abs "
                     f"err {err:.3e} of {float(yp.abs().max()):.3e} (bound "
@@ -1931,7 +1991,9 @@ def main() -> int:
         first = (weights[:2 * grp], vecs[:10 * grp])
         final = (weights[2 * last:], vecs[10 * last:])
         for name, args, kfn, pfn in (
-                (RES, (flat, weights[0], weights[1], v0), fenc.resblock_eval,
+                (RES, (flat, weights[0], weights[1], v0),
+                 lambda *a, use_bn: fenc.resblock_eval(*a, use_bn=use_bn,
+                                                       split=split[:2]),
                  fenc.fused_resblock_eval_reference),
                 (ENTRY, (patches, w_pe, b_pe, *first),
                  fenc.fused_encoder_entry_eval,
@@ -1950,32 +2012,38 @@ def main() -> int:
                 f"{fmt_ms(times[name]['kernel'])}, plain "
                 f"{fmt_ms(times[name]['plain'])}")
 
-        # -- 6c. how the tile fills the card, and what #5 adds to #1 ---------
-        # one block per SM: rows beyond the last whole wave of blocks cost
-        # a wave of their own; #5 over #1 at 1 and at `grp` resblocks
-        # shows whether its epilogue slows the chain before it
+        # -- 6c. how the tile fills the card, and #5 beside #1 ---------------
+        # #1's persistent walk: the rows of each request, and the rows of
+        # the whole rounds of tiles (TILE_ROWS x SMs) below them, so that
+        # the last round's cost shows; #5 (the FP32 tile) at 1 and at
+        # `grp` resblocks
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        whole = n_rows // (TILE_ROWS * sms) * TILE_ROWS * sms
+        per_window = n_rows // len(reqs[0])
+        rounds = TILE_ROWS * sms
+        fill_rows = sorted({m for n in REQUESTS for m in (
+            n * per_window, max(n * per_window // rounds * rounds, 1))},
+            reverse=True)
         ends = (w_sep, b_sep, vq.codebook)
         fill = timed_in_turns({
-            f"#1 x{grp} {n_rows} rows": lambda: fenc.fused_encoder_eval(
-                flat, *first, use_bn=False),
-            f"#1 x{grp} {whole} rows": lambda: fenc.fused_encoder_eval(
-                flat[:whole], *first, use_bn=False),
+            **{f"#1 x{grp} {m} rows ({-(-m // TILE_ROWS)} tiles)":
+               (lambda m=m: fenc.fused_encoder_eval(
+                   flat[:m], *first, use_bn=False, split=sp0))
+               for m in fill_rows},
             f"#5 x{grp} {n_rows} rows": lambda: fenc.fused_encoder_exit_eval(
                 flat, *first, *ends, use_bn=False),
             f"#1 x1 {n_rows} rows": lambda: fenc.fused_encoder_eval(
-                flat, weights[:2], vecs[:10], use_bn=False),
+                flat, weights[:2], vecs[:10], use_bn=False, split=split[:2]),
             f"#5 x1 {n_rows} rows": lambda: fenc.fused_encoder_exit_eval(
                 flat, weights[:2], vecs[:10], *ends, use_bn=False)})
-        log(f"tile fill ({sms} SMs, {TILE_ROWS} rows a block, {whole} rows "
-            f"fill whole waves): "
-            + "; ".join(f"{name} {fmt_ms(t)}" for name, t in fill.items()))
+        log(f"tile fill ({sms} SMs, {TILE_ROWS} rows a tile, a round of "
+            f"tiles {rounds} rows): "
+            + "; ".join(f"{name} {fmt_ms(t)}" for name, t in fill.items())
+            + f"; gpu {smi}")
 
         # -- 7. the int8 kernels against their plain versions at B=80 -------
         # each block fed the plain stream of the block before, on the
         # bench model's activations for request 0
-        ids = fenc.encode_indices_fused(vq, (weights, vecs),
+        ids = fenc.encode_indices_fused(vq, packed,
                                         x80.reshape(-1, CYCLE_LEN, 2))
         ids = with_start_token(ids.reshape(len(reqs[0]), -1),
                                pipe.start_token)
@@ -2215,6 +2283,25 @@ def main() -> int:
                + "; ".join(f"{key[:50]} x {n:.1f}, {each:.4f} ms each"
                            for key, n, each in kernels_of))
             + f"; gpu {smi}")
+    # #1 at the default group and #3 on block 0, at 25,600 rows
+    with torch.inference_mode():
+        traced = kernel_trace({
+            ENC: lambda: fenc.fused_encoder_eval(
+                flat, weights[:2 * grp], vecs[:10 * grp], use_bn=False,
+                split=split[:2 * grp]),
+            RES: lambda: fenc.resblock_eval(
+                flat, weights[0], weights[1], vecs[:10], use_bn=False,
+                split=split[:2])})
+    for name, (ms, n_ops, kernels_of) in traced.items():
+        if ms is not None:
+            device_ms[name] = ms
+        log(f"device trace of {name} ({n_rows} x {c_}, "
+            f"{grp if name == ENC else 1} resblocks a launch), 10 calls: "
+            + ("not measured" if ms is None else
+               f"{ms:.4f} ms and {n_ops:.1f} device operations a call: "
+               + "; ".join(f"{key[:50]} x {n:.1f}, {each:.4f} ms each"
+                           for key, n, each in kernels_of))
+            + f"; gpu {smi}")
     times.update(sampling["times"])
     times.update(bf16["times"])
     enc_err.update({name: e for name, e in sampling["err"].items()
@@ -2266,6 +2353,9 @@ def main() -> int:
                     ("; the attention's scores on the FP32 cores",
                      bound_of(scores_fp32[name])),
                     ("both its products there", bound_of(both_fp32[name]))))
+        elif name in F32_ENCODER:
+            fp32 = ("; its products on the FP32 cores {:.4f} ms by {}"
+                    .format(*bound_of(both_fp32[name])))
         log(f"kernel {name}: {entry['ms']:.4f} ms, bound "
             f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
             f"({entry['bound_ms'] / entry['ms']:.1%} of the time taken)"

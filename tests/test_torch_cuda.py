@@ -7,7 +7,8 @@ runs there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: kernels 1, 3 and 4 keep the f32 residual stream within 1e-4
-of its magnitude (the two sum 512-term dot products in other orders);
+of its magnitude (the two sum 512-term dot products in other orders;
+#1 and #3 in split TF32 on the tensor cores, 2^-21 of a product);
 kernels 5 and 7 may move at most 0.1% of their ids (an ulp of
 difference moves an argmin only at a near-tie; 0 expected); the int8
 kernels (#2 in both attention variants, #6, #8, #10, #11) may move at
@@ -69,7 +70,7 @@ def test_encoder_kernel_matches_plain(dev, use_bn):
     c = 512
     w, v = (a.to(dev) for a in _encoder_operands(c, 4, use_bn))
     x = torch.randn(1000, c, generator=torch.Generator().manual_seed(1))
-    x = x.to(dev)           # 1000 rows: a ragged last tile of 32
+    x = x.to(dev)           # 1000 rows: a ragged last tile of 40 in 64
     before = kernels.launches["encoder_chain_f32"]
     out = fenc.fused_encoder_eval(x, w, v, use_bn=use_bn)
     ref = fenc.fused_encoder_eval_reference(x, w, v, use_bn=use_bn)
@@ -174,6 +175,78 @@ def test_resblock_kernel_matches_plain(dev, n, use_bn):
     same = fenc.fused_resblock_eval(x, w[0], vt[0], vt[1:5], w[1], vt[5],
                                     vt[6:10], use_bn=use_bn)
     assert torch.equal(same, out)
+
+
+# the 1-window request, a ragged last tile, the 37-window request (185
+# tiles: a second round of 53 on 132 SMs)
+SPLIT_ROWS = [320, 1000, 11840]
+
+
+@pytest.mark.parametrize("use_bn", [False, True])
+@pytest.mark.parametrize("n", SPLIT_ROWS)
+def test_split_tf32_tile_ragged_tails(dev, n, use_bn):
+    """#1 (a group of four) and #3 at the requests' row counts, with the
+    split pack made once: within 1e-4 of the plain version's largest
+    magnitude; a bare f32 pack, split by the wrapper per call, gives the
+    same bits."""
+    c = 512
+    w, v = (a.to(dev) for a in _encoder_operands(c, 4, use_bn))
+    x = torch.randn(n, c, generator=torch.Generator().manual_seed(5)).to(dev)
+    split = fenc.split_weights(w)
+    out = _launched("encoder_chain_f32", lambda: fenc.fused_encoder_eval(
+        x, w, v, use_bn=use_bn, split=split))
+    ref = fenc.fused_encoder_eval_reference(x, w, v, use_bn=use_bn)
+    assert out.shape == (n, c) and torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(fenc.fused_encoder_eval(x, w, v, use_bn=use_bn), out)
+    one = _launched("resblock_f32", lambda: fenc.resblock_eval(
+        x, w[0], w[1], v[:10], use_bn=use_bn, split=split[:2]))
+    ref1 = fenc.fused_resblock_eval_reference(x, w[0], w[1], v[:10],
+                                              use_bn=use_bn)
+    assert one.shape == (n, c) and torch.isfinite(one).all()
+    assert (one - ref1).abs().max() <= 1e-4 * ref1.abs().max()
+    assert torch.equal(fenc.resblock_eval(x, w[0], w[1], v[:10],
+                                          use_bn=use_bn), one)
+
+
+def test_split_pack_on_the_card(dev):
+    """pack_encoder on the card carries the split of its weights: per
+    matrix hi and lo in (out, in) layout, hi with 13 low mantissa bits
+    zero, hi + lo within 2^-21 of w; the encoder paths hand its views to
+    the kernels, which read nothing else of the weights (a split of the
+    wrong shape is refused before a launch)."""
+    vq, _ = entry.build(seed=0)
+    weights, vecs = packed = fenc.pack_encoder(vq)
+    split = packed.split
+    m = weights.shape[0]
+    assert split.shape == (m, 2 * 512 * 512)
+    assert torch.equal(split, fenc.split_weights(weights))
+    # [k // 8][hi, lo][out // 8][k % 8 // 4][out % 8][k % 4] per matrix
+    parts = split.reshape(m, 64, 2, 64, 2, 8, 4).permute(
+        0, 2, 3, 5, 1, 4, 6).reshape(m, 2, 512, 512)
+    hi, lo = parts[:, 0], parts[:, 1]
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    wt = weights.transpose(1, 2)
+    assert ((hi + lo - wt).abs() <= 2.0 ** -21 * wt.abs()).all()
+    x = torch.randn(64, 512, device=dev)
+    before = dict(kernels.launches)
+    for bad in (torch.cat([split[:2]] * 2, 1)[:, ::2], split[:2, :-1],
+                split[:2].double()):
+        with pytest.raises(ValueError):
+            fenc.fused_encoder_eval(x, weights[:2], vecs[:10], use_bn=False,
+                                    split=bad)
+        with pytest.raises(ValueError):
+            fenc.resblock_eval(x, weights[0], weights[1], vecs[:10],
+                               use_bn=False, split=bad)
+    assert kernels.launches == before
+    cycles = torch.randn(4, 200, 2, generator=torch.Generator().manual_seed(6))
+    with torch.inference_mode():
+        ids = fenc.encode_indices_fused(vq, packed, cycles.to(dev))
+        ids1 = fenc.encode_indices_fused(vq, packed, cycles.to(dev),
+                                         group_size=1)
+        exact = vq.encode_indices(cycles.to(dev))
+    assert (ids != exact).float().mean() <= 1e-3
+    assert (ids1 != exact).float().mean() <= 1e-3
 
 
 @pytest.mark.parametrize("use_bn", [False, True])

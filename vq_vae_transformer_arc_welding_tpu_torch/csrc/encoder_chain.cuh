@@ -1,13 +1,17 @@
-// The eval-mode VQ-VAE encoder resblock on a row tile: the device code
-// that the encoder kernels share (encoder_chain.cu, encoder_resblock.cu,
-// encoder_edges.cu).
+// The eval-mode VQ-VAE encoder resblock on a row tile, on the FP32 CUDA
+// cores: the device code of the encoder's two ends, #4 and #5
+// (encoder_edges.cu). #1 and #3 (encoder_chain.cu, encoder_resblock.cu)
+// run the resblock on the tensor cores instead (encoder_tc.cuh); the
+// ends are written around this tile's register patch xr (embed_rows
+// writes it, the exit's epilogue reads it and reuses the A tile for the
+// codebook), and move onto the new tile in later work.
 //
 // Per resblock and row:
 //   h = gelu(x) @ W1 + b1 [-> eval BN] -> gelu -> @ W2 + b2 [-> eval BN]
 //   x = x + h
-// all in f32, no TF32: the codebook ids downstream must stay
-// comparable with the exact reference, so the products are plain FP32
-// FMAs on the CUDA cores.
+// all in f32 as plain FP32 FMAs on the CUDA cores, no TF32: the
+// codebook ids downstream must stay comparable with the exact
+// reference.
 //
 // What bounds it on an H100: FP32 FMA rate. At hidden 512 every
 // resblock is 2 x 512 x 512 FMAs per row, about 1 MFMA, against 4 KB
@@ -24,9 +28,6 @@
 // the current one is consumed. The bias, optional BN and the residual
 // add run in the epilogue on the registers. The TPU kernels' 8-row
 // padding has no counterpart: rows past N are masked.
-//
-// Not yet done (later work): tensor cores would need TF32 or bf16 and
-// so break the exact-id contract; 3xTF32 splitting is the candidate.
 #pragma once
 
 #include "common.cuh"

@@ -1,0 +1,560 @@
+// The eval-mode VQ-VAE encoder resblock on Hopper's tensor cores: the
+// tile of encoder_chain_f32 (#1, encoder_chain.cu) and resblock_f32 (#3,
+// encoder_resblock.cu). They replace
+// vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py::
+// fused_encoder_eval (pallas_call at :311) and fused_resblock_eval
+// (:106). Per resblock and row, in f32:
+//   h = gelu(x) @ W1 + b1 [-> eval BN] -> gelu -> @ W2 + b2 [-> eval BN]
+//   x = x + h
+// with exact-erf GELU (erff) and BN in the reference's rounding order
+// (common.cuh), n resblocks a launch (#1: the JAX group rule, 4 at
+// hidden 512; #3: one).
+//
+// Arithmetic: split TF32. Every product input v is cut into
+// hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi), and each 8-wide
+// k step adds A_lo W_hi + A_hi W_lo + A_hi W_hi (in that order) to the
+// f32 accumulators, as CUTLASS's 3xTF32 (OpMultiplyAddFastF32) does: the
+// dropped lo*lo term is ~2^-22 of a product, so the sums keep f32
+// accuracy where TF32 alone keeps ~2^-11 and would move codebook ids.
+// W's hi and lo are made once, where the weights are packed
+// (ops/fused_encoder.py::split_weights), in (out, in) layout, the
+// K-major operand TF32 wgmma reads from shared memory, and laid out in
+// global memory as the ring's stages: per matrix and k step, hi then lo
+// of all C outputs, each in wgmma's no-swizzle K-major layout (8-row x
+// 16-byte core matrices of 128 contiguous bytes; the two k halves of an
+// 8-row group 128 bytes apart (LBO), 8-row groups 256 bytes apart
+// (SBO)), so that a stage is 32 contiguous KB and one TMA box of 128-byte
+// rows. A is gelu(x) or gelu(BN(c1)), made in the kernel, kept once in
+// shared memory as f32 and split as it is loaded into wgmma's register
+// fragments.
+//
+// What bounds it on an H100: the products. At hidden 512 a resblock is
+// 2 x 512 x 512 multiply-adds a row, three TF32 products each: 107 GFLOP
+// of TF32 for #1 at 25,600 rows, 0.65 ms at 495 TFLOP/s, against 53 MB
+// of rows in and out (0.016 ms). A 64-row tile reads each W's hi and lo
+// (2 MB a product) once: 6.4 GB of L2 reads a launch of #1 at 25,600
+// rows, which L2 delivers at the tensor cores' pace. Beside the
+// products: the two epilogue passes (exact-erf GELU on every element,
+// twice a resblock), which no product overlaps, and the last round of
+// tiles (below).
+//
+// Design, and the budget of one block (one per SM, 227 KB of shared
+// memory, 65,536 registers):
+//  - a tile is BM = 64 rows (wgmma's M) with all C = 512 columns, for
+//    the whole chain: each product needs every column of the row. Its
+//    A operand, 64 x 512 f32, is 128 KB of shared memory, swizzled
+//    (16-byte chunks XOR row % 8) so that fragment loads and the
+//    passes over the tile are free of bank conflicts;
+//  - W comes by TMA (cp.async.bulk.tensor.2d, one 256 x 128-byte box a
+//    stage) into a ring of STAGES = 3 stages of one k step (8 of K) over
+//    all 512 outputs, hi and lo: 32 KB a stage, 96 KB the ring; 224 KB
+//    with A, which leaves no room for the residual stream. (Boxes of 32-
+//    byte rows straight from an (out, in) matrix, 1,024 rows a stage,
+//    were slower: TMA fetches a box row by row);
+//  - one producer thread issues the loads, completion on mbarriers; two
+//    consumer warpgroups each own half the outputs (m64n256k8: 128 f32
+//    accumulators a thread; 64 x 512 in one warpgroup would take 256)
+//    and both read all of A; setmaxnreg gives them 232 registers and
+//    the producer 40;
+//  - the epilogues: each warpgroup stashes its accumulators in the A
+//    tile (which the product has finished reading), and all consumers
+//    then make one coalesced pass over the tile: bias [-> BN] -> GELU
+//    in place for the first product; for the second, bias [-> BN],
+//    the residual add into the output and GELU into A for the next
+//    resblock. BN is compiled in only for a model that has it;
+//  - the residual stream x stays in the output buffer, which only this
+//    block touches for its rows: epilogue 2 reads x there (from the
+//    input on the first resblock), adds h and writes it back. That is
+//    2 x 128 KB of L2 traffic a tile and resblock, ~0.08 ms a launch of
+//    #1 at 25,600 rows; the FP32-core tile's registers held it, at 8
+//    rows a thread;
+//  - a persistent walk: min(tiles, SMs) blocks take the tiles
+//    blockIdx.x, + gridDim.x, ...; the producer runs on into the next
+//    tile's W while the consumers finish a tile. The last round holds
+//    tiles % SMs tiles: at 25,600 rows 400 tiles on 132 SMs are 3.03
+//    rounds' work in 4, so the 4 tiles of the fourth round cost as much
+//    as a full round. A 64-row tile cannot be cut (wgmma's M), and
+//    cutting its outputs across blocks needs the other blocks' columns
+//    before each product (a cluster exchanging the A tile through
+//    distributed shared memory): left to later work;
+//  - rows past N are zeros in A and are neither read nor written.
+#pragma once
+
+#include "int8_gemm_sm90.cuh"  // gemm90:: mbarrier, TMA and tensor-map helpers
+
+namespace arcweld {
+namespace enc_tc {
+
+using gemm90::mbar_arrive;
+using gemm90::mbar_expect_tx;
+using gemm90::mbar_init;
+using gemm90::mbar_wait;
+using gemm90::named_sync;
+using gemm90::smem_u32;
+using gemm90::tma_load;
+
+constexpr int C = 512;                 // hidden width
+constexpr int BM = 64;                 // rows a tile: wgmma's M
+constexpr int HALF = C / 2;            // outputs of a consumer warpgroup
+constexpr int KSTEP = 8;               // TF32 of K a wgmma, and a stage
+constexpr int KSTEPS = C / KSTEP;      // stages a product
+constexpr int STAGES = 3;
+constexpr int W_PART = HALF * KSTEP * 4;   // hi or lo of a warpgroup's outputs
+constexpr int STAGE = 4 * W_PART;          // hi and lo of all C outputs
+constexpr int BOX_ROWS = STAGE / 128;      // a stage as rows of 128 bytes
+constexpr int A_FLOATS = BM * C;
+constexpr int CONSUMERS = 256;             // two warpgroups
+constexpr int CONSUMER_WARPS = CONSUMERS / 32;
+constexpr int THREADS = 128 + CONSUMERS;   // warpgroup 0 loads
+constexpr int ACC = HALF / 2;              // f32 accumulators a thread
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+// setmaxnreg moves registers within what the block was launched with,
+// 65536 / THREADS a thread in steps of 8; a request beyond it waits for
+// ever
+static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
+                  THREADS * (65536 / THREADS / 8 * 8),
+              "setmaxnreg asks for more registers than the block holds");
+// 1024 bytes of alignment slack, the ring, the A tile
+constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 4 * (size_t)A_FLOATS;
+static_assert(SMEM + 64 <= 232448, "more shared memory than a block has");
+
+// the A tile's f32 at (row, k): 16-byte chunks XOR row % 8
+__device__ __forceinline__ int a_at(int row, int k) {
+  return row * C + (k ^ ((row & 7) << 2));
+}
+
+// shared memory descriptor of a K-major tile without swizzle: 8-row x
+// 16-byte core matrices, the next one along K 128 bytes on (LBO), the
+// next 8 rows 256 bytes on (SBO)
+__device__ __forceinline__ uint64_t core_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi); v - hi is exact
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  const float rest = __fsub_rn(v, __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (the registers change behind its back)
+__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 8 TF32 in registers) * W^T (8 x 256 TF32, desc w)
+__device__ __forceinline__ void wgmma_m64n256k8(float (&d)[ACC],
+                                                const uint32_t (&a)[4],
+                                                uint64_t w) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(w), "r"(1));
+}
+
+// What a consumer thread is in the tile: warpgroup `half` owns outputs
+// HALF half ..; its fragment rows are r0 and r0 + 8 (A) and its
+// accumulator acc[4j + 2h + e] is row r0 + 8h, column
+// HALF half + 8j + 2tq + e
+struct Lane {
+  int half, r0, tq;
+  bool lane0;  // the warp's lane that releases stages
+};
+
+// One k step: A's fragment of k0 .. k0 + 7 split into hi and lo, the
+// three products added to acc on the stage at `stage`, committed as a
+// group.
+// TF32 A fragment of m64nNk8: a[0] (r0, tq), a[1] (r0 + 8, tq),
+// a[2] (r0, tq + 4), a[3] (r0 + 8, tq + 4).
+__device__ __forceinline__ void k_step(float (&acc)[ACC], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4],
+                                       const float* __restrict__ a_s, int k0,
+                                       Lane ln, uint32_t stage) {
+  const int r1 = ln.r0 + 8;
+  split_tf32(a_s[a_at(ln.r0, k0 + ln.tq)], hi[0], lo[0]);
+  split_tf32(a_s[a_at(r1, k0 + ln.tq)], hi[1], lo[1]);
+  split_tf32(a_s[a_at(ln.r0, k0 + ln.tq + 4)], hi[2], lo[2]);
+  split_tf32(a_s[a_at(r1, k0 + ln.tq + 4)], hi[3], lo[3]);
+  const uint64_t w_hi = core_desc(stage + ln.half * W_PART);
+  const uint64_t w_lo = core_desc(stage + (2 + ln.half) * W_PART);
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  wgmma_m64n256k8(acc, lo, w_hi);
+  wgmma_m64n256k8(acc, hi, w_lo);
+  wgmma_m64n256k8(acc, hi, w_hi);
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// The ring's read side: its next slot and that slot's phase
+struct Ring {
+  uint32_t base, full, empty;  // shared addresses: stages, mbarriers
+  int s;
+  uint32_t phase;
+  __device__ __forceinline__ void next() {
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// acc = A (the A tile) @ W^T over this warpgroup's outputs, on the next
+// KSTEPS stages of the ring. The A fragments alternate between two
+// register sets: a set is written again only after wait_group 1 has
+// seen its products done. A stage is released by one lane of each
+// consumer warp (CONSUMER_WARPS arrivals) once the warp's wait_group
+// has seen the products that read it done. acc starts from zeros
+// written here, not from wgmma's scale-d = 0, so that it is dead, and
+// holds no registers, between the epilogue that read it and the next
+// product.
+__device__ __forceinline__ void product(float (&acc)[ACC],
+                                        const float* __restrict__ a_s,
+                                        Ring& ring, Lane ln) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  uint32_t hi[2][4], lo[2][4];
+  uint32_t prev = 0;
+  for (int ks = 0; ks < KSTEPS; ks += 2) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mbar_wait(ring.full + 8 * ring.s, ring.phase);
+      __syncwarp();  // wgmma is .aligned: the warp leaves the spin together
+      k_step(acc, hi[u], lo[u], a_s, (ks + u) * KSTEP, ln,
+             ring.base + ring.s * STAGE);
+      fence_acc(acc);
+      // keep this step's products in flight; the one before is done
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(acc);
+      if (ks + u > 0 && ln.lane0) mbar_arrive(prev);
+      prev = ring.empty + 8 * ring.s;
+      ring.next();
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(acc);
+  if (ln.lane0) mbar_arrive(prev);
+}
+
+// The passes over the whole tile (load_a and the epilogues) are
+// coalesced and rolled: consumer ct takes columns 4 (ct % 128) .. + 3 of
+// rows ct / 128, + 2, ... as float4s (a warp: 512 bytes of one row), so
+// that each thread's vector rows are four columns loaded once. An
+// epilogue unrolled over a thread's 128 accumulators puts BN and GELU
+// 128 times into the code, hundreds of KB that the instruction cache
+// cannot hold: the kernel then spent more time in its epilogues than
+// in its products. So the accumulators are first stashed in the A tile
+// as they are (`stash`), and the epilogue reads them back in a loop.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 gelu4(float4 v) {
+  return make_float4(gelu_erf(v.x), gelu_erf(v.y), gelu_erf(v.z),
+                     gelu_erf(v.w));
+}
+
+// A = gelu(x) for the tile's rows, zeros past n_rows
+__device__ __forceinline__ void load_a(float* __restrict__ a_s,
+                                       const float* __restrict__ x, int row0,
+                                       int n_rows, int ct) {
+  const int col = 4 * (ct % 128);
+#pragma unroll 4
+  for (int row = ct / 128; row < BM; row += 2) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + row < n_rows) v = ld4(x + (size_t)(row0 + row) * C + col);
+    *reinterpret_cast<float4*>(a_s + a_at(row, col)) = gelu4(v);
+  }
+}
+
+// An epilogue's vector rows at a consumer's four columns: the bias and,
+// with BN, eval BN's mean, var, scale and bias. BN is a template
+// parameter of the tile's body (encoder_tc): a runtime switch left its
+// division and square root in the passes of a model without BN.
+struct Cols {
+  float4 b, mean, var, sc, bi;
+};
+
+template <bool BN>
+__device__ __forceinline__ Cols cols_of(const float* __restrict__ vr,
+                                        int col) {
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  Cols k{ld4(vr + col), z, z, z, z};
+  if (BN) {
+    k.mean = ld4(vr + C + col);
+    k.var = ld4(vr + 2 * C + col);
+    k.sc = ld4(vr + 3 * C + col);
+    k.bi = ld4(vr + 4 * C + col);
+  }
+  return k;
+}
+
+template <bool BN>
+__device__ __forceinline__ float affine(float a, float b, float mean,
+                                        float var, float sc, float bi) {
+  const float y = a + b;
+  return BN ? norm_affine(y, mean, var, sc, bi) : y;
+}
+
+// a + b [-> BN] on four columns
+template <bool BN>
+__device__ __forceinline__ float4 affine4(float4 a, const Cols& k) {
+  return make_float4(
+      affine<BN>(a.x, k.b.x, k.mean.x, k.var.x, k.sc.x, k.bi.x),
+      affine<BN>(a.y, k.b.y, k.mean.y, k.var.y, k.sc.y, k.bi.y),
+      affine<BN>(a.z, k.b.z, k.mean.z, k.var.z, k.sc.z, k.bi.z),
+      affine<BN>(a.w, k.b.w, k.mean.w, k.var.w, k.sc.w, k.bi.w));
+}
+
+// this warpgroup's products into the A tile, as they are
+__device__ __forceinline__ void stash(const float (&acc)[ACC],
+                                      float* __restrict__ a_s, Lane ln) {
+#pragma unroll
+  for (int j = 0; j < ACC / 4; ++j) {
+    const int c = ln.half * HALF + 8 * j + 2 * ln.tq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(a_s + a_at(ln.r0 + 8 * h, c)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// epilogue 1 on the stashed c1: A = gelu(c1 + b1 [-> BN1])
+template <bool BN>
+__device__ __forceinline__ void epilogue_gelu(float* __restrict__ a_s,
+                                              const float* __restrict__ v,
+                                              int ct) {
+  const int col = 4 * (ct % 128);
+  const Cols k = cols_of<BN>(v, col);
+#pragma unroll 4
+  for (int row = ct / 128; row < BM; row += 2) {
+    float4* p = reinterpret_cast<float4*>(a_s + a_at(row, col));
+    *p = gelu4(affine4<BN>(*p, k));
+  }
+}
+
+// epilogue 2 on the stashed c2: x = src + (c2 + b2 [-> BN2]) into out
+// for the rows below n_rows and, where another resblock follows,
+// A = gelu(x). src is read a batch of rows ahead of the stores to out
+// (which it may be).
+template <bool BN>
+__device__ __forceinline__ void epilogue_residual(
+    float* __restrict__ a_s, const float* src, float* out,
+    const float* __restrict__ v, int ct, int row0, int n_rows, bool more) {
+  constexpr int BATCH = 8;
+  const int col = 4 * (ct % 128);
+  const Cols k = cols_of<BN>(v + 5 * C, col);
+  for (int r = ct / 128; r < BM; r += 2 * BATCH) {
+    float4 xo[BATCH];
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q) {
+      const int row = r + 2 * q;
+      xo[q] = row0 + row < n_rows ? ld4(src + (size_t)(row0 + row) * C + col)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q) {
+      const int row = r + 2 * q;
+      float4* p = reinterpret_cast<float4*>(a_s + a_at(row, col));
+      const float4 y = affine4<BN>(*p, k);
+      float4 xn = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + row < n_rows) {
+        xn = make_float4(xo[q].x + y.x, xo[q].y + y.y, xo[q].z + y.z,
+                         xo[q].w + y.w);
+        *reinterpret_cast<float4*>(out + (size_t)(row0 + row) * C + col) = xn;
+      }
+      if (more) *p = gelu4(xn);
+    }
+  }
+}
+
+// The kernel's body: n_blocks resblocks on x (N, C) into out (N, C).
+// tm_w: the split weights (the ring's stages in order) as rows of 32
+// f32, box BOX_ROWS rows, no swizzle; vecs (10 n_blocks, C) as
+// pack_encoder stacks them. x and out must not overlap.
+template <bool BN>
+__device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
+                                                const float* __restrict__ x,
+                                                const float* __restrict__ vecs,
+                                                float* out, int n_rows,
+                                                int n_blocks) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  // TMA and the descriptors want 128- and 16-byte alignment; 1024 is
+  // kept from the swizzled layouts
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* const a_s = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                              STAGES * STAGE);
+  const int n_tiles = (n_rows + BM - 1) / BM;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // every tile reads the same stages in the same order: matrix m =
+  // 0 .. 2 n_blocks - 1 (W1, W2 of each resblock), k steps 0 .. 63
+  if (wg == 0) {
+    // -- producer: one thread keeps the ring full -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(tm_w))
+                   : "memory");
+      int s = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        for (int m = 0; m < 2 * n_blocks; ++m)
+          for (int ks = 0; ks < KSTEPS; ++ks) {
+            mbar_wait(smem_u32(&empty[s]), phase ^ 1);
+            const uint32_t bar = smem_u32(&full[s]);
+            mbar_expect_tx(bar, STAGE);
+            tma_load(base + s * STAGE, tm_w, bar, 0,
+                     (m * KSTEPS + ks) * BOX_ROWS);
+            if (++s == STAGES) {
+              s = 0;
+              phase ^= 1;
+            }
+          }
+    }
+  } else {
+    // -- consumers --------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const Lane ln{wg - 1, 16 * (t / 32) + lane / 4, lane % 4, lane == 0};
+    const int ct = threadIdx.x - 128;
+    Ring ring{base, smem_u32(&full[0]), smem_u32(&empty[0]), 0, 0};
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int row0 = tile * BM;
+      load_a(a_s, x, row0, n_rows, ct);
+      named_sync(1, CONSUMERS);
+      for (int blk = 0; blk < n_blocks; ++blk) {
+        const float* v = vecs + (size_t)10 * blk * C;
+        float acc[ACC];
+        product(acc, a_s, ring, ln);
+        named_sync(1, CONSUMERS);  // both halves have read A
+        stash(acc, a_s, ln);
+        named_sync(1, CONSUMERS);
+        epilogue_gelu<BN>(a_s, v, ct);
+        named_sync(1, CONSUMERS);
+        product(acc, a_s, ring, ln);
+        named_sync(1, CONSUMERS);
+        stash(acc, a_s, ln);
+        named_sync(1, CONSUMERS);
+        epilogue_residual<BN>(a_s, blk == 0 ? x : out, out, v, ct, row0,
+                              n_rows, blk + 1 < n_blocks);
+        named_sync(1, CONSUMERS);
+      }
+    }
+  }
+}
+
+// The kernels' body: with eval BN where use_bn (the same for the launch)
+__device__ __forceinline__ void encoder_tc(const CUtensorMap* tm_w,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ vecs,
+                                           float* out, int n_rows,
+                                           int n_blocks, int use_bn) {
+  if (use_bn)
+    encoder_tc_body<true>(tm_w, x, vecs, out, n_rows, n_blocks);
+  else
+    encoder_tc_body<false>(tm_w, x, vecs, out, n_rows, n_blocks);
+}
+
+// -- host side ----------------------------------------------------------------
+
+// the split weights of n_mats matrices for TMA: n_mats x KSTEPS stages
+// as rows of 32 f32, a stage one box of BOX_ROWS rows
+inline cudaError_t make_w_map(CUtensorMap* map, const float* split,
+                              int n_mats) {
+  const gemm90::EncodeTiled encode = gemm90::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {32, (cuuint64_t)n_mats * KSTEPS * BOX_ROWS};
+  const cuuint64_t strides[1] = {128};
+  const cuuint32_t box[2] = {32, (cuuint32_t)BOX_ROWS};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(split),
+      dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launch `kernel` (a __global__ wrapper of encoder_tc with this
+// signature) on n_rows rows: one block per SM, or one per tile where
+// there are fewer tiles. x, split and out 16-byte aligned, vecs 8.
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const float* x, const float* split,
+                   const float* vecs, float* out, int n_rows, int n_blocks,
+                   int use_bn, cudaStream_t stream) {
+  if (n_rows < 1 || n_blocks < 1) return cudaErrorInvalidValue;
+  if (!gemm90::aligned(x, 16) || !gemm90::aligned(split, 16) ||
+      !gemm90::aligned(out, 16) || !gemm90::aligned(vecs, 8))
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tm_w;
+  cudaError_t e = make_w_map(&tm_w, split, 2 * n_blocks);
+  if (e != cudaSuccess) return e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SMEM);
+  if (e != cudaSuccess) return e;
+  const int tiles = (n_rows + BM - 1) / BM;
+  kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM, stream>>>(
+      tm_w, x, vecs, out, n_rows, n_blocks, use_bn);
+  return cudaGetLastError();
+}
+
+}  // namespace enc_tc
+}  // namespace arcweld

@@ -68,8 +68,9 @@ def make_pipeline_quantized(vq: VQVAEPatch, tr: TransformerDecoder, qparams,
     select the fused attention kernels (#10, #11) and the fused MLP
     (#8). `qparams` must carry calibrated activation scales.
 
-    encoder_dtype: None = the exact f32 encoder (ids bit-comparable
-    with the plain encoder, the default contract). torch.bfloat16 = the
+    encoder_dtype: None = the f32 encoder (split TF32 on the card, f32
+    accuracy: ids equal the plain encoder's but for near-ties, the
+    default contract). torch.bfloat16 = the
     encoder's products on the bf16 tensor cores with f32 sums
     (`encode_indices_fused(compute_dtype=)`): ids can differ near
     Voronoi boundaries, so measure label agreement first.

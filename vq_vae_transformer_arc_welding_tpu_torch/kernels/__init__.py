@@ -37,12 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 _SIGNATURES = {
-    # x, weights, vecs, out, n_rows, c, n_blocks, use_bn, stream
+    # x, split weights (ops/fused_encoder.split_weights), vecs, out,
+    # n_rows, c, n_blocks, use_bn, stream
     "encoder_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # the same with bf16 weights: both products on the bf16 tensor cores
+    # x, bf16 weights, vecs, out, n_rows, c, n_blocks, use_bn, stream:
+    # both products on the bf16 tensor cores
     "encoder_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w1, w2, vec, out, n_rows, c, use_bn, stream
-    "resblock_f32": [_P] * 5 + [_I] * 3 + [_P],
+    # x, split weights of w1 and w2, vec, out, n_rows, c, use_bn, stream
+    "resblock_f32": [_P] * 4 + [_I] * 3 + [_P],
     # patches, w_pe, b_pe, weights, vecs, out, n_rows, patch, c, n_blocks,
     # use_bn, stream
     "encoder_entry_f32": [_P] * 6 + [_I] * 5 + [_P],

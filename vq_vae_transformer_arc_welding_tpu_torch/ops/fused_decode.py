@@ -32,8 +32,9 @@ What the TPU shaped and this port drops:
 - The bias folded into the product through a ones column: the bias is
   added after the sum, which moves the last bits.
 - The kernels may contract a product and a sum into one FMA: the JAX
-  package's contract for these kernels is a tolerance, not bits (unlike
-  the encoder kernels, whose ids must stay bit-comparable).
+  package's contract for these kernels is a tolerance, not bits (as
+  for the encoder kernels, whose ids must equal the plain encoder's but
+  for near-ties).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back. For the card's times see

@@ -3,17 +3,20 @@
 Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py:
 
 - `fused_encoder_eval` (pallas_call at :311), kernel #1 ->
-  `fused_encoder_eval`, `encoder_chain_f32` in csrc/encoder_chain.cu;
+  `fused_encoder_eval`, `encoder_chain_f32` in csrc/encoder_chain.cu,
+  its products in split TF32 on the tensor cores (csrc/encoder_tc.cuh);
   with `compute_dtype=torch.bfloat16` (`_resblock_chain`'s `cdt`,
   :209-232) `encoder_chain_bf16` in csrc/encoder_chain_bf16.cu: both
   products' inputs rounded to bf16 and multiplied on the tensor cores,
   sums and everything else in f32;
 - `fused_resblock_eval` (:106), #3 -> `resblock_eval` and
-  `fused_resblock_eval`, `resblock_f32` in csrc/encoder_resblock.cu;
+  `fused_resblock_eval`, `resblock_f32` in csrc/encoder_resblock.cu, the
+  same tile at one resblock a launch;
 - `fused_encoder_entry_eval` (:404), #4 -> `fused_encoder_entry_eval`,
   `encoder_entry_f32` in csrc/encoder_edges.cu;
 - `fused_encoder_exit_eval` (:436), #5 -> `fused_encoder_exit_eval`,
-  `encoder_exit_f32` in csrc/encoder_edges.cu;
+  `encoder_exit_f32` in csrc/encoder_edges.cu (#4 and #5 on the FP32
+  CUDA cores, csrc/encoder_chain.cuh);
 
 and `_pack_encoder` as `pack_encoder`, `encoder_resblocks_fused`,
 `encode_indices_fused`, `encode_indices_fused_mono` and
@@ -28,9 +31,12 @@ The weights are packed once (`pack_encoder` and, for the edges,
 `pack_encoder_edges`, at pipeline construction) and passed to the
 `encode_indices_*` functions, not repacked per request as the JAX
 functions repack them under jit; the per-resblock path takes views of
-the same pack. A bf16 pack (`pack_encoder(model, torch.bfloat16)`) is made
-once too; the functions cast an f32 pack they are handed with a
-compute dtype, per call, as the JAX kernel recasts under jit.
+the same pack. An f32 pack carries the split-TF32 operand of #1 and #3
+(`split_weights`, in `EncoderPack.split`), made with it; the paths hand
+its views to the wrappers, which split a bare f32 pack per call. A bf16
+pack (`pack_encoder(model, torch.bfloat16)`) is made once too; the
+functions cast an f32 pack they are handed with a compute dtype, per
+call, as the JAX kernel recasts under jit.
 
 GELU: the kernels use the exact erf (`erff`), like the plain versions
 and the JAX package's XLA encoder. The Pallas kernels' Abramowitz &
@@ -63,14 +69,52 @@ def _center_tap(kernel: torch.Tensor) -> torch.Tensor:
     return kernel[:, :, kernel.shape[-1] // 2]
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 rounds: 10 mantissa bits
+    kept, to nearest with ties away from zero (on the magnitude bits,
+    so for either sign)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weights(weights: torch.Tensor) -> torch.Tensor:
+    """The split-TF32 operand of #1 and #3: (2n, C, C) f32 weights in
+    (in, out) layout -> (2n, 2 C C), per matrix hi = tf32(w) and
+    lo = tf32(w - hi) (hi + lo is w to 2^-21 of its magnitude), in
+    (out, in) layout, the K-major one in which TF32 wgmma reads its
+    shared-memory operand, and in the order the kernels' ring reads
+    them: 8-wide k steps in order, each hi then lo over all C outputs,
+    each as wgmma's core matrices of 8 outputs x 4 k (128 bytes), i.e.
+    [k // 8][hi, lo][out // 8][k % 8 // 4][out % 8][k % 4]."""
+    m, c, _ = weights.shape
+    wt = weights.transpose(1, 2)
+    hi = tf32(wt)
+    parts = torch.stack([hi, tf32(wt - hi)], 1)      # (2n, 2, out, in)
+    return (parts.reshape(m, 2, c // 8, 8, c // 8, 2, 4)
+            .permute(0, 4, 1, 2, 5, 3, 6).reshape(m, 2 * c * c))
+
+
+class EncoderPack(tuple):
+    """What `pack_encoder` returns: the pair (weights, vecs), and in
+    `split` the split-TF32 operand of #1 and #3 (`split_weights(
+    weights)`) for an f32 pack, None for a bf16 one."""
+
+    def __new__(cls, weights: torch.Tensor, vecs: torch.Tensor,
+                split: torch.Tensor | None = None):
+        pack = super().__new__(cls, (weights, vecs))
+        pack.split = split
+        return pack
+
+
 def pack_encoder(model, compute_dtype: torch.dtype | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 ) -> EncoderPack:
     """Stack every resblock's center-tap weights, transposed to (in, out),
     as (2n, C, C), and its vector rows [b1, bn1 mean, var, scale, bias,
     b2, bn2 mean, var, scale, bias] as (10n, C); BN rows are zeros when
-    the model has no BatchNorm. compute_dtype (torch.bfloat16): the
-    weights rounded to it, for the functions' `compute_dtype` variant;
-    the vector rows stay f32."""
+    the model has no BatchNorm. An f32 pack also carries the weights'
+    split (`split_weights`), made here once. compute_dtype
+    (torch.bfloat16): the weights rounded to it, for the functions'
+    `compute_dtype` variant, and no split; the vector rows stay f32."""
     ws, vs = [], []
     c = model.hidden_dim
     zero = torch.zeros(c, device=model.codebook.device)
@@ -84,9 +128,10 @@ def pack_encoder(model, compute_dtype: torch.dtype | None = None
             else:
                 vs += [conv.bias, zero, zero, zero, zero]
     weights = torch.stack(ws).contiguous()
+    vecs = torch.stack(vs).contiguous()
     if compute_dtype is not None:
-        weights = weights.to(_compute_dtype(compute_dtype))
-    return weights, torch.stack(vs).contiguous()
+        return EncoderPack(weights.to(_compute_dtype(compute_dtype)), vecs)
+    return EncoderPack(weights, vecs, split_weights(weights))
 
 
 def pack_encoder_edges(model) -> tuple[torch.Tensor, ...]:
@@ -191,17 +236,36 @@ def _require_chain(name: str, c: int, weights, vecs, dev,
     return nb
 
 
+def _split_operand(name: str, weights: torch.Tensor,
+                   split: torch.Tensor | None) -> torch.Tensor:
+    """The split weights the f32 kernel reads: `split` checked against
+    the (2n, C, C) weights, or made from them (per call)."""
+    if split is None:
+        return split_weights(weights)
+    m, c, _ = weights.shape
+    kernels.require(split, f"{name} split", torch.float32, (m, 2 * c * c),
+                    weights.device)
+    return split
+
+
 def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
                        vecs: torch.Tensor, *, use_bn: bool,
-                       compute_dtype=None) -> torch.Tensor:
+                       compute_dtype=None,
+                       split: torch.Tensor | None = None) -> torch.Tensor:
     """n = weights.shape[0] // 2 eval resblocks on (N, C) f32 rows.
 
-    compute_dtype: None = exact f32 products (`encoder_chain_f32`, ids
-    bit-comparable with the plain encoder). torch.bfloat16 = both
-    products' inputs rounded to bf16, sums in f32
-    (`encoder_chain_bf16`, on the tensor cores); everything else stays
-    f32. f32 weights are cast here, per call; pass a bf16 pack
-    (`pack_encoder(model, torch.bfloat16)`) to cast once."""
+    compute_dtype: None = f32 products (`encoder_chain_f32`: split TF32
+    on the tensor cores, f32 accuracy; ids as the plain encoder's but
+    for near-ties). torch.bfloat16 = both products' inputs rounded to
+    bf16, sums in f32 (`encoder_chain_bf16`, on the tensor cores);
+    everything else stays f32. f32 weights are cast here, per call;
+    pass a bf16 pack (`pack_encoder(model, torch.bfloat16)`) to cast
+    once.
+
+    split: `split_weights(weights)`, the f32 kernel's operand (the view
+    of `pack_encoder(model).split` that matches `weights`). Without it
+    the wrapper splits the weights here, per call, which a bare f32 pack
+    (tests, chip_smoke.py) pays for; the CPU path does not read it."""
     if compute_dtype is None:
         name, dtype = _CHAIN, torch.float32
     else:
@@ -214,14 +278,16 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
     n, c = x.shape
     nb = _require_chain(name, c, weights, vecs, x.device, dtype)
     kernels.require(x, "x", torch.float32, (n, c), x.device)
-    if weights.data_ptr() % 16:
+    operand = (weights if compute_dtype is not None
+               else _split_operand(name, weights, split))
+    if operand.data_ptr() % 16:
         raise ValueError(f"{name}: weights must be 16-byte aligned")
     out = torch.empty_like(x)
     if n == 0:
         return out
     lib = kernels.library()
     kernels.launches[name] += 1
-    err = getattr(lib, name)(x.data_ptr(), weights.data_ptr(),
+    err = getattr(lib, name)(x.data_ptr(), operand.data_ptr(),
                              vecs.data_ptr(), out.data_ptr(), n, c, nb,
                              int(use_bn), kernels.stream_ptr(x.device))
     kernels.check(err, name)
@@ -229,10 +295,12 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
 
 
 def resblock_eval(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                  vec: torch.Tensor, *, use_bn: bool) -> torch.Tensor:
+                  vec: torch.Tensor, *, use_bn: bool,
+                  split: torch.Tensor | None = None) -> torch.Tensor:
     """One eval resblock on (N, C) f32 rows, operand-level: w1, w2 (C, C)
     in (in, out) layout, vec (10, C) as a resblock's rows of
-    `pack_encoder`."""
+    `pack_encoder`. split: `split_weights` of [w1, w2], (2, 2 C C), as
+    for `fused_encoder_eval`: made here, per call, when not given."""
     if not _on_card(_RESBLOCK, x):
         return fused_resblock_eval_reference(x, w1, w2, vec, use_bn=use_bn)
     n, c = x.shape
@@ -244,13 +312,16 @@ def resblock_eval(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     kernels.require(w1, "w1", torch.float32, (c, c), dev)
     kernels.require(w2, "w2", torch.float32, (c, c), dev)
     kernels.require(vec, "vec", torch.float32, (10, c), dev)
+    if split is None:
+        split = split_weights(torch.stack([w1, w2]))
+    kernels.require(split, "split", torch.float32, (2, 2 * c * c), dev)
     out = torch.empty_like(x)
     if n == 0:
         return out
     lib = kernels.library()
     kernels.launches[_RESBLOCK] += 1
-    err = lib.resblock_f32(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                           vec.data_ptr(), out.data_ptr(), n, c, int(use_bn),
+    err = lib.resblock_f32(x.data_ptr(), split.data_ptr(), vec.data_ptr(),
+                           out.data_ptr(), n, c, int(use_bn),
                            kernels.stream_ptr(dev))
     kernels.check(err, _RESBLOCK)
     return out
@@ -345,14 +416,24 @@ def group_size_for(hidden: int, weight_bytes: int = 4) -> int:
     return max(1, (8 << 20) // (2 * hidden * hidden * weight_bytes))
 
 
-def _chain_groups(flat, weights, vecs, s0: int, s1: int, group_size: int,
+def _split_of(packed, i0: int, i1: int) -> dict:
+    """The keyword that hands resblocks i0..i1 of an f32 pack's split to
+    a wrapper; none for a pack without one."""
+    split = getattr(packed, "split", None)
+    return {} if split is None else {"split": split[2 * i0:2 * i1]}
+
+
+def _chain_groups(flat, packed, s0: int, s1: int, group_size: int,
                   use_bn: bool, compute_dtype=None) -> torch.Tensor:
-    """Resblocks s0..s1 through the chain kernel, group_size per call."""
+    """Resblocks s0..s1 of `packed` through the chain kernel, group_size
+    per call."""
+    weights, vecs = packed
     for g0 in range(s0, s1, group_size):
         g1 = min(g0 + group_size, s1)
-        flat = fused_encoder_eval(flat, weights[2 * g0:2 * g1],
-                                  vecs[10 * g0:10 * g1], use_bn=use_bn,
-                                  compute_dtype=compute_dtype)
+        flat = fused_encoder_eval(
+            flat, weights[2 * g0:2 * g1], vecs[10 * g0:10 * g1],
+            use_bn=use_bn, compute_dtype=compute_dtype,
+            **_split_of(packed, g0, g1))
     return flat
 
 
@@ -374,7 +455,8 @@ def encoder_resblocks_fused(model, packed, h: torch.Tensor) -> torch.Tensor:
     for i in range(model.n_resblocks):
         flat = resblock_eval(flat, weights[2 * i], weights[2 * i + 1],
                              vecs[10 * i:10 * (i + 1)],
-                             use_bn=model.batch_norm)
+                             use_bn=model.batch_norm,
+                             **_split_of(packed, i, i + 1))
     return flat.reshape(b, p, c)
 
 
@@ -390,7 +472,8 @@ def encode_indices_fused(model, packed: tuple[torch.Tensor, torch.Tensor],
     `pack_encoder(model)`. x: (B, seq_len, input_dim) -> (B,
     enc_out_len) int32.
 
-    compute_dtype: None = exact f32, the default serving contract.
+    compute_dtype: None = f32 products (split TF32 on the card), the
+    default serving contract.
     torch.bfloat16 = the products' inputs in bf16 (see
     `fused_encoder_eval`): ids may differ from the f32 encoder's near
     Voronoi boundaries. The chain kernel then runs at every group size,
@@ -406,7 +489,7 @@ def encode_indices_fused(model, packed: tuple[torch.Tensor, torch.Tensor],
     h = model.patch_embed_out(x)
     b, p, c = h.shape
     if group_size > 1 or compute_dtype is not None:
-        flat = _chain_groups(h.reshape(b * p, c), *packed, 0,
+        flat = _chain_groups(h.reshape(b * p, c), packed, 0,
                              model.n_resblocks, group_size, model.batch_norm,
                              compute_dtype)
     else:
@@ -422,7 +505,8 @@ def encode_indices_fused_mono(model, packed,
     b, p, c = h.shape
     weights, vecs = packed
     flat = fused_encoder_eval(h.reshape(b * p, c), weights, vecs,
-                              use_bn=model.batch_norm)
+                              use_bn=model.batch_norm,
+                              **_split_of(packed, 0, model.n_resblocks))
     return _sep_nearest(model, flat, b, p)
 
 
@@ -449,8 +533,7 @@ def encode_indices_fused_edges(model, packed, edges, x: torch.Tensor, *,
     flat = fused_encoder_entry_eval(
         patches.reshape(b * n_p, model.patch_size), w_pe, b_pe,
         weights[:2 * group_size], vecs[:10 * group_size], use_bn=use_bn)
-    flat = _chain_groups(flat, weights, vecs, group_size, last, group_size,
-                         use_bn)
+    flat = _chain_groups(flat, packed, group_size, last, group_size, use_bn)
     ids = fused_encoder_exit_eval(flat, weights[2 * last:], vecs[10 * last:],
                                   w_sep, b_sep, model.codebook, use_bn=use_bn)
     return ids.reshape(b, n_p)
