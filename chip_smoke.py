@@ -48,22 +48,30 @@ chain's largest magnitude, and its id flips must be near-ties.
 The int8 GEMM that #2, #6, #8 and #10 share (csrc/int8_gemm_sm90.cuh)
 is launched alone at its four shapes in a block (qkv, c_proj, c_fc,
 m_proj; 25,680 rows at batch 80) on block 0's own operands, and must be
-bit-equal to the plain stage and to what #6 wrote at that stage.
+bit-equal to the plain stage and to what #6 wrote at that stage. With
+int8_attn (#2 and #6 on 'attn8' and 'full8'), the attention's quantizing
+pass (csrc/attention_int8.cuh) must write int8 operands and scales
+bit-equal to its plain version (`quantize_heads_reference`) on each
+block's own qkv, and its y8 is held stage by stage as every int8 stage.
 Right after the build, `-Xptxas -v` of the two instantiations of the
 attention tile (csrc/attention_tc.cuh), of the GEMM's two and of the
 encoder tile's two (#1, #3) gives their registers and spills (a spill
 fails the run), and the GEMM's PTX must hold `wgmma.mma_async` and
-`cp.async.bulk.tensor`, the encoder chain's its TF32 `wgmma`, the TMA
-copy and `cvt.rna.tf32.f32`. The f32 attention kernels
+`cp.async.bulk.tensor` and the int8 attention's s8 `mma.sync`
+m16n8k32 (whose two kernels ptxas reports on too), the encoder chain's
+its TF32 `wgmma`, the TMA copy and `cvt.rna.tf32.f32`. The f32 attention kernels
 and scaled_dot_product_attention on #9's inputs are timed again ten
 calls in a row between two events, so that the host's launch hides
 behind the card's work; at the end, torch.profiler traces give their
 device time per call (with each kernel's launches, so that a lost event
 shows), the f32 attention's, the int8 GEMM's and the encoder chain's
-(#1) device time per call of the 'attn' and 'full' pipelines, #1's and
-#3's device time per launch at 25,600 rows, and the GEMM's device time per launch
-at each shape beside its bound and beside torch._int_mm on the same
-operands (s32 out, no epilogue).
+(#1) device time per call of the 'attn' and 'full' pipelines (of
+'attn8' and 'full8' with the int8 attention's and its quantizing pass's),
+#1's and #3's device time per launch at 25,600 rows, the GEMM's device
+time per launch at each shape beside its bound and beside torch._int_mm
+on the same operands (s32 out, no epilogue), and #2's and #6's with
+int8_attn per call, with the device time a launch of the quantizing
+pass and of the int8 attention beside their own bounds.
 
 Then token sampling, at the sampling batch of 16 and 320 KV-cached
 steps: `sample_tokens` on the calibrated pipeline (fresh and from a
@@ -172,6 +180,10 @@ FLASH, DEC_ATTN, DEC_BLOCK = ("flash_attention_f32", "decode_attn_f32",
 # its four shapes in a block of width C: (N / C, K / C, int8 GELU+q8
 # output, f32 residual read)
 GEMM = "int8_gemm"
+# the int8 attention's two kernels in #2 and #6 with int8_attn
+# (csrc/attention_int8.cuh): the per-head quantizing pass and the
+# attention on s8 tensor cores; kernel_work bounds each alone
+QUANT_PASS, INT8_ATTENTION = "head_quant_kernel", "attention_int8_kernel"
 GEMM_SHAPES = {"qkv": (3, 1, False, False), "c_proj": (1, 1, False, True),
                "c_fc": (4, 1, True, False), "m_proj": (1, 4, False, True)}
 # name, make_pipeline_quantized options, the kernels the path launches
@@ -250,7 +262,11 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     (b, t, c) stream with n_head heads; a decode step of dec_b streams
     at position dec_pos, which reads the dec_pos cache rows before it
     and writes one. `int8_gemm <shape>`: the int8 GEMM alone at the
-    four shapes of a block (GEMM_SHAPES). The f32 attention
+    four shapes of a block (GEMM_SHAPES). The int8 attention of #2 and
+    #6 alone (INT8_ATTENTION): q8, k8, v8 and the scales read once, y8
+    written once, its two products in int8; its quantizing pass alone
+    (QUANT_PASS): the f32 qkv read once, the int8 operands and the
+    scales written once. The f32 attention
     (F32_ATTENTION) has two products of equal size over its causal
     scores, Q K^T and P@V: each counts TF32_SPLIT times as TF32, but the
     first `fp32_products` of them (0, 1 or 2) once as FP32 on the CUDA
@@ -286,8 +302,11 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         + m * nc * c * (1 if q8 else f4) + (m * nc * c * f4 if resid else 0),
         {"int8": 2 * m * nc * c * kc * c})
         for shape, (nc, kc, q8, resid) in GEMM_SHAPES.items()}
+    head_scales = b * 3 * n_head * f4
     return {
         **gemm,
+        INT8_ATTENTION: (4 * m * c + head_scales, {"int8": attn}),
+        QUANT_PASS: (3 * xs + 3 * m * c + head_scales, {}),
         FLASH: (4 * xs, f32_attn),
         DEC_ATTN: (dec_attn_w + dec_io, {"f32": dec_attn_ops}),
         DEC_BLOCK: (dec_attn_w + dec_mlp_w + dec_io,
@@ -414,11 +433,14 @@ def device_profile(fn):
 PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu", "encoder_chain.cu",
                  "encoder_resblock.cu")
 PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel",
-                 "encoder_chain_kernel", "resblock_kernel")
+                 "encoder_chain_kernel", "resblock_kernel", QUANT_PASS,
+                 INT8_ATTENTION)
 # what each source's PTX must hold: Hopper's tensor-core product (in
-# TF32, with A split by cvt.rna, for the encoder) and TMA copies
+# TF32, with A split by cvt.rna, for the encoder), TMA copies, and the
+# int8 attention's s8 products
 PTX_OPS = {
-    "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
+    "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor",
+                      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"),
     "encoder_chain.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
                          "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
 }
@@ -1036,14 +1058,16 @@ def kernel_trace(fns: dict, calls: int = 10) -> dict:
 
 
 def pipeline_trace(fns: dict, x) -> None:
-    """Where a batch's device time goes on 'attn' and 'full', from
+    """Where a batch's device time goes on TIMED_PATHS, from
     torch.profiler over three calls: device time per call, and the parts
     of it of the f32 attention (attention_kernel: attention_tc.cuh's
-    tile with the int8 epilogue), of the int8 GEMM
-    (int8_gemm_sm90_kernel, both epilogues) and of the f32 encoder
-    chain (encoder_chain_kernel, #1), each also per launch."""
+    tile with the int8 epilogue), of the int8 attention and of its
+    quantizing pass ('attn8', 'full8': attention_int8.cuh), of the int8
+    GEMM (int8_gemm_sm90_kernel, both epilogues) and of the f32 encoder
+    chain (encoder_chain_kernel, #1), each also per launch; a part the
+    path does not launch is left out."""
     calls = 3
-    for name in ("attn", "full"):
+    for name in TIMED_PATHS:
         fn = fns[name]
         n_ops, busy, names = device_profile(
             lambda: [fn(x) for _ in range(calls)])
@@ -1055,15 +1079,21 @@ def pipeline_trace(fns: dict, x) -> None:
         for what, pick in (
                 ("the f32 attention (attention_kernel)",
                  lambda key: key.startswith("attention_kernel(")),
+                (f"the int8 attention ({INT8_ATTENTION})",
+                 lambda key: f"{INT8_ATTENTION}(" in key),
+                (f"its quantizing pass ({QUANT_PASS})",
+                 lambda key: f"{QUANT_PASS}(" in key),
                 ("the int8 GEMM (int8_gemm_sm90_kernel)",
                  lambda key: "int8_gemm" in key),
                 ("the f32 encoder chain (encoder_chain_kernel)",
                  lambda key: key.startswith("encoder_chain_kernel("))):
             got = [(cnt, ms) for key, cnt, ms in names if pick(key)]
-            n, ms = (sum(v) for v in zip(*got)) if got else (0, 0.0)
+            if not got:
+                continue
+            n, ms = (sum(v) for v in zip(*got))
             parts.append(f"{what} x {n / calls:.1f} a call, "
                          f"{ms / calls:.4f} ms a call ({ms / busy:.1%})"
-                         + (f", {ms / n:.4f} ms a launch" if n else ""))
+                         + f", {ms / n:.4f} ms a launch")
         log(f"device trace of make_pipeline_quantized({name}) batch {len(x)}, "
             f"{calls} calls: {n_ops / calls:.1f} device operations and "
             f"{busy / calls:.4f} ms of device time per call; "
@@ -2093,6 +2123,14 @@ def main() -> int:
                 worst.int8(f"{name}.y8", sc["y8"], quantize_act(
                     fattn.attention_core_reference(
                         sc["qkv"], nh, int8_attn=int8_attn), scales[1]))]
+            if int8_attn:
+                qkv8, head_scales = fbq.quantize_heads_reference(sc["qkv"],
+                                                                 nh)
+                same = (torch.equal(sc["qkv8"], qkv8),
+                        torch.equal(sc["head_scales"], head_scales))
+                check(all(same), f"{name}: the quantizing pass's qkv8 and "
+                                 f"scales bit-equal to plain: {same}")
+                notes.append("qkv8 and head_scales bit-equal")
             x_mid = sc["x_mid"]
             notes += [
                 worst.f32(f"{name}.x_mid", x_mid, x + (int8_matmul(
@@ -2327,6 +2365,28 @@ def main() -> int:
                f"({bound / ms:.1%} of the time taken); torch._int_mm "
                f"(s32 out, no epilogue) {lib_ms:.4f} ms, the GEMM "
                f"{ms / lib_ms:.3f}x of it")
+            + f"; gpu {smi}")
+    # the int8 attention of #2 and #6 (int8_attn), block 0: its two
+    # launches beside their own bounds
+    with torch.inference_mode():
+        traced = kernel_trace({name: calls[name][0]
+                               for name in (ATTN8, FULL8)})
+    for name, (ms, n_ops, kernels_of) in traced.items():
+        parts = []
+        for part in (QUANT_PASS, INT8_ATTENTION):
+            each = [e for key, _, e in kernels_of if f"{part}(" in key]
+            bound, by = bound_of(work[part])
+            parts.append(f"{part} " + (
+                f"{each[0]:.4f} ms a launch, bound {bound:.4f} ms by {by} "
+                f"({bound / each[0]:.1%} of the time taken)" if each
+                else "not in the trace"))
+        if ms is not None:
+            device_ms[name] = ms
+        log(f"device trace of {name} (B={n80}, T={tr.seq_len}, "
+            f"C={tr.d_model}, block 0), 10 calls: "
+            + ("not measured" if ms is None else
+               f"{ms:.4f} ms and {n_ops:.1f} device operations a call; "
+               + "; ".join(parts))
             + f"; gpu {smi}")
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,

@@ -14,7 +14,9 @@ difference moves an argmin only at a near-tie; 0 expected); the int8
 kernels (#2 in both attention variants, #6, #8, #10, #11) may move at
 most 0.1% of their int8 outputs, by one step, and their f32 outputs by
 1e-3 (an ulp of LayerNorm, attention, exp or tanh difference can cross
-a rounding boundary). The int8 GEMM that #2, #6, #8 and #10 share,
+a rounding boundary). The int8 attention's quantizing pass (#2 and #6
+with int8_attn) is held bit for bit: its scales and int8 operands are
+one rounding each, as in the plain version. The int8 GEMM that #2, #6, #8 and #10 share,
 launched alone, is held bit for bit against its plain stage: its s32
 sums are exact and its epilogue rounds as the plain version does. The
 f32 attention kernel (#9) and the decode kernels (#12, #13) sum 64- to
@@ -699,6 +701,49 @@ def test_attn_block_kernel_ragged_t(dev, t, int8_attn):
     assert (xm - xm_ref).abs().max() <= 1e-3
     _int8_close(h8, int8.quantize_act(layer_norm(xm, vc[2], vc[3]),
                                       scales[2]))
+
+
+# past 384 rows the quantizing pass reads a head's rows a second time
+INT8_ATTN_T = [1, 63, 64, 65, 321, 385, 1000]
+
+
+def _int8_attention_scratch(dev, t, c, seed):
+    """#2 with int8_attn on the card at batch 2, its scratch kept: q, k,
+    v of order 2 and y quantized to its range, as in
+    test_attn_block_kernel_ragged_t. Returns (scratch, y's scale)."""
+    x = torch.randn(2, t, c, generator=torch.Generator().manual_seed(seed))
+    w_qkv, w_proj, scales, vc, v3c = _block_operands(c)
+    scales[1] = 127.0 / 4.0
+    v3c[0] = 4e-5
+    args = [a.to(dev).contiguous()
+            for a in (x, w_qkv, w_proj, scales, vc, v3c)]
+    sc = {}
+    _launched("attn_block_quant_int8attn", lambda: fbq.attn_block_quant(
+        *args, n_head=c // 64, int8_attn=True, scratch=sc))
+    return sc, args[3][1]
+
+
+@pytest.mark.parametrize("c", [128, 512])
+@pytest.mark.parametrize("t", INT8_ATTN_T)
+def test_int8_attention_quantizing_pass_bit_equal(dev, t, c):
+    """head_quant_kernel's scales and int8 operands (qkv8, with its zero
+    padding and key order) bit-equal to quantize_heads_reference on the
+    kernel's own qkv."""
+    sc, _ = _int8_attention_scratch(dev, t, c, seed=t)
+    qkv8, head_scales = fbq.quantize_heads_reference(sc["qkv"], c // 64)
+    assert torch.equal(sc["head_scales"], head_scales)
+    assert torch.equal(sc["qkv8"], qkv8)
+
+
+@pytest.mark.parametrize("c", [128, 512])
+@pytest.mark.parametrize("t", INT8_ATTN_T)
+def test_int8_attention_y8_matches_plain(dev, t, c):
+    """attention_int8_kernel's y8 against the plain int8 attention on
+    the kernel's own qkv: one step in at most 1e-3 of entries."""
+    sc, y_scale = _int8_attention_scratch(dev, t, c, seed=t + 1)
+    y8 = int8.quantize_act(fattn.attention_core_reference(
+        sc["qkv"], c // 64, int8_attn=True), y_scale)
+    _int8_close(sc["y8"], y8)
 
 
 @pytest.mark.parametrize("scale", [2.0, 8.0], ids=["qkv", "qkv_x8"])

@@ -22,7 +22,7 @@ extern "C" int causal_attention_quant(const void* qkv, const void* y_scale,
                                       float sm_scale, void* stream) {
   return arcweld::launch_attention(
       static_cast<const float*>(qkv), static_cast<const float*>(y_scale),
-      static_cast<int8_t*>(y8), nullptr, batch, t, n_head, sm_scale, false,
+      static_cast<int8_t*>(y8), batch, t, n_head, sm_scale,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -50,6 +50,6 @@ extern "C" int qkv_attention_quant(const void* h, const void* w_qkv,
                            s);
   if (e != cudaSuccess) return e;
   return arcweld::launch_attention(static_cast<const float*>(qkv), sc + 1,
-                                   static_cast<int8_t*>(y8), nullptr, batch, t,
-                                   n_head, sm_scale, false, s);
+                                   static_cast<int8_t*>(y8), batch, t, n_head,
+                                   sm_scale, s);
 }

@@ -18,16 +18,17 @@
 // vc (8, C) rows [ln1_s, ln1_b, ln2_s, ln2_b, deq_proj, b_proj, deq_mp,
 // b_mp]; v3c (2, 3C) [deq_qkv, b_qkv]; v4c (2, C4) [deq_fc, b_fc].
 // Scratch: h8a, y8, h8 (B*T, C) int8, qkv (B*T, 3C) f32, head_scales
-// (B, 3, n_head) f32 (int8_attn only), x_mid (B*T, C) f32,
-// g8 (B*T, C4) int8. Output: out (B*T, C) f32.
+// (B, 3, n_head) f32 and qkv8 (B, n_head, 3, T_pad * 64) int8 (int8_attn
+// only), x_mid (B*T, C) f32, g8 (B*T, C4) int8. Output: out (B*T, C) f32.
 extern "C" int block_quant(const void* x, const void* w_qkv,
                            const void* w_proj, const void* w_fc,
                            const void* w_mp, const void* scales,
                            const void* vc, const void* v3c, const void* v4c,
                            void* h8a, void* qkv, void* y8, void* head_scales,
-                           void* x_mid, void* h8, void* g8, void* out,
-                           int batch, int t, int c, int c4, int n_head,
-                           float sm_scale, int int8_attn, void* stream) {
+                           void* qkv8, void* x_mid, void* h8, void* g8,
+                           void* out, int batch, int t, int c, int c4,
+                           int n_head, float sm_scale, int int8_attn,
+                           void* stream) {
   if (c % 64 != 0 || c > arcweld::LN_MAX_C ||
       c != n_head * arcweld::HEAD_DIM || c4 % 64 != 0)
     return cudaErrorInvalidValue;
@@ -40,9 +41,9 @@ extern "C" int block_quant(const void* x, const void* w_qkv,
       static_cast<const int8_t*>(w_proj), sc, vcf,
       static_cast<const float*>(v3c), static_cast<int8_t*>(h8a),
       static_cast<float*>(qkv), static_cast<int8_t*>(y8),
-      static_cast<float*>(head_scales), static_cast<float*>(x_mid),
-      static_cast<int8_t*>(h8), batch, t, c, n_head, sm_scale,
-      int8_attn != 0, s);
+      static_cast<float*>(head_scales), static_cast<int8_t*>(qkv8),
+      static_cast<float*>(x_mid), static_cast<int8_t*>(h8), batch, t, c,
+      n_head, sm_scale, int8_attn != 0, s);
   if (e != cudaSuccess) return e;
   return arcweld::launch_mlp(
       static_cast<const int8_t*>(h8), static_cast<const int8_t*>(w_fc),

@@ -39,28 +39,34 @@ cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                                 int n_cols, int k, cudaStream_t s);
 
 // y8 (batch, t, C) = q8(causal attention of qkv (batch, t, 3C), *qscale),
-// C = n_head * HEAD_DIM. int8_attn: scores and P@V on int8 operands
-// quantized with per (batch, head) scales, which are written to
-// head_scales (batch, 3, n_head) f32 first; otherwise head_scales is
-// unused and may be null.
+// C = n_head * HEAD_DIM, the f32 attention (attention_tc.cuh).
 cudaError_t launch_attention(const float* qkv, const float* qscale,
-                             int8_t* y8, float* head_scales, int batch, int t,
-                             int n_head, float sm_scale, bool int8_attn,
-                             cudaStream_t s);
+                             int8_t* y8, int batch, int t, int n_head,
+                             float sm_scale, cudaStream_t s);
+
+// The same with int8_attn (attention_int8.cuh): scores and P@V on int8
+// operands quantized with per (batch, head) scales, which are written to
+// head_scales (batch, 3, n_head) f32, the operands to qkv8 (batch,
+// n_head, 3, T_pad * 64) int8 (attn8::padded(t) rows; layout there).
+cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
+                                  int8_t* y8, float* head_scales,
+                                  int8_t* qkv8, int batch, int t, int n_head,
+                                  float sm_scale, cudaStream_t s);
 
 // The attention half of a block (kernel #2):
 //   h8a = q8(LN1(x)), qkv = h8a @ Wqkv dequantized + bias,
 //   y8 = attention(qkv), x_mid = x + (y8 @ Wproj dequantized + bias),
 //   h8 = q8(LN2(x_mid)).
 // scales (4,) [s_attn, s_proj, s_fc, s_mproj]; vc rows [ln1_s, ln1_b,
-// ln2_s, ln2_b, deq_proj, b_proj]; v3c rows [deq_qkv, b_qkv].
+// ln2_s, ln2_b, deq_proj, b_proj]; v3c rows [deq_qkv, b_qkv]. head_scales
+// and qkv8: launch_attention_int8's, read only when int8_attn.
 cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              const int8_t* w_proj, const float* scales,
                              const float* vc, const float* v3c, int8_t* h8a,
                              float* qkv, int8_t* y8, float* head_scales,
-                             float* x_mid, int8_t* h8, int batch, int t,
-                             int c, int n_head, float sm_scale,
-                             bool int8_attn, cudaStream_t s);
+                             int8_t* qkv8, float* x_mid, int8_t* h8,
+                             int batch, int t, int c, int n_head,
+                             float sm_scale, bool int8_attn, cudaStream_t s);
 
 // The int8 MLP from its quantized input (the MLP half of kernel #6, and
 // kernel #8 after its q8 prologue):

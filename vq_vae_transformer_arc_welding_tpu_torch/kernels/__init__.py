@@ -53,13 +53,13 @@ _SIGNATURES = {
     "encoder_exit_f32": [_P] * 7 + [_I] * 6 + [_P],
     # z, codebook, ids, n_rows, d_emb, k_codes, stream
     "nearest_codes_f32": [_P] * 3 + [_I] * 3 + [_P],
-    # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, head_scales,
+    # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, head_scales, qkv8,
     # x_mid, h8, batch, t, c, n_head, sm_scale, int8_attn, stream
-    "attn_block_quant": [_P] * 12 + [_I] * 4 + [_F, _I, _P],
+    "attn_block_quant": [_P] * 13 + [_I] * 4 + [_F, _I, _P],
     # x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, h8a, qkv, y8,
-    # head_scales, x_mid, h8, g8, out, batch, t, c, c4, n_head, sm_scale,
-    # int8_attn, stream
-    "block_quant": [_P] * 17 + [_I] * 5 + [_F, _I, _P],
+    # head_scales, qkv8, x_mid, h8, g8, out, batch, t, c, c4, n_head,
+    # sm_scale, int8_attn, stream
+    "block_quant": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
     # h, w_fc, w_mp, scales, v4c, vmp, h8, g8, out, rows, c, c4, stream
     "mlp_quant": [_P] * 9 + [_I] * 3 + [_P],
     # a, w, cs, cb, resid, qscale, out, rows, n, k, stream: the int8 GEMM

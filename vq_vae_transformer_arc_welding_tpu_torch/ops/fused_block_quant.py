@@ -16,6 +16,12 @@ P@V product).
 (per-head loop or head-batched dots) and was bit-identical to the
 loop, so it has no counterpart here.
 
+With `int8_attn` the kernels run the attention in two launches
+(`csrc/attention_int8.cuh`): a per-head quantizing pass, whose plain
+version is `quantize_heads_reference` (the int8 operands in the
+kernel's layout, `T_TILE`, `v_key_order`), and the attention on the s8
+tensor cores, whose plain version is `attention_core_reference`.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 
@@ -29,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .fused_attn_quant import attention_core_reference, sm_scale
+from .attention import split_heads
+from .fused_attn_quant import _scale127, attention_core_reference, sm_scale
 from .fused_mlp_quant import mlp_from_h8_reference
 from .int8 import int8_matmul, quantize_act
 from .norm import layer_norm
@@ -37,6 +44,8 @@ from .norm import layer_norm
 _ATTN = "attn_block_quant"
 _FULL = "block_quant"
 _QLINEARS = ("c_attn", "c_proj", "c_fc", "m_proj")
+HEAD_DIM = 64       # the int8 attention's head width
+T_TILE = 64         # its query and key tiles, and T's padding in qkv8
 
 
 def _block_operands(blk: dict, full: bool = False):
@@ -109,15 +118,58 @@ def fused_block_quant_reference(x, w_qkv, w_proj, w_fc, w_mp, scales, vc,
                                          vc[6:])
 
 
+def padded_t(t: int) -> int:
+    """T rounded up to the int8 attention's tile, the rows of qkv8."""
+    return -(-t // T_TILE) * T_TILE
+
+
+def v_key_order() -> torch.Tensor:
+    """The key at each of the 32 positions of a 32-key group of v8 in
+    qkv8 (`key_of` in csrc/attention_int8.cuh): position 4 tg + i holds
+    key 8 (i // 2) + 2 tg + i % 2, and the same 16 further on, so that
+    a thread's scores in mma's accumulator layout (keys 2 tg, 2 tg + 1
+    of each 8-key block) are its A fragment of P as they stand."""
+    p = torch.arange(32)
+    return 16 * (p // 16) + 8 * (p % 4 // 2) + 2 * (p % 16 // 4) + p % 2
+
+
+def quantize_heads_reference(qkv: torch.Tensor, n_head: int):
+    """Plain version of the int8 attention's quantizing pass
+    (`head_quant_kernel`). qkv (B, T, 3C) f32, C = n_head * 64. Returns
+    (qkv8, head_scales): qkv8 (B, n_head, 3, T_pad * 64) int8 holds per
+    (batch, head) q8 [row][e], k8 [key][e] and v8 transposed, [e][key
+    position] with the keys of every 32-key group in `v_key_order()`,
+    each q8(x, 127 / max(absmax, 1e-6)) and zero past T; head_scales
+    (B, 3, n_head) f32 those scales."""
+    b, t, c3 = qkv.shape
+    c = c3 // 3
+    tp = padded_t(t)
+    z = torch.stack([split_heads(part, n_head)
+                     for part in qkv.split(c, dim=-1)], dim=2)
+    scales = _scale127(z)                          # (B, n_head, 3, 1, 1)
+    z8 = torch.zeros((b, n_head, 3, tp, HEAD_DIM), dtype=torch.int8,
+                     device=qkv.device)
+    z8[..., :t, :] = quantize_act(z, scales)
+    v8 = z8[:, :, 2].transpose(-1, -2).reshape(b, n_head, HEAD_DIM,
+                                                tp // 32, 32)
+    z8[:, :, 2] = v8[..., v_key_order().to(qkv.device)].reshape(
+        b, n_head, tp, HEAD_DIM)
+    return (z8.reshape(b, n_head, 3, tp * HEAD_DIM),
+            scales.reshape(b, n_head, 3).transpose(1, 2).contiguous())
+
+
 def _attn_scratch(b, t, c, n_head, int8_attn, dev):
-    """h8a, y8 (B, T, C) int8, qkv (B, T, 3C) f32 and the int8
-    attention's per-head scales (B, 3, n_head) f32."""
+    """h8a, y8 (B, T, C) int8, qkv (B, T, 3C) f32, and the int8
+    attention's per-head scales (B, 3, n_head) f32 and int8 operands
+    qkv8 (B, n_head, 3, T_pad * 64) (`quantize_heads_reference`)."""
     h8a = torch.empty((b, t, c), dtype=torch.int8, device=dev)
     y8 = torch.empty_like(h8a)
     qkv = torch.empty((b, t, 3 * c), dtype=torch.float32, device=dev)
     head_scales = torch.empty((b, 3, n_head) if int8_attn else (1,),
                               dtype=torch.float32, device=dev)
-    return h8a, y8, qkv, head_scales
+    qkv8 = torch.empty((b, n_head, 3, padded_t(t) * HEAD_DIM)
+                       if int8_attn else (1,), dtype=torch.int8, device=dev)
+    return h8a, y8, qkv, head_scales, qkv8
 
 
 def _count(name: str, int8_attn: bool) -> None:
@@ -128,8 +180,8 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
                      int8_attn: bool = False, scratch: dict | None = None):
     """Operand-level entry of #2: the kernel on CUDA, the plain version
     on the CPU. scratch: a dict that receives the kernel's
-    intermediates, "h8a", "qkv", "y8" and "head_scales", to check them
-    stage by stage (CUDA only)."""
+    intermediates, "h8a", "qkv", "y8", "head_scales" and "qkv8", to
+    check them stage by stage (CUDA only)."""
     if x.device.type == "cpu":
         return fused_attn_block_quant_reference(
             x, w_qkv, w_proj, scales, vc, v3c, n_head=n_head,
@@ -149,17 +201,18 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
     h8 = torch.empty((b, t, c), dtype=torch.int8, device=dev)
     if b * t == 0:
         return x_mid, h8
-    h8a, y8, qkv, head_scales = _attn_scratch(b, t, c, n_head, int8_attn,
-                                              dev)
+    h8a, y8, qkv, head_scales, qkv8 = _attn_scratch(b, t, c, n_head,
+                                                    int8_attn, dev)
     if scratch is not None:
-        scratch.update(h8a=h8a, qkv=qkv, y8=y8, head_scales=head_scales)
+        scratch.update(h8a=h8a, qkv=qkv, y8=y8, head_scales=head_scales,
+                       qkv8=qkv8)
     lib = kernels.library()
     _count(_ATTN, int8_attn)
     err = lib.attn_block_quant(
         x.data_ptr(), w_qkv.data_ptr(), w_proj.data_ptr(), scales.data_ptr(),
         vc.data_ptr(), v3c.data_ptr(), h8a.data_ptr(), qkv.data_ptr(),
-        y8.data_ptr(), head_scales.data_ptr(), x_mid.data_ptr(),
-        h8.data_ptr(), b, t, c, n_head, sm_scale(c, n_head),
+        y8.data_ptr(), head_scales.data_ptr(), qkv8.data_ptr(),
+        x_mid.data_ptr(), h8.data_ptr(), b, t, c, n_head, sm_scale(c, n_head),
         int(int8_attn), kernels.stream_ptr(dev))
     kernels.check(err, _ATTN)
     return x_mid, h8
@@ -195,21 +248,22 @@ def block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, *,
     out = torch.empty_like(x)
     if b * t == 0:
         return out
-    h8a, y8, qkv, head_scales = _attn_scratch(b, t, c, n_head, int8_attn,
-                                              dev)
+    h8a, y8, qkv, head_scales, qkv8 = _attn_scratch(b, t, c, n_head,
+                                                    int8_attn, dev)
     x_mid = torch.empty_like(x)
     h8 = torch.empty_like(h8a)
     g8 = torch.empty((b, t, c4), dtype=torch.int8, device=dev)
     if scratch is not None:
         scratch.update(h8a=h8a, qkv=qkv, y8=y8, head_scales=head_scales,
-                       x_mid=x_mid, h8=h8, g8=g8)
+                       qkv8=qkv8, x_mid=x_mid, h8=h8, g8=g8)
     lib = kernels.library()
     _count(_FULL, int8_attn)
     err = lib.block_quant(
         x.data_ptr(), w_qkv.data_ptr(), w_proj.data_ptr(), w_fc.data_ptr(),
         w_mp.data_ptr(), scales.data_ptr(), vc.data_ptr(), v3c.data_ptr(),
         v4c.data_ptr(), h8a.data_ptr(), qkv.data_ptr(), y8.data_ptr(),
-        head_scales.data_ptr(), x_mid.data_ptr(), h8.data_ptr(),
+        head_scales.data_ptr(), qkv8.data_ptr(), x_mid.data_ptr(),
+        h8.data_ptr(),
         g8.data_ptr(), out.data_ptr(), b, t, c, c4, n_head,
         sm_scale(c, n_head), int(int8_attn),
         kernels.stream_ptr(dev))
