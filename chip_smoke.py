@@ -7,14 +7,17 @@ Builds the port's CUDA kernels from vq_vae_transformer_arc_welding_tpu_torch/csr
 builds the bench model (__graft_entry__._build's configuration) at full
 width from a seed, calibrates `WeldingQualityPipeline(precision="int8",
 encoder_impl="fused", max_batch=80)` on 8 windows and answers requests
-of 80, 37 and 1 windows through `classify` (block_fusion='attn'). Then
-it drives every other int8 path of `entry.make_pipeline_quantized` on
-the same requests: block_fusion 'full', 'attn8', 'full8', 'attn-bf16',
-'full-bf16', and fused_attention=True with fused_mlp both ways and
-fused_qkv=False. Each path's launch counts are set to 0 just before it
-and read just after: a path must launch exactly its own kernels, every
-kernel must be launched by some path, and each path's labels must equal
-its plain path's where the plain margin exceeds 1e-3.
+of 80, 37 and 1 windows through `classify` (block_fusion='attn'; its
+in-path saturation monitor keeps the eager int8 MLP). Then it drives
+every other int8 path of `entry.make_pipeline_quantized` on the same
+requests: block_fusion 'attn' (whose int8 MLP is two int8 GEMM calls a
+block, as on 'attn8' and 'attn-bf16'), 'full', 'attn8', 'full8',
+'attn-bf16', 'full-bf16', and fused_attention=True with fused_mlp both
+ways and fused_qkv=False. Each path's launch counts are set to 0 just
+before it and read just after: a path must launch exactly its own
+kernels (the attention-half paths the GEMM twice a block), every kernel
+must be launched by some path, and each path's labels must equal its
+plain path's where the plain margin exceeds 1e-3.
 
 Then the encoder paths on the same requests, each with its counts set
 to 0 before it: `encode_indices_fused` at the default group and at
@@ -76,7 +79,8 @@ pass and of the int8 attention beside their own bounds.
 Then token sampling, at the sampling batch of 16 and 320 KV-cached
 steps: `sample_tokens` on the calibrated pipeline (fresh and from a
 prompt), `generate_kv` greedy as 'xla', 'fused' (which must launch the
-block-decode kernel once per block and token and nothing else), with a
+block-decode kernel, one cooperative launch a call, once per block and
+token and nothing else), with a
 bf16 cache, bf16 weights and `cache_buckets=64`, `quantized_generate_kv`
 at batch 16 and 1, the attention-half kernel driven through
 `fused_decode_attn` per block, and an `attention_impl='pallas'` model
@@ -87,7 +91,11 @@ and where a free run leaves the 'xla' ids the plain top-2 margin there
 must be a near-tie. The three kernels are held against their plain
 versions on the model's own activations (every cache row but `pos`
 bit-equal to before), every variant's ms per token is timed, and a
-device trace counts the operations and the device time of a token.
+device trace counts the operations and the device time of a token. At
+the end torch.profiler gives #12's and #13's device time a call over a
+token's 8 blocks (cold operands) at pos 160 and 320, beside their
+bounds; and every kernel-level trace writes 64 MB between calls, so that
+no call reads the operands its predecessor left in L2.
 
 Then the deployment path. The bf16 encoder (kernel #1's `compute_dtype`
 variant): `encode_indices_fused(compute_dtype=torch.bfloat16)` on the
@@ -187,12 +195,14 @@ QUANT_PASS, INT8_ATTENTION = "head_quant_kernel", "attention_int8_kernel"
 GEMM_SHAPES = {"qkv": (3, 1, False, False), "c_proj": (1, 1, False, True),
                "c_fc": (4, 1, True, False), "m_proj": (1, 4, False, True)}
 # name, make_pipeline_quantized options, the kernels the path launches
+# (the attention-half paths run their int8 MLP as two int8 GEMM calls a
+# block: models/quantized.py::_mlp_int8_gemm)
 PATHS = (
-    ("attn", {"block_fusion": "attn"}, {ENC, ATTN}),
+    ("attn", {"block_fusion": "attn"}, {ENC, ATTN, GEMM}),
     ("full", {"block_fusion": "full"}, {ENC, FULL}),
-    ("attn8", {"block_fusion": "attn8"}, {ENC, ATTN8}),
+    ("attn8", {"block_fusion": "attn8"}, {ENC, ATTN8, GEMM}),
     ("full8", {"block_fusion": "full8"}, {ENC, FULL8}),
-    ("attn-bf16", {"block_fusion": "attn-bf16"}, {ENC, ATTN}),
+    ("attn-bf16", {"block_fusion": "attn-bf16"}, {ENC, ATTN, GEMM}),
     ("full-bf16", {"block_fusion": "full-bf16"}, {ENC, FULL}),
     ("fused_attention", {"block_fusion": None, "fused_attention": True},
      {ENC, QKV}),
@@ -396,14 +406,15 @@ def timed_in_turns(fns: dict, reps: int = REPS, warmup: int = 3,
     return out
 
 
-def device_profile(fn):
+def device_profile(fn, leave_out: str | None = None):
     """What one fn() puts on the card, from torch.profiler's device
     trace: (operations, their summed device time in ms, every name as
     [(name, count, ms)], most time first). (0, None, []) where the trace
     holds no device event. fn() runs three times in the session and only
     the last is kept: a trace loses some of the first events it should
     record (up to half of ten short calls on an H100), and the two
-    warm-up runs take that loss."""
+    warm-up runs take that loss. Kernels whose name holds `leave_out`
+    are left out of all three."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
@@ -416,7 +427,8 @@ def device_profile(fn):
     # the step's own range may be drawn on the device's timeline too
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.key.startswith("ProfilerStep")]
+           and not e.key.startswith("ProfilerStep")
+           and not (leave_out and leave_out in e.key)]
     n = sum(e.count for e in dev)
     if not n:
         return 0, None, []
@@ -428,21 +440,25 @@ def device_profile(fn):
 
 
 # the sources that instantiate csrc/attention_tc.cuh, the int8 GEMM
-# (csrc/int8_gemm_sm90.cuh) and the encoder tile (csrc/encoder_tc.cuh),
-# and the kernels ptxas reports on
+# (csrc/int8_gemm_sm90.cuh), the encoder tile (csrc/encoder_tc.cuh) and
+# the decode kernels (#12, #13), and the kernels ptxas reports on
 PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu", "encoder_chain.cu",
-                 "encoder_resblock.cu")
+                 "encoder_resblock.cu", "decode.cu")
 PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel",
                  "encoder_chain_kernel", "resblock_kernel", QUANT_PASS,
-                 INT8_ATTENTION)
+                 INT8_ATTENTION, "decode_kernel")
 # what each source's PTX must hold: Hopper's tensor-core product (in
-# TF32, with A split by cvt.rna, for the encoder), TMA copies, and the
-# int8 attention's s8 products
+# TF32, with A split by cvt.rna, for the encoder), TMA copies, the int8
+# attention's s8 products, and the decode kernels' split-TF32 mma.sync
+# fed by 1-D bulk copies and their grid barrier's arrival
 PTX_OPS = {
     "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor",
                       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"),
     "encoder_chain.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
                          "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
+    "decode.cu": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                  "cp.async.bulk.shared::cluster.global.mbarrier",
+                  "atom.acq_rel.gpu.inc.u32"),
 }
 
 
@@ -526,7 +542,8 @@ def plain_path():
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
         fused_attn as fflash, fused_attn_quant as fattn,
         fused_block_quant as fbq, fused_decode as fdec,
-        fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq)
+        fused_encoder as fenc, fused_mlp_quant as fmlp, fused_vq as fvq,
+        int8_gemm as igemm)
     with contextlib.ExitStack() as stack:
         for mod, name, plain in (
                 (fflash, "flash_causal_attention",
@@ -534,6 +551,9 @@ def plain_path():
                 (fdec, "fused_decode_attn", fdec.fused_decode_attn_reference),
                 (fdec, "fused_block_decode",
                  fdec.fused_block_decode_reference),
+                (fdec, "BlockDecodeStack",
+                 fdec.block_decode_stack_reference),
+                (igemm, "int8_gemm", igemm.int8_gemm_reference),
                 (fenc, "fused_encoder_eval",
                  without_split(fenc.fused_encoder_eval_reference)),
                 (fenc, "resblock_eval",
@@ -877,6 +897,7 @@ def sampling_phase(vq, tr, pipe, req, smi: str) -> dict:
                 log(f"kernel {name} time (batch {bs}, pos {pos}, mean of one "
                     f"token's {nb} calls): {fmt_ms(tm['kernel'])}, plain "
                     f"{fmt_ms(tm['plain'])}")
+        decode_operands = (x, full, flat)
 
     # -- S5. kernel #9: against the plain core, then through the entries ----
     library_ms = {}
@@ -996,7 +1017,8 @@ def sampling_phase(vq, tr, pipe, req, smi: str) -> dict:
             + f"; gpu {smi}")
 
     return {"launched": launched, "err": err, "times": times,
-            "library_ms": library_ms, "flash_qkv": flash_qkv}
+            "library_ms": library_ms, "flash_qkv": flash_qkv,
+            "decode_operands": decode_operands}
 
 
 
@@ -1033,6 +1055,47 @@ def sampling_trace(tr, pipe) -> None:
                         f"{ms / n:.4f} ms" for key, cnt, ms in top[:5]))
 
 
+def decode_trace(tr, operands, bounds: dict, smi: str) -> dict:
+    """Device time of a call of #13 and #12 (one cooperative launch each)
+    from torch.profiler, over one token's calls through the model's 8
+    blocks, each with its own weights and caches (at batch 16 a token's
+    calls read 270 MB against 50 MB of L2: every call is cold), at
+    TIMED_POSITIONS, beside the bound of `kernel_work` at each position
+    (`bounds`: {(kernel, pos): (ms, by)}). Returns {kernel: ms a call} at
+    the first position."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_decode as fdec)
+    x, full, flat = operands
+    nb, nh = tr.n_blocks, tr.n_head
+    out = {}
+    with torch.inference_mode():
+        for pos in TIMED_POSITIONS:
+            for name, fn, store in (
+                    (DEC_BLOCK, fdec.fused_block_decode, flat),
+                    (DEC_ATTN, fdec.fused_decode_attn, full)):
+                def token(fn=fn, store=store, pos=pos):
+                    for blk, (k_c, v_c) in zip(tr.blocks, store):
+                        fn(x, blk, k_c, v_c, pos, n_head=nh)
+                n_ops, busy, names = device_profile(token)
+                bound, by = bounds[name, pos]
+                if busy is None:
+                    log(f"device trace of {name} at pos {pos}: no device "
+                        f"event, not measured")
+                    continue
+                if pos == TIMED_POSITIONS[0]:
+                    out[name] = busy / nb
+                log(f"device trace of {name} (batch {SAMPLE_BATCH}, pos "
+                    f"{pos}, a token's {nb} calls, cold): {busy / nb:.4f} "
+                    f"ms and {n_ops / nb:.1f} device operations a call, "
+                    f"bound {bound:.4f} ms by {by} ({bound / (busy / nb):.1%} "
+                    f"of the time taken): "
+                    + "; ".join(f"{key[:50]} x {cnt / nb:.1f}"
+                                for key, cnt, _ in names)
+                    + f"; gpu {smi}")
+    return out
+
+
 def in_a_row(fns: dict, calls: int = 10) -> dict:
     """Time of one call of each fn when `calls` calls run in a row
     between two CUDA events, in turns (timed_in_turns, per=calls): once
@@ -1041,16 +1104,30 @@ def in_a_row(fns: dict, calls: int = 10) -> dict:
                            for name, fn in fns.items()}, per=calls)
 
 
+# written between the calls of a kernel trace, larger than the card's L2
+# (50 MB), so that no call reads the operands its predecessor left there;
+# its kernel (the only bitwise_not of the script) is left out by name
+FLUSH_BYTES, FLUSH_KEY = 64 << 20, "bitwise_not"
+
+
 def kernel_trace(fns: dict, calls: int = 10) -> dict:
     """Device time of one call of each fn, from torch.profiler over
-    `calls` calls in a row: what CUDA events around one call see
-    without the host's launch. {name: (ms, device operations, [(kernel,
-    launches, ms a launch)]) per call}, (None, 0, []) where the trace
-    holds no device event."""
+    `calls` calls, each after a 64 MB write that evicts its operands from
+    L2: what CUDA events around one call see without the host's launch,
+    on cold operands. {name: (ms, device operations, [(kernel, launches,
+    ms a launch)]) per call}, (None, 0, []) where the trace holds no
+    device event."""
+    import torch
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def cold(fn):
+        flush.bitwise_not_()
+        return fn()
+
     out = {}
     for name, fn in fns.items():
         n_ops, busy, names = device_profile(
-            lambda: [fn() for _ in range(calls)])
+            lambda: [cold(fn) for _ in range(calls)], leave_out=FLUSH_KEY)
         out[name] = (None, 0, []) if busy is None else (
             busy / calls, n_ops / calls,
             [(key, cnt / calls, ms / cnt) for key, cnt, ms in names])
@@ -1222,7 +1299,7 @@ def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
         fn_bf = make_pipeline_quantized(vq, tr, qp, encoder_dtype=bf)
         fn_32 = make_pipeline_quantized(vq, tr, qp)
         logits, counts = counted(lambda: [fn_bf(xr) for xr in xreqs])
-        check(set(counts) == {ENC_BF16, ATTN}
+        check(set(counts) == {ENC_BF16, ATTN, GEMM}
               and counts[ENC_BF16] == len(xreqs),
               f"make_pipeline_quantized(encoder_dtype=bf16) launched "
               f"{json.dumps(counts)}")
@@ -1734,6 +1811,11 @@ def main() -> int:
             check(set(counts) == want,
                   f"path {name} launched {sorted(counts)}, expected "
                   f"{sorted(want)}")
+            if GEMM in want:
+                n_gemm = 2 * tr.n_blocks * len(xreqs)
+                check(counts[GEMM] == n_gemm,
+                      f"path {name} launched {GEMM} {counts[GEMM]} times, "
+                      f"expected two a block: {n_gemm}")
             for kernel, n in counts.items():
                 launched.setdefault(kernel, (name, n))
             checked = rest = 0
@@ -1876,10 +1958,9 @@ def main() -> int:
     bf16 = bf16_encoder_phase(vq, tr, qp, xreqs, fns["full"], smi)
     launched.update(bf16["launched"])
 
-    # the GEMM alone is the GEMM phase's (section 7): no path launches it
-    check(set(launched) == set(kernels.launches) - {GEMM},
+    check(set(launched) == set(kernels.launches),
           f"kernels no path launched: "
-          f"{sorted(set(kernels.launches) - {GEMM} - set(launched))}")
+          f"{sorted(set(kernels.launches) - set(launched))}")
 
     with torch.inference_mode():
         x80 = xreqs[0]
@@ -2310,10 +2391,18 @@ def main() -> int:
         + f"; gpu {smi}")
 
     sampling_trace(tr, pipe)
+    dec_bounds = {
+        (name, pos): bound_of(kernel_work(
+            n_rows, c_, grp, nb, vq.patch_size, vq.embedding_dim,
+            vq.num_embeddings, n80, tr.seq_len, tr.n_head, SAMPLE_BATCH,
+            pos)[name])
+        for name in (DEC_ATTN, DEC_BLOCK) for pos in TIMED_POSITIONS}
+    device_ms = decode_trace(tr, sampling["decode_operands"], dec_bounds,
+                             smi)
     pipeline_trace(fns, x80)
     with torch.inference_mode():
         traced = kernel_trace(attention_fns)
-    device_ms = {name: ms for name, (ms, _, _) in traced.items()}
+    device_ms.update({name: ms for name, (ms, _, _) in traced.items()})
     for name, (ms, n_ops, kernels_of) in traced.items():
         log(f"device trace of {name} ({shape}), 10 calls: "
             + ("not measured" if ms is None else

@@ -19,9 +19,10 @@ with int8_attn) is held bit for bit: its scales and int8 operands are
 one rounding each, as in the plain version. The int8 GEMM that #2, #6, #8 and #10 share,
 launched alone, is held bit for bit against its plain stage: its s32
 sums are exact and its epilogue rounds as the plain version does. The
-f32 attention kernel (#9) and the decode kernels (#12, #13) sum 64- to
-2048-term products in other orders than the plain versions and may
-contract FMAs: 2e-5 on the attention output
+f32 attention kernel (#9) and the decode kernels (#12, #13; their
+products in split TF32 on the tensor cores) sum 64- to 2048-term
+products in other orders than the plain versions and may contract FMAs:
+2e-5 on the attention output
 and the written cache row, 1e-4 on the residual stream; every cache row
 but `pos` must stay bit-equal. The bf16 encoder chain (#1's
 `compute_dtype` variant) rounds each product input to bf16: an ulp of
@@ -858,7 +859,16 @@ def _decode_block(dev, c, n_head, seed=0):
 DECODE_SHAPES = [(3, 128, 2, 45, (0, 17, 44)),
                  (16, 512, 8, 321, (0, 127, 128, 320)),
                  (1, 512, 8, 321, (160,)),
-                 (20, 256, 4, 70, (69,))]      # two tiles of 16 rows
+                 (20, 256, 4, 70, (69,)),      # two tiles of 16 rows
+                 (80, 512, 8, 321, (320,)),    # five tiles, weights on chip
+                 # weights streamed through the ring (more than fit on
+                 # chip), over two row tiles, and a width the parent refused
+                 (20, 768, 12, 40, (0, 39)),
+                 (2, 1024, 16, 33, (32,)),
+                 # an odd number of 64-wide heads: a warp's k slice ends
+                 # in half a 16-column block
+                 (5, 192, 3, 30, (0, 29)),
+                 (2, 64, 1, 10, (9,))]
 
 
 @pytest.mark.parametrize("b,c,n_head,t,positions", DECODE_SHAPES)
@@ -905,6 +915,112 @@ def test_decode_attn_kernel_matches_plain(dev, b, c, n_head, t, positions):
         for got, want, before in ((kc, kr, k0), (vc, vr, v0)):
             assert (got[:, :, pos] - want[:, :, pos]).abs().max() <= 2e-5
             assert torch.equal(got[:, :, rest], before[:, :, rest])
+
+
+def _decode_operands(dev, b=16, c=512, n_head=8, t=321, layout="flat"):
+    g = torch.Generator().manual_seed(11)
+    shape = (b, t, c) if layout == "flat" else (b, n_head, t, c // n_head)
+    return (torch.randn(b, 1, c, generator=g).to(dev),
+            torch.randn(*shape, generator=g).to(dev),
+            torch.randn(*shape, generator=g).to(dev))
+
+
+@pytest.mark.parametrize("fn,layout", [("fused_block_decode", "flat"),
+                                       ("fused_decode_attn", "heads")])
+def test_decode_kernels_give_the_same_bits_twice(dev, fn, layout):
+    """Sums in a fixed order and no float atomics: two calls on the same
+    operands give bit-equal outputs and cache rows."""
+    blk = _decode_block(dev, 512, 8)
+    x, kc, vc = _decode_operands(dev, layout=layout)
+    k2, v2 = kc.clone(), vc.clone()
+    out1, _, _ = getattr(fused_decode, fn)(x, blk, kc, vc, 160, n_head=8)
+    out2, _, _ = getattr(fused_decode, fn)(x, blk, k2, v2, 160, n_head=8)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
+
+
+def test_decode_kernel_grid_barrier_holds_over_a_thousand_calls(dev):
+    """1,000 launches of #13 in a row (every position of a 321-row cache,
+    three times) finish: the grid barrier leaves its count at 0 after
+    each launch and never hangs; the last output equals a fresh call's."""
+    blk = _decode_block(dev, 512, 8)
+    x, kc, vc = _decode_operands(dev, b=4)
+    before = kernels.launches["block_decode_f32"]
+    for i in range(1000):
+        out, _, _ = fused_decode.fused_block_decode(x, blk, kc, vc, i % 321,
+                                                    n_head=8)
+    torch.cuda.synchronize()
+    assert kernels.launches["block_decode_f32"] == before + 1000
+    again, _, _ = fused_decode.fused_block_decode(x, blk, kc, vc, 999 % 321,
+                                                  n_head=8)
+    assert torch.equal(out, again)
+    assert int(fused_decode._barrier(dev)[0]) == 0
+
+
+def test_block_decode_stack_launches_once_a_block(dev):
+    """BlockDecodeStack (the generation's path, operands checked once):
+    one launch a block a token, the same bits as fused_block_decode per
+    block, and the same cache rows."""
+    _, tr = entry.build(d_model=512, n_blocks=3, n_heads=8, hidden=64,
+                        n_res=1, k=32, d=16, seed=3, device=dev)
+    g = torch.Generator().manual_seed(12)
+    caches = [tuple(torch.randn(16, 321, 512, generator=g).to(dev)
+                    for _ in range(2)) for _ in range(3)]
+    ref_caches = [tuple(z.clone() for z in kv) for kv in caches]
+    stack = fused_decode.BlockDecodeStack(tr.blocks, caches, n_head=8)
+    x = torch.randn(16, 1, 512, generator=g).to(dev)
+    for pos in (5, 200):
+        before = kernels.launches["block_decode_f32"]
+        got = stack(x, pos)
+        torch.cuda.synchronize()
+        assert kernels.launches["block_decode_f32"] == before + 3
+        want = x
+        for blk, (kc, vc) in zip(tr.blocks, ref_caches):
+            want, _, _ = fused_decode.fused_block_decode(want, blk, kc, vc,
+                                                         pos, n_head=8)
+        assert torch.equal(got, want)
+    for kv, ref in zip(caches, ref_caches):
+        assert all(torch.equal(z, r) for z, r in zip(kv, ref))
+
+
+@pytest.mark.parametrize("fusion", ["attn", "attn8", "attn-bf16"])
+def test_attn_paths_run_their_mlp_through_the_int8_gemm(dev, fusion):
+    """'attn', 'attn8' and 'attn-bf16' launch the int8 GEMM twice a block
+    (c_fc with GELU+q8, m_proj with the residual), and their logits are
+    bit-equal to the same path with the MLP as the eager qdot chain."""
+    from vq_vae_transformer_arc_welding_tpu_torch.models import (
+        quantized as pq)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.activations import (
+        new_gelu)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        WeldingQualityPipeline)
+    vq, tr = entry.build(n_blocks=2, seed=0, device=dev)
+    windows = np.random.default_rng(0).standard_normal(
+        (6, entry.N_CYCLES * 200, 2)).astype(np.float32)
+    pipe = WeldingQualityPipeline(vq, tr, n_cycles=entry.N_CYCLES,
+                                  precision="int8")
+    pipe.calibrate(windows[:2])
+    fn = entry.make_pipeline_quantized(vq, tr, pipe.qparams,
+                                       block_fusion=fusion)
+    x = torch.from_numpy(windows).to(dev)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        assert kernels.launches["int8_gemm"] == 2 * 2
+
+        def eager(blk, h8, resid):
+            g = new_gelu(pq.qdot_prequantized(h8, blk["c_fc"]))
+            return resid + pq.qdot(g, blk["m_proj"])
+
+        real = pq._mlp_int8_gemm
+        pq._mlp_int8_gemm = eager
+        try:
+            ref = fn(x)
+        finally:
+            pq._mlp_int8_gemm = real
+    assert torch.equal(out, ref)
 
 
 def test_decode_wrappers_reject_bad_operands(dev):

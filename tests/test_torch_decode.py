@@ -162,6 +162,69 @@ def test_decode_wrappers_refuse_other_devices(fn):
                                   n_head=HEADS)
 
 
+def _block_stack(c=128, n_head=2, n_blocks=2, b=2, t=9):
+    """A CPU model at a width the card's #13 takes, and (B, T, C) caches."""
+    _, tr = entry.build(d_model=c, n_blocks=n_blocks, n_heads=n_head,
+                        hidden=64, n_res=1, k=32, d=16, seed=0,
+                        device="cpu")
+    caches = [(torch.zeros(b, t, c), torch.zeros(b, t, c))
+              for _ in range(n_blocks)]
+    return tr, caches
+
+
+def test_block_decode_stack_check_raises_before_any_launch():
+    """The checks that BlockDecodeStack runs once a generation
+    (check_stack) and once a token (check_step) refuse, on CPU tensors,
+    each operand that tests/test_torch_cuda.py::
+    test_decode_wrappers_reject_bad_operands gives the card; #12's
+    layout and device cases through its wrapper's check."""
+    tr, caches = _block_stack()
+    blocks = list(tr.blocks)
+    x = torch.zeros(2, 1, 128)
+    heads = [tuple(torch.zeros(2, 2, 9, 64) for _ in range(2))] * 2
+    fused_decode.check_stack(blocks, caches, n_head=2)
+    fused_decode.check_step(x, 8, caches)
+    bad = [
+        lambda: fused_decode.check_step(x, 9, caches),           # pos == T
+        lambda: fused_decode.check_step(x, -1, caches),
+        lambda: fused_decode.check_step(x, torch.tensor(3), caches),
+        lambda: fused_decode.check_stack(blocks, heads, n_head=2),  # layout
+        lambda: fused_decode.check_stack(
+            blocks, [tuple(z.bfloat16() for z in kv) for kv in caches],
+            n_head=2),
+        lambda: fused_decode.check_stack(blocks, caches, n_head=4),  # 32 wide
+        lambda: fused_decode.check_step(x.expand(2, 2, 128), 0, caches),
+        lambda: fused_decode._checked(
+            "decode_attn_f32", x, blocks[0], *caches[0], (2, 2, 9, 64), 0,
+            2, mlp=False),                                        # layout
+        lambda: fused_decode._checked(
+            "decode_attn_f32", x, blocks[0], heads[0][0],
+            heads[0][1].to("meta"), (2, 2, 9, 64), 0, 2, mlp=False),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_block_decode_stack_runs_the_plain_blocks_on_cpu(rng):
+    """On the CPU the stack takes each block through the plain version;
+    its reference factory gives the same bits, caches written alike."""
+    tr, caches = _block_stack(b=3, t=11)
+    ref_caches = [tuple(z.clone() for z in kv) for kv in caches]
+    x = _t(rng.standard_normal((3, 1, 128)).astype(np.float32))
+    stack = fused_decode.BlockDecodeStack(tr.blocks, caches, n_head=2)
+    plain = fused_decode.block_decode_stack_reference(tr.blocks, ref_caches,
+                                                      n_head=2)
+    for pos in (0, 1, 7):
+        got, want = stack(x, pos), plain(x, pos)
+        assert torch.equal(got, want)
+        x = got
+    for kv, ref in zip(caches, ref_caches):
+        for z, r in zip(kv, ref):
+            assert torch.equal(z, r)
+            assert bool(z[:, :2].abs().sum() > 0)
+
+
 # -- kernel #9 ------------------------------------------------------------------
 
 def _qkv(rng, shape):

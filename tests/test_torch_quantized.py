@@ -20,7 +20,8 @@ import jax.numpy as jnp
 
 from vq_vae_transformer_arc_welding_tpu.models import quantized as jq
 from vq_vae_transformer_arc_welding_tpu_torch.models import quantized as pq
-from vq_vae_transformer_arc_welding_tpu_torch.ops import int8
+from vq_vae_transformer_arc_welding_tpu_torch.ops import int8, int8_gemm
+from vq_vae_transformer_arc_welding_tpu_torch.ops.activations import new_gelu
 
 import torch_port_helpers as H
 
@@ -199,6 +200,72 @@ def test_fused_block_needs_calibration():
     with pytest.raises(ValueError):
         pq.quantized_classify(port, qp, torch.from_numpy(H.token_ids(2)),
                               block_fusion="attn")
+
+
+# -- the 'attn' int8 MLP through the int8 GEMM ---------------------------------
+
+def _eager_mlp(blk, h8, resid):
+    """The int8 MLP after kernel #2 as the eager qdot chain (the parent
+    routing): resid + qdot(new_gelu(qdot_prequantized(h8, c_fc)),
+    m_proj)."""
+    g = new_gelu(pq.qdot_prequantized(h8, blk["c_fc"]))
+    return resid + pq.qdot(g, blk["m_proj"])
+
+
+def _gemm_calls(monkeypatch):
+    """The int8 GEMM wrapper's calls as (epilogue,) tuples."""
+    calls = []
+    real = int8_gemm.int8_gemm
+
+    def spy(a8, w8, cs, cb, resid=None, qscale=None):
+        calls.append("gelu_q8" if qscale is not None else "resid")
+        return real(a8, w8, cs, cb, resid, qscale)
+
+    monkeypatch.setattr(int8_gemm, "int8_gemm", spy)
+    return calls
+
+
+@pytest.mark.parametrize("fusion,tol", [("attn", 1e-3), ("attn8", 2e-2),
+                                        ("attn-bf16", 5e-2)])
+def test_attn_mlp_runs_the_int8_gemm_bit_equal_to_the_eager_chain(
+        monkeypatch, fusion, tol):
+    """Without sat_rows the attention-half paths run their MLP as two
+    int8 GEMM calls a block (c_fc with the GELU+q8 epilogue, m_proj with
+    the residual): logits bit-equal to the eager chain's, and within the
+    JAX tolerance of JAX's quantized_classify, as the eager chain is."""
+    jm, _, _, jqp, port, _ = _calibrated()
+    qp = H.port_qparams(jqp)
+    ids = H.token_ids(4, seed=9)
+    calls = _gemm_calls(monkeypatch)
+    out = pq.quantized_classify(port, qp, torch.from_numpy(ids),
+                                block_fusion=fusion)
+    assert calls == ["gelu_q8", "resid"] * len(qp["blocks"])
+    with monkeypatch.context() as m:
+        m.setattr(pq, "_mlp_int8_gemm", _eager_mlp)
+        eager = pq.quantized_classify(port, qp, torch.from_numpy(ids),
+                                      block_fusion=fusion)
+    assert len(calls) == 2 * len(qp["blocks"])
+    assert torch.equal(out, eager)
+    ref = jq.quantized_classify(jm, jqp, jnp.asarray(ids),
+                                block_fusion=fusion)
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=tol)
+    np.testing.assert_array_equal(_np(out).argmax(-1),
+                                  np.asarray(ref).argmax(-1))
+
+
+@pytest.mark.parametrize("fusion", ["attn", "attn8"])
+def test_attn_mlp_keeps_the_eager_chain_for_sat_rows(monkeypatch, fusion):
+    """sat_rows reads the f32 m_proj input, which the GEMM's GELU+q8
+    epilogue never writes: that path keeps the eager chain and calls the
+    int8 GEMM not at all."""
+    _, _, _, jqp, port, _ = _calibrated()
+    qp = H.port_qparams(jqp)
+    calls = _gemm_calls(monkeypatch)
+    rows = []
+    pq.quantized_classify(port, qp, torch.from_numpy(H.token_ids(2)),
+                          block_fusion=fusion, sat_rows=rows)
+    assert calls == []
+    assert len(rows) == 2 * len(qp["blocks"]) + 2
 
 
 # -- the opt-in int8 encoder ----------------------------------------------------

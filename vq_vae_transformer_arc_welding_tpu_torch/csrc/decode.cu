@@ -1,5 +1,5 @@
 // decode: one token of KV-cached sampling through a transformer block,
-// the attention half (#12) or the whole block (#13).
+// the attention half (#12) or the whole block (#13), as one launch.
 //
 // Replaces vq_vae_transformer_arc_welding_tpu/ops/pallas_decode.py:
 //   fused_decode_attn  (pallas_call at :149, _decode_body):
@@ -11,340 +11,1075 @@
 //                                           caches (B, T, C), time-major
 // x is (B, 1, C): one row per stream.
 //
-// The TPU kernels run one program per sample, each streaming every
-// weight of the block through VMEM. On an H100 this work is bound by
-// bytes (12.6 MB of f32 weights and 2 B (pos + 1) C 4 bytes of cache per
-// block and token at C = 512, against 0.1 GFLOP at B = 16), so the
-// weights are read once by the whole card: the output columns of each
-// product are split over the blocks, the (up to 16) activation rows lie
-// in shared memory, and every block computes all rows for its columns.
-// LayerNorm of 16 rows is cheap enough to redo in every block. The
-// attention is one block per (sample, head) and reads only rows 0..pos
-// of K and V. The stages depend on each other across the whole grid, so
-// one TPU kernel becomes a sequence of launches on one stream inside one
-// C entry: five for #13 (qkv, attention, c_proj, LN2 + c_fc + GELU,
-// m_proj), the first three for #12. A cooperative kernel with grid-wide
-// barriers would save the launches but needs every block resident at
-// once, which the 128 KB of activations of the last product does not
-// allow together with the attention's blocks; plain launches are also
-// what a CUDA graph around the token loop can capture later.
-// #12 and #13 differ only in the caches' layout, which the kernels take
-// as strides, so both entries share every kernel of this file.
+// What bounds it on an H100: bytes. At C = 512 a block's f32 weights are
+// 12.6 MB and the cache rows 0..pos of B = 16 streams 10.5 MB at pos 160,
+// against 0.1 GFLOP of products: 6.9 us at 3.35 TB/s. The TPU kernels run
+// one program per sample, each streaming every weight through VMEM; here
+// the weights are read once by the whole card:
+//
+//  - One cooperative launch: a persistent grid of one block per SM
+//    (cudaLaunchCooperativeKernel, so that a grid the card cannot hold at
+//    once is refused, not hung), its phases separated by grid barriers:
+//    qkv and the K/V row write | attention | c_proj + residual [| LN2 +
+//    c_fc + GELU | m_proj + residual]: two barriers for #12, four for #13.
+//  - Weights stream independently of the phases. Each block owns a run
+//    of output columns of every product (w is (n, k), torch's Linear
+//    layout, so a run of columns is one range of bytes) and, at its first
+//    instruction, issues all of them as 1-D TMA copies (cp.async.bulk)
+//    into shared memory, one copy and one mbarrier per chunk of 8 columns
+//    x KC. At C = 512 on 132 SMs that is ~95 KB a block, all of it on chip
+//    ~6 us into the launch. Where a block's weights do not fit (C = 768
+//    and up), the chunks stream through a ring of slots in the order they
+//    are used, each slot refilled once every warp is done with it.
+//  - The activations, x, y, x_mid and g, are read whole by every block:
+//    a row tile of 16 rows x KC columns at a time comes into shared
+//    memory by TMA too (one copy where the rows are one range), NBUF
+//    tiles in flight. Read as mma fragments straight from L2, the 132
+//    blocks' scattered 4-byte loads of the same few KB took 5-9 us a
+//    product. LayerNorm's statistics come from the tile where it holds
+//    the rows whole, else from L2.
+//  - m_proj (k = c4) is split over the grid by k pieces: a block reads
+//    one piece of g and not all four, and the last block of a column
+//    range to finish adds the pieces' partial sums in order.
+//  - Products on the tensor cores: a row tile is mma's m16, a chunk's 8
+//    columns its n8, the 8 warps split a chunk's k. Inside each 16-column
+//    block the k order is permuted (a thread's 4 consecutive columns are
+//    its fragment columns tg and tg + 4 of two k8 steps), so that A and W
+//    are read as float4s (two-way bank conflicts, which cost less than a
+//    padded layout's one TMA copy a row). Split TF32 (hi*hi + hi*lo +
+//    lo*hi) keeps f32 accuracy; hi is x rounded to TF32 by integer
+//    arithmetic and lo = x - hi, exact, whose low bits the tensor core
+//    drops (cvt.rna's throughput held the first version's products). Two
+//    accumulators a chunk keep the tensor core's dependent chains short.
+//    The warps' partial sums are added in a fixed order in shared memory.
+//    Batches above 16 rows walk row tiles over the weights on chip.
+//  - Attention: one (sample, head) per block at a time (128 at batch 16),
+//    reading only rows 0..pos; a half warp takes a key (16 lanes x float4
+//    are its 64 floats) and loads UNROLL keys' K and V rows at once, the
+//    first round of them (all but row pos) before the barrier that ends
+//    the qkv product; its softmax runs online (flash-decoding within the
+//    block), so any T is taken and no score leaves the registers.
+//  - Deterministic: every sum runs in a fixed order and no float atomic
+//    is used, so two calls give the same bits. FMA contraction is allowed:
+//    the contract with the plain version is a tolerance.
+//
+// Where the time goes: scripts/bench_decode_variants.py (a build that
+// stamps every phase); the card's times: PERF.md.
 //
 // What the TPU shaped and this port drops: the 128-row DMA chunks (any T
 // is taken), the token row padded to 8 rows, the 8-row write-back window
 // (only row `pos` of K and V is written; every other row stays as it
 // was), and the bias folded into the product through a ones column (the
-// bias is added after the sum). FMA contraction is allowed: the contract
-// with the plain version is a tolerance, not bits.
-#include "common.cuh"
+// bias is added after the sum).
+#include <mutex>
+
+#include "attention_tc.cuh"
 
 namespace {
 
-constexpr int ROWS = 16;          // activation rows per block
+using arcweld::attn_tc::mma_tf32;
+
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int HD = 64;            // head width the attention is written for
+constexpr int HD = 64;             // head width the attention is written for
+constexpr int ROWS = 16;           // a row tile: mma's m16
+constexpr int NCOL = 8;            // weight rows (output columns) a chunk: n8
+constexpr int MAX_KC = 512;        // a chunk's k extent, at most
+constexpr int KBLOCKS = MAX_KC / (16 * WARPS);  // 16-column blocks a warp
+constexpr int MAX_CG = 4;          // chunks of a product in one k piece
+constexpr int MAX_COLS = MAX_CG * NCOL;        // a block's columns a product
+constexpr int NBUF = 3;            // A tiles in flight
+constexpr int MAX_BARS = 64;       // chunks (resident) or ring slots
+constexpr int UNROLL = 16;         // keys a half warp has in flight
+constexpr int LN_VEC = 8;          // float4s of a LayerNorm row a lane:
+                                   // C <= 1024
+constexpr int N_PRODUCTS = 4;      // qkv, c_proj, c_fc, m_proj
+constexpr int MAX_GRID = 1024;     // blocks; the barrier's counts follow
 
-enum Prologue { COPY, LAYER_NORM };
+// shared memory: mbarriers (the ring's, then the A tiles') | weight ring |
+// NBUF A tiles | partial sums | LN statistics | the attention's partial
+// outputs and the half warps' max and sum
+constexpr int TILE_FLOATS = ROWS * MAX_KC;
+constexpr int RED_FLOATS = WARPS * MAX_CG * ROWS * NCOL;
+constexpr int STAT_FLOATS = 2 * ROWS;
+constexpr int ATT_FLOATS = 16 * HD + 32;
+constexpr size_t SMEM = 232448;    // the most a block may have
+// the ring and the tiles are copied to in 16-byte units
+constexpr size_t BAR_BYTES = (8 * (MAX_BARS + NBUF) + 127) / 128 * 128;
+constexpr size_t RING =
+    (SMEM - BAR_BYTES -
+     sizeof(float) * (NBUF * TILE_FLOATS + RED_FLOATS + STAT_FLOATS +
+                      ATT_FLOATS)) / 128 * 128;
+
 enum Epilogue { QKV, RESIDUAL, GELU };
-
-// Row `pos` of K and V: element (b, h, pos, e) at b*sb + h*sh + pos*st + e.
-struct CacheRow {
-  float* k;
-  float* v;
-  long long sb, sh, st;
-  int pos;
-};
-
-// out[row, col] = epilogue(sum_i act[row, i] * w[col, i] + bias[col]) for
-// all `batch` rows (16 per block along grid.y) and the block's columns.
-//   act = a (COPY) or LayerNorm(a) * ln_s + ln_b (LAYER_NORM), (batch, k);
-//   w (n, k), torch's Linear layout, so a column's weights are contiguous.
-//   QKV: n = 3C; columns < C go to out (batch, C), the next C to row `pos`
-//        of the K cache, the last C to row `pos` of the V cache;
-//   RESIDUAL: out (batch, n) = resid + (sum + bias);
-//   GELU: out (batch, n) = new_gelu(sum + bias).
-// A warp holds two columns and 16 rows of partial sums; `kw` warps share
-// a column pair and split k between them, so a block of 8 warps computes
-// 16 / kw columns. Their partial sums are added in a fixed order.
-template <Prologue PRO, Epilogue EPI>
-__global__ void __launch_bounds__(THREADS)
-rows_gemm_kernel(const float* __restrict__ a, const float* __restrict__ ln_s,
-                 const float* __restrict__ ln_b, const float* __restrict__ w,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ resid, float* __restrict__ out,
-                 CacheRow cache, int batch, int n, int k, int kw) {
-  extern __shared__ float4 sm4[];
-  float* act = reinterpret_cast<float*>(sm4);    // ROWS x k
-  float* red = act + (size_t)ROWS * k;           // WARPS x 2 x ROWS
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.y * ROWS;
-
-  for (int r = warp; r < ROWS; r += WARPS) {
-    float* dst = act + (size_t)r * k;
-    const int row = row0 + r;
-    if (row >= batch) {
-      for (int i = lane; i < k; i += 32) dst[i] = 0.0f;
-      continue;
-    }
-    const float* src = a + (size_t)row * k;
-    if (PRO == COPY) {
-      for (int i = lane; i < k; i += 32) dst[i] = src[i];
-    } else {
-      float s = 0.0f;
-      for (int i = lane; i < k; i += 32) s += src[i];
-      const float mean = arcweld::warp_sum(s) / (float)k;
-      float q = 0.0f;
-      for (int i = lane; i < k; i += 32) {
-        const float d = src[i] - mean;
-        q += d * d;
-      }
-      const float var = arcweld::warp_sum(q) / (float)k;
-      for (int i = lane; i < k; i += 32)
-        dst[i] = arcweld::norm_affine(src[i], mean, var, ln_s[i], ln_b[i]);
-    }
-  }
-  __syncthreads();
-
-  const int pairs = WARPS / kw;                  // column pairs per block
-  const int pair = warp / kw, part = warp % kw;
-  const int k4 = k / 4, slice4 = k4 / kw;
-  const int col0 = (blockIdx.x * pairs + pair) * 2;
-  const float4* w0 =
-      reinterpret_cast<const float4*>(w + (size_t)col0 * k) + part * slice4;
-  const float4* w1 = w0 + k4;
-  const float4* a4 = reinterpret_cast<const float4*>(act) + part * slice4;
-  float acc0[ROWS], acc1[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc0[r] = acc1[r] = 0.0f;
-  for (int i = lane; i < slice4; i += 32) {
-    const float4 u = w0[i], v = w1[i];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 x = a4[r * k4 + i];
-      acc0[r] += x.x * u.x + x.y * u.y + x.z * u.z + x.w * u.w;
-      acc1[r] += x.x * v.x + x.y * v.y + x.z * v.z + x.w * v.w;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    acc0[r] = arcweld::warp_sum(acc0[r]);
-    acc1[r] = arcweld::warp_sum(acc1[r]);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      red[(warp * 2 + 0) * ROWS + r] = acc0[r];
-      red[(warp * 2 + 1) * ROWS + r] = acc1[r];
-    }
-  }
-  __syncthreads();
-
-  if (tid >= pairs * 2 * ROWS) return;
-  const int p = tid / (2 * ROWS), j = (tid / ROWS) % 2, r = tid % ROWS;
-  const int row = row0 + r;
-  if (row >= batch) return;
-  float sum = 0.0f;
-  for (int i = 0; i < kw; ++i) sum += red[((p * kw + i) * 2 + j) * ROWS + r];
-  const int col = (blockIdx.x * pairs + p) * 2 + j;
-  const float y = sum + bias[col];
-  if (EPI == QKV) {
-    const int c = n / 3;
-    if (col < c) {
-      out[(size_t)row * c + col] = y;
-    } else {
-      const int cc = (col - c) % c;
-      float* dst = col < 2 * c ? cache.k : cache.v;
-      dst[row * cache.sb + (cc / HD) * cache.sh + cache.pos * cache.st +
-          cc % HD] = y;
-    }
-  } else if (EPI == RESIDUAL) {
-    out[(size_t)row * n + col] = resid[(size_t)row * n + col] + y;
-  } else {
-    out[(size_t)row * n + col] = arcweld::new_gelu(y);
-  }
-}
-
-// max or sum over the block's 8 warps; `red` holds 8 floats
-template <bool MAX>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-  v = MAX ? arcweld::warp_max(v) : arcweld::warp_sum(v);
-  __syncthreads();               // the previous use of red is over
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < WARPS; ++i) r = MAX ? fmaxf(r, red[i]) : r + red[i];
-  return r;
-}
-
-// One block per (head, sample): y[b, h*64 ..] = softmax(q . K[:pos+1]^T *
-// sm_scale) V[:pos+1], reading only rows 0..pos of the caches. A half
-// warp takes a key: 16 lanes x float4 are the key's 64 floats. q, y
-// (batch, C).
-__global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const float* __restrict__ q,
-                        const float* __restrict__ kc,
-                        const float* __restrict__ vc, long long sb,
-                        long long sh, long long st, float* __restrict__ y,
-                        int pos, int c, float sm_scale) {
-  extern __shared__ float4 sm4[];
-  float* part = reinterpret_cast<float*>(sm4);   // 16 x 64 partial outputs
-  float* red = part + 16 * HD;                   // 8
-  float* s = red + WARPS;                        // pos + 1 scores
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, hw = tid / 16, l = tid % 16;
-  const long long base = b * sb + h * sh + 4 * l;
-  const float4 qv =
-      *reinterpret_cast<const float4*>(q + (size_t)b * c + h * HD + 4 * l);
-
-  // every thread walks the same number of steps: the shuffles below
-  // need all 32 lanes of a warp
-  for (int j0 = 0; j0 <= pos; j0 += 16) {
-    const int j = j0 + hw;
-    float d = 0.0f;
-    if (j <= pos) {
-      const float4 kv = *reinterpret_cast<const float4*>(kc + base + j * st);
-      d = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
-    }
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-    if (j <= pos && l == 0) s[j] = d * sm_scale;
-  }
-  __syncthreads();
-  float m = -INFINITY;
-  for (int j = tid; j <= pos; j += THREADS) m = fmaxf(m, s[j]);
-  m = block_reduce<true>(m, red);
-  float sum = 0.0f;
-  for (int j = tid; j <= pos; j += THREADS) {
-    const float p = expf(s[j] - m);
-    s[j] = p;
-    sum += p;
-  }
-  sum = block_reduce<false>(sum, red);   // its barriers also publish s
-
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int j = hw; j <= pos; j += 16) {
-    const float p = s[j];
-    const float4 vv = *reinterpret_cast<const float4*>(vc + base + j * st);
-    acc.x += p * vv.x;
-    acc.y += p * vv.y;
-    acc.z += p * vv.z;
-    acc.w += p * vv.w;
-  }
-  *reinterpret_cast<float4*>(part + hw * HD + 4 * l) = acc;
-  __syncthreads();
-  if (tid < HD) {
-    float o = 0.0f;
-#pragma unroll
-    for (int g = 0; g < 16; ++g) o += part[g * HD + tid];
-    y[(size_t)b * c + h * HD + tid] = o / sum;
-  }
-}
-
-template <Prologue PRO, Epilogue EPI>
-cudaError_t launch_rows_gemm(const float* a, const float* ln_s,
-                             const float* ln_b, const float* w,
-                             const float* bias, const float* resid, float* out,
-                             CacheRow cache, int batch, int n, int k,
-                             cudaStream_t s) {
-  // enough blocks for the card's 132 SMs at C = 512: 192, 128, 128 and
-  // 128 blocks for the four products of a block
-  int kw = n >= 2048 ? 1 : n >= 1024 ? 2 : 4;
-  while (kw > 1 && k % (4 * kw) != 0) kw /= 2;
-  const int cols = 2 * (WARPS / kw);
-  if (k % 4 != 0 || n % cols != 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)ROWS * k + WARPS * 2 * ROWS);
-  cudaError_t e = cudaFuncSetAttribute(
-      rows_gemm_kernel<PRO, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid(n / cols, (batch + ROWS - 1) / ROWS);
-  rows_gemm_kernel<PRO, EPI><<<grid, THREADS, smem, s>>>(
-      a, ln_s, ln_b, w, bias, resid, out, cache, batch, n, k, kw);
-  return cudaGetLastError();
-}
-
-// The attention half: q to scratch and the K/V row into the caches,
-// attention over rows 0..pos, then x_mid = x + y Wproj + b.
-cudaError_t launch_attn_half(const float* x, const float* ln1_s,
-                             const float* ln1_b, const float* w_qkv,
-                             const float* b_qkv, const float* w_proj,
-                             const float* b_proj, CacheRow cache, float* q,
-                             float* y, float* x_mid, int batch, int t, int c,
-                             int n_head, float sm_scale, cudaStream_t s) {
-  if (batch < 1 || c != n_head * HD || cache.pos < 0 || cache.pos >= t)
-    return cudaErrorInvalidValue;
-  cudaError_t e = launch_rows_gemm<LAYER_NORM, QKV>(
-      x, ln1_s, ln1_b, w_qkv, b_qkv, nullptr, q, cache, batch, 3 * c, c, s);
-  if (e != cudaSuccess) return e;
-  const size_t smem =
-      sizeof(float) * (16 * HD + WARPS + (size_t)cache.pos + 1);
-  e = cudaFuncSetAttribute(decode_attention_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  decode_attention_kernel<<<dim3(n_head, batch), THREADS, smem, s>>>(
-      q, cache.k, cache.v, cache.sb, cache.sh, cache.st, y, cache.pos, c,
-      sm_scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return launch_rows_gemm<COPY, RESIDUAL>(y, nullptr, nullptr, w_proj, b_proj,
-                                          x, x_mid, cache, batch, c, c, s);
-}
-
-inline const float* f(const void* p) { return static_cast<const float*>(p); }
 
 }  // namespace
 
-// Kernel #12. x (batch, C) f32; ln1_s, ln1_b (C,); w_qkv (3C, C), b_qkv
-// (3C,), w_proj (C, C), b_proj (C,); kc, vc (batch, n_head, t, 64),
-// row `pos` written in place; scratch 2 * batch * C floats; x_mid
-// (batch, C). C = n_head * 64, 0 <= pos < t.
-extern "C" int decode_attn_f32(const void* x, const void* ln1_s,
-                               const void* ln1_b, const void* w_qkv,
-                               const void* b_qkv, const void* w_proj,
-                               const void* b_proj, void* kc, void* vc,
-                               void* scratch, void* x_mid, int batch, int t,
-                               int c, int n_head, int pos, float sm_scale,
-                               void* stream) {
-  float* q = static_cast<float*>(scratch);
-  const CacheRow cache{static_cast<float*>(kc), static_cast<float*>(vc),
-                       (long long)n_head * t * HD, (long long)t * HD, HD, pos};
-  return launch_attn_half(f(x), f(ln1_s), f(ln1_b), f(w_qkv), f(b_qkv),
-                          f(w_proj), f(b_proj), cache, q,
-                          q + (size_t)batch * c, static_cast<float*>(x_mid),
-                          batch, t, c, n_head, sm_scale,
-                          static_cast<cudaStream_t>(stream));
+// The operands of one block, packed once by the wrapper (a ctypes
+// Structure of the same layout in ops/fused_decode.py). w_* are (n, k);
+// the caches' element (b, h, t, e) is at b*sb + h*sh + t*st + e; scratch
+// holds q, y, x_mid (batch x C each), g (batch x c4) and m_proj's
+// partial sums (c4 / KC x batch x C); barrier is 2 + MAX_GRID words, the
+// grid barrier's arrival count and generation, then m_proj's counts per
+// column range, all counts 0 between launches. #12 leaves the MLP's
+// pointers null and c4 0.
+struct DecodeArgs {
+  const float* ln1_s;
+  const float* ln1_b;
+  const float* w_qkv;
+  const float* b_qkv;
+  const float* w_proj;
+  const float* b_proj;
+  const float* ln2_s;
+  const float* ln2_b;
+  const float* w_fc;
+  const float* b_fc;
+  const float* w_mp;
+  const float* b_mp;
+  float* kc;
+  float* vc;
+  float* scratch;
+  unsigned* barrier;
+  long long sb, sh, st;
+  int batch, t, c, c4, n_head;
+  float sm_scale;
+};
+
+namespace {
+
+// the largest multiple of 64 up to MAX_KC that divides C and c4
+__host__ __device__ inline int chunk_k(int c, int c4) {
+  for (int kc = MAX_KC; kc >= 64; kc -= 64)
+    if (c % kc == 0 && c4 % kc == 0) return kc;
+  return 0;
+}
+
+// product p's output columns and input width
+__host__ __device__ inline int cols_of(const DecodeArgs& a, int p) {
+  return p == 0 ? 3 * a.c : p == 2 ? a.c4 : a.c;
+}
+__host__ __device__ inline int k_of(const DecodeArgs& a, int p) {
+  return p == 3 ? a.c4 : a.c;
+}
+
+// One product's share in this block: columns [c0, c0 + ncol) of w (n,
+// k), its k pieces q0 .. q0 + nq - 1 of kc, in chunks of up to 8 columns
+// (ncg a piece). Resident: chunk (q, cg) has mbarrier cbase + q ncg + cg
+// and its rows start at ring row rbase + q ncol + 8 cg. Streaming: its
+// use at row tile rt is the ring's use ubase + (rt nq + q) ncg + cg.
+//
+// m_proj (k = c4, four pieces at C = 512) is split over the grid by
+// pieces where that fits: nsplit groups of blocks, one a piece, each
+// group sharing C's columns out as the others do, so that a block reads
+// one piece of g and not all of it; the group's blocks of a column range
+// (grp) write partial sums, and the last of them to finish adds them in
+// the pieces' order.
+struct Product {
+  const float* w;
+  int k, c0, ncol, nq, ncg;
+  int cbase, rbase, ubase;
+  int q0, nsplit, grp;
+};
+
+// Product p of this block, its bases summed over the products before it.
+// Every share is recomputed from the arguments where it is needed: a
+// table of them indexed at run time would live in local memory, which
+// goes to L2 when shared memory takes the SM's L1.
+__device__ __forceinline__ Product product_of(const DecodeArgs& a, int p,
+                                              int kc, int n_rt) {
+  Product P{};
+  int cbase = 0, rbase = 0, ubase = 0;
+#pragma unroll
+  for (int i = 0; i < N_PRODUCTS; ++i) {
+    const int n = cols_of(a, i);           // n * gridDim.x < 2^31 (valid)
+    const int nqt = k_of(a, i) / kc, grid = (int)gridDim.x;
+    const int per = grid / max(nqt, 1), b = (int)blockIdx.x;
+    int c0, ncol, nq = nqt, q0 = 0, nsplit = 1, grp = 0;
+    if (i == 3 && nqt > 1 && per >= 1 && (n + per - 1) / per <= MAX_COLS) {
+      nq = 1;
+      nsplit = nqt;
+      q0 = min(b / per, nqt - 1);
+      grp = b % per;
+      c0 = n * grp / per;
+      ncol = b < per * nqt ? n * (grp + 1) / per - c0 : 0;
+    } else {
+      c0 = n * b / grid;
+      ncol = n * (b + 1) / grid - c0;
+    }
+    const int ncg = (ncol + NCOL - 1) / NCOL;
+    if (i == p)
+      P = Product{i == 0 ? a.w_qkv : i == 1 ? a.w_proj : i == 2 ? a.w_fc
+                                                                 : a.w_mp,
+                  k_of(a, i), c0, ncol, nq, ncg, cbase, rbase, ubase,
+                  q0, nsplit, grp};
+    cbase += nq * ncg;
+    rbase += nq * ncol;
+    ubase += n_rt * nq * ncg;
+  }
+  return P;
+}
+
+struct Plan {
+  int np;           // products: 2 (#12) or 4 (#13)
+  int kc;           // chunk k extent, the row stride of ring and tiles
+  int n_rt;         // row tiles
+  bool resident;    // every chunk on chip at once
+  int nslot;        // streaming: ring slots of NCOL rows
+  int total;        // chunks (resident) or chunk uses (streaming)
+};
+
+__device__ __forceinline__ Plan make_plan(const DecodeArgs& a, bool mlp) {
+  Plan pl;
+  pl.np = mlp ? 4 : 2;
+  pl.kc = chunk_k(a.c, mlp ? a.c4 : 0);
+  pl.n_rt = (a.batch + ROWS - 1) / ROWS;
+  // the bases of a product past the last are the totals (#12's MLP
+  // products have no k pieces: c4 is 0)
+  const Product end = product_of(a, N_PRODUCTS - 1, pl.kc, pl.n_rt);
+  const int chunks = end.cbase + end.nq * end.ncg;
+  const int rows = end.rbase + end.nq * end.ncol;
+  const int uses = end.ubase + pl.n_rt * end.nq * end.ncg;
+  pl.resident = (size_t)rows * pl.kc * sizeof(float) <= RING &&
+                chunks <= MAX_BARS;
+  const int fit = (int)(RING / (sizeof(float) * NCOL * pl.kc));
+  pl.nslot = fit < MAX_BARS ? fit : MAX_BARS;
+  pl.total = pl.resident ? chunks : uses;
+  return pl;
+}
+
+// Where chunk i of product P lands (i counted from the product's first:
+// resident, i = q ncg + cg; streaming, i = (rt nq + q) ncg + cg): its
+// columns, k piece, mbarrier, parity and first ring row.
+struct Chunk {
+  int col0, rows, q, bar, row0;
+  uint32_t parity;
+};
+
+__device__ __forceinline__ Chunk locate(const Plan& pl, const Product& P,
+                                        int i) {
+  Chunk ch;
+  const int in_rt = i % (P.nq * P.ncg);
+  const int cg = in_rt % P.ncg;
+  ch.q = in_rt / P.ncg;
+  ch.col0 = P.c0 + NCOL * cg;
+  ch.rows = min(NCOL, P.ncol - NCOL * cg);
+  if (pl.resident) {
+    ch.bar = P.cbase + i;
+    ch.parity = 0;
+    ch.row0 = P.rbase + ch.q * P.ncol + NCOL * cg;
+  } else {
+    const int u = P.ubase + i;
+    ch.bar = u % pl.nslot;
+    ch.parity = (uint32_t)((u / pl.nslot) & 1);
+    ch.row0 = ch.bar * NCOL;
+  }
+  return ch;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A warp issues the chunks [from, to) of the plan, counted over all
+// products in order, whose number is `mine` modulo `warps`: per chunk
+// lane 0 arms its mbarrier with the bytes to come, then lane r copies
+// weight row r.
+__device__ void issue(const Plan& pl, const DecodeArgs& a, float* ring,
+                      uint64_t* bars, int from, int to, int mine = 0,
+                      int warps = 1) {
+  const int lane = threadIdx.x % 32;
+  const uint32_t bytes = (uint32_t)(pl.kc * sizeof(float));
+  // the ring's slots were last read through the generic proxy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  int first = 0;
+#pragma unroll
+  for (int p = 0; p < N_PRODUCTS; ++p) {
+    if (p >= pl.np) break;
+    const Product P = product_of(a, p, pl.kc, pl.n_rt);
+    const int n = P.nq * P.ncg * (pl.resident ? 1 : pl.n_rt);
+    for (int i = max(from, first); i < min(to, first + n); ++i) {
+      if (i % warps != mine) continue;
+      const Chunk ch = locate(pl, P, i - first);
+      const uint32_t bar = smem_u32(&bars[ch.bar]);
+      float* dst = ring + (size_t)ch.row0 * pl.kc;
+      const float* src =
+          P.w + (size_t)ch.col0 * P.k + (size_t)(P.q0 + ch.q) * pl.kc;
+      if (P.k == pl.kc) {          // the rows are one range
+        if (lane == 0) {
+          expect_bytes(bar, bytes * ch.rows);
+          bulk_copy(dst, src, bytes * ch.rows, bar);
+        }
+        continue;
+      }
+      if (lane == 0) expect_bytes(bar, bytes * ch.rows);
+      __syncwarp();
+      if (lane < ch.rows)
+        bulk_copy(dst + (size_t)lane * pl.kc, src + (size_t)lane * P.k,
+                  bytes, bar);
+    }
+    first += n;
+  }
+}
+
+// Warp 0 copies rows [row0, row0 + 16) of a (batch, k), columns [k0, k0 +
+// kc), into an A tile (rows kc floats apart), counted on bar; rows
+// past batch are not copied. The rows were written by other blocks
+// before a grid barrier, through the generic proxy.
+__device__ void issue_tile(const Plan& pl, const float* a, int k, int row0,
+                           int k0, int batch, float* tile, uint32_t bar) {
+  const int lane = threadIdx.x % 32;
+  const int rows = min(ROWS, batch - row0);
+  const uint32_t bytes = (uint32_t)(pl.kc * sizeof(float));
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  if (k == pl.kc) {                // the rows are one range
+    if (lane == 0) {
+      expect_bytes(bar, bytes * rows);
+      bulk_copy(tile, a + (size_t)row0 * k, bytes * rows, bar);
+    }
+    return;
+  }
+  if (lane == 0) expect_bytes(bar, bytes * rows);
+  __syncwarp();
+  if (lane < rows)
+    bulk_copy(tile + (size_t)lane * pl.kc, a + (size_t)(row0 + lane) * k + k0,
+              bytes, bar);
+}
+
+// All blocks of the grid meet here; writes before it are visible to
+// every block after it. bar[0] counts arrivals: atom.inc wraps it to 0
+// at the last one, which then advances the generation bar[1] that the
+// others wait on. The count is 0 again after every barrier.
+__device__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned gen;
+    asm volatile("ld.relaxed.gpu.u32 %0, [%1];"
+                 : "=r"(gen)
+                 : "l"(bar + 1)
+                 : "memory");
+    // arrive, releasing this block's writes (bar.sync gathered them at
+    // thread 0) and, at the last arrival, acquiring every block's
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.inc.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(bar), "r"(gridDim.x - 1)
+                 : "memory");
+    if (old == gridDim.x - 1) {
+      asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(bar + 1),
+                   "r"(gen + 1)
+                   : "memory");
+    } else {
+      unsigned now;
+      do {
+        asm volatile("ld.acquire.gpu.u32 %0, [%1];"
+                     : "=r"(now)
+                     : "l"(bar + 1)
+                     : "memory");
+      } while (now == gen);
+    }
+  }
+  __syncthreads();
+}
+
+// mean and 1 / sqrt(variance + eps) of rows [row0, row0 + 16) of a
+// (batch, k), rows w and w + 8 in warp w, both loaded at once and kept in
+// registers for the second pass (k <= 4 * 32 * LN_VEC); rows past batch
+// are left out
+__device__ void row_stats(const float* a, int row0, int batch, int k,
+                          float* stats) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k4 = k / 4;
+  float4 v[2][LN_VEC];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = min(row0 + warp + 8 * h, batch - 1);
+    const float4* src = reinterpret_cast<const float4*>(a + (size_t)row * k);
+#pragma unroll
+    for (int i = 0; i < LN_VEC; ++i)
+      v[h][i] = __ldcg(src + min(lane + 32 * i, k4 - 1));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LN_VEC; ++i)
+      if (lane + 32 * i < k4)
+        s += (v[h][i].x + v[h][i].y) + (v[h][i].z + v[h][i].w);
+    const float mean = arcweld::warp_sum(s) / (float)k;
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LN_VEC; ++i) {
+      if (lane + 32 * i < k4) {
+        const float dx = v[h][i].x - mean, dy = v[h][i].y - mean,
+                    dz = v[h][i].z - mean, dw = v[h][i].w - mean;
+        q += (dx * dx + dy * dy) + (dz * dz + dw * dw);
+      }
+    }
+    const float var = arcweld::warp_sum(q) / (float)k;
+    if (lane == 0) {
+      stats[warp + 8 * h] = mean;
+      stats[ROWS + warp + 8 * h] = 1.0f / sqrtf(var + 1e-5f);
+    }
+  }
+}
+
+// The same from an A tile holding the rows whole (k = kc, rows k floats
+// apart in shared memory), where the row tile's copy is all the product
+// reads of them
+__device__ void tile_stats(const float* tile, int row0, int batch, int k,
+                           float* stats) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k4 = k / 4;
+  constexpr int VEC = MAX_KC / 128;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp + 8 * h;
+    const float4* src = reinterpret_cast<const float4*>(tile + r * k);
+    float4 v[VEC];
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      v[i] = lane + 32 * i < k4 ? src[lane + 32 * i]
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+    }
+    const float mean = arcweld::warp_sum(s) / (float)k;
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      if (lane + 32 * i < k4) {
+        const float dx = v[i].x - mean, dy = v[i].y - mean,
+                    dz = v[i].z - mean, dw = v[i].w - mean;
+        q += (dx * dx + dy * dy) + (dz * dz + dw * dw);
+      }
+    }
+    const float var = arcweld::warp_sum(q) / (float)k;
+    if (lane == 0 && row0 + r < batch) {
+      stats[r] = mean;
+      stats[ROWS + r] = 1.0f / sqrtf(var + 1e-5f);
+    }
+  }
+}
+
+// x split for a split-TF32 product: hi is x rounded to TF32's 10
+// mantissa bits (half away from zero), lo = x - hi exactly; the tensor
+// core reads the top 19 bits of each
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+#ifdef DECODE_PHASE_TIMES
+// %globaltimer at a block's start and after each phase and barrier: a
+// build for scripts/bench_decode_variants.py; the library leaves it out
+constexpr int STAMPS = 11;
+__device__ unsigned long long phase_ns[1024][STAMPS];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void stamp(int i) {
+  if (threadIdx.x == 0 && blockIdx.x < 1024) phase_ns[blockIdx.x][i] = now_ns();
+}
+#else
+__device__ __forceinline__ void stamp(int) {}
+#endif
+
+// The A tiles in order: tile t of the kernel is buffer t % NBUF
+// (TILE_FLOATS apart in buf), parity (t / NBUF) % 2. Every thread counts
+// them alike.
+struct Tiles {
+  float* buf;
+  uint64_t* bars;      // the buffers' mbarriers
+
+  __device__ float* at(int t) const { return buf + t % NBUF * TILE_FLOATS; }
+  __device__ uint32_t bar(int t) const {
+    return smem_u32(&bars[t % NBUF]);
+  }
+  __device__ void wait(int t) const {
+    mbar_wait(bar(t), (uint32_t)((t / NBUF) & 1));
+  }
+};
+
+// where the sequences of A tiles and of streamed chunks stand
+struct Cursor {
+  int tile;            // the next A tile's number
+  int issued;          // chunks warp 0 has issued (streaming refills)
+};
+
+// One product of the block, out[row, col] = epilogue(sum_i A[row, i]
+// w[col, i] + bias[col]) for every row and this block's columns:
+//   A = a (batch, k), or LayerNorm(a) * ln_s + ln_b with LN;
+//   QKV: columns < C to q (batch, C), the next C to row pos of the K
+//        cache, the last C to row pos of the V cache;
+//   RESIDUAL: out (batch, n) = resid + (sum + bias);
+//   GELU: out (batch, n) = new_gelu(sum + bias).
+// The product's first A tile was issued by the caller (`first_issued`)
+// or is issued here; each tile's successor is issued before the tile is
+// read. The epilogue's operands are loaded before the products. Returns
+// the cursor after the product.
+template <Epilogue EPI, bool LN>
+__device__ Cursor product(const Plan& pl, const DecodeArgs& a, int p,
+                          const float* A, const float* ln_s,
+                          const float* ln_b, const float* bias,
+                          const float* resid, float* out, int pos,
+                          float* ring, uint64_t* bars, Tiles tiles,
+                          Cursor cur, bool first_issued, float* red,
+                          float* stats, float* partial = nullptr) {
+  const Product P = product_of(a, p, pl.kc, pl.n_rt);
+  if (P.ncol == 0) {
+    if (first_issued) {           // nobody reads it: let it land
+      tiles.wait(cur.tile++);
+      __syncthreads();
+    }
+    return cur;
+  }
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int kw = pl.kc / WARPS;      // a warp's slice of a k piece
+  // its 16-column blocks; where kw is an odd multiple of 8, the second
+  // half of the last one is the next warp's, and tg 2, 3 take zeros there
+  const int nkb = (kw + 15) / 16;
+  const bool half = kw % 16 != 0 && tg >= 2;
+  const int n = cols_of(a, p);
+  constexpr int OUTS = MAX_CG * ROWS * NCOL / THREADS;   // a thread's
+  // the product's tiles: lt = rt nq + q, the kernel's t0 + lt; the
+  // first NBUF - 1 now, each later one while the tile NBUF - 1 before it
+  // is read
+  const int n_tiles = pl.n_rt * P.nq, t0 = cur.tile;
+  if (warp == 0) {
+    for (int lt = first_issued ? 1 : 0; lt < min(NBUF - 1, n_tiles); ++lt)
+      issue_tile(pl, A, P.k, lt / P.nq * ROWS, (P.q0 + lt % P.nq) * pl.kc,
+                 a.batch, tiles.at(t0 + lt), tiles.bar(t0 + lt));
+  }
+  cur.tile = t0 + n_tiles;
+  for (int rt = 0; rt < pl.n_rt; ++rt) {
+    const int row0 = rt * ROWS;
+    // the epilogue's bias and residual of this thread's outputs
+    float eb[OUTS], er[OUTS];
+#pragma unroll
+    for (int o = 0; o < OUTS; ++o) {
+      const int idx = tid + o * THREADS;
+      const int row = min(row0 + idx / NCOL % ROWS, a.batch - 1);
+      const int col = P.c0 + min(idx / NCOL / ROWS * NCOL + idx % NCOL,
+                                 P.ncol - 1);
+      eb[o] = __ldg(bias + col);
+      er[o] = 0.0f;
+      if constexpr (EPI == RESIDUAL)
+        er[o] = __ldcg(resid + (size_t)row * n + col);
+    }
+    if (LN && P.nq > 1) {          // rows wider than a tile: from L2
+      row_stats(A, row0, a.batch, P.k, stats);
+      __syncthreads();
+    }
+    float acc[MAX_CG][2][4];
+#pragma unroll
+    for (int cg = 0; cg < MAX_CG; ++cg)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[cg][i / 4][i % 4] = 0.0f;
+    for (int q = 0; q < P.nq; ++q) {
+      const int t = t0 + rt * P.nq + q;
+      // the tile NBUF - 1 ahead, into the buffer whose last reader
+      // finished before the barrier that ended the previous piece
+      const int j = rt * P.nq + q + NBUF - 1;
+      if (j < n_tiles && warp == 0)
+        issue_tile(pl, A, P.k, j / P.nq * ROWS, (P.q0 + j % P.nq) * pl.kc,
+                   a.batch, tiles.at(t0 + j), tiles.bar(t0 + j));
+      // this warp's k slice of the tile, as mma's A fragments: in each
+      // 16-column block, thread tg's columns 4 tg .. 4 tg + 3 are its
+      // fragment columns tg, tg + 4 of step 2 m (the first two) and of
+      // step 2 m + 1; rows g and g + 8; LayerNorm applied, rows past
+      // batch zero
+      float4 av[KBLOCKS][2];
+      const int kb = warp * kw + 4 * tg;
+      {
+        float4 lw[KBLOCKS], lb[KBLOCKS];
+        if constexpr (LN) {
+#pragma unroll
+          for (int m = 0; m < KBLOCKS; ++m) {
+            const int col = min((P.q0 + q) * pl.kc + kb +
+                                    16 * min(m, nkb - 1), P.k - 4);
+            lw[m] = __ldg(reinterpret_cast<const float4*>(ln_s + col));
+            lb[m] = __ldg(reinterpret_cast<const float4*>(ln_b + col));
+          }
+        }
+        tiles.wait(t);
+        const float* tile = tiles.at(t);
+        if (LN && P.nq == 1) {       // the tile holds the rows whole
+          tile_stats(tile, row0, a.batch, P.k, stats);
+          __syncthreads();
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = g + 8 * h;
+          const bool live = row0 + r < a.batch;
+          float mean = 0.0f, rstd = 0.0f;
+          if constexpr (LN) {
+            mean = stats[r];
+            rstd = stats[ROWS + r];
+          }
+#pragma unroll
+          for (int m = 0; m < KBLOCKS; ++m) {
+            if (m < nkb) {
+              float4 v = *reinterpret_cast<const float4*>(
+                  tile + r * pl.kc + kb + 16 * m);
+              if constexpr (LN) {
+                v.x = (v.x - mean) * rstd * lw[m].x + lb[m].x;
+                v.y = (v.y - mean) * rstd * lw[m].y + lb[m].y;
+                v.z = (v.z - mean) * rstd * lw[m].z + lb[m].z;
+                v.w = (v.w - mean) * rstd * lw[m].w + lb[m].w;
+              }
+              av[m][h] = live && !(half && m == nkb - 1)
+                             ? v
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            }
+          }
+        }
+      }
+      // the piece's chunks, each warp's row of them (columns past a
+      // chunk's rows read its first row; their sums are dropped)
+      const float* wr[MAX_CG];
+#pragma unroll
+      for (int cg = 0; cg < MAX_CG; ++cg) {
+        wr[cg] = ring;
+        if (cg < P.ncg) {
+          const Chunk ch = locate(
+              pl, P, (pl.resident ? q : rt * P.nq + q) * P.ncg + cg);
+          mbar_wait(smem_u32(&bars[ch.bar]), ch.parity);
+          wr[cg] = ring + (size_t)(ch.row0 + (g < ch.rows ? g : 0)) * pl.kc +
+                   kb;
+        }
+      }
+      // the chunks' products interleaved, two accumulators a chunk (one
+      // per k8 step of a 16-column block), so that the tensor core's
+      // dependent chains are short
+#pragma unroll
+      for (int m = 0; m < KBLOCKS; ++m) {
+        if (m < nkb) {
+          const float4 r0 = av[m][0], r8 = av[m][1];
+          uint32_t ah[2][4], al[2][4];
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            split(s ? r0.z : r0.x, ah[s][0], al[s][0]);
+            split(s ? r8.z : r8.x, ah[s][1], al[s][1]);
+            split(s ? r0.w : r0.y, ah[s][2], al[s][2]);
+            split(s ? r8.w : r8.y, ah[s][3], al[s][3]);
+          }
+#pragma unroll
+          for (int cg = 0; cg < MAX_CG; ++cg) {
+            if (cg < P.ncg) {
+              float4 w4 = *reinterpret_cast<const float4*>(wr[cg] + 16 * m);
+              if (half && m == nkb - 1)
+                w4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+              for (int s = 0; s < 2; ++s) {
+                uint32_t bh0, bl0, bh1, bl1;
+                split(s ? w4.z : w4.x, bh0, bl0);
+                split(s ? w4.w : w4.y, bh1, bl1);
+                mma_tf32(acc[cg][s], al[s], bh0, bh1);
+                mma_tf32(acc[cg][s], ah[s], bl0, bl1);
+                mma_tf32(acc[cg][s], ah[s], bh0, bh1);
+              }
+            }
+          }
+        }
+      }
+      // every warp is done with this tile and this piece's ring slots
+      __syncthreads();
+      if (!pl.resident) {
+        const int done = P.ubase + (rt * P.nq + q + 1) * P.ncg;
+        const int to = min(pl.total, done + pl.nslot);
+        if (warp == 0 && to > cur.issued)
+          issue(pl, a, ring, bars, cur.issued, to);
+        cur.issued = max(cur.issued, to);
+      }
+    }
+    // the warps' partial sums, added in a fixed order
+#pragma unroll
+    for (int cg = 0; cg < MAX_CG; ++cg) {
+      if (cg < P.ncg) {
+        float* r = red + (warp * MAX_CG + cg) * ROWS * NCOL;
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = acc[cg][0][i] + acc[cg][1][i];
+        r[g * NCOL + 2 * tg] = v[0];
+        r[g * NCOL + 2 * tg + 1] = v[1];
+        r[(g + 8) * NCOL + 2 * tg] = v[2];
+        r[(g + 8) * NCOL + 2 * tg + 1] = v[3];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int o = 0; o < OUTS; ++o) {
+      const int idx = tid + o * THREADS;
+      const int cg = idx / (ROWS * NCOL), r = idx / NCOL % ROWS,
+                cc = idx % NCOL;
+      const int row = row0 + r, j = NCOL * cg + cc;
+      if (cg >= P.ncg || row >= a.batch || j >= P.ncol) continue;
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        sum += red[(w * MAX_CG + cg) * ROWS * NCOL + r * NCOL + cc];
+      const int col = P.c0 + j;
+      const float y = sum + eb[o];
+      if constexpr (EPI == QKV) {
+        if (col < a.c) {
+          out[(size_t)row * a.c + col] = y;
+        } else {
+          const int cc2 = (col - a.c) % a.c;
+          float* dst = col < 2 * a.c ? a.kc : a.vc;
+          dst[row * a.sb + (cc2 / HD) * a.sh + pos * a.st + cc2 % HD] = y;
+        }
+      } else if constexpr (EPI == RESIDUAL) {
+        if (P.nsplit > 1)             // this piece's share, no bias
+          partial[((size_t)P.q0 * a.batch + row) * n + col] = sum;
+        else
+          out[(size_t)row * n + col] = er[o] + y;
+      } else {
+        out[(size_t)row * n + col] = arcweld::new_gelu(y);
+      }
+    }
+    __syncthreads();
+  }
+  if (P.nsplit > 1) {
+    // the last block of the column range to finish adds the partial
+    // sums, the pieces in order; it returns the range's count to 0
+    unsigned* count = a.barrier + 2 + P.grp;
+    int* last = reinterpret_cast<int*>(red);
+    if (tid == 0) {
+      __threadfence();
+      const bool done = atomicAdd(count, 1u) == (unsigned)P.nsplit - 1;
+      if (done) {
+        atomicExch(count, 0u);
+        __threadfence();
+      }
+      *last = done;
+    }
+    __syncthreads();
+    if (*last) {
+      for (int idx = tid; idx < a.batch * P.ncol; idx += THREADS) {
+        const int row = idx / P.ncol, col = P.c0 + idx % P.ncol;
+        float sum = 0.0f;
+        for (int s = 0; s < P.nsplit; ++s)
+          sum += __ldcg(partial + ((size_t)s * a.batch + row) * n + col);
+        out[(size_t)row * n + col] =
+            __ldcg(resid + (size_t)row * n + col) + (sum + __ldg(bias + col));
+      }
+    }
+  }
+  return cur;
+}
+
+// A half warp's keys j0 + 16 u + hw (u < UNROLL) of a (sample, head):
+// their K and V rows, zero past key n - 1 and at key `skip`
+struct Keys {
+  float4 k[UNROLL], v[UNROLL];
+};
+
+__device__ __forceinline__ void load_keys(const DecodeArgs& a, int item,
+                                          int j0, int n, int skip,
+                                          Keys& r) {
+  const int hw = threadIdx.x / 16, l = threadIdx.x % 16;
+  const long long base = (item / a.n_head) * a.sb +
+                         (item % a.n_head) * a.sh + 4 * l;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int j = j0 + 16 * u + hw;
+    const long long at = base + (long long)j * a.st;
+    const bool ok = j < n && j != skip;
+    r.k[u] = ok ? __ldcg(reinterpret_cast<const float4*>(a.kc + at)) : zero;
+    r.v[u] = ok ? __ldcg(reinterpret_cast<const float4*>(a.vc + at)) : zero;
+  }
+}
+
+// y[b, h*64 ..] = softmax(q . K[:pos+1]^T * sm_scale) V[:pos+1] for the
+// (sample, head) pairs blockIdx.x, + gridDim.x, ...; a half warp takes a
+// key, 16 lanes x float4 its 64 floats, and loads UNROLL keys' K and V
+// rows at once (q after the first of them). r comes holding the first
+// round of keys of the block's first pair but row pos, loaded before the
+// grid barrier that makes row pos and q visible. Each half warp keeps
+// its keys' softmax online (a running max, the sum and P@V rescaled when
+// the max grows), and the 16 half warps are merged in a fixed order at
+// the end. q, y (batch, C).
+__device__ void attention(const DecodeArgs& a, int pos, const float* q,
+                          float* y, float* part, float* ml, Keys& r) {
+  const int tid = threadIdx.x, hw = tid / 16, l = tid % 16;
+  const int n = pos + 1;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int item = blockIdx.x; item < a.batch * a.n_head;
+       item += gridDim.x) {
+    const int b = item / a.n_head, h = item % a.n_head;
+    float4 qv = zero;
+    float m = -INFINITY, sum = 0.0f;
+    float4 acc = zero;
+    // every thread walks the same steps: the shuffles need all lanes
+    for (int j0 = 0; j0 < n; j0 += 16 * UNROLL) {
+      if (item != blockIdx.x || j0 > 0) {
+        load_keys(a, item, j0, n, -1, r);
+      } else if (pos < 16 * UNROLL) {          // row pos joins the first
+        const long long at = b * a.sb + h * a.sh + 4 * l +
+                             (long long)pos * a.st;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (16 * u + hw == pos) {
+            r.k[u] = __ldcg(reinterpret_cast<const float4*>(a.kc + at));
+            r.v[u] = __ldcg(reinterpret_cast<const float4*>(a.vc + at));
+          }
+        }
+      }
+      if (j0 == 0)
+        qv = __ldcg(reinterpret_cast<const float4*>(q + (size_t)b * a.c +
+                                                    h * HD) + l);
+    float s[UNROLL];
+      float m_new = m;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        float d = qv.x * r.k[u].x + qv.y * r.k[u].y + qv.z * r.k[u].z +
+                  qv.w * r.k[u].w;
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        s[u] = j0 + 16 * u + hw < n ? d * a.sm_scale : -INFINITY;
+        m_new = fmaxf(m_new, s[u]);
+      }
+      if (m_new == -INFINITY) continue;      // none of this half warp's
+      const float alpha = expf(m - m_new);   // 0 while m is -inf
+      sum *= alpha;
+      acc.x *= alpha;
+      acc.y *= alpha;
+      acc.z *= alpha;
+      acc.w *= alpha;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const float pj = expf(s[u] - m_new);
+        sum += pj;
+        acc.x += pj * r.v[u].x;
+        acc.y += pj * r.v[u].y;
+        acc.z += pj * r.v[u].z;
+        acc.w += pj * r.v[u].w;
+      }
+      m = m_new;
+    }
+    *reinterpret_cast<float4*>(part + hw * HD + 4 * l) = acc;
+    if (l == 0) {
+      ml[hw] = m;
+      ml[16 + hw] = sum;
+    }
+    __syncthreads();
+    if (tid < HD) {
+      float mx = ml[0];
+#pragma unroll
+      for (int i = 1; i < 16; ++i) mx = fmaxf(mx, ml[i]);
+      float o = 0.0f, den = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float w = expf(ml[i] - mx);      // 0 for a half warp of no key
+        o += w * part[i * HD + tid];
+        den += w * ml[16 + i];
+      }
+      y[(size_t)b * a.c + h * HD + tid] = o / den;
+    }
+    __syncthreads();
+  }
+}
+
+template <bool MLP>
+__global__ void __launch_bounds__(THREADS, 1)
+decode_kernel(const DecodeArgs a, const float* __restrict__ x,
+              float* __restrict__ out, int pos) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + BAR_BYTES);
+  float* tile_buf = reinterpret_cast<float*>(smem + BAR_BYTES + RING);
+  float* red = tile_buf + NBUF * TILE_FLOATS;
+  float* stats = red + RED_FLOATS;
+  float* part = stats + STAT_FLOATS;
+  float* ml = part + 16 * HD;
+
+  const size_t bc = (size_t)a.batch * a.c;
+  float* q = a.scratch;
+  float* y = q + bc;
+  float* x_mid = MLP ? y + bc : out;
+  float* g = y + 2 * bc;
+
+  const Plan pl = make_plan(a, MLP);
+  const Tiles tiles{tile_buf, bars + MAX_BARS};
+  if (threadIdx.x == 0) {
+    const int n_bars = pl.resident ? pl.total : pl.nslot;
+    for (int i = 0; i < n_bars; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_u32(&bars[i]))
+                   : "memory");
+    for (int i = 0; i < NBUF; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       tiles.bar(i))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  stamp(0);
+  // x's first tile, then every weight the block's share can hold (the
+  // ring's first fill where it cannot), the warps sharing the copies: a
+  // copy holds the issuing warp about as long as its bytes take to come,
+  // so when the weights are issued moves time between the phases but
+  // not the launch's (scripts/bench_decode_variants.py)
+  Cursor cur{0, pl.resident ? pl.total : min(pl.total, pl.nslot)};
+  if (threadIdx.x < 32)
+    issue_tile(pl, x, a.c, 0, 0, a.batch, tiles.at(0), tiles.bar(0));
+  issue(pl, a, ring, bars, 0, cur.issued, threadIdx.x / 32, WARPS);
+  stamp(1);
+
+  cur = product<QKV, true>(pl, a, 0, x, a.ln1_s, a.ln1_b, a.b_qkv, nullptr,
+                           q, pos, ring, bars, tiles, cur, true, red, stats);
+  // the attention's first keys (all but row pos, which the qkv product
+  // has just written) fly over the barrier
+  Keys keys;
+  if ((int)blockIdx.x < a.batch * a.n_head)
+    load_keys(a, blockIdx.x, 0, pos + 1, pos, keys);
+  stamp(2);
+  grid_sync(a.barrier);
+  stamp(3);
+  attention(a, pos, q, y, part, ml, keys);
+  stamp(4);
+  grid_sync(a.barrier);
+  stamp(5);
+  cur = product<RESIDUAL, false>(pl, a, 1, y, nullptr, nullptr, a.b_proj,
+                                 x, x_mid, pos, ring, bars, tiles, cur, false,
+                                 red, stats);
+  stamp(6);
+  if constexpr (MLP) {
+    grid_sync(a.barrier);
+    stamp(7);
+    cur = product<GELU, true>(pl, a, 2, x_mid, a.ln2_s, a.ln2_b, a.b_fc,
+                              nullptr, g, pos, ring, bars, tiles, cur, false,
+                              red, stats);
+    stamp(8);
+    grid_sync(a.barrier);
+    stamp(9);
+    product<RESIDUAL, false>(pl, a, 3, g, nullptr, nullptr, a.b_mp, x_mid,
+                             out, pos, ring, bars, tiles, cur, false, red,
+                             stats, g + (size_t)a.batch * a.c4);
+    stamp(10);
+  }
+}
+
+// the shapes the kernel takes; the grid's columns a block at most
+bool valid(const DecodeArgs& a, int pos, bool mlp, int grid) {
+  if (a.batch < 1 || a.n_head < 1 || a.c != a.n_head * HD ||
+      a.c > 4 * 32 * LN_VEC || pos < 0 || pos >= a.t || grid < 1)
+    return false;
+  if (mlp && (a.c4 < 64 || a.c4 % 64)) return false;
+  if (!mlp && a.c4 != 0) return false;
+  if (chunk_k(a.c, a.c4) == 0 || grid > MAX_GRID) return false;
+  for (int p = 0; p < (mlp ? 4 : 2); ++p)
+    if ((cols_of(a, p) + grid - 1) / grid > MAX_COLS ||
+        (long long)cols_of(a, p) * grid >= (1LL << 31))
+      return false;
+  return true;
+}
+
+// once per device and kernel: the shared memory attribute, and the grid
+// (one block per SM, checked against the occupancy the card reports)
+template <bool MLP>
+cudaError_t grid_of(int* grid) {
+  constexpr int MAX_DEVICES = 64;
+  static std::once_flag once[MAX_DEVICES];
+  static int blocks[MAX_DEVICES];
+  static cudaError_t err[MAX_DEVICES];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    int sms = 0, per_sm = 0;
+    err[dev] = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+    if (err[dev] == cudaSuccess)
+      err[dev] = cudaFuncSetAttribute(
+          decode_kernel<MLP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)SMEM);
+    if (err[dev] == cudaSuccess)
+      err[dev] = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, decode_kernel<MLP>, THREADS, SMEM);
+    if (err[dev] == cudaSuccess && per_sm < 1)
+      err[dev] = cudaErrorCooperativeLaunchTooLarge;
+    blocks[dev] = sms;
+  });
+  *grid = blocks[dev];
+  return err[dev];
+}
+
+template <bool MLP>
+int launch(const DecodeArgs* a, const void* x, void* out, int pos,
+           void* stream) {
+  int grid;
+  cudaError_t e = grid_of<MLP>(&grid);
+  if (e != cudaSuccess) return e;
+  if (a == nullptr || !valid(*a, pos, MLP, grid)) return cudaErrorInvalidValue;
+  DecodeArgs args = *a;
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  void* params[] = {&args, &xp, &op, &pos};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(decode_kernel<MLP>), dim3(grid),
+      dim3(THREADS), params, SMEM, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel #12. x, out (batch, C) f32; the caches (batch, n_head, t, 64),
+// row `pos` written in place; the scratch batch * 3 C floats. One
+// cooperative launch.
+extern "C" int decode_attn_f32(const DecodeArgs* a, const void* x, void* out,
+                               int pos, void* stream) {
+  return launch<false>(a, x, out, pos, stream);
 }
 
 // Kernel #13. As #12 with the caches (batch, t, C) time-major, then the
-// MLP: ln2_s, ln2_b (C,); w_fc (c4, C), b_fc (c4,), w_mp (C, c4), b_mp
-// (C,); scratch batch * (3 C + c4) floats; out (batch, C).
-extern "C" int block_decode_f32(
-    const void* x, const void* ln1_s, const void* ln1_b, const void* w_qkv,
-    const void* b_qkv, const void* w_proj, const void* b_proj,
-    const void* ln2_s, const void* ln2_b, const void* w_fc, const void* b_fc,
-    const void* w_mp, const void* b_mp, void* kc, void* vc, void* scratch,
-    void* out, int batch, int t, int c, int c4, int n_head, int pos,
-    float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* q = static_cast<float*>(scratch);
-  float* y = q + (size_t)batch * c;
-  float* x_mid = y + (size_t)batch * c;
-  float* g = x_mid + (size_t)batch * c;
-  const CacheRow cache{static_cast<float*>(kc), static_cast<float*>(vc),
-                       (long long)t * c, HD, c, pos};
-  cudaError_t e = launch_attn_half(f(x), f(ln1_s), f(ln1_b), f(w_qkv),
-                                   f(b_qkv), f(w_proj), f(b_proj), cache, q, y,
-                                   x_mid, batch, t, c, n_head, sm_scale, s);
-  if (e != cudaSuccess) return e;
-  e = launch_rows_gemm<LAYER_NORM, GELU>(x_mid, f(ln2_s), f(ln2_b), f(w_fc),
-                                         f(b_fc), nullptr, g, cache, batch, c4,
-                                         c, s);
-  if (e != cudaSuccess) return e;
-  return launch_rows_gemm<COPY, RESIDUAL>(g, nullptr, nullptr, f(w_mp),
-                                          f(b_mp), x_mid,
-                                          static_cast<float*>(out), cache,
-                                          batch, c, c4, s);
+// MLP; the scratch batch * (3 C + c4 + c4 / KC * C) floats.
+extern "C" int block_decode_f32(const DecodeArgs* a, const void* x, void* out,
+                                int pos, void* stream) {
+  return launch<true>(a, x, out, pos, stream);
 }
+
+#ifdef DECODE_PHASE_TIMES
+// the last launch's stamps of the first `blocks` blocks, [block][stamp]
+extern "C" int decode_phase_times(unsigned long long* host, int blocks) {
+  return cudaMemcpyFromSymbol(host, phase_ns,
+                              sizeof(unsigned long long) * STAMPS * blocks);
+}
+#endif

@@ -73,13 +73,10 @@ _SIGNATURES = {
     # q, k, v, out, batch, n_head, t, the inputs' strides (batch, head,
     # row) and the output's, in floats, sm_scale, stream
     "flash_attention_f32": [_P] * 4 + [_I] * 3 + [_L] * 6 + [_F, _P],
-    # x, ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj, kc, vc, scratch,
-    # x_mid, batch, t, c, n_head, pos, sm_scale, stream
-    "decode_attn_f32": [_P] * 11 + [_I] * 5 + [_F, _P],
-    # x, ln1_s, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_s, ln2_b, w_fc,
-    # b_fc, w_mp, b_mp, kc, vc, scratch, out, batch, t, c, c4, n_head,
-    # pos, sm_scale, stream
-    "block_decode_f32": [_P] * 17 + [_I] * 6 + [_F, _P],
+    # the block's packed operands (ops/fused_decode.DecodeArgs), x, out,
+    # pos, stream: one cooperative launch each
+    "decode_attn_f32": [_P] * 3 + [_I, _P],
+    "block_decode_f32": [_P] * 3 + [_I, _P],
 }
 # the C entries above whose int8_attn=1 launches are counted apart
 VARIANTS = {"attn_block_quant": "attn_block_quant_int8attn",

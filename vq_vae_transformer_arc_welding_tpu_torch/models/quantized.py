@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import fused_attn_quant, fused_mlp_quant
+from ..ops import fused_attn_quant, fused_mlp_quant, int8_gemm
 from ..ops.activations import gelu, new_gelu
 from ..ops.attention import causal_attention_core, merge_heads, split_heads
 from ..ops.conv import center_tap_dense
@@ -216,13 +216,32 @@ def saturation_stats(model, qparams, x_ids):
     return overall, stats
 
 
+def _mlp_int8_gemm(blk, h8, resid):
+    """The int8 MLP after the attention half, resid + m_proj(q8(new_gelu(
+    c_fc(h8)))), as two calls of the int8 GEMM (ops/int8_gemm.py) on the
+    operands #6 takes from the block's pack: c_fc with the GELU+q8
+    epilogue at m_proj's act scale, then m_proj with the f32 epilogue
+    and the residual. The same roundings as the eager chain
+    `qdot(new_gelu(qdot_prequantized(h8, c_fc)), m_proj)`, so the same
+    bits."""
+    scales, vc, _, v4c = packed_operands(blk)
+    lead = h8.shape[:-1]
+    g8 = int8_gemm.int8_gemm(h8.reshape(-1, h8.shape[-1]),
+                             blk["c_fc"].w_int8, v4c[0], v4c[1],
+                             qscale=scales[3])
+    out = int8_gemm.int8_gemm(g8, blk["m_proj"].w_int8, vc[6], vc[7],
+                              resid=resid.reshape(-1, resid.shape[-1]))
+    return out.reshape(*lead, -1)
+
+
 def quantized_backbone_block(model, qparams, x_ids, *, full_block=False,
                              int8_attn=False, stream_dtype=None,
                              sat_rows: list | None = None):
     """Backbone with whole-block fusion (ops/fused_block_quant.py).
     full_block: one kernel per block (#6); otherwise each block's
     attention half in one kernel (#2), returning (x_mid, h8), and the
-    int8 MLP outside it. int8_attn: scores and P@V on int8 operands.
+    int8 MLP outside it as two int8 GEMM calls (`_mlp_int8_gemm`).
+    int8_attn: scores and P@V on int8 operands.
     stream_dtype (torch.bfloat16 for the '-bf16' variants): the
     residual stream between kernels is rounded to it where the JAX
     kernels write it: the attention half's x_mid (h8 is computed from
@@ -232,7 +251,8 @@ def quantized_backbone_block(model, qparams, x_ids, *, full_block=False,
     h8 matches the plain chain at every int8 boundary; the f32 stream
     agrees to ~1e-3 (attention normalizes after P@V). sat_rows
     (attention-half variants only) collects the sites visible outside
-    the fused call: the rail count of h8 and the f32 m_proj input."""
+    the fused call: the rail count of h8 and the f32 m_proj input; it
+    keeps the MLP as the eager qdot chain, which exposes that input."""
     if sat_rows is not None and full_block:
         raise ValueError(
             "in-path saturation monitoring needs the attn-half block "
@@ -252,11 +272,13 @@ def quantized_backbone_block(model, qparams, x_ids, *, full_block=False,
         x_mid, h8 = fused_attn_block_quant(x.float(), blk,
                                            n_head=model.n_head,
                                            int8_attn=int8_attn)
+        if sat_rows is None:
+            x = stream(_mlp_int8_gemm(blk, h8, stream(x_mid).float()))
+            continue
         g = new_gelu(qdot_prequantized(h8, blk["c_fc"]))
-        if sat_rows is not None:
-            sat_rows.append(_row_clip_frac_prequant(h8))
-            if blk["m_proj"].act_scale is not None:
-                sat_rows.append(_row_clip_frac(g, blk["m_proj"].act_scale))
+        sat_rows.append(_row_clip_frac_prequant(h8))
+        if blk["m_proj"].act_scale is not None:
+            sat_rows.append(_row_clip_frac(g, blk["m_proj"].act_scale))
         x = stream(stream(x_mid).float() + qdot(g, blk["m_proj"]))
     return layer_norm(x.float(), qparams["ln_f_scale"],
                       qparams["ln_f_bias"])

@@ -388,16 +388,12 @@ class TransformerDecoder(Checkpointed, nn.Module):
         return (self.embedding.latent_embedding.weight[tok.long()][:, None]
                 + self.pe[pos])
 
-    def _token_step_fused(self, tok, pos: int, caches):
-        """_token_step with every block as one kernel call
-        (ops/fused_decode.fused_block_decode). Caches here are (B, T, C)
-        time-major and updated in place. Same function; logits agree to
-        float tolerance."""
-        from ..ops.fused_decode import fused_block_decode
-        x = self._embed_token(tok, pos)
-        for blk, (k_c, v_c) in zip(self.blocks, caches):
-            x, _, _ = fused_block_decode(x, blk, k_c, v_c, pos,
-                                         n_head=self.n_head)
+    def _token_step_fused(self, tok, pos: int, caches, stack):
+        """_token_step with every block as one kernel call (#13,
+        ops/fused_decode.py). Caches here are (B, T, C) time-major and
+        updated in place. stack: the generation's BlockDecodeStack over
+        these caches. Same function; logits agree to float tolerance."""
+        x = stack(self._embed_token(tok, pos), pos)
         ln_f = self.transformer.ln_f
         x = layer_norm(x, ln_f.weight, ln_f.bias)
         return x[:, 0] @ self.lm_head.weight.t(), caches
@@ -467,9 +463,10 @@ class TransformerDecoder(Checkpointed, nn.Module):
         place. For the card's ms per token of each variant see PERF.md.
 
         decode_impl: 'xla' (default, the plain f32 chain; the name is
-        the JAX package's) or 'fused' (one kernel call per block per
-        token, ops/fused_decode.fused_block_decode: same function,
-        logits to float tolerance, so ids can differ at near-ties).
+        the JAX package's) or 'fused' (one kernel launch per block per
+        token, ops/fused_decode.BlockDecodeStack, the operands checked
+        once per generation: same function, logits to float tolerance,
+        so ids can differ at near-ties).
 
         cache_dtype: storage type of the K/V caches (torch.bfloat16
         halves the cache traffic; scores are still summed in f32, so
@@ -524,9 +521,12 @@ class TransformerDecoder(Checkpointed, nn.Module):
         logits, caches = self._prefill(buf[:, :t0], caches)
         if fused:
             # the kernel's cache layout: (B, T, C) time-major, one
-            # relayout after the prefill
+            # relayout after the prefill; the operands checked once
+            from ..ops import fused_decode
             caches = [tuple(merge_heads(z).contiguous() for z in kv)
                       for kv in caches]
+            stack = fused_decode.BlockDecodeStack(self.blocks, caches,
+                                                  n_head=self.n_head)
         weights = None if fused else self._step_weights(param_dtype)
         bounds = (range(cache_buckets, cache_len, cache_buckets)
                   if cache_buckets else ())
@@ -539,7 +539,8 @@ class TransformerDecoder(Checkpointed, nn.Module):
             # the final KV step, whose logits are never consumed)
             pos = min(cur, cache_len - 1)
             if fused:
-                logits, caches = self._token_step_fused(nxt, pos, caches)
+                logits, caches = self._token_step_fused(nxt, pos, caches,
+                                                        stack)
             else:
                 attn_len = next((bd for bd in bounds if cur + 1 <= bd), None)
                 logits, caches = self._token_step(nxt, pos, caches,

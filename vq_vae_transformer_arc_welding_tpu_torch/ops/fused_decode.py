@@ -1,12 +1,16 @@
-"""One token of KV-cached sampling through a block, as one kernel call.
+"""One token of KV-cached sampling through a block, as one kernel launch.
 
 Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_decode.py:
 `fused_decode_attn` (the pallas_call at :149, kernel #12), a block's
 attention half against (B, H, T, D) caches, and `fused_block_decode`
 (the pallas_call at :371, kernel #13), the whole block against (B, T, C)
 time-major caches. The kernels are `csrc/decode.cu` (`decode_attn_f32`,
-`block_decode_f32`); `fused_decode_attn_reference` and
-`fused_block_decode_reference` are their plain PyTorch versions.
+`block_decode_f32`), one cooperative launch a call each;
+`fused_decode_attn_reference` and `fused_block_decode_reference` are
+their plain PyTorch versions. `BlockDecodeStack` runs #13 through every
+block of a model for one generation, its operands checked and its
+scratch allocated once (`block_decode_stack_reference`: its plain
+version).
 
     h = LN1(x); q, k, v = h Wqkv + b; row `pos` of K and V written;
     y = softmax(q K[:pos+1]^T / sqrt(D)) V[:pos+1], per head;
@@ -42,6 +46,8 @@ PERF.md.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -53,6 +59,25 @@ from .norm import layer_norm
 
 _ATTN = "decode_attn_f32"
 _BLOCK = "block_decode_f32"
+HEAD_DIM = 64       # the kernels' head width
+MAX_COLS = 32       # a product's columns one block of the grid takes
+MAX_C = 1024        # the widest stream csrc/decode.cu normalises
+MAX_KC = 512        # the widest k piece of its products
+MAX_GRID = 1024     # its blocks; the barrier holds a count for each
+
+
+class DecodeArgs(ctypes.Structure):
+    """csrc/decode.cu's DecodeArgs: one block's operands for a launch,
+    packed once. Pointers are device addresses; the caches' element (b,
+    h, t, e) is at b*sb + h*sh + t*st + e (floats)."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "ln1_s", "ln1_b", "w_qkv", "b_qkv", "w_proj", "b_proj", "ln2_s",
+        "ln2_b", "w_fc", "b_fc", "w_mp", "b_mp", "kc", "vc", "scratch",
+        "barrier")]
+        + [(name, ctypes.c_longlong) for name in ("sb", "sh", "st")]
+        + [(name, ctypes.c_int) for name in ("batch", "t", "c", "c4",
+                                             "n_head")]
+        + [("sm_scale", ctypes.c_float)])
 
 
 def _dense(x: torch.Tensor, p) -> torch.Tensor:
@@ -95,22 +120,31 @@ def fused_block_decode_reference(x, blk, kc, vc, pos: int, *, n_head: int):
                            blk.mlp.c_proj), kc, vc)
 
 
-def _checked(name, x, blk, kc, vc, cache_shape, pos, n_head, mlp: bool):
-    """Raise unless the kernel takes these operands; the pointers of the
-    block's weights in the C entry's order."""
-    b, one, c = x.shape
-    dev = x.device
-    kernels.require_heads(name, c, n_head)
-    if one != 1:
-        raise ValueError(f"{name}: x must be (B, 1, C), got {tuple(x.shape)}")
-    t = cache_shape[2] if len(cache_shape) == 4 else cache_shape[1]
+def _check_pos(name, pos, t):
     if not isinstance(pos, int) or not 0 <= pos < t:
         raise ValueError(f"{name}: pos must be an int in [0, {t}), got "
                          f"{pos!r}")
+
+
+def _check_x(name, x, b, c, dev):
+    if x.dim() != 3 or x.shape[1] != 1:
+        raise ValueError(f"{name}: x must be (B, 1, C), got {tuple(x.shape)}")
     kernels.require(x, "x", torch.float32, (b, 1, c), dev)
+
+
+def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev):
+    """Raise unless the kernel takes the block and the caches; the
+    pointers of the block's weights in DecodeArgs' order, and c4."""
+    c = blk.ln_1.weight.shape[0]
+    if c % HEAD_DIM or c != n_head * HEAD_DIM or c > MAX_C:
+        raise ValueError(f"{name}: C={c} with {n_head} heads not supported: "
+                         f"C a multiple of 64 up to {MAX_C}, head width "
+                         f"{HEAD_DIM}")
     kernels.require(kc, "kc", torch.float32, cache_shape, dev)
     kernels.require(vc, "vc", torch.float32, cache_shape, dev)
-    c4 = blk.mlp.c_fc.weight.shape[0]
+    c4 = blk.mlp.c_fc.weight.shape[0] if mlp else 0
+    if c4 % 64:
+        raise ValueError(f"{name}: the MLP's width {c4} is no multiple of 64")
     operands = [("ln_1.weight", blk.ln_1.weight, (c,)),
                 ("ln_1.bias", blk.ln_1.bias, (c,)),
                 ("c_attn.weight", blk.attn.c_attn.weight, (3 * c, c)),
@@ -128,7 +162,65 @@ def _checked(name, x, blk, kc, vc, cache_shape, pos, n_head, mlp: bool):
         kernels.require(p, label, torch.float32, shape, dev)
         if p.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
-    return [p.data_ptr() for _, p, _ in operands], c4
+    if dev.type == "cuda":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for n in (3 * c, c4):
+            if -(-n // sms) > MAX_COLS:
+                raise ValueError(f"{name}: {n} columns over {sms} SMs: more "
+                                 f"than {MAX_COLS} a block")
+    return ([p.data_ptr() for _, p, _ in operands] + [None] * (12 - len(
+        operands)), c4)
+
+
+def _checked(name, x, blk, kc, vc, cache_shape, pos, n_head, mlp: bool):
+    """Raise unless the kernel takes these operands; the pointers of the
+    block's weights in DecodeArgs' order, and c4 (0 without the MLP)."""
+    b, c = x.shape[0], x.shape[-1]
+    _check_x(name, x, b, c, x.device)
+    checked = _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp,
+                              x.device)
+    _check_pos(name, pos, cache_shape[2] if len(cache_shape) == 4
+               else cache_shape[1])
+    return checked
+
+
+@functools.cache
+def _barrier(device: torch.device) -> torch.Tensor:
+    """The kernels' grid barrier on `device`: an arrival count and a
+    generation, then m_proj's count per column range (csrc/decode.cu);
+    every launch leaves the counts at 0. One per device, zeroed once; the
+    launches on a device run one after another."""
+    return torch.zeros(2 + MAX_GRID, dtype=torch.int32, device=device)
+
+
+def _chunk_k(c: int, c4: int) -> int:
+    """The kernels' k piece: the largest multiple of 64 up to MAX_KC that
+    divides C and c4."""
+    return next(kc for kc in range(MAX_KC, 0, -64)
+                if c % kc == 0 and c4 % kc == 0)
+
+
+def _scratch(b, c, c4, dev) -> torch.Tensor:
+    """q, y, x_mid (b x C each), g (b x c4) and m_proj's partial sums
+    (c4 / KC x b x C), f32."""
+    parts = c4 // _chunk_k(c, c4) * c if c4 else 0
+    return torch.empty(b * (3 * c + c4 + parts), dtype=torch.float32,
+                       device=dev)
+
+
+def _pack(ptrs, kc, vc, strides, scratch, b, t, c, c4, n_head) -> DecodeArgs:
+    return DecodeArgs(*ptrs, kc.data_ptr(), vc.data_ptr(),
+                      scratch.data_ptr(), _barrier(kc.device).data_ptr(),
+                      *strides, b, t, c, c4, n_head,
+                      1.0 / math.sqrt(c // n_head))
+
+
+def _launch(name, args: DecodeArgs, x, out, pos, stream) -> None:
+    lib = kernels.library()
+    kernels.launches[name] += 1
+    err = getattr(lib, name)(ctypes.addressof(args), x.data_ptr(),
+                             out.data_ptr(), pos, stream)
+    kernels.check(err, name)
 
 
 def fused_decode_attn(x, blk, kc, vc, pos: int, *, n_head: int):
@@ -143,18 +235,14 @@ def fused_decode_attn(x, blk, kc, vc, pos: int, *, n_head: int):
     if x.device.type != "cuda":
         raise ValueError(f"{_ATTN}: no kernel for device {x.device}")
     b, _, c = x.shape
-    t = kc.shape[2]
-    ptrs, _ = _checked(_ATTN, x, blk, kc, vc, (b, n_head, t, c // n_head),
-                       pos, n_head, mlp=False)
-    scratch = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    t = kc.shape[2] if kc.dim() == 4 else -1
+    ptrs, _ = _checked(_ATTN, x, blk, kc, vc, (b, n_head, t, HEAD_DIM), pos,
+                       n_head, mlp=False)
+    scratch = _scratch(b, c, 0, x.device)
     x_mid = torch.empty_like(x)
-    lib = kernels.library()
-    kernels.launches[_ATTN] += 1
-    err = lib.decode_attn_f32(
-        x.data_ptr(), *ptrs, kc.data_ptr(), vc.data_ptr(),
-        scratch.data_ptr(), x_mid.data_ptr(), b, t, c, n_head, pos,
-        1.0 / math.sqrt(c // n_head), kernels.stream_ptr(x.device))
-    kernels.check(err, _ATTN)
+    args = _pack(ptrs, kc, vc, (n_head * t * HEAD_DIM, t * HEAD_DIM,
+                                HEAD_DIM), scratch, b, t, c, 0, n_head)
+    _launch(_ATTN, args, x, x_mid, pos, kernels.stream_ptr(x.device))
     return x_mid, kc, vc
 
 
@@ -172,17 +260,94 @@ def fused_block_decode(x, blk, kc, vc, pos: int, *, n_head: int):
     if x.device.type != "cuda":
         raise ValueError(f"{_BLOCK}: no kernel for device {x.device}")
     b, _, c = x.shape
-    t = kc.shape[1]
+    t = kc.shape[1] if kc.dim() == 3 else -1
     ptrs, c4 = _checked(_BLOCK, x, blk, kc, vc, (b, t, c), pos, n_head,
                         mlp=True)
-    scratch = torch.empty((b, 3 * c + c4), dtype=torch.float32,
-                          device=x.device)
+    scratch = _scratch(b, c, c4, x.device)
     out = torch.empty_like(x)
-    lib = kernels.library()
-    kernels.launches[_BLOCK] += 1
-    err = lib.block_decode_f32(
-        x.data_ptr(), *ptrs, kc.data_ptr(), vc.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), b, t, c, c4, n_head, pos,
-        1.0 / math.sqrt(c // n_head), kernels.stream_ptr(x.device))
-    kernels.check(err, _BLOCK)
+    args = _pack(ptrs, kc, vc, (t * c, HEAD_DIM, c), scratch, b, t, c, c4,
+                 n_head)
+    _launch(_BLOCK, args, x, out, pos, kernels.stream_ptr(x.device))
     return out, kc, vc
+
+
+def check_stack(blocks, caches, *, n_head: int) -> list:
+    """Raise unless kernel #13 takes every block with its caches, (B, T,
+    C) f32 each: the checks of `fused_block_decode` but x and pos, once
+    for a generation. [(pointers of the block's weights in DecodeArgs'
+    order, c4)] per block. Device-agnostic: on CPU tensors it checks what
+    the card would refuse."""
+    kc0 = caches[0][0]
+    if kc0.dim() != 3:
+        raise ValueError(f"{_BLOCK}: the caches must be (B, T, C), got "
+                         f"{tuple(kc0.shape)}")
+    return [_check_operands(_BLOCK, blk, kc, vc, tuple(kc0.shape), n_head,
+                            True, kc0.device)
+            for blk, (kc, vc) in zip(blocks, caches)]
+
+
+def check_step(x, pos, caches) -> None:
+    """Raise unless #13 takes x (B, 1, C) and pos against these caches:
+    the checks of a token step."""
+    b, t, c = caches[0][0].shape
+    _check_x(_BLOCK, x, b, c, caches[0][0].device)
+    _check_pos(_BLOCK, pos, t)
+
+
+class BlockDecodeStack:
+    """Kernel #13 through every block of a model, for one generation.
+
+    blocks: the model's transformer Blocks; caches: [(kc, vc)] per
+    block, (B, T, C) f32 time-major, updated in place. On the card the
+    operands of every block are checked here, once (`check_stack`), and
+    packed into one DecodeArgs each, with the scratch and two output rows
+    allocated once. A call `stack(x, pos)` then checks x and pos
+    (`check_step`) and costs one C call (one launch, counted in
+    kernels.launches) a block. It returns the stream after the last
+    block, in a buffer that the next call reuses. On the CPU each block
+    goes through `fused_block_decode`, the plain version."""
+
+    def __init__(self, blocks, caches, *, n_head: int):
+        self.blocks, self.caches, self.n_head = list(blocks), caches, n_head
+        self.device = caches[0][0].device
+        if self.device.type == "cpu":
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"{_BLOCK}: no kernel for device {self.device}")
+        checked = check_stack(self.blocks, caches, n_head=n_head)
+        b, t, c = caches[0][0].shape
+        self._scratch = _scratch(b, c, checked[0][1], self.device)
+        self._outs = [torch.empty((b, 1, c), dtype=torch.float32,
+                                  device=self.device) for _ in range(2)]
+        self._args = [_pack(ptrs, kc, vc, (t * c, HEAD_DIM, c), self._scratch,
+                            b, t, c, c4, n_head)
+                      for (ptrs, c4), (kc, vc) in zip(checked, caches)]
+        self._fn = getattr(kernels.library(), _BLOCK)
+
+    def __call__(self, x, pos: int):
+        if self.device.type == "cpu":
+            for blk, (kc, vc) in zip(self.blocks, self.caches):
+                x, _, _ = fused_block_decode(x, blk, kc, vc, pos,
+                                             n_head=self.n_head)
+            return x
+        check_step(x, pos, self.caches)
+        stream = kernels.stream_ptr(self.device)
+        for i, args in enumerate(self._args):
+            out = self._outs[i % 2]
+            kernels.launches[_BLOCK] += 1
+            err = self._fn(ctypes.addressof(args), x.data_ptr(),
+                           out.data_ptr(), pos, stream)
+            kernels.check(err, _BLOCK)
+            x = out
+        return x
+
+
+def block_decode_stack_reference(blocks, caches, *, n_head: int):
+    """Plain version of BlockDecodeStack: `run(x, pos)` takes x through
+    every block with `fused_block_decode_reference`."""
+    def run(x, pos):
+        for blk, (kc, vc) in zip(blocks, caches):
+            x, _, _ = fused_block_decode_reference(x, blk, kc, vc, pos,
+                                                   n_head=n_head)
+        return x
+    return run

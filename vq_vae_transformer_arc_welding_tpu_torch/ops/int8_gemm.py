@@ -8,10 +8,12 @@ kernels is `_idot(a8, w8).astype(float32) * scale + bias` of
 vq_vae_transformer_arc_welding_tpu/ops/pallas_block_quant.py (:59,
 :163, :168, :192, :194), followed by the residual add or by the tanh
 GELU and q8 of the MLP's intermediate. The C entry `int8_gemm`
-(`csrc/int8_gemm.cu`) launches the GEMM alone, so that the card tests
-and chip_smoke.py can hold it against `int8_gemm_reference` bit for bit
-and time it at each shape; serving reaches it only inside those four
-kernels, never through this wrapper.
+(`csrc/int8_gemm.cu`) launches the GEMM alone. Serving reaches it
+through this wrapper on the 'attn' and 'attn8' paths (and their '-bf16'
+variants): `models/quantized.py::_mlp_int8_gemm` runs the int8 MLP after
+kernel #2 as two calls, c_fc with the GELU+q8 epilogue and m_proj with
+the residual. The card tests and chip_smoke.py hold it against
+`int8_gemm_reference` bit for bit and time it at each shape.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
