@@ -7,8 +7,14 @@ Builds the port's CUDA kernels from vq_vae_transformer_arc_welding_tpu_torch/csr
 builds the bench model (__graft_entry__._build's configuration) at full
 width from a seed, calibrates `WeldingQualityPipeline(precision="int8",
 encoder_impl="fused", max_batch=80)` on 8 windows and answers requests
-of 80, 37 and 1 windows through `classify` (block_fusion='attn'; its
-in-path saturation monitor keeps the eager int8 MLP). Then it drives
+of 80, 37 and 1 windows through `classify` (block_fusion='attn', with
+its in-path saturation monitor: per block kernel #2, whose last
+LayerNorm+q8 launch counts h8 at +-127, and the int8 MLP as two int8
+GEMM calls, c_fc counting the m_proj inputs it clips). A drifted
+request (the same pipeline's act scales at half the calibrated absmax)
+must give a saturation rate above 0 and within 1e-3 of its plain
+path's, with equal labels where the plain probabilities differ by more
+than 1e-3. Then it drives
 every other int8 path of `entry.make_pipeline_quantized` on the same
 requests: block_fusion 'attn' (whose int8 MLP is two int8 GEMM calls a
 block, as on 'attn8' and 'attn-bf16'), 'full', 'attn8', 'full8',
@@ -51,16 +57,19 @@ chain's largest magnitude, and its id flips must be near-ties.
 The int8 GEMM that #2, #6, #8 and #10 share (csrc/int8_gemm_sm90.cuh)
 is launched alone at its four shapes in a block (qkv, c_proj, c_fc,
 m_proj; 25,680 rows at batch 80) on block 0's own operands, and must be
-bit-equal to the plain stage and to what #6 wrote at that stage. With
+bit-equal to the plain stage and to what #6 wrote at that stage; the
+int8 MLP of the main path (c_fc with the monitor's counts, then m_proj)
+is the record's `int8_gemm` entry, timed in turns with its plain
+version there. With
 int8_attn (#2 and #6 on 'attn8' and 'full8'), the attention's quantizing
 pass (csrc/attention_int8.cuh) must write int8 operands and scales
 bit-equal to its plain version (`quantize_heads_reference`) on each
 block's own qkv, and its y8 is held stage by stage as every int8 stage.
 Right after the build, `-Xptxas -v` of the two instantiations of the
-attention tile (csrc/attention_tc.cuh), of the GEMM's two and of the
-encoder tile's two (#1, #3) gives their registers and spills (a spill
-fails the run), and the GEMM's PTX must hold `wgmma.mma_async` and
-`cp.async.bulk.tensor` and the int8 attention's s8 `mma.sync`
+attention tile (csrc/attention_tc.cuh), of the GEMM's three, of the
+encoder tile's two (#1, #3) and of LN+q8's (csrc/ln_q8.cuh) gives their
+registers and spills (a spill fails the run), and the GEMM's PTX must
+hold `wgmma.mma_async` and `cp.async.bulk.tensor` and the int8 attention's s8 `mma.sync`
 m16n8k32 (whose two kernels ptxas reports on too), the encoder chain's
 its TF32 `wgmma`, the TMA copy and `cvt.rna.tf32.f32`. The f32 attention kernels
 and scaled_dot_product_attention on #9's inputs are timed again ten
@@ -69,12 +78,16 @@ behind the card's work; at the end, torch.profiler traces give their
 device time per call (with each kernel's launches, so that a lost event
 shows), the f32 attention's, the int8 GEMM's and the encoder chain's
 (#1) device time per call of the 'attn' and 'full' pipelines (of
-'attn8' and 'full8' with the int8 attention's and its quantizing pass's),
+'attn8' and 'full8' with the int8 attention's and its quantizing pass's;
+LN+q8's on all four),
 #1's and #3's device time per launch at 25,600 rows, the GEMM's device
 time per launch at each shape beside its bound and beside torch._int_mm
-on the same operands (s32 out, no epilogue), and #2's and #6's with
-int8_attn per call, with the device time a launch of the quantizing
-pass and of the int8 attention beside their own bounds.
+on the same operands (s32 out, no epilogue), c_fc at its act scale
+and at the drifted one with and without the monitor's counts, LN+q8's
+device time a
+launch in #2 with the monitor's counts beside its bound, and #2's and
+#6's with int8_attn per call, with the device time a launch of the
+quantizing pass and of the int8 attention beside their own bounds.
 
 Then token sampling, at the sampling batch of 16 and 320 KV-cached
 steps: `sample_tokens` on the calibrated pipeline (fresh and from a
@@ -192,6 +205,10 @@ GEMM = "int8_gemm"
 # (csrc/attention_int8.cuh): the per-head quantizing pass and the
 # attention on s8 tensor cores; kernel_work bounds each alone
 QUANT_PASS, INT8_ATTENTION = "head_quant_kernel", "attention_int8_kernel"
+# #2's LayerNorm+q8 rows (csrc/ln_q8.cuh), launched twice a call, the
+# second time with the saturation monitor's count of h8 at +-127
+LN_Q8 = "ln_q8_kernel"
+MAX_RATE_DIFF = 1e-3        # the monitor's rate against the plain path's
 GEMM_SHAPES = {"qkv": (3, 1, False, False), "c_proj": (1, 1, False, True),
                "c_fc": (4, 1, True, False), "m_proj": (1, 4, False, True)}
 # name, make_pipeline_quantized options, the kernels the path launches
@@ -246,6 +263,10 @@ RECORD = {
     FLASH: ("flash_attn.cu", "pallas_attn.py:73"),
     DEC_ATTN: ("decode.cu", "pallas_decode.py:149"),
     DEC_BLOCK: ("decode.cu", "pallas_decode.py:371"),
+    # the int8 MLP after #2 on the main path, two calls of the GEMM (c_fc
+    # with GELU+q8 and the monitor's counts, m_proj with the residual):
+    # the function #8 fuses (the JAX 'attn' path runs it on XLA)
+    GEMM: ("int8_gemm.cu", "pallas_mlp_quant.py:67"),
 }
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -272,7 +293,13 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     (b, t, c) stream with n_head heads; a decode step of dec_b streams
     at position dec_pos, which reads the dec_pos cache rows before it
     and writes one. `int8_gemm <shape>`: the int8 GEMM alone at the
-    four shapes of a block (GEMM_SHAPES). The int8 attention of #2 and
+    four shapes of a block (GEMM_SHAPES). LN_Q8: one launch of #2's
+    LayerNorm+q8 rows alone, the f32 rows and the LayerNorm's scale and
+    bias read once, the int8 rows written once (the monitor's count, 4
+    bytes a row, left out). GEMM: the int8 MLP after #2 on the main path
+    as one function, h8, the weights, their scales and biases and the
+    residual read once, the f32 output and the monitor's counts written
+    once (the int8 intermediate stays out, as #8's bound leaves it). The int8 attention of #2 and
     #6 alone (INT8_ATTENTION): q8, k8, v8 and the scales read once, y8
     written once, its two products in int8; its quantizing pass alone
     (QUANT_PASS): the f32 qkv read once, the int8 operands and the
@@ -315,6 +342,9 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     head_scales = b * 3 * n_head * f4
     return {
         **gemm,
+        LN_Q8: (xs + 2 * c * f4 + m * c, {}),
+        GEMM: (m * c + w_mlp + 10 * c * f4 + 2 * xs + m * f4,
+               {"int8": mlp}),
         INT8_ATTENTION: (4 * m * c + head_scales, {"int8": attn}),
         QUANT_PASS: (3 * xs + 3 * m * c + head_scales, {}),
         FLASH: (4 * xs, f32_attn),
@@ -446,7 +476,7 @@ PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu", "encoder_chain.cu",
                  "encoder_resblock.cu", "decode.cu")
 PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel",
                  "encoder_chain_kernel", "resblock_kernel", QUANT_PASS,
-                 INT8_ATTENTION, "decode_kernel")
+                 INT8_ATTENTION, "decode_kernel", LN_Q8)
 # what each source's PTX must hold: Hopper's tensor-core product (in
 # TF32, with A split by cvt.rna, for the encoder), TMA copies, the int8
 # attention's s8 products, and the decode kernels' split-TF32 mma.sync
@@ -1141,8 +1171,9 @@ def pipeline_trace(fns: dict, x) -> None:
     tile with the int8 epilogue), of the int8 attention and of its
     quantizing pass ('attn8', 'full8': attention_int8.cuh), of the int8
     GEMM (int8_gemm_sm90_kernel, both epilogues) and of the f32 encoder
-    chain (encoder_chain_kernel, #1), each also per launch; a part the
-    path does not launch is left out."""
+    chain (encoder_chain_kernel, #1) and of LN+q8 (#2's and #6's rows),
+    each also per launch; a part the path does not launch is left
+    out."""
     calls = 3
     for name in TIMED_PATHS:
         fn = fns[name]
@@ -1162,6 +1193,7 @@ def pipeline_trace(fns: dict, x) -> None:
                  lambda key: f"{QUANT_PASS}(" in key),
                 ("the int8 GEMM (int8_gemm_sm90_kernel)",
                  lambda key: "int8_gemm" in key),
+                (f"LN+q8 rows ({LN_Q8})", lambda key: LN_Q8 in key),
                 ("the f32 encoder chain (encoder_chain_kernel)",
                  lambda key: key.startswith("encoder_chain_kernel("))):
             got = [(cnt, ms) for key, cnt, ms in names if pick(key)]
@@ -1202,9 +1234,15 @@ def gemm_cases(x, sc, w, scales, vc, v3c, v4c) -> dict:
 def gemm_phase(cases: dict) -> dict:
     """The int8 GEMM alone at the four shapes of a block at batch 80, on
     the bench model's block 0 operands (gemm_cases): each launch must be
-    bit-equal to the plain stage and to what #6 wrote at that stage.
-    Returns {shape: (the GEMM's call, torch._int_mm's call on the same
-    a and w)}, for the traces at the end."""
+    bit-equal to the plain stage and to what #6 wrote at that stage;
+    then c_fc at twice its act scale with the saturation monitor's
+    counts, which must equal the plain stage's. Returns ({shape: (the
+    GEMM's call, torch._int_mm's call on the same a and w)}, {c_fc at
+    its own and at twice its act scale, each without and with the
+    counts: its call}, the int8 MLP of the main path (c_fc with the
+    counts, then m_proj) as "kernel" and "plain" calls and the largest
+    difference of their outputs as "err"), for the traces and the
+    record at the end."""
     import torch
     from vq_vae_transformer_arc_welding_tpu_torch.ops import int8_gemm as ig
     calls = {}
@@ -1222,7 +1260,44 @@ def gemm_phase(cases: dict) -> dict:
         check(all(same), f"{GEMM} {shape}: not bit-equal ({same})")
         calls[shape] = (lambda args=args: ig.int8_gemm(*args),
                         lambda a=a, w=w: torch._int_mm(a, w.t()))
-    return calls
+    # c_fc at the drifted act scale (twice the calibrated one: half the
+    # absmax), where the monitor's counts are not all 0: with them, the
+    # same g8 and the plain stage's counts on the same operands
+    args = (*cases["c_fc"][0][:5], cases["c_fc"][0][5] * 2)
+    clip = torch.zeros(args[0].shape[0], dtype=torch.int32,
+                       device=args[0].device)
+    (out, plain_out), counts = counted(lambda: (
+        ig.int8_gemm(*args, clip_rows=clip), ig.int8_gemm(*args)))
+    check(counts == {GEMM: 2}, f"{GEMM} c_fc drifted launched {counts}")
+    want = torch.zeros_like(clip)
+    ref = ig.int8_gemm_reference(*args, clip_rows=want)
+    same = [torch.equal(out, ref), torch.equal(plain_out, ref),
+            torch.equal(clip, want)]
+    log(f"{GEMM} c_fc at twice the act scale with the monitor's counts: "
+        f"g8 bit-equal to the plain stage {same[0]} (without the counts "
+        f"{same[1]}), counts equal to the plain stage's {same[2]} "
+        f"({int(want.sum())} clipped of {ref.numel()}, "
+        f"{int((want > 0).sum())} of {len(want)} rows)")
+    check(all(same), f"{GEMM} c_fc counts: not equal ({same})")
+    check(int(want.sum()) > 0, f"{GEMM} c_fc at twice the act scale clips "
+                               f"nothing: the counts are not exercised")
+    calibrated = cases["c_fc"][0]
+    clip0 = torch.zeros_like(clip)
+    counted_fc = {
+        "c_fc": lambda: ig.int8_gemm(*calibrated),
+        "c_fc, counted": lambda: ig.int8_gemm(*calibrated, clip_rows=clip0),
+        "c_fc drifted": lambda: ig.int8_gemm(*args),
+        "c_fc drifted, counted": lambda: ig.int8_gemm(*args, clip_rows=clip)}
+    # the int8 MLP as the main path runs it, and its plain version
+    mp = cases["m_proj"][0]
+
+    def mlp(gemm):
+        return lambda: gemm(gemm(*calibrated, clip_rows=clip0), *mp[1:])
+    mlp_err = float((mlp(ig.int8_gemm)() - mlp(ig.int8_gemm_reference)())
+                    .abs().max())
+    return calls, counted_fc, {"kernel": mlp(ig.int8_gemm),
+                               "plain": mlp(ig.int8_gemm_reference),
+                               "err": mlp_err}
 
 
 def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
@@ -1547,7 +1622,7 @@ def deployment_phase(vq, tr, pipe, f32, req, smi: str) -> None:
                                       pipe.scaler.scale_)),
               "load_artifact: scaler")
         (labels2, probs2), counts = counted(lambda: loaded.classify(req))
-        check(set(counts) == {ENC, ATTN},
+        check(set(counts) == {ENC, ATTN, GEMM},
               f"the loaded pipeline launched {sorted(counts)}")
         check(bool(np.array_equal(probs2, probs))
               and bool(np.array_equal(labels2, labels)),
@@ -1586,9 +1661,9 @@ def deployment_phase(vq, tr, pipe, f32, req, smi: str) -> None:
             total_s[0] = host_seconds(lambda: score_quality.main(args))
 
         _, counts = counted(score)
-        check(set(counts) == {ENC, ATTN},
-              f"the scorer launched {sorted(counts)}, expected {ENC} and "
-              f"{ATTN}")
+        check(set(counts) == {ENC, ATTN, GEMM},
+              f"the scorer launched {sorted(counts)}, expected {ENC}, "
+              f"{ATTN} and {GEMM}")
         lines = open(out).read().strip().split("\n")
         check(lines[0] ==
               "experiment,welding_run,start_cycle,label,p_bad,p_good",
@@ -1699,6 +1774,49 @@ def deployment_phase(vq, tr, pipe, f32, req, smi: str) -> None:
             f"cycles/s ({med[2]:.3f} s), medians of 3; gpu {smi}")
 
 
+def drift_phase(pipe, vq, tr, am: dict, req) -> None:
+    """classify after serving drifted past calibration: a pipeline like
+    `pipe` whose act scales come from half the calibrated absmax
+    (`quantize_transformer`), so that every monitored site clips. It
+    must launch the main path's kernels (the GEMM twice a block) and
+    report a saturation rate above 0 and within MAX_RATE_DIFF of its
+    plain path's (h8 may move by one step in 0.1% of its entries), with
+    labels equal where the plain probabilities differ by more than
+    LABEL_MARGIN."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
+        quantize_transformer)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        WeldingQualityPipeline)
+    drifted = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES,
+                                     max_batch=pipe.max_batch,
+                                     precision="int8", encoder_impl="fused")
+    with torch.inference_mode():
+        drifted.qparams = quantize_transformer(
+            tr, act_absmax={k: v / 2 for k, v in am.items()})
+    (labels, _), counts = counted(lambda: drifted.classify(req))
+    rate = drifted.last_saturation_rate
+    check(set(counts) == {ENC, ATTN, GEMM}
+          and counts[GEMM] == 2 * tr.n_blocks,
+          f"drifted classify launched {json.dumps(counts)}")
+    with plain_path():
+        plain_labels, plain_probs = drifted.classify(req)
+    plain_rate = drifted.last_saturation_rate
+    sure = np.abs(plain_probs[:, 0] - plain_probs[:, 1]) > LABEL_MARGIN
+    same = labels == plain_labels
+    log(f"drifted request of {len(req)} (act scales of half the calibrated "
+        f"absmax): launches {json.dumps(counts)}; saturation rate {rate:.6f}"
+        f", plain path {plain_rate:.6f} (bound {MAX_RATE_DIFF}); labels "
+        f"equal on all {int(sure.sum())} windows whose plain |p0-p1| > "
+        f"{LABEL_MARGIN}: {bool(same[sure].all())}")
+    check(rate > 0, "the drifted request's saturation rate is 0")
+    check(abs(rate - plain_rate) <= MAX_RATE_DIFF,
+          f"drifted saturation rate {rate} against the plain path's "
+          f"{plain_rate}")
+    check(bool(same[sure].all()), "drifted classify: labels differ from the "
+                                  "plain path's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1785,8 +1903,13 @@ def main() -> int:
     # -- 4. the main path: three requests through classify ('attn') --------
     outs, counts = counted(lambda: [pipe.classify(r) for r in reqs])
     log(f"main path: classify launches {json.dumps(counts)}")
-    check(set(counts) == {ENC, ATTN},
-          f"classify launched {sorted(counts)}, expected {ENC} and {ATTN}")
+    check(set(counts) == {ENC, ATTN, GEMM},
+          f"classify launched {sorted(counts)}, expected {ENC}, {ATTN} and "
+          f"{GEMM}")
+    n_gemm = 2 * tr.n_blocks * len(reqs)
+    check(counts[GEMM] == n_gemm,
+          f"classify launched {GEMM} {counts[GEMM]} times, expected two a "
+          f"block: {n_gemm}")
     launched = {name: ("classify", n) for name, n in counts.items()}
     for n, (labels, probs) in zip(REQUESTS, outs):
         check(labels.shape == (n,) and probs.shape == (n, 2),
@@ -1800,6 +1923,7 @@ def main() -> int:
             f", probs[0] {probs[0].tolist()}")
     log(f"saturation monitor: last rate {pipe.last_saturation_rate}")
     qp = pipe.qparams
+    drift_phase(pipe, vq, tr, am, reqs[0])
 
     # -- 5. every int8 path end to end, against its plain path --------------
     fns = {}
@@ -1935,9 +2059,9 @@ def main() -> int:
     (outs8, ids8), counts = counted(lambda: (
         [pipe8.classify(r) for r in reqs],
         [pipe8.encode_tokens(r) for r in reqs]))
-    check(set(counts) == {ATTN},
+    check(set(counts) == {ATTN, GEMM},
           f"the int8-encoder pipeline launched {sorted(counts)}, expected "
-          f"only {ATTN}")
+          f"only {ATTN} and {GEMM}")
     for n, (labels, probs), ids, r in zip(REQUESTS, outs8, ids8, reqs):
         check(labels.shape == (n,) and bool(np.isfinite(probs).all())
               and set(np.unique(labels).tolist()) <= {0, 1},
@@ -2240,8 +2364,16 @@ def main() -> int:
             notes = []
             for name, int8_attn in ((ATTN, False), (ATTN8, True)):
                 sc = {}
+                rails = torch.full(xs.shape[:2], -1, dtype=torch.int32,
+                                   device=dev)
                 xm_k, h8_k = fbq.attn_block_quant(
-                    *attn_args, n_head=nh, int8_attn=int8_attn, scratch=sc)
+                    *attn_args, n_head=nh, int8_attn=int8_attn, scratch=sc,
+                    rail_rows=rails)
+                check(torch.equal(rails, (h8_k.int().abs() == 127).sum(
+                    -1, dtype=torch.int32)),
+                    f"{name}: rail counts differ from its own h8's")
+                notes.append(f"{name}: rail counts exact "
+                             f"({int(rails.sum())} of {h8_k.numel()})")
                 xm_p, h8_p = fbq.fused_attn_block_quant_reference(
                     *attn_args, n_head=nh, int8_attn=int8_attn)
                 sc.update(x_mid=xm_k, h8=h8_k)
@@ -2269,8 +2401,8 @@ def main() -> int:
                 if not int8_attn:
                     nxt = out_p
                     if i == 0:
-                        gemm_calls = gemm_phase(gemm_cases(
-                            xs, sc, w, scales, vc, v3c, v4c))
+                        gemm_calls, counted_fc, mlp = gemm_phase(
+                            gemm_cases(xs, sc, w, scales, vc, v3c, v4c))
             h2 = layer_norm(x_mid, blk["ln2_scale"], blk["ln2_bias"])
             mlp_args = (h2.contiguous(), w["c_fc"], w["m_proj"], scales[2:],
                         v4c, vc[6:])
@@ -2299,6 +2431,10 @@ def main() -> int:
             if i == 0:
                 calls = kernel_calls(attn_args, full_args, mlp_args,
                                      qkv_args, (qkv, y_scale))
+                rails0 = torch.zeros(xs.shape[:2], dtype=torch.int32,
+                                     device=dev)
+                counted_attn = (lambda args=attn_args: fbq.attn_block_quant(
+                    *args, n_head=nh, rail_rows=rails0))
             xs = nxt
         worst.check()
         log(f"int8 kernels: worst int8 share {json.dumps(worst.frac)}, "
@@ -2307,6 +2443,8 @@ def main() -> int:
             f"{MAX_INT8_STEP}, {MAX_F32_ERR}; end to end without a bound "
             f"(downstream of an int8 step) {json.dumps(worst.free)}")
         shape = f"B={len(reqs[0])}, T={tr.seq_len}, C={tr.d_model}"
+        enc_err[GEMM] = mlp.pop("err")
+        calls[GEMM] = (mlp["kernel"], mlp["plain"])
         for name, (kfn, pfn) in calls.items():
             times[name] = timed_in_turns({"kernel": kfn, "plain": pfn})
             log(f"kernel {name} time ({shape}, block 0): "
@@ -2318,8 +2456,16 @@ def main() -> int:
     # the events span the whole request, host work included; the
     # pipelines return device logits, and the events span their launches
     f32_labels, _ = f32.classify(reqs[0])
+    def monitor_off():
+        pipe.monitor_saturation = False
+        try:
+            return pipe.classify(reqs[0])
+        finally:
+            pipe.monitor_saturation = True
+
     cls = timed_in_turns({
         "kernel path": lambda: pipe.classify(reqs[0]),
+        "kernel path, monitor off": monitor_off,
         "plain path": on_plain_path(lambda: pipe.classify(reqs[0])),
         "f32 path": lambda: f32.classify(reqs[0])})
     n80 = len(reqs[0])
@@ -2441,8 +2587,31 @@ def main() -> int:
         for n in (0, 1, 2))
     with torch.inference_mode():
         gemm_traced = kernel_trace({
-            (shape, what): fn for shape, fns in gemm_calls.items()
-            for what, fn in zip(("kernel", "_int_mm"), fns)})
+            **{(shape, what): fn for shape, fns in gemm_calls.items()
+               for what, fn in zip(("kernel", "_int_mm"), fns)},
+            **{(name, "counts"): fn for name, fn in counted_fc.items()},
+            (ATTN, "counted"): counted_attn})
+    fc_ms = [gemm_traced[name, "counts"][0] for name in counted_fc]
+    log(f"device trace of {GEMM} c_fc with and without the monitor's "
+        f"counts, at its act scale (no value clipped) and at twice it, 10 "
+        f"calls: " + "; ".join(f"{name} " + (
+            "not measured" if ms is None else f"{ms:.4f} ms a launch")
+            for name, ms in zip(counted_fc, fc_ms))
+        + ("" if None in fc_ms else
+           f"; with the counts {fc_ms[1] / fc_ms[0]:.3f}x and "
+           f"{fc_ms[3] / fc_ms[2]:.3f}x without")
+        + f"; gpu {smi}")
+    ms, n_ops, kernels_of = gemm_traced[ATTN, "counted"]
+    ln = [(n, each) for key, n, each in kernels_of if LN_Q8 in key]
+    bound, by = bound_of(work[LN_Q8])
+    log(f"device trace of {ATTN} with the monitor's counts (B={n80}, "
+        f"T={tr.seq_len}, C={tr.d_model}, block 0), 10 calls: "
+        + ("not measured" if ms is None else
+           f"{ms:.4f} ms a call; {LN_Q8} " + (
+               f"x {ln[0][0]:.1f} a call, {ln[0][1]:.4f} ms a launch, bound "
+               f"{bound:.4f} ms by {by} ({bound / ln[0][1]:.1%} of the time "
+               f"taken)" if ln else "not in the trace"))
+        + f"; gpu {smi}")
     for shape, (nc, kc, _, _) in GEMM_SHAPES.items():
         ms, lib_ms = (gemm_traced[shape, what][0]
                       for what in ("kernel", "_int_mm"))

@@ -29,7 +29,11 @@ but `pos` must stay bit-equal. The bf16 encoder chain (#1's
 f32 difference in a gelu output can move one input by 2^-8 of its
 value, so a resblock's output is held within 1e-3 of its largest
 magnitude (one such flip is ~2e-4 of it), per resblock and fed the same
-x, and the whole chain by the ids it leads to.
+x, and the whole chain by the ids it leads to. The saturation monitor's
+counts (the c_fc GEMM's clip count, #2's rail count of h8) are integers
+and held exactly against the plain count on the kernel's own operands
+or output; `classify`'s rate, within 1e-3 of its plain path's (an h8
+step there moves a count by one).
 """
 import numpy as np
 import pytest
@@ -569,11 +573,115 @@ def test_int8_gemm_rejects_bad_operands(dev):
         lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, resid[:64]),
         lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, resid, qs),
         lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, qscale=qs[None]),
+        lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, clip_rows=torch.zeros(
+            65, dtype=torch.int32, device=dev)),
+        lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, qscale=qs,
+                                    clip_rows=torch.zeros(65, device=dev)),
+        lambda: int8_gemm.int8_gemm(a8, w8, cs, cb, qscale=qs,
+                                    clip_rows=torch.zeros(
+                                        64, dtype=torch.int32, device=dev)),
     ]
     for call in bad:
         with pytest.raises(ValueError):
             call()
     assert kernels.launches == before
+
+
+# the in-path monitor's count in the GELU+q8 epilogue: one sequence, a
+# ragged batch and batch 80 of the bench model
+CLIP_ROWS = [1, 321, 11877, 25680]
+
+
+@pytest.mark.parametrize("m", CLIP_ROWS)
+def test_int8_gemm_clip_counts_equal_plain(dev, m):
+    """c_fc at C = 512 with clip_rows: each row's count of
+    |new_gelu(y) * qscale| > 127.5 equals the plain stage's on the same
+    operands, at a qscale that clips 1-10% of the values; rows past M
+    (the last tile's zero rows, whose new_gelu(cb) clips in eight
+    columns here) count nothing; two calls count the same; g8 stays
+    bit-equal to the plain stage's."""
+    a8, w8, cs, cb, _, _ = (
+        None if v is None else torch.as_tensor(v).to(dev)
+        for v in _gemm_operands(m, 2048, 512, "gelu_q8", seed=m))
+    cb[:8] = 10.0
+    qs = torch.tensor(45.0, device=dev)
+    got = []
+    for _ in range(2):
+        buf = torch.zeros(m + 256, dtype=torch.int32, device=dev)
+        g8 = _launched("int8_gemm", lambda: int8_gemm.int8_gemm(
+            a8, w8, cs, cb, qscale=qs, clip_rows=buf[:m]))
+        got.append((g8, buf))
+    want = torch.zeros(m, dtype=torch.int32, device=dev)
+    ref = int8_gemm.int8_gemm_reference(a8, w8, cs, cb, qscale=qs,
+                                        clip_rows=want)
+    for g8, buf in got:
+        assert torch.equal(g8, ref)
+        assert torch.equal(buf[:m], want)
+        assert not buf[m:].any()
+    if m >= 321:
+        assert 0.01 <= float(want.sum()) / (m * 2048) <= 0.1
+
+
+# C = 128, 512, 768 and 1024 take 16-byte pieces, C = 192 8-byte ones;
+# 135 and 963 rows leave a part block of eight rows
+LN_SHAPES = [(3, 45, 128), (3, 321, 512), (3, 45, 768), (3, 45, 1024),
+             (3, 45, 192)]
+
+
+@pytest.mark.parametrize("b,t,c", LN_SHAPES)
+def test_ln_q8_rows_and_rail_counts(dev, b, t, c):
+    """#2's two LN+q8 launches (csrc/ln_q8.cuh): h8a against the plain
+    LayerNorm + q8 of x and h8 against that of the kernel's own x_mid,
+    within the int8 contract; rail_rows equal to the count of the
+    kernel's own h8 at +-127, overwritten (the buffer held -1), and
+    some rows at a rail."""
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+    x = torch.randn(b, t, c, generator=torch.Generator().manual_seed(c))
+    args = [a.to(dev).contiguous() for a in (x, *_block_operands(c))]
+    x, _, _, scales, vc, _ = args
+    rails = torch.full((b, t), -1, dtype=torch.int32, device=dev)
+    sc = {}
+    xm, h8 = _launched("attn_block_quant", lambda: fbq.attn_block_quant(
+        *args, n_head=c // 64, scratch=sc, rail_rows=rails))
+    _int8_close(sc["h8a"], int8.quantize_act(layer_norm(x, vc[0], vc[1]),
+                                             scales[0]))
+    _int8_close(h8, int8.quantize_act(layer_norm(xm, vc[2], vc[3]),
+                                      scales[2]))
+    want = (h8.int().abs() == 127).sum(-1, dtype=torch.int32)
+    assert torch.equal(rails, want)
+    assert int(want.sum()) > 0
+
+
+def test_classify_monitor_runs_the_gemm_and_matches_plain(dev):
+    """classify with its default saturation monitor, on act scales of
+    half the calibrated absmax (serving drifted past calibration):
+    int8_gemm twice a block, and last_saturation_rate above 0 and within
+    1e-3 of the same call with #2 and the GEMM replaced by their plain
+    versions (h8 may move by a step in 0.1% of its entries)."""
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        WeldingQualityPipeline)
+    vq, tr = entry.build(n_blocks=2, seed=0, device=dev)
+    windows = np.random.default_rng(1).standard_normal(
+        (6, entry.N_CYCLES * 200, 2)).astype(np.float32)
+    pipe = WeldingQualityPipeline(vq, tr, n_cycles=entry.N_CYCLES,
+                                  precision="int8")
+    am = pipe.calibrate(windows[:2])
+    pipe._set_calibration({k: v / 2 for k, v in am.items()})
+    kernels.reset_launch_counts()
+    labels, _ = pipe.classify(windows)
+    assert kernels.launches["int8_gemm"] == 2 * 2
+    assert kernels.launches["attn_block_quant"] == 2
+    rate = pipe.last_saturation_rate
+    real = (int8_gemm.int8_gemm, fbq.attn_block_quant)
+    int8_gemm.int8_gemm = int8_gemm.int8_gemm_reference
+    fbq.attn_block_quant = fbq.fused_attn_block_quant_reference
+    try:
+        plain_labels, _ = pipe.classify(windows)
+    finally:
+        int8_gemm.int8_gemm, fbq.attn_block_quant = real
+    assert rate > 0.001
+    assert abs(rate - pipe.last_saturation_rate) <= 1e-3
+    assert labels.shape == plain_labels.shape == (6,)
 
 
 def test_wrapper_rejects_bad_operands(dev):
@@ -1010,7 +1118,8 @@ def test_attn_paths_run_their_mlp_through_the_int8_gemm(dev, fusion):
         torch.cuda.synchronize()
         assert kernels.launches["int8_gemm"] == 2 * 2
 
-        def eager(blk, h8, resid):
+        def eager(blk, h8, resid, clip_rows=None):
+            assert clip_rows is None
             g = new_gelu(pq.qdot_prequantized(h8, blk["c_fc"]))
             return resid + pq.qdot(g, blk["m_proj"])
 

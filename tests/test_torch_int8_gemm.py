@@ -26,9 +26,11 @@ import torch
 
 import jax.numpy as jnp
 
+from vq_vae_transformer_arc_welding_tpu.models import quantized as jq
 from vq_vae_transformer_arc_welding_tpu.ops import pallas_block_quant as jbq
 from vq_vae_transformer_arc_welding_tpu_torch import kernels
 from vq_vae_transformer_arc_welding_tpu_torch.ops import int8_gemm as ig
+from vq_vae_transformer_arc_welding_tpu_torch.ops.activations import new_gelu
 
 REPO = Path(__file__).resolve().parent.parent
 HEADER = kernels.SRC_DIR / "int8_gemm_sm90.cuh"
@@ -274,6 +276,62 @@ def test_plain_stage_equals_jax_stage(m, n, k, epilogue):
     assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3
 
 
+@pytest.mark.parametrize("m,n,k", [(17, 2048, 512), (129, 512, 128),
+                                   (65, 768, 192)])
+def test_plain_clip_counts_equal_jax_row_clip_frac(m, n, k):
+    """`clip_rows`, each row's count of |new_gelu(y)| * qscale > 127.5
+    that the GELU+q8 stage adds, as fractions of the row against JAX's
+    `_row_clip_frac` of the JAX stage's new_gelu(y), within 1e-6, at a
+    qscale that clips a few percent; counts add to what clip_rows held,
+    and the int8 output is the stage's without them."""
+    a8, w8, cs, cb, _, _ = _operands(m, n, k, "gelu_q8", seed=m + n)
+    qscale = np.float32(45.0)
+    tensors = [torch.as_tensor(v) for v in (a8, w8, cs, cb)]
+    clip = torch.full((m,), 5, dtype=torch.int32)
+    out = ig.int8_gemm(*tensors, qscale=torch.as_tensor(qscale),
+                       clip_rows=clip)
+    assert torch.equal(out, ig.int8_gemm(*tensors,
+                                         qscale=torch.as_tensor(qscale)))
+    y = (jbq._idot(jnp.asarray(a8), jnp.asarray(w8.T)).astype(jnp.float32)
+         * jnp.asarray(cs) + jnp.asarray(cb))
+    want = np.asarray(jq._row_clip_frac(jbq._new_gelu(y), qscale))
+    assert 0.01 <= want.mean() <= 0.1
+    np.testing.assert_allclose(_np_frac(clip - 5, n), want, rtol=0,
+                               atol=1e-6)
+
+
+def test_plain_clip_count_leaves_the_tie_out():
+    """p = new_gelu(y) * qscale = 127.5 exactly rounds to 128 and is
+    clamped to 127, but is not counted: the criterion is JAX's `> 127.5`,
+    not the clamp. y = cb on a zero row of a8: five values of y whose p
+    are the two f32 values below 127.5, 127.5 itself and the two above,
+    at qscale 31.875 (127.5 / 4, new_gelu of the third is 4.0)."""
+    tie = np.float32(4.000070095062256)
+    ys = tie + np.arange(-2, 3, dtype=np.float32) * np.float32(2 ** -21)
+    cb = np.zeros(64, np.float32)
+    cb[:5] = ys
+    qscale = torch.tensor(31.875)
+    a8 = torch.zeros((2, 64), dtype=torch.int8)
+    w8 = torch.as_tensor(_operands(1, 64, 64, "f32", seed=3)[1])
+    cs = torch.full((64,), 1e-4)
+    g = new_gelu(torch.as_tensor(cb))
+    assert float(g[2] * qscale) == 127.5
+    assert (g[:2] * qscale < 127.5).all() and (g[3:5] * qscale > 127.5).all()
+    clip = torch.zeros(2, dtype=torch.int32)
+    out = ig.int8_gemm(a8, w8, cs, torch.as_tensor(cb), qscale=qscale,
+                       clip_rows=clip)
+    assert out[:, :5].tolist() == [[127] * 5] * 2
+    assert clip.tolist() == [2, 2]
+    want = np.asarray(jq._row_clip_frac(jnp.asarray(g.numpy()[None]),
+                                        np.float32(31.875)))
+    np.testing.assert_allclose(_np_frac(clip[:1], 64), want, rtol=0,
+                               atol=1e-6)
+
+
+def _np_frac(counts, width):
+    return (counts.float() / width).numpy()
+
+
 def test_plain_stage_rounds_sums_past_2_24():
     """The operands reach sums past 2^24 at K = 2048, so the s32 -> f32
     conversion rounds, identically on both sides."""
@@ -318,6 +376,21 @@ def test_chip_smoke_gemm_bounds_at_batch_80():
         assert got == (n_bytes, {"int8": ops})
         bound, bound_by = chip_smoke.bound_of(got)
         assert round(bound, 4) == ms and bound_by == by, shape
+
+
+def test_chip_smoke_ln_q8_bound_at_batch_80():
+    """kernel_work's bound of one LN+q8 launch of #2 at the bench
+    model's batch 80: 25,680 rows of 512 f32 read once and written as
+    int8, the LayerNorm's scale and bias read once; 65.7 MB, 0.0196 ms
+    at 3.35 TB/s."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    work = chip_smoke.kernel_work(25600, 512, 4, 8, 25, 32, 256, 80, 321, 8,
+                                  16, 160)
+    m, c = 80 * 321, 512
+    assert work[chip_smoke.LN_Q8] == (m * c * 4 + 2 * c * 4 + m * c, {})
+    bound, by = chip_smoke.bound_of(work[chip_smoke.LN_Q8])
+    assert round(bound, 4) == 0.0196 and by == "bytes"
 
 
 def test_sources_run_wgmma_and_tma_and_no_mma_sync_gemm():

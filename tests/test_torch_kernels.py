@@ -18,6 +18,8 @@ from vq_vae_transformer_arc_welding_tpu.models.quantized import (
     calibrate_activation_absmax as jax_calibrate,
     quantize_transformer as jax_quantize)
 from vq_vae_transformer_arc_welding_tpu.models.quantized import qdot as jqdot
+from vq_vae_transformer_arc_welding_tpu.models.quantized import (
+    _row_clip_frac_prequant as jax_rail_frac)
 from vq_vae_transformer_arc_welding_tpu.models import (
     VQVAEPatch as JaxVQVAEPatch)
 from vq_vae_transformer_arc_welding_tpu.ops import (
@@ -471,6 +473,38 @@ def test_fused_attn_block_quant_matches_jax(int8_attn, t):
         assert h8.dtype == torch.int8 and xm.shape == x.shape
         _int8_close(h8, h8_ref)
         assert np.abs(_np(xm) - np.asarray(xm_ref)).max() < 1e-3
+        x = xm_ref
+
+
+@pytest.mark.parametrize("t", T_CASES)
+@pytest.mark.parametrize("int8_attn", [False, True])
+def test_fused_attn_block_quant_rail_counts_match_jax(int8_attn, t):
+    """`rail_rows`, the count of each row's h8 at +-127 that #2's plain
+    version takes from its own h8, as per-sample fractions against JAX's
+    `_row_clip_frac_prequant` of the JAX kernel's h8 (the in-path
+    monitor's site on h8), within 1e-6; both blocks, each fed the JAX
+    stream. The act scales are calibrated at a quarter of the absmax,
+    so that h8 reaches its rails."""
+    jm, params = H.jax_transformer()
+    ids = jnp.asarray(H.token_ids(5, seed=3))
+    am = jax_calibrate(jm, params, ids)
+    jqp = jax_quantize(params, act_absmax={k: v / 4 for k, v in am.items()})
+    qp = H.port_qparams(jqp)
+    x = (jnp.take(jqp["tok_emb"], ids, axis=0)
+         + jm.pe[None, :ids.shape[1]])[:, :t]
+    for jblk, blk in zip(jqp["blocks"], qp["blocks"]):
+        xm_ref, h8_ref = jbq.fused_attn_block_quant(x, jblk, n_head=jm.n_head,
+                                                    int8_attn=int8_attn)
+        rails = torch.full(x.shape[:2], -1, dtype=torch.int32)
+        _, h8 = fbq.fused_attn_block_quant(
+            torch.from_numpy(np.array(x)), blk, n_head=jm.n_head,
+            int8_attn=int8_attn, rail_rows=rails)
+        assert torch.equal(rails, (h8.int().abs() == 127).sum(
+            -1, dtype=torch.int32))
+        want = np.asarray(jax_rail_frac(h8_ref))
+        assert want.max() > 0
+        np.testing.assert_allclose(_np(rails.sum(-1).float() / h8[0].numel()),
+                                   want, rtol=0, atol=1e-6)
         x = xm_ref
 
 

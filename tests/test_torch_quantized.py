@@ -8,7 +8,9 @@ JAX package's own contracts with the plain chain
 (tests/test_quantized.py): 1e-3 for 'attn', 'full' and the
 fused_attention paths, 2e-2 for 'attn8' and 'full8', 5e-2 for '-bf16'.
 The int8 encoder: weights and scales bit-equal, absmax within rtol
-1e-5, ids within 1% of JAX's on bridged qenc.
+1e-5, ids within 1% of JAX's on bridged qenc. The in-path saturation
+monitor's rows (`sat_rows`) within 1e-6 of JAX's, on act scales that
+clip at every site, and equal to the eager chain's.
 """
 import functools
 
@@ -204,22 +206,25 @@ def test_fused_block_needs_calibration():
 
 # -- the 'attn' int8 MLP through the int8 GEMM ---------------------------------
 
-def _eager_mlp(blk, h8, resid):
-    """The int8 MLP after kernel #2 as the eager qdot chain (the parent
-    routing): resid + qdot(new_gelu(qdot_prequantized(h8, c_fc)),
-    m_proj)."""
+def _eager_mlp(blk, h8, resid, clip_rows=None):
+    """The int8 MLP after kernel #2 as the eager qdot chain (the routing
+    before the GEMM): resid + qdot(new_gelu(qdot_prequantized(h8,
+    c_fc)), m_proj). Without sat_rows nothing asks for counts."""
+    assert clip_rows is None
     g = new_gelu(pq.qdot_prequantized(h8, blk["c_fc"]))
     return resid + pq.qdot(g, blk["m_proj"])
 
 
 def _gemm_calls(monkeypatch):
-    """The int8 GEMM wrapper's calls as (epilogue,) tuples."""
+    """The int8 GEMM wrapper's calls as (epilogue,) tuples; a GELU+q8
+    call that counts the clipped values is "gelu_q8+count"."""
     calls = []
     real = int8_gemm.int8_gemm
 
-    def spy(a8, w8, cs, cb, resid=None, qscale=None):
-        calls.append("gelu_q8" if qscale is not None else "resid")
-        return real(a8, w8, cs, cb, resid, qscale)
+    def spy(a8, w8, cs, cb, resid=None, qscale=None, clip_rows=None):
+        calls.append("resid" if qscale is None else
+                     "gelu_q8" if clip_rows is None else "gelu_q8+count")
+        return real(a8, w8, cs, cb, resid, qscale, clip_rows)
 
     monkeypatch.setattr(int8_gemm, "int8_gemm", spy)
     return calls
@@ -253,19 +258,77 @@ def test_attn_mlp_runs_the_int8_gemm_bit_equal_to_the_eager_chain(
                                   np.asarray(ref).argmax(-1))
 
 
+@functools.cache
+def _tight():
+    """JAX qparams whose act scales were calibrated at half the absmax,
+    so that every site clips, and the port's bridged copy."""
+    _, params, jam, _, _, _ = _calibrated()
+    jqp = jq.quantize_transformer(params, {k: v / 2 for k, v in jam.items()})
+    return jqp, H.port_qparams(jqp)
+
+
 @pytest.mark.parametrize("fusion", ["attn", "attn8"])
 def test_attn_mlp_keeps_the_eager_chain_for_sat_rows(monkeypatch, fusion):
-    """sat_rows reads the f32 m_proj input, which the GEMM's GELU+q8
-    epilogue never writes: that path keeps the eager chain and calls the
-    int8 GEMM not at all."""
-    _, _, _, jqp, port, _ = _calibrated()
-    qp = H.port_qparams(jqp)
+    """sat_rows no longer keeps the eager chain: the MLP runs as the two
+    int8 GEMM calls a block, c_fc counting the m_proj inputs it clips,
+    and #2 counting h8 at +-127. The rows keep the eager chain's values
+    exactly (its `_row_clip_frac_prequant` of h8 and `_row_clip_frac` of
+    the f32 new_gelu output, per block, then the class head's two), and
+    the logits its bits. The act scales are calibrated at half the
+    absmax, so that both sites clip."""
+    _, qp = _tight()
+    port = _calibrated()[4]
+    ids = torch.from_numpy(H.token_ids(3, seed=21))
     calls = _gemm_calls(monkeypatch)
     rows = []
-    pq.quantized_classify(port, qp, torch.from_numpy(H.token_ids(2)),
-                          block_fusion=fusion, sat_rows=rows)
-    assert calls == []
+    out = pq.quantized_classify(port, qp, ids, block_fusion=fusion,
+                                sat_rows=rows)
+    assert calls == ["gelu_q8+count", "resid"] * len(qp["blocks"])
     assert len(rows) == 2 * len(qp["blocks"]) + 2
+    seen, eager_rows = [], []
+
+    def eager(blk, h8, resid, clip_rows=None):
+        g = new_gelu(pq.qdot_prequantized(h8, blk["c_fc"]))
+        seen.append(pq._row_clip_frac_prequant(h8))
+        seen.append(pq._row_clip_frac(g, blk["m_proj"].act_scale))
+        return resid + pq.qdot(g, blk["m_proj"])
+
+    with monkeypatch.context() as m:
+        m.setattr(pq, "_mlp_int8_gemm", eager)
+        ref = pq.quantized_classify(port, qp, ids, block_fusion=fusion,
+                                    sat_rows=eager_rows)
+    assert torch.equal(out, ref)
+    want = seen + eager_rows[-2:]
+    for got, w in zip(rows, want):
+        assert got.dtype == torch.float32 and torch.equal(got, w)
+    assert all(float(r.max()) > 0 for r in rows[:-2])
+
+
+@pytest.mark.parametrize("fusion,tol", [("attn", 1e-3), ("attn8", 2e-2),
+                                        ("attn-bf16", 5e-2)])
+def test_sat_rows_match_jax_where_every_site_clips(monkeypatch, fusion, tol):
+    """The in-path monitor's rows through the GEMM path against JAX's
+    quantized_classify (its Pallas kernels in interpret mode, its MLP
+    and counters on XLA) on scales that clip at every site: the same
+    sites in the same order, each within 1e-6; two int8 GEMM calls a
+    block; the logits within the path's JAX tolerance, labels equal."""
+    jqp, qp = _tight()
+    jm, port = _calibrated()[0], _calibrated()[4]
+    ids = H.token_ids(4, seed=22)
+    calls = _gemm_calls(monkeypatch)
+    rows, ref_rows = [], []
+    out = pq.quantized_classify(port, qp, torch.from_numpy(ids),
+                                block_fusion=fusion, sat_rows=rows)
+    ref = jq.quantized_classify(jm, jqp, jnp.asarray(ids),
+                                block_fusion=fusion, sat_rows=ref_rows)
+    assert calls == ["gelu_q8+count", "resid"] * len(qp["blocks"])
+    assert len(rows) == len(ref_rows) == 2 * len(qp["blocks"]) + 2
+    np.testing.assert_allclose(_np(torch.stack(rows)), np.stack(ref_rows),
+                               rtol=0, atol=1e-6)
+    assert (np.stack(ref_rows)[:-2].max(-1) > 0).all()
+    np.testing.assert_allclose(_np(out), np.asarray(ref), rtol=0, atol=tol)
+    np.testing.assert_array_equal(_np(out).argmax(-1),
+                                  np.asarray(ref).argmax(-1))
 
 
 # -- the opt-in int8 encoder ----------------------------------------------------

@@ -355,6 +355,38 @@ def test_saturation_rate_matches_jax(n):
         assert per_site[site] == pytest.approx(v, abs=1e-6), site
 
 
+@pytest.mark.parametrize("n", [8, REQUEST])
+def test_classify_monitor_rate_under_drift_matches_jax(monkeypatch, n):
+    """classify's in-path saturation monitor when serving has drifted
+    past calibration, against the JAX pipeline: last_saturation_rate
+    within 1e-6 and above 0, labels equal, probs within the int8
+    contract's 1e-3; the port's int8 MLP is the two int8 GEMM calls a
+    block, c_fc counting what it clips. Scaled windows do not drift this
+    model (the transformer sees codebook ids; the rate stays 0 for
+    requests scaled by 2 to 16, and after calibrating on windows that
+    map to a single id), so the drift is in the act scales: both
+    pipelines serve the scales of half the calibrated absmax
+    (`_jax_int8_tight`). n = 5 leaves the JAX pipeline three rows of
+    padding, which its rate leaves out."""
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import int8_gemm
+    jp = _jax_int8_tight()
+    x = H.windows(n, seed=23)
+    ref_labels, ref_probs = jp.classify(x)
+    pipe = _port_pipeline("int8", max_batch=8)
+    pipe.qparams = H.port_qparams(jp.qparams)
+    calls = []
+    real = int8_gemm.int8_gemm
+    monkeypatch.setattr(int8_gemm, "int8_gemm", lambda *a, **k: (
+        calls.append(k.get("clip_rows") is not None), real(*a, **k))[1])
+    labels, probs = pipe.classify(x)
+    assert calls == [True, False] * len(pipe.qparams["blocks"])
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_allclose(probs, ref_probs, rtol=0, atol=1e-3)
+    assert jp.last_saturation_rate > 0.001
+    assert pipe.last_saturation_rate == pytest.approx(
+        jp.last_saturation_rate, abs=1e-6)
+
+
 def test_saturation_rate_refuses_without_calibration():
     with pytest.raises(RuntimeError):
         _port_pipeline("int8").saturation_rate(H.windows(1))

@@ -14,8 +14,10 @@
 //   h8   = q8(LN2(xmid), s_fc)
 // Launches: LN+q8 rows, the qkv GEMM, attention (int8_attn: the
 // per-head quantizing pass, then the s8 tensor-core attention), the
-// c_proj GEMM with the residual, LN+q8 rows. The f32 qkv round trip
-// through device memory (158 MB at batch 80) is the price of the split.
+// c_proj GEMM with the residual, LN+q8 rows (ln_q8.cuh), the last with
+// the in-path saturation monitor's count of each row's h8 at +-127 where
+// rail_rows is given. The f32 qkv round trip through device memory
+// (158 MB at batch 80) is the price of the split.
 #include "int8_block.cuh"
 
 // x (B*T, C) f32; w_qkv (3C, C) int8; w_proj (C, C) int8;
@@ -25,15 +27,17 @@
 // y8 (B*T, C) int8; int8_attn only: head_scales (B, 3, n_head) f32 and
 // qkv8 (B, n_head, 3, T_pad * 64) int8, the attention's int8 operands
 // (attention_int8.cuh).
-// Outputs: x_mid (B*T, C) f32, h8 (B*T, C) int8.
+// Outputs: x_mid (B*T, C) f32, h8 (B*T, C) int8; rail_rows (B*T,) int32
+// or null: each row's count of h8 at +-127.
 // sm_scale: 1/sqrt(C / n_head), rounded to f32 by the caller.
 extern "C" int attn_block_quant(const void* x, const void* w_qkv,
                                 const void* w_proj, const void* scales,
                                 const void* vc, const void* v3c, void* h8a,
                                 void* qkv, void* y8, void* head_scales,
-                                void* qkv8, void* x_mid, void* h8, int batch,
-                                int t, int c, int n_head, float sm_scale,
-                                int int8_attn, void* stream) {
+                                void* qkv8, void* x_mid, void* h8,
+                                void* rail_rows, int batch, int t, int c,
+                                int n_head, float sm_scale, int int8_attn,
+                                void* stream) {
   if (c % 64 != 0 || c > arcweld::LN_MAX_C || c != n_head * arcweld::HEAD_DIM)
     return cudaErrorInvalidValue;
   return arcweld::launch_attn_half(
@@ -43,8 +47,8 @@ extern "C" int attn_block_quant(const void* x, const void* w_qkv,
       static_cast<int8_t*>(h8a), static_cast<float*>(qkv),
       static_cast<int8_t*>(y8), static_cast<float*>(head_scales),
       static_cast<int8_t*>(qkv8), static_cast<float*>(x_mid),
-      static_cast<int8_t*>(h8), batch, t, c, n_head, sm_scale,
-      int8_attn != 0, static_cast<cudaStream_t>(stream));
+      static_cast<int8_t*>(h8), static_cast<int*>(rail_rows), batch, t, c,
+      n_head, sm_scale, int8_attn != 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int attn_block_quant_head_dim() { return arcweld::HEAD_DIM; }

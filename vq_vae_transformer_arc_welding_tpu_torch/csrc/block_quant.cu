@@ -42,8 +42,8 @@ extern "C" int block_quant(const void* x, const void* w_qkv,
       static_cast<const float*>(v3c), static_cast<int8_t*>(h8a),
       static_cast<float*>(qkv), static_cast<int8_t*>(y8),
       static_cast<float*>(head_scales), static_cast<int8_t*>(qkv8),
-      static_cast<float*>(x_mid), static_cast<int8_t*>(h8), batch, t, c,
-      n_head, sm_scale, int8_attn != 0, s);
+      static_cast<float*>(x_mid), static_cast<int8_t*>(h8), nullptr, batch,
+      t, c, n_head, sm_scale, int8_attn != 0, s);
   if (e != cudaSuccess) return e;
   return arcweld::launch_mlp(
       static_cast<const int8_t*>(h8), static_cast<const int8_t*>(w_fc),

@@ -37,6 +37,13 @@ __device__ __forceinline__ int8_t q8(float v, float s) {
   return static_cast<int8_t>(r);
 }
 
+// q8 of a product p = v * s already formed, for finite p, with one
+// conversion: cvt.rni rounds half to even as rintf does, and the clamp
+// runs on the integer
+__device__ __forceinline__ int q8_of(float p) {
+  return max(-127, min(127, __float2int_rn(p)));
+}
+
 // (v - mean) / sqrt(var + eps) * scale + bias, in the reference's order
 __device__ __forceinline__ float norm_affine(float v, float mean, float var,
                                              float scale, float bias) {

@@ -7,7 +7,9 @@
 // above the 227 KB of shared memory a Hopper block has. So each TPU
 // kernel becomes a short sequence of launches that split where the data
 // stops fitting, built from these pieces:
-//   ln_q8_kernel          one warp per row: LayerNorm + quantize;
+//   ln_q8_kernel          LayerNorm + quantize, one warp a row, 16-byte
+//                         loads and 4-byte stores (ln_q8.cuh), with
+//                         the count of each row's outputs at +-127;
 //   q8_kernel             quantize, four values a thread;
 //   int8_gemm_sm90_kernel int8 GEMM (int8_gemm_sm90.cuh): wgmma s8 fed
 //                         by TMA, a persistent tile walk, exact s32 sums,
@@ -45,6 +47,7 @@
 #include "attention_int8.cuh"
 #include "attention_tc.cuh"
 #include "int8_gemm_sm90.cuh"
+#include "ln_q8.cuh"
 
 #include <algorithm>
 
@@ -54,47 +57,6 @@ using arcweld::HEAD_DIM;
 namespace attn_tc = arcweld::attn_tc;
 
 constexpr int HD = HEAD_DIM;
-
-constexpr int LN_WARPS = 8;
-constexpr int LN_MAX_PER_LANE = arcweld::LN_MAX_C / 32;
-
-// out[row] = q8(LN(x[row]) , *qscale)
-__global__ void __launch_bounds__(32 * LN_WARPS)
-ln_q8_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-             const float* __restrict__ bias, const float* __restrict__ qscale,
-             int8_t* __restrict__ out, int rows, int c) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * LN_WARPS + threadIdx.x / 32;
-  if (row >= rows) return;
-  const float* xr = x + (size_t)row * c;
-  const int per = c / 32;
-  float v[LN_MAX_PER_LANE];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_PER_LANE; ++i)
-    if (i < per) {
-      v[i] = xr[i * 32 + lane];
-      s += v[i];
-    }
-  const float mean = __fdiv_rn(arcweld::warp_sum(s), (float)c);
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_PER_LANE; ++i)
-    if (i < per) {
-      const float d = __fsub_rn(v[i], mean);
-      q = __fadd_rn(q, __fmul_rn(d, d));
-    }
-  const float var = __fdiv_rn(arcweld::warp_sum(q), (float)c);
-  const float qs = *qscale;
-  int8_t* orow = out + (size_t)row * c;
-#pragma unroll
-  for (int i = 0; i < LN_MAX_PER_LANE; ++i)
-    if (i < per) {
-      const int col = i * 32 + lane;
-      orow[col] = arcweld::q8(
-          arcweld::norm_affine(v[i], mean, var, scale[col], bias[col]), qs);
-    }
-}
 
 __global__ void __launch_bounds__(256)
 q8_kernel(const float4* __restrict__ x, const float* __restrict__ qscale,
@@ -143,11 +105,9 @@ namespace arcweld {
 
 cudaError_t launch_ln_q8(const float* x, const float* scale,
                          const float* bias, const float* qscale, int8_t* out,
-                         int rows, int c, cudaStream_t s) {
-  if (c % 32 != 0 || c > LN_MAX_C) return cudaErrorInvalidValue;
-  ln_q8_kernel<<<(rows + LN_WARPS - 1) / LN_WARPS, 32 * LN_WARPS, 0, s>>>(
-      x, scale, bias, qscale, out, rows, c);
-  return cudaGetLastError();
+                         int* rail_rows, int rows, int c, cudaStream_t s) {
+  static_assert(lnq8::MAX_C == LN_MAX_C, "one widest LayerNorm row");
+  return lnq8::launch(x, scale, bias, qscale, out, rail_rows, rows, c, s);
 }
 
 cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
@@ -164,16 +124,17 @@ cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
 cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* cs,
                         const float* cb, const float* resid, float* out,
                         int rows, int n_cols, int k, cudaStream_t s) {
-  return gemm90::launch<false>(a, w, cs, cb, resid, nullptr, out, rows,
-                               n_cols, k, s);
+  return gemm90::launch<false>(a, w, cs, cb, resid, nullptr, nullptr, out,
+                               rows, n_cols, k, s);
 }
 
 cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                                 const float* cs, const float* cb,
-                                const float* qscale, int8_t* out, int rows,
-                                int n_cols, int k, cudaStream_t s) {
-  return gemm90::launch<true>(a, w, cs, cb, nullptr, qscale, out, rows,
-                              n_cols, k, s);
+                                const float* qscale, int* clip_rows,
+                                int8_t* out, int rows, int n_cols, int k,
+                                cudaStream_t s) {
+  return gemm90::launch<true>(a, w, cs, cb, nullptr, qscale, clip_rows, out,
+                              rows, n_cols, k, s);
 }
 
 cudaError_t launch_attention(const float* qkv, const float* qscale,
@@ -219,13 +180,14 @@ cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              const float* vc, const float* v3c, int8_t* h8a,
                              float* qkv, int8_t* y8, float* head_scales,
                              int8_t* qkv8, float* x_mid, int8_t* h8,
-                             int batch, int t, int c, int n_head,
-                             float sm_scale, bool int8_attn, cudaStream_t s) {
+                             int* rail_rows, int batch, int t, int c,
+                             int n_head, float sm_scale, bool int8_attn,
+                             cudaStream_t s) {
   const int rows = batch * t;
   if (c != n_head * HD) return cudaErrorInvalidValue;
   cudaError_t e;
-  if ((e = launch_ln_q8(x, vc, vc + c, scales + 0, h8a, rows, c, s)) !=
-      cudaSuccess)
+  if ((e = launch_ln_q8(x, vc, vc + c, scales + 0, h8a, nullptr, rows, c,
+                        s)) != cudaSuccess)
     return e;
   if ((e = launch_gemm(h8a, w_qkv, v3c, v3c + 3 * c, nullptr, qkv, rows,
                        3 * c, c, s)) != cudaSuccess)
@@ -238,8 +200,8 @@ cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
   if ((e = launch_gemm(y8, w_proj, vc + 4 * c, vc + 5 * c, x, x_mid, rows, c,
                        c, s)) != cudaSuccess)
     return e;
-  return launch_ln_q8(x_mid, vc + 2 * c, vc + 3 * c, scales + 2, h8, rows, c,
-                      s);
+  return launch_ln_q8(x_mid, vc + 2 * c, vc + 3 * c, scales + 2, h8,
+                      rail_rows, rows, c, s);
 }
 
 cudaError_t launch_mlp(const int8_t* h8, const int8_t* w_fc,
@@ -248,8 +210,8 @@ cudaError_t launch_mlp(const int8_t* h8, const int8_t* w_fc,
                        const float* mp_deq, const float* mp_bias,
                        const float* resid, int8_t* g8, float* out, int rows,
                        int c, int c4, cudaStream_t s) {
-  cudaError_t e = launch_gemm_gelu_q8(h8, w_fc, fc_deq, fc_bias, g_scale, g8,
-                                      rows, c4, c, s);
+  cudaError_t e = launch_gemm_gelu_q8(h8, w_fc, fc_deq, fc_bias, g_scale,
+                                      nullptr, g8, rows, c4, c, s);
   if (e != cudaSuccess) return e;
   return launch_gemm(g8, w_mp, mp_deq, mp_bias, resid, out, rows, c, c4, s);
 }

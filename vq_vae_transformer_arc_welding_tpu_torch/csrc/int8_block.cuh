@@ -14,10 +14,12 @@ namespace arcweld {
 constexpr int HEAD_DIM = 64;    // head width the attention is written for
 constexpr int LN_MAX_C = 1024;  // widest LayerNorm row
 
-// out[r, :] = q8(LN(x[r, :]) * scale + bias, *qscale); x (rows, c) f32
+// out[r, :] = q8(LN(x[r, :]) * scale + bias, *qscale); x (rows, c) f32,
+// c a multiple of 64 up to LN_MAX_C; rail_rows (rows,) int32 or null:
+// rail_rows[r] = the count of out[r, :] at +-127 (ln_q8.cuh)
 cudaError_t launch_ln_q8(const float* x, const float* scale,
                          const float* bias, const float* qscale, int8_t* out,
-                         int rows, int c, cudaStream_t s);
+                         int* rail_rows, int rows, int c, cudaStream_t s);
 
 // out[i] = q8(x[i], *qscale) for n values, n a multiple of 4
 cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
@@ -32,11 +34,13 @@ cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* cs,
                         int rows, int n_cols, int k, cudaStream_t s);
 
 // out[m, n] = q8(new_gelu(float(sum_k a[m, k] w[n, k]) * cs[n] + cb[n]),
-//                *qscale), int8
+//                *qscale), int8; clip_rows (rows,) int32 or null:
+// clip_rows[m] += the count of n with |new_gelu(..) * *qscale| > 127.5
 cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                                 const float* cs, const float* cb,
-                                const float* qscale, int8_t* out, int rows,
-                                int n_cols, int k, cudaStream_t s);
+                                const float* qscale, int* clip_rows,
+                                int8_t* out, int rows, int n_cols, int k,
+                                cudaStream_t s);
 
 // y8 (batch, t, C) = q8(causal attention of qkv (batch, t, 3C), *qscale),
 // C = n_head * HEAD_DIM, the f32 attention (attention_tc.cuh).
@@ -59,14 +63,16 @@ cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
 //   h8 = q8(LN2(x_mid)).
 // scales (4,) [s_attn, s_proj, s_fc, s_mproj]; vc rows [ln1_s, ln1_b,
 // ln2_s, ln2_b, deq_proj, b_proj]; v3c rows [deq_qkv, b_qkv]. head_scales
-// and qkv8: launch_attention_int8's, read only when int8_attn.
+// and qkv8: launch_attention_int8's, read only when int8_attn. rail_rows
+// (batch * t,) int32 or null: each row's count of h8 at +-127.
 cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              const int8_t* w_proj, const float* scales,
                              const float* vc, const float* v3c, int8_t* h8a,
                              float* qkv, int8_t* y8, float* head_scales,
                              int8_t* qkv8, float* x_mid, int8_t* h8,
-                             int batch, int t, int c, int n_head,
-                             float sm_scale, bool int8_attn, cudaStream_t s);
+                             int* rail_rows, int batch, int t, int c,
+                             int n_head, float sm_scale, bool int8_attn,
+                             cudaStream_t s);
 
 // The int8 MLP from its quantized input (the MLP half of kernel #6, and
 // kernel #8 after its q8 prologue):

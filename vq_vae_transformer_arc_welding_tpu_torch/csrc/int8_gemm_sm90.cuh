@@ -4,7 +4,9 @@
 //
 //   y[m, n] = float(sum_k a[m, k] * w[n, k]) * cs[n] + cb[n], then
 //     Q8 = false: out f32 = y (+ resid[m, n]);
-//     Q8 = true:  out int8 = q8(new_gelu(y), *qscale).
+//     Q8 = true:  out int8 = q8(new_gelu(y), *qscale), and, where clip_rows
+//                 is given, clip_rows[m] += the count of n with
+//                 |new_gelu(y[m, n]) * *qscale| > 127.5.
 //
 // a (M, K) and w (N, K) int8 are both K-contiguous, the operand layout
 // 8-bit wgmma takes from shared memory, so neither is transposed. The
@@ -42,7 +44,20 @@
 //    M and columns past N; the f32 residual comes into the same staging
 //    tile by TMA while the products run, and is added in place;
 //  - registers: setmaxnreg gives the consumers 232 (one team) or 112
-//    (two) and the producer 40 or 24.
+//    (two) and the producer 40 or 24;
+//  - the in-path saturation monitor's count (JAX's `_row_clip_frac` on
+//    the m_proj input, models/quantized.py): the GELU+q8 epilogue forms
+//    the product the quantization rounds, p = new_gelu(y) * qscale, once,
+//    and counts |p| > 127.5 (the criterion, not the clamp: p = 127.5
+//    rounds to 128 and is clamped, but is not counted). A thread counts
+//    its two rows in two registers, a quad of lanes (one row) adds them
+//    by two shuffles, and one atomic a row and tile adds the sum to
+//    clip_rows: integers, exact in any order of the tiles and teams. Rows
+//    past M (TMA's zero rows, whose new_gelu(cb) may clip) count nothing.
+//    The count is an instantiation of its own (COUNT), taken where
+//    clip_rows is given: its compares cost c_fc's epilogue-bound GEMM
+//    5-7% (scripts/bench_classify_monitor.py), which the calls without
+//    the monitor do not pay.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -161,13 +176,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// arcweld::q8 for finite v, with one conversion: cvt.rni rounds half to
-// even as rintf does, and the clamp runs on the integer
-__device__ __forceinline__ int8_t q8_rni(float v, float s) {
-  const int r = __float2int_rn(__fmul_rn(v, s));
-  return static_cast<int8_t>(max(-127, min(127, r)));
-}
-
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma (the registers change behind its back)
 __device__ __forceinline__ void fence_acc(int (&d)[ACC]) {
@@ -205,8 +213,9 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[ACC], uint64_t a,
 // The kernel. tm_a: a (M, K) int8, box 128 x 128; tm_w: w (N, K) int8,
 // box 128 x 128; tm_out: out (M, N), box 64 rows x 128 bytes (int8) or
 // 64 rows x 32 f32; tm_resid: resid (M, N) f32 as tm_out (unused when
-// has_resid is 0); all with the 128-byte swizzle.
-template <bool Q8>
+// has_resid is 0); all with the 128-byte swizzle. clip_rows: (M,) int32,
+// read by the COUNT instantiation (Q8 only).
+template <bool Q8, bool COUNT>
 __global__ void __launch_bounds__(Config<Q8>::THREADS, 1)
 int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __grid_constant__ CUtensorMap tm_w,
@@ -214,7 +223,8 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __grid_constant__ CUtensorMap tm_resid,
                       const float* __restrict__ cs,
                       const float* __restrict__ cb,
-                      const float* __restrict__ qscale, int has_resid,
+                      const float* __restrict__ qscale,
+                      int* __restrict__ clip_rows, int has_resid,
                       int m_rows, int n_cols, int k) {
   constexpr int S = Config<Q8>::STAGES, TEAMS = Config<Q8>::TEAMS;
   constexpr int CONSUMERS = Config<Q8>::CONSUMERS;
@@ -350,6 +360,7 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
       }
       named_sync(1 + cw, 128);
       __syncwarp();
+      int clipped[2] = {0, 0};  // rows r_lo and r_lo + 8
 #pragma unroll
       for (int jc = 0; jc < BN / 8; ++jc) {
         const int col = 8 * jc + c_lo;
@@ -365,11 +376,14 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
           const float y1 = __fadd_rn(
               __fmul_rn((float)acc[4 * jc + 2 * h + 1], sc.y), bi.y);
           if constexpr (Q8) {
+            const float p0 = __fmul_rn(arcweld::new_gelu(y0), qs);
+            const float p1 = __fmul_rn(arcweld::new_gelu(y1), qs);
+            if constexpr (COUNT)
+              clipped[h] += (fabsf(p0) > 127.5f) + (fabsf(p1) > 127.5f);
             *reinterpret_cast<char2*>(
                 out_p + row * 128 + (((col >> 4) ^ (row & 7)) << 4) +
                 (col & 15)) =
-                make_char2(q8_rni(arcweld::new_gelu(y0), qs),
-                           q8_rni(arcweld::new_gelu(y1), qs));
+                make_char2(arcweld::q8_of(p0), arcweld::q8_of(p1));
           } else {
             const int pc = col % F32_PANEL;
             float2* at = reinterpret_cast<float2*>(
@@ -382,7 +396,18 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
               *at = make_float2(y0, y1);
             }
           }
-          }
+        }
+      }
+      if constexpr (COUNT) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int cnt = clipped[h];
+          cnt += __shfl_xor_sync(0xffffffffu, cnt, 1);
+          cnt += __shfl_xor_sync(0xffffffffu, cnt, 2);
+          const int row = m0 + r_lo + 8 * h;
+          if (lane % 4 == 0 && cnt != 0 && row < m_rows)
+            atomicAdd(clip_rows + row, cnt);
+        }
       }
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       named_sync(1 + cw, 128);
@@ -456,13 +481,16 @@ inline bool aligned(const void* p, size_t bytes) {
 }
 
 // Needs N and K multiples of 64 and at least one row; a, w, out and
-// resid 16-byte aligned (TMA), cs and cb 8-byte aligned. One block per
-// SM, or one per tile where there are fewer tiles.
+// resid 16-byte aligned (TMA), cs and cb 8-byte aligned; clip_rows only
+// with Q8. One block per SM, or one per tile where there are fewer
+// tiles.
 template <bool Q8>
 cudaError_t launch(const int8_t* a, const int8_t* w, const float* cs,
                    const float* cb, const float* resid, const float* qscale,
-                   void* out, int rows, int n_cols, int k, cudaStream_t s) {
-  if (rows < 1 || n_cols < 64 || k < 64 || n_cols % 64 != 0 || k % 64 != 0)
+                   int* clip_rows, void* out, int rows, int n_cols, int k,
+                   cudaStream_t s) {
+  if (rows < 1 || n_cols < 64 || k < 64 || n_cols % 64 != 0 ||
+      k % 64 != 0 || (!Q8 && clip_rows != nullptr))
     return cudaErrorInvalidValue;
   if (!aligned(a, 16) || !aligned(w, 16) || !aligned(out, 16) ||
       !aligned(resid, 16) || !aligned(cs, 8) || !aligned(cb, 8))
@@ -482,15 +510,16 @@ cudaError_t launch(const int8_t* a, const int8_t* w, const float* cs,
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
-  e = cudaFuncSetAttribute(int8_gemm_sm90_kernel<Q8>,
+  const auto kernel = clip_rows != nullptr ? int8_gemm_sm90_kernel<Q8, Q8>
+                                            : int8_gemm_sm90_kernel<Q8, false>;
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Config<Q8>::SMEM);
   if (e != cudaSuccess) return e;
   const int grid = tiles(rows, n_cols) < sms ? tiles(rows, n_cols) : sms;
-  int8_gemm_sm90_kernel<Q8><<<grid, Config<Q8>::THREADS, Config<Q8>::SMEM,
-                              s>>>(
-      tm_a, tm_w, tm_out, tm_resid, cs, cb, qscale, resid != nullptr, rows,
-      n_cols, k);
+  kernel<<<grid, Config<Q8>::THREADS, Config<Q8>::SMEM, s>>>(
+      tm_a, tm_w, tm_out, tm_resid, cs, cb, qscale, clip_rows,
+      resid != nullptr, rows, n_cols, k);
   return cudaGetLastError();
 }
 

@@ -54,17 +54,19 @@ _SIGNATURES = {
     # z, codebook, ids, n_rows, d_emb, k_codes, stream
     "nearest_codes_f32": [_P] * 3 + [_I] * 3 + [_P],
     # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, head_scales, qkv8,
-    # x_mid, h8, batch, t, c, n_head, sm_scale, int8_attn, stream
-    "attn_block_quant": [_P] * 13 + [_I] * 4 + [_F, _I, _P],
+    # x_mid, h8, rail_rows, batch, t, c, n_head, sm_scale, int8_attn,
+    # stream
+    "attn_block_quant": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
     # x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, h8a, qkv, y8,
     # head_scales, qkv8, x_mid, h8, g8, out, batch, t, c, c4, n_head,
     # sm_scale, int8_attn, stream
     "block_quant": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
     # h, w_fc, w_mp, scales, v4c, vmp, h8, g8, out, rows, c, c4, stream
     "mlp_quant": [_P] * 9 + [_I] * 3 + [_P],
-    # a, w, cs, cb, resid, qscale, out, rows, n, k, stream: the int8 GEMM
-    # of #2, #6, #8 and #10 alone (card tests and chip_smoke.py)
-    "int8_gemm": [_P] * 7 + [_I] * 3 + [_P],
+    # a, w, cs, cb, resid, qscale, clip_rows, out, rows, n, k, stream: the
+    # int8 GEMM of #2, #6, #8 and #10 alone (the 'attn' paths' int8 MLP,
+    # card tests and chip_smoke.py)
+    "int8_gemm": [_P] * 8 + [_I] * 3 + [_P],
     # qkv, y_scale, y8, batch, t, n_head, sm_scale, stream
     "causal_attention_quant": [_P] * 3 + [_I] * 3 + [_F, _P],
     # h, w_qkv, scales, v3c, h8, qkv, y8, batch, t, c, n_head, sm_scale,

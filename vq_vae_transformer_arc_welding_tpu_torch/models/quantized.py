@@ -216,19 +216,21 @@ def saturation_stats(model, qparams, x_ids):
     return overall, stats
 
 
-def _mlp_int8_gemm(blk, h8, resid):
+def _mlp_int8_gemm(blk, h8, resid, clip_rows=None):
     """The int8 MLP after the attention half, resid + m_proj(q8(new_gelu(
     c_fc(h8)))), as two calls of the int8 GEMM (ops/int8_gemm.py) on the
     operands #6 takes from the block's pack: c_fc with the GELU+q8
     epilogue at m_proj's act scale, then m_proj with the f32 epilogue
     and the residual. The same roundings as the eager chain
     `qdot(new_gelu(qdot_prequantized(h8, c_fc)), m_proj)`, so the same
-    bits."""
+    bits. clip_rows (rows of h8,) int32: each row's count of m_proj
+    inputs that its act scale clips is added to it (the numerator of
+    `_row_clip_frac` on new_gelu's output)."""
     scales, vc, _, v4c = packed_operands(blk)
     lead = h8.shape[:-1]
     g8 = int8_gemm.int8_gemm(h8.reshape(-1, h8.shape[-1]),
                              blk["c_fc"].w_int8, v4c[0], v4c[1],
-                             qscale=scales[3])
+                             qscale=scales[3], clip_rows=clip_rows)
     out = int8_gemm.int8_gemm(g8, blk["m_proj"].w_int8, vc[6], vc[7],
                               resid=resid.reshape(-1, resid.shape[-1]))
     return out.reshape(*lead, -1)
@@ -250,9 +252,13 @@ def quantized_backbone_block(model, qparams, x_ids, *, full_block=False,
 
     h8 matches the plain chain at every int8 boundary; the f32 stream
     agrees to ~1e-3 (attention normalizes after P@V). sat_rows
-    (attention-half variants only) collects the sites visible outside
-    the fused call: the rail count of h8 and the f32 m_proj input; it
-    keeps the MLP as the eager qdot chain, which exposes that input."""
+    (attention-half variants only) collects, per block, the sites
+    visible outside the fused call: the rail count of h8, which #2's
+    last LayerNorm+q8 launch makes, and the clipped share of the f32
+    m_proj input, which the c_fc GEMM's GELU+q8 epilogue counts without
+    writing that input. The counts of a call go into one zeroed int32
+    buffer (2 per block, one per row) and become per-sample fractions
+    after the last block; the MLP stays the two GEMM calls."""
     if sat_rows is not None and full_block:
         raise ValueError(
             "in-path saturation monitoring needs the attn-half block "
@@ -264,22 +270,29 @@ def quantized_backbone_block(model, qparams, x_ids, *, full_block=False,
         return a if stream_dtype is None else a.to(stream_dtype)
 
     x = stream(_embed(model, qparams, x_ids))
-    for blk in qparams["blocks"]:
+    # per block: the rows' count of h8 at +-127, then of clipped m_proj
+    # inputs (the block path needs every act scale, so both sites apply)
+    counts = None if sat_rows is None else torch.zeros(
+        (2 * len(qparams["blocks"]), *x_ids.shape), dtype=torch.int32,
+        device=x.device)
+    for i, blk in enumerate(qparams["blocks"]):
         if full_block:
             x = stream(fused_block_quant(x.float(), blk, n_head=model.n_head,
                                          int8_attn=int8_attn))
             continue
-        x_mid, h8 = fused_attn_block_quant(x.float(), blk,
-                                           n_head=model.n_head,
-                                           int8_attn=int8_attn)
-        if sat_rows is None:
-            x = stream(_mlp_int8_gemm(blk, h8, stream(x_mid).float()))
-            continue
-        g = new_gelu(qdot_prequantized(h8, blk["c_fc"]))
-        sat_rows.append(_row_clip_frac_prequant(h8))
-        if blk["m_proj"].act_scale is not None:
-            sat_rows.append(_row_clip_frac(g, blk["m_proj"].act_scale))
-        x = stream(stream(x_mid).float() + qdot(g, blk["m_proj"]))
+        x_mid, h8 = fused_attn_block_quant(
+            x.float(), blk, n_head=model.n_head, int8_attn=int8_attn,
+            rail_rows=None if counts is None else counts[2 * i])
+        x = stream(_mlp_int8_gemm(
+            blk, h8, stream(x_mid).float(),
+            clip_rows=None if counts is None else counts[2 * i + 1].view(-1)))
+    if counts is not None:
+        t = x_ids.shape[1]
+        per_sample = counts.sum(-1).float()
+        for i, blk in enumerate(qparams["blocks"]):
+            sat_rows.append(per_sample[2 * i] / (t * model.d_model))
+            sat_rows.append(per_sample[2 * i + 1]
+                            / (t * blk["c_fc"].w_int8.shape[0]))
     return layer_norm(x.float(), qparams["ln_f_scale"],
                       qparams["ln_f_bias"])
 

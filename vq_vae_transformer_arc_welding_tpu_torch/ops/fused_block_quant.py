@@ -16,6 +16,12 @@ P@V product).
 (per-head loop or head-batched dots) and was bit-identical to the
 loop, so it has no counterpart here.
 
+#2's last launch, LayerNorm and q8 of x_mid (`csrc/ln_q8.cuh`), also
+counts each row's h8 entries at +-127 where `rail_rows` is given: the
+numerator of the in-path saturation monitor's site on h8 (JAX's
+`_row_clip_frac_prequant`), which `fused_attn_block_quant_reference`
+counts from its own h8.
+
 With `int8_attn` the kernels run the attention in two launches
 (`csrc/attention_int8.cuh`): a per-head quantizing pass, whose plain
 version is `quantize_heads_reference` (the int8 operands in the
@@ -94,16 +100,23 @@ def packed_operands(blk: dict):
 
 
 def fused_attn_block_quant_reference(x, w_qkv, w_proj, scales, vc, v3c, *,
-                                     n_head: int, int8_attn: bool = False):
+                                     n_head: int, int8_attn: bool = False,
+                                     rail_rows=None):
     """Plain version of kernel #2. x: (B, T, C) f32; w_qkv (3C, C),
     w_proj (C, C) int8 in (out, in) layout; operands as
-    `_block_operands` packs them. Returns (x_mid f32, h8 int8)."""
-    h8 = quantize_act(layer_norm(x, vc[0], vc[1]), scales[0])
-    qkv = int8_matmul(h8, w_qkv).float() * v3c[0] + v3c[1]
+    `_block_operands` packs them. Returns (x_mid f32, h8 int8).
+    rail_rows (B, T) int32: overwritten with each row's count of h8 at
+    +-127."""
+    h8a = quantize_act(layer_norm(x, vc[0], vc[1]), scales[0])
+    qkv = int8_matmul(h8a, w_qkv).float() * v3c[0] + v3c[1]
     y = attention_core_reference(qkv, n_head, int8_attn=int8_attn)
     y8 = quantize_act(y, scales[1])
     x_mid = x + (int8_matmul(y8, w_proj).float() * vc[4] + vc[5])
-    return x_mid, quantize_act(layer_norm(x_mid, vc[2], vc[3]), scales[2])
+    h8 = quantize_act(layer_norm(x_mid, vc[2], vc[3]), scales[2])
+    if rail_rows is not None:
+        rail_rows.copy_((h8.to(torch.int32).abs() >= 127).sum(
+            -1, dtype=torch.int32))
+    return x_mid, h8
 
 
 def fused_block_quant_reference(x, w_qkv, w_proj, w_fc, w_mp, scales, vc,
@@ -177,15 +190,17 @@ def _count(name: str, int8_attn: bool) -> None:
 
 
 def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
-                     int8_attn: bool = False, scratch: dict | None = None):
+                     int8_attn: bool = False, scratch: dict | None = None,
+                     rail_rows=None):
     """Operand-level entry of #2: the kernel on CUDA, the plain version
     on the CPU. scratch: a dict that receives the kernel's
     intermediates, "h8a", "qkv", "y8", "head_scales" and "qkv8", to
-    check them stage by stage (CUDA only)."""
+    check them stage by stage (CUDA only). rail_rows (B, T) int32:
+    overwritten with each row's count of h8 at +-127."""
     if x.device.type == "cpu":
         return fused_attn_block_quant_reference(
             x, w_qkv, w_proj, scales, vc, v3c, n_head=n_head,
-            int8_attn=int8_attn)
+            int8_attn=int8_attn, rail_rows=rail_rows)
     if x.device.type != "cuda":
         raise ValueError(f"{_ATTN}: no kernel for device {x.device}")
     b, t, c = x.shape
@@ -197,6 +212,8 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
     kernels.require(scales, "scales", torch.float32, (4,), dev)
     kernels.require(vc, "vc", torch.float32, (6, c), dev)
     kernels.require(v3c, "v3c", torch.float32, (2, 3 * c), dev)
+    if rail_rows is not None:
+        kernels.require(rail_rows, "rail_rows", torch.int32, (b, t), dev)
     x_mid = torch.empty_like(x)
     h8 = torch.empty((b, t, c), dtype=torch.int8, device=dev)
     if b * t == 0:
@@ -212,8 +229,9 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
         x.data_ptr(), w_qkv.data_ptr(), w_proj.data_ptr(), scales.data_ptr(),
         vc.data_ptr(), v3c.data_ptr(), h8a.data_ptr(), qkv.data_ptr(),
         y8.data_ptr(), head_scales.data_ptr(), qkv8.data_ptr(),
-        x_mid.data_ptr(), h8.data_ptr(), b, t, c, n_head, sm_scale(c, n_head),
-        int(int8_attn), kernels.stream_ptr(dev))
+        x_mid.data_ptr(), h8.data_ptr(),
+        None if rail_rows is None else rail_rows.data_ptr(), b, t, c, n_head,
+        sm_scale(c, n_head), int(int8_attn), kernels.stream_ptr(dev))
     kernels.check(err, _ATTN)
     return x_mid, h8
 
@@ -272,18 +290,19 @@ def block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, *,
 
 
 def fused_attn_block_quant(x: torch.Tensor, blk: dict, *, n_head: int,
-                           int8_attn: bool = False):
+                           int8_attn: bool = False, rail_rows=None):
     """ln1 + int8 qkv + attention + int8 c_proj + residual + ln2 + int8
     quantize for one calibrated block (an entry of
     quantize_transformer(model, act_absmax)["blocks"], packed by
     `pack_block`). x: (B, T, C) f32. Returns (x_mid f32 (B, T, C), h8
     int8 (B, T, C)): the post-attention residual stream and the
     quantized ln2 output for c_fc. int8_attn: scores and P@V on int8
-    operands with per (batch, head) scales."""
+    operands with per (batch, head) scales. rail_rows (B, T) int32:
+    overwritten with each row's count of h8 at +-127."""
     scales, vc, v3c, _ = packed_operands(blk)
     return attn_block_quant(x, blk["c_attn"].w_int8, blk["c_proj"].w_int8,
                             scales, vc[:6], v3c, n_head=n_head,
-                            int8_attn=int8_attn)
+                            int8_attn=int8_attn, rail_rows=rail_rows)
 
 
 def fused_block_quant(x: torch.Tensor, blk: dict, *, n_head: int,
