@@ -50,10 +50,13 @@ the f32 attention (#2, #6, #9, #10, #11) counts both of its products in
 split TF32 on the tensor cores, and beside that bound the log gives two
 more: with the scores on the FP32 cores (as the tile computes them) and
 with both products there (as before the tile used the tensor cores).
-The f32 encoder chain (#1, #3) counts its products in split TF32 too,
-as its tile (csrc/encoder_tc.cuh) runs them, and the log gives its
-bound on the FP32 cores beside it; #1 is held within 1e-4 of the plain
-chain's largest magnitude, and its id flips must be near-ties.
+The f32 encoder kernels (#1, #3, and the ends #4 and #5 on the same
+tile) count their resblocks' products in split TF32 too, as the tile
+(csrc/encoder_tc.cuh) runs them, and the ends' own products once on the
+FP32 cores; the log gives each bound with every product on the FP32
+cores beside it. #1, #3 and #4 are held within 1e-4 of the plain
+version's largest magnitude, and the id flips of #1 and #5 must be
+near-ties.
 The int8 GEMM that #2, #6, #8 and #10 share (csrc/int8_gemm_sm90.cuh)
 is launched alone at its four shapes in a block (qkv, c_proj, c_fc,
 m_proj; 25,680 rows at batch 80) on block 0's own operands, and must be
@@ -67,11 +70,13 @@ bit-equal to its plain version (`quantize_heads_reference`) on each
 block's own qkv, and its y8 is held stage by stage as every int8 stage.
 Right after the build, `-Xptxas -v` of the two instantiations of the
 attention tile (csrc/attention_tc.cuh), of the GEMM's three, of the
-encoder tile's two (#1, #3) and of LN+q8's (csrc/ln_q8.cuh) gives their
+encoder tile's four (#1, #3, #4, #5, with the ends' two device
+functions) and of LN+q8's (csrc/ln_q8.cuh) gives their
 registers and spills (a spill fails the run), and the GEMM's PTX must
 hold `wgmma.mma_async` and `cp.async.bulk.tensor` and the int8 attention's s8 `mma.sync`
 m16n8k32 (whose two kernels ptxas reports on too), the encoder chain's
-its TF32 `wgmma`, the TMA copy and `cvt.rna.tf32.f32`. The f32 attention kernels
+and the encoder's ends' (csrc/encoder_edges.cu) its TF32 `wgmma`, the
+TMA copy and `cvt.rna.tf32.f32`. The f32 attention kernels
 and scaled_dot_product_attention on #9's inputs are timed again ten
 calls in a row between two events, so that the host's launch hides
 behind the card's work; at the end, torch.profiler traces give their
@@ -80,7 +85,9 @@ shows), the f32 attention's, the int8 GEMM's and the encoder chain's
 (#1) device time per call of the 'attn' and 'full' pipelines (of
 'attn8' and 'full8' with the int8 attention's and its quantizing pass's;
 LN+q8's on all four),
-#1's and #3's device time per launch at 25,600 rows, the GEMM's device
+#1's, #3's, #4's and #5's device time per launch at 25,600 rows in one
+trace (#4 and #5 beside #1 and beside their own split-TF32 bounds), the
+GEMM's device
 time per launch at each shape beside its bound and beside torch._int_mm
 on the same operands (s32 out, no epilogue), c_fc at its act scale
 and at the drifted one with and without the monitor's counts, LN+q8's
@@ -278,7 +285,7 @@ PEAK_BYTES = 3.35e12
 TF32_SPLIT = 3
 F32_ATTENTION = (FLASH, ATTN, FULL, QKV, CAUSAL)
 # the f32 encoder kernels on the split-TF32 tile (csrc/encoder_tc.cuh)
-F32_ENCODER = (ENC, RES)
+F32_ENCODER = (ENC, RES, ENTRY, EXIT)
 
 
 def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
@@ -307,9 +314,12 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     (F32_ATTENTION) has two products of equal size over its causal
     scores, Q K^T and P@V: each counts TF32_SPLIT times as TF32, but the
     first `fp32_products` of them (0, 1 or 2) once as FP32 on the CUDA
-    cores. The f32 encoder chain (F32_ENCODER) counts its products
-    TF32_SPLIT times as TF32, or once as FP32 with fp32_products=2; the
-    encoder's two ends (#4, #5) run on the FP32 cores."""
+    cores. The f32 encoder kernels (F32_ENCODER: #1, #3 and the
+    encoder's two ends, #4 and #5, all on one tile) count their
+    resblocks' products TF32_SPLIT times as TF32, or once as FP32 with
+    fp32_products=2; the ends' own products (#4's patch-embed, #5's
+    sep_conv and distances) run on the FP32 cores and count once as
+    FP32 either way."""
     f4 = 4
     x = n_rows * c * f4                         # the encoder's residual stream
     block_w = 2 * c * c * f4 + 10 * c * f4      # a resblock's operands
@@ -321,9 +331,12 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         ("f32", fp32_products * (attn // 2)),
         ("tf32", (2 - fp32_products) * TF32_SPLIT * (attn // 2))) if n}
 
-    def f32_enc(ops):
-        return ({"f32": ops} if fp32_products == 2
+    def f32_enc(ops, ends=0):
+        work = ({"f32": ops} if fp32_products == 2
                 else {"tf32": TF32_SPLIT * ops})
+        if ends:
+            work["f32"] = work.get("f32", 0) + ends
+        return work
     qkv, proj, mlp = (2 * m * c * 3 * c, 2 * m * c * c, 2 * 2 * m * c * 4 * c)
     w_attn, w_mlp = 4 * c * c, 8 * c * c        # int8 weights
     # a decode step: f32 weights with their biases and LayerNorm rows,
@@ -357,10 +370,10 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         RES: (2 * x + block_w, f32_enc(block_ops)),
         ENTRY: (n_rows * patch * f4 + (patch + 1) * c * f4 + x
                 + grp * block_w,
-                {"f32": n_rows * 2 * patch * c + grp * block_ops}),
+                f32_enc(grp * block_ops, n_rows * 2 * patch * c)),
         EXIT: (x + grp * block_w + (c + 1) * d * f4 + k * d * f4
                + n_rows * 4,
-               {"f32": grp * block_ops + n_rows * 2 * d * (c + k)}),
+               f32_enc(grp * block_ops, n_rows * 2 * d * (c + k))),
         NEAREST: (n_rows * d * f4 + k * d * f4 + n_rows * 4,
                   {"f32": n_rows * 2 * d * k}),
         ATTN: (2 * xs + m * c + w_attn, {"int8": qkv + proj, **f32_attn}),
@@ -470,13 +483,16 @@ def device_profile(fn, leave_out: str | None = None):
 
 
 # the sources that instantiate csrc/attention_tc.cuh, the int8 GEMM
-# (csrc/int8_gemm_sm90.cuh), the encoder tile (csrc/encoder_tc.cuh) and
-# the decode kernels (#12, #13), and the kernels ptxas reports on
+# (csrc/int8_gemm_sm90.cuh), the encoder tile (csrc/encoder_tc.cuh: #1,
+# #3, and #4 and #5 with their ends' two device functions) and the
+# decode kernels (#12, #13), and the functions ptxas reports on
 PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu", "encoder_chain.cu",
-                 "encoder_resblock.cu", "decode.cu")
+                 "encoder_resblock.cu", "encoder_edges.cu", "decode.cu")
 PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel",
-                 "encoder_chain_kernel", "resblock_kernel", QUANT_PASS,
-                 INT8_ATTENTION, "decode_kernel", LN_Q8)
+                 "encoder_chain_kernel", "resblock_kernel",
+                 "encoder_entry_kernel", "encoder_exit_kernel", "embed_rows",
+                 "nearest_rows", QUANT_PASS, INT8_ATTENTION, "decode_kernel",
+                 LN_Q8)
 # what each source's PTX must hold: Hopper's tensor-core product (in
 # TF32, with A split by cvt.rna, for the encoder), TMA copies, the int8
 # attention's s8 products, and the decode kernels' split-TF32 mma.sync
@@ -485,6 +501,8 @@ PTX_OPS = {
     "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor",
                       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"),
     "encoder_chain.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
+                         "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
+    "encoder_edges.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
                          "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
     "decode.cu": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                   "cp.async.bulk.shared::cluster.global.mbarrier",
@@ -533,9 +551,14 @@ def ptxas_report(procs: list) -> None:
         for line in text.splitlines():
             if "wgmma" in line and "arning" in line:
                 log(f"ptxas {src}: {line.strip()}")
-            if "Compiling entry function" in line:
-                kernel = next((line.split("'")[1] for name in PTXAS_KERNELS
-                               if name in line), None)
+            if ("Compiling entry function" in line
+                    or "Function properties for" in line):
+                # a kernel's name in quotes, a device function's after
+                # "for"
+                fn = (line.split("'")[1] if "'" in line
+                      else line.rsplit(" ", 1)[-1])
+                kernel = next((fn for name in PTXAS_KERNELS if name in fn),
+                              None)
             elif kernel and ("spill" in line or "Used" in line):
                 said.setdefault(kernel, []).append(
                     line.replace("ptxas info    :", "").strip())
@@ -589,9 +612,9 @@ def plain_path():
                 (fenc, "resblock_eval",
                  without_split(fenc.fused_resblock_eval_reference)),
                 (fenc, "fused_encoder_entry_eval",
-                 fenc.fused_encoder_entry_eval_reference),
+                 without_split(fenc.fused_encoder_entry_eval_reference)),
                 (fenc, "fused_encoder_exit_eval",
-                 fenc.fused_encoder_exit_eval_reference),
+                 without_split(fenc.fused_encoder_exit_eval_reference)),
                 (fvq, "nearest_codes_pallas",
                  fvq.nearest_codes_pallas_reference),
                 (fbq, "attn_block_quant",
@@ -2158,6 +2181,9 @@ def main() -> int:
                            vq.patch_size).reshape(n_rows, vq.patch_size)
         w_pe, b_pe, w_sep, b_sep = edges
         last = (nb - 1) // grp * grp
+        # #4's and #5's views of the pack's split, as the edges path
+        # hands them
+        sp_first, sp_final = split[:2 * grp], split[2 * last:]
         enc_err = {ENC: k1_err, RES: 0.0, ENTRY: 0.0, EXIT: 0.0, NEAREST: 0.0}
         id_flips = {ENC: k1_flip, EXIT: 0.0, NEAREST: 0.0}
         # the bench model's own operands (no BatchNorm) last: the timings
@@ -2170,7 +2196,7 @@ def main() -> int:
             rp = fenc.fused_resblock_eval_reference(
                 flat, weights[0], weights[1], v[:10], use_bn=use_bn)
             ek = fenc.fused_encoder_entry_eval(patches, w_pe, b_pe, *first,
-                                               use_bn=use_bn)
+                                               use_bn=use_bn, split=sp_first)
             ep = fenc.fused_encoder_entry_eval_reference(
                 patches, w_pe, b_pe, *first, use_bn=use_bn)
             z = vq.sep_conv(fenc.fused_encoder_eval_reference(
@@ -2181,7 +2207,7 @@ def main() -> int:
             cb = (z[::n_rows // len(vq.codebook)][:len(vq.codebook)]
                   .contiguous() if use_bn else vq.codebook)
             xk = fenc.fused_encoder_exit_eval(ep, *final, w_sep, b_sep, cb,
-                                              use_bn=use_bn)
+                                              use_bn=use_bn, split=sp_final)
             xp = fenc.fused_encoder_exit_eval_reference(
                 ep, *final, w_sep, b_sep, cb, use_bn=use_bn)
             nk = fvq.nearest_codes_pallas(z, cb)
@@ -2192,14 +2218,13 @@ def main() -> int:
                 check(bool(torch.isfinite(yk).all()) and yk.shape == yp.shape,
                       f"kernel {name}: output")
                 check(err <= MAX_F32_ERR, f"kernel {name}: f32 error {err}")
-                if name == RES:
-                    check(err <= MAX_CHAIN_REL * float(yp.abs().max()),
-                          f"kernel {RES}: max abs err {err} of "
-                          f"{float(yp.abs().max())}")
+                check(err <= MAX_CHAIN_REL * float(yp.abs().max()),
+                      f"kernel {name}: max abs err {err} of "
+                      f"{float(yp.abs().max())}")
                 enc_err[name] = max(enc_err[name], err)
                 log(f"kernel {name} use_bn={use_bn}: {n_rows} rows, max abs "
-                    f"err {err:.3e} of {float(yp.abs().max()):.3e} (bound "
-                    f"{MAX_F32_ERR})")
+                    f"err {err:.3e} of {float(yp.abs().max()):.3e} (bounds "
+                    f"{MAX_F32_ERR}, and {MAX_CHAIN_REL} of the magnitude)")
             for name, ik, ip in ((EXIT, xk, xp), (NEAREST, nk, npl)):
                 check(ik.shape == (n_rows,) and ik.dtype == torch.int32
                       and 0 <= int(ik.min()) and int(ik.max()) < len(cb),
@@ -2231,10 +2256,12 @@ def main() -> int:
                                                        split=split[:2]),
                  fenc.fused_resblock_eval_reference),
                 (ENTRY, (patches, w_pe, b_pe, *first),
-                 fenc.fused_encoder_entry_eval,
+                 lambda *a, use_bn: fenc.fused_encoder_entry_eval(
+                     *a, use_bn=use_bn, split=sp_first),
                  fenc.fused_encoder_entry_eval_reference),
                 (EXIT, (ep, *final, w_sep, b_sep, cb),
-                 fenc.fused_encoder_exit_eval,
+                 lambda *a, use_bn: fenc.fused_encoder_exit_eval(
+                     *a, use_bn=use_bn, split=sp_final),
                  fenc.fused_encoder_exit_eval_reference)):
             times[name] = timed_in_turns({
                 "kernel": lambda: kfn(*args, use_bn=False),
@@ -2247,11 +2274,12 @@ def main() -> int:
                 f"{fmt_ms(times[name]['kernel'])}, plain "
                 f"{fmt_ms(times[name]['plain'])}")
 
-        # -- 6c. how the tile fills the card, and #5 beside #1 ---------------
+        # -- 6c. how the tile fills the card, and #4 and #5 beside #1 -------
         # #1's persistent walk: the rows of each request, and the rows of
         # the whole rounds of tiles (TILE_ROWS x SMs) below them, so that
-        # the last round's cost shows; #5 (the FP32 tile) at 1 and at
-        # `grp` resblocks
+        # the last round's cost shows; #4 and #5 (#1's tile with the
+        # encoder's ends) at 1 and at `grp` resblocks, beside #1 at the
+        # same rows and resblocks: what the ends cost
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         per_window = n_rows // len(reqs[0])
         rounds = TILE_ROWS * sms
@@ -2264,12 +2292,18 @@ def main() -> int:
                (lambda m=m: fenc.fused_encoder_eval(
                    flat[:m], *first, use_bn=False, split=sp0))
                for m in fill_rows},
+            f"#4 x{grp} {n_rows} rows": lambda: fenc.fused_encoder_entry_eval(
+                patches, w_pe, b_pe, *first, use_bn=False, split=sp0),
             f"#5 x{grp} {n_rows} rows": lambda: fenc.fused_encoder_exit_eval(
-                flat, *first, *ends, use_bn=False),
+                flat, *first, *ends, use_bn=False, split=sp0),
             f"#1 x1 {n_rows} rows": lambda: fenc.fused_encoder_eval(
                 flat, weights[:2], vecs[:10], use_bn=False, split=split[:2]),
+            f"#4 x1 {n_rows} rows": lambda: fenc.fused_encoder_entry_eval(
+                patches, w_pe, b_pe, weights[:2], vecs[:10], use_bn=False,
+                split=split[:2]),
             f"#5 x1 {n_rows} rows": lambda: fenc.fused_encoder_exit_eval(
-                flat, weights[:2], vecs[:10], *ends, use_bn=False)})
+                flat, weights[:2], vecs[:10], *ends, use_bn=False,
+                split=split[:2])})
         log(f"tile fill ({sms} SMs, {TILE_ROWS} rows a tile, a round of "
             f"tiles {rounds} rows): "
             + "; ".join(f"{name} {fmt_ms(t)}" for name, t in fill.items())
@@ -2556,7 +2590,14 @@ def main() -> int:
                + "; ".join(f"{key[:50]} x {n:.1f}, {each:.4f} ms each"
                            for key, n, each in kernels_of))
             + f"; gpu {smi}")
-    # #1 at the default group and #3 on block 0, at 25,600 rows
+    # #1 at the default group, #3 on block 0, #4 on the first group and
+    # #5 on the last (the edges path's calls), at 25,600 rows, in one
+    # trace
+    work, scores_fp32, both_fp32 = (
+        kernel_work(n_rows, c_, grp, nb, vq.patch_size, vq.embedding_dim,
+                    vq.num_embeddings, n80, tr.seq_len, tr.n_head,
+                    SAMPLE_BATCH, TIMED_POSITIONS[0], fp32_products=n)
+        for n in (0, 1, 2))
     with torch.inference_mode():
         traced = kernel_trace({
             ENC: lambda: fenc.fused_encoder_eval(
@@ -2564,27 +2605,33 @@ def main() -> int:
                 split=split[:2 * grp]),
             RES: lambda: fenc.resblock_eval(
                 flat, weights[0], weights[1], vecs[:10], use_bn=False,
-                split=split[:2])})
+                split=split[:2]),
+            ENTRY: lambda: fenc.fused_encoder_entry_eval(
+                patches, w_pe, b_pe, *first, use_bn=False, split=sp_first),
+            EXIT: lambda: fenc.fused_encoder_exit_eval(
+                ep, *final, w_sep, b_sep, cb, use_bn=False,
+                split=sp_final)})
     for name, (ms, n_ops, kernels_of) in traced.items():
         if ms is not None:
             device_ms[name] = ms
+        beside = ""
+        if ms is not None and name in (ENTRY, EXIT) and traced[ENC][0]:
+            bound, by = bound_of(work[name])
+            beside = (f"; {ms / traced[ENC][0]:.3f}x {ENC}'s, bound "
+                      f"{bound:.4f} ms by {by} ({bound / ms:.1%} of the time "
+                      f"taken)")
         log(f"device trace of {name} ({n_rows} x {c_}, "
-            f"{grp if name == ENC else 1} resblocks a launch), 10 calls: "
+            f"{1 if name == RES else grp} resblocks a launch), 10 calls: "
             + ("not measured" if ms is None else
                f"{ms:.4f} ms and {n_ops:.1f} device operations a call: "
                + "; ".join(f"{key[:50]} x {n:.1f}, {each:.4f} ms each"
                            for key, n, each in kernels_of))
-            + f"; gpu {smi}")
+            + beside + f"; gpu {smi}")
     times.update(sampling["times"])
     times.update(bf16["times"])
     enc_err.update({name: e for name, e in sampling["err"].items()
                     if name in RECORD})
     enc_err.update(bf16["err"])
-    work, scores_fp32, both_fp32 = (
-        kernel_work(n_rows, c_, grp, nb, vq.patch_size, vq.embedding_dim,
-                    vq.num_embeddings, n80, tr.seq_len, tr.n_head,
-                    SAMPLE_BATCH, TIMED_POSITIONS[0], fp32_products=n)
-        for n in (0, 1, 2))
     with torch.inference_mode():
         gemm_traced = kernel_trace({
             **{(shape, what): fn for shape, fns in gemm_calls.items()

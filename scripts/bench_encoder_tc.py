@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the f32 encoder kernels #1 and #3 against another tree's, on an
-NVIDIA GPU.
+"""Time the f32 encoder kernels #1, #3, #4 and #5 against another tree's,
+on an NVIDIA GPU.
 
     python3 scripts/bench_encoder_tc.py --other DIR [--out FILE]
 
@@ -24,9 +24,18 @@ measures at batch 80 (seed 0 for every input):
   (`resblock_eval`, resblock 0) at 25,600 rows, the same way over 10
   calls; a tree whose pack carries the split-TF32 operand (`split`)
   hands it to the wrappers, as its encoder paths do;
+- device ms per launch of the encoder's ends at 25,600 rows, as
+  `encode_indices_fused_edges` calls them: #4 (`fused_encoder_entry_eval`,
+  patch-embed and the first group) and #5 (`fused_encoder_exit_eval`,
+  the last group, sep_conv and the nearest code, on the patch-embed
+  output), the same way, handed the split where the tree's wrappers
+  take it;
 - ms of one #1 and one #3 launch at 25,600 rows between CUDA events
   (host launch included), and windows/s of 'attn' and 'full' (one call
-  between events), each the median of 10 after 3 warm-up calls.
+  between events), of `classify` (host work included: it returns
+  numpy) and of `encode_indices_fused_edges` followed by the 'full'
+  transformer (as chip_smoke.py's phase 9), each the median of 10
+  after 3 warm-up calls.
 
 Prints one table row per metric, the card's name and power limit, and
 last one JSON object with every turn's numbers (also written to FILE).
@@ -96,12 +105,17 @@ def measure(tree: Path) -> dict:
     import numpy as np
     import torch
     from vq_vae_transformer_arc_welding_tpu_torch import kernels
+    import inspect
     from vq_vae_transformer_arc_welding_tpu_torch.entry import (
         build, make_pipeline_quantized)
+    from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
+        quantized_classify)
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
         fused_encoder as fenc)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.patching import (
+        patchify)
     from vq_vae_transformer_arc_welding_tpu_torch.serve import (
-        CYCLE_LEN, WeldingQualityPipeline)
+        CYCLE_LEN, WeldingQualityPipeline, with_start_token)
     assert Path(kernels.__file__).is_relative_to(tree), kernels.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -154,6 +168,46 @@ def measure(tree: Path) -> dict:
         out[f"#1 {flat.shape[0]} rows event ms"] = event_ms(
             chain(flat.shape[0]))
         out[f"#3 {flat.shape[0]} rows event ms"] = event_ms(one)
+
+        edges = fenc.pack_encoder_edges(vq)
+        w_pe, b_pe, w_sep, b_sep = edges
+        nb = vq.n_resblocks
+        last = (nb - 1) // grp * grp
+        cycles = x.reshape(-1, CYCLE_LEN, 2)
+        patches = patchify(cycles, vq.patch_size).reshape(
+            -1, vq.patch_size).contiguous()
+
+        def split_kw(fn, i0, i1):
+            takes = "split" in inspect.signature(fn).parameters
+            return ({"split": split[2 * i0:2 * i1]}
+                    if takes and split is not None else {})
+
+        entry_kw = split_kw(fenc.fused_encoder_entry_eval, 0, grp)
+        exit_kw = split_kw(fenc.fused_encoder_exit_eval, last, nb)
+        out[f"#4 {flat.shape[0]} rows device ms"] = kernel_ms(
+            lambda: fenc.fused_encoder_entry_eval(
+                patches, w_pe, b_pe, weights[:2 * grp], vecs[:10 * grp],
+                use_bn=False, **entry_kw), 10, "encoder_entry")
+        out[f"#5 {flat.shape[0]} rows device ms"] = kernel_ms(
+            lambda: fenc.fused_encoder_exit_eval(
+                flat, weights[2 * last:], vecs[10 * last:], w_sep, b_sep,
+                vq.codebook, use_bn=False, **exit_kw), 10, "encoder_exit")
+        full = make_pipeline_quantized(vq, tr, pipe.qparams,
+                                       block_fusion="full")
+
+        def edges_full():
+            ids = fenc.encode_indices_fused_edges(vq, packed, edges, cycles)
+            return quantized_classify(
+                tr, pipe.qparams, with_start_token(ids.reshape(BATCH, -1),
+                                                   vq.num_embeddings),
+                block_fusion="full")
+
+        out["edges + 'full' windows/s"] = BATCH / (event_ms(edges_full)
+                                                   / 1e3)
+        out["'full' again windows/s"] = BATCH / (event_ms(lambda: full(x))
+                                                 / 1e3)
+    out["classify windows/s"] = BATCH / (event_ms(
+        lambda: pipe.classify(req)) / 1e3)
     return out
 
 

@@ -44,8 +44,9 @@ C, N_BLOCKS = 512, 4
 ROWS = (25344, 25600)
 
 EPILOGUE_1 = "        epilogue_gelu<BN>(a_s, v, ct);\n"
-EPILOGUE_2 = """        epilogue_residual<BN>(a_s, blk == 0 ? x : out, out, v, ct, row0,
-                              n_rows, blk + 1 < n_blocks);
+EPILOGUE_2 = """        epilogue_residual<BN>(a_s, blk == 0 && !Ends::ENTRY ? x : out, out,
+                              v, ct, row0, n_rows, blk + 1 < n_blocks,
+                              Ends::EXIT && blk + 1 == n_blocks);
 """
 PRODUCTS = """  wgmma_m64n256k8(acc, lo, w_hi);
   wgmma_m64n256k8(acc, hi, w_lo);

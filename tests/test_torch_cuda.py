@@ -8,7 +8,8 @@ runs there without the suite's conftest:
 
 Tolerances: kernels 1, 3 and 4 keep the f32 residual stream within 1e-4
 of its magnitude (the two sum 512-term dot products in other orders;
-#1 and #3 in split TF32 on the tensor cores, 2^-21 of a product);
+#1, #3, #4 and #5 in split TF32 on the tensor cores, 2^-21 of a
+product);
 kernels 5 and 7 may move at most 0.1% of their ids (an ulp of
 difference moves an argmin only at a near-tie; 0 expected); the int8
 kernels (#2 in both attention variants, #6, #8, #10, #11) may move at
@@ -155,6 +156,24 @@ def test_bf16_encode_indices_launches_one_chain(dev):
 
 
 RAGGED_ROWS = [77, 25601]     # a part tile, and one row past 800 tiles
+# the ends of the encoder (#4, #5) on #1's 64-row tile and persistent
+# walk: one row, a tile less one, one, one and a row, and (ROUND_ROWS)
+# one row past a whole round of tiles on every SM
+ROUND_ROWS = -1
+EDGE_ROWS = [1, 63, 64, 65, *RAGGED_ROWS, ROUND_ROWS]
+
+
+def _rows(n: int) -> int:
+    """n, or for ROUND_ROWS 64 rows a tile x the card's SMs + 1."""
+    if n != ROUND_ROWS:
+        return n
+    return 64 * torch.cuda.get_device_properties(0).multi_processor_count + 1
+
+
+def _exit_limit(d: int) -> int:
+    """The largest K of a (K, d) codebook the exit kernel takes: 64 d +
+    K (d + 5) floats within its 64 x 512 A tile."""
+    return (64 * 512 - 64 * d) // (d + 5)
 
 
 def _edge_operands(c: int, d: int, patch: int = 25, seed: int = 7):
@@ -257,49 +276,66 @@ def test_split_pack_on_the_card(dev):
 
 
 @pytest.mark.parametrize("use_bn", [False, True])
-@pytest.mark.parametrize("n", RAGGED_ROWS)
+@pytest.mark.parametrize("n", EDGE_ROWS)
 def test_entry_kernel_matches_plain(dev, n, use_bn):
-    c = 512
+    """#4 at a group of two: within 1e-4 of the plain version's largest
+    magnitude at the row counts around a tile and a round of tiles; the
+    pack's split (as the edges path hands it) and a bare pack, split by
+    the wrapper per call, give the same bits."""
+    c, n = 512, _rows(n)
     w, v = (a.to(dev) for a in _encoder_operands(c, 2, use_bn))
     w_pe, b_pe, _, _ = (a.to(dev) for a in _edge_operands(c, 32))
     g = torch.Generator().manual_seed(2)
     patches = torch.randn(n, 25, generator=g).to(dev)
+    split = fenc.split_weights(w)
     out = _launched("encoder_entry_f32", lambda: fenc.fused_encoder_entry_eval(
-        patches, w_pe, b_pe, w, v, use_bn=use_bn))
+        patches, w_pe, b_pe, w, v, use_bn=use_bn, split=split))
     ref = fenc.fused_encoder_entry_eval_reference(patches, w_pe, b_pe, w, v,
                                                   use_bn=use_bn)
     assert out.shape == (n, c) and torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(fenc.fused_encoder_entry_eval(
+        patches, w_pe, b_pe, w, v, use_bn=use_bn), out)
 
 
 @pytest.mark.parametrize("tie", [False, True], ids=["random", "tie"])
 @pytest.mark.parametrize("use_bn", [False, True])
-@pytest.mark.parametrize("n,k,d", [(77, 256, 32), (25601, 256, 32),
-                                   (1000, 32, 16), (1000, 100, 64),
-                                   (1000, 50, 8)])
+@pytest.mark.parametrize("n,k,d", [
+    *((n, 256, 32) for n in EDGE_ROWS), (1000, 32, 16), (1000, 100, 64),
+    (1000, 50, 8), (1000, _exit_limit(32), 32), (1000, _exit_limit(64), 64),
+    (1000, _exit_limit(8), 8)])
 def test_exit_kernel_matches_plain(dev, n, k, d, use_bn, tie):
-    """The codebook is drawn at the spread of z; with codes 2 and 11 both
-    row 5's own z, no id is 11. The bench model's (256, 32) codebook at
-    ragged row counts, and the other widths the kernel takes."""
-    c = 512
+    """The codebook is drawn at the spread of z (over at least 256 rows);
+    with codes 2 and 11 both row 5's own z, no id is 11 (where row 5
+    is in the call, code 2 is). The bench model's (256, 32) codebook at
+    the row counts around a tile and a round of tiles, the other widths
+    the kernel takes, and each width's largest codebook. The pack's
+    split and a bare pack give the same ids."""
+    c, n = 512, _rows(n)
     w, v = (a.to(dev) for a in _encoder_operands(c, 2, use_bn))
     _, _, w_sep, b_sep = (a.to(dev) for a in _edge_operands(c, d))
     g = torch.Generator().manual_seed(3)
-    x = torch.randn(n, c, generator=g).to(dev)
+    x = torch.randn(max(n, 256), c, generator=g).to(dev)
     z = fenc.fused_encoder_eval_reference(x, w, v, use_bn=use_bn) @ w_sep \
         + b_sep
     cb = z.mean(0) + torch.randn(k, d, generator=g).to(dev) * z.std(0)
     if tie:
         cb[2] = cb[11] = z[5]
+    x = x[:n]
     ids = _launched("encoder_exit_f32", lambda: fenc.fused_encoder_exit_eval(
-        x, w, v, w_sep, b_sep, cb, use_bn=use_bn))
+        x, w, v, w_sep, b_sep, cb, use_bn=use_bn,
+        split=fenc.split_weights(w)))
     ref = fenc.fused_encoder_exit_eval_reference(x, w, v, w_sep, b_sep, cb,
                                                  use_bn=use_bn)
     assert ids.dtype == torch.int32 and ids.shape == (n,)
     assert ids.unique().numel() > min(n, k) // 4
     assert (ids != ref).float().mean() <= 1e-3
+    assert torch.equal(fenc.fused_encoder_exit_eval(
+        x, w, v, w_sep, b_sep, cb, use_bn=use_bn), ids)
     if tie:
-        assert (ids == 2).any() and not (ids == 11).any()
+        assert not (ids == 11).any()
+        if n > 5:
+            assert (ids == 2).any()
 
 
 @pytest.mark.parametrize("n,d,k,tie", [
@@ -350,8 +386,28 @@ def test_new_encoder_wrappers_reject_bad_operands(dev):
         lambda: fenc.fused_encoder_exit_eval(x, w, v, w_sep.cpu(), b_sep, cb,
                                              use_bn=False),
         lambda: fenc.fused_encoder_exit_eval(
-            x, w, v, w_sep, b_sep, torch.zeros(600, 32, device=dev),
-            use_bn=False),                  # K * (D + 2) past the tile
+            x, w, v, w_sep, b_sep,
+            torch.zeros(_exit_limit(32) + 1, 32, device=dev),
+            use_bn=False),                  # the codebook past the A tile
+        lambda: fenc.fused_encoder_exit_eval(
+            x, w, v, w_sep, b_sep, torch.zeros(256, 24, device=dev),
+            use_bn=False),                  # D not 8, 16, 32 or 64
+        # hidden 256: no tile of that width
+        lambda: fenc.fused_encoder_entry_eval(
+            patches, w_pe[:, :256].contiguous(), b_pe[:256].contiguous(),
+            w[:, :256, :256].contiguous(), v[:, :256].contiguous(),
+            use_bn=False),
+        lambda: fenc.fused_encoder_exit_eval(
+            x[:, :256].contiguous(), w[:, :256, :256].contiguous(),
+            v[:, :256].contiguous(), w_sep[:256].contiguous(), b_sep, cb,
+            use_bn=False),
+        # a split of another group's shape
+        lambda: fenc.fused_encoder_entry_eval(
+            patches, w_pe, b_pe, w, v, use_bn=False,
+            split=fenc.split_weights(w)[:, :-1]),
+        lambda: fenc.fused_encoder_exit_eval(
+            x, w, v, w_sep, b_sep, cb, use_bn=False,
+            split=torch.cat([fenc.split_weights(w)] * 2)),
         lambda: fvq.nearest_codes_pallas(z.double(), cb),
         lambda: fvq.nearest_codes_pallas(z, cb.cpu()),
         lambda: fvq.nearest_codes_pallas(z[:, ::2], cb[:, ::2]),

@@ -1,7 +1,8 @@
 """The f32 encoder tile's arithmetic (csrc/encoder_tc.cuh) against the JAX
 package, on the CPU.
 
-Kernels #1 (`encoder_chain_f32`) and #3 (`resblock_f32`) run the
+Kernels #1 (`encoder_chain_f32`), #3 (`resblock_f32`) and the encoder's
+two ends, #4 (`encoder_entry_f32`) and #5 (`encoder_exit_f32`), run the
 resblock's two 512 x 512 products on the tensor cores in split TF32:
 every f32 operand v is rounded to hi = tf32(v) (`cvt.rna`: round to
 nearest on the magnitude, ties away from zero) and lo = tf32(v - hi);
@@ -13,7 +14,12 @@ here in plain PyTorch, k step by k step, from the pack the kernel reads.
 Each step's three products are summed in float64 and rounded once (the
 tensor core's own rounding inside a step is finer than these tolerances
 see); bias, eval BN, exact-erf GELU and the residual add are the plain
-version's.
+version's. The ends of #4 and #5 (csrc/encoder_edges.cu) are FP32 FMAs
+in index order on the CUDA cores: the patch-embed, sep_conv and the
+cross terms of the distances as one fmaf per step from zero (emulated
+as a float64 product and sum rounded to f32 once), the squared norms
+as rounded products added in index order, d = (|z|^2 + |e|^2) + (-2
+z.e), and the first index among the minima.
 
 Tolerances, at the full width of 512 (the error grows with it): the
 residual stream within 1e-4 of the JAX kernel's largest magnitude (the
@@ -43,6 +49,8 @@ import torch_port_helpers as H
 C = 512          # the kernels' width
 KSTEP = 8        # K of a TF32 wgmma: the tile's k step
 ROWS = 640       # two windows of the bench model
+EDGE_ROWS = 200  # the ends: three whole 64-row tiles and a part one
+PATCH = 25       # the bench model's patch
 MAX_REL = 1e-4
 MAX_ID_FLIP = 1e-3
 MAX_FLIP_GAP = 1e-5
@@ -101,8 +109,8 @@ def tile_chain(x: torch.Tensor, weights: torch.Tensor, vecs: torch.Tensor,
     return x
 
 
-def operands(n_blocks: int, use_bn: bool, seed: int = 0):
-    """x (ROWS, C), weights (2n, C, C) at the encoder's init spread and
+def operands(n_blocks: int, use_bn: bool, seed: int = 0, rows: int = ROWS):
+    """x (rows, C), weights (2n, C, C) at the encoder's init spread and
     vecs (10n, C), with eval BN rows drawn where use_bn, as numpy."""
     rng = np.random.default_rng(seed)
     bound = (6.0 / (2 * C * 3)) ** 0.5
@@ -114,8 +122,56 @@ def operands(n_blocks: int, use_bn: bool, seed: int = 0):
         v[:, :, 2] = rng.uniform(0.5, 2.0, (n_blocks, 2, C))
         v[:, :, 3] = rng.uniform(0.5, 1.5, (n_blocks, 2, C))
         v[:, :, 4] = rng.standard_normal((n_blocks, 2, C)) * 0.1
-    x = rng.standard_normal((ROWS, C)).astype(np.float32)
+    x = rng.standard_normal((rows, C)).astype(np.float32)
     return x, w, v.reshape(10 * n_blocks, C)
+
+
+def fma_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (N, K) @ b (K, M) as the ends sum it: from zero, one fmaf per k
+    in index order (a float64 product and sum, exact for the product,
+    rounded to f32 once)."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(a.shape[1]):
+        acc = (a[:, k:k + 1].double() * b[k].double() + acc.double()).float()
+    return acc
+
+
+def squares_in_order(v: torch.Tensor) -> torch.Tensor:
+    """Per row of v, the squares rounded to f32 and added in index order
+    (__fmul_rn, __fadd_rn)."""
+    s = torch.zeros(v.shape[0])
+    for i in range(v.shape[1]):
+        s = s + v[:, i] * v[:, i]
+    return s
+
+
+def tile_entry(patches, w_pe, b_pe, weights, vecs, use_bn: bool):
+    """The emulated #4: the patch-embed in index order, then the tile's
+    resblocks."""
+    return tile_chain(fma_rows(patches, w_pe) + b_pe, weights, vecs, use_bn)
+
+
+def tile_exit(x, weights, vecs, w_sep, b_sep, codebook, use_bn: bool):
+    """The emulated #5: the tile's resblocks, z in index order, the
+    distances in the kernel's order and the first index among their
+    minima (no finite distance: code 0). Returns (ids, z)."""
+    z = fma_rows(tile_chain(x, weights, vecs, use_bn), w_sep) + b_sep
+    d = ((squares_in_order(z)[:, None] + squares_in_order(codebook)[None])
+         + -2.0 * fma_rows(z, codebook.T))
+    d = torch.where(torch.isnan(d), torch.inf, d)
+    return d.argmin(1).int(), z
+
+
+def edge_operands(seed: int = 7, d: int = 32):
+    """patches (EDGE_ROWS, PATCH), w_pe (PATCH, C), b_pe, w_sep (C, d),
+    b_sep at xavier-like spreads, as numpy."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((EDGE_ROWS, PATCH)).astype(f),
+            rng.uniform(-0.1, 0.1, (PATCH, C)).astype(f),
+            (rng.standard_normal(C) * 0.1).astype(f),
+            rng.uniform(-0.1, 0.1, (C, d)).astype(f),
+            (rng.standard_normal(d) * 0.1).astype(f))
 
 
 def ids_and_gap(y, ref, seed: int = 1):
@@ -251,3 +307,68 @@ def test_split_pack_is_made_once_per_pipeline(monkeypatch):
     assert fn(torch.from_numpy(H.windows(2, seed=12))).shape == (2, 2)
     assert handed and all(s is not None for s in handed)
     assert len(made) == 2
+
+
+@pytest.mark.parametrize("use_bn", [False, True])
+def test_emulated_entry_matches_jax(use_bn):
+    """#4 at a group of four resblocks on 200 rows: the emulated kernel
+    against JAX fused_encoder_entry_eval in interpret mode within 1e-4
+    of its largest magnitude; the CPU wrapper, handed the split or not,
+    runs the plain version."""
+    _, w, v = operands(4, use_bn, seed=5, rows=1)
+    patches, w_pe, b_pe, _, _ = edge_operands()
+    ref = torch.from_numpy(np.array(jenc.fused_encoder_entry_eval(
+        jnp.asarray(patches), w_pe, b_pe, w, v, tile_rows=64,
+        use_bn=use_bn)))
+    tp, twp, tbp, tw, tv = map(torch.from_numpy, (patches, w_pe, b_pe, w, v))
+    emu = tile_entry(tp, twp, tbp, tw, tv, use_bn)
+    assert emu.shape == (EDGE_ROWS, C)
+    assert float((emu - ref).abs().max()) <= MAX_REL * float(ref.abs().max())
+    plain = fenc.fused_encoder_entry_eval_reference(tp, twp, tbp, tw, tv,
+                                                    use_bn=use_bn)
+    for split in (None, fenc.split_weights(tw)):
+        assert torch.equal(fenc.fused_encoder_entry_eval(
+            tp, twp, tbp, tw, tv, use_bn=use_bn, split=split), plain)
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["random", "tie"])
+@pytest.mark.parametrize("use_bn", [False, True])
+def test_emulated_exit_matches_jax(use_bn, tie):
+    """#5 at a group of four resblocks on 200 rows and the bench model's
+    (256, 32) codebook drawn at the spread of z: the emulated kernel's
+    ids against JAX fused_encoder_exit_eval in interpret mode, flipping
+    in at most 1e-3 of rows, each flip a near-tie within 1e-5 of |z|^2
+    in float64; with codes 2 and 11 both row 5's own z, the answer is 2
+    and never 11. The CPU wrapper, handed the split or not, runs the
+    plain version."""
+    x, w, v = operands(4, use_bn, seed=6, rows=EDGE_ROWS)
+    _, _, _, w_sep, b_sep = edge_operands(seed=8)
+    tx, tw, tv, tws, tbs = map(torch.from_numpy, (x, w, v, w_sep, b_sep))
+    z = fenc.fused_encoder_eval_reference(tx, tw, tv, use_bn=use_bn) @ tws \
+        + tbs
+    rng = np.random.default_rng(9)
+    cb = (z.mean(0) + torch.from_numpy(rng.standard_normal(
+        (256, 32)).astype(np.float32)) * z.std(0))
+    if tie:
+        cb[2] = cb[11] = z[5]
+    ref = torch.from_numpy(np.array(jenc.fused_encoder_exit_eval(
+        jnp.asarray(x), w, v, w_sep, b_sep, cb.numpy(), tile_rows=64,
+        use_bn=use_bn)))
+    ids, z_emu = tile_exit(tx, tw, tv, tws, tbs, cb, use_bn)
+    assert ids.shape == ref.shape == (EDGE_ROWS,)
+    assert ids.unique().numel() > 256 // 4
+    rows = (ids != ref).nonzero().squeeze(1)
+    assert rows.numel() <= MAX_ID_FLIP * EDGE_ROWS
+    if rows.numel():
+        zz = z_emu[rows].double()
+        gap = [((zz - cb[i[rows].long()].double()) ** 2).sum(1)
+               for i in (ids, ref)]
+        assert float(((gap[0] - gap[1]).abs() / (zz ** 2).sum(1)).max()) \
+            <= MAX_FLIP_GAP
+    if tie:
+        assert ids[5] == 2 and not (ids == 11).any()
+    plain = fenc.fused_encoder_exit_eval_reference(tx, tw, tv, tws, tbs, cb,
+                                                   use_bn=use_bn)
+    for split in (None, fenc.split_weights(tw)):
+        assert torch.equal(fenc.fused_encoder_exit_eval(
+            tx, tw, tv, tws, tbs, cb, use_bn=use_bn, split=split), plain)

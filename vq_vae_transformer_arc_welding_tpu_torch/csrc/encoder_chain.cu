@@ -4,8 +4,9 @@
 // Replaces vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py::
 // fused_encoder_eval (pallas_call at :311). The resblock, what bounds
 // it on an H100 (the TF32 products, then L2) and the tile's design are
-// in encoder_tc.cuh, which #3 (encoder_resblock.cu) shares: x (N, C)
-// f32 and the split weights in, the same rows after n resblocks out.
+// in encoder_tc.cuh, which #3 (encoder_resblock.cu) and the encoder's
+// ends #4 and #5 (encoder_edges.cu) share: x (N, C) f32 and the split
+// weights in, the same rows after n resblocks out.
 #include "encoder_tc.cuh"
 
 namespace {

@@ -11,180 +11,244 @@
 //          d = (sum z^2 + sum e^2) - 2 z.e over the (K, D) codebook,
 //          the first index among the minima -> (N,) int32
 //
-// Both are the tile of encoder_chain.cuh with a prologue or an epilogue
-// on the block's 32 rows, so the patch-embed output, z and the (N, K)
-// distances never reach device memory. What bounds them is the chain's
-// FP32 FMA rate: per row a resblock is 524 K FMAs at C = 512, the
-// patch-embed 12.8 K and sep_conv with the distances 24.6 K (D = 32,
-// K = 256). The ends are written for exactness first; the exit's
-// epilogue runs with one block per SM and nothing to hide its latency
-// behind, which is what its time shows.
+// Both are the split-TF32 tile of encoder_tc.cuh (#1's, with its
+// persistent walk of 64-row tiles and its TMA ring of W stages) with a
+// prologue or an epilogue on each tile (`Entry`, `Exit`), so the
+// patch-embed output, z and the (N, K) distances never reach device
+// memory. What bounds them is #1's: the resblocks' TF32 products. The
+// ends are plain FP32 FMAs on the consumer threads, under 2% of the
+// work (per row 12.8 K FMAs for the patch-embed and 24.6 K for sep_conv
+// with the distances at D = 32, K = 256, against 524 K a resblock).
 //
-// Exactness: every dot product is summed in index order with FMAs, the
-// squared norms as rounded products added in index order, and d keeps
-// the reference's order (zsq + esq) - 2 * cross. Each lane scans its
-// codes in increasing order with d < best, and the reduction over lanes
-// takes the smaller d and, on equal d, the smaller index: the first
-// index among equal minima, as the reference's argmin.
-#include "encoder_chain.cuh"
+// Shared memory is the tile's: the ring is not free during an end (the
+// producer is already loading the next tile's stages into it), so the
+// ends use the A tile. The entry stages the tile's BM x P patch values
+// there, writes the patch-embed rows to `out` (block 0's residual
+// source) and load_a then reads them back as A = gelu(x). The exit's
+// last epilogue leaves x in A; its rows give z, and z, the codebook and
+// its squared norms then take the A tile over. The exit's residual
+// stream between its resblocks lives in an (N, C) buffer of its
+// caller, as #1's output does.
+//
+// Exactness: every dot product of the ends is summed in index order
+// with FMAs, the squared norms as rounded products added in index
+// order, and d keeps the reference's order (zsq + esq) - 2 * cross.
+// Each lane scans its codes in increasing order with d < best, and the
+// reduction over lanes takes the smaller d and, on equal d, the smaller
+// index: the first index among equal minima, as the reference's argmin.
+// No finite distance (a non-finite row) gives code 0.
+//
+// Both ends are __noinline__ and take scalars only: code inlined after
+// the chain changes the register allocation of its products. So they
+// find the A tile themselves (a_tile()), which keeps its loads and
+// stores shared-memory ones, and read the operands through the read-only
+// path (__ldg): behind a pointer argument either would be a generic
+// access.
+#include "encoder_tc.cuh"
 
 namespace {
 
-using namespace arcweld::enc;
+using namespace arcweld::enc_tc;
+using arcweld::gemm90::aligned;
 
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS_PER_WARP = BM / WARPS;   // 4
-constexpr int MAX_Z_ROWS = 8;                // z rows per thread at D = 64
+// patch-embed rows a thread computes in one pass (of its BM / 2)
+constexpr int EMBED_ROWS = 8;
+// k of w_sep a thread holds in registers, the next chunk's loads in
+// flight while it multiplies this one's
+constexpr int Z_CHUNK = 32;
+static_assert(C % Z_CHUNK == 0 && (C & (C - 1)) == 0, "w_sep's chunks");
+// rows a consumer warp scans the codebook for
+constexpr int WARP_ROWS = BM / CONSUMER_WARPS;   // 8
+static_assert(WARP_ROWS * CONSUMER_WARPS == BM, "a warp's rows");
 
-// xr = patches[block rows] @ w_pe + b_pe. The block's BM x P patch rows
-// are staged in a_s (free before the first resblock); w_pe comes from
-// L2. k runs in index order.
-template <int C>
-__device__ __forceinline__ void embed_rows(
-    const float* __restrict__ patches, const float* __restrict__ w_pe,
-    const float* __restrict__ b_pe, int patch,
-    float (&xr)[ROWS][Tile<C>::COLS], float* __restrict__ a_s, int rg, int cg,
-    int tid, int n_rows) {
-  using T = Tile<C>;
-  const int row_base = blockIdx.x * BM;
-  for (int i = tid; i < BM * patch; i += THREADS)
-    a_s[i] = row_base + i / patch < n_rows
-                 ? patches[(size_t)row_base * patch + i] : 0.0f;
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int c = 0; c < T::COLS; ++c) xr[r][c] = 0.0f;
-  for (int k = 0; k < patch; ++k) {
-    float4 wv[T::NJ];
-#pragma unroll
-    for (int j = 0; j < T::NJ; ++j)
-      wv[j] = *reinterpret_cast<const float4*>(w_pe + (size_t)k * C +
-                                               j * 256 + cg * 4);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float p = a_s[(rg * ROWS + r) * patch + k];
-#pragma unroll
-      for (int j = 0; j < T::NJ; ++j) {
-        xr[r][4 * j + 0] = fmaf(p, wv[j].x, xr[r][4 * j + 0]);
-        xr[r][4 * j + 1] = fmaf(p, wv[j].y, xr[r][4 * j + 1]);
-        xr[r][4 * j + 2] = fmaf(p, wv[j].z, xr[r][4 * j + 2]);
-        xr[r][4 * j + 3] = fmaf(p, wv[j].w, xr[r][4 * j + 3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < T::NJ; ++j) {
-    const float4 b =
-        *reinterpret_cast<const float4*>(b_pe + j * 256 + cg * 4);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      xr[r][4 * j + 0] += b.x;
-      xr[r][4 * j + 1] += b.y;
-      xr[r][4 * j + 2] += b.z;
-      xr[r][4 * j + 3] += b.w;
-    }
-  }
-  __syncthreads();   // the first resblock overwrites a_s
+// A codebook row in shared memory: D + 4 floats, so that rows stay
+// 16-byte aligned and the float4 reads of eight lanes on neighbouring
+// codes fall in different banks for every D of 8, 16, 32 or 64.
+__host__ __device__ constexpr int code_pitch(int d_emb) { return d_emb + 4; }
+
+// floats of the A tile the exit's epilogue takes: z, the padded
+// codebook, its norms
+__host__ __device__ constexpr int exit_floats(int d_emb, int k_codes) {
+  return BM * d_emb + k_codes * (code_pitch(d_emb) + 1);
 }
 
-// ids[block rows] = nearest code of x @ w_sep + b_sep, for the block's
-// rows x staged in a_s (BM x C). Shared memory, all free after the last
-// resblock: z (BM x D) goes to w_s; then the codebook, its rows padded
-// to D + 1 floats so that lanes on neighbouring codes hit different
-// banks, and the K squared norms take a_s over. Needs THREADS % D == 0,
-// D <= 64 and K * (D + 2) <= BM * C. Not inlined: it takes pointers
-// only, so the chain before it keeps the register allocation it has in
-// encoder_chain_f32.
-template <int C>
-__device__ __noinline__ void nearest_rows(
-    float* __restrict__ a_s, float* __restrict__ w_s,
-    const float* __restrict__ w_sep, const float* __restrict__ b_sep,
-    const float* __restrict__ codebook, int* __restrict__ ids, int n_rows,
-    int d_emb, int k_codes, int tid) {
-  // z: this thread's column of rows r0, r0 + rstep, ...
-  const int dcol = tid % d_emb;
-  const int r0 = tid / d_emb;
-  const int rstep = THREADS / d_emb;
-  const int n_z = BM / rstep;
-  float zacc[MAX_Z_ROWS];
+// out[tile rows] = patches[tile rows] @ w_pe + b_pe, then a barrier of
+// the consumers. The tile's BM x P patch values are staged in the A
+// tile (zeros past n_rows); thread ct takes columns 4 (ct % 128) .. + 3
+// of rows ct / 128, + 2, ..., the rows and columns it later loads as A
+// (load_a), so it reads back only its own stores. k runs in index
+// order; rows past n_rows are not written.
+__device__ __noinline__ void embed_rows(const float* __restrict__ patches,
+                                        const float* __restrict__ w_pe,
+                                        const float* __restrict__ b_pe,
+                                        float* __restrict__ out, int row0,
+                                        int n_rows, int patch, int ct) {
+  float* const a_s = a_tile();
+  const int staged = BM * patch;
+  for (int i = ct; i < staged; i += CONSUMERS)
+    a_s[i] = row0 + i / patch < n_rows
+                 ? __ldg(patches + (size_t)row0 * patch + i) : 0.0f;
+  named_sync(1, CONSUMERS);
+  const int col = 4 * (ct % 128);
+  const float4 b = __ldg(reinterpret_cast<const float4*>(b_pe + col));
+  for (int r = ct / 128; r < BM; r += 2 * EMBED_ROWS) {
+    float4 acc[EMBED_ROWS];
 #pragma unroll
-  for (int i = 0; i < MAX_Z_ROWS; ++i) zacc[i] = 0.0f;
-  // the chain's weights have swept w_sep out of L1, so every row comes
-  // from L2: 16 rows in flight per thread
-#pragma unroll 16
-  for (int k = 0; k < C; ++k) {
-    const float wv = w_sep[(size_t)k * d_emb + dcol];
+    for (int q = 0; q < EMBED_ROWS; ++q)
+      acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < patch; ++k) {
+      const float4 w =
+          __ldg(reinterpret_cast<const float4*>(w_pe + (size_t)k * C + col));
 #pragma unroll
-    for (int i = 0; i < MAX_Z_ROWS; ++i)
-      if (i < n_z) zacc[i] = fmaf(a_s[(r0 + i * rstep) * C + k], wv, zacc[i]);
+      for (int q = 0; q < EMBED_ROWS; ++q) {
+        const float p = a_s[(r + 2 * q) * patch + k];
+        acc[q].x = fmaf(p, w.x, acc[q].x);
+        acc[q].y = fmaf(p, w.y, acc[q].y);
+        acc[q].z = fmaf(p, w.z, acc[q].z);
+        acc[q].w = fmaf(p, w.w, acc[q].w);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < EMBED_ROWS; ++q) {
+      const int row = row0 + r + 2 * q;
+      if (row < n_rows)
+        *reinterpret_cast<float4*>(out + (size_t)row * C + col) =
+            make_float4(acc[q].x + b.x, acc[q].y + b.y, acc[q].z + b.z,
+                        acc[q].w + b.w);
+    }
   }
-  float* z_s = w_s;
-  const float bias = b_sep[dcol];
-#pragma unroll
-  for (int i = 0; i < MAX_Z_ROWS; ++i)
-    if (i < n_z) z_s[(r0 + i * rstep) * d_emb + dcol] = zacc[i] + bias;
-  __syncthreads();   // x in a_s is consumed; z_s is complete
+  named_sync(1, CONSUMERS);  // the patches are read; load_a writes A
+}
 
-  const int dp = d_emb + 1;
-  float* cb_s = a_s;
-  float* esq_s = a_s + k_codes * dp;
+// ids[tile rows] = the nearest code of x @ w_sep + b_sep, for the
+// tile's rows x in the A tile (swizzled, a_at; zeros past n_rows), with
+// a (K, D) codebook, exit_floats(D, K) <= A_FLOATS. D is a template
+// constant, so that z's loops are unrolled and every shared address
+// past a thread's first is an immediate offset: with D a runtime value
+// the z loop ran several times slower on an H100.
+// z: thread ct takes column ct % D of rows ct / D, + 256 / D, ... (D / 4
+// rows); then z (BM x D) goes to the front of the A tile, the codebook
+// (rows of code_pitch(D)) and its K squared norms after it, and each
+// consumer warp scans the codebook for its WARP_ROWS rows.
+template <int D>
+__device__ __forceinline__ void nearest_rows_d(
+    const float* __restrict__ w_sep, const float* __restrict__ b_sep,
+    const float* __restrict__ codebook, int* __restrict__ ids, int row0,
+    int n_rows, int k_codes, int ct) {
+  constexpr int RSTEP = CONSUMERS / D;   // rows between a thread's z rows
+  constexpr int NZ = BM / RSTEP;         // its z rows
+  constexpr int DP = code_pitch(D);
+  static_assert(NZ * RSTEP == BM && D % 8 == 0, "z's rows");
+  float* const a_s = a_tile();
+  const int dcol = ct % D;
+  const int r0 = ct / D;
+  // row r0 + i RSTEP of A at k: a_at's swizzle is r0's, flipped in
+  // bit 4 for odd i where RSTEP is 4
+  const float* const x0 = a_s + r0 * C;
+  const int sw = (r0 & 7) << 2;
+  float zacc[NZ];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) zacc[i] = 0.0f;
+  // the chain's weights have swept w_sep out of L1, so its rows come
+  // from L2: Z_CHUNK k of them in registers and the next chunk's loads
+  // in flight behind the products (the last round reloads chunk 0,
+  // unused)
+  float w[Z_CHUNK], wn[Z_CHUNK];
+#pragma unroll
+  for (int j = 0; j < Z_CHUNK; ++j) w[j] = __ldg(w_sep + j * D + dcol);
+  for (int k0 = 0; k0 < C; k0 += Z_CHUNK) {
+    const int kn = (k0 + Z_CHUNK) & (C - 1);
+#pragma unroll
+    for (int j = 0; j < Z_CHUNK; ++j)
+      wn[j] = __ldg(w_sep + (kn + j) * D + dcol);
+#pragma unroll
+    for (int kk = 0; kk < Z_CHUNK; kk += 4) {
+      const int ke = k0 + (kk ^ sw), ko = k0 + (kk ^ sw ^ 16);
+#pragma unroll
+      for (int i = 0; i < NZ; ++i) {
+        const int k = RSTEP % 8 == 0 || i % 2 == 0 ? ke : ko;
+        const float4 xv = ld4(x0 + i * RSTEP * C + k);
+        zacc[i] = fmaf(xv.x, w[kk], zacc[i]);
+        zacc[i] = fmaf(xv.y, w[kk + 1], zacc[i]);
+        zacc[i] = fmaf(xv.z, w[kk + 2], zacc[i]);
+        zacc[i] = fmaf(xv.w, w[kk + 3], zacc[i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < Z_CHUNK; ++j) w[j] = wn[j];
+  }
+  named_sync(1, CONSUMERS);  // x in A is consumed
+
+  float* const z_s = a_s;
+  float* const cb_s = a_s + BM * D;
+  float* const esq_s = cb_s + k_codes * DP;
+  const float bias = __ldg(b_sep + dcol);
+#pragma unroll
+  for (int i = 0; i < NZ; ++i)
+    z_s[(r0 + i * RSTEP) * D + dcol] = zacc[i] + bias;
   // D is a multiple of 8: a float4 never straddles two codes
   const float4* cb4 = reinterpret_cast<const float4*>(codebook);
-#pragma unroll 8
-  for (int i = tid; i < k_codes * d_emb / 4; i += THREADS) {
-    const float4 e = cb4[i];
-    float* dst = cb_s + (4 * i / d_emb) * dp + 4 * i % d_emb;
-    dst[0] = e.x;
-    dst[1] = e.y;
-    dst[2] = e.z;
-    dst[3] = e.w;
+#pragma unroll 4
+  for (int i = ct; i < k_codes * (D / 4); i += CONSUMERS) {
+    const int e = 4 * i;
+    *reinterpret_cast<float4*>(cb_s + (e / D) * DP + e % D) = __ldg(cb4 + i);
   }
-  __syncthreads();
-  for (int k = tid; k < k_codes; k += THREADS) {
+  named_sync(1, CONSUMERS);  // z_s and cb_s are complete
+  for (int k = ct; k < k_codes; k += CONSUMERS) {
     float s = 0.0f;
-    for (int dd = 0; dd < d_emb; ++dd) {
-      const float e = cb_s[k * dp + dd];
+#pragma unroll 8
+    for (int dd = 0; dd < D; ++dd) {
+      const float e = cb_s[k * DP + dd];
       s = __fadd_rn(s, __fmul_rn(e, e));
     }
     esq_s[k] = s;
   }
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const float* z_w = z_s + warp * ROWS_PER_WARP * d_emb;   // the warp's rows
-  float zsq[ROWS_PER_WARP];
+  const int warp = ct / 32;
+  const int lane = ct % 32;
+  const float* z_w = z_s + warp * WARP_ROWS * D;   // the warp's rows
+  float zsq[WARP_ROWS];
 #pragma unroll
-  for (int q = 0; q < ROWS_PER_WARP; ++q) {
+  for (int q = 0; q < WARP_ROWS; ++q) {
     float s = 0.0f;
-    for (int dd = 0; dd < d_emb; ++dd) {
-      const float zv = z_w[q * d_emb + dd];
+#pragma unroll 8
+    for (int dd = 0; dd < D; ++dd) {
+      const float zv = z_w[q * D + dd];
       s = __fadd_rn(s, __fmul_rn(zv, zv));
     }
     zsq[q] = s;
   }
-  __syncthreads();   // esq_s is complete
+  named_sync(1, CONSUMERS);  // esq_s is complete
 
-  float best[ROWS_PER_WARP];
-  int best_k[ROWS_PER_WARP];
+  float best[WARP_ROWS];
+  int best_k[WARP_ROWS];
 #pragma unroll
-  for (int q = 0; q < ROWS_PER_WARP; ++q) {
+  for (int q = 0; q < WARP_ROWS; ++q) {
     best[q] = INFINITY;
     best_k[q] = k_codes;
   }
   for (int k = lane; k < k_codes; k += 32) {
-    const float* e = cb_s + k * dp;
-    float cross[ROWS_PER_WARP];
+    const float* e = cb_s + k * DP;
+    float cross[WARP_ROWS];
 #pragma unroll
-    for (int q = 0; q < ROWS_PER_WARP; ++q) cross[q] = 0.0f;
-    for (int dd = 0; dd < d_emb; ++dd) {
-      const float ev = e[dd];
+    for (int q = 0; q < WARP_ROWS; ++q) cross[q] = 0.0f;
+    // not unrolled: the warp's z rows (8 D floats) are the same for every
+    // code, and an unrolled loop hoists their loads out of the scan into
+    // registers, which spill
+#pragma unroll 1
+    for (int dd = 0; dd < D; dd += 4) {
+      const float4 ev = ld4(e + dd);
 #pragma unroll
-      for (int q = 0; q < ROWS_PER_WARP; ++q)
-        cross[q] = fmaf(z_w[q * d_emb + dd], ev, cross[q]);
+      for (int q = 0; q < WARP_ROWS; ++q) {
+        const float4 zv = ld4(z_w + q * D + dd);
+        cross[q] = fmaf(zv.x, ev.x, cross[q]);
+        cross[q] = fmaf(zv.y, ev.y, cross[q]);
+        cross[q] = fmaf(zv.z, ev.z, cross[q]);
+        cross[q] = fmaf(zv.w, ev.w, cross[q]);
+      }
     }
     const float es = esq_s[k];
 #pragma unroll
-    for (int q = 0; q < ROWS_PER_WARP; ++q) {
+    for (int q = 0; q < WARP_ROWS; ++q) {
       const float dist = __fadd_rn(__fadd_rn(zsq[q], es),
                                    __fmul_rn(-2.0f, cross[q]));
       if (dist < best[q]) {
@@ -194,7 +258,7 @@ __device__ __noinline__ void nearest_rows(
     }
   }
 #pragma unroll
-  for (int q = 0; q < ROWS_PER_WARP; ++q) {
+  for (int q = 0; q < WARP_ROWS; ++q) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const float od = __shfl_xor_sync(0xffffffffu, best[q], o);
@@ -204,100 +268,127 @@ __device__ __noinline__ void nearest_rows(
         best_k[q] = ok;
       }
     }
-    const int row = blockIdx.x * BM + warp * ROWS_PER_WARP + q;
+    const int row = row0 + warp * WARP_ROWS + q;
     // no distance below +inf (a non-finite row): code 0
     if (lane == 0 && row < n_rows)
       ids[row] = best_k[q] < k_codes ? best_k[q] : 0;
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(THREADS, 1)
-encoder_entry_kernel(const float* __restrict__ patches,
-                     const float* __restrict__ w_pe,
-                     const float* __restrict__ b_pe,
-                     const float* __restrict__ w,
-                     const float* __restrict__ vecs, float* __restrict__ out,
-                     int n_rows, int patch, int n_blocks, int use_bn) {
-  using T = Tile<C>;
-  extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);
-  float* w_s = a_s + T::A_FLOATS;
-  const int tid = threadIdx.x;
-  const int rg = tid / 64;
-  const int cg = tid % 64;
-  const int row0 = blockIdx.x * BM + rg * ROWS;
-
-  float xr[ROWS][T::COLS];
-  embed_rows<C>(patches, w_pe, b_pe, patch, xr, a_s, rg, cg, tid, n_rows);
-  resblock_chain<C>(xr, a_s, w_s, w, vecs, n_blocks, use_bn, rg, cg, tid);
-  store_rows<C>(out, xr, row0, cg, n_rows);
+// nearest_rows_d for the exit's D: one call site in the tile's body
+__device__ __noinline__ void nearest_rows(const float* __restrict__ w_sep,
+                                          const float* __restrict__ b_sep,
+                                          const float* __restrict__ codebook,
+                                          int* __restrict__ ids, int row0,
+                                          int n_rows, int d_emb, int k_codes,
+                                          int ct) {
+  switch (d_emb) {  // 8, 16, 32 or 64 (encoder_exit_f32 checks)
+    case 8:
+      return nearest_rows_d<8>(w_sep, b_sep, codebook, ids, row0, n_rows,
+                               k_codes, ct);
+    case 16:
+      return nearest_rows_d<16>(w_sep, b_sep, codebook, ids, row0, n_rows,
+                                k_codes, ct);
+    case 32:
+      return nearest_rows_d<32>(w_sep, b_sep, codebook, ids, row0, n_rows,
+                                k_codes, ct);
+    default:
+      return nearest_rows_d<64>(w_sep, b_sep, codebook, ids, row0, n_rows,
+                                k_codes, ct);
+  }
 }
 
-template <int C>
-__global__ void __launch_bounds__(THREADS, 1)
-encoder_exit_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ vecs,
-                    const float* __restrict__ w_sep,
-                    const float* __restrict__ b_sep,
-                    const float* __restrict__ codebook, int* __restrict__ ids,
-                    int n_rows, int n_blocks, int use_bn, int d_emb,
-                    int k_codes) {
-  using T = Tile<C>;
-  extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);
-  float* w_s = a_s + T::A_FLOATS;
-  const int tid = threadIdx.x;
-  const int rg = tid / 64;
-  const int cg = tid % 64;
-  const int row0 = blockIdx.x * BM + rg * ROWS;
+// the entry's prologue: the tile's rows are patch-embed rows
+struct Entry {
+  static constexpr bool ENTRY = true, EXIT = false;
+  const float* patches;
+  const float* w_pe;
+  const float* b_pe;
+  int patch;
+  __device__ __forceinline__ void embed(float* out, int row0, int n_rows,
+                                        int ct) const {
+    embed_rows(patches, w_pe, b_pe, out, row0, n_rows, patch, ct);
+  }
+  __device__ __forceinline__ void search(int, int, int) const {}
+};
 
-  float xr[ROWS][T::COLS];
-  load_rows<C>(x, xr, row0, cg, n_rows);
-  resblock_chain<C>(xr, a_s, w_s, w, vecs, n_blocks, use_bn, rg, cg, tid);
-  // a_s is free after the last resblock: stage the rows for sep_conv
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < T::NJ; ++j)
-      store4(a_s + (rg * ROWS + r) * C + j * 256 + cg * 4, xr[r][4 * j + 0],
-             xr[r][4 * j + 1], xr[r][4 * j + 2], xr[r][4 * j + 3]);
-  __syncthreads();
-  nearest_rows<C>(a_s, w_s, w_sep, b_sep, codebook, ids, n_rows, d_emb,
-                  k_codes, tid);
+// the exit's epilogue: sep_conv and the nearest code of the tile's rows
+struct Exit {
+  static constexpr bool ENTRY = false, EXIT = true;
+  const float* w_sep;
+  const float* b_sep;
+  const float* codebook;
+  int* ids;
+  int d_emb, k_codes;
+  __device__ __forceinline__ void embed(float*, int, int, int) const {}
+  __device__ __forceinline__ void search(int row0, int n_rows,
+                                         int ct) const {
+    nearest_rows(w_sep, b_sep, codebook, ids, row0, n_rows, d_emb, k_codes,
+                 ct);
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+encoder_entry_kernel(const __grid_constant__ CUtensorMap tm_w,
+                     const float* __restrict__ x,
+                     const float* __restrict__ vecs, float* out, int n_rows,
+                     int n_blocks, int use_bn, const Entry ends) {
+  encoder_tc(&tm_w, x, vecs, out, n_rows, n_blocks, use_bn, ends);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+encoder_exit_kernel(const __grid_constant__ CUtensorMap tm_w,
+                    const float* __restrict__ x,
+                    const float* __restrict__ vecs, float* out, int n_rows,
+                    int n_blocks, int use_bn, const Exit ends) {
+  encoder_tc(&tm_w, x, vecs, out, n_rows, n_blocks, use_bn, ends);
 }
 
 }  // namespace
 
+// patches (N, patch); w_pe (patch, C) and b_pe (C,), 16-byte aligned;
+// split (2 n_blocks, 2 C C) as encoder_chain_f32's; out (N, C)
 extern "C" int encoder_entry_f32(const void* patches, const void* w_pe,
-                                 const void* b_pe, const void* weights,
+                                 const void* b_pe, const void* split,
                                  const void* vecs, void* out, int n_rows,
                                  int patch, int c, int n_blocks, int use_bn,
                                  void* stream) {
-  // hidden 512 only, as encoder_chain_f32; the staged patch rows must
+  // hidden 512 only, as encoder_chain_f32; the staged patch values must
   // fit the A tile
-  if (c != 512 || patch < 1 || patch > 512) return cudaErrorInvalidValue;
-  return launch_rows<512>(
-      encoder_entry_kernel<512>, n_rows, static_cast<cudaStream_t>(stream),
-      static_cast<const float*>(patches), static_cast<const float*>(w_pe),
-      static_cast<const float*>(b_pe), static_cast<const float*>(weights),
-      static_cast<const float*>(vecs), static_cast<float*>(out), n_rows,
-      patch, n_blocks, use_bn);
+  if (c != C || patch < 1 || patch > A_FLOATS / BM)
+    return cudaErrorInvalidValue;
+  if (!aligned(w_pe, 16) || !aligned(b_pe, 16))
+    return cudaErrorMisalignedAddress;
+  const Entry ends{static_cast<const float*>(patches),
+                   static_cast<const float*>(w_pe),
+                   static_cast<const float*>(b_pe), patch};
+  return launch(encoder_entry_kernel, nullptr,
+                static_cast<const float*>(split),
+                static_cast<const float*>(vecs), static_cast<float*>(out),
+                n_rows, n_blocks, use_bn, static_cast<cudaStream_t>(stream),
+                ends);
 }
 
-extern "C" int encoder_exit_f32(const void* x, const void* weights,
+// x (N, C); split as the entry's; w_sep (C, D), b_sep (D,); codebook
+// (K, D), 16-byte aligned; resid (N, C), the residual stream between the
+// group's resblocks; ids (N,) int32
+extern "C" int encoder_exit_f32(const void* x, const void* split,
                                 const void* vecs, const void* w_sep,
                                 const void* b_sep, const void* codebook,
-                                void* ids, int n_rows, int c, int n_blocks,
-                                int use_bn, int d_emb, int k_codes,
-                                void* stream) {
-  if (c != 512 || d_emb < 8 || d_emb > 64 || THREADS % d_emb || k_codes < 1 ||
-      k_codes * (d_emb + 2) > Tile<512>::A_FLOATS)
+                                void* resid, void* ids, int n_rows, int c,
+                                int n_blocks, int use_bn, int d_emb,
+                                int k_codes, void* stream) {
+  if (c != C || (d_emb != 8 && d_emb != 16 && d_emb != 32 && d_emb != 64) ||
+      k_codes < 1 || exit_floats(d_emb, k_codes) > A_FLOATS)
     return cudaErrorInvalidValue;
-  return launch_rows<512>(
-      encoder_exit_kernel<512>, n_rows, static_cast<cudaStream_t>(stream),
-      static_cast<const float*>(x), static_cast<const float*>(weights),
-      static_cast<const float*>(vecs), static_cast<const float*>(w_sep),
-      static_cast<const float*>(b_sep), static_cast<const float*>(codebook),
-      static_cast<int*>(ids), n_rows, n_blocks, use_bn, d_emb, k_codes);
+  if (!aligned(codebook, 16)) return cudaErrorMisalignedAddress;
+  const Exit ends{static_cast<const float*>(w_sep),
+                  static_cast<const float*>(b_sep),
+                  static_cast<const float*>(codebook), static_cast<int*>(ids),
+                  d_emb, k_codes};
+  return launch(encoder_exit_kernel, static_cast<const float*>(x),
+                static_cast<const float*>(split),
+                static_cast<const float*>(vecs), static_cast<float*>(resid),
+                n_rows, n_blocks, use_bn, static_cast<cudaStream_t>(stream),
+                ends);
 }

@@ -1,9 +1,12 @@
 // The eval-mode VQ-VAE encoder resblock on Hopper's tensor cores: the
-// tile of encoder_chain_f32 (#1, encoder_chain.cu) and resblock_f32 (#3,
-// encoder_resblock.cu). They replace
+// tile of encoder_chain_f32 (#1, encoder_chain.cu), resblock_f32 (#3,
+// encoder_resblock.cu) and the encoder's two ends, encoder_entry_f32
+// and encoder_exit_f32 (#4, #5, encoder_edges.cu, which add a prologue
+// or an epilogue to each tile: `Ends` below). They replace
 // vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py::
-// fused_encoder_eval (pallas_call at :311) and fused_resblock_eval
-// (:106). Per resblock and row, in f32:
+// fused_encoder_eval (pallas_call at :311), fused_resblock_eval (:106),
+// fused_encoder_entry_eval (:404) and fused_encoder_exit_eval (:436).
+// Per resblock and row, in f32:
 //   h = gelu(x) @ W1 + b1 [-> eval BN] -> gelu -> @ W2 + b2 [-> eval BN]
 //   x = x + h
 // with exact-erf GELU (erff) and BN in the reference's rounding order
@@ -77,7 +80,14 @@
 //    cutting its outputs across blocks needs the other blocks' columns
 //    before each product (a cluster exchanging the A tile through
 //    distributed shared memory): left to later work;
-//  - rows past N are zeros in A and are neither read nor written.
+//  - rows past N are zeros in A and are neither read nor written;
+//  - the ends (#4, #5) ride the same tiles: the entry's prologue writes
+//    the patch-embed rows to the output buffer in place of load_a's
+//    input (block 0 then reads its residual there too), and the exit's
+//    last epilogue leaves x in the A tile for an epilogue of its own,
+//    which then holds z, the codebook and its norms while the producer
+//    fills the ring with the next tile's stages. Neither adds, skips or
+//    reorders a stage.
 #pragma once
 
 #include "int8_gemm_sm90.cuh"  // gemm90:: mbarrier, TMA and tensor-map helpers
@@ -295,10 +305,13 @@ __device__ __forceinline__ float4 gelu4(float4 v) {
                      gelu_erf(v.w));
 }
 
-// A = gelu(x) for the tile's rows, zeros past n_rows
+// A = gelu(x) for the tile's rows, zeros past n_rows. x may be the
+// output buffer, which the entry's prologue has just written (each
+// thread reads back its own stores): no __restrict__, no non-coherent
+// loads.
 __device__ __forceinline__ void load_a(float* __restrict__ a_s,
-                                       const float* __restrict__ x, int row0,
-                                       int n_rows, int ct) {
+                                       const float* x, int row0, int n_rows,
+                                       int ct) {
   const int col = 4 * (ct % 128);
 #pragma unroll 4
   for (int row = ct / 128; row < BM; row += 2) {
@@ -376,12 +389,14 @@ __device__ __forceinline__ void epilogue_gelu(float* __restrict__ a_s,
 
 // epilogue 2 on the stashed c2: x = src + (c2 + b2 [-> BN2]) into out
 // for the rows below n_rows and, where another resblock follows,
-// A = gelu(x). src is read a batch of rows ahead of the stores to out
-// (which it may be).
+// A = gelu(x); with `stage` (the exit's last resblock) A = x instead,
+// zeros past n_rows, and nothing goes to out. src is read a batch of
+// rows ahead of the stores to out (which it may be).
 template <bool BN>
 __device__ __forceinline__ void epilogue_residual(
     float* __restrict__ a_s, const float* src, float* out,
-    const float* __restrict__ v, int ct, int row0, int n_rows, bool more) {
+    const float* __restrict__ v, int ct, int row0, int n_rows, bool more,
+    bool stage) {
   constexpr int BATCH = 8;
   const int col = 4 * (ct % 128);
   const Cols k = cols_of<BN>(v + 5 * C, col);
@@ -402,31 +417,59 @@ __device__ __forceinline__ void epilogue_residual(
       if (row0 + row < n_rows) {
         xn = make_float4(xo[q].x + y.x, xo[q].y + y.y, xo[q].z + y.z,
                          xo[q].w + y.w);
-        *reinterpret_cast<float4*>(out + (size_t)(row0 + row) * C + col) = xn;
+        if (!stage)
+          *reinterpret_cast<float4*>(out + (size_t)(row0 + row) * C + col) =
+              xn;
       }
-      if (more) *p = gelu4(xn);
+      if (more)
+        *p = gelu4(xn);
+      else if (stage)
+        *p = xn;
     }
   }
 }
+
+// The block's dynamic shared memory: the ring from the first 1024-byte
+// boundary (TMA and the descriptors want 128- and 16-byte alignment;
+// 1024 is kept from the swizzled layouts), then the A tile. A function
+// that takes the A tile from here, not as a pointer argument, reads it
+// with shared-memory loads even where it is not inlined.
+__device__ __forceinline__ uint8_t* ring_base() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  return smem_raw + (((raw + 1023u) & ~1023u) - raw);
+}
+
+__device__ __forceinline__ float* a_tile() {
+  return reinterpret_cast<float*>(ring_base() + STAGES * STAGE);
+}
+
+// What a tile does before and after its resblocks. With ENTRY, `embed`
+// writes the tile's input rows (patch-embed) to out and ends on a
+// barrier of the consumers, and the kernel's x is not read; with EXIT
+// the last resblock leaves x in the A tile (epilogue_residual's
+// `stage`), `search` reads it there and may use the whole A tile
+// (a_tile()). Both are called by the 256 consumer threads (ct 0 .. 255)
+// with the tile's first row. NoEnds is #1's and #3's: neither.
+struct NoEnds {
+  static constexpr bool ENTRY = false, EXIT = false;
+  __device__ __forceinline__ void embed(float*, int, int, int) const {}
+  __device__ __forceinline__ void search(int, int, int) const {}
+};
 
 // The kernel's body: n_blocks resblocks on x (N, C) into out (N, C).
 // tm_w: the split weights (the ring's stages in order) as rows of 32
 // f32, box BOX_ROWS rows, no swizzle; vecs (10 n_blocks, C) as
 // pack_encoder stacks them. x and out must not overlap.
-template <bool BN>
+template <bool BN, typename Ends>
 __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
                                                 const float* __restrict__ x,
                                                 const float* __restrict__ vecs,
                                                 float* out, int n_rows,
-                                                int n_blocks) {
-  extern __shared__ uint8_t smem_raw[];
+                                                int n_blocks, Ends ends) {
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
-  // TMA and the descriptors want 128- and 16-byte alignment; 1024 is
-  // kept from the swizzled layouts
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  float* const a_s = reinterpret_cast<float*>(smem_raw + (base - raw) +
-                                              STAGES * STAGE);
+  const uint32_t base = smem_u32(ring_base());
+  float* const a_s = a_tile();
   const int n_tiles = (n_rows + BM - 1) / BM;
   const int wg = threadIdx.x / 128;
 
@@ -473,7 +516,8 @@ __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
     Ring ring{base, smem_u32(&full[0]), smem_u32(&empty[0]), 0, 0};
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row0 = tile * BM;
-      load_a(a_s, x, row0, n_rows, ct);
+      if (Ends::ENTRY) ends.embed(out, row0, n_rows, ct);
+      load_a(a_s, Ends::ENTRY ? out : x, row0, n_rows, ct);
       named_sync(1, CONSUMERS);
       for (int blk = 0; blk < n_blocks; ++blk) {
         const float* v = vecs + (size_t)10 * blk * C;
@@ -488,24 +532,31 @@ __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
         named_sync(1, CONSUMERS);
         stash(acc, a_s, ln);
         named_sync(1, CONSUMERS);
-        epilogue_residual<BN>(a_s, blk == 0 ? x : out, out, v, ct, row0,
-                              n_rows, blk + 1 < n_blocks);
+        epilogue_residual<BN>(a_s, blk == 0 && !Ends::ENTRY ? x : out, out,
+                              v, ct, row0, n_rows, blk + 1 < n_blocks,
+                              Ends::EXIT && blk + 1 == n_blocks);
         named_sync(1, CONSUMERS);
+      }
+      if (Ends::EXIT) {
+        ends.search(row0, n_rows, ct);
+        named_sync(1, CONSUMERS);  // the next tile's load_a writes A
       }
     }
   }
 }
 
 // The kernels' body: with eval BN where use_bn (the same for the launch)
+template <typename Ends = NoEnds>
 __device__ __forceinline__ void encoder_tc(const CUtensorMap* tm_w,
                                            const float* __restrict__ x,
                                            const float* __restrict__ vecs,
                                            float* out, int n_rows,
-                                           int n_blocks, int use_bn) {
+                                           int n_blocks, int use_bn,
+                                           Ends ends = Ends{}) {
   if (use_bn)
-    encoder_tc_body<true>(tm_w, x, vecs, out, n_rows, n_blocks);
+    encoder_tc_body<true>(tm_w, x, vecs, out, n_rows, n_blocks, ends);
   else
-    encoder_tc_body<false>(tm_w, x, vecs, out, n_rows, n_blocks);
+    encoder_tc_body<false>(tm_w, x, vecs, out, n_rows, n_blocks, ends);
 }
 
 // -- host side ----------------------------------------------------------------
@@ -529,12 +580,13 @@ inline cudaError_t make_w_map(CUtensorMap* map, const float* split,
 }
 
 // Launch `kernel` (a __global__ wrapper of encoder_tc with this
-// signature) on n_rows rows: one block per SM, or one per tile where
-// there are fewer tiles. x, split and out 16-byte aligned, vecs 8.
-template <typename Kernel>
+// signature, then `ends...`) on n_rows rows: one block per SM, or one
+// per tile where there are fewer tiles. x (null for the entry), split
+// and out 16-byte aligned, vecs 8.
+template <typename Kernel, typename... Ends>
 cudaError_t launch(Kernel kernel, const float* x, const float* split,
                    const float* vecs, float* out, int n_rows, int n_blocks,
-                   int use_bn, cudaStream_t stream) {
+                   int use_bn, cudaStream_t stream, Ends... ends) {
   if (n_rows < 1 || n_blocks < 1) return cudaErrorInvalidValue;
   if (!gemm90::aligned(x, 16) || !gemm90::aligned(split, 16) ||
       !gemm90::aligned(out, 16) || !gemm90::aligned(vecs, 8))
@@ -552,7 +604,7 @@ cudaError_t launch(Kernel kernel, const float* x, const float* split,
   if (e != cudaSuccess) return e;
   const int tiles = (n_rows + BM - 1) / BM;
   kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM, stream>>>(
-      tm_w, x, vecs, out, n_rows, n_blocks, use_bn);
+      tm_w, x, vecs, out, n_rows, n_blocks, use_bn, ends...);
   return cudaGetLastError();
 }
 

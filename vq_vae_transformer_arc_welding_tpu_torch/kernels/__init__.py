@@ -45,12 +45,13 @@ _SIGNATURES = {
     "encoder_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, split weights of w1 and w2, vec, out, n_rows, c, use_bn, stream
     "resblock_f32": [_P] * 4 + [_I] * 3 + [_P],
-    # patches, w_pe, b_pe, weights, vecs, out, n_rows, patch, c, n_blocks,
-    # use_bn, stream
+    # patches, w_pe, b_pe, split weights, vecs, out, n_rows, patch, c,
+    # n_blocks, use_bn, stream
     "encoder_entry_f32": [_P] * 6 + [_I] * 5 + [_P],
-    # x, weights, vecs, w_sep, b_sep, codebook, ids, n_rows, c, n_blocks,
-    # use_bn, d_emb, k_codes, stream
-    "encoder_exit_f32": [_P] * 7 + [_I] * 6 + [_P],
+    # x, split weights, vecs, w_sep, b_sep, codebook, resid (the (N, C)
+    # residual stream between the group's resblocks), ids, n_rows, c,
+    # n_blocks, use_bn, d_emb, k_codes, stream
+    "encoder_exit_f32": [_P] * 8 + [_I] * 6 + [_P],
     # z, codebook, ids, n_rows, d_emb, k_codes, stream
     "nearest_codes_f32": [_P] * 3 + [_I] * 3 + [_P],
     # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, head_scales, qkv8,

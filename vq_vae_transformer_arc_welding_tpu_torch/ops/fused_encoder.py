@@ -15,8 +15,9 @@ Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py:
 - `fused_encoder_entry_eval` (:404), #4 -> `fused_encoder_entry_eval`,
   `encoder_entry_f32` in csrc/encoder_edges.cu;
 - `fused_encoder_exit_eval` (:436), #5 -> `fused_encoder_exit_eval`,
-  `encoder_exit_f32` in csrc/encoder_edges.cu (#4 and #5 on the FP32
-  CUDA cores, csrc/encoder_chain.cuh);
+  `encoder_exit_f32` in csrc/encoder_edges.cu (#4 and #5 are #1's tile
+  with the patch-embed before, or sep_conv and the nearest code after,
+  each tile's resblocks);
 
 and `_pack_encoder` as `pack_encoder`, `encoder_resblocks_fused`,
 `encode_indices_fused`, `encode_indices_fused_mono` and
@@ -31,12 +32,13 @@ The weights are packed once (`pack_encoder` and, for the edges,
 `pack_encoder_edges`, at pipeline construction) and passed to the
 `encode_indices_*` functions, not repacked per request as the JAX
 functions repack them under jit; the per-resblock path takes views of
-the same pack. An f32 pack carries the split-TF32 operand of #1 and #3
+the same pack. An f32 pack carries the split-TF32 operand of the f32 kernels
 (`split_weights`, in `EncoderPack.split`), made with it; the paths hand
 its views to the wrappers, which split a bare f32 pack per call. A bf16
 pack (`pack_encoder(model, torch.bfloat16)`) is made once too; the
 functions cast an f32 pack they are handed with a compute dtype, per
-call, as the JAX kernel recasts under jit.
+call, as the JAX kernel recasts under jit. The split serves #4 and #5
+too.
 
 GELU: the kernels use the exact erf (`erff`), like the plain versions
 and the JAX package's XLA encoder. The Pallas kernels' Abramowitz &
@@ -62,7 +64,15 @@ _CHAIN, _RESBLOCK = "encoder_chain_f32", "resblock_f32"
 _CHAIN_BF16 = "encoder_chain_bf16"
 _ENTRY, _EXIT = "encoder_entry_f32", "encoder_exit_f32"
 _KERNEL_WIDTH = 512
-_TILE_FLOATS = 32 * _KERNEL_WIDTH   # the kernels' A tile, reused by the exit
+_TILE_ROWS = 64                        # rows of the f32 kernels' tile
+_TILE_FLOATS = _TILE_ROWS * _KERNEL_WIDTH   # its A tile, reused by the ends
+
+
+def _exit_floats(k: int, d: int) -> int:
+    """Floats of the A tile that #5's epilogue takes for a (k, d)
+    codebook: z (64 x d), the codebook in rows of d + 4 and its k
+    squared norms (csrc/encoder_edges.cu::exit_floats)."""
+    return _TILE_ROWS * d + k * (d + 5)
 
 
 def _center_tap(kernel: torch.Tensor) -> torch.Tensor:
@@ -78,7 +88,7 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_weights(weights: torch.Tensor) -> torch.Tensor:
-    """The split-TF32 operand of #1 and #3: (2n, C, C) f32 weights in
+    """The split-TF32 operand of the f32 kernels (#1, #3, #4, #5): (2n, C, C) f32 weights in
     (in, out) layout -> (2n, 2 C C), per matrix hi = tf32(w) and
     lo = tf32(w - hi) (hi + lo is w to 2^-21 of its magnitude), in
     (out, in) layout, the K-major one in which TF32 wgmma reads its
@@ -96,7 +106,7 @@ def split_weights(weights: torch.Tensor) -> torch.Tensor:
 
 class EncoderPack(tuple):
     """What `pack_encoder` returns: the pair (weights, vecs), and in
-    `split` the split-TF32 operand of #1 and #3 (`split_weights(
+    `split` the split-TF32 operand of the f32 kernels (`split_weights(
     weights)`) for an f32 pack, None for a bf16 one."""
 
     def __new__(cls, weights: torch.Tensor, vecs: torch.Tensor,
@@ -248,6 +258,14 @@ def _split_operand(name: str, weights: torch.Tensor,
     return split
 
 
+def _aligned(name: str, **tensors) -> None:
+    """Raise unless each tensor starts on 16 bytes, as the f32 kernels'
+    float4 and TMA reads need."""
+    for what, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} must be 16-byte aligned")
+
+
 def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
                        vecs: torch.Tensor, *, use_bn: bool,
                        compute_dtype=None,
@@ -280,8 +298,7 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
     kernels.require(x, "x", torch.float32, (n, c), x.device)
     operand = (weights if compute_dtype is not None
                else _split_operand(name, weights, split))
-    if operand.data_ptr() % 16:
-        raise ValueError(f"{name}: weights must be 16-byte aligned")
+    _aligned(name, weights=operand)
     out = torch.empty_like(x)
     if n == 0:
         return out
@@ -338,11 +355,14 @@ def fused_resblock_eval(x, w1, b1, bn1, w2, b2, bn2, *,
 
 
 def fused_encoder_entry_eval(patches, w_pe, b_pe, weights, vecs, *,
-                             use_bn: bool = True) -> torch.Tensor:
+                             use_bn: bool = True,
+                             split: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """patch-embed + the first resblock group in one kernel. patches
     (N, patch) f32 from ops/patching.patchify; w_pe (patch, C); b_pe
     (C,). Returns (N, C) f32; the patch-embed output stays in the
-    kernel."""
+    kernel. split: `split_weights(weights)`, as for
+    `fused_encoder_eval` (made here, per call, when not given)."""
     if not _on_card(_ENTRY, patches):
         return fused_encoder_entry_eval_reference(patches, w_pe, b_pe,
                                                   weights, vecs,
@@ -357,13 +377,15 @@ def fused_encoder_entry_eval(patches, w_pe, b_pe, weights, vecs, *,
     kernels.require(patches, "patches", torch.float32, (n, pz), dev)
     kernels.require(w_pe, "w_pe", torch.float32, (pz, c), dev)
     kernels.require(b_pe, "b_pe", torch.float32, (c,), dev)
+    operand = _split_operand(_ENTRY, weights, split)
+    _aligned(_ENTRY, w_pe=w_pe, b_pe=b_pe, weights=operand)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     lib = kernels.library()
     kernels.launches[_ENTRY] += 1
     err = lib.encoder_entry_f32(patches.data_ptr(), w_pe.data_ptr(),
-                                b_pe.data_ptr(), weights.data_ptr(),
+                                b_pe.data_ptr(), operand.data_ptr(),
                                 vecs.data_ptr(), out.data_ptr(), n, pz, c, nb,
                                 int(use_bn), kernels.stream_ptr(dev))
     kernels.check(err, _ENTRY)
@@ -371,10 +393,15 @@ def fused_encoder_entry_eval(patches, w_pe, b_pe, weights, vecs, *,
 
 
 def fused_encoder_exit_eval(x, weights, vecs, w_sep, b_sep, codebook, *,
-                            use_bn: bool = True) -> torch.Tensor:
+                            use_bn: bool = True,
+                            split: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """The last resblock group + sep_conv + the nearest code in one
     kernel. x (N, C) f32; w_sep (C, D); b_sep (D,); codebook (K, D).
-    Returns (N,) int32 ids; z and the distances stay in the kernel."""
+    Returns (N,) int32 ids; z and the distances stay in the kernel (the
+    residual stream between the group's resblocks goes through an
+    (N, C) buffer made here, as #1's output). split: as for
+    `fused_encoder_entry_eval`."""
     if not _on_card(_EXIT, x):
         return fused_encoder_exit_eval_reference(x, weights, vecs, w_sep,
                                                  b_sep, codebook,
@@ -383,26 +410,28 @@ def fused_encoder_exit_eval(x, weights, vecs, w_sep, b_sep, codebook, *,
     k, d = codebook.shape
     dev = x.device
     nb = _require_chain(_EXIT, c, weights, vecs, dev)
-    if d not in (8, 16, 32, 64) or not 1 <= k * (d + 2) <= _TILE_FLOATS:
+    if d not in (8, 16, 32, 64) or k < 1 or \
+            _exit_floats(k, d) > _TILE_FLOATS:
         raise ValueError(f"{_EXIT}: a ({k}, {d}) codebook is not supported: "
-                         f"D of 8, 16, 32 or 64 and K * (D + 2) up to "
-                         f"{_TILE_FLOATS}")
+                         f"D of 8, 16, 32 or 64 and {_TILE_ROWS} D + "
+                         f"K (D + 5) up to {_TILE_FLOATS}")
     kernels.require(x, "x", torch.float32, (n, c), dev)
     kernels.require(w_sep, "w_sep", torch.float32, (c, d), dev)
     kernels.require(b_sep, "b_sep", torch.float32, (d,), dev)
     kernels.require(codebook, "codebook", torch.float32, (k, d), dev)
-    if codebook.data_ptr() % 16:
-        raise ValueError(f"{_EXIT}: codebook must be 16-byte aligned")
+    operand = _split_operand(_EXIT, weights, split)
+    _aligned(_EXIT, x=x, codebook=codebook, weights=operand)
     ids = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return ids
+    resid = torch.empty_like(x)
     lib = kernels.library()
     kernels.launches[_EXIT] += 1
-    err = lib.encoder_exit_f32(x.data_ptr(), weights.data_ptr(),
+    err = lib.encoder_exit_f32(x.data_ptr(), operand.data_ptr(),
                                vecs.data_ptr(), w_sep.data_ptr(),
                                b_sep.data_ptr(), codebook.data_ptr(),
-                               ids.data_ptr(), n, c, nb, int(use_bn), d, k,
-                               kernels.stream_ptr(dev))
+                               resid.data_ptr(), ids.data_ptr(), n, c, nb,
+                               int(use_bn), d, k, kernels.stream_ptr(dev))
     kernels.check(err, _EXIT)
     return ids
 
@@ -532,8 +561,10 @@ def encode_indices_fused_edges(model, packed, edges, x: torch.Tensor, *,
     last = (nb - 1) // group_size * group_size     # the last group's start
     flat = fused_encoder_entry_eval(
         patches.reshape(b * n_p, model.patch_size), w_pe, b_pe,
-        weights[:2 * group_size], vecs[:10 * group_size], use_bn=use_bn)
+        weights[:2 * group_size], vecs[:10 * group_size], use_bn=use_bn,
+        **_split_of(packed, 0, group_size))
     flat = _chain_groups(flat, packed, group_size, last, group_size, use_bn)
     ids = fused_encoder_exit_eval(flat, weights[2 * last:], vecs[10 * last:],
-                                  w_sep, b_sep, model.codebook, use_bn=use_bn)
+                                  w_sep, b_sep, model.codebook, use_bn=use_bn,
+                                  **_split_of(packed, last, nb))
     return ids.reshape(b, n_p)
