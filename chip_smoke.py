@@ -185,7 +185,7 @@ MAX_DECODE_ERR = 1e-4       # #12, #13: residual stream against plain
 MAX_ROW_ERR = 2e-5          # #12, #13: the written K/V row; #9: its output
 # the bf16 encoder chain: a last-bit difference in a gelu output can move
 # one product input by 2^-8 of its value, ~2e-4 of the output's scale
-MAX_BF16_BLOCK_ERR = 1e-3   # one resblock, of the output's largest magnitude
+MAX_BF16_BLOCK_ERR = 1e-3   # a resblock or the chain, of its largest |output|
 MAX_BF16_ID_FLIP = 5e-3     # ids against the plain bf16 path
 MAX_BF16_FLIP_GAP = 1e-2    # such a flip's float64 distance gap, of |z|^2
 MAX_BF16_F32_FLIP = 0.10    # ids against the f32 encoder (the JAX test's bar)
@@ -487,17 +487,27 @@ def device_profile(fn, leave_out: str | None = None):
 # #3, and #4 and #5 with their ends' two device functions) and the
 # decode kernels (#12, #13), and the functions ptxas reports on
 PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu", "encoder_chain.cu",
-                 "encoder_resblock.cu", "encoder_edges.cu", "decode.cu")
+                 "encoder_resblock.cu", "encoder_edges.cu", "decode.cu",
+                 "encoder_chain_bf16.cu", "nearest_codes.cu")
 PTXAS_KERNELS = ("attention_kernel", "int8_gemm_sm90_kernel",
                  "encoder_chain_kernel", "resblock_kernel",
                  "encoder_entry_kernel", "encoder_exit_kernel", "embed_rows",
                  "nearest_rows", QUANT_PASS, INT8_ATTENTION, "decode_kernel",
-                 LN_Q8)
+                 LN_Q8, "encoder_chain_bf16_kernel", "nearest_codes_kernel")
+# the sources whose kernels must use no stack either (1b and #7)
+NO_STACK = ("encoder_chain_bf16.cu", "nearest_codes.cu")
+# kernels whose setmaxnreg requests assume ptxas gave them 65536 / 384
+# registers a thread (fewer would leave the requests unmet: a hang)
+SETMAXNREG_REGS = {"encoder_chain_bf16_kernel": 168}
 # what each source's PTX must hold: Hopper's tensor-core product (in
-# TF32, with A split by cvt.rna, for the encoder), TMA copies, the int8
-# attention's s8 products, and the decode kernels' split-TF32 mma.sync
-# fed by 1-D bulk copies and their grid barrier's arrival
+# TF32, with A split by cvt.rna, for the f32 encoder; bf16 for 1b), TMA
+# copies, the int8 attention's s8 products, and the decode kernels'
+# split-TF32 mma.sync fed by 1-D bulk copies and their grid barrier's
+# arrival
 PTX_OPS = {
+    "encoder_chain_bf16.cu": (
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+        "cp.async.bulk.tensor"),
     "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor",
                       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"),
     "encoder_chain.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
@@ -568,6 +578,17 @@ def ptxas_report(procs: list) -> None:
             spills = [int(n) for line in lines
                       for n in re.findall(r"(\d+) bytes spill", line)]
             check(not any(spills), f"ptxas {src} {kernel} spills")
+            if kernel in SETMAXNREG_REGS:
+                regs = [int(n) for line in lines
+                        for n in re.findall(r"Used (\d+) registers", line)]
+                check(bool(regs) and all(
+                    n == SETMAXNREG_REGS[kernel] for n in regs),
+                    f"ptxas {src} {kernel}: {regs} registers, not "
+                    f"{SETMAXNREG_REGS[kernel]}: setmaxnreg would hang")
+            if src in NO_STACK:
+                stack = [int(n) for line in lines for n in re.findall(
+                    r"(\d+) bytes (?:stack frame|cumulative stack)", line)]
+                check(not any(stack), f"ptxas {src} {kernel} uses a stack")
 
 
 def fmt_ms(t: tuple) -> str:
@@ -1435,8 +1456,9 @@ def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
             x, worst_rel, worst_abs = flat, 0.0, 0.0
             for i in range(nb):     # each resblock fed the plain stream
                 wi, vi = wb[2 * i:2 * i + 2], v[10 * i:10 * i + 10]
-                yk = fenc.fused_encoder_eval(x, wi, vi, use_bn=use_bn,
-                                             compute_dtype=bf)
+                yk = fenc.fused_encoder_eval(
+                    x, wi, vi, use_bn=use_bn, compute_dtype=bf,
+                    split=packed_bf.split[2 * i:2 * i + 2])
                 yp = fenc.fused_encoder_eval_reference(
                     x, wi, vi, use_bn=use_bn, compute_dtype=bf)
                 e, scale = float((yk - yp).abs().max()), float(yp.abs().max())
@@ -1449,10 +1471,13 @@ def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
                 x = yp
             err[ENC_BF16] = max(err[ENC_BF16], worst_abs)
             y8 = fenc.fused_encoder_eval(flat, wb, v, use_bn=use_bn,
-                                         compute_dtype=bf)
-            check(bool(torch.isfinite(y8).all()),
-                  f"kernel {ENC_BF16} x{nb}: non-finite")
-            e8 = float((y8 - x).abs().max())
+                                         compute_dtype=bf,
+                                         split=packed_bf.split)
+            e8, scale8 = float((y8 - x).abs().max()), float(x.abs().max())
+            check(bool(torch.isfinite(y8).all())
+                  and e8 <= MAX_BF16_BLOCK_ERR * scale8,
+                  f"kernel {ENC_BF16} x{nb}: differs from the plain chain "
+                  f"by {e8} of {scale8}")
             f32_8 = fenc.fused_encoder_eval_reference(flat, weights, v,
                                                       use_bn=use_bn)
             note = ""
@@ -1467,7 +1492,8 @@ def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
                 f"resblock on the plain stream max abs err {worst_abs:.3e}, "
                 f"{worst_rel:.3e} of the output's scale (bound "
                 f"{MAX_BF16_BLOCK_ERR}); all {nb} in one launch against the "
-                f"plain chain {e8:.3e} of {float(x.abs().max()):.3e}{note}; "
+                f"plain chain {e8:.3e} of {scale8:.3e}, {e8 / scale8:.3e} of "
+                f"it (bound {MAX_BF16_BLOCK_ERR}){note}; "
                 f"the plain bf16 chain against the plain f32 chain "
                 f"{float((x - f32_8).abs().max()):.3e}")
 
@@ -1485,12 +1511,14 @@ def bf16_encoder_phase(vq, tr, qp, xreqs, full_fn, smi: str) -> dict:
 
         tm = timed_in_turns({
             "kernel": lambda: fenc.fused_encoder_eval(
-                flat, wb, vecs, use_bn=False, compute_dtype=bf),
+                flat, wb, vecs, use_bn=False, compute_dtype=bf,
+                split=packed_bf.split),
             "plain": lambda: fenc.fused_encoder_eval_reference(
                 flat, wb, vecs, use_bn=False, compute_dtype=bf),
             "f32": f32_groups,
             "one": lambda: fenc.fused_encoder_eval(
-                flat, wb[:2], vecs[:10], use_bn=False, compute_dtype=bf)})
+                flat, wb[:2], vecs[:10], use_bn=False, compute_dtype=bf,
+                split=packed_bf.split[:2])})
         times[ENC_BF16] = tm
         ops = n_rows * nb * 2 * (2 * c * c)
         log(f"kernel {ENC_BF16} time ({n_rows} x {c}, {nb} resblocks in one "
@@ -2598,11 +2626,18 @@ def main() -> int:
                     vq.num_embeddings, n80, tr.seq_len, tr.n_head,
                     SAMPLE_BATCH, TIMED_POSITIONS[0], fp32_products=n)
         for n in (0, 1, 2))
+    # 1b (all the resblocks in one launch, its pack's staged weights) and
+    # #7 on the bench model's z and codebook in the same trace
+    packed_bf = fenc.pack_encoder(vq, torch.bfloat16)
     with torch.inference_mode():
         traced = kernel_trace({
             ENC: lambda: fenc.fused_encoder_eval(
                 flat, weights[:2 * grp], vecs[:10 * grp], use_bn=False,
                 split=split[:2 * grp]),
+            ENC_BF16: lambda: fenc.fused_encoder_eval(
+                flat, packed_bf[0], vecs, use_bn=False,
+                compute_dtype=torch.bfloat16, split=packed_bf.split),
+            NEAREST: lambda: fvq.nearest_codes_pallas(z, cb),
             RES: lambda: fenc.resblock_eval(
                 flat, weights[0], weights[1], vecs[:10], use_bn=False,
                 split=split[:2]),
@@ -2615,13 +2650,21 @@ def main() -> int:
         if ms is not None:
             device_ms[name] = ms
         beside = ""
-        if ms is not None and name in (ENTRY, EXIT) and traced[ENC][0]:
+        if ms is not None and name == NEAREST:
+            bound, by = bound_of(work[name])
+            beside = (f"; bound {bound:.4f} ms by {by} ({bound / ms:.1%} of "
+                      f"the time taken)")
+        if ms is not None and name in (ENTRY, EXIT, ENC_BF16) and \
+                traced[ENC][0]:
             bound, by = bound_of(work[name])
             beside = (f"; {ms / traced[ENC][0]:.3f}x {ENC}'s, bound "
                       f"{bound:.4f} ms by {by} ({bound / ms:.1%} of the time "
                       f"taken)")
-        log(f"device trace of {name} ({n_rows} x {c_}, "
-            f"{1 if name == RES else grp} resblocks a launch), 10 calls: "
+        what = (f"{n_rows} rows, D={z.shape[1]}, K={len(cb)}"
+                if name == NEAREST else
+                f"{n_rows} x {c_}, "
+                f"{ {RES: 1, ENC_BF16: nb}.get(name, grp)} resblocks a launch")
+        log(f"device trace of {name} ({what}), 10 calls: "
             + ("not measured" if ms is None else
                f"{ms:.4f} ms and {n_ops:.1f} device operations a call: "
                + "; ".join(f"{key[:50]} x {n:.1f}, {each:.4f} ms each"

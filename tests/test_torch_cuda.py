@@ -89,9 +89,17 @@ def test_encoder_kernel_matches_plain(dev, use_bn):
 
 
 @pytest.mark.parametrize("use_bn", [False, True])
-@pytest.mark.parametrize("n,n_blocks", [(1000, 1), (77, 2), (25601, 1)])
+@pytest.mark.parametrize("n,n_blocks", [
+    (1000, 1), (77, 2), (25601, 1), (1, 1), (63, 2), (64, 1), (65, 2),
+    ("a round + 1", 2), (25601, 8)])
 def test_bf16_encoder_kernel_matches_plain(dev, n, n_blocks, use_bn):
+    """Rows around a tile and a whole round of 64-row tiles on the card's
+    SMs; the whole chain and each resblock within 1e-3 of the plain
+    version's largest magnitude; the staged pack, the bf16 weights staged
+    in the wrapper and f32 weights cast there give the same bits."""
     c = 512
+    if n == "a round + 1":
+        n = 64 * torch.cuda.get_device_properties(0).multi_processor_count + 1
     w, v = (a.to(dev) for a in _encoder_operands(c, n_blocks, use_bn))
     x = torch.randn(n, c, generator=torch.Generator().manual_seed(1)).to(dev)
     before = dict(kernels.launches)
@@ -106,7 +114,22 @@ def test_bf16_encoder_kernel_matches_plain(dev, n, n_blocks, use_bn):
     assert kernels.launches["encoder_chain_f32"] == before["encoder_chain_f32"]
     assert out.shape == x.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 1e-3 * ref.abs().max()
-    # f32 weights are cast inside the wrapper: the same launch, bit-equal
+    if n_blocks > 1:    # and per resblock, each fed the plain stream
+        xi = x
+        for i in range(n_blocks):
+            wi, vi = wb[2 * i:2 * i + 2], v[10 * i:10 * i + 10]
+            yk = fenc.fused_encoder_eval(xi, wi, vi, use_bn=use_bn,
+                                         compute_dtype=torch.bfloat16)
+            yp = fenc.fused_encoder_eval_reference(
+                xi, wi, vi, use_bn=use_bn, compute_dtype=torch.bfloat16)
+            assert (yk - yp).abs().max() <= 1e-3 * yp.abs().max()
+            xi = yp
+    # the pack's staged operand, and f32 weights cast (and staged) inside
+    # the wrapper: the same launch, bit-equal
+    packed = fenc.fused_encoder_eval(x, wb, v, use_bn=use_bn,
+                                     compute_dtype=torch.bfloat16,
+                                     split=fenc.stage_weights_bf16(wb))
+    assert torch.equal(packed, out)
     again = fenc.fused_encoder_eval(x, w, v, use_bn=use_bn,
                                     compute_dtype=torch.bfloat16)
     assert torch.equal(again, out)
@@ -340,21 +363,39 @@ def test_exit_kernel_matches_plain(dev, n, k, d, use_bn, tie):
 
 @pytest.mark.parametrize("n,d,k,tie", [
     (77, 16, 32, False), (512, 8, 16, True), (3000, 32, 256, False),
-    (25601, 32, 256, True), (100, 20, 50, False), (100, 64, 300, False)])
+    (25601, 32, 256, True), (100, 20, 50, False), (100, 64, 300, False),
+    (25600, 32, 256, "lanes"), (1000, 32, 50, "lanes"),
+    (1000, 32, 300, "lanes"), (1000, 20, 50, "lanes"),
+    (3000, 32, 256, "inf"), (300, 64, 300, "inf")])
 def test_nearest_codes_kernel_matches_plain(dev, n, d, k, tie):
+    """tie=True: codes 2 and 11 equal row 5's z. "lanes": codes 2, 3 (the
+    next lane) and 2 + K // 8 equal row 5's z, and codes 8 and 9 each
+    other. "inf": a codebook of positive entries and a row of -inf, whose
+    distances are all +inf: code 0."""
     g = torch.Generator().manual_seed(4)
     z = torch.randn(n, d, generator=g).to(dev)
     cb = torch.randn(k, d, generator=g).to(dev)
-    if tie:
+    if tie is True:
         cb[2] = z[5]
         cb[11] = cb[2]
+    elif tie == "lanes":
+        cb[2] = cb[3] = cb[2 + k // 8] = z[5]
+        cb[9] = cb[8]
+    elif tie == "inf":
+        cb = cb.abs() + 0.1
+        z[7] = -torch.inf
     ids = _launched("nearest_codes_f32",
                     lambda: fvq.nearest_codes_pallas(z, cb))
     ref = fvq.nearest_codes_pallas_reference(z, cb)
     assert ids.dtype == torch.int32 and ids.shape == (n,)
     assert (ids != ref).float().mean() <= 1e-3
-    if tie:
+    if tie is True:
         assert (ids == 2).any() and not (ids == 11).any()
+    elif tie == "lanes":
+        assert ids[5] == 2 and not ((ids == 3) | (ids == 2 + k // 8)).any()
+        assert not (ids == 9).any()
+    elif tie == "inf":
+        assert ids[7] == 0 and ref[7] == 0
 
 
 def test_new_encoder_wrappers_reject_bad_operands(dev):

@@ -7,87 +7,266 @@
 // TPU kernel). The (N, K) distances never reach device memory.
 //
 // What bounds it on an H100: at N = 25,600, K = 256, D = 32 it is 0.42
-// GFLOP over 3.4 MB, a few microseconds either way, so the launch and
-// the latency of one thread's dependent FMAs are what shows.
+// GFLOP of FP32 FMAs over 3.4 MB, 6.3 us at 67 TFLOP/s. Beside the FMAs,
+// the codebook's shared-memory reads: a 16-byte read of a warp costs the
+// SM's shared memory about four cycles whether or not its lanes read
+// the same address, so that one thread per row, reading four codebook
+// floats for four FMAs (the first version), spends four times the FMAs'
+// time on the reads.
 //
-// Design: one thread per row, its z row in registers; each block keeps
-// the codebook (rows zero-padded to DP floats, which adds exact zeros
-// to the sums) and the K squared norms in shared memory, where every
-// read is a broadcast. A thread scans codes 0..K-1 with d < best, so
-// the first index among equal minima wins. z.e is summed in index
-// order with FMAs, sum e^2 as rounded products added in index order.
+// Per code the arithmetic is fixed: z.e as FMAs in index order over D
+// padded with zeros to DP (8, 16, 32 or 64; exact zeros added),
+// sum e^2 as rounded products added in index order, d = esq + (-2 x
+// cross) with one rounding each. So every layout of the work gives the
+// same ids.
+//
+// Design: a lane holds rows_of(DP) rows of z in registers (4, or 2 at D = 64),
+// so that each codebook float it reads feeds that many FMAs; LANES = 4 lanes
+// share the rows, lane l scanning the codes l, l + 4, ... with d < best (the
+// first index among its equal minima), and a shuffle reduction over the 4 lanes
+// then keeps, per row, the smaller d and, on equal d, the smaller index: the
+// first index among the row's minima. A row whose distances are none finite
+// keeps code 0, as a scan from 0 with best = +inf does. The grid is persistent,
+// one block an SM: the rows are shared out evenly (at 25,600 rows 115 blocks of
+// 224 threads and 224 rows, each block's rows in one pass), and each block
+// loads the codebook once and computes its K norms, its first rows of z on
+// their way meanwhile (16-byte loads of both where D allows). The codebook sits
+// in shared memory in rows of DP + 4 floats where that fits, so that the 4
+// codes a warp reads at once lie on distinct banks; the rows of a warp read the
+// same codes (broadcasts).
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int NC_THREADS = 128;
+constexpr int LANES = 4;          // lanes sharing a group of rows
+constexpr int MAX_THREADS = 1024;
+constexpr int BLOCKS_PER_SM = 1;  // blocks an SM, each with its codebook
+constexpr size_t MAX_SMEM = 227 * 1024;
+static_assert(32 % LANES == 0, "a row group's lanes lie in one warp");
+
+// rows of z a lane holds: its registers hold 4 rows up to D = 32
+__host__ __device__ constexpr int rows_of(int dp) { return dp <= 32 ? 4 : 2; }
+
+// the codebook's row stride in shared memory: DP + 4 floats where the
+// padded rows fit, DP otherwise (the limit the kernel has always had)
+template <int DP>
+int stride_for(int k_codes) {
+  return (size_t)k_codes * (DP + 5) * sizeof(float) <= MAX_SMEM ? DP + 4
+                                                                 : DP;
+}
+
+// rows first .. first + R - 1 of z into registers, zeros past n_rows and
+// past d_emb; 16-byte loads where `vec` (d_emb a multiple of 4, z
+// aligned)
+template <int DP, int R>
+__device__ __forceinline__ void load_rows(float (&zr)[R][DP],
+                                          const float* __restrict__ z,
+                                          int first, int n_rows, int d_emb,
+                                          bool vec) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool live = first + r < n_rows;
+    const float* row = z + (size_t)(first + r) * d_emb;
+    if (vec) {
+#pragma unroll
+      for (int q = 0; q < DP / 4; ++q) {
+        const float4 v = live && 4 * q < d_emb
+                             ? *reinterpret_cast<const float4*>(row + 4 * q)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        zr[r][4 * q] = v.x;
+        zr[r][4 * q + 1] = v.y;
+        zr[r][4 * q + 2] = v.z;
+        zr[r][4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int dd = 0; dd < DP; ++dd)
+        zr[r][dd] = live && dd < d_emb ? row[dd] : 0.0f;
+    }
+  }
+}
 
 template <int DP>
-__global__ void __launch_bounds__(NC_THREADS)
-nearest_codes_kernel(const float* __restrict__ z,
+__global__ void nearest_codes_kernel(const float* __restrict__ z,
                      const float* __restrict__ codebook,
                      int* __restrict__ ids, int n_rows, int d_emb,
-                     int k_codes) {
+                     int k_codes, int stride) {
   extern __shared__ float4 smem4[];
-  float* cb_s = reinterpret_cast<float*>(smem4);   // K x DP
-  float* esq_s = cb_s + k_codes * DP;               // K
-  const int tid = threadIdx.x;
-  for (int i = tid; i < k_codes * DP; i += NC_THREADS) {
-    const int dd = i % DP;
-    cb_s[i] = dd < d_emb ? codebook[(size_t)(i / DP) * d_emb + dd] : 0.0f;
+  float* cb_s = reinterpret_cast<float*>(smem4);   // K x stride
+  float* esq_s = cb_s + k_codes * stride;           // K
+  const int tid = threadIdx.x, threads = blockDim.x;
+  constexpr int R = rows_of(DP);
+  const int lane = tid % LANES, rows = threads / LANES * R;
+  // the block's first rows of z are on their way while the codebook comes
+  const bool vec =
+      d_emb % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
+  float zr[R][DP];
+  load_rows(zr, z, blockIdx.x * rows + tid / LANES * R, n_rows, d_emb, vec);
+  if (d_emb % 4 == 0 && stride % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(codebook) % 16 == 0) {
+    // four loads in flight a thread before their stores
+    const int q4 = d_emb / 4;
+    const float4* cb4 = reinterpret_cast<const float4*>(codebook);
+    for (int i0 = tid; i0 < k_codes * q4; i0 += 4 * threads) {
+      float4 e[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * threads;
+        if (i < k_codes * q4) e[u] = cb4[i];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * threads;
+        if (i < k_codes * q4)
+          *reinterpret_cast<float4*>(cb_s + (i / q4) * stride + 4 * (i % q4)) =
+              e[u];
+      }
+    }
+    const int pad = stride - d_emb;
+    for (int i = tid; i < k_codes * pad; i += threads)
+      cb_s[(i / pad) * stride + d_emb + i % pad] = 0.0f;
+  } else {
+    for (int i = tid; i < k_codes * stride; i += threads) {
+      const int dd = i % stride;
+      cb_s[i] = dd < d_emb ? codebook[(size_t)(i / stride) * d_emb + dd]
+                           : 0.0f;
+    }
   }
   __syncthreads();
-  for (int k = tid; k < k_codes; k += NC_THREADS) {
+  for (int k = tid; k < k_codes; k += threads) {
     float s = 0.0f;
     for (int dd = 0; dd < d_emb; ++dd) {
-      const float e = cb_s[k * DP + dd];
+      const float e = cb_s[k * stride + dd];
       s = __fadd_rn(s, __fmul_rn(e, e));
     }
     esq_s[k] = s;
   }
   __syncthreads();
 
-  const int row = blockIdx.x * NC_THREADS + tid;
-  if (row >= n_rows) return;
-  float zr[DP];
+  for (int row0 = blockIdx.x * rows; row0 < n_rows;
+       row0 += gridDim.x * rows) {
+    const int first = row0 + tid / LANES * R;
+    if (row0 != (int)blockIdx.x * rows)
+      load_rows(zr, z, first, n_rows, d_emb, vec);
+    float best[R];
+    int best_k[R];
 #pragma unroll
-  for (int dd = 0; dd < DP; ++dd)
-    zr[dd] = dd < d_emb ? z[(size_t)row * d_emb + dd] : 0.0f;
-  float best = INFINITY;
-  int best_k = 0;
-#pragma unroll 4
-  for (int k = 0; k < k_codes; ++k) {
-    const float4* e4 = reinterpret_cast<const float4*>(cb_s + k * DP);
-    float cross = 0.0f;
-#pragma unroll
-    for (int q = 0; q < DP / 4; ++q) {
-      const float4 e = e4[q];
-      cross = fmaf(zr[4 * q + 0], e.x, cross);
-      cross = fmaf(zr[4 * q + 1], e.y, cross);
-      cross = fmaf(zr[4 * q + 2], e.z, cross);
-      cross = fmaf(zr[4 * q + 3], e.w, cross);
+    for (int r = 0; r < R; ++r) {
+      best[r] = INFINITY;
+      best_k[r] = 0;
     }
-    const float dist = __fadd_rn(esq_s[k], __fmul_rn(-2.0f, cross));
-    if (dist < best) {
-      best = dist;
-      best_k = k;
+#pragma unroll 2
+    for (int k = lane; k < k_codes; k += LANES) {
+      const float4* e4 = reinterpret_cast<const float4*>(cb_s + k * stride);
+      float cross[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) cross[r] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < DP / 4; ++q) {
+        const float4 e = e4[q];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          cross[r] = fmaf(zr[r][4 * q + 0], e.x, cross[r]);
+          cross[r] = fmaf(zr[r][4 * q + 1], e.y, cross[r]);
+          cross[r] = fmaf(zr[r][4 * q + 2], e.z, cross[r]);
+          cross[r] = fmaf(zr[r][4 * q + 3], e.w, cross[r]);
+        }
+      }
+      const float esq = esq_s[k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dist = __fadd_rn(esq, __fmul_rn(-2.0f, cross[r]));
+        if (dist < best[r]) {
+          best[r] = dist;
+          best_k[r] = k;
+        }
+      }
+    }
+    // a row group's lanes are LANES neighbours of one warp
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int o = 1; o < LANES; o <<= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, best[r], o);
+        const int ok = __shfl_xor_sync(0xffffffffu, best_k[r], o);
+        if (od < best[r] || (od == best[r] && ok < best_k[r])) {
+          best[r] = od;
+          best_k[r] = ok;
+        }
+      }
+      if (lane == r % LANES && first + r < n_rows) ids[first + r] = best_k[r];
     }
   }
-  ids[row] = best_k;
+}
+
+// per device and instantiation: the SM count and the threads a block may
+// have, asked once, and the dynamic shared memory the kernel may use,
+// raised as a call needs more (the host's share of a call stays small)
+template <int DP>
+cudaError_t device_limits(size_t smem, int* sms, int* max_threads) {
+  constexpr int MAX_DEVICES = 64;
+  static std::once_flag once[MAX_DEVICES];
+  static int sm_count[MAX_DEVICES], threads[MAX_DEVICES];
+  static int attr_smem[MAX_DEVICES];
+  static cudaError_t err[MAX_DEVICES];
+  static std::mutex mu;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    cudaFuncAttributes fa = {};
+    attr_smem[dev] = -1;
+    err[dev] = cudaDeviceGetAttribute(&sm_count[dev],
+                                      cudaDevAttrMultiProcessorCount, dev);
+    if (err[dev] == cudaSuccess)
+      err[dev] = cudaFuncGetAttributes(&fa, nearest_codes_kernel<DP>);
+    const int most = fa.maxThreadsPerBlock < MAX_THREADS
+                         ? fa.maxThreadsPerBlock
+                         : MAX_THREADS;
+    threads[dev] = most - most % 32;
+  });
+  if (err[dev] != cudaSuccess) return err[dev];
+  {
+    // only ever raised, so that a call never lowers what another needs
+    std::lock_guard<std::mutex> lock(mu);
+    if ((int)smem > attr_smem[dev]) {
+      e = cudaFuncSetAttribute(nearest_codes_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return e;
+      attr_smem[dev] = (int)smem;
+    }
+  }
+  *sms = sm_count[dev];
+  *max_threads = threads[dev];
+  return cudaSuccess;
 }
 
 template <int DP>
 cudaError_t launch(const float* z, const float* codebook, int* ids,
                    int n_rows, int d_emb, int k_codes, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)k_codes * (DP + 1);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      nearest_codes_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const int stride = stride_for<DP>(k_codes);
+  const size_t smem = sizeof(float) * (size_t)k_codes * (stride + 1);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  int sms, max_threads;
+  const cudaError_t e = device_limits<DP>(smem, &sms, &max_threads);
   if (e != cudaSuccess) return e;
-  nearest_codes_kernel<DP>
-      <<<(n_rows + NC_THREADS - 1) / NC_THREADS, NC_THREADS, smem, stream>>>(
-          z, codebook, ids, n_rows, d_emb, k_codes);
+  // the rows shared out evenly over one block an SM, a block's rows in
+  // one pass where it holds that many threads
+  constexpr int R = rows_of(DP);
+  const int blocks = sms * BLOCKS_PER_SM;
+  const int per_block = (n_rows + blocks - 1) / blocks;
+  int threads = ((per_block + R - 1) / R * LANES + 31) / 32 * 32;
+  if (threads > max_threads) threads = max_threads;
+  const int rows = threads / LANES * R;
+  const int grid = (n_rows + rows - 1) / rows < blocks
+                       ? (n_rows + rows - 1) / rows
+                       : blocks;
+  nearest_codes_kernel<DP><<<grid, threads, smem, stream>>>(
+      z, codebook, ids, n_rows, d_emb, k_codes, stride);
   return cudaGetLastError();
 }
 
@@ -100,7 +279,7 @@ extern "C" int nearest_codes_f32(const void* z, const void* codebook,
   const float* cb = static_cast<const float*>(codebook);
   int* out = static_cast<int*>(ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d_emb < 1 || k_codes < 1) return cudaErrorInvalidValue;
+  if (d_emb < 1 || k_codes < 1 || n_rows < 1) return cudaErrorInvalidValue;
   if (d_emb <= 8) return launch<8>(zf, cb, out, n_rows, d_emb, k_codes, s);
   if (d_emb <= 16) return launch<16>(zf, cb, out, n_rows, d_emb, k_codes, s);
   if (d_emb <= 32) return launch<32>(zf, cb, out, n_rows, d_emb, k_codes, s);

@@ -40,8 +40,9 @@ _SIGNATURES = {
     # x, split weights (ops/fused_encoder.split_weights), vecs, out,
     # n_rows, c, n_blocks, use_bn, stream
     "encoder_chain_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, bf16 weights, vecs, out, n_rows, c, n_blocks, use_bn, stream:
-    # both products on the bf16 tensor cores
+    # x, staged bf16 weights (ops/fused_encoder.stage_weights_bf16), vecs,
+    # out, n_rows, c, n_blocks, use_bn, stream: both products on the bf16
+    # tensor cores
     "encoder_chain_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, split weights of w1 and w2, vec, out, n_rows, c, use_bn, stream
     "resblock_f32": [_P] * 4 + [_I] * 3 + [_P],

@@ -35,10 +35,11 @@ functions repack them under jit; the per-resblock path takes views of
 the same pack. An f32 pack carries the split-TF32 operand of the f32 kernels
 (`split_weights`, in `EncoderPack.split`), made with it; the paths hand
 its views to the wrappers, which split a bare f32 pack per call. A bf16
-pack (`pack_encoder(model, torch.bfloat16)`) is made once too; the
-functions cast an f32 pack they are handed with a compute dtype, per
-call, as the JAX kernel recasts under jit. The split serves #4 and #5
-too.
+pack (`pack_encoder(model, torch.bfloat16)`) is made once too, and
+carries in the same place the bf16 chain's operand (`stage_weights_bf16`:
+the weights in the order of that kernel's TMA ring); the functions cast
+(and stage) an f32 pack they are handed with a compute dtype, per call,
+as the JAX kernel recasts under jit. The split serves #4 and #5 too.
 
 GELU: the kernels use the exact erf (`erff`), like the plain versions
 and the JAX package's XLA encoder. The Pallas kernels' Abramowitz &
@@ -104,10 +105,29 @@ def split_weights(weights: torch.Tensor) -> torch.Tensor:
             .permute(0, 4, 1, 2, 5, 3, 6).reshape(m, 2 * c * c))
 
 
+def stage_weights_bf16(weights: torch.Tensor) -> torch.Tensor:
+    """The operand of the bf16 chain kernel (1b): (2n, C, C) weights in
+    (in, out) layout, f32 or bf16 -> (2n, C C) bf16, rounded to bf16
+    (to nearest even), in (out, in) layout, the K-major one in which
+    bf16 wgmma reads its shared-memory operands, and in the order the
+    kernel's ring reads them: per matrix, the two 256-output halves (one
+    a consumer warpgroup), each as two passes of 128 outputs, each as
+    stages of 64 of K, each 128 rows (outputs) of 64 bf16 (128 bytes,
+    which TMA swizzles on the way in), i.e. [out // 256]
+    [out % 256 // 128][k // 64][out % 128][k % 64]. A stage (16 KB) is
+    contiguous."""
+    m, c, _ = weights.shape
+    wt = weights.to(torch.bfloat16).transpose(1, 2)   # (2n, out, in)
+    return (wt.reshape(m, 2, 2, c // 4, c // 64, 64)
+            .permute(0, 1, 2, 4, 3, 5).reshape(m, c * c).contiguous())
+
+
 class EncoderPack(tuple):
     """What `pack_encoder` returns: the pair (weights, vecs), and in
-    `split` the split-TF32 operand of the f32 kernels (`split_weights(
-    weights)`) for an f32 pack, None for a bf16 one."""
+    `split` the kernel's operand made from the weights: the split-TF32
+    weights of the f32 kernels (`split_weights(weights)`) for an f32
+    pack, the staged bf16 weights of the bf16 chain
+    (`stage_weights_bf16(weights)`) for a bf16 one."""
 
     def __new__(cls, weights: torch.Tensor, vecs: torch.Tensor,
                 split: torch.Tensor | None = None):
@@ -124,7 +144,9 @@ def pack_encoder(model, compute_dtype: torch.dtype | None = None
     the model has no BatchNorm. An f32 pack also carries the weights'
     split (`split_weights`), made here once. compute_dtype
     (torch.bfloat16): the weights rounded to it, for the functions'
-    `compute_dtype` variant, and no split; the vector rows stay f32."""
+    `compute_dtype` variant, and in `split` the same weights staged for
+    the bf16 chain kernel (`stage_weights_bf16`); the vector rows stay
+    f32."""
     ws, vs = [], []
     c = model.hidden_dim
     zero = torch.zeros(c, device=model.codebook.device)
@@ -140,7 +162,8 @@ def pack_encoder(model, compute_dtype: torch.dtype | None = None
     weights = torch.stack(ws).contiguous()
     vecs = torch.stack(vs).contiguous()
     if compute_dtype is not None:
-        return EncoderPack(weights.to(_compute_dtype(compute_dtype)), vecs)
+        wb = weights.to(_compute_dtype(compute_dtype))
+        return EncoderPack(wb, vecs, stage_weights_bf16(wb))
     return EncoderPack(weights, vecs, split_weights(weights))
 
 
@@ -258,6 +281,18 @@ def _split_operand(name: str, weights: torch.Tensor,
     return split
 
 
+def _staged_operand(weights: torch.Tensor,
+                    staged: torch.Tensor | None) -> torch.Tensor:
+    """The staged bf16 weights the bf16 chain reads: `staged` checked
+    against the (2n, C, C) weights, or made from them (per call)."""
+    if staged is None:
+        return stage_weights_bf16(weights)
+    m, c, _ = weights.shape
+    kernels.require(staged, f"{_CHAIN_BF16} split", torch.bfloat16,
+                    (m, c * c), weights.device)
+    return staged
+
+
 def _aligned(name: str, **tensors) -> None:
     """Raise unless each tensor starts on 16 bytes, as the f32 kernels'
     float4 and TMA reads need."""
@@ -280,10 +315,12 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
     pass a bf16 pack (`pack_encoder(model, torch.bfloat16)`) to cast
     once.
 
-    split: `split_weights(weights)`, the f32 kernel's operand (the view
-    of `pack_encoder(model).split` that matches `weights`). Without it
-    the wrapper splits the weights here, per call, which a bare f32 pack
-    (tests, chip_smoke.py) pays for; the CPU path does not read it."""
+    split: the kernel's operand made from `weights` (the view of
+    `pack_encoder(model[, torch.bfloat16]).split` that matches them):
+    `split_weights(weights)` for the f32 kernel, `stage_weights_bf16(
+    weights)` for the bf16 one. Without it the wrapper makes it here,
+    per call, which a bare pack (tests, chip_smoke.py) pays for; the CPU
+    path does not read it."""
     if compute_dtype is None:
         name, dtype = _CHAIN, torch.float32
     else:
@@ -296,9 +333,10 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
     n, c = x.shape
     nb = _require_chain(name, c, weights, vecs, x.device, dtype)
     kernels.require(x, "x", torch.float32, (n, c), x.device)
-    operand = (weights if compute_dtype is not None
+    operand = (_staged_operand(weights, split) if compute_dtype is not None
                else _split_operand(name, weights, split))
-    _aligned(name, weights=operand)
+    _aligned(name, weights=operand, **(
+        {"x": x, "vecs": vecs} if compute_dtype is not None else {}))
     out = torch.empty_like(x)
     if n == 0:
         return out
