@@ -136,6 +136,28 @@ windows), its file is checked and must not depend on `--chunk`. The
 latent data module encodes whole splits on the card for two tasks:
 tokens as `encode_tokens` gives them, `pipeline_depth=2` bit-equal to 1.
 
+Then training (`training_phase`), at the CLIs' default widths on
+synthetic data made from the seed: the VQ-VAE (hidden 512, 8 resblocks,
+K=256, D=32, dropout 0.1, BN off, vq_impl='pallas', batch 1,024,
+make_radam(1e-3, clip_norm=0.7)) over an `ASIMoWDataModule`, then the
+transformer (d512, 8 heads, 6 blocks, T=321, attention_impl='pallas',
+att_dropout 0, res_dropout 0.1, batch 16, `make_transformer_optimizer`)
+over `LatentPredDataModule`s encoded by the trained VQ-VAE, the gen
+task, then the class task on the same optimizer. For each model: one
+step with the dropouts off on the kernel path and on the plain path
+from the same weights and batch (#7 launched once a step, #9 six times
+a forward; loss within 1e-5 and global gradient norm within 1e-4
+relative; the VQ's ids equal), and #9 at T=320 with gradients against
+plain; a whole training step timed in turns with the plain path and
+traced by torch.profiler
+(busy ms, idle share, the kernels that take most of it); `Trainer.fit`
+with the launch counts set to 0 before each fit (every train and eval
+forward launches its kernel, nothing else launches), every loss finite
+and the last epoch's train loss below the first's, and a run resumed
+from its last checkpoint bit-equal to the uninterrupted one (under
+torch's deterministic algorithms); the class stage leaves lm_head's
+RAdam step count where the gen stage left it.
+
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
 its power limit as nvidia-smi reports them, and the one before that
@@ -146,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -204,6 +227,26 @@ MLP, QKV, CAUSAL = ("mlp_quant", "qkv_attention_quant",
                     "causal_attention_quant")
 FLASH, DEC_ATTN, DEC_BLOCK = ("flash_attention_f32", "decode_attn_f32",
                               "block_decode_f32")
+# training_phase: the CLIs' default widths (the JAX package's
+# cli/train_reconstruction_embedding.py:27-36 and
+# cli/train_transformer_mtasks.py:32-36)
+TRAIN_VQ = dict(hidden_dim=512, input_dim=2, num_embeddings=256,
+                embedding_dim=32, n_resblocks=8, learning_rate=1e-3,
+                dropout_p=0.1, patch_size=25, seq_len=200, batch_norm=False)
+TRAIN_VQ_BATCH = 1024
+TRAIN_VQ_CLIP = 0.7
+TRAIN_VQ_EPOCHS = 6         # 4,096 train cycles: 4 steps an epoch, 24 in all
+TRAIN_VQ_CSV = dict(n_cycles_per_run=256, extra_train_runs=16)
+TRAIN_TR = dict(d_model=512, n_head=8, n_blocks=6, res_dropout=0.1,
+                att_dropout=0.0)
+TRAIN_TR_BATCH = 16
+TRAIN_GEN_EPOCHS = 2        # 300 train windows of 20 cycles: 19 steps an epoch
+TRAIN_CLASS_EPOCHS = 1
+TRAIN_TR_CSV = dict(n_cycles_per_run=40, extra_train_runs=8)
+MAX_TRAIN_LOSS_REL = 1e-5   # one step, kernel path against plain: the loss
+MAX_TRAIN_GNORM_REL = 1e-4  # and the global gradient norm
+# torch's defaults, which the training phase runs under
+TORCH_DEFAULT_TF32 = dict(matmul=False, cudnn=True)
 # the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
 # its four shapes in a block of width C: (N / C, K / C, int8 GELU+q8
 # output, f32 residual read)
@@ -1868,6 +1911,438 @@ def drift_phase(pipe, vq, tr, am: dict, req) -> None:
                                   "plain path's")
 
 
+def grads_of(model) -> dict:
+    """{name: gradient} of the parameters that have one."""
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def global_norm(grads: dict) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(torch.stack(
+        [g.double().norm() for g in grads.values()])))
+
+
+def one_step_against_plain(name: str, model, task, batch, kernel: str,
+                           per_step: int, smi: str) -> dict:
+    """One training forward and backward of `task` on `batch` with the
+    dropouts off, through the kernel path at the TF32 flags the caller
+    set and through the plain path with both flags off (f32
+    everywhere), from the same weights (no optimizer step, no BN state
+    written).
+    Checks the kernel's launches, the loss (MAX_TRAIN_LOSS_REL) and the
+    global gradient norm (MAX_TRAIN_GNORM_REL) against plain; prints the
+    largest per-tensor gradient difference. Returns the ids the VQ's
+    search gave on each path (empty for the transformer)."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import fused_vq as fvq
+    ids = {}
+
+    def step(path):
+        def recording(find):
+            def run(z, cb):
+                out = find(z, cb)
+                ids[path] = out
+                return out
+            return run
+
+        with mock.patch.object(fvq, "nearest_codes_pallas",
+                               recording(fvq.nearest_codes_pallas)):
+            model.zero_grad(set_to_none=True)
+            loss, _, _ = task.loss_and_metrics(batch, train=True,
+                                               generator=None)
+            loss.backward()
+        return float(loss.detach()), grads_of(model)
+
+    (loss_k, g_k), counts = counted(lambda: step("kernel"))
+    check(counts == {kernel: per_step},
+          f"{name}: one training step launched {json.dumps(counts)}, "
+          f"expected {kernel} x {per_step}")
+    with plain_path(), tf32_flags(matmul=False, cudnn=False):
+        (loss_p, g_p), counts = counted(lambda: step("plain"))
+    check(counts == {}, f"{name}: the plain step launched {counts}")
+    model.zero_grad(set_to_none=True)
+    check(set(g_k) == set(g_p), f"{name}: the two paths' gradients are "
+                                f"not of the same parameters")
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    n_k, n_p = global_norm(g_k), global_norm(g_p)
+    rel_norm = abs(n_k - n_p) / n_p
+    worst = max(((float((g_k[n] - g_p[n]).abs().max()), n) for n in g_k))
+    log(f"{name} training step, dropout off, kernel path (TF32 flags: "
+        f"matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        f"{torch.backends.cudnn.allow_tf32}) against plain (both off): "
+        f"{kernel} x {per_step}; loss {loss_k:.9g} / {loss_p:.9g} "
+        f"(relative {rel_loss:.3e}, bound {MAX_TRAIN_LOSS_REL}); global "
+        f"gradient norm {n_k:.9g} / {n_p:.9g} (relative {rel_norm:.3e}, "
+        f"bound {MAX_TRAIN_GNORM_REL}); largest gradient difference "
+        f"{worst[0]:.3e} in {worst[1]} (of {len(g_k)} tensors); gpu {smi}")
+    check(math.isfinite(loss_k) and rel_loss <= MAX_TRAIN_LOSS_REL,
+          f"{name}: loss {loss_k} against plain {loss_p}")
+    check(math.isfinite(n_k) and rel_norm <= MAX_TRAIN_GNORM_REL,
+          f"{name}: gradient norm {n_k} against plain {n_p}")
+    return ids
+
+
+def timed_train_steps(name: str, model, task, batch, opt, units: int,
+                      unit: str, smi: str) -> dict:
+    """ms of a whole training step (zero_grad, forward, backward, BN
+    state, clipped RAdam step) on the kernel path and the plain path in
+    turns, CUDA events, median and quartiles of 10 after warm-up, with
+    the step's `units` a second. Then torch.profiler's device trace of one kernel-path
+    step: device-busy ms, the idle share of the step's median, and the
+    kernels that take most of it."""
+    import torch
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(SEED)
+
+    def step():
+        opt.zero_grad()
+        loss, _, new = task.loss_and_metrics(batch, train=True, generator=gen)
+        loss.backward()
+        if new:
+            model.commit_state(new)
+        opt.step()
+
+    fns = {"kernel": step, "plain": on_plain_path(step)}
+    t = timed_in_turns(fns, warmup=2)
+    log(f"{name} train step (batch {len(batch[0])}): "
+        + "; ".join(f"{label} {fmt_ms(t[label])}, "
+                    f"{units / t[label][0] * 1e3:.1f} {unit}/s"
+                    for label in fns)
+        + f"; medians and quartiles of 10 after warm-up, in turns; gpu {smi}")
+    n_ops, busy, top = device_profile(step)
+    if busy is None:
+        log(f"{name} train step device trace: not measured (no device "
+            f"events in the trace)")
+    else:
+        log(f"{name} train step device trace: {n_ops} operations, "
+            f"{busy:.3f} ms busy, idle {1 - busy / t['kernel'][0]:.1%} of "
+            f"the step's median; most time: " + "; ".join(
+                f"{key[:60]} x {n}, {ms:.3f} ms ({ms / busy:.1%})"
+                for key, n, ms in top[:8]) + f"; gpu {smi}")
+    t["device_busy_ms"] = busy
+    return t
+
+
+def fit_checked(name: str, trainer, task, dm, tx, kernel: str,
+                per_forward: int, opt=None, resume_from=None):
+    """Trainer.fit with the launch counts set to 0 just before it and
+    read just after; every forward (train and eval) launches `kernel`
+    `per_forward` times and nothing else does. Returns (FitResult,
+    launches)."""
+    res, counts = counted(lambda: trainer.fit(task, dm, tx, opt=opt,
+                                              resume_from=resume_from))
+    epochs = len(res.history)
+    n_train, bs = len(dm.train.x), dm.batch_size
+    drop = getattr(dm, "drop_last", False)
+    n_batches = n_train // bs if drop else -(-n_train // bs)
+    micro = max(1, -(-n_batches // trainer.accum)) * trainer.accum
+    n_val = len(dm.val.x)
+    evals = n_val // bs + (0 if drop or n_val % bs == 0 else 1)
+    want = per_forward * epochs * (micro + evals)
+    check(counts == {kernel: want},
+          f"{name}: Trainer.fit launched {json.dumps(counts)}, expected "
+          f"{kernel} x {want} ({per_forward} a forward, {epochs} epochs of "
+          f"{micro} train and {evals} val batches)")
+    losses = [h["train_epoch/loss"] for h in res.history]
+    check(all(math.isfinite(v) for h in res.history for k, v in h.items()
+              if k.endswith("loss")), f"{name}: a loss is not finite: "
+                                      f"{res.history}")
+    return res, counts[kernel], losses
+
+
+def same_weights(a, b) -> bool:
+    """a's state_dict bit-equal to b's; the keys that differ are logged."""
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    if diff:
+        log(f"{len(diff)} of {len(sa)} tensors differ, e.g. {diff[:3]}, by "
+            f"up to {max(float((sa[k].double() - sb[k].double()).abs().max()) for k in diff):.3e}")
+    return sa.keys() == sb.keys() and not diff
+
+
+@contextlib.contextmanager
+def tf32_flags(matmul: bool, cudnn: bool):
+    """torch.backends' two TF32 flags (matmuls, cuDNN) set for the block
+    and restored after it; usable as a decorator."""
+    import torch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (sorted scatters for the backward
+    of gathers), so that a resumed run
+    can replay the uninterrupted one bit for bit. An op without a
+    deterministic version warns instead of raising; the bit-equality
+    check then shows whether it mattered. Memory is not filled at
+    allocation."""
+    import torch
+    import torch.utils.deterministic as tud
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic,
+            tud.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    tud.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic = prev[2]
+        tud.fill_uninitialized_memory = prev[3]
+
+
+@tf32_flags(**TORCH_DEFAULT_TF32)
+def training_phase(smi: str, device: str = "cuda") -> dict:
+    """Training at the CLIs' default widths (see the module docstring),
+    under torch's default TF32 flags, as a user's Trainer runs (the
+    serving phases before it turn both off for the process):
+    the VQ-VAE with vq_impl='pallas' (#7 in every forward) and the
+    transformer with attention_impl='pallas' (#9 in every block's
+    forward), each held one step against the plain path, timed a step,
+    and trained by Trainer.fit, with a resume from its last checkpoint
+    against the uninterrupted run. Returns {kernel: (path, launches in
+    fit, launches a training forward)} and the step times."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.data import (
+        ASIMoWDataModule, LatentPredDataModule, get_val_test_ids, synthetic)
+    from vq_vae_transformer_arc_welding_tpu_torch.models import (
+        TransformerDecoder, VQVAEPatch)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_attn as fflash)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.loop import Trainer
+    from vq_vae_transformer_arc_welding_tpu_torch.train.optim import (
+        make_radam, make_transformer_optimizer)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        ReconstructionTask, TransformerClassTask, TransformerGenTask)
+
+    dev = torch.device(device)
+    ids = get_val_test_ids()
+    out = {"launches": {}, "times": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the VQ-VAE -------------------------------------------------
+        vq_dir = os.path.join(tmp, "vq")
+        synthetic.write_synthetic_csv(
+            os.path.join(vq_dir, "processed_asimow_dataset.csv"),
+            **TRAIN_VQ_CSV)
+        dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
+                              val_data_ids=ids["val_ids"],
+                              test_data_ids=ids["test_ids"],
+                              batch_size=TRAIN_VQ_BATCH,
+                              data_directory_path=vq_dir)
+        dm.setup()
+
+        def new_vq():
+            return VQVAEPatch(**TRAIN_VQ, vq_impl="pallas",
+                              generator=torch.Generator().manual_seed(SEED),
+                              device=dev)
+
+        vq = new_vq().requires_grad_(True)
+        task = ReconstructionTask(vq)
+        batch = (torch.from_numpy(dm.train.x[:TRAIN_VQ_BATCH]).to(dev),)
+        log(f"training: VQ-VAE hidden {vq.hidden_dim}, {vq.n_resblocks} "
+            f"resblocks, K={vq.num_embeddings}, D={vq.embedding_dim}, "
+            f"dropout {vq.dropout_p}, BN off, vq_impl='pallas', batch "
+            f"{TRAIN_VQ_BATCH}; synthetic ASIMoW split: train "
+            f"{dm.train.x.shape}, val {dm.val.x.shape}")
+        vq.dropout_p = 0.0
+        ids_of = one_step_against_plain("VQ-VAE", vq, task, batch,
+                                        NEAREST, 1, smi)
+        vq.dropout_p = TRAIN_VQ["dropout_p"]
+        flips = int((ids_of["kernel"] != ids_of["plain"]).sum())
+        log(f"VQ-VAE training step: {NEAREST} ids equal the plain "
+            f"path's on {ids_of['kernel'].numel() - flips} of "
+            f"{ids_of['kernel'].numel()} rows, "
+            f"{torch.unique(ids_of['kernel']).numel()} distinct codes")
+        check(flips == 0, f"VQ-VAE training step: {flips} ids differ "
+                          f"from the plain path's")
+        tx = make_radam(TRAIN_VQ["learning_rate"], clip_norm=TRAIN_VQ_CLIP)
+        out["times"]["VQ-VAE"] = timed_train_steps(
+            "VQ-VAE", vq, task, batch, tx.init(vq), TRAIN_VQ_BATCH,
+            "windows", smi)
+
+        runs = {}
+        for key, epochs, ck, resume in (
+                ("straight", TRAIN_VQ_EPOCHS, "a", None),
+                ("first", TRAIN_VQ_EPOCHS - 1, "b", None),
+                ("resumed", TRAIN_VQ_EPOCHS, None, "b")):
+            model = new_vq()
+            trainer = Trainer(
+                max_epochs=epochs, seed=SEED, verbose=False,
+                monitor="val/loss", save_last=ck is not None,
+                checkpoint_dir=os.path.join(tmp, ck) if ck else None)
+            with deterministic():
+                runs[key] = (model,) + fit_checked(
+                    f"VQ-VAE fit ({key})", trainer,
+                    ReconstructionTask(model), dm, tx, NEAREST, 1,
+                    resume_from=(os.path.join(tmp, resume, "last.ckpt")
+                                 if resume else None))
+        model, res, n7, losses = runs["straight"]
+        rate = [h["train_epoch/windows_per_s"] for h in res.history]
+        log(f"VQ-VAE Trainer.fit: {len(losses)} epochs of "
+            f"{len(dm.train.x) // TRAIN_VQ_BATCH} steps, train loss by "
+            f"epoch {[round(v, 6) for v in losses]}, val/loss "
+            f"{[round(h['val/loss'], 6) for h in res.history]}; "
+            f"{NEAREST} x {n7}; windows/s by epoch (host clock, the "
+            f"first epoch warms up) {[round(r, 1) for r in rate]}; "
+            f"gpu {smi}")
+        check(losses[-1] < losses[0], f"VQ-VAE: train loss did not fall "
+                                      f"({losses})")
+        check(same_weights(runs["resumed"][0], model),
+              "VQ-VAE: the run resumed from last.ckpt is not the "
+              "uninterrupted run bit for bit")
+        log(f"VQ-VAE resume: {TRAIN_VQ_EPOCHS - 1} epochs, save_last, "
+            f"resume_from for epoch {TRAIN_VQ_EPOCHS - 1}: parameters "
+            f"and statistics bit-equal to the {TRAIN_VQ_EPOCHS}-epoch "
+            f"run")
+        out["launches"][NEAREST] = (
+            f"VQ-VAE Trainer.fit, {TRAIN_VQ_EPOCHS} epochs", n7, 1)
+        trained_vq = model.eval()
+        del runs
+
+        # -- the transformer on the trained VQ-VAE's latents --------------
+        tr_dir = os.path.join(tmp, "tr")
+        synthetic.write_synthetic_csv(
+            os.path.join(tr_dir, "processed_asimow_dataset.csv"),
+            **TRAIN_TR_CSV)
+        dms = {}
+        for task_name in ("autoregressive_ids",
+                          "autoregressive_ids_classification"):
+            dms[task_name] = LatentPredDataModule(
+                trained_vq, task_name, N_CYCLES, ids["val_ids"],
+                ids["test_ids"], batch_size=TRAIN_TR_BATCH,
+                data_directory_path=tr_dir)
+            dms[task_name].setup()
+        gen_dm = dms["autoregressive_ids"]
+        class_dm = dms["autoregressive_ids_classification"]
+        seq_len = N_CYCLES * (400 // TRAIN_VQ["patch_size"]) + 1
+        n_classes = TRAIN_VQ["num_embeddings"] + 2
+
+        def new_tr():
+            return TransformerDecoder(
+                **TRAIN_TR, n_classes=n_classes, seq_len=seq_len,
+                attention_impl="pallas",
+                generator=torch.Generator().manual_seed(SEED + 1),
+                device=dev)
+
+        tr = new_tr().requires_grad_(True)
+        nb = tr.n_blocks
+        gen_task = TransformerGenTask(tr)
+        x, c, y = (torch.as_tensor(a[:TRAIN_TR_BATCH], device=dev)
+                   for a in (gen_dm.train.x, gen_dm.train.cond,
+                             gen_dm.train.y))
+        t_in = x.shape[1]
+        log(f"training: transformer d{tr.d_model}, {nb} blocks, "
+            f"{tr.n_head} heads, {n_classes} classes, T={t_in} "
+            f"(start token and {t_in - 1} ids), att_dropout "
+            f"{TRAIN_TR['att_dropout']}, res_dropout "
+            f"{TRAIN_TR['res_dropout']}, attention_impl='pallas', batch "
+            f"{TRAIN_TR_BATCH}; latent splits of the trained VQ-VAE: gen "
+            f"train {gen_dm.train.x.shape}, class train "
+            f"{class_dm.train.x.shape}")
+        tr.res_dropout = 0.0
+        one_step_against_plain("transformer gen", tr, gen_task,
+                               (x, c, y), FLASH, nb, smi)
+        one_step_against_plain("transformer class",
+                               tr, TransformerClassTask(tr), (x, c, y),
+                               FLASH, nb, smi)
+        tr.res_dropout = TRAIN_TR["res_dropout"]
+        # #9 at 320 tokens, forward and the backward's recompute
+        q, k, v = (torch.randn(TRAIN_TR_BATCH, tr.n_head, t_in - 1,
+                               tr.d_model // tr.n_head, device=dev,
+                               requires_grad=True) for _ in range(3))
+        (o, gq), counts = counted(lambda: (
+            lambda o: (o, torch.autograd.grad(o.sum(), [q, k, v])))(
+                fflash.flash_causal_attention(q, k, v)))
+        ref = fflash.flash_causal_attention_reference(q, k, v)
+        g_ref = torch.autograd.grad(ref.sum(), [q, k, v])
+        e = float((o - ref).detach().abs().max())
+        eg = max(float((a - b).abs().max()) for a, b in zip(gq, g_ref))
+        check(counts == {FLASH: 1} and e <= MAX_ROW_ERR,
+              f"{FLASH} at T={t_in - 1}: launches {counts}, within {e}")
+        log(f"kernel {FLASH} with gradients at ({TRAIN_TR_BATCH}, "
+            f"{tr.n_head}, {t_in - 1}, {tr.d_model // tr.n_head}): "
+            f"output within {e:.3e} of plain (bound {MAX_ROW_ERR}), "
+            f"gradients (the plain core's recompute) within {eg:.3e}")
+        out["times"]["transformer"] = timed_train_steps(
+            "transformer gen", tr, gen_task, (x, c, y),
+            make_transformer_optimizer(tr).init(tr),
+            TRAIN_TR_BATCH * t_in, "tokens", smi)
+
+        runs = {}
+        for key, epochs, ck, resume in (
+                ("straight", TRAIN_GEN_EPOCHS, "ga", None),
+                ("first", TRAIN_GEN_EPOCHS - 1, "gb", None),
+                ("resumed", TRAIN_GEN_EPOCHS, None, "gb")):
+            model = new_tr()
+            tx_tr = make_transformer_optimizer(model)
+            opt = tx_tr.init(model)
+            trainer = Trainer(
+                max_epochs=epochs, seed=SEED, verbose=False,
+                save_last=ck is not None,
+                checkpoint_dir=os.path.join(tmp, ck) if ck else None)
+            with deterministic():
+                runs[key] = (model, opt, tx_tr) + fit_checked(
+                    f"transformer gen fit ({key})", trainer,
+                    TransformerGenTask(model), gen_dm, tx_tr, FLASH, nb,
+                    opt=opt, resume_from=(os.path.join(tmp, resume,
+                                                       "last.ckpt")
+                                          if resume else None))
+        model, opt, tx_tr, res, n9, losses = runs["straight"]
+        log(f"transformer gen Trainer.fit: {len(losses)} epochs of "
+            f"{-(-len(gen_dm.train.x) // TRAIN_TR_BATCH)} steps, train "
+            f"loss by epoch {[round(v, 6) for v in losses]}, val/loss "
+            f"{[round(h['val/loss'], 6) for h in res.history]}; "
+            f"{FLASH} x {n9}; gpu {smi}")
+        check(losses[-1] < losses[0], f"transformer gen: train loss did "
+                                      f"not fall ({losses})")
+        check(same_weights(runs["resumed"][0], model),
+              "transformer gen: the run resumed from last.ckpt is not "
+              "the uninterrupted run bit for bit")
+        log(f"transformer gen resume: {TRAIN_GEN_EPOCHS - 1} epoch, "
+            f"save_last, resume_from for epoch {TRAIN_GEN_EPOCHS - 1}: "
+            f"parameters bit-equal to the {TRAIN_GEN_EPOCHS}-epoch run")
+        before = opt.step_counts()
+        trainer = Trainer(max_epochs=TRAIN_CLASS_EPOCHS, seed=SEED + 1,
+                          verbose=False, monitor="val/cl/f1_score",
+                          mode="max")
+        res_c, n9c, losses_c = fit_checked(
+            "transformer class fit", trainer, TransformerClassTask(model),
+            class_dm, tx_tr, FLASH, nb, opt=opt)
+        after = opt.step_counts()
+        moved = after["class_head.linear_1.weight"]
+        check(after["lm_head.weight"] == before["lm_head.weight"] > 0
+              and moved > 0 and before["class_head.linear_1.weight"] == 0,
+              f"transformer class: RAdam step counts lm_head "
+              f"{before['lm_head.weight']} -> {after['lm_head.weight']}, "
+              f"class head {before['class_head.linear_1.weight']} -> "
+              f"{moved}")
+        last = res_c.history[-1]
+        log(f"transformer class Trainer.fit (weighted sampling, the "
+            f"gen stage's optimizer): train loss {losses_c}, val/cl/loss "
+            f"{last['val/cl/loss']:.6f}, val/cl/f1_score "
+            f"{last['val/cl/f1_score']:.4f}; {FLASH} x {n9c}; RAdam "
+            f"steps of lm_head {before['lm_head.weight']} before and "
+            f"after, of the class head 0 -> {moved}; gpu {smi}")
+        out["launches"][FLASH] = (
+            f"transformer Trainer.fit, gen {TRAIN_GEN_EPOCHS} epochs "
+            f"then class {TRAIN_CLASS_EPOCHS}", n9 + n9c, nb)
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2736,6 +3211,8 @@ def main() -> int:
                f"{ms:.4f} ms and {n_ops:.1f} device operations a call; "
                + "; ".join(parts))
             + f"; gpu {smi}")
+    # -- 12. training at the CLIs' widths: #7 and #9 with gradients ---------
+    training = training_phase(smi)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],
@@ -2750,7 +3227,13 @@ def main() -> int:
          "library_ms": sampling["library_ms"].get(name),
          **({"device_ms": device_ms[name]} if name in device_ms else {}),
          **({"library_device_ms": device_ms["scaled_dot_product_attention"]}
-            if name == FLASH else {})}
+            if name == FLASH else {}),
+         # the training phase's own run: its fits' launches, and a
+         # training forward's
+         **({"training_path": training["launches"][name][0],
+             "training_launches": training["launches"][name][1],
+             "training_launches_per_forward": training["launches"][name][2]}
+            if name in training["launches"] else {})}
         for name, (src, replaces) in RECORD.items()]}
     for entry in record["kernels"]:
         name = entry["name"]

@@ -436,6 +436,11 @@ def test_port_imports_without_jax():
             "vq_vae_transformer_arc_welding_tpu_torch.native.csv_loader, "
             "vq_vae_transformer_arc_welding_tpu_torch.train.checkpoint, "
             "vq_vae_transformer_arc_welding_tpu_torch.train.torch_import, "
+            "vq_vae_transformer_arc_welding_tpu_torch.train.loop, "
+            "vq_vae_transformer_arc_welding_tpu_torch.train.optim, "
+            "vq_vae_transformer_arc_welding_tpu_torch.train.tasks, "
+            "vq_vae_transformer_arc_welding_tpu_torch.train.metrics, "
+            "vq_vae_transformer_arc_welding_tpu_torch.utils.random, "
             "vq_vae_transformer_arc_welding_tpu_torch.cli.shared, "
             "vq_vae_transformer_arc_welding_tpu_torch.cli.score_quality\n"
             "assert not any(m in ('jax', 'flax', 'msgpack', 'orbax') or "

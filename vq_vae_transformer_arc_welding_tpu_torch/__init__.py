@@ -1,5 +1,5 @@
-"""PyTorch / CUDA port of the arc-welding serving and deployment path
-for NVIDIA Hopper.
+"""PyTorch / CUDA port of the arc-welding serving, deployment and
+training paths for NVIDIA Hopper.
 
 Counterpart of the JAX package `vq_vae_transformer_arc_welding_tpu/`,
 which stays the reference every module here is tested against. This
@@ -13,16 +13,24 @@ What is ported: the f32 and calibrated-int8 serving path
 (`models/quantized.py`), every encoder path (`ops/fused_encoder.py`,
 `ops/fused_vq.py`), token sampling (`generate`, `generate_kv`,
 `quantized_generate_kv`; `ops/fused_decode.py`, `ops/fused_attn.py`),
-and the deployment path: checkpoints (`train/checkpoint.py`, `Model.save`
+the deployment path: checkpoints (`train/checkpoint.py`, `Model.save`
 / `Model.load`), reference Lightning files (`train/torch_import.py`),
 artifacts and `from_checkpoints` (`serve.py`), bf16 serving, the bf16
 encoder, the numpy data modules and the native CSV parser (`data/`,
 `native/`), the latent data module (`data/latent.py`) and the scorer
-(`cli/score_quality.py`).
+(`cli/score_quality.py`); and training of the VQ-VAE and the
+transformer: the VQ-VAE's decoder and losses, the transformer's train
+forward and losses, dropout on explicit generators (`utils/random.py`),
+RAdam with clipping, decay split and schedule (`train/optim.py`), the
+reconstruction and transformer tasks (`train/tasks.py`) and the
+resident-data `Trainer` (`train/loop.py`), with #7 and #9 on the
+training forward.
 Its hand-written CUDA kernels, one per TPU kernel of the JAX package
 and variant, live in `csrc/` and are built on first use by
-`kernels.library()`. Training, the decoder, the EMA VQ and multi-GPU
-serving are not ported yet. Entry points (`entry.build`, `bridge.*`,
-`Model.load`, `load_artifact`, `from_checkpoints`, the scorer) put their
-tensors on the card unless the caller names another device.
+`kernels.library()`. Not ported yet: the EMA VQ, the MLP and GRU models
+with `ClassificationTask`, on-device windows and streaming data, bf16
+training, logging, the training CLIs and multi-GPU (ROADMAP.md, queue
+1). Entry points (`entry.build`, `bridge.*`, `Model.load`,
+`load_artifact`, `from_checkpoints`, the scorer) put their tensors on
+the card unless the caller names another device.
 """

@@ -46,34 +46,61 @@ def _load(module: torch.nn.Module, sd: dict, derived=()) -> None:
                        f"unexpected {unexpected}")
 
 
+def _resblocks(sd: dict, prefix: str, blocks, bn_states, batch_norm: bool):
+    """A JAX list of resblock dicts (and their BN states) under the
+    reference keys `{prefix}.{i}.block.{1,2,4,5}.*`."""
+    for i, blk in enumerate(blocks):
+        pre = f"{prefix}.{i}.block"
+        sd[f"{pre}.1.weight"] = _t(blk["conv1_w"])
+        sd[f"{pre}.1.bias"] = _t(blk["conv1_b"])
+        sd[f"{pre}.4.weight"] = _t(blk["conv2_w"])
+        sd[f"{pre}.4.bias"] = _t(blk["conv2_b"])
+        if batch_norm:
+            for idx, n in ((2, "1"), (5, "2")):
+                sd[f"{pre}.{idx}.weight"] = _t(blk[f"bn{n}_scale"])
+                sd[f"{pre}.{idx}.bias"] = _t(blk[f"bn{n}_bias"])
+                _bn(sd, f"{pre}.{idx}", bn_states[i][f"bn{n}"])
+
+
+def _bn(sd: dict, prefix: str, st) -> None:
+    sd[f"{prefix}.running_mean"] = _t(st.mean)
+    sd[f"{prefix}.running_var"] = _t(st.var)
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
 def vqvae_from_jax(hparams: dict, params, state, device=None,
                    vq_impl: str = "xla") -> VQVAEPatch:
-    """JAX VQVAEPatch (hparams, params, state) -> the port's encoder.
-    vq_impl is the runtime option of both models; it is not an hparam."""
+    """JAX VQVAEPatch (hparams, params, state) -> the port's VQ-VAE, every
+    parameter and every BatchNorm's running statistics (`encoder_bn`,
+    `decoder_bn`, `inverse_bn`). vq_impl is the runtime option of both
+    models; it is not an hparam."""
     if hparams.get("use_improved_vq"):
-        raise NotImplementedError("the EMA (improved) VQ is not ported")
+        raise NotImplementedError("the EMA (improved) VQ is not ported "
+                                  "(ROADMAP.md, queue 1 item 3)")
     model = VQVAEPatch(**{k: hparams[k] for k in _VQ_HPARAMS if k in hparams},
                        vq_impl=vq_impl, device=serving_device(device))
     pe = np.asarray(params["patch_embed"]["kernel"])     # (patch, H)
     sd = {"patch_embed.proj.weight": _t(pe.T[:, None, :]),
           "patch_embed.proj.bias": _t(params["patch_embed"]["bias"])}
-    for i, blk in enumerate(params["encoder"]):
-        pre = f"encoder.0.shared_conv.{i}.block"
-        sd[f"{pre}.1.weight"] = _t(blk["conv1_w"])
-        sd[f"{pre}.1.bias"] = _t(blk["conv1_b"])
-        sd[f"{pre}.4.weight"] = _t(blk["conv2_w"])
-        sd[f"{pre}.4.bias"] = _t(blk["conv2_b"])
-        if model.batch_norm:
-            bns = state["encoder_bn"][i]
-            for idx, n in ((2, "1"), (5, "2")):
-                sd[f"{pre}.{idx}.weight"] = _t(blk[f"bn{n}_scale"])
-                sd[f"{pre}.{idx}.bias"] = _t(blk[f"bn{n}_bias"])
-                sd[f"{pre}.{idx}.running_mean"] = _t(bns[f"bn{n}"].mean)
-                sd[f"{pre}.{idx}.running_var"] = _t(bns[f"bn{n}"].var)
-                sd[f"{pre}.{idx}.num_batches_tracked"] = torch.tensor(0)
+    bn = model.batch_norm
+    _resblocks(sd, "encoder.0.shared_conv", params["encoder"],
+               state.get("encoder_bn"), bn)
     sd["encoder.1.shared_conv.weight"] = _t(params["sep_conv"]["w"])
     sd["encoder.1.shared_conv.bias"] = _t(params["sep_conv"]["b"])
     sd["vector_quantization.embedding.weight"] = _t(params["vq"]["codebook"])
+    sd["decoder.0.weight"] = _t(params["decoder_in"]["w"])
+    sd["decoder.0.bias"] = _t(params["decoder_in"]["b"])
+    _resblocks(sd, "decoder.1.shared_conv", params["decoder"],
+               state.get("decoder_bn"), bn)
+    inv = params["inverse"]
+    pre = "reverse_patch_embed.proj"
+    sd.update({f"{pre}.0.weight": _t(inv["ct1_kernel"]),
+               f"{pre}.0.bias": _t(inv["ct1_bias"]),
+               f"{pre}.1.weight": _t(inv["bn_scale"]),
+               f"{pre}.1.bias": _t(inv["bn_bias"]),
+               f"{pre}.3.weight": _t(inv["ct2_kernel"]),
+               f"{pre}.3.bias": _t(inv["ct2_bias"])})
+    _bn(sd, f"{pre}.1", state["inverse_bn"])
     _load(model, sd)
     return model.eval()
 

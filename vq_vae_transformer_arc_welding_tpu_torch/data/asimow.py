@@ -158,7 +158,8 @@ class ASIMoWDataModule:
         if window_mode == "ondevice":
             raise NotImplementedError(
                 "window_mode='ondevice' needs data/windowed.py, which is "
-                "not ported yet; use 'materialize'")
+                "not ported yet (ROADMAP.md, queue 1 item 2); use "
+                "'materialize'")
         if window_mode != "materialize":
             raise ValueError(f"window_mode {window_mode!r}")
         self.task = task

@@ -86,10 +86,17 @@ class Checkpointed:
 
     hparams: dict
 
-    def save(self, path: str, extra: dict | None = None) -> None:
+    def save(self, path: str, extra: dict | None = None,
+             optimizer=None) -> None:
+        """optimizer: a train/optim.TrainOptimizer whose state (moments,
+        step counts, the scheduler's) goes into the file beside the
+        weights, as the trainer's last checkpoint carries it."""
         from ..train.checkpoint import save_checkpoint
+        opt, sched = ((None, None) if optimizer is None
+                      else optimizer.state_dicts())
         save_checkpoint(path, type(self).__name__, self.hparams,
-                        self.state_dict(), extra)
+                        self.state_dict(), extra, optimizer_state=opt,
+                        scheduler_state=sched)
 
     @classmethod
     def load(cls, path: str, device=None, **runtime):

@@ -1,8 +1,9 @@
-"""minGPT-style causal transformer decoder over latent tokens, eval mode.
+"""minGPT-style causal transformer decoder over latent tokens.
 
 Port of vq_vae_transformer_arc_welding_tpu/models/transformer.py
 (`sinusoidal_pe`, `TransformerDecoder`: `embed`, the block body,
-`backbone`, `heads`, `apply`, the `compute_dtype` runtime option of the
+`backbone`, `heads`, `apply` in eval and in train mode, `decay_mask`,
+`loss_gen`, `loss_class`, the `compute_dtype` runtime option of the
 eval forward, `save` / `load`, and the samplers: `_sample_from_logits`,
 `_recompute_scan`, `generate`, `_attn_cached`, `_token_step`,
 `_token_step_fused`, `_prefill`, `generate_kv`). Attribute paths are the
@@ -11,7 +12,14 @@ vq_vae_transformer_arc_welding_tpu/train/torch_import.py:139-169
 (`embedding.latent_embedding.weight`, `transformer.h.{i}.ln_1.*`,
 `transformer.h.{i}.attn.c_attn.*`, `class_head.linear_1.weight`, ...).
 Linear weights are in torch's (out, in) layout, so `x @ W.t()`.
-Dropout, the losses and the stacked block layout are not ported yet.
+
+At train time (`apply(train=True, generator=g)`) every block applies
+attention dropout (`att_dropout`), and residual dropout (`res_dropout`)
+after its attention and after its MLP, drawn from `g` block by block.
+As in the JAX package and the reference, the class head's optional
+dropout is created but never applied. The stacked block layout (a scan
+layout for XLA) is not ported, and bf16 training (`compute_dtype` with
+`train=True`) waits for its item in ROADMAP.md.
 
 Sampling draws as `jax.random.categorical` does: Gumbel noise added to
 the logits, then argmax. The noise comes from an explicit
@@ -35,6 +43,7 @@ from ..ops.activations import gelu, new_gelu
 from ..ops.attention import (causal_attention_core, causal_self_attention,
                              merge_heads, split_heads)
 from ..ops.norm import layer_norm
+from ..utils.random import dropout
 from .base import Checkpointed, Node, Params, assign
 from .initializers import gpt2_embedding, gpt2_linear
 
@@ -145,6 +154,13 @@ class TransformerDecoder(Checkpointed, nn.Module):
         self.n_blocks = n_blocks
         self.n_head = n_head
         self.class_h_bias = class_h_bias
+        self.res_dropout = res_dropout
+        self.att_dropout = att_dropout
+        self.learning_rate = learning_rate
+        # the reference's RAdam settings (transformer_decoder.py:64-114),
+        # read by train/optim.make_transformer_optimizer
+        self.betas = (0.9, 0.95)
+        self.weight_decay = 0.1
         self.attention_impl = attention_impl
         self.hparams = dict(d_model=d_model, n_classes=n_classes,
                             seq_len=seq_len, n_blocks=n_blocks, n_head=n_head,
@@ -221,17 +237,27 @@ class TransformerDecoder(Checkpointed, nn.Module):
              + self.pe[None, :t])
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
-    def block_body(self, x: torch.Tensor, blk) -> torch.Tensor:
+    def block_body(self, x: torch.Tensor, blk, *, train: bool = False,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
         """blk: a Block, or its `cast_params`. Every product follows the
-        stream's type; the attention core keeps f32 scores."""
+        stream's type; the attention core keeps f32 scores. At train
+        time the dropouts draw from `generator`: the attention's, its
+        residual's, then the MLP's."""
         h = layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
-        x = x + causal_self_attention(h, blk.attn, n_head=self.n_head,
-                                      impl=self.attention_impl)
+        x = x + causal_self_attention(
+            h, blk.attn, n_head=self.n_head, attn_dropout_p=self.att_dropout,
+            resid_dropout_p=self.res_dropout, train=train,
+            generator=generator, impl=self.attention_impl)
         h = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
-        h = new_gelu(linear(h, blk.mlp.c_fc))
-        return x + linear(h, blk.mlp.c_proj)
+        h = linear(new_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj)
+        return x + dropout(h, self.res_dropout, train, generator)
 
-    def backbone(self, x_ids: torch.Tensor) -> torch.Tensor:
+    def backbone(self, x_ids: torch.Tensor, *, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if train and self.compute_dtype is not None:
+            raise NotImplementedError(
+                "training with a compute_dtype (bf16 training as autocast) "
+                "is not ported yet (ROADMAP.md, queue 1 item 2)")
         x = self.embed(x_ids)
         # with a compute dtype the parameters are cast per call, as the
         # JAX package casts them in `embed`: the f32 module stays the
@@ -239,7 +265,7 @@ class TransformerDecoder(Checkpointed, nn.Module):
         tf = (self.transformer if self.compute_dtype is None
               else cast_params(self.transformer, self.compute_dtype))
         for blk in tf.h:
-            x = self.block_body(x, blk)
+            x = self.block_body(x, blk, train=train, generator=generator)
         return layer_norm(x, tf.ln_f.weight, tf.ln_f.bias)
 
     def heads(self, x: torch.Tensor, *, generate: bool = True) -> torch.Tensor:
@@ -262,10 +288,52 @@ class TransformerDecoder(Checkpointed, nn.Module):
         logits = gelu(h.squeeze(-1)) @ l2.weight.to(cdt).float().t()
         return logits + l2.bias.to(cdt) if self.class_h_bias else logits
 
-    def apply(self, x_ids: torch.Tensor, *, generate: bool = True):
-        return self.heads(self.backbone(x_ids), generate=generate)
+    def apply(self, x_ids: torch.Tensor, *, train: bool = False,
+              generator: torch.Generator | None = None,
+              generate: bool = True) -> torch.Tensor:
+        """x_ids (B, T) -> lm_head logits (B, T, n_classes), or the class
+        head's (B, 2) with generate=False. train: dropout on, drawn from
+        `generator`."""
+        return self.heads(self.backbone(x_ids, train=train,
+                                        generator=generator),
+                          generate=generate)
 
     forward = apply
+
+    # -- training (reference :64-114, :226-230) --------------------------
+
+    def decay_mask(self) -> tuple[list[str], list[str]]:
+        """(names that take weight decay, names that do not), in
+        parameter order: the minGPT split (reference
+        transformer_decoder.py:72-107). The Linear weights decay,
+        lm_head's and the class head's too; the token embedding, the
+        biases and the LayerNorms do not."""
+        decay, no_decay = [], []
+        for name, p in self.named_parameters():
+            linear_w = (name.endswith(".weight")
+                        and name != "embedding.latent_embedding.weight"
+                        and p.ndim == 2)
+            (decay if linear_w else no_decay).append(name)
+        return decay, no_decay
+
+    @staticmethod
+    def loss_gen(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Token-level cross entropy, labels of -1 ignored; 0 where no
+        label counts."""
+        v = logits.shape[-1]
+        flat = logits.reshape(-1, v)
+        labels = labels.reshape(-1).long()
+        valid = labels != -1
+        safe = torch.where(valid, labels, 0)
+        nll = -torch.log_softmax(flat, dim=-1).gather(1, safe[:, None])[:, 0]
+        return (torch.where(valid, nll, 0.0).sum()
+                / valid.sum().clamp_min(1))
+
+    @staticmethod
+    def loss_class(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Cross entropy of the class head's (B, 2) logits."""
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(1, labels.long()[:, None]).mean()
 
     # -- autoregressive sampling (reference :203-224) -------------------
 

@@ -1,4 +1,4 @@
-"""Causal multi-head self-attention, eval mode.
+"""Causal multi-head self-attention.
 
 Port of vq_vae_transformer_arc_welding_tpu/ops/attention.py
 (`split_heads`, `merge_heads`, `causal_attention_core`,
@@ -9,9 +9,11 @@ ops/fused_attn.flash_causal_attention; `'xla'` is the plain core, which
 calibration, the plain int8 chain, `_prefill` and the cached decode
 step also use.
 
-The port has no training mode yet, so attention and residual dropout
-are not applied, and the JAX package's fall-back from the fused kernel
-to the plain core under attention dropout has no counterpart.
+At train time the attention probabilities and the projected output take
+dropout (`attn_dropout_p`, `resid_dropout_p`), drawn from the caller's
+generator in that order. The fused kernel has no dropout, so an
+`impl='pallas'` layer with `attn_dropout_p > 0` at train time runs the
+plain core: the JAX function's own rule (ops/attention.py:68-76 there).
 
 Linear weights are in torch's (out, in) layout. With a bf16 input the
 projections are bf16 and the core runs in f32, as in the JAX package.
@@ -21,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils.random import dropout
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -36,22 +40,32 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def causal_attention_core(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
+                          v: torch.Tensor, *, attn_dropout_p: float = 0.0,
+                          train: bool = False,
+                          generator: torch.Generator | None = None
+                          ) -> torch.Tensor:
     """q, k, v: (B, H, T, D). Returns (B, H, T, D)."""
     d, t = q.shape[-1], q.shape[2]
     att = (q @ k.transpose(-1, -2)) / math.sqrt(d)
     causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-    att = att.masked_fill(~causal, float("-inf"))
-    return torch.softmax(att, dim=-1) @ v
+    att = torch.softmax(att.masked_fill(~causal, float("-inf")), dim=-1)
+    if train and attn_dropout_p > 0.0:
+        att = dropout(att, attn_dropout_p, train, generator)
+    return att @ v
 
 
 def causal_self_attention(x: torch.Tensor, attn, *, n_head: int,
+                          attn_dropout_p: float = 0.0,
+                          resid_dropout_p: float = 0.1, train: bool = False,
+                          generator: torch.Generator | None = None,
                           impl: str = "xla") -> torch.Tensor:
-    """Full attention layer: qkv projection -> core -> output projection.
+    """Full attention layer: qkv projection -> core -> output projection
+    -> residual dropout (at train time).
 
     attn: a holder of `c_attn` and `c_proj` (weight (out, in) and bias),
     as a transformer Block's `attn`. impl: 'xla' (the plain core) or
-    'pallas' (the fused kernel). x: (B, T, C) -> (B, T, C)."""
+    'pallas' (the fused kernel; the plain core where attention dropout
+    is on). x: (B, T, C) -> (B, T, C)."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"attention impl {impl!r}: 'xla' or 'pallas'")
     c = x.shape[-1]
@@ -61,10 +75,12 @@ def causal_self_attention(x: torch.Tensor, attn, *, n_head: int,
         # a bf16 stream (the transformer's compute_dtype): the
         # projections follow it, the scores and the softmax stay f32
         q, k, v = q.float(), k.float(), v.float()
-    if impl == "pallas":
+    if impl == "pallas" and not (train and attn_dropout_p > 0.0):
         from .fused_attn import flash_causal_attention
         y = flash_causal_attention(q, k, v)
     else:
-        y = causal_attention_core(q, k, v)
+        y = causal_attention_core(q, k, v, attn_dropout_p=attn_dropout_p,
+                                  train=train, generator=generator)
     y = merge_heads(y).to(x.dtype)
-    return y @ attn.c_proj.weight.t() + attn.c_proj.bias
+    y = y @ attn.c_proj.weight.t() + attn.c_proj.bias
+    return dropout(y, resid_dropout_p, train, generator)

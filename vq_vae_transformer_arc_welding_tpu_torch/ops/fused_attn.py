@@ -20,9 +20,12 @@ output is laid out (B, T, H, D) and returned as its (B, H, T, D) view,
 which `merge_heads` reshapes without a copy.
 
 `flash_causal_attention` is a `torch.autograd.Function`: the forward is
-the kernel, the backward recomputes the attention through the plain
-core on the saved q, k, v and differentiates that, as the JAX
-`custom_vjp` does. There is no dropout (the port is eval only).
+the kernel, given detached operands, and the backward recomputes the
+attention through the plain core on the saved q, k, v and
+differentiates that, as the JAX `custom_vjp` does. The training forward
+reaches it with q, k and v that need gradients: views of one qkv, read
+in place. The kernel has no dropout; ops/attention.py takes the plain
+core where attention dropout is on.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back.

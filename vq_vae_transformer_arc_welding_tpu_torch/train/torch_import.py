@@ -4,10 +4,10 @@ Port of the reading half of
 vq_vae_transformer_arc_welding_tpu/train/torch_import.py
 (`load_lightning_state_dict`, `load_vqvae_checkpoint`, and the
 transformer's counterpart). The port's modules carry the reference's
-state_dict keys, so a reference checkpoint loads by name. What the port
-has no module for yet is named here and skipped: the VQ-VAE's decoder
-and the attention blocks' causal-mask buffers. Any other unexpected or
-missing key raises.
+state_dict keys, so a reference checkpoint loads by name, the VQ-VAE
+whole, decoder and inverse patch embedding included. The one thing
+skipped is named here: the attention blocks' causal-mask buffers, which
+the port builds itself. Any other unexpected or missing key raises.
 """
 from __future__ import annotations
 
@@ -16,9 +16,6 @@ import re
 from ..models.base import load_state_dict_checked, serving_device
 from .checkpoint import read_payload
 
-# the VQ-VAE's decoder half: `decoder.0` (the input conv), `decoder.1`
-# (its resblocks) and the inverse patch embedding
-VQVAE_DECODER_KEYS = re.compile(r"^(decoder|reverse_patch_embed)\.")
 # the reference registers each block's (1, 1, T, T) causal mask as a buffer
 TRANSFORMER_MASK_KEYS = re.compile(r"^transformer\.h\.\d+\.attn\.bias$")
 _IMPROVED_VQ_KEY = "vector_quantization.vq.layers.0._codebook.embed"
@@ -44,10 +41,11 @@ def load_vqvae_checkpoint(path: str, device=None, vq_impl: str = "xla"):
     if hp.get("use_improved_vq") or _IMPROVED_VQ_KEY in sd:
         raise NotImplementedError(
             f"{path}: an improved-VQ (EMA codebook) checkpoint; only the "
-            f"classic vector quantizer is ported")
+            f"classic vector quantizer is ported (ROADMAP.md, queue 1 "
+            f"item 3)")
     model = VQVAEPatch(**{k: hp[k] for k in _VQ_HPARAMS if k in hp},
                        vq_impl=vq_impl, device=serving_device(device))
-    load_state_dict_checked(model, sd, skipped=VQVAE_DECODER_KEYS)
+    load_state_dict_checked(model, sd)
     return model.eval()
 
 
