@@ -68,14 +68,16 @@ int8_attn (#2 and #6 on 'attn8' and 'full8'), the attention's quantizing
 pass (csrc/attention_int8.cuh) must write int8 operands and scales
 bit-equal to its plain version (`quantize_heads_reference`) on each
 block's own qkv, and its y8 is held stage by stage as every int8 stage.
-Right after the build, `-Xptxas -v` of the two instantiations of the
-attention tile (csrc/attention_tc.cuh), of the GEMM's three, of the
-encoder tile's four (#1, #3, #4, #5, with the ends' two device
-functions) and of LN+q8's (csrc/ln_q8.cuh) gives their
+Right after the build, `-Xptxas -v` of every instantiation of the
+attention tile (csrc/attention_tc.cuh: heads of 32, 64 padded and
+unpadded, and 128, in two files), of the GEMM's three, of the encoder
+tile's kernels (#1, #3, #4, #5 at widths 128, 256 and 512, with the
+ends' two device functions), of the int8 attention's and of the decode
+kernels' and of LN+q8's (csrc/ln_q8.cuh) gives their
 registers and spills (a spill fails the run), and the GEMM's PTX must
 hold `wgmma.mma_async` and `cp.async.bulk.tensor` and the int8 attention's s8 `mma.sync`
-m16n8k32 (whose two kernels ptxas reports on too), the encoder chain's
-and the encoder's ends' (csrc/encoder_edges.cu) its TF32 `wgmma`, the
+m16n8k32, the encoder chain's and the encoder's ends'
+(csrc/encoder_edges.cu) its TF32 `wgmma` at n256, n128 and n64, the
 TMA copy and `cvt.rna.tf32.f32`. The f32 attention kernels
 and scaled_dot_product_attention on #9's inputs are timed again ten
 calls in a row between two events, so that the host's launch hides
@@ -154,9 +156,26 @@ traced by torch.profiler
 with the launch counts set to 0 before each fit (every train and eval
 forward launches its kernel, nothing else launches), every loss finite
 and the last epoch's train loss below the first's, and a run resumed
-from its last checkpoint bit-equal to the uninterrupted one (under
-torch's deterministic algorithms); the class stage leaves lm_head's
-RAdam step count where the gen stage left it.
+from its last checkpoint bit-equal to the uninterrupted one (with
+torch's defaults: no deterministic-algorithms flag); the class stage
+leaves lm_head's RAdam step count where the gen stage left it.
+
+Then models off the bench widths (`widths_phase`): the repo's quality
+study's VQ-VAE (hidden 64, 2 resblocks, K=32, D=8) and transformer
+(d192, 8 heads of 24, 4 blocks) through `classify` (int8, the fused
+encoder) and `make_pipeline_quantized` ('attn', 'full', 'attn8',
+'full8'), labels against the plain path's outside the 1e-3 margin; the
+encoder paths at hidden 64 and at a hidden-256 VQ-VAE's (ids against
+the plain encoder, flips at most 1e-3, each a near-tie);
+`generate_kv(decode_impl='fused')` on forced sequences, step logits
+within 1e-4 of plain; one training step of the d192 transformer with
+`attention_impl='pallas'` against plain (#9 once a block). Then every
+extended kernel (#1-#6, #9-#13) against its plain version at head
+widths 24, 32 and 128 and hidden widths 64, 192 and 256, with its
+launches counted, timed in turns with its plain version (events) and
+on the device (torch.profiler), beside its bound at those shapes and
+the tile it ran on. The record lists the widths each kernel was held
+at.
 
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
@@ -245,6 +264,25 @@ TRAIN_CLASS_EPOCHS = 1
 TRAIN_TR_CSV = dict(n_cycles_per_run=40, extra_train_runs=8)
 MAX_TRAIN_LOSS_REL = 1e-5   # one step, kernel path against plain: the loss
 MAX_TRAIN_GNORM_REL = 1e-4  # and the global gradient norm
+# widths_phase: models off the bench widths. The repo's quality study's
+# (scripts/quality_study.py:76-86: a VQ-VAE at hidden 64 with 2
+# resblocks, K=32, D=8; a transformer at d192 with 8 heads of 24 and 4
+# blocks) and a VQ-VAE at hidden 256 (build's other defaults)
+WIDTH_MODEL = dict(hidden=64, n_res=2, k=32, d=8, d_model=192, n_heads=8,
+                   n_blocks=4)
+WIDTH_VQ = dict(hidden=256)
+WIDTH_REQUEST = 40          # windows of a request: 6,400 encoder rows
+WIDTH_SAMPLE = (8, 320)     # generate_kv: streams and forced steps
+WIDTH_TRAIN_BATCH = 8
+# each extended kernel is held at these: (C, n_head) for head widths 24,
+# 32 and 128, and the encoder's hidden widths
+WIDTH_HEADS = ((192, 8), (256, 8), (256, 2))
+WIDTH_HIDDEN = (64, 192, 256)
+WIDTH_BATCH = 16            # the attention kernels' batch there, T=321
+WIDTH_REPS = 5              # timed calls a kernel and plain version there
+# the widths the main paths hold each extended kernel at: head 64 for
+# the attention kernels, hidden 512 for the f32 encoder's
+BENCH_HEAD, BENCH_HIDDEN = 64, 512
 # torch's defaults, which the training phase runs under
 TORCH_DEFAULT_TF32 = dict(matmul=False, cudnn=True)
 # the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
@@ -329,6 +367,8 @@ TF32_SPLIT = 3
 F32_ATTENTION = (FLASH, ATTN, FULL, QKV, CAUSAL)
 # the f32 encoder kernels on the split-TF32 tile (csrc/encoder_tc.cuh)
 F32_ENCODER = (ENC, RES, ENTRY, EXIT)
+# the kernels that take widths off the bench model's (widths_phase)
+EXTENDED = (*F32_ENCODER, *F32_ATTENTION, ATTN8, FULL8, DEC_ATTN, DEC_BLOCK)
 
 
 def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
@@ -554,8 +594,12 @@ PTX_OPS = {
     "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor",
                       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"),
     "encoder_chain.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
+                         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32",
+                         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32",
                          "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
     "encoder_edges.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
+                         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32",
+                         "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32",
                          "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
     "decode.cu": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                   "cp.async.bulk.shared::cluster.global.mbarrier",
@@ -1251,6 +1295,12 @@ def kernel_trace(fns: dict, calls: int = 10) -> dict:
     return out
 
 
+def is_kernel(key: str, name: str) -> bool:
+    """Whether a trace's kernel name is `name`'s, any instantiation of
+    it (its template arguments) and any namespace."""
+    return re.search(rf"(^|::){name}[<(]", key) is not None
+
+
 def pipeline_trace(fns: dict, x) -> None:
     """Where a batch's device time goes on TIMED_PATHS, from
     torch.profiler over three calls: device time per call, and the parts
@@ -1273,16 +1323,16 @@ def pipeline_trace(fns: dict, x) -> None:
         parts = []
         for what, pick in (
                 ("the f32 attention (attention_kernel)",
-                 lambda key: key.startswith("attention_kernel(")),
+                 lambda key: is_kernel(key, "attention_kernel")),
                 (f"the int8 attention ({INT8_ATTENTION})",
-                 lambda key: f"{INT8_ATTENTION}(" in key),
+                 lambda key: is_kernel(key, INT8_ATTENTION)),
                 (f"its quantizing pass ({QUANT_PASS})",
-                 lambda key: f"{QUANT_PASS}(" in key),
+                 lambda key: is_kernel(key, QUANT_PASS)),
                 ("the int8 GEMM (int8_gemm_sm90_kernel)",
                  lambda key: "int8_gemm" in key),
                 (f"LN+q8 rows ({LN_Q8})", lambda key: LN_Q8 in key),
                 ("the f32 encoder chain (encoder_chain_kernel)",
-                 lambda key: key.startswith("encoder_chain_kernel("))):
+                 lambda key: is_kernel(key, "encoder_chain_kernel"))):
             got = [(cnt, ms) for key, cnt, ms in names if pick(key)]
             if not got:
                 continue
@@ -2078,31 +2128,6 @@ def tf32_flags(matmul: bool, cudnn: bool):
          torch.backends.cudnn.allow_tf32) = prev
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms (sorted scatters for the backward
-    of gathers), so that a resumed run
-    can replay the uninterrupted one bit for bit. An op without a
-    deterministic version warns instead of raising; the bit-equality
-    check then shows whether it mattered. Memory is not filled at
-    allocation."""
-    import torch
-    import torch.utils.deterministic as tud
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled(),
-            torch.backends.cudnn.deterministic,
-            tud.fill_uninitialized_memory)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    tud.fill_uninitialized_memory = False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-        torch.backends.cudnn.deterministic = prev[2]
-        tud.fill_uninitialized_memory = prev[3]
-
-
 @tf32_flags(**TORCH_DEFAULT_TF32)
 def training_phase(smi: str, device: str = "cuda") -> dict:
     """Training at the CLIs' default widths (see the module docstring),
@@ -2183,12 +2208,11 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
                 max_epochs=epochs, seed=SEED, verbose=False,
                 monitor="val/loss", save_last=ck is not None,
                 checkpoint_dir=os.path.join(tmp, ck) if ck else None)
-            with deterministic():
-                runs[key] = (model,) + fit_checked(
-                    f"VQ-VAE fit ({key})", trainer,
-                    ReconstructionTask(model), dm, tx, NEAREST, 1,
-                    resume_from=(os.path.join(tmp, resume, "last.ckpt")
-                                 if resume else None))
+            runs[key] = (model,) + fit_checked(
+                f"VQ-VAE fit ({key})", trainer, ReconstructionTask(model),
+                dm, tx, NEAREST, 1,
+                resume_from=(os.path.join(tmp, resume, "last.ckpt")
+                             if resume else None))
         model, res, n7, losses = runs["straight"]
         rate = [h["train_epoch/windows_per_s"] for h in res.history]
         log(f"VQ-VAE Trainer.fit: {len(losses)} epochs of "
@@ -2293,13 +2317,11 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
                 max_epochs=epochs, seed=SEED, verbose=False,
                 save_last=ck is not None,
                 checkpoint_dir=os.path.join(tmp, ck) if ck else None)
-            with deterministic():
-                runs[key] = (model, opt, tx_tr) + fit_checked(
-                    f"transformer gen fit ({key})", trainer,
-                    TransformerGenTask(model), gen_dm, tx_tr, FLASH, nb,
-                    opt=opt, resume_from=(os.path.join(tmp, resume,
-                                                       "last.ckpt")
-                                          if resume else None))
+            runs[key] = (model, opt, tx_tr) + fit_checked(
+                f"transformer gen fit ({key})", trainer,
+                TransformerGenTask(model), gen_dm, tx_tr, FLASH, nb,
+                opt=opt, resume_from=(os.path.join(tmp, resume, "last.ckpt")
+                                      if resume else None))
         model, opt, tx_tr, res, n9, losses = runs["straight"]
         log(f"transformer gen Trainer.fit: {len(losses)} epochs of "
             f"{-(-len(gen_dm.train.x) // TRAIN_TR_BATCH)} steps, train "
@@ -2341,6 +2363,462 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
             f"then class {TRAIN_CLASS_EPOCHS}", n9 + n9c, nb)
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def _random_bn(vecs, gen):
+    """vecs (10 n, C) with random eval BatchNorm rows (mean, var, scale,
+    bias of both convs), as section 6 draws them, so that the encoder
+    kernels' BN path runs."""
+    import torch
+    nb, c = vecs.shape[0] // 10, vecs.shape[1]
+    bn = vecs.clone().view(nb, 2, 5, c)
+    dev = vecs.device
+    bn[:, :, 1] = (torch.randn(nb, 2, c, generator=gen) * 0.2).to(dev)
+    bn[:, :, 2] = (torch.rand(nb, 2, c, generator=gen) * 1.5 + 0.5).to(dev)
+    bn[:, :, 3] = (torch.rand(nb, 2, c, generator=gen) + 0.5).to(dev)
+    bn[:, :, 4] = (torch.randn(nb, 2, c, generator=gen) * 0.1).to(dev)
+    return bn.reshape(10 * nb, c).contiguous()
+
+
+def _spread_codebook(vq, cycles, what: str) -> None:
+    """Scale a random model's codebook to the spread of z_e where it
+    uses fewer than MIN_DISTINCT_FRAC of its codes, as main() does, so
+    that the argmin is exercised."""
+    import torch
+    k = vq.num_embeddings
+    with torch.no_grad():
+        used = torch.unique(vq.encode_indices(cycles)).numel()
+        if used < MIN_DISTINCT_FRAC * k:
+            vq.codebook.mul_(float(vq.encode(cycles).std()
+                                   / vq.codebook.std()))
+            used = torch.unique(vq.encode_indices(cycles)).numel()
+    log(f"widths: {what} uses {used} of {k} codes")
+    check(used >= MIN_DISTINCT_FRAC * k,
+          f"widths: {what} uses {used} of {k} codes")
+
+
+def widths_phase(smi: str, device: str = "cuda") -> dict:
+    """Models off the bench widths on their kernels (see the module
+    docstring): the quality study's VQ-VAE (hidden 64) and transformer
+    (d192, 8 heads of 24) through classify, make_pipeline_quantized's
+    int8 paths, the encoder paths (and a hidden-256 VQ-VAE's),
+    generate_kv(decode_impl='fused') and a training step with
+    attention_impl='pallas'; then every extended kernel against its
+    plain version and timed at the head widths of WIDTH_HEADS and the
+    hidden widths of WIDTH_HIDDEN. Returns {"launched": {kernel: (path,
+    launches)}, "widths": {kernel: [widths held]}}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch import kernels
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import (
+        build, make_pipeline_quantized)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_attn as fflash, fused_attn_quant as fattn,
+        fused_block_quant as fbq, fused_decode as fdec,
+        fused_encoder as fenc)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.attention import (
+        split_heads)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.fused_mlp_quant import (
+        mlp_from_h8_reference)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.patching import patchify
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        CYCLE_LEN, WeldingQualityPipeline)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        TransformerGenTask)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    width = N_CYCLES * CYCLE_LEN
+    calib = rng.standard_normal((N_CALIB, width, 2)).astype(np.float32)
+    req = rng.standard_normal((WIDTH_REQUEST, width, 2)).astype(np.float32)
+    xreq = torch.from_numpy(req).to(dev)
+    cycles = xreq.reshape(-1, CYCLE_LEN, 2)
+    launched, held = {}, {}
+
+    def note(counts, path, head=None, hidden=None):
+        """Record a run's launches, and the width each extended kernel
+        ran at: the head width, or the encoder's hidden width."""
+        for name, n in counts.items():
+            launched.setdefault(name, (path, n))
+            w = hidden if name in F32_ENCODER else head
+            if name in EXTENDED and w is not None:
+                held.setdefault(name, set()).add(w)
+
+    # -- W1. the study's models through the serving entry points -----------
+    vq, tr = build(**WIDTH_MODEL, seed=SEED)
+    vq2, _ = build(**WIDTH_VQ, seed=SEED)
+    check(tr.pe.device.type == dev.type, "build() did not build on the card")
+    hd = tr.d_model // tr.n_head
+    log(f"widths: VQ-VAE hidden {vq.hidden_dim} ({vq.n_resblocks} "
+        f"resblocks, K={vq.num_embeddings}, D={vq.embedding_dim}, encoder "
+        f"tile {fenc.kernel_width(vq.hidden_dim)}); transformer "
+        f"d{tr.d_model}, {tr.n_head} heads of {hd} (attention tile "
+        f"{kernels.padded_head_width(hd)}), {tr.n_blocks} blocks, "
+        f"T={tr.seq_len}; VQ-VAE hidden {vq2.hidden_dim} "
+        f"({vq2.n_resblocks} resblocks, K={vq2.num_embeddings}, "
+        f"D={vq2.embedding_dim}, encoder tile "
+        f"{fenc.kernel_width(vq2.hidden_dim)})")
+    for model in (vq, vq2):
+        _spread_codebook(model, cycles, f"the hidden-{model.hidden_dim} "
+                                        f"VQ-VAE")
+    pipe = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80,
+                                  precision="int8", encoder_impl="fused")
+    pipe.calibrate(calib)
+    (labels, probs), counts = counted(lambda: pipe.classify(req))
+    check(set(counts) == {ENC, ATTN, GEMM},
+          f"widths classify launched {sorted(counts)}")
+    note(counts, "widths classify (d192, hidden 64)", head=hd,
+         hidden=vq.hidden_dim)
+    with plain_path():
+        labels_p, probs_p = pipe.classify(req)
+    sure = np.abs(probs_p[:, 0] - probs_p[:, 1]) > LABEL_MARGIN
+    check(bool(np.isfinite(probs).all())
+          and bool((labels == labels_p)[sure].all()),
+          f"widths classify: labels differ from the plain path's where "
+          f"its margin exceeds {LABEL_MARGIN}")
+    log(f"widths classify (int8, encoder_impl='fused') of {len(req)} "
+        f"windows: launches {json.dumps(counts)}; labels equal the plain "
+        f"path's on all {int(sure.sum())} windows with |p0 - p1| > "
+        f"{LABEL_MARGIN}")
+    want = {name: kernels_of for name, _, kernels_of in PATHS}
+    with torch.inference_mode():
+        for name in TIMED_PATHS:
+            fn = make_pipeline_quantized(vq, tr, pipe.qparams,
+                                         block_fusion=name)
+            lk, counts = counted(lambda: fn(xreq))
+            check(set(counts) == want[name],
+                  f"widths path {name} launched {sorted(counts)}")
+            note(counts, f"widths make_pipeline_quantized({name})",
+                 head=hd, hidden=vq.hidden_dim)
+            with plain_path():
+                lp = fn(xreq)
+            sure = (lp[:, 0] - lp[:, 1]).abs() > LABEL_MARGIN
+            same = lk.argmax(-1) == lp.argmax(-1)
+            check(bool(torch.isfinite(lk).all()) and bool(same[sure].all()),
+                  f"widths path {name}: labels differ where the plain "
+                  f"margin exceeds {LABEL_MARGIN}")
+            log(f"widths path {name}: launches {json.dumps(counts)}; labels "
+                f"equal the plain path's on all {int(sure.sum())} windows "
+                f"whose plain |logit0-logit1| > {LABEL_MARGIN}; max "
+                f"|dlogit| {float((lk - lp).abs().max()):.3e}")
+
+        # -- W2. the encoder paths at hidden 64 and 256 -----------------------
+        for model, g in ((vq, 1), (vq2, 2)):
+            packed, edges = fenc.pack_encoder(model), fenc.pack_encoder_edges(
+                model)
+            nb, h = model.n_resblocks, model.hidden_dim
+            grp = fenc.group_size_for(h)
+            last = (nb - 1) // g * g
+            paths = {
+                "encode_indices_fused": (
+                    lambda: fenc.encode_indices_fused(model, packed, cycles),
+                    {ENC: -(-nb // grp)}),
+                "encode_indices_fused(group_size=1)": (
+                    lambda: fenc.encode_indices_fused(model, packed, cycles,
+                                                      group_size=1),
+                    {RES: nb}),
+                f"encode_indices_fused_edges(group_size={g})": (
+                    lambda: fenc.encode_indices_fused_edges(
+                        model, packed, edges, cycles, group_size=g),
+                    {ENTRY: 1, EXIT: 1,
+                     **({ENC: len(range(g, last, g))}
+                        if range(g, last, g) else {})})}
+            ref = model.encode_indices(cycles).reshape(-1)
+            z = model.encode(cycles).reshape(-1, model.embedding_dim)
+            for name, (run, expect) in paths.items():
+                ids, counts = counted(run)
+                check(counts == expect, f"widths {name} at hidden {h} "
+                                        f"launched {json.dumps(counts)}, "
+                                        f"expected {json.dumps(expect)}")
+                note(counts, f"widths {name} (hidden {h})", hidden=h)
+                ids = ids.reshape(-1)
+                flips = flip_rate(ids, ref)
+                gap = worst_flip_gap(z, model.codebook, ids, ref)
+                check(flips <= MAX_ID_FLIP and gap <= MAX_FLIP_GAP,
+                      f"widths {name} at hidden {h}: id flips {flips}, "
+                      f"worst gap {gap}")
+                log(f"widths encoder path {name} at hidden {h}: launches "
+                    f"{json.dumps(counts)}; id flips against "
+                    f"vq.encode_indices {flips:.3e} (bound {MAX_ID_FLIP}), "
+                    f"worst flip gap {gap:.3e} (bound {MAX_FLIP_GAP})")
+
+    # -- W3. generate_kv(decode_impl='fused') on forced sequences -----------
+    bs, steps = WIDTH_SAMPLE
+    start = torch.full((bs, 1), pipe.start_token, dtype=torch.int32,
+                       device=dev)
+    ids = tr.generate_kv(start, num_steps=steps)
+
+    def forced(run):
+        seen = []
+
+        def draw(last, *_args, **_kw):
+            seen.append(last.float().clone())
+            return ids[:, len(seen)]
+
+        with mock.patch.object(tr, "_sample_from_logits", draw):
+            out, counts = counted(run)
+        check(len(seen) == steps, f"forced run drew {len(seen)} times")
+        return torch.stack(seen), counts
+
+    plain, _ = forced(lambda: tr.generate_kv(start, num_steps=steps))
+    got, counts = forced(lambda: tr.generate_kv(start, num_steps=steps,
+                                                decode_impl="fused"))
+    check(counts == {DEC_BLOCK: tr.n_blocks * steps},
+          f"widths generate_kv fused launched {json.dumps(counts)}")
+    note(counts, "widths generate_kv(decode_impl='fused') (d192)", head=hd)
+    worst = float((got - plain).abs().max())
+    check(worst <= MAX_STEP_ERR, f"widths generate_kv fused: forced step "
+                                 f"logits within {worst} of plain")
+    log(f"widths generate_kv(decode_impl='fused') d{tr.d_model}, batch "
+        f"{bs}, {steps} forced steps: launches {json.dumps(counts)}; step "
+        f"logits within {worst:.3e} of the plain step's (bound "
+        f"{MAX_STEP_ERR})")
+
+    # -- W4. a training step with attention_impl='pallas' --------------------
+    _, trp = build(**WIDTH_MODEL, seed=SEED, attention_impl="pallas")
+    trp.requires_grad_(True)
+    trp.res_dropout = trp.att_dropout = 0.0
+    b, t = WIDTH_TRAIN_BATCH, trp.seq_len
+    batch = (torch.randint(0, trp.n_classes, (b, t), generator=gen),
+             torch.randint(0, 2, (b,), generator=gen),
+             torch.randint(0, trp.n_classes, (b, t), generator=gen))
+    batch = tuple(a.to(dev) for a in batch)
+    with tf32_flags(**TORCH_DEFAULT_TF32):
+        # checks #9's launches: one a block
+        one_step_against_plain(f"widths d{trp.d_model} transformer gen",
+                               trp, TransformerGenTask(trp), batch, FLASH,
+                               trp.n_blocks, smi)
+    note({FLASH: trp.n_blocks},
+         "widths training step (d192, attention_impl='pallas')", head=hd)
+    trp.requires_grad_(False)
+
+    # -- W5. every extended kernel at each width, against plain -------------
+    worst_of = Worst()
+    fns, bounds, tiles = {}, {}, {}
+    ids_bt = torch.randint(0, tr.n_classes, (WIDTH_BATCH, tr.seq_len),
+                           generator=gen).to(dev)
+    with torch.inference_mode():
+        for c, nh in WIDTH_HEADS:
+            w = c // nh
+            tile = kernels.padded_head_width(w)
+            vq_w, tr_w = build(d_model=c, n_heads=nh, n_blocks=1,
+                               hidden=64, n_res=1, k=WIDTH_MODEL["k"],
+                               d=WIDTH_MODEL["d"], seed=SEED)
+            pipe_w = WeldingQualityPipeline(vq_w, tr_w, n_cycles=N_CYCLES,
+                                            precision="int8")
+            pipe_w.calibrate(calib[:2])
+            blk_q = pipe_w.qparams["blocks"][0]
+            scales, vc, v3c, v4c = fbq.packed_operands(blk_q)
+            wq, wp, wf, wm = (blk_q[n].w_int8 for n in
+                              ("c_attn", "c_proj", "c_fc", "m_proj"))
+            x = tr_w.embed(ids_bt).contiguous()
+            bt, t = x.shape[:2]
+            # #2 and #6, f32 and int8 attention; the f32 qkv of #2's run
+            # feeds #9 and #11
+            scratch = {}
+            for int8_attn in (False, True):
+                a_name, f_name = (ATTN8, FULL8) if int8_attn else (ATTN, FULL)
+                (xm, h8), counts = counted(lambda: fbq.attn_block_quant(
+                    x, wq, wp, scales, vc[:6], v3c, n_head=nh,
+                    int8_attn=int8_attn, scratch=scratch))
+                xm_p, h8_p = fbq.fused_attn_block_quant_reference(
+                    x, wq, wp, scales, vc[:6], v3c, n_head=nh,
+                    int8_attn=int8_attn)
+                worst_of.f32(f"{a_name}.end.x_mid", xm, xm_p)
+                worst_of.int8(f"{a_name}.end.h8", h8, h8_p)
+                note(counts, f"widths kernels (C={c}, {nh} heads)", head=w)
+                fns[a_name, w] = (
+                    lambda i=int8_attn, x=x, a=(wq, wp, scales, vc[:6], v3c),
+                    nh=nh: fbq.attn_block_quant(x, *a, n_head=nh,
+                                                int8_attn=i),
+                    lambda i=int8_attn, x=x, a=(wq, wp, scales, vc[:6], v3c),
+                    nh=nh: fbq.fused_attn_block_quant_reference(
+                        x, *a, n_head=nh, int8_attn=i))
+                # stage by stage, as section 7 holds #6: an int8 step
+                # upstream carries into every f32 value after it
+                full = {}
+                out, counts = counted(lambda: fbq.block_quant(
+                    x, wq, wp, wf, wm, scales, vc, v3c, v4c, n_head=nh,
+                    int8_attn=int8_attn, scratch=full))
+                worst_of.f32(f"{f_name}.x_mid", full["x_mid"], xm_p)
+                worst_of.int8(f"{f_name}.h8", full["h8"], h8_p)
+                worst_of.f32(f"{f_name}.end.out", out, full["x_mid"]
+                             + mlp_from_h8_reference(full["h8"], wf, wm,
+                                                     scales[3], v4c, vc[6:]))
+                note(counts, f"widths kernels (C={c}, {nh} heads)", head=w)
+                args = (x, wq, wp, wf, wm, scales, vc, v3c, v4c)
+                fns[f_name, w] = (
+                    lambda i=int8_attn, a=args, nh=nh: fbq.block_quant(
+                        *a, n_head=nh, int8_attn=i),
+                    lambda i=int8_attn, a=args, nh=nh:
+                    fbq.fused_block_quant_reference(*a, n_head=nh,
+                                                    int8_attn=i))
+                if not int8_attn:
+                    qkv = scratch["qkv"].clone()
+            h = layer_norm(x, vc[0], vc[1])
+            for name, kfn, pfn, a in (
+                    (QKV, fattn.qkv_attention_quant,
+                     fattn.qkv_attention_quant_reference,
+                     (h, wq, scales[:2], v3c)),
+                    (CAUSAL, fattn.fused_causal_attention_quant,
+                     fattn.causal_attention_quant_reference,
+                     (qkv, scales[1]))):
+                y8, counts = counted(lambda: kfn(*a, n_head=nh))
+                worst_of.int8(f"{name}.y8", y8, pfn(*a, n_head=nh))
+                note(counts, f"widths kernels (C={c}, {nh} heads)", head=w)
+                fns[name, w] = (lambda kfn=kfn, a=a, nh=nh: kfn(*a, n_head=nh),
+                                lambda pfn=pfn, a=a, nh=nh: pfn(*a,
+                                                                n_head=nh))
+            q, k, v = (split_heads(z, nh) for z in qkv.split(c, dim=-1))
+            o, counts = counted(lambda: fflash.flash_attention_forward(
+                q, k, v))
+            e = float((o - fflash.flash_causal_attention_reference(
+                q, k, v)).abs().max())
+            check(e <= MAX_ROW_ERR, f"widths {FLASH} at head {w}: {e}")
+            worst_of.free[f"{FLASH}.out"] = max(
+                worst_of.free.get(f"{FLASH}.out", 0.0), e)
+            note(counts, f"widths kernels (C={c}, {nh} heads)", head=w)
+            fns[FLASH, w] = (
+                lambda q=q, k=k, v=v: fflash.flash_attention_forward(q, k, v),
+                lambda q=q, k=k, v=v:
+                fflash.flash_causal_attention_reference(q, k, v))
+            # #12 and #13 on random caches at three positions
+            blk = tr_w.blocks[0]
+            db, tc = SAMPLE_BATCH, tr_w.seq_len
+            xt = torch.randn(db, 1, c, generator=gen).to(dev)
+            for name, kfn, pfn, shape, row in (
+                    (DEC_ATTN, fdec.fused_decode_attn,
+                     fdec.fused_decode_attn_reference, (db, nh, tc, w),
+                     lambda z, p: z[:, :, p]),
+                    (DEC_BLOCK, fdec.fused_block_decode,
+                     fdec.fused_block_decode_reference, (db, tc, c),
+                     lambda z, p: z[:, p])):
+                kv = [torch.randn(*shape, generator=gen).to(dev)
+                      for _ in range(2)]
+                for pos in (0, 127, tc - 1):
+                    kk, kv_ = (z.clone() for z in kv)
+                    pk, pv = (z.clone() for z in kv)
+                    out, counts = counted(lambda: kfn(xt, blk, kk, kv_, pos,
+                                                      n_head=nh)[0])
+                    ref = pfn(xt, blk, pk, pv, pos, n_head=nh)[0]
+                    e = float((out - ref).abs().max())
+                    er = max(float((row(a, pos) - row(r, pos)).abs().max())
+                             for a, r in ((kk, pk), (kv_, pv)))
+                    check(e <= MAX_DECODE_ERR and er <= MAX_ROW_ERR,
+                          f"widths {name} at head {w} pos {pos}: output "
+                          f"{e}, written row {er}")
+                    worst_of.free[f"{name}.out"] = max(
+                        worst_of.free.get(f"{name}.out", 0.0), e)
+                    note(counts, f"widths kernels (C={c}, {nh} heads)", head=w)
+                pos = tc // 2
+                fns[name, w] = (
+                    lambda kfn=kfn, a=(xt, blk, *kv, pos), nh=nh:
+                    kfn(*a, n_head=nh),
+                    lambda pfn=pfn, a=(xt, blk, *kv, pos), nh=nh:
+                    pfn(*a, n_head=nh))
+            tiles.update({(name, w): tile for name in
+                          (ATTN, ATTN8, FULL, FULL8, QKV, CAUSAL, FLASH,
+                           DEC_ATTN, DEC_BLOCK)})
+            # (the encoder's terms of this call are not read)
+            work = kernel_work(len(cycles), c, 1, 1, vq_w.patch_size, 8, 32,
+                               bt, t, nh, db, pos)
+            for name in (ATTN, ATTN8, FULL, FULL8, QKV, CAUSAL, FLASH,
+                         DEC_ATTN, DEC_BLOCK):
+                bounds[name, w] = bound_of(work[name])
+
+        # the f32 encoder kernels at WIDTH_HIDDEN, with BatchNorm rows
+        for hw in WIDTH_HIDDEN:
+            vq_h, _ = build(hidden=hw, n_res=2, d_model=64, n_heads=1,
+                            n_blocks=1, seed=SEED)
+            _spread_codebook(vq_h, cycles, f"the hidden-{hw} VQ-VAE")
+            packed = fenc.pack_encoder(vq_h)
+            weights, _ = packed
+            split = packed.split
+            vecs = _random_bn(packed[1], gen)
+            w_pe, b_pe, w_sep, b_sep = fenc.pack_encoder_edges(vq_h)
+            cb = vq_h.codebook
+            flat = vq_h.patch_embed_out(cycles)
+            flat = flat.reshape(-1, hw).contiguous()
+            patches = patchify(cycles, vq_h.patch_size).reshape(
+                -1, vq_h.patch_size).contiguous()
+            for name, kfn, pfn, a, kw in (
+                    (ENC, fenc.fused_encoder_eval,
+                     fenc.fused_encoder_eval_reference,
+                     (flat, weights, vecs), {"split": split}),
+                    (RES, fenc.resblock_eval,
+                     fenc.fused_resblock_eval_reference,
+                     (flat, weights[0], weights[1], vecs[:10]),
+                     {"split": split[:2]}),
+                    (ENTRY, fenc.fused_encoder_entry_eval,
+                     fenc.fused_encoder_entry_eval_reference,
+                     (patches, w_pe, b_pe, weights, vecs), {"split": split}),
+                    (EXIT, fenc.fused_encoder_exit_eval,
+                     fenc.fused_encoder_exit_eval_reference,
+                     (flat, weights, vecs, w_sep, b_sep, cb),
+                     {"split": split})):
+                got, counts = counted(lambda: kfn(*a, use_bn=True, **kw))
+                ref = pfn(*a, use_bn=True)
+                note(counts, f"widths kernels (hidden {hw})", hidden=hw)
+                if name == EXIT:
+                    zz = fenc.fused_encoder_eval_reference(
+                        flat, weights, vecs, use_bn=True) @ w_sep + b_sep
+                    flips = flip_rate(got, ref)
+                    gap = worst_flip_gap(zz, cb, got, ref)
+                    check(flips <= MAX_ID_FLIP and gap <= MAX_FLIP_GAP,
+                          f"widths {EXIT} at hidden {hw}: flips {flips}, "
+                          f"gap {gap}")
+                    worst_of.free[f"{EXIT}.ids"] = max(
+                        worst_of.free.get(f"{EXIT}.ids", 0.0), flips)
+                else:
+                    rel = float((got - ref).abs().max() / ref.abs().max())
+                    check(rel <= MAX_CHAIN_REL,
+                          f"widths {name} at hidden {hw}: {rel} of the "
+                          f"output's magnitude")
+                    worst_of.free[f"{name}.out"] = max(
+                        worst_of.free.get(f"{name}.out", 0.0), rel)
+                fns[name, hw] = (
+                    lambda kfn=kfn, a=a, kw=kw: kfn(*a, use_bn=True, **kw),
+                    lambda pfn=pfn, a=a: pfn(*a, use_bn=True))
+                tiles[name, hw] = fenc.kernel_width(hw)
+            # (the transformer's terms of this call are not read)
+            work = kernel_work(len(flat), hw, 2, 2, vq_h.patch_size,
+                               vq_h.embedding_dim, vq_h.num_embeddings,
+                               WIDTH_BATCH, tr.seq_len, 1, 1, 1)
+            for name in (ENC, RES, ENTRY, EXIT):
+                bounds[name, hw] = bound_of(work[name])
+        worst_of.check()
+
+        # times: kernel and plain in turns (CUDA events around a call);
+        # the kernels' own pace, ten calls in a row between two events
+        # (the host's launch hidden behind the card's work); and their
+        # device time from torch.profiler on cold operands, whose short
+        # sessions can lose events at these sizes
+        kfns = {key: pair[0] for key, pair in fns.items()}
+        rows = in_a_row(kfns)
+        traced = kernel_trace(kfns)
+        for (name, w), (kfn, pfn) in fns.items():
+            t_k = timed_in_turns({"kernel": kfn, "plain": pfn},
+                                 reps=WIDTH_REPS, warmup=1)
+            bound, by = bounds[name, w]
+            row_ms, ms = rows[name, w][0], traced[name, w][0]
+            what = "hidden" if name in F32_ENCODER else "head"
+            log(f"widths kernel {name} at {what} {w} (tile "
+                f"{tiles[name, w]}): {fmt_ms(t_k['kernel'])}, plain "
+                f"{fmt_ms(t_k['plain'])}; 10 in a row {row_ms:.4f} ms a "
+                f"call; device "
+                + ("not measured" if ms is None else f"{ms:.4f} ms a call")
+                + f"; bound {bound:.4f} ms by {by} ({bound / row_ms:.1%} of "
+                f"the in-a-row time); gpu {smi}")
+    for key, err in sorted({**worst_of.err, **worst_of.free}.items()):
+        log(f"widths {key}: worst difference from plain {err:.3e}")
+    for key, frac in sorted(worst_of.frac.items()):
+        log(f"widths {key}: int8 entries that differ {frac:.3e}, largest "
+            f"step {worst_of.step[key]}")
+    log(f"widths phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launched": launched,
+            "widths": {name: sorted(ws) for name, ws in held.items()}}
 
 
 def main() -> int:
@@ -3197,7 +3675,7 @@ def main() -> int:
     for name, (ms, n_ops, kernels_of) in traced.items():
         parts = []
         for part in (QUANT_PASS, INT8_ATTENTION):
-            each = [e for key, _, e in kernels_of if f"{part}(" in key]
+            each = [e for key, _, e in kernels_of if is_kernel(key, part)]
             bound, by = bound_of(work[part])
             parts.append(f"{part} " + (
                 f"{each[0]:.4f} ms a launch, bound {bound:.4f} ms by {by} "
@@ -3213,6 +3691,8 @@ def main() -> int:
             + f"; gpu {smi}")
     # -- 12. training at the CLIs' widths: #7 and #9 with gradients ---------
     training = training_phase(smi)
+    # -- 13. models off the bench widths, and every extended kernel there --
+    widths = widths_phase(smi)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],
@@ -3228,6 +3708,12 @@ def main() -> int:
          **({"device_ms": device_ms[name]} if name in device_ms else {}),
          **({"library_device_ms": device_ms["scaled_dot_product_attention"]}
             if name == FLASH else {}),
+         # the widths this run held the kernel at against its plain
+         # version: head widths, or the encoder's hidden widths
+         **({"widths": sorted({BENCH_HIDDEN if name in F32_ENCODER
+                               else BENCH_HEAD,
+                               *widths["widths"][name]})}
+            if name in widths["widths"] else {}),
          # the training phase's own run: its fits' launches, and a
          # training forward's
          **({"training_path": training["launches"][name][0],

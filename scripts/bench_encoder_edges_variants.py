@@ -55,12 +55,13 @@ CSRC = REPO / "vq_vae_transformer_arc_welding_tpu_torch" / "csrc"
 C, N_BLOCKS, ROWS, PATCH, K, D = 512, 4, 25600, 25, 256, 32
 CALLS = 10
 
-EMBED = "    embed_rows(patches, w_pe, b_pe, out, row0, n_rows, patch, ct);\n"
-SEARCH = """    nearest_rows(w_sep, b_sep, codebook, ids, row0, n_rows, d_emb, k_codes,
-                 ct);
+EMBED = ("    embed_rows<C>(patches, w_pe, b_pe, out, row0, n_rows, cw, patch, "
+         "ct);\n")
+SEARCH = """    nearest_rows<C>(w_sep, b_sep, codebook, ids, row0, n_rows, cw, d_emb,
+                    k_codes, ct);
 """
 NOINLINE = "__device__ __noinline__"
-Z_LOOP = "  for (int k0 = 0; k0 < C; k0 += Z_CHUNK) {"
+Z_LOOP = "  for (int k0 = 0; k0 < cw; k0 += Z_CHUNK) {"
 SCAN = "  for (int k = lane; k < k_codes; k += 32) {"
 W_LOAD = "      wn[j] = __ldg(w_sep + (kn + j) * D + dcol);"
 X_LOAD = "        const float4 xv = ld4(x0 + i * RSTEP * C + k);"
@@ -92,7 +93,7 @@ Z_COLS4 = """  constexpr int CG = D / 4;                      // column groups
       for (int j = 0; j < ZR; ++j) {
         const int row = rg + RG * j;
         if (row < BM) {
-          const float4 xv = ld4(a_s + a_at(row, k0 + kk));
+          const float4 xv = ld4(a_s + a_at<C>(row, k0 + kk));
           const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
@@ -125,7 +126,7 @@ VARIANTS = {
     "final": [],
     "no_embed": [(EMBED, "")],
     "no_search": [(SEARCH, "")],
-    "no_z": [(Z_LOOP, Z_LOOP.replace("k0 < C", "k0 < 0"))],
+    "no_z": [(Z_LOOP, Z_LOOP.replace("k0 < cw", "k0 < 0"))],
     "no_scan": [(SCAN, SCAN.replace("k < k_codes", "k < 0"))],
     "inlined": [(NOINLINE, "__device__ __forceinline__")],
     "z_no_w": [(W_LOAD, "      wn[j] = w[j] * 0.5f;")],

@@ -43,14 +43,15 @@ CSRC = REPO / "vq_vae_transformer_arc_welding_tpu_torch" / "csrc"
 C, N_BLOCKS = 512, 4
 ROWS = (25344, 25600)
 
-EPILOGUE_1 = "        epilogue_gelu<BN>(a_s, v, ct);\n"
-EPILOGUE_2 = """        epilogue_residual<BN>(a_s, blk == 0 && !Ends::ENTRY ? x : out, out,
-                              v, ct, row0, n_rows, blk + 1 < n_blocks,
-                              Ends::EXIT && blk + 1 == n_blocks);
+EPILOGUE_1 = "        epilogue_gelu<BN, C>(a_s, v, cw, ct);\n"
+EPILOGUE_2 = """        epilogue_residual<BN, C>(a_s, blk == 0 && !Ends::ENTRY ? x : out,
+                                 out, v, ct, row0, n_rows, cw,
+                                 blk + 1 < n_blocks,
+                                 Ends::EXIT && blk + 1 == n_blocks);
 """
-PRODUCTS = """  wgmma_m64n256k8(acc, lo, w_hi);
-  wgmma_m64n256k8(acc, hi, w_lo);
-  wgmma_m64n256k8(acc, hi, w_hi);
+PRODUCTS = """  wgmma_tf32<HALF>(acc, lo, w_hi);
+  wgmma_tf32<HALF>(acc, hi, w_lo);
+  wgmma_tf32<HALF>(acc, hi, w_hi);
 """
 LOADS = """            mbar_expect_tx(bar, STAGE);
             tma_load(base + s * STAGE, tm_w, bar, 0,
@@ -69,16 +70,17 @@ ENTRY = """
 __global__ void __launch_bounds__(arcweld::enc_tc::THREADS, 1)
 variant_kernel(const __grid_constant__ CUtensorMap tm_w,
                const float* __restrict__ x, const float* __restrict__ vecs,
-               float* out, int n_rows, int n_blocks, int use_bn) {
-  arcweld::enc_tc::encoder_tc(&tm_w, x, vecs, out, n_rows, n_blocks, use_bn);
+               float* out, int n_rows, int cw, int n_blocks, int use_bn) {
+  arcweld::enc_tc::encoder_tc<512>(&tm_w, x, vecs, out, n_rows, cw,
+                                   n_blocks, use_bn);
 }
 extern "C" int run(const void* x, const void* split, const void* vecs,
                    void* out, int n_rows, int n_blocks, int use_bn,
                    void* stream) {
-  return arcweld::enc_tc::launch(
-      variant_kernel, (const float*)x, (const float*)split,
-      (const float*)vecs, (float*)out, n_rows, n_blocks, use_bn,
-      (cudaStream_t)stream);
+  return arcweld::enc_tc::launch<512>(
+      variant_kernel, arcweld::enc_tc::Tile<512>::SMEM, (const float*)x,
+      (const float*)split, (const float*)vecs, (float*)out, n_rows, 512,
+      n_blocks, use_bn, (cudaStream_t)stream);
 }
 """
 

@@ -62,10 +62,11 @@ extern "C" int run(const void* qkv8, const void* head_scales,
                    const void* qscale, void* y8, int batch, int t,
                    int n_head, float sm_scale, void* stream) {
   namespace a8 = arcweld::attn8;
-  a8::attention_int8_kernel<<<dim3(n_head, batch, (t + a8::TT - 1) / a8::TT),
-                              a8::THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)qkv8, (const float*)head_scales, (const float*)qscale,
-      (int8_t*)y8, t, n_head, sm_scale);
+  a8::attention_int8_kernel<64, false>
+      <<<dim3(n_head, batch, (t + a8::TT - 1) / a8::TT), a8::THREADS, 0,
+         (cudaStream_t)stream>>>(
+          (const int8_t*)qkv8, (const float*)head_scales,
+          (const float*)qscale, (int8_t*)y8, t, n_head, sm_scale, 64);
   return cudaGetLastError();
 }
 """

@@ -192,7 +192,7 @@ def test_block_decode_stack_check_raises_before_any_launch():
         lambda: fused_decode.check_stack(
             blocks, [tuple(z.bfloat16() for z in kv) for kv in caches],
             n_head=2),
-        lambda: fused_decode.check_stack(blocks, caches, n_head=4),  # 32 wide
+        lambda: fused_decode.check_stack(blocks, caches, n_head=3),  # 128/3
         lambda: fused_decode.check_step(x.expand(2, 2, 128), 0, caches),
         lambda: fused_decode._checked(
             "decode_attn_f32", x, blocks[0], *caches[0], (2, 2, 9, 64), 0,

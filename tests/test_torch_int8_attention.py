@@ -43,7 +43,8 @@ from vq_vae_transformer_arc_welding_tpu_torch.ops.int8 import (
 
 REPO = Path(__file__).resolve().parent.parent
 HEADER = kernels.SRC_DIR / "attention_int8.cuh"
-HD = fbq.HEAD_DIM
+HD = 64                         # the bench model's head width: the tile
+                                # of 64, unpadded (qkv8 rows of HD bytes)
 TT = fbq.T_TILE
 WROWS = 16                      # query rows a warp
 T_CASES = [1, 45, 63, 64, 65, 321]
@@ -172,7 +173,11 @@ def _int8_close(out, ref, frac=1e-3):
 
 def test_header_constants_match():
     """The tile and the key order as the kernels compile them."""
-    assert _header_int("HD") == HD == 64
+    text = HEADER.read_text()
+    assert "static_assert(HD == 32 || HD == 64 || HD == 128" in text
+    assert [fbq.qkv8_head_width(w * n, n) for n, w in (
+        (8, 64), (8, 24), (1, 32), (2, 33), (4, 128), (64, 1))] == [
+            HD, 32, 32, 64, 128, 32]
     assert _header_int("TT") == TT
     assert _header_int("WARPS") * WROWS == TT
     expr = re.search(r"constexpr int key_of\(int p\) \{\s*return ([^;]+);",

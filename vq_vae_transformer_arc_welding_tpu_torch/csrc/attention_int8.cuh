@@ -80,24 +80,39 @@
 namespace arcweld {
 namespace attn8 {
 
-constexpr int HD = 64;          // head width
 constexpr int TT = 64;          // query rows of a block, keys of a stage,
                                 // and T's padding unit in qkv8
 constexpr int WARPS = 4;        // 16 query rows a warp: one m16 tile
 constexpr int THREADS = 32 * WARPS;
-constexpr int KROW = HD + 16;   // bytes a K or V^T row takes in shared
-                                // memory: fragment loads free of conflicts
-constexpr int STAGE = 2 * TT * KROW;    // a K tile, then a V^T tile
+constexpr int VROW = TT + 16;   // bytes a V^T row (a stage's 64 keys)
+                                // takes in shared memory
 constexpr int QUANT_THREADS = 256;
 constexpr int QUANT_ROWS = 384;         // rows of a head kept on chip by
-                                        // the quantizing pass (96 KB)
+                                        // the quantizing pass (96 KB at
+                                        // head width 64)
+
+// The tile of (padded) head width HD: 32, 64 or 128, the s8 products'
+// k in steps of 32. A head of real width hd < HD (PAD) is held in qkv8
+// padded to HD with zeros, which change neither its absmax nor any dot
+// product; the pass reads the f32 qkv only up to hd, and y8 is written
+// only there.
+template <int HD>
+struct Tile {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "a head width of the tile");
+  static constexpr int KROW = HD + 16;    // bytes a K row takes in shared
+                                          // memory: fragment loads free of
+                                          // conflicts (as VROW's)
+  static constexpr int STAGE = TT * KROW + HD * VROW;  // K, then V^T
+};
 
 __host__ __device__ constexpr int padded(int t) {
   return (t + TT - 1) / TT * TT;
 }
 
-inline size_t quant_smem(int t) {
-  return sizeof(float) * HD * (size_t)(t < QUANT_ROWS ? t : QUANT_ROWS);
+// the pass's dynamic shared memory: the head's first rows at its real
+// width hd
+inline size_t quant_smem(int t, int hd) {
+  return sizeof(float) * hd * (size_t)(t < QUANT_ROWS ? t : QUANT_ROWS);
 }
 
 // the key stored at position p of a 32-key group of v8
@@ -108,6 +123,13 @@ __host__ __device__ constexpr int key_of(int p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src)
                : "memory");
 }
@@ -145,23 +167,106 @@ __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Grid (n_head, 3, batch), QUANT_THREADS threads, quant_smem(t) bytes of
-// dynamic shared memory. qkv (batch, t, 3C) f32, C = n_head * 64.
+// The head's absmax over x_ij for i < t, j < hw (the f32 rows at src,
+// c3 floats apart), its first `kept` rows brought into xs ([row][hw],
+// compact) by cp.async as they are read; reduced over the block.
+__device__ __forceinline__ float head_absmax(const float* src, float* xs,
+                                             float* red, int t, int kept,
+                                             int hw, int c3) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kept * hw; i += QUANT_THREADS)
+    cp_async4(xs + i, src + (size_t)(i / hw) * c3 + i % hw);
+  cp_async_commit();
+  float mx = 0.0f;
+  for (int i = kept * hw + tid; i < t * hw; i += QUANT_THREADS)
+    mx = fmaxf(mx, fabsf(src[(size_t)(i / hw) * c3 + i % hw]));
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = tid; i < kept * hw; i += QUANT_THREADS)
+    mx = fmaxf(mx, fabsf(xs[i]));
+  mx = warp_max(mx);
+  if (tid % 32 == 0) red[tid / 32] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < QUANT_THREADS / 32; ++w) mx = fmaxf(mx, red[w]);
+  return mx;
+}
+
+// head_quant_kernel's padded case: the head's hw columns as f32 (c3
+// floats a row at src), its scale to *scale, and its HD-wide rows of
+// qkv8 at dst, zero from hw on and past t; a value at a time.
+template <int HD>
+__device__ __forceinline__ void head_quant_padded(const float* src,
+                                                  float* scale, int8_t* dst,
+                                                  float* xs, float* red,
+                                                  int t, int kept, int hw,
+                                                  int c3) {
+  constexpr int CH = HD / 4;               // 4-value chunks a row
+  const int tid = threadIdx.x, tp = padded(t);
+  const float s = __fdiv_rn(
+      127.0f, fmaxf(head_absmax(src, xs, red, t, kept, hw, c3), 1e-6f));
+  if (tid == 0) *scale = s;
+  // x at (row r, column e), zero past t and past hw
+  auto at = [&](int r, int e) -> float {
+    return e >= hw || r >= t ? 0.0f
+           : r < kept        ? xs[r * hw + e]
+                             : src[(size_t)r * c3 + e];
+  };
+  if (blockIdx.y < 2) {   // q8, k8: [row][e], four values a thread
+    for (int i = tid; i < tp * CH; i += QUANT_THREADS) {
+      const int r = i / CH, e = 4 * (i % CH);
+      reinterpret_cast<char4*>(dst)[i] =
+          make_char4(q8(at(r, e), s), q8(at(r, e + 1), s),
+                     q8(at(r, e + 2), s), q8(at(r, e + 3), s));
+    }
+    return;
+  }
+  for (int i = tid; i < tp / TT * HD; i += QUANT_THREADS) {   // v8^T
+    const int e = i % HD, k0 = i / HD * TT;
+    uint32_t w[TT / 4];
+#pragma unroll
+    for (int p = 0; p < TT; p += 4) {
+      int8_t v8[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v8[j] = q8(at(k0 + (p + j) / 32 * 32 + key_of((p + j) % 32), e), s);
+      w[p / 4] = pack4(v8[0], v8[1], v8[2], v8[3]);
+    }
+    uint4* o = reinterpret_cast<uint4*>(dst + (size_t)e * tp + k0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+  }
+}
+
+// Grid (n_head, 3, batch), QUANT_THREADS threads, quant_smem(t, hd) bytes
+// of dynamic shared memory. qkv (batch, t, 3C) f32, C = n_head * hd;
+// qkv8's rows HD bytes wide. Without PAD hd is HD (and read as HD): the
+// rows move as float4s; with PAD any hd < HD, a float at a time.
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(QUANT_THREADS)
 head_quant_kernel(const float* __restrict__ qkv, float* __restrict__ scales,
-                  int8_t* __restrict__ qkv8, int t, int n_head) {
+                  int8_t* __restrict__ qkv8, int t, int n_head, int hd) {
   extern __shared__ float4 xs4[];
   const float* xs = reinterpret_cast<const float*>(xs4);
   __shared__ float red[QUANT_THREADS / 32];
-  constexpr int CH = HD / 4;               // float4 chunks a row
+  constexpr int CH = HD / 4;               // 4-value chunks a row
+  const int hw = PAD ? hd : HD;            // the real head width
   const int h = blockIdx.x, which = blockIdx.y, b = blockIdx.z;
-  const int c3 = 3 * n_head * HD, tp = padded(t);
+  const int c3 = 3 * n_head * hw, tp = padded(t);
   const int kept = min(t, QUANT_ROWS);
-  const float* src = qkv + (size_t)b * t * c3 + which * (c3 / 3) + h * HD;
+  const float* src = qkv + (size_t)b * t * c3 + which * (c3 / 3) + h * hw;
   int8_t* dst =
       qkv8 + (((size_t)b * n_head + h) * 3 + which) * (size_t)tp * HD;
   const int tid = threadIdx.x;
 
+  if constexpr (PAD) {
+    head_quant_padded<HD>(src, scales + ((size_t)b * 3 + which) * n_head + h,
+                          dst, reinterpret_cast<float*>(xs4), red, t, kept,
+                          hw, c3);
+    return;
+  }
   for (int i = tid; i < kept * CH; i += QUANT_THREADS)
     cp_async16(xs4 + i, src + (size_t)(i / CH) * c3 + i % CH * 4);
   cp_async_commit();
@@ -221,26 +326,37 @@ head_quant_kernel(const float* __restrict__ qkv, float* __restrict__ scales,
 }
 
 // a 64-key stage: k8 rows [k0, k0 + 64) and, with v, v8^T's columns
+template <int HD>
 __device__ __forceinline__ void load_stage(int8_t* st, const int8_t* k8,
                                            const int8_t* v8, int k0, int tp,
                                            bool with_v) {
-  for (int i = threadIdx.x; i < TT * 4; i += THREADS) {
-    const int r = i / 4, ch = i % 4 * 16;
+  constexpr int KROW = Tile<HD>::KROW, KCH = HD / 16;  // a K row's chunks
+  int8_t* const vs = st + TT * KROW;
+  for (int i = threadIdx.x; i < TT * KCH; i += THREADS) {
+    const int r = i / KCH, ch = i % KCH * 16;
     cp_async16(st + r * KROW + ch, k8 + (size_t)(k0 + r) * HD + ch);
-    if (with_v)
-      cp_async16(st + (TT + r) * KROW + ch, v8 + (size_t)r * tp + k0 + ch);
+    // at HD == TT a V^T row has a K row's chunks: one loop takes both
+    if (HD == TT && with_v)
+      cp_async16(vs + r * VROW + ch, v8 + (size_t)r * tp + k0 + ch);
   }
+  if (HD != TT && with_v)
+    for (int i = threadIdx.x; i < HD * (TT / 16); i += THREADS) {
+      const int r = i / (TT / 16), ch = i % (TT / 16) * 16;
+      cp_async16(vs + r * VROW + ch, v8 + (size_t)r * tp + k0 + ch);
+    }
 }
 
 // The scores of 8-key block j of a stage for the warp's 16 rows:
 // s[i] of mma's accumulator (rows g, g + 8; keys 8 j + 2 tg, + 1)
+template <int HD>
 __device__ __forceinline__ void scores(int (&s)[4], const int8_t* st,
-                                       const uint32_t (&qa)[2][4], int j,
-                                       int g, int tg) {
-  const int8_t* kr = st + (8 * j + g) * KROW + 4 * tg;
+                                       const uint32_t (&qa)[HD / 32][4],
+                                       int j, int g, int tg) {
+  const int8_t* kr = st + (8 * j + g) * Tile<HD>::KROW + 4 * tg;
   s[0] = s[1] = s[2] = s[3] = 0;
-  mma_s8(s, qa[0], ld32(kr), ld32(kr + 16));
-  mma_s8(s, qa[1], ld32(kr + 32), ld32(kr + 48));
+#pragma unroll
+  for (int ks = 0; ks < HD / 32; ++ks)
+    mma_s8(s, qa[ks], ld32(kr + 32 * ks), ld32(kr + 32 * ks + 16));
 }
 
 // Pass 1 on a stage: the row's largest integer score. float(s) * factor
@@ -248,16 +364,17 @@ __device__ __forceinline__ void scores(int (&s)[4], const int8_t* st,
 // is the largest score scaled once. MASKED: the stage holds keys past
 // the warp's first row or past T (the causal and T masks, and the
 // warp's last needed 8-key block jn); else every score counts.
-template <bool MASKED>
+template <int HD, bool MASKED>
 __device__ __forceinline__ void max_stage(int (&smax)[2], const int8_t* st,
-                                          const uint32_t (&qa)[2][4], int k0,
+                                          const uint32_t (&qa)[HD / 32][4],
+                                          int k0,
                                           const int (&rows)[2], int t, int jn,
                                           int g, int tg) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if (MASKED && j >= jn) break;
     int s[4];
-    scores(s, st, qa, j, g, tg);
+    scores<HD>(s, st, qa, j, g, tg);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int kj = k0 + 8 * j + 2 * tg + i % 2;
@@ -272,14 +389,14 @@ __device__ __forceinline__ void max_stage(int (&smax)[2], const int8_t* st,
 // j's bytes go to register (j % 4) / 2 * 2, + 1 for row g + 8, at byte
 // (j % 2) * 2), then o += p8 v8. p lies in [0, 1], so q8's clip is
 // idle and p8 is the rounded p * 127.
-template <bool MASKED>
-__device__ __forceinline__ void pv_stage(int (&o)[8][4], float (&l)[2],
+template <int HD, bool MASKED>
+__device__ __forceinline__ void pv_stage(int (&o)[HD / 8][4], float (&l)[2],
                                          const int8_t* st,
-                                         const uint32_t (&qa)[2][4],
+                                         const uint32_t (&qa)[HD / 32][4],
                                          const float (&mx)[2], float factor,
                                          int k0, const int (&rows)[2], int t,
                                          int jn, int g, int tg) {
-  const int8_t* vs = st + TT * KROW;
+  const int8_t* vs = st + TT * Tile<HD>::KROW;
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     if (MASKED && 4 * kk >= jn) break;
@@ -289,7 +406,7 @@ __device__ __forceinline__ void pv_stage(int (&o)[8][4], float (&l)[2],
       const int j = 4 * kk + jj;
       if (MASKED && j >= jn) break;
       int s[4];
-      scores(s, st, qa, j, g, tg);
+      scores<HD>(s, st, qa, j, g, tg);
       uint32_t p8[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -306,22 +423,24 @@ __device__ __forceinline__ void pv_stage(int (&o)[8][4], float (&l)[2],
       pa[reg + 1] |= (p8[2] | p8[3] << 8) << sh;
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int8_t* vr = vs + (8 * n + g) * KROW + 32 * kk + 4 * tg;
+    for (int n = 0; n < HD / 8; ++n) {
+      const int8_t* vr = vs + (8 * n + g) * VROW + 32 * kk + 4 * tg;
       mma_s8(o[n], pa, ld32(vr), ld32(vr + 16));
     }
   }
 }
 
 // Grid (n_head, batch, ceil(t / 64)), THREADS threads: the heaviest
-// query tiles of every (batch, head) first. y8 (batch, t, C).
+// query tiles of every (batch, head) first. y8 (batch, t, C), C =
+// n_head * hd; without PAD hd is HD.
+template <int HD, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 attention_int8_kernel(const int8_t* __restrict__ qkv8,
                       const float* __restrict__ head_scales,
                       const float* __restrict__ qscale,
                       int8_t* __restrict__ y8, int t, int n_head,
-                      float sm_scale) {
-  __shared__ __align__(16) int8_t stages[2][STAGE];
+                      float sm_scale, int hd) {
+  __shared__ __align__(16) int8_t stages[2][Tile<HD>::STAGE];
   const int tp = padded(t);
   const int q0 = (gridDim.z - 1 - blockIdx.z) * TT;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -335,9 +454,9 @@ attention_int8_kernel(const int8_t* __restrict__ qkv8,
   const float sq = hs[0], sk = hs[n_head], sv = hs[2 * n_head];
   const float factor = __fdiv_rn(sm_scale, __fmul_rn(sq, sk));
 
-  uint32_t qa[2][4];          // Q's A fragments, head dims 0-31 and 32-63
+  uint32_t qa[HD / 32][4];     // Q's A fragments, head dims 32 ks ..
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
+  for (int ks = 0; ks < HD / 32; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       qa[ks][i] = ld32(qh + (size_t)rows[i % 2] * HD + ks * 32 + i / 2 * 16 +
@@ -346,15 +465,15 @@ attention_int8_kernel(const int8_t* __restrict__ qkv8,
   const int n_kt = (min(t, q0 + TT) + TT - 1) / TT;   // key tiles a pass
   int smax[2] = {INT_MIN, INT_MIN};
   float mx[2], l[2] = {0.0f, 0.0f};
-  int o[8][4] = {};
-  load_stage(stages[0], kh, vh, 0, tp, false);
+  int o[HD / 8][4] = {};
+  load_stage<HD>(stages[0], kh, vh, 0, tp, false);
   cp_async_commit();
   for (int step = 0; step < 2 * n_kt; ++step) {
     const bool pass2 = step >= n_kt;
     if (step + 1 < 2 * n_kt) {
       const int nxt = step + 1;
-      load_stage(stages[nxt % 2], kh, vh, (nxt % n_kt) * TT, tp,
-                 nxt >= n_kt);
+      load_stage<HD>(stages[nxt % 2], kh, vh, (nxt % n_kt) * TT, tp,
+                     nxt >= n_kt);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -367,13 +486,13 @@ attention_int8_kernel(const int8_t* __restrict__ qkv8,
       const bool full = k0 + TT - 1 <= r0 && k0 + TT <= t;
       if (!pass2) {
         if (full)
-          max_stage<false>(smax, st, qa, k0, rows, t, jn, g, tg);
+          max_stage<HD, false>(smax, st, qa, k0, rows, t, jn, g, tg);
         else
-          max_stage<true>(smax, st, qa, k0, rows, t, jn, g, tg);
+          max_stage<HD, true>(smax, st, qa, k0, rows, t, jn, g, tg);
       } else if (full) {
-        pv_stage<false>(o, l, st, qa, mx, factor, k0, rows, t, jn, g, tg);
+        pv_stage<HD, false>(o, l, st, qa, mx, factor, k0, rows, t, jn, g, tg);
       } else {
-        pv_stage<true>(o, l, st, qa, mx, factor, k0, rows, t, jn, g, tg);
+        pv_stage<HD, true>(o, l, st, qa, mx, factor, k0, rows, t, jn, g, tg);
       }
     }
     if (step == n_kt - 1)
@@ -386,19 +505,29 @@ attention_int8_kernel(const int8_t* __restrict__ qkv8,
     __syncthreads();
   }
 
-  const int c = n_head * HD;
+  const int hw = PAD ? hd : HD;       // the real head width
+  const int c = n_head * hw;
   const float qs = *qscale, dq = __fmul_rn(127.0f, sv);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (rows[r] >= t) continue;
-    int8_t* yr = y8 + ((size_t)b * t + rows[r]) * c + h * HD + 2 * tg;
+    int8_t* yr = y8 + ((size_t)b * t + rows[r]) * c + h * hw + 2 * tg;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<char2*>(yr + 8 * n) = make_char2(
-          q8(__fdiv_rn(__fdiv_rn((float)o[n][2 * r], dq), l[r]), qs),
-          q8(__fdiv_rn(__fdiv_rn((float)o[n][2 * r + 1], dq), l[r]), qs));
+    for (int n = 0; n < HD / 8; ++n) {
+      const int8_t y0 =
+          q8(__fdiv_rn(__fdiv_rn((float)o[n][2 * r], dq), l[r]), qs);
+      const int8_t y1 =
+          q8(__fdiv_rn(__fdiv_rn((float)o[n][2 * r + 1], dq), l[r]), qs);
+      if (!PAD) {
+        *reinterpret_cast<char2*>(yr + 8 * n) = make_char2(y0, y1);
+      } else {     // a byte at a time: an odd hd leaves pairs unaligned
+        const int e = 8 * n + 2 * tg;
+        if (e < hw) yr[8 * n] = y0;
+        if (e + 1 < hw) yr[8 * n + 1] = y1;
+      }
+    }
   }
 }
 

@@ -38,7 +38,12 @@
 // renumbered (k index tg -> key 2 tg, tg + 4 -> key 2 tg + 1), so that the
 // scores are P's A fragment as they stand; V is read [key][dim] with the
 // same renumbering. Row strides of 68 floats keep every fragment and score
-// load free of bank conflicts.
+// load free of bank conflicts (RS = HD + 4 at every head width).
+//
+// Head widths: the tile is a template of the head width HD, instantiated
+// at 32, 64 and 128 (Shape below). A narrower real head runs padded with
+// zero columns; at HD 128 the tile's 203 KB of shared memory leave one
+// block an SM.
 //
 // What bounds it on an H100 (at the bench shape, T = 321, B = 80, H = 8):
 // the bytes of q, k, v and the output (210 MB f32, 3.35 TB/s: 0.063 ms);
@@ -56,26 +61,43 @@
 namespace arcweld {
 namespace attn_tc {
 
-constexpr int HD = 64;                  // head width
 constexpr int WROWS = 16;               // query rows per warp: one m16 tile
-constexpr int RS = HD + 4;              // row stride of Q, K and V tiles
-
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int MIN_BLOCKS = 2;           // blocks an SM must hold
 constexpr int QROWS = WROWS * WARPS;    // query rows per block
 constexpr int KT = 64;                  // keys per stage
 constexpr int NB = KT / 8;              // 8-key column blocks
-constexpr int STAGE = 2 * KT * RS;      // K then V, floats
-constexpr size_t SMEM = sizeof(float) * (QROWS * RS + 2 * STAGE);
+constexpr int MAX_HD = 128;             // the widest head an instantiation takes
+
+// The tile of head width HD (32, 64 or 128): a head of real width hd
+// <= HD runs on the smallest that holds it (PAD, below, unless hd == HD
+// == 64), its columns hd .. HD - 1 zero-filled in shared memory. A zero
+// column adds an exact 0.0 to every score (the FMA chain over the real
+// columns is unchanged), and P@V's columns past hd are never stored.
+template <int HD>
+struct Shape {
+  static constexpr int RS = HD + 4;     // row stride of Q, K and V tiles
+  // two blocks an SM where the shared memory holds them (about 203 KB
+  // a block at HD 128, one an SM)
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;
+  static constexpr int STAGE = 2 * KT * RS;      // K then V, floats
+  static constexpr size_t SMEM = sizeof(float) * (QROWS * RS + 2 * STAGE);
+};
+
+// the instantiation a real head width hd runs on
+__host__ __device__ constexpr int padded_head(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+}
 
 inline dim3 grid(int batch, int n_head, int t) {
   return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
 }
 
 // q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e (floats).
-// vec16: every row starts 16-byte aligned (the pointers and the strides),
-// so rows are copied 16 bytes at a time, else 4.
+// vec16: every row starts 16-byte aligned (the pointers and the strides,
+// and hd a multiple of 4 where the head is padded), so rows are copied
+// 16 bytes at a time, else 4. hd: the real head width, read only by a
+// padded tile; sm_scale is 1/sqrt(hd).
 struct Operands {
   const float* q;
   const float* k;
@@ -84,15 +106,16 @@ struct Operands {
   int t;
   float sm_scale;
   bool vec16;
+  int hd;
 };
 
 __host__ inline bool rows_aligned16(const void* q, const void* k,
                                     const void* v, long long sb,
-                                    long long sh, long long st) {
+                                    long long sh, long long st, int hd) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(q) |
                       reinterpret_cast<uintptr_t>(k) |
                       reinterpret_cast<uintptr_t>(v);
-  return p % 16 == 0 && (sb | sh | st) % 4 == 0;
+  return p % 16 == 0 && (sb | sh | st | hd) % 4 == 0;
 }
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -156,22 +179,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [r0, r0 + N) of x (64 floats each, row i at base + i * st) into
+// rows [r0, r0 + N) of x (HD floats each, row i at base + i * st) into
 // dst, RS floats apart, by the block's THREADS threads; rows outside
-// [0, t) are zero-filled
-template <int N>
+// [0, t), and with PAD the columns from hd on, are zero-filled
+template <int N, int HD, bool PAD>
 __device__ __forceinline__ void copy_rows(float* dst, const float* x,
                                           long long base, long long st,
-                                          int r0, int t, bool vec16) {
+                                          int r0, int t, bool vec16, int hd) {
+  constexpr int RS = Shape<HD>::RS;
   if (vec16) {
 #pragma unroll
     for (int i = 0; i < N * HD / 4 / THREADS; ++i) {
       const int c = threadIdx.x + i * THREADS;
       const int row = c / (HD / 4), col = 4 * (c % (HD / 4));
       const int r = r0 + row;
-      const bool ok = r >= 0 && r < t;
+      const bool ok = r >= 0 && r < t && (!PAD || col < hd);
       cp_async16(dst + row * RS + col,
-                 x + base + (long long)(ok ? r : 0) * st + col, ok);
+                 x + base + (long long)(ok ? r : 0) * st +
+                     (PAD && !ok ? 0 : col),
+                 ok);
     }
   } else {
 #pragma unroll 4
@@ -179,9 +205,11 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* x,
       const int e = threadIdx.x + i * THREADS;
       const int row = e / HD, col = e % HD;
       const int r = r0 + row;
-      const bool ok = r >= 0 && r < t;
+      const bool ok = r >= 0 && r < t && (!PAD || col < hd);
       cp_async4(dst + row * RS + col,
-                x + base + (long long)(ok ? r : 0) * st + col, ok);
+                x + base + (long long)(ok ? r : 0) * st +
+                    (PAD && !ok ? 0 : col),
+                ok);
     }
   }
 }
@@ -201,10 +229,15 @@ __device__ __forceinline__ float quad_sum(float v) {
 // (warp, g = lane / 4, tg = lane % 4) holds rows g and g + 8 of it, and
 // of each 8-column block the columns 2 tg, 2 tg + 1 (mma's accumulator
 // layout). store(b, h, row, col, y0, y1, l) writes columns col, col + 1
-// of a valid row: y / l.
-template <class Store>
+// of a valid row: y / l; with PAD, store.one(b, h, row, col, y, l) writes
+// column col alone, for the columns below in.hd (any hd: a pair of an
+// odd-width head is not aligned).
+template <int HD, bool PAD, class Store>
 __device__ __forceinline__ void causal_attention_tile(const Operands& in,
                                                       const Store& store) {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "a head width of the tile");
+  constexpr int RS = Shape<HD>::RS;
+  constexpr int STAGE = Shape<HD>::STAGE;
   constexpr int R = 2;                  // a thread's rows: g, g + 8
   extern __shared__ float4 smem4[];
   float* const q_s = reinterpret_cast<float*>(smem4);  // QROWS x RS
@@ -224,9 +257,11 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
 #pragma unroll
   for (int r = 0; r < R; ++r) lim[r] = max(w0 + g + 8 * r, 0);
 
-  copy_rows<QROWS>(q_s, in.q, base, in.st, q_end - QROWS, in.t, in.vec16);
-  copy_rows<KT>(stages, in.k, base, in.st, 0, in.t, in.vec16);
-  copy_rows<KT>(stages + KT * RS, in.v, base, in.st, 0, in.t, in.vec16);
+  copy_rows<QROWS, HD, PAD>(q_s, in.q, base, in.st, q_end - QROWS, in.t,
+                            in.vec16, in.hd);
+  copy_rows<KT, HD, PAD>(stages, in.k, base, in.st, 0, in.t, in.vec16, in.hd);
+  copy_rows<KT, HD, PAD>(stages + KT * RS, in.v, base, in.st, 0, in.t,
+                         in.vec16, in.hd);
   cp_async_commit();
 
   // o[n]: rows g (0, 1) and g + 8 (2, 3), head dims 8 n + 2 tg, + 1
@@ -243,9 +278,10 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
     const int k0 = it * KT;
     if (it + 1 < n_tiles) {
       float* next = stages + ((it + 1) & 1) * STAGE;
-      copy_rows<KT>(next, in.k, base, in.st, k0 + KT, in.t, in.vec16);
-      copy_rows<KT>(next + KT * RS, in.v, base, in.st, k0 + KT, in.t,
-                    in.vec16);
+      copy_rows<KT, HD, PAD>(next, in.k, base, in.st, k0 + KT, in.t,
+                             in.vec16, in.hd);
+      copy_rows<KT, HD, PAD>(next + KT * RS, in.v, base, in.st, k0 + KT,
+                             in.t, in.vec16, in.hd);
     }
     cp_async_commit();
     cp_async_wait<1>();   // this stage's copies (and Q's) have landed
@@ -256,7 +292,7 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
     const int nb = min(max((w_end - k0 + 7) / 8, 0), NB);
 
     if (nb > 0) {
-      // s[r][j][c] = fma(q_e, k_e, s) over e = 0 .. 63 in order: row r,
+      // s[r][j][c] = fma(q_e, k_e, s) over e = 0 .. HD - 1 in order: row r,
       // key 8 j + 2 tg + c
       float s[R][NB][2];
 #pragma unroll
@@ -358,8 +394,16 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
     const int row = w0 + g + 8 * r;
     if (row < 0) continue;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      store(b, h, row, 8 * n + 2 * tg, o[n][2 * r], o[n][2 * r + 1], l[r]);
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = 8 * n + 2 * tg;
+      if (!PAD) {
+        store(b, h, row, col, o[n][2 * r], o[n][2 * r + 1], l[r]);
+      } else {
+        if (col < in.hd) store.one(b, h, row, col, o[n][2 * r], l[r]);
+        if (col + 1 < in.hd)
+          store.one(b, h, row, col + 1, o[n][2 * r + 1], l[r]);
+      }
+    }
   }
 }
 

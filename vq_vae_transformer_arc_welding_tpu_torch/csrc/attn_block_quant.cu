@@ -25,7 +25,8 @@
 // [ln1_s, ln1_b, ln2_s, ln2_b, deq_proj, b_proj]; v3c (2, 3C) f32 rows
 // [deq_qkv, b_qkv]. Scratch: h8a (B*T, C) int8, qkv (B*T, 3C) f32,
 // y8 (B*T, C) int8; int8_attn only: head_scales (B, 3, n_head) f32 and
-// qkv8 (B, n_head, 3, T_pad * 64) int8, the attention's int8 operands
+// qkv8 (B, n_head, 3, T_pad * HD) int8, the attention's int8 operands,
+// HD the head width C / n_head padded to 32, 64 or 128
 // (attention_int8.cuh).
 // Outputs: x_mid (B*T, C) f32, h8 (B*T, C) int8; rail_rows (B*T,) int32
 // or null: each row's count of h8 at +-127.
@@ -38,7 +39,7 @@ extern "C" int attn_block_quant(const void* x, const void* w_qkv,
                                 void* rail_rows, int batch, int t, int c,
                                 int n_head, float sm_scale, int int8_attn,
                                 void* stream) {
-  if (c % 64 != 0 || c > arcweld::LN_MAX_C || c != n_head * arcweld::HEAD_DIM)
+  if (c % 64 != 0 || c > arcweld::LN_MAX_C || !arcweld::heads_ok(c, n_head))
     return cudaErrorInvalidValue;
   return arcweld::launch_attn_half(
       static_cast<const float*>(x), static_cast<const int8_t*>(w_qkv),
@@ -51,4 +52,5 @@ extern "C" int attn_block_quant(const void* x, const void* w_qkv,
       n_head, sm_scale, int8_attn != 0, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int attn_block_quant_head_dim() { return arcweld::HEAD_DIM; }
+// the widest head the attention kernels take (#2, #6, #9, #10, #11)
+extern "C" int attention_max_head_dim() { return arcweld::MAX_HEAD_DIM; }

@@ -15,14 +15,16 @@
 // TPU kernel kept in VMEM.
 #include "int8_block.cuh"
 
-// qkv (B*T, 3C) f32, C = n_head * 64; y_scale () f32. Output y8 (B*T, C)
-// int8. sm_scale: 1/sqrt(64), rounded to f32 by the caller.
+// qkv (B*T, 3C) f32, n_head heads of width C / n_head <= 128; y_scale
+// () f32. Output y8 (B*T, C) int8. sm_scale: 1/sqrt(C / n_head), rounded
+// to f32 by the caller.
 extern "C" int causal_attention_quant(const void* qkv, const void* y_scale,
-                                      void* y8, int batch, int t, int n_head,
-                                      float sm_scale, void* stream) {
+                                      void* y8, int batch, int t, int c,
+                                      int n_head, float sm_scale,
+                                      void* stream) {
   return arcweld::launch_attention(
       static_cast<const float*>(qkv), static_cast<const float*>(y_scale),
-      static_cast<int8_t*>(y8), batch, t, n_head, sm_scale,
+      static_cast<int8_t*>(y8), batch, t, c, n_head, sm_scale,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -34,7 +36,7 @@ extern "C" int qkv_attention_quant(const void* h, const void* w_qkv,
                                    void* h8, void* qkv, void* y8, int batch,
                                    int t, int c, int n_head, float sm_scale,
                                    void* stream) {
-  if (c % 64 != 0 || c != n_head * arcweld::HEAD_DIM)
+  if (c % 64 != 0 || !arcweld::heads_ok(c, n_head))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scales);
@@ -50,6 +52,6 @@ extern "C" int qkv_attention_quant(const void* h, const void* w_qkv,
                            s);
   if (e != cudaSuccess) return e;
   return arcweld::launch_attention(static_cast<const float*>(qkv), sc + 1,
-                                   static_cast<int8_t*>(y8), batch, t, n_head,
-                                   sm_scale, s);
+                                   static_cast<int8_t*>(y8), batch, t, c,
+                                   n_head, sm_scale, s);
 }

@@ -58,7 +58,10 @@
 //    are its 64 floats) and loads UNROLL keys' K and V rows at once, the
 //    first round of them (all but row pos) before the barrier that ends
 //    the qkv product; its softmax runs online (flash-decoding within the
-//    block), so any T is taken and no score leaves the registers.
+//    block), so any T is taken and no score leaves the registers. Other
+//    head widths (up to 128): a head up to 64 wide on 16 lanes a key, up
+//    to 128 on a warp a key, its lanes past the real width holding zeros
+//    (Attend); the 64-wide head keeps its own instantiation.
 //  - Deterministic: every sum runs in a fixed order and no float atomic
 //    is used, so two calls give the same bits. FMA contraction is allowed:
 //    the contract with the plain version is a tolerance.
@@ -77,11 +80,11 @@
 
 namespace {
 
+using arcweld::attn_tc::MAX_HD;   // the widest head the attention takes
 using arcweld::attn_tc::mma_tf32;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int HD = 64;             // head width the attention is written for
 constexpr int ROWS = 16;           // a row tile: mma's m16
 constexpr int NCOL = 8;            // weight rows (output columns) a chunk: n8
 constexpr int MAX_KC = 512;        // a chunk's k extent, at most
@@ -102,7 +105,7 @@ constexpr int MAX_GRID = 1024;     // blocks; the barrier's counts follow
 constexpr int TILE_FLOATS = ROWS * MAX_KC;
 constexpr int RED_FLOATS = WARPS * MAX_CG * ROWS * NCOL;
 constexpr int STAT_FLOATS = 2 * ROWS;
-constexpr int ATT_FLOATS = 16 * HD + 32;
+constexpr int ATT_FLOATS = 16 * 64 + 32;   // the widest need (Attend)
 constexpr size_t SMEM = 232448;    // the most a block may have
 // the ring and the tiles are copied to in 16-byte units
 constexpr size_t BAR_BYTES = (8 * (MAX_BARS + NBUF) + 127) / 128 * 128;
@@ -549,7 +552,9 @@ struct Cursor {
 // or is issued here; each tile's successor is issued before the tile is
 // read. The epilogue's operands are loaded before the products. Returns
 // the cursor after the product.
-template <Epilogue EPI, bool LN>
+// HW: the head width the QKV epilogue writes the caches at, 0 for
+// a.c / a.n_head read at run time.
+template <Epilogue EPI, bool LN, int HW = 64>
 __device__ Cursor product(const Plan& pl, const DecodeArgs& a, int p,
                           const float* A, const float* ln_s,
                           const float* ln_b, const float* bias,
@@ -757,9 +762,9 @@ __device__ Cursor product(const Plan& pl, const DecodeArgs& a, int p,
         if (col < a.c) {
           out[(size_t)row * a.c + col] = y;
         } else {
-          const int cc2 = (col - a.c) % a.c;
+          const int cc2 = (col - a.c) % a.c, hd = HW ? HW : a.c / a.n_head;
           float* dst = col < 2 * a.c ? a.kc : a.vc;
-          dst[row * a.sb + (cc2 / HD) * a.sh + pos * a.st + cc2 % HD] = y;
+          dst[row * a.sb + (cc2 / hd) * a.sh + pos * a.st + cc2 % hd] = y;
         }
       } else if constexpr (EPI == RESIDUAL) {
         if (P.nsplit > 1)             // this piece's share, no bias
@@ -801,41 +806,73 @@ __device__ Cursor product(const Plan& pl, const DecodeArgs& a, int p,
   return cur;
 }
 
-// A half warp's keys j0 + 16 u + hw (u < UNROLL) of a (sample, head):
-// their K and V rows, zero past key n - 1 and at key `skip`
+// The attention's split of a head over lanes: LPK lanes a key, a float4
+// of the head each (LPK = 16: heads up to 64 wide, 32: up to 128), NG =
+// THREADS / LPK keys in flight a round of the block. PAD: the real head
+// width hd = C / n_head is below 4 LPK (any hd, so the rows are read a
+// float at a time and the lanes past hd hold zeros); without it hd is 4
+// LPK = 64, the bench model's head, read as float4s.
+template <int LPK, bool PAD>
+struct Attend {
+  static constexpr int NG = THREADS / LPK;
+  static constexpr int HDP = 4 * LPK;
+  static_assert(NG * HDP + 2 * NG <= ATT_FLOATS, "the attention's floats");
+};
+
+// floats e .. e + 3 of a row at p, zero from hd on
+__device__ __forceinline__ float4 ld_head4(const float* p, int e, int hd) {
+  return make_float4(e < hd ? __ldcg(p) : 0.0f,
+                     e + 1 < hd ? __ldcg(p + 1) : 0.0f,
+                     e + 2 < hd ? __ldcg(p + 2) : 0.0f,
+                     e + 3 < hd ? __ldcg(p + 3) : 0.0f);
+}
+
+// A group's keys j0 + NG u + kg (u < UNROLL) of a (sample, head): their
+// K and V rows, zero past key n - 1 and at key `skip`
 struct Keys {
   float4 k[UNROLL], v[UNROLL];
 };
 
+template <int LPK, bool PAD>
 __device__ __forceinline__ void load_keys(const DecodeArgs& a, int item,
                                           int j0, int n, int skip,
                                           Keys& r) {
-  const int hw = threadIdx.x / 16, l = threadIdx.x % 16;
+  constexpr int NG = Attend<LPK, PAD>::NG;
+  const int hw = threadIdx.x / LPK, l = threadIdx.x % LPK;
+  const int hd = PAD ? a.c / a.n_head : 4 * LPK;
   const long long base = (item / a.n_head) * a.sb +
                          (item % a.n_head) * a.sh + 4 * l;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
-    const int j = j0 + 16 * u + hw;
+    const int j = j0 + NG * u + hw;
     const long long at = base + (long long)j * a.st;
     const bool ok = j < n && j != skip;
-    r.k[u] = ok ? __ldcg(reinterpret_cast<const float4*>(a.kc + at)) : zero;
-    r.v[u] = ok ? __ldcg(reinterpret_cast<const float4*>(a.vc + at)) : zero;
+    if (PAD) {
+      r.k[u] = ok ? ld_head4(a.kc + at, 4 * l, hd) : zero;
+      r.v[u] = ok ? ld_head4(a.vc + at, 4 * l, hd) : zero;
+    } else {
+      r.k[u] = ok ? __ldcg(reinterpret_cast<const float4*>(a.kc + at)) : zero;
+      r.v[u] = ok ? __ldcg(reinterpret_cast<const float4*>(a.vc + at)) : zero;
+    }
   }
 }
 
-// y[b, h*64 ..] = softmax(q . K[:pos+1]^T * sm_scale) V[:pos+1] for the
-// (sample, head) pairs blockIdx.x, + gridDim.x, ...; a half warp takes a
-// key, 16 lanes x float4 its 64 floats, and loads UNROLL keys' K and V
-// rows at once (q after the first of them). r comes holding the first
-// round of keys of the block's first pair but row pos, loaded before the
-// grid barrier that makes row pos and q visible. Each half warp keeps
-// its keys' softmax online (a running max, the sum and P@V rescaled when
-// the max grows), and the 16 half warps are merged in a fixed order at
-// the end. q, y (batch, C).
+// y[b, h*hd ..] = softmax(q . K[:pos+1]^T * sm_scale) V[:pos+1] for the
+// (sample, head) pairs blockIdx.x, + gridDim.x, ...; a group of LPK
+// lanes takes a key, a float4 of its hd floats a lane, and loads UNROLL
+// keys' K and V rows at once (q after the first of them). r comes
+// holding the first round of keys of the block's first pair but row
+// pos, loaded before the grid barrier that makes row pos and q visible.
+// Each group keeps its keys' softmax online (a running max, the sum and
+// P@V rescaled when the max grows), and the NG groups are merged in a
+// fixed order at the end. q, y (batch, C).
+template <int LPK, bool PAD>
 __device__ void attention(const DecodeArgs& a, int pos, const float* q,
                           float* y, float* part, float* ml, Keys& r) {
-  const int tid = threadIdx.x, hw = tid / 16, l = tid % 16;
+  constexpr int NG = Attend<LPK, PAD>::NG, HDP = Attend<LPK, PAD>::HDP;
+  const int tid = threadIdx.x, hw = tid / LPK, l = tid % LPK;
+  const int hd = PAD ? a.c / a.n_head : HDP;
   const int n = pos + 1;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int item = blockIdx.x; item < a.batch * a.n_head;
@@ -845,23 +882,29 @@ __device__ void attention(const DecodeArgs& a, int pos, const float* q,
     float m = -INFINITY, sum = 0.0f;
     float4 acc = zero;
     // every thread walks the same steps: the shuffles need all lanes
-    for (int j0 = 0; j0 < n; j0 += 16 * UNROLL) {
+    for (int j0 = 0; j0 < n; j0 += NG * UNROLL) {
       if (item != blockIdx.x || j0 > 0) {
-        load_keys(a, item, j0, n, -1, r);
-      } else if (pos < 16 * UNROLL) {          // row pos joins the first
+        load_keys<LPK, PAD>(a, item, j0, n, -1, r);
+      } else if (pos < NG * UNROLL) {          // row pos joins the first
         const long long at = b * a.sb + h * a.sh + 4 * l +
                              (long long)pos * a.st;
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          if (16 * u + hw == pos) {
-            r.k[u] = __ldcg(reinterpret_cast<const float4*>(a.kc + at));
-            r.v[u] = __ldcg(reinterpret_cast<const float4*>(a.vc + at));
+          if (NG * u + hw == pos) {
+            if (PAD) {
+              r.k[u] = ld_head4(a.kc + at, 4 * l, hd);
+              r.v[u] = ld_head4(a.vc + at, 4 * l, hd);
+            } else {
+              r.k[u] = __ldcg(reinterpret_cast<const float4*>(a.kc + at));
+              r.v[u] = __ldcg(reinterpret_cast<const float4*>(a.vc + at));
+            }
           }
         }
       }
       if (j0 == 0)
-        qv = __ldcg(reinterpret_cast<const float4*>(q + (size_t)b * a.c +
-                                                    h * HD) + l);
+        qv = PAD ? ld_head4(q + (size_t)b * a.c + h * hd + 4 * l, 4 * l, hd)
+                 : __ldcg(reinterpret_cast<const float4*>(
+                              q + (size_t)b * a.c + h * HDP) + l);
     float s[UNROLL];
       float m_new = m;
 #pragma unroll
@@ -869,12 +912,12 @@ __device__ void attention(const DecodeArgs& a, int pos, const float* q,
         float d = qv.x * r.k[u].x + qv.y * r.k[u].y + qv.z * r.k[u].z +
                   qv.w * r.k[u].w;
 #pragma unroll
-        for (int o = 8; o > 0; o >>= 1)
+        for (int o = LPK / 2; o > 0; o >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, o);
-        s[u] = j0 + 16 * u + hw < n ? d * a.sm_scale : -INFINITY;
+        s[u] = j0 + NG * u + hw < n ? d * a.sm_scale : -INFINITY;
         m_new = fmaxf(m_new, s[u]);
       }
-      if (m_new == -INFINITY) continue;      // none of this half warp's
+      if (m_new == -INFINITY) continue;      // none of this group's
       const float alpha = expf(m - m_new);   // 0 while m is -inf
       sum *= alpha;
       acc.x *= alpha;
@@ -892,30 +935,32 @@ __device__ void attention(const DecodeArgs& a, int pos, const float* q,
       }
       m = m_new;
     }
-    *reinterpret_cast<float4*>(part + hw * HD + 4 * l) = acc;
+    *reinterpret_cast<float4*>(part + hw * HDP + 4 * l) = acc;
     if (l == 0) {
       ml[hw] = m;
-      ml[16 + hw] = sum;
+      ml[NG + hw] = sum;
     }
     __syncthreads();
-    if (tid < HD) {
+    if (tid < hd) {
       float mx = ml[0];
 #pragma unroll
-      for (int i = 1; i < 16; ++i) mx = fmaxf(mx, ml[i]);
+      for (int i = 1; i < NG; ++i) mx = fmaxf(mx, ml[i]);
       float o = 0.0f, den = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float w = expf(ml[i] - mx);      // 0 for a half warp of no key
-        o += w * part[i * HD + tid];
-        den += w * ml[16 + i];
+      for (int i = 0; i < NG; ++i) {
+        const float w = expf(ml[i] - mx);      // 0 for a group of no key
+        o += w * part[i * HDP + tid];
+        den += w * ml[NG + i];
       }
-      y[(size_t)b * a.c + h * HD + tid] = o / den;
+      y[(size_t)b * a.c + h * hd + tid] = o / den;
     }
     __syncthreads();
   }
 }
 
-template <bool MLP>
+// LPK, PAD: the attention's split (Attend); the head width 64 runs at
+// <16, false>
+template <bool MLP, int LPK, bool PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_kernel(const DecodeArgs a, const float* __restrict__ x,
               float* __restrict__ out, int pos) {
@@ -926,7 +971,7 @@ decode_kernel(const DecodeArgs a, const float* __restrict__ x,
   float* red = tile_buf + NBUF * TILE_FLOATS;
   float* stats = red + RED_FLOATS;
   float* part = stats + STAT_FLOATS;
-  float* ml = part + 16 * HD;
+  float* ml = part + Attend<LPK, PAD>::NG * Attend<LPK, PAD>::HDP;
 
   const size_t bc = (size_t)a.batch * a.c;
   float* q = a.scratch;
@@ -961,17 +1006,19 @@ decode_kernel(const DecodeArgs a, const float* __restrict__ x,
   issue(pl, a, ring, bars, 0, cur.issued, threadIdx.x / 32, WARPS);
   stamp(1);
 
-  cur = product<QKV, true>(pl, a, 0, x, a.ln1_s, a.ln1_b, a.b_qkv, nullptr,
-                           q, pos, ring, bars, tiles, cur, true, red, stats);
+  cur = product<QKV, true, PAD ? 0 : 4 * LPK>(pl, a, 0, x, a.ln1_s, a.ln1_b,
+                                             a.b_qkv, nullptr, q, pos, ring,
+                                             bars, tiles, cur, true, red,
+                                             stats);
   // the attention's first keys (all but row pos, which the qkv product
   // has just written) fly over the barrier
   Keys keys;
   if ((int)blockIdx.x < a.batch * a.n_head)
-    load_keys(a, blockIdx.x, 0, pos + 1, pos, keys);
+    load_keys<LPK, PAD>(a, blockIdx.x, 0, pos + 1, pos, keys);
   stamp(2);
   grid_sync(a.barrier);
   stamp(3);
-  attention(a, pos, q, y, part, ml, keys);
+  attention<LPK, PAD>(a, pos, q, y, part, ml, keys);
   stamp(4);
   grid_sync(a.barrier);
   stamp(5);
@@ -997,7 +1044,8 @@ decode_kernel(const DecodeArgs a, const float* __restrict__ x,
 
 // the shapes the kernel takes; the grid's columns a block at most
 bool valid(const DecodeArgs& a, int pos, bool mlp, int grid) {
-  if (a.batch < 1 || a.n_head < 1 || a.c != a.n_head * HD ||
+  if (a.batch < 1 || a.n_head < 1 || a.c % a.n_head != 0 ||
+      a.c / a.n_head > MAX_HD ||
       a.c > 4 * 32 * LN_VEC || pos < 0 || pos >= a.t || grid < 1)
     return false;
   if (mlp && (a.c4 < 64 || a.c4 % 64)) return false;
@@ -1012,7 +1060,7 @@ bool valid(const DecodeArgs& a, int pos, bool mlp, int grid) {
 
 // once per device and kernel: the shared memory attribute, and the grid
 // (one block per SM, checked against the occupancy the card reports)
-template <bool MLP>
+template <bool MLP, int LPK, bool PAD>
 cudaError_t grid_of(int* grid) {
   constexpr int MAX_DEVICES = 64;
   static std::once_flag once[MAX_DEVICES];
@@ -1028,11 +1076,11 @@ cudaError_t grid_of(int* grid) {
                                       dev);
     if (err[dev] == cudaSuccess)
       err[dev] = cudaFuncSetAttribute(
-          decode_kernel<MLP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)SMEM);
+          decode_kernel<MLP, LPK, PAD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err[dev] == cudaSuccess)
       err[dev] = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, decode_kernel<MLP>, THREADS, SMEM);
+          &per_sm, decode_kernel<MLP, LPK, PAD>, THREADS, SMEM);
     if (err[dev] == cudaSuccess && per_sm < 1)
       err[dev] = cudaErrorCooperativeLaunchTooLarge;
     blocks[dev] = sms;
@@ -1041,11 +1089,11 @@ cudaError_t grid_of(int* grid) {
   return err[dev];
 }
 
-template <bool MLP>
-int launch(const DecodeArgs* a, const void* x, void* out, int pos,
-           void* stream) {
+template <bool MLP, int LPK, bool PAD>
+int launch_at(const DecodeArgs* a, const void* x, void* out, int pos,
+              void* stream) {
   int grid;
-  cudaError_t e = grid_of<MLP>(&grid);
+  cudaError_t e = grid_of<MLP, LPK, PAD>(&grid);
   if (e != cudaSuccess) return e;
   if (a == nullptr || !valid(*a, pos, MLP, grid)) return cudaErrorInvalidValue;
   DecodeArgs args = *a;
@@ -1053,15 +1101,28 @@ int launch(const DecodeArgs* a, const void* x, void* out, int pos,
   float* op = static_cast<float*>(out);
   void* params[] = {&args, &xp, &op, &pos};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(decode_kernel<MLP>), dim3(grid),
+      reinterpret_cast<const void*>(decode_kernel<MLP, LPK, PAD>), dim3(grid),
       dim3(THREADS), params, SMEM, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+// the instantiation of the block's head width: 64 on <16, false>, up
+// to 64 padded on 16 lanes a key, up to 128 on 32
+template <bool MLP>
+int launch(const DecodeArgs* a, const void* x, void* out, int pos,
+           void* stream) {
+  if (a == nullptr || a->n_head < 1) return cudaErrorInvalidValue;
+  const int hd = a->c / a->n_head;
+  if (hd == 64) return launch_at<MLP, 16, false>(a, x, out, pos, stream);
+  if (hd < 64) return launch_at<MLP, 16, true>(a, x, out, pos, stream);
+  return launch_at<MLP, 32, true>(a, x, out, pos, stream);
+}
+
 }  // namespace
 
-// Kernel #12. x, out (batch, C) f32; the caches (batch, n_head, t, 64),
+// Kernel #12. x, out (batch, C) f32; the caches (batch, n_head, t, hd),
+// hd = C / n_head up to 128,
 // row `pos` written in place; the scratch batch * 3 C floats. One
 // cooperative launch.
 extern "C" int decode_attn_f32(const DecodeArgs* a, const void* x, void* out,

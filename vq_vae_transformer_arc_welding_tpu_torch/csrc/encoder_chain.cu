@@ -13,28 +13,49 @@ namespace {
 
 using namespace arcweld::enc_tc;
 
+template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_chain_kernel(const __grid_constant__ CUtensorMap tm_w,
                      const float* __restrict__ x,
                      const float* __restrict__ vecs, float* out, int n_rows,
-                     int n_blocks, int use_bn) {
-  encoder_tc(&tm_w, x, vecs, out, n_rows, n_blocks, use_bn);
+                     int cw, int n_blocks, int use_bn) {
+  encoder_tc<C>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn);
+}
+
+template <int C>
+cudaError_t launch_chain(const void* x, const void* split, const void* vecs,
+                         void* out, int n_rows, int c, int n_blocks,
+                         int use_bn, cudaStream_t stream) {
+  return launch<C>(encoder_chain_kernel<C>, Tile<C>::SMEM,
+                   static_cast<const float*>(x),
+                   static_cast<const float*>(split),
+                   static_cast<const float*>(vecs), static_cast<float*>(out),
+                   n_rows, c, n_blocks, use_bn, stream);
 }
 
 }  // namespace
 
-// split: (2 n_blocks, 2, C, C) f32, per matrix hi then lo in (out, in)
-// layout (ops/fused_encoder.py::split_weights); vecs (10 n_blocks, C)
+// x, out (N, c), c a multiple of 64 from 64 to 512, on the tile of
+// tile_width(c); split: (2 n_blocks, 2, W, W) f32 at that width W, per
+// matrix hi then lo in (out, in) layout, zero past c
+// (ops/fused_encoder.py::split_weights); vecs (10 n_blocks, c)
 extern "C" int encoder_chain_f32(const void* x, const void* split,
                                  const void* vecs, void* out, int n_rows,
                                  int c, int n_blocks, int use_bn,
                                  void* stream) {
-  // hidden 512, the bench model's width; another width needs its own tile
-  if (c != C) return cudaErrorInvalidValue;
-  return launch(encoder_chain_kernel, static_cast<const float*>(x),
-                static_cast<const float*>(split),
-                static_cast<const float*>(vecs), static_cast<float*>(out),
-                n_rows, n_blocks, use_bn, static_cast<cudaStream_t>(stream));
+  if (!width_ok(c)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_width(c)) {
+    case 128:
+      return launch_chain<128>(x, split, vecs, out, n_rows, c, n_blocks,
+                               use_bn, s);
+    case 256:
+      return launch_chain<256>(x, split, vecs, out, n_rows, c, n_blocks,
+                               use_bn, s);
+    default:
+      return launch_chain<512>(x, split, vecs, out, n_rows, c, n_blocks,
+                               use_bn, s);
+  }
 }
 
 extern "C" const char* arcweld_error_string(int err) {

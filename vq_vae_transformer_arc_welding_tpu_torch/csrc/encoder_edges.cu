@@ -51,12 +51,12 @@ namespace {
 using namespace arcweld::enc_tc;
 using arcweld::gemm90::aligned;
 
-// patch-embed rows a thread computes in one pass (of its BM / 2)
+// patch-embed rows a thread computes in one pass (of its BM / RSTEP)
 constexpr int EMBED_ROWS = 8;
 // k of w_sep a thread holds in registers, the next chunk's loads in
 // flight while it multiplies this one's
 constexpr int Z_CHUNK = 32;
-static_assert(C % Z_CHUNK == 0 && (C & (C - 1)) == 0, "w_sep's chunks");
+static_assert(64 % Z_CHUNK == 0, "w_sep's chunks: whole chunks a width");
 // rows a consumer warp scans the codebook for
 constexpr int WARP_ROWS = BM / CONSUMER_WARPS;   // 8
 static_assert(WARP_ROWS * CONSUMER_WARPS == BM, "a warp's rows");
@@ -66,42 +66,52 @@ static_assert(WARP_ROWS * CONSUMER_WARPS == BM, "a warp's rows");
 // codes fall in different banks for every D of 8, 16, 32 or 64.
 __host__ __device__ constexpr int code_pitch(int d_emb) { return d_emb + 4; }
 
-// floats of the A tile the exit's epilogue takes: z, the padded
-// codebook, its norms
+// floats from the A tile's start the exit's epilogue takes: z, the
+// padded codebook, its norms (at most EXIT_FLOATS)
 __host__ __device__ constexpr int exit_floats(int d_emb, int k_codes) {
   return BM * d_emb + k_codes * (code_pitch(d_emb) + 1);
 }
 
 // out[tile rows] = patches[tile rows] @ w_pe + b_pe, then a barrier of
-// the consumers. The tile's BM x P patch values are staged in the A
-// tile (zeros past n_rows); thread ct takes columns 4 (ct % 128) .. + 3
-// of rows ct / 128, + 2, ..., the rows and columns it later loads as A
-// (load_a), so it reads back only its own stores. k runs in index
-// order; rows past n_rows are not written.
+// the consumers; out and w_pe rows of cw floats. The tile's BM x P patch
+// values are staged in the A tile (zeros past n_rows); thread ct takes
+// columns 4 (ct % TPR) .. + 3 of rows ct / TPR, + RSTEP, ..., the rows
+// and columns it later loads as A (load_a), so it reads back only its
+// own stores. k runs in index order; rows past n_rows and columns from
+// cw on are not written.
+template <int C>
 __device__ __noinline__ void embed_rows(const float* __restrict__ patches,
                                         const float* __restrict__ w_pe,
                                         const float* __restrict__ b_pe,
                                         float* __restrict__ out, int row0,
-                                        int n_rows, int patch, int ct) {
-  float* const a_s = a_tile();
+                                        int n_rows, int cw, int patch,
+                                        int ct) {
+  constexpr int TPR = Tile<C>::TPR, RSTEP = Tile<C>::RSTEP;
+  static_assert(BM % (RSTEP * EMBED_ROWS) == 0, "a thread's rows");
+  float* const a_s = a_tile<C>();
   const int staged = BM * patch;
   for (int i = ct; i < staged; i += CONSUMERS)
     a_s[i] = row0 + i / patch < n_rows
                  ? __ldg(patches + (size_t)row0 * patch + i) : 0.0f;
   named_sync(1, CONSUMERS);
-  const int col = 4 * (ct % 128);
-  const float4 b = __ldg(reinterpret_cast<const float4*>(b_pe + col));
-  for (int r = ct / 128; r < BM; r += 2 * EMBED_ROWS) {
+  const int col = 4 * (ct % TPR);
+  const bool in_row = col < cw;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 b =
+      in_row ? __ldg(reinterpret_cast<const float4*>(b_pe + col)) : zero;
+  for (int r = ct / TPR; r < BM; r += RSTEP * EMBED_ROWS) {
     float4 acc[EMBED_ROWS];
 #pragma unroll
     for (int q = 0; q < EMBED_ROWS; ++q)
       acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int k = 0; k < patch; ++k) {
       const float4 w =
-          __ldg(reinterpret_cast<const float4*>(w_pe + (size_t)k * C + col));
+          in_row ? __ldg(reinterpret_cast<const float4*>(
+                       w_pe + (size_t)k * cw + col))
+                 : zero;
 #pragma unroll
       for (int q = 0; q < EMBED_ROWS; ++q) {
-        const float p = a_s[(r + 2 * q) * patch + k];
+        const float p = a_s[(r + RSTEP * q) * patch + k];
         acc[q].x = fmaf(p, w.x, acc[q].x);
         acc[q].y = fmaf(p, w.y, acc[q].y);
         acc[q].z = fmaf(p, w.z, acc[q].z);
@@ -110,9 +120,9 @@ __device__ __noinline__ void embed_rows(const float* __restrict__ patches,
     }
 #pragma unroll
     for (int q = 0; q < EMBED_ROWS; ++q) {
-      const int row = row0 + r + 2 * q;
-      if (row < n_rows)
-        *reinterpret_cast<float4*>(out + (size_t)row * C + col) =
+      const int row = row0 + r + RSTEP * q;
+      if (row < n_rows && in_row)
+        *reinterpret_cast<float4*>(out + (size_t)row * cw + col) =
             make_float4(acc[q].x + b.x, acc[q].y + b.y, acc[q].z + b.z,
                         acc[q].w + b.w);
     }
@@ -122,7 +132,8 @@ __device__ __noinline__ void embed_rows(const float* __restrict__ patches,
 
 // ids[tile rows] = the nearest code of x @ w_sep + b_sep, for the
 // tile's rows x in the A tile (swizzled, a_at; zeros past n_rows), with
-// a (K, D) codebook, exit_floats(D, K) <= A_FLOATS. D is a template
+// a (K, D) codebook, exit_floats(D, K) <= EXIT_FLOATS, w_sep (cw, D):
+// z sums x's first cw columns (A is zero past them). D is a template
 // constant, so that z's loops are unrolled and every shared address
 // past a thread's first is an immediate offset: with D a runtime value
 // the z loop ran several times slower on an H100.
@@ -130,16 +141,16 @@ __device__ __noinline__ void embed_rows(const float* __restrict__ patches,
 // rows); then z (BM x D) goes to the front of the A tile, the codebook
 // (rows of code_pitch(D)) and its K squared norms after it, and each
 // consumer warp scans the codebook for its WARP_ROWS rows.
-template <int D>
+template <int C, int D>
 __device__ __forceinline__ void nearest_rows_d(
     const float* __restrict__ w_sep, const float* __restrict__ b_sep,
     const float* __restrict__ codebook, int* __restrict__ ids, int row0,
-    int n_rows, int k_codes, int ct) {
+    int n_rows, int cw, int k_codes, int ct) {
   constexpr int RSTEP = CONSUMERS / D;   // rows between a thread's z rows
   constexpr int NZ = BM / RSTEP;         // its z rows
   constexpr int DP = code_pitch(D);
   static_assert(NZ * RSTEP == BM && D % 8 == 0, "z's rows");
-  float* const a_s = a_tile();
+  float* const a_s = a_tile<C>();
   const int dcol = ct % D;
   const int r0 = ct / D;
   // row r0 + i RSTEP of A at k: a_at's swizzle is r0's, flipped in
@@ -156,8 +167,8 @@ __device__ __forceinline__ void nearest_rows_d(
   float w[Z_CHUNK], wn[Z_CHUNK];
 #pragma unroll
   for (int j = 0; j < Z_CHUNK; ++j) w[j] = __ldg(w_sep + j * D + dcol);
-  for (int k0 = 0; k0 < C; k0 += Z_CHUNK) {
-    const int kn = (k0 + Z_CHUNK) & (C - 1);
+  for (int k0 = 0; k0 < cw; k0 += Z_CHUNK) {
+    const int kn = k0 + Z_CHUNK < cw ? k0 + Z_CHUNK : 0;
 #pragma unroll
     for (int j = 0; j < Z_CHUNK; ++j)
       wn[j] = __ldg(w_sep + (kn + j) * D + dcol);
@@ -276,29 +287,31 @@ __device__ __forceinline__ void nearest_rows_d(
 }
 
 // nearest_rows_d for the exit's D: one call site in the tile's body
+template <int C>
 __device__ __noinline__ void nearest_rows(const float* __restrict__ w_sep,
                                           const float* __restrict__ b_sep,
                                           const float* __restrict__ codebook,
                                           int* __restrict__ ids, int row0,
-                                          int n_rows, int d_emb, int k_codes,
-                                          int ct) {
+                                          int n_rows, int cw, int d_emb,
+                                          int k_codes, int ct) {
   switch (d_emb) {  // 8, 16, 32 or 64 (encoder_exit_f32 checks)
     case 8:
-      return nearest_rows_d<8>(w_sep, b_sep, codebook, ids, row0, n_rows,
-                               k_codes, ct);
+      return nearest_rows_d<C, 8>(w_sep, b_sep, codebook, ids, row0, n_rows,
+                                  cw, k_codes, ct);
     case 16:
-      return nearest_rows_d<16>(w_sep, b_sep, codebook, ids, row0, n_rows,
-                                k_codes, ct);
+      return nearest_rows_d<C, 16>(w_sep, b_sep, codebook, ids, row0,
+                                   n_rows, cw, k_codes, ct);
     case 32:
-      return nearest_rows_d<32>(w_sep, b_sep, codebook, ids, row0, n_rows,
-                                k_codes, ct);
+      return nearest_rows_d<C, 32>(w_sep, b_sep, codebook, ids, row0,
+                                   n_rows, cw, k_codes, ct);
     default:
-      return nearest_rows_d<64>(w_sep, b_sep, codebook, ids, row0, n_rows,
-                                k_codes, ct);
+      return nearest_rows_d<C, 64>(w_sep, b_sep, codebook, ids, row0,
+                                   n_rows, cw, k_codes, ct);
   }
 }
 
 // the entry's prologue: the tile's rows are patch-embed rows
+template <int C>
 struct Entry {
   static constexpr bool ENTRY = true, EXIT = false;
   const float* patches;
@@ -306,13 +319,14 @@ struct Entry {
   const float* b_pe;
   int patch;
   __device__ __forceinline__ void embed(float* out, int row0, int n_rows,
-                                        int ct) const {
-    embed_rows(patches, w_pe, b_pe, out, row0, n_rows, patch, ct);
+                                        int cw, int ct) const {
+    embed_rows<C>(patches, w_pe, b_pe, out, row0, n_rows, cw, patch, ct);
   }
-  __device__ __forceinline__ void search(int, int, int) const {}
+  __device__ __forceinline__ void search(int, int, int, int) const {}
 };
 
 // the exit's epilogue: sep_conv and the nearest code of the tile's rows
+template <int C>
 struct Exit {
   static constexpr bool ENTRY = false, EXIT = true;
   const float* w_sep;
@@ -320,57 +334,94 @@ struct Exit {
   const float* codebook;
   int* ids;
   int d_emb, k_codes;
-  __device__ __forceinline__ void embed(float*, int, int, int) const {}
-  __device__ __forceinline__ void search(int row0, int n_rows,
+  __device__ __forceinline__ void embed(float*, int, int, int, int) const {}
+  __device__ __forceinline__ void search(int row0, int n_rows, int cw,
                                          int ct) const {
-    nearest_rows(w_sep, b_sep, codebook, ids, row0, n_rows, d_emb, k_codes,
-                 ct);
+    nearest_rows<C>(w_sep, b_sep, codebook, ids, row0, n_rows, cw, d_emb,
+                    k_codes, ct);
   }
 };
 
+template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_entry_kernel(const __grid_constant__ CUtensorMap tm_w,
                      const float* __restrict__ x,
                      const float* __restrict__ vecs, float* out, int n_rows,
-                     int n_blocks, int use_bn, const Entry ends) {
-  encoder_tc(&tm_w, x, vecs, out, n_rows, n_blocks, use_bn, ends);
+                     int cw, int n_blocks, int use_bn, const Entry<C> ends) {
+  encoder_tc<C>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends);
 }
 
+template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_exit_kernel(const __grid_constant__ CUtensorMap tm_w,
                     const float* __restrict__ x,
                     const float* __restrict__ vecs, float* out, int n_rows,
-                    int n_blocks, int use_bn, const Exit ends) {
-  encoder_tc(&tm_w, x, vecs, out, n_rows, n_blocks, use_bn, ends);
+                    int cw, int n_blocks, int use_bn, const Exit<C> ends) {
+  encoder_tc<C>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends);
+}
+
+template <int C>
+cudaError_t launch_entry(const void* patches, const void* w_pe,
+                         const void* b_pe, const void* split,
+                         const void* vecs, void* out, int n_rows, int patch,
+                         int c, int n_blocks, int use_bn,
+                         cudaStream_t stream) {
+  // the staged patch values must fit the A tile
+  if (patch > Tile<C>::A_FLOATS / BM) return cudaErrorInvalidValue;
+  const Entry<C> ends{static_cast<const float*>(patches),
+                      static_cast<const float*>(w_pe),
+                      static_cast<const float*>(b_pe), patch};
+  return launch<C>(encoder_entry_kernel<C>, Tile<C>::SMEM, nullptr,
+                   static_cast<const float*>(split),
+                   static_cast<const float*>(vecs), static_cast<float*>(out),
+                   n_rows, c, n_blocks, use_bn, stream, ends);
+}
+
+template <int C>
+cudaError_t launch_exit(const void* x, const void* split, const void* vecs,
+                        const void* w_sep, const void* b_sep,
+                        const void* codebook, void* resid, void* ids,
+                        int n_rows, int c, int n_blocks, int use_bn,
+                        int d_emb, int k_codes, cudaStream_t stream) {
+  const Exit<C> ends{static_cast<const float*>(w_sep),
+                     static_cast<const float*>(b_sep),
+                     static_cast<const float*>(codebook),
+                     static_cast<int*>(ids), d_emb, k_codes};
+  return launch<C>(encoder_exit_kernel<C>, Tile<C>::SMEM_EXIT,
+                   static_cast<const float*>(x),
+                   static_cast<const float*>(split),
+                   static_cast<const float*>(vecs), static_cast<float*>(resid),
+                   n_rows, c, n_blocks, use_bn, stream, ends);
 }
 
 }  // namespace
 
-// patches (N, patch); w_pe (patch, C) and b_pe (C,), 16-byte aligned;
-// split (2 n_blocks, 2 C C) as encoder_chain_f32's; out (N, C)
+// patches (N, patch); w_pe (patch, c) and b_pe (c,), 16-byte aligned;
+// split (2 n_blocks, 2 W W) and c as encoder_chain_f32's; out (N, c)
 extern "C" int encoder_entry_f32(const void* patches, const void* w_pe,
                                  const void* b_pe, const void* split,
                                  const void* vecs, void* out, int n_rows,
                                  int patch, int c, int n_blocks, int use_bn,
                                  void* stream) {
-  // hidden 512 only, as encoder_chain_f32; the staged patch values must
-  // fit the A tile
-  if (c != C || patch < 1 || patch > A_FLOATS / BM)
-    return cudaErrorInvalidValue;
+  if (!width_ok(c) || patch < 1) return cudaErrorInvalidValue;
   if (!aligned(w_pe, 16) || !aligned(b_pe, 16))
     return cudaErrorMisalignedAddress;
-  const Entry ends{static_cast<const float*>(patches),
-                   static_cast<const float*>(w_pe),
-                   static_cast<const float*>(b_pe), patch};
-  return launch(encoder_entry_kernel, nullptr,
-                static_cast<const float*>(split),
-                static_cast<const float*>(vecs), static_cast<float*>(out),
-                n_rows, n_blocks, use_bn, static_cast<cudaStream_t>(stream),
-                ends);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_width(c)) {
+    case 128:
+      return launch_entry<128>(patches, w_pe, b_pe, split, vecs, out, n_rows,
+                               patch, c, n_blocks, use_bn, s);
+    case 256:
+      return launch_entry<256>(patches, w_pe, b_pe, split, vecs, out, n_rows,
+                               patch, c, n_blocks, use_bn, s);
+    default:
+      return launch_entry<512>(patches, w_pe, b_pe, split, vecs, out, n_rows,
+                               patch, c, n_blocks, use_bn, s);
+  }
 }
 
-// x (N, C); split as the entry's; w_sep (C, D), b_sep (D,); codebook
-// (K, D), 16-byte aligned; resid (N, C), the residual stream between the
+// x (N, c); split as the entry's; w_sep (c, D), b_sep (D,); codebook
+// (K, D), 16-byte aligned; resid (N, c), the residual stream between the
 // group's resblocks; ids (N,) int32
 extern "C" int encoder_exit_f32(const void* x, const void* split,
                                 const void* vecs, const void* w_sep,
@@ -378,17 +429,24 @@ extern "C" int encoder_exit_f32(const void* x, const void* split,
                                 void* resid, void* ids, int n_rows, int c,
                                 int n_blocks, int use_bn, int d_emb,
                                 int k_codes, void* stream) {
-  if (c != C || (d_emb != 8 && d_emb != 16 && d_emb != 32 && d_emb != 64) ||
-      k_codes < 1 || exit_floats(d_emb, k_codes) > A_FLOATS)
+  if (!width_ok(c) ||
+      (d_emb != 8 && d_emb != 16 && d_emb != 32 && d_emb != 64) ||
+      k_codes < 1 || exit_floats(d_emb, k_codes) > EXIT_FLOATS)
     return cudaErrorInvalidValue;
   if (!aligned(codebook, 16)) return cudaErrorMisalignedAddress;
-  const Exit ends{static_cast<const float*>(w_sep),
-                  static_cast<const float*>(b_sep),
-                  static_cast<const float*>(codebook), static_cast<int*>(ids),
-                  d_emb, k_codes};
-  return launch(encoder_exit_kernel, static_cast<const float*>(x),
-                static_cast<const float*>(split),
-                static_cast<const float*>(vecs), static_cast<float*>(resid),
-                n_rows, n_blocks, use_bn, static_cast<cudaStream_t>(stream),
-                ends);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_width(c)) {
+    case 128:
+      return launch_exit<128>(x, split, vecs, w_sep, b_sep, codebook, resid,
+                              ids, n_rows, c, n_blocks, use_bn, d_emb,
+                              k_codes, s);
+    case 256:
+      return launch_exit<256>(x, split, vecs, w_sep, b_sep, codebook, resid,
+                              ids, n_rows, c, n_blocks, use_bn, d_emb,
+                              k_codes, s);
+    default:
+      return launch_exit<512>(x, split, vecs, w_sep, b_sep, codebook, resid,
+                              ids, n_rows, c, n_blocks, use_bn, d_emb,
+                              k_codes, s);
+  }
 }

@@ -18,22 +18,39 @@ namespace {
 
 using namespace arcweld::enc_tc;
 
+template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
 resblock_kernel(const __grid_constant__ CUtensorMap tm_w,
                 const float* __restrict__ x, const float* __restrict__ vec,
-                float* out, int n_rows, int n_blocks, int use_bn) {
-  encoder_tc(&tm_w, x, vec, out, n_rows, n_blocks, use_bn);
+                float* out, int n_rows, int cw, int n_blocks, int use_bn) {
+  encoder_tc<C>(&tm_w, x, vec, out, n_rows, cw, n_blocks, use_bn);
+}
+
+template <int C>
+cudaError_t launch_resblock(const void* x, const void* split,
+                            const void* vec, void* out, int n_rows, int c,
+                            int use_bn, cudaStream_t stream) {
+  return launch<C>(resblock_kernel<C>, Tile<C>::SMEM,
+                   static_cast<const float*>(x),
+                   static_cast<const float*>(split),
+                   static_cast<const float*>(vec), static_cast<float*>(out),
+                   n_rows, c, 1, use_bn, stream);
 }
 
 }  // namespace
 
+// the widths and the split of encoder_chain_f32, one resblock
 extern "C" int resblock_f32(const void* x, const void* split,
                             const void* vec, void* out, int n_rows, int c,
                             int use_bn, void* stream) {
-  // hidden 512 only, as encoder_chain_f32
-  if (c != C) return cudaErrorInvalidValue;
-  return launch(resblock_kernel, static_cast<const float*>(x),
-                static_cast<const float*>(split),
-                static_cast<const float*>(vec), static_cast<float*>(out),
-                n_rows, 1, use_bn, static_cast<cudaStream_t>(stream));
+  if (!width_ok(c)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_width(c)) {
+    case 128:
+      return launch_resblock<128>(x, split, vec, out, n_rows, c, use_bn, s);
+    case 256:
+      return launch_resblock<256>(x, split, vec, out, n_rows, c, use_bn, s);
+    default:
+      return launch_resblock<512>(x, split, vec, out, n_rows, c, use_bn, s);
+  }
 }

@@ -41,6 +41,12 @@
 // twice a resblock), which no product overlaps, and the last round of
 // tiles (below).
 //
+// Widths: the tile is a template of its width C, instantiated at 128,
+// 256 and 512 (Tile below); every hidden width that is a multiple of 64
+// from 64 to 512 runs on the narrowest that holds it, padded with zero
+// columns (64 and 128 on 128, 192 and 256 on 256, 320 to 512 on 512).
+// The numbers below are the 512 tile's.
+//
 // Design, and the budget of one block (one per SM, 227 KB of shared
 // memory, 65,536 registers):
 //  - a tile is BM = 64 rows (wgmma's M) with all C = 512 columns, for
@@ -103,32 +109,65 @@ using gemm90::named_sync;
 using gemm90::smem_u32;
 using gemm90::tma_load;
 
-constexpr int C = 512;                 // hidden width
 constexpr int BM = 64;                 // rows a tile: wgmma's M
-constexpr int HALF = C / 2;            // outputs of a consumer warpgroup
 constexpr int KSTEP = 8;               // TF32 of K a wgmma, and a stage
-constexpr int KSTEPS = C / KSTEP;      // stages a product
 constexpr int STAGES = 3;
-constexpr int W_PART = HALF * KSTEP * 4;   // hi or lo of a warpgroup's outputs
-constexpr int STAGE = 4 * W_PART;          // hi and lo of all C outputs
-constexpr int BOX_ROWS = STAGE / 128;      // a stage as rows of 128 bytes
-constexpr int A_FLOATS = BM * C;
 constexpr int CONSUMERS = 256;             // two warpgroups
 constexpr int CONSUMER_WARPS = CONSUMERS / 32;
 constexpr int THREADS = 128 + CONSUMERS;   // warpgroup 0 loads
-constexpr int ACC = HALF / 2;              // f32 accumulators a thread
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int MAX_C = 512;                 // the widest tile
+// the floats the exit's epilogue may take from the A tile's start (z,
+// the codebook and its norms): the widest tile's A tile at every width,
+// the narrower tiles launched with that much shared memory
+constexpr int EXIT_FLOATS = BM * MAX_C;
+
+// The tile of width C (128, 256 or 512): C outputs, two warpgroups of
+// C / 2 (wgmma m64n(C/2)k8). A hidden width cw (a multiple of 64 from 64
+// to 512) runs on the narrowest tile that holds it (tile_width): the
+// pack's weights and vector rows are zero past cw (split_weights at C),
+// x and out keep cw columns, and the passes read and write only those.
+// Columns cw .. C - 1 of A stay exactly 0 through every resblock: zero
+// weights and bias, BN of a zero column (0 - 0) * 0 + 0, GELU(0) = 0,
+// a zero residual; the k-sums gain only exact zero terms.
+template <int C>
+struct Tile {
+  static_assert(C == 128 || C == 256 || C == 512, "a width of the tile");
+  static constexpr int HALF = C / 2;        // outputs of a consumer warpgroup
+  static constexpr int KSTEPS = C / KSTEP;  // stages a product
+  static constexpr int W_PART = HALF * KSTEP * 4;  // hi or lo of a
+                                                   // warpgroup's outputs
+  static constexpr int STAGE = 4 * W_PART;  // hi and lo of all C outputs
+  static constexpr int BOX_ROWS = STAGE / 128;  // a stage as 128-byte rows
+  static constexpr int A_FLOATS = BM * C;
+  static constexpr int ACC = HALF / 2;      // f32 accumulators a thread
+  // the passes over the tile: a row's C / 4 float4s on TPR consumers,
+  // RSTEP rows at a time
+  static constexpr int TPR = C / 4;
+  static constexpr int RSTEP = CONSUMERS / TPR;
+  // 1024 bytes of alignment slack, the ring, the A tile; the exit's
+  // tile holds EXIT_FLOATS there at every width
+  static constexpr size_t SMEM =
+      1024 + (size_t)STAGES * STAGE + 4 * (size_t)A_FLOATS;
+  static constexpr size_t SMEM_EXIT =
+      1024 + (size_t)STAGES * STAGE +
+      4 * (size_t)(A_FLOATS > EXIT_FLOATS ? A_FLOATS : EXIT_FLOATS);
+  static_assert(SMEM_EXIT + 64 <= 232448,
+                "more shared memory than a block has");
+};
+
+// the tile a hidden width runs on
+__host__ __device__ constexpr int tile_width(int c) {
+  return c <= 128 ? 128 : c <= 256 ? 256 : 512;
+}
 // setmaxnreg moves registers within what the block was launched with,
 // 65536 / THREADS a thread in steps of 8; a request beyond it waits for
 // ever
 static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
                   THREADS * (65536 / THREADS / 8 * 8),
               "setmaxnreg asks for more registers than the block holds");
-// 1024 bytes of alignment slack, the ring, the A tile
-constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE + 4 * (size_t)A_FLOATS;
-static_assert(SMEM + 64 <= 232448, "more shared memory than a block has");
-
 // the A tile's f32 at (row, k): 16-byte chunks XOR row % 8
+template <int C>
 __device__ __forceinline__ int a_at(int row, int k) {
   return row * C + (k ^ ((row & 7) << 2));
 }
@@ -151,13 +190,62 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
 
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma (the registers change behind its back)
-__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 8 TF32 in registers) * W^T (8 x 64 TF32, desc w)
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t w) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(w), "r"(1));
+}
+
+// d += A (64 x 8 TF32 in registers) * W^T (8 x 128 TF32, desc w)
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t w) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(w), "r"(1));
 }
 
 // d += A (64 x 8 TF32 in registers) * W^T (8 x 256 TF32, desc w)
-__device__ __forceinline__ void wgmma_m64n256k8(float (&d)[ACC],
+__device__ __forceinline__ void wgmma_m64n256k8(float (&d)[128],
                                                 const uint32_t (&a)[4],
                                                 uint64_t w) {
   asm volatile(
@@ -204,6 +292,19 @@ __device__ __forceinline__ void wgmma_m64n256k8(float (&d)[ACC],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(w), "r"(1));
 }
 
+// d += A * W^T over a warpgroup's N = C / 2 outputs
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t w) {
+  if constexpr (N == 64)
+    wgmma_m64n64k8(d, a, w);
+  else if constexpr (N == 128)
+    wgmma_m64n128k8(d, a, w);
+  else
+    wgmma_m64n256k8(d, a, w);
+}
+
 // What a consumer thread is in the tile: warpgroup `half` owns outputs
 // HALF half ..; its fragment rows are r0 and r0 + 8 (A) and its
 // accumulator acc[4j + 2h + e] is row r0 + 8h, column
@@ -218,22 +319,24 @@ struct Lane {
 // group.
 // TF32 A fragment of m64nNk8: a[0] (r0, tq), a[1] (r0 + 8, tq),
 // a[2] (r0, tq + 4), a[3] (r0 + 8, tq + 4).
-__device__ __forceinline__ void k_step(float (&acc)[ACC], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4],
+template <int C>
+__device__ __forceinline__ void k_step(float (&acc)[Tile<C>::ACC],
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4],
                                        const float* __restrict__ a_s, int k0,
                                        Lane ln, uint32_t stage) {
+  constexpr int W_PART = Tile<C>::W_PART, HALF = Tile<C>::HALF;
   const int r1 = ln.r0 + 8;
-  split_tf32(a_s[a_at(ln.r0, k0 + ln.tq)], hi[0], lo[0]);
-  split_tf32(a_s[a_at(r1, k0 + ln.tq)], hi[1], lo[1]);
-  split_tf32(a_s[a_at(ln.r0, k0 + ln.tq + 4)], hi[2], lo[2]);
-  split_tf32(a_s[a_at(r1, k0 + ln.tq + 4)], hi[3], lo[3]);
+  split_tf32(a_s[a_at<C>(ln.r0, k0 + ln.tq)], hi[0], lo[0]);
+  split_tf32(a_s[a_at<C>(r1, k0 + ln.tq)], hi[1], lo[1]);
+  split_tf32(a_s[a_at<C>(ln.r0, k0 + ln.tq + 4)], hi[2], lo[2]);
+  split_tf32(a_s[a_at<C>(r1, k0 + ln.tq + 4)], hi[3], lo[3]);
   const uint64_t w_hi = core_desc(stage + ln.half * W_PART);
   const uint64_t w_lo = core_desc(stage + (2 + ln.half) * W_PART);
   fence_acc(acc);
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-  wgmma_m64n256k8(acc, lo, w_hi);
-  wgmma_m64n256k8(acc, hi, w_lo);
-  wgmma_m64n256k8(acc, hi, w_hi);
+  wgmma_tf32<HALF>(acc, lo, w_hi);
+  wgmma_tf32<HALF>(acc, hi, w_lo);
+  wgmma_tf32<HALF>(acc, hi, w_hi);
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
 
@@ -259,20 +362,21 @@ struct Ring {
 // written here, not from wgmma's scale-d = 0, so that it is dead, and
 // holds no registers, between the epilogue that read it and the next
 // product.
-__device__ __forceinline__ void product(float (&acc)[ACC],
+template <int C>
+__device__ __forceinline__ void product(float (&acc)[Tile<C>::ACC],
                                         const float* __restrict__ a_s,
                                         Ring& ring, Lane ln) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Tile<C>::ACC; ++i) acc[i] = 0.f;
   uint32_t hi[2][4], lo[2][4];
   uint32_t prev = 0;
-  for (int ks = 0; ks < KSTEPS; ks += 2) {
+  for (int ks = 0; ks < Tile<C>::KSTEPS; ks += 2) {
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       mbar_wait(ring.full + 8 * ring.s, ring.phase);
       __syncwarp();  // wgmma is .aligned: the warp leaves the spin together
-      k_step(acc, hi[u], lo[u], a_s, (ks + u) * KSTEP, ln,
-             ring.base + ring.s * STAGE);
+      k_step<C>(acc, hi[u], lo[u], a_s, (ks + u) * KSTEP, ln,
+                ring.base + ring.s * Tile<C>::STAGE);
       fence_acc(acc);
       // keep this step's products in flight; the one before is done
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
@@ -288,8 +392,9 @@ __device__ __forceinline__ void product(float (&acc)[ACC],
 }
 
 // The passes over the whole tile (load_a and the epilogues) are
-// coalesced and rolled: consumer ct takes columns 4 (ct % 128) .. + 3 of
-// rows ct / 128, + 2, ... as float4s (a warp: 512 bytes of one row), so
+// coalesced and rolled: consumer ct takes columns 4 (ct % TPR) .. + 3 of
+// rows ct / TPR, + RSTEP, ... as float4s (a warp: 512 bytes of one row;
+// at C = 512, TPR = 128 and RSTEP = 2), so
 // that each thread's vector rows are four columns loaded once. An
 // epilogue unrolled over a thread's 128 accumulators puts BN and GELU
 // 128 times into the code, hundreds of KB that the instruction cache
@@ -305,19 +410,22 @@ __device__ __forceinline__ float4 gelu4(float4 v) {
                      gelu_erf(v.w));
 }
 
-// A = gelu(x) for the tile's rows, zeros past n_rows. x may be the
-// output buffer, which the entry's prologue has just written (each
-// thread reads back its own stores): no __restrict__, no non-coherent
-// loads.
+// A = gelu(x) for the tile's rows, zeros past n_rows and from column cw
+// on (x's row width). x may be the output buffer, which the entry's
+// prologue has just written (each thread reads back its own stores): no
+// __restrict__, no non-coherent loads.
+template <int C>
 __device__ __forceinline__ void load_a(float* __restrict__ a_s,
                                        const float* x, int row0, int n_rows,
-                                       int ct) {
-  const int col = 4 * (ct % 128);
+                                       int cw, int ct) {
+  constexpr int TPR = Tile<C>::TPR, RSTEP = Tile<C>::RSTEP;
+  const int col = 4 * (ct % TPR);
 #pragma unroll 4
-  for (int row = ct / 128; row < BM; row += 2) {
+  for (int row = ct / TPR; row < BM; row += RSTEP) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < n_rows) v = ld4(x + (size_t)(row0 + row) * C + col);
-    *reinterpret_cast<float4*>(a_s + a_at(row, col)) = gelu4(v);
+    if (row0 + row < n_rows && col < cw)
+      v = ld4(x + (size_t)(row0 + row) * cw + col);
+    *reinterpret_cast<float4*>(a_s + a_at<C>(row, col)) = gelu4(v);
   }
 }
 
@@ -329,16 +437,19 @@ struct Cols {
   float4 b, mean, var, sc, bi;
 };
 
+// vr: rows of cw floats; zeros from column cw on
 template <bool BN>
 __device__ __forceinline__ Cols cols_of(const float* __restrict__ vr,
-                                        int col) {
+                                        int col, int cw) {
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  Cols k{ld4(vr + col), z, z, z, z};
+  Cols k{z, z, z, z, z};
+  if (col >= cw) return k;
+  k.b = ld4(vr + col);
   if (BN) {
-    k.mean = ld4(vr + C + col);
-    k.var = ld4(vr + 2 * C + col);
-    k.sc = ld4(vr + 3 * C + col);
-    k.bi = ld4(vr + 4 * C + col);
+    k.mean = ld4(vr + cw + col);
+    k.var = ld4(vr + 2 * cw + col);
+    k.sc = ld4(vr + 3 * cw + col);
+    k.bi = ld4(vr + 4 * cw + col);
   }
   return k;
 }
@@ -361,28 +472,30 @@ __device__ __forceinline__ float4 affine4(float4 a, const Cols& k) {
 }
 
 // this warpgroup's products into the A tile, as they are
-__device__ __forceinline__ void stash(const float (&acc)[ACC],
+template <int C>
+__device__ __forceinline__ void stash(const float (&acc)[Tile<C>::ACC],
                                       float* __restrict__ a_s, Lane ln) {
 #pragma unroll
-  for (int j = 0; j < ACC / 4; ++j) {
-    const int c = ln.half * HALF + 8 * j + 2 * ln.tq;
+  for (int j = 0; j < Tile<C>::ACC / 4; ++j) {
+    const int c = ln.half * Tile<C>::HALF + 8 * j + 2 * ln.tq;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(a_s + a_at(ln.r0 + 8 * h, c)) =
+      *reinterpret_cast<float2*>(a_s + a_at<C>(ln.r0 + 8 * h, c)) =
           make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
 // epilogue 1 on the stashed c1: A = gelu(c1 + b1 [-> BN1])
-template <bool BN>
+template <bool BN, int C>
 __device__ __forceinline__ void epilogue_gelu(float* __restrict__ a_s,
                                               const float* __restrict__ v,
-                                              int ct) {
-  const int col = 4 * (ct % 128);
-  const Cols k = cols_of<BN>(v, col);
+                                              int cw, int ct) {
+  constexpr int TPR = Tile<C>::TPR, RSTEP = Tile<C>::RSTEP;
+  const int col = 4 * (ct % TPR);
+  const Cols k = cols_of<BN>(v, col, cw);
 #pragma unroll 4
-  for (int row = ct / 128; row < BM; row += 2) {
-    float4* p = reinterpret_cast<float4*>(a_s + a_at(row, col));
+  for (int row = ct / TPR; row < BM; row += RSTEP) {
+    float4* p = reinterpret_cast<float4*>(a_s + a_at<C>(row, col));
     *p = gelu4(affine4<BN>(*p, k));
   }
 }
@@ -391,34 +504,39 @@ __device__ __forceinline__ void epilogue_gelu(float* __restrict__ a_s,
 // for the rows below n_rows and, where another resblock follows,
 // A = gelu(x); with `stage` (the exit's last resblock) A = x instead,
 // zeros past n_rows, and nothing goes to out. src is read a batch of
-// rows ahead of the stores to out (which it may be).
-template <bool BN>
+// rows ahead of the stores to out (which it may be). src, out: rows of
+// cw floats, read and written below column cw only.
+template <bool BN, int C>
 __device__ __forceinline__ void epilogue_residual(
     float* __restrict__ a_s, const float* src, float* out,
-    const float* __restrict__ v, int ct, int row0, int n_rows, bool more,
-    bool stage) {
+    const float* __restrict__ v, int ct, int row0, int n_rows, int cw,
+    bool more, bool stage) {
   constexpr int BATCH = 8;
-  const int col = 4 * (ct % 128);
-  const Cols k = cols_of<BN>(v + 5 * C, col);
-  for (int r = ct / 128; r < BM; r += 2 * BATCH) {
+  constexpr int TPR = Tile<C>::TPR, RSTEP = Tile<C>::RSTEP;
+  static_assert(BM % (RSTEP * BATCH) == 0, "a thread's rows in batches");
+  const int col = 4 * (ct % TPR);
+  const bool in_row = col < cw;
+  const Cols k = cols_of<BN>(v + 5 * cw, col, cw);
+  for (int r = ct / TPR; r < BM; r += RSTEP * BATCH) {
     float4 xo[BATCH];
 #pragma unroll
     for (int q = 0; q < BATCH; ++q) {
-      const int row = r + 2 * q;
-      xo[q] = row0 + row < n_rows ? ld4(src + (size_t)(row0 + row) * C + col)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      const int row = r + RSTEP * q;
+      xo[q] = row0 + row < n_rows && in_row
+                  ? ld4(src + (size_t)(row0 + row) * cw + col)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int q = 0; q < BATCH; ++q) {
-      const int row = r + 2 * q;
-      float4* p = reinterpret_cast<float4*>(a_s + a_at(row, col));
+      const int row = r + RSTEP * q;
+      float4* p = reinterpret_cast<float4*>(a_s + a_at<C>(row, col));
       const float4 y = affine4<BN>(*p, k);
       float4 xn = make_float4(0.f, 0.f, 0.f, 0.f);
       if (row0 + row < n_rows) {
         xn = make_float4(xo[q].x + y.x, xo[q].y + y.y, xo[q].z + y.z,
                          xo[q].w + y.w);
-        if (!stage)
-          *reinterpret_cast<float4*>(out + (size_t)(row0 + row) * C + col) =
+        if (!stage && in_row)
+          *reinterpret_cast<float4*>(out + (size_t)(row0 + row) * cw + col) =
               xn;
       }
       if (more)
@@ -440,8 +558,9 @@ __device__ __forceinline__ uint8_t* ring_base() {
   return smem_raw + (((raw + 1023u) & ~1023u) - raw);
 }
 
+template <int C>
 __device__ __forceinline__ float* a_tile() {
-  return reinterpret_cast<float*>(ring_base() + STAGES * STAGE);
+  return reinterpret_cast<float*>(ring_base() + STAGES * Tile<C>::STAGE);
 }
 
 // What a tile does before and after its resblocks. With ENTRY, `embed`
@@ -449,27 +568,32 @@ __device__ __forceinline__ float* a_tile() {
 // barrier of the consumers, and the kernel's x is not read; with EXIT
 // the last resblock leaves x in the A tile (epilogue_residual's
 // `stage`), `search` reads it there and may use the whole A tile
-// (a_tile()). Both are called by the 256 consumer threads (ct 0 .. 255)
-// with the tile's first row. NoEnds is #1's and #3's: neither.
+// (a_tile(), and the exit up to EXIT_FLOATS from there). Both are called
+// by the 256 consumer threads (ct 0 .. 255) with the tile's first row
+// and the row width cw. NoEnds is #1's and #3's: neither.
 struct NoEnds {
   static constexpr bool ENTRY = false, EXIT = false;
-  __device__ __forceinline__ void embed(float*, int, int, int) const {}
-  __device__ __forceinline__ void search(int, int, int) const {}
+  __device__ __forceinline__ void embed(float*, int, int, int, int) const {}
+  __device__ __forceinline__ void search(int, int, int, int) const {}
 };
 
-// The kernel's body: n_blocks resblocks on x (N, C) into out (N, C).
-// tm_w: the split weights (the ring's stages in order) as rows of 32
-// f32, box BOX_ROWS rows, no swizzle; vecs (10 n_blocks, C) as
-// pack_encoder stacks them. x and out must not overlap.
-template <bool BN, typename Ends>
+// The kernel's body: n_blocks resblocks on x (N, cw) into out (N, cw)
+// on the tile of width C >= cw. tm_w: the split weights at width C (the
+// ring's stages in order) as rows of 32 f32, box BOX_ROWS rows, no
+// swizzle; vecs (10 n_blocks, cw) as pack_encoder stacks them. x and
+// out must not overlap.
+template <bool BN, int C, typename Ends>
 __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
                                                 const float* __restrict__ x,
                                                 const float* __restrict__ vecs,
                                                 float* out, int n_rows,
-                                                int n_blocks, Ends ends) {
+                                                int cw, int n_blocks,
+                                                Ends ends) {
+  constexpr int STAGE = Tile<C>::STAGE, KSTEPS = Tile<C>::KSTEPS;
+  constexpr int BOX_ROWS = Tile<C>::BOX_ROWS;
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   const uint32_t base = smem_u32(ring_base());
-  float* const a_s = a_tile();
+  float* const a_s = a_tile<C>();
   const int n_tiles = (n_rows + BM - 1) / BM;
   const int wg = threadIdx.x / 128;
 
@@ -516,29 +640,30 @@ __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
     Ring ring{base, smem_u32(&full[0]), smem_u32(&empty[0]), 0, 0};
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row0 = tile * BM;
-      if (Ends::ENTRY) ends.embed(out, row0, n_rows, ct);
-      load_a(a_s, Ends::ENTRY ? out : x, row0, n_rows, ct);
+      if (Ends::ENTRY) ends.embed(out, row0, n_rows, cw, ct);
+      load_a<C>(a_s, Ends::ENTRY ? out : x, row0, n_rows, cw, ct);
       named_sync(1, CONSUMERS);
       for (int blk = 0; blk < n_blocks; ++blk) {
-        const float* v = vecs + (size_t)10 * blk * C;
-        float acc[ACC];
-        product(acc, a_s, ring, ln);
+        const float* v = vecs + (size_t)10 * blk * cw;
+        float acc[Tile<C>::ACC];
+        product<C>(acc, a_s, ring, ln);
         named_sync(1, CONSUMERS);  // both halves have read A
-        stash(acc, a_s, ln);
+        stash<C>(acc, a_s, ln);
         named_sync(1, CONSUMERS);
-        epilogue_gelu<BN>(a_s, v, ct);
+        epilogue_gelu<BN, C>(a_s, v, cw, ct);
         named_sync(1, CONSUMERS);
-        product(acc, a_s, ring, ln);
+        product<C>(acc, a_s, ring, ln);
         named_sync(1, CONSUMERS);
-        stash(acc, a_s, ln);
+        stash<C>(acc, a_s, ln);
         named_sync(1, CONSUMERS);
-        epilogue_residual<BN>(a_s, blk == 0 && !Ends::ENTRY ? x : out, out,
-                              v, ct, row0, n_rows, blk + 1 < n_blocks,
-                              Ends::EXIT && blk + 1 == n_blocks);
+        epilogue_residual<BN, C>(a_s, blk == 0 && !Ends::ENTRY ? x : out,
+                                 out, v, ct, row0, n_rows, cw,
+                                 blk + 1 < n_blocks,
+                                 Ends::EXIT && blk + 1 == n_blocks);
         named_sync(1, CONSUMERS);
       }
       if (Ends::EXIT) {
-        ends.search(row0, n_rows, ct);
+        ends.search(row0, n_rows, cw, ct);
         named_sync(1, CONSUMERS);  // the next tile's load_a writes A
       }
     }
@@ -546,25 +671,27 @@ __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
 }
 
 // The kernels' body: with eval BN where use_bn (the same for the launch)
-template <typename Ends = NoEnds>
+template <int C, typename Ends = NoEnds>
 __device__ __forceinline__ void encoder_tc(const CUtensorMap* tm_w,
                                            const float* __restrict__ x,
                                            const float* __restrict__ vecs,
-                                           float* out, int n_rows,
+                                           float* out, int n_rows, int cw,
                                            int n_blocks, int use_bn,
                                            Ends ends = Ends{}) {
   if (use_bn)
-    encoder_tc_body<true>(tm_w, x, vecs, out, n_rows, n_blocks, ends);
+    encoder_tc_body<true, C>(tm_w, x, vecs, out, n_rows, cw, n_blocks, ends);
   else
-    encoder_tc_body<false>(tm_w, x, vecs, out, n_rows, n_blocks, ends);
+    encoder_tc_body<false, C>(tm_w, x, vecs, out, n_rows, cw, n_blocks, ends);
 }
 
 // -- host side ----------------------------------------------------------------
 
 // the split weights of n_mats matrices for TMA: n_mats x KSTEPS stages
 // as rows of 32 f32, a stage one box of BOX_ROWS rows
+template <int C>
 inline cudaError_t make_w_map(CUtensorMap* map, const float* split,
                               int n_mats) {
+  constexpr int KSTEPS = Tile<C>::KSTEPS, BOX_ROWS = Tile<C>::BOX_ROWS;
   const gemm90::EncodeTiled encode = gemm90::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {32, (cuuint64_t)n_mats * KSTEPS * BOX_ROWS};
@@ -579,20 +706,28 @@ inline cudaError_t make_w_map(CUtensorMap* map, const float* split,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Launch `kernel` (a __global__ wrapper of encoder_tc with this
-// signature, then `ends...`) on n_rows rows: one block per SM, or one
-// per tile where there are fewer tiles. x (null for the entry), split
-// and out 16-byte aligned, vecs 8.
-template <typename Kernel, typename... Ends>
-cudaError_t launch(Kernel kernel, const float* x, const float* split,
-                   const float* vecs, float* out, int n_rows, int n_blocks,
-                   int use_bn, cudaStream_t stream, Ends... ends) {
-  if (n_rows < 1 || n_blocks < 1) return cudaErrorInvalidValue;
+// a hidden width the tiles take: a multiple of 64 from 64 to MAX_C
+inline bool width_ok(int cw) {
+  return cw >= 64 && cw <= MAX_C && cw % 64 == 0;
+}
+
+// Launch `kernel` (a __global__ wrapper of encoder_tc<C> with this
+// signature, then `ends...`) on n_rows rows of width cw, with `smem`
+// bytes of dynamic shared memory (the tile's SMEM, or SMEM_EXIT): one
+// block per SM, or one per tile where there are fewer tiles. x (null
+// for the entry), split and out 16-byte aligned, vecs 8.
+template <int C, typename Kernel, typename... Ends>
+cudaError_t launch(Kernel kernel, size_t smem, const float* x,
+                   const float* split, const float* vecs, float* out,
+                   int n_rows, int cw, int n_blocks, int use_bn,
+                   cudaStream_t stream, Ends... ends) {
+  if (n_rows < 1 || n_blocks < 1 || !width_ok(cw) || cw > C)
+    return cudaErrorInvalidValue;
   if (!gemm90::aligned(x, 16) || !gemm90::aligned(split, 16) ||
       !gemm90::aligned(out, 16) || !gemm90::aligned(vecs, 8))
     return cudaErrorMisalignedAddress;
   CUtensorMap tm_w;
-  cudaError_t e = make_w_map(&tm_w, split, 2 * n_blocks);
+  cudaError_t e = make_w_map<C>(&tm_w, split, 2 * n_blocks);
   if (e != cudaSuccess) return e;
   int dev, sms;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -600,11 +735,11 @@ cudaError_t launch(Kernel kernel, const float* x, const float* split,
                                   dev)) != cudaSuccess)
     return e;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM);
+                           (int)smem);
   if (e != cudaSuccess) return e;
   const int tiles = (n_rows + BM - 1) / BM;
-  kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM, stream>>>(
-      tm_w, x, vecs, out, n_rows, n_blocks, use_bn, ends...);
+  kernel<<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
+      tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends...);
   return cudaGetLastError();
 }
 

@@ -13,6 +13,10 @@
 // the tensor cores, the row max kept online and the division by the row
 // sum after P@V. Any T: the ragged edge is masked.
 //
+// Any head width up to 128: 64 on the tile's 64 instantiation, another
+// on 32, 64 or 128 with its columns past hd zero in shared memory
+// (attention_tc.cuh).
+//
 // What bounds it on an H100 at the bench shape: operations, 4.2 GFLOP of
 // FP32 score FMAs (0.063 ms) and 3 x 4.2 GFLOP of TF32 products (0.026
 // ms), against 210 MB of q, k, v and output (0.063 ms). The score loop
@@ -35,41 +39,67 @@ struct StoreF32 {
     *reinterpret_cast<float2*>(o + b * sb + h * sh + row * st + col) =
         make_float2(y0 / l, y1 / l);
   }
+  __device__ __forceinline__ void one(int b, int h, int row, int col, float y,
+                                      float l) const {
+    o[b * sb + h * sh + row * st + col] = y / l;
+  }
 };
 
 // __grid_constant__: the tile takes its operands by reference, which
 // would otherwise copy the parameters to the stack
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+template <int HD, bool PAD>
+__global__ void __launch_bounds__(THREADS, Shape<HD>::MIN_BLOCKS)
 flash_attention_kernel(const __grid_constant__ Operands in,
                        const __grid_constant__ StoreF32 out) {
-  causal_attention_tile(in, out);
+  causal_attention_tile<HD, PAD>(in, out);
+}
+
+template <int HD, bool PAD>
+cudaError_t launch(const Operands& in, const StoreF32& out, int batch,
+                   int n_head, cudaStream_t stream) {
+  constexpr size_t SMEM = Shape<HD>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel<HD, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (e != cudaSuccess) return e;
+  flash_attention_kernel<HD, PAD>
+      <<<grid(batch, n_head, in.t), THREADS, SMEM, stream>>>(in, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v (batch, n_head, t, 64) f32 read through the strides (sb, sh,
-// st) in floats, the last axis contiguous; o written through (sob, soh,
-// sot), even offsets from an 8-byte-aligned pointer. sm_scale: 1/sqrt(64).
+// q, k, v (batch, n_head, t, hd) f32, hd <= 128, read through the strides
+// (sb, sh, st) in floats, the last axis contiguous; o written through
+// (sob, soh, sot), even offsets from an 8-byte-aligned pointer where hd
+// is 64 (every other width is written a float at a time). sm_scale:
+// 1/sqrt(hd). Head width 64 runs the tile at 64; any other on the
+// smallest of 32, 64 and 128 that holds it, padded with zero columns.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int batch, int n_head, int t,
-                                   long long sb, long long sh, long long st,
-                                   long long sob, long long soh,
+                                   int hd, long long sb, long long sh,
+                                   long long st, long long sob, long long soh,
                                    long long sot, float sm_scale,
                                    void* stream) {
-  if (batch < 1 || batch > 65535 || n_head < 1 || t < 1 ||
-      (sob | soh | sot) % 2 != 0 || reinterpret_cast<uintptr_t>(o) % 8 != 0)
+  if (batch < 1 || batch > 65535 || n_head < 1 || t < 1 || hd < 1 ||
+      hd > MAX_HD ||
+      (hd == 64 && ((sob | soh | sot) % 2 != 0 ||
+                    reinterpret_cast<uintptr_t>(o) % 8 != 0)))
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
-  if (e != cudaSuccess) return e;
   const Operands in{static_cast<const float*>(q),
                     static_cast<const float*>(k),
                     static_cast<const float*>(v),
                     sb, sh, st, t, sm_scale,
-                    rows_aligned16(q, k, v, sb, sh, st)};
-  flash_attention_kernel<<<grid(batch, n_head, t), THREADS, SMEM,
-                           static_cast<cudaStream_t>(stream)>>>(
-      in, StoreF32{static_cast<float*>(o), sob, soh, sot});
-  return cudaGetLastError();
+                    rows_aligned16(q, k, v, sb, sh, st, hd), hd};
+  const StoreF32 out{static_cast<float*>(o), sob, soh, sot};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (padded_head(hd)) {
+    case 32:
+      return launch<32, true>(in, out, batch, n_head, s);
+    case 64:
+      return hd == 64 ? launch<64, false>(in, out, batch, n_head, s)
+                      : launch<64, true>(in, out, batch, n_head, s);
+    default:
+      return launch<128, true>(in, out, batch, n_head, s);
+  }
 }

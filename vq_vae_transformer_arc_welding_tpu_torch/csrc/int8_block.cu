@@ -42,6 +42,9 @@
 // 52.6 MB at batch 80), the traffic the TPU kernels avoided. The TPU's
 // 8-row padding of T has no counterpart: every kernel masks the ragged
 // edge (the int8 attention pads its int8 operands with zeros to 64 rows).
+// Both attentions take any head width up to MAX_HEAD_DIM: 64 on their 64
+// instantiations, another on the smallest of 32, 64 and 128 that holds
+// it, padded with zero columns (attention_tc.cuh, attention_int8.cuh).
 #include "int8_block.cuh"
 
 #include "attention_int8.cuh"
@@ -53,10 +56,11 @@
 
 namespace {
 
-using arcweld::HEAD_DIM;
 namespace attn_tc = arcweld::attn_tc;
+namespace attn8 = arcweld::attn8;
 
-constexpr int HD = HEAD_DIM;
+static_assert(arcweld::MAX_HEAD_DIM == attn_tc::MAX_HD,
+              "one widest head for the attentions");
 
 __global__ void __launch_bounds__(256)
 q8_kernel(const float4* __restrict__ x, const float* __restrict__ qscale,
@@ -72,11 +76,14 @@ q8_kernel(const float4* __restrict__ x, const float* __restrict__ qscale,
 
 // The f32 attention (#2, #6, #10, #11): attention_tc.cuh's tile on
 // the packed qkv, its output quantized straight to int8:
-//   y8[b, i, h*64 + e] = q8((sum_j p_ij v_je) / sum_j p_ij, *qscale)
+//   y8[b, i, h*hd + e] = q8((sum_j p_ij v_je) / sum_j p_ij, *qscale)
+// operator() is the unpadded tile's (hd == HD), one() the padded one's.
+template <int HD>
 struct StoreQ8 {
   int8_t* y8;
   int t, c;
   float qs;
+  int hd;
   __device__ __forceinline__ void operator()(int b, int h, int row, int col,
                                              float y0, float y1,
                                              float l) const {
@@ -85,18 +92,69 @@ struct StoreQ8 {
         make_char2(arcweld::q8(__fdiv_rn(y0, l), qs),
                    arcweld::q8(__fdiv_rn(y1, l), qs));
   }
+  __device__ __forceinline__ void one(int b, int h, int row, int col, float y,
+                                      float l) const {
+    y8[((size_t)b * t + row) * c + h * hd + col] =
+        arcweld::q8(__fdiv_rn(y, l), qs);
+  }
 };
 
-static_assert(attn_tc::HD == HD && arcweld::attn8::HD == HD,
-              "one head width for the three attentions");
-__global__ void __launch_bounds__(attn_tc::THREADS, attn_tc::MIN_BLOCKS)
+// hd: the real head width (HD without PAD)
+template <int HD, bool PAD>
+__global__ void __launch_bounds__(attn_tc::THREADS,
+                                  attn_tc::Shape<HD>::MIN_BLOCKS)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ qscale,
                  int8_t* __restrict__ y8, int t, int n_head, float sm_scale,
-                 bool vec16) {
-  const int c = n_head * HD;
+                 bool vec16, int hd) {
+  const int hw = PAD ? hd : HD;
+  const int c = n_head * hw;
   const attn_tc::Operands in{qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
-                             HD, 3LL * c, t, sm_scale, vec16};
-  attn_tc::causal_attention_tile(in, StoreQ8{y8, t, c, *qscale});
+                             hw, 3LL * c, t, sm_scale, vec16, hw};
+  attn_tc::causal_attention_tile<HD, PAD>(
+      in, StoreQ8<HD>{y8, t, c, *qscale, hw});
+}
+
+template <int HD, bool PAD>
+cudaError_t launch_attention_at(const float* qkv, const float* qscale,
+                                int8_t* y8, int batch, int t, int c,
+                                int n_head, float sm_scale, cudaStream_t s) {
+  constexpr size_t SMEM = attn_tc::Shape<HD>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_kernel<HD, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return e;
+  const int hd = c / n_head;
+  attention_kernel<HD, PAD>
+      <<<attn_tc::grid(batch, n_head, t), attn_tc::THREADS, SMEM, s>>>(
+          qkv, qscale, y8, t, n_head, sm_scale,
+          attn_tc::rows_aligned16(qkv, qkv + c, qkv + 2 * c,
+                                  (long long)t * 3 * c, hd, 3LL * c, hd),
+          hd);
+  return cudaGetLastError();
+}
+
+template <int HD, bool PAD>
+cudaError_t launch_attention_int8_at(const float* qkv, const float* qscale,
+                                     int8_t* y8, float* head_scales,
+                                     int8_t* qkv8, int batch, int t, int c,
+                                     int n_head, float sm_scale,
+                                     cudaStream_t s) {
+  const int hd = c / n_head;
+  cudaError_t e = cudaFuncSetAttribute(
+      attn8::head_quant_kernel<HD, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn8::quant_smem(attn8::QUANT_ROWS, hd));
+  if (e != cudaSuccess) return e;
+  attn8::head_quant_kernel<HD, PAD>
+      <<<dim3(n_head, 3, batch), attn8::QUANT_THREADS,
+         attn8::quant_smem(t, hd), s>>>(qkv, head_scales, qkv8, t, n_head,
+                                        hd);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attn8::attention_int8_kernel<HD, PAD>
+      <<<dim3(n_head, batch, (t + attn8::TT - 1) / attn8::TT),
+         attn8::THREADS, 0, s>>>(qkv8, head_scales, qscale, y8, t, n_head,
+                                 sm_scale, hd);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -137,42 +195,57 @@ cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                               rows, n_cols, k, s);
 }
 
+bool heads_ok(int c, int n_head) {
+  return n_head >= 1 && c >= n_head && c % n_head == 0 &&
+         c / n_head <= MAX_HEAD_DIM;
+}
+
 cudaError_t launch_attention(const float* qkv, const float* qscale,
-                             int8_t* y8, int batch, int t, int n_head,
+                             int8_t* y8, int batch, int t, int c, int n_head,
                              float sm_scale, cudaStream_t s) {
-  if (batch < 1 || batch > 65535 || t < 1) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_tc::SMEM);
-  if (e != cudaSuccess) return e;
-  const int c = n_head * HD;
-  attention_kernel<<<attn_tc::grid(batch, n_head, t), attn_tc::THREADS,
-                     attn_tc::SMEM, s>>>(
-      qkv, qscale, y8, t, n_head, sm_scale,
-      attn_tc::rows_aligned16(qkv, qkv + c, qkv + 2 * c,
-                              (long long)t * 3 * c, HD, 3LL * c));
-  return cudaGetLastError();
+  if (batch < 1 || batch > 65535 || t < 1 || !heads_ok(c, n_head))
+    return cudaErrorInvalidValue;
+  const int hd = c / n_head;
+  switch (attn_tc::padded_head(hd)) {
+    case 32:
+      return launch_attention_at<32, true>(qkv, qscale, y8, batch, t, c,
+                                           n_head, sm_scale, s);
+    case 64:
+      return hd == 64 ? launch_attention_at<64, false>(
+                            qkv, qscale, y8, batch, t, c, n_head, sm_scale, s)
+                      : launch_attention_at<64, true>(
+                            qkv, qscale, y8, batch, t, c, n_head, sm_scale, s);
+    default:
+      return launch_attention_at<128, true>(qkv, qscale, y8, batch, t, c,
+                                            n_head, sm_scale, s);
+  }
 }
 
 cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
                                   int8_t* y8, float* head_scales,
-                                  int8_t* qkv8, int batch, int t, int n_head,
-                                  float sm_scale, cudaStream_t s) {
+                                  int8_t* qkv8, int batch, int t, int c,
+                                  int n_head, float sm_scale, cudaStream_t s) {
   if (batch < 1 || batch > 65535 || t < 1 || t > 65535 * attn8::TT ||
-      n_head < 1 || head_scales == nullptr || qkv8 == nullptr)
+      !heads_ok(c, n_head) || head_scales == nullptr || qkv8 == nullptr)
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      attn8::head_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn8::quant_smem(attn8::QUANT_ROWS));
-  if (e != cudaSuccess) return e;
-  attn8::head_quant_kernel<<<dim3(n_head, 3, batch), attn8::QUANT_THREADS,
-                             attn8::quant_smem(t), s>>>(qkv, head_scales,
-                                                        qkv8, t, n_head);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attn8::attention_int8_kernel<<<
-      dim3(n_head, batch, (t + attn8::TT - 1) / attn8::TT), attn8::THREADS,
-      0, s>>>(qkv8, head_scales, qscale, y8, t, n_head, sm_scale);
-  return cudaGetLastError();
+  const int hd = c / n_head;
+  switch (attn_tc::padded_head(hd)) {
+    case 32:
+      return launch_attention_int8_at<32, true>(
+          qkv, qscale, y8, head_scales, qkv8, batch, t, c, n_head, sm_scale,
+          s);
+    case 64:
+      return hd == 64 ? launch_attention_int8_at<64, false>(
+                            qkv, qscale, y8, head_scales, qkv8, batch, t, c,
+                            n_head, sm_scale, s)
+                      : launch_attention_int8_at<64, true>(
+                            qkv, qscale, y8, head_scales, qkv8, batch, t, c,
+                            n_head, sm_scale, s);
+    default:
+      return launch_attention_int8_at<128, true>(
+          qkv, qscale, y8, head_scales, qkv8, batch, t, c, n_head, sm_scale,
+          s);
+  }
 }
 
 cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
@@ -184,7 +257,7 @@ cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              int n_head, float sm_scale, bool int8_attn,
                              cudaStream_t s) {
   const int rows = batch * t;
-  if (c != n_head * HD) return cudaErrorInvalidValue;
+  if (!heads_ok(c, n_head)) return cudaErrorInvalidValue;
   cudaError_t e;
   if ((e = launch_ln_q8(x, vc, vc + c, scales + 0, h8a, nullptr, rows, c,
                         s)) != cudaSuccess)
@@ -193,8 +266,9 @@ cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                        3 * c, c, s)) != cudaSuccess)
     return e;
   e = int8_attn ? launch_attention_int8(qkv, scales + 1, y8, head_scales,
-                                        qkv8, batch, t, n_head, sm_scale, s)
-                : launch_attention(qkv, scales + 1, y8, batch, t, n_head,
+                                        qkv8, batch, t, c, n_head, sm_scale,
+                                        s)
+                : launch_attention(qkv, scales + 1, y8, batch, t, c, n_head,
                                    sm_scale, s);
   if (e != cudaSuccess) return e;
   if ((e = launch_gemm(y8, w_proj, vc + 4 * c, vc + 5 * c, x, x_mid, rows, c,

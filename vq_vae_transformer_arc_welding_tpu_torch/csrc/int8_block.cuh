@@ -11,7 +11,7 @@
 
 namespace arcweld {
 
-constexpr int HEAD_DIM = 64;    // head width the attention is written for
+constexpr int MAX_HEAD_DIM = 128;  // widest head the attentions take
 constexpr int LN_MAX_C = 1024;  // widest LayerNorm row
 
 // out[r, :] = q8(LN(x[r, :]) * scale + bias, *qscale); x (rows, c) f32,
@@ -42,20 +42,25 @@ cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                                 int8_t* out, int rows, int n_cols, int k,
                                 cudaStream_t s);
 
+// C a multiple of n_head with C / n_head (the head width) up to
+// MAX_HEAD_DIM: the shapes both attentions take
+bool heads_ok(int c, int n_head);
+
 // y8 (batch, t, C) = q8(causal attention of qkv (batch, t, 3C), *qscale),
-// C = n_head * HEAD_DIM, the f32 attention (attention_tc.cuh).
+// n_head heads of width C / n_head, the f32 attention (attention_tc.cuh).
 cudaError_t launch_attention(const float* qkv, const float* qscale,
-                             int8_t* y8, int batch, int t, int n_head,
+                             int8_t* y8, int batch, int t, int c, int n_head,
                              float sm_scale, cudaStream_t s);
 
 // The same with int8_attn (attention_int8.cuh): scores and P@V on int8
 // operands quantized with per (batch, head) scales, which are written to
 // head_scales (batch, 3, n_head) f32, the operands to qkv8 (batch,
-// n_head, 3, T_pad * 64) int8 (attn8::padded(t) rows; layout there).
+// n_head, 3, T_pad * HD) int8 (attn8::padded(t) rows, HD the head width
+// padded to 32, 64 or 128; layout there).
 cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
                                   int8_t* y8, float* head_scales,
-                                  int8_t* qkv8, int batch, int t, int n_head,
-                                  float sm_scale, cudaStream_t s);
+                                  int8_t* qkv8, int batch, int t, int c,
+                                  int n_head, float sm_scale, cudaStream_t s);
 
 // The attention half of a block (kernel #2):
 //   h8a = q8(LN1(x)), qkv = h8a @ Wqkv dequantized + bias,

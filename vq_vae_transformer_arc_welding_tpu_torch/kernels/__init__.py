@@ -69,14 +69,14 @@ _SIGNATURES = {
     # int8 GEMM of #2, #6, #8 and #10 alone (the 'attn' paths' int8 MLP,
     # card tests and chip_smoke.py)
     "int8_gemm": [_P] * 8 + [_I] * 3 + [_P],
-    # qkv, y_scale, y8, batch, t, n_head, sm_scale, stream
-    "causal_attention_quant": [_P] * 3 + [_I] * 3 + [_F, _P],
+    # qkv, y_scale, y8, batch, t, c, n_head, sm_scale, stream
+    "causal_attention_quant": [_P] * 3 + [_I] * 4 + [_F, _P],
     # h, w_qkv, scales, v3c, h8, qkv, y8, batch, t, c, n_head, sm_scale,
     # stream
     "qkv_attention_quant": [_P] * 7 + [_I] * 4 + [_F, _P],
-    # q, k, v, out, batch, n_head, t, the inputs' strides (batch, head,
-    # row) and the output's, in floats, sm_scale, stream
-    "flash_attention_f32": [_P] * 4 + [_I] * 3 + [_L] * 6 + [_F, _P],
+    # q, k, v, out, batch, n_head, t, head width, the inputs' strides
+    # (batch, head, row) and the output's, in floats, sm_scale, stream
+    "flash_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     # the block's packed operands (ops/fused_decode.DecodeArgs), x, out,
     # pos, stream: one cooperative launch each
     "decode_attn_f32": [_P] * 3 + [_I, _P],
@@ -87,6 +87,12 @@ VARIANTS = {"attn_block_quant": "attn_block_quant_int8attn",
             "block_quant": "block_quant_int8attn"}
 
 launches = {name: 0 for name in (*_SIGNATURES, *VARIANTS.values())}
+
+# The widest head the attention kernels take (#2, #6, #9, #10, #11, #12,
+# #13; csrc/int8_block.cuh's MAX_HEAD_DIM, which the library reports as
+# attention_max_head_dim()). A narrower head runs on the kernels' tile
+# of `padded_head_width(hd)`, its columns past hd zero.
+MAX_HEAD_DIM = 128
 
 
 def reset_launch_counts() -> None:
@@ -145,8 +151,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.arcweld_error_string.argtypes = [ctypes.c_int]
     lib.arcweld_error_string.restype = ctypes.c_char_p
-    lib.attn_block_quant_head_dim.argtypes = []
-    lib.attn_block_quant_head_dim.restype = ctypes.c_int
+    lib.attention_max_head_dim.argtypes = []
+    lib.attention_max_head_dim.restype = ctypes.c_int
     return lib
 
 
@@ -160,16 +166,23 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def padded_head_width(hd: int) -> int:
+    """The head width of the attention tile a head of width hd runs on:
+    32, 64 or 128 (csrc/attention_tc.cuh::padded_head)."""
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128
+
+
 def require_heads(name: str, c: int, n_head: int,
                   max_c: int | None = None) -> None:
     """Raise unless the attention kernels take width C with n_head
-    heads: C a multiple of 64 (up to max_c) and the head width the
-    kernels are written for."""
-    hd = library().attn_block_quant_head_dim()
-    if c % 64 or c != n_head * hd or (max_c is not None and c > max_c):
+    heads: C a multiple of 64 (up to max_c), split into n_head heads of
+    a width up to MAX_HEAD_DIM. Needs no card."""
+    if (c % 64 or n_head < 1 or c % n_head or c // n_head > MAX_HEAD_DIM
+            or (max_c is not None and c > max_c)):
         limit = f" up to {max_c}" if max_c is not None else ""
         raise ValueError(f"{name}: C={c} with {n_head} heads not supported: "
-                         f"C a multiple of 64{limit}, head width {hd}")
+                         f"C a multiple of 64{limit} and a head width C / "
+                         f"n_head up to {MAX_HEAD_DIM}")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -12,7 +12,9 @@ of 8 and the GROUP = 4 (batch, head) pairs per program. The CUDA kernel
 takes any T, masks the ragged edge itself, and runs one block per
 128-query tile (laid from the end of T), head and batch: the tile of
 csrc/attention_tc.cuh, with P@V in split TF32 on the tensor cores. It
-is written for 64-wide heads and raises for another width.
+takes any head width up to 128 (C = H * D a multiple of 64): 64 on the
+tile's 64 instantiation, another on 32, 64 or 128 with the columns past
+D zero in shared memory; wider heads raise.
 
 The kernel reads q, k and v through their strides, so the views that
 `split_heads` cuts out of a packed (B, T, 3C) qkv are read in place; the
@@ -46,7 +48,7 @@ flash_causal_attention_reference = causal_attention_core
 
 def _strided_ok(z: torch.Tensor, like: torch.Tensor) -> bool:
     """The kernel reads q, k and v through one set of strides, each
-    head's row of 64 floats contiguous."""
+    head's row of D floats contiguous."""
     return z.stride() == like.stride() and z.stride(3) == 1
 
 
@@ -77,7 +79,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     sb, sh, st, _ = q.stride()
     err = lib.flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
-        sb, sh, st, t * h * d, d, h * d, 1.0 / math.sqrt(d),
+        d, sb, sh, st, t * h * d, d, h * d, 1.0 / math.sqrt(d),
         kernels.stream_ptr(dev))
     kernels.check(err, _KERNEL)
     return out.transpose(1, 2)

@@ -119,7 +119,7 @@ def fused_causal_attention_quant(qkv: torch.Tensor, y_scale, *,
     lib = kernels.library()
     kernels.launches[_CAUSAL] += 1
     err = lib.causal_attention_quant(
-        qkv.data_ptr(), y_scale.data_ptr(), y8.data_ptr(), b, t, n_head,
+        qkv.data_ptr(), y_scale.data_ptr(), y8.data_ptr(), b, t, c, n_head,
         sm_scale(c, n_head), kernels.stream_ptr(dev))
     kernels.check(err, _CAUSAL)
     return y8

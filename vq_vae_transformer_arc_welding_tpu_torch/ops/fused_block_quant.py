@@ -50,8 +50,8 @@ from .norm import layer_norm
 _ATTN = "attn_block_quant"
 _FULL = "block_quant"
 _QLINEARS = ("c_attn", "c_proj", "c_fc", "m_proj")
-HEAD_DIM = 64       # the int8 attention's head width
-T_TILE = 64         # its query and key tiles, and T's padding in qkv8
+T_TILE = 64         # the int8 attention's query and key tiles, and T's
+                    # padding in qkv8
 
 
 def _block_operands(blk: dict, full: bool = False):
@@ -146,41 +146,51 @@ def v_key_order() -> torch.Tensor:
     return 16 * (p // 16) + 8 * (p % 4 // 2) + 2 * (p % 16 // 4) + p % 2
 
 
+def qkv8_head_width(c: int, n_head: int) -> int:
+    """The width of a head's rows in qkv8: the head width C / n_head
+    padded with zeros to the int8 attention's tile (32, 64 or 128; the
+    s8 products take k in steps of 32)."""
+    return kernels.padded_head_width(c // n_head)
+
+
 def quantize_heads_reference(qkv: torch.Tensor, n_head: int):
     """Plain version of the int8 attention's quantizing pass
-    (`head_quant_kernel`). qkv (B, T, 3C) f32, C = n_head * 64. Returns
-    (qkv8, head_scales): qkv8 (B, n_head, 3, T_pad * 64) int8 holds per
-    (batch, head) q8 [row][e], k8 [key][e] and v8 transposed, [e][key
-    position] with the keys of every 32-key group in `v_key_order()`,
-    each q8(x, 127 / max(absmax, 1e-6)) and zero past T; head_scales
-    (B, 3, n_head) f32 those scales."""
+    (`head_quant_kernel`). qkv (B, T, 3C) f32, heads of width hd = C /
+    n_head. Returns (qkv8, head_scales): qkv8 (B, n_head, 3, T_pad * HD)
+    int8, HD = `qkv8_head_width(C, n_head)`, holds per (batch, head) q8
+    [row][e], k8 [key][e] and v8 transposed, [e][key position] with the
+    keys of every 32-key group in `v_key_order()`, each q8(x, 127 /
+    max(absmax, 1e-6)) and zero past T and from column (v8: row) hd on;
+    head_scales (B, 3, n_head) f32 those scales."""
     b, t, c3 = qkv.shape
     c = c3 // 3
+    hd, width = c // n_head, qkv8_head_width(c, n_head)
     tp = padded_t(t)
     z = torch.stack([split_heads(part, n_head)
                      for part in qkv.split(c, dim=-1)], dim=2)
     scales = _scale127(z)                          # (B, n_head, 3, 1, 1)
-    z8 = torch.zeros((b, n_head, 3, tp, HEAD_DIM), dtype=torch.int8,
+    z8 = torch.zeros((b, n_head, 3, tp, width), dtype=torch.int8,
                      device=qkv.device)
-    z8[..., :t, :] = quantize_act(z, scales)
-    v8 = z8[:, :, 2].transpose(-1, -2).reshape(b, n_head, HEAD_DIM,
+    z8[..., :t, :hd] = quantize_act(z, scales)
+    v8 = z8[:, :, 2].transpose(-1, -2).reshape(b, n_head, width,
                                                 tp // 32, 32)
     z8[:, :, 2] = v8[..., v_key_order().to(qkv.device)].reshape(
-        b, n_head, tp, HEAD_DIM)
-    return (z8.reshape(b, n_head, 3, tp * HEAD_DIM),
+        b, n_head, tp, width)
+    return (z8.reshape(b, n_head, 3, tp * width),
             scales.reshape(b, n_head, 3).transpose(1, 2).contiguous())
 
 
 def _attn_scratch(b, t, c, n_head, int8_attn, dev):
     """h8a, y8 (B, T, C) int8, qkv (B, T, 3C) f32, and the int8
     attention's per-head scales (B, 3, n_head) f32 and int8 operands
-    qkv8 (B, n_head, 3, T_pad * 64) (`quantize_heads_reference`)."""
+    qkv8 (B, n_head, 3, T_pad * HD) (`quantize_heads_reference`)."""
     h8a = torch.empty((b, t, c), dtype=torch.int8, device=dev)
     y8 = torch.empty_like(h8a)
     qkv = torch.empty((b, t, 3 * c), dtype=torch.float32, device=dev)
     head_scales = torch.empty((b, 3, n_head) if int8_attn else (1,),
                               dtype=torch.float32, device=dev)
-    qkv8 = torch.empty((b, n_head, 3, padded_t(t) * HEAD_DIM)
+    qkv8 = torch.empty((b, n_head, 3,
+                        padded_t(t) * qkv8_head_width(c, n_head))
                        if int8_attn else (1,), dtype=torch.int8, device=dev)
     return h8a, y8, qkv, head_scales, qkv8
 

@@ -59,7 +59,6 @@ from .norm import layer_norm
 
 _ATTN = "decode_attn_f32"
 _BLOCK = "block_decode_f32"
-HEAD_DIM = 64       # the kernels' head width
 MAX_COLS = 32       # a product's columns one block of the grid takes
 MAX_C = 1024        # the widest stream csrc/decode.cu normalises
 MAX_KC = 512        # the widest k piece of its products
@@ -136,10 +135,7 @@ def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev):
     """Raise unless the kernel takes the block and the caches; the
     pointers of the block's weights in DecodeArgs' order, and c4."""
     c = blk.ln_1.weight.shape[0]
-    if c % HEAD_DIM or c != n_head * HEAD_DIM or c > MAX_C:
-        raise ValueError(f"{name}: C={c} with {n_head} heads not supported: "
-                         f"C a multiple of 64 up to {MAX_C}, head width "
-                         f"{HEAD_DIM}")
+    kernels.require_heads(name, c, n_head, max_c=MAX_C)
     kernels.require(kc, "kc", torch.float32, cache_shape, dev)
     kernels.require(vc, "vc", torch.float32, cache_shape, dev)
     c4 = blk.mlp.c_fc.weight.shape[0] if mlp else 0
@@ -236,12 +232,13 @@ def fused_decode_attn(x, blk, kc, vc, pos: int, *, n_head: int):
         raise ValueError(f"{_ATTN}: no kernel for device {x.device}")
     b, _, c = x.shape
     t = kc.shape[2] if kc.dim() == 4 else -1
-    ptrs, _ = _checked(_ATTN, x, blk, kc, vc, (b, n_head, t, HEAD_DIM), pos,
+    hd = c // n_head
+    ptrs, _ = _checked(_ATTN, x, blk, kc, vc, (b, n_head, t, hd), pos,
                        n_head, mlp=False)
     scratch = _scratch(b, c, 0, x.device)
     x_mid = torch.empty_like(x)
-    args = _pack(ptrs, kc, vc, (n_head * t * HEAD_DIM, t * HEAD_DIM,
-                                HEAD_DIM), scratch, b, t, c, 0, n_head)
+    args = _pack(ptrs, kc, vc, (n_head * t * hd, t * hd, hd), scratch, b, t,
+                 c, 0, n_head)
     _launch(_ATTN, args, x, x_mid, pos, kernels.stream_ptr(x.device))
     return x_mid, kc, vc
 
@@ -265,7 +262,7 @@ def fused_block_decode(x, blk, kc, vc, pos: int, *, n_head: int):
                         mlp=True)
     scratch = _scratch(b, c, c4, x.device)
     out = torch.empty_like(x)
-    args = _pack(ptrs, kc, vc, (t * c, HEAD_DIM, c), scratch, b, t, c, c4,
+    args = _pack(ptrs, kc, vc, (t * c, c // n_head, c), scratch, b, t, c, c4,
                  n_head)
     _launch(_BLOCK, args, x, out, pos, kernels.stream_ptr(x.device))
     return out, kc, vc
@@ -319,8 +316,8 @@ class BlockDecodeStack:
         self._scratch = _scratch(b, c, checked[0][1], self.device)
         self._outs = [torch.empty((b, 1, c), dtype=torch.float32,
                                   device=self.device) for _ in range(2)]
-        self._args = [_pack(ptrs, kc, vc, (t * c, HEAD_DIM, c), self._scratch,
-                            b, t, c, c4, n_head)
+        self._args = [_pack(ptrs, kc, vc, (t * c, c // n_head, c),
+                            self._scratch, b, t, c, c4, n_head)
                       for (ptrs, c4), (kc, vc) in zip(checked, caches)]
         self._fn = getattr(kernels.library(), _BLOCK)
 

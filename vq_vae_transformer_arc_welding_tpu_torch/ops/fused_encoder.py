@@ -22,8 +22,15 @@ Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_encoder.py:
 and `_pack_encoder` as `pack_encoder`, `encoder_resblocks_fused`,
 `encode_indices_fused`, `encode_indices_fused_mono` and
 `encode_indices_fused_edges`. Each `*_reference` is its kernel's plain
-PyTorch version. The kernels are built for hidden 512, the bench
-model's width.
+PyTorch version.
+
+Widths: the f32 kernels (#1, #3, #4, #5) take every hidden width that
+is a multiple of 64 from 64 to 512. Their tile is instantiated at 128,
+256 and 512 (`kernel_width`): hidden 64 and 128 run on 128, 192 and 256
+on 256, 320 to 512 on 512, the split weights (`split_weights`) padded
+with zeros to that width; x, out and the vector rows keep the hidden
+width. The bf16 chain (1b) takes hidden 512 only. Other widths raise
+`ValueError`.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
@@ -64,9 +71,25 @@ from .vq import nearest_codes
 _CHAIN, _RESBLOCK = "encoder_chain_f32", "resblock_f32"
 _CHAIN_BF16 = "encoder_chain_bf16"
 _ENTRY, _EXIT = "encoder_entry_f32", "encoder_exit_f32"
-_KERNEL_WIDTH = 512
+_MIN_WIDTH, _MAX_WIDTH = 64, 512      # the f32 kernels' hidden widths
+_BF16_WIDTH = 512                      # the bf16 chain's
 _TILE_ROWS = 64                        # rows of the f32 kernels' tile
-_TILE_FLOATS = _TILE_ROWS * _KERNEL_WIDTH   # its A tile, reused by the ends
+# the floats #5's epilogue may take from the A tile's start, at every
+# width: the 512 tile's A tile (csrc/encoder_tc.cuh::EXIT_FLOATS)
+_EXIT_FLOATS = _TILE_ROWS * _MAX_WIDTH
+
+
+def kernel_width(hidden: int) -> int:
+    """The width of the f32 encoder tile that hidden width runs on: 128,
+    256 or 512 (csrc/encoder_tc.cuh::tile_width); above 512, where no
+    tile runs, the hidden width itself."""
+    if hidden > _MAX_WIDTH:
+        return hidden
+    return 128 if hidden <= 128 else 256 if hidden <= 256 else 512
+
+
+def _width_ok(hidden: int) -> bool:
+    return _MIN_WIDTH <= hidden <= _MAX_WIDTH and hidden % 64 == 0
 
 
 def _exit_floats(k: int, d: int) -> int:
@@ -89,15 +112,22 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_weights(weights: torch.Tensor) -> torch.Tensor:
-    """The split-TF32 operand of the f32 kernels (#1, #3, #4, #5): (2n, C, C) f32 weights in
-    (in, out) layout -> (2n, 2 C C), per matrix hi = tf32(w) and
-    lo = tf32(w - hi) (hi + lo is w to 2^-21 of its magnitude), in
-    (out, in) layout, the K-major one in which TF32 wgmma reads its
-    shared-memory operand, and in the order the kernels' ring reads
-    them: 8-wide k steps in order, each hi then lo over all C outputs,
-    each as wgmma's core matrices of 8 outputs x 4 k (128 bytes), i.e.
-    [k // 8][hi, lo][out // 8][k % 8 // 4][out % 8][k % 4]."""
+    """The split-TF32 operand of the f32 kernels (#1, #3, #4, #5): (2n,
+    C, C) f32 weights in (in, out) layout -> (2n, 2 W W) at the tile's
+    width W = `kernel_width(C)`, the weights padded with zero rows and
+    columns to (W, W); per matrix hi = tf32(w) and lo = tf32(w - hi)
+    (hi + lo is w to 2^-21 of its magnitude), in (out, in) layout, the
+    K-major one in which TF32 wgmma reads its shared-memory operand, and
+    in the order the kernels' ring reads them: 8-wide k steps in order,
+    each hi then lo over all W outputs, each as wgmma's core matrices of
+    8 outputs x 4 k (128 bytes), i.e. [k // 8][hi, lo][out // 8][k % 8
+    // 4][out % 8][k % 4]."""
     m, c, _ = weights.shape
+    width = kernel_width(c)
+    if width != c:
+        weights = torch.nn.functional.pad(weights,
+                                          (0, width - c, 0, width - c))
+        c = width
     wt = weights.transpose(1, 2)
     hi = tf32(wt)
     parts = torch.stack([hi, tf32(wt - hi)], 1)      # (2n, 2, out, in)
@@ -255,15 +285,26 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
     return True
 
 
+def _require_width(name: str, c: int) -> None:
+    if not _width_ok(c):
+        raise ValueError(f"{name}: hidden {c} not supported (a multiple "
+                         f"of 64 from {_MIN_WIDTH} to {_MAX_WIDTH})")
+
+
 def _require_chain(name: str, c: int, weights, vecs, dev,
                    dtype: torch.dtype = torch.float32) -> int:
     """Check a group's packed operands (weights of `dtype`); returns its
     number of blocks."""
     nb = weights.shape[0] // 2
-    if c != _KERNEL_WIDTH or weights.shape[0] != 2 * nb or nb < 1:
+    if name == _CHAIN_BF16:
+        ok, widths = c == _BF16_WIDTH, f"hidden {_BF16_WIDTH}"
+    else:
+        ok, widths = _width_ok(c), (f"hidden a multiple of 64 from "
+                                    f"{_MIN_WIDTH} to {_MAX_WIDTH}")
+    if not ok or weights.shape[0] != 2 * nb or nb < 1:
         raise ValueError(f"{name}: hidden {c} / {weights.shape[0]} "
-                         f"matrices not supported (hidden "
-                         f"{_KERNEL_WIDTH}, an even count)")
+                         f"matrices not supported ({widths}, an even "
+                         f"count)")
     kernels.require(weights, "weights", dtype, (2 * nb, c, c), dev)
     kernels.require(vecs, "vecs", torch.float32, (10 * nb, c), dev)
     return nb
@@ -272,11 +313,13 @@ def _require_chain(name: str, c: int, weights, vecs, dev,
 def _split_operand(name: str, weights: torch.Tensor,
                    split: torch.Tensor | None) -> torch.Tensor:
     """The split weights the f32 kernel reads: `split` checked against
-    the (2n, C, C) weights, or made from them (per call)."""
+    the (2n, C, C) weights (its (2n, 2 W W) at the tile's width), or
+    made from them (per call)."""
     if split is None:
         return split_weights(weights)
     m, c, _ = weights.shape
-    kernels.require(split, f"{name} split", torch.float32, (m, 2 * c * c),
+    w = kernel_width(c)
+    kernels.require(split, f"{name} split", torch.float32, (m, 2 * w * w),
                     weights.device)
     return split
 
@@ -360,16 +403,15 @@ def resblock_eval(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         return fused_resblock_eval_reference(x, w1, w2, vec, use_bn=use_bn)
     n, c = x.shape
     dev = x.device
-    if c != _KERNEL_WIDTH:
-        raise ValueError(f"{_RESBLOCK}: hidden {c} not supported (hidden "
-                         f"{_KERNEL_WIDTH})")
+    _require_width(_RESBLOCK, c)
     kernels.require(x, "x", torch.float32, (n, c), dev)
     kernels.require(w1, "w1", torch.float32, (c, c), dev)
     kernels.require(w2, "w2", torch.float32, (c, c), dev)
     kernels.require(vec, "vec", torch.float32, (10, c), dev)
     if split is None:
         split = split_weights(torch.stack([w1, w2]))
-    kernels.require(split, "split", torch.float32, (2, 2 * c * c), dev)
+    w = kernel_width(c)
+    kernels.require(split, "split", torch.float32, (2, 2 * w * w), dev)
     out = torch.empty_like(x)
     if n == 0:
         return out
@@ -409,9 +451,9 @@ def fused_encoder_entry_eval(patches, w_pe, b_pe, weights, vecs, *,
     c = w_pe.shape[1]
     dev = patches.device
     nb = _require_chain(_ENTRY, c, weights, vecs, dev)
-    if not 1 <= pz <= _KERNEL_WIDTH:
+    if not 1 <= pz <= kernel_width(c):
         raise ValueError(f"{_ENTRY}: patch size {pz} not supported (1 to "
-                         f"{_KERNEL_WIDTH})")
+                         f"{kernel_width(c)} at hidden {c})")
     kernels.require(patches, "patches", torch.float32, (n, pz), dev)
     kernels.require(w_pe, "w_pe", torch.float32, (pz, c), dev)
     kernels.require(b_pe, "b_pe", torch.float32, (c,), dev)
@@ -449,10 +491,10 @@ def fused_encoder_exit_eval(x, weights, vecs, w_sep, b_sep, codebook, *,
     dev = x.device
     nb = _require_chain(_EXIT, c, weights, vecs, dev)
     if d not in (8, 16, 32, 64) or k < 1 or \
-            _exit_floats(k, d) > _TILE_FLOATS:
+            _exit_floats(k, d) > _EXIT_FLOATS:
         raise ValueError(f"{_EXIT}: a ({k}, {d}) codebook is not supported: "
                          f"D of 8, 16, 32 or 64 and {_TILE_ROWS} D + "
-                         f"K (D + 5) up to {_TILE_FLOATS}")
+                         f"K (D + 5) up to {_EXIT_FLOATS}")
     kernels.require(x, "x", torch.float32, (n, c), dev)
     kernels.require(w_sep, "w_sep", torch.float32, (c, d), dev)
     kernels.require(b_sep, "b_sep", torch.float32, (d,), dev)
