@@ -160,6 +160,31 @@ from its last checkpoint bit-equal to the uninterrupted one (with
 torch's defaults: no deterministic-algorithms flag); the class stage
 leaves lm_head's RAdam step count where the gen stage left it.
 
+The training phase also trains in bf16 (`bf16_steps`): the VQ-VAE with
+compute_dtype=bf16 at compute_scope 'all' and 'decoder' and the
+transformer with attention_impl='pallas' (kernel #9 on bf16 q, k, v,
+six launches a forward), each one step against its plain bf16 path with
+the f32 gates, and against the f32 step from the same weights within
+tests/test_mixed_precision.py's envelopes (loss 5e-3, each gradient 15%
+or 10% of its magnitude, ids 3%); a training step of each in turns with
+f32 and traced (recorded, not claimed). Then #9 on bf16 q, k, v alone
+(`flash_bf16_phase`) at the bf16 training shape (16, 8, 321, 64), the
+serving bench's batch 80 and heads of 24, 32 and 128: bf16 outputs equal
+to the plain version's but on at most 1e-3 of the entries, each one bf16
+step or, near 0, within 2e-5; timed in turns with its plain version and
+with scaled_dot_product_attention(is_causal=True) on the same bf16 q, k,
+v, traced, beside its bound (bf16 bytes). Then `classification_phase`
+at the classification CLI's defaults (hidden 758, 6 hidden layers,
+batch 512, 5 cycles): the MLP and the GRU on raw windows with
+window_mode='ondevice', the MLP again with its training split streamed
+from a memory map (Trainer(streaming=True): the native row gather into
+pinned memory, asserted, and the fit bit-equal to the resident one),
+the MLP on a frozen VQ-VAE's z_q and MLPEmbedding on its ids through
+LatentPredDataModule (vq_impl='pallas', #7's launches counted), each a
+short Trainer.fit whose losses are finite and fall; and a few steps of
+the EMA VQ-VAE at the reconstruction CLI's widths (kmeans bootstrap on
+the first batch, dead codes re-seeded).
+
 Then models off the bench widths (`widths_phase`): the repo's quality
 study's VQ-VAE (hidden 64, 2 resblocks, K=32, D=8) and transformer
 (d192, 8 heads of 24, 4 blocks) through `classify` (int8, the fused
@@ -246,6 +271,8 @@ MLP, QKV, CAUSAL = ("mlp_quant", "qkv_attention_quant",
                     "causal_attention_quant")
 FLASH, DEC_ATTN, DEC_BLOCK = ("flash_attention_f32", "decode_attn_f32",
                               "block_decode_f32")
+# #9 on bf16 q, k and v (the bf16 transformer's training forward)
+FLASH_BF16 = "flash_attention_bf16"
 # training_phase: the CLIs' default widths (the JAX package's
 # cli/train_reconstruction_embedding.py:27-36 and
 # cli/train_transformer_mtasks.py:32-36)
@@ -264,6 +291,38 @@ TRAIN_CLASS_EPOCHS = 1
 TRAIN_TR_CSV = dict(n_cycles_per_run=40, extra_train_runs=8)
 MAX_TRAIN_LOSS_REL = 1e-5   # one step, kernel path against plain: the loss
 MAX_TRAIN_GNORM_REL = 1e-4  # and the global gradient norm
+# bf16 training against the f32 step from the same weights and batch:
+# tests/test_mixed_precision.py's envelopes (the loss, each gradient
+# whose norm exceeds 1e-3 against its largest magnitude, the VQ's ids)
+MAX_BF16_LOSS_REL = 5e-3
+MAX_BF16_GRAD_REL = {"VQ-VAE": 0.15, "transformer": 0.10}
+MIN_BF16_GRAD_NORM = 1e-3
+MAX_BF16_TRAIN_FLIP = 0.03
+# #9 on bf16 q, k, v against its plain version: the bf16 outputs equal
+# but on at most this share of entries, each one bf16 step apart or, near
+# 0 where a step is finer, within MAX_ROW_ERR (the f32 tile's bound)
+MAX_BF16_DIFF_SHARE = 1e-3
+# (batch, heads, head width) at T=321: the bf16 transformer's training
+# shape, the serving bench's batch, and heads of 24, 32 and 128 (the
+# widths of WIDTH_HEADS)
+FLASH_BF16_SHAPES = ((16, 8, 64), (80, 8, 64), (16, 8, 24), (16, 8, 32),
+                     (16, 2, 128))
+# classification_phase: the classification CLI's defaults
+# (cli/train_classification_model.py:30-38 of the JAX package: hidden
+# 758, 6 hidden layers, batch 512, 5 cycles, clip 0.42) on raw windows
+# with window_mode='ondevice' (MLP: 1,000 x 2 samples; GRU: 5 steps of
+# 400), on the latents of a VQ-VAE at the reconstruction CLI's widths
+# (TRAIN_VQ, vq_impl='pallas'), and MLPEmbedding on its ids
+CLS = dict(hidden_sizes=758, n_hidden_layers=6, dropout_p=0.032015121309774644,
+           learning_rate=1e-3)
+CLS_BATCH, CLS_CYCLES, CLS_CLIP, CLS_EPOCHS = 512, 5, 0.42, 4
+CLS_CSV = dict(n_cycles_per_run=100, extra_train_runs=16,
+               label_process="markov")
+# the EMA VQ: a few steps of the VQ-VAE at TRAIN_VQ's widths with
+# use_improved_vq, the kmeans bootstrap and dead-code expiry
+EMA_VQ = dict(use_improved_vq=True, kmeans_iters=10,
+              threshold_ema_dead_code=2)
+EMA_STEPS = 6               # steps over the train split's batches in turn
 # widths_phase: models off the bench widths. The repo's quality study's
 # (scripts/quality_study.py:76-86: a VQ-VAE at hidden 64 with 2
 # resblocks, K=32, D=8; a transformer at d192 with 8 heads of 24 and 4
@@ -349,6 +408,7 @@ RECORD = {
     QKV: ("attn_quant.cu", "pallas_attn_quant.py:164"),
     CAUSAL: ("attn_quant.cu", "pallas_attn_quant.py:214"),
     FLASH: ("flash_attn.cu", "pallas_attn.py:73"),
+    FLASH_BF16: ("flash_attn.cu", "pallas_attn.py:73"),
     DEC_ATTN: ("decode.cu", "pallas_decode.py:149"),
     DEC_BLOCK: ("decode.cu", "pallas_decode.py:371"),
     # the int8 MLP after #2 on the main path, two calls of the GEMM (c_fc
@@ -397,7 +457,8 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     (F32_ATTENTION) has two products of equal size over its causal
     scores, Q K^T and P@V: each counts TF32_SPLIT times as TF32, but the
     first `fp32_products` of them (0, 1 or 2) once as FP32 on the CUDA
-    cores. The f32 encoder kernels (F32_ENCODER: #1, #3 and the
+    cores. Its bf16 form (FLASH_BF16) needs less: Q K^T once as bf16,
+    P@V twice as TF32. The f32 encoder kernels (F32_ENCODER: #1, #3 and the
     encoder's two ends, #4 and #5, all on one tile) count their
     resblocks' products TF32_SPLIT times as TF32, or once as FP32 with
     fp32_products=2; the ends' own products (#4's patch-embed, #5's
@@ -444,6 +505,11 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         INT8_ATTENTION: (4 * m * c + head_scales, {"int8": attn}),
         QUANT_PASS: (3 * xs + 3 * m * c + head_scales, {}),
         FLASH: (4 * xs, f32_attn),
+        # on bf16 q, k, v and output: half the bytes; Q K^T is one bf16
+        # product (a product of two bf16 values is exact in f32), P@V two
+        # TF32 products (P's hi and lo terms on V, which TF32 holds exactly)
+        FLASH_BF16: (4 * m * c * 2,
+                     {"bf16": attn // 2, "tf32": 2 * (attn // 2)}),
         DEC_ATTN: (dec_attn_w + dec_io, {"f32": dec_attn_ops}),
         DEC_BLOCK: (dec_attn_w + dec_mlp_w + dec_io,
                     {"f32": dec_attn_ops + dec_b * 2 * w_mlp}),
@@ -1974,7 +2040,7 @@ def global_norm(grads: dict) -> float:
 
 
 def one_step_against_plain(name: str, model, task, batch, kernel: str,
-                           per_step: int, smi: str) -> dict:
+                           per_step: int, smi: str) -> tuple:
     """One training forward and backward of `task` on `batch` with the
     dropouts off, through the kernel path at the TF32 flags the caller
     set and through the plain path with both flags off (f32
@@ -1982,8 +2048,10 @@ def one_step_against_plain(name: str, model, task, batch, kernel: str,
     written).
     Checks the kernel's launches, the loss (MAX_TRAIN_LOSS_REL) and the
     global gradient norm (MAX_TRAIN_GNORM_REL) against plain; prints the
-    largest per-tensor gradient difference. Returns the ids the VQ's
-    search gave on each path (empty for the transformer)."""
+    largest per-tensor gradient difference. Returns (the ids the VQ's
+    search gave on each path, empty for the transformer; the kernel
+    path's loss and gradients). A bf16 model's plain path is bf16 too:
+    only the kernels are replaced."""
     import torch
     from vq_vae_transformer_arc_welding_tpu_torch.ops import fused_vq as fvq
     ids = {}
@@ -2030,7 +2098,7 @@ def one_step_against_plain(name: str, model, task, batch, kernel: str,
           f"{name}: loss {loss_k} against plain {loss_p}")
     check(math.isfinite(n_k) and rel_norm <= MAX_TRAIN_GNORM_REL,
           f"{name}: gradient norm {n_k} against plain {n_p}")
-    return ids
+    return ids, loss_k, g_k
 
 
 def timed_train_steps(name: str, model, task, batch, opt, units: int,
@@ -2169,10 +2237,10 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
                               data_directory_path=vq_dir)
         dm.setup()
 
-        def new_vq():
+        def new_vq(**runtime):
             return VQVAEPatch(**TRAIN_VQ, vq_impl="pallas",
                               generator=torch.Generator().manual_seed(SEED),
-                              device=dev)
+                              device=dev, **runtime)
 
         vq = new_vq().requires_grad_(True)
         task = ReconstructionTask(vq)
@@ -2183,8 +2251,9 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
             f"{TRAIN_VQ_BATCH}; synthetic ASIMoW split: train "
             f"{dm.train.x.shape}, val {dm.val.x.shape}")
         vq.dropout_p = 0.0
-        ids_of = one_step_against_plain("VQ-VAE", vq, task, batch,
-                                        NEAREST, 1, smi)
+        vq_step = one_step_against_plain("VQ-VAE", vq, task, batch,
+                                         NEAREST, 1, smi)
+        ids_of = vq_step[0]
         vq.dropout_p = TRAIN_VQ["dropout_p"]
         flips = int((ids_of["kernel"] != ids_of["plain"]).sum())
         log(f"VQ-VAE training step: {NEAREST} ids equal the plain "
@@ -2197,6 +2266,14 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
         out["times"]["VQ-VAE"] = timed_train_steps(
             "VQ-VAE", vq, task, batch, tx.init(vq), TRAIN_VQ_BATCH,
             "windows", smi)
+        bf16 = bf16_steps(
+            "VQ-VAE", new_vq, ReconstructionTask, batch, vq_step,
+            {"all": dict(compute_dtype=torch.bfloat16),
+             "decoder": dict(compute_dtype=torch.bfloat16,
+                             compute_scope="decoder")},
+            NEAREST, 1, lambda m: tx, {"dropout_p": 0.0}, TRAIN_VQ_BATCH,
+            "windows", smi)
+        out["times"]["VQ-VAE bf16"] = bf16["times"]
 
         runs = {}
         for key, epochs, ck, resume in (
@@ -2254,12 +2331,12 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
         seq_len = N_CYCLES * (400 // TRAIN_VQ["patch_size"]) + 1
         n_classes = TRAIN_VQ["num_embeddings"] + 2
 
-        def new_tr():
+        def new_tr(**runtime):
             return TransformerDecoder(
                 **TRAIN_TR, n_classes=n_classes, seq_len=seq_len,
                 attention_impl="pallas",
                 generator=torch.Generator().manual_seed(SEED + 1),
-                device=dev)
+                device=dev, **runtime)
 
         tr = new_tr().requires_grad_(True)
         nb = tr.n_blocks
@@ -2277,8 +2354,8 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
             f"train {gen_dm.train.x.shape}, class train "
             f"{class_dm.train.x.shape}")
         tr.res_dropout = 0.0
-        one_step_against_plain("transformer gen", tr, gen_task,
-                               (x, c, y), FLASH, nb, smi)
+        tr_step = one_step_against_plain("transformer gen", tr, gen_task,
+                                         (x, c, y), FLASH, nb, smi)
         one_step_against_plain("transformer class",
                                tr, TransformerClassTask(tr), (x, c, y),
                                FLASH, nb, smi)
@@ -2304,6 +2381,13 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
             "transformer gen", tr, gen_task, (x, c, y),
             make_transformer_optimizer(tr).init(tr),
             TRAIN_TR_BATCH * t_in, "tokens", smi)
+        bf16 = bf16_steps(
+            "transformer", new_tr, TransformerGenTask, (x, c, y), tr_step,
+            {"all": dict(compute_dtype=torch.bfloat16)}, FLASH_BF16, nb,
+            make_transformer_optimizer, {"res_dropout": 0.0},
+            TRAIN_TR_BATCH * t_in, "tokens", smi)
+        out["launches"].update(bf16["launches"])
+        out["times"]["transformer bf16"] = bf16["times"]
 
         runs = {}
         for key, epochs, ck, resume in (
@@ -2362,6 +2446,375 @@ def training_phase(smi: str, device: str = "cuda") -> dict:
             f"transformer Trainer.fit, gen {TRAIN_GEN_EPOCHS} epochs "
             f"then class {TRAIN_CLASS_EPOCHS}", n9 + n9c, nb)
     log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def bf16_steps(name: str, make, task_of, batch, f32_step: tuple,
+               variants: dict, kernel: str, per_step: int, tx_of,
+               quiet: dict, units: int, unit: str, smi: str) -> dict:
+    """bf16 training of `name` at the CLIs' widths: for each variant
+    (label: runtime options, compute_dtype and the VQ-VAE's scope), a
+    model made from the seed (`make(**options)`) takes one step with
+    its dropouts off (`quiet`: attribute: value) through
+    one_step_against_plain (the kernel path against the plain bf16
+    path, its gates) and is held against the f32 step of the same
+    weights and batch (`f32_step`: its (ids, loss, gradients) from
+    one_step_against_plain) within tests/test_mixed_precision.py's
+    envelopes: the loss (MAX_BF16_LOSS_REL), each gradient of norm above
+    MIN_BF16_GRAD_NORM against its largest magnitude
+    (MAX_BF16_GRAD_REL), f32 gradients, and the VQ's ids
+    (MAX_BF16_TRAIN_FLIP). Then a whole training step of the f32 model
+    and of every variant in turns (recorded, not claimed). Returns
+    {"times": ..., "launches": {kernel: (path, launches, per step)}}."""
+    import torch
+    ids32, loss32, g32 = f32_step
+    out = {"launches": {}, "times": {}}
+    for label, kw in variants.items():
+        m = make(**kw).requires_grad_(True)
+        saved = {a: getattr(m, a) for a in quiet}
+        for a, v in quiet.items():
+            setattr(m, a, v)
+        ids16, loss16, g16 = one_step_against_plain(
+            f"{name} bf16 {label}", m, task_of(m), batch, kernel, per_step,
+            smi)
+        for a, v in saved.items():
+            setattr(m, a, v)
+        rel_loss = abs(loss16 - loss32) / abs(loss32)
+        check(set(g16) == set(g32) and all(
+            g.dtype == torch.float32 for g in g16.values()),
+            f"{name} bf16 {label}: gradients not f32 or not of the f32 "
+            f"step's parameters")
+        rel = {n: float((g16[n] - g).abs().max() / g.abs().max())
+               for n, g in g32.items()
+               if float(g.norm()) > MIN_BF16_GRAD_NORM}
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        flips = (float((ids16["kernel"] != ids32["kernel"]).float().mean())
+                 if ids32 else 0.0)
+        log(f"{name} bf16 {label} against the f32 step (same weights and "
+            f"batch, dropout off): loss {loss16:.9g} / {loss32:.9g} "
+            f"(relative {rel_loss:.3e}, bound {MAX_BF16_LOSS_REL}); worst "
+            f"gradient {worst[1]:.3e} of its magnitude in {worst[0]} "
+            f"({len(rel)} tensors of norm > {MIN_BF16_GRAD_NORM}, bound "
+            f"{MAX_BF16_GRAD_REL[name]})"
+            + (f"; ids flipped {flips:.4f} (bound {MAX_BF16_TRAIN_FLIP})"
+               if ids32 else ""))
+        check(rel_loss <= MAX_BF16_LOSS_REL,
+              f"{name} bf16 {label}: loss {loss16} against f32 {loss32}")
+        check(worst[1] <= MAX_BF16_GRAD_REL[name],
+              f"{name} bf16 {label}: gradient {worst}")
+        check(flips <= MAX_BF16_TRAIN_FLIP,
+              f"{name} bf16 {label}: ids flipped {flips}")
+        out["launches"][kernel] = (
+            f"{name} bf16 ({label}) training step against plain", per_step,
+            per_step)
+    gen = torch.Generator(device=batch[0].device)
+
+    def train_step(model):
+        task, opt = task_of(model), tx_of(model).init(model)
+        model.requires_grad_(True)
+
+        def step():
+            opt.zero_grad()
+            loss, _, new = task.loss_and_metrics(batch, train=True,
+                                                 generator=gen)
+            loss.backward()
+            if new:
+                model.commit_state(new)
+            opt.step()
+        return step
+
+    fns = {"f32": train_step(make()),
+           **{f"bf16 {label}": train_step(make(**kw))
+              for label, kw in variants.items()}}
+    t = timed_in_turns(fns, warmup=2)
+    log(f"{name} train step (batch {len(batch[0])}), f32 and bf16 in turns: "
+        + "; ".join(f"{label} {fmt_ms(t[label])}, "
+                    f"{units / t[label][0] * 1e3:.1f} {unit}/s"
+                    for label in fns)
+        + f"; medians and quartiles of 10 after warm-up; gpu {smi}")
+    for label in fns:
+        if label == "f32":
+            continue
+        n_ops, busy, top = device_profile(fns[label])
+        t[label + " device_busy_ms"] = busy
+        log(f"{name} {label} train step device trace: " + (
+            "not measured (no device events in the trace)" if busy is None
+            else f"{n_ops} operations, {busy:.3f} ms busy, idle "
+            f"{1 - busy / t[label][0]:.1%} of the step's median; most time: "
+            + "; ".join(f"{key[:60]} x {n}, {ms:.3f} ms ({ms / busy:.1%})"
+                        for key, n, ms in top[:8])) + f"; gpu {smi}")
+    out["times"] = t
+    return out
+
+
+def flash_bf16_phase(smi: str) -> dict:
+    """#9 on bf16 q, k, v at FLASH_BF16_SHAPES (T=321; q, k, v read in
+    place from a packed bf16 qkv): one launch a call, against its plain
+    version (MAX_BF16_DIFF_SHARE), timed in turns with it and with
+    scaled_dot_product_attention(is_causal=True) on the same bf16 q, k, v
+    (CUDA events), and traced (device ms on cold operands), beside the
+    bound of kernel_work. Returns the record's numbers at the first
+    shape, the bf16 transformer's training shape: its times, its work
+    (kernel_work), its error and the device times."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        attention, fused_attn as fflash)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(SEED)
+    t = 321
+    rec = None
+    for b, h, d in FLASH_BF16_SHAPES:
+        c = h * d
+        qkv = (torch.randn(b, t, 3 * c, generator=gen) * 2).to(
+            "cuda", torch.bfloat16)
+        q, k, v = (attention.split_heads(z, h) for z in qkv.split(c, dim=-1))
+        with torch.inference_mode():
+            out, counts = counted(
+                lambda: fflash.flash_causal_attention(q, k, v))
+            ref = fflash.flash_causal_attention_reference(q, k, v)
+            lib = sdpa(q, k, v, is_causal=True)
+        check(counts == {FLASH_BF16: 1} and out.dtype == torch.bfloat16
+              and out.shape == (b, h, t, d)
+              and bool(torch.isfinite(out.float()).all()),
+              f"{FLASH_BF16} ({b}, {h}, {t}, {d}): launches {counts}, "
+              f"{out.dtype} {tuple(out.shape)}")
+        ulps = (out.view(torch.int16).int() - ref.view(torch.int16).int()
+                ).abs()
+        err = (out.float() - ref.float()).abs()
+        share = float((ulps > 0).float().mean())
+        far = int(((ulps > 1) & (err > MAX_ROW_ERR)).sum())
+        e = float(err.max())
+        e_lib = float((lib.float() - ref.float()).abs().max())
+        check(far == 0 and share <= MAX_BF16_DIFF_SHARE,
+              f"{FLASH_BF16} ({b}, {h}, {t}, {d}): {share:.2e} of the "
+              f"entries differ from plain, {far} by more than one bf16 "
+              f"step and {MAX_ROW_ERR}")
+        with torch.inference_mode():
+            tm = timed_in_turns({
+                "kernel": lambda: fflash.flash_causal_attention(q, k, v),
+                "plain": lambda: fflash.flash_causal_attention_reference(
+                    q, k, v),
+                "library": lambda: sdpa(q, k, v, is_causal=True)})
+            traced = kernel_trace({
+                "kernel": lambda: fflash.flash_causal_attention(q, k, v),
+                "library": lambda: sdpa(q, k, v, is_causal=True)})
+        work = kernel_work(1, c, 1, 1, 25, 32, 256, b, t, h, 1, 1)[FLASH_BF16]
+        bound, by = bound_of(work)
+        dev_ms, lib_dev = traced["kernel"][0], traced["library"][0]
+        log(f"kernel {FLASH_BF16} ({b}, {h}, {t}, {d}), bf16 q, k, v read "
+            f"in place from the packed qkv: {share:.2e} of the entries "
+            f"differ from plain (bound {MAX_BF16_DIFF_SHARE}), largest "
+            f"{e:.3e}; {fmt_ms(tm['kernel'])}, plain {fmt_ms(tm['plain'])}, "
+            f"scaled_dot_product_attention {fmt_ms(tm['library'])} (within "
+            f"{e_lib:.3e} of plain); device "
+            + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+            + ", scaled_dot_product_attention "
+            + ("not measured" if lib_dev is None else f"{lib_dev:.4f} ms")
+            + f" a call; bound {bound:.4f} ms by {by}; gpu {smi}")
+        if rec is None:
+            rec = {"shape": [b, h, t, d], "max_abs_err": e,
+                   "diff_share": share, "times": tm, "work": work,
+                   "device_ms": dev_ms, "library_device_ms": lib_dev}
+    return rec
+
+
+@tf32_flags(**TORCH_DEFAULT_TF32)
+def classification_phase(smi: str, device: str = "cuda") -> dict:
+    """The second stage's models and the trainer's data paths, at the
+    classification CLI's defaults (CLS) on a synthetic ASIMoW CSV made
+    from the seed, under torch's default TF32 flags as a user's Trainer
+    runs: the MLP and the GRU on raw windows with window_mode='ondevice'
+    (the windows gathered on the card by index), the MLP again with its
+    training split streamed from a memory map (Trainer(streaming=True),
+    the native row gather into pinned memory: bit-equal to the resident
+    fit), the MLP on a frozen VQ-VAE's z_q and MLPEmbedding on its ids
+    through LatentPredDataModule (vq_impl='pallas': #7 launched by the
+    encode and by nothing else), each a short Trainer.fit with every loss
+    finite and the last epoch's below the first's; then a few steps of
+    the EMA VQ-VAE (EMA_VQ) at TRAIN_VQ's widths: the kmeans bootstrap
+    on the first batch, the EMAs moving, dead codes re-seeded. Returns
+    {"launches": {NEAREST: ...}}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.data import (
+        ASIMoWDataModule, ArraySplit, LatentPredDataModule,
+        get_val_test_ids, streaming, synthetic)
+    from vq_vae_transformer_arc_welding_tpu_torch.models import (
+        GRU, MLP, MLPEmbedding, VQVAEPatch)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.loop import Trainer
+    from vq_vae_transformer_arc_welding_tpu_torch.train.optim import (
+        make_radam)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        ClassificationTask, ReconstructionTask)
+
+    dev = torch.device(device)
+    ids = get_val_test_ids()
+    tx = make_radam(CLS["learning_rate"], clip_norm=CLS_CLIP)
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+
+    def seeded(cls, **kw):
+        return cls(**kw, **CLS, output_size=2, device=dev,
+                   generator=torch.Generator().manual_seed(SEED))
+
+    def fit(label, task, dm, **trainer_kw):
+        trainer = Trainer(max_epochs=CLS_EPOCHS, seed=SEED, verbose=False,
+                          monitor="val/f1_score_mean", mode="max",
+                          **trainer_kw)
+        res, counts = counted(lambda: trainer.fit(task, dm, tx))
+        losses = [h["train_epoch/loss"] for h in res.history]
+        check(counts == {}, f"{label}: Trainer.fit launched {counts}")
+        check(all(math.isfinite(v) for h in res.history
+                  for k, v in h.items() if k.endswith("loss")),
+              f"{label}: a loss is not finite: {res.history}")
+        log(f"classification {label}: train {dm.train.x.shape}, val "
+            f"{dm.val.x.shape}, {len(losses)} epochs, train loss by epoch "
+            f"{[round(v, 6) for v in losses]}, val f1 "
+            f"{[round(h['val/f1_score_mean'], 4) for h in res.history]}, "
+            f"windows/s by epoch (host clock) "
+            f"{[round(h['train_epoch/windows_per_s'], 1) for h in res.history]}"
+            f"; gpu {smi}")
+        check(losses[-1] < losses[0],
+              f"{label}: train loss did not fall ({losses})")
+        return res, losses
+
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic.write_synthetic_csv(
+            os.path.join(tmp, "processed_asimow_dataset.csv"), **CLS_CSV)
+        dm = ASIMoWDataModule(task="classification", n_cycles=CLS_CYCLES,
+                              val_data_ids=ids["val_ids"],
+                              test_data_ids=ids["test_ids"],
+                              batch_size=CLS_BATCH, data_directory_path=tmp,
+                              window_mode="ondevice")
+        dm.setup()
+        check(type(dm.train.x).__name__ == "WindowedArray",
+              "window_mode='ondevice' gave no WindowedArray")
+        n_cyc = dm.train.x.cycles.shape[0]
+        log(f"classification data: window_mode='ondevice', train "
+            f"{len(dm.train.x)} windows of {CLS_CYCLES} cycles over "
+            f"{n_cyc} packed cycles ({len(dm.train.x) * CLS_CYCLES / n_cyc:.2f}"
+            f"x less than materialized)")
+        mlp_kw = dict(input_size=200 * CLS_CYCLES, in_dim=2)
+        res_mlp, _ = fit("MLP on raw windows", ClassificationTask(
+            seeded(MLP, **mlp_kw)), dm)
+        fit("GRU on raw windows", ClassificationTask(seeded(
+            GRU, input_size=CLS_CYCLES, in_dim=400)), dm)
+
+        # -- the same MLP fit with its training split streamed -----------
+        x_train, y_train = dm.train.x.materialize(), dm.train.y
+        path = streaming.MmapDataset.write(os.path.join(tmp, "train"),
+                                           x_train, y_train)
+
+        class StreamedDM:
+            batch_size, drop_last = dm.batch_size, dm.drop_last
+            train_sampling = dm.train_sampling
+            train = streaming.StreamingSplit(streaming.MmapDataset(path))
+            val, test = dm.val, dm.test
+
+        class ResidentDM(StreamedDM):
+            train = ArraySplit(x_train, y_train)
+
+        runs = {}
+        for label, dm_, kw in (("resident", ResidentDM(), {}),
+                               ("streamed", StreamedDM(), {"streaming":
+                                                           True})):
+            model = seeded(MLP, **mlp_kw)
+            res, losses = fit(f"MLP, train split {label}",
+                              ClassificationTask(model), dm_, **kw)
+            runs[label] = (model, losses)
+        gathered = StreamedDM.train.x.gathers
+        check(gathered["native"] > 0 and gathered["numpy"] == 0,
+              f"the streamed fit's gathers: {gathered}")
+        check(runs["streamed"][1] == runs["resident"][1]
+              and same_weights(runs["streamed"][0], runs["resident"][0]),
+              "the streamed fit is not the resident fit bit for bit")
+        log(f"streaming: Trainer(streaming=True) over a memory map of "
+            f"{x_train.nbytes / 2**20:.1f} MiB, {gathered['native']} native "
+            f"row gathers into pinned memory, none by numpy; losses and "
+            f"weights bit-equal to the resident fit; the MLP on the "
+            f"ondevice windows reached val f1 "
+            f"{res_mlp.history[-1]['val/f1_score_mean']:.4f}")
+
+        # -- the latent classifiers on a frozen VQ-VAE -------------------
+        vq = VQVAEPatch(**TRAIN_VQ, vq_impl="pallas", device=dev,
+                        generator=torch.Generator().manual_seed(SEED)).eval()
+        n7 = 0
+        for task_name, label in (("classification", "MLP on z_q"),
+                                 ("classification_ids",
+                                  "MLPEmbedding on ids")):
+            ldm = LatentPredDataModule(vq, task_name, CLS_CYCLES,
+                                       ids["val_ids"], ids["test_ids"],
+                                       batch_size=CLS_BATCH,
+                                       data_directory_path=tmp)
+            _, counts = counted(ldm.setup)
+            check(set(counts) == {NEAREST},
+                  f"{task_name} latents: the encode launched {counts}")
+            n7 += counts[NEAREST]
+            if task_name == "classification":
+                model = seeded(MLP, input_size=CLS_CYCLES,
+                               in_dim=ldm.train.x.shape[-1])
+                task = ClassificationTask(model)
+            else:
+                model = seeded(MLPEmbedding, input_size=CLS_CYCLES,
+                               in_dim=ldm.train.x.shape[-1])
+                task = ClassificationTask(model, ids_input=True)
+            log(f"{task_name} latents of a VQ-VAE at hidden "
+                f"{vq.hidden_dim} (vq_impl='pallas'): {NEAREST} x "
+                f"{counts[NEAREST]} for the encode, train "
+                f"{ldm.train.x.shape}")
+            fit(label, task, ldm)
+        out["launches"][NEAREST] = ("LatentPredDataModule.setup, two latent "
+                                    "tasks", n7, None)
+
+        # -- the EMA VQ --------------------------------------------------
+        rdm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
+                               val_data_ids=ids["val_ids"],
+                               test_data_ids=ids["test_ids"],
+                               batch_size=TRAIN_VQ_BATCH,
+                               data_directory_path=tmp)
+        rdm.setup()
+        ema = VQVAEPatch(**TRAIN_VQ, **EMA_VQ, device=dev,
+                         generator=torch.Generator().manual_seed(SEED))
+        ema.requires_grad_(True)
+        task = ReconstructionTask(ema)
+        opt = make_radam(TRAIN_VQ["learning_rate"],
+                         clip_norm=TRAIN_VQ_CLIP).init(ema)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cycles = torch.from_numpy(rdm.train.x).to(dev)
+        n_batches = max(1, len(cycles) // TRAIN_VQ_BATCH)
+        thr = EMA_VQ["threshold_ema_dead_code"]
+        seen, rows = [], []
+        for i in range(EMA_STEPS):
+            lo = (i % n_batches) * TRAIN_VQ_BATCH
+            batch = (cycles[lo:lo + TRAIN_VQ_BATCH],)
+            before = ema.codebook.clone()
+            opt.zero_grad()
+            (loss, m, new), counts = counted(
+                lambda: task.loss_and_metrics(batch, train=True,
+                                              generator=gen))
+            loss.backward()
+            ema.commit_state(new)
+            opt.step()
+            check(counts == {} and math.isfinite(float(loss.detach())),
+                  f"EMA VQ step {i}: launches {counts}, loss {loss}")
+            refreshed = int((ema.ema.cluster_size[0] == thr).sum())
+            moved = int((ema.codebook != before).any(dim=1).sum())
+            seen.append(refreshed)
+            rows.append(f"step {i}: loss {float(loss.detach()):.6f}, perplexity "
+                        f"{float(m['perplexity']):.2f}, {moved} codes moved, "
+                        f"{refreshed} re-seeded")
+            if i == 0:
+                check(bool(ema.ema.initted[0] == 1)
+                      and float(before.abs().sum()) == 0.0
+                      and float(ema.codebook.abs().sum()) > 0,
+                      "EMA VQ: the first training batch did not bootstrap "
+                      "the codebook")
+        log(f"EMA VQ (hidden {ema.hidden_dim}, K={ema.num_embeddings}, "
+            f"kmeans_iters {ema.kmeans_iters}, dead-code threshold {thr}, "
+            f"batch {TRAIN_VQ_BATCH} of {len(cycles)} train cycles): "
+            + "; ".join(rows) + f"; gpu {smi}")
+        check(any(seen), f"EMA VQ: no dead code re-seeded in {EMA_STEPS} "
+                         f"steps")
+    log(f"classification phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3086,9 +3539,11 @@ def main() -> int:
     bf16 = bf16_encoder_phase(vq, tr, qp, xreqs, fns["full"], smi)
     launched.update(bf16["launched"])
 
-    check(set(launched) == set(kernels.launches),
+    # every serving kernel; #9 on bf16 operands is the bf16 training
+    # step's, checked there
+    check(set(launched) == set(kernels.launches) - {FLASH_BF16},
           f"kernels no path launched: "
-          f"{sorted(set(kernels.launches) - set(launched))}")
+          f"{sorted(set(kernels.launches) - {FLASH_BF16} - set(launched))}")
 
     with torch.inference_mode():
         x80 = xreqs[0]
@@ -3689,8 +4144,27 @@ def main() -> int:
                f"{ms:.4f} ms and {n_ops:.1f} device operations a call; "
                + "; ".join(parts))
             + f"; gpu {smi}")
-    # -- 12. training at the CLIs' widths: #7 and #9 with gradients ---------
+    # -- 12. training at the CLIs' widths: #7 and #9 with gradients, in
+    # f32 and bf16; #9 on bf16 operands; the classifiers, the windowed and
+    # streamed data paths and the EMA VQ -------------------------------------
     training = training_phase(smi)
+    flash_bf16 = flash_bf16_phase(smi)
+    classification_phase(smi)
+    # #9 on bf16 operands: launched by the bf16 transformer's training
+    # step, held and timed at that step's shape by flash_bf16_phase
+    launched[FLASH_BF16] = training["launches"][FLASH_BF16][:2]
+    times[FLASH_BF16], work[FLASH_BF16] = (flash_bf16["times"],
+                                           flash_bf16["work"])
+    enc_err[FLASH_BF16] = flash_bf16["max_abs_err"]
+    if flash_bf16["device_ms"] is not None:
+        device_ms[FLASH_BF16] = flash_bf16["device_ms"]
+    library_ms = {**sampling["library_ms"],
+                  FLASH_BF16: flash_bf16["times"]["library"][0]}
+    library_device_ms = {
+        FLASH: device_ms["scaled_dot_product_attention"],
+        FLASH_BF16: flash_bf16["library_device_ms"]}
+    extra = {FLASH_BF16: {key: flash_bf16[key]
+                          for key in ("diff_share", "shape")}}
     # -- 13. models off the bench widths, and every extended kernel there --
     widths = widths_phase(smi)
     record = {"kernels": [
@@ -3704,10 +4178,11 @@ def main() -> int:
          "bound_ms": bound_of(work[name])[0],
          "bound_by": bound_of(work[name])[1],
          # but for #9, no single PyTorch call computes these functions
-         "library_ms": sampling["library_ms"].get(name),
+         "library_ms": library_ms.get(name),
          **({"device_ms": device_ms[name]} if name in device_ms else {}),
-         **({"library_device_ms": device_ms["scaled_dot_product_attention"]}
-            if name == FLASH else {}),
+         **({"library_device_ms": library_device_ms[name]}
+            if name in library_device_ms else {}),
+         **extra.get(name, {}),
          # the widths this run held the kernel at against its plain
          # version: head widths, or the encoder's hidden widths
          **({"widths": sorted({BENCH_HIDDEN if name in F32_ENCODER

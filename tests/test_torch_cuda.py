@@ -25,7 +25,9 @@ products in split TF32 on the tensor cores) sum 64- to 2048-term
 products in other orders than the plain versions and may contract FMAs:
 2e-5 on the attention output
 and the written cache row, 1e-4 on the residual stream; every cache row
-but `pos` must stay bit-equal. The bf16 encoder chain (#1's
+but `pos` must stay bit-equal. #9 on bf16 q, k and v rounds that f32
+output to bf16: at most 1e-3 of the entries differ from the plain
+version's, each by one bf16 step or, near 0, by no more than 2e-5. The bf16 encoder chain (#1's
 `compute_dtype` variant) rounds each product input to bf16: an ulp of
 f32 difference in a gelu output can move one input by 2^-8 of its
 value, so a resblock's output is held within 1e-3 of its largest
@@ -1298,6 +1300,164 @@ def test_flash_attention_at_other_head_widths(dev, h, d, t, packed):
     ref = fused_attn.flash_causal_attention_reference(q, k, v)
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 2e-5
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per entry, how many bf16 steps apart two bf16 tensors of one sign
+    pattern are (their bit patterns as integers)."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+def _bf16_qkv(b, h, d, t, packed, seed):
+    """bf16 q, k, v on the card: contiguous, or the views of a packed
+    (B, T, 3C) qkv."""
+    g = torch.Generator().manual_seed(seed)
+    if packed:
+        qkv = (torch.randn(b, t, 3 * h * d, generator=g) * 2).to(
+            "cuda", torch.bfloat16)
+        return tuple(attention.split_heads(z, h)
+                     for z in qkv.split(h * d, dim=-1))
+    return tuple((torch.randn(b, h, t, d, generator=g) * 2).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
+@pytest.mark.parametrize("b,h,d,t", [(16, 8, 64, 321), (80, 8, 64, 321),
+                                     (2, 8, 24, 321), (2, 8, 32, 321),
+                                     (2, 2, 128, 321), (3, 2, 64, 45),
+                                     (1, 3, 64, 65), (2, 64, 3, 33),
+                                     (2, 4, 48, 130), (1, 1, 64, 1)])
+def test_flash_attention_bf16_matches_plain(dev, b, h, d, t, packed):
+    """#9 on bf16 q, k and v: the bf16 output equals the plain version's
+    (the f32 core on the widened operands, rounded to bf16) except on at
+    most 1e-3 of the entries. The two f32 results part by up to #9's
+    2e-5 and round alike unless they straddle a rounding boundary: a
+    differing entry is one bf16 step apart, or, near 0 where a bf16 step
+    is finer than that, within the f32 tile's 2e-5."""
+    q, k, v = _bf16_qkv(b, h, d, t, packed, seed=d + t)
+    out = _launched("flash_attention_bf16",
+                    lambda: fused_attn.flash_causal_attention(q, k, v))
+    ref = fused_attn.flash_causal_attention_reference(q, k, v)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    ulps = _bf16_ulps(out, ref)
+    err = (out.float() - ref.float()).abs()
+    share = float((ulps > 0).float().mean())
+    far = (ulps > 1) & (err > 2e-5)
+    stats = (f"differing share {share:.2e}, max ulps {int(ulps.max())}, "
+             f"max abs {float(err.max()):.3e}, beyond both bounds "
+             f"{int(far.sum())}")
+    print(f"flash bf16 {(b, h, d, t, packed)}: {stats}")
+    assert not far.any(), stats
+    assert share <= 1e-3, stats
+
+
+def test_flash_attention_bf16_gradients_on_cuda(dev):
+    """The backward of the bf16 kernel's autograd function is the plain
+    version's recompute on the saved bf16 operands: the same gradients,
+    in bf16, as differentiating the plain version."""
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in _bf16_qkv(2, 2, 64, 70, False, seed=9)]
+        (fn(*leaves).float() ** 2).sum().backward()
+        return [z.grad for z in leaves]
+
+    for got, want in zip(grads(fused_attn.flash_causal_attention),
+                         grads(fused_attn.flash_causal_attention_reference)):
+        assert got.dtype == torch.bfloat16
+        assert (got.float() - want.float()).abs().max() <= 1e-2
+
+
+def test_flash_bf16_wrapper_rejects_mixed_operands(dev):
+    q = torch.zeros(2, 2, 9, 64, device=dev, dtype=torch.bfloat16)
+    before = dict(kernels.launches)
+    for call in (lambda: fused_attn.flash_causal_attention(q, q.float(), q),
+                 lambda: fused_attn.flash_causal_attention(q.half(), q, q),
+                 lambda: fused_attn.flash_causal_attention(
+                     torch.zeros(2, 2, 9, 192, device=dev,
+                                 dtype=torch.bfloat16), q, q)):
+        with pytest.raises(ValueError):
+            call()
+    assert kernels.launches == before
+
+
+def test_bf16_transformer_step_kernel_path_against_plain(dev):
+    """A bf16 training step of an attention_impl='pallas' transformer:
+    #9's bf16 kernel once a block, and the loss and the global gradient
+    norm within chip_smoke.py's gates (1e-5, 1e-4 relative) of the same
+    step with the plain version in the kernel's place."""
+    from unittest import mock
+
+    from vq_vae_transformer_arc_welding_tpu_torch.models import (
+        TransformerDecoder)
+
+    ids = torch.randint(0, 34, (4, 65),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def step(plain: bool):
+        tr = TransformerDecoder(
+            d_model=128, n_classes=34, seq_len=65, n_blocks=2, n_head=2,
+            res_dropout=0.0, attention_impl="pallas",
+            compute_dtype=torch.bfloat16, device=dev,
+            generator=torch.Generator().manual_seed(0)).requires_grad_(True)
+        before = kernels.launches["flash_attention_bf16"]
+        with mock.patch.object(
+                fused_attn, "flash_causal_attention",
+                fused_attn.flash_causal_attention_reference if plain
+                else fused_attn.flash_causal_attention):
+            loss = tr.loss_gen(tr.apply(ids, train=True), ids)
+            loss.backward()
+        torch.cuda.synchronize()
+        norm = torch.stack([p.grad.double().norm() for p in tr.parameters()
+                            if p.grad is not None]).norm()
+        return (float(loss), float(norm),
+                kernels.launches["flash_attention_bf16"] - before)
+
+    loss_k, norm_k, n_k = step(False)
+    loss_p, norm_p, n_p = step(True)
+    assert (n_k, n_p) == (2, 0)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert abs(norm_k - norm_p) <= 1e-4 * norm_p
+
+
+def test_streaming_fit_equals_resident_fit_on_the_card(dev, tmp_path):
+    """Trainer(streaming=True) on the card: each batch gathered natively
+    from the memory map into pinned memory and copied without blocking;
+    losses and weights bit-equal to the fit over the resident split."""
+    from vq_vae_transformer_arc_welding_tpu_torch.data import (
+        ArraySplit, sampling_weights, streaming)
+    from vq_vae_transformer_arc_welding_tpu_torch.models import MLP
+    from vq_vae_transformer_arc_welding_tpu_torch.train.loop import Trainer
+    from vq_vae_transformer_arc_welding_tpu_torch.train.optim import (
+        make_radam)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        ClassificationTask)
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((96, 50, 2)).astype(np.float32)
+    y = rng.integers(0, 2, 96)
+    path = streaming.MmapDataset.write(str(tmp_path / "train"), x, y)
+
+    def fit(train, **kw):
+        class DM:
+            batch_size, drop_last = 16, True
+            train_sampling = sampling_weights(y)
+            val = test = ArraySplit(x[:32], y[:32])
+        DM.train = train
+        model = MLP(50, 2, 2, 32, 2, dropout_p=0.1, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+        res = Trainer(max_epochs=2, verbose=False, **kw).fit(
+            ClassificationTask(model), DM(), make_radam(1e-3))
+        return model, [h["train_epoch/loss"] for h in res.history]
+
+    resident, l_res = fit(ArraySplit(x, y))
+    split = streaming.StreamingSplit(streaming.MmapDataset(path))
+    streamed, l_str = fit(split, streaming=True)
+    assert split.x.gathers["native"] > 0 == split.x.gathers["numpy"]
+    assert l_res == l_str
+    for (k, a), b in zip(resident.state_dict().items(),
+                         streamed.state_dict().values()):
+        assert torch.equal(a, b), k
 
 
 ENCODER_WIDTHS = [64, 128, 192, 256, 320, 448]

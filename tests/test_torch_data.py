@@ -186,10 +186,13 @@ def test_asimow_cache_and_npy_export(data_dir, tmp_path):
 
 
 def test_ondevice_windows_wait_for_their_module():
+    """data/windowed.py is ported: 'ondevice' builds (the windows
+    themselves are held against the materialized ones in
+    tests/test_torch_windowed.py); another mode is refused."""
     val, test = _ids()
-    with pytest.raises(NotImplementedError, match="data/windowed.py"):
-        asimow.ASIMoWDataModule("classification", 2, val, test,
-                                window_mode="ondevice")
+    dm = asimow.ASIMoWDataModule("classification", 2, val, test,
+                                 window_mode="ondevice")
+    assert dm.window_mode == "ondevice"
     with pytest.raises(ValueError):
         asimow.ASIMoWDataModule("classification", 2, val, test,
                                 window_mode="other")

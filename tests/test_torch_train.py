@@ -241,8 +241,17 @@ def test_vqvae_pallas_vq_impl_trains_through_its_kernel_hook(monkeypatch):
 
 
 def test_vqvae_refuses_the_improved_vq():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        PortVQVAE(H, 2, K, D, 1, use_improved_vq=True, device="cpu")
+    """The EMA VQ is ported (tests/test_torch_vq_ema.py): an EMA VQ-VAE
+    refuses the classic codebook parameter and holds the EMA buffers
+    under vector_quantize_pytorch's keys instead."""
+    ema = PortVQVAE(H, 2, K, D, 1, use_improved_vq=True, device="cpu")
+    keys = set(ema.state_dict())
+    assert "vector_quantization.embedding.weight" not in keys
+    assert {f"vector_quantization.vq.layers.0._codebook.{n}"
+            for n in ("embed", "cluster_size", "embed_avg",
+                      "initted")} <= keys
+    with pytest.raises(RuntimeError, match="embedding.weight"):
+        ema.load_state_dict(port_vqvae(False).state_dict())
 
 
 def test_bridged_vqvae_with_batch_norm_serves_as_jax():

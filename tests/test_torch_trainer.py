@@ -347,7 +347,10 @@ def test_transformer_tasks_share_one_optimizer():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(streaming=True), "queue 1 item 2"),
+    # streaming is ported (tests/test_torch_streaming.py); over a mesh
+    # it raises, as in the JAX package (the case keeps its id)
+    pytest.param(dict(streaming=True, mesh=object()), "streaming \\+ mesh",
+                 id="kw0-queue 1 item 2"),
     (dict(mesh=object()), "queue 1 item 6"),
     (dict(param_rules={}), "queue 1 item 6"),
     (dict(dropout_prng="rbg"), "Philox")])
@@ -359,15 +362,31 @@ def test_unported_trainer_options_raise(kw, match):
 
 
 def test_bf16_training_and_ondevice_windows_raise(data_dir):
+    """Both are ported and no longer raise (tests/test_torch_train_bf16.py
+    and tests/test_torch_windowed.py hold them against JAX): a bf16
+    training forward gives f32 logits whose gradients reach the f32
+    weights, and 'ondevice' windows come out as a WindowedArray."""
     model = TransformerDecoder(d_model=32, n_classes=18, seq_len=9,
                                n_blocks=1, n_head=4, device="cpu",
                                compute_dtype=torch.bfloat16,
                                generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        model.apply(torch.zeros(2, 9, dtype=torch.long), train=True,
-                    generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        datamodule(data_dir, batch_size=8, window_mode="ondevice")
+    model.requires_grad_(True)
+    logits = model.apply(torch.zeros(2, 9, dtype=torch.long), train=True,
+                         generator=torch.Generator())
+    logits.float().sum().backward()
+    assert logits.dtype == torch.float32
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    assert {n for n, g in grads.items() if g is None} == {
+        "class_head.linear_1.weight", "class_head.linear_2.weight"}
+    assert all(g.dtype == torch.float32 for g in grads.values()
+               if g is not None)
+    ids = get_val_test_ids()
+    dm = ASIMoWDataModule(task="classification", n_cycles=2,
+                          val_data_ids=ids["val_ids"],
+                          test_data_ids=ids["test_ids"], batch_size=8,
+                          data_directory_path=data_dir, window_mode="ondevice")
+    dm.setup()
+    assert type(dm.train.x).__name__ == "WindowedArray"
 
 
 def test_profile_dir_traces_epoch_one(tmp_path):

@@ -1,8 +1,9 @@
 """ASIMoW dataset pipeline: CSV -> packed device-ready arrays.
 
 Own copy of vq_vae_transformer_arc_welding_tpu/data/asimow.py, the same
-arrays from the same file (`window_mode='ondevice'` waits for
-data/windowed.py). Capability parity with reference
+arrays from the same file, and with `window_mode='ondevice'` the same
+windows as a data/windowed.WindowedArray over the packed cycles.
+Capability parity with reference
 dataloader/asimow_dataloader.py:
 column layout (3 id columns, then V_0..V_199, I_0..I_199 by position,
 :240-246), id-based welding-run splits (:56-90), per-task label -1
@@ -149,18 +150,14 @@ class ASIMoWDataModule:
                  window_mode: str = "materialize"):
         """window_mode: 'materialize' copies every n-cycle window into a
         dense array (reference semantics, seq_len-fold memory).
-        'ondevice' (packed cycles kept once, windows gathered inside the
-        training step, data/windowed.py of the JAX package) is not
-        ported yet and raises."""
+        'ondevice' keeps the packed cycles once and a table of window
+        starts (data/windowed.py); the trainer gathers each batch's
+        windows on the card by index. Bit-identical batches at about
+        n_cycles times less host and device memory."""
         if task not in ("classification", "classification_ids",
                         "reconstruction"):
             raise NotImplementedError(f"Task {task} not implemented")
-        if window_mode == "ondevice":
-            raise NotImplementedError(
-                "window_mode='ondevice' needs data/windowed.py, which is "
-                "not ported yet (ROADMAP.md, queue 1 item 2); use "
-                "'materialize'")
-        if window_mode != "materialize":
+        if window_mode not in ("materialize", "ondevice"):
             raise ValueError(f"window_mode {window_mode!r}")
         self.task = task
         self.n_cycles = n_cycles
@@ -191,6 +188,8 @@ class ASIMoWDataModule:
 
     def _prepare_split(self, vi, labels, rng, ds_type: str):
         x, y = vi, labels
+        if self.n_cycles > 1 and self.window_mode == "ondevice":
+            return self._prepare_split_ondevice(vi, labels, rng, ds_type)
         if self.n_cycles > 1:
             x, y = create_sequence_windows(x, y, self.n_cycles,
                                            self.window_size,
@@ -203,6 +202,24 @@ class ASIMoWDataModule:
         if self.shuffle:
             x, y = shuffle_arrays(rng, x, y)
         return x, y
+
+    def _prepare_split_ondevice(self, vi, labels, rng, ds_type: str):
+        """A windowed view instead of materialized windows: the same
+        gather, the window-weighted scaler statistics, the same shuffle
+        draws, so bit-identical batch values."""
+        from .windowed import WindowedArray, fit_scaler_on_windows
+
+        cycles = np.ascontiguousarray(
+            vi[:, self.window_offset:self.window_offset + self.window_size, :])
+        n = cycles.shape[0] - self.n_cycles
+        starts = np.arange(n, dtype=np.int32)
+        y = labels[self.n_cycles:].copy()
+        if ds_type == "train":
+            fit_scaler_on_windows(self.scaler, cycles, self.n_cycles)
+        cycles = self.scaler.transform(cycles)
+        if self.shuffle:
+            starts, y = shuffle_arrays(rng, starts, y)
+        return WindowedArray(cycles, starts, self.n_cycles), y
 
     def setup(self, stage: str = "fit"):
         vi, labels, exp, run = _load_cached(self.data_dir, cache=self.cache)

@@ -77,6 +77,8 @@ _SIGNATURES = {
     # q, k, v, out, batch, n_head, t, head width, the inputs' strides
     # (batch, head, row) and the output's, in floats, sm_scale, stream
     "flash_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    # the same on bf16 q, k, v and out, strides in elements
+    "flash_attention_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     # the block's packed operands (ops/fused_decode.DecodeArgs), x, out,
     # pos, stream: one cooperative launch each
     "decode_attn_f32": [_P] * 3 + [_I, _P],

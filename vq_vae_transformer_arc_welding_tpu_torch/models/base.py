@@ -51,6 +51,13 @@ class BatchNormParams(Params):
             self.bias.zero_()
 
 
+def bn_state(bn: BatchNormParams, prefix: str, mean, var) -> dict:
+    """A BatchNorm's new running state under its state_dict keys, with
+    the batch count BatchNorm1d keeps beside it."""
+    return {f"{prefix}.running_mean": mean, f"{prefix}.running_var": var,
+            f"{prefix}.num_batches_tracked": bn.num_batches_tracked + 1}
+
+
 def serving_device(device=None) -> torch.device:
     """The device an entry point builds on: the one asked for, else the
     card. Without a card the allocation that follows raises; nothing
@@ -97,6 +104,13 @@ class Checkpointed:
         save_checkpoint(path, type(self).__name__, self.hparams,
                         self.state_dict(), extra, optimizer_state=opt,
                         scheduler_state=sched)
+
+    @torch.no_grad()
+    def commit_state(self, new_state: dict) -> None:
+        """Write the state a training forward returned (BatchNorm running
+        statistics, the EMA VQ's codebook) into the buffers it names."""
+        for name, value in new_state.items():
+            self.get_buffer(name).copy_(value)
 
     @classmethod
     def load(cls, path: str, device=None, **runtime):

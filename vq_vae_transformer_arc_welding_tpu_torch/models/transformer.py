@@ -4,7 +4,7 @@ Port of vq_vae_transformer_arc_welding_tpu/models/transformer.py
 (`sinusoidal_pe`, `TransformerDecoder`: `embed`, the block body,
 `backbone`, `heads`, `apply` in eval and in train mode, `decay_mask`,
 `loss_gen`, `loss_class`, the `compute_dtype` runtime option of the
-eval forward, `save` / `load`, and the samplers: `_sample_from_logits`,
+eval and the train forward, `save` / `load`, and the samplers: `_sample_from_logits`,
 `_recompute_scan`, `generate`, `_attn_cached`, `_token_step`,
 `_token_step_fused`, `_prefill`, `generate_kv`). Attribute paths are the
 reference keys read by
@@ -18,8 +18,14 @@ attention dropout (`att_dropout`), and residual dropout (`res_dropout`)
 after its attention and after its MLP, drawn from `g` block by block.
 As in the JAX package and the reference, the class head's optional
 dropout is created but never applied. The stacked block layout (a scan
-layout for XLA) is not ported, and bf16 training (`compute_dtype` with
-`train=True`) waits for its item in ROADMAP.md.
+layout for XLA) is not ported.
+
+bf16 training (`compute_dtype=torch.bfloat16` with `train=True`) is the
+JAX package's: the f32 parameters are cast in the forward (`cast_params`,
+`.to`, through which the gradients reach them in f32), the stream and
+the blocks' products are bf16, dropout scales in bf16, the attention's
+scores and softmax are f32 (kernel #9 on the bf16 q, k and v at
+attention_impl='pallas'), and the heads sum in f32.
 
 Sampling draws as `jax.random.categorical` does: Gumbel noise added to
 the logits, then argmax. The noise comes from an explicit
@@ -43,6 +49,7 @@ from ..ops.activations import gelu, new_gelu
 from ..ops.attention import (causal_attention_core, causal_self_attention,
                              merge_heads, split_heads)
 from ..ops.norm import layer_norm
+from ..ops.precision import check_compute_dtype, matmul_f32
 from ..utils.random import dropout
 from .base import Checkpointed, Node, Params, assign
 from .initializers import gpt2_embedding, gpt2_linear
@@ -73,12 +80,7 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     are; on the CPU they are widened first, which gives the same sums."""
     if w.dtype == torch.float32:
         return x @ w.t()
-    a = x.to(w.dtype)
-    if x.device.type == "cuda":
-        out = torch.mm(a.reshape(-1, a.shape[-1]), w.t(),
-                       out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[0])
-    return a.float() @ w.float().t()
+    return matmul_f32(x, w.t(), w.dtype)
 
 
 def cast_params(holder: nn.Module, dtype: torch.dtype):
@@ -135,7 +137,7 @@ class TransformerDecoder(Checkpointed, nn.Module):
         and the embedded stream to bf16, LayerNorm outputs and the
         blocks' products are bf16 (half the traffic between ops), the
         attention scores and softmax stay f32, and the heads sum in f32
-        into f32 logits. The samplers keep f32."""
+        into f32 logits, at train time too. The samplers keep f32."""
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} is not a multiple of "
@@ -143,9 +145,7 @@ class TransformerDecoder(Checkpointed, nn.Module):
         if attention_impl not in ("xla", "pallas"):
             raise ValueError(f"attention_impl {attention_impl!r}: 'xla' or "
                              f"'pallas'")
-        if compute_dtype not in (None, torch.bfloat16):
-            raise ValueError(f"compute_dtype {compute_dtype}: None (f32) or "
-                             f"torch.bfloat16")
+        check_compute_dtype(compute_dtype)
         pe_max_len = max(pe_max_len, seq_len)
         self.compute_dtype = compute_dtype
         self.d_model = d_model
@@ -254,10 +254,6 @@ class TransformerDecoder(Checkpointed, nn.Module):
 
     def backbone(self, x_ids: torch.Tensor, *, train: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        if train and self.compute_dtype is not None:
-            raise NotImplementedError(
-                "training with a compute_dtype (bf16 training as autocast) "
-                "is not ported yet (ROADMAP.md, queue 1 item 2)")
         x = self.embed(x_ids)
         # with a compute dtype the parameters are cast per call, as the
         # JAX package casts them in `embed`: the f32 module stays the

@@ -1,4 +1,6 @@
-"""Build at first use, and load, the native host library (ctypes)."""
+"""Build at first use, and load, the native host library (ctypes): the
+CSV parser (csv_parser.cpp) and the streaming trainer's row gather
+(batch_gather.cpp)."""
 from __future__ import annotations
 
 import ctypes
@@ -9,9 +11,9 @@ import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-_SRCS = [_HERE / "csv_parser.cpp"]
+_SRCS = [_HERE / "csv_parser.cpp", _HERE / "batch_gather.cpp"]
 BUILD_DIR = _HERE.parent / "_build"
-_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -83,5 +85,13 @@ def load_native_lib():
             ctypes.c_int64,
         ]
         lib.asimow_parse.restype = ctypes.c_int64
+        lib.gather_rows_f32.argtypes = [
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_float),
+        ]
+        lib.gather_rows_f32.restype = ctypes.c_int64
         _lib = lib
         return _lib

@@ -16,7 +16,9 @@ generator in that order. The fused kernel has no dropout, so an
 plain core: the JAX function's own rule (ops/attention.py:68-76 there).
 
 Linear weights are in torch's (out, in) layout. With a bf16 input the
-projections are bf16 and the core runs in f32, as in the JAX package.
+projections are bf16 and the core runs in f32, as in the JAX package:
+the plain core on q, k and v widened to f32, the fused kernel on the
+bf16 q, k and v as they are (it widens them itself).
 """
 from __future__ import annotations
 
@@ -71,14 +73,16 @@ def causal_self_attention(x: torch.Tensor, attn, *, n_head: int,
     c = x.shape[-1]
     qkv = x @ attn.c_attn.weight.t() + attn.c_attn.bias
     q, k, v = (split_heads(z, n_head) for z in qkv.split(c, dim=-1))
-    if x.dtype != torch.float32:
-        # a bf16 stream (the transformer's compute_dtype): the
-        # projections follow it, the scores and the softmax stay f32
-        q, k, v = q.float(), k.float(), v.float()
     if impl == "pallas" and not (train and attn_dropout_p > 0.0):
+        # the fused kernel takes the stream's type (f32 or bf16), scores
+        # and softmax in f32, and returns that type
         from .fused_attn import flash_causal_attention
         y = flash_causal_attention(q, k, v)
     else:
+        if x.dtype != torch.float32:
+            # a bf16 stream (the transformer's compute_dtype): the
+            # projections follow it, the scores and the softmax stay f32
+            q, k, v = q.float(), k.float(), v.float()
         y = causal_attention_core(q, k, v, attn_dropout_p=attn_dropout_p,
                                   train=train, generator=generator)
     y = merge_heads(y).to(x.dtype)

@@ -17,22 +17,29 @@ Port of vq_vae_transformer_arc_welding_tpu/ops/conv.py
   `conv_impl` option has no counterpart here.
 
 Layouts: activations (B, L, C); conv kernels in torch's (O, I, k).
+
+`compute_dtype` (bf16 training, the JAX package's `_cast_conv`): the
+matmul's inputs rounded to bf16 and its products summed in f32
+(ops/precision.matmul_f32); for the k=3 conv that is the im2col operand,
+whose columns are x's values, rounded once each. The bias adds stay f32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .precision import matmul_f32
+
 
 def center_tap_dense(x: torch.Tensor, kernel: torch.Tensor,
-                     bias: torch.Tensor) -> torch.Tensor:
+                     bias: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """x: (B, P, I); kernel: (O, I, k) torch layout, odd k. Returns (B, P, O)."""
     k = kernel.shape[-1]
-    return x @ kernel[:, :, k // 2].t() + bias
+    return matmul_f32(x, kernel[:, :, k // 2].t(), compute_dtype) + bias
 
 
 def conv1d_same(x: torch.Tensor, kernel: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+                bias: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """Conv1d, stride 1, symmetric 'same' padding for odd k, as one im2col
     matmul: the k shifted copies of x concatenated tap-major along the
     features, times the kernel laid out (k*I, O).
@@ -43,7 +50,7 @@ def conv1d_same(x: torch.Tensor, kernel: torch.Tensor,
     xp = F.pad(x, (0, 0, pad, pad))
     xcat = torch.cat([xp[:, t:t + length] for t in range(k)], dim=-1)
     w = kernel.permute(2, 1, 0).reshape(k * i, o)
-    return xcat @ w + bias
+    return matmul_f32(xcat, w, compute_dtype) + bias
 
 
 def conv_transpose_block(x: torch.Tensor, kernel: torch.Tensor,

@@ -2,10 +2,17 @@
 
 Port of vq_vae_transformer_arc_welding_tpu/ops/pallas_attn.py
 (`flash_causal_attention`, the pallas_call at :73, kernel #9). The
-kernel is `csrc/flash_attn.cu` (`flash_attention_f32`);
+kernel is `csrc/flash_attn.cu` (`flash_attention_f32`, and
+`flash_attention_bf16` on bf16 q, k and v);
 `flash_causal_attention_reference` is its plain PyTorch version, the
-core of ops/attention.py, which writes and re-reads the (B, H, T, T)
-scores.
+core of ops/attention.py on f32 operands, which writes and re-reads the
+(B, H, T, T) scores.
+
+Operand types: as the JAX kernel, f32 or bf16 q, k and v (all three of
+one type), the arithmetic in f32 and the output in q's type. The bf16
+kernel stages the bf16 rows and widens them where it reads them, and
+rounds its output to bf16 to nearest even; the plain version widens q,
+k and v, runs the f32 core and rounds its output the same way.
 
 What the TPU shaped and this port drops: the padding of T to a multiple
 of 8 and the GROUP = 4 (batch, head) pairs per program. The CUDA kernel
@@ -23,8 +30,9 @@ which `merge_heads` reshapes without a copy.
 
 `flash_causal_attention` is a `torch.autograd.Function`: the forward is
 the kernel, given detached operands, and the backward recomputes the
-attention through the plain core on the saved q, k, v and
-differentiates that, as the JAX `custom_vjp` does. The training forward
+attention through the plain version on the saved q, k, v (bf16 ones
+widened) and differentiates that, as the JAX `custom_vjp` does; the
+gradients come back in the operands' type. The training forward
 reaches it with q, k and v that need gradients: views of one qkv, read
 in place. The kernel has no dropout; ops/attention.py takes the plain
 core where attention dropout is on.
@@ -41,9 +49,19 @@ import torch
 from .. import kernels
 from .attention import causal_attention_core
 
-_KERNEL = "flash_attention_f32"
+_KERNELS = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+_KERNEL = _KERNELS[torch.float32]
 
-flash_causal_attention_reference = causal_attention_core
+
+def flash_causal_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: the f32 core on q, k and v widened to
+    f32, the output in q's type."""
+    if q.dtype == torch.float32:
+        return causal_attention_core(q, k, v)
+    return causal_attention_core(q.float(), k.float(),
+                                 v.float()).to(q.dtype)
 
 
 def _strided_ok(z: torch.Tensor, like: torch.Tensor) -> bool:
@@ -54,34 +72,36 @@ def _strided_ok(z: torch.Tensor, like: torch.Tensor) -> bool:
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
-    """q, k, v (B, H, T, D) f32 -> (B, H, T, D) f32, without autograd:
-    the kernel on CUDA, the plain core on the CPU."""
+    """q, k, v (B, H, T, D), all f32 or all bf16 -> (B, H, T, D) in
+    their type, without autograd: the kernel on CUDA, the plain version
+    on the CPU."""
     if q.device.type == "cpu":
         return flash_causal_attention_reference(q, k, v)
+    name = _KERNELS.get(q.dtype, _KERNEL)
     if q.device.type != "cuda":
-        raise ValueError(f"{_KERNEL}: no kernel for device {q.device}")
+        raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, t, d = q.shape
     dev = q.device
-    kernels.require_heads(_KERNEL, h * d, h)
-    for name, z in (("q", q), ("k", k), ("v", v)):
-        if (z.dtype != torch.float32 or tuple(z.shape) != (b, h, t, d)
-                or z.device != dev):
-            raise ValueError(f"{_KERNEL}: {name} must be f32 {(b, h, t, d)} "
-                             f"on {dev}, got {z.dtype} {tuple(z.shape)} on "
-                             f"{z.device}")
+    kernels.require_heads(name, h * d, h)
+    for what, z in (("q", q), ("k", k), ("v", v)):
+        if (z.dtype not in _KERNELS or z.dtype != q.dtype
+                or tuple(z.shape) != (b, h, t, d) or z.device != dev):
+            raise ValueError(f"{name}: {what} must be f32 or bf16 as q, "
+                             f"{(b, h, t, d)} on {dev}, got {z.dtype} "
+                             f"{tuple(z.shape)} on {z.device}")
     if not all(_strided_ok(z, q) for z in (q, k, v)):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out.transpose(1, 2)
     lib = kernels.library()
-    kernels.launches[_KERNEL] += 1
+    kernels.launches[name] += 1
     sb, sh, st, _ = q.stride()
-    err = lib.flash_attention_f32(
+    err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, t,
         d, sb, sh, st, t * h * d, d, h * d, 1.0 / math.sqrt(d),
         kernels.stream_ptr(dev))
-    kernels.check(err, _KERNEL)
+    kernels.check(err, name)
     return out.transpose(1, 2)
 
 
@@ -96,7 +116,7 @@ class _FlashCausalAttention(torch.autograd.Function):
     def backward(ctx, grad):
         saved = [z.detach().requires_grad_(True) for z in ctx.saved_tensors]
         with torch.enable_grad():
-            out = causal_attention_core(*saved)
+            out = flash_causal_attention_reference(*saved)
         return torch.autograd.grad(out, saved, grad)
 
 

@@ -7,6 +7,12 @@ layer over non-overlapping patches, and its inverse, two
 ConvTranspose1d stages whose kernel equals their stride, two more; they
 stay matmuls here, not `nn.Conv1d`, so that cuDNN and its default TF32
 stay off the path.
+
+`compute_dtype` (bf16 training): the matmuls' inputs rounded to bf16,
+their sums in f32 (ops/precision.matmul_f32), as the JAX package casts
+them; in the inverse only the first stage's input is rounded, its
+second stage takes the f32 GELU output against the rounded kernel, as
+the JAX einsum promotes the pair to f32.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 
 from .activations import gelu
 from .norm import batch_norm_apply, batch_norm_train
+from .precision import matmul_f32
 
 # the two ConvTranspose1d stages' kernel sizes (= strides) per patch
 # size (reference model/vq_vae_patch_embedd.py:24-47)
@@ -29,27 +36,30 @@ def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 
 def patch_embed(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                patch_size: int) -> torch.Tensor:
+                patch_size: int, compute_dtype=None) -> torch.Tensor:
     """kernel: (patch, hidden), the torch weight (H, 1, patch) transposed.
     Returns (B, n_patches, hidden)."""
-    return patchify(x, patch_size) @ kernel + bias
+    return matmul_f32(patchify(x, patch_size), kernel, compute_dtype) + bias
 
 
 def conv_transpose_stride_eq_kernel(x: torch.Tensor, kernel: torch.Tensor,
-                                    bias: torch.Tensor) -> torch.Tensor:
+                                    bias: torch.Tensor,
+                                    compute_dtype=None) -> torch.Tensor:
     """ConvTranspose1d with kernel_size == stride: each input position
     writes its own k outputs, out[b, l*k + m, o] = sum_i x[b, l, i] *
     w[i, o, m] + bias[o]. x: (B, L, I); kernel: (I, O, k), torch's
     ConvTranspose1d layout. Returns (B, L*k, O)."""
     b, length, _ = x.shape
     i, o, k = kernel.shape
-    y = x @ kernel.permute(0, 2, 1).reshape(i, k * o)
+    y = matmul_f32(x, kernel.permute(0, 2, 1).reshape(i, k * o),
+                   compute_dtype)
     return y.reshape(b, length * k, o) + bias
 
 
 def patch_embed_inverse(x: torch.Tensor, params: dict, state: tuple, *,
                         patch_size: int, input_dim: int, train: bool,
-                        momentum: float = 0.1, eps: float = 1e-5):
+                        momentum: float = 0.1, eps: float = 1e-5,
+                        compute_dtype=None):
     """Two-stage ConvTranspose upsample with BatchNorm and GELU between
     the stages, then (B, T, input_dim).
 
@@ -63,13 +73,15 @@ def patch_embed_inverse(x: torch.Tensor, params: dict, state: tuple, *,
     if patch_size not in INVERSE_PATCH_PLANS:
         raise NotImplementedError(f"Patch size not implemented: {patch_size}")
     h = conv_transpose_stride_eq_kernel(x, params["ct1_kernel"],
-                                        params["ct1_bias"])
+                                        params["ct1_bias"], compute_dtype)
     if train:
         h, state = batch_norm_train(h, params["bn_scale"], params["bn_bias"],
                                     *state, momentum=momentum, eps=eps)
     else:
         h = batch_norm_apply(h, params["bn_scale"], params["bn_bias"],
                              *state, eps=eps)
-    h = conv_transpose_stride_eq_kernel(gelu(h), params["ct2_kernel"],
-                                        params["ct2_bias"])
+    ct2 = params["ct2_kernel"]
+    if compute_dtype is not None:
+        ct2 = ct2.to(compute_dtype).float()
+    h = conv_transpose_stride_eq_kernel(gelu(h), ct2, params["ct2_bias"])
     return h.reshape(h.shape[0], -1, input_dim), state

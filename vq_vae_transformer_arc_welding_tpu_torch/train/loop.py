@@ -22,16 +22,24 @@ weighted sampling), as the JAX package rebuilt it:
 - losses and metrics stay on the device through the epoch and are read
   back once at its end; early stopping, the best checkpoint and the
   logs run between epochs on the host;
-- the evaluation's drop_last=False tail is a batch of its own.
+- the evaluation's drop_last=False tail is a batch of its own;
+- a split of data/windowed.WindowedArray windows goes to the device as
+  its packed cycles and window starts, and each batch's windows are
+  gathered there by index, never the whole split;
+- `streaming=True` leaves the training split on the host (a
+  data/streaming.py memory map, or any array): each micro-batch is
+  gathered there, by the native row gather into pinned memory for a
+  memory map, and copied to the device without blocking. The indices,
+  the dropout draws and so the losses are the resident path's.
 
 The model trains in place: `fit` turns its parameters' gradients on for
 the run and off again after it (the port's modules hold frozen weights
 for serving). `logger` is duck-typed: `log_metrics(metrics, step=)`,
 and `log_artifact(path, name=, type_=)` where it sets `log_model`.
 
-Not ported: `streaming=True` (data/streaming.py and
-native/batch_gather.cpp), `mesh=` and `param_rules=` (multi-GPU), and
-the `rbg` dropout PRNG; each raises NotImplementedError.
+Not ported: `mesh=` and `param_rules=` (multi-GPU), and the `rbg`
+dropout PRNG; each raises NotImplementedError, as does `streaming` with
+a mesh in the JAX package.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..data.datasets import ArraySplit
+from ..data.streaming import MmapRows
 from ..models.base import load_state_dict_checked
 from .tasks import Task
 
@@ -84,11 +94,8 @@ class Trainer:
         package's default, by name; the port draws with torch's Philox
         generator). profile_dir: a torch.profiler trace of epoch 1 (the
         first after warm-up) is written there."""
-        if streaming:
-            raise NotImplementedError(
-                "Trainer(streaming=True) needs data/streaming.py and "
-                "native/batch_gather.cpp, which are not ported yet "
-                "(ROADMAP.md, queue 1 item 2)")
+        if streaming and mesh is not None:
+            raise NotImplementedError("streaming + mesh is not supported")
         if mesh is not None or param_rules is not None:
             raise NotImplementedError(
                 "Trainer(mesh=, param_rules=): multi-GPU training is not "
@@ -121,6 +128,7 @@ class Trainer:
         self.profile_dir = profile_dir
         self.terminate_on_nan = terminate_on_nan
         self.dropout_prng = dropout_prng
+        self.streaming = streaming
         self._step_counter = 0
         # a split's arrays on the device, per (task, split); the strong
         # references keep the ids stable
@@ -155,6 +163,31 @@ class Trainer:
         return idx.reshape(n_groups, self.accum, batch_size)
 
     @staticmethod
+    def _stream_batch(task: Task, split, idx: np.ndarray,
+                      device: torch.device) -> tuple:
+        """One micro-batch of a host split on `device`: the rows gathered
+        on the host (natively into a pinned buffer from a memory map)
+        and copied without blocking, then laid out by the task."""
+        pin = device.type == "cuda"
+
+        def put(a) -> torch.Tensor:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return (t.pin_memory() if pin else t).to(device, non_blocking=pin)
+
+        x = split.x
+        if isinstance(x, MmapRows):
+            buf = torch.empty((len(idx),) + x.sample_shape,
+                              dtype=torch.float32, pin_memory=pin)
+            x.gather(idx, buf.numpy())
+            xs = buf.to(device, non_blocking=pin)
+        else:
+            xs = put(x[idx])
+        y, cond = split.y, getattr(split, "cond", None)
+        return task.batch_arrays(ArraySplit(
+            xs, None if y is None else put(y[idx]),
+            None if cond is None else put(cond[idx])))
+
+    @staticmethod
     def _eval_batches(n: int, batch_size: int, drop_last: bool) -> list:
         """(start, stop) of each evaluation batch; without drop_last the
         remainder is a batch of its own."""
@@ -187,12 +220,13 @@ class Trainer:
 
     # -- the steps -------------------------------------------------------------
 
-    def _train_epoch(self, task: Task, opt, arrays: tuple,
+    def _train_epoch(self, task: Task, opt, batch_of,
                      idx_groups: torch.Tensor, gen: torch.Generator):
         """One pass over the index groups: per group, the micro batches'
         gradients summed, divided by their number, one optimizer step.
-        Returns (losses, {metric: values}), one entry per micro batch, on
-        the device."""
+        batch_of(idx): a micro batch's arrays on the device. Returns
+        (losses, {metric: values}), one entry per micro batch, on the
+        device."""
         model = task.model
         params = [p for p in model.parameters() if p.requires_grad]
         losses, metrics = [], {}
@@ -200,7 +234,7 @@ class Trainer:
             opt.zero_grad()
             for idx in group:
                 loss, m, new_state = task.loss_and_metrics(
-                    tuple(a[idx] for a in arrays), train=True, generator=gen)
+                    batch_of(idx), train=True, generator=gen)
                 loss.backward()
                 if new_state:
                     model.commit_state(new_state)
@@ -282,8 +316,15 @@ class Trainer:
         weights = (datamodule.train_sampling if task.weighted_sampler
                    else None)
         drop_last = getattr(datamodule, "drop_last", False)
-        arrays = self._arrays(task, train_split)
-        device = arrays[0].device
+        device = task._device()
+        if self.streaming:
+            def batch_of(idx):
+                return self._stream_batch(task, train_split, idx, device)
+        else:
+            arrays = self._arrays(task, train_split)
+
+            def batch_of(idx):
+                return tuple(a[idx] for a in arrays)
 
         best_score, best_epoch = None, -1
         best_state, best_path = None, None
@@ -295,13 +336,15 @@ class Trainer:
             gen_samp, gen_drop = epoch_generators(self.seed, epoch, device)
             idx_groups = self._train_indices(gen_samp, len(train_split.x),
                                              batch_size, weights, drop_last)
+            if self.streaming:
+                idx_groups = idx_groups.cpu().numpy()
             profiler = self._profiler(epoch, device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
             with profiler or contextlib.nullcontext():
                 losses, tr_metrics = self._train_epoch(
-                    task, opt, arrays, idx_groups, gen_drop)
+                    task, opt, batch_of, idx_groups, gen_drop)
                 losses = losses.cpu().numpy()
             dt = time.perf_counter() - t0
             if profiler is not None:
