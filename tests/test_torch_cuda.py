@@ -1381,6 +1381,86 @@ def test_flash_bf16_wrapper_rejects_mixed_operands(dev):
     assert kernels.launches == before
 
 
+def _assert_bf16_gate(out, ref, what):
+    """The bf16 #9 gate of test_flash_attention_bf16_matches_plain."""
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    ulps = _bf16_ulps(out, ref)
+    err = (out.float() - ref.float()).abs()
+    share = float((ulps > 0).float().mean())
+    far = int(((ulps > 1) & (err > 2e-5)).sum())
+    stats = (f"{what}: differing share {share:.2e}, max ulps "
+             f"{int(ulps.max())}, max abs {float(err.max()):.3e}, beyond "
+             f"both bounds {far}")
+    print(stats)
+    assert far == 0 and share <= 1e-3, stats
+
+
+def test_flash_attention_bf16_large_scores(dev):
+    """The bench model's activations times 8, as test_flash_attention_
+    large_scores feeds the f32 kernel, in bf16 through the packed views:
+    scores in the tens, where a score's rounding moves p the most."""
+    from vq_vae_transformer_arc_welding_tpu_torch.models.transformer import (
+        linear)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+    _, tr = entry.build(n_blocks=1, seed=0, device=dev)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (16, 321))).to(dev)
+    ids[:, 0] = 256
+    blk = tr.blocks[0]
+    with torch.inference_mode():
+        h = layer_norm(tr.embed(ids), blk.ln_1.weight, blk.ln_1.bias)
+        qkv = (linear(h, blk.attn.c_attn) * 8.0).to(torch.bfloat16)
+        q, k, v = (attention.split_heads(z, 8) for z in qkv.split(512, -1))
+        out = _launched("flash_attention_bf16",
+                        lambda: fused_attn.flash_causal_attention(q, k, v))
+        ref = fused_attn.flash_causal_attention_reference(q, k, v)
+    _assert_bf16_gate(out, ref, "large scores")
+
+
+@pytest.mark.parametrize("d", [24, 64, 128])
+def test_flash_attention_bf16_tied_scores(dev, d):
+    """Rows of equal scores: every key is one of four rows, so each row's
+    max is taken by many keys at once (ties in the online max, across
+    stages); and q = 0, where every score of a row is 0 and the output is
+    the running mean of v. Held against the float64 core rounded to
+    bf16, and, with the keys of four rows, against the plain version. At
+    q = 0 the plain version, which divides p by the row sum before P V,
+    parts from float64 on ~1.2e-3 of the entries, while the kernel's and
+    the JAX kernel's order (the division after P V) lands within 2e-5
+    of it (tests/test_torch_flash_bf16_split.py)."""
+    g = torch.Generator().manual_seed(d)
+    b, h, t = 2, 8 if d == 24 else 4, 321      # C a multiple of 64
+    base = torch.randn(b, h, 4, d, generator=g) * 3
+    k = base[:, :, torch.arange(t) % 4].to(dev, torch.bfloat16)
+    v = (torch.randn(b, h, t, d, generator=g) * 2).to(dev, torch.bfloat16)
+    q = (torch.randn(b, h, t, d, generator=g) * 3).to(dev, torch.bfloat16)
+    for what, qq in (("keys of four rows", q),
+                     ("q = 0", torch.zeros_like(q))):
+        out = _launched("flash_attention_bf16",
+                        lambda: fused_attn.flash_causal_attention(qq, k, v))
+        exact = attention.causal_attention_core(
+            qq.double(), k.double(), v.double()).to(torch.bfloat16)
+        _assert_bf16_gate(out, exact, f"tied scores, {what}, d {d}, float64")
+        if what != "q = 0":
+            _assert_bf16_gate(
+                out, fused_attn.flash_causal_attention_reference(qq, k, v),
+                f"tied scores, {what}, d {d}")
+
+
+@pytest.mark.parametrize("t", [63, 64, 65, 128, 129])
+def test_flash_attention_bf16_tile_edges(dev, t):
+    """T at the edges of the bf16 tile's 64-row blocks, 16-row warps and
+    64-key stages, q, k, v read in place from a packed qkv."""
+    for h, d in ((8, 64), (2, 128), (8, 24)):
+        q, k, v = _bf16_qkv(2, h, d, t, True, seed=t + d)
+        out = _launched("flash_attention_bf16",
+                        lambda: fused_attn.flash_causal_attention(q, k, v))
+        _assert_bf16_gate(
+            out, fused_attn.flash_causal_attention_reference(q, k, v),
+            f"T {t}, {h} heads of {d}")
+
+
 def test_bf16_transformer_step_kernel_path_against_plain(dev):
     """A bf16 training step of an attention_impl='pallas' transformer:
     #9's bf16 kernel once a block, and the loss and the global gradient

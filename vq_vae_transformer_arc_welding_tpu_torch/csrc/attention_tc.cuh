@@ -45,19 +45,6 @@
 // zero columns; at HD 128 the tile's 203 KB of shared memory leave one
 // block an SM.
 //
-// Operand type: a second template parameter T, float or __nv_bfloat16
-// (kernel #9 on bf16 q, k and v, as the JAX transformer's bf16 forward
-// hands them to the Pallas kernel). The tiles are staged in shared memory
-// in T as they come (cp.async cannot convert), half the bytes for bf16,
-// and each value is widened to f32 where a fragment or a score operand is
-// read from shared memory: a bf16 value is exact in f32 and in TF32, so
-// the FMA chain and the split-TF32 P@V see the same numbers as the f32
-// tile would on the widened operands, and V's low TF32 term is zero (its
-// product is skipped). A bf16 row is HD + 8 elements apart (16-byte rows,
-// the same bank pattern as the f32 tile's HD + 4 floats), which leaves
-// the HD 128 tile 102 KB of shared memory; its registers (about 250 a
-// thread, 128 would spill) still leave it one block an SM.
-//
 // What bounds it on an H100 (at the bench shape, T = 321, B = 80, H = 8):
 // the bytes of q, k, v and the output (210 MB f32, 3.35 TB/s: 0.063 ms);
 // both products in split TF32 would take 6 x 4.2 GFLOP at 495 TFLOP/s
@@ -68,8 +55,6 @@
 // warp nearly halve the reads per FMA, but their registers leave an SM 8
 // warps instead of 16, and that tile was slower (PERF.md, Findings).
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -89,17 +74,14 @@ constexpr int MAX_HD = 128;             // the widest head an instantiation take
 // == 64), its columns hd .. HD - 1 zero-filled in shared memory. A zero
 // column adds an exact 0.0 to every score (the FMA chain over the real
 // columns is unchanged), and P@V's columns past hd are never stored.
-template <int HD, class T = float>
+template <int HD>
 struct Shape {
-  static constexpr bool WIDE = sizeof(T) == 4;
-  // row stride of Q, K and V tiles, in elements of T: 16-byte rows
-  static constexpr int RS = HD + (WIDE ? 4 : 8);
-  // two blocks an SM up to HD 64; at HD 128 the accumulators take about
-  // 250 registers a thread (and the f32 tile 203 KB of shared memory):
-  // one an SM
+  static constexpr int RS = HD + 4;     // row stride of Q, K and V tiles
+  // two blocks an SM where the shared memory holds them (about 203 KB
+  // a block at HD 128, one an SM)
   static constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;
-  static constexpr int STAGE = 2 * KT * RS;      // K then V, elements
-  static constexpr size_t SMEM = sizeof(T) * (QROWS * RS + 2 * STAGE);
+  static constexpr int STAGE = 2 * KT * RS;      // K then V, floats
+  static constexpr size_t SMEM = sizeof(float) * (QROWS * RS + 2 * STAGE);
 };
 
 // the instantiation a real head width hd runs on
@@ -111,53 +93,29 @@ inline dim3 grid(int batch, int n_head, int t) {
   return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
 }
 
-// q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e (elements of
-// T). vec16: every row starts 16-byte aligned (the pointers and the
-// strides, and hd a multiple of 16 bytes' elements where the head is
-// padded), so rows are copied 16 bytes at a time, else an element at a
-// time. hd: the real head width, read only by a padded tile; sm_scale is
-// 1/sqrt(hd).
-template <class T>
-struct OperandsT {
-  const T* q;
-  const T* k;
-  const T* v;
+// q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e (floats).
+// vec16: every row starts 16-byte aligned (the pointers and the strides,
+// and hd a multiple of 4 where the head is padded), so rows are copied
+// 16 bytes at a time, else 4. hd: the real head width, read only by a
+// padded tile; sm_scale is 1/sqrt(hd).
+struct Operands {
+  const float* q;
+  const float* k;
+  const float* v;
   long long sb, sh, st;
   int t;
   float sm_scale;
   bool vec16;
   int hd;
 };
-using Operands = OperandsT<float>;
 
-template <class T = float>
 __host__ inline bool rows_aligned16(const void* q, const void* k,
                                     const void* v, long long sb,
                                     long long sh, long long st, int hd) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(q) |
                       reinterpret_cast<uintptr_t>(k) |
                       reinterpret_cast<uintptr_t>(v);
-  return p % 16 == 0 && (sb | sh | st | hd) % (16 / sizeof(T)) == 0;
-}
-
-// four consecutive elements of a staged row as f32 (an 8- or 16-byte
-// aligned address), and one
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+  return p % 16 == 0 && (sb | sh | st | hd) % 4 == 0;
 }
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -195,18 +153,6 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], c[i]);
 }
 
-// d += a b over one k8 step where b is exact in TF32 (its lo term is
-// zero): mma3 without the product a_hi * b_lo, which adds an exact 0
-__device__ __forceinline__ void mma2(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1) {
-  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], c[i]);
-}
-
 // 16 (or 4) bytes from global to shared memory; zeros where !ok
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool ok) {
@@ -233,30 +179,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [r0, r0 + N) of x (HD elements each, row i at base + i * st) into
-// dst, RS elements apart, by the block's THREADS threads; rows outside
-// [0, t), and with PAD the columns from hd on, are zero-filled. 16 bytes
-// a cp.async where vec16; else an element at a time, by cp.async for
-// floats and through a register for bf16 (cp.async moves 4 bytes at
-// least), visible to the block after the __syncthreads that precedes the
-// stage's use as the cp.async copies are
-template <int N, int HD, bool PAD, class T>
-__device__ __forceinline__ void copy_rows(T* dst, const T* x, long long base,
-                                          long long st, int r0, int t,
-                                          bool vec16, int hd) {
-  constexpr int RS = Shape<HD, T>::RS;
-  constexpr int V = 16 / sizeof(T);      // elements a 16-byte copy
+// rows [r0, r0 + N) of x (HD floats each, row i at base + i * st) into
+// dst, RS floats apart, by the block's THREADS threads; rows outside
+// [0, t), and with PAD the columns from hd on, are zero-filled
+template <int N, int HD, bool PAD>
+__device__ __forceinline__ void copy_rows(float* dst, const float* x,
+                                          long long base, long long st,
+                                          int r0, int t, bool vec16, int hd) {
+  constexpr int RS = Shape<HD>::RS;
   if (vec16) {
 #pragma unroll
-    for (int i = 0; i < N * HD / V / THREADS; ++i) {
+    for (int i = 0; i < N * HD / 4 / THREADS; ++i) {
       const int c = threadIdx.x + i * THREADS;
-      const int row = c / (HD / V), col = V * (c % (HD / V));
+      const int row = c / (HD / 4), col = 4 * (c % (HD / 4));
       const int r = r0 + row;
       const bool ok = r >= 0 && r < t && (!PAD || col < hd);
-      cp_async16(reinterpret_cast<float*>(dst + row * RS + col),
-                 reinterpret_cast<const float*>(
-                     x + base + (long long)(ok ? r : 0) * st +
-                     (PAD && !ok ? 0 : col)),
+      cp_async16(dst + row * RS + col,
+                 x + base + (long long)(ok ? r : 0) * st +
+                     (PAD && !ok ? 0 : col),
                  ok);
     }
   } else {
@@ -266,13 +206,10 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* x, long long base,
       const int row = e / HD, col = e % HD;
       const int r = r0 + row;
       const bool ok = r >= 0 && r < t && (!PAD || col < hd);
-      const T* src = x + base + (long long)(ok ? r : 0) * st +
-                     (PAD && !ok ? 0 : col);
-      if constexpr (Shape<HD, T>::WIDE) {
-        cp_async4(dst + row * RS + col, src, ok);
-      } else {
-        dst[row * RS + col] = ok ? *src : T(0.0f);
-      }
+      cp_async4(dst + row * RS + col,
+                x + base + (long long)(ok ? r : 0) * st +
+                    (PAD && !ok ? 0 : col),
+                ok);
     }
   }
 }
@@ -295,17 +232,16 @@ __device__ __forceinline__ float quad_sum(float v) {
 // of a valid row: y / l; with PAD, store.one(b, h, row, col, y, l) writes
 // column col alone, for the columns below in.hd (any hd: a pair of an
 // odd-width head is not aligned).
-template <int HD, bool PAD, class T, class Store>
-__device__ __forceinline__ void causal_attention_tile(const OperandsT<T>& in,
+template <int HD, bool PAD, class Store>
+__device__ __forceinline__ void causal_attention_tile(const Operands& in,
                                                       const Store& store) {
   static_assert(HD == 32 || HD == 64 || HD == 128, "a head width of the tile");
-  constexpr int RS = Shape<HD, T>::RS;
-  constexpr int STAGE = Shape<HD, T>::STAGE;
-  constexpr bool WIDE = Shape<HD, T>::WIDE;
+  constexpr int RS = Shape<HD>::RS;
+  constexpr int STAGE = Shape<HD>::STAGE;
   constexpr int R = 2;                  // a thread's rows: g, g + 8
   extern __shared__ float4 smem4[];
-  T* const q_s = reinterpret_cast<T*>(smem4);   // QROWS x RS
-  T* const stages = q_s + QROWS * RS;  // 2 x (K: KT x RS, V: KT x RS)
+  float* const q_s = reinterpret_cast<float*>(smem4);  // QROWS x RS
+  float* const stages = q_s + QROWS * RS;  // 2 x (K: KT x RS, V: KT x RS)
   const int h = blockIdx.x, b = blockIdx.y;
   const int q_end = in.t - QROWS * (int)blockIdx.z;     // rows < q_end
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -336,12 +272,12 @@ __device__ __forceinline__ void causal_attention_tile(const OperandsT<T>& in,
     m[r] = -INFINITY;
     l[r] = 0.0f;
   }
-  const T* q_row = q_s + (w_first + g) * RS;   // row r at + 8 r RS
+  const float* q_row = q_s + (w_first + g) * RS;   // row r at + 8 r RS
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * KT;
     if (it + 1 < n_tiles) {
-      T* next = stages + ((it + 1) & 1) * STAGE;
+      float* next = stages + ((it + 1) & 1) * STAGE;
       copy_rows<KT, HD, PAD>(next, in.k, base, in.st, k0 + KT, in.t,
                              in.vec16, in.hd);
       copy_rows<KT, HD, PAD>(next + KT * RS, in.v, base, in.st, k0 + KT,
@@ -350,8 +286,8 @@ __device__ __forceinline__ void causal_attention_tile(const OperandsT<T>& in,
     cp_async_commit();
     cp_async_wait<1>();   // this stage's copies (and Q's) have landed
     __syncthreads();
-    const T* k_s = stages + (it & 1) * STAGE;
-    const T* v_s = k_s + KT * RS;
+    const float* k_s = stages + (it & 1) * STAGE;
+    const float* v_s = k_s + KT * RS;
     // the 8-key column blocks this warp needs: keys below w_end
     const int nb = min(max((w_end - k0 + 7) / 8, 0), NB);
 
@@ -368,13 +304,14 @@ __device__ __forceinline__ void causal_attention_tile(const OperandsT<T>& in,
         float4 x[R];
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          x[r] = load4(q_row + 8 * r * RS + e);
+          x[r] = *reinterpret_cast<const float4*>(q_row + 8 * r * RS + e);
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
           if (j < nb) {
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
-              const float4 kv = load4(k_s + (8 * j + 2 * tg + c) * RS + e);
+              const float4 kv = *reinterpret_cast<const float4*>(
+                  k_s + (8 * j + 2 * tg + c) * RS + e);
 #pragma unroll
               for (int r = 0; r < R; ++r) {
                 float& a = s[r][j][c];
@@ -436,19 +373,13 @@ __device__ __forceinline__ void causal_attention_tile(const OperandsT<T>& in,
           split_tf32(s[1][j][0], ph[1], pl[1]);   // row g + 8
           split_tf32(s[0][j][1], ph[2], pl[2]);   // row g, key 2 tg + 1
           split_tf32(s[1][j][1], ph[3], pl[3]);
-          const T* vr = v_s + (8 * j + 2 * tg) * RS + g;
+          const float* vr = v_s + (8 * j + 2 * tg) * RS + g;
 #pragma unroll
           for (int n = 0; n < HD / 8; ++n) {
-            if constexpr (WIDE) {
-              uint32_t bh0, bl0, bh1, bl1;
-              split_tf32(vr[8 * n], bh0, bl0);
-              split_tf32(vr[RS + 8 * n], bh1, bl1);
-              mma3(o[n], ph, pl, bh0, bh1, bl0, bl1);
-            } else {
-              // a bf16 value is its own TF32 hi, with lo = 0
-              mma2(o[n], ph, pl, __float_as_uint(load1(vr + 8 * n)),
-                   __float_as_uint(load1(vr + RS + 8 * n)));
-            }
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(vr[8 * n], bh0, bl0);
+            split_tf32(vr[RS + 8 * n], bh1, bl1);
+            mma3(o[n], ph, pl, bh0, bh1, bl0, bl1);
           }
         }
       }

@@ -17,23 +17,28 @@
 // on 32, 64 or 128 with its columns past hd zero in shared memory
 // (attention_tc.cuh).
 //
-// bf16 operands (flash_attention_bf16): the JAX kernel reads q, k and v in
-// the caller's dtype, computes in f32 and writes q's dtype. Here the same
-// tile stages the bf16 rows in shared memory as they come and widens each
-// value where it is read (attention_tc.cuh), so the scores and P@V are
-// the f32 tile's on the widened operands; the output y / l is rounded to
-// bf16 to nearest even, as JAX's astype rounds.
-//
 // What bounds it on an H100 at the bench shape: operations, 4.2 GFLOP of
 // FP32 score FMAs (0.063 ms) and 3 x 4.2 GFLOP of TF32 products (0.026
 // ms), against 210 MB of q, k, v and output (0.063 ms). The score loop
 // reads nine floats of shared memory for every sixteen FMAs, so shared
 // memory, not the FP32 units, sets its pace.
+//
+// bf16 operands (flash_attention_bf16): the JAX kernel reads q, k and v in
+// the caller's dtype, computes in f32 and writes q's dtype. That form has
+// a tile of its own, attention_bf16.cuh: 64 query rows a block, Q K^T and
+// P@V as bf16 mma.sync products with f32 sums (a product of two bf16
+// values is exact in f32; P, which is f32, in three bf16 terms), P kept
+// in registers between the two, the softmax in f32 and the output y / l
+// rounded to bf16 to nearest even, as JAX's astype rounds. Head widths up
+// to 128 on its 16, 32, 64 and 128 instantiations. At (16, 8, 321, 64)
+// its bound is the 21 MB of q, k, v and the output (0.0063 ms).
+#include "attention_bf16.cuh"
 #include "attention_tc.cuh"
 
 namespace {
 
 using namespace arcweld::attn_tc;
+namespace attn_bf16 = arcweld::attn_bf16;
 
 // o[b, h, row, col .. col + 1] = y / l, element (b, h, i, e) at
 // b*sb + h*sh + i*st + e
@@ -52,58 +57,49 @@ struct StoreF32 {
   }
 };
 
-// the same in bf16, rounded to nearest even; a pair is one 4-byte store
-struct StoreBF16 {
-  __nv_bfloat16* o;
-  long long sb, sh, st;
-  __device__ __forceinline__ void operator()(int b, int h, int row, int col,
-                                             float y0, float y1,
-                                             float l) const {
-    *reinterpret_cast<__nv_bfloat162*>(o + b * sb + h * sh + row * st +
-                                       col) =
-        __floats2bfloat162_rn(y0 / l, y1 / l);
-  }
-  __device__ __forceinline__ void one(int b, int h, int row, int col, float y,
-                                      float l) const {
-    o[b * sb + h * sh + row * st + col] = __float2bfloat16_rn(y / l);
-  }
-};
-
 // __grid_constant__: the tile takes its operands by reference, which
 // would otherwise copy the parameters to the stack
-template <int HD, bool PAD, class T, class Store>
-__global__ void __launch_bounds__(THREADS, (Shape<HD, T>::MIN_BLOCKS))
-flash_attention_kernel(const __grid_constant__ OperandsT<T> in,
-                       const __grid_constant__ Store out) {
+template <int HD, bool PAD>
+__global__ void __launch_bounds__(THREADS, Shape<HD>::MIN_BLOCKS)
+flash_attention_kernel(const __grid_constant__ Operands in,
+                       const __grid_constant__ StoreF32 out) {
   causal_attention_tile<HD, PAD>(in, out);
 }
 
-template <int HD, bool PAD, class T, class Store>
-cudaError_t launch(const OperandsT<T>& in, const Store& out, int batch,
+template <int HD, bool PAD>
+cudaError_t launch(const Operands& in, const StoreF32& out, int batch,
                    int n_head, cudaStream_t stream) {
-  constexpr size_t SMEM = Shape<HD, T>::SMEM;
+  constexpr size_t SMEM = Shape<HD>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<HD, PAD, T, Store>,
+      flash_attention_kernel<HD, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (e != cudaSuccess) return e;
-  flash_attention_kernel<HD, PAD, T, Store>
+  flash_attention_kernel<HD, PAD>
       <<<grid(batch, n_head, in.t), THREADS, SMEM, stream>>>(in, out);
   return cudaGetLastError();
 }
 
-// the instantiation of head width hd, as flash_attention_f32 picks it
-template <class T, class Store>
-cudaError_t launch_any(const OperandsT<T>& in, const Store& out, int batch,
-                       int n_head, cudaStream_t s) {
-  switch (padded_head(in.hd)) {
-    case 32:
-      return launch<32, true>(in, out, batch, n_head, s);
-    case 64:
-      return in.hd == 64 ? launch<64, false>(in, out, batch, n_head, s)
-                         : launch<64, true>(in, out, batch, n_head, s);
-    default:
-      return launch<128, true>(in, out, batch, n_head, s);
-  }
+template <int HD>
+__global__ void __launch_bounds__(attn_bf16::THREADS,
+                                  attn_bf16::Shape<HD>::MIN_BLOCKS)
+flash_attention_bf16_kernel(const __grid_constant__ attn_bf16::Operands in,
+                            const __grid_constant__ attn_bf16::Output out) {
+  attn_bf16::causal_attention_bf16_tile<HD>(in, out);
+}
+
+template <int HD>
+cudaError_t launch_bf16(const attn_bf16::Operands& in,
+                        const attn_bf16::Output& out, int batch, int n_head,
+                        cudaStream_t stream) {
+  constexpr size_t SMEM = attn_bf16::Shape<HD>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (e != cudaSuccess) return e;
+  flash_attention_bf16_kernel<HD>
+      <<<attn_bf16::grid(batch, n_head, in.t), attn_bf16::THREADS, SMEM,
+         stream>>>(in, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -131,14 +127,24 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                     sb, sh, st, t, sm_scale,
                     rows_aligned16(q, k, v, sb, sh, st, hd), hd};
   const StoreF32 out{static_cast<float*>(o), sob, soh, sot};
-  return launch_any(in, out, batch, n_head, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (padded_head(hd)) {
+    case 32:
+      return launch<32, true>(in, out, batch, n_head, s);
+    case 64:
+      return hd == 64 ? launch<64, false>(in, out, batch, n_head, s)
+                      : launch<64, true>(in, out, batch, n_head, s);
+    default:
+      return launch<128, true>(in, out, batch, n_head, s);
+  }
 }
 
 // The same on bf16 q, k, v and o (strides in elements), o written in
-// bf16; where hd is 64 the output's offsets are even from a 4-byte-aligned
-// pointer. Rows are copied 16 bytes at a time where the pointers are
-// 16-byte aligned and the strides (and a padded hd) multiples of 8, else
-// an element at a time.
+// bf16: the tile of attention_bf16.cuh at the smallest of 16, 32, 64 and
+// 128 that holds hd. Rows are read 16 bytes at a time where the pointers
+// are 16-byte aligned and the strides and hd multiples of 8, else an
+// element at a time; o is written two elements at a time where hd and
+// its offsets are even from a 4-byte-aligned pointer, else one.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int batch,
                                     int n_head, int t, int hd, long long sb,
@@ -146,15 +152,26 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     long long soh, long long sot,
                                     float sm_scale, void* stream) {
   if (batch < 1 || batch > 65535 || n_head < 1 || t < 1 || hd < 1 ||
-      hd > MAX_HD ||
-      (hd == 64 && ((sob | soh | sot) % 2 != 0 ||
-                    reinterpret_cast<uintptr_t>(o) % 4 != 0)))
+      hd > attn_bf16::MAX_HD)
     return cudaErrorInvalidValue;
-  const OperandsT<__nv_bfloat16> in{
+  const attn_bf16::Operands in{
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), sb, sh, st, t, sm_scale,
-      rows_aligned16<__nv_bfloat16>(q, k, v, sb, sh, st, hd), hd};
-  const StoreBF16 out{static_cast<__nv_bfloat16*>(o), sob, soh, sot};
-  return launch_any(in, out, batch, n_head, static_cast<cudaStream_t>(stream));
+      attn_bf16::rows_aligned16(q, k, v, sb, sh, st, hd), hd};
+  const attn_bf16::Output out{
+      static_cast<__nv_bfloat16*>(o), sob, soh, sot,
+      (hd | sob | soh | sot) % 2 == 0 &&
+          reinterpret_cast<uintptr_t>(o) % 4 == 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (attn_bf16::padded_head(hd)) {
+    case 16:
+      return launch_bf16<16>(in, out, batch, n_head, s);
+    case 32:
+      return launch_bf16<32>(in, out, batch, n_head, s);
+    case 64:
+      return launch_bf16<64>(in, out, batch, n_head, s);
+    default:
+      return launch_bf16<128>(in, out, batch, n_head, s);
+  }
 }

@@ -10,18 +10,21 @@ core of ops/attention.py on f32 operands, which writes and re-reads the
 
 Operand types: as the JAX kernel, f32 or bf16 q, k and v (all three of
 one type), the arithmetic in f32 and the output in q's type. The bf16
-kernel stages the bf16 rows and widens them where it reads them, and
-rounds its output to bf16 to nearest even; the plain version widens q,
-k and v, runs the f32 core and rounds its output the same way.
+kernel has a tile of its own (csrc/attention_bf16.cuh): Q K^T and P@V
+as bf16 tensor-core products with f32 sums (P in three bf16 terms, kept
+in registers), the softmax in f32, the output rounded to bf16 to
+nearest even; the plain version widens q, k and v, runs the f32 core
+and rounds its output the same way.
 
 What the TPU shaped and this port drops: the padding of T to a multiple
 of 8 and the GROUP = 4 (batch, head) pairs per program. The CUDA kernel
 takes any T, masks the ragged edge itself, and runs one block per
-128-query tile (laid from the end of T), head and batch: the tile of
-csrc/attention_tc.cuh, with P@V in split TF32 on the tensor cores. It
-takes any head width up to 128 (C = H * D a multiple of 64): 64 on the
-tile's 64 instantiation, another on 32, 64 or 128 with the columns past
-D zero in shared memory; wider heads raise.
+query tile (laid from the end of T), head and batch: on f32 operands
+the tile of csrc/attention_tc.cuh (128 queries, P@V in split TF32 on
+the tensor cores), on bf16 ones that of csrc/attention_bf16.cuh (64
+queries). It takes any head width up to 128 (C = H * D a multiple of
+64), the columns past D zero in shared memory where the tile is wider;
+wider heads raise.
 
 The kernel reads q, k and v through their strides, so the views that
 `split_heads` cuts out of a packed (B, T, 3C) qkv are read in place; the
