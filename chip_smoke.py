@@ -206,6 +206,24 @@ on the device (torch.profiler), beside its bound at those shapes and
 the tile it ran on. The record lists the widths each kernel was held
 at.
 
+Last, the training CLIs chained into the scorer (`cli_phase`), in a
+temporary working directory on one synthetic CSV (24 runs of 160
+cycles): `cli/train_reconstruction_embedding.main` (hidden 512, 8
+resblocks, K=256, batch 1,024, one epoch), `cli/train_classification_model.main`
+at its defaults (GRU, hidden 758, 6 layers, one epoch) and on the
+latents of the VQ-VAE CLI's best checkpoint (MLP), and
+`cli/train_transformer_mtasks.main` (d512, 8 heads, 6 blocks, T=321,
+batch 16, one gen and one finetune epoch), each with `--device cuda`,
+timed on the host's clock, its checkpoints and its metrics.csv checked
+(a training row, finite losses). The returned transformer is saved,
+and the two checkpoints go through `from_checkpoints(precision="int8",
+encoder_impl="fused")`, calibrated on training windows, with the VQ-VAE
+CLI's scaler, into an artifact that `cli/score_quality.main` scores at
+`--stride 1`: it must launch #1, #2 and the int8 GEMM and nothing else
+(the record's `cli_launches`), and the same artifact scored on the
+plain path must give equal labels wherever its logit margin exceeds
+1e-3, and p_bad + p_good within 1e-4 of 1 in both files.
+
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
 its power limit as nvidia-smi reports them, and the one before that
@@ -331,6 +349,23 @@ CLS_CSV = dict(n_cycles_per_run=100, extra_train_runs=16,
 EMA_VQ = dict(use_improved_vq=True, kmeans_iters=10,
               threshold_ema_dead_code=2)
 EMA_STEPS = 6               # steps over the train split's batches in turn
+# cli_phase: the three training CLIs through `main` at their default
+# widths on one synthetic CSV, their checkpoints served by the int8
+# scorer. 8 val, 8 test and 8 train runs of 160 cycles: 1,280 cycles a
+# split, so that the VQ-VAE's batch of 1,024 and the classifiers' of 512
+# fill a batch in every split (the raw data modules drop the last,
+# partial, batch); 22 runs, 3,102 windows of 20 cycles at stride 1
+CLI_CSV = dict(n_cycles_per_run=160, extra_train_runs=8)
+# each CLI's arguments besides --data-dir and --device (the transformer
+# and the latent MLP also get --vqvae-model, the VQ-VAE CLI's best)
+CLI_ARGS = {
+    "reconstruction": ["--epochs", "1"],
+    "classification": ["--epochs", "1"],
+    "latent MLP": ["--epochs", "1", "--model-name", "MLP",
+                   "--dataset", "latent_vq_vae"],
+    "transformer": ["--epoch_iter", "1", "--gen-epochs", "1",
+                    "--finetune-epochs", "1"],
+}
 # widths_phase: models off the bench widths. The repo's quality study's
 # (scripts/quality_study.py:76-86: a VQ-VAE at hidden 64 with 2
 # resblocks, K=32, D=8; a transformer at d192 with 8 heads of 24 and 4
@@ -3303,6 +3338,214 @@ def widths_phase(smi: str, device: str = "cuda") -> dict:
             "widths": {name: sorted(ws) for name, ws in held.items()}}
 
 
+def newest_metrics(log_root: str) -> tuple[str, list]:
+    """(path, rows) of the newest run's metrics.csv under log_root, each
+    row {column: float} without its empty cells."""
+    import csv
+    runs = [d for d in os.listdir(log_root) if d.startswith("version_")]
+    newest = max(runs, key=lambda d: int(d.split("_")[1]))
+    path = os.path.join(log_root, newest, "metrics.csv")
+    with open(path) as f:
+        return path, [{k: float(v) for k, v in row.items() if v != ""}
+                      for row in csv.DictReader(f)]
+
+
+def read_scores(path: str) -> list:
+    with open(path) as f:
+        lines = f.read().strip().split("\n")
+    check(lines[0] == "experiment,welding_run,start_cycle,label,p_bad,p_good",
+          f"{path}: header {lines[0]!r}")
+    return [ln.split(",") for ln in lines[1:]]
+
+
+@tf32_flags(**TORCH_DEFAULT_TF32)
+def cli_phase(smi: str, device: str = "cuda") -> dict:
+    """The training CLIs chained into the scorer (see the module
+    docstring), in a temporary directory that is the working directory
+    while the phase runs (the CLIs write logs/ and model_checkpoints/
+    there). Returns {"launches": {kernel: (path, launches)}, "seconds":
+    {cli: wall seconds}, "windows_per_s": the scorer's}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.cli import (
+        score_quality, train_classification_model, train_reconstruction_embedding,
+        train_transformer_mtasks)
+    from vq_vae_transformer_arc_welding_tpu_torch.data import (
+        ASIMoWDataModule, get_val_test_ids, load_asimow_csv, synthetic)
+    from vq_vae_transformer_arc_welding_tpu_torch.data.asimow import CYCLE_LEN
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        WeldingQualityPipeline)
+
+    t_phase = time.perf_counter()
+    ids = get_val_test_ids()
+    out = {"launches": {}, "seconds": {}}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # -- C1. one synthetic CSV for every CLI ------------------------
+            data_dir = os.path.join(tmp, "data")
+            csv_path = os.path.join(data_dir, "processed_asimow_dataset.csv")
+            synthetic.write_synthetic_csv(csv_path, seed=SEED, **CLI_CSV)
+            vi, labels, exp, run = load_asimow_csv(csv_path)
+            log(f"cli phase: synthetic CSV of {len(vi)} cycles "
+                f"({int((labels != -1).sum())} labelled) in "
+                f"{len(np.unique(np.stack([exp, run], 1), axis=0))} runs "
+                f"({json.dumps(CLI_CSV)})")
+            common = ["--data-dir", data_dir, "--device", device]
+            ckpts = os.path.join(tmp, "model_checkpoints")
+            vq_best = os.path.join(ckpts, "VQ-VAE-Patch",
+                                   "VQ-VAE-Patch-best.ckpt")
+
+            # -- C2, C3. the CLIs through main, each checked ----------------
+            def run_cli(name, module, extra=()):
+                args = module.build_parser().parse_args(
+                    CLI_ARGS[name] + list(extra) + common)
+                got = [None]
+
+                def call():
+                    got[0] = module.main(args)
+
+                secs = host_seconds(call)
+                out["seconds"][name] = secs
+                path, rows = newest_metrics(
+                    os.path.join(tmp, "logs", "vq-vae-transformer"))
+                train = [r for r in rows
+                         if "train/loss" in r or "train/cl/loss" in r]
+                losses = [v for r in rows for k, v in r.items()
+                          if k.endswith("loss")]
+                check(bool(train), f"cli {name}: no training row in {path}")
+                check(all(math.isfinite(v) for v in losses),
+                      f"cli {name}: a loss in {path} is not finite")
+                log(f"cli {name}: main({' '.join(CLI_ARGS[name])}) in "
+                    f"{secs:.2f} s wall; {os.path.relpath(path, tmp)}: "
+                    f"{len(rows)} rows, {len(train)} training rows, losses "
+                    f"{[round(v, 5) for v in losses[:6]]}...; gpu {smi}")
+                return got[0]
+
+            _, rec_test = run_cli("reconstruction",
+                                  train_reconstruction_embedding)
+            check(os.path.exists(vq_best) and os.path.exists(
+                os.path.join(ckpts, "VQ-VAE-Patch", "last.ckpt")),
+                "the VQ-VAE CLI wrote no best or last checkpoint")
+            check(math.isfinite(rec_test["test/loss"]),
+                  f"the VQ-VAE CLI's test: {rec_test}")
+            for name, extra, ckpt in (
+                    ("classification", (), "GRU-asimow-best.ckpt"),
+                    ("latent MLP", ("--vqvae-model", vq_best),
+                     "MLP-latent_vq_vae-best.ckpt")):
+                res, test = run_cli(name, train_classification_model, extra)
+                check(res.best_ckpt_path == os.path.join(
+                    "model_checkpoints", ckpt)
+                    and os.path.exists(os.path.join(ckpts, ckpt)),
+                    f"cli {name}: no best checkpoint {ckpt}")
+                check(math.isfinite(test["test/f1_score_mean"]),
+                      f"cli {name}: test {test}")
+            tm_run, results = run_cli("transformer", train_transformer_mtasks,
+                                      ("--vqvae-model", vq_best))
+            tr = tm_run.model
+            check(sorted(results) == ["class_test", "class_test_final",
+                                      "gen_test"]
+                  and math.isfinite(results["gen_test"]["test/loss"])
+                  and tr.seq_len == N_CYCLES * 16 + 1,
+                  f"cli transformer: results {results}, T={tr.seq_len}")
+            # -- C4. the JAX CLI writes no transformer checkpoint: the phase
+            tr_ckpt = os.path.join(tmp, "transformer.ckpt")
+            tr.save(tr_ckpt)
+            log(f"cli transformer: d{tr.d_model}, {tr.n_head} heads, "
+                f"{len(tr.blocks)} blocks, T={tr.seq_len}, saved by the "
+                f"phase to {os.path.basename(tr_ckpt)}")
+
+            # -- C5. the checkpoints served by the int8 scorer -------------
+            pipe = WeldingQualityPipeline.from_checkpoints(
+                vq_best, tr_ckpt, n_cycles=N_CYCLES, max_batch=80,
+                precision="int8", encoder_impl="fused", device=device)
+            # the VQ-VAE CLI's scaler: fitted on the train split's cycles
+            dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
+                                  val_data_ids=ids["val_ids"],
+                                  test_data_ids=ids["test_ids"],
+                                  data_directory_path=data_dir)
+            dm.setup()
+            pipe.scaler = dm.scaler
+            # calibration: the first N_CALIB windows of the train runs
+            held_out = {tuple(v) for v in (*ids["val_ids"], *ids["test_ids"])}
+            calib = []
+            for e, r in np.unique(np.stack([exp, run], 1), axis=0):
+                if (int(e), int(r)) in held_out:
+                    continue
+                cyc = dm.scaler.transform(vi[(exp == e) & (run == r)])
+                calib += [cyc[s:s + N_CYCLES].reshape(N_CYCLES * CYCLE_LEN, 2)
+                          for s in range(0, len(cyc) - N_CYCLES + 1,
+                                         N_CYCLES)]
+            pipe.calibrate(np.stack(calib[:N_CALIB]))
+            art = pipe.save_artifact(os.path.join(tmp, "artifact"))
+            argv = ["--artifact", art, "--data-path", csv_path,
+                    "--stride", "1", "--device", device]
+            parser = score_quality.build_parser()
+            kernel_out = os.path.join(tmp, "scores.csv")
+            plain_out = os.path.join(tmp, "scores_plain.csv")
+            secs = [0.0]
+
+            def score():
+                secs[0] = host_seconds(lambda: score_quality.main(
+                    parser.parse_args(argv + ["--out", kernel_out])))
+
+            # -- C6. the kernels the scorer launched -------------------------
+            _, counts = counted(score)
+            check(set(counts) == {ENC, ATTN, GEMM}
+                  and all(n > 0 for n in counts.values()),
+                  f"the scorer on the trained checkpoints launched "
+                  f"{json.dumps(counts)}, expected {ENC}, {ATTN}, {GEMM}")
+            for name in (ENC, ATTN, GEMM):
+                out["launches"][name] = (
+                    "cli_phase: score_quality on the CLIs' checkpoints",
+                    counts[name])
+            # -- C7. the same artifact on the plain path: the label gate ----
+            _, plain_counts = counted(on_plain_path(
+                lambda: score_quality.main(
+                    parser.parse_args(argv + ["--out", plain_out]))))
+            check(plain_counts == {},
+                  f"the plain scorer launched {json.dumps(plain_counts)}")
+            rows, plain = read_scores(kernel_out), read_scores(plain_out)
+            check([r[:3] for r in rows] == [r[:3] for r in plain]
+                  and len(rows) == int(np.maximum(np.unique(
+                      np.stack([exp, run], 1), axis=0,
+                      return_counts=True)[1] - N_CYCLES + 1, 0).sum()),
+                  "the scorer's windows differ from the plain scorer's, or "
+                  "from the CSV's")
+            p = np.array([[float(r[4]), float(r[5])] for r in rows])
+            q = np.array([[float(r[4]), float(r[5])] for r in plain])
+            check(bool((np.abs(p.sum(1) - 1) <= 1e-4).all()
+                       and (np.abs(q.sum(1) - 1) <= 1e-4).all()),
+                  "p_bad + p_good is not within 1e-4 of 1")
+            margin = np.abs(np.log(np.maximum(q[:, 0], 1e-6))
+                            - np.log(np.maximum(q[:, 1], 1e-6)))
+            sure = margin > LABEL_MARGIN
+            lab = np.array([r[3] for r in rows])
+            plain_lab = np.array([r[3] for r in plain])
+            check(bool((lab == plain_lab)[sure].all()),
+                  f"the scorer's labels differ from the plain path's on "
+                  f"{int((lab != plain_lab)[sure].sum())} windows outside "
+                  f"the {LABEL_MARGIN} logit margin")
+            # -- C8. times -----------------------------------------------------
+            out["windows_per_s"] = len(rows) / secs[0]
+            log(f"cli score_quality (int8, encoder_impl='fused') on the "
+                f"CLIs' checkpoints: {len(rows)} windows of {N_CYCLES} "
+                f"cycles at --stride 1 in {secs[0]:.2f} s, "
+                f"{out['windows_per_s']:.1f} windows/s end to end (artifact "
+                f"load, CSV parse, scaling, classify, writing); launches "
+                f"{json.dumps(counts)}; labels equal the plain path's on "
+                f"all {int(sure.sum())} windows with a logit margin above "
+                f"{LABEL_MARGIN} ({int((lab != plain_lab).sum())} differ "
+                f"within it), worst |dp| {float(np.abs(p - q).max()):.3e}, "
+                f"{int((lab == '0').sum())} flagged bad; gpu {smi}")
+        finally:
+            os.chdir(cwd)
+    log(f"cli phase: {time.perf_counter() - t_phase:.1f} s (CLIs "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in out["seconds"].items())
+        + f"); gpu {smi}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4196,6 +4439,8 @@ def main() -> int:
                           for key in ("diff_share", "shape")}}
     # -- 13. models off the bench widths, and every extended kernel there --
     widths = widths_phase(smi)
+    # -- 14. the training CLIs, their checkpoints scored in int8 --------
+    cli = cli_phase(smi)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],
@@ -4223,7 +4468,11 @@ def main() -> int:
          **({"training_path": training["launches"][name][0],
              "training_launches": training["launches"][name][1],
              "training_launches_per_forward": training["launches"][name][2]}
-            if name in training["launches"] else {})}
+            if name in training["launches"] else {}),
+         # the CLI phase's scorer, over the checkpoints the CLIs wrote
+         **({"cli_path": cli["launches"][name][0],
+             "cli_launches": cli["launches"][name][1]}
+            if name in cli["launches"] else {})}
         for name, (src, replaces) in RECORD.items()]}
     for entry in record["kernels"]:
         name = entry["name"]

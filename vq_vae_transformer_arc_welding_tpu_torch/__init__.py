@@ -24,13 +24,23 @@ forward and losses, dropout on explicit generators (`utils/random.py`),
 RAdam with clipping, decay split and schedule (`train/optim.py`), the
 reconstruction and transformer tasks (`train/tasks.py`) and the
 resident-data `Trainer` (`train/loop.py`), with #7 and #9 on the
-training forward.
+training forward; the rest of training below the CLIs: the EMA VQ
+(`ops/vq_ema.py`), the MLP, GRU and MLPEmbedding classifiers with
+`ClassificationTask`, windows gathered on the device
+(`data/windowed.py`), training data streamed from a memory map
+(`data/streaming.py`), bf16 training (`ops/precision.py`) and a JAX
+run's RAdam state (`bridge.radam_state_from_jax`); and the layer users
+start from the shell: the loggers (`log/`: CSV, wandb, MLflow), run
+names (`utils/names.py`), the figure helper (`models/plot_helper.py`,
+matplotlib imported only inside its functions) and the three training
+CLIs (`cli/train_reconstruction_embedding.py`,
+`cli/train_classification_model.py`, `cli/train_transformer_mtasks.py`,
+each `python -m ...` with `--device`).
 Its hand-written CUDA kernels, one per TPU kernel of the JAX package
 and variant, live in `csrc/` and are built on first use by
-`kernels.library()`. Not ported yet: the EMA VQ, the MLP and GRU models
-with `ClassificationTask`, on-device windows and streaming data, bf16
-training, logging, the training CLIs and multi-GPU (ROADMAP.md, queue
-1). Entry points (`entry.build`, `bridge.*`, `Model.load`,
-`load_artifact`, `from_checkpoints`, the scorer) put their tensors on
+`kernels.library()`. Not ported yet: multi-GPU training (`parallel/`)
+and TS2Vec (`ts2vec/`) (ROADMAP.md, queue 1). Entry points
+(`entry.build`, `bridge.*`, `Model.load`, `load_artifact`,
+`from_checkpoints`, the scorer, the training CLIs) put their tensors on
 the card unless the caller names another device.
 """

@@ -1,16 +1,42 @@
 """Shared CLI plumbing (parity with reference utils.py:8-42).
 
 Port of vq_vae_transformer_arc_welding_tpu/cli/shared.py: checkpoint
-loading by content, split ids and the latent data module's factory. The
-training-side helpers wait for the training CLIs.
+loading by content, split ids, the latent data module's factory, the
+training CLIs' input-shape log and summary push, and the device a CLI
+runs on.
 """
 from __future__ import annotations
 
+import logging as log
 import os
+
+import torch
 
 from ..data.latent import LatentPredDataModule
 from ..data.splits import DataSplitId
+from ..models.base import serving_device
 from ..train.checkpoint import is_port_checkpoint, read_payload
+
+
+def cli_device(device: str | None) -> torch.device:
+    """The device a training CLI runs on: `--device`, else the CUDA
+    device. Raises RuntimeError when that is a CUDA device and the host
+    has none: nothing falls back to the CPU unasked."""
+    dev = serving_device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev}: this host has no CUDA device; pass --device cpu "
+            f"to run on the CPU")
+    return dev
+
+
+def print_training_input_shape(data_module):
+    if data_module.train is None:
+        data_module.setup("fit")
+    sp = data_module.val
+    for i, arr in enumerate((sp.x, sp.y, sp.cond)):
+        if arr is not None:
+            log.info(f"Input {i} shape: {arr.shape} type: {arr.dtype}")
 
 
 def load_vqvae_any(model_path: str, device=None, vq_impl: str = "xla"):
@@ -91,3 +117,10 @@ def get_latent_dataloader(use_wandb: bool, n_cycles: int, model_path: str,
 
 def parse_split_ids(pairs):
     return [DataSplitId(experiment=e, welding_run=w) for e, w in pairs]
+
+
+def push_summary(logger, logdict: dict):
+    """Final summary metrics push (reference
+    train_classification_model.py:157-171)."""
+    logger.log_metrics(logdict)
+    logger.finalize()

@@ -263,8 +263,11 @@ class Trainer:
                                             train=False)
             for k, v in m.items():
                 per_batch.setdefault(k, []).append(v)
+        # metric names in sorted order, as the JAX package's metric
+        # dicts (pytrees) come, so that both write their logs' columns
+        # in one order
         means = {k: float(torch.stack(v).double().mean().cpu())
-                 for k, v in per_batch.items()}
+                 for k, v in sorted(per_batch.items())}
         out = {self._ns(task, k, split_name): v for k, v in means.items()}
         if ("f1_score" in means
                 and getattr(task, "metric_namespace", None) is None):
@@ -359,7 +362,8 @@ class Trainer:
 
             # train rows at the log_every cadence (the reference logs
             # every 50 batches, classification_model.py:115)
-            tr_np = {k: v.cpu().numpy() for k, v in tr_metrics.items()}
+            tr_np = {k: v.cpu().numpy()
+                     for k, v in sorted(tr_metrics.items())}
             for b in range(0, len(losses), self.log_every):
                 self._log({self._ns(task, k, "train"): float(v[b])
                            for k, v in tr_np.items()},
