@@ -3546,6 +3546,345 @@ def cli_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# -- the parallel paths and TS2Vec ------------------------------------------
+
+# parallel_phase: the transformer at the CLI's widths (TRAIN_TR) on
+# windows of T=321 and the VQ-VAE at TRAIN_VQ, a few Trainer steps each
+PAR_TR_WINDOWS, PAR_TR_BATCH = 64, 16      # 4 optimizer steps
+PAR_VQ_CYCLES, PAR_VQ_BATCH = 1024, 256    # 4 optimizer steps
+PAR_REQUEST = 37                           # windows of the served request
+PAR_GLOO_BATCH = 8                         # the gloo ranks' global batch
+PAR_RING = (2, 8, 320, 64)                 # ring attention's (B, H, T, D)
+MAX_PAR_LOSS = 1e-5        # gloo ranks against one process: the loss
+MAX_PAR_GNORM_REL = 1e-4   # and the global gradient norm
+MAX_PAR_FWD = 1e-5         # TP forward, and TP x 1 / PP x 1 weights
+MAX_PAR_GRAD = 1e-4        # PP gradients
+MAX_RING_ERR = 1e-4        # the JAX dryrun's bound
+MAX_REPLICA_PROB = 1e-6    # a serving mesh's probabilities
+# ts2vec_phase: TS2Vec's defaults on single synthetic cycles
+TS2VEC_SERIES, TS2VEC_ITERS = 256, 8
+MAX_TS2VEC_ERR = 1e-4      # the card's representations against the CPU's
+
+
+def nccl_version() -> str:
+    import torch
+    v = torch.cuda.nccl.version()
+    return ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
+NCCL_CALLS = ("all_reduce", "broadcast", "all_gather", "all_gather_object")
+
+
+@contextlib.contextmanager
+def collective_calls():
+    """{name: calls} of the torch.distributed collectives in NCCL_CALLS
+    made inside the block (the port's parallel/mesh.py calls them
+    through the module, so wrapping its attributes counts them)."""
+    import torch.distributed as dist
+    calls, saved = {}, {name: getattr(dist, name) for name in NCCL_CALLS}
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return call
+    for name, fn in saved.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def parallel_phase(smi: str, device: str = "cuda") -> dict:
+    """The port's parallel/ paths on one card. First an NCCL world of
+    size 1 (this process): `Trainer(mesh=)` fits of the transformer at
+    the CLI's widths with attention_impl='pallas' (#9) and of the
+    VQ-VAE with vq_impl='pallas' (#7), each bit-equal to the
+    one-process fit; the same fit tensor-parallel x 1 and pipelined x 1
+    (the same code as more ranks run); int8 serving ('attn',
+    encoder_impl='fused': #1, #2, the int8 GEMM) over a one-device
+    mesh, bit-equal to the mesh-less pipeline; a sharded checkpoint
+    round trip. Then two gloo ranks on the one card (NCCL refuses two
+    ranks on one GPU): a data-parallel step, a tensor-parallel forward,
+    a pipelined step and ring attention, each against the one-process
+    function; then a serving mesh of two replicas on the card. Returns
+    {"launches": {kernel: (path, launches)}, "seconds": ...}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import build
+    from vq_vae_transformer_arc_welding_tpu_torch.models import (
+        TransformerDecoder, VQVAEPatch)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.attention import (
+        causal_attention_core)
+    from vq_vae_transformer_arc_welding_tpu_torch.parallel import (
+        jobs, launch)
+    from vq_vae_transformer_arc_welding_tpu_torch.parallel.mesh import (
+        make_mesh)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        CYCLE_LEN, WeldingQualityPipeline)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.checkpoint import (
+        dense_view, load_checkpoint_sharded, model_state_dict)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    log(f"parallel phase: torch {torch.__version__}, NCCL {nccl_version()}; "
+        f"gpu {smi}")
+    out = {"launches": {}, "seconds": {}}
+    rng = np.random.default_rng(SEED)
+    seq_len = N_CYCLES * 16 + 1
+
+    def transformer(**kw):
+        return TransformerDecoder(
+            **{**TRAIN_TR, **kw}, n_classes=258, seq_len=seq_len,
+            generator=torch.Generator().manual_seed(SEED), device=dev)
+
+    def weights_diff(a: dict, b: dict) -> float:
+        return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                   for k in b)
+
+    tr_data = dict(x=rng.integers(0, 256, (PAR_TR_WINDOWS, seq_len)),
+                   y=rng.integers(0, 258, (PAR_TR_WINDOWS, seq_len)),
+                   cond=rng.integers(0, 2, (PAR_TR_WINDOWS,)))
+    tr_fit = dict(spec=jobs.model_spec(transformer(),
+                                       attention_impl="pallas"),
+                  task="gen", data=tr_data, batch_size=PAR_TR_BATCH,
+                  epochs=1, seed=SEED, optimizer="transformer")
+    # without dropout for the pipeline: its microbatches draw their own
+    # masks, so only the dropout-free fit is the dense one's function
+    pp_fit = dict(tr_fit, spec=jobs.model_spec(transformer(res_dropout=0.0),
+                                               attention_impl="pallas"))
+    vq_model = VQVAEPatch(**TRAIN_VQ, generator=torch.Generator(
+        ).manual_seed(SEED), device=dev)
+    vq_fit = dict(spec=jobs.model_spec(vq_model, vq_impl="pallas"),
+                  task="reconstruction",
+                  data=dict(x=rng.standard_normal(
+                      (PAR_VQ_CYCLES, CYCLE_LEN, 2)).astype(np.float32)),
+                  batch_size=PAR_VQ_BATCH, epochs=1, seed=SEED, lr=1e-3)
+
+    # -- P1. one rank: NCCL at world size 1 ---------------------------------
+    t0 = time.perf_counter()
+    one = {name: jobs.fit(None, **kw, device=dev)
+           for name, kw in (("transformer", tr_fit), ("VQ-VAE", vq_fit),
+                            ("transformer without dropout", pp_fit))}
+    vq, tr = build(seed=SEED)
+    calib = rng.standard_normal((N_CALIB, N_CYCLES * CYCLE_LEN, 2)).astype(
+        np.float32)
+    req = rng.standard_normal((PAR_REQUEST, N_CYCLES * CYCLE_LEN, 2)).astype(
+        np.float32)
+    base = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80,
+                                  precision="int8", encoder_impl="fused")
+    base.calibrate(calib)
+    lb, pb = base.classify(req)
+    rate = base.last_saturation_rate
+    with launch.in_process(make_mesh(1, 1, devices=[dev])) as mesh, \
+            collective_calls() as calls:
+        log(f"parallel phase: NCCL world of 1 on {mesh.device} "
+            f"(backend {torch.distributed.get_backend()}) in "
+            f"{time.perf_counter() - t0:.1f} s with the one-process fits")
+        for name, kw, kernel in (("transformer", tr_fit, FLASH),
+                                 ("VQ-VAE", vq_fit, NEAREST)):
+            got, counts = counted(lambda: jobs.fit(mesh, **kw))
+            check(counts.get(kernel, 0) > 0,
+                  f"Trainer(mesh=) {name}: {kernel} not launched "
+                  f"({json.dumps(counts)})")
+            out["launches"][kernel] = (f"Trainer(mesh=) {name}",
+                                       counts[kernel])
+            diff = weights_diff(got["state_dict"], one[name]["state_dict"])
+            check(diff == 0.0 and [h["train_epoch/loss"] for h in
+                                   got["history"]]
+                  == [h["train_epoch/loss"] for h in one[name]["history"]],
+                  f"Trainer(mesh=) {name} is not the one-process fit: "
+                  f"weights differ by {diff}")
+            log(f"parallel: Trainer(mesh=) {name} bit-equal to one process "
+                f"over {len(got['history'])} epoch(s); launches "
+                f"{json.dumps(counts)}")
+        tp = jobs.fit(mesh, **tr_fit, param_rules=True)
+        diff = weights_diff(tp["state_dict"], one["transformer"]["state_dict"])
+        check(diff <= MAX_PAR_FWD, f"TP x 1 fit: weights differ by {diff}")
+        pp = jobs.run_jobs(mesh, [("pp", "fit", dict(
+            pp_fit, pipeline=2, layout=((1, 1), ("data", "pipe"))))])["pp"]
+        diff_pp = weights_diff(pp["state_dict"],
+                               one["transformer without dropout"]
+                               ["state_dict"])
+        check(diff_pp <= MAX_PAR_FWD, f"PP x 1 fit: weights differ by "
+                                      f"{diff_pp}")
+        log(f"parallel: tensor-parallel x 1 fit within {diff:.3e}, "
+            f"pipelined x 1 (2 microbatches) within {diff_pp:.3e} of the "
+            f"one-process fit's weights")
+        # int8 serving over a one-device mesh against the mesh-less one
+        meshed = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES,
+                                        max_batch=80, precision="int8",
+                                        encoder_impl="fused", mesh=mesh)
+        meshed._set_calibration(base._act_absmax)
+        (lm, pm), counts = counted(lambda: meshed.classify(req))
+        check(set(counts) == {ENC, ATTN, GEMM},
+              f"mesh serving launched {sorted(counts)}")
+        for kernel, n in counts.items():
+            out["launches"][kernel] = ("mesh serving int8 'attn'", n)
+        check(bool((lm == lb).all() and (pm == pb).all())
+              and meshed.last_saturation_rate == rate,
+              "mesh serving is not the mesh-less pipeline to the bit")
+        log(f"parallel: int8 serving over a one-device mesh bit-equal to "
+            f"the mesh-less pipeline on {PAR_REQUEST} windows (saturation "
+            f"rate {rate}); launches {json.dumps(counts)}")
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = jobs.sharded_checkpoint(mesh, tr_fit["spec"],
+                                         os.path.join(tmp, "ck"))
+            dense_tr = transformer()
+            _, sd, _ = load_checkpoint_sharded(
+                os.path.join(tmp, "ck"), (dense_view(dense_tr.state_dict()),
+                                          {}))
+            back = model_state_dict(sd)
+            ref = transformer().state_dict()
+            dense_err = max(float((back[k] - ref[k]).abs().max())
+                            for k in ref if ref[k].is_floating_point())
+        check(ck["max_err"] == 0.0 and dense_err == 0.0
+              and len(ck["sharded"]) == 6 * TRAIN_TR["n_blocks"],
+              f"sharded checkpoint: {ck['max_err']}, {dense_err}, "
+              f"{len(ck['sharded'])} sharded leaves")
+        log(f"parallel: sharded checkpoint (torch.distributed.checkpoint) "
+            f"round trip on the card: {len(ck['sharded'])} TP leaves back "
+            f"as shards, and dense in one process, bit-equal")
+    # the fits above went through the collectives a node's ranks call,
+    # on CUDA tensors over NCCL (a one-rank communicator): gradients and
+    # train metrics (all_reduce), TP's f and g (all_reduce), the
+    # pipeline's last stage (broadcast), dense weights of a TP model
+    # and the gathered rows of the pipeline (all_gather), and the
+    # evaluation's batches (all_gather_object). P2P send and recv need
+    # a neighbour, and are not run here.
+    check(all(calls.get(name, 0) > 0 for name in NCCL_CALLS),
+          f"NCCL world of 1: collectives not called: {json.dumps(calls)}")
+    log(f"parallel: NCCL calls in the world of 1 {json.dumps(calls)}")
+    out["nccl_calls"] = dict(calls)
+    out["seconds"]["nccl world 1"] = time.perf_counter() - t0
+
+    # -- P2. two gloo ranks on the one card ---------------------------------
+    t0 = time.perf_counter()
+    small = transformer(res_dropout=0.0)
+    spec = jobs.model_spec(small)
+    ids = rng.integers(0, 256, (PAR_GLOO_BATCH, seq_len))
+    labels = rng.integers(0, 258, (PAR_GLOO_BATCH, seq_len))
+    q, k, v = (rng.standard_normal(PAR_RING).astype(np.float32)
+               for _ in range(3))
+    res = launch.run(jobs.run_jobs, make_mesh(2, 1, devices=[dev, dev]), [
+        ("dp", "tp_step", dict(spec=spec, ids=ids, labels=labels,
+                               layout=((2, 1), ("data", "model")))),
+        ("tp", "tp_step", dict(spec=spec, ids=ids, labels=labels,
+                               layout=((1, 2), ("data", "model")))),
+        ("pp", "pp_step", dict(spec=spec, ids=ids, labels=labels, n_micro=2,
+                               layout=((1, 2), ("data", "pipe")))),
+        ("ring", "ring", dict(q=q, k=k, v=v,
+                              layout=((1, 2), ("data", "model"))))],
+        timeout=600)
+    spawn_s = time.perf_counter() - t0
+    small.requires_grad_(True)
+    it, lt = (torch.as_tensor(a, device=dev) for a in (ids, labels))
+    with torch.no_grad():
+        ref_logits = small.apply(it).cpu().numpy()
+    loss = small.loss_gen(small.apply(it), lt)
+    loss.backward()
+    grads = {n: p.grad.cpu().numpy() for n, p in small.named_parameters()
+             if p.grad is not None}
+    gnorm = float(np.sqrt(sum((g.astype(np.float64) ** 2).sum()
+                              for g in grads.values())))
+    dp = res[0]["dp"]
+    dp_norm = float(np.sqrt(sum((g.astype(np.float64) ** 2).sum()
+                                for g in dp["grads"].values())))
+    check(abs(dp["loss"] - loss.item()) <= MAX_PAR_LOSS
+          and abs(dp_norm - gnorm) <= MAX_PAR_GNORM_REL * gnorm,
+          f"gloo DP step: loss {dp['loss']} against {loss.item()}, gradient "
+          f"norm {dp_norm} against {gnorm}")
+    tp_err = max(float(np.abs(r["tp"]["logits"] - ref_logits).max())
+                 for r in res)
+    check(tp_err <= MAX_PAR_FWD, f"gloo TP forward: {tp_err}")
+    pp = res[0]["pp"]
+    pp_gerr = max(float(np.abs(pp["grads"][n] - grads.get(n, 0.0)).max())
+                  for n in pp["grads"])
+    check(abs(pp["loss"] - loss.item()) <= MAX_PAR_LOSS
+          and pp_gerr <= MAX_PAR_GRAD,
+          f"gloo PP: loss {pp['loss']} against {loss.item()}, gradients "
+          f"{pp_gerr}")
+    ring_ref = causal_attention_core(*(torch.as_tensor(a, device=dev)
+                                       for a in (q, k, v))).cpu().numpy()
+    ring_err = max(float(np.abs(r["ring"] - ring_ref).max()) for r in res)
+    check(ring_err <= MAX_RING_ERR, f"gloo ring attention: {ring_err}")
+    log(f"parallel: two gloo ranks on {dev} (host-staged collectives): "
+        f"DP 2 step loss {dp['loss']:.7f} against one process's "
+        f"{loss.item():.7f}, gradient norm {dp_norm:.6g} against "
+        f"{gnorm:.6g}; TP 2 forward within {tp_err:.3e}; PP 2 loss "
+        f"{pp['loss']:.7f}, gradients within {pp_gerr:.3e}; ring attention "
+        f"{PAR_RING} within {ring_err:.3e}; spawn and jobs "
+        f"{spawn_s:.1f} s")
+    # two replicas of an f32 pipeline on the one card
+    f32 = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80)
+    two = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80,
+                                 mesh=make_mesh(2, 1, devices=[dev, dev]))
+    la, pa = f32.classify(req)
+    lt2, pt2 = two.classify(req)
+    perr = float(np.abs(pa - pt2).max())
+    check(bool((la == lt2).all()) and perr <= MAX_REPLICA_PROB,
+          f"two-replica serving: labels equal {bool((la == lt2).all())}, "
+          f"probabilities {perr}")
+    log(f"parallel: two serving replicas on {dev}: labels equal on "
+        f"{PAR_REQUEST} windows, probabilities within {perr:.3e}")
+    out["seconds"]["gloo x 2"] = time.perf_counter() - t0
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"parallel phase: {out['seconds']['phase']:.1f} s (NCCL world 1 "
+        f"{out['seconds']['nccl world 1']:.1f} s, gloo x 2 "
+        f"{out['seconds']['gloo x 2']:.1f} s); gpu {smi}")
+    return out
+
+
+def ts2vec_phase(smi: str, device: str = "cuda") -> dict:
+    """TS2Vec at its defaults (hidden 64, depth 10, output 320, batch
+    16) fits a few iterations on synthetic single cycles on the card
+    and encodes them (full_series); the same averaged weights on the CPU
+    give the same representations."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.data import synthetic
+    from vq_vae_transformer_arc_welding_tpu_torch.data.asimow import (
+        CYCLE_LEN, load_asimow_csv)
+    from vq_vae_transformer_arc_welding_tpu_torch.ts2vec import TS2Vec
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "processed_asimow_dataset.csv")
+        synthetic.write_synthetic_csv(csv_path, seed=SEED,
+                                      n_cycles_per_run=TS2VEC_SERIES // 16,
+                                      extra_train_runs=0)
+        cycles = load_asimow_csv(csv_path)[0][:TS2VEC_SERIES]
+    data = np.asarray(cycles, np.float32).reshape(-1, CYCLE_LEN, 2)
+    data = (data - data.mean((0, 1))) / data.std((0, 1))
+    with tf32_flags(matmul=False, cudnn=False):
+        model = TS2Vec(input_dims=2, seed=SEED, device=device)
+        t0 = time.perf_counter()
+        losses = []
+        model.after_iter_callback = lambda m, loss: losses.append(loss)
+        model.fit(data, n_iters=TS2VEC_ITERS)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = model.encode(data, encoding_window="full_series")
+        enc_s = time.perf_counter() - t0
+        cpu = TS2Vec(input_dims=2, seed=SEED, device="cpu")
+        cpu.avg_net.load_state_dict(model.avg_net.state_dict())
+        ref = cpu.encode(data, encoding_window="full_series")
+    err = float(np.abs(rep - ref).max())
+    check(rep.shape == (len(data), 320) and bool(np.isfinite(rep).all())
+          and bool(np.isfinite(losses).all()),
+          f"TS2Vec: representations {rep.shape}, losses {losses}")
+    check(err <= MAX_TS2VEC_ERR, f"TS2Vec: card against CPU {err}")
+    seconds = time.perf_counter() - t_phase
+    log(f"ts2vec phase: {len(data)} cycles {data.shape[1:]}, {TS2VEC_ITERS} "
+        f"iterations at batch {model.batch_size} in {fit_s:.2f} s (losses "
+        f"{[round(x, 4) for x in losses]}), full_series encode "
+        f"{rep.shape} in {enc_s:.3f} s, within {err:.3e} of the CPU's; "
+        f"phase {seconds:.1f} s; NCCL {nccl_version()}; gpu {smi}")
+    return {"seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4441,6 +4780,9 @@ def main() -> int:
     widths = widths_phase(smi)
     # -- 14. the training CLIs, their checkpoints scored in int8 --------
     cli = cli_phase(smi)
+    # -- 15. parallel/: mesh training, serving, checkpoints; TS2Vec -------
+    parallel = parallel_phase(smi)
+    ts2vec_phase(smi)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SRC + src,
          "replaces": TPU + replaces, "path": launched[name][0],
@@ -4472,7 +4814,11 @@ def main() -> int:
          # the CLI phase's scorer, over the checkpoints the CLIs wrote
          **({"cli_path": cli["launches"][name][0],
              "cli_launches": cli["launches"][name][1]}
-            if name in cli["launches"] else {})}
+            if name in cli["launches"] else {}),
+         # the parallel phase: Trainer(mesh=) fits and mesh serving
+         **({"parallel_path": parallel["launches"][name][0],
+             "parallel_launches": parallel["launches"][name][1]}
+            if name in parallel["launches"] else {})}
         for name, (src, replaces) in RECORD.items()]}
     for entry in record["kernels"]:
         name = entry["name"]

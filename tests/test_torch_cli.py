@@ -26,8 +26,9 @@ factory that builds the JAX model from the same flags and carries its
   from a port checkpoint; the gen stage from carried weights (res
   dropout 0, full batch, one VQ-VAE's ids) logs the JAX CLI's rows
   within 1e-4.
-- Refusals: the JAX CLI's mesh errors, multi-GPU as not ported, the
-  TPU's dropout PRNGs, and no CUDA device without `--device`.
+- Refusals: the JAX CLI's mesh errors, the TPU's dropout PRNGs, and no
+  CUDA device without `--device`; over several cards the JAX CLI's
+  mesh (its runs: tests/test_torch_parallel.py).
 """
 from __future__ import annotations
 
@@ -507,9 +508,17 @@ def test_transformer_cli_refuses_meshes_as_the_jax_cli(tmp_path, monkeypatch,
     (4, dict(use_all_devices=False, pipeline_stages=2)),
     (2, dict(use_all_devices=True, tensor_parallel=2))])
 def test_a_mesh_over_several_cards_is_not_ported(monkeypatch, n_devices, kw):
+    """Multi-GPU training is ported (tests/test_torch_parallel.py): over
+    n cards the CLI builds the mesh the JAX CLI builds over n devices
+    (the test keeps its name)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: n_devices)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ptm._maybe_mesh(**kw)
+    ours = ptm._maybe_mesh(**kw)
+    devices = jax.devices()[:n_devices]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: devices)
+    theirs = jtm._maybe_mesh(**kw)
+    assert ours.shape == dict(theirs.shape)
+    assert ours.axis_names == tuple(theirs.axis_names)
+    assert [d.index for d in ours.devices.flat] == list(range(ours.size))
 
 
 @pytest.mark.parametrize("n_devices", [0, 1])
@@ -533,3 +542,31 @@ def test_cli_without_device_raises_before_reading_data(tmp_path, monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(args)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use-all-gpus"], ["--use-all-gpus", "--tensor-parallel", "2"],
+    ["--pipeline-stages", "2"]], ids=["dp", "tp", "pp"])
+def test_transformer_cli_trains_over_a_mesh(vq_runs, data_dir, tmp_path,
+                                            monkeypatch, flags):
+    """Over two CPU devices the CLI starts two gloo ranks
+    (parallel/launch.py), each runs the schedule on its mesh, and `main`
+    returns rank 0's results with the dense weights, as on a node of
+    cards."""
+    monkeypatch.chdir(tmp_path)
+    run, results = ptm.main(ptm.build_parser().parse_args(
+        TR_ARGS + flags + ["--epoch_iter", "1", "--gen-epochs", "1",
+                           "--class-epoch", "1", "--finetune-epochs", "1",
+                           "--batch-size", "16", "--vqvae-model",
+                           str(vq_runs.port_dir / BEST), "--data-dir",
+                           data_dir, "--device", "cpu"]),
+        devices=[torch.device("cpu")] * 2)
+    assert set(results) == {"class_test", "class_test_final", "gen_test"}
+    assert np.isfinite(results["gen_test"]["test/loss"])
+    assert np.isfinite(results["class_test"]["test/cl/f1_score"])
+    assert isinstance(run.model, ptm.TransformerDecoder)
+    assert run.model.tp is None                  # gathered dense
+    _, rows = metrics(tmp_path)                  # rank 0's log alone
+    assert any("train/loss" in r for r in rows)
+    assert os.listdir(tmp_path / "logs" / "vq-vae-transformer") == [
+        "version_0"]

@@ -346,16 +346,22 @@ def test_transformer_tasks_share_one_optimizer():
                          "test/cl/acc_good", "test/cl/acc_bad"}
 
 
-@pytest.mark.parametrize("kw, match", [
+@pytest.mark.parametrize("kw, error, match", [
     # streaming is ported (tests/test_torch_streaming.py); over a mesh
     # it raises, as in the JAX package (the case keeps its id)
-    pytest.param(dict(streaming=True, mesh=object()), "streaming \\+ mesh",
-                 id="kw0-queue 1 item 2"),
-    (dict(mesh=object()), "queue 1 item 6"),
-    (dict(param_rules={}), "queue 1 item 6"),
-    (dict(dropout_prng="rbg"), "Philox")])
-def test_unported_trainer_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    pytest.param(dict(streaming=True, mesh=object()), NotImplementedError,
+                 "streaming \\+ mesh", id="kw0-queue 1 item 2"),
+    # mesh= and param_rules= are ported (tests/test_torch_parallel.py):
+    # they raise only where they cannot run, a mesh this process is not
+    # a rank of, and rules without a mesh (the cases keep their ids)
+    pytest.param(dict(mesh=object()), ValueError, "rank of the mesh",
+                 id="kw1-queue 1 item 6"),
+    pytest.param(dict(param_rules={}), ValueError, "needs a mesh",
+                 id="kw2-queue 1 item 6"),
+    pytest.param(dict(dropout_prng="rbg"), NotImplementedError, "Philox",
+                 id="kw3-Philox")])
+def test_unported_trainer_options_raise(kw, error, match):
+    with pytest.raises(error, match=match):
         Trainer(**kw)
     with pytest.raises(ValueError):
         Trainer(dropout_prng="philox")

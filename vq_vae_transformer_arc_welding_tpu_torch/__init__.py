@@ -35,11 +35,14 @@ names (`utils/names.py`), the figure helper (`models/plot_helper.py`,
 matplotlib imported only inside its functions) and the three training
 CLIs (`cli/train_reconstruction_embedding.py`,
 `cli/train_classification_model.py`, `cli/train_transformer_mtasks.py`,
-each `python -m ...` with `--device`).
+each `python -m ...` with `--device`); several devices (`parallel/`:
+meshes and their process groups, one process a device, data, tensor
+and pipeline parallel training through `Trainer(mesh=, param_rules=)`,
+ring attention, serving over a mesh, sharded checkpoints,
+`entry.dryrun_multichip`); and TS2Vec (`ts2vec/`).
 Its hand-written CUDA kernels, one per TPU kernel of the JAX package
 and variant, live in `csrc/` and are built on first use by
-`kernels.library()`. Not ported yet: multi-GPU training (`parallel/`)
-and TS2Vec (`ts2vec/`) (ROADMAP.md, queue 1). Entry points
+`kernels.library()`. Entry points
 (`entry.build`, `bridge.*`, `Model.load`, `load_artifact`,
 `from_checkpoints`, the scorer, the training CLIs) put their tensors on
 the card unless the caller names another device.

@@ -403,3 +403,32 @@ def artifact_from_jax(vq_hparams: dict, vq_params, vq_state,
         pipe.scaler.mean_ = np.asarray(scaler.mean_, np.float64)
         pipe.scaler.scale_ = np.asarray(scaler.scale_, np.float64)
     return pipe
+
+
+def ts2vec_state_dict(params) -> dict:
+    """A JAX TS2Vec encoder's params (`ts_encoder_init`) under the
+    reference's keys, which ts2vec/encoder.TSEncoder carries."""
+    sd = {"input_fc.weight": _t(np.asarray(params["input_fc"]["w"]).T),
+          "input_fc.bias": _t(params["input_fc"]["b"])}
+    for i, blk in enumerate(params["blocks"]):
+        pre = f"feature_extractor.net.{i}"
+        for conv in ("conv1", "conv2"):
+            sd[f"{pre}.{conv}.conv.weight"] = _t(blk[conv]["w"])
+            sd[f"{pre}.{conv}.conv.bias"] = _t(blk[conv]["b"])
+        if blk.get("projector") is not None:
+            sd[f"{pre}.projector.weight"] = _t(blk["projector"]["w"])
+            sd[f"{pre}.projector.bias"] = _t(blk["projector"]["b"])
+    return sd
+
+
+def ts2vec_from_jax(params, device=None):
+    """A TSEncoder with a JAX TS2Vec encoder's weights, its widths read
+    from their shapes, on `device` (the card when it is None)."""
+    from .ts2vec.encoder import TSEncoder
+    blocks = params["blocks"]
+    input_dims, hidden = np.shape(params["input_fc"]["w"])
+    enc = TSEncoder(int(input_dims), int(np.shape(blocks[-1]["conv1"]["w"])[0]),
+                    int(hidden), len(blocks) - 1,
+                    device=serving_device(device))
+    _load(enc, ts2vec_state_dict(params))
+    return enc

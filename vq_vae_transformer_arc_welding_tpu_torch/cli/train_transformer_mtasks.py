@@ -17,9 +17,15 @@ caller saves with `run.model.save(path)`.
 The model and data go on the CUDA device unless `--device` names
 another; without a card and without `--device`, `main` raises before
 it reads any data. `--use-all-gpus` on one device trains on it, as in
-the JAX package; a mesh over several (`--use-all-gpus` on more,
-`--pipeline-stages`, `--tensor-parallel`) raises NotImplementedError:
-multi-GPU training is not ported yet (ROADMAP.md, queue 1 item 6).
+the JAX package. A mesh over several (`--use-all-gpus` on more,
+`--pipeline-stages`, `--tensor-parallel`) is the JAX CLI's
+(`_maybe_mesh`): `main` starts one process per device of it
+(parallel/launch.py, NCCL), each runs the whole schedule on its rank
+(data parallel over 'data', the transformer's weights sharded over
+'model' by parallel/sharding.py's rules, or its blocks staged over
+'pipe' by parallel/pipeline.PipelinedDecoder), rank 0 logs, and `main`
+returns rank 0's results with the trained weights, dense, in `run.model`
+on `--device`.
 """
 from __future__ import annotations
 
@@ -76,14 +82,13 @@ def build_parser():
            "for --classification-only")
     a("--use-all-gpus", action=argparse.BooleanOptionalAction)
     a("--pipeline-stages", type=int, default=0,
-      help="Pipeline-parallel stages; 0/1 = off (multi-GPU training is "
-           "not ported: above 1 raises)")
+      help="Pipeline-parallel stages over the 'pipe' mesh axis; 0/1 = off")
     a("--pipeline-microbatches", type=int, default=0,
       help="Microbatches streamed through the pipeline (default = "
            "pipeline stages)")
     a("--tensor-parallel", type=int, default=0,
-      help="Tensor-parallel ways; 0/1 = off (multi-GPU training is not "
-           "ported: above 1 raises)")
+      help="Tensor-parallel ways over the 'model' mesh axis (Megatron "
+           "rules); 0/1 = off")
     a("--gen-epochs", type=int, default=10,
       help="Generation epochs per iteration")
     a("--data-dir", type=str, default=None,
@@ -117,36 +122,55 @@ def load_dataset(hparams, only_classify=False, device=None):
 
 
 def _make_trainer(epochs, logger, *, monitor=None, mode="max", patience=None,
-                  min_delta=0.001, seed=0):
+                  min_delta=0.001, seed=0, mesh=None, param_rules=None):
     return Trainer(max_epochs=epochs, logger=logger, monitor=monitor,
                    mode=mode, patience=patience, min_delta=min_delta,
-                   accumulate_grad_batches=5, seed=seed)
+                   accumulate_grad_batches=5, seed=seed, mesh=mesh,
+                   param_rules=param_rules)
 
 
 def _maybe_mesh(use_all_devices: bool, pipeline_stages: int = 0,
-                tensor_parallel: int = 0):
-    """The JAX CLI's mesh choice over the CUDA devices: None where it
-    builds none (one device, or no parallel flag); a mesh it would build
-    raises NotImplementedError, as `Trainer(mesh=)` does. The checks
-    before that are the JAX CLI's, with its messages."""
-    n_devices = torch.cuda.device_count()
+                tensor_parallel: int = 0, devices=None):
+    """--use-all-gpus == the reference's DDP switch: data parallel over
+    every device (the CUDA devices, or `devices`); None on one device.
+    --pipeline-stages > 1 adds a 'pipe' axis, --tensor-parallel > 1 a
+    'model' axis, each with the remaining devices on 'data' under
+    --use-all-gpus. The JAX CLI's choices and messages."""
+    from ..parallel.mesh import _devices, make_mesh, make_mesh_dp_pp
+    devices = _devices(devices)
     if pipeline_stages > 1 and tensor_parallel > 1:
         raise NotImplementedError(
             "--pipeline-stages and --tensor-parallel compose on "
             "different mesh axes ('pipe' vs 'model'); pick one per run")
-    for flag, ways in (("--pipeline-stages", pipeline_stages),
-                       ("--tensor-parallel", tensor_parallel)):
-        if ways > 1 and n_devices < ways:
+    if pipeline_stages > 1:
+        if len(devices) < pipeline_stages:
             raise ValueError(
-                f"{flag} {ways} needs at least that "
-                f"many devices; {n_devices} available")
-    if pipeline_stages > 1 or tensor_parallel > 1 or (
-            use_all_devices and n_devices >= 2):
-        raise NotImplementedError(
-            "--use-all-gpus / --pipeline-stages / --tensor-parallel: "
-            "multi-GPU training is not ported yet (ROADMAP.md, queue 1 "
-            "item 6)")
-    return None
+                f"--pipeline-stages {pipeline_stages} needs at least that "
+                f"many devices; {len(devices)} available")
+        n_data = (len(devices) // pipeline_stages if use_all_devices else 1)
+        return make_mesh_dp_pp(n_data=n_data, n_pipe=pipeline_stages,
+                               devices=devices)
+    if tensor_parallel > 1:
+        if len(devices) < tensor_parallel:
+            raise ValueError(
+                f"--tensor-parallel {tensor_parallel} needs at least that "
+                f"many devices; {len(devices)} available")
+        n_data = (len(devices) // tensor_parallel if use_all_devices else 1)
+        return make_mesh(n_data=n_data, n_model=tensor_parallel,
+                         devices=devices)
+    if not use_all_devices or len(devices) < 2:
+        return None
+    return make_mesh(n_data=len(devices), devices=devices)
+
+
+class _NoLogger:
+    """What a rank other than 0 logs to: nothing."""
+
+    def log_metrics(self, metrics, step=None):
+        pass
+
+    def finalize(self, status: str = "success"):
+        pass
 
 
 class _TransformerRun:
@@ -183,17 +207,56 @@ def classification_finetuning(run, classification_epoch, logger, class_dm,
     return trainer.test(task, class_dm)
 
 
-def main(hparams):
+def main(hparams, devices=None):
+    """The run: (a _TransformerRun, {stage: test metrics}). devices: the
+    devices a mesh may take (default: the CUDA devices)."""
     device = cli_device(hparams.device)
-    _maybe_mesh(bool(hparams.use_all_gpus), hparams.pipeline_stages,
-                hparams.tensor_parallel)
-    logger = select_logger(
+    mesh = _maybe_mesh(bool(hparams.use_all_gpus), hparams.pipeline_stages,
+                       hparams.tensor_parallel, devices)
+    if mesh is None:
+        return _train(hparams, device)
+    from ..parallel import jobs, launch
+    spec, results = launch.run(_rank_main, mesh, hparams)[0]
+    return _TransformerRun(jobs.build(spec, device).eval()), results
+
+
+def _rank_main(mesh, hparams):
+    """One rank of a mesh run: the schedule on its device; rank 0 returns
+    the dense weights' spec beside the results."""
+    from ..parallel.jobs import model_spec
+    from ..parallel.sharding import dense_state_dict
+    run, results = _train(hparams, mesh.device, mesh)
+    sd = dense_state_dict(run.model)
+    return (model_spec(run.model, state_dict=sd) if mesh.rank == 0
+            else None), results
+
+
+def _train(hparams, device, mesh=None):
+    writer = mesh is None or mesh.rank == 0
+    logger = (select_logger(
         use_wandb=bool(hparams.use_wandb or hparams.use_wandb_for_logging),
         use_mlflow=bool(hparams.use_mlflow),
         logging_entity=hparams.logging_entity,
         logging_project=hparams.logging_project, mlflow_url=hparams.mlflow_url)
+        if writer else _NoLogger())
     if hasattr(logger, "log_hyperparams"):
         logger.log_hyperparams(vars(hparams))
+    param_rules = None
+    if mesh is not None and hparams.tensor_parallel > 1:
+        from ..parallel.sharding import transformer_tp_rules
+        param_rules = transformer_tp_rules
+
+    def placed(model):
+        """The model as the mesh trains it: pipelined over 'pipe'."""
+        if mesh is None or "pipe" not in mesh.axis_names:
+            return model
+        from ..parallel.pipeline import PipelinedDecoder
+        n_micro = hparams.pipeline_microbatches or hparams.pipeline_stages
+        return PipelinedDecoder(model, mesh, n_micro=n_micro)
+
+    def trainer(epochs, seed):
+        return _make_trainer(epochs, logger, seed=seed, mesh=mesh,
+                             param_rules=param_rules)
 
     num_embeddings, patch_size, class_dm, gen_dm = load_dataset(
         hparams, only_classify=bool(hparams.classification_only),
@@ -211,9 +274,10 @@ def main(hparams):
         class_h_bias=bool(hparams.use_class_head_bias),
         class_h_dropout=bool(hparams.use_class_head_dropout),
         generator=torch.Generator().manual_seed(hparams.seed), device=device)
-    run = _TransformerRun(model)
+    run = _TransformerRun(placed(model))
     n_params = sum(p.numel() for p in model.blocks.parameters())
-    print("number of parameters: %.4fM" % (n_params / 1e6,))
+    if writer:
+        print("number of parameters: %.4fM" % (n_params / 1e6,))
 
     results = {}
     if hparams.classification_only:
@@ -228,21 +292,18 @@ def main(hparams):
                 if not os.path.exists(artifact_dir):
                     artifact_dir = artifact.download()
                 model_path = artifact_dir + "/model.ckpt"
-            run = _TransformerRun(load_transformer_any(model_path,
-                                                       device=device))
+            run = _TransformerRun(placed(load_transformer_any(
+                model_path, device=device)))
         results["class_test"] = classification_finetuning(
             run, hparams.class_epoch, logger, class_dm,
             no_early_stopping=bool(hparams.no_early_stopping),
             seed=hparams.seed,
-            trainer=_make_trainer(hparams.class_epoch, logger,
-                                  seed=hparams.seed))
+            trainer=trainer(hparams.class_epoch, hparams.seed))
     else:
         gen_task = TransformerGenTask(run.model)
         class_task = TransformerClassTask(run.model)
-        gen_trainer = _make_trainer(hparams.gen_epochs, logger,
-                                    seed=hparams.seed)
-        class_trainer = _make_trainer(hparams.class_epoch, logger,
-                                      seed=hparams.seed + 1)
+        gen_trainer = trainer(hparams.gen_epochs, hparams.seed)
+        class_trainer = trainer(hparams.class_epoch, hparams.seed + 1)
         for epoch in range(hparams.epoch_iter):
             log.info("Genrerating stage")
             gen_trainer.seed = hparams.seed + epoch
@@ -264,7 +325,8 @@ def main(hparams):
         results["gen_test"] = gen_trainer.test(gen_task, gen_dm)
 
     logger.finalize()
-    print("Done")
+    if writer:
+        print("Done")
     return run, results
 
 

@@ -162,6 +162,9 @@ class TransformerDecoder(Checkpointed, nn.Module):
         self.betas = (0.9, 0.95)
         self.weight_decay = 0.1
         self.attention_impl = attention_impl
+        # the tensor-parallel group once parallel/sharding.shard_params
+        # has cut the blocks' weights to this rank's shards
+        self.tp = None
         self.hparams = dict(d_model=d_model, n_classes=n_classes,
                             seq_len=seq_len, n_blocks=n_blocks, n_head=n_head,
                             res_dropout=res_dropout, att_dropout=att_dropout,
@@ -242,15 +245,24 @@ class TransformerDecoder(Checkpointed, nn.Module):
         """blk: a Block, or its `cast_params`. Every product follows the
         stream's type; the attention core keeps f32 scores. At train
         time the dropouts draw from `generator`: the attention's, its
-        residual's, then the MLP's."""
+        residual's, then the MLP's. A tensor-parallel model
+        (parallel/sharding.py) runs its rank's heads and MLP columns:
+        each sublayer between Megatron's f and g, the output
+        projections' biases added after g."""
+        tp = self.tp
         h = layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
         x = x + causal_self_attention(
             h, blk.attn, n_head=self.n_head, attn_dropout_p=self.att_dropout,
             resid_dropout_p=self.res_dropout, train=train,
-            generator=generator, impl=self.attention_impl)
+            generator=generator, impl=self.attention_impl, tp=tp)
         h = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
-        h = linear(new_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj)
-        return x + dropout(h, self.res_dropout, train, generator)
+        if tp is not None:
+            h = tp.copy_to(h)
+        h = new_gelu(linear(h, blk.mlp.c_fc)) @ blk.mlp.c_proj.weight.t()
+        if tp is not None:
+            h = tp.reduce_from(h)
+        return x + dropout(h + blk.mlp.c_proj.bias, self.res_dropout, train,
+                           generator)
 
     def backbone(self, x_ids: torch.Tensor, *, train: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:

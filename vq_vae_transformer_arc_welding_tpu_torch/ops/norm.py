@@ -10,7 +10,10 @@ boundaries that the int8 path keeps bit-comparable.
 BatchNorm's running statistics are not mutated here: `batch_norm_train`
 returns the new ones, so that a forward stays a function of its inputs
 as in the JAX package, and the caller decides where they go (the
-models' `commit_state`).
+models' `commit_state`). Inside a data-parallel step
+(parallel/shard.py) the batch statistics are the global batch's: the
+sums reduce over the data group, with gradients through the reduction
+(as SyncBatchNorm), so the ranks normalize as one process would.
 """
 from __future__ import annotations
 
@@ -41,10 +44,19 @@ def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     momentum convention running = (1 - m) * running + m * batch.
     mean, var: the running statistics. Returns (y, (new mean, new var)),
     the new ones without gradient."""
+    from ..parallel.shard import active
     axes = tuple(range(x.ndim - 1))
-    b_mean = x.mean(dim=axes)
-    b_var = ((x - b_mean) ** 2).mean(dim=axes)
     n = x.numel() // x.shape[-1]
+    shard = active()
+    if shard is None:
+        b_mean = x.mean(dim=axes)
+        b_var = ((x - b_mean) ** 2).mean(dim=axes)
+    else:
+        from ..parallel.mesh import AllReduceSum
+        n = n * shard.count
+        b_mean = AllReduceSum.apply(x.sum(dim=axes), shard.group) / n
+        b_var = AllReduceSum.apply(((x - b_mean) ** 2).sum(dim=axes),
+                                   shard.group) / n
     with torch.no_grad():
         unbiased = b_var * (n / max(n - 1, 1))
         new = ((1 - momentum) * mean + momentum * b_mean,

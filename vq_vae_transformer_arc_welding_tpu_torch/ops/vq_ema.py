@@ -18,9 +18,22 @@ test hands both packages the JAX draws.
 
 The search is the plain one (ops/vq.nearest_codes), as in the JAX
 package, where the EMA path never reaches the Pallas kernel. The batch
-sums are the one-hot matmul of the JAX package. The reduction of the
-statistics over a data axis (`axis_name`) is multi-GPU training, not
-ported (ROADMAP.md, queue 1 item 6).
+sums are the one-hot matmul of the JAX package.
+
+Several devices keep one codebook in two ways:
+
+- `group=` is the JAX function's `axis_name=`: each rank quantizes its
+  own rows, the kmeans's initial means and the expiry's sampled rows
+  are averaged over the group (`pmean`), and the code counts and sums
+  summed (`psum`). Each rank draws (or is handed) indices into its own
+  rows; the perplexity is its own rows'.
+- Inside a data-parallel step of `Trainer(mesh=)` (parallel/shard.py)
+  the result is the global batch's, as XLA computes it for a JAX mesh
+  run: the draws index the global batch's rows (every rank draws the
+  same from its generator, which the ranks keep in step), the rank
+  that holds a drawn row puts it in and one all-reduce gives every
+  rank the same rows, and counts, sums and the perplexity are the
+  global batch's.
 """
 from __future__ import annotations
 
@@ -65,19 +78,61 @@ def _counts_and_sums(z_flat: torch.Tensor, assign: torch.Tensor, k: int):
     return onehot.sum(0), onehot.t() @ z_flat
 
 
+class _Reduce:
+    """How the statistics of one device's rows become the group's: the
+    identity on one device; see the module docstring for `group=` (mode
+    'axis') and the data-parallel step (mode 'global')."""
+
+    def __init__(self, group=None):
+        from ..parallel.shard import active
+        self.mode, self.group = None, group
+        if group is not None:
+            self.mode = "axis"
+        elif active() is not None:
+            shard = active()
+            self.mode, self.group = "global", shard.group
+            self.index, self.count = shard.index, shard.count
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mode is None:
+            return t
+        from ..parallel.mesh import all_reduce_
+        return all_reduce_(t, self.group)
+
+    def n_rows(self, n: int) -> int:
+        """The rows the draws index: the global batch's in mode 'global'."""
+        return n * self.count if self.mode == "global" else n
+
+    def rows(self, data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """data[idx], the same on every rank."""
+        if self.mode is None:
+            return data[idx]
+        import torch.distributed as dist
+        if self.mode == "axis":
+            return self.psum(data[idx].clone()) / dist.get_world_size(
+                self.group)
+        n = data.shape[0]
+        local = idx - self.index * n
+        mine = (local >= 0) & (local < n)
+        picked = data[local.clamp(0, n - 1)] * mine[:, None]
+        return self.psum(picked)
+
+
 def _kmeans(z_flat: torch.Tensor, k: int, iters: int,
-            init_idx: torch.Tensor):
+            init_idx: torch.Tensor, red: _Reduce | None = None):
     """Lloyd's kmeans on one batch from the rows `init_idx`: (means (K,
     D), counts (K,) of the last assignment). A code no row chose keeps
-    its mean."""
-    means = z_flat[init_idx]
+    its mean. red: the group's reduction (`_Reduce`)."""
+    red = red or _Reduce()
+    means = red.rows(z_flat, init_idx)
     for _ in range(max(iters, 1)):
         counts, sums = _counts_and_sums(
             z_flat, nearest_codes(z_flat, means), k)
+        counts, sums = red.psum(counts), red.psum(sums)
         new = sums / counts[:, None].clamp_min(1.0)
         means = torch.where(counts[:, None] > 0, new, means)
     counts, _ = _counts_and_sums(z_flat, nearest_codes(z_flat, means), k)
-    return means, counts
+    return means, red.psum(counts)
 
 
 def nearest_ema(z_e: torch.Tensor, state: EMAState) -> torch.Tensor:
@@ -88,21 +143,26 @@ def nearest_ema(z_e: torch.Tensor, state: EMAState) -> torch.Tensor:
 
 def quantize_ema(z_e: torch.Tensor, state: EMAState, *, train: bool,
                  kmeans_iters: int = 10, threshold_ema_dead_code: int = 2,
-                 draws=None, generator: torch.Generator | None = None):
+                 draws=None, generator: torch.Generator | None = None,
+                 group=None):
     """EMA vector quantization: (VQOutput, new state). At train time the
     first call bootstraps the codebook by kmeans on the batch, and every
     call moves the EMAs and re-seeds the codes whose EMA count fell
     below the threshold from the batch's rows. draws: (init_idx,
-    expire_idx), either may be None (then drawn from `generator`)."""
+    expire_idx), either may be None (then drawn from `generator`).
+    group: a process group, the JAX function's `axis_name` (module
+    docstring)."""
     k, d = state.codebook.shape
     flat = z_e.reshape(-1, d).float()
     data = flat.detach()
     n = data.shape[0]
+    red = _Reduce(group)
+    n_draw = red.n_rows(n)
     init_idx, expire_idx = draws if draws is not None else (None, None)
     with torch.no_grad():
         if train and not bool(state.initialized):
             means, counts = _kmeans(data, k, kmeans_iters, _draw(
-                n, k, init_idx, generator, data.device))
+                n_draw, k, init_idx, generator, data.device), red)
             state = EMAState(means, counts, means * counts[:, None],
                              torch.ones_like(state.initialized))
         idx = nearest_codes(data, state.codebook)
@@ -111,10 +171,15 @@ def quantize_ema(z_e: torch.Tensor, state: EMAState, *, train: bool,
     z_q_st = z_e + (z_q - z_e).detach()
     with torch.no_grad():
         counts, sums = _counts_and_sums(data, idx, k)
-        e_mean = counts / n
+        if red.mode == "global":
+            counts = red.psum(counts)
+        e_mean = counts / n_draw
         perplexity = torch.exp(-(e_mean * torch.log(e_mean + 1e-10)).sum())
         new_state = state
         if train:
+            if red.mode == "axis":
+                counts = red.psum(counts.clone())
+            sums = red.psum(sums)
             cluster_size = state.cluster_size * DECAY + counts * (1 - DECAY)
             embed_avg = state.embed_avg * DECAY + sums * (1 - DECAY)
             total = cluster_size.sum()
@@ -122,8 +187,8 @@ def quantize_ema(z_e: torch.Tensor, state: EMAState, *, train: bool,
             codebook = embed_avg / smoothed[:, None]
             if threshold_ema_dead_code > 0:
                 dead = cluster_size < threshold_ema_dead_code
-                samples = data[_draw(n, k, expire_idx, generator,
-                                     data.device)]
+                samples = red.rows(data, _draw(
+                    n_draw, k, expire_idx, generator, data.device))
                 codebook = torch.where(dead[:, None], samples, codebook)
                 cluster_size = torch.where(
                     dead, float(threshold_ema_dead_code), cluster_size)

@@ -6,15 +6,27 @@ Port of vq_vae_transformer_arc_welding_tpu/serve.py
 `sample_tokens`, the in-path saturation monitor, the `saturation_rate`
 probe, the opt-in int8 encoder, `encoder_precision='int8'`, the
 `scaler` attribute, and the deployment side: `save_artifact`,
-`load_artifact`, `from_checkpoints`). The `mesh` argument waits for
-multi-GPU serving.
+`load_artifact`, `from_checkpoints`), and serving over a device mesh
+(`mesh=`).
 
 Requests run through data/latent.py::_chunked_device_map in chunks of
 at most `max_batch` windows, two chunks in flight; a chunk keeps its
 own size (nothing is compiled, so nothing is padded).
+
+With a mesh (parallel/mesh.make_mesh) the pipeline holds one replica
+per 'data' device: itself on its own device, elsewhere a copy of its
+models with the int8 tables derived again from its absmax tables,
+bit-identical. A chunk is padded to a multiple of the 'data' size,
+split, run by the replicas at once (a thread each; replicas that share
+a card share its stream), gathered on the pipeline's device and cropped
+per output leaf, as the JAX pipeline's shard_map wrapper does. The int8
+path's (probs, saturation) pair is cropped leaf by leaf, so
+`last_saturation_rate` is the global count over the global total, the
+value without a mesh.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import warnings
@@ -49,7 +61,7 @@ class WeldingQualityPipeline:
                  max_batch: int = 64, precision: str = "f32",
                  start_token: int | None = None,
                  encoder_precision: str = "f32", encoder_impl: str = "xla",
-                 monitor_saturation: bool = True):
+                 monitor_saturation: bool = True, mesh=None):
         """precision: 'f32' (exact), 'bf16' (the transformer's
         `compute_dtype`: bf16 activations and products between the ops,
         f32 scores and logits; it sets the option on the transformer it
@@ -76,6 +88,10 @@ class WeldingQualityPipeline:
 
         start_token: the <start> id the transformer was trained with
         (observed max id + 1); the default assumes every code is used.
+
+        mesh: a parallel/mesh.Mesh with a 'data' axis; every batched
+        entry point (classify, encode_tokens, ood_score) splits its
+        batch over it (the module docstring).
 
         TF32 is switched off for matmuls and cuDNN, process-wide: the
         codebook ids must stay bit-comparable with the exact f32
@@ -122,6 +138,9 @@ class WeldingQualityPipeline:
         # (save_artifact, cli/score_quality.py) attaches the training
         # scaler here to normalize raw sensor windows with it.
         self.scaler = None
+        self.mesh = mesh
+        self._replicas = None
+        self._pool = None
 
     # -- artifacts ---------------------------------------------------------
     #
@@ -170,13 +189,13 @@ class WeldingQualityPipeline:
         return artifact_dir
 
     @classmethod
-    def load_artifact(cls, artifact_dir: str, max_batch: int | None = None,
-                      device=None):
+    def load_artifact(cls, artifact_dir: str, mesh=None,
+                      max_batch: int | None = None, device=None):
         """Rebuild a pipeline from `save_artifact`'s directory, on
         `device`: the card when it is None (and an error where there is
         none). The int8 tables are derived again from the stored
-        weights and absmax tables; `max_batch` may be overridden for
-        the new deployment."""
+        weights and absmax tables; `mesh` and `max_batch` may be
+        overridden for the new deployment."""
         from .models import TransformerDecoder, VQVAEPatch
         with open(os.path.join(artifact_dir, "manifest.json")) as f:
             manifest = json.load(f)
@@ -196,7 +215,8 @@ class WeldingQualityPipeline:
                    encoder_precision=manifest["encoder_precision"],
                    encoder_impl=manifest["encoder_impl"],
                    monitor_saturation=manifest.get("monitor_saturation",
-                                                   True))
+                                                   True),
+                   mesh=mesh)
         pipe.saturation_threshold = manifest.get(
             "saturation_threshold", cls.saturation_threshold)
         cal_path = os.path.join(artifact_dir, "calibration.json")
@@ -230,7 +250,7 @@ class WeldingQualityPipeline:
                          precision: str = "f32",
                          start_token: int | None = None,
                          encoder_precision: str = "f32",
-                         encoder_impl: str = "xla", device=None):
+                         encoder_impl: str = "xla", mesh=None, device=None):
         """A pipeline from two checkpoint files, each this package's
         (`Model.save`) or a reference Lightning .ckpt, on `device` (the
         card when it is None)."""
@@ -240,17 +260,19 @@ class WeldingQualityPipeline:
                    n_cycles, max_batch, precision=precision,
                    start_token=start_token,
                    encoder_precision=encoder_precision,
-                   encoder_impl=encoder_impl)
+                   encoder_impl=encoder_impl, mesh=mesh)
 
     def _set_encoder_calibration(self, enc_absmax: dict) -> None:
         from .models.quantized import quantize_encoder
         self._enc_absmax = dict(enc_absmax)
+        self._replicas = None
         with torch.inference_mode():
             self.qenc = quantize_encoder(self.vq_model, self._enc_absmax)
 
     def _set_calibration(self, act_absmax: dict) -> None:
         from .models.quantized import quantize_transformer
         self._act_absmax = dict(act_absmax)
+        self._replicas = None
         with torch.inference_mode():
             self.qparams = quantize_transformer(self.tr_model,
                                                 act_absmax=self._act_absmax)
@@ -295,6 +317,9 @@ class WeldingQualityPipeline:
             logits = self.tr_model.apply(ids, generate=False)
         return torch.softmax(logits, dim=-1)
 
+    def _ood_fn(self, cycles: torch.Tensor):
+        return self.vq_model.forward_ood(cycles)
+
     def _saturation_fn(self, x: torch.Tensor):
         from .models.quantized import saturation_stats
         ids = with_start_token(self._encode_fn(x), self.start_token)
@@ -303,11 +328,64 @@ class WeldingQualityPipeline:
     # -- public API ------------------------------------------------------------
 
     @torch.inference_mode()
-    def _batched(self, fn, x: np.ndarray):
-        """fn over chunks of at most max_batch rows; outputs (an array or
-        a tuple of arrays) are concatenated along the batch."""
+    def _batched(self, name: str, x: np.ndarray):
+        """The per-chunk core `name` over chunks of at most max_batch
+        rows, on the mesh's replicas where there is a mesh; outputs (an
+        array or a tuple of arrays) are concatenated along the batch."""
+        fn = getattr(self, name) if self.mesh is None else self._sharded(name)
         return _chunked_device_map(fn, x, chunk=self.max_batch,
                                    device=self.device)
+
+    # -- the mesh's replicas -------------------------------------------------
+
+    def _replica_on(self, device: torch.device):
+        """This pipeline's serving state on `device`."""
+        if device == self.device:
+            return self
+        with torch.no_grad():
+            rep = WeldingQualityPipeline(
+                copy.deepcopy(self.vq_model).to(device),
+                copy.deepcopy(self.tr_model).to(device), self.n_cycles,
+                self.max_batch, precision=self.precision,
+                start_token=self.start_token,
+                encoder_precision=self.encoder_precision,
+                encoder_impl=self.encoder_impl,
+                monitor_saturation=self.monitor_saturation)
+        if self._enc_absmax is not None:
+            rep._set_encoder_calibration(self._enc_absmax)
+        if self._act_absmax is not None:
+            rep._set_calibration(self._act_absmax)
+        return rep
+
+    def _sharded(self, name: str):
+        """The core `name` over a chunk split across the replicas."""
+        from concurrent.futures import ThreadPoolExecutor
+        devices = [torch.device(d) for d in self.mesh.devices[:, 0]]
+        n_data = len(devices)
+        if self._replicas is None:
+            self._replicas = [self._replica_on(d) for d in devices]
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=n_data)
+        for rep in self._replicas:
+            rep.monitor_saturation = self.monitor_saturation
+
+        def run(rep, part):
+            with torch.inference_mode():
+                return getattr(rep, name)(part.to(rep.device))
+
+        def call(x: torch.Tensor):
+            n = x.shape[0]
+            pad = (-n) % n_data
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+            parts = x.chunk(n_data)
+            outs = list(self._pool.map(run, self._replicas, parts))
+            if isinstance(outs[0], tuple):
+                return tuple(
+                    torch.cat([o[i].to(self.device) for o in outs])[:n]
+                    for i in range(len(outs[0])))
+            return torch.cat([o.to(self.device) for o in outs])[:n]
+        return call
 
     @staticmethod
     def _windows(windows, what: str) -> np.ndarray:
@@ -356,7 +434,7 @@ class WeldingQualityPipeline:
         """windows: (N, n_cycles*200, 2) scaled cycles. Returns
         (labels (N,), probs (N, 2)) as numpy arrays. int8 pipelines also
         update `last_saturation_rate` from the in-path counter."""
-        out = self._batched(self._classify_fn,
+        out = self._batched("_classify_fn",
                             self._windows(windows, "classify"))
         if isinstance(out, tuple):
             probs, sat = out
@@ -388,15 +466,14 @@ class WeldingQualityPipeline:
         """(N, n_cycles*200, 2) -> (N, n_cycles*16) int32 codebook ids,
         from the plain (exact) encoder, or from the int8 encoder when
         encoder_precision='int8'."""
-        return self._batched(self._encode_fn,
+        return self._batched("_encode_fn",
                              self._windows(windows, "encode_tokens"))
 
     def ood_score(self, cycles: np.ndarray) -> np.ndarray:
         """(N, 200, 2) single cycles -> per-sample quantization-error
         OOD score (N,), `VQVAEPatch.forward_ood` in chunks of
         max_batch."""
-        return self._batched(self.vq_model.forward_ood,
-                             self._windows(cycles, "ood_score"))
+        return self._batched("_ood_fn", self._windows(cycles, "ood_score"))
 
     def sample_tokens(self, n: int | None = None, *,
                       prompt: np.ndarray | None = None,

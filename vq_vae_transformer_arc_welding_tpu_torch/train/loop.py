@@ -37,9 +37,14 @@ the run and off again after it (the port's modules hold frozen weights
 for serving). `logger` is duck-typed: `log_metrics(metrics, step=)`,
 and `log_artifact(path, name=, type_=)` where it sets `log_model`.
 
-Not ported: `mesh=` and `param_rules=` (multi-GPU), and the `rbg`
-dropout PRNG; each raises NotImplementedError, as does `streaming` with
-a mesh in the JAX package.
+`mesh=` (a bound parallel/mesh.Mesh: this process is one of its ranks,
+started by parallel/launch.py) trains data parallel over its 'data'
+axis and lands on the global batch's numbers, as a JAX mesh run does;
+`param_rules=` (parallel/sharding.transformer_tp_rules) shards the
+transformer over 'model', and a parallel/pipeline.PipelinedDecoder runs
+its stages over 'pipe' (parallel/training.py says how). `streaming`
+with a mesh raises NotImplementedError, as in the JAX package, and so
+does the `rbg` dropout PRNG.
 """
 from __future__ import annotations
 
@@ -96,10 +101,13 @@ class Trainer:
         first after warm-up) is written there."""
         if streaming and mesh is not None:
             raise NotImplementedError("streaming + mesh is not supported")
-        if mesh is not None or param_rules is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=, param_rules=): multi-GPU training is not "
-                "ported yet (ROADMAP.md, queue 1 item 6)")
+        if mesh is not None and not getattr(mesh, "bound", False):
+            raise ValueError(
+                "Trainer(mesh=) runs on a rank of the mesh: start the ranks "
+                "with parallel/launch.run (or launch.in_process for a "
+                "one-device mesh)")
+        if param_rules is not None and mesh is None:
+            raise ValueError("param_rules needs a mesh with a 'model' axis")
         if dropout_prng in ("rbg", "unsafe_rbg"):
             raise NotImplementedError(
                 f"dropout_prng={dropout_prng!r} is the TPU's hardware RNG; "
@@ -129,6 +137,9 @@ class Trainer:
         self.terminate_on_nan = terminate_on_nan
         self.dropout_prng = dropout_prng
         self.streaming = streaming
+        self.mesh = mesh
+        self.param_rules = param_rules
+        self._par = None     # parallel/training.MeshTraining during a fit
         self._step_counter = 0
         # a split's arrays on the device, per (task, split); the strong
         # references keep the ids stable
@@ -204,15 +215,19 @@ class Trainer:
         core = f"{ns}/{name}" if ns else name
         return f"{self.metric_prefix}{split}/{core}"
 
+    def _writes(self) -> bool:
+        """Logs, prints and files come from rank 0 of a mesh only."""
+        return self._par is None or self._par.writer
+
     def _log(self, metrics: dict, step: int) -> None:
-        if self.logger is not None:
+        if self.logger is not None and self._writes():
             self.logger.log_metrics(metrics, step=step)
 
     def _log_ckpt_artifact(self, path: str) -> None:
         """Upload a saved checkpoint where the logger asks for it
         (`log_model`, reference WandbLogger(log_model=True))."""
-        if self.logger is None or not getattr(self.logger, "log_model",
-                                              False):
+        if (self.logger is None or not self._writes()
+                or not getattr(self.logger, "log_model", False)):
             return
         log_artifact = getattr(self.logger, "log_artifact", None)
         if log_artifact is not None:
@@ -221,26 +236,35 @@ class Trainer:
     # -- the steps -------------------------------------------------------------
 
     def _train_epoch(self, task: Task, opt, batch_of,
-                     idx_groups: torch.Tensor, gen: torch.Generator):
+                     idx_groups: torch.Tensor, gen: torch.Generator,
+                     sliced: bool = False):
         """One pass over the index groups: per group, the micro batches'
         gradients summed, divided by their number, one optimizer step.
-        batch_of(idx): a micro batch's arrays on the device. Returns
+        batch_of(idx): a micro batch's arrays on the device. sliced: on
+        a mesh, the indices are this rank's slice of each batch. Returns
         (losses, {metric: values}), one entry per micro batch, on the
         device."""
         model = task.model
         params = [p for p in model.parameters() if p.requires_grad]
+        par = self._par
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
         losses, metrics = [], {}
         for group in idx_groups:
             opt.zero_grad()
             for idx in group:
-                loss, m, new_state = task.loss_and_metrics(
-                    batch_of(idx), train=True, generator=gen)
-                loss.backward()
+                with (par.context(sliced) if par is not None
+                      else contextlib.nullcontext()):
+                    loss, m, new_state = task.loss_and_metrics(
+                        batch_of(idx), train=True, generator=gen)
+                    loss.backward()
                 if new_state:
                     model.commit_state(new_state)
                 losses.append(loss.detach())
                 for k, v in m.items():
                     metrics.setdefault(k, []).append(v.detach())
+            if par is not None:
+                par.reduce_grads(model, named)
             if self.accum > 1:
                 for p in params:
                     if p.grad is not None:
@@ -254,19 +278,28 @@ class Trainer:
                  split_name: str = "val") -> dict:
         """Per-batch metrics, then their mean over batches (the
         reference's f1_score_mean semantics, classification_model.py:
-        154-171)."""
+        154-171). On a mesh, data rank r evaluates batches r, r + n_data,
+        ... whole, and every rank takes every batch's metrics from their
+        ranks: the one process's numbers, on every rank."""
         arrays = self._arrays(task, split)
+        batches = self._eval_batches(len(split.x), batch_size, drop_last)
+        par = self._par
+        mine = (batches if par is None
+                else batches[par.data_index::par.n_data])
         per_batch: dict = {}
-        for lo, hi in self._eval_batches(len(split.x), batch_size,
-                                         drop_last):
+        for lo, hi in mine:
             _, m, _ = task.loss_and_metrics(tuple(a[lo:hi] for a in arrays),
                                             train=False)
             for k, v in m.items():
                 per_batch.setdefault(k, []).append(v)
+        per_batch = {k: torch.stack(v).double() for k, v in per_batch.items()}
+        if par is not None:
+            per_batch = par.gather_batches(per_batch, len(batches),
+                                           arrays[0].device)
         # metric names in sorted order, as the JAX package's metric
         # dicts (pytrees) come, so that both write their logs' columns
         # in one order
-        means = {k: float(torch.stack(v).double().mean().cpu())
+        means = {k: float(v.mean().cpu())
                  for k, v in sorted(per_batch.items())}
         out = {self._ns(task, k, split_name): v for k, v in means.items()}
         if ("f1_score" in means
@@ -289,6 +322,9 @@ class Trainer:
         if datamodule.train is None:
             datamodule.setup("fit")
         model = task.model
+        if self.mesh is not None:
+            from ..parallel.training import MeshTraining
+            self._par = MeshTraining(self.mesh, model, self.param_rules)
         flags = [(p, p.requires_grad) for p in model.parameters()]
         model.requires_grad_(True)
         try:
@@ -296,22 +332,57 @@ class Trainer:
         finally:
             for p, flag in flags:
                 p.requires_grad_(flag)
+            self._par = None
 
     def _resume(self, model, opt, path: str) -> int:
         from .checkpoint import load_checkpoint, load_training_state
         name, _, sd, _ = load_checkpoint(path)
-        if name != type(model).__name__:
+        dense = getattr(model, "dense", model)
+        if name != type(dense).__name__:
             raise ValueError(f"{path} is for {name}, not "
-                             f"{type(model).__name__}")
+                             f"{type(dense).__name__}")
         opt_state, sched_state, extra = load_training_state(path)
+        tp = getattr(model, "tp", None)
+        if tp is not None:
+            sd = {k: tp.shard(k, v) for k, v in sd.items()}
+            opt_state = self._par.shard_optimizer_state(opt, opt_state)
         load_state_dict_checked(model, sd)
         opt.load_state_dicts(opt_state, sched_state)
         return int(extra.get("epoch", -1)) + 1
 
+    def _state(self, model) -> dict:
+        """A copy of the weights (dense on a tensor-parallel mesh)."""
+        from ..parallel.sharding import dense_state_dict
+        sd = dense_state_dict(model)
+        return {k: v.detach().clone() for k, v in sd.items()}
+
+    def _save(self, model, path: str, extra: dict, opt=None) -> None:
+        """model.save, from rank 0 of a mesh, with a tensor-parallel
+        model's shards (and its moments) gathered dense."""
+        par = self._par
+        if par is None:
+            model.save(path, extra=extra, optimizer=opt)
+            return
+        from ..parallel.sharding import dense_state_dict
+        from .checkpoint import save_checkpoint
+        sd = dense_state_dict(model)
+        opt_sd = sched_sd = None
+        if opt is not None:
+            opt_sd = par.dense_optimizer_state(opt)
+            sched_sd = opt.state_dicts()[1]
+        if par.writer:
+            dense = getattr(model, "dense", model)
+            save_checkpoint(path, type(dense).__name__, dense.hparams, sd,
+                            extra, optimizer_state=opt_sd,
+                            scheduler_state=sched_sd)
+
     def _fit(self, task, datamodule, tx, opt, resume_from) -> FitResult:
         model = task.model
+        par = self._par
         if opt is None:
             opt = tx.init(model)
+        if par is not None:
+            opt.grad_norm_fn = par.grad_norm_fn(opt.named_params)
         start_epoch = (0 if resume_from is None
                        else self._resume(model, opt, resume_from))
         train_split = datamodule.train
@@ -339,6 +410,9 @@ class Trainer:
             gen_samp, gen_drop = epoch_generators(self.seed, epoch, device)
             idx_groups = self._train_indices(gen_samp, len(train_split.x),
                                              batch_size, weights, drop_last)
+            sliced = False
+            if par is not None:
+                idx_groups, sliced = par.local(idx_groups, batch_size)
             if self.streaming:
                 idx_groups = idx_groups.cpu().numpy()
             profiler = self._profiler(epoch, device)
@@ -347,7 +421,11 @@ class Trainer:
             t0 = time.perf_counter()
             with profiler or contextlib.nullcontext():
                 losses, tr_metrics = self._train_epoch(
-                    task, opt, batch_of, idx_groups, gen_drop)
+                    task, opt, batch_of, idx_groups, gen_drop, sliced)
+                if par is not None:
+                    losses = par.mean(losses, sliced)
+                    tr_metrics = {k: par.mean(v, sliced)
+                                  for k, v in tr_metrics.items()}
                 losses = losses.cpu().numpy()
             dt = time.perf_counter() - t0
             if profiler is not None:
@@ -384,7 +462,7 @@ class Trainer:
                     self.epoch_metric_hook(epoch, val)
                 row.update(val)
                 self._log({**val, "epoch": epoch}, step=self._step_counter)
-                if self.verbose:
+                if self.verbose and self._writes():
                     mon = (f" {self.monitor}="
                            f"{val.get(self.monitor, float('nan')):.4f}"
                            if self.monitor else "")
@@ -396,13 +474,12 @@ class Trainer:
                     if (best_score is None
                             or sign * (score - best_score) > self.min_delta):
                         best_score, best_epoch, wait = score, epoch, 0
-                        best_state = {k: v.detach().clone() for k, v in
-                                      model.state_dict().items()}
+                        best_state = self._state(model)
                         if self.checkpoint_dir:
                             best_path = os.path.join(
                                 self.checkpoint_dir,
                                 f"{self.checkpoint_name}.ckpt")
-                            model.save(best_path, extra={
+                            self._save(model, best_path, extra={
                                 "epoch": epoch, self.monitor: score})
                             self._log_ckpt_artifact(best_path)
                     else:
@@ -415,17 +492,16 @@ class Trainer:
 
         if self.checkpoint_dir and self.save_last:
             last_path = os.path.join(self.checkpoint_dir, "last.ckpt")
-            model.save(last_path, extra={"epoch": epoch}, optimizer=opt)
+            self._save(model, last_path, extra={"epoch": epoch}, opt=opt)
             self._log_ckpt_artifact(last_path)
         if best_state is None:
-            best_state = {k: v.detach().clone()
-                          for k, v in model.state_dict().items()}
+            best_state = self._state(model)
         return FitResult(best_state, best_score, best_epoch, history,
                          best_path, stopped, opt)
 
     def _profiler(self, epoch: int, device: torch.device):
         """A torch.profiler session for epoch 1 where profile_dir is set."""
-        if self.profile_dir is None or epoch != 1:
+        if self.profile_dir is None or epoch != 1 or not self._writes():
             return None
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
@@ -438,10 +514,17 @@ class Trainer:
             datamodule.setup("test")
         split = getattr(datamodule, split_name)
         drop_last = getattr(datamodule, "drop_last", False)
-        metrics = self.evaluate(task, split, datamodule.batch_size,
-                                drop_last, split_name)
-        self._log(metrics, step=self._step_counter)
-        if self.verbose:
-            print(" ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
+        if self.mesh is not None:
+            from ..parallel.training import MeshTraining
+            self._par = MeshTraining(self.mesh, task.model, self.param_rules)
+        try:
+            metrics = self.evaluate(task, split, datamodule.batch_size,
+                                    drop_last, split_name)
+            self._log(metrics, step=self._step_counter)
+            if self.verbose and self._writes():
+                print(" ".join(f"{k}={v:.4f}"
+                               for k, v in sorted(metrics.items())))
+        finally:
+            self._par = None
         return metrics
 

@@ -13,6 +13,9 @@ Port of vq_vae_transformer_arc_welding_tpu/train/metrics.py
 Each returns a 0-d f32 tensor on the inputs' device, so that a training
 epoch reads its metrics back from the card once. The epoch's `*_mean`
 is the mean over batches (reference :154-171), taken by the trainer.
+Inside a data-parallel step (parallel/shard.py) the inputs are the
+rank's slice of the batch, and the metrics are the whole batch's: the
+predictions and labels are gathered over the data group first.
 """
 from __future__ import annotations
 
@@ -42,6 +45,11 @@ def binary_f1(preds: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def classification_metrics(logits: torch.Tensor, y: torch.Tensor) -> dict:
     """The reference's per-batch metric dict (loss excluded)."""
     preds = logits.argmax(dim=-1)
+    from ..parallel.shard import active
+    shard = active()
+    if shard is not None:
+        from ..parallel.mesh import all_gather
+        preds, y = (all_gather(t, shard.group) for t in (preds, y))
     return {
         "acc": accuracy_micro(preds, y),
         "acc_good": per_class_accuracy(preds, y, 1),

@@ -41,6 +41,10 @@ class TrainOptimizer:
         self.optimizer = optimizer
         self.clip_norm = clip_norm
         self.scheduler = scheduler
+        # () -> the global gradient norm, where the parameters are shards
+        # of a tensor-parallel model (parallel/training.py); None: the
+        # norm of the gradients on this device
+        self.grad_norm_fn = None
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -49,9 +53,12 @@ class TrainOptimizer:
         """Clip the gradients by their global norm, step, advance the
         schedule."""
         if self.clip_norm:
-            torch.nn.utils.clip_grad_norm_(
-                [p for _, p in self.named_params if p.grad is not None],
-                self.clip_norm)
+            grads = [p for _, p in self.named_params if p.grad is not None]
+            if self.grad_norm_fn is None:
+                torch.nn.utils.clip_grad_norm_(grads, self.clip_norm)
+            else:
+                torch.nn.utils.clip_grads_with_norm_(
+                    grads, self.clip_norm, self.grad_norm_fn())
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
