@@ -206,6 +206,29 @@ on the device (torch.profiler), beside its bound at those shapes and
 the tile it ran on. The record lists the widths each kernel was held
 at.
 
+Then every VQ-VAE the VQ-VAE CLI can build (`shapes_phase`): its `main`
+at --hidden-dim 1024 --num-embeddings 1024 --embedding-dim 64 (8
+resblocks, patch 25) for one epoch on `cli_phase`'s CSV; its checkpoint
+with a transformer from the seed (d512, 8 heads, 8 blocks, T=321, K + 2
+classes) through `from_checkpoints(precision="int8",
+encoder_impl="fused")`: `classify` of 80 windows (the hidden-1024
+resblocks on csrc/encoder_wide.cu, one launch a product; JAX's group
+rule gives one resblock a call), the edges encoder into the 'attn'
+transformer and `make_pipeline_quantized(encoder_dtype=bf16)` (1b off
+512, `encoder_wide_bf16`), each launching exactly its kernels, labels
+equal to its plain path's outside the 1e-3 margin, the f32 encoders'
+ids within 1e-3 of `vq.encode_indices` (each flip a near-tie), the bf16
+ones held as at 512; one `vq_impl='pallas'` training step at those
+widths against plain (#7 streaming the (1,024, 64) codebook; loss 1e-5,
+gradient norm 1e-4). Then every kernel this slice widened against its
+plain version: #1, #3, #4 and #5 at hidden 100, 512, 576, 640, 758,
+768, 1,024 and 4,096 (the tiles off the multiples of 64, encoder_wide.cu
+above 512), #5 (at hidden 512 and 1,024) and #7 at (K, D) of (1024,
+64), (4096, 32), (512, 128), (256, 48), (300, 256), (1, 8) and (895,
+64), 1b at hidden 64, 256, 576 and 1,024, at 6,400 rows, timed in turns
+with plain beside the bound; the encoder_wide.cu kernels again on the
+served model's rows, which the record's entries for them report.
+
 Last, the training CLIs chained into the scorer (`cli_phase`), in a
 temporary working directory on one synthetic CSV (24 runs of 160
 cycles): `cli/train_reconstruction_embedding.main` (hidden 512, 8
@@ -222,7 +245,11 @@ CLI's scaler, into an artifact that `cli/score_quality.main` scores at
 `--stride 1`: it must launch #1, #2 and the int8 GEMM and nothing else
 (the record's `cli_launches`), and the same artifact scored on the
 plain path must give equal labels wherever its logit margin exceeds
-1e-3, and p_bad + p_good within 1e-4 of 1 in both files.
+1e-3, and p_bad + p_good within 1e-4 of 1 in both files. The plain
+path's labels outside the margin must hold both classes: where they do
+not, the chain trains again for longer (CLI_CHAIN_ROUNDS: the VQ-VAE
+CLI for more steps, the transformer CLI for more epochs without its
+early stop) and the scoring is repeated.
 
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
@@ -295,6 +322,10 @@ FLASH, DEC_ATTN, DEC_BLOCK = ("flash_attention_f32", "decode_attn_f32",
                               "block_decode_f32")
 # #9 on bf16 q, k and v (the bf16 transformer's training forward)
 FLASH_BF16 = "flash_attention_bf16"
+# the encoder off the tiles' widths (csrc/encoder_wide.cu): #1 and #3
+# above hidden 512, 1b off 512, #4 and #5 above 512
+WIDE, WIDE_BF16 = "encoder_wide_f32", "encoder_wide_bf16"
+WIDE_ENTRY, WIDE_EXIT = "encoder_wide_entry_f32", "encoder_wide_exit_f32"
 # training_phase: the CLIs' default widths (the JAX package's
 # cli/train_reconstruction_embedding.py:27-36 and
 # cli/train_transformer_mtasks.py:32-36)
@@ -358,6 +389,21 @@ EMA_STEPS = 6               # steps over the train split's batches in turn
 CLI_CSV = dict(n_cycles_per_run=160, extra_train_runs=8)
 # each CLI's arguments besides --data-dir and --device (the transformer
 # and the latent MLP also get --vqvae-model, the VQ-VAE CLI's best)
+# the chain's rounds, tried in turn until the plain scorer's labels
+# outside the margin hold both classes: (the VQ-VAE CLI's arguments
+# beyond CLI_ARGS', the transformer CLI's), each CLI trained again where
+# its arguments are given. The second trains longer: at the VQ-VAE CLI's
+# batch of 1,024 an epoch of the CSV's 1,280 train cycles is one step,
+# and its early stop (5 epochs without a better val loss) ends it after
+# 6; the transformer CLI's class stage stops after 5 epochs without a
+# better val F1 (--no-early-stopping). Probed on the card (PERF.md's
+# Findings): the first round labels every window alike, as does the
+# VQ-VAE at batch 128 for 30 epochs with 10 class epochs; the second
+# gives both
+CLI_CHAIN_ROUNDS = (
+    ((), ()),
+    (("--epochs", "60", "--batch-size", "64"),
+     ("--gen-epochs", "3", "--finetune-epochs", "20", "--no-early-stopping")))
 CLI_ARGS = {
     "reconstruction": ["--epochs", "1"],
     "classification": ["--epochs", "1"],
@@ -385,6 +431,27 @@ WIDTH_REPS = 5              # timed calls a kernel and plain version there
 # the widths the main paths hold each extended kernel at: head 64 for
 # the attention kernels, hidden 512 for the f32 encoder's
 BENCH_HEAD, BENCH_HIDDEN = 64, 512
+# shapes_phase: a VQ-VAE the JAX package serves and the port's first
+# kernels refused, as the VQ-VAE CLI builds it from its flags (the JAX
+# package's cli/train_reconstruction_embedding.py:29-31): hidden 1,024,
+# K = 1,024, D = 64, 8 resblocks, patch 25, one epoch through its main
+# on cli_phase's CSV; served in int8 with a transformer from the seed at
+# the CLI chain's widths (d512, 8 heads, 8 blocks, T=321, K + 2 classes)
+SHAPES_CLI_ARGS = ["--epochs", "1", "--hidden-dim", "1024",
+                   "--num-embeddings", "1024", "--embedding-dim", "64"]
+SHAPES_TR = dict(d_model=512, n_head=8, n_blocks=8)
+SHAPES_REQUEST = 80         # windows of the served request: 25,600 rows
+SHAPES_TRAIN_BATCH = 1024   # the CLI's batch, one vq_impl='pallas' step
+# then every changed kernel against its plain version and timed: the f32
+# encoder kernels at these hidden widths (the tiles off the multiples
+# of 64, and encoder_wide.cu above 512), #7 and #5 at these (K, D), 1b
+# at these hidden widths; SHAPES_ROWS rows a call (40 windows)
+SHAPES_HIDDEN = (100, 512, 576, 640, 758, 768, 1024, 4096)
+SHAPES_CODEBOOKS = ((1024, 64), (4096, 32), (512, 128), (256, 48),
+                    (300, 256), (1, 8), (895, 64))
+SHAPES_BF16 = (64, 256, 576, 1024)
+SHAPES_ROWS = 6400
+SHAPES_REPS = 5             # timed calls a kernel and plain version
 # torch's defaults, which the training phase runs under
 TORCH_DEFAULT_TF32 = dict(matmul=False, cudnn=True)
 # the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
@@ -443,6 +510,10 @@ RECORD = {
     ENTRY: ("encoder_edges.cu", "pallas_encoder.py:404"),
     EXIT: ("encoder_edges.cu", "pallas_encoder.py:436"),
     NEAREST: ("nearest_codes.cu", "pallas_vq.py:59"),
+    WIDE: ("encoder_wide.cu", "pallas_encoder.py:311"),
+    WIDE_BF16: ("encoder_wide.cu", "pallas_encoder.py:311"),
+    WIDE_ENTRY: ("encoder_wide.cu", "pallas_encoder.py:404"),
+    WIDE_EXIT: ("encoder_wide.cu", "pallas_encoder.py:436"),
     ATTN: ("attn_block_quant.cu", "pallas_block_quant.py:255"),
     ATTN8: ("attn_block_quant.cu", "pallas_block_quant.py:255"),
     FULL: ("block_quant.cu", "pallas_block_quant.py:307"),
@@ -470,6 +541,9 @@ TF32_SPLIT = 3
 F32_ATTENTION = (FLASH, ATTN, FULL, QKV, CAUSAL)
 # the f32 encoder kernels on the split-TF32 tile (csrc/encoder_tc.cuh)
 F32_ENCODER = (ENC, RES, ENTRY, EXIT)
+# the same functions above hidden 512 (csrc/encoder_wide.cu), and the
+# kernel each of F32_ENCODER's is there
+WIDE_OF = {ENC: WIDE, RES: WIDE, ENTRY: WIDE_ENTRY, EXIT: WIDE_EXIT}
 # the kernels that take widths off the bench model's (widths_phase)
 EXTENDED = (*F32_ENCODER, *F32_ATTENTION, ATTN8, FULL8, DEC_ATTN, DEC_BLOCK)
 
@@ -502,7 +576,8 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     first `fp32_products` of them (0, 1 or 2) once as FP32 on the CUDA
     cores. Its bf16 form (FLASH_BF16) needs less: Q K^T once as bf16,
     P@V twice as TF32. The f32 encoder kernels (F32_ENCODER: #1, #3 and the
-    encoder's two ends, #4 and #5, all on one tile) count their
+    encoder's two ends, #4 and #5, all on one tile; above hidden 512
+    WIDE_OF's on encoder_wide.cu, the same functions) count their
     resblocks' products TF32_SPLIT times as TF32, or once as FP32 with
     fp32_products=2; the ends' own products (#4's patch-embed, #5's
     sep_conv and distances) run on the FP32 cores and count once as
@@ -540,7 +615,7 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         {"int8": 2 * m * nc * c * kc * c})
         for shape, (nc, kc, q8, resid) in GEMM_SHAPES.items()}
     head_scales = b * 3 * n_head * f4
-    return {
+    work = {
         **gemm,
         LN_Q8: (xs + 2 * c * f4 + m * c, {}),
         GEMM: (m * c + w_mlp + 10 * c * f4 + 2 * xs + m * f4,
@@ -559,6 +634,9 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         ENC: (2 * x + grp * block_w, f32_enc(grp * block_ops)),
         ENC_BF16: (2 * x + n_res * (2 * c * c * 2 + 10 * c * f4),
                    {"bf16": n_res * block_ops}),
+        # 1b off hidden 512 (encoder_wide.cu), grp resblocks a call
+        WIDE_BF16: (2 * x + grp * (2 * c * c * 2 + 10 * c * f4),
+                    {"bf16": grp * block_ops}),
         RES: (2 * x + block_w, f32_enc(block_ops)),
         ENTRY: (n_rows * patch * f4 + (patch + 1) * c * f4 + x
                 + grp * block_w,
@@ -577,6 +655,10 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
         QKV: (xs + m * c + 3 * c * c, {"int8": qkv, **f32_attn}),
         CAUSAL: (3 * xs + m * c, f32_attn),
     }
+    # above hidden 512 the same functions run on encoder_wide.cu (#3's
+    # one resblock a call is WIDE at grp = 1)
+    work.update({WIDE_OF[name]: work[name] for name in (ENC, ENTRY, EXIT)})
+    return work
 
 
 def bound_of(work) -> tuple[float, str]:
@@ -681,18 +763,25 @@ def device_profile(fn, leave_out: str | None = None):
 # decode kernels (#12, #13), and the functions ptxas reports on
 PTXAS_SOURCES = ("flash_attn.cu", "int8_block.cu", "encoder_chain.cu",
                  "encoder_resblock.cu", "encoder_edges.cu", "decode.cu",
-                 "encoder_chain_bf16.cu", "nearest_codes.cu")
+                 "encoder_chain_bf16.cu", "nearest_codes.cu",
+                 "encoder_wide.cu")
 PTXAS_KERNELS = ("attention_kernel", "flash_attention_bf16_kernel",
                  "int8_gemm_sm90_kernel",
                  "encoder_chain_kernel", "resblock_kernel",
                  "encoder_entry_kernel", "encoder_exit_kernel", "embed_rows",
                  "nearest_rows", QUANT_PASS, INT8_ATTENTION, "decode_kernel",
-                 LN_Q8, "encoder_chain_bf16_kernel", "nearest_codes_kernel")
+                 LN_Q8, "encoder_chain_bf16_kernel", "nearest_codes_kernel",
+                 "nearest_codes_chunked", "product_kernel", "embed_kernel",
+                 "exit_kernel")
 # the sources whose kernels must use no stack either (1b and #7)
 NO_STACK = ("encoder_chain_bf16.cu", "nearest_codes.cu")
 # kernels whose setmaxnreg requests assume ptxas gave them 65536 / 384
-# registers a thread (fewer would leave the requests unmet: a hang)
-SETMAXNREG_REGS = {"encoder_chain_bf16_kernel": 168}
+# registers a thread (fewer would leave the requests unmet: a hang): 1b
+# and every instantiation of the f32 tile (matched within ptxas's
+# mangled names)
+SETMAXNREG_REGS = {"encoder_chain_bf16_kernel": 168,
+                   "encoder_chain_kernel": 168, "resblock_kernel": 168,
+                   "encoder_entry_kernel": 168, "encoder_exit_kernel": 168}
 # what each source's PTX must hold: Hopper's tensor-core product (in
 # TF32, with A split by cvt.rna, for the f32 encoder; bf16 for 1b), TMA
 # copies, the int8 attention's s8 products, #9's bf16 tile's bf16
@@ -716,6 +805,12 @@ PTX_OPS = {
                          "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32",
                          "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32",
                          "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
+    # the encoder off the tiles' widths: split TF32 and bf16 mma.sync
+    "encoder_wide.cu": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                        "cvt.rna.tf32.f32"),
+    # #7's streamed codebook
+    "nearest_codes.cu": ("cp.async.cg.shared.global",),
     "decode.cu": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                   "cp.async.bulk.shared::cluster.global.mbarrier",
                   "atom.acq_rel.gpu.inc.u32"),
@@ -780,13 +875,14 @@ def ptxas_report(procs: list) -> None:
             spills = [int(n) for line in lines
                       for n in re.findall(r"(\d+) bytes spill", line)]
             check(not any(spills), f"ptxas {src} {kernel} spills")
-            if kernel in SETMAXNREG_REGS:
+            want = next((n for name, n in SETMAXNREG_REGS.items()
+                         if name in kernel), None)
+            if want is not None:
                 regs = [int(n) for line in lines
                         for n in re.findall(r"Used (\d+) registers", line)]
-                check(bool(regs) and all(
-                    n == SETMAXNREG_REGS[kernel] for n in regs),
-                    f"ptxas {src} {kernel}: {regs} registers, not "
-                    f"{SETMAXNREG_REGS[kernel]}: setmaxnreg would hang")
+                check(bool(regs) and all(n == want for n in regs),
+                      f"ptxas {src} {kernel}: {regs} registers, not "
+                      f"{want}: setmaxnreg would hang")
             if src in NO_STACK:
                 stack = [int(n) for line in lines for n in re.findall(
                     r"(\d+) bytes (?:stack frame|cumulative stack)", line)]
@@ -3338,6 +3434,470 @@ def widths_phase(smi: str, device: str = "cuda") -> dict:
             "widths": {name: sorted(ws) for name, ws in held.items()}}
 
 
+# -- every VQ-VAE the VQ-VAE CLI can build ------------------------------------
+
+def _shape_operands(c: int, n_blocks: int, gen, dev):
+    """Random resblock weights (2n, c, c) at the encoder's init spread and
+    vector rows (10n, c) with eval BN rows, on the card."""
+    import torch
+    bound = (6.0 / (2 * c * 3)) ** 0.5
+    w = (torch.rand(2 * n_blocks, c, c, generator=gen) * 2 - 1) * bound
+    v = torch.zeros(n_blocks, 2, 5, c)
+    v[:, :, 0] = torch.randn(n_blocks, 2, c, generator=gen) * 0.1
+    return w.to(dev), _random_bn(v.reshape(10 * n_blocks, c).to(dev), gen)
+
+
+def shapes_phase(smi: str, device: str = "cuda") -> dict:
+    """A VQ-VAE at the VQ-VAE CLI's --hidden-dim 1024 --num-embeddings
+    1024 --embedding-dim 64 (see the module docstring), trained one epoch
+    through the CLI's main and served in int8 with a transformer from
+    the seed through classify, the edges encoder and the bf16 encoder,
+    each against its plain path; one vq_impl='pallas' training step at
+    those widths against plain; then every kernel this slice widened
+    against its plain version at the grid of SHAPES_HIDDEN,
+    SHAPES_CODEBOOKS and SHAPES_BF16, timed in turns with it beside its
+    bound. Returns {"launched": {kernel: (path, launches)}, "held":
+    {kernel: [shapes]}, and for the encoder_wide.cu kernels "times",
+    "work", "err" (and "flips" of the exit's ids) at the served model's
+    shape}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.cli import (
+        train_reconstruction_embedding)
+    from vq_vae_transformer_arc_welding_tpu_torch.data import (
+        ASIMoWDataModule, get_val_test_ids, synthetic)
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import (
+        make_pipeline_quantized)
+    from vq_vae_transformer_arc_welding_tpu_torch.models import (
+        TransformerDecoder, VQVAEPatch)
+    from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
+        quantized_classify)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_encoder as fenc, fused_vq as fvq)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.patching import patchify
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        CYCLE_LEN, WeldingQualityPipeline, with_start_token)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        ReconstructionTask)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    bf = torch.bfloat16
+    out = {"launched": {}, "held": {}, "times": {}, "work": {}, "err": {},
+           "flips": {}}
+
+    def note(counts, path, shape=None):
+        for name, n in counts.items():
+            out["launched"].setdefault(name, (path, n))
+            if shape is not None:
+                out["held"].setdefault(name, [])
+                if shape not in out["held"][name]:
+                    out["held"][name].append(shape)
+
+    def labels_hold(what, got, plain):
+        """Labels of logits `got` equal plain's outside the margin."""
+        sure = (plain[:, 0] - plain[:, 1]).abs() > LABEL_MARGIN
+        same = got.argmax(-1) == plain.argmax(-1)
+        check(bool(torch.isfinite(got).all()) and bool(same[sure].all()),
+              f"shapes {what}: labels differ from the plain path's on "
+              f"{int((~same)[sure].sum())} windows outside the margin")
+        return int(sure.sum())
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # -- S1. the VQ-VAE CLI at the flags ------------------------------
+            data_dir = os.path.join(tmp, "data")
+            csv_path = os.path.join(data_dir, "processed_asimow_dataset.csv")
+            synthetic.write_synthetic_csv(csv_path, seed=SEED, **CLI_CSV)
+            args = train_reconstruction_embedding.build_parser().parse_args(
+                SHAPES_CLI_ARGS + ["--data-dir", data_dir, "--device", device])
+            secs = host_seconds(
+                lambda: train_reconstruction_embedding.main(args))
+            vq_best = os.path.join(tmp, "model_checkpoints", "VQ-VAE-Patch",
+                                   "VQ-VAE-Patch-best.ckpt")
+            check(os.path.exists(vq_best),
+                  "shapes: the VQ-VAE CLI wrote no best checkpoint")
+            vq = VQVAEPatch.load(vq_best, device=dev).eval()
+            c, k, d = vq.hidden_dim, vq.num_embeddings, vq.embedding_dim
+            check((c, k, d, vq.n_resblocks, vq.patch_size)
+                  == (1024, 1024, 64, 8, 25),
+                  f"shapes: the CLI built hidden {c}, K={k}, D={d}")
+            log(f"shapes: VQ-VAE CLI main({' '.join(SHAPES_CLI_ARGS)}) in "
+                f"{secs:.2f} s wall: hidden {c}, {vq.n_resblocks} resblocks, "
+                f"K={k}, D={d}, patch {vq.patch_size}; gpu {smi}")
+            ids_split = get_val_test_ids()
+            dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
+                                  val_data_ids=ids_split["val_ids"],
+                                  test_data_ids=ids_split["test_ids"],
+                                  batch_size=SHAPES_TRAIN_BATCH,
+                                  data_directory_path=data_dir)
+            dm.setup()
+            # the request: consecutive scaled cycles of the three splits
+            # (1,280 cycles each), 20 a window
+            n_win = SHAPES_REQUEST
+            cyc = np.concatenate([dm.train.x, dm.val.x, dm.test.x])[
+                :n_win * N_CYCLES]
+            check(len(cyc) == n_win * N_CYCLES, "shapes: too few cycles")
+            x = torch.from_numpy(np.ascontiguousarray(cyc).reshape(
+                n_win, N_CYCLES * CYCLE_LEN, 2)).to(dev)
+            cycles = x.reshape(-1, CYCLE_LEN, 2)
+            # -- S2. served in int8 with a transformer from the seed -------
+            tr = TransformerDecoder(
+                **SHAPES_TR, n_classes=k + 2, seq_len=N_CYCLES
+                * vq.enc_out_len + 1,
+                generator=torch.Generator().manual_seed(SEED), device=dev)
+            tr_ckpt = os.path.join(tmp, "transformer.ckpt")
+            tr.save(tr_ckpt)
+            pipe = WeldingQualityPipeline.from_checkpoints(
+                vq_best, tr_ckpt, n_cycles=N_CYCLES, max_batch=n_win,
+                precision="int8", encoder_impl="fused", device=device)
+            pipe.calibrate(x[:N_CALIB].cpu().numpy())
+            vq, tr, qp = pipe.vq_model, pipe.tr_model, pipe.qparams
+            xn = x.cpu().numpy()
+            (labels, probs), counts = counted(lambda: pipe.classify(xn))
+            check(set(counts) == {WIDE, ATTN, GEMM}
+                  and counts[WIDE] == vq.n_resblocks,
+                  f"shapes classify launched {json.dumps(counts)}")
+            note(counts, "shapes classify (hidden 1024, K=1024, D=64)")
+            with plain_path():
+                labels_p, probs_p = pipe.classify(xn)
+            sure = np.abs(probs_p[:, 0] - probs_p[:, 1]) > LABEL_MARGIN
+            check(bool(np.isfinite(probs).all())
+                  and bool((labels == labels_p)[sure].all()),
+                  "shapes classify: labels differ from the plain path's "
+                  "outside the margin")
+            t = timed_in_turns({"kernel": lambda: pipe.classify(xn),
+                                "plain": on_plain_path(
+                                    lambda: pipe.classify(xn))},
+                               reps=SHAPES_REPS, warmup=1)
+            log(f"shapes classify (int8, encoder_impl='fused') of {n_win} "
+                f"windows: launches {json.dumps(counts)}; labels equal the "
+                f"plain path's on all {int(sure.sum())} windows with |p0 - "
+                f"p1| > {LABEL_MARGIN}; {fmt_ms(t['kernel'])} a call, "
+                f"{n_win / t['kernel'][0] * 1e3:.1f} windows/s (plain "
+                f"{fmt_ms(t['plain'])}, {n_win / t['plain'][0] * 1e3:.1f} "
+                f"windows/s); gpu {smi}")
+            with torch.inference_mode():
+                packed = fenc.pack_encoder(vq)
+                edges = fenc.pack_encoder_edges(vq)
+                exact = vq.encode_indices(cycles).reshape(-1)
+                z = vq.encode(cycles).reshape(-1, d)
+                check(packed.split is None and fenc.group_size_for(c) == 1,
+                      "shapes: the pack or the group rule")
+                grouped, counts = counted(lambda: fenc.encode_indices_fused(
+                    vq, packed, cycles))
+                check(counts == {WIDE: vq.n_resblocks},
+                      f"shapes encode_indices_fused launched "
+                      f"{json.dumps(counts)}")
+                edged, counts = counted(
+                    lambda: fenc.encode_indices_fused_edges(
+                        vq, packed, edges, cycles))
+                want = {WIDE_ENTRY: 1, WIDE: vq.n_resblocks - 2,
+                        WIDE_EXIT: 1}
+                check(counts == want, f"shapes encode_indices_fused_edges "
+                                      f"launched {json.dumps(counts)}")
+                note(counts, "shapes encode_indices_fused_edges "
+                             "(hidden 1024)")
+                for name, ids in (("encode_indices_fused", grouped),
+                                  ("encode_indices_fused_edges", edged)):
+                    flips = flip_rate(ids.reshape(-1), exact)
+                    gap = worst_flip_gap(z, vq.codebook, ids.reshape(-1),
+                                         exact)
+                    check(flips <= MAX_ID_FLIP and gap <= MAX_FLIP_GAP,
+                          f"shapes {name}: id flips {flips}, gap {gap}")
+                    log(f"shapes {name} at hidden {c}: id flips against "
+                        f"vq.encode_indices {flips:.3e} (bound "
+                        f"{MAX_ID_FLIP}), worst flip gap {gap:.3e} (bound "
+                        f"{MAX_FLIP_GAP})")
+                # the edges encoder into the int8 transformer
+                def edges_classify(x_):
+                    ids_ = fenc.encode_indices_fused_edges(
+                        vq, packed, edges, x_.reshape(-1, CYCLE_LEN, 2))
+                    return quantized_classify(
+                        tr, qp, with_start_token(ids_.reshape(len(x_), -1),
+                                                 k), block_fusion="attn")
+                le, counts = counted(lambda: edges_classify(x))
+                check(set(counts) == {WIDE_ENTRY, WIDE, WIDE_EXIT, ATTN,
+                                      GEMM},
+                      f"shapes edges + 'attn' launched {json.dumps(counts)}")
+                with plain_path():
+                    lp = edges_classify(x)
+                n_sure = labels_hold("edges + 'attn'", le, lp)
+                log(f"shapes encode_indices_fused_edges + 'attn': launches "
+                    f"{json.dumps(counts)}; labels equal the plain path's "
+                    f"on all {n_sure} windows whose |logit0-logit1| > "
+                    f"{LABEL_MARGIN}")
+                # the bf16 encoder (1b off 512: encoder_wide_bf16)
+                fn_bf = make_pipeline_quantized(vq, tr, qp, encoder_dtype=bf)
+                lb, counts = counted(lambda: fn_bf(x))
+                grp_bf = fenc.group_size_for(c, 2)
+                check(set(counts) == {WIDE_BF16, ATTN, GEMM}
+                      and counts[WIDE_BF16] == -(-vq.n_resblocks // grp_bf),
+                      f"shapes make_pipeline_quantized(encoder_dtype=bf16) "
+                      f"launched {json.dumps(counts)}")
+                note(counts, "shapes make_pipeline_quantized("
+                             "encoder_dtype=torch.bfloat16) (hidden 1024)")
+                lbp = on_plain_path(lambda: fn_bf(x))()
+                n_sure = labels_hold("encoder_dtype=bf16", lb, lbp)
+                packed_bf = fenc.pack_encoder(vq, bf)
+                ids_bf = fenc.encode_indices_fused(
+                    vq, packed_bf, cycles, compute_dtype=bf).reshape(-1)
+                with plain_path():
+                    ids_bfp = fenc.encode_indices_fused(
+                        vq, packed_bf, cycles, compute_dtype=bf).reshape(-1)
+                h = vq.patch_embed_out(cycles)
+                z_bf = vq.sep_conv(fenc.fused_encoder_eval_reference(
+                    h.reshape(-1, c), *packed_bf, use_bn=vq.batch_norm,
+                    compute_dtype=bf).reshape(h.shape)).reshape(-1, d)
+                f_bf = flip_rate(ids_bf, ids_bfp)
+                g_bf = worst_flip_gap(z_bf, vq.codebook, ids_bf, ids_bfp)
+                check(f_bf <= MAX_BF16_ID_FLIP and g_bf <= MAX_BF16_FLIP_GAP,
+                      f"shapes bf16 encoder: ids differ from the plain bf16 "
+                      f"path's in {f_bf}, worst gap {g_bf}")
+                log(f"shapes make_pipeline_quantized(encoder_dtype=bf16): "
+                    f"launches {json.dumps(counts)}; labels equal its plain "
+                    f"path's on all {n_sure} windows outside the margin; "
+                    f"ids against the plain bf16 path {f_bf:.3e} (bound "
+                    f"{MAX_BF16_ID_FLIP}), worst gap {g_bf:.3e} (bound "
+                    f"{MAX_BF16_FLIP_GAP}); gpu {smi}")
+
+            # -- S3. one training step on #7 at those widths ----------------
+            with tf32_flags(**TORCH_DEFAULT_TF32):
+                vq_t = VQVAEPatch.load(vq_best, device=dev, vq_impl="pallas")
+                vq_t.dropout_p = 0.0
+                vq_t.requires_grad_(True)
+                batch = (torch.from_numpy(
+                    dm.train.x[:SHAPES_TRAIN_BATCH]).to(dev),)
+                ids_of, _, _ = one_step_against_plain(
+                    f"shapes VQ-VAE (hidden {c}, K={k}, D={d})", vq_t,
+                    ReconstructionTask(vq_t), batch, NEAREST, 1, smi)
+                flips = int((ids_of["kernel"] != ids_of["plain"]).sum())
+                check(flips == 0, f"shapes training step: {flips} ids "
+                                  f"differ from the plain path's")
+                note({NEAREST: 1}, "shapes vq_impl='pallas' training step "
+                                   "(K=1024, D=64)", (k, d))
+                del vq_t
+        finally:
+            os.chdir(cwd)
+
+    # -- S4. every widened kernel against plain at the grid -----------------
+    fns, bounds, errs = {}, {}, {}
+    n = SHAPES_ROWS
+    with torch.inference_mode():
+        for hw in SHAPES_HIDDEN:
+            w, v = _shape_operands(hw, 2, gen, dev)
+            xr = torch.randn(n, hw, generator=gen).to(dev)
+            patches = torch.randn(n, 25, generator=gen).to(dev)
+            w_pe = ((torch.rand(25, hw, generator=gen) * 2 - 1) * 0.1).to(dev)
+            b_pe = (torch.randn(hw, generator=gen) * 0.1).to(dev)
+            w_sep = ((torch.rand(hw, 64, generator=gen) * 2 - 1)
+                     * 0.1).to(dev)
+            b_sep = (torch.randn(64, generator=gen) * 0.1).to(dev)
+            zz = fenc.fused_encoder_eval_reference(xr, w, v, use_bn=True) \
+                @ w_sep + b_sep
+            cb = zz.mean(0) + torch.randn(1024, 64, generator=gen).to(dev) \
+                * zz.std(0)
+            kw = ({"split": fenc.split_weights(w)} if fenc.on_tile(hw)
+                  else {})
+            kw1 = {"split": kw["split"][:2]} if kw else {}
+            for base, kfn, pfn, a, kwa in (
+                    (ENC, fenc.fused_encoder_eval,
+                     fenc.fused_encoder_eval_reference, (xr, w, v), kw),
+                    (RES, fenc.resblock_eval,
+                     fenc.fused_resblock_eval_reference,
+                     (xr, w[0], w[1], v[:10]), kw1),
+                    (ENTRY, fenc.fused_encoder_entry_eval,
+                     fenc.fused_encoder_entry_eval_reference,
+                     (patches, w_pe, b_pe, w, v), kw),
+                    (EXIT, fenc.fused_encoder_exit_eval,
+                     fenc.fused_encoder_exit_eval_reference,
+                     (xr, w, v, w_sep, b_sep, cb), kw)):
+                name = base if fenc.on_tile(hw) else WIDE_OF[base]
+                got, counts = counted(lambda: kfn(*a, use_bn=True, **kwa))
+                ref = pfn(*a, use_bn=True)
+                check(counts == {name: 1}, f"shapes {base} at hidden {hw} "
+                                           f"launched {json.dumps(counts)}")
+                note(counts, f"shapes kernels (hidden {hw})", hw)
+                if base == EXIT:
+                    flips = flip_rate(got, ref)
+                    gap = worst_flip_gap(zz, cb, got, ref)
+                    check(flips <= MAX_ID_FLIP and gap <= MAX_FLIP_GAP,
+                          f"shapes {name} at hidden {hw}: flips {flips}, "
+                          f"gap {gap}")
+                    err = flips
+                else:
+                    err = float((got - ref).abs().max() / ref.abs().max())
+                    check(err <= MAX_CHAIN_REL, f"shapes {name} at hidden "
+                                                f"{hw}: {err} of the output's "
+                                                f"magnitude")
+                key = (name, f"hidden {hw}" + (" (#3)" if base == RES else ""))
+                errs[key] = err
+                fns[key] = (lambda kfn=kfn, a=a, kwa=kwa:
+                            kfn(*a, use_bn=True, **kwa),
+                            lambda pfn=pfn, a=a: pfn(*a, use_bn=True))
+                work = kernel_work(n, hw, 1 if base == RES else 2, 2, 25, 64,
+                                   1024, 1, 1, 1, 1, 1)
+                bounds[key] = bound_of(work[name if base != RES else
+                                            (RES if fenc.on_tile(hw)
+                                             else WIDE)])
+            del w, v, xr, zz
+        # #7 and #5 at each (K, D): #5 on the tile (hidden 512) and on
+        # encoder_wide.cu (hidden 1024), one resblock
+        for hw in (512, 1024):
+            w, v = _shape_operands(hw, 1, gen, dev)
+            xr = torch.randn(n, hw, generator=gen).to(dev)
+            for kk, dd in SHAPES_CODEBOOKS:
+                w_sep = ((torch.rand(hw, dd, generator=gen) * 2 - 1)
+                         * 0.1).to(dev)
+                b_sep = (torch.randn(dd, generator=gen) * 0.1).to(dev)
+                zz = fenc.fused_encoder_eval_reference(
+                    xr, w, v, use_bn=True) @ w_sep + b_sep
+                cb = zz.mean(0) + torch.randn(kk, dd, generator=gen).to(
+                    dev) * zz.std(0)
+                name = EXIT if fenc.on_tile(hw) else WIDE_EXIT
+                kw = ({"split": fenc.split_weights(w)} if fenc.on_tile(hw)
+                      else {})
+                a = (xr, w, v, w_sep, b_sep, cb)
+                cases = [(name, fenc.fused_encoder_exit_eval,
+                          fenc.fused_encoder_exit_eval_reference, a, kw,
+                          lambda zz=zz, cb=cb: (zz, cb))]
+                if hw == 512:     # #7 on the same z and codebook
+                    zc = zz.contiguous()
+                    cases.append((NEAREST, lambda z_, c_, use_bn:
+                                  fvq.nearest_codes_pallas(z_, c_),
+                                  lambda z_, c_, use_bn:
+                                  fvq.nearest_codes_pallas_reference(z_, c_),
+                                  (zc, cb), {}, lambda zc=zc, cb=cb: (zc, cb)))
+                for nm, kfn, pfn, args, kwa, zcb in cases:
+                    got, counts = counted(lambda: kfn(*args, use_bn=True,
+                                                      **kwa))
+                    ref = pfn(*args, use_bn=True)
+                    check(counts == {nm: 1}, f"shapes {nm} at ({kk}, {dd}) "
+                                             f"launched {json.dumps(counts)}")
+                    note(counts, f"shapes kernels (K={kk}, D={dd})",
+                         (kk, dd))
+                    flips = flip_rate(got, ref)
+                    gap = worst_flip_gap(*zcb(), got, ref)
+                    check(flips <= MAX_ID_FLIP and gap <= MAX_FLIP_GAP,
+                          f"shapes {nm} at ({kk}, {dd}): flips {flips}, "
+                          f"gap {gap}")
+                    key = (nm, f"K={kk}, D={dd}"
+                           + (f", hidden {hw}" if nm != NEAREST else ""))
+                    errs[key] = flips
+                    fns[key] = (lambda kfn=kfn, a=args, kwa=kwa:
+                                kfn(*a, use_bn=True, **kwa),
+                                lambda pfn=pfn, a=args: pfn(*a, use_bn=True))
+                    work = kernel_work(n, hw, 1, 1, 25, dd, kk, 1, 1, 1, 1, 1)
+                    bounds[key] = bound_of(work[nm])
+            del w, v, xr
+        # 1b off hidden 512, each resblock fed the plain stream and the
+        # two in one launch
+        for hw in SHAPES_BF16:
+            w, v = _shape_operands(hw, 2, gen, dev)
+            wb = w.to(bf)
+            xr = torch.randn(n, hw, generator=gen).to(dev)
+            xi, worst = xr, 0.0
+            for i in range(2):
+                wi, vi = wb[2 * i:2 * i + 2], v[10 * i:10 * i + 10]
+                yk, counts = counted(lambda: fenc.fused_encoder_eval(
+                    xi, wi, vi, use_bn=True, compute_dtype=bf))
+                yp = fenc.fused_encoder_eval_reference(
+                    xi, wi, vi, use_bn=True, compute_dtype=bf)
+                check(counts == {WIDE_BF16: 1},
+                      f"shapes 1b at hidden {hw} launched "
+                      f"{json.dumps(counts)}")
+                worst = max(worst, float((yk - yp).abs().max()
+                                         / yp.abs().max()))
+                xi = yp
+            note(counts, f"shapes kernels (bf16, hidden {hw})", hw)
+            yk = fenc.fused_encoder_eval(xr, wb, v, use_bn=True,
+                                         compute_dtype=bf)
+            yp = fenc.fused_encoder_eval_reference(xr, wb, v, use_bn=True,
+                                                   compute_dtype=bf)
+            worst = max(worst, float((yk - yp).abs().max() / yp.abs().max()))
+            check(worst <= MAX_BF16_BLOCK_ERR,
+                  f"shapes 1b at hidden {hw}: {worst} of the output's "
+                  f"magnitude")
+            key = (WIDE_BF16, f"hidden {hw}")
+            errs[key] = worst
+            fns[key] = (lambda a=(xr, wb, v): fenc.fused_encoder_eval(
+                *a, use_bn=True, compute_dtype=bf),
+                lambda a=(xr, wb, v): fenc.fused_encoder_eval_reference(
+                    *a, use_bn=True, compute_dtype=bf))
+            bounds[key] = bound_of(kernel_work(n, hw, 2, 2, 25, 64, 1024,
+                                               1, 1, 1, 1, 1)[WIDE_BF16])
+        # times, in turns with the plain versions (CUDA events)
+        for key, (kfn, pfn) in fns.items():
+            t = timed_in_turns({"kernel": kfn, "plain": pfn},
+                               reps=SHAPES_REPS, warmup=1)
+            bound, by = bounds[key]
+            log(f"shapes kernel {key[0]} at {key[1]} ({n} rows): "
+                f"{fmt_ms(t['kernel'])}, plain {fmt_ms(t['plain'])}; bound "
+                f"{bound:.4f} ms by {by} ({bound / t['kernel'][0]:.1%} of the "
+                f"time taken); worst difference from plain {errs[key]:.3e}; "
+                f"gpu {smi}")
+
+        # -- S5. the encoder_wide.cu kernels at the served model's shape ----
+        with torch.inference_mode():
+            h = vq.patch_embed_out(cycles)
+            flat = h.reshape(-1, c).contiguous()
+            rows = flat.shape[0]
+            weights, vecs = packed
+            pz = patchify(cycles, vq.patch_size).reshape(
+                -1, vq.patch_size).contiguous()
+            w_pe, b_pe, w_sep, b_sep = edges
+            wb = packed_bf[0]
+            served = {
+                WIDE: (lambda: fenc.fused_encoder_eval(
+                    flat, weights[:2], vecs[:10], use_bn=False),
+                    lambda: fenc.fused_encoder_eval_reference(
+                        flat, weights[:2], vecs[:10], use_bn=False), 1),
+                WIDE_ENTRY: (lambda: fenc.fused_encoder_entry_eval(
+                    pz, w_pe, b_pe, weights[:2], vecs[:10], use_bn=False),
+                    lambda: fenc.fused_encoder_entry_eval_reference(
+                        pz, w_pe, b_pe, weights[:2], vecs[:10],
+                        use_bn=False), 1),
+                WIDE_EXIT: (lambda: fenc.fused_encoder_exit_eval(
+                    flat, weights[-2:], vecs[-10:], w_sep, b_sep,
+                    vq.codebook, use_bn=False),
+                    lambda: fenc.fused_encoder_exit_eval_reference(
+                        flat, weights[-2:], vecs[-10:], w_sep, b_sep,
+                        vq.codebook, use_bn=False), 1),
+                WIDE_BF16: (lambda: fenc.fused_encoder_eval(
+                    flat, wb[:2 * grp_bf], vecs[:10 * grp_bf], use_bn=False,
+                    compute_dtype=bf),
+                    lambda: fenc.fused_encoder_eval_reference(
+                        flat, wb[:2 * grp_bf], vecs[:10 * grp_bf],
+                        use_bn=False, compute_dtype=bf), grp_bf)}
+            for name, (kfn, pfn, grp) in served.items():
+                got, ref = kfn(), pfn()
+                # the ids' largest difference, as the record has it for #5
+                out["err"][name] = float((got.float() - ref.float()).abs()
+                                         .max())
+                if name == WIDE_EXIT:
+                    out["flips"][name] = flip_rate(got, ref)
+                    check(out["flips"][name] <= MAX_ID_FLIP,
+                          f"shapes {name} on the served model: id flips "
+                          f"{out['flips'][name]}")
+                out["times"][name] = timed_in_turns(
+                    {"kernel": kfn, "plain": pfn}, reps=SHAPES_REPS,
+                    warmup=1)
+                out["work"][name] = kernel_work(
+                    rows, c, grp, grp, vq.patch_size, d, k, 1, 1, 1, 1,
+                    1)[name]
+                bound, by = bound_of(out["work"][name])
+                t = out["times"][name]
+                log(f"shapes kernel {name} on the served model ({rows} x "
+                    f"{c}, {grp} resblock(s) a call): {fmt_ms(t['kernel'])}, "
+                    f"plain {fmt_ms(t['plain'])}; bound {bound:.4f} ms by "
+                    f"{by} ({bound / t['kernel'][0]:.1%} of the time taken); "
+                    f"difference from plain {out['err'][name]:.3e}; gpu {smi}")
+    log(f"shapes phase: {time.perf_counter() - t_phase:.1f} s; gpu {smi}")
+    return out
+
+
 def newest_metrics(log_root: str) -> tuple[str, list]:
     """(path, rows) of the newest run's metrics.csv under log_root, each
     row {column: float} without its empty cells."""
@@ -3416,7 +3976,9 @@ def cli_phase(smi: str, device: str = "cuda") -> dict:
                 check(bool(train), f"cli {name}: no training row in {path}")
                 check(all(math.isfinite(v) for v in losses),
                       f"cli {name}: a loss in {path} is not finite")
-                log(f"cli {name}: main({' '.join(CLI_ARGS[name])}) in "
+                shown = CLI_ARGS[name] + [os.path.basename(e) if os.sep in e
+                                          else e for e in extra]
+                log(f"cli {name}: main({' '.join(shown)}) in "
                     f"{secs:.2f} s wall; {os.path.relpath(path, tmp)}: "
                     f"{len(rows)} rows, {len(train)} training rows, losses "
                     f"{[round(v, 5) for v in losses[:6]]}...; gpu {smi}")
@@ -3440,104 +4002,134 @@ def cli_phase(smi: str, device: str = "cuda") -> dict:
                     f"cli {name}: no best checkpoint {ckpt}")
                 check(math.isfinite(test["test/f1_score_mean"]),
                       f"cli {name}: test {test}")
-            tm_run, results = run_cli("transformer", train_transformer_mtasks,
-                                      ("--vqvae-model", vq_best))
-            tr = tm_run.model
-            check(sorted(results) == ["class_test", "class_test_final",
-                                      "gen_test"]
-                  and math.isfinite(results["gen_test"]["test/loss"])
-                  and tr.seq_len == N_CYCLES * 16 + 1,
-                  f"cli transformer: results {results}, T={tr.seq_len}")
-            # -- C4. the JAX CLI writes no transformer checkpoint: the phase
-            tr_ckpt = os.path.join(tmp, "transformer.ckpt")
-            tr.save(tr_ckpt)
-            log(f"cli transformer: d{tr.d_model}, {tr.n_head} heads, "
-                f"{len(tr.blocks)} blocks, T={tr.seq_len}, saved by the "
-                f"phase to {os.path.basename(tr_ckpt)}")
 
-            # -- C5. the checkpoints served by the int8 scorer -------------
-            pipe = WeldingQualityPipeline.from_checkpoints(
-                vq_best, tr_ckpt, n_cycles=N_CYCLES, max_batch=80,
-                precision="int8", encoder_impl="fused", device=device)
-            # the VQ-VAE CLI's scaler: fitted on the train split's cycles
-            dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
-                                  val_data_ids=ids["val_ids"],
-                                  test_data_ids=ids["test_ids"],
-                                  data_directory_path=data_dir)
-            dm.setup()
-            pipe.scaler = dm.scaler
-            # calibration: the first N_CALIB windows of the train runs
-            held_out = {tuple(v) for v in (*ids["val_ids"], *ids["test_ids"])}
-            calib = []
-            for e, r in np.unique(np.stack([exp, run], 1), axis=0):
-                if (int(e), int(r)) in held_out:
-                    continue
-                cyc = dm.scaler.transform(vi[(exp == e) & (run == r)])
-                calib += [cyc[s:s + N_CYCLES].reshape(N_CYCLES * CYCLE_LEN, 2)
-                          for s in range(0, len(cyc) - N_CYCLES + 1,
-                                         N_CYCLES)]
-            pipe.calibrate(np.stack(calib[:N_CALIB]))
-            art = pipe.save_artifact(os.path.join(tmp, "artifact"))
-            argv = ["--artifact", art, "--data-path", csv_path,
-                    "--stride", "1", "--device", device]
-            parser = score_quality.build_parser()
-            kernel_out = os.path.join(tmp, "scores.csv")
-            plain_out = os.path.join(tmp, "scores_plain.csv")
-            secs = [0.0]
+            def serve_round(vq_more: tuple, more: tuple) -> bool:
+                """C3-C8 with the VQ-VAE CLI trained again with
+                `vq_more` where it is given and the transformer CLI with
+                `more`: their checkpoints scored on the kernel path and
+                the plain path. Returns whether the plain path's labels
+                on the windows outside the margin hold both classes."""
+                if vq_more:
+                    run_cli("reconstruction", train_reconstruction_embedding,
+                            vq_more)
+                tm_run, results = run_cli(
+                    "transformer", train_transformer_mtasks,
+                    ("--vqvae-model", vq_best, *more))
+                tr = tm_run.model
+                check(sorted(results) == ["class_test", "class_test_final",
+                                          "gen_test"]
+                      and math.isfinite(results["gen_test"]["test/loss"])
+                      and tr.seq_len == N_CYCLES * 16 + 1,
+                      f"cli transformer: results {results}, T={tr.seq_len}")
+                # -- C4. the JAX CLI writes no transformer checkpoint: the phase
+                tr_ckpt = os.path.join(tmp, "transformer.ckpt")
+                tr.save(tr_ckpt)
+                log(f"cli transformer: d{tr.d_model}, {tr.n_head} heads, "
+                    f"{len(tr.blocks)} blocks, T={tr.seq_len}, saved by the "
+                    f"phase to {os.path.basename(tr_ckpt)}")
 
-            def score():
-                secs[0] = host_seconds(lambda: score_quality.main(
-                    parser.parse_args(argv + ["--out", kernel_out])))
+                # -- C5. the checkpoints served by the int8 scorer -------------
+                pipe = WeldingQualityPipeline.from_checkpoints(
+                    vq_best, tr_ckpt, n_cycles=N_CYCLES, max_batch=80,
+                    precision="int8", encoder_impl="fused", device=device)
+                # the VQ-VAE CLI's scaler: fitted on the train split's cycles
+                dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
+                                      val_data_ids=ids["val_ids"],
+                                      test_data_ids=ids["test_ids"],
+                                      data_directory_path=data_dir)
+                dm.setup()
+                pipe.scaler = dm.scaler
+                # calibration: the first N_CALIB windows of the train runs
+                held_out = {tuple(v) for v in (*ids["val_ids"], *ids["test_ids"])}
+                calib = []
+                for e, r in np.unique(np.stack([exp, run], 1), axis=0):
+                    if (int(e), int(r)) in held_out:
+                        continue
+                    cyc = dm.scaler.transform(vi[(exp == e) & (run == r)])
+                    calib += [cyc[s:s + N_CYCLES].reshape(N_CYCLES * CYCLE_LEN, 2)
+                              for s in range(0, len(cyc) - N_CYCLES + 1,
+                                             N_CYCLES)]
+                pipe.calibrate(np.stack(calib[:N_CALIB]))
+                art = pipe.save_artifact(os.path.join(tmp, "artifact"))
+                argv = ["--artifact", art, "--data-path", csv_path,
+                        "--stride", "1", "--device", device]
+                parser = score_quality.build_parser()
+                kernel_out = os.path.join(tmp, "scores.csv")
+                plain_out = os.path.join(tmp, "scores_plain.csv")
+                secs = [0.0]
 
-            # -- C6. the kernels the scorer launched -------------------------
-            _, counts = counted(score)
-            check(set(counts) == {ENC, ATTN, GEMM}
-                  and all(n > 0 for n in counts.values()),
-                  f"the scorer on the trained checkpoints launched "
-                  f"{json.dumps(counts)}, expected {ENC}, {ATTN}, {GEMM}")
-            for name in (ENC, ATTN, GEMM):
-                out["launches"][name] = (
-                    "cli_phase: score_quality on the CLIs' checkpoints",
-                    counts[name])
-            # -- C7. the same artifact on the plain path: the label gate ----
-            _, plain_counts = counted(on_plain_path(
-                lambda: score_quality.main(
-                    parser.parse_args(argv + ["--out", plain_out]))))
-            check(plain_counts == {},
-                  f"the plain scorer launched {json.dumps(plain_counts)}")
-            rows, plain = read_scores(kernel_out), read_scores(plain_out)
-            check([r[:3] for r in rows] == [r[:3] for r in plain]
-                  and len(rows) == int(np.maximum(np.unique(
-                      np.stack([exp, run], 1), axis=0,
-                      return_counts=True)[1] - N_CYCLES + 1, 0).sum()),
-                  "the scorer's windows differ from the plain scorer's, or "
-                  "from the CSV's")
-            p = np.array([[float(r[4]), float(r[5])] for r in rows])
-            q = np.array([[float(r[4]), float(r[5])] for r in plain])
-            check(bool((np.abs(p.sum(1) - 1) <= 1e-4).all()
-                       and (np.abs(q.sum(1) - 1) <= 1e-4).all()),
-                  "p_bad + p_good is not within 1e-4 of 1")
-            margin = np.abs(np.log(np.maximum(q[:, 0], 1e-6))
-                            - np.log(np.maximum(q[:, 1], 1e-6)))
-            sure = margin > LABEL_MARGIN
-            lab = np.array([r[3] for r in rows])
-            plain_lab = np.array([r[3] for r in plain])
-            check(bool((lab == plain_lab)[sure].all()),
-                  f"the scorer's labels differ from the plain path's on "
-                  f"{int((lab != plain_lab)[sure].sum())} windows outside "
-                  f"the {LABEL_MARGIN} logit margin")
-            # -- C8. times -----------------------------------------------------
-            out["windows_per_s"] = len(rows) / secs[0]
-            log(f"cli score_quality (int8, encoder_impl='fused') on the "
-                f"CLIs' checkpoints: {len(rows)} windows of {N_CYCLES} "
-                f"cycles at --stride 1 in {secs[0]:.2f} s, "
-                f"{out['windows_per_s']:.1f} windows/s end to end (artifact "
-                f"load, CSV parse, scaling, classify, writing); launches "
-                f"{json.dumps(counts)}; labels equal the plain path's on "
-                f"all {int(sure.sum())} windows with a logit margin above "
-                f"{LABEL_MARGIN} ({int((lab != plain_lab).sum())} differ "
-                f"within it), worst |dp| {float(np.abs(p - q).max()):.3e}, "
-                f"{int((lab == '0').sum())} flagged bad; gpu {smi}")
+                def score():
+                    secs[0] = host_seconds(lambda: score_quality.main(
+                        parser.parse_args(argv + ["--out", kernel_out])))
+
+                # -- C6. the kernels the scorer launched -------------------------
+                _, counts = counted(score)
+                check(set(counts) == {ENC, ATTN, GEMM}
+                      and all(n > 0 for n in counts.values()),
+                      f"the scorer on the trained checkpoints launched "
+                      f"{json.dumps(counts)}, expected {ENC}, {ATTN}, {GEMM}")
+                for name in (ENC, ATTN, GEMM):
+                    out["launches"][name] = (
+                        "cli_phase: score_quality on the CLIs' checkpoints",
+                        counts[name])
+                # -- C7. the same artifact on the plain path: the label gate ----
+                _, plain_counts = counted(on_plain_path(
+                    lambda: score_quality.main(
+                        parser.parse_args(argv + ["--out", plain_out]))))
+                check(plain_counts == {},
+                      f"the plain scorer launched {json.dumps(plain_counts)}")
+                rows, plain = read_scores(kernel_out), read_scores(plain_out)
+                check([r[:3] for r in rows] == [r[:3] for r in plain]
+                      and len(rows) == int(np.maximum(np.unique(
+                          np.stack([exp, run], 1), axis=0,
+                          return_counts=True)[1] - N_CYCLES + 1, 0).sum()),
+                      "the scorer's windows differ from the plain scorer's, or "
+                      "from the CSV's")
+                p = np.array([[float(r[4]), float(r[5])] for r in rows])
+                q = np.array([[float(r[4]), float(r[5])] for r in plain])
+                check(bool((np.abs(p.sum(1) - 1) <= 1e-4).all()
+                           and (np.abs(q.sum(1) - 1) <= 1e-4).all()),
+                      "p_bad + p_good is not within 1e-4 of 1")
+                margin = np.abs(np.log(np.maximum(q[:, 0], 1e-6))
+                                - np.log(np.maximum(q[:, 1], 1e-6)))
+                sure = margin > LABEL_MARGIN
+                lab = np.array([r[3] for r in rows])
+                plain_lab = np.array([r[3] for r in plain])
+                check(bool((lab == plain_lab)[sure].all()),
+                      f"the scorer's labels differ from the plain path's on "
+                      f"{int((lab != plain_lab)[sure].sum())} windows outside "
+                      f"the {LABEL_MARGIN} logit margin")
+                # -- C8. times ---------------------------------------------
+                out["windows_per_s"] = len(rows) / secs[0]
+                log(f"cli score_quality (int8, encoder_impl='fused') on the "
+                    f"CLIs' checkpoints: {len(rows)} windows of {N_CYCLES} "
+                    f"cycles at --stride 1 in {secs[0]:.2f} s, "
+                    f"{out['windows_per_s']:.1f} windows/s end to end (artifact "
+                    f"load, CSV parse, scaling, classify, writing); launches "
+                    f"{json.dumps(counts)}; labels equal the plain path's on "
+                    f"all {int(sure.sum())} windows with a logit margin above "
+                    f"{LABEL_MARGIN} ({int((lab != plain_lab).sum())} differ "
+                    f"within it), worst |dp| {float(np.abs(p - q).max()):.3e}, "
+                    f"{int((lab == '0').sum())} flagged bad; the plain path "
+                    f"outside the margin: {int((plain_lab[sure] == '0').sum())}"
+                    f" bad, {int((plain_lab[sure] == '1').sum())} good "
+                    f"(the CLIs with {' '.join(vq_more + more) or 'CLI_ARGS'}"
+                    f"); gpu {smi}")
+                return len(set(plain_lab[sure])) == 2
+
+            # a label gate held on one class would be met by any model
+            # that flags every window: the chain trains for more class
+            # epochs until the plain path's labels hold both
+            for vq_more, more in CLI_CHAIN_ROUNDS:
+                if serve_round(vq_more, more):
+                    break
+                log(f"cli phase: with {' '.join(vq_more + more) or 'CLI_ARGS'}"
+                    f" the plain path labels every window outside the margin "
+                    f"alike; the chain trains again, longer")
+            else:
+                check(False, f"cli phase: the plain path's labels outside "
+                             f"the margin hold one class after the chain's "
+                             f"rounds {CLI_CHAIN_ROUNDS}")
         finally:
             os.chdir(cwd)
     log(f"cli phase: {time.perf_counter() - t_phase:.1f} s (CLIs "
@@ -4151,10 +4743,13 @@ def main() -> int:
     launched.update(bf16["launched"])
 
     # every serving kernel; #9 on bf16 operands is the bf16 training
-    # step's, checked there
-    check(set(launched) == set(kernels.launches) - {FLASH_BF16},
+    # step's, checked there, and encoder_wide.cu's run at hidden widths
+    # off the bench model's, checked by shapes_phase
+    wide = (WIDE, WIDE_BF16, WIDE_ENTRY, WIDE_EXIT)
+    check(set(launched) == set(kernels.launches) - {FLASH_BF16, *wide},
           f"kernels no path launched: "
-          f"{sorted(set(kernels.launches) - {FLASH_BF16} - set(launched))}")
+          f"{sorted(set(kernels.launches) - {FLASH_BF16, *wide}
+                    - set(launched))}")
 
     with torch.inference_mode():
         x80 = xreqs[0]
@@ -4778,6 +5373,18 @@ def main() -> int:
                           for key in ("diff_share", "shape")}}
     # -- 13. models off the bench widths, and every extended kernel there --
     widths = widths_phase(smi)
+    # -- 13b. every VQ-VAE the VQ-VAE CLI can build: its hidden-1024,
+    # K=1024, D=64 model served and trained a step, and every widened
+    # kernel at the grid of shapes ---------------------------------------
+    shapes = shapes_phase(smi)
+    check(all(name in shapes["launched"] for name in wide),
+          f"shapes: no path launched "
+          f"{[n for n in wide if n not in shapes['launched']]}")
+    for name in wide:
+        launched[name] = shapes["launched"][name]
+        times[name], work[name] = shapes["times"][name], shapes["work"][name]
+        enc_err[name] = shapes["err"][name]
+    id_flips[WIDE_EXIT] = shapes["flips"][WIDE_EXIT]
     # -- 14. the training CLIs, their checkpoints scored in int8 --------
     cli = cli_phase(smi)
     # -- 15. parallel/: mesh training, serving, checkpoints; TS2Vec -------
@@ -4811,6 +5418,14 @@ def main() -> int:
              "training_launches": training["launches"][name][1],
              "training_launches_per_forward": training["launches"][name][2]}
             if name in training["launches"] else {}),
+         # the shapes phase: its paths' launches, and the shapes this
+         # run held the kernel at there (hidden widths or (K, D))
+         **({"shapes_path": shapes["launched"][name][0],
+             "shapes_launches": shapes["launched"][name][1]}
+            if name in shapes["launched"] else {}),
+         **({"shapes": [list(x) if isinstance(x, tuple) else x
+                        for x in shapes["held"][name]]}
+            if name in shapes["held"] else {}),
          # the CLI phase's scorer, over the checkpoints the CLIs wrote
          **({"cli_path": cli["launches"][name][0],
              "cli_launches": cli["launches"][name][1]}

@@ -28,10 +28,7 @@ without the ends.
 - `z_no_w`: #5's sep_conv product without its loads of w_sep (each
   chunk of w made from the one before, in registers);
 - `z_no_x`: the same product without its shared-memory loads of x (x
-  taken from w's registers);
-- `z_cols4`: the same product with another split of the work: a thread
-  takes four columns of z (one float4 of w_sep a k) on 64 / (1024 / D)
-  rows, so that one shared-memory load of x feeds 16 FMAs, not 4.
+  taken from w's registers).
 
 A variant computes another function and is only timed. Prints one line
 per kernel and variant and, last, one JSON object with the card's name
@@ -55,73 +52,20 @@ CSRC = REPO / "vq_vae_transformer_arc_welding_tpu_torch" / "csrc"
 C, N_BLOCKS, ROWS, PATCH, K, D = 512, 4, 25600, 25, 256, 32
 CALLS = 10
 
-EMBED = ("    embed_rows<C>(patches, w_pe, b_pe, out, row0, n_rows, cw, patch, "
-         "ct);\n")
+EMBED = ("    embed_rows<C, V4>(patches, w_pe, b_pe, out, row0, n_rows, cw, "
+         "patch,\n                      ct);\n")
 SEARCH = """    nearest_rows<C>(w_sep, b_sep, codebook, ids, row0, n_rows, cw, d_emb,
                     k_codes, ct);
 """
 NOINLINE = "__device__ __noinline__"
-Z_LOOP = "  for (int k0 = 0; k0 < cw; k0 += Z_CHUNK) {"
-SCAN = "  for (int k = lane; k < k_codes; k += 32) {"
-W_LOAD = "      wn[j] = __ldg(w_sep + (kn + j) * D + dcol);"
-X_LOAD = "        const float4 xv = ld4(x0 + i * RSTEP * C + k);"
-# z_cols4: the committed z section, from its first line to its store,
-# replaced whole
-Z_SECTION = ("  // row r0 + i RSTEP of A at k", "= zacc[i] + bias;\n")
-Z_COLS4 = """  constexpr int CG = D / 4;                      // column groups
-  constexpr int RG = CONSUMERS / CG;             // row groups
-  constexpr int ZR = RG >= BM ? 1 : BM / RG;     // rows a thread
-  constexpr int KC = 8;                          // k of w a chunk
-  const int c4 = 4 * (ct % CG);
-  const int rg = ct / CG;
-  float4 zacc[ZR];
-#pragma unroll
-  for (int j = 0; j < ZR; ++j) zacc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 w[KC], wn[KC];
-#pragma unroll
-  for (int j = 0; j < KC; ++j)
-    w[j] = __ldg(reinterpret_cast<const float4*>(w_sep + j * D + c4));
-  for (int k0 = 0; k0 < C; k0 += KC) {
-    const int kn = (k0 + KC) & (C - 1);
-#pragma unroll
-    for (int j = 0; j < KC; ++j)
-      wn[j] = __ldg(reinterpret_cast<const float4*>(w_sep + (kn + j) * D +
-                                                    c4));
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 4)
-#pragma unroll
-      for (int j = 0; j < ZR; ++j) {
-        const int row = rg + RG * j;
-        if (row < BM) {
-          const float4 xv = ld4(a_s + a_at<C>(row, k0 + kk));
-          const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            zacc[j].x = fmaf(xs[q], w[kk + q].x, zacc[j].x);
-            zacc[j].y = fmaf(xs[q], w[kk + q].y, zacc[j].y);
-            zacc[j].z = fmaf(xs[q], w[kk + q].z, zacc[j].z);
-            zacc[j].w = fmaf(xs[q], w[kk + q].w, zacc[j].w);
-          }
-        }
-      }
-#pragma unroll
-    for (int j = 0; j < KC; ++j) w[j] = wn[j];
-  }
-  named_sync(1, CONSUMERS);  // x in A is consumed
-
-  float* const z_s = a_s;
-  float* const cb_s = a_s + BM * D;
-  float* const esq_s = cb_s + k_codes * DP;
-  const float4 bias = __ldg(reinterpret_cast<const float4*>(b_sep + c4));
-#pragma unroll
-  for (int j = 0; j < ZR; ++j) {
-    const int row = rg + RG * j;
-    if (row < BM)
-      *reinterpret_cast<float4*>(z_s + row * D + c4) = make_float4(
-          zacc[j].x + bias.x, zacc[j].y + bias.y, zacc[j].z + bias.z,
-          zacc[j].w + bias.w);
-  }
-"""
+Z_LOOP = "      for (int k0 = 0; k0 < cw; k0 += Z_CHUNK) {"
+# the scan of a chunk's codes (csrc/code_scan.cuh, included by the source:
+# the variants carry it inline)
+SCAN = "    for (int k = lane; k < kc; k += 32) {"
+W_LOAD = """          wn[j] = live && kn + j < cw
+                      ? __ldg(w_sep + (kn + j) * d_emb + col) : 0.0f;"""
+X_LOAD = ("            const float4 xv = ld4(x0 + (h * NH + i) * RSTEP * C + "
+          "k);")
 VARIANTS = {
     "final": [],
     "no_embed": [(EMBED, "")],
@@ -130,21 +74,23 @@ VARIANTS = {
     "no_scan": [(SCAN, SCAN.replace("k < k_codes", "k < 0"))],
     "inlined": [(NOINLINE, "__device__ __forceinline__")],
     "z_no_w": [(W_LOAD, "      wn[j] = w[j] * 0.5f;")],
-    "z_no_x": [(X_LOAD, "        const float4 xv = make_float4("
+    "z_no_x": [(X_LOAD, "            const float4 xv = make_float4("
                         "w[kk + 1], w[kk], w[kk + 3], w[kk + 2 + 0 * k]);")],
-    "z_cols4": [(Z_SECTION, Z_COLS4)],
 }
 # the kernels each variant is timed on: the end it changes
 TIMED = {"final": ("entry", "exit"), "no_embed": ("entry",),
          "no_search": ("exit",), "no_z": ("exit",), "no_scan": ("exit",),
          "inlined": ("entry", "exit"), "z_no_w": ("exit",),
-         "z_no_x": ("exit",), "z_cols4": ("exit",)}
+         "z_no_x": ("exit",)}
 
 
 def variant_source(edits) -> str:
-    """encoder_edges.cu with the edits made (each must apply; an old
-    text given as (first, last) is the text from first to last)."""
-    src = (CSRC / "encoder_edges.cu").read_text()
+    """encoder_edges.cu, with csrc/code_scan.cuh inline, with the edits
+    made (each must apply; an old text given as (first, last) is the
+    text from first to last)."""
+    scan = (CSRC / "code_scan.cuh").read_text().replace("#pragma once\n", "")
+    src = (CSRC / "encoder_edges.cu").read_text().replace(
+        '#include "code_scan.cuh"\n', scan)
     for old, new in edits:
         if isinstance(old, tuple):      # (first, last): the text between
             first, last = old

@@ -43,8 +43,8 @@ CSRC = REPO / "vq_vae_transformer_arc_welding_tpu_torch" / "csrc"
 C, N_BLOCKS = 512, 4
 ROWS = (25344, 25600)
 
-EPILOGUE_1 = "        epilogue_gelu<BN, C>(a_s, v, cw, ct);\n"
-EPILOGUE_2 = """        epilogue_residual<BN, C>(a_s, blk == 0 && !Ends::ENTRY ? x : out,
+EPILOGUE_1 = "        epilogue_gelu<BN, C, V4>(a_s, v, cw, ct);\n"
+EPILOGUE_2 = """        epilogue_residual<BN, C, V4>(a_s, blk == 0 && !Ends::ENTRY ? x : out,
                                  out, v, ct, row0, n_rows, cw,
                                  blk + 1 < n_blocks,
                                  Ends::EXIT && blk + 1 == n_blocks);
@@ -71,8 +71,8 @@ __global__ void __launch_bounds__(arcweld::enc_tc::THREADS, 1)
 variant_kernel(const __grid_constant__ CUtensorMap tm_w,
                const float* __restrict__ x, const float* __restrict__ vecs,
                float* out, int n_rows, int cw, int n_blocks, int use_bn) {
-  arcweld::enc_tc::encoder_tc<512>(&tm_w, x, vecs, out, n_rows, cw,
-                                   n_blocks, use_bn);
+  arcweld::enc_tc::encoder_tc<512, true>(&tm_w, x, vecs, out, n_rows, cw,
+                                         n_blocks, use_bn);
 }
 extern "C" int run(const void* x, const void* split, const void* vecs,
                    void* out, int n_rows, int n_blocks, int use_bn,

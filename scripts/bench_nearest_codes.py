@@ -57,8 +57,8 @@ def variant_source(src: str, lanes, rows, scan: bool, per_sm: int) -> str:
     if lanes is not None:
         subs += [(r"constexpr int LANES = \d+;",
                   f"constexpr int LANES = {lanes};"),
-                 (r"return dp <= 32 \? \d+ : 2;",
-                  f"return dp <= 32 ? {rows} : 2;")]
+                 (r"return dp <= 32 \? \d+ : dp <= 64",
+                  f"return dp <= 32 ? {rows} : dp <= 64")]
     for pattern, new in subs:
         src, n = re.subn(pattern, new, src)
         if n != 1:

@@ -36,7 +36,11 @@ x, and the whole chain by the ids it leads to. The saturation monitor's
 counts (the c_fc GEMM's clip count, #2's rail count of h8) are integers
 and held exactly against the plain count on the kernel's own operands
 or output; `classify`'s rate, within 1e-3 of its plain path's (an h8
-step there moves a count by one).
+step there moves a count by one). At the shapes the VQ-VAE CLI's flags
+reach (hidden 1 to 4,096 on the tiles and csrc/encoder_wide.cu, any
+codebook with D up to 256 streamed in chunks) the same bounds hold: the
+residual stream 1e-4 of its magnitude, 1b's resblocks 1e-3, ids 0.1%,
+and of two equal codes in different chunks the first.
 """
 import numpy as np
 import pytest
@@ -149,11 +153,13 @@ def test_bf16_encoder_wrapper_rejects_bad_operands(dev):
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         fenc.fused_encoder_eval(x, w.half(), v, use_bn=False,
                                 compute_dtype=torch.bfloat16)
+    wide = fenc.MAX_WIDTH + 1        # every narrower width runs
     with pytest.raises(ValueError, match="not supported"):
-        fenc.fused_encoder_eval(x[:, :256].contiguous(), w[:, :256, :256]
-                                .contiguous().bfloat16(), v[:, :256]
-                                .contiguous(), use_bn=False,
-                                compute_dtype=torch.bfloat16)
+        fenc.fused_encoder_eval(
+            torch.zeros(8, wide, device=dev),
+            torch.zeros(2, wide, wide, device=dev, dtype=torch.bfloat16),
+            torch.zeros(10, wide, device=dev), use_bn=False,
+            compute_dtype=torch.bfloat16)
 
 
 def test_bf16_encode_indices_launches_one_chain(dev):
@@ -410,16 +416,17 @@ def test_new_encoder_wrappers_reject_bad_operands(dev):
     patches = torch.zeros(64, 25, device=dev)
     cb = torch.zeros(256, 32, device=dev)
     z = torch.zeros(64, 32, device=dev)
+    # past the widest hidden width (every narrower one runs)
+    cw = fenc.MAX_WIDTH + 1
+    xw, ww, vw = (torch.zeros(s, device=dev)
+                  for s in ((8, cw), (2, cw, cw), (10, cw)))
+    wide_cb = torch.zeros(8, fvq.MAX_D + 1, device=dev)
     before = dict(kernels.launches)
     bad = [
         lambda: fenc.resblock_eval(x.double(), w[0], w[1], v, use_bn=False),
         lambda: fenc.resblock_eval(x, w[0].t(), w[1], v, use_bn=False),
         lambda: fenc.resblock_eval(x, w[0], w[1].cpu(), v, use_bn=False),
-        # hidden 96: no multiple of 64, no tile takes it
-        lambda: fenc.resblock_eval(x[:, :96].contiguous(),
-                                   w[0, :96, :96].contiguous(),
-                                   w[1, :96, :96].contiguous(),
-                                   v[:, :96].contiguous(), use_bn=False),
+        lambda: fenc.resblock_eval(xw, ww[0], ww[1], vw, use_bn=False),
         lambda: fenc.fused_encoder_entry_eval(
             patches.t().contiguous().t(), w_pe, b_pe, w, v, use_bn=False),
         lambda: fenc.fused_encoder_entry_eval(patches, w_pe[:24], b_pe, w, v,
@@ -431,20 +438,14 @@ def test_new_encoder_wrappers_reject_bad_operands(dev):
         lambda: fenc.fused_encoder_exit_eval(x, w, v, w_sep.cpu(), b_sep, cb,
                                              use_bn=False),
         lambda: fenc.fused_encoder_exit_eval(
-            x, w, v, w_sep, b_sep,
-            torch.zeros(_exit_limit(32) + 1, 32, device=dev),
-            use_bn=False),                  # the codebook past the A tile
-        lambda: fenc.fused_encoder_exit_eval(
-            x, w, v, w_sep, b_sep, torch.zeros(256, 24, device=dev),
-            use_bn=False),                  # D not 8, 16, 32 or 64
-        # hidden 96: no multiple of 64, no tile takes it
+            x, w, v, torch.zeros(c, fvq.MAX_D + 1, device=dev),
+            torch.zeros(fvq.MAX_D + 1, device=dev), wide_cb,
+            use_bn=False),                  # D past 256
         lambda: fenc.fused_encoder_entry_eval(
-            patches, w_pe[:, :96].contiguous(), b_pe[:96].contiguous(),
-            w[:, :96, :96].contiguous(), v[:, :96].contiguous(),
-            use_bn=False),
+            patches, torch.zeros(25, cw, device=dev),
+            torch.zeros(cw, device=dev), ww, vw, use_bn=False),
         lambda: fenc.fused_encoder_exit_eval(
-            x[:, :96].contiguous(), w[:, :96, :96].contiguous(),
-            v[:, :96].contiguous(), w_sep[:96].contiguous(), b_sep, cb,
+            xw, ww, vw, torch.zeros(cw, 32, device=dev), b_sep, cb,
             use_bn=False),
         # a split of another group's shape
         lambda: fenc.fused_encoder_entry_eval(
@@ -456,8 +457,8 @@ def test_new_encoder_wrappers_reject_bad_operands(dev):
         lambda: fvq.nearest_codes_pallas(z.double(), cb),
         lambda: fvq.nearest_codes_pallas(z, cb.cpu()),
         lambda: fvq.nearest_codes_pallas(z[:, ::2], cb[:, ::2]),
-        lambda: fvq.nearest_codes_pallas(torch.zeros(4, 65, device=dev),
-                                         torch.zeros(8, 65, device=dev)),
+        lambda: fvq.nearest_codes_pallas(
+            torch.zeros(4, fvq.MAX_D + 1, device=dev), wide_cb),
     ]
     for call in bad:
         with pytest.raises(ValueError):
@@ -798,10 +799,12 @@ def test_wrapper_rejects_bad_operands(dev):
         fenc.fused_encoder_eval(x[:, ::2], w, v, use_bn=False)
     with pytest.raises(ValueError):
         fenc.fused_encoder_eval(x, w.cpu(), v, use_bn=False)
-    with pytest.raises(ValueError):      # hidden 96: no multiple of 64
-        fenc.fused_encoder_eval(x[:, :96].contiguous(),
-                                w[:, :96, :96].contiguous(),
-                                v[:, :96].contiguous(), use_bn=False)
+    wide = fenc.MAX_WIDTH + 1       # past the widest hidden width
+    with pytest.raises(ValueError, match=str(fenc.MAX_WIDTH)):
+        fenc.fused_encoder_eval(torch.zeros(8, wide, device=dev),
+                                torch.zeros(2, wide, wide, device=dev),
+                                torch.zeros(10, wide, device=dev),
+                                use_bn=False)
 
 
 def test_int8_wrappers_reject_bad_operands(dev):
@@ -1654,3 +1657,179 @@ def test_d192_model_runs_on_the_kernels(dev, fusion):
     sure = (ref[:, 0] - ref[:, 1]).abs() > 1e-3
     assert torch.isfinite(out).all()
     assert torch.equal(out.argmax(-1)[sure], ref.argmax(-1)[sure])
+
+
+# -- every VQ-VAE the VQ-VAE CLI can build: any hidden width up to 4,096,
+# any codebook with D up to 256 (csrc/encoder_tc.cuh at widths 1 to 512,
+# csrc/encoder_wide.cu above, csrc/code_scan.cuh, csrc/nearest_codes.cu)
+
+# hidden widths off the multiples of 64 (on the tiles of 128, 256 and
+# 512, rows moved a float at a time where C % 4 != 0) and above 512
+# (encoder_wide.cu); 1,000 rows, 320 at 4,096
+ANY_WIDTHS = [1, 3, 100, 130, 258, 500, 576, 640, 758, 768, 1024, 4096]
+
+
+@pytest.mark.parametrize("use_bn", [False, True])
+@pytest.mark.parametrize("c", ANY_WIDTHS)
+def test_encoder_kernels_at_any_hidden_width(dev, c, use_bn):
+    """#1 (a group of two), #3, #4 and #5 at any hidden width: the
+    residual stream within 1e-4 of the plain version's largest
+    magnitude, #5's ids within 0.1% of plain's; the kernel each width
+    runs on counted (the tile up to 512, encoder_wide.cu above)."""
+    n = 320 if c > 1024 else 1000
+    w, v = (a.to(dev) for a in _encoder_operands(c, 2, use_bn, seed=c))
+    w_pe, b_pe, w_sep, b_sep = (a.to(dev) for a in _edge_operands(c, 32))
+    g = torch.Generator().manual_seed(c)
+    x = torch.randn(n, c, generator=g).to(dev)
+    patches = torch.randn(n, 25, generator=g).to(dev)
+    tile = fenc.on_tile(c)
+    names = (("encoder_chain_f32", "resblock_f32", "encoder_entry_f32",
+              "encoder_exit_f32") if tile else
+             ("encoder_wide_f32", "encoder_wide_f32",
+              "encoder_wide_entry_f32", "encoder_wide_exit_f32"))
+    split = fenc.split_weights(w) if tile else None
+    kw = {"split": split} if tile else {}
+    for name, kfn, pfn, args, kwa in (
+            (names[0], fenc.fused_encoder_eval,
+             fenc.fused_encoder_eval_reference, (x, w, v), kw),
+            (names[1], fenc.resblock_eval,
+             fenc.fused_resblock_eval_reference, (x, w[0], w[1], v[:10]),
+             {"split": split[:2]} if tile else {}),
+            (names[2], fenc.fused_encoder_entry_eval,
+             fenc.fused_encoder_entry_eval_reference,
+             (patches, w_pe, b_pe, w, v), kw)):
+        out = _launched(name, lambda: kfn(*args, use_bn=use_bn, **kwa))
+        ref = pfn(*args, use_bn=use_bn)
+        assert out.shape == ref.shape and torch.isfinite(out).all(), name
+        assert (out - ref).abs().max() <= 1e-4 * ref.abs().max(), name
+    z = fenc.fused_encoder_eval_reference(x, w, v, use_bn=use_bn) @ w_sep \
+        + b_sep
+    cb = z.mean(0) + torch.randn(256, 32, generator=g).to(dev) * z.std(0)
+    ids = _launched(names[3], lambda: fenc.fused_encoder_exit_eval(
+        x, w, v, w_sep, b_sep, cb, use_bn=use_bn, **kw))
+    ref = fenc.fused_encoder_exit_eval_reference(x, w, v, w_sep, b_sep, cb,
+                                                 use_bn=use_bn)
+    assert (ids != ref).float().mean() <= 1e-3
+
+
+# (K, D): the VQ-VAE CLI's --num-embeddings 1024 at D 64, codebooks past
+# the old shared-memory limits, D off the padded widths, the one-code
+# book and the first K past the old limit at D = 64
+ANY_CODEBOOKS = [(1024, 64), (4096, 32), (512, 128), (256, 48), (300, 256),
+                 (1, 8), (895, 64), (2000, 200), (5, 3)]
+
+
+def _tied_codebook(z, k, d, g, dev):
+    """A codebook at the spread of z with row 5's z planted at codes
+    k // 2 + 1 and k - 1 (a later chunk) and at 0 where k > 2: the first
+    index among the equal minima is the one the ids must hold."""
+    cb = z.mean(0) + torch.randn(k, d, generator=g).to(dev) * z.std(0)
+    first = None
+    for i in sorted({k // 2 + 1, k - 1} if k > 2 else set()):
+        cb[i] = z[5]
+        first = i if first is None else first
+    return cb, first
+
+
+@pytest.mark.parametrize("k,d", ANY_CODEBOOKS)
+def test_nearest_codes_kernel_any_codebook(dev, k, d):
+    """#7 at any (K, D), D up to 256: the codebook resident where it fits
+    and streamed in chunks where it does not; ids within 0.1% of plain's,
+    and where row 5's z sits at two codes in different chunks, the first
+    of them."""
+    g = torch.Generator().manual_seed(k + d)
+    z = torch.randn(3000, d, generator=g).to(dev)
+    cb, first = _tied_codebook(z, k, d, g, dev)
+    ids = _launched("nearest_codes_f32",
+                    lambda: fvq.nearest_codes_pallas(z, cb))
+    ref = fvq.nearest_codes_pallas_reference(z, cb)
+    assert ids.dtype == torch.int32 and ids.shape == (3000,)
+    assert (ids != ref).float().mean() <= 1e-3
+    if first is not None:
+        assert int(ids[5]) == first
+
+
+@pytest.mark.parametrize("c", [512, 1024])
+@pytest.mark.parametrize("k,d", ANY_CODEBOOKS)
+def test_exit_kernel_any_codebook(dev, k, d, c):
+    """#5 at any (K, D), on the tile (512) and on encoder_wide.cu (1024):
+    the codebook streamed through shared memory in chunks; ids within
+    0.1% of plain's, the first of two equal codes in different chunks."""
+    w, v = (a.to(dev) for a in _encoder_operands(c, 1, False))
+    _, _, w_sep, b_sep = (a.to(dev) for a in _edge_operands(c, d))
+    g = torch.Generator().manual_seed(k + d)
+    x = torch.randn(700, c, generator=g).to(dev)
+    z = fenc.fused_encoder_eval_reference(x, w, v, use_bn=False) @ w_sep \
+        + b_sep
+    cb, first = _tied_codebook(z, k, d, g, dev)
+    name = "encoder_exit_f32" if fenc.on_tile(c) else "encoder_wide_exit_f32"
+    ids = _launched(name, lambda: fenc.fused_encoder_exit_eval(
+        x, w, v, w_sep, b_sep, cb, use_bn=False))
+    ref = fenc.fused_encoder_exit_eval_reference(x, w, v, w_sep, b_sep, cb,
+                                                 use_bn=False)
+    assert (ids != ref).float().mean() <= 1e-3
+    if first is not None:
+        assert int(ids[5]) == first
+
+
+@pytest.mark.parametrize("use_bn", [False, True])
+@pytest.mark.parametrize("c", [64, 100, 256, 576, 1024])
+def test_bf16_encoder_kernel_at_other_widths(dev, c, use_bn):
+    """1b off hidden 512 (encoder_wide_bf16): each resblock within 1e-3
+    of the plain bf16 version's largest magnitude, fed the same x, and
+    the bf16 rounding really there (the f32 chain further away)."""
+    w, v = (a.to(dev) for a in _encoder_operands(c, 2, use_bn, seed=c))
+    x = torch.randn(1000, c, generator=torch.Generator().manual_seed(c))
+    x = x.to(dev)
+    wb = w.bfloat16()
+    for i in range(2):
+        wi, vi = wb[2 * i:2 * i + 2], v[10 * i:10 * i + 10]
+        out = _launched("encoder_wide_bf16", lambda: fenc.fused_encoder_eval(
+            x, wi, vi, use_bn=use_bn, compute_dtype=torch.bfloat16))
+        ref = fenc.fused_encoder_eval_reference(
+            x, wi, vi, use_bn=use_bn, compute_dtype=torch.bfloat16)
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-3 * ref.abs().max()
+        f32 = fenc.fused_encoder_eval_reference(x, w[2 * i:2 * i + 2], vi,
+                                                use_bn=use_bn)
+        assert (out - ref).abs().max() < (out - f32).abs().max()
+        x = ref
+
+
+def test_hidden_1024_vqvae_paths(dev):
+    """The VQ-VAE CLI's --hidden-dim 1024 --num-embeddings 1024
+    --embedding-dim 64 model (8 resblocks, patch 25) through the encoder
+    paths on encoder_wide.cu (JAX's group rule: one resblock a call) and
+    a vq_impl='pallas' encode on #7's streamed codebook: ids within 0.1%
+    of vq.encode_indices."""
+    vq, _ = entry.build(hidden=1024, k=1024, d=64, d_model=64, n_heads=1,
+                        n_blocks=1, seed=0, device=dev)
+    packed, edges = fenc.pack_encoder(vq), fenc.pack_encoder_edges(vq)
+    assert packed.split is None and fenc.group_size_for(1024) == 1
+    cycles = torch.randn(20, 200, 2, generator=torch.Generator()
+                         .manual_seed(11)).to(dev)
+    with torch.inference_mode():
+        exact = vq.encode_indices(cycles)
+        for want, run in (
+                ({"encoder_wide_f32": 8},
+                 lambda: fenc.encode_indices_fused(vq, packed, cycles)),
+                ({"encoder_wide_entry_f32": 1, "encoder_wide_f32": 6,
+                  "encoder_wide_exit_f32": 1},
+                 lambda: fenc.encode_indices_fused_edges(vq, packed, edges,
+                                                         cycles)),
+                ({"encoder_wide_bf16": 4},
+                 lambda: fenc.encode_indices_fused(
+                     vq, fenc.pack_encoder(vq, torch.bfloat16), cycles,
+                     compute_dtype=torch.bfloat16))):
+            kernels.reset_launch_counts()
+            ids = run()
+            torch.cuda.synchronize()
+            assert {n: c for n, c in kernels.launches.items() if c} == want
+            if "encoder_wide_bf16" not in want:
+                assert (ids != exact).float().mean() <= 1e-3
+        vq.vq_impl = "pallas"
+        kernels.reset_launch_counts()
+        ids = vq.encode_indices(cycles)
+        torch.cuda.synchronize()
+        assert kernels.launches["nearest_codes_f32"] == 1
+        assert (ids != exact).float().mean() <= 1e-3

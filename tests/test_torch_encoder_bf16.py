@@ -233,14 +233,21 @@ def test_bf16_tile_walk_matches_plain_and_jax(use_bn):
 
 
 def test_bf16_pack_carries_the_staged_operand():
-    """pack_encoder(model, bf16) stages its weights once, in `split`; the
-    encoder paths hand its views to the wrapper, which on the CPU runs
-    the plain version whatever it is given."""
+    """pack_encoder(model, bf16) stages its weights once, in `split`, at
+    hidden 512, where 1b's tile reads them; at another width (the
+    hidden-64 model here) the kernel (encoder_wide_bf16) reads the bf16
+    weights as they are and `split` is None. The encoder paths hand its
+    views to the wrapper, which on the CPU runs the plain version
+    whatever it is given."""
+    from vq_vae_transformer_arc_welding_tpu_torch import entry
+    wide, _ = entry.build(hidden=C, n_res=1, k=16, d=8, d_model=64,
+                          n_heads=1, n_blocks=1, seed=0, device="cpu")
+    staged = fenc.pack_encoder(wide, torch.bfloat16)
+    assert torch.equal(staged.split, fenc.stage_weights_bf16(staged[0]))
     vq = H.port_vqvae(False)
     packed = fenc.pack_encoder(vq, torch.bfloat16)
     weights, vecs = packed
-    assert weights.dtype == torch.bfloat16
-    assert torch.equal(packed.split, fenc.stage_weights_bf16(weights))
+    assert weights.dtype == torch.bfloat16 and packed.split is None
     x = torch.randn(70, vq.hidden_dim, generator=torch.Generator()
                     .manual_seed(0))
     a = fenc.fused_encoder_eval(x, weights, vecs, use_bn=False,

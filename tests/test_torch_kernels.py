@@ -681,7 +681,8 @@ def test_kernel_sources_call_no_library_products():
     assert set(kernels.launches) == {
         "encoder_chain_f32", "encoder_chain_bf16", "resblock_f32",
         "encoder_entry_f32", "encoder_exit_f32", "nearest_codes_f32",
-        "attn_block_quant",
+        "encoder_wide_f32", "encoder_wide_bf16", "encoder_wide_entry_f32",
+        "encoder_wide_exit_f32", "attn_block_quant",
         "attn_block_quant_int8attn", "block_quant", "block_quant_int8attn",
         "mlp_quant", "qkv_attention_quant", "causal_attention_quant",
         "flash_attention_f32", "flash_attention_bf16", "decode_attn_f32",

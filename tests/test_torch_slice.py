@@ -403,6 +403,35 @@ def test_int8_classify_requires_calibration():
         _port_pipeline("f32").classify(H.windows(0))
 
 
+def test_pipeline_keeps_the_callers_tf32_flags(monkeypatch):
+    """A caller's TF32 flags (both on, as a training run may set them)
+    survive building a pipeline, calibrating it and `classify`; the
+    pipeline turns both off only inside its own calls, where the int8
+    class head's exact products need them off."""
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen = []
+    real = fbq.attn_block_quant
+
+    def recording(*a, **k):
+        seen.append(flags())
+        return real(*a, **k)
+
+    monkeypatch.setattr(fbq, "attn_block_quant", recording)
+    pipe = _port_pipeline("int8")
+    assert flags() == (True, True)
+    pipe.calibrate(H.windows(6, seed=4))
+    assert flags() == (True, True)
+    labels, probs = pipe.classify(H.windows(REQUEST))
+    assert flags() == (True, True)
+    assert labels.shape == (REQUEST,) and np.isfinite(probs).all()
+    assert seen and set(seen) == {(False, False)}
+
+
 def test_entry_pipelines_agree():
     """entry.make_pipeline (f32) and make_pipeline_quantized (int8,
     fused) on the small models: finite (B, 2) logits, labels equal."""

@@ -488,8 +488,8 @@ def test_encoder_wrappers_check_the_padded_split():
     with pytest.raises(ValueError):
         fenc._split_operand("encoder_chain_f32", tw,
                             torch.zeros(2, 2 * 64 * 64))
-    for c in (64, 192, 320, 512):
+    for c in (1, 3, 32, 64, 96, 192, 320, 512, 576, 1024, 4096):
         fenc._require_width("resblock_f32", c)
-    for c in (32, 96, 576, 1024):
-        with pytest.raises(ValueError, match="multiple of 64 from 64 to 512"):
+    for c in (0, 4097, 8192):
+        with pytest.raises(ValueError, match="1 to 4096"):
             fenc._require_width("resblock_f32", c)

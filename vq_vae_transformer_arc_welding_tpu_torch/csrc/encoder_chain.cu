@@ -13,21 +13,22 @@ namespace {
 
 using namespace arcweld::enc_tc;
 
-template <int C>
+template <int C, bool V4>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_chain_kernel(const __grid_constant__ CUtensorMap tm_w,
                      const float* __restrict__ x,
                      const float* __restrict__ vecs, float* out, int n_rows,
                      int cw, int n_blocks, int use_bn) {
-  encoder_tc<C>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn);
+  encoder_tc<C, V4>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn);
 }
 
 template <int C>
 cudaError_t launch_chain(const void* x, const void* split, const void* vecs,
                          void* out, int n_rows, int c, int n_blocks,
                          int use_bn, cudaStream_t stream) {
-  return launch<C>(encoder_chain_kernel<C>, Tile<C>::SMEM,
-                   static_cast<const float*>(x),
+  return launch<C>(rows_v4(c, vecs) ? encoder_chain_kernel<C, true>
+                                    : encoder_chain_kernel<C, false>,
+                   Tile<C>::SMEM, static_cast<const float*>(x),
                    static_cast<const float*>(split),
                    static_cast<const float*>(vecs), static_cast<float*>(out),
                    n_rows, c, n_blocks, use_bn, stream);
@@ -35,8 +36,7 @@ cudaError_t launch_chain(const void* x, const void* split, const void* vecs,
 
 }  // namespace
 
-// x, out (N, c), c a multiple of 64 from 64 to 512, on the tile of
-// tile_width(c); split: (2 n_blocks, 2, W, W) f32 at that width W, per
+// x, out (N, c), c from 1 to 512, on the tile of tile_width(c); split: (2 n_blocks, 2, W, W) f32 at that width W, per
 // matrix hi then lo in (out, in) layout, zero past c
 // (ops/fused_encoder.py::split_weights); vecs (10 n_blocks, c)
 extern "C" int encoder_chain_f32(const void* x, const void* split,

@@ -25,18 +25,18 @@
 // ends use the A tile. The entry stages the tile's BM x P patch values
 // there, writes the patch-embed rows to `out` (block 0's residual
 // source) and load_a then reads them back as A = gelu(x). The exit's
-// last epilogue leaves x in A; its rows give z, and z, the codebook and
-// its squared norms then take the A tile over. The exit's residual
-// stream between its resblocks lives in an (N, C) buffer of its
-// caller, as #1's output does.
+// last epilogue leaves x in A; its rows give z, and z and the codebook
+// in chunks with their squared norms then take the A tile over
+// (code_scan.cuh: any K, D up to 256). The exit's residual stream
+// between its resblocks lives in an (N, C) buffer of its caller, as
+// #1's output does.
 //
 // Exactness: every dot product of the ends is summed in index order
 // with FMAs, the squared norms as rounded products added in index
 // order, and d keeps the reference's order (zsq + esq) - 2 * cross.
-// Each lane scans its codes in increasing order with d < best, and the
-// reduction over lanes takes the smaller d and, on equal d, the smaller
-// index: the first index among equal minima, as the reference's argmin.
-// No finite distance (a non-finite row) gives code 0.
+// The scan keeps the first index among equal minima across lanes and
+// chunks, as the reference's argmin (code_scan.cuh). No finite
+// distance (a non-finite row) gives code 0.
 //
 // Both ends are __noinline__ and take scalars only: code inlined after
 // the chain changes the register allocation of its products. So they
@@ -44,42 +44,29 @@
 // stores shared-memory ones, and read the operands through the read-only
 // path (__ldg): behind a pointer argument either would be a generic
 // access.
+#include "code_scan.cuh"
 #include "encoder_tc.cuh"
 
 namespace {
 
 using namespace arcweld::enc_tc;
 using arcweld::gemm90::aligned;
+namespace scan = arcweld::code_scan;
 
 // patch-embed rows a thread computes in one pass (of its BM / RSTEP)
 constexpr int EMBED_ROWS = 8;
-// k of w_sep a thread holds in registers, the next chunk's loads in
-// flight while it multiplies this one's
-constexpr int Z_CHUNK = 32;
-static_assert(64 % Z_CHUNK == 0, "w_sep's chunks: whole chunks a width");
-// rows a consumer warp scans the codebook for
-constexpr int WARP_ROWS = BM / CONSUMER_WARPS;   // 8
-static_assert(WARP_ROWS * CONSUMER_WARPS == BM, "a warp's rows");
-
-// A codebook row in shared memory: D + 4 floats, so that rows stay
-// 16-byte aligned and the float4 reads of eight lanes on neighbouring
-// codes fall in different banks for every D of 8, 16, 32 or 64.
-__host__ __device__ constexpr int code_pitch(int d_emb) { return d_emb + 4; }
-
-// floats from the A tile's start the exit's epilogue takes: z, the
-// padded codebook, its norms (at most EXIT_FLOATS)
-__host__ __device__ constexpr int exit_floats(int d_emb, int k_codes) {
-  return BM * d_emb + k_codes * (code_pitch(d_emb) + 1);
-}
+static_assert(scan::ROWS == BM && scan::THREADS == CONSUMERS,
+              "the exit's scan runs on the tile's rows and consumers");
 
 // out[tile rows] = patches[tile rows] @ w_pe + b_pe, then a barrier of
-// the consumers; out and w_pe rows of cw floats. The tile's BM x P patch
+// the consumers; out and w_pe rows of cw floats (as float4s where V4,
+// encoder_tc.cuh::row4). The tile's BM x P patch
 // values are staged in the A tile (zeros past n_rows); thread ct takes
 // columns 4 (ct % TPR) .. + 3 of rows ct / TPR, + RSTEP, ..., the rows
 // and columns it later loads as A (load_a), so it reads back only its
 // own stores. k runs in index order; rows past n_rows and columns from
 // cw on are not written.
-template <int C>
+template <int C, bool V4>
 __device__ __noinline__ void embed_rows(const float* __restrict__ patches,
                                         const float* __restrict__ w_pe,
                                         const float* __restrict__ b_pe,
@@ -95,20 +82,14 @@ __device__ __noinline__ void embed_rows(const float* __restrict__ patches,
                  ? __ldg(patches + (size_t)row0 * patch + i) : 0.0f;
   named_sync(1, CONSUMERS);
   const int col = 4 * (ct % TPR);
-  const bool in_row = col < cw;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 b =
-      in_row ? __ldg(reinterpret_cast<const float4*>(b_pe + col)) : zero;
+  const float4 b = row4<V4>(b_pe, col, cw);
   for (int r = ct / TPR; r < BM; r += RSTEP * EMBED_ROWS) {
     float4 acc[EMBED_ROWS];
 #pragma unroll
     for (int q = 0; q < EMBED_ROWS; ++q)
       acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int k = 0; k < patch; ++k) {
-      const float4 w =
-          in_row ? __ldg(reinterpret_cast<const float4*>(
-                       w_pe + (size_t)k * cw + col))
-                 : zero;
+      const float4 w = row4<V4>(w_pe + (size_t)k * cw, col, cw);
 #pragma unroll
       for (int q = 0; q < EMBED_ROWS; ++q) {
         const float p = a_s[(r + RSTEP * q) * patch + k];
@@ -121,57 +102,57 @@ __device__ __noinline__ void embed_rows(const float* __restrict__ patches,
 #pragma unroll
     for (int q = 0; q < EMBED_ROWS; ++q) {
       const int row = row0 + r + RSTEP * q;
-      if (row < n_rows && in_row)
-        *reinterpret_cast<float4*>(out + (size_t)row * cw + col) =
-            make_float4(acc[q].x + b.x, acc[q].y + b.y, acc[q].z + b.z,
-                        acc[q].w + b.w);
+      if (row < n_rows)
+        put4<V4>(out + (size_t)row * cw, col, cw,
+                 make_float4(acc[q].x + b.x, acc[q].y + b.y,
+                             acc[q].z + b.z, acc[q].w + b.w));
     }
   }
   named_sync(1, CONSUMERS);  // the patches are read; load_a writes A
 }
 
-// ids[tile rows] = the nearest code of x @ w_sep + b_sep, for the
-// tile's rows x in the A tile (swizzled, a_at; zeros past n_rows), with
-// a (K, D) codebook, exit_floats(D, K) <= EXIT_FLOATS, w_sep (cw, D):
-// z sums x's first cw columns (A is zero past them). D is a template
-// constant, so that z's loops are unrolled and every shared address
-// past a thread's first is an immediate offset: with D a runtime value
-// the z loop ran several times slower on an H100.
-// z: thread ct takes column ct % D of rows ct / D, + 256 / D, ... (D / 4
-// rows); then z (BM x D) goes to the front of the A tile, the codebook
-// (rows of code_pitch(D)) and its K squared norms after it, and each
-// consumer warp scans the codebook for its WARP_ROWS rows.
-template <int C, int D>
-__device__ __forceinline__ void nearest_rows_d(
-    const float* __restrict__ w_sep, const float* __restrict__ b_sep,
-    const float* __restrict__ codebook, int* __restrict__ ids, int row0,
-    int n_rows, int cw, int k_codes, int ct) {
-  constexpr int RSTEP = CONSUMERS / D;   // rows between a thread's z rows
+// z for D up to 64 (one slice): thread ct takes column ct % DP of rows
+// ct / DP, + 256 / DP, ... and keeps them in registers until x in the A
+// tile is consumed, then stores them (plus b_sep) in z_s (BM x DP).
+// EXACT: d_emb == DP and cw a multiple of the chunk, so w_sep's rows are
+// read at a compile-time stride with no bound to test.
+template <int C, int DP, bool EXACT>
+__device__ __forceinline__ void z_one_slice(const float* __restrict__ w_sep,
+                                            const float* __restrict__ b_sep,
+                                            float* z_s, int cw, int d_emb,
+                                            int ct) {
+  constexpr int RSTEP = CONSUMERS / DP;  // rows between a thread's z rows
   constexpr int NZ = BM / RSTEP;         // its z rows
-  constexpr int DP = code_pitch(D);
-  static_assert(NZ * RSTEP == BM && D % 8 == 0, "z's rows");
+  // k of w_sep a thread holds in registers, the next chunk's loads in
+  // flight while it multiplies this one's
+  constexpr int Z_CHUNK = 32;
   float* const a_s = a_tile<C>();
-  const int dcol = ct % D;
-  const int r0 = ct / D;
+  const int dcol = ct % DP;
+  const int r0 = ct / DP;
   // row r0 + i RSTEP of A at k: a_at's swizzle is r0's, flipped in
   // bit 4 for odd i where RSTEP is 4
   const float* const x0 = a_s + r0 * C;
   const int sw = (r0 & 7) << 2;
+  const int stride = EXACT ? DP : d_emb;
+  const bool live = EXACT || dcol < d_emb;
   float zacc[NZ];
 #pragma unroll
   for (int i = 0; i < NZ; ++i) zacc[i] = 0.0f;
   // the chain's weights have swept w_sep out of L1, so its rows come
   // from L2: Z_CHUNK k of them in registers and the next chunk's loads
   // in flight behind the products (the last round reloads chunk 0,
-  // unused)
+  // unused); rows from cw on are zeros, as A's columns are
   float w[Z_CHUNK], wn[Z_CHUNK];
 #pragma unroll
-  for (int j = 0; j < Z_CHUNK; ++j) w[j] = __ldg(w_sep + j * D + dcol);
+  for (int j = 0; j < Z_CHUNK; ++j)
+    w[j] = EXACT || (live && j < cw) ? __ldg(w_sep + j * stride + dcol)
+                                     : 0.0f;
   for (int k0 = 0; k0 < cw; k0 += Z_CHUNK) {
     const int kn = k0 + Z_CHUNK < cw ? k0 + Z_CHUNK : 0;
 #pragma unroll
     for (int j = 0; j < Z_CHUNK; ++j)
-      wn[j] = __ldg(w_sep + (kn + j) * D + dcol);
+      wn[j] = EXACT || (live && kn + j < cw)
+                  ? __ldg(w_sep + (kn + j) * stride + dcol) : 0.0f;
 #pragma unroll
     for (int kk = 0; kk < Z_CHUNK; kk += 4) {
       const int ke = k0 + (kk ^ sw), ko = k0 + (kk ^ sw ^ 16);
@@ -189,104 +170,114 @@ __device__ __forceinline__ void nearest_rows_d(
     for (int j = 0; j < Z_CHUNK; ++j) w[j] = wn[j];
   }
   named_sync(1, CONSUMERS);  // x in A is consumed
-
-  float* const z_s = a_s;
-  float* const cb_s = a_s + BM * D;
-  float* const esq_s = cb_s + k_codes * DP;
-  const float bias = __ldg(b_sep + dcol);
+  const float bias = live ? __ldg(b_sep + dcol) : 0.0f;
 #pragma unroll
   for (int i = 0; i < NZ; ++i)
-    z_s[(r0 + i * RSTEP) * D + dcol] = zacc[i] + bias;
-  // D is a multiple of 8: a float4 never straddles two codes
-  const float4* cb4 = reinterpret_cast<const float4*>(codebook);
-#pragma unroll 4
-  for (int i = ct; i < k_codes * (D / 4); i += CONSUMERS) {
-    const int e = 4 * i;
-    *reinterpret_cast<float4*>(cb_s + (e / D) * DP + e % D) = __ldg(cb4 + i);
-  }
-  named_sync(1, CONSUMERS);  // z_s and cb_s are complete
-  for (int k = ct; k < k_codes; k += CONSUMERS) {
-    float s = 0.0f;
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      const float e = cb_s[k * DP + dd];
-      s = __fadd_rn(s, __fmul_rn(e, e));
-    }
-    esq_s[k] = s;
-  }
-  const int warp = ct / 32;
-  const int lane = ct % 32;
-  const float* z_w = z_s + warp * WARP_ROWS * D;   // the warp's rows
-  float zsq[WARP_ROWS];
-#pragma unroll
-  for (int q = 0; q < WARP_ROWS; ++q) {
-    float s = 0.0f;
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      const float zv = z_w[q * D + dd];
-      s = __fadd_rn(s, __fmul_rn(zv, zv));
-    }
-    zsq[q] = s;
-  }
-  named_sync(1, CONSUMERS);  // esq_s is complete
-
-  float best[WARP_ROWS];
-  int best_k[WARP_ROWS];
-#pragma unroll
-  for (int q = 0; q < WARP_ROWS; ++q) {
-    best[q] = INFINITY;
-    best_k[q] = k_codes;
-  }
-  for (int k = lane; k < k_codes; k += 32) {
-    const float* e = cb_s + k * DP;
-    float cross[WARP_ROWS];
-#pragma unroll
-    for (int q = 0; q < WARP_ROWS; ++q) cross[q] = 0.0f;
-    // not unrolled: the warp's z rows (8 D floats) are the same for every
-    // code, and an unrolled loop hoists their loads out of the scan into
-    // registers, which spill
-#pragma unroll 1
-    for (int dd = 0; dd < D; dd += 4) {
-      const float4 ev = ld4(e + dd);
-#pragma unroll
-      for (int q = 0; q < WARP_ROWS; ++q) {
-        const float4 zv = ld4(z_w + q * D + dd);
-        cross[q] = fmaf(zv.x, ev.x, cross[q]);
-        cross[q] = fmaf(zv.y, ev.y, cross[q]);
-        cross[q] = fmaf(zv.z, ev.z, cross[q]);
-        cross[q] = fmaf(zv.w, ev.w, cross[q]);
-      }
-    }
-    const float es = esq_s[k];
-#pragma unroll
-    for (int q = 0; q < WARP_ROWS; ++q) {
-      const float dist = __fadd_rn(__fadd_rn(zsq[q], es),
-                                   __fmul_rn(-2.0f, cross[q]));
-      if (dist < best[q]) {
-        best[q] = dist;
-        best_k[q] = k;
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < WARP_ROWS; ++q) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, best[q], o);
-      const int ok = __shfl_xor_sync(0xffffffffu, best_k[q], o);
-      if (od < best[q] || (od == best[q] && ok < best_k[q])) {
-        best[q] = od;
-        best_k[q] = ok;
-      }
-    }
-    const int row = row0 + warp * WARP_ROWS + q;
-    // no distance below +inf (a non-finite row): code 0
-    if (lane == 0 && row < n_rows)
-      ids[row] = best_k[q] < k_codes ? best_k[q] : 0;
-  }
+    z_s[(r0 + i * RSTEP) * DP + dcol] = zacc[i] + bias;
 }
 
-// nearest_rows_d for the exit's D: one call site in the tile's body
+// ids[tile rows] = the nearest code of x @ w_sep + b_sep, for the
+// tile's rows x in the A tile (swizzled, a_at; zeros past n_rows), with
+// a (K, D) codebook, w_sep (cw, D): z sums x's first cw columns (A is
+// zero past them). D is padded to DP (code_scan::padded), a template
+// constant, so that z's loops are unrolled and every shared address
+// past a thread's first is an immediate offset: with D a runtime value
+// the z loop ran several times slower on an H100.
+// z in slices of DS = min(DP, 64) columns: thread ct takes column
+// ct % DS of rows ct / DS, + 256 / DS, ... of each slice. Up to DP = 64
+// (one slice) all its z values stay in registers until x is consumed,
+// w_sep's rows double-buffered in registers. With more slices (DP 128
+// and 256) z is made in four parts of the rows, each stored once every
+// thread has read its x rows, 8 of K at a time and w_sep's rows not
+// prefetched: the registers of 64 z values, or of a prefetch a slice,
+// spilled. The A tile allows it where a z row (DP floats) is no longer
+// than an x row (C): part h's z rows then land on x rows parts 0 .. h
+// have consumed. z goes to the A tile's front (past the A tile at
+// C = 128, DP = 256, in the rest of the exit's EXIT_FLOATS), and the
+// codebook streams through what follows it (code_scan::scan_codes).
+template <int C, int DP>
+__device__ __forceinline__ void nearest_rows_d(
+    const float* __restrict__ w_sep, const float* __restrict__ b_sep,
+    const float* __restrict__ codebook, int* __restrict__ ids, int row0,
+    int n_rows, int cw, int d_emb, int k_codes, int ct) {
+  constexpr int DS = DP < 64 ? DP : 64;  // z columns a slice
+  constexpr int S = DP / DS;             // slices
+  constexpr int RSTEP = CONSUMERS / DS;  // rows between a thread's z rows
+  constexpr int NZ = BM / RSTEP;         // its z rows a slice
+  constexpr int Z_AT = DP <= C ? 0 : Tile<C>::A_FLOATS;   // z's place
+  static_assert(NZ * RSTEP == BM && DP % 8 == 0, "z's rows");
+  static_assert(Z_AT + BM * DP < EXIT_FLOATS, "z within the exit's tile");
+  float* const a_s = a_tile<C>();
+  float* const z_s = a_s + Z_AT;
+  if constexpr (S == 1) {
+    // the rows of w_sep as z's loop reads them: at D = DP and a width of
+    // whole chunks (the bench model's) a compile-time stride and no
+    // bound to test, as the loop had before it took other shapes
+    if (d_emb == DP && cw % 32 == 0)
+      z_one_slice<C, DP, true>(w_sep, b_sep, z_s, cw, d_emb, ct);
+    else
+      z_one_slice<C, DP, false>(w_sep, b_sep, z_s, cw, d_emb, ct);
+  } else {
+    constexpr int PARTS = 4;
+    constexpr int NH = NZ / PARTS;       // a thread's z rows a part
+    static_assert(RSTEP == 4 && NH * PARTS == NZ && NH % 2 == 0,
+                  "a part keeps the swizzle");
+    const int dcol = ct % DS;
+    const int r0 = ct / DS;
+    // row r0 + i RSTEP of A at k: a_at's swizzle is r0's, flipped in
+    // bit 4 for odd i
+    const float* const x0 = a_s + r0 * C;
+    const int sw = (r0 & 7) << 2;
+#pragma unroll 1
+    for (int h = 0; h < PARTS; ++h) {
+      const float* const xh = x0 + h * NH * RSTEP * C;
+      float zacc[S][NH];
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int i = 0; i < NH; ++i) zacc[s][i] = 0.0f;
+      for (int k0 = 0; k0 < cw; k0 += 8) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int col = s * DS + dcol;
+          const bool live = col < d_emb;
+          float w[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            w[j] = live && k0 + j < cw
+                       ? __ldg(w_sep + (k0 + j) * d_emb + col) : 0.0f;
+#pragma unroll
+          for (int kk = 0; kk < 8; kk += 4) {
+            const int ke = (k0 + kk) ^ sw, ko = ke ^ 16;
+#pragma unroll
+            for (int i = 0; i < NH; ++i) {
+              const float4 xv = ld4(xh + i * RSTEP * C + (i % 2 ? ko : ke));
+              zacc[s][i] = fmaf(xv.x, w[kk], zacc[s][i]);
+              zacc[s][i] = fmaf(xv.y, w[kk + 1], zacc[s][i]);
+              zacc[s][i] = fmaf(xv.z, w[kk + 2], zacc[s][i]);
+              zacc[s][i] = fmaf(xv.w, w[kk + 3], zacc[s][i]);
+            }
+          }
+        }
+      }
+      named_sync(1, CONSUMERS);  // this part's x rows are consumed
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int col = s * DS + dcol;
+        const float bias = col < d_emb ? __ldg(b_sep + col) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < NH; ++i)
+          z_s[(r0 + (h * NH + i) * RSTEP) * DP + col] = zacc[s][i] + bias;
+      }
+    }
+  }
+  scan::scan_codes<DP>(z_s, z_s + BM * DP,
+                       scan::chunk_codes(DP, EXIT_FLOATS - Z_AT), codebook,
+                       ids, row0, n_rows, d_emb, k_codes, ct);
+}
+
+// nearest_rows_d for the exit's padded D: one call site in the tile's
+// body
 template <int C>
 __device__ __noinline__ void nearest_rows(const float* __restrict__ w_sep,
                                           const float* __restrict__ b_sep,
@@ -294,19 +285,25 @@ __device__ __noinline__ void nearest_rows(const float* __restrict__ w_sep,
                                           int* __restrict__ ids, int row0,
                                           int n_rows, int cw, int d_emb,
                                           int k_codes, int ct) {
-  switch (d_emb) {  // 8, 16, 32 or 64 (encoder_exit_f32 checks)
+  switch (scan::padded(d_emb)) {  // d_emb 1 .. 256 (encoder_exit_f32)
     case 8:
       return nearest_rows_d<C, 8>(w_sep, b_sep, codebook, ids, row0, n_rows,
-                                  cw, k_codes, ct);
+                                  cw, d_emb, k_codes, ct);
     case 16:
       return nearest_rows_d<C, 16>(w_sep, b_sep, codebook, ids, row0,
-                                   n_rows, cw, k_codes, ct);
+                                   n_rows, cw, d_emb, k_codes, ct);
     case 32:
       return nearest_rows_d<C, 32>(w_sep, b_sep, codebook, ids, row0,
-                                   n_rows, cw, k_codes, ct);
-    default:
+                                   n_rows, cw, d_emb, k_codes, ct);
+    case 64:
       return nearest_rows_d<C, 64>(w_sep, b_sep, codebook, ids, row0,
-                                   n_rows, cw, k_codes, ct);
+                                   n_rows, cw, d_emb, k_codes, ct);
+    case 128:
+      return nearest_rows_d<C, 128>(w_sep, b_sep, codebook, ids, row0,
+                                    n_rows, cw, d_emb, k_codes, ct);
+    default:
+      return nearest_rows_d<C, 256>(w_sep, b_sep, codebook, ids, row0,
+                                    n_rows, cw, d_emb, k_codes, ct);
   }
 }
 
@@ -318,9 +315,11 @@ struct Entry {
   const float* w_pe;
   const float* b_pe;
   int patch;
+  template <bool V4>
   __device__ __forceinline__ void embed(float* out, int row0, int n_rows,
                                         int cw, int ct) const {
-    embed_rows<C>(patches, w_pe, b_pe, out, row0, n_rows, cw, patch, ct);
+    embed_rows<C, V4>(patches, w_pe, b_pe, out, row0, n_rows, cw, patch,
+                      ct);
   }
   __device__ __forceinline__ void search(int, int, int, int) const {}
 };
@@ -334,6 +333,7 @@ struct Exit {
   const float* codebook;
   int* ids;
   int d_emb, k_codes;
+  template <bool V4>
   __device__ __forceinline__ void embed(float*, int, int, int, int) const {}
   __device__ __forceinline__ void search(int row0, int n_rows, int cw,
                                          int ct) const {
@@ -342,22 +342,22 @@ struct Exit {
   }
 };
 
-template <int C>
+template <int C, bool V4>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_entry_kernel(const __grid_constant__ CUtensorMap tm_w,
                      const float* __restrict__ x,
                      const float* __restrict__ vecs, float* out, int n_rows,
                      int cw, int n_blocks, int use_bn, const Entry<C> ends) {
-  encoder_tc<C>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends);
+  encoder_tc<C, V4>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends);
 }
 
-template <int C>
+template <int C, bool V4>
 __global__ void __launch_bounds__(THREADS, 1)
 encoder_exit_kernel(const __grid_constant__ CUtensorMap tm_w,
                     const float* __restrict__ x,
                     const float* __restrict__ vecs, float* out, int n_rows,
                     int cw, int n_blocks, int use_bn, const Exit<C> ends) {
-  encoder_tc<C>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends);
+  encoder_tc<C, V4>(&tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends);
 }
 
 template <int C>
@@ -371,7 +371,9 @@ cudaError_t launch_entry(const void* patches, const void* w_pe,
   const Entry<C> ends{static_cast<const float*>(patches),
                       static_cast<const float*>(w_pe),
                       static_cast<const float*>(b_pe), patch};
-  return launch<C>(encoder_entry_kernel<C>, Tile<C>::SMEM, nullptr,
+  return launch<C>(rows_v4(c, vecs) ? encoder_entry_kernel<C, true>
+                                    : encoder_entry_kernel<C, false>,
+                   Tile<C>::SMEM, nullptr,
                    static_cast<const float*>(split),
                    static_cast<const float*>(vecs), static_cast<float*>(out),
                    n_rows, c, n_blocks, use_bn, stream, ends);
@@ -387,7 +389,9 @@ cudaError_t launch_exit(const void* x, const void* split, const void* vecs,
                      static_cast<const float*>(b_sep),
                      static_cast<const float*>(codebook),
                      static_cast<int*>(ids), d_emb, k_codes};
-  return launch<C>(encoder_exit_kernel<C>, Tile<C>::SMEM_EXIT,
+  return launch<C>(rows_v4(c, vecs) ? encoder_exit_kernel<C, true>
+                                    : encoder_exit_kernel<C, false>,
+                   Tile<C>::SMEM_EXIT,
                    static_cast<const float*>(x),
                    static_cast<const float*>(split),
                    static_cast<const float*>(vecs), static_cast<float*>(resid),
@@ -397,7 +401,8 @@ cudaError_t launch_exit(const void* x, const void* split, const void* vecs,
 }  // namespace
 
 // patches (N, patch); w_pe (patch, c) and b_pe (c,), 16-byte aligned;
-// split (2 n_blocks, 2 W W) and c as encoder_chain_f32's; out (N, c)
+// split (2 n_blocks, 2 W W) and c (1 to 512) as encoder_chain_f32's;
+// out (N, c)
 extern "C" int encoder_entry_f32(const void* patches, const void* w_pe,
                                  const void* b_pe, const void* split,
                                  const void* vecs, void* out, int n_rows,
@@ -421,17 +426,15 @@ extern "C" int encoder_entry_f32(const void* patches, const void* w_pe,
 }
 
 // x (N, c); split as the entry's; w_sep (c, D), b_sep (D,); codebook
-// (K, D), 16-byte aligned; resid (N, c), the residual stream between the
-// group's resblocks; ids (N,) int32
+// (K, D), any K and D from 1 to 256, 16-byte aligned; resid (N, c), the
+// residual stream between the group's resblocks; ids (N,) int32
 extern "C" int encoder_exit_f32(const void* x, const void* split,
                                 const void* vecs, const void* w_sep,
                                 const void* b_sep, const void* codebook,
                                 void* resid, void* ids, int n_rows, int c,
                                 int n_blocks, int use_bn, int d_emb,
                                 int k_codes, void* stream) {
-  if (!width_ok(c) ||
-      (d_emb != 8 && d_emb != 16 && d_emb != 32 && d_emb != 64) ||
-      k_codes < 1 || exit_floats(d_emb, k_codes) > EXIT_FLOATS)
+  if (!width_ok(c) || d_emb < 1 || d_emb > scan::MAX_D || k_codes < 1)
     return cudaErrorInvalidValue;
   if (!aligned(codebook, 16)) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

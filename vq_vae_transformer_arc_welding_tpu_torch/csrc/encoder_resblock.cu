@@ -18,20 +18,21 @@ namespace {
 
 using namespace arcweld::enc_tc;
 
-template <int C>
+template <int C, bool V4>
 __global__ void __launch_bounds__(THREADS, 1)
 resblock_kernel(const __grid_constant__ CUtensorMap tm_w,
                 const float* __restrict__ x, const float* __restrict__ vec,
                 float* out, int n_rows, int cw, int n_blocks, int use_bn) {
-  encoder_tc<C>(&tm_w, x, vec, out, n_rows, cw, n_blocks, use_bn);
+  encoder_tc<C, V4>(&tm_w, x, vec, out, n_rows, cw, n_blocks, use_bn);
 }
 
 template <int C>
 cudaError_t launch_resblock(const void* x, const void* split,
                             const void* vec, void* out, int n_rows, int c,
                             int use_bn, cudaStream_t stream) {
-  return launch<C>(resblock_kernel<C>, Tile<C>::SMEM,
-                   static_cast<const float*>(x),
+  return launch<C>(rows_v4(c, vec) ? resblock_kernel<C, true>
+                                   : resblock_kernel<C, false>,
+                   Tile<C>::SMEM, static_cast<const float*>(x),
                    static_cast<const float*>(split),
                    static_cast<const float*>(vec), static_cast<float*>(out),
                    n_rows, c, 1, use_bn, stream);

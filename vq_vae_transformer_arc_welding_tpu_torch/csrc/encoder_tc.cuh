@@ -42,10 +42,15 @@
 // tiles (below).
 //
 // Widths: the tile is a template of its width C, instantiated at 128,
-// 256 and 512 (Tile below); every hidden width that is a multiple of 64
-// from 64 to 512 runs on the narrowest that holds it, padded with zero
-// columns (64 and 128 on 128, 192 and 256 on 256, 320 to 512 on 512).
-// The numbers below are the 512 tile's.
+// 256 and 512 (Tile below); every hidden width from 1 to 512 runs on the
+// narrowest that holds it, padded with zero columns (1 to 128 on 128,
+// 129 to 256 on 256, 257 to 512 on 512). x, out and the vector rows keep
+// the true width cw: where cw is a multiple of 4 (and the vector rows
+// start on 16 bytes) the passes move rows as float4s, as at the widths
+// the tile was first written for; at any other width they move them a
+// float at a time (`V4` below), since a row then need not start on 16
+// bytes. Widths above 512 run on csrc/encoder_wide.cu. The numbers
+// below are the 512 tile's.
 //
 // Design, and the budget of one block (one per SM, 227 KB of shared
 // memory, 65,536 registers):
@@ -123,8 +128,8 @@ constexpr int MAX_C = 512;                 // the widest tile
 constexpr int EXIT_FLOATS = BM * MAX_C;
 
 // The tile of width C (128, 256 or 512): C outputs, two warpgroups of
-// C / 2 (wgmma m64n(C/2)k8). A hidden width cw (a multiple of 64 from 64
-// to 512) runs on the narrowest tile that holds it (tile_width): the
+// C / 2 (wgmma m64n(C/2)k8). A hidden width cw (1 to 512) runs on the
+// narrowest tile that holds it (tile_width): the
 // pack's weights and vector rows are zero past cw (split_weights at C),
 // x and out keep cw columns, and the passes read and write only those.
 // Columns cw .. C - 1 of A stay exactly 0 through every resblock: zero
@@ -161,10 +166,13 @@ __host__ __device__ constexpr int tile_width(int c) {
   return c <= 128 ? 128 : c <= 256 ? 256 : 512;
 }
 // setmaxnreg moves registers within what the block was launched with,
-// 65536 / THREADS a thread in steps of 8; a request beyond it waits for
-// ever
+// 65536 / THREADS a thread in steps of 8 where ptxas gives the kernel
+// all it may (__launch_bounds__(THREADS, 1)); a request beyond it waits
+// for ever. Every kernel on the tile (#1, #3, #4, #5 at each width) is
+// launched only where ptxas gave it exactly REGS (`launch`).
+constexpr int REGS = 65536 / THREADS / 8 * 8;   // 168
 static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
-                  THREADS * (65536 / THREADS / 8 * 8),
+                  THREADS * REGS,
               "setmaxnreg asks for more registers than the block holds");
 // the A tile's f32 at (row, k): 16-byte chunks XOR row % 8
 template <int C>
@@ -405,6 +413,33 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// Columns col .. col + 3 of a row p of cw floats, zeros from cw on. V4:
+// cw is a multiple of 4 and p starts on 16 bytes, so one float4 that
+// starts below cw lies within the row; otherwise a float at a time.
+template <bool V4>
+__device__ __forceinline__ float4 row4(const float* p, int col, int cw) {
+  if (V4) return col < cw ? ld4(p + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < cw) v.x = p[col];
+  if (col + 1 < cw) v.y = p[col + 1];
+  if (col + 2 < cw) v.z = p[col + 2];
+  if (col + 3 < cw) v.w = p[col + 3];
+  return v;
+}
+
+// v into columns col .. col + 3 of a row p of cw floats, none from cw on
+template <bool V4>
+__device__ __forceinline__ void put4(float* p, int col, int cw, float4 v) {
+  if (V4) {
+    if (col < cw) *reinterpret_cast<float4*>(p + col) = v;
+    return;
+  }
+  if (col < cw) p[col] = v.x;
+  if (col + 1 < cw) p[col + 1] = v.y;
+  if (col + 2 < cw) p[col + 2] = v.z;
+  if (col + 3 < cw) p[col + 3] = v.w;
+}
+
 __device__ __forceinline__ float4 gelu4(float4 v) {
   return make_float4(gelu_erf(v.x), gelu_erf(v.y), gelu_erf(v.z),
                      gelu_erf(v.w));
@@ -414,7 +449,7 @@ __device__ __forceinline__ float4 gelu4(float4 v) {
 // on (x's row width). x may be the output buffer, which the entry's
 // prologue has just written (each thread reads back its own stores): no
 // __restrict__, no non-coherent loads.
-template <int C>
+template <int C, bool V4>
 __device__ __forceinline__ void load_a(float* __restrict__ a_s,
                                        const float* x, int row0, int n_rows,
                                        int cw, int ct) {
@@ -423,8 +458,8 @@ __device__ __forceinline__ void load_a(float* __restrict__ a_s,
 #pragma unroll 4
   for (int row = ct / TPR; row < BM; row += RSTEP) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + row < n_rows && col < cw)
-      v = ld4(x + (size_t)(row0 + row) * cw + col);
+    if (row0 + row < n_rows)
+      v = row4<V4>(x + (size_t)(row0 + row) * cw, col, cw);
     *reinterpret_cast<float4*>(a_s + a_at<C>(row, col)) = gelu4(v);
   }
 }
@@ -438,18 +473,18 @@ struct Cols {
 };
 
 // vr: rows of cw floats; zeros from column cw on
-template <bool BN>
+template <bool BN, bool V4>
 __device__ __forceinline__ Cols cols_of(const float* __restrict__ vr,
                                         int col, int cw) {
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
   Cols k{z, z, z, z, z};
   if (col >= cw) return k;
-  k.b = ld4(vr + col);
+  k.b = row4<V4>(vr, col, cw);
   if (BN) {
-    k.mean = ld4(vr + cw + col);
-    k.var = ld4(vr + 2 * cw + col);
-    k.sc = ld4(vr + 3 * cw + col);
-    k.bi = ld4(vr + 4 * cw + col);
+    k.mean = row4<V4>(vr + cw, col, cw);
+    k.var = row4<V4>(vr + 2 * cw, col, cw);
+    k.sc = row4<V4>(vr + 3 * cw, col, cw);
+    k.bi = row4<V4>(vr + 4 * cw, col, cw);
   }
   return k;
 }
@@ -486,13 +521,13 @@ __device__ __forceinline__ void stash(const float (&acc)[Tile<C>::ACC],
 }
 
 // epilogue 1 on the stashed c1: A = gelu(c1 + b1 [-> BN1])
-template <bool BN, int C>
+template <bool BN, int C, bool V4>
 __device__ __forceinline__ void epilogue_gelu(float* __restrict__ a_s,
                                               const float* __restrict__ v,
                                               int cw, int ct) {
   constexpr int TPR = Tile<C>::TPR, RSTEP = Tile<C>::RSTEP;
   const int col = 4 * (ct % TPR);
-  const Cols k = cols_of<BN>(v, col, cw);
+  const Cols k = cols_of<BN, V4>(v, col, cw);
 #pragma unroll 4
   for (int row = ct / TPR; row < BM; row += RSTEP) {
     float4* p = reinterpret_cast<float4*>(a_s + a_at<C>(row, col));
@@ -506,7 +541,7 @@ __device__ __forceinline__ void epilogue_gelu(float* __restrict__ a_s,
 // zeros past n_rows, and nothing goes to out. src is read a batch of
 // rows ahead of the stores to out (which it may be). src, out: rows of
 // cw floats, read and written below column cw only.
-template <bool BN, int C>
+template <bool BN, int C, bool V4>
 __device__ __forceinline__ void epilogue_residual(
     float* __restrict__ a_s, const float* src, float* out,
     const float* __restrict__ v, int ct, int row0, int n_rows, int cw,
@@ -515,15 +550,14 @@ __device__ __forceinline__ void epilogue_residual(
   constexpr int TPR = Tile<C>::TPR, RSTEP = Tile<C>::RSTEP;
   static_assert(BM % (RSTEP * BATCH) == 0, "a thread's rows in batches");
   const int col = 4 * (ct % TPR);
-  const bool in_row = col < cw;
-  const Cols k = cols_of<BN>(v + 5 * cw, col, cw);
+  const Cols k = cols_of<BN, V4>(v + 5 * cw, col, cw);
   for (int r = ct / TPR; r < BM; r += RSTEP * BATCH) {
     float4 xo[BATCH];
 #pragma unroll
     for (int q = 0; q < BATCH; ++q) {
       const int row = r + RSTEP * q;
-      xo[q] = row0 + row < n_rows && in_row
-                  ? ld4(src + (size_t)(row0 + row) * cw + col)
+      xo[q] = row0 + row < n_rows
+                  ? row4<V4>(src + (size_t)(row0 + row) * cw, col, cw)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
@@ -535,9 +569,7 @@ __device__ __forceinline__ void epilogue_residual(
       if (row0 + row < n_rows) {
         xn = make_float4(xo[q].x + y.x, xo[q].y + y.y, xo[q].z + y.z,
                          xo[q].w + y.w);
-        if (!stage && in_row)
-          *reinterpret_cast<float4*>(out + (size_t)(row0 + row) * cw + col) =
-              xn;
+        if (!stage) put4<V4>(out + (size_t)(row0 + row) * cw, col, cw, xn);
       }
       if (more)
         *p = gelu4(xn);
@@ -564,8 +596,9 @@ __device__ __forceinline__ float* a_tile() {
 }
 
 // What a tile does before and after its resblocks. With ENTRY, `embed`
-// writes the tile's input rows (patch-embed) to out and ends on a
-// barrier of the consumers, and the kernel's x is not read; with EXIT
+// (a template of the passes' V4) writes the tile's input rows
+// (patch-embed) to out and ends on a barrier of the consumers, and the
+// kernel's x is not read; with EXIT
 // the last resblock leaves x in the A tile (epilogue_residual's
 // `stage`), `search` reads it there and may use the whole A tile
 // (a_tile(), and the exit up to EXIT_FLOATS from there). Both are called
@@ -573,6 +606,7 @@ __device__ __forceinline__ float* a_tile() {
 // and the row width cw. NoEnds is #1's and #3's: neither.
 struct NoEnds {
   static constexpr bool ENTRY = false, EXIT = false;
+  template <bool V4>
   __device__ __forceinline__ void embed(float*, int, int, int, int) const {}
   __device__ __forceinline__ void search(int, int, int, int) const {}
 };
@@ -582,7 +616,7 @@ struct NoEnds {
 // ring's stages in order) as rows of 32 f32, box BOX_ROWS rows, no
 // swizzle; vecs (10 n_blocks, cw) as pack_encoder stacks them. x and
 // out must not overlap.
-template <bool BN, int C, typename Ends>
+template <bool BN, int C, bool V4, typename Ends>
 __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
                                                 const float* __restrict__ x,
                                                 const float* __restrict__ vecs,
@@ -640,8 +674,8 @@ __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
     Ring ring{base, smem_u32(&full[0]), smem_u32(&empty[0]), 0, 0};
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row0 = tile * BM;
-      if (Ends::ENTRY) ends.embed(out, row0, n_rows, cw, ct);
-      load_a<C>(a_s, Ends::ENTRY ? out : x, row0, n_rows, cw, ct);
+      if (Ends::ENTRY) ends.template embed<V4>(out, row0, n_rows, cw, ct);
+      load_a<C, V4>(a_s, Ends::ENTRY ? out : x, row0, n_rows, cw, ct);
       named_sync(1, CONSUMERS);
       for (int blk = 0; blk < n_blocks; ++blk) {
         const float* v = vecs + (size_t)10 * blk * cw;
@@ -650,13 +684,13 @@ __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
         named_sync(1, CONSUMERS);  // both halves have read A
         stash<C>(acc, a_s, ln);
         named_sync(1, CONSUMERS);
-        epilogue_gelu<BN, C>(a_s, v, cw, ct);
+        epilogue_gelu<BN, C, V4>(a_s, v, cw, ct);
         named_sync(1, CONSUMERS);
         product<C>(acc, a_s, ring, ln);
         named_sync(1, CONSUMERS);
         stash<C>(acc, a_s, ln);
         named_sync(1, CONSUMERS);
-        epilogue_residual<BN, C>(a_s, blk == 0 && !Ends::ENTRY ? x : out,
+        epilogue_residual<BN, C, V4>(a_s, blk == 0 && !Ends::ENTRY ? x : out,
                                  out, v, ct, row0, n_rows, cw,
                                  blk + 1 < n_blocks,
                                  Ends::EXIT && blk + 1 == n_blocks);
@@ -670,8 +704,11 @@ __device__ __forceinline__ void encoder_tc_body(const CUtensorMap* tm_w,
   }
 }
 
-// The kernels' body: with eval BN where use_bn (the same for the launch)
-template <int C, typename Ends = NoEnds>
+// The kernels' body: with eval BN where use_bn (the same for the
+// launch). V4: the passes move rows as float4s (`rows_v4`); each kernel
+// is instantiated for both, the float4 one being the code the tile had
+// before it took other widths
+template <int C, bool V4, typename Ends = NoEnds>
 __device__ __forceinline__ void encoder_tc(const CUtensorMap* tm_w,
                                            const float* __restrict__ x,
                                            const float* __restrict__ vecs,
@@ -679,9 +716,18 @@ __device__ __forceinline__ void encoder_tc(const CUtensorMap* tm_w,
                                            int n_blocks, int use_bn,
                                            Ends ends = Ends{}) {
   if (use_bn)
-    encoder_tc_body<true, C>(tm_w, x, vecs, out, n_rows, cw, n_blocks, ends);
+    encoder_tc_body<true, C, V4>(tm_w, x, vecs, out, n_rows, cw, n_blocks,
+                                 ends);
   else
-    encoder_tc_body<false, C>(tm_w, x, vecs, out, n_rows, cw, n_blocks, ends);
+    encoder_tc_body<false, C, V4>(tm_w, x, vecs, out, n_rows, cw, n_blocks,
+                                  ends);
+}
+
+// whether a launch's rows move as float4s: cw a multiple of 4 and the
+// vector rows on 16 bytes (x, out and the ends' operands start on 16
+// bytes at every width, as `launch` and the C entries check)
+inline bool rows_v4(int cw, const void* vecs) {
+  return cw % 4 == 0 && gemm90::aligned(vecs, 16);
 }
 
 // -- host side ----------------------------------------------------------------
@@ -706,16 +752,16 @@ inline cudaError_t make_w_map(CUtensorMap* map, const float* split,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// a hidden width the tiles take: a multiple of 64 from 64 to MAX_C
-inline bool width_ok(int cw) {
-  return cw >= 64 && cw <= MAX_C && cw % 64 == 0;
-}
+// a hidden width the tiles take: 1 to MAX_C
+inline bool width_ok(int cw) { return cw >= 1 && cw <= MAX_C; }
 
 // Launch `kernel` (a __global__ wrapper of encoder_tc<C> with this
 // signature, then `ends...`) on n_rows rows of width cw, with `smem`
 // bytes of dynamic shared memory (the tile's SMEM, or SMEM_EXIT): one
 // block per SM, or one per tile where there are fewer tiles. x (null
-// for the entry), split and out 16-byte aligned, vecs 8.
+// for the entry), split and out 16-byte aligned, vecs 8. A kernel that
+// ptxas gave another register count than REGS is not launched
+// (cudaErrorInvalidKernelImage): its setmaxnreg requests would hang.
 template <int C, typename Kernel, typename... Ends>
 cudaError_t launch(Kernel kernel, size_t smem, const float* x,
                    const float* split, const float* vecs, float* out,
@@ -737,6 +783,9 @@ cudaError_t launch(Kernel kernel, size_t smem, const float* x,
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa = {};
+  if ((e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return e;
+  if (fa.numRegs != REGS) return cudaErrorInvalidKernelImage;
   const int tiles = (n_rows + BM - 1) / BM;
   kernel<<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
       tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends...);

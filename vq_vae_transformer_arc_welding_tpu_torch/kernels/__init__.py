@@ -53,6 +53,18 @@ _SIGNATURES = {
     # residual stream between the group's resblocks), ids, n_rows, c,
     # n_blocks, use_bn, d_emb, k_codes, stream
     "encoder_exit_f32": [_P] * 8 + [_I] * 6 + [_P],
+    # the encoder's resblocks off the tiles' widths (csrc/encoder_wide.cu):
+    # x, weights (2n, C, C) in (in, out) layout, f32 or bf16, vecs, h
+    # (the (N, C) scratch between a resblock's products), out, n_rows, c,
+    # n_blocks, use_bn, stream
+    "encoder_wide_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "encoder_wide_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # patches, w_pe, b_pe, weights, vecs, h, out, n_rows, patch, c,
+    # n_blocks, use_bn, stream
+    "encoder_wide_entry_f32": [_P] * 7 + [_I] * 5 + [_P],
+    # x, weights, vecs, w_sep, b_sep, codebook, h, resid, ids, n_rows, c,
+    # n_blocks, use_bn, d_emb, k_codes, stream
+    "encoder_wide_exit_f32": [_P] * 9 + [_I] * 6 + [_P],
     # z, codebook, ids, n_rows, d_emb, k_codes, stream
     "nearest_codes_f32": [_P] * 3 + [_I] * 3 + [_P],
     # x, w_qkv, w_proj, scales, vc, v3c, h8a, qkv, y8, head_scales, qkv8,

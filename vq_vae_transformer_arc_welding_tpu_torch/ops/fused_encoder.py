@@ -24,13 +24,18 @@ and `_pack_encoder` as `pack_encoder`, `encoder_resblocks_fused`,
 `encode_indices_fused_edges`. Each `*_reference` is its kernel's plain
 PyTorch version.
 
-Widths: the f32 kernels (#1, #3, #4, #5) take every hidden width that
-is a multiple of 64 from 64 to 512. Their tile is instantiated at 128,
-256 and 512 (`kernel_width`): hidden 64 and 128 run on 128, 192 and 256
-on 256, 320 to 512 on 512, the split weights (`split_weights`) padded
-with zeros to that width; x, out and the vector rows keep the hidden
-width. The bf16 chain (1b) takes hidden 512 only. Other widths raise
-`ValueError`.
+Widths: every hidden width from 1 to 4,096 (`MAX_WIDTH`), and at the
+exit any codebook with D from 1 to 256. Up to 512 the f32 kernels (#1,
+#3, #4, #5) run on their tile, instantiated at 128, 256 and 512
+(`kernel_width`): hidden 1 to 128 on 128, 129 to 256 on 256, 257 to
+512 on 512, the split weights (`split_weights`) padded with zeros to
+that width; x, out and the vector rows keep the hidden width. Above
+512 they run on csrc/encoder_wide.cu (`encoder_wide_f32`,
+`encoder_wide_entry_f32`, `encoder_wide_exit_f32`: one launch a
+product, the pack's weights as they are, an (N, C) scratch between a
+resblock's two products). The bf16 chain (1b) runs its own tile at
+hidden 512 and `encoder_wide_bf16` at every other width. Wider
+hidden widths and wider codes raise `ValueError`.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
@@ -64,6 +69,7 @@ import torch
 
 from .. import kernels
 from .activations import gelu
+from .fused_vq import require_codebook
 from .norm import batch_norm_apply
 from .patching import patchify
 from .vq import nearest_codes
@@ -71,32 +77,40 @@ from .vq import nearest_codes
 _CHAIN, _RESBLOCK = "encoder_chain_f32", "resblock_f32"
 _CHAIN_BF16 = "encoder_chain_bf16"
 _ENTRY, _EXIT = "encoder_entry_f32", "encoder_exit_f32"
-_MIN_WIDTH, _MAX_WIDTH = 64, 512      # the f32 kernels' hidden widths
-_BF16_WIDTH = 512                      # the bf16 chain's
-_TILE_ROWS = 64                        # rows of the f32 kernels' tile
-# the floats #5's epilogue may take from the A tile's start, at every
-# width: the 512 tile's A tile (csrc/encoder_tc.cuh::EXIT_FLOATS)
-_EXIT_FLOATS = _TILE_ROWS * _MAX_WIDTH
+# the same functions off the tiles' widths (csrc/encoder_wide.cu)
+_WIDE, _WIDE_BF16 = "encoder_wide_f32", "encoder_wide_bf16"
+_WIDE_ENTRY, _WIDE_EXIT = "encoder_wide_entry_f32", "encoder_wide_exit_f32"
+MAX_WIDTH = 4096       # the widest hidden width the kernels take
+TILE_WIDTH = 512       # the f32 tile's widest (csrc/encoder_tc.cuh::MAX_C)
+_BF16_WIDTH = 512      # 1b's own tile's
 
 
 def kernel_width(hidden: int) -> int:
     """The width of the f32 encoder tile that hidden width runs on: 128,
     256 or 512 (csrc/encoder_tc.cuh::tile_width); above 512, where no
-    tile runs, the hidden width itself."""
-    if hidden > _MAX_WIDTH:
+    tile runs (csrc/encoder_wide.cu), the hidden width itself."""
+    if hidden > TILE_WIDTH:
         return hidden
     return 128 if hidden <= 128 else 256 if hidden <= 256 else 512
 
 
 def _width_ok(hidden: int) -> bool:
-    return _MIN_WIDTH <= hidden <= _MAX_WIDTH and hidden % 64 == 0
+    return 1 <= hidden <= MAX_WIDTH
 
 
-def _exit_floats(k: int, d: int) -> int:
-    """Floats of the A tile that #5's epilogue takes for a (k, d)
-    codebook: z (64 x d), the codebook in rows of d + 4 and its k
-    squared norms (csrc/encoder_edges.cu::exit_floats)."""
-    return _TILE_ROWS * d + k * (d + 5)
+def on_tile(hidden: int) -> bool:
+    """Whether the f32 kernels run that hidden width on their tile (up
+    to 512), not on csrc/encoder_wide.cu."""
+    return hidden <= TILE_WIDTH
+
+
+def chain_kernel(hidden: int, compute_dtype=None) -> str:
+    """The kernel `fused_encoder_eval` launches at that hidden width:
+    the f32 tile up to 512 and encoder_wide_f32 above; 1b's tile at 512
+    and encoder_wide_bf16 at every other width."""
+    if compute_dtype is None:
+        return _CHAIN if on_tile(hidden) else _WIDE
+    return _CHAIN_BF16 if hidden == _BF16_WIDTH else _WIDE_BF16
 
 
 def _center_tap(kernel: torch.Tensor) -> torch.Tensor:
@@ -112,17 +126,21 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_weights(weights: torch.Tensor) -> torch.Tensor:
-    """The split-TF32 operand of the f32 kernels (#1, #3, #4, #5): (2n,
-    C, C) f32 weights in (in, out) layout -> (2n, 2 W W) at the tile's
-    width W = `kernel_width(C)`, the weights padded with zero rows and
-    columns to (W, W); per matrix hi = tf32(w) and lo = tf32(w - hi)
-    (hi + lo is w to 2^-21 of its magnitude), in (out, in) layout, the
+    """The split-TF32 operand of the f32 tile (#1, #3, #4, #5 up to
+    hidden 512): (2n, C, C) f32 weights in (in, out) layout -> (2n,
+    2 W W) at the tile's width W = `kernel_width(C)`, the weights padded
+    with zero rows and columns to (W, W); per matrix hi = tf32(w) and
+    lo = tf32(w - hi) (hi + lo is w to 2^-21 of its magnitude), in (out,
+    in) layout, the
     K-major one in which TF32 wgmma reads its shared-memory operand, and
     in the order the kernels' ring reads them: 8-wide k steps in order,
     each hi then lo over all W outputs, each as wgmma's core matrices of
     8 outputs x 4 k (128 bytes), i.e. [k // 8][hi, lo][out // 8][k % 8
     // 4][out % 8][k % 4]."""
     m, c, _ = weights.shape
+    if not on_tile(c):
+        raise ValueError(f"split_weights: hidden {c}: the f32 tile takes "
+                         f"1 to {TILE_WIDTH} (wider runs on the weights)")
     width = kernel_width(c)
     if width != c:
         weights = torch.nn.functional.pad(weights,
@@ -155,9 +173,10 @@ def stage_weights_bf16(weights: torch.Tensor) -> torch.Tensor:
 class EncoderPack(tuple):
     """What `pack_encoder` returns: the pair (weights, vecs), and in
     `split` the kernel's operand made from the weights: the split-TF32
-    weights of the f32 kernels (`split_weights(weights)`) for an f32
-    pack, the staged bf16 weights of the bf16 chain
-    (`stage_weights_bf16(weights)`) for a bf16 one."""
+    weights of the f32 tile (`split_weights(weights)`) for an f32 pack
+    up to hidden 512, the staged bf16 weights of 1b's tile
+    (`stage_weights_bf16(weights)`) for a bf16 one at hidden 512; None at
+    the other widths, whose kernels read the weights as they are."""
 
     def __new__(cls, weights: torch.Tensor, vecs: torch.Tensor,
                 split: torch.Tensor | None = None):
@@ -171,12 +190,12 @@ def pack_encoder(model, compute_dtype: torch.dtype | None = None
     """Stack every resblock's center-tap weights, transposed to (in, out),
     as (2n, C, C), and its vector rows [b1, bn1 mean, var, scale, bias,
     b2, bn2 mean, var, scale, bias] as (10n, C); BN rows are zeros when
-    the model has no BatchNorm. An f32 pack also carries the weights'
-    split (`split_weights`), made here once. compute_dtype
-    (torch.bfloat16): the weights rounded to it, for the functions'
-    `compute_dtype` variant, and in `split` the same weights staged for
-    the bf16 chain kernel (`stage_weights_bf16`); the vector rows stay
-    f32."""
+    the model has no BatchNorm. An f32 pack up to hidden 512 also
+    carries the weights' split (`split_weights`), made here once.
+    compute_dtype (torch.bfloat16): the weights rounded to it, for the
+    functions' `compute_dtype` variant, and in `split` at hidden 512 the
+    same weights staged for 1b's tile (`stage_weights_bf16`); the vector
+    rows stay f32."""
     ws, vs = [], []
     c = model.hidden_dim
     zero = torch.zeros(c, device=model.codebook.device)
@@ -193,8 +212,10 @@ def pack_encoder(model, compute_dtype: torch.dtype | None = None
     vecs = torch.stack(vs).contiguous()
     if compute_dtype is not None:
         wb = weights.to(_compute_dtype(compute_dtype))
-        return EncoderPack(wb, vecs, stage_weights_bf16(wb))
-    return EncoderPack(weights, vecs, split_weights(weights))
+        return EncoderPack(wb, vecs, stage_weights_bf16(wb)
+                           if c == _BF16_WIDTH else None)
+    return EncoderPack(weights, vecs,
+                       split_weights(weights) if on_tile(c) else None)
 
 
 def pack_encoder_edges(model) -> tuple[torch.Tensor, ...]:
@@ -287,8 +308,8 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
 
 def _require_width(name: str, c: int) -> None:
     if not _width_ok(c):
-        raise ValueError(f"{name}: hidden {c} not supported (a multiple "
-                         f"of 64 from {_MIN_WIDTH} to {_MAX_WIDTH})")
+        raise ValueError(f"{name}: hidden {c} not supported (1 to "
+                         f"{MAX_WIDTH})")
 
 
 def _require_chain(name: str, c: int, weights, vecs, dev,
@@ -296,15 +317,10 @@ def _require_chain(name: str, c: int, weights, vecs, dev,
     """Check a group's packed operands (weights of `dtype`); returns its
     number of blocks."""
     nb = weights.shape[0] // 2
-    if name == _CHAIN_BF16:
-        ok, widths = c == _BF16_WIDTH, f"hidden {_BF16_WIDTH}"
-    else:
-        ok, widths = _width_ok(c), (f"hidden a multiple of 64 from "
-                                    f"{_MIN_WIDTH} to {_MAX_WIDTH}")
-    if not ok or weights.shape[0] != 2 * nb or nb < 1:
+    if not _width_ok(c) or weights.shape[0] != 2 * nb or nb < 1:
         raise ValueError(f"{name}: hidden {c} / {weights.shape[0]} "
-                         f"matrices not supported ({widths}, an even "
-                         f"count)")
+                         f"matrices not supported (hidden 1 to "
+                         f"{MAX_WIDTH}, an even count)")
     kernels.require(weights, "weights", dtype, (2 * nb, c, c), dev)
     kernels.require(vecs, "vecs", torch.float32, (10 * nb, c), dev)
     return nb
@@ -360,10 +376,12 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
 
     split: the kernel's operand made from `weights` (the view of
     `pack_encoder(model[, torch.bfloat16]).split` that matches them):
-    `split_weights(weights)` for the f32 kernel, `stage_weights_bf16(
-    weights)` for the bf16 one. Without it the wrapper makes it here,
-    per call, which a bare pack (tests, chip_smoke.py) pays for; the CPU
-    path does not read it."""
+    `split_weights(weights)` for the f32 tile, `stage_weights_bf16(
+    weights)` for 1b's. Without it the wrapper makes it here, per call,
+    which a bare pack (tests, chip_smoke.py) pays for; the CPU path does
+    not read it, nor do the kernels of the other widths
+    (`encoder_wide_f32` above hidden 512, `encoder_wide_bf16` off 512:
+    the weights as they are, an (N, C) scratch made here)."""
     if compute_dtype is None:
         name, dtype = _CHAIN, torch.float32
     else:
@@ -376,6 +394,9 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
     n, c = x.shape
     nb = _require_chain(name, c, weights, vecs, x.device, dtype)
     kernels.require(x, "x", torch.float32, (n, c), x.device)
+    if chain_kernel(c, compute_dtype) != name:
+        return _wide_chain(chain_kernel(c, compute_dtype), x,
+                           weights.data_ptr(), vecs, nb, use_bn)
     operand = (_staged_operand(weights, split) if compute_dtype is not None
                else _split_operand(name, weights, split))
     _aligned(name, weights=operand, **(
@@ -392,13 +413,32 @@ def fused_encoder_eval(x: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def _wide_chain(name: str, x: torch.Tensor, w_ptr: int, vecs: torch.Tensor,
+                nb: int, use_bn: bool) -> torch.Tensor:
+    """nb resblocks of csrc/encoder_wide.cu (`name`: encoder_wide_f32 or
+    _bf16) on x, its (2 nb, C, C) weights at w_ptr; returns out."""
+    n, c = x.shape
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    h = torch.empty_like(x)
+    lib = kernels.library()
+    kernels.launches[name] += 1
+    err = getattr(lib, name)(x.data_ptr(), w_ptr, vecs.data_ptr(),
+                             h.data_ptr(), out.data_ptr(), n, c, nb,
+                             int(use_bn), kernels.stream_ptr(x.device))
+    kernels.check(err, name)
+    return out
+
+
 def resblock_eval(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                   vec: torch.Tensor, *, use_bn: bool,
                   split: torch.Tensor | None = None) -> torch.Tensor:
     """One eval resblock on (N, C) f32 rows, operand-level: w1, w2 (C, C)
     in (in, out) layout, vec (10, C) as a resblock's rows of
     `pack_encoder`. split: `split_weights` of [w1, w2], (2, 2 C C), as
-    for `fused_encoder_eval`: made here, per call, when not given."""
+    for `fused_encoder_eval`: made here, per call, when not given, and
+    not read above hidden 512 (`encoder_wide_f32`, one resblock)."""
     if not _on_card(_RESBLOCK, x):
         return fused_resblock_eval_reference(x, w1, w2, vec, use_bn=use_bn)
     n, c = x.shape
@@ -408,6 +448,11 @@ def resblock_eval(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     kernels.require(w1, "w1", torch.float32, (c, c), dev)
     kernels.require(w2, "w2", torch.float32, (c, c), dev)
     kernels.require(vec, "vec", torch.float32, (10, c), dev)
+    if not on_tile(c):
+        # the pack's w1 and w2 lie one after the other: no copy
+        pair = (w1 if w2.data_ptr() == w1.data_ptr() + w1.numel() * 4
+                else torch.stack([w1, w2]))
+        return _wide_chain(_WIDE, x, pair.data_ptr(), vec, 1, use_bn)
     if split is None:
         split = split_weights(torch.stack([w1, w2]))
     w = kernel_width(c)
@@ -442,7 +487,9 @@ def fused_encoder_entry_eval(patches, w_pe, b_pe, weights, vecs, *,
     (N, patch) f32 from ops/patching.patchify; w_pe (patch, C); b_pe
     (C,). Returns (N, C) f32; the patch-embed output stays in the
     kernel. split: `split_weights(weights)`, as for
-    `fused_encoder_eval` (made here, per call, when not given)."""
+    `fused_encoder_eval` (made here, per call, when not given). Above
+    hidden 512, `encoder_wide_entry_f32`: the patch-embed, then the
+    resblocks, one launch each."""
     if not _on_card(_ENTRY, patches):
         return fused_encoder_entry_eval_reference(patches, w_pe, b_pe,
                                                   weights, vecs,
@@ -457,6 +504,20 @@ def fused_encoder_entry_eval(patches, w_pe, b_pe, weights, vecs, *,
     kernels.require(patches, "patches", torch.float32, (n, pz), dev)
     kernels.require(w_pe, "w_pe", torch.float32, (pz, c), dev)
     kernels.require(b_pe, "b_pe", torch.float32, (c,), dev)
+    if not on_tile(c):
+        out = torch.empty((n, c), dtype=torch.float32, device=dev)
+        if n == 0:
+            return out
+        h = torch.empty_like(out)
+        lib = kernels.library()
+        kernels.launches[_WIDE_ENTRY] += 1
+        err = lib.encoder_wide_entry_f32(
+            patches.data_ptr(), w_pe.data_ptr(), b_pe.data_ptr(),
+            weights.data_ptr(), vecs.data_ptr(), h.data_ptr(),
+            out.data_ptr(), n, pz, c, nb, int(use_bn),
+            kernels.stream_ptr(dev))
+        kernels.check(err, _WIDE_ENTRY)
+        return out
     operand = _split_operand(_ENTRY, weights, split)
     _aligned(_ENTRY, w_pe=w_pe, b_pe=b_pe, weights=operand)
     out = torch.empty((n, c), dtype=torch.float32, device=dev)
@@ -480,8 +541,10 @@ def fused_encoder_exit_eval(x, weights, vecs, w_sep, b_sep, codebook, *,
     kernel. x (N, C) f32; w_sep (C, D); b_sep (D,); codebook (K, D).
     Returns (N,) int32 ids; z and the distances stay in the kernel (the
     residual stream between the group's resblocks goes through an
-    (N, C) buffer made here, as #1's output). split: as for
-    `fused_encoder_entry_eval`."""
+    (N, C) buffer made here, as #1's output). Any K, D from 1 to
+    256 (ops/fused_vq.MAX_D). split: as for `fused_encoder_entry_eval`. Above hidden
+    512, `encoder_wide_exit_f32`: the resblocks, one launch each, then
+    sep_conv and the nearest code."""
     if not _on_card(_EXIT, x):
         return fused_encoder_exit_eval_reference(x, weights, vecs, w_sep,
                                                  b_sep, codebook,
@@ -490,15 +553,25 @@ def fused_encoder_exit_eval(x, weights, vecs, w_sep, b_sep, codebook, *,
     k, d = codebook.shape
     dev = x.device
     nb = _require_chain(_EXIT, c, weights, vecs, dev)
-    if d not in (8, 16, 32, 64) or k < 1 or \
-            _exit_floats(k, d) > _EXIT_FLOATS:
-        raise ValueError(f"{_EXIT}: a ({k}, {d}) codebook is not supported: "
-                         f"D of 8, 16, 32 or 64 and {_TILE_ROWS} D + "
-                         f"K (D + 5) up to {_EXIT_FLOATS}")
+    require_codebook(_EXIT, k, d)
     kernels.require(x, "x", torch.float32, (n, c), dev)
     kernels.require(w_sep, "w_sep", torch.float32, (c, d), dev)
     kernels.require(b_sep, "b_sep", torch.float32, (d,), dev)
     kernels.require(codebook, "codebook", torch.float32, (k, d), dev)
+    if not on_tile(c):
+        ids = torch.empty((n,), dtype=torch.int32, device=dev)
+        if n == 0:
+            return ids
+        h, resid = torch.empty_like(x), torch.empty_like(x)
+        lib = kernels.library()
+        kernels.launches[_WIDE_EXIT] += 1
+        err = lib.encoder_wide_exit_f32(
+            x.data_ptr(), weights.data_ptr(), vecs.data_ptr(),
+            w_sep.data_ptr(), b_sep.data_ptr(), codebook.data_ptr(),
+            h.data_ptr(), resid.data_ptr(), ids.data_ptr(), n, c, nb,
+            int(use_bn), d, k, kernels.stream_ptr(dev))
+        kernels.check(err, _WIDE_EXIT)
+        return ids
     operand = _split_operand(_EXIT, weights, split)
     _aligned(_EXIT, x=x, codebook=codebook, weights=operand)
     ids = torch.empty((n,), dtype=torch.int32, device=dev)

@@ -13,6 +13,10 @@ is left out. It cannot change an argmin in exact arithmetic; in f32 the
 two can differ at a near-tie, which the tests do not find on random
 data (as the JAX package's own tests).
 
+Shapes: any K and D from 1 to 256. A codebook too large for shared
+memory streams through it in chunks (csrc/nearest_codes.cu), with the
+same first index among equal minima.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 """
@@ -23,8 +27,15 @@ import torch
 from .. import kernels
 
 _KERNEL = "nearest_codes_f32"
-_MAX_D = 64
-_MAX_SMEM = 227 * 1024
+MAX_D = 256        # the widest code the kernel takes (any K)
+
+
+def require_codebook(name: str, k: int, d: int) -> None:
+    """Raise unless the kernels (#7, and #5's exit) take a (k, d)
+    codebook: D from 1 to MAX_D, K at least 1. Needs no card."""
+    if not 1 <= d <= MAX_D or k < 1:
+        raise ValueError(f"{name}: a ({k}, {d}) codebook is not "
+                         f"supported: D from 1 to {MAX_D} and K at least 1")
 
 
 def nearest_codes_pallas_reference(z_flat: torch.Tensor,
@@ -47,11 +58,7 @@ def nearest_codes_pallas(z_flat: torch.Tensor,
     n, d = z_flat.shape
     k = codebook.shape[0]
     dev = z_flat.device
-    padded = next((p for p in (8, 16, 32, 64) if d <= p), None)
-    if padded is None or k < 1 or k * (padded + 1) * 4 > _MAX_SMEM:
-        raise ValueError(f"{_KERNEL}: a ({k}, {d}) codebook is not "
-                         f"supported: D up to {_MAX_D}, and the codebook "
-                         f"within {_MAX_SMEM} bytes of shared memory")
+    require_codebook(_KERNEL, k, d)
     kernels.require(z_flat, "z_flat", torch.float32, (n, d), dev)
     kernels.require(codebook, "codebook", torch.float32, (k, d), dev)
     ids = torch.empty((n,), dtype=torch.int32, device=dev)

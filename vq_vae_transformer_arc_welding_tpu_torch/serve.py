@@ -26,7 +26,9 @@ value without a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import json
 import os
 import warnings
@@ -39,6 +41,33 @@ from .ops.fused_encoder import encode_indices_fused, pack_encoder
 
 # samples per welding cycle (data/asimow.py::CYCLE_LEN of the JAX package)
 CYCLE_LEN = 200
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """Both TF32 flags (matmul and cuDNN) off inside, the caller's
+    values back after: the codebook ids stay bit-comparable with the
+    exact f32 reference, and the exact-f32 int8 products
+    (ops/int8.py) need full f32 sums. The JAX package sets no global
+    precision; neither does this one outside a pipeline's calls."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _exact(method):
+    """The pipeline's method run under `exact_f32`."""
+    @functools.wraps(method)
+    def run(*args, **kwargs):
+        with exact_f32():
+            return method(*args, **kwargs)
+    return run
 
 
 def with_start_token(ids: torch.Tensor, start_token: int) -> torch.Tensor:
@@ -93,9 +122,10 @@ class WeldingQualityPipeline:
         entry point (classify, encode_tokens, ood_score) splits its
         batch over it (the module docstring).
 
-        TF32 is switched off for matmuls and cuDNN, process-wide: the
-        codebook ids must stay bit-comparable with the exact f32
-        reference, and the exact-f32 int8 products of the class head
+        TF32 is off for matmuls and cuDNN inside the pipeline's own
+        calls (`exact_f32`), and the caller's flags are restored after
+        each: the codebook ids must stay bit-comparable with the exact
+        f32 reference, and the exact-f32 int8 products of the class head
         rely on full f32 accumulation."""
         if precision not in ("f32", "bf16", "int8"):
             raise ValueError(f"precision {precision!r}: 'f32', 'bf16' or "
@@ -106,8 +136,6 @@ class WeldingQualityPipeline:
         if encoder_impl not in ("xla", "fused"):
             raise ValueError(f"encoder_impl {encoder_impl!r}: 'xla' or "
                              f"'fused'")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.vq_model = vqvae.eval()
         self.tr_model = transformer.eval()
         if precision == "bf16":
@@ -262,6 +290,7 @@ class WeldingQualityPipeline:
                    encoder_precision=encoder_precision,
                    encoder_impl=encoder_impl, mesh=mesh)
 
+    @_exact
     def _set_encoder_calibration(self, enc_absmax: dict) -> None:
         from .models.quantized import quantize_encoder
         self._enc_absmax = dict(enc_absmax)
@@ -269,6 +298,7 @@ class WeldingQualityPipeline:
         with torch.inference_mode():
             self.qenc = quantize_encoder(self.vq_model, self._enc_absmax)
 
+    @_exact
     def _set_calibration(self, act_absmax: dict) -> None:
         from .models.quantized import quantize_transformer
         self._act_absmax = dict(act_absmax)
@@ -327,6 +357,7 @@ class WeldingQualityPipeline:
 
     # -- public API ------------------------------------------------------------
 
+    @_exact
     @torch.inference_mode()
     def _batched(self, name: str, x: np.ndarray):
         """The per-chunk core `name` over chunks of at most max_batch
@@ -394,6 +425,7 @@ class WeldingQualityPipeline:
             raise ValueError(f"{what}: windows is empty")
         return windows
 
+    @_exact
     def calibrate(self, sample_windows: np.ndarray,
                   max_samples: int | None = None) -> dict:
         """Calibrate the int8 activation scales on representative windows
@@ -443,6 +475,7 @@ class WeldingQualityPipeline:
             probs = out
         return probs.argmax(-1), probs
 
+    @_exact
     def saturation_rate(self, windows: np.ndarray):
         """Clipped-activation fraction of the calibrated int8 path on
         `windows` (up to max_batch of them): (overall, per_site dict),
@@ -475,6 +508,7 @@ class WeldingQualityPipeline:
         max_batch."""
         return self._batched("_ood_fn", self._windows(cycles, "ood_score"))
 
+    @_exact
     def sample_tokens(self, n: int | None = None, *,
                       prompt: np.ndarray | None = None,
                       top_k: int | None = None, seed: int = 0,
