@@ -246,10 +246,9 @@ CLI's scaler, into an artifact that `cli/score_quality.main` scores at
 (the record's `cli_launches`), and the same artifact scored on the
 plain path must give equal labels wherever its logit margin exceeds
 1e-3, and p_bad + p_good within 1e-4 of 1 in both files. The plain
-path's labels outside the margin must hold both classes: where they do
-not, the chain trains again for longer (CLI_CHAIN_ROUNDS: the VQ-VAE
-CLI for more steps, the transformer CLI for more epochs without its
-early stop) and the scoring is repeated.
+path's labels outside the margin must hold both classes (CLI_ARGS
+trains the VQ-VAE CLI for 60 epochs at batch 64 and the transformer CLI
+for 20 class epochs without its early stop, so that they do).
 
 Every failed check raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it names the card and
@@ -388,29 +387,22 @@ EMA_STEPS = 6               # steps over the train split's batches in turn
 # partial, batch); 22 runs, 3,102 windows of 20 cycles at stride 1
 CLI_CSV = dict(n_cycles_per_run=160, extra_train_runs=8)
 # each CLI's arguments besides --data-dir and --device (the transformer
-# and the latent MLP also get --vqvae-model, the VQ-VAE CLI's best)
-# the chain's rounds, tried in turn until the plain scorer's labels
-# outside the margin hold both classes: (the VQ-VAE CLI's arguments
-# beyond CLI_ARGS', the transformer CLI's), each CLI trained again where
-# its arguments are given. The second trains longer: at the VQ-VAE CLI's
-# batch of 1,024 an epoch of the CSV's 1,280 train cycles is one step,
-# and its early stop (5 epochs without a better val loss) ends it after
-# 6; the transformer CLI's class stage stops after 5 epochs without a
-# better val F1 (--no-early-stopping). Probed on the card (PERF.md's
-# Findings): the first round labels every window alike, as does the
-# VQ-VAE at batch 128 for 30 epochs with 10 class epochs; the second
-# gives both
-CLI_CHAIN_ROUNDS = (
-    ((), ()),
-    (("--epochs", "60", "--batch-size", "64"),
-     ("--gen-epochs", "3", "--finetune-epochs", "20", "--no-early-stopping")))
+# and the latent MLP also get --vqvae-model, the VQ-VAE CLI's best). The
+# VQ-VAE and transformer CLIs train long enough that the plain scorer's
+# labels outside the margin hold both classes: at the VQ-VAE CLI's batch
+# of 1,024 an epoch of the CSV's 1,280 train cycles is one step, and its
+# early stop (5 epochs without a better val loss) ends it after 6; the
+# transformer CLI's class stage stops after 5 epochs without a better
+# val F1 (--no-early-stopping). Probed on the card (PERF.md's Findings):
+# one epoch each labels every window alike, as does the VQ-VAE at batch
+# 128 for 30 epochs with 10 class epochs; these arguments give both
 CLI_ARGS = {
-    "reconstruction": ["--epochs", "1"],
+    "reconstruction": ["--epochs", "60", "--batch-size", "64"],
     "classification": ["--epochs", "1"],
     "latent MLP": ["--epochs", "1", "--model-name", "MLP",
                    "--dataset", "latent_vq_vae"],
-    "transformer": ["--epoch_iter", "1", "--gen-epochs", "1",
-                    "--finetune-epochs", "1"],
+    "transformer": ["--epoch_iter", "1", "--gen-epochs", "3",
+                    "--finetune-epochs", "20", "--no-early-stopping"],
 }
 # widths_phase: models off the bench widths. The repo's quality study's
 # (scripts/quality_study.py:76-86: a VQ-VAE at hidden 64 with 2
@@ -805,10 +797,13 @@ PTX_OPS = {
                          "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32",
                          "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32",
                          "cp.async.bulk.tensor", "cvt.rna.tf32.f32"),
-    # the encoder off the tiles' widths: split TF32 and bf16 mma.sync
+    # the encoder off the tiles' widths: split TF32 and bf16 mma.sync,
+    # fed by ldmatrix
     "encoder_wide.cu": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
-                        "cvt.rna.tf32.f32"),
+                        "cvt.rna.tf32.f32",
+                        "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
+                        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16"),
     # #7's streamed codebook
     "nearest_codes.cu": ("cp.async.cg.shared.global",),
     "decode.cu": ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
@@ -4003,133 +3998,114 @@ def cli_phase(smi: str, device: str = "cuda") -> dict:
                 check(math.isfinite(test["test/f1_score_mean"]),
                       f"cli {name}: test {test}")
 
-            def serve_round(vq_more: tuple, more: tuple) -> bool:
-                """C3-C8 with the VQ-VAE CLI trained again with
-                `vq_more` where it is given and the transformer CLI with
-                `more`: their checkpoints scored on the kernel path and
-                the plain path. Returns whether the plain path's labels
-                on the windows outside the margin hold both classes."""
-                if vq_more:
-                    run_cli("reconstruction", train_reconstruction_embedding,
-                            vq_more)
-                tm_run, results = run_cli(
-                    "transformer", train_transformer_mtasks,
-                    ("--vqvae-model", vq_best, *more))
-                tr = tm_run.model
-                check(sorted(results) == ["class_test", "class_test_final",
-                                          "gen_test"]
-                      and math.isfinite(results["gen_test"]["test/loss"])
-                      and tr.seq_len == N_CYCLES * 16 + 1,
-                      f"cli transformer: results {results}, T={tr.seq_len}")
-                # -- C4. the JAX CLI writes no transformer checkpoint: the phase
-                tr_ckpt = os.path.join(tmp, "transformer.ckpt")
-                tr.save(tr_ckpt)
-                log(f"cli transformer: d{tr.d_model}, {tr.n_head} heads, "
-                    f"{len(tr.blocks)} blocks, T={tr.seq_len}, saved by the "
-                    f"phase to {os.path.basename(tr_ckpt)}")
+            # -- C3. the transformer CLI ---------------------------------
+            tm_run, results = run_cli(
+                "transformer", train_transformer_mtasks,
+                ("--vqvae-model", vq_best))
+            tr = tm_run.model
+            check(sorted(results) == ["class_test", "class_test_final",
+                                      "gen_test"]
+                  and math.isfinite(results["gen_test"]["test/loss"])
+                  and tr.seq_len == N_CYCLES * 16 + 1,
+                  f"cli transformer: results {results}, T={tr.seq_len}")
+            # -- C4. the JAX CLI writes no transformer checkpoint: the phase
+            tr_ckpt = os.path.join(tmp, "transformer.ckpt")
+            tr.save(tr_ckpt)
+            log(f"cli transformer: d{tr.d_model}, {tr.n_head} heads, "
+                f"{len(tr.blocks)} blocks, T={tr.seq_len}, saved by the "
+                f"phase to {os.path.basename(tr_ckpt)}")
 
-                # -- C5. the checkpoints served by the int8 scorer -------------
-                pipe = WeldingQualityPipeline.from_checkpoints(
-                    vq_best, tr_ckpt, n_cycles=N_CYCLES, max_batch=80,
-                    precision="int8", encoder_impl="fused", device=device)
-                # the VQ-VAE CLI's scaler: fitted on the train split's cycles
-                dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
-                                      val_data_ids=ids["val_ids"],
-                                      test_data_ids=ids["test_ids"],
-                                      data_directory_path=data_dir)
-                dm.setup()
-                pipe.scaler = dm.scaler
-                # calibration: the first N_CALIB windows of the train runs
-                held_out = {tuple(v) for v in (*ids["val_ids"], *ids["test_ids"])}
-                calib = []
-                for e, r in np.unique(np.stack([exp, run], 1), axis=0):
-                    if (int(e), int(r)) in held_out:
-                        continue
-                    cyc = dm.scaler.transform(vi[(exp == e) & (run == r)])
-                    calib += [cyc[s:s + N_CYCLES].reshape(N_CYCLES * CYCLE_LEN, 2)
-                              for s in range(0, len(cyc) - N_CYCLES + 1,
-                                             N_CYCLES)]
-                pipe.calibrate(np.stack(calib[:N_CALIB]))
-                art = pipe.save_artifact(os.path.join(tmp, "artifact"))
-                argv = ["--artifact", art, "--data-path", csv_path,
-                        "--stride", "1", "--device", device]
-                parser = score_quality.build_parser()
-                kernel_out = os.path.join(tmp, "scores.csv")
-                plain_out = os.path.join(tmp, "scores_plain.csv")
-                secs = [0.0]
+            # -- C5. the checkpoints served by the int8 scorer -------------
+            pipe = WeldingQualityPipeline.from_checkpoints(
+                vq_best, tr_ckpt, n_cycles=N_CYCLES, max_batch=80,
+                precision="int8", encoder_impl="fused", device=device)
+            # the VQ-VAE CLI's scaler: fitted on the train split's cycles
+            dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
+                                  val_data_ids=ids["val_ids"],
+                                  test_data_ids=ids["test_ids"],
+                                  data_directory_path=data_dir)
+            dm.setup()
+            pipe.scaler = dm.scaler
+            # calibration: the first N_CALIB windows of the train runs
+            held_out = {tuple(v) for v in (*ids["val_ids"], *ids["test_ids"])}
+            calib = []
+            for e, r in np.unique(np.stack([exp, run], 1), axis=0):
+                if (int(e), int(r)) in held_out:
+                    continue
+                cyc = dm.scaler.transform(vi[(exp == e) & (run == r)])
+                calib += [cyc[s:s + N_CYCLES].reshape(N_CYCLES * CYCLE_LEN, 2)
+                          for s in range(0, len(cyc) - N_CYCLES + 1,
+                                         N_CYCLES)]
+            pipe.calibrate(np.stack(calib[:N_CALIB]))
+            art = pipe.save_artifact(os.path.join(tmp, "artifact"))
+            argv = ["--artifact", art, "--data-path", csv_path,
+                    "--stride", "1", "--device", device]
+            parser = score_quality.build_parser()
+            kernel_out = os.path.join(tmp, "scores.csv")
+            plain_out = os.path.join(tmp, "scores_plain.csv")
+            secs = [0.0]
 
-                def score():
-                    secs[0] = host_seconds(lambda: score_quality.main(
-                        parser.parse_args(argv + ["--out", kernel_out])))
+            def score():
+                secs[0] = host_seconds(lambda: score_quality.main(
+                    parser.parse_args(argv + ["--out", kernel_out])))
 
-                # -- C6. the kernels the scorer launched -------------------------
-                _, counts = counted(score)
-                check(set(counts) == {ENC, ATTN, GEMM}
-                      and all(n > 0 for n in counts.values()),
-                      f"the scorer on the trained checkpoints launched "
-                      f"{json.dumps(counts)}, expected {ENC}, {ATTN}, {GEMM}")
-                for name in (ENC, ATTN, GEMM):
-                    out["launches"][name] = (
-                        "cli_phase: score_quality on the CLIs' checkpoints",
-                        counts[name])
-                # -- C7. the same artifact on the plain path: the label gate ----
-                _, plain_counts = counted(on_plain_path(
-                    lambda: score_quality.main(
-                        parser.parse_args(argv + ["--out", plain_out]))))
-                check(plain_counts == {},
-                      f"the plain scorer launched {json.dumps(plain_counts)}")
-                rows, plain = read_scores(kernel_out), read_scores(plain_out)
-                check([r[:3] for r in rows] == [r[:3] for r in plain]
-                      and len(rows) == int(np.maximum(np.unique(
-                          np.stack([exp, run], 1), axis=0,
-                          return_counts=True)[1] - N_CYCLES + 1, 0).sum()),
-                      "the scorer's windows differ from the plain scorer's, or "
-                      "from the CSV's")
-                p = np.array([[float(r[4]), float(r[5])] for r in rows])
-                q = np.array([[float(r[4]), float(r[5])] for r in plain])
-                check(bool((np.abs(p.sum(1) - 1) <= 1e-4).all()
-                           and (np.abs(q.sum(1) - 1) <= 1e-4).all()),
-                      "p_bad + p_good is not within 1e-4 of 1")
-                margin = np.abs(np.log(np.maximum(q[:, 0], 1e-6))
-                                - np.log(np.maximum(q[:, 1], 1e-6)))
-                sure = margin > LABEL_MARGIN
-                lab = np.array([r[3] for r in rows])
-                plain_lab = np.array([r[3] for r in plain])
-                check(bool((lab == plain_lab)[sure].all()),
-                      f"the scorer's labels differ from the plain path's on "
-                      f"{int((lab != plain_lab)[sure].sum())} windows outside "
-                      f"the {LABEL_MARGIN} logit margin")
-                # -- C8. times ---------------------------------------------
-                out["windows_per_s"] = len(rows) / secs[0]
-                log(f"cli score_quality (int8, encoder_impl='fused') on the "
-                    f"CLIs' checkpoints: {len(rows)} windows of {N_CYCLES} "
-                    f"cycles at --stride 1 in {secs[0]:.2f} s, "
-                    f"{out['windows_per_s']:.1f} windows/s end to end (artifact "
-                    f"load, CSV parse, scaling, classify, writing); launches "
-                    f"{json.dumps(counts)}; labels equal the plain path's on "
-                    f"all {int(sure.sum())} windows with a logit margin above "
-                    f"{LABEL_MARGIN} ({int((lab != plain_lab).sum())} differ "
-                    f"within it), worst |dp| {float(np.abs(p - q).max()):.3e}, "
-                    f"{int((lab == '0').sum())} flagged bad; the plain path "
-                    f"outside the margin: {int((plain_lab[sure] == '0').sum())}"
-                    f" bad, {int((plain_lab[sure] == '1').sum())} good "
-                    f"(the CLIs with {' '.join(vq_more + more) or 'CLI_ARGS'}"
-                    f"); gpu {smi}")
-                return len(set(plain_lab[sure])) == 2
-
+            # -- C6. the kernels the scorer launched -------------------------
+            _, counts = counted(score)
+            check(set(counts) == {ENC, ATTN, GEMM}
+                  and all(n > 0 for n in counts.values()),
+                  f"the scorer on the trained checkpoints launched "
+                  f"{json.dumps(counts)}, expected {ENC}, {ATTN}, {GEMM}")
+            for name in (ENC, ATTN, GEMM):
+                out["launches"][name] = (
+                    "cli_phase: score_quality on the CLIs' checkpoints",
+                    counts[name])
+            # -- C7. the same artifact on the plain path: the label gate ----
+            _, plain_counts = counted(on_plain_path(
+                lambda: score_quality.main(
+                    parser.parse_args(argv + ["--out", plain_out]))))
+            check(plain_counts == {},
+                  f"the plain scorer launched {json.dumps(plain_counts)}")
+            rows, plain = read_scores(kernel_out), read_scores(plain_out)
+            check([r[:3] for r in rows] == [r[:3] for r in plain]
+                  and len(rows) == int(np.maximum(np.unique(
+                      np.stack([exp, run], 1), axis=0,
+                      return_counts=True)[1] - N_CYCLES + 1, 0).sum()),
+                  "the scorer's windows differ from the plain scorer's, or "
+                  "from the CSV's")
+            p = np.array([[float(r[4]), float(r[5])] for r in rows])
+            q = np.array([[float(r[4]), float(r[5])] for r in plain])
+            check(bool((np.abs(p.sum(1) - 1) <= 1e-4).all()
+                       and (np.abs(q.sum(1) - 1) <= 1e-4).all()),
+                  "p_bad + p_good is not within 1e-4 of 1")
+            margin = np.abs(np.log(np.maximum(q[:, 0], 1e-6))
+                            - np.log(np.maximum(q[:, 1], 1e-6)))
+            sure = margin > LABEL_MARGIN
+            lab = np.array([r[3] for r in rows])
+            plain_lab = np.array([r[3] for r in plain])
+            check(bool((lab == plain_lab)[sure].all()),
+                  f"the scorer's labels differ from the plain path's on "
+                  f"{int((lab != plain_lab)[sure].sum())} windows outside "
+                  f"the {LABEL_MARGIN} logit margin")
+            # -- C8. times ---------------------------------------------
+            out["windows_per_s"] = len(rows) / secs[0]
+            log(f"cli score_quality (int8, encoder_impl='fused') on the "
+                f"CLIs' checkpoints: {len(rows)} windows of {N_CYCLES} "
+                f"cycles at --stride 1 in {secs[0]:.2f} s, "
+                f"{out['windows_per_s']:.1f} windows/s end to end (artifact "
+                f"load, CSV parse, scaling, classify, writing); launches "
+                f"{json.dumps(counts)}; labels equal the plain path's on "
+                f"all {int(sure.sum())} windows with a logit margin above "
+                f"{LABEL_MARGIN} ({int((lab != plain_lab).sum())} differ "
+                f"within it), worst |dp| {float(np.abs(p - q).max()):.3e}, "
+                f"{int((lab == '0').sum())} flagged bad; the plain path "
+                f"outside the margin: {int((plain_lab[sure] == '0').sum())}"
+                f" bad, {int((plain_lab[sure] == '1').sum())} good; "
+                f"gpu {smi}")
             # a label gate held on one class would be met by any model
-            # that flags every window: the chain trains for more class
-            # epochs until the plain path's labels hold both
-            for vq_more, more in CLI_CHAIN_ROUNDS:
-                if serve_round(vq_more, more):
-                    break
-                log(f"cli phase: with {' '.join(vq_more + more) or 'CLI_ARGS'}"
-                    f" the plain path labels every window outside the margin "
-                    f"alike; the chain trains again, longer")
-            else:
-                check(False, f"cli phase: the plain path's labels outside "
-                             f"the margin hold one class after the chain's "
-                             f"rounds {CLI_CHAIN_ROUNDS}")
+            # that labels every window alike
+            check(len(set(plain_lab[sure])) == 2,
+                  f"cli phase: the plain path labels all {int(sure.sum())} "
+                  f"windows outside the margin alike")
         finally:
             os.chdir(cwd)
     log(f"cli phase: {time.perf_counter() - t_phase:.1f} s (CLIs "

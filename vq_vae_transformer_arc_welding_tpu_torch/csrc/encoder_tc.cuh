@@ -101,6 +101,10 @@
 //    reorders a stage.
 #pragma once
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include "int8_gemm_sm90.cuh"  // gemm90:: mbarrier, TMA and tensor-map helpers
 
 namespace arcweld {
@@ -762,6 +766,43 @@ inline bool width_ok(int cw) { return cw >= 1 && cw <= MAX_C; }
 // for the entry), split and out 16-byte aligned, vecs 8. A kernel that
 // ptxas gave another register count than REGS is not launched
 // (cudaErrorInvalidKernelImage): its setmaxnreg requests would hang.
+// per kernel and device: ptxas's register count held against REGS and
+// the SM count, asked once (both are fixed once the library is built),
+// and the dynamic shared memory the kernel may use, raised as a call
+// needs more
+inline cudaError_t kernel_ready(const void* kernel, size_t smem, int* sms) {
+  struct Ready {
+    cudaError_t err;
+    int sms, smem;
+  };
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, Ready> ready;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = ready.find({kernel, dev});
+  if (it == ready.end()) {
+    Ready r = {cudaSuccess, 0, 0};
+    cudaFuncAttributes fa = {};
+    r.err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r.err == cudaSuccess) r.err = cudaFuncGetAttributes(&fa, kernel);
+    if (r.err == cudaSuccess && fa.numRegs != REGS)
+      r.err = cudaErrorInvalidKernelImage;
+    it = ready.emplace(std::make_pair(kernel, dev), r).first;
+  }
+  Ready& r = it->second;
+  if (r.err != cudaSuccess) return r.err;
+  if ((int)smem > r.smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    r.smem = (int)smem;
+  }
+  *sms = r.sms;
+  return cudaSuccess;
+}
+
 template <int C, typename Kernel, typename... Ends>
 cudaError_t launch(Kernel kernel, size_t smem, const float* x,
                    const float* split, const float* vecs, float* out,
@@ -775,17 +816,9 @@ cudaError_t launch(Kernel kernel, size_t smem, const float* x,
   CUtensorMap tm_w;
   cudaError_t e = make_w_map<C>(&tm_w, split, 2 * n_blocks);
   if (e != cudaSuccess) return e;
-  int dev, sms;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  int sms;
+  e = kernel_ready(reinterpret_cast<const void*>(kernel), smem, &sms);
   if (e != cudaSuccess) return e;
-  cudaFuncAttributes fa = {};
-  if ((e = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return e;
-  if (fa.numRegs != REGS) return cudaErrorInvalidKernelImage;
   const int tiles = (n_rows + BM - 1) / BM;
   kernel<<<tiles < sms ? tiles : sms, THREADS, smem, stream>>>(
       tm_w, x, vecs, out, n_rows, cw, n_blocks, use_bn, ends...);

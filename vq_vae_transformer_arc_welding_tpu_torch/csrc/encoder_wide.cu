@@ -36,12 +36,20 @@
 // in registers while the tensor cores multiply this one), mma.sync
 // m16n8k8 TF32 or m16n8k16 bf16 from eight warps of 32 x 32 (four of
 // 32 x 64 took 255 registers and spilled), and a rolled epilogue over
-// the stashed tile. What it costs against the
-// tile: every product reads its A (N x C) and writes its output from
-// and to device memory (three (N, C) passes a resblock beside the
-// tile's two a group), the GELU of A is made again by each of the
-// C / 128 column blocks, and mma.sync runs below wgmma's rate.
-// PERF.md has its times beside its bound.
+// the stashed tile. Each element of a chunk is converted once, as it is
+// stored: split into its TF32 hi and lo terms, or rounded to bf16 (W
+// comes as bf16 and is stored as it is). The fragments are read as
+// they lie by ldmatrix: A's (a TF32 fragment is four 8 x 4-word
+// matrices), f32 W's from W stored transposed, bf16 W's by
+// ldmatrix.trans. Converting at each fragment read instead did it once
+// per warp that reads it (four for A, two for W) and set the kernel's
+// time (3.1x in bf16, 1.2x in f32 at hidden 1,024: PERF.md, from
+// scripts/bench_encoder_wide.py). What it costs against the tile: every
+// product reads its A (N x C) and writes its output from and to device
+// memory (three (N, C) passes a resblock beside the tile's two a
+// group), the GELU of A is made again by each of the C / 128 column
+// blocks, and mma.sync runs below wgmma's rate. PERF.md has its times
+// beside its bound.
 //
 // Widths: any C from 1; K and the columns past C are zeros (loads past
 // the row are not made), so no row needs any alignment. The ends:
@@ -49,6 +57,9 @@
 // (#4's prologue in encoder_edges.cu); sep_conv the same, and the
 // nearest code by code_scan.cuh, as #5's epilogue.
 #include <cuda_bf16.h>
+
+#include <mutex>
+#include <type_traits>
 
 #include "code_scan.cuh"
 #include "common.cuh"
@@ -62,17 +73,40 @@ constexpr int BM = 64;        // rows a block
 constexpr int BN = 128;       // output columns a block
 constexpr int BK = 32;        // K a chunk
 constexpr int THREADS = 256;  // eight warps, 2 x 4, of 32 rows x 32 columns
-constexpr int A_PITCH = BK + 4;   // A chunk rows: 4g + tq on distinct banks
-constexpr int W_PITCH = BN + 8;   // W chunk rows (k): 8 tq + g likewise
-constexpr int O_PITCH = BN + 4;   // the stashed output tile
-constexpr int A_FLOATS = BM * A_PITCH, W_FLOATS = BK * W_PITCH;
-constexpr int SMEM_FLOATS = A_FLOATS + W_FLOATS > BM * O_PITCH
-                                ? A_FLOATS + W_FLOATS
-                                : BM * O_PITCH;
+// blocks an SM, so that one stores its chunk while another multiplies:
+// bf16 fits two in 128 registers a thread; split TF32 at 128 spills
+// (184 bytes, ptxas) and runs one
+constexpr int BF16_BLOCKS = 2, F32_BLOCKS = 1;
 constexpr int A_LOADS = BM * BK / THREADS;   // 8 a thread, a row each
 constexpr int W_LOADS = BK * BN / THREADS;   // 16 a thread
 static_assert(A_LOADS * (THREADS / 32) == BM && BN * 2 == THREADS,
               "a chunk's loads: a warp's rows of A, two threads a W column");
+constexpr int O_PITCH = BN + 4;   // the stashed output tile, in floats
+
+// A chunk's operands in shared memory, each converted once, as it is
+// stored. Split TF32: A's and W's hi and lo terms, 32-bit words, A as
+// rows of k and W transposed, rows of n, both of BK + 4 words (eight
+// 16-byte ldmatrix rows on distinct banks; W's stores, 8 n by 4 k a
+// warp, likewise). bf16: A and W rounded to bf16, A rows of BK + 8 and
+// W rows (k) of BN + 8 elements (16-byte rows, eight of them on
+// distinct banks for ldmatrix and ldmatrix.trans). The output tile
+// reuses the space.
+template <bool BF16>
+struct Chunk {
+  using T = std::conditional_t<BF16, __nv_bfloat16, uint32_t>;
+  static constexpr int TERMS = BF16 ? 1 : 2;
+  static constexpr int A_PITCH = BF16 ? BK + 8 : BK + 4;
+  static constexpr int W_PITCH = BF16 ? BN + 8 : BK + 4;
+  static constexpr int A_ELEMS = BM * A_PITCH;
+  static constexpr int W_ELEMS = (BF16 ? BK : BN) * W_PITCH;
+  static constexpr int BYTES =
+      (int)sizeof(T) * TERMS * (A_ELEMS + W_ELEMS);
+  static constexpr int SMEM = BYTES > (int)sizeof(float) * BM * O_PITCH
+                                  ? BYTES
+                                  : (int)sizeof(float) * BM * O_PITCH;
+  static_assert(A_PITCH * sizeof(T) % 16 == 0 && W_PITCH * sizeof(T) % 16 == 0,
+                "ldmatrix rows are 16-byte aligned");
+};
 
 __device__ __forceinline__ uint32_t tf32_of(float v) {
   uint32_t r;
@@ -87,10 +121,27 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = tf32_of(__fsub_rn(v, __uint_as_float(hi)));
 }
 
-// two f32 as bf16 (to nearest even), the lower index in the lower half
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices (8 x 4 32-bit words: a TF32 fragment's
+// quarter); lanes 8 i .. 8 i + 7 give matrix i's row addresses,
+// register i holds matrix i (.trans: transposed)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
 // d += a (16 x 8 TF32) * b (8 x 8 TF32)
@@ -113,13 +164,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float weight(const float* w, size_t i) {
-  return __ldg(w + i);
-}
-__device__ __forceinline__ float weight(const __nv_bfloat16* w, size_t i) {
-  return __bfloat162float(w[i]);
-}
-
 // One product of a resblock on a 64 x 128 output tile (blockIdx.x:
 // row tile * column tiles + column tile). FIRST: A = gelu(a), a the
 // residual stream, and dst = gelu(A @ W + b [-> BN]) (h); otherwise
@@ -129,14 +173,18 @@ __device__ __forceinline__ float weight(const __nv_bfloat16* w, size_t i) {
 // f32 (split TF32) or bf16; vr: the product's vector rows (b, and BN's
 // mean, var, scale and bias), rows of cw.
 template <typename W, bool FIRST, bool USE_BN>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS,
+                                  sizeof(W) == 2 ? BF16_BLOCKS : F32_BLOCKS)
 product_kernel(const float* a, const W* __restrict__ w,
                const float* __restrict__ vr, const float* resid, float* dst,
                int n_rows, int cw) {
   constexpr bool BF16 = sizeof(W) == 2;
-  __shared__ __align__(16) float smem[SMEM_FLOATS];
-  float* const a_s = smem;
-  float* const w_s = smem + A_FLOATS;
+  using CK = Chunk<BF16>;
+  using T = typename CK::T;
+  constexpr int AP = CK::A_PITCH, WP = CK::W_PITCH;
+  extern __shared__ float4 smem4[];
+  T* const a_s = reinterpret_cast<T*>(smem4);       // [TERMS][BM][AP]
+  T* const w_s = a_s + CK::TERMS * CK::A_ELEMS;  // [TERMS][BK][WP], f32 [BN]
   const int col_tiles = (cw + BN - 1) / BN;
   const int row0 = blockIdx.x / col_tiles * BM;
   const int col0 = blockIdx.x % col_tiles * BN;
@@ -144,6 +192,9 @@ product_kernel(const float* a, const W* __restrict__ w,
   const int g = lane / 4, tq = lane % 4;
   const int wr = warp / 4 * 32, wc = warp % 4 * 32;   // the warp's tile
   constexpr int NT = 4;                                // its 8-column tiles
+  // ldmatrix's row of the lane: rows 0-15 of a 16-row block, then the
+  // next 16-byte column
+  const int lrow = lane % 16, lcol = lane / 16;
 
   float acc[2][NT][4];
 #pragma unroll
@@ -154,10 +205,19 @@ product_kernel(const float* a, const W* __restrict__ w,
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
 
   // the next chunk in registers: A rows warp * A_LOADS + i at k0 +
-  // lane, W rows k0 + 2 j + tid / BN at column col0 + tid % BN; zeros
-  // past the matrices
-  float ra[A_LOADS], rw[W_LOADS];
+  // lane, W's j-th element of the thread at (k0 + w_k(j), col0 +
+  // w_n(j)); zeros past the matrices. bf16: rows of k, two threads a
+  // column; f32: 8 x 4 blocks of (n, k), a warp's 4 rows of 8 columns
+  // (transposed as they are stored)
+  float ra[A_LOADS];
+  W rw[W_LOADS];
   const int wk = tid / BN, wn = tid % BN;
+  auto w_k = [&](int j) {
+    return BF16 ? 2 * j + wk : (j * 8 + warp) / 16 * 4 + lane % 4;
+  };
+  auto w_n = [&](int j) {
+    return BF16 ? wn : (j * 8 + warp) % 16 * 8 + lane / 4;
+  };
   auto load = [&](int k0) {
     const int k = k0 + lane;
 #pragma unroll
@@ -165,69 +225,85 @@ product_kernel(const float* a, const W* __restrict__ w,
       const int row = row0 + warp * A_LOADS + i;
       ra[i] = row < n_rows && k < cw ? a[(size_t)row * cw + k] : 0.0f;
     }
-    const int n = col0 + wn;
 #pragma unroll
     for (int j = 0; j < W_LOADS; ++j) {
-      const int kj = k0 + 2 * j + wk;
-      rw[j] = kj < cw && n < cw ? weight(w, (size_t)kj * cw + n) : 0.0f;
+      const int kj = k0 + w_k(j), n = col0 + w_n(j);
+      rw[j] = kj < cw && n < cw ? w[(size_t)kj * cw + n] : W(0.0f);
     }
   };
   load(0);
   for (int k0 = 0; k0 < cw; k0 += BK) {
+    // the chunk into shared memory, each element converted here once
 #pragma unroll
-    for (int i = 0; i < A_LOADS; ++i)
-      a_s[(warp * A_LOADS + i) * A_PITCH + lane] =
-          FIRST ? gelu_erf(ra[i]) : ra[i];
+    for (int i = 0; i < A_LOADS; ++i) {
+      const float v = FIRST ? gelu_erf(ra[i]) : ra[i];
+      const int at = (warp * A_LOADS + i) * AP + lane;
+      if constexpr (BF16) {
+        a_s[at] = __float2bfloat16_rn(v);
+      } else {
+        split_tf32(v, a_s[at], a_s[CK::A_ELEMS + at]);
+      }
+    }
 #pragma unroll
-    for (int j = 0; j < W_LOADS; ++j)
-      w_s[(2 * j + wk) * W_PITCH + wn] = rw[j];
+    for (int j = 0; j < W_LOADS; ++j) {
+      if constexpr (BF16) {
+        w_s[w_k(j) * WP + w_n(j)] = rw[j];
+      } else {
+        const int at = w_n(j) * WP + w_k(j);
+        split_tf32(rw[j], w_s[at], w_s[CK::W_ELEMS + at]);
+      }
+    }
     __syncthreads();
     if (k0 + BK < cw) load(k0 + BK);
     if constexpr (BF16) {
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t af[2][4];
+        uint32_t af[2][4], bf[2][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* p = a_s + (wr + mt * 16 + g) * A_PITCH + kk + 2 * tq;
-          af[mt][0] = bf16x2(p[0], p[1]);
-          af[mt][1] = bf16x2(p[8 * A_PITCH], p[8 * A_PITCH + 1]);
-          af[mt][2] = bf16x2(p[8], p[9]);
-          af[mt][3] = bf16x2(p[8 * A_PITCH + 8], p[8 * A_PITCH + 9]);
-        }
+        for (int mt = 0; mt < 2; ++mt)
+          ldsm_x4(af[mt], a_s + (wr + mt * 16 + lrow) * AP + kk + 8 * lcol);
+        // two 8-column tiles an ldmatrix: k 0-7 and 8-15 of each
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float* q = w_s + (kk + 2 * tq) * W_PITCH + wc + nt * 8 + g;
-          const uint32_t b0 = bf16x2(q[0], q[W_PITCH]);
-          const uint32_t b1 = bf16x2(q[8 * W_PITCH], q[9 * W_PITCH]);
+        for (int np = 0; np < NT / 2; ++np)
+          ldsm_x4_trans(bf[np], w_s + (kk + lrow) * WP + wc +
+                                    (2 * np + lcol) * 8);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
-        }
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_bf16(acc[mt][nt], af[mt], bf[nt / 2][nt % 2 * 2],
+                     bf[nt / 2][nt % 2 * 2 + 1]);
       }
     } else {
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 8) {
+        // a TF32 fragment is four 8 x 4-word matrices: rows 0-7 and
+        // 8-15 at k 0-3, then at k 4-7
         uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          const float* p = a_s + (wr + mt * 16 + g) * A_PITCH + kk + tq;
-          split_tf32(p[0], ahi[mt][0], alo[mt][0]);
-          split_tf32(p[8 * A_PITCH], ahi[mt][1], alo[mt][1]);
-          split_tf32(p[4], ahi[mt][2], alo[mt][2]);
-          split_tf32(p[8 * A_PITCH + 4], ahi[mt][3], alo[mt][3]);
+          const T* p = a_s + (wr + mt * 16 + lrow) * AP + kk + 4 * lcol;
+          ldsm_x4(ahi[mt], p);
+          ldsm_x4(alo[mt], p + CK::A_ELEMS);
         }
+        // and B's as 8 x 4-word matrices of W's rows (n): two 8-column
+        // tiles an ldmatrix, k 0-3 and 4-7 of each
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float* q = w_s + (kk + tq) * W_PITCH + wc + nt * 8 + g;
-          uint32_t bhi0, blo0, bhi1, blo1;
-          split_tf32(q[0], bhi0, blo0);
-          split_tf32(q[4 * W_PITCH], bhi1, blo1);
+        for (int np = 0; np < NT / 2; ++np) {
+          const T* q = w_s + (wc + (2 * np + lcol) * 8 + lane % 8) * WP + kk +
+                       lane / 8 % 2 * 4;
+          uint32_t bhi[4], blo[4];
+          ldsm_x4(bhi, q);
+          ldsm_x4(blo, q + CK::W_ELEMS);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma_tf32(acc[mt][nt], alo[mt], bhi0, bhi1);
-            mma_tf32(acc[mt][nt], ahi[mt], blo0, blo1);
-            mma_tf32(acc[mt][nt], ahi[mt], bhi0, bhi1);
-          }
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              float (&d)[4] = acc[mt][2 * np + h];
+              mma_tf32(d, alo[mt], bhi[2 * h], bhi[2 * h + 1]);
+              mma_tf32(d, ahi[mt], blo[2 * h], blo[2 * h + 1]);
+              mma_tf32(d, ahi[mt], bhi[2 * h], bhi[2 * h + 1]);
+            }
         }
       }
     }
@@ -236,7 +312,7 @@ product_kernel(const float* a, const W* __restrict__ w,
 
   // the tile into shared memory as it is, then one column and every
   // other row a thread
-  float* const o_s = smem;
+  float* const o_s = reinterpret_cast<float*>(smem4);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -265,6 +341,24 @@ product_kernel(const float* a, const W* __restrict__ w,
     const size_t at = (size_t)(row0 + r) * cw + col;
     dst[at] = FIRST ? gelu_erf(y) : resid[at] + y;
   }
+}
+
+// a kernel's dynamic shared memory raised to `smem` once a device
+// (it is fixed for each kernel)
+template <auto Kernel>
+cudaError_t allow_smem(size_t smem) {
+  constexpr int MAX_DEVICES = 64;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t err[MAX_DEVICES];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev, smem] {
+    err[dev] = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  });
+  return err[dev];
 }
 
 // out = patches @ w_pe + b_pe: FMAs in index order from zero, then the
@@ -362,9 +456,7 @@ cudaError_t launch_exit(const float* x, const float* w_sep,
                         int n_rows, int cw, int d_emb, int k_codes,
                         cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * EXIT_FLOATS;
-  cudaError_t e = cudaFuncSetAttribute(
-      exit_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = allow_smem<exit_kernel<DP>>(smem);
   if (e != cudaSuccess) return e;
   exit_kernel<DP><<<(n_rows + BM - 1) / BM, scan::THREADS, smem, stream>>>(
       x, w_sep, b_sep, codebook, ids, n_rows, cw, d_emb, k_codes);
@@ -375,13 +467,17 @@ template <typename W, bool FIRST>
 cudaError_t launch_product(const float* a, const W* w, const float* vr,
                            const float* resid, float* dst, int n_rows,
                            int cw, int use_bn, cudaStream_t stream) {
+  constexpr int smem = Chunk<sizeof(W) == 2>::SMEM;
   const size_t blocks = (size_t)((n_rows + BM - 1) / BM) * ((cw + BN - 1) / BN);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaError_t e = use_bn ? allow_smem<product_kernel<W, FIRST, true>>(smem)
+                         : allow_smem<product_kernel<W, FIRST, false>>(smem);
+  if (e != cudaSuccess) return e;
   if (use_bn)
-    product_kernel<W, FIRST, true><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    product_kernel<W, FIRST, true><<<(unsigned)blocks, THREADS, smem, stream>>>(
         a, w, vr, resid, dst, n_rows, cw);
   else
-    product_kernel<W, FIRST, false><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    product_kernel<W, FIRST, false><<<(unsigned)blocks, THREADS, smem, stream>>>(
         a, w, vr, resid, dst, n_rows, cw);
   return cudaGetLastError();
 }
