@@ -229,6 +229,28 @@ above 512), #5 (at hidden 512 and 1,024) and #7 at (K, D) of (1024,
 with plain beside the bound; the encoder_wide.cu kernels again on the
 served model's rows, which the record's entries for them report.
 
+Then every transformer the transformer CLI can build
+(`transformer_shapes_phase`): the VQ-VAE CLI for one epoch on
+`cli_phase`'s CSV, then the transformer CLI's `main` at --d-model 1600
+--n-heads 25 (GPT-2 XL's width; 2 blocks, one epoch a stage) on its
+latents; the checkpoint served in int8 through `cli/score_quality` at
+--stride 4 (#1, #2 and the int8 GEMM; the class head's (1,600 -> 1)
+int8 product exact on the card) with labels equal to the plain path's
+outside the 1e-3 margin, and its first block on #6, fed the request's
+own tokens, held against plain stage by stage. Seed models (one block, hidden-64 VQ-VAE) at
+C 200 (8 heads of 25), 2,048 (8 of 256) and 1,800 (6 of 300) through
+`classify` and `make_pipeline_quantized` 'attn' and 'full' (1,800 also
+fused_attention=True), each launching exactly its kernels, labels
+against plain; one `attention_impl='pallas'` training step at heads of
+256 against plain (loss 1e-5, gradient norm 1e-4). Then the widened
+kernels against their plain versions, timed in turns beside their
+bounds: the int8 GEMM at its four shapes of a block (bit-equal) and
+LN+q8 launched alone (`ln_q8`, the record's entry) at C 200, 1,000,
+1,600, 2,048 and 4,096 on 1,284 rows, and #9 and #11 at head widths 25,
+125, 192, 256, 300, 512 and 4,096 (heads past 128 on the f32
+attention's wide tile); the record's `transformer_shapes` lists each
+kernel's C or head widths there.
+
 Last, the training CLIs chained into the scorer (`cli_phase`), in a
 temporary working directory on one synthetic CSV (24 runs of 160
 cycles): `cli/train_reconstruction_embedding.main` (hidden 512, 8
@@ -444,6 +466,36 @@ SHAPES_CODEBOOKS = ((1024, 64), (4096, 32), (512, 128), (256, 48),
 SHAPES_BF16 = (64, 256, 576, 1024)
 SHAPES_ROWS = 6400
 SHAPES_REPS = 5             # timed calls a kernel and plain version
+# transformer_shapes_phase: every transformer the transformer CLI can
+# build (the JAX package's cli/train_transformer_mtasks.py:34-35 takes any
+# --d-model with any --n-heads that divides it). The CLI at GPT-2 XL's
+# width (d1600, 25 heads of 64), its depth cut to 2 blocks and each of
+# its stages to one epoch, on cli_phase's CSV and a VQ-VAE the VQ-VAE CLI
+# trains there for one epoch; its checkpoint scored every TSHAPES_STRIDE
+# windows. Seed models (entry.build, one block, the quality study's
+# hidden-64 VQ-VAE) at C off 64 and above 1,024 and heads past 128; one
+# attention_impl='pallas' step at heads of 256
+TSHAPES_VQ_ARGS = ["--epochs", "1"]
+TSHAPES_CLI_ARGS = ["--d-model", "1600", "--n-heads", "25", "--n-blocks",
+                    "2", "--epoch_iter", "1", "--gen-epochs", "1",
+                    "--class-epoch", "1", "--finetune-epochs", "1",
+                    "--no-early-stopping"]
+TSHAPES_STRIDE = 4
+TSHAPES_MODELS = ((200, 8), (2048, 8), (1800, 6))   # (C, heads)
+TSHAPES_FUSED = (1800, 6)   # the seed model also run with fused_attention
+TSHAPES_TRAIN = (512, 2)    # the training step's (C, heads): heads of 256
+# then every widened kernel against its plain version, timed in turns:
+# the int8 GEMM at its four shapes of a block and LN+q8 at these C, on
+# TSHAPES_ROWS rows (4 windows of T=321); the f32 attention (#9 and #11)
+# at these head widths on batch 4, T=321, in max(1, 512 // hd) heads
+TSHAPES_C = (200, 1000, 1600, 2048, 4096)
+TSHAPES_HEADS = (25, 125, 192, 256, 300, 512, 4096)
+TSHAPES_BATCH = 4
+TSHAPES_ROWS = TSHAPES_BATCH * 321
+# the record's LN+q8 entry: its launch alone (fused_block_quant.ln_q8),
+# held and timed at the CLI model's width
+LN_ALONE = "ln_q8"
+TSHAPES_LN_RECORD = 1600
 # torch's defaults, which the training phase runs under
 TORCH_DEFAULT_TF32 = dict(matmul=False, cudnn=True)
 # the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
@@ -521,6 +573,8 @@ RECORD = {
     # with GELU+q8 and the monitor's counts, m_proj with the residual):
     # the function #8 fuses (the JAX 'attn' path runs it on XLA)
     GEMM: ("int8_gemm.cu", "pallas_mlp_quant.py:67"),
+    # #2's LayerNorm+q8 rows launched alone (the transformer shapes phase)
+    LN_ALONE: ("attn_block_quant.cu", "pallas_block_quant.py:255"),
 }
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -610,6 +664,7 @@ def kernel_work(n_rows, c, grp, n_res, patch, d, k, b, t, n_head, dec_b,
     work = {
         **gemm,
         LN_Q8: (xs + 2 * c * f4 + m * c, {}),
+        LN_ALONE: (xs + 2 * c * f4 + m * c, {}),
         GEMM: (m * c + w_mlp + 10 * c * f4 + 2 * xs + m * f4,
                {"int8": mlp}),
         INT8_ATTENTION: (4 * m * c + head_scales, {"int8": attn}),
@@ -764,7 +819,8 @@ PTXAS_KERNELS = ("attention_kernel", "flash_attention_bf16_kernel",
                  "nearest_rows", QUANT_PASS, INT8_ATTENTION, "decode_kernel",
                  LN_Q8, "encoder_chain_bf16_kernel", "nearest_codes_kernel",
                  "nearest_codes_chunked", "product_kernel", "embed_kernel",
-                 "exit_kernel")
+                 "exit_kernel", "attention_wide_kernel", "ln_q8_any_kernel",
+                 "q8_rows_kernel")
 # the sources whose kernels must use no stack either (1b and #7)
 NO_STACK = ("encoder_chain_bf16.cu", "nearest_codes.cu")
 # kernels whose setmaxnreg requests assume ptxas gave them 65536 / 384
@@ -1018,6 +1074,50 @@ class Worst:
             if key in table:
                 return table[key]
         return float(self.step[key])
+
+
+def block_stages(worst: Worst, name: str, x, sc: dict, w: dict, scales, vc,
+                 v3c, v4c, n_head: int, int8_attn: bool) -> str:
+    """#2's or #6's intermediates (sc, its scratch, with "out" for #6),
+    each held in `worst` against the plain step fed the kernel's own
+    input to that step, so that a one-step flip upstream does not count
+    downstream. w: the block's int8 weights by Linear name."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_attn_quant as fattn, fused_block_quant as fbq,
+        fused_mlp_quant as fmlp)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.int8 import (
+        int8_matmul, quantize_act)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+    notes = [
+        worst.int8(f"{name}.h8a", sc["h8a"], quantize_act(
+            layer_norm(x, vc[0], vc[1]), scales[0])),
+        worst.f32(f"{name}.qkv", sc["qkv"], int8_matmul(
+            sc["h8a"], w["c_attn"]).float() * v3c[0] + v3c[1]),
+        worst.int8(f"{name}.y8", sc["y8"], quantize_act(
+            fattn.attention_core_reference(
+                sc["qkv"], n_head, int8_attn=int8_attn), scales[1]))]
+    if int8_attn:
+        qkv8, head_scales = fbq.quantize_heads_reference(sc["qkv"], n_head)
+        same = (torch.equal(sc["qkv8"], qkv8),
+                torch.equal(sc["head_scales"], head_scales))
+        check(all(same), f"{name}: the quantizing pass's qkv8 and "
+                         f"scales bit-equal to plain: {same}")
+        notes.append("qkv8 and head_scales bit-equal")
+    x_mid = sc["x_mid"]
+    notes += [
+        worst.f32(f"{name}.x_mid", x_mid, x + (int8_matmul(
+            sc["y8"], w["c_proj"]).float() * vc[4] + vc[5])),
+        worst.int8(f"{name}.h8", sc["h8"], quantize_act(
+            layer_norm(x_mid, vc[2], vc[3]), scales[2]))]
+    if "g8" in sc:
+        notes += [
+            worst.int8(f"{name}.g8", sc["g8"], fmlp.fc_gelu_q8_reference(
+                sc["h8"], w["c_fc"], v4c, scales[3])),
+            worst.f32(f"{name}.out", sc["out"], x_mid + (
+                int8_matmul(sc["g8"], w["m_proj"]).float() * vc[6]
+                + vc[7]))]
+    return ", ".join(notes)
 
 
 def first_departures(ids, ref):
@@ -3893,6 +3993,394 @@ def shapes_phase(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# -- every transformer the transformer CLI can build ----------------------
+
+def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
+    """The transformer CLI at TSHAPES_CLI_ARGS (see the constants), its
+    checkpoint scored in int8 by cli/score_quality against the plain
+    path; seed models at TSHAPES_MODELS through classify and
+    make_pipeline_quantized 'attn' and 'full' (TSHAPES_FUSED also
+    fused_attention=True) against their plain paths; one
+    attention_impl='pallas' training step at TSHAPES_TRAIN against plain;
+    then every widened kernel against its plain version, timed in turns
+    beside its bound: the int8 GEMM and LN+q8 at TSHAPES_C, #9 and #11 at
+    TSHAPES_HEADS. Returns {"launched": {kernel: (path, launches)},
+    "held": {kernel: [C or head widths]}, and LN+q8's "times",
+    "device_ms", "work" and "err" at TSHAPES_LN_RECORD}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.cli import (
+        score_quality, train_reconstruction_embedding,
+        train_transformer_mtasks)
+    from vq_vae_transformer_arc_welding_tpu_torch.data import (
+        ASIMoWDataModule, get_val_test_ids, load_asimow_csv, synthetic)
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import (
+        build, make_pipeline_quantized)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_attn as fflash, fused_attn_quant as fattn,
+        fused_block_quant as fbq, int8_gemm as igemm)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.attention import (
+        split_heads)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        CYCLE_LEN, WeldingQualityPipeline, with_start_token)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        TransformerGenTask)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    out = {"launched": {}, "held": {}}
+
+    def note(counts, path, shape):
+        """Record a run's launches, and the shape (C or head width) each
+        of the transformer's kernels ran at."""
+        for name, n in counts.items():
+            out["launched"].setdefault(name, (path, n))
+            if name != ENC:
+                held = out["held"].setdefault(name, [])
+                if shape not in held:
+                    held.append(shape)
+
+    def labels_hold(what, got, plain) -> int:
+        """Labels of logits `got` equal plain's outside the margin."""
+        sure = (plain[:, 0] - plain[:, 1]).abs() > LABEL_MARGIN
+        same = got.argmax(-1) == plain.argmax(-1)
+        check(bool(torch.isfinite(got).all()) and bool(same[sure].all()),
+              f"transformer shapes {what}: labels differ from the plain "
+              f"path's on {int((~same)[sure].sum())} windows outside the "
+              f"margin")
+        return int(sure.sum())
+
+    # -- X1. the transformer CLI at d1600 / 25 heads, scored in int8 -------
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            data_dir = os.path.join(tmp, "data")
+            csv_path = os.path.join(data_dir, "processed_asimow_dataset.csv")
+            synthetic.write_synthetic_csv(csv_path, seed=SEED, **CLI_CSV)
+            vi, _, exp, run = load_asimow_csv(csv_path)
+            common = ["--data-dir", data_dir, "--device", device]
+            vq_best = os.path.join(tmp, "model_checkpoints", "VQ-VAE-Patch",
+                                   "VQ-VAE-Patch-best.ckpt")
+            secs_vq = host_seconds(lambda: train_reconstruction_embedding.main(
+                train_reconstruction_embedding.build_parser().parse_args(
+                    TSHAPES_VQ_ARGS + common)))
+            check(os.path.exists(vq_best),
+                  "transformer shapes: the VQ-VAE CLI wrote no checkpoint")
+            got = [None]
+            args = train_transformer_mtasks.build_parser().parse_args(
+                TSHAPES_CLI_ARGS + ["--vqvae-model", vq_best] + common)
+
+            def train():
+                got[0] = train_transformer_mtasks.main(args)
+
+            secs_tr = host_seconds(train)
+            tm_run, results = got[0]
+            tr = tm_run.model
+            check((tr.d_model, tr.n_head, len(tr.blocks))
+                  == (args.d_model, args.n_heads, args.n_blocks)
+                  and math.isfinite(results["gen_test"]["test/loss"]),
+                  f"transformer shapes: the CLI built d{tr.d_model}, "
+                  f"{tr.n_head} heads, {len(tr.blocks)} blocks; {results}")
+            tr_ckpt = os.path.join(tmp, "transformer.ckpt")
+            tr.save(tr_ckpt)
+            log(f"transformer shapes: VQ-VAE CLI main("
+                f"{' '.join(TSHAPES_VQ_ARGS)}) {secs_vq:.2f} s, transformer "
+                f"CLI main({' '.join(TSHAPES_CLI_ARGS)}) {secs_tr:.2f} s "
+                f"wall: d{tr.d_model}, {tr.n_head} heads of "
+                f"{tr.d_model // tr.n_head}, {len(tr.blocks)} blocks, "
+                f"T={tr.seq_len}; gen test loss "
+                f"{results['gen_test']['test/loss']:.5f}; gpu {smi}")
+            pipe = WeldingQualityPipeline.from_checkpoints(
+                vq_best, tr_ckpt, n_cycles=N_CYCLES, max_batch=80,
+                precision="int8", encoder_impl="fused", device=device)
+            ids_split = get_val_test_ids()
+            dm = ASIMoWDataModule(task="reconstruction", n_cycles=1,
+                                  val_data_ids=ids_split["val_ids"],
+                                  test_data_ids=ids_split["test_ids"],
+                                  data_directory_path=data_dir)
+            dm.setup()
+            pipe.scaler = dm.scaler
+            cyc = dm.scaler.transform(vi[:N_CALIB * N_CYCLES])
+            pipe.calibrate(cyc.reshape(N_CALIB, N_CYCLES * CYCLE_LEN, 2))
+            art = pipe.save_artifact(os.path.join(tmp, "artifact"))
+            argv = ["--artifact", art, "--data-path", csv_path, "--stride",
+                    str(TSHAPES_STRIDE), "--device", device]
+            parser = score_quality.build_parser()
+            kernel_out = os.path.join(tmp, "scores.csv")
+            plain_out = os.path.join(tmp, "scores_plain.csv")
+            secs = [0.0]
+
+            def score():
+                secs[0] = host_seconds(lambda: score_quality.main(
+                    parser.parse_args(argv + ["--out", kernel_out])))
+
+            _, counts = counted(score)
+            check(set(counts) == {ENC, ATTN, GEMM},
+                  f"transformer shapes: the scorer launched "
+                  f"{json.dumps(counts)}, expected {ENC}, {ATTN}, {GEMM}")
+            note(counts, f"transformer shapes: score_quality on the "
+                         f"d{tr.d_model} CLI checkpoint", f"C={tr.d_model}")
+            _, plain_counts = counted(on_plain_path(
+                lambda: score_quality.main(
+                    parser.parse_args(argv + ["--out", plain_out]))))
+            check(plain_counts == {},
+                  f"the plain scorer launched {json.dumps(plain_counts)}")
+            rows, plain = read_scores(kernel_out), read_scores(plain_out)
+            check(len(rows) > 0
+                  and [r[:3] for r in rows] == [r[:3] for r in plain],
+                  "transformer shapes: the scorer's windows differ from the "
+                  "plain scorer's")
+            q = np.array([[float(r[4]), float(r[5])] for r in plain])
+            p = np.array([[float(r[4]), float(r[5])] for r in rows])
+            margin = np.abs(np.log(np.maximum(q[:, 0], 1e-6))
+                            - np.log(np.maximum(q[:, 1], 1e-6)))
+            sure = margin > LABEL_MARGIN
+            lab = np.array([r[3] for r in rows])
+            plain_lab = np.array([r[3] for r in plain])
+            check(bool(np.isfinite(p).all())
+                  and bool((lab == plain_lab)[sure].all()),
+                  f"transformer shapes: the scorer's labels differ from the "
+                  f"plain path's on {int((lab != plain_lab)[sure].sum())} "
+                  f"windows outside the {LABEL_MARGIN} logit margin")
+            log(f"transformer shapes score_quality (int8) on the CLI's "
+                f"checkpoint: {len(rows)} windows at --stride "
+                f"{TSHAPES_STRIDE} in {secs[0]:.2f} s; launches "
+                f"{json.dumps(counts)}; labels equal the plain path's on all "
+                f"{int(sure.sum())} windows with a logit margin above "
+                f"{LABEL_MARGIN}, worst |dp| {float(np.abs(p - q).max()):.3e};"
+                f" the plain path outside the margin: "
+                f"{int((plain_lab[sure] == '0').sum())} bad, "
+                f"{int((plain_lab[sure] == '1').sum())} good; gpu {smi}")
+            # the trained model's first block on the request's own
+            # tokens, #6 held stage by stage as the main path holds it
+            # (a class head that gives every window one logit leaves the
+            # label gate no window to hold)
+            win = cyc.reshape(N_CALIB, N_CYCLES * CYCLE_LEN, 2)
+            ids = with_start_token(torch.from_numpy(pipe.encode_tokens(
+                win)).to(dev), pipe.start_token)
+            blk = pipe.qparams["blocks"][0]
+            scales, vc, v3c, v4c = fbq.packed_operands(blk)
+            w = dict(zip(("c_attn", "c_proj", "c_fc", "m_proj"),
+                         fbq.packed_weights(blk)))
+            worst = Worst()
+            with torch.inference_mode():
+                x = pipe.tr_model.embed(ids).float().contiguous()
+                sc = {}
+                sc["out"], counts = counted(lambda: fbq.block_quant(
+                    x, w["c_attn"], w["c_proj"], w["c_fc"], w["m_proj"],
+                    scales, vc, v3c, v4c, n_head=tr.n_head, scratch=sc))
+                held = block_stages(worst, FULL, x, sc, w, scales, vc, v3c,
+                                    v4c, tr.n_head, False)
+            check(counts == {FULL: 1}, f"transformer shapes: the CLI "
+                                       f"model's block 0 launched {counts}")
+            worst.check()
+            note(counts, f"transformer shapes: block_quant on the "
+                         f"d{tr.d_model} CLI checkpoint's block 0",
+                 f"C={tr.d_model}")
+            log(f"transformer shapes: the d{tr.d_model} CLI checkpoint's "
+                f"block 0 on #6, {N_CALIB} windows of its own tokens, "
+                f"stage by stage against plain: {held}; gpu {smi}")
+            del pipe, tr, tm_run, got
+        finally:
+            os.chdir(cwd)
+
+    # -- X2. seed models through the serving entry points ------------------
+    width = N_CYCLES * CYCLE_LEN
+    calib = rng.standard_normal((2, width, 2)).astype(np.float32)
+    req = rng.standard_normal((WIDTH_REQUEST, width, 2)).astype(np.float32)
+    xreq = torch.from_numpy(req).to(dev)
+    for c, nh in TSHAPES_MODELS:
+        vq, tr = build(d_model=c, n_heads=nh, n_blocks=1, hidden=64,
+                       n_res=1, k=WIDTH_MODEL["k"], d=WIDTH_MODEL["d"],
+                       seed=SEED)
+        what = f"d{c} ({nh} heads of {c // nh})"
+        pipe = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80,
+                                      precision="int8", encoder_impl="fused")
+        pipe.calibrate(calib)
+        (labels, probs), counts = counted(lambda: pipe.classify(req))
+        check(set(counts) == {ENC, ATTN, GEMM},
+              f"transformer shapes classify {what} launched {sorted(counts)}")
+        note(counts, f"transformer shapes classify {what}", f"C={c}")
+        with plain_path():
+            labels_p, probs_p = pipe.classify(req)
+        sure = np.abs(probs_p[:, 0] - probs_p[:, 1]) > LABEL_MARGIN
+        check(bool(np.isfinite(probs).all())
+              and bool((labels == labels_p)[sure].all()),
+              f"transformer shapes classify {what}: labels differ from the "
+              f"plain path's outside the margin")
+        parts = [f"classify {json.dumps(counts)}, {int(sure.sum())} sure"]
+        paths = [("attn", {"block_fusion": "attn"}, {ENC, ATTN, GEMM}),
+                 ("full", {"block_fusion": "full"}, {ENC, FULL})]
+        if (c, nh) == TSHAPES_FUSED:
+            paths.append(("fused_attention", {"block_fusion": None,
+                                              "fused_attention": True},
+                          {ENC, QKV}))
+        with torch.inference_mode():
+            for name, kw, want in paths:
+                fn = make_pipeline_quantized(vq, tr, pipe.qparams, **kw)
+                lk, counts = counted(lambda: fn(xreq))
+                check(set(counts) == want, f"transformer shapes {name} "
+                                           f"{what} launched {sorted(counts)}")
+                note(counts, f"transformer shapes {name} {what}", f"C={c}")
+                with plain_path():
+                    lp = fn(xreq)
+                n_sure = labels_hold(f"{name} {what}", lk, lp)
+                parts.append(f"{name} {json.dumps(counts)}, {n_sure} sure, "
+                             f"max |dlogit| "
+                             f"{float((lk - lp).abs().max()):.3e}")
+        log(f"transformer shapes seed model {what}, 1 block, T="
+            f"{tr.seq_len}, {len(req)} windows: labels equal the plain "
+            f"path's outside the {LABEL_MARGIN} margin on every path: "
+            + "; ".join(parts) + f"; gpu {smi}")
+        del vq, tr, pipe
+
+    # -- X3. a training step at heads of 256 ---------------------------------
+    c, nh = TSHAPES_TRAIN
+    _, trp = build(d_model=c, n_heads=nh, n_blocks=1, hidden=64, n_res=1,
+                   k=WIDTH_MODEL["k"], d=WIDTH_MODEL["d"], seed=SEED,
+                   attention_impl="pallas")
+    trp.requires_grad_(True)
+    trp.res_dropout = trp.att_dropout = 0.0
+    t = trp.seq_len
+    batch = (torch.randint(0, trp.n_classes, (WIDTH_TRAIN_BATCH, t),
+                           generator=gen),
+             torch.randint(0, 2, (WIDTH_TRAIN_BATCH,), generator=gen),
+             torch.randint(0, trp.n_classes, (WIDTH_TRAIN_BATCH, t),
+                           generator=gen))
+    batch = tuple(a.to(dev) for a in batch)
+    with tf32_flags(**TORCH_DEFAULT_TF32):
+        one_step_against_plain(
+            f"transformer shapes d{c} ({nh} heads of {c // nh})", trp,
+            TransformerGenTask(trp), batch, FLASH, trp.n_blocks, smi)
+    note({FLASH: trp.n_blocks}, f"transformer shapes training step (d{c}, "
+                                f"heads of {c // nh})", f"head {c // nh}")
+    del trp
+
+    # -- X4. every widened kernel against plain, timed in turns ----------
+    fns, bounds, errs = {}, {}, {}
+    m = TSHAPES_ROWS
+    with torch.inference_mode():
+        for c in TSHAPES_C:
+            work = kernel_work(1, c, 1, 1, 1, 1, 1, TSHAPES_BATCH, 321, 1, 1,
+                               1)
+            for shape, (nc, kc, q8, with_resid) in GEMM_SHAPES.items():
+                n_out, k_in = nc * c, kc * c
+                a8 = torch.randint(-127, 128, (m, k_in), generator=gen,
+                                   dtype=torch.int8).to(dev)
+                w8 = torch.randint(-127, 128, (n_out, k_in), generator=gen,
+                                   dtype=torch.int8).to(dev)
+                cs = (torch.rand(n_out, generator=gen) + 0.5).to(dev) \
+                    * (4.0 / (k_in ** 0.5 * 127 * 127))
+                cb = (torch.randn(n_out, generator=gen) * 0.1).to(dev)
+                resid = (torch.randn(m, n_out, generator=gen).to(dev)
+                         if with_resid else None)
+                qs = torch.tensor(30.0, device=dev) if q8 else None
+                args = (a8, w8, cs, cb, resid, qs)
+                got, counts = counted(lambda: igemm.int8_gemm(*args))
+                check(counts == {GEMM: 1}, f"transformer shapes {GEMM} "
+                                           f"{shape} C={c} launched {counts}")
+                check(torch.equal(got, igemm.int8_gemm_reference(*args)),
+                      f"transformer shapes {GEMM} {shape} at C={c}: not "
+                      f"bit-equal to the plain stage")
+                note(counts, "transformer shapes kernels", f"C={c}")
+                key = (GEMM, f"{shape} C={c} (N={n_out}, K={k_in})")
+                errs[key] = 0.0
+                fns[key] = (lambda a=args: igemm.int8_gemm(*a),
+                            lambda a=args: igemm.int8_gemm_reference(*a))
+                bounds[key] = bound_of(work[f"{GEMM} {shape}"])
+            x = (torch.randn(m, c, generator=gen) * 3).to(dev)
+            scale = (torch.rand(c, generator=gen) + 0.5).to(dev)
+            bias = (torch.randn(c, generator=gen) * 0.1).to(dev)
+            qs = torch.tensor(30.0, device=dev)
+            rails = torch.full((m,), -1, dtype=torch.int32, device=dev)
+            a = (x, scale, bias, qs)
+            h8, counts = counted(lambda: fbq.ln_q8(*a, rail_rows=rails))
+            check(counts == {LN_ALONE: 1}, f"transformer shapes {LN_ALONE} "
+                                           f"C={c} launched {counts}")
+            frac, step = int8_diff(h8, fbq.ln_q8_reference(*a))
+            check(frac <= MAX_INT8_DIFF_FRAC and step <= MAX_INT8_STEP
+                  and torch.equal(rails, (h8.int().abs() == 127).sum(
+                      -1, dtype=torch.int32)),
+                  f"transformer shapes {LN_ALONE} at C={c}: h8 differs in "
+                  f"{frac} by {step}, or its rail counts")
+            note(counts, "transformer shapes kernels", f"C={c}")
+            key = (LN_ALONE, f"C={c}")
+            errs[key] = float(step)
+            fns[key] = (lambda a=a: fbq.ln_q8(*a),
+                        lambda a=a: fbq.ln_q8_reference(*a))
+            bounds[key] = bound_of(work[LN_ALONE])
+            if c == TSHAPES_LN_RECORD:
+                out["err"], out["work"] = float(step), work[LN_ALONE]
+        for hd in TSHAPES_HEADS:
+            nh = max(1, 512 // hd)
+            c = nh * hd
+            qkv = (torch.randn(TSHAPES_BATCH, 321, 3 * c, generator=gen)
+                   * 2).to(dev)
+            q, k, v = (split_heads(z, nh) for z in qkv.split(c, dim=-1))
+            o, counts = counted(lambda: fflash.flash_attention_forward(
+                q, k, v))
+            ref = fflash.flash_causal_attention_reference(q, k, v)
+            e = float((o - ref).abs().max())
+            if e > MAX_ROW_ERR:
+                exact = fflash.flash_causal_attention_reference(
+                    q.double(), k.double(), v.double())
+                log(f"transformer shapes {FLASH} at head {hd}: {e:.3e} from "
+                    f"plain; against float64 the kernel "
+                    f"{float((o - exact).abs().max()):.3e}, plain "
+                    f"{float((ref - exact).abs().max()):.3e}")
+            check(e <= MAX_ROW_ERR, f"transformer shapes {FLASH} at head "
+                                    f"{hd}: {e} from plain")
+            note(counts, "transformer shapes kernels", f"head {hd}")
+            ys = torch.tensor(30.0, device=dev)
+            y8, counts2 = counted(lambda: fattn.fused_causal_attention_quant(
+                qkv, ys, n_head=nh))
+            frac, step = int8_diff(y8, fattn.causal_attention_quant_reference(
+                qkv, ys, n_head=nh))
+            check(frac <= MAX_INT8_DIFF_FRAC and step <= MAX_INT8_STEP,
+                  f"transformer shapes {CAUSAL} at head {hd}: y8 differs in "
+                  f"{frac} by {step}")
+            note(counts2, "transformer shapes kernels", f"head {hd}")
+            work = kernel_work(1, c, 1, 1, 1, 1, 1, TSHAPES_BATCH, 321, nh,
+                               1, 1)
+            for name, err, kfn, pfn in (
+                    (FLASH, e,
+                     lambda q=q, k=k, v=v: fflash.flash_attention_forward(
+                         q, k, v),
+                     lambda q=q, k=k, v=v:
+                     fflash.flash_causal_attention_reference(q, k, v)),
+                    (CAUSAL, float(step),
+                     lambda a=(qkv, ys), nh=nh:
+                     fattn.fused_causal_attention_quant(*a, n_head=nh),
+                     lambda a=(qkv, ys), nh=nh:
+                     fattn.causal_attention_quant_reference(*a, n_head=nh))):
+                key = (name, f"head {hd} ({nh} heads)")
+                errs[key], fns[key] = err, (kfn, pfn)
+                bounds[key] = bound_of(work[name])
+        # the kernels' device time a call (torch.profiler, cold operands):
+        # events around one call hold the host's launch
+        traced = kernel_trace({key: pair[0] for key, pair in fns.items()})
+        for key, (kfn, pfn) in fns.items():
+            t_k = timed_in_turns({"kernel": kfn, "plain": pfn},
+                                 reps=SHAPES_REPS, warmup=1)
+            bound, by = bounds[key]
+            ms = traced[key][0]
+            if key == (LN_ALONE, f"C={TSHAPES_LN_RECORD}"):
+                out["times"], out["device_ms"] = t_k, ms
+            log(f"transformer shapes kernel {key[0]} at {key[1]}: "
+                f"{fmt_ms(t_k['kernel'])}, plain {fmt_ms(t_k['plain'])}; "
+                f"device " + ("not measured" if ms is None
+                              else f"{ms:.4f} ms a call")
+                + f"; bound {bound:.4f} ms by {by}"
+                + ("" if ms is None else f" ({bound / ms:.1%} of the device "
+                                         f"time)")
+                + f"; worst difference from plain {errs[key]:.3e}; gpu {smi}")
+    log(f"transformer shapes phase: {time.perf_counter() - t_phase:.1f} s; "
+        f"gpu {smi}")
+    return out
+
+
 def newest_metrics(log_root: str) -> tuple[str, list]:
     """(path, rows) of the newest run's metrics.csv under log_root, each
     row {column: float} without its empty cells."""
@@ -4719,13 +5207,14 @@ def main() -> int:
     launched.update(bf16["launched"])
 
     # every serving kernel; #9 on bf16 operands is the bf16 training
-    # step's, checked there, and encoder_wide.cu's run at hidden widths
-    # off the bench model's, checked by shapes_phase
+    # step's, checked there, encoder_wide.cu's run at hidden widths off
+    # the bench model's, checked by shapes_phase, and LN+q8 alone is
+    # launched by transformer_shapes_phase (on the paths, inside #2)
     wide = (WIDE, WIDE_BF16, WIDE_ENTRY, WIDE_EXIT)
-    check(set(launched) == set(kernels.launches) - {FLASH_BF16, *wide},
+    apart = {FLASH_BF16, LN_ALONE, *wide}
+    check(set(launched) == set(kernels.launches) - apart,
           f"kernels no path launched: "
-          f"{sorted(set(kernels.launches) - {FLASH_BF16, *wide}
-                    - set(launched))}")
+          f"{sorted(set(kernels.launches) - apart - set(launched))}")
 
     with torch.inference_mode():
         x80 = xreqs[0]
@@ -4968,42 +5457,6 @@ def main() -> int:
                         *causal_args, n_head=nh)),
             }
 
-        def stages(name, x, sc, w, scales, vc, v3c, v4c, int8_attn):
-            """The kernel's intermediates (sc, its scratch), each against
-            the plain step fed the kernel's own input to that step, so
-            that a one-step flip upstream does not count downstream."""
-            notes = [
-                worst.int8(f"{name}.h8a", sc["h8a"], quantize_act(
-                    layer_norm(x, vc[0], vc[1]), scales[0])),
-                worst.f32(f"{name}.qkv", sc["qkv"], int8_matmul(
-                    sc["h8a"], w["c_attn"]).float() * v3c[0] + v3c[1]),
-                worst.int8(f"{name}.y8", sc["y8"], quantize_act(
-                    fattn.attention_core_reference(
-                        sc["qkv"], nh, int8_attn=int8_attn), scales[1]))]
-            if int8_attn:
-                qkv8, head_scales = fbq.quantize_heads_reference(sc["qkv"],
-                                                                 nh)
-                same = (torch.equal(sc["qkv8"], qkv8),
-                        torch.equal(sc["head_scales"], head_scales))
-                check(all(same), f"{name}: the quantizing pass's qkv8 and "
-                                 f"scales bit-equal to plain: {same}")
-                notes.append("qkv8 and head_scales bit-equal")
-            x_mid = sc["x_mid"]
-            notes += [
-                worst.f32(f"{name}.x_mid", x_mid, x + (int8_matmul(
-                    sc["y8"], w["c_proj"]).float() * vc[4] + vc[5])),
-                worst.int8(f"{name}.h8", sc["h8"], quantize_act(
-                    layer_norm(x_mid, vc[2], vc[3]), scales[2]))]
-            if "g8" in sc:
-                notes += [
-                    worst.int8(f"{name}.g8", sc["g8"],
-                               fmlp.fc_gelu_q8_reference(
-                                   sc["h8"], w["c_fc"], v4c, scales[3])),
-                    worst.f32(f"{name}.out", sc["out"], x_mid + (
-                        int8_matmul(sc["g8"], w["m_proj"]).float() * vc[6]
-                        + vc[7]))]
-            return ", ".join(notes)
-
         calls = {}
         for i, blk in enumerate(qp["blocks"]):
             scales, vc, v3c, v4c = blk["block_operands"]
@@ -5035,8 +5488,8 @@ def main() -> int:
                        worst.f32(f"{name}.end.x_mid", xm_k, xm_p,
                                  bound=not int8_attn)]
                 notes.append(f"{name}: end to end {', '.join(end)}; stages "
-                             + stages(name, xs, sc, w, scales, vc, v3c, v4c,
-                                      int8_attn))
+                             + block_stages(worst, name, xs, sc, w, scales,
+                                            vc, v3c, v4c, nh, int8_attn))
                 if not int8_attn:
                     x_mid = xm_p
             for name, int8_attn in ((FULL, False), (FULL8, True)):
@@ -5048,8 +5501,8 @@ def main() -> int:
                 sc["out"] = out_k
                 end = worst.f32(f"{name}.end.out", out_k, out_p, bound=False)
                 notes.append(f"{name}: end to end {end}; stages "
-                             + stages(name, xs, sc, w, scales, vc, v3c, v4c,
-                                      int8_attn))
+                             + block_stages(worst, name, xs, sc, w, scales,
+                                            vc, v3c, v4c, nh, int8_attn))
                 if not int8_attn:
                     nxt = out_p
                     if i == 0:
@@ -5361,6 +5814,16 @@ def main() -> int:
         times[name], work[name] = shapes["times"][name], shapes["work"][name]
         enc_err[name] = shapes["err"][name]
     id_flips[WIDE_EXIT] = shapes["flips"][WIDE_EXIT]
+    # -- 13c. every transformer the transformer CLI can build: its d1600
+    # model trained and scored, seed models at C off 64 and above 1,024
+    # and heads past 128, a training step at heads of 256, and every
+    # widened kernel at the grid ------------------------------------------
+    tshapes = transformer_shapes_phase(smi)
+    launched[LN_ALONE] = tshapes["launched"][LN_ALONE]
+    times[LN_ALONE], work[LN_ALONE] = tshapes["times"], tshapes["work"]
+    enc_err[LN_ALONE] = tshapes["err"]
+    if tshapes["device_ms"] is not None:
+        device_ms[LN_ALONE] = tshapes["device_ms"]
     # -- 14. the training CLIs, their checkpoints scored in int8 --------
     cli = cli_phase(smi)
     # -- 15. parallel/: mesh training, serving, checkpoints; TS2Vec -------
@@ -5402,6 +5865,12 @@ def main() -> int:
          **({"shapes": [list(x) if isinstance(x, tuple) else x
                         for x in shapes["held"][name]]}
             if name in shapes["held"] else {}),
+         # the transformer shapes phase: its paths' launches, and the C
+         # or head widths this run held the kernel at there
+         **({"transformer_shapes_path": tshapes["launched"][name][0],
+             "transformer_shapes_launches": tshapes["launched"][name][1],
+             "transformer_shapes": tshapes["held"].get(name, [])}
+            if name in tshapes["launched"] else {}),
          # the CLI phase's scorer, over the checkpoints the CLIs wrote
          **({"cli_path": cli["launches"][name][0],
              "cli_launches": cli["launches"][name][1]}

@@ -580,11 +580,17 @@ def test_causal_attention_kernel_matches_plain(dev, b, t, c, n_head):
 
 @pytest.mark.parametrize("m,k,n", [(321, 512, 1536), (80, 321, 2), (8, 512, 1),
                                    (16, 2048, 512), (1, 2048, 512),
-                                   (16, 512, 258), (1, 512, 258)])
+                                   (16, 512, 258), (1, 512, 258),
+                                   # past the f32 product's exact K of
+                                   # 1,040: the class head at d_model
+                                   # 1,600 and l2 at T = 1,041
+                                   (80, 1041, 1), (80, 1600, 1),
+                                   (2, 4096, 258), (33, 1041, 2)])
 def test_int8_matmul_exact_on_cuda(dev, m, k, n):
-    """_int_mm where its shape rules hold (the 1 to 16 rows of a decode
-    step padded up to its minimum), exact f32 otherwise (lm_head's 258
-    columns)."""
+    """_int_mm on operands zero-padded up to its shape rules (K and N to
+    multiples of 8, the 1 to 16 rows of a decode step to its minimum):
+    exact at every K and N (lm_head's 258 columns, the class head's one
+    at any d_model)."""
     rng = np.random.default_rng(3)
     a = rng.integers(-127, 128, (m, k), np.int8)
     w = rng.integers(-127, 128, (n, k), np.int8)
@@ -649,6 +655,20 @@ def test_int8_gemm_bit_equal_to_plain(dev, m, n, k, epilogue):
         assert int(out.max()) > 60 and int(out.min()) < 0
 
 
+@pytest.mark.parametrize("k", [1040, 1041, 4096])
+def test_int8_bmm_exact_past_1040(dev, k):
+    """The int8 attention's batched product, its K cut into f32 products
+    of at most 1,040 terms: exact at a head or a T past 1,040."""
+    rng = np.random.default_rng(k)
+    a = rng.integers(-127, 128, (2, 3, 17, k), np.int8)
+    b = rng.integers(-127, 128, (2, 3, k, 9), np.int8)
+    a[..., ::2], b[..., ::2, :] = 127, 127      # sums past 2^24
+    out = int8.int8_bmm(torch.from_numpy(a).to(dev),
+                        torch.from_numpy(b).to(dev))
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  a.astype(np.int64) @ b.astype(np.int64))
+
+
 def test_int8_gemm_sums_pass_2_24(dev):
     """The operands above reach sums past 2^24 at K = 2048, where the
     conversion to f32 rounds some of them."""
@@ -659,9 +679,27 @@ def test_int8_gemm_sums_pass_2_24(dev):
     assert bool((acc.float().long() != acc.long()).any())
 
 
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+@pytest.mark.parametrize("k_cols,n_rows", [(96, 128), (128, 96)],
+                         ids=["K96", "N96"])
+def test_int8_gemm_takes_n_and_k_off_64(dev, k_cols, n_rows, epilogue):
+    """N or K off a multiple of 64 (once refused): the GEMM's general
+    form, bit-equal to the plain stage on the same operands."""
+    a8, w8, cs, cb, resid, qs = (
+        None if v is None else torch.as_tensor(v).to(dev)
+        for v in _gemm_operands(65, 128, 128, epilogue))
+    a8, w8 = a8[:, :k_cols].contiguous(), w8[:n_rows, :k_cols].contiguous()
+    cs, cb = cs[:n_rows].contiguous(), cb[:n_rows].contiguous()
+    resid = None if resid is None else resid[:, :n_rows].contiguous()
+    out = _launched("int8_gemm", lambda: int8_gemm.int8_gemm(
+        a8, w8, cs, cb, resid, qs))
+    assert torch.equal(out, int8_gemm.int8_gemm_reference(a8, w8, cs, cb,
+                                                          resid, qs))
+
+
 def test_int8_gemm_rejects_bad_operands(dev):
-    """N or K off a multiple of 64, wrong dtype, shape, device or
-    contiguity, or both epilogues at once: ValueError before a launch."""
+    """Wrong dtype, shape, device or layout, or both epilogues at once:
+    ValueError before a launch."""
     a8, w8, cs, cb, resid, _ = (
         None if v is None else torch.as_tensor(v).to(dev)
         for v in _gemm_operands(65, 128, 128, "f32+resid"))
@@ -669,8 +707,8 @@ def test_int8_gemm_rejects_bad_operands(dev):
     before = dict(kernels.launches)
     bad = [
         lambda: int8_gemm.int8_gemm(a8[:, :96].contiguous(), w8[:, :96],
-                                    cs, cb),
-        lambda: int8_gemm.int8_gemm(a8, w8[:96], cs[:96], cb[:96]),
+                                    cs, cb),            # w8's rows 128 apart
+        lambda: int8_gemm.int8_gemm(a8, w8[:96], cs, cb),
         lambda: int8_gemm.int8_gemm(a8.float(), w8, cs, cb),
         lambda: int8_gemm.int8_gemm(a8, w8.cpu(), cs, cb),
         lambda: int8_gemm.int8_gemm(a8[:, ::2], w8[:, :64].contiguous(),
@@ -729,9 +767,12 @@ def test_int8_gemm_clip_counts_equal_plain(dev, m):
 
 
 # C = 128, 512, 768 and 1024 take 16-byte pieces, C = 192 8-byte ones;
-# 135 and 963 rows leave a part block of eight rows
+# 135 and 963 rows leave a part block of eight rows; every other width
+# the runtime-width kernel (ln_q8_any_kernel), byte stores into rows
+# pitch16(C) bytes apart
 LN_SHAPES = [(3, 45, 128), (3, 321, 512), (3, 45, 768), (3, 45, 1024),
-             (3, 45, 192)]
+             (3, 45, 192), (3, 45, 100), (3, 45, 1100), (2, 33, 2048),
+             (2, 33, 4096)]
 
 
 @pytest.mark.parametrize("b,t,c", LN_SHAPES)
@@ -748,7 +789,8 @@ def test_ln_q8_rows_and_rail_counts(dev, b, t, c):
     rails = torch.full((b, t), -1, dtype=torch.int32, device=dev)
     sc = {}
     xm, h8 = _launched("attn_block_quant", lambda: fbq.attn_block_quant(
-        *args, n_head=c // 64, scratch=sc, rail_rows=rails))
+        *args, n_head=c // 64 if c % 64 == 0 else 1, scratch=sc,
+        rail_rows=rails))
     _int8_close(sc["h8a"], int8.quantize_act(layer_norm(x, vc[0], vc[1]),
                                              scales[0]))
     _int8_close(h8, int8.quantize_act(layer_norm(xm, vc[2], vc[3]),
@@ -1001,28 +1043,43 @@ def test_flash_attention_large_scores(dev):
     assert (out - ref).abs().max() <= 2e-5
 
 
-def test_d192_model_raises_before_the_attention_kernel(dev):
+@pytest.mark.parametrize("fusion", ["attn", "full"])
+def test_d192_one_head_model_runs_on_the_kernels(dev, fusion):
     """A d_model 192 model with one head (head width 192, past the
-    kernels' 128) has no kernel path: make_pipeline_quantized raises
-    ValueError at the first block, before any attention kernel is
-    launched. Only the encoder (hidden 512) has run by then. With 8
-    heads of 24 it runs: test_d192_model_runs_on_the_kernels."""
+    tile's 128: the f32 attention's wide tile) through
+    make_pipeline_quantized on its kernels: labels equal the plain
+    path's where its logit margin exceeds 1e-3. It once raised before
+    the first attention kernel."""
     from vq_vae_transformer_arc_welding_tpu_torch.serve import (
         WeldingQualityPipeline)
     vq, tr = entry.build(d_model=192, n_blocks=1, n_heads=1, seed=0,
                          device=dev)
     windows = np.random.default_rng(0).standard_normal(
-        (2, entry.N_CYCLES * 200, 2)).astype(np.float32)
+        (6, entry.N_CYCLES * 200, 2)).astype(np.float32)
     pipe = WeldingQualityPipeline(vq, tr, n_cycles=entry.N_CYCLES,
                                   precision="int8")
-    pipe.calibrate(windows)
-    fn = entry.make_pipeline_quantized(vq, tr, pipe.qparams)
-    kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="attn_block_quant"):
-        fn(torch.from_numpy(windows).to(dev))
-    torch.cuda.synchronize()
-    assert {k for k, n in kernels.launches.items() if n} <= {
-        "encoder_chain_f32"}
+    pipe.calibrate(windows[:2])
+    fn = entry.make_pipeline_quantized(vq, tr, pipe.qparams,
+                                       block_fusion=fusion)
+    x = torch.from_numpy(windows).to(dev)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        kernel = "attn_block_quant" if fusion == "attn" else "block_quant"
+        assert kernels.launches[kernel] == 1
+        real = (fbq.attn_block_quant, fbq.block_quant, int8_gemm.int8_gemm)
+        fbq.attn_block_quant = fbq.fused_attn_block_quant_reference
+        fbq.block_quant = fbq.fused_block_quant_reference
+        int8_gemm.int8_gemm = int8_gemm.int8_gemm_reference
+        try:
+            ref = fn(x)
+        finally:
+            (fbq.attn_block_quant, fbq.block_quant,
+             int8_gemm.int8_gemm) = real
+    sure = (ref[:, 0] - ref[:, 1]).abs() > 1e-3
+    assert torch.isfinite(out).all()
+    assert torch.equal(out.argmax(-1)[sure], ref.argmax(-1)[sure])
 
 
 def test_flash_attention_gradients_on_cuda(dev):
@@ -1041,7 +1098,7 @@ def test_flash_attention_gradients_on_cuda(dev):
 
 def test_flash_wrapper_rejects_bad_operands(dev):
     q = torch.zeros(2, 2, 9, 64, device=dev)
-    wide = torch.zeros(2, 2, 9, 192, device=dev)    # heads past 128
+    wide = torch.zeros(1, 1, 9, 4097, device=dev)   # a head past 4,096
     before = dict(kernels.launches)
     bad = [lambda: fused_attn.flash_causal_attention(wide, wide, wide),
            lambda: fused_attn.flash_causal_attention(q.double(), q, q),
@@ -1833,3 +1890,230 @@ def test_hidden_1024_vqvae_paths(dev):
         torch.cuda.synchronize()
         assert kernels.launches["nearest_codes_f32"] == 1
         assert (ids != exact).float().mean() <= 1e-3
+
+
+# -- every transformer the transformer CLI can build: d_model 1 to 4,096
+# in any number of heads (the int8 GEMM's GENERAL form, LN+q8's runtime
+# width, the f32 attention's wide tile; int8 rows pitch16 bytes apart)
+
+# (B, T, C, n_head): C off 16 and 64 (heads of 25, 3, 1), C above 1,024
+# (heads of 275, 200, 300), heads past 128 (192, 256, 4,096)
+ANY_SHAPES = [(2, 33, 100, 4), (2, 33, 1100, 4), (2, 33, 192, 1),
+              (2, 65, 6, 2), (1, 33, 1, 1), (2, 70, 1600, 8),
+              (1, 40, 1800, 6), (1, 33, 2048, 8), (2, 45, 512, 2),
+              (1, 33, 4096, 1), (3, 45, 200, 8), (2, 130, 1600, 25)]
+ANY_KERNELS = ["attn_block_quant", "block_quant", "mlp_quant",
+               "qkv_attention_quant", "causal_attention_quant"]
+
+
+@pytest.mark.parametrize("kernel", ANY_KERNELS)
+@pytest.mark.parametrize("b,t,c,n_head", ANY_SHAPES)
+def test_any_width_int8_kernels_match_plain(dev, b, t, c, n_head, kernel):
+    """#2, #6, #8, #10 and #11 at widths the kernels once refused,
+    against their plain versions within the int8 contract (int8 outputs
+    one step on at most 0.1% of the entries, f32 ones 1e-3). #6 is held
+    stage by stage, each stage fed the kernel's own input: one h8 step
+    (an ulp of LayerNorm) moves ~10% of a row's g8 entries and its
+    output by ~0.07."""
+    g = torch.Generator().manual_seed(c + n_head)
+    x = torch.randn(b, t, c, generator=g).to(dev)
+    w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c = (
+        a.to(dev).contiguous() for a in _block_operands(c, full=True))
+    if kernel == "attn_block_quant":
+        args = (x, w_qkv, w_proj, scales, vc[:6], v3c)
+        xm, h8 = _launched(kernel, lambda: fbq.attn_block_quant(
+            *args, n_head=n_head))
+        xm_ref, h8_ref = fbq.fused_attn_block_quant_reference(
+            *args, n_head=n_head)
+        _int8_close(h8, h8_ref)
+        assert (xm - xm_ref).abs().max() <= 1e-3
+    elif kernel == "block_quant":
+        args = (x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c)
+        sc = {}
+        out = _launched(kernel, lambda: fbq.block_quant(
+            *args, n_head=n_head, scratch=sc))
+        xm_ref, h8_ref = fbq.fused_attn_block_quant_reference(
+            x, w_qkv, w_proj, scales, vc[:6], v3c, n_head=n_head)
+        _int8_close(sc["h8"], h8_ref)
+        assert (sc["x_mid"] - xm_ref).abs().max() <= 1e-3
+        g8_ref = fmlp.fc_gelu_q8_reference(sc["h8"], w_fc, v4c, scales[3])
+        _int8_close(sc["g8"], g8_ref)
+        ref = sc["x_mid"] + (int8.int8_matmul(sc["g8"], w_mp).float()
+                             * vc[6] + vc[7])
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-3
+    elif kernel == "mlp_quant":
+        args = (x, w_fc, w_mp, scales[2:], v4c, vc[6:])
+        out = _launched(kernel, lambda: fmlp.mlp_quant(*args))
+        assert (out - fmlp.mlp_quant_reference(*args)).abs().max() <= 1e-3
+    elif kernel == "qkv_attention_quant":
+        args = (x, w_qkv, scales[:2], v3c)
+        y8 = _launched(kernel, lambda: fattn.qkv_attention_quant(
+            *args, n_head=n_head))
+        _int8_close(y8, fattn.qkv_attention_quant_reference(
+            *args, n_head=n_head))
+    else:
+        qkv = (torch.randn(b, t, 3 * c, generator=g) * 2).to(dev)
+        y_scale = torch.tensor(200.0, device=dev)
+        y8 = _launched(kernel, lambda: fattn.fused_causal_attention_quant(
+            qkv, y_scale, n_head=n_head))
+        _int8_close(y8, fattn.causal_attention_quant_reference(
+            qkv, y_scale, n_head=n_head))
+
+
+@pytest.mark.parametrize("c", [128, 512, 1024])
+def test_general_forms_give_the_template_bits(dev, c):
+    """#2 on an x one float off 16-byte alignment takes LN+q8's runtime
+    width kernel and the GEMM's GENERAL form (c_proj's residual and
+    output rows misaligned) where an aligned x takes the templates: h8a,
+    qkv, x_mid and h8 are bit for bit the same."""
+    x = torch.randn(2, 45, c, generator=torch.Generator().manual_seed(c))
+    w_qkv, w_proj, scales, vc, v3c = (a.to(dev).contiguous()
+                                      for a in _block_operands(c))
+    x = x.to(dev)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    got = []
+    for xi in (x, shifted):
+        sc = {}
+        xm, h8 = _launched("attn_block_quant", lambda: fbq.attn_block_quant(
+            xi, w_qkv, w_proj, scales, vc, v3c, n_head=c // 64,
+            scratch=sc))
+        got.append((sc["h8a"], sc["qkv"], xm, h8))
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
+@pytest.mark.parametrize("h,d,t", [(2, 192, 70), (1, 256, 321), (3, 130, 129),
+                                   (1, 300, 45), (2, 512, 65),
+                                   (1, 4096, 33)])
+def test_flash_attention_wide_heads_match_plain(dev, h, d, t, packed):
+    """#9 at heads past 128 (once refused) on the wide tile: within
+    #9's 2e-5 of the plain core."""
+    g = torch.Generator().manual_seed(d + t)
+    if packed:
+        qkv = (torch.randn(2, t, 3 * h * d, generator=g) * 2).to(dev)
+        q, k, v = (attention.split_heads(z, h)
+                   for z in qkv.split(h * d, dim=-1))
+    else:
+        q, k, v = ((torch.randn(2, h, t, d, generator=g) * 2).to(dev)
+                   for _ in range(3))
+    out = _launched("flash_attention_f32",
+                    lambda: fused_attn.flash_causal_attention(q, k, v))
+    ref = fused_attn.flash_causal_attention_reference(q, k, v)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 2e-5
+
+
+def test_narrow_kernels_raise_at_the_new_widths(dev):
+    """The int8 attention ('attn8', 'full8'), #9's bf16 tile and
+    generate_kv(decode_impl='fused') keep their limits: at one head of
+    192 and at C = 1,600 they raise ValueError before any launch (the
+    int8 attention and decode at 25 heads of 64, past their C of 1,024;
+    #9's bf16 tile, whose limit is the head and C a multiple of 64, at 8
+    heads of 200)."""
+    for c, n_head in ((192, 1), (1600, 25)):
+        bf16_heads = 8 if c == 1600 else n_head
+        w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c = (
+            a.to(dev) for a in _block_operands(c, full=True))
+        x = torch.zeros(1, 9, c, device=dev)
+        q = torch.zeros(1, bf16_heads, 9, c // bf16_heads, device=dev,
+                        dtype=torch.bfloat16)
+        _, tr = entry.build(d_model=c, n_blocks=1, n_heads=n_head, hidden=64,
+                            n_res=1, k=32, d=8, seed=0, device=dev)
+        start = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+        before = dict(kernels.launches)
+        bad = [
+            lambda: fbq.attn_block_quant(x, w_qkv, w_proj, scales, vc[:6],
+                                         v3c, n_head=n_head, int8_attn=True),
+            lambda: fbq.block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc,
+                                    v3c, v4c, n_head=n_head, int8_attn=True),
+            lambda: fused_attn.flash_causal_attention(q, q, q),
+            lambda: tr.generate_kv(start, num_steps=2, decode_impl="fused"),
+        ]
+        for call in bad:
+            with pytest.raises(ValueError, match="not supported"):
+                call()
+        torch.cuda.synchronize()
+        assert kernels.launches == before
+
+
+def test_d1600_classify_runs_on_every_f32_attention_path(dev):
+    """The width of GPT-2 XL (d_model 1,600, 25 heads of 64), one block:
+    quantized_classify on the plain path (its class head's l1 a (1,600
+    -> 1) int8 product, once refused on the card) and on 'attn', 'full'
+    and fused_attention=True, whose labels equal the plain path's where
+    its logit margin exceeds 1e-3."""
+    from vq_vae_transformer_arc_welding_tpu_torch.models.quantized import (
+        calibrate_activation_absmax, quantize_transformer,
+        quantized_classify)
+    _, tr = entry.build(d_model=1600, n_blocks=1, n_heads=25, hidden=64,
+                        n_res=1, k=32, d=8, seed=0, device=dev)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 32, (6, entry.N_CYCLES * 16 + 1), generator=g)
+    ids[:, 0] = 32
+    ids = ids.to(dev)
+    with torch.inference_mode():
+        qp = quantize_transformer(tr, calibrate_activation_absmax(
+            tr, ids[:2]))
+        ref = quantized_classify(tr, qp, ids)
+        assert ref.shape == (6, 2) and torch.isfinite(ref).all()
+        sure = (ref[:, 0] - ref[:, 1]).abs() > 1e-3
+        for kw in ({"block_fusion": "attn"}, {"block_fusion": "full"},
+                   {"fused_attention": True}):
+            out = quantized_classify(tr, qp, ids, **kw)
+            assert torch.isfinite(out).all(), kw
+            assert torch.equal(out.argmax(-1)[sure],
+                               ref.argmax(-1)[sure]), kw
+
+
+@pytest.mark.parametrize("c", [1, 6, 100, 512, 1100, 2048, 4096])
+def test_ln_q8_alone_matches_plain(dev, c):
+    """#2's LayerNorm+q8 rows launched alone at any C up to 4,096 (the
+    template at multiples of 64 up to 1,024, ln_q8_any_kernel at every
+    other): within the int8 contract of the plain version, the rail
+    counts those of its own output, its rows pitch16(C) bytes apart."""
+    g = torch.Generator().manual_seed(c)
+    x = (torch.randn(3, 45, c, generator=g) * 3).to(dev)
+    scale = (torch.rand(c, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(c, generator=g) * 0.1).to(dev)
+    qs = torch.tensor(30.0, device=dev)
+    rails = torch.full((3, 45), -1, dtype=torch.int32, device=dev)
+    h8 = _launched("ln_q8", lambda: fbq.ln_q8(x, scale, bias, qs,
+                                               rail_rows=rails))
+    assert h8.shape == x.shape and kernels.is_pitched(h8)
+    _int8_close(h8, fbq.ln_q8_reference(x, scale, bias, qs))
+    assert torch.equal(rails, (h8.int().abs() == 127).sum(
+        -1, dtype=torch.int32))
+
+
+def test_wrappers_raise_past_4096(dev):
+    """C = 4,097, past the kernels' widest row: #2, #6, #8, #10, #11 and
+    LN+q8 raise ValueError naming 4096 before any launch."""
+    c = 4097
+    x = torch.zeros(1, 3, c, device=dev)
+    w_qkv = torch.zeros(3 * c, c, dtype=torch.int8, device=dev)
+    w_sq = torch.zeros(c, c, dtype=torch.int8, device=dev)
+    w_fc = torch.zeros(4 * c, c, dtype=torch.int8, device=dev)
+    w_mp = torch.zeros(c, 4 * c, dtype=torch.int8, device=dev)
+    scales = torch.ones(4, device=dev)
+    vc, v3c, v4c = (torch.zeros(n, m, device=dev)
+                    for n, m in ((8, c), (2, 3 * c), (2, 4 * c)))
+    before = dict(kernels.launches)
+    bad = [
+        lambda: fbq.attn_block_quant(x, w_qkv, w_sq, scales, vc[:6], v3c,
+                                     n_head=1),
+        lambda: fbq.block_quant(x, w_qkv, w_sq, w_fc, w_mp, scales, vc, v3c,
+                                v4c, n_head=1),
+        lambda: fmlp.mlp_quant(x, w_fc, w_mp, scales[2:], v4c, vc[6:]),
+        lambda: fattn.qkv_attention_quant(x, w_qkv, scales[:2], v3c,
+                                          n_head=1),
+        lambda: fattn.fused_causal_attention_quant(
+            torch.zeros(1, 3, 3 * c, device=dev), scales[1], n_head=1),
+        lambda: fbq.ln_q8(x, vc[0], vc[1], scales[0]),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError, match="4096"):
+            call()
+    assert kernels.launches == before

@@ -686,7 +686,7 @@ def test_kernel_sources_call_no_library_products():
         "attn_block_quant_int8attn", "block_quant", "block_quant_int8attn",
         "mlp_quant", "qkv_attention_quant", "causal_attention_quant",
         "flash_attention_f32", "flash_attention_bf16", "decode_attn_f32",
-        "block_decode_f32", "int8_gemm"}
+        "block_decode_f32", "int8_gemm", "ln_q8"}
     for mod in (fenc, fvq, fbq, fattn, fmlp, fdec, fflash, ig):
         src = Path(mod.__file__).read_text()
         cuda_branch = src[src.index("kernels.require"):]

@@ -1,10 +1,11 @@
 """The port at widths off the bench model's, on the CPU.
 
-The CUDA kernels take every head width up to 128 (the f32 attention
-tile, the int8 attention and the decode kernels, instantiated at 32, 64
-and 128, a narrower head zero-filled) and every encoder hidden width
-that is a multiple of 64 from 64 to 512 (the f32 encoder tile at 128,
-256 and 512, the weights zero-padded by `split_weights`). The kernels
+The CUDA kernels take every head width up to 128 on tiles instantiated
+at 32, 64 and 128, a narrower head zero-filled (the f32 attention, the
+int8 attention and the decode kernels; the f32 attention also any wider
+head, tests/test_torch_transformer_shapes.py) and every encoder hidden
+width that is a multiple of 64 from 64 to 512 (the f32 encoder tile at
+128, 256 and 512, the weights zero-padded by `split_weights`). The kernels
 run only on the card (chip_smoke.py's `widths_phase`); here:
 
 - the quality study's shapes (scripts/quality_study.py:76-86: a VQ-VAE
@@ -105,8 +106,11 @@ def _study():
 
 def test_study_shapes_run_on_the_padded_tiles():
     """The study's head (24) runs on the attention tile of 32, its
-    hidden width (64) on the encoder tile of 128; the kernels' limits
-    raise only past them."""
+    hidden width (64) on the encoder tile of 128; each kernel's limits
+    raise only past its own: the f32 attention, the int8 GEMM and LN+q8
+    take every C up to 4,096 in any heads, the int8 attention and the
+    decode kernels C a multiple of 64 up to 1,024 in heads up to 128,
+    #9's bf16 tile a multiple of 64 in heads up to 128."""
     _, vq, tr, _ = _study()
     hd = tr.d_model // tr.n_head
     assert (hd, kernels.padded_head_width(hd)) == (24, 32)
@@ -115,11 +119,26 @@ def test_study_shapes_run_on_the_padded_tiles():
         == [32, 32, 64, 64, 128, 128]
     assert [fenc.kernel_width(h) for h in range(64, 513, 64)] == [
         128, 128, 256, 256, 512, 512, 512, 512]
+    decode = dict(kernels.NARROW, max_c=fdec.MAX_C)
+    limits = {"f32": {}, "int8_attn": kernels.INT8_ATTN,
+              "decode": decode, "bf16": kernels.NARROW}
     for c, n_head in ((192, 8), (1024, 8), (192, 64), (256, 2), (64, 64)):
-        kernels.require_heads("check", c, n_head, max_c=1024)
-    for c, n_head in ((192, 1), (1024, 4), (128, 3), (96, 2), (1088, 17)):
-        with pytest.raises(ValueError, match="head width"):
-            kernels.require_heads("check", c, n_head, max_c=1024)
+        for kw in limits.values():
+            kernels.require_heads("check", c, n_head, **kw)
+    narrow = {(192, 1): ("int8_attn", "decode", "bf16"),
+              (1024, 4): ("int8_attn", "decode", "bf16"),
+              (96, 2): ("int8_attn", "decode", "bf16"),
+              (1088, 17): ("int8_attn", "decode"),
+              (128, 3): tuple(limits), (4097, 1): tuple(limits)}
+    for (c, n_head), refused in narrow.items():
+        for name, kw in limits.items():
+            if name in refused:
+                with pytest.raises(ValueError, match="not supported"):
+                    kernels.require_heads("check", c, n_head, **kw)
+            else:
+                kernels.require_heads("check", c, n_head, **kw)
+    with pytest.raises(ValueError, match="4096"):
+        kernels.require_heads("check", 4097, 1)
 
 
 @pytest.mark.parametrize("kw,tol", CLASSIFY_CASES,

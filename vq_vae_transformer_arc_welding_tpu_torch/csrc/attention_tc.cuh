@@ -45,6 +45,17 @@
 // zero columns; at HD 128 the tile's 203 KB of shared memory leave one
 // block an SM.
 //
+// A head wider than 128 (up to MAX_WIDE_HD) runs on the wide tile
+// (causal_attention_tile_wide): a grid axis over pieces of PIECE = 128
+// output columns, folded into blockIdx.x beside the head. Each block
+// computes the whole head's scores, one FMA chain over the head dims in
+// order whose accumulators carry across 128-column chunks of Q and K
+// staged through shared memory in turn, so the scores round as the
+// narrow tile's (and the plain GEMM's) do; then the same online softmax,
+// and P@V for its own piece of V. The scores are computed once a piece,
+// (hd / 128)x the score work; no double buffer (135 KB, one block an
+// SM). A simple form that is right; its time is in PERF.md.
+//
 // What bounds it on an H100 (at the bench shape, T = 321, B = 80, H = 8):
 // the bytes of q, k, v and the output (210 MB f32, 3.35 TB/s: 0.063 ms);
 // both products in split TF32 would take 6 x 4.2 GFLOP at 495 TFLOP/s
@@ -68,6 +79,8 @@ constexpr int QROWS = WROWS * WARPS;    // query rows per block
 constexpr int KT = 64;                  // keys per stage
 constexpr int NB = KT / 8;              // 8-key column blocks
 constexpr int MAX_HD = 128;             // the widest head an instantiation takes
+constexpr int PIECE = MAX_HD;           // output columns a block of the wide tile
+constexpr int MAX_WIDE_HD = 4096;       // the widest head the wide tile takes
 
 // The tile of head width HD (32, 64 or 128): a head of real width hd
 // <= HD runs on the smallest that holds it (PAD, below, unless hd == HD
@@ -92,6 +105,19 @@ __host__ __device__ constexpr int padded_head(int hd) {
 inline dim3 grid(int batch, int n_head, int t) {
   return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
 }
+
+// the wide tile's pieces of a head of width hd, and its grid: (head,
+// piece) pairs, batch, row tiles; Q's chunk, K's chunk and V's piece in
+// shared memory
+__host__ __device__ constexpr int pieces(int hd) {
+  return (hd + PIECE - 1) / PIECE;
+}
+
+inline dim3 wide_grid(int batch, int n_head, int t, int hd) {
+  return dim3(n_head * pieces(hd), batch, (t + QROWS - 1) / QROWS);
+}
+
+constexpr size_t WIDE_SMEM = sizeof(float) * (QROWS + 2 * KT) * (PIECE + 4);
 
 // q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e (floats).
 // vec16: every row starts 16-byte aligned (the pointers and the strides,
@@ -224,6 +250,116 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+constexpr int R = 2;                    // a thread's rows: g, g + 8
+
+// s[r][j][c] = fma(q_e, k_e, s) over e = 0 .. HD - 1 in order, carried
+// on from s: row r, key 8 j + 2 tg + c of the stage, j < nb
+template <int HD>
+__device__ __forceinline__ void score_chain(float (&s)[R][NB][2],
+                                            const float* q_row,
+                                            const float* k_s, int nb,
+                                            int tg) {
+  constexpr int RS = Shape<HD>::RS;
+#pragma unroll 2
+  for (int e = 0; e < HD; e += 4) {
+    float4 x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      x[r] = *reinterpret_cast<const float4*>(q_row + 8 * r * RS + e);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nb) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              k_s + (8 * j + 2 * tg + c) * RS + e);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float& a = s[r][j][c];
+            a = fmaf(x[r].x, kv.x, a);
+            a = fmaf(x[r].y, kv.y, a);
+            a = fmaf(x[r].z, kv.z, a);
+            a = fmaf(x[r].w, kv.w, a);
+          }
+        }
+      }
+    }
+  }
+}
+
+// scale, causal mask and online softmax numerators of a stage's scores
+// (keys from k0), rescaling the running row sums l and outputs o
+template <int HD>
+__device__ __forceinline__ void softmax_step(float (&s)[R][NB][2],
+                                             float (&o)[HD / 8][4],
+                                             float (&m)[R], float (&l)[R],
+                                             const int (&lim)[R], int nb,
+                                             int k0, int tg, float sm_scale) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nb) {
+        const int kc = k0 + 8 * j + 2 * tg;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          s[r][j][c] = kc + c <= lim[r] ? __fmul_rn(s[r][j][c], sm_scale)
+                                        : -INFINITY;
+          mx = fmaxf(mx, s[r][j][c]);
+        }
+      }
+    }
+    // every row sees key 0 in the first stage, so m is finite from
+    // there
+    const float mn = fmaxf(m[r], quad_max(mx));
+    const float alpha = expf(m[r] - mn);
+    m[r] = mn;
+    float ps = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nb) {
+        s[r][j][0] = expf(s[r][j][0] - mn);
+        s[r][j][1] = expf(s[r][j][1] - mn);
+        ps += s[r][j][0] + s[r][j][1];
+      }
+    }
+    l[r] = l[r] * alpha + ps;   // this thread's columns; summed at the end
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][2 * r] *= alpha;
+      o[n][2 * r + 1] *= alpha;
+    }
+  }
+}
+
+// o += P V: k step j is the keys of column block j
+template <int HD>
+__device__ __forceinline__ void pv_step(float (&o)[HD / 8][4],
+                                        const float (&s)[R][NB][2],
+                                        const float* v_s, int nb, int g,
+                                        int tg) {
+  constexpr int RS = Shape<HD>::RS;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j < nb) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[0][j][0], ph[0], pl[0]);   // row g, key 2 tg
+      split_tf32(s[1][j][0], ph[1], pl[1]);   // row g + 8
+      split_tf32(s[0][j][1], ph[2], pl[2]);   // row g, key 2 tg + 1
+      split_tf32(s[1][j][1], ph[3], pl[3]);
+      const float* vr = v_s + (8 * j + 2 * tg) * RS + g;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(vr[8 * n], bh0, bl0);
+        split_tf32(vr[RS + 8 * n], bh1, bl1);
+        mma3(o[n], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
 // The tile of block (h, b, z) = blockIdx, THREADS threads, SMEM bytes
 // of dynamic shared memory. A warp owns one m16 tile of rows; thread
 // (warp, g = lane / 4, tg = lane % 4) holds rows g and g + 8 of it, and
@@ -238,7 +374,6 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
   static_assert(HD == 32 || HD == 64 || HD == 128, "a head width of the tile");
   constexpr int RS = Shape<HD>::RS;
   constexpr int STAGE = Shape<HD>::STAGE;
-  constexpr int R = 2;                  // a thread's rows: g, g + 8
   extern __shared__ float4 smem4[];
   float* const q_s = reinterpret_cast<float*>(smem4);  // QROWS x RS
   float* const stages = q_s + QROWS * RS;  // 2 x (K: KT x RS, V: KT x RS)
@@ -292,97 +427,14 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
     const int nb = min(max((w_end - k0 + 7) / 8, 0), NB);
 
     if (nb > 0) {
-      // s[r][j][c] = fma(q_e, k_e, s) over e = 0 .. HD - 1 in order: row r,
-      // key 8 j + 2 tg + c
       float s[R][NB][2];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < NB; ++j) s[r][j][0] = s[r][j][1] = 0.0f;
-#pragma unroll 2
-      for (int e = 0; e < HD; e += 4) {
-        float4 x[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          x[r] = *reinterpret_cast<const float4*>(q_row + 8 * r * RS + e);
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          if (j < nb) {
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const float4 kv = *reinterpret_cast<const float4*>(
-                  k_s + (8 * j + 2 * tg + c) * RS + e);
-#pragma unroll
-              for (int r = 0; r < R; ++r) {
-                float& a = s[r][j][c];
-                a = fmaf(x[r].x, kv.x, a);
-                a = fmaf(x[r].y, kv.y, a);
-                a = fmaf(x[r].z, kv.z, a);
-                a = fmaf(x[r].w, kv.w, a);
-              }
-            }
-          }
-        }
-      }
-
-      // scale, causal mask, online softmax numerators
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          if (j < nb) {
-            const int kc = k0 + 8 * j + 2 * tg;
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              s[r][j][c] = kc + c <= lim[r]
-                               ? __fmul_rn(s[r][j][c], in.sm_scale)
-                               : -INFINITY;
-              mx = fmaxf(mx, s[r][j][c]);
-            }
-          }
-        }
-        // every row sees key 0 in the first stage, so m is finite from
-        // there
-        const float mn = fmaxf(m[r], quad_max(mx));
-        const float alpha = expf(m[r] - mn);
-        m[r] = mn;
-        float ps = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          if (j < nb) {
-            s[r][j][0] = expf(s[r][j][0] - mn);
-            s[r][j][1] = expf(s[r][j][1] - mn);
-            ps += s[r][j][0] + s[r][j][1];
-          }
-        }
-        l[r] = l[r] * alpha + ps;   // this thread's columns; summed at the end
-#pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          o[n][2 * r] *= alpha;
-          o[n][2 * r + 1] *= alpha;
-        }
-      }
-
-      // o += P V: k step j is the keys of column block j
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        if (j < nb) {
-          uint32_t ph[4], pl[4];
-          split_tf32(s[0][j][0], ph[0], pl[0]);   // row g, key 2 tg
-          split_tf32(s[1][j][0], ph[1], pl[1]);   // row g + 8
-          split_tf32(s[0][j][1], ph[2], pl[2]);   // row g, key 2 tg + 1
-          split_tf32(s[1][j][1], ph[3], pl[3]);
-          const float* vr = v_s + (8 * j + 2 * tg) * RS + g;
-#pragma unroll
-          for (int n = 0; n < HD / 8; ++n) {
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(vr[8 * n], bh0, bl0);
-            split_tf32(vr[RS + 8 * n], bh1, bl1);
-            mma3(o[n], ph, pl, bh0, bh1, bl0, bl1);
-          }
-        }
-      }
+      score_chain<HD>(s, q_row, k_s, nb, tg);
+      softmax_step<HD>(s, o, m, l, lim, nb, k0, tg, in.sm_scale);
+      pv_step<HD>(o, s, v_s, nb, g, tg);
     }
     __syncthreads();   // this stage is consumed before it is refilled
   }
@@ -403,6 +455,92 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
         if (col + 1 < in.hd)
           store.one(b, h, row, col + 1, o[n][2 * r + 1], l[r]);
       }
+    }
+  }
+}
+
+// The wide tile (a head of in.hd > MAX_HD columns): block (h * pieces +
+// p, b, z) = blockIdx, THREADS threads, WIDE_SMEM bytes of dynamic shared
+// memory, writes columns [PIECE p, PIECE (p + 1)) of the head's rows
+// through store.one. For each stage of KT keys: V's piece is copied, then
+// for each 128-column chunk of the head in order Q's and K's chunks are
+// copied and the score chain carried on; then the softmax and P@V as in
+// the tile above.
+template <class Store>
+__device__ __forceinline__ void causal_attention_tile_wide(
+    const Operands& in, const Store& store) {
+  constexpr int HD = PIECE;
+  constexpr int RS = Shape<HD>::RS;
+  extern __shared__ float4 smem4[];
+  float* const q_s = reinterpret_cast<float*>(smem4);  // QROWS x RS
+  float* const k_s = q_s + QROWS * RS;                  // KT x RS
+  float* const v_s = k_s + KT * RS;                     // KT x RS
+  const int np = pieces(in.hd);
+  const int h = blockIdx.x / np, piece = blockIdx.x % np;
+  const int b = blockIdx.y;
+  const int c0 = PIECE * piece;                 // this block's columns
+  const int q_end = in.t - QROWS * (int)blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int w_first = WROWS * warp;
+  const int w0 = q_end - QROWS + w_first;
+  const int w_end = w0 + WROWS;
+  const long long base = b * in.sb + h * in.sh;
+  const int n_tiles = (q_end + KT - 1) / KT;
+  int lim[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) lim[r] = max(w0 + g + 8 * r, 0);
+
+  float o[HD / 8][4] = {};
+  float m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+  }
+  const float* q_row = q_s + (w_first + g) * RS;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    const int nb = min(max((w_end - k0 + 7) / 8, 0), NB);
+    copy_rows<KT, HD, true>(v_s, in.v, base + c0, in.st, k0, in.t, in.vec16,
+                            min(PIECE, in.hd - c0));
+    float s[R][NB][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) s[r][j][0] = s[r][j][1] = 0.0f;
+    for (int e0 = 0; e0 < in.hd; e0 += PIECE) {
+      const int cw = min(PIECE, in.hd - e0);
+      copy_rows<QROWS, HD, true>(q_s, in.q, base + e0, in.st, q_end - QROWS,
+                                 in.t, in.vec16, cw);
+      copy_rows<KT, HD, true>(k_s, in.k, base + e0, in.st, k0, in.t,
+                              in.vec16, cw);
+      cp_async_commit();
+      cp_async_wait<0>();   // this chunk (and, the first time, V) landed
+      __syncthreads();
+      if (nb > 0) score_chain<HD>(s, q_row, k_s, nb, tg);
+      __syncthreads();      // the chunk is consumed before the next
+    }
+    if (nb > 0) {
+      softmax_step<HD>(s, o, m, l, lim, nb, k0, tg, in.sm_scale);
+      pv_step<HD>(o, s, v_s, nb, g, tg);
+    }
+    __syncthreads();        // V's piece is consumed before it is refilled
+  }
+
+  if (w_end <= 0) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    l[r] = quad_sum(l[r]);
+    const int row = w0 + g + 8 * r;
+    if (row < 0) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = c0 + 8 * n + 2 * tg;
+      if (col < in.hd) store.one(b, h, row, col, o[n][2 * r], l[r]);
+      if (col + 1 < in.hd)
+        store.one(b, h, row, col + 1, o[n][2 * r + 1], l[r]);
     }
   }
 }

@@ -31,6 +31,8 @@
 // Outputs: x_mid (B*T, C) f32, h8 (B*T, C) int8; rail_rows (B*T,) int32
 // or null: each row's count of h8 at +-127.
 // sm_scale: 1/sqrt(C / n_head), rounded to f32 by the caller.
+// C from 1 to 4,096 (int8_attn: int8_attn_ok); every int8 matrix, the
+// weights included, in rows pitch16 of its width bytes apart.
 extern "C" int attn_block_quant(const void* x, const void* w_qkv,
                                 const void* w_proj, const void* scales,
                                 const void* vc, const void* v3c, void* h8a,
@@ -39,7 +41,8 @@ extern "C" int attn_block_quant(const void* x, const void* w_qkv,
                                 void* rail_rows, int batch, int t, int c,
                                 int n_head, float sm_scale, int int8_attn,
                                 void* stream) {
-  if (c % 64 != 0 || c > arcweld::LN_MAX_C || !arcweld::heads_ok(c, n_head))
+  if (int8_attn ? !arcweld::int8_attn_ok(c, n_head)
+                : !arcweld::heads_ok(c, n_head))
     return cudaErrorInvalidValue;
   return arcweld::launch_attn_half(
       static_cast<const float*>(x), static_cast<const int8_t*>(w_qkv),
@@ -52,5 +55,20 @@ extern "C" int attn_block_quant(const void* x, const void* w_qkv,
       n_head, sm_scale, int8_attn != 0, static_cast<cudaStream_t>(stream));
 }
 
-// the widest head the attention kernels take (#2, #6, #9, #10, #11)
+// #2's LayerNorm+q8 rows alone (ln_q8.cuh; card tests and chip_smoke.py):
+// x (rows, C) f32; scale, bias (C,) f32; qscale () f32. Output: out
+// (rows, C) int8 in rows pitch16(C) bytes apart; rail_rows (rows,) int32
+// or null: each row's count of out at +-127. C from 1 to 4,096.
+extern "C" int ln_q8(const void* x, const void* scale, const void* bias,
+                     const void* qscale, void* out, void* rail_rows, int rows,
+                     int c, void* stream) {
+  if (c < 1 || c > arcweld::MAX_C) return cudaErrorInvalidValue;
+  return arcweld::launch_ln_q8(
+      static_cast<const float*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(qscale),
+      static_cast<int8_t*>(out), static_cast<int*>(rail_rows), rows, c,
+      static_cast<cudaStream_t>(stream));
+}
+
+// the widest head the int8 attention takes (#2 and #6 with int8_attn)
 extern "C" int attention_max_head_dim() { return arcweld::MAX_HEAD_DIM; }

@@ -15,9 +15,9 @@
 // TPU kernel kept in VMEM.
 #include "int8_block.cuh"
 
-// qkv (B*T, 3C) f32, n_head heads of width C / n_head <= 128; y_scale
-// () f32. Output y8 (B*T, C) int8. sm_scale: 1/sqrt(C / n_head), rounded
-// to f32 by the caller.
+// qkv (B*T, 3C) f32, n_head heads, C up to 4,096; y_scale () f32.
+// Output y8 (B*T, C) int8, rows pitch16(C) bytes apart. sm_scale:
+// 1/sqrt(C / n_head), rounded to f32 by the caller.
 extern "C" int causal_attention_quant(const void* qkv, const void* y_scale,
                                       void* y8, int batch, int t, int c,
                                       int n_head, float sm_scale,
@@ -30,21 +30,21 @@ extern "C" int causal_attention_quant(const void* qkv, const void* y_scale,
 
 // h (B*T, C) f32; w_qkv (3C, C) int8; scales (2,) f32 [x_scale, y_scale];
 // v3c (2, 3C) f32 rows [deq, bias]. Scratch: h8 (B*T, C) int8, qkv
-// (B*T, 3C) f32. Output y8 (B*T, C) int8.
+// (B*T, 3C) f32. Output y8 (B*T, C) int8. The int8 matrices, w_qkv
+// included, in rows pitch16(C) bytes apart.
 extern "C" int qkv_attention_quant(const void* h, const void* w_qkv,
                                    const void* scales, const void* v3c,
                                    void* h8, void* qkv, void* y8, int batch,
                                    int t, int c, int n_head, float sm_scale,
                                    void* stream) {
-  if (c % 64 != 0 || !arcweld::heads_ok(c, n_head))
-    return cudaErrorInvalidValue;
+  if (!arcweld::heads_ok(c, n_head)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scales);
   const float* v3f = static_cast<const float*>(v3c);
   const int rows = batch * t;
-  cudaError_t e = arcweld::launch_q8(static_cast<const float*>(h), sc,
-                                     static_cast<int8_t*>(h8),
-                                     (size_t)rows * c, s);
+  cudaError_t e = arcweld::launch_q8_rows(static_cast<const float*>(h), sc,
+                                          static_cast<int8_t*>(h8), rows, c,
+                                          s);
   if (e != cudaSuccess) return e;
   e = arcweld::launch_gemm(static_cast<const int8_t*>(h8),
                            static_cast<const int8_t*>(w_qkv), v3f, v3f + 3 * c,

@@ -20,6 +20,8 @@
 // Scratch: h8a, y8, h8 (B*T, C) int8, qkv (B*T, 3C) f32, head_scales
 // (B, 3, n_head) f32 and qkv8 (B, n_head, 3, T_pad * HD) int8 (int8_attn
 // only), x_mid (B*T, C) f32, g8 (B*T, C4) int8. Output: out (B*T, C) f32.
+// C from 1 to 4,096 (int8_attn: int8_attn_ok), C4 >= 1; every int8
+// matrix in rows pitch16 of its width bytes apart.
 extern "C" int block_quant(const void* x, const void* w_qkv,
                            const void* w_proj, const void* w_fc,
                            const void* w_mp, const void* scales,
@@ -29,8 +31,9 @@ extern "C" int block_quant(const void* x, const void* w_qkv,
                            void* out, int batch, int t, int c, int c4,
                            int n_head, float sm_scale, int int8_attn,
                            void* stream) {
-  if (c % 64 != 0 || c > arcweld::LN_MAX_C ||
-      !arcweld::heads_ok(c, n_head) || c4 % 64 != 0)
+  if ((int8_attn ? !arcweld::int8_attn_ok(c, n_head)
+                 : !arcweld::heads_ok(c, n_head)) ||
+      c4 < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scales);

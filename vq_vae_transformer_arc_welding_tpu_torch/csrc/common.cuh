@@ -17,6 +17,10 @@
 
 namespace arcweld {
 
+// the row pitch in bytes of an int8 matrix n values wide: a tensor map's
+// rows must lie a multiple of 16 bytes apart (int8_gemm_sm90.cuh)
+__host__ __device__ constexpr int pitch16(int n) { return (n + 15) / 16 * 16; }
+
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
 }

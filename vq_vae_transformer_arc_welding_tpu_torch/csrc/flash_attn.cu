@@ -15,7 +15,8 @@
 //
 // Any head width up to 128: 64 on the tile's 64 instantiation, another
 // on 32, 64 or 128 with its columns past hd zero in shared memory
-// (attention_tc.cuh).
+// (attention_tc.cuh); wider heads, up to 4,096, on its wide tile, a
+// block for each 128 output columns.
 //
 // What bounds it on an H100 at the bench shape: operations, 4.2 GFLOP of
 // FP32 score FMAs (0.063 ms) and 3 x 4.2 GFLOP of TF32 products (0.026
@@ -79,6 +80,23 @@ cudaError_t launch(const Operands& in, const StoreF32& out, int batch,
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wide_kernel(const __grid_constant__ Operands in,
+                            const __grid_constant__ StoreF32 out) {
+  causal_attention_tile_wide(in, out);
+}
+
+cudaError_t launch_wide(const Operands& in, const StoreF32& out, int batch,
+                        int n_head, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WIDE_SMEM);
+  if (e != cudaSuccess) return e;
+  flash_attention_wide_kernel<<<wide_grid(batch, n_head, in.t, in.hd),
+                                THREADS, WIDE_SMEM, stream>>>(in, out);
+  return cudaGetLastError();
+}
+
 template <int HD>
 __global__ void __launch_bounds__(attn_bf16::THREADS,
                                   attn_bf16::Shape<HD>::MIN_BLOCKS)
@@ -104,12 +122,13 @@ cudaError_t launch_bf16(const attn_bf16::Operands& in,
 
 }  // namespace
 
-// q, k, v (batch, n_head, t, hd) f32, hd <= 128, read through the strides
-// (sb, sh, st) in floats, the last axis contiguous; o written through
-// (sob, soh, sot), even offsets from an 8-byte-aligned pointer where hd
-// is 64 (every other width is written a float at a time). sm_scale:
-// 1/sqrt(hd). Head width 64 runs the tile at 64; any other on the
-// smallest of 32, 64 and 128 that holds it, padded with zero columns.
+// q, k, v (batch, n_head, t, hd) f32, hd <= 4,096, read through the
+// strides (sb, sh, st) in floats, the last axis contiguous; o written
+// through (sob, soh, sot), even offsets from an 8-byte-aligned pointer
+// where hd is 64 (every other width is written a float at a time).
+// sm_scale: 1/sqrt(hd). Head width 64 runs the tile at 64; any other up
+// to 128 on the smallest of 32, 64 and 128 that holds it, padded with
+// zero columns; a wider one on the wide tile.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int batch, int n_head, int t,
                                    int hd, long long sb, long long sh,
@@ -117,7 +136,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    long long sot, float sm_scale,
                                    void* stream) {
   if (batch < 1 || batch > 65535 || n_head < 1 || t < 1 || hd < 1 ||
-      hd > MAX_HD ||
+      hd > MAX_WIDE_HD ||
       (hd == 64 && ((sob | soh | sot) % 2 != 0 ||
                     reinterpret_cast<uintptr_t>(o) % 8 != 0)))
     return cudaErrorInvalidValue;
@@ -128,6 +147,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                     rows_aligned16(q, k, v, sb, sh, st, hd), hd};
   const StoreF32 out{static_cast<float*>(o), sob, soh, sot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > MAX_HD) return launch_wide(in, out, batch, n_head, s);
   switch (padded_head(hd)) {
     case 32:
       return launch<32, true>(in, out, batch, n_head, s);

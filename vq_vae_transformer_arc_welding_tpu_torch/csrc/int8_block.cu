@@ -42,9 +42,13 @@
 // 52.6 MB at batch 80), the traffic the TPU kernels avoided. The TPU's
 // 8-row padding of T has no counterpart: every kernel masks the ragged
 // edge (the int8 attention pads its int8 operands with zeros to 64 rows).
-// Both attentions take any head width up to MAX_HEAD_DIM: 64 on their 64
-// instantiations, another on the smallest of 32, 64 and 128 that holds
-// it, padded with zero columns (attention_tc.cuh, attention_int8.cuh).
+// The int8 attention takes any head width up to MAX_HEAD_DIM (64 on its
+// 64 instantiation, another on the smallest of 32, 64 and 128 that
+// holds it, padded with zero columns: attention_int8.cuh); the f32
+// attention the same, and wider heads on attention_tc.cuh's wide tile.
+// Off the multiples of 64 (and above 1,024) the pieces run on their
+// general forms: the GEMM's GENERAL instantiation, ln_q8_any_kernel and
+// q8_rows_kernel, the int8 rows pitch16(C) bytes apart.
 #include "int8_block.cuh"
 
 #include "attention_int8.cuh"
@@ -74,27 +78,41 @@ q8_kernel(const float4* __restrict__ x, const float* __restrict__ qscale,
   }
 }
 
+// out[r * pitch16(c) + i] = q8(x[r * c + i], *qscale): the rows of a
+// width off the multiples of 16, a value a thread
+__global__ void __launch_bounds__(256)
+q8_rows_kernel(const float* __restrict__ x, const float* __restrict__ qscale,
+               int8_t* __restrict__ out, int rows, int c) {
+  const float qs = *qscale;
+  const int pitch = arcweld::pitch16(c);
+  const size_t n = (size_t)rows * c;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i / c * pitch + i % c] = arcweld::q8(x[i], qs);
+}
+
 // The f32 attention (#2, #6, #10, #11): attention_tc.cuh's tile on
 // the packed qkv, its output quantized straight to int8:
 //   y8[b, i, h*hd + e] = q8((sum_j p_ij v_je) / sum_j p_ij, *qscale)
-// operator() is the unpadded tile's (hd == HD), one() the padded one's.
+// rows pitch bytes apart (pitch16(C)). operator() is the unpadded
+// tile's (hd == HD), one() the padded and the wide ones'.
 template <int HD>
 struct StoreQ8 {
   int8_t* y8;
-  int t, c;
+  int t, pitch;
   float qs;
   int hd;
   __device__ __forceinline__ void operator()(int b, int h, int row, int col,
                                              float y0, float y1,
                                              float l) const {
-    *reinterpret_cast<char2*>(y8 + ((size_t)b * t + row) * c + h * HD +
+    *reinterpret_cast<char2*>(y8 + ((size_t)b * t + row) * pitch + h * HD +
                               col) =
         make_char2(arcweld::q8(__fdiv_rn(y0, l), qs),
                    arcweld::q8(__fdiv_rn(y1, l), qs));
   }
   __device__ __forceinline__ void one(int b, int h, int row, int col, float y,
                                       float l) const {
-    y8[((size_t)b * t + row) * c + h * hd + col] =
+    y8[((size_t)b * t + row) * pitch + h * hd + col] =
         arcweld::q8(__fdiv_rn(y, l), qs);
   }
 };
@@ -111,7 +129,38 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ qscale
   const attn_tc::Operands in{qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
                              hw, 3LL * c, t, sm_scale, vec16, hw};
   attn_tc::causal_attention_tile<HD, PAD>(
-      in, StoreQ8<HD>{y8, t, c, *qscale, hw});
+      in, StoreQ8<HD>{y8, t, arcweld::pitch16(c), *qscale, hw});
+}
+
+// heads wider than attn_tc::MAX_HD: the wide tile
+__global__ void __launch_bounds__(attn_tc::THREADS, 1)
+attention_wide_kernel(const float* __restrict__ qkv,
+                      const float* __restrict__ qscale,
+                      int8_t* __restrict__ y8, int t, int n_head,
+                      float sm_scale, bool vec16, int hd) {
+  const int c = n_head * hd;
+  const attn_tc::Operands in{qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
+                             hd, 3LL * c, t, sm_scale, vec16, hd};
+  attn_tc::causal_attention_tile_wide(
+      in, StoreQ8<attn_tc::PIECE>{y8, t, arcweld::pitch16(c), *qscale, hd});
+}
+
+cudaError_t launch_attention_wide(const float* qkv, const float* qscale,
+                                  int8_t* y8, int batch, int t, int c,
+                                  int n_head, float sm_scale,
+                                  cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn_tc::WIDE_SMEM);
+  if (e != cudaSuccess) return e;
+  const int hd = c / n_head;
+  attention_wide_kernel<<<attn_tc::wide_grid(batch, n_head, t, hd),
+                          attn_tc::THREADS, attn_tc::WIDE_SMEM, s>>>(
+      qkv, qscale, y8, t, n_head, sm_scale,
+      attn_tc::rows_aligned16(qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
+                              hd, 3LL * c, hd),
+      hd);
+  return cudaGetLastError();
 }
 
 template <int HD, bool PAD>
@@ -164,13 +213,21 @@ namespace arcweld {
 cudaError_t launch_ln_q8(const float* x, const float* scale,
                          const float* bias, const float* qscale, int8_t* out,
                          int* rail_rows, int rows, int c, cudaStream_t s) {
-  static_assert(lnq8::MAX_C == LN_MAX_C, "one widest LayerNorm row");
+  static_assert(lnq8::MAX_C == INT8_ATTN_MAX_C && lnq8::MAX_ANY_C == MAX_C,
+                "LayerNorm rows: the template's widths and the widest");
   return lnq8::launch(x, scale, bias, qscale, out, rail_rows, rows, c, s);
 }
 
-cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
-                      size_t n, cudaStream_t s) {
-  if (n % 4 != 0) return cudaErrorInvalidValue;
+cudaError_t launch_q8_rows(const float* x, const float* qscale, int8_t* out,
+                           int rows, int c, cudaStream_t s) {
+  if (rows < 1 || c < 1) return cudaErrorInvalidValue;
+  const size_t n = (size_t)rows * c;
+  if (c % 16 != 0) {   // rows pitch16(c) bytes apart
+    const unsigned grid =
+        (unsigned)std::min<size_t>((n + 255) / 256, (size_t)132 * 16);
+    q8_rows_kernel<<<grid, 256, 0, s>>>(x, qscale, out, rows, c);
+    return cudaGetLastError();
+  }
   const size_t n4 = n / 4;
   const unsigned grid =
       (unsigned)std::min<size_t>((n4 + 255) / 256, (size_t)132 * 16);
@@ -196,7 +253,12 @@ cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
 }
 
 bool heads_ok(int c, int n_head) {
-  return n_head >= 1 && c >= n_head && c % n_head == 0 &&
+  static_assert(MAX_C <= attn_tc::MAX_WIDE_HD, "one head of every width");
+  return n_head >= 1 && c >= n_head && c % n_head == 0 && c <= MAX_C;
+}
+
+bool int8_attn_ok(int c, int n_head) {
+  return heads_ok(c, n_head) && c % 64 == 0 && c <= INT8_ATTN_MAX_C &&
          c / n_head <= MAX_HEAD_DIM;
 }
 
@@ -206,6 +268,9 @@ cudaError_t launch_attention(const float* qkv, const float* qscale,
   if (batch < 1 || batch > 65535 || t < 1 || !heads_ok(c, n_head))
     return cudaErrorInvalidValue;
   const int hd = c / n_head;
+  if (hd > attn_tc::MAX_HD)
+    return launch_attention_wide(qkv, qscale, y8, batch, t, c, n_head,
+                                 sm_scale, s);
   switch (attn_tc::padded_head(hd)) {
     case 32:
       return launch_attention_at<32, true>(qkv, qscale, y8, batch, t, c,
@@ -226,7 +291,7 @@ cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
                                   int8_t* qkv8, int batch, int t, int c,
                                   int n_head, float sm_scale, cudaStream_t s) {
   if (batch < 1 || batch > 65535 || t < 1 || t > 65535 * attn8::TT ||
-      !heads_ok(c, n_head) || head_scales == nullptr || qkv8 == nullptr)
+      !int8_attn_ok(c, n_head) || head_scales == nullptr || qkv8 == nullptr)
     return cudaErrorInvalidValue;
   const int hd = c / n_head;
   switch (attn_tc::padded_head(hd)) {
@@ -257,7 +322,8 @@ cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              int n_head, float sm_scale, bool int8_attn,
                              cudaStream_t s) {
   const int rows = batch * t;
-  if (!heads_ok(c, n_head)) return cudaErrorInvalidValue;
+  if (int8_attn ? !int8_attn_ok(c, n_head) : !heads_ok(c, n_head))
+    return cudaErrorInvalidValue;
   cudaError_t e;
   if ((e = launch_ln_q8(x, vc, vc + c, scales + 0, h8a, nullptr, rows, c,
                         s)) != cudaSuccess)

@@ -5,29 +5,35 @@
 // attn_quant.cu) compose them. Every function launches on stream `s`
 // and returns cudaGetLastError() after its last launch. q8 is
 // clip(round-half-even(v * s), -127, 127).
+//
+// Widths: C (d_model) from 1 to MAX_C, any n_head that divides it. Every
+// int8 matrix of c values a row lies in rows pitch16(c) bytes apart
+// (int8_gemm_sm90.cuh: the pitch a tensor map takes), f32 ones
+// contiguous. The int8 attention keeps its narrower limits
+// (int8_attn_ok).
 #pragma once
 
 #include "common.cuh"
 
 namespace arcweld {
 
-constexpr int MAX_HEAD_DIM = 128;  // widest head the attentions take
-constexpr int LN_MAX_C = 1024;  // widest LayerNorm row
+constexpr int MAX_HEAD_DIM = 128;  // widest head the int8 attention takes
+constexpr int INT8_ATTN_MAX_C = 1024;  // widest C where it runs
+constexpr int MAX_C = 4096;  // widest C of every other kernel here
 
 // out[r, :] = q8(LN(x[r, :]) * scale + bias, *qscale); x (rows, c) f32,
-// c a multiple of 64 up to LN_MAX_C; rail_rows (rows,) int32 or null:
-// rail_rows[r] = the count of out[r, :] at +-127 (ln_q8.cuh)
+// c up to MAX_C; rail_rows (rows,) int32 or null: rail_rows[r] = the
+// count of out[r, :] at +-127 (ln_q8.cuh)
 cudaError_t launch_ln_q8(const float* x, const float* scale,
                          const float* bias, const float* qscale, int8_t* out,
                          int* rail_rows, int rows, int c, cudaStream_t s);
 
-// out[i] = q8(x[i], *qscale) for n values, n a multiple of 4
-cudaError_t launch_q8(const float* x, const float* qscale, int8_t* out,
-                      size_t n, cudaStream_t s);
+// out[r, i] = q8(x[r, i], *qscale): x (rows, c) f32, out int8
+cudaError_t launch_q8_rows(const float* x, const float* qscale, int8_t* out,
+                           int rows, int c, cudaStream_t s);
 
 // out[m, n] = float(sum_k a[m, k] w[n, k]) * cs[n] + cb[n] (+ resid[m, n])
-// a (rows, k), w (n_cols, k) int8, k and n_cols multiples of 64; out f32.
-// a, w, out and resid 16-byte aligned, cs and cb 8-byte (both GEMMs:
+// a (rows, k), w (n_cols, k) int8, 16-byte aligned; out f32 (both GEMMs:
 // int8_gemm_sm90.cuh)
 cudaError_t launch_gemm(const int8_t* a, const int8_t* w, const float* cs,
                         const float* cb, const float* resid, float* out,
@@ -42,9 +48,14 @@ cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                                 int8_t* out, int rows, int n_cols, int k,
                                 cudaStream_t s);
 
-// C a multiple of n_head with C / n_head (the head width) up to
-// MAX_HEAD_DIM: the shapes both attentions take
+// C up to MAX_C, split into n_head heads: the shapes the f32 attention
+// takes (attention_tc.cuh: heads up to 128 on its tile, wider ones on
+// its wide tile)
 bool heads_ok(int c, int n_head);
+
+// and the int8 attention's: C a multiple of 64 up to INT8_ATTN_MAX_C,
+// heads up to MAX_HEAD_DIM
+bool int8_attn_ok(int c, int n_head);
 
 // y8 (batch, t, C) = q8(causal attention of qkv (batch, t, 3C), *qscale),
 // n_head heads of width C / n_head, the f32 attention (attention_tc.cuh).
@@ -68,7 +79,8 @@ cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
 //   h8 = q8(LN2(x_mid)).
 // scales (4,) [s_attn, s_proj, s_fc, s_mproj]; vc rows [ln1_s, ln1_b,
 // ln2_s, ln2_b, deq_proj, b_proj]; v3c rows [deq_qkv, b_qkv]. head_scales
-// and qkv8: launch_attention_int8's, read only when int8_attn. rail_rows
+// and qkv8: launch_attention_int8's, read only when int8_attn (and then
+// int8_attn_ok(c, n_head)). rail_rows
 // (batch * t,) int32 or null: each row's count of h8 at +-127.
 cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              const int8_t* w_proj, const float* scales,

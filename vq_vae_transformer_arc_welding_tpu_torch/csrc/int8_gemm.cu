@@ -8,10 +8,12 @@
 // at each shape.
 #include "int8_block.cuh"
 
-// a (rows, k), w (n, k) int8; cs, cb (n,) f32; resid (rows, n) f32 or
+// a (rows, k), w (n, k) int8 in rows pitch16(k) bytes apart; cs, cb
+// (n,) f32; resid (rows, n) f32 or
 // null; qscale () f32 or null. qscale null: out (rows, n) f32 =
 // float(a @ w^T) * cs + cb (+ resid), and clip_rows must be null.
-// Otherwise out (rows, n) int8 = q8(new_gelu(float(a @ w^T) * cs + cb),
+// Otherwise out (rows, n) int8, rows pitch16(n) bytes apart, =
+// q8(new_gelu(float(a @ w^T) * cs + cb),
 // *qscale), resid must be null, and where clip_rows (rows,) int32 is
 // given each row's count of |new_gelu(..) * *qscale| > 127.5 is added to
 // it.

@@ -58,6 +58,18 @@
 //    clip_rows is given: its compares cost c_fc's epilogue-bound GEMM
 //    5-7% (scripts/bench_classify_monitor.py), which the calls without
 //    the monitor do not pay.
+//
+// Any N, K >= 1 (GENERAL). A tensor map wants a row pitch in bytes that
+// is a multiple of 16, so the int8 operands and the int8 output lie in
+// rows pitch16(K) (pitch16(N)) bytes apart, their pad never read: the
+// maps' extents are K and N, and TMA zero-fills a box past them. Where
+// N and K are multiples of 64 and the pointers aligned, the pitch is
+// the width and the kernel is the one above. Otherwise the GENERAL
+// instantiation reads cs and cb a float at a time (N may be odd, their
+// rows 4-byte aligned) and, with the f32 epilogue, stores each output
+// (and reads its residual) straight from the accumulators to device
+// memory, masked to M and N: an f32 row of N % 4 != 0 floats has no
+// 16-byte pitch. The arithmetic is the same, so are the bits.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -214,8 +226,10 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[ACC], uint64_t a,
 // box 128 x 128; tm_out: out (M, N), box 64 rows x 128 bytes (int8) or
 // 64 rows x 32 f32; tm_resid: resid (M, N) f32 as tm_out (unused when
 // has_resid is 0); all with the 128-byte swizzle. clip_rows: (M,) int32,
-// read by the COUNT instantiation (Q8 only).
-template <bool Q8, bool COUNT>
+// read by the COUNT instantiation (Q8 only). out_f32, resid_f32: the f32
+// (M, N) output and residual, which GENERAL f32 writes and reads
+// directly (the maps unused).
+template <bool Q8, bool COUNT, bool GENERAL>
 __global__ void __launch_bounds__(Config<Q8>::THREADS, 1)
 int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const __grid_constant__ CUtensorMap tm_w,
@@ -224,7 +238,9 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
                       const float* __restrict__ cs,
                       const float* __restrict__ cb,
                       const float* __restrict__ qscale,
-                      int* __restrict__ clip_rows, int has_resid,
+                      int* __restrict__ clip_rows,
+                      float* __restrict__ out_f32,
+                      const float* __restrict__ resid_f32, int has_resid,
                       int m_rows, int n_cols, int k) {
   constexpr int S = Config<Q8>::STAGES, TEAMS = Config<Q8>::TEAMS;
   constexpr int CONSUMERS = Config<Q8>::CONSUMERS;
@@ -308,7 +324,8 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
       const int m0 = tile / nt_n * BM + half * WG_ROWS;
       const int n0 = tile % nt_n * BN;
       // rows past M: the last row block's second half may hold none
-      const bool rows_in = m0 < m_rows, resid = !Q8 && has_resid && rows_in;
+      const bool rows_in = m0 < m_rows;
+      const bool resid = !Q8 && !GENERAL && has_resid && rows_in;
       // the staging tile is free once the last tile's store has read it;
       // the residual comes into it while the products run
       if (t == 0 && resid) {
@@ -365,9 +382,17 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
       for (int jc = 0; jc < BN / 8; ++jc) {
         const int col = 8 * jc + c_lo;
         const int n = n0 + col;
-        if (n >= n_cols) continue;  // N is a multiple of 64: n + 1 too
-        const float2 sc = *reinterpret_cast<const float2*>(cs + n);
-        const float2 bi = *reinterpret_cast<const float2*>(cb + n);
+        if (n >= n_cols) continue;
+        // column n + 1 is in (N is even) but for GENERAL's last column
+        const bool two = !GENERAL || n + 1 < n_cols;
+        float2 sc, bi;
+        if constexpr (GENERAL) {
+          sc = make_float2(cs[n], two ? cs[n + 1] : 0.0f);
+          bi = make_float2(cb[n], two ? cb[n + 1] : 0.0f);
+        } else {
+          sc = *reinterpret_cast<const float2*>(cs + n);
+          bi = *reinterpret_cast<const float2*>(cb + n);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = r_lo + 8 * h;
@@ -379,11 +404,21 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
             const float p0 = __fmul_rn(arcweld::new_gelu(y0), qs);
             const float p1 = __fmul_rn(arcweld::new_gelu(y1), qs);
             if constexpr (COUNT)
-              clipped[h] += (fabsf(p0) > 127.5f) + (fabsf(p1) > 127.5f);
+              clipped[h] +=
+                  (fabsf(p0) > 127.5f) + (two && fabsf(p1) > 127.5f);
             *reinterpret_cast<char2*>(
                 out_p + row * 128 + (((col >> 4) ^ (row & 7)) << 4) +
                 (col & 15)) =
                 make_char2(arcweld::q8_of(p0), arcweld::q8_of(p1));
+          } else if constexpr (GENERAL) {
+            const int gr = m0 + row;
+            if (gr < m_rows) {
+              const size_t at = (size_t)gr * n_cols + n;
+              out_f32[at] = has_resid ? __fadd_rn(resid_f32[at], y0) : y0;
+              if (two)
+                out_f32[at + 1] =
+                    has_resid ? __fadd_rn(resid_f32[at + 1], y1) : y1;
+            }
           } else {
             const int pc = col % F32_PANEL;
             float2* at = reinterpret_cast<float2*>(
@@ -414,7 +449,7 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
       if (t == 0 && rows_in) {
         if constexpr (Q8) {
           tma_store(&tm_out, out_s, n0, m0);
-        } else {
+        } else if constexpr (!GENERAL) {
 #pragma unroll
           for (int p = 0; p < BN / F32_PANEL; ++p)
             if (n0 + p * F32_PANEL < n_cols)
@@ -457,15 +492,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major (rows, cols) tensor of elem-byte values, read or written
-// in boxes of box_rows x box_cols with the 128-byte swizzle
+// a row-major (rows, cols) tensor of elem-byte values whose rows lie
+// pitch values apart, read or written in boxes of box_rows x box_cols
+// with the 128-byte swizzle
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, bool f32,
-                            int rows, int cols, int box_rows, int box_cols) {
+                            int rows, int cols, int pitch, int box_rows,
+                            int box_cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const int elem = f32 ? 4 : 1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * elem};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult r = encode(
@@ -480,38 +517,54 @@ inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// Needs N and K multiples of 64 and at least one row; a, w, out and
-// resid 16-byte aligned (TMA), cs and cb 8-byte aligned; clip_rows only
-// with Q8. One block per SM, or one per tile where there are fewer
-// tiles.
+// Any N, K >= 1 and at least one row. a (rows, k) and w (n, k) int8 in
+// rows pitch16(k) bytes apart, the int8 out in rows pitch16(n) bytes
+// apart, each 16-byte aligned (TMA); f32 out and resid (rows, n)
+// contiguous; clip_rows only with Q8. N and K multiples of 64 with out
+// and resid 16-byte aligned, cs and cb 8-byte, take the kernel's first
+// form, any other shape its GENERAL one. One block per SM, or one per
+// tile where there are fewer tiles.
 template <bool Q8>
 cudaError_t launch(const int8_t* a, const int8_t* w, const float* cs,
                    const float* cb, const float* resid, const float* qscale,
                    int* clip_rows, void* out, int rows, int n_cols, int k,
                    cudaStream_t s) {
-  if (rows < 1 || n_cols < 64 || k < 64 || n_cols % 64 != 0 ||
-      k % 64 != 0 || (!Q8 && clip_rows != nullptr))
+  if (rows < 1 || n_cols < 1 || k < 1 || (!Q8 && clip_rows != nullptr))
     return cudaErrorInvalidValue;
-  if (!aligned(a, 16) || !aligned(w, 16) || !aligned(out, 16) ||
-      !aligned(resid, 16) || !aligned(cs, 8) || !aligned(cb, 8))
+  if (!aligned(a, 16) || !aligned(w, 16) || (Q8 && !aligned(out, 16)))
     return cudaErrorMisalignedAddress;
+  const bool general = n_cols % 64 != 0 || k % 64 != 0 ||
+                       !aligned(out, 16) || !aligned(resid, 16) ||
+                       !aligned(cs, 8) || !aligned(cb, 8);
   CUtensorMap tm_a, tm_w, tm_out, tm_resid;
   cudaError_t e;
   const int out_cols = Q8 ? BN : F32_PANEL;
-  if ((e = make_map(&tm_a, a, false, rows, k, BM, BK)) != cudaSuccess ||
-      (e = make_map(&tm_w, w, false, n_cols, k, BN, BK)) != cudaSuccess ||
-      (e = make_map(&tm_out, out, !Q8, rows, n_cols, WG_ROWS, out_cols)) !=
+  const int out_pitch = Q8 ? pitch16(n_cols) : n_cols;
+  if ((e = make_map(&tm_a, a, false, rows, k, pitch16(k), BM, BK)) !=
           cudaSuccess ||
-      (e = make_map(&tm_resid, resid != nullptr ? resid : out, !Q8, rows,
-                    n_cols, WG_ROWS, out_cols)) != cudaSuccess)
+      (e = make_map(&tm_w, w, false, n_cols, k, pitch16(k), BN, BK)) !=
+          cudaSuccess)
     return e;
+  if (Q8 || !general) {
+    if ((e = make_map(&tm_out, out, !Q8, rows, n_cols, out_pitch, WG_ROWS,
+                      out_cols)) != cudaSuccess ||
+        (e = make_map(&tm_resid, resid != nullptr ? resid : out, !Q8, rows,
+                      n_cols, out_pitch, WG_ROWS, out_cols)) != cudaSuccess)
+      return e;
+  } else {
+    tm_out = tm_resid = tm_a;  // GENERAL f32 stores without TMA
+  }
   int dev, sms;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
-  const auto kernel = clip_rows != nullptr ? int8_gemm_sm90_kernel<Q8, Q8>
-                                            : int8_gemm_sm90_kernel<Q8, false>;
+  const bool count = clip_rows != nullptr;
+  const auto kernel =
+      general ? (count ? int8_gemm_sm90_kernel<Q8, Q8, true>
+                       : int8_gemm_sm90_kernel<Q8, false, true>)
+              : (count ? int8_gemm_sm90_kernel<Q8, Q8, false>
+                       : int8_gemm_sm90_kernel<Q8, false, false>);
   e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)Config<Q8>::SMEM);
@@ -519,7 +572,8 @@ cudaError_t launch(const int8_t* a, const int8_t* w, const float* cs,
   const int grid = tiles(rows, n_cols) < sms ? tiles(rows, n_cols) : sms;
   kernel<<<grid, Config<Q8>::THREADS, Config<Q8>::SMEM, s>>>(
       tm_a, tm_w, tm_out, tm_resid, cs, cb, qscale, clip_rows,
-      resid != nullptr, rows, n_cols, k);
+      Q8 ? nullptr : static_cast<float*>(out), resid, resid != nullptr,
+      rows, n_cols, k);
   return cudaGetLastError();
 }
 

@@ -33,6 +33,14 @@
 //    order. h8 is bit for bit what it was, and with it everything
 //    downstream (an h8 step of another order moves the int8 attention's
 //    per-head scales, and from there whole rows).
+//
+// Any other C up to MAX_ANY_C (a width off the multiples of 64, above
+// MAX_C, or rows not aligned for the wide loads) takes ln_q8_any_kernel:
+// C a runtime value, one warp a row, the row staged once in shared
+// memory by lane L at columns L + 32 i, each lane reading back its own
+// columns. Its sums run in the order above, so where the template runs
+// it writes the same bits. Its output rows lie pitch16(C) bytes apart
+// (the int8 GEMM's operand pitch, int8_gemm_sm90.cuh), a byte a store.
 #pragma once
 
 #include "common.cuh"
@@ -40,8 +48,10 @@
 namespace arcweld {
 namespace lnq8 {
 
-constexpr int MAX_C = 1024;  // widest row
-constexpr int WARPS = 8;     // rows a block
+constexpr int MAX_C = 1024;      // widest row of the template
+constexpr int WARPS = 8;         // rows a block
+constexpr int MAX_ANY_C = 4096;  // widest row of ln_q8_any_kernel
+constexpr int ANY_WARPS = 4;     // its rows a block: 64 KB at MAX_ANY_C
 
 template <int V>
 __device__ __forceinline__ void load(const float* p, float (&d)[V]) {
@@ -138,24 +148,77 @@ cudaError_t launch_c(const float* x, const float* scale, const float* bias,
   return cudaGetLastError();
 }
 
+// any c up to MAX_ANY_C; out rows `pitch` bytes apart; dynamic shared
+// memory ANY_WARPS * c floats
+__global__ void __launch_bounds__(32 * ANY_WARPS)
+ln_q8_any_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ qscale, int8_t* __restrict__ out,
+                 int* __restrict__ rail_rows, int rows, int c, int pitch) {
+  extern __shared__ float rows_s[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row = blockIdx.x * ANY_WARPS + warp;
+  if (row >= rows) return;
+  float* const t = rows_s + (size_t)warp * c;
+  const float* xr = x + (size_t)row * c;
+  float s = 0.f;
+  for (int i = lane; i < c; i += 32) {
+    const float v = xr[i];
+    t[i] = v;
+    s = __fadd_rn(s, v);
+  }
+  const float mean = __fdiv_rn(warp_sum(s), (float)c);
+  float q = 0.f;
+  for (int i = lane; i < c; i += 32) {
+    const float d = __fsub_rn(t[i], mean);
+    q = __fadd_rn(q, __fmul_rn(d, d));
+  }
+  const float var = __fdiv_rn(warp_sum(q), (float)c);
+  const float sd = sqrtf(__fadd_rn(var, 1e-5f));
+  const float qs = *qscale;
+  int8_t* const orow = out + (size_t)row * pitch;
+  int rails = 0;
+  for (int i = lane; i < c; i += 32) {
+    const float y = __fdiv_rn(__fsub_rn(t[i], mean), sd);
+    const int o =
+        q8_of(__fmul_rn(__fadd_rn(__fmul_rn(y, scale[i]), bias[i]), qs));
+    rails += (o == 127) | (o == -127);
+    orow[i] = (int8_t)o;
+  }
+  if (rail_rows != nullptr) {
+    rails = __reduce_add_sync(0xffffffffu, rails);
+    if (lane == 0) rail_rows[row] = rails;
+  }
+}
+
 inline bool aligned_to(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// x (rows, c) f32, scale and bias (c,) f32, out (rows, c) int8, rail_rows
-// (rows,) int32 or null (written, not added to); c a multiple of 64 up to
-// MAX_C; x, scale and bias 16-byte aligned (8 where c % 128 != 0), out
-// 4-byte (2).
+// x (rows, c) f32, scale and bias (c,) f32, out (rows, c) int8 in rows
+// pitch16(c) bytes apart, rail_rows (rows,) int32 or null (written,
+// not added to); c from 1 to MAX_ANY_C. A multiple of 64 up to MAX_C
+// with x, scale and bias 16-byte aligned (8 where c % 128 != 0) and out
+// 4-byte (2) takes its template, any other row ln_q8_any_kernel.
 inline cudaError_t launch(const float* x, const float* scale,
                          const float* bias, const float* qscale, int8_t* out,
                          int* rail_rows, int rows, int c, cudaStream_t s) {
-  if (rows < 1 || c < 64 || c % 64 != 0 || c > MAX_C)
-    return cudaErrorInvalidValue;
+  if (rows < 1 || c < 1 || c > MAX_ANY_C) return cudaErrorInvalidValue;
   const bool v4 = c % 128 == 0;
   const size_t al = v4 ? 16 : 8;
-  if (!aligned_to(x, al) || !aligned_to(scale, al) || !aligned_to(bias, al) ||
-      !aligned_to(out, al / 4))
-    return cudaErrorMisalignedAddress;
+  if (c % 64 != 0 || c > MAX_C || !aligned_to(x, al) ||
+      !aligned_to(scale, al) || !aligned_to(bias, al) ||
+      !aligned_to(out, al / 4)) {
+    const size_t smem = sizeof(float) * ANY_WARPS * c;
+    cudaError_t e = cudaFuncSetAttribute(
+        ln_q8_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    ln_q8_any_kernel<<<(rows + ANY_WARPS - 1) / ANY_WARPS, 32 * ANY_WARPS,
+                       smem, s>>>(x, scale, bias, qscale, out, rail_rows,
+                                  rows, c, pitch16(c));
+    return cudaGetLastError();
+  }
   switch (c / 64) {
 #define ARCWELD_LN_Q8_C(k, v, n) \
   case k:                        \

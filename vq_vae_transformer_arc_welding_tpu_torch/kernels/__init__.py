@@ -89,6 +89,9 @@ _SIGNATURES = {
     # q, k, v, out, batch, n_head, t, head width, the inputs' strides
     # (batch, head, row) and the output's, in floats, sm_scale, stream
     "flash_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
+    # x, scale, bias, qscale, out, rail_rows, rows, c, stream: #2's
+    # LayerNorm+q8 rows alone (card tests and chip_smoke.py)
+    "ln_q8": [_P] * 6 + [_I] * 2 + [_P],
     # the same on bf16 q, k, v and out, strides in elements
     "flash_attention_bf16": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
     # the block's packed operands (ops/fused_decode.DecodeArgs), x, out,
@@ -102,11 +105,20 @@ VARIANTS = {"attn_block_quant": "attn_block_quant_int8attn",
 
 launches = {name: 0 for name in (*_SIGNATURES, *VARIANTS.values())}
 
-# The widest head the attention kernels take (#2, #6, #9, #10, #11, #12,
-# #13; csrc/int8_block.cuh's MAX_HEAD_DIM, which the library reports as
-# attention_max_head_dim()). A narrower head runs on the kernels' tile
-# of `padded_head_width(hd)`, its columns past hd zero.
+# The widest d_model C of the transformer's kernels (csrc/int8_block.cuh's
+# MAX_C): the int8 GEMM, LN+q8 and the f32 attention (#2, #6, #8, #9,
+# #10, #11) take any C from 1 to it, split into any number of heads; a
+# head past 128 runs on the f32 attention's wide tile.
+MAX_WIDTH = 4096
+# The narrower limits of the int8 attention (#2 and #6 with int8_attn),
+# #9's bf16 tile and the decode kernels (#12, #13): C a multiple of 64
+# (up to 1,024 for the int8 attention and decode) in heads up to
+# MAX_HEAD_DIM wide (csrc/int8_block.cuh's MAX_HEAD_DIM, which the
+# library reports as attention_max_head_dim()). A narrower head runs on
+# the kernels' tile of `padded_head_width(hd)`, its columns past hd zero.
 MAX_HEAD_DIM = 128
+NARROW = dict(max_head=MAX_HEAD_DIM, multiple=64)
+INT8_ATTN = dict(NARROW, max_c=1024)
 
 
 def reset_launch_counts() -> None:
@@ -186,17 +198,64 @@ def padded_head_width(hd: int) -> int:
     return 32 if hd <= 32 else 64 if hd <= 64 else 128
 
 
-def require_heads(name: str, c: int, n_head: int,
-                  max_c: int | None = None) -> None:
-    """Raise unless the attention kernels take width C with n_head
-    heads: C a multiple of 64 (up to max_c), split into n_head heads of
-    a width up to MAX_HEAD_DIM. Needs no card."""
-    if (c % 64 or n_head < 1 or c % n_head or c // n_head > MAX_HEAD_DIM
-            or (max_c is not None and c > max_c)):
-        limit = f" up to {max_c}" if max_c is not None else ""
+def require_heads(name: str, c: int, n_head: int, *,
+                  max_c: int | None = MAX_WIDTH, max_head: int | None = None,
+                  multiple: int = 1) -> None:
+    """Raise unless a kernel takes width C with n_head heads: C from 1
+    up to max_c (None: any) and a multiple of `multiple`, split into
+    n_head heads of a width up to max_head (None: any). The defaults are
+    the f32 attention's, the GEMM's and LN+q8's limits; NARROW and
+    INT8_ATTN the other kernels'. Needs no card."""
+    if (n_head < 1 or c < 1 or c % n_head or c % multiple
+            or (max_c is not None and c > max_c)
+            or (max_head is not None and c // n_head > max_head)):
+        limit = "C" + (f" a multiple of {multiple}" if multiple > 1 else "")
+        limit += f" up to {max_c}" if max_c is not None else ""
+        if max_head is not None:
+            limit += f" and a head width C / n_head up to {max_head}"
         raise ValueError(f"{name}: C={c} with {n_head} heads not supported: "
-                         f"C a multiple of 64{limit} and a head width C / "
-                         f"n_head up to {MAX_HEAD_DIM}")
+                         f"{limit}")
+
+
+def pitch16(k: int) -> int:
+    """The row pitch in bytes of an int8 matrix k values wide, as the
+    kernels read and write int8 matrices (csrc/common.cuh): a tensor map
+    wants rows a multiple of 16 bytes apart."""
+    return -(-k // 16) * 16
+
+
+def empty_pitched(shape: tuple, device) -> torch.Tensor:
+    """An int8 tensor of `shape` whose rows lie pitch16(shape[-1]) bytes
+    apart: a view of the first shape[-1] columns of wider rows (the
+    tensor itself where the width is a multiple of 16)."""
+    *lead, k = shape
+    return torch.empty((*lead, pitch16(k)), dtype=torch.int8,
+                       device=device)[..., :k]
+
+
+def is_pitched(t: torch.Tensor) -> bool:
+    """Whether t's rows lie pitch16(width) bytes apart, one after
+    another (`empty_pitched`'s layout)."""
+    want, step = [], 1
+    for i, n in enumerate(reversed(t.shape)):
+        want.append(step)
+        step *= pitch16(n) if i == 0 else n
+    return all(n == 1 or s == w for n, s, w in
+               zip(t.shape, t.stride(), reversed(want)))
+
+
+def pitched(t: torch.Tensor, name: str, shape: tuple,
+            device: torch.device) -> torch.Tensor:
+    """t, an int8 tensor of `shape` on `device`, laid out as the kernels
+    read int8 operands (`empty_pitched`): t itself where it lies so, a
+    copy where it is contiguous; raises as `require` does otherwise."""
+    if (t.dtype == torch.int8 and tuple(t.shape) == tuple(shape)
+            and t.device == device and is_pitched(t)):
+        return t
+    require(t, name, torch.int8, shape, device)
+    out = empty_pitched(tuple(shape), device)
+    out.copy_(t)
+    return out
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -38,7 +38,7 @@ from ..ops.attention import causal_attention_core, merge_heads, split_heads
 from ..ops.conv import center_tap_dense
 from ..ops.fused_block_quant import (fused_attn_block_quant,
                                      fused_block_quant, pack_block,
-                                     packed_operands)
+                                     packed_operands, packed_weights)
 from ..ops.int8 import int8_matmul, quantize_act
 from ..ops.norm import batch_norm_apply, layer_norm
 from ..ops.vq import nearest_codes
@@ -227,11 +227,11 @@ def _mlp_int8_gemm(blk, h8, resid, clip_rows=None):
     inputs that its act scale clips is added to it (the numerator of
     `_row_clip_frac` on new_gelu's output)."""
     scales, vc, _, v4c = packed_operands(blk)
+    _, _, w_fc, w_mp = packed_weights(blk)
     lead = h8.shape[:-1]
-    g8 = int8_gemm.int8_gemm(h8.reshape(-1, h8.shape[-1]),
-                             blk["c_fc"].w_int8, v4c[0], v4c[1],
-                             qscale=scales[3], clip_rows=clip_rows)
-    out = int8_gemm.int8_gemm(g8, blk["m_proj"].w_int8, vc[6], vc[7],
+    g8 = int8_gemm.int8_gemm(h8.reshape(-1, h8.shape[-1]), w_fc, v4c[0],
+                             v4c[1], qscale=scales[3], clip_rows=clip_rows)
+    out = int8_gemm.int8_gemm(g8, w_mp, vc[6], vc[7],
                               resid=resid.reshape(-1, resid.shape[-1]))
     return out.reshape(*lead, -1)
 
@@ -313,7 +313,7 @@ def quantized_backbone_fused(model, qparams, x_ids, *, fused_mlp=False,
         if fused_qkv:
             scales, _, v3c, _ = packed_operands(blk)
             y8 = fused_attn_quant.qkv_attention_quant(
-                h, blk["c_attn"].w_int8, scales[:2], v3c,
+                h, packed_weights(blk)[0], scales[:2], v3c,
                 n_head=model.n_head, block_rows=attn_block_rows)
         else:
             y8 = fused_attn_quant.fused_causal_attention_quant(
@@ -323,9 +323,9 @@ def quantized_backbone_fused(model, qparams, x_ids, *, fused_mlp=False,
         h = layer_norm(x, blk["ln2_scale"], blk["ln2_bias"])
         if fused_mlp:
             scales, vc, _, v4c = packed_operands(blk)
-            x = x + fused_mlp_quant.mlp_quant(
-                h, blk["c_fc"].w_int8, blk["m_proj"].w_int8, scales[2:], v4c,
-                vc[6:])
+            _, _, w_fc, w_mp = packed_weights(blk)
+            x = x + fused_mlp_quant.mlp_quant(h, w_fc, w_mp, scales[2:], v4c,
+                                              vc[6:])
         else:
             x = x + qdot(new_gelu(qdot(h, blk["c_fc"])), blk["m_proj"])
     return layer_norm(x, qparams["ln_f_scale"], qparams["ln_f_bias"])

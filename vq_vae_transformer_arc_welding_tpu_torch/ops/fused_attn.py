@@ -22,9 +22,11 @@ takes any T, masks the ragged edge itself, and runs one block per
 query tile (laid from the end of T), head and batch: on f32 operands
 the tile of csrc/attention_tc.cuh (128 queries, P@V in split TF32 on
 the tensor cores), on bf16 ones that of csrc/attention_bf16.cuh (64
-queries). It takes any head width up to 128 (C = H * D a multiple of
-64), the columns past D zero in shared memory where the tile is wider;
-wider heads raise.
+queries). On f32 operands it takes any head width up to
+`kernels.MAX_WIDTH` (the columns past D zero in shared memory where the
+tile is wider; a head past 128 on the tile's wide form, a block for
+each 128 output columns); on bf16 ones any up to 128 with C = H * D a
+multiple of 64 (`kernels.NARROW`). Other shapes raise.
 
 The kernel reads q, k and v through their strides, so the views that
 `split_heads` cuts out of a packed (B, T, 3C) qkv are read in place; the
@@ -85,7 +87,10 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, t, d = q.shape
     dev = q.device
-    kernels.require_heads(name, h * d, h)
+    kernels.require_heads(name, h * d, h,
+                          **(kernels.NARROW if q.dtype == torch.bfloat16
+                             else dict(max_c=None,
+                                       max_head=kernels.MAX_WIDTH)))
     for what, z in (("q", q), ("k", k), ("v", v)):
         if (z.dtype not in _KERNELS or z.dtype != q.dtype
                 or tuple(z.shape) != (b, h, t, d) or z.device != dev):

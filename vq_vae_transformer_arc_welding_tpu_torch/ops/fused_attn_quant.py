@@ -21,7 +21,10 @@ kernel walks each query tile's keys only up to its causal limit.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 
-Weights are in the port's (out, in) layout: w_qkv is (3C, C).
+Weights are in the port's (out, in) layout: w_qkv is (3C, C). Widths:
+any C from 1 to `kernels.MAX_WIDTH` in any number of heads (heads past
+128 on the f32 attention's wide tile); y8 comes back in the kernels'
+int8 rows (`kernels.empty_pitched`).
 """
 from __future__ import annotations
 
@@ -113,7 +116,7 @@ def fused_causal_attention_quant(qkv: torch.Tensor, y_scale, *,
     kernels.require(qkv, "qkv", torch.float32, (b, t, 3 * c), dev)
     y_scale = y_scale.reshape(())
     kernels.require(y_scale, "y_scale", torch.float32, (), dev)
-    y8 = torch.empty((b, t, c), dtype=torch.int8, device=dev)
+    y8 = kernels.empty_pitched((b, t, c), dev)
     if b * t == 0:
         return y8
     lib = kernels.library()
@@ -142,13 +145,13 @@ def qkv_attention_quant(h, w_qkv, scales, v3c, *, n_head: int,
     dev = h.device
     kernels.require_heads(_QKV, c, n_head)
     kernels.require(h, "h", torch.float32, (b, t, c), dev)
-    kernels.require(w_qkv, "w_qkv", torch.int8, (3 * c, c), dev)
+    w_qkv = kernels.pitched(w_qkv, "w_qkv", (3 * c, c), dev)
     kernels.require(scales, "scales", torch.float32, (2,), dev)
     kernels.require(v3c, "v3c", torch.float32, (2, 3 * c), dev)
-    y8 = torch.empty((b, t, c), dtype=torch.int8, device=dev)
+    y8 = kernels.empty_pitched((b, t, c), dev)
     if b * t == 0:
         return y8
-    h8 = torch.empty_like(y8)
+    h8 = kernels.empty_pitched((b, t, c), dev)
     qkv = torch.empty((b, t, 3 * c), dtype=torch.float32, device=dev)
     lib = kernels.library()
     kernels.launches[_QKV] += 1

@@ -34,7 +34,14 @@ launches the kernel or raises. Nothing falls back.
 Operands are packed once per calibrated block (`pack_block`, called by
 `quantize_transformer` and `bridge.qparams_from_jax`), not per call,
 with the full-block rows: the attention half reads `vc[:6]`, the MLP
-`vc[6:]` and `v4c`.
+`vc[6:]` and `v4c`; and the four int8 weights as the kernels read int8
+matrices, rows `kernels.pitch16` of their width bytes apart (the
+weights themselves where C is a multiple of 16).
+
+Widths: any C from 1 to `kernels.MAX_WIDTH` in any number of heads; with
+`int8_attn`, the int8 attention's `kernels.INT8_ATTN` limits. The
+kernels' int8 intermediates and the h8 that #2 returns lie in such
+rows too (`kernels.empty_pitched`).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from .norm import layer_norm
 
 _ATTN = "attn_block_quant"
 _FULL = "block_quant"
+_LN = "ln_q8"
 _QLINEARS = ("c_attn", "c_proj", "c_fc", "m_proj")
 T_TILE = 64         # the int8 attention's query and key tiles, and T's
                     # padding in qkv8
@@ -81,12 +89,19 @@ def _block_operands(blk: dict, full: bool = False):
 
 def pack_block(blk: dict) -> dict:
     """`blk` with its kernel operands, `_block_operands(blk, full=True)`,
-    under "block_operands", so that serving packs them once and not per
-    call. A block without calibrated act scales (dynamic int8) is
-    returned as it is; the fused paths refuse it."""
+    under "block_operands", and its int8 weights (c_attn, c_proj, c_fc,
+    m_proj) in the kernels' rows (`kernels.pitched`) under
+    "block_weights", so that serving packs them once and not per call.
+    A block without calibrated act scales (dynamic int8) is returned as
+    it is; the fused paths refuse it."""
     if any(blk[name].act_scale is None for name in _QLINEARS):
         return blk
-    return {**blk, "block_operands": _block_operands(blk, full=True)}
+    weights = []
+    for name in _QLINEARS:
+        w = blk[name].w_int8
+        weights.append(kernels.pitched(w, name, w.shape, w.device))
+    return {**blk, "block_operands": _block_operands(blk, full=True),
+            "block_weights": tuple(weights)}
 
 
 def packed_operands(blk: dict):
@@ -99,6 +114,24 @@ def packed_operands(blk: dict):
     return blk["block_operands"]
 
 
+def packed_weights(blk: dict):
+    """The block's int8 weights (w_qkv, w_proj, w_fc, w_mp) in the
+    kernels' rows, as `pack_block` laid them out."""
+    packed_operands(blk)
+    return blk["block_weights"]
+
+
+def ln_q8_reference(x, scale, bias, qscale, rail_rows=None):
+    """Plain version of #2's LayerNorm+q8 rows: q8(LN(x) * scale +
+    bias, qscale), int8; rail_rows (x's leading shape) int32 overwritten
+    with each row's count of outputs at +-127."""
+    h8 = quantize_act(layer_norm(x, scale, bias), qscale)
+    if rail_rows is not None:
+        rail_rows.copy_((h8.to(torch.int32).abs() >= 127).sum(
+            -1, dtype=torch.int32))
+    return h8
+
+
 def fused_attn_block_quant_reference(x, w_qkv, w_proj, scales, vc, v3c, *,
                                      n_head: int, int8_attn: bool = False,
                                      rail_rows=None):
@@ -107,16 +140,12 @@ def fused_attn_block_quant_reference(x, w_qkv, w_proj, scales, vc, v3c, *,
     `_block_operands` packs them. Returns (x_mid f32, h8 int8).
     rail_rows (B, T) int32: overwritten with each row's count of h8 at
     +-127."""
-    h8a = quantize_act(layer_norm(x, vc[0], vc[1]), scales[0])
+    h8a = ln_q8_reference(x, vc[0], vc[1], scales[0])
     qkv = int8_matmul(h8a, w_qkv).float() * v3c[0] + v3c[1]
     y = attention_core_reference(qkv, n_head, int8_attn=int8_attn)
     y8 = quantize_act(y, scales[1])
     x_mid = x + (int8_matmul(y8, w_proj).float() * vc[4] + vc[5])
-    h8 = quantize_act(layer_norm(x_mid, vc[2], vc[3]), scales[2])
-    if rail_rows is not None:
-        rail_rows.copy_((h8.to(torch.int32).abs() >= 127).sum(
-            -1, dtype=torch.int32))
-    return x_mid, h8
+    return x_mid, ln_q8_reference(x_mid, vc[2], vc[3], scales[2], rail_rows)
 
 
 def fused_block_quant_reference(x, w_qkv, w_proj, w_fc, w_mp, scales, vc,
@@ -181,11 +210,11 @@ def quantize_heads_reference(qkv: torch.Tensor, n_head: int):
 
 
 def _attn_scratch(b, t, c, n_head, int8_attn, dev):
-    """h8a, y8 (B, T, C) int8, qkv (B, T, 3C) f32, and the int8
-    attention's per-head scales (B, 3, n_head) f32 and int8 operands
-    qkv8 (B, n_head, 3, T_pad * HD) (`quantize_heads_reference`)."""
-    h8a = torch.empty((b, t, c), dtype=torch.int8, device=dev)
-    y8 = torch.empty_like(h8a)
+    """h8a, y8 (B, T, C) int8 in the kernels' rows, qkv (B, T, 3C) f32,
+    and the int8 attention's per-head scales (B, 3, n_head) f32 and int8
+    operands qkv8 (B, n_head, 3, T_pad * HD) (`quantize_heads_reference`)."""
+    h8a = kernels.empty_pitched((b, t, c), dev)
+    y8 = kernels.empty_pitched((b, t, c), dev)
     qkv = torch.empty((b, t, 3 * c), dtype=torch.float32, device=dev)
     head_scales = torch.empty((b, 3, n_head) if int8_attn else (1,),
                               dtype=torch.float32, device=dev)
@@ -199,6 +228,40 @@ def _count(name: str, int8_attn: bool) -> None:
     kernels.launches[kernels.VARIANTS[name] if int8_attn else name] += 1
 
 
+def ln_q8(x, scale, bias, qscale, rail_rows=None):
+    """#2's LayerNorm+q8 rows alone (csrc/ln_q8.cuh), the first and last
+    launch of #2: the kernel on CUDA (its int8 rows as
+    `kernels.empty_pitched` lays them), the plain version on the CPU.
+    x (..., C) f32 with C up to `kernels.MAX_WIDTH`; scale, bias (C,)
+    f32; qscale () f32; rail_rows as the plain version's."""
+    if x.device.type == "cpu":
+        return ln_q8_reference(x, scale, bias, qscale, rail_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"{_LN}: no kernel for device {x.device}")
+    c = x.shape[-1]
+    rows = x.numel() // max(c, 1)
+    dev = x.device
+    kernels.require_heads(_LN, c, 1)
+    kernels.require(x, "x", torch.float32, tuple(x.shape), dev)
+    kernels.require(scale, "scale", torch.float32, (c,), dev)
+    kernels.require(bias, "bias", torch.float32, (c,), dev)
+    kernels.require(qscale, "qscale", torch.float32, (), dev)
+    if rail_rows is not None:
+        kernels.require(rail_rows, "rail_rows", torch.int32,
+                        tuple(x.shape[:-1]), dev)
+    out = kernels.empty_pitched(tuple(x.shape), dev)
+    if rows == 0:
+        return out
+    lib = kernels.library()
+    kernels.launches[_LN] += 1
+    err = lib.ln_q8(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                    qscale.data_ptr(), out.data_ptr(),
+                    None if rail_rows is None else rail_rows.data_ptr(),
+                    rows, c, kernels.stream_ptr(dev))
+    kernels.check(err, _LN)
+    return out
+
+
 def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
                      int8_attn: bool = False, scratch: dict | None = None,
                      rail_rows=None):
@@ -206,7 +269,8 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
     on the CPU. scratch: a dict that receives the kernel's
     intermediates, "h8a", "qkv", "y8", "head_scales" and "qkv8", to
     check them stage by stage (CUDA only). rail_rows (B, T) int32:
-    overwritten with each row's count of h8 at +-127."""
+    overwritten with each row's count of h8 at +-127. On CUDA, h8 comes
+    back in the kernels' rows (`kernels.empty_pitched`)."""
     if x.device.type == "cpu":
         return fused_attn_block_quant_reference(
             x, w_qkv, w_proj, scales, vc, v3c, n_head=n_head,
@@ -215,17 +279,18 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
         raise ValueError(f"{_ATTN}: no kernel for device {x.device}")
     b, t, c = x.shape
     dev = x.device
-    kernels.require_heads(_ATTN, c, n_head, max_c=1024)
+    kernels.require_heads(_ATTN, c, n_head,
+                          **(kernels.INT8_ATTN if int8_attn else {}))
     kernels.require(x, "x", torch.float32, (b, t, c), dev)
-    kernels.require(w_qkv, "w_qkv", torch.int8, (3 * c, c), dev)
-    kernels.require(w_proj, "w_proj", torch.int8, (c, c), dev)
+    w_qkv = kernels.pitched(w_qkv, "w_qkv", (3 * c, c), dev)
+    w_proj = kernels.pitched(w_proj, "w_proj", (c, c), dev)
     kernels.require(scales, "scales", torch.float32, (4,), dev)
     kernels.require(vc, "vc", torch.float32, (6, c), dev)
     kernels.require(v3c, "v3c", torch.float32, (2, 3 * c), dev)
     if rail_rows is not None:
         kernels.require(rail_rows, "rail_rows", torch.int32, (b, t), dev)
     x_mid = torch.empty_like(x)
-    h8 = torch.empty((b, t, c), dtype=torch.int8, device=dev)
+    h8 = kernels.empty_pitched((b, t, c), dev)
     if b * t == 0:
         return x_mid, h8
     h8a, y8, qkv, head_scales, qkv8 = _attn_scratch(b, t, c, n_head,
@@ -261,14 +326,13 @@ def block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, *,
     b, t, c = x.shape
     c4 = w_fc.shape[0]
     dev = x.device
-    kernels.require_heads(_FULL, c, n_head, max_c=1024)
-    if c4 % 64:
-        raise ValueError(f"{_FULL}: 4C={c4} must be a multiple of 64")
+    kernels.require_heads(_FULL, c, n_head,
+                          **(kernels.INT8_ATTN if int8_attn else {}))
     kernels.require(x, "x", torch.float32, (b, t, c), dev)
-    kernels.require(w_qkv, "w_qkv", torch.int8, (3 * c, c), dev)
-    kernels.require(w_proj, "w_proj", torch.int8, (c, c), dev)
-    kernels.require(w_fc, "w_fc", torch.int8, (c4, c), dev)
-    kernels.require(w_mp, "w_mp", torch.int8, (c, c4), dev)
+    w_qkv = kernels.pitched(w_qkv, "w_qkv", (3 * c, c), dev)
+    w_proj = kernels.pitched(w_proj, "w_proj", (c, c), dev)
+    w_fc = kernels.pitched(w_fc, "w_fc", (c4, c), dev)
+    w_mp = kernels.pitched(w_mp, "w_mp", (c, c4), dev)
     kernels.require(scales, "scales", torch.float32, (4,), dev)
     kernels.require(vc, "vc", torch.float32, (8, c), dev)
     kernels.require(v3c, "v3c", torch.float32, (2, 3 * c), dev)
@@ -279,8 +343,8 @@ def block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, *,
     h8a, y8, qkv, head_scales, qkv8 = _attn_scratch(b, t, c, n_head,
                                                     int8_attn, dev)
     x_mid = torch.empty_like(x)
-    h8 = torch.empty_like(h8a)
-    g8 = torch.empty((b, t, c4), dtype=torch.int8, device=dev)
+    h8 = kernels.empty_pitched((b, t, c), dev)
+    g8 = kernels.empty_pitched((b, t, c4), dev)
     if scratch is not None:
         scratch.update(h8a=h8a, qkv=qkv, y8=y8, head_scales=head_scales,
                        qkv8=qkv8, x_mid=x_mid, h8=h8, g8=g8)
@@ -310,9 +374,10 @@ def fused_attn_block_quant(x: torch.Tensor, blk: dict, *, n_head: int,
     operands with per (batch, head) scales. rail_rows (B, T) int32:
     overwritten with each row's count of h8 at +-127."""
     scales, vc, v3c, _ = packed_operands(blk)
-    return attn_block_quant(x, blk["c_attn"].w_int8, blk["c_proj"].w_int8,
-                            scales, vc[:6], v3c, n_head=n_head,
-                            int8_attn=int8_attn, rail_rows=rail_rows)
+    w_qkv, w_proj, _, _ = packed_weights(blk)
+    return attn_block_quant(x, w_qkv, w_proj, scales, vc[:6], v3c,
+                            n_head=n_head, int8_attn=int8_attn,
+                            rail_rows=rail_rows)
 
 
 def fused_block_quant(x: torch.Tensor, blk: dict, *, n_head: int,
@@ -321,6 +386,5 @@ def fused_block_quant(x: torch.Tensor, blk: dict, *, n_head: int,
     plus the int8 MLP and its residual. Returns the next residual
     stream (B, T, C) f32."""
     scales, vc, v3c, v4c = packed_operands(blk)
-    return block_quant(x, blk["c_attn"].w_int8, blk["c_proj"].w_int8,
-                       blk["c_fc"].w_int8, blk["m_proj"].w_int8, scales, vc,
-                       v3c, v4c, n_head=n_head, int8_attn=int8_attn)
+    return block_quant(x, *packed_weights(blk), scales, vc, v3c, v4c,
+                       n_head=n_head, int8_attn=int8_attn)

@@ -135,7 +135,7 @@ def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev):
     """Raise unless the kernel takes the block and the caches; the
     pointers of the block's weights in DecodeArgs' order, and c4."""
     c = blk.ln_1.weight.shape[0]
-    kernels.require_heads(name, c, n_head, max_c=MAX_C)
+    kernels.require_heads(name, c, n_head, **kernels.NARROW, max_c=MAX_C)
     kernels.require(kc, "kc", torch.float32, cache_shape, dev)
     kernels.require(vc, "vc", torch.float32, cache_shape, dev)
     c4 = blk.mlp.c_fc.weight.shape[0] if mlp else 0

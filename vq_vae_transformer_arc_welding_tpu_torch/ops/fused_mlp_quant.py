@@ -20,7 +20,9 @@ Operands: scales (2,) [s_fc, s_mp]; v4c (2, 4C) rows [fc.scale / s_fc,
 fc.bias]; vmp (2, C) rows [mp.scale / s_mp, mp.bias]. A packed block
 holds them (ops/fused_block_quant.py: `scales[2:]`, `v4c`, `vc[6:]`),
 so serving packs nothing per call. Weights are in the port's (out, in)
-layout: w_fc (4C, C), w_mp (C, 4C).
+layout: w_fc (4C, C), w_mp (C, 4C); any C, the kernel reading them in
+rows `kernels.pitch16` of their width bytes apart (a packed block's
+"block_weights"; another layout is copied into such rows per call).
 """
 from __future__ import annotations
 
@@ -65,20 +67,18 @@ def mlp_quant(h, w_fc, w_mp, scales, v4c, vmp, *,
     b, t, c = h.shape
     c4 = w_fc.shape[0]
     dev = h.device
-    if c % 64 or c4 % 64:
-        raise ValueError(f"{_KERNEL}: C={c}, 4C={c4} must be multiples of "
-                         f"64")
+    kernels.require_heads(_KERNEL, c, 1)
     kernels.require(h, "h", torch.float32, (b, t, c), dev)
-    kernels.require(w_fc, "w_fc", torch.int8, (c4, c), dev)
-    kernels.require(w_mp, "w_mp", torch.int8, (c, c4), dev)
+    w_fc = kernels.pitched(w_fc, "w_fc", (c4, c), dev)
+    w_mp = kernels.pitched(w_mp, "w_mp", (c, c4), dev)
     kernels.require(scales, "scales", torch.float32, (2,), dev)
     kernels.require(v4c, "v4c", torch.float32, (2, c4), dev)
     kernels.require(vmp, "vmp", torch.float32, (2, c), dev)
     out = torch.empty_like(h)
     if b * t == 0:
         return out
-    h8 = torch.empty((b, t, c), dtype=torch.int8, device=dev)
-    g8 = torch.empty((b, t, c4), dtype=torch.int8, device=dev)
+    h8 = kernels.empty_pitched((b, t, c), dev)
+    g8 = kernels.empty_pitched((b, t, c4), dev)
     if scratch is not None:
         scratch.update(h8=h8, g8=g8)
     lib = kernels.library()

@@ -20,6 +20,15 @@ so the monitor needs no f32 copy of that input. The card tests and
 chip_smoke.py hold it against `int8_gemm_reference` bit for bit, counts
 included, and time it at each shape.
 
+Shapes: any M, N, K. The kernel reads a8 and w8, and writes the int8
+output, in rows `kernels.pitch16` of their width bytes apart (a tensor
+map's pitch): a8 and w8 laid out so are read in place (the h8 and g8
+that the kernels return, a packed block's "block_weights"), others are
+copied into such rows per call, and the int8 output comes back in them
+(`kernels.empty_pitched`). Where N and K are multiples of 64 the GEMM
+runs as it always has; otherwise its GENERAL form
+(csrc/int8_gemm_sm90.cuh), the same arithmetic.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. Nothing falls back.
 """
@@ -54,9 +63,8 @@ def int8_gemm_reference(a8, w8, cs, cb, resid=None, qscale=None,
 def int8_gemm(a8, w8, cs, cb, resid=None, qscale=None,
               clip_rows=None) -> torch.Tensor:
     """Operand-level entry: the kernel on CUDA, the plain version on the
-    CPU. N and K must be multiples of 64; resid and qscale exclude each
-    other; clip_rows (M,) int32, to which the counts are added, goes
-    with qscale."""
+    CPU. Any N, K >= 1; resid and qscale exclude each other; clip_rows
+    (M,) int32, to which the counts are added, goes with qscale."""
     if a8.device.type == "cpu":
         return int8_gemm_reference(a8, w8, cs, cb, resid, qscale, clip_rows)
     if a8.device.type != "cuda":
@@ -71,11 +79,11 @@ def int8_gemm(a8, w8, cs, cb, resid=None, qscale=None,
         raise ValueError(f"{_KERNEL}: a8 and w8 must be 2-d")
     m, k = a8.shape
     n = w8.shape[0]
-    if n % 64 or k % 64:
-        raise ValueError(f"{_KERNEL}: N={n}, K={k} must be multiples of 64")
+    if n < 1 or k < 1:
+        raise ValueError(f"{_KERNEL}: N={n}, K={k} must be at least 1")
     dev = a8.device
-    kernels.require(a8, "a8", torch.int8, (m, k), dev)
-    kernels.require(w8, "w8", torch.int8, (n, k), dev)
+    a8 = kernels.pitched(a8, "a8", (m, k), dev)
+    w8 = kernels.pitched(w8, "w8", (n, k), dev)
     kernels.require(cs, "cs", torch.float32, (n,), dev)
     kernels.require(cb, "cb", torch.float32, (n,), dev)
     if resid is not None:
@@ -84,8 +92,8 @@ def int8_gemm(a8, w8, cs, cb, resid=None, qscale=None,
         kernels.require(qscale, "qscale", torch.float32, (), dev)
     if clip_rows is not None:
         kernels.require(clip_rows, "clip_rows", torch.int32, (m,), dev)
-    out = torch.empty((m, n), device=dev, dtype=torch.float32
-                      if qscale is None else torch.int8)
+    out = (torch.empty((m, n), device=dev, dtype=torch.float32)
+           if qscale is None else kernels.empty_pitched((m, n), dev))
     if m == 0:
         return out
     lib = kernels.library()
