@@ -251,6 +251,24 @@ LN+q8 launched alone (`ln_q8`, the record's entry) at C 200, 1,000,
 attention's wide tile); the record's `transformer_shapes` lists each
 kernel's C or head widths there.
 
+Then the int8 attention ('attn8', 'full8'), #9 on bf16 and the decode
+kernels (#12, #13) at those widths (`narrow_widths_phase`): the d1600
+CLI model of the phase before, kept in memory, through
+`make_pipeline_quantized(block_fusion='attn8')` and 'full8' (exactly
+their kernels, labels against plain outside the margin), its block 0 on
+#2 and #6 with int8_attn held stage by stage (the quantizing pass
+bit-equal), and 64 forced steps of `generate_kv(decode_impl='fused')`
+(one launch of #13 a block and step, logits within 1e-4 of 'xla'); the
+seed models at C 200, 2,048 and 1,800 the same (32 steps); one bf16
+`attention_impl='pallas'` training step at heads of 256 and of 25 (#9
+bf16 once a block; loss 1e-5, gradient norm 1e-4 against the plain bf16
+step); then the int8 attention (#2 and #6 stage by stage), #9 on bf16
+(the bf16 gate) and #12, #13 (residual 1e-4, written row 2e-5, at three
+positions) alone at (C, heads) (200, 8), (192, 1), (1,100, 4), (1,600,
+25), (1,800, 6), (2,048, 8) and (4,096, 1), timed in turns with plain
+beside their bounds; the record's `transformer_shapes` of those kernels
+lists the (C, heads) they ran at.
+
 Last, the training CLIs chained into the scorer (`cli_phase`), in a
 temporary working directory on one synthetic CSV (24 runs of 160
 cycles): `cli/train_reconstruction_embedding.main` (hidden 512, 8
@@ -496,6 +514,26 @@ TSHAPES_ROWS = TSHAPES_BATCH * 321
 # held and timed at the CLI model's width
 LN_ALONE = "ln_q8"
 TSHAPES_LN_RECORD = 1600
+# narrow_widths_phase: the int8 attention ('attn8', 'full8'), #9 on bf16
+# and the decode kernels (#12, #13), which once took only C a multiple of
+# 64 (up to 1,024) in heads up to 128, at every width the transformer CLI
+# can build. transformer_shapes_phase's d1600 CLI checkpoint through
+# 'attn8' and 'full8' (its block 0 stage by stage) and NW_STEPS forced
+# steps of generate_kv(decode_impl='fused') against 'xla'; the
+# TSHAPES_MODELS seed models likewise (NW_SEED_STEPS steps); one bf16
+# attention_impl='pallas' training step at each NW_TRAIN; then each
+# kernel alone at NW_SHAPES (C, heads) against plain, timed in turns
+# beside its bound: the int8 attention and #9 on bf16 on NW_BATCH
+# sequences of T=321, the decode kernels at SAMPLE_BATCH streams, pos 160
+NW_STEPS = 64
+NW_SEED_STEPS = 32
+NW_SAMPLE_BATCH = 8
+NW_TRAIN = (TSHAPES_TRAIN, (200, 8))
+NW_SHAPES = ((200, 8), (192, 1), (1100, 4), (1600, 25), (1800, 6),
+             (2048, 8), (4096, 1))
+NW_BATCH = 4
+NW_POS = 160
+NW_REPS = 3
 # torch's defaults, which the training phase runs under
 TORCH_DEFAULT_TF32 = dict(matmul=False, cudnn=True)
 # the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
@@ -820,7 +858,9 @@ PTXAS_KERNELS = ("attention_kernel", "flash_attention_bf16_kernel",
                  LN_Q8, "encoder_chain_bf16_kernel", "nearest_codes_kernel",
                  "nearest_codes_chunked", "product_kernel", "embed_kernel",
                  "exit_kernel", "attention_wide_kernel", "ln_q8_any_kernel",
-                 "q8_rows_kernel")
+                 "q8_rows_kernel", "head_quant_wide_kernel",
+                 "attention_int8_wide_kernel",
+                 "flash_attention_bf16_wide_kernel")
 # the sources whose kernels must use no stack either (1b and #7)
 NO_STACK = ("encoder_chain_bf16.cu", "nearest_codes.cu")
 # kernels whose setmaxnreg requests assume ptxas gave them 65536 / 384
@@ -4005,8 +4045,9 @@ def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
     then every widened kernel against its plain version, timed in turns
     beside its bound: the int8 GEMM and LN+q8 at TSHAPES_C, #9 and #11 at
     TSHAPES_HEADS. Returns {"launched": {kernel: (path, launches)},
-    "held": {kernel: [C or head widths]}, and LN+q8's "times",
-    "device_ms", "work" and "err" at TSHAPES_LN_RECORD}."""
+    "held": {kernel: [C or head widths]}, LN+q8's "times", "device_ms",
+    "work" and "err" at TSHAPES_LN_RECORD, and "cli": the CLI model's
+    pipeline, transformer, windows and their tokens}."""
     import torch
     from vq_vae_transformer_arc_welding_tpu_torch.cli import (
         score_quality, train_reconstruction_embedding,
@@ -4182,6 +4223,9 @@ def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
             log(f"transformer shapes: the d{tr.d_model} CLI checkpoint's "
                 f"block 0 on #6, {N_CALIB} windows of its own tokens, "
                 f"stage by stage against plain: {held}; gpu {smi}")
+            # the model, held in memory, for narrow_widths_phase
+            out["cli"] = {"pipe": pipe, "tr": tr, "windows": win,
+                          "ids": ids}
             del pipe, tr, tm_run, got
         finally:
             os.chdir(cwd)
@@ -4377,6 +4421,374 @@ def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
                                          f"time)")
                 + f"; worst difference from plain {errs[key]:.3e}; gpu {smi}")
     log(f"transformer shapes phase: {time.perf_counter() - t_phase:.1f} s; "
+        f"gpu {smi}")
+    return out
+
+
+def bf16_gate(out, ref) -> tuple[float, int]:
+    """(the share of entries of two bf16 tensors that differ, the
+    entries more than one bf16 step and MAX_ROW_ERR apart): the numbers
+    of #9's bf16 gate."""
+    import torch
+    ulps = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    err = (out.float() - ref.float()).abs()
+    return (float((ulps > 0).float().mean()),
+            int(((ulps > 1) & (err > MAX_ROW_ERR)).sum()))
+
+
+def _int8_block_operands(c: int, gen, dev):
+    """A calibrated int8 block's operands at width c, in the kernels'
+    rows (w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, as
+    fused_block_quant packs them), its dequantization rows scaled by
+    1 / sqrt(c) so that q, k and v (of order 2), the GELU inputs and the
+    block's output keep their size at every width."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch import kernels
+
+    def w8(n, k):
+        w = torch.randint(-127, 128, (n, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        return kernels.pitched(w, "w", (n, k), w.device)
+
+    r = (512 / c) ** 0.5
+    rand = [torch.rand(c, generator=gen) + 0.5 for _ in range(2)]
+    small = [torch.randn(n, generator=gen) * 0.1 for n in (c, c, 3 * c,
+                                                           4 * c)]
+    tail = [torch.randn(c, generator=gen) * 0.01 for _ in range(2)]
+    vc = torch.stack([rand[0], small[0], rand[1], small[1],
+                      torch.full((c,), 2e-5 * r), tail[0],
+                      torch.full((c,), 1e-5 * r), tail[1]])
+    v3c = torch.stack([torch.full((3 * c,), 4e-5 * r), small[2]])
+    v4c = torch.stack([torch.full((4 * c,), 3e-5 * r), small[3]])
+    scales = torch.tensor([30.0, 127.0 / 4.0, 30.0, 30.0])
+    return (w8(3 * c, c), w8(c, c), w8(4 * c, c), w8(c, 4 * c),
+            *(z.to(dev).contiguous() for z in (scales, vc, v3c, v4c)))
+
+
+def narrow_widths_phase(smi: str, cli: dict, device: str = "cuda") -> dict:
+    """The int8 attention, #9 on bf16 and the decode kernels at every
+    transformer width (see the NW_* constants): the d1600 CLI model that
+    transformer_shapes_phase trained (`cli`: its pipeline, transformer,
+    windows and their tokens) and the seed models through 'attn8',
+    'full8' and generate_kv(decode_impl='fused'), bf16 training steps,
+    then each kernel alone against plain, timed in turns beside its
+    bound. Returns {"launched": {kernel: (path, launches)}, "held":
+    {kernel: [C and heads]}}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import (
+        build, make_pipeline_quantized)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_attn as fflash, fused_block_quant as fbq,
+        fused_decode as fdec)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.attention import (
+        causal_attention_core, split_heads)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        CYCLE_LEN, WeldingQualityPipeline)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        TransformerGenTask)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    out = {"launched": {}, "held": {}}
+
+    def note(counts, path, shape):
+        """Record a run's launches, and the (C, heads) each of this
+        phase's kernels ran at."""
+        for name, n in counts.items():
+            out["launched"].setdefault(name, (path, n))
+            if name in (ATTN8, FULL8, FLASH_BF16, DEC_ATTN, DEC_BLOCK):
+                held = out["held"].setdefault(name, [])
+                if shape not in held:
+                    held.append(shape)
+
+    def serve(what, vq, tr, qparams, xreq) -> list:
+        """'attn8' and 'full8' on xreq: exactly their kernels, labels
+        equal to the plain path's outside the margin."""
+        shape = f"C={tr.d_model}, {tr.n_head} heads"
+        parts = []
+        with torch.inference_mode():
+            for name, want in (("attn8", {ENC, ATTN8, GEMM}),
+                               ("full8", {ENC, FULL8})):
+                fn = make_pipeline_quantized(vq, tr, qparams,
+                                             block_fusion=name)
+                lk, counts = counted(lambda: fn(xreq))
+                check(set(counts) == want, f"narrow widths {name} {what} "
+                                           f"launched {sorted(counts)}")
+                note(counts, f"narrow widths {name} {what}", shape)
+                with plain_path():
+                    lp = fn(xreq)
+                sure = (lp[:, 0] - lp[:, 1]).abs() > LABEL_MARGIN
+                same = lk.argmax(-1) == lp.argmax(-1)
+                check(bool(torch.isfinite(lk).all())
+                      and bool(same[sure].all()),
+                      f"narrow widths {name} {what}: labels differ from the "
+                      f"plain path's on {int((~same)[sure].sum())} windows "
+                      f"outside the {LABEL_MARGIN} margin")
+                parts.append(f"{name} {json.dumps(counts)}, "
+                             f"{int(sure.sum())} of {len(lk)} windows sure, "
+                             f"max |dlogit| "
+                             f"{float((lk - lp).abs().max()):.3e}")
+        return parts
+
+    def forced_decode(what, tr, start_token, steps) -> str:
+        """generate_kv(decode_impl='fused') on the ids of the plain
+        sampler: one launch of #13 a block and step, each step's logits
+        within MAX_STEP_ERR of the 'xla' step's."""
+        start = torch.full((NW_SAMPLE_BATCH, 1), start_token,
+                           dtype=torch.int32, device=dev)
+        ids = tr.generate_kv(start, num_steps=steps)
+
+        def forced(run):
+            seen = []
+
+            def draw(last, *_args, **_kw):
+                seen.append(last.float().clone())
+                return ids[:, len(seen)]
+
+            with mock.patch.object(tr, "_sample_from_logits", draw):
+                _, counts = counted(run)
+            check(len(seen) == steps, f"forced run drew {len(seen)} times")
+            return torch.stack(seen), counts
+
+        plain, _ = forced(lambda: tr.generate_kv(start, num_steps=steps))
+        got, counts = forced(lambda: tr.generate_kv(
+            start, num_steps=steps, decode_impl="fused"))
+        check(counts == {DEC_BLOCK: tr.n_blocks * steps},
+              f"narrow widths generate_kv fused {what} launched "
+              f"{json.dumps(counts)}")
+        note(counts, f"narrow widths generate_kv(decode_impl='fused') "
+                     f"{what}", f"C={tr.d_model}, {tr.n_head} heads")
+        e = float((got - plain).abs().max())
+        check(e <= MAX_STEP_ERR, f"narrow widths generate_kv fused {what}: "
+                                 f"forced step logits within {e} of 'xla'")
+        return (f"generate_kv(decode_impl='fused') {json.dumps(counts)}, "
+                f"{steps} forced steps of {NW_SAMPLE_BATCH} streams, logits "
+                f"within {e:.3e} of 'xla' (bound {MAX_STEP_ERR})")
+
+    # -- N1. the d1600 CLI checkpoint ---------------------------------------
+    pipe, tr = cli["pipe"], cli["tr"]
+    what = f"d{tr.d_model} CLI checkpoint"
+    parts = serve(what, pipe.vq_model, tr, pipe.qparams,
+                  torch.from_numpy(cli["windows"]).to(dev))
+    blk = pipe.qparams["blocks"][0]
+    scales, vc, v3c, v4c = fbq.packed_operands(blk)
+    w = dict(zip(("c_attn", "c_proj", "c_fc", "m_proj"),
+                 fbq.packed_weights(blk)))
+    worst = Worst()
+    with torch.inference_mode():
+        x = tr.embed(cli["ids"]).float().contiguous()
+        sc, sc6 = {}, {}
+        (sc["x_mid"], sc["h8"]), counts = counted(
+            lambda: fbq.attn_block_quant(
+                x, w["c_attn"], w["c_proj"], scales, vc[:6], v3c,
+                n_head=tr.n_head, int8_attn=True, scratch=sc))
+        held = [block_stages(worst, ATTN8, x, sc, w, scales, vc[:6], v3c,
+                             None, tr.n_head, True)]
+        sc6["out"], counts6 = counted(lambda: fbq.block_quant(
+            x, w["c_attn"], w["c_proj"], w["c_fc"], w["m_proj"], scales,
+            vc, v3c, v4c, n_head=tr.n_head, int8_attn=True, scratch=sc6))
+        held.append(block_stages(worst, FULL8, x, sc6, w, scales, vc, v3c,
+                                 v4c, tr.n_head, True))
+    check(counts == {ATTN8: 1} and counts6 == {FULL8: 1},
+          f"narrow widths: the CLI model's block 0 launched {counts}, "
+          f"{counts6}")
+    worst.check()
+    parts.append(forced_decode(what, tr, pipe.start_token, NW_STEPS))
+    log(f"narrow widths {what} ({tr.n_head} heads of "
+        f"{tr.d_model // tr.n_head}, {len(tr.blocks)} blocks), "
+        f"{len(cli['windows'])} windows: " + "; ".join(parts)
+        + f"; block 0 on #2 and #6 with int8_attn, stage by stage against "
+        f"plain: {held[0]} | {held[1]}; gpu {smi}")
+
+    # -- N2. seed models ----------------------------------------------------
+    width = N_CYCLES * CYCLE_LEN
+    calib = rng.standard_normal((2, width, 2)).astype(np.float32)
+    xreq = torch.from_numpy(rng.standard_normal(
+        (WIDTH_REQUEST, width, 2)).astype(np.float32)).to(dev)
+    for c, nh in TSHAPES_MODELS:
+        vq, trs = build(d_model=c, n_heads=nh, n_blocks=1, hidden=64,
+                        n_res=1, k=WIDTH_MODEL["k"], d=WIDTH_MODEL["d"],
+                        seed=SEED)
+        what = f"seed model d{c} ({nh} heads of {c // nh})"
+        pipe_s = WeldingQualityPipeline(vq, trs, n_cycles=N_CYCLES,
+                                        max_batch=80, precision="int8",
+                                        encoder_impl="fused")
+        pipe_s.calibrate(calib)
+        parts = serve(what, vq, trs, pipe_s.qparams, xreq)
+        parts.append(forced_decode(what, trs, pipe_s.start_token,
+                                   NW_SEED_STEPS))
+        log(f"narrow widths {what}, 1 block, {len(xreq)} windows: "
+            + "; ".join(parts) + f"; gpu {smi}")
+        del vq, trs, pipe_s
+
+    # -- N3. bf16 training steps on #9's bf16 tile ---------------------------
+    for c, nh in NW_TRAIN:
+        _, trp = build(d_model=c, n_heads=nh, n_blocks=1, hidden=64, n_res=1,
+                       k=WIDTH_MODEL["k"], d=WIDTH_MODEL["d"], seed=SEED,
+                       attention_impl="pallas")
+        trp.compute_dtype = torch.bfloat16
+        trp.requires_grad_(True)
+        trp.res_dropout = trp.att_dropout = 0.0
+        t = trp.seq_len
+        batch = tuple(a.to(dev) for a in (
+            torch.randint(0, trp.n_classes, (WIDTH_TRAIN_BATCH, t),
+                          generator=gen),
+            torch.randint(0, 2, (WIDTH_TRAIN_BATCH,), generator=gen),
+            torch.randint(0, trp.n_classes, (WIDTH_TRAIN_BATCH, t),
+                          generator=gen)))
+        with tf32_flags(**TORCH_DEFAULT_TF32):
+            one_step_against_plain(
+                f"narrow widths bf16 d{c} ({nh} heads of {c // nh})", trp,
+                TransformerGenTask(trp), batch, FLASH_BF16, trp.n_blocks,
+                smi)
+        note({FLASH_BF16: trp.n_blocks}, f"narrow widths bf16 training step "
+                                         f"(d{c}, heads of {c // nh})",
+             f"C={c}, {nh} heads")
+        del trp
+
+    # -- N4. each kernel alone at NW_SHAPES ----------------------------------
+    fns, bounds, errs = {}, {}, {}
+    t = 321
+    with torch.inference_mode():
+        for c, nh in NW_SHAPES:
+            shape = f"C={c}, {nh} heads"
+            hd = c // nh
+            work = kernel_work(1, c, 1, 1, 1, 1, 1, NW_BATCH, t, nh,
+                               SAMPLE_BATCH, NW_POS)
+            # the int8 attention inside #2 and #6
+            wq, wp, wf, wm, scales, vc, v3c, v4c = _int8_block_operands(
+                c, gen, dev)
+            x = torch.randn(NW_BATCH, t, c, generator=gen).to(dev)
+            sc, full = {}, {}
+            (sc["x_mid"], sc["h8"]), counts = counted(
+                lambda: fbq.attn_block_quant(
+                    x, wq, wp, scales, vc[:6], v3c, n_head=nh,
+                    int8_attn=True, scratch=sc))
+            sc6 = {}
+            sc6["out"], counts6 = counted(lambda: fbq.block_quant(
+                x, wq, wp, wf, wm, scales, vc, v3c, v4c, n_head=nh,
+                int8_attn=True, scratch=sc6))
+            check(counts == {ATTN8: 1} and counts6 == {FULL8: 1},
+                  f"narrow widths kernels at {shape}: {counts}, {counts6}")
+            worst = Worst()
+            wd = dict(zip(("c_attn", "c_proj", "c_fc", "m_proj"),
+                          (wq, wp, wf, wm)))
+            block_stages(worst, ATTN8, x, sc, wd, scales, vc[:6], v3c, None,
+                         nh, True)
+            block_stages(worst, FULL8, x, sc6, wd, scales, vc, v3c, v4c, nh,
+                         True)
+            worst.check()
+            note({ATTN8: 1, FULL8: 1}, "narrow widths kernels", shape)
+            errs[ATTN8, shape] = worst.err[f"{ATTN8}.x_mid"]
+            errs[FULL8, shape] = worst.err[f"{FULL8}.out"]
+            a2 = (x, wq, wp, scales, vc[:6], v3c)
+            a6 = (x, wq, wp, wf, wm, scales, vc, v3c, v4c)
+            fns[ATTN8, shape] = (
+                lambda a=a2, nh=nh: fbq.attn_block_quant(
+                    *a, n_head=nh, int8_attn=True),
+                lambda a=a2, nh=nh: fbq.fused_attn_block_quant_reference(
+                    *a, n_head=nh, int8_attn=True))
+            fns[FULL8, shape] = (
+                lambda a=a6, nh=nh: fbq.block_quant(
+                    *a, n_head=nh, int8_attn=True),
+                lambda a=a6, nh=nh: fbq.fused_block_quant_reference(
+                    *a, n_head=nh, int8_attn=True))
+            # #9 on bf16 q, k, v read in place from a packed qkv
+            qkv = (torch.randn(NW_BATCH, t, 3 * c, generator=gen) * 2).to(
+                dev, torch.bfloat16)
+            q, k, v = (split_heads(z, nh) for z in qkv.split(c, dim=-1))
+            o, counts = counted(lambda: fflash.flash_causal_attention(
+                q, k, v))
+            ref = fflash.flash_causal_attention_reference(q, k, v)
+            share, far = bf16_gate(o, ref)
+            against = "plain"
+            if far or share > MAX_BF16_DIFF_SHARE:
+                # the plain version's f32 sums may themselves miss the
+                # gate against the float64 attention (a head of 4,096):
+                # the kernel is then held there
+                exact = causal_attention_core(
+                    q.double(), k.double(), v.double()).to(torch.bfloat16)
+                plain = bf16_gate(ref, exact)
+                against = (f"float64 (plain there: {plain[0]:.2e} differ, "
+                           f"{plain[1]} beyond)")
+                check(plain[1] > 0 or plain[0] > MAX_BF16_DIFF_SHARE,
+                      f"narrow widths {FLASH_BF16} at {shape}: {share:.2e} "
+                      f"of the entries differ from plain, {far} beyond one "
+                      f"bf16 step and {MAX_ROW_ERR}")
+                share, far = bf16_gate(o, exact)
+            check(counts == {FLASH_BF16: 1} and far == 0
+                  and share <= MAX_BF16_DIFF_SHARE,
+                  f"narrow widths {FLASH_BF16} at {shape}: launches "
+                  f"{counts}, {share:.2e} of the entries differ from "
+                  f"{against}, {far} beyond one bf16 step and {MAX_ROW_ERR}")
+            log(f"narrow widths {FLASH_BF16} at {shape}: {share:.2e} of the "
+                f"entries differ from {against}, none beyond one bf16 step "
+                f"and {MAX_ROW_ERR}")
+            note(counts, "narrow widths kernels", shape)
+            errs[FLASH_BF16, shape] = float((o.float() - ref.float()).abs()
+                                            .max())
+            fns[FLASH_BF16, shape] = (
+                lambda a=(q, k, v): fflash.flash_attention_forward(*a),
+                lambda a=(q, k, v): fflash.flash_causal_attention_reference(
+                    *a))
+            # #12 and #13 on random caches
+            _, trd = build(d_model=c, n_heads=nh, n_blocks=1, hidden=16,
+                           n_res=1, k=WIDTH_MODEL["k"], d=WIDTH_MODEL["d"],
+                           seed=SEED)
+            blk = trd.blocks[0]
+            tc = trd.seq_len
+            xt = torch.randn(SAMPLE_BATCH, 1, c, generator=gen).to(dev)
+            for name, kfn, pfn, cshape, row in (
+                    (DEC_ATTN, fdec.fused_decode_attn,
+                     fdec.fused_decode_attn_reference,
+                     (SAMPLE_BATCH, nh, tc, hd), lambda z, p: z[:, :, p]),
+                    (DEC_BLOCK, fdec.fused_block_decode,
+                     fdec.fused_block_decode_reference, (SAMPLE_BATCH, tc, c),
+                     lambda z, p: z[:, p])):
+                kv = [torch.randn(*cshape, generator=gen).to(dev)
+                      for _ in range(2)]
+                worst_e = 0.0
+                for pos in (0, NW_POS, tc - 1):
+                    kk, kv_ = (z.clone() for z in kv)
+                    pk, pv = (z.clone() for z in kv)
+                    o, counts = counted(lambda: kfn(xt, blk, kk, kv_, pos,
+                                                    n_head=nh)[0])
+                    ref = pfn(xt, blk, pk, pv, pos, n_head=nh)[0]
+                    e = float((o - ref).abs().max())
+                    er = max(float((row(a, pos) - row(r, pos)).abs().max())
+                             for a, r in ((kk, pk), (kv_, pv)))
+                    check(counts == {name: 1} and e <= MAX_DECODE_ERR
+                          and er <= MAX_ROW_ERR,
+                          f"narrow widths {name} at {shape} pos {pos}: "
+                          f"launches {counts}, output {e}, written row {er}")
+                    worst_e = max(worst_e, e)
+                note({name: 1}, "narrow widths kernels", shape)
+                errs[name, shape] = worst_e
+                fns[name, shape] = (
+                    lambda kfn=kfn, a=(xt, blk, *kv, NW_POS), nh=nh:
+                    kfn(*a, n_head=nh),
+                    lambda pfn=pfn, a=(xt, blk, *kv, NW_POS), nh=nh:
+                    pfn(*a, n_head=nh))
+            for name in (ATTN8, FULL8, FLASH_BF16, DEC_ATTN, DEC_BLOCK):
+                bounds[name, shape] = bound_of(work[name])
+            del trd
+        traced = kernel_trace({key: pair[0] for key, pair in fns.items()})
+        for key, (kfn, pfn) in fns.items():
+            t_k = timed_in_turns({"kernel": kfn, "plain": pfn},
+                                 reps=NW_REPS, warmup=1)
+            bound, by = bounds[key]
+            ms = traced[key][0]
+            log(f"narrow widths kernel {key[0]} at {key[1]}: "
+                f"{fmt_ms(t_k['kernel'])}, plain {fmt_ms(t_k['plain'])}; "
+                f"device " + ("not measured" if ms is None
+                              else f"{ms:.4f} ms a call")
+                + f"; bound {bound:.4f} ms by {by}"
+                + ("" if ms is None else f" ({bound / ms:.1%} of the device "
+                                         f"time)")
+                + f"; worst difference from plain {errs[key]:.3e}; gpu {smi}")
+    log(f"narrow widths phase: {time.perf_counter() - t_phase:.1f} s; "
         f"gpu {smi}")
     return out
 
@@ -5819,6 +6231,16 @@ def main() -> int:
     # and heads past 128, a training step at heads of 256, and every
     # widened kernel at the grid ------------------------------------------
     tshapes = transformer_shapes_phase(smi)
+    # -- 13d. the int8 attention, #9 on bf16 and the decode kernels at
+    # those widths: the d1600 CLI model and the seed models through
+    # 'attn8', 'full8' and fused decode, bf16 training steps, each kernel
+    # alone ---------------------------------------------------------------
+    narrow = narrow_widths_phase(smi, tshapes.pop("cli"))
+    for name, first in narrow["launched"].items():
+        tshapes["launched"].setdefault(name, first)
+    for name, ran_at in narrow["held"].items():
+        tshapes_at = tshapes["held"].setdefault(name, [])
+        tshapes_at += [x for x in ran_at if x not in tshapes_at]
     launched[LN_ALONE] = tshapes["launched"][LN_ALONE]
     times[LN_ALONE], work[LN_ALONE] = tshapes["times"], tshapes["work"]
     enc_err[LN_ALONE] = tshapes["err"]

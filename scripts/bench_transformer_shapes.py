@@ -13,15 +13,21 @@ other, each on the same card. Each process builds its tree's kernels
 and, on operands made from seed 0 at the bench model's shapes (batch
 80, T=321, C=512, 8 heads of 64; #9 at batch 16), calls #2
 (`attn_block_quant`, with its scratch), #6 (`block_quant`, with its
-scratch), #8 (`mlp_quant`), #9 (`flash_attention_forward` on f32 q, k,
-v), #10 (`qkv_attention_quant`), #11 (`fused_causal_attention_quant`)
-and the int8 GEMM alone at its four shapes in a block (c_fc also with
-the monitor's clip counts), and reports for each:
+scratch), both also with `int8_attn` (the int8 attention, its quantizing
+pass's qkv8 and scales among the outputs), #8 (`mlp_quant`), #9
+(`flash_attention_forward` on f32 q, k, v, and on the same q, k, v in
+bf16), #10 (`qkv_attention_quant`), #11 (`fused_causal_attention_quant`),
+the int8 GEMM alone at its four shapes in a block (c_fc also with the
+monitor's clip counts) and #13 (`fused_block_decode` on a block built
+from seed 0, 16 streams at pos 160 of (16, 321, 512) caches; its output
+and the written cache rows), and reports for each:
 
 - a sha256 of every output and intermediate it returns, so that two
   trees whose arithmetic is the same can be seen to give the same bits;
 - ms of one call between CUDA events (host launch included), the
   median of 10 after 3 warm-up calls;
+- ms a call of 20 calls in a row between two CUDA events (the host
+  runs ahead, so the card's own pace), the median of 10;
 - device ms per call of all its launches, from torch.profiler over 5
   calls after two warm-up rounds.
 
@@ -41,7 +47,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 B, T, C, HEADS = 80, 321, 512, 8
-FLASH_B = 16
+FLASH_B = 16                # #9's batch, and #13's streams
+DECODE_POS = 160
 
 
 def device_ms(fn, calls=5):
@@ -78,6 +85,13 @@ def event_ms(fn, reps=10, warmup=3):
     return statistics.median(times)
 
 
+def row_ms(fn, calls=20, reps=10):
+    """Median ms a call of `calls` calls in a row between two CUDA
+    events, after a warm-up round."""
+    return event_ms(lambda: [fn() for _ in range(calls)], reps=reps,
+                    warmup=1) / calls
+
+
 def operands():
     """A calibrated block's operands at magnitudes like the card tests'
     (tests/test_torch_cuda.py::_block_operands), and x."""
@@ -110,10 +124,11 @@ def measure(tree: Path) -> dict:
     """One turn: the numbers of the module docstring for `tree`."""
     sys.path.insert(0, str(tree))
     import torch
-    from vq_vae_transformer_arc_welding_tpu_torch import kernels
+    from vq_vae_transformer_arc_welding_tpu_torch import entry, kernels
     from vq_vae_transformer_arc_welding_tpu_torch.ops import (
         fused_attn as fflash, fused_attn_quant as fattn,
-        fused_block_quant as fbq, fused_mlp_quant as fmlp, int8_gemm)
+        fused_block_quant as fbq, fused_decode as fdec,
+        fused_mlp_quant as fmlp, int8_gemm)
     from vq_vae_transformer_arc_welding_tpu_torch.ops.attention import (
         split_heads)
     from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
@@ -129,6 +144,13 @@ def measure(tree: Path) -> dict:
     qkv = sc["qkv"].clone()
     q, k, v = (split_heads(z, HEADS)[:FLASH_B].contiguous()
                for z in qkv.split(C, dim=-1))
+    q16, k16, v16 = (z.to(torch.bfloat16) for z in (q, k, v))
+    _, tr = entry.build(d_model=C, n_blocks=1, n_heads=HEADS, hidden=64,
+                        n_res=1, k=32, d=8, seed=0, device="cuda")
+    g = torch.Generator().manual_seed(0)
+    xd, kc, vc_ = (torch.randn(*shape, generator=g).cuda()
+                   for shape in ((FLASH_B, 1, C), (FLASH_B, T, C),
+                                 (FLASH_B, T, C)))
     rows = B * T
     a_fc = sc["h8a"].reshape(rows, C).clone()
     clip = torch.zeros(rows, dtype=torch.int32, device="cuda")
@@ -148,6 +170,26 @@ def measure(tree: Path) -> dict:
                               v4c, n_head=HEADS, scratch=s)
         return [out, s["x_mid"], s["h8"], s["g8"]]
 
+    def attn8():
+        s = {}
+        xm, h8 = fbq.attn_block_quant(x, w_qkv, w_proj, scales, vc[:6], v3c,
+                                      n_head=HEADS, int8_attn=True,
+                                      scratch=s)
+        return [xm, h8, s["h8a"], s["qkv"], s["head_scales"], s["qkv8"],
+                s["y8"]]
+
+    def full8():
+        s = {}
+        out = fbq.block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c,
+                              v4c, n_head=HEADS, int8_attn=True, scratch=s)
+        return [out, s["head_scales"], s["qkv8"], s["y8"], s["x_mid"],
+                s["h8"], s["g8"]]
+
+    def decode():
+        out, k_c, v_c = fdec.fused_block_decode(xd, tr.blocks[0], kc, vc_,
+                                                DECODE_POS, n_head=HEADS)
+        return [out, k_c[:, DECODE_POS], v_c[:, DECODE_POS]]
+
     def clipped():
         clip.zero_()
         g = int8_gemm.int8_gemm(a_fc, w_fc, v4c[0], v4c[1], qscale=scales[3],
@@ -157,10 +199,15 @@ def measure(tree: Path) -> dict:
     cases = {
         "#2 attn_block_quant": attn,
         "#6 block_quant": full,
+        "#2 attn_block_quant int8_attn": attn8,
+        "#6 block_quant int8_attn": full8,
         "#8 mlp_quant": lambda: [fmlp.mlp_quant(h, w_fc, w_mp, scales[2:],
                                                 v4c, vc[6:])],
         "#9 flash_attention_f32": lambda: [fflash.flash_attention_forward(
             q, k, v)],
+        "#9 flash_attention_bf16": lambda: [fflash.flash_attention_forward(
+            q16, k16, v16)],
+        "#13 block_decode_f32": decode,
         "#10 qkv_attention_quant": lambda: [fattn.qkv_attention_quant(
             h, w_qkv, scales[:2], v3c, n_head=HEADS)],
         "#11 causal_attention_quant": lambda: [
@@ -183,9 +230,11 @@ def measure(tree: Path) -> dict:
             torch.cuda.synchronize()
             digest = hashlib.sha256()
             for t in got:
-                digest.update(t.contiguous().cpu().numpy().tobytes())
+                digest.update(t.contiguous().cpu().view(torch.uint8)
+                              .numpy().tobytes())
             out[f"{name} sha256"] = digest.hexdigest()[:16]
             out[f"{name} ms"] = event_ms(fn)
+            out[f"{name} in a row ms"] = row_ms(fn)
             out[f"{name} device ms"] = device_ms(fn)
     return out
 

@@ -2006,37 +2006,198 @@ def test_flash_attention_wide_heads_match_plain(dev, h, d, t, packed):
     assert (out - ref).abs().max() <= 2e-5
 
 
-def test_narrow_kernels_raise_at_the_new_widths(dev):
-    """The int8 attention ('attn8', 'full8'), #9's bf16 tile and
-    generate_kv(decode_impl='fused') keep their limits: at one head of
-    192 and at C = 1,600 they raise ValueError before any launch (the
-    int8 attention and decode at 25 heads of 64, past their C of 1,024;
-    #9's bf16 tile, whose limit is the head and C a multiple of 64, at 8
-    heads of 200)."""
-    for c, n_head in ((192, 1), (1600, 25)):
-        bf16_heads = 8 if c == 1600 else n_head
-        w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c = (
-            a.to(dev) for a in _block_operands(c, full=True))
-        x = torch.zeros(1, 9, c, device=dev)
-        q = torch.zeros(1, bf16_heads, 9, c // bf16_heads, device=dev,
-                        dtype=torch.bfloat16)
-        _, tr = entry.build(d_model=c, n_blocks=1, n_heads=n_head, hidden=64,
-                            n_res=1, k=32, d=8, seed=0, device=dev)
-        start = torch.zeros(2, 1, dtype=torch.int32, device=dev)
-        before = dict(kernels.launches)
-        bad = [
-            lambda: fbq.attn_block_quant(x, w_qkv, w_proj, scales, vc[:6],
-                                         v3c, n_head=n_head, int8_attn=True),
-            lambda: fbq.block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc,
-                                    v3c, v4c, n_head=n_head, int8_attn=True),
-            lambda: fused_attn.flash_causal_attention(q, q, q),
-            lambda: tr.generate_kv(start, num_steps=2, decode_impl="fused"),
-        ]
-        for call in bad:
-            with pytest.raises(ValueError, match="not supported"):
-                call()
+# every transformer width the CLI can build: heads of 25, one head of 192,
+# heads of 275 (C above 1,024, no multiple of 64), 300, GPT-2 XL's 25
+# heads of 64, heads of 256 and one head of 4,096
+NEW_WIDTHS = [(200, 8), (192, 1), (1100, 4), (1800, 6), (1600, 25),
+              (2048, 8), (4096, 1)]
+
+
+@pytest.mark.parametrize("c,n_head", NEW_WIDTHS)
+def test_int8_attention_at_every_width(dev, c, n_head):
+    """The int8 attention ('attn8', 'full8') at widths once refused, held
+    stage by stage on #2 with int8_attn: the quantizing pass bit-equal
+    (qkv8 and the scales, a head past 128 in rows of a multiple of 32),
+    y8 within the int8 contract of the plain int8 attention on the
+    kernel's own qkv, x_mid within 1e-3 and h8 within the contract; then
+    #6 with int8_attn stage by stage as test_any_width_int8_kernels_
+    match_plain holds it (one h8 step moves a row's g8 and output)."""
+    t = 45
+    x = torch.randn(2, t, c, generator=torch.Generator().manual_seed(c))
+    w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c = _block_operands(
+        c, full=True)
+    scales[1] = 127.0 / 4.0
+    v3c[0] = 4e-5 * (512 / c) ** 0.5      # q, k, v of order 2
+    args = [a.to(dev).contiguous()
+            for a in (x, w_qkv, w_proj, scales, vc[:6], v3c)]
+    sc = {}
+    xm, h8 = _launched("attn_block_quant_int8attn",
+                       lambda: fbq.attn_block_quant(
+                           *args, n_head=n_head, int8_attn=True, scratch=sc))
+    qkv8, head_scales = fbq.quantize_heads_reference(sc["qkv"], n_head)
+    assert torch.equal(sc["head_scales"], head_scales)
+    assert torch.equal(sc["qkv8"], qkv8)
+    _int8_close(sc["y8"], int8.quantize_act(fattn.attention_core_reference(
+        sc["qkv"], n_head, int8_attn=True), args[3][1]))
+    xm_ref, h8_ref = fbq.fused_attn_block_quant_reference(
+        *args, n_head=n_head, int8_attn=True)
+    assert (xm - xm_ref).abs().max() <= 1e-3
+    _int8_close(h8, h8_ref)
+    full = [a.to(dev).contiguous() for a in (x, w_qkv, w_proj, w_fc, w_mp,
+                                             scales, vc, v3c, v4c)]
+    sc = {}
+    out = _launched("block_quant_int8attn", lambda: fbq.block_quant(
+        *full, n_head=n_head, int8_attn=True, scratch=sc))
+    assert (sc["x_mid"] - xm_ref).abs().max() <= 1e-3
+    _int8_close(sc["h8"], h8_ref)
+    _int8_close(sc["g8"], fmlp.fc_gelu_q8_reference(
+        sc["h8"], full[3], full[8], full[5][3]))
+    ref = sc["x_mid"] + (int8.int8_matmul(sc["g8"], full[4]).float()
+                         * full[6][6] + full[6][7])
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-3
+
+
+def _bf16_gate_stats(out, ref):
+    """(share of entries that differ, entries beyond one bf16 step and
+    2e-5) of two bf16 tensors: the bf16 #9 gate's two numbers."""
+    ulps = _bf16_ulps(out, ref)
+    err = (out.float() - ref.float()).abs()
+    return (float((ulps > 0).float().mean()),
+            int(((ulps > 1) & (err > 2e-5)).sum()))
+
+
+def _assert_bf16_gate_wide(out, q, k, v, what):
+    """The bf16 #9 gate against the plain version, or, where the plain
+    version's own f32 sums miss that gate against the float64 attention
+    (a head of 4,096: 1.35e-3 of its entries on an H100), against the
+    float64 attention: the kernel must then pass the gate there."""
+    ref = fused_attn.flash_causal_attention_reference(q, k, v)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    share, far = _bf16_gate_stats(out, ref)
+    print(f"{what}: against plain, differing share {share:.2e}, beyond "
+          f"both bounds {far}")
+    if far == 0 and share <= 1e-3:
+        return
+    exact = attention.causal_attention_core(
+        q.double(), k.double(), v.double()).to(torch.bfloat16)
+    plain = _bf16_gate_stats(ref, exact)
+    kernel = _bf16_gate_stats(out, exact)
+    print(f"{what}: against float64, plain {plain}, kernel {kernel}")
+    assert plain[1] > 0 or plain[0] > 1e-3, (share, far, plain)
+    assert kernel[1] == 0 and kernel[0] <= 1e-3, (kernel, plain)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
+@pytest.mark.parametrize("c,n_head", NEW_WIDTHS)
+def test_flash_attention_bf16_at_every_width(dev, c, n_head, packed):
+    """#9 on bf16 q, k and v at widths once refused (a head past 128 on
+    the bf16 tile's wide form): the bf16 gate against the plain version,
+    or against the float64 attention where the plain version misses it
+    there (a head of 4,096)."""
+    d = c // n_head
+    q, k, v = _bf16_qkv(2, n_head, d, 70, packed, seed=c)
+    out = _launched("flash_attention_bf16",
+                    lambda: fused_attn.flash_causal_attention(q, k, v))
+    _assert_bf16_gate_wide(out, q, k, v, f"bf16 #9 at {(c, n_head, packed)}")
+
+
+@pytest.mark.parametrize("c,n_head", NEW_WIDTHS)
+def test_decode_kernels_at_every_width(dev, c, n_head):
+    """#13 and #12 at widths once refused: C off the multiples of 64 (the
+    products' depths zero-padded), above 1,024 (LayerNorm in two passes
+    from L2, more than 32 columns of a product a block) and heads past
+    128 (the block's attention): the residual stream within 1e-4 of the
+    plain version, the written cache row within 2e-5, every other row
+    bit-equal."""
+    blk = _decode_block(dev, c, n_head)
+    b, t, hd = 16, 40, c // n_head
+    g = torch.Generator().manual_seed(c + 1)
+    x = torch.randn(b, 1, c, generator=g).to(dev)
+    for fn, shape in (("fused_block_decode", (b, t, c)),
+                      ("fused_decode_attn", (b, n_head, t, hd))):
+        kc = torch.randn(*shape, generator=g).to(dev)
+        vc = torch.randn(*shape, generator=g).to(dev)
+        name = ("block_decode_f32" if fn == "fused_block_decode"
+                else "decode_attn_f32")
+        for pos in (0, 23, t - 1):
+            k0, v0 = kc.clone(), vc.clone()
+            kr, vr = kc.clone(), vc.clone()
+            out, _, _ = _launched(name, lambda: getattr(fused_decode, fn)(
+                x, blk, kc, vc, pos, n_head=n_head))
+            ref, _, _ = getattr(fused_decode, fn + "_reference")(
+                x, blk, kr, vr, pos, n_head=n_head)
+            assert out.shape == (b, 1, c) and torch.isfinite(out).all()
+            assert (out - ref).abs().max() <= 1e-4, (fn, pos)
+            at = (slice(None), pos) if len(shape) == 3 else (
+                slice(None), slice(None), pos)
+            rest = torch.arange(t, device=dev) != pos
+            keep = (slice(None), rest) if len(shape) == 3 else (
+                slice(None), slice(None), rest)
+            for got, want, before in ((kc, kr, k0), (vc, vr, v0)):
+                assert (got[at] - want[at]).abs().max() <= 2e-5
+                assert torch.equal(got[keep], before[keep])
+
+
+@pytest.mark.parametrize("c,n_head", [(200, 8), (1100, 4)])
+def test_block_decode_stack_at_padded_widths(dev, c, n_head):
+    """BlockDecodeStack pads the weights once and a token's stream each
+    call where C is no multiple of 64: one launch a block, the stream
+    within 1e-4 of the plain stack over two blocks and three tokens."""
+    blocks = [_decode_block(dev, c, n_head, seed=s) for s in (0, 1)]
+    b, t = 4, 12
+    g = torch.Generator().manual_seed(c)
+    caches = [tuple(torch.randn(b, t, c, generator=g).to(dev)
+                    for _ in range(2)) for _ in blocks]
+    ref_caches = [tuple(z.clone() for z in kv) for kv in caches]
+    stack = fused_decode.BlockDecodeStack(blocks, caches, n_head=n_head)
+    run = fused_decode.block_decode_stack_reference(blocks, ref_caches,
+                                                    n_head=n_head)
+    for pos in (0, 5, t - 1):
+        x = torch.randn(b, 1, c, generator=g).to(dev)
+        before = kernels.launches["block_decode_f32"]
+        out = stack(x, pos)
         torch.cuda.synchronize()
-        assert kernels.launches == before
+        assert kernels.launches["block_decode_f32"] == before + len(blocks)
+        assert (out - run(x, pos)).abs().max() <= 1e-4
+
+
+def test_widened_kernels_raise_past_4096(dev):
+    """C = 4,097 in one head, past every kernel's widest row: the int8
+    attention (#2 and #6 with int8_attn), #9 on bf16 and the decode
+    kernels raise ValueError naming 4096 before any launch."""
+    c = 4097
+    x = torch.zeros(1, 9, c, device=dev)
+    w_qkv = torch.zeros(3 * c, c, dtype=torch.int8, device=dev)
+    w_sq = torch.zeros(c, c, dtype=torch.int8, device=dev)
+    w_fc = torch.zeros(4 * c, c, dtype=torch.int8, device=dev)
+    w_mp = torch.zeros(c, 4 * c, dtype=torch.int8, device=dev)
+    scales = torch.ones(4, device=dev)
+    vc, v3c, v4c = (torch.zeros(n, m, device=dev)
+                    for n, m in ((8, c), (2, 3 * c), (2, 4 * c)))
+    q = torch.zeros(1, 1, 9, c, device=dev, dtype=torch.bfloat16)
+    blk = _decode_block(dev, 64, 1)
+    blk.ln_1.weight.data = torch.zeros(c, device=dev)
+    xd = torch.zeros(2, 1, c, device=dev)
+    cache = torch.zeros(2, 9, c, device=dev)
+    before = dict(kernels.launches)
+    bad = [
+        lambda: fbq.attn_block_quant(x, w_qkv, w_sq, scales, vc[:6], v3c,
+                                     n_head=1, int8_attn=True),
+        lambda: fbq.block_quant(x, w_qkv, w_sq, w_fc, w_mp, scales, vc, v3c,
+                                v4c, n_head=1, int8_attn=True),
+        lambda: fused_attn.flash_causal_attention(q, q, q),
+        lambda: fused_decode.fused_block_decode(xd, blk, cache, cache, 0,
+                                                n_head=1),
+        lambda: fused_decode.fused_decode_attn(
+            xd, blk, cache[:, None], cache[:, None], 0, n_head=1),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError, match="4096"):
+            call()
+    torch.cuda.synchronize()
+    assert kernels.launches == before
 
 
 def test_d1600_classify_runs_on_every_f32_attention_path(dev):

@@ -106,11 +106,10 @@ def _study():
 
 def test_study_shapes_run_on_the_padded_tiles():
     """The study's head (24) runs on the attention tile of 32, its
-    hidden width (64) on the encoder tile of 128; each kernel's limits
-    raise only past its own: the f32 attention, the int8 GEMM and LN+q8
-    take every C up to 4,096 in any heads, the int8 attention and the
-    decode kernels C a multiple of 64 up to 1,024 in heads up to 128,
-    #9's bf16 tile a multiple of 64 in heads up to 128."""
+    hidden width (64) on the encoder tile of 128; every transformer
+    kernel (the f32 and int8 attentions, #9 on f32 and bf16, the decode
+    kernels, the int8 GEMM and LN+q8) takes every C up to 4,096 in any
+    heads, with `require_heads`' defaults, and refuses C = 4,097."""
     _, vq, tr, _ = _study()
     hd = tr.d_model // tr.n_head
     assert (hd, kernels.padded_head_width(hd)) == (24, 32)
@@ -119,24 +118,15 @@ def test_study_shapes_run_on_the_padded_tiles():
         == [32, 32, 64, 64, 128, 128]
     assert [fenc.kernel_width(h) for h in range(64, 513, 64)] == [
         128, 128, 256, 256, 512, 512, 512, 512]
-    decode = dict(kernels.NARROW, max_c=fdec.MAX_C)
-    limits = {"f32": {}, "int8_attn": kernels.INT8_ATTN,
-              "decode": decode, "bf16": kernels.NARROW}
-    for c, n_head in ((192, 8), (1024, 8), (192, 64), (256, 2), (64, 64)):
-        for kw in limits.values():
-            kernels.require_heads("check", c, n_head, **kw)
-    narrow = {(192, 1): ("int8_attn", "decode", "bf16"),
-              (1024, 4): ("int8_attn", "decode", "bf16"),
-              (96, 2): ("int8_attn", "decode", "bf16"),
-              (1088, 17): ("int8_attn", "decode"),
-              (128, 3): tuple(limits), (4097, 1): tuple(limits)}
-    for (c, n_head), refused in narrow.items():
-        for name, kw in limits.items():
-            if name in refused:
-                with pytest.raises(ValueError, match="not supported"):
-                    kernels.require_heads("check", c, n_head, **kw)
-            else:
-                kernels.require_heads("check", c, n_head, **kw)
+    assert not hasattr(kernels, "NARROW") and not hasattr(
+        kernels, "INT8_ATTN") and not hasattr(fdec, "MAX_C")
+    for c, n_head in ((192, 8), (1024, 8), (192, 64), (256, 2), (64, 64),
+                      (192, 1), (1024, 4), (96, 2), (1088, 17), (1600, 25),
+                      (4096, 1)):
+        kernels.require_heads("check", c, n_head)
+    for c, n_head in ((4097, 1), (128, 3), (128, 3 * 128), (0, 1)):
+        with pytest.raises(ValueError, match="not supported"):
+            kernels.require_heads("check", c, n_head)
     with pytest.raises(ValueError, match="4096"):
         kernels.require_heads("check", 4097, 1)
 

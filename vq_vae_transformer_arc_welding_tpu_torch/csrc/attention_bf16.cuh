@@ -61,6 +61,26 @@
 // HD + 8 elements apart: 16-byte rows whose eight ldmatrix addresses fall
 // in eight different bank groups.
 //
+// A head wider than MAX_HD (up to 4,096) runs on the wide tile
+// (causal_attention_bf16_tile_wide): one block per PIECE = 128 output
+// columns, folded into blockIdx.x beside the head. For each 64-key stage
+// the block stages Q's and K's 128-column chunks of the head in turn
+// through shared memory (no registers hold Q). Each chunk's eight k16
+// steps (WIDE_SUM_STEPS) go into a fresh accumulator, which the tensor
+// core truncates at each step, and that is added to the running f32
+// scores with one rounded add, the chunks in the head's order: the same
+// chain in every piece, so every piece's softmax is the same. One
+// accumulator carried over the whole head, as the narrow tile's, loses
+// a truncation a step to a sum that grows with the head: at a head of
+// 4,096 that moved 4.6e-3 of the bf16 outputs from the float64
+// attention's, past the gate; a fresh one a chunk, 4.9e-4
+// (scripts/bench_flash_bf16_wide_sums.py, which also builds a fresh
+// accumulator a step, with rounded or compensated adds; PERF.md). Then
+// the softmax and P@V on the three bf16 terms of P, as the narrow
+// tile's, for the block's piece of V. The scores are formed once a piece, (hd /
+// 128)x the narrow tile's work, and nothing is double-buffered: a simple
+// form that is right; its times are in PERF.md.
+//
 // What bounds it on an H100 at (16, 8, 321, 64): the 21 MB of q, k, v and
 // the output (0.0063 ms at 3.35 TB/s); the products, Q K^T once and P@V
 // three times in bf16, take 4 x 0.84 GFLOP at 989 TFLOP/s (0.0034 ms).
@@ -85,7 +105,10 @@ constexpr int QROWS = WROWS * WARPS;   // query rows per block
 constexpr int KT = 64;                 // keys per stage
 constexpr int KC = 16;                 // keys per P@V product (k16)
 constexpr int NC = KT / KC;            // 16-key chunks a stage
-constexpr int MAX_HD = 128;
+constexpr int MAX_HD = 128;           // the widest head of the tile
+constexpr int PIECE = MAX_HD;          // output columns a wide block
+constexpr int MAX_WIDE_HD = 4096;      // the widest head of the wide tile
+constexpr int WIDE_SUM_STEPS = 8;      // its k16 steps a fresh accumulator
 
 template <int HD>
 struct Shape {
@@ -114,6 +137,19 @@ __host__ __device__ constexpr int padded_head(int hd) {
 inline dim3 grid(int batch, int n_head, int t) {
   return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
 }
+
+// the wide tile's blocks a head, its grid and its shared memory: Q's
+// chunk, K's chunk and V's piece
+__host__ __device__ constexpr int pieces(int hd) {
+  return (hd + PIECE - 1) / PIECE;
+}
+
+inline dim3 wide_grid(int batch, int n_head, int t, int hd) {
+  return dim3(n_head * pieces(hd), batch, (t + QROWS - 1) / QROWS);
+}
+
+constexpr size_t WIDE_SMEM =
+    sizeof(__nv_bfloat16) * (QROWS + 2 * KT) * Shape<PIECE>::RS;
 
 // q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e; vec16: every row
 // starts 16-byte aligned and hd is a multiple of 8, so rows are copied 16
@@ -300,6 +336,36 @@ __device__ __forceinline__ float quad_sum(float v) {
 // warp's last row is masked whole); P@V runs on the first nc chunks
 // alone (the others' p are 0). mask: some key of the stage lies past a
 // row's limit (lim0, lim1).
+// A k16 step of the scores s of a stage's NC chunks (k_row: this lane's
+// ldmatrix row of K's tile at the step's columns)
+template <int RS>
+__device__ __forceinline__ void score_step(float (&s)[2 * NC][4],
+                                           const uint32_t (&qf)[4],
+                                           const __nv_bfloat16* k_row) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    // B fragments of the key blocks 2 c and 2 c + 1
+    uint32_t kf[4];
+    ldsm_x4(kf, k_row + KC * c * RS);
+    mma_bf16(s[2 * c], qf, kf[0], kf[1]);
+    mma_bf16(s[2 * c + 1], qf, kf[2], kf[3]);
+  }
+}
+
+// this lane's ldmatrix row of a K tile (RS elements a row)
+template <int RS>
+__device__ __forceinline__ const __nv_bfloat16* k_row_of(
+    const __nv_bfloat16* k_s) {
+  const int lane = threadIdx.x % 32;
+  return k_s + (lane % 8 + 8 * (lane / 16)) * RS + 8 * ((lane / 8) % 2);
+}
+
+template <int HD>
+__device__ __forceinline__ void softmax_pv(
+    float (&s)[2 * NC][4], float (&o)[HD / 8][4], float (&m)[2],
+    float (&l)[2], const __nv_bfloat16* v_s, int nc, bool mask, int k0,
+    int lim0, int lim1, float sm_scale);
+
 template <int HD>
 __device__ __forceinline__ void stage_step(
     const uint32_t (&qf)[HD / 16][4], float (&o)[HD / 8][4], float (&m)[2],
@@ -307,23 +373,24 @@ __device__ __forceinline__ void stage_step(
     int nc, bool mask, int k0, int lim0, int lim1, float sm_scale) {
   constexpr int RS = Shape<HD>::RS;
   constexpr int KD = HD / 16;          // k16 steps of Q K^T
-  constexpr int ND = HD / 8;           // 8-column blocks of the output
-  const int lane = threadIdx.x % 32, tg = lane % 4;
   // s[j]: rows g (0, 1) and g + 8 (2, 3), keys k0 + 8 j + 2 tg, + 1
   float s[2 * NC][4] = {};
-  const __nv_bfloat16* k_row =
-      k_s + (lane % 8 + 8 * (lane / 16)) * RS + 8 * ((lane / 8) % 2);
+  const __nv_bfloat16* k_row = k_row_of<RS>(k_s);
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      // B fragments of the key blocks 2 c and 2 c + 1
-      uint32_t kf[4];
-      ldsm_x4(kf, k_row + KC * c * RS + 16 * kk);
-      mma_bf16(s[2 * c], qf[kk], kf[0], kf[1]);
-      mma_bf16(s[2 * c + 1], qf[kk], kf[2], kf[3]);
-    }
-  }
+  for (int kk = 0; kk < KD; ++kk) score_step<RS>(s, qf[kk], k_row + 16 * kk);
+  softmax_pv<HD>(s, o, m, l, v_s, nc, mask, k0, lim0, lim1, sm_scale);
+}
+
+// The rest of a stage from its scores s: scale, mask, the online
+// softmax and o += P V on the first nc chunks
+template <int HD>
+__device__ __forceinline__ void softmax_pv(
+    float (&s)[2 * NC][4], float (&o)[HD / 8][4], float (&m)[2],
+    float (&l)[2], const __nv_bfloat16* v_s, int nc, bool mask, int k0,
+    int lim0, int lim1, float sm_scale) {
+  constexpr int RS = Shape<HD>::RS;
+  constexpr int ND = HD / 8;           // 8-column blocks of the output
+  const int lane = threadIdx.x % 32, tg = lane % 4;
 
   // scale, causal mask (on the stages that reach past a row), online
   // softmax numerators
@@ -497,6 +564,107 @@ __device__ __forceinline__ void causal_attention_bf16_tile(
       } else {
         if (col < in.hd) o_row[col] = __float2bfloat16_rn(y0);
         if (col + 1 < in.hd) o_row[col + 1] = __float2bfloat16_rn(y1);
+      }
+    }
+  }
+}
+
+// The wide tile (a head of in.hd > MAX_HD columns): block (h *
+// pieces(hd) + p, b, z) = blockIdx, THREADS threads, WIDE_SMEM bytes of
+// dynamic shared memory; writes columns [PIECE p, PIECE (p + 1)) of the
+// head's rows. For each stage of KT keys: V's piece is copied, then for
+// each 128-column chunk of the head in order Q's and K's chunks (zero
+// past the head and past T), the chunk's k16 steps into a fresh
+// accumulator and that added to the scores; then softmax_pv as in the
+// tile above.
+__device__ __forceinline__ void causal_attention_bf16_tile_wide(
+    const Operands& in, const Output& out) {
+  constexpr int HD = PIECE;
+  constexpr int RS = Shape<HD>::RS;
+  constexpr int ND = HD / 8;           // 8-column blocks of the output
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* const q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* const k_s = q_s + QROWS * RS;
+  __nv_bfloat16* const v_s = k_s + KT * RS;
+  const int np = pieces(in.hd);
+  const int h = blockIdx.x / np, b = blockIdx.y;
+  const int c0 = PIECE * (blockIdx.x % np);      // this block's columns
+  const int q_end = in.t - QROWS * (int)blockIdx.z;      // rows < q_end
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int w0 = q_end - QROWS + WROWS * warp;           // may be < 0
+  const int w_end = w0 + WROWS;
+  const long long base = b * in.sb + h * in.sh;
+  const int n_tiles = (q_end + KT - 1) / KT;
+  const int lim0 = max(w0 + g, 0), lim1 = max(w0 + g + 8, 0);
+  const __nv_bfloat16* k_row = k_row_of<RS>(k_s);
+
+  float o[ND][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    const int nc = min(max((w_end - k0 + KC - 1) / KC, 0), NC);
+    const bool mask = k0 + KT - 1 > max(w0, 0);
+    RowCopy<HD>(in.v + base + c0, in.st, in.t, min(PIECE, in.hd - c0),
+                in.vec16)
+        .rows<KT>(v_s, k0);
+    float s[2 * NC][4] = {};
+    for (int e0 = 0; e0 < in.hd; e0 += PIECE) {
+      const int cw = min(PIECE, in.hd - e0);
+      RowCopy<HD>(in.q + base + e0, in.st, in.t, cw, in.vec16)
+          .rows<QROWS>(q_s, q_end - QROWS);
+      RowCopy<HD>(in.k + base + e0, in.st, in.t, cw, in.vec16)
+          .rows<KT>(k_s, k0);
+      cp_async_commit();
+      cp_async_wait<0>();   // this chunk (and, the first time, V) landed
+      __syncthreads();
+      if (nc > 0) {
+#pragma unroll
+        for (int k0s = 0; k0s < HD / 16; k0s += WIDE_SUM_STEPS) {
+          float part[2 * NC][4] = {};
+#pragma unroll
+          for (int kk = k0s; kk < k0s + WIDE_SUM_STEPS; ++kk) {
+            if (16 * kk < cw) {
+              uint32_t qf[4];
+              ldsm_x4(qf, q_s + (WROWS * warp + lane % 16) * RS + 16 * kk +
+                              8 * (lane / 16));
+              score_step<RS>(part, qf, k_row + 16 * kk);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 2 * NC; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              s[j][i] = __fadd_rn(s[j][i], part[j][i]);
+        }
+      }
+      __syncthreads();      // the chunk is consumed before the next
+    }
+    if (nc > 0)
+      softmax_pv<HD>(s, o, m, l, v_s, nc, mask, k0, lim0, lim1, in.sm_scale);
+    __syncthreads();        // V's piece is consumed before it is refilled
+  }
+
+  if (w_end <= 0) return;
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row < 0) continue;
+    __nv_bfloat16* o_row =
+        out.o + b * out.sb + h * out.sh + row * out.st + c0;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int col = 8 * n + 2 * tg;
+      const float y0 = o[n][2 * r] / l[r], y1 = o[n][2 * r + 1] / l[r];
+      if (out.pairs) {
+        if (c0 + col < in.hd)
+          *reinterpret_cast<__nv_bfloat162*>(o_row + col) =
+              __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (c0 + col < in.hd) o_row[col] = __float2bfloat16_rn(y0);
+        if (c0 + col + 1 < in.hd) o_row[col + 1] = __float2bfloat16_rn(y1);
       }
     }
   }

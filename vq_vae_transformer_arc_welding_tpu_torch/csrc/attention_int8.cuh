@@ -67,10 +67,28 @@
 // as (l0 + l1) + (l2 + l3); only l, and through it y8 by one step where l
 // moves in its last place, may differ from another order's.
 //
-// qkv8, the int8 operands: (batch, n_head, 3, T_pad * 64) with T_pad =
-// T rounded up to TT; slot 0 q8 [row][e], slot 1 k8 [key][e], slot 2 v8
-// [e][key position] in key_of order; zero past T. head_scales (batch, 3,
-// n_head): 127 / max(absmax, 1e-6) of q, k, v.
+// qkv8, the int8 operands: (batch, n_head, 3, T_pad * HW) with T_pad =
+// T rounded up to TT and HW = head_width(hd) (64 at the bench model's
+// head); slot 0 q8 [row][e], slot 1 k8 [key][e], slot 2 v8 [e][key
+// position] in key_of order; zero past T and from column (v8: row) hd
+// on. head_scales (batch, 3, n_head): 127 / max(absmax, 1e-6) of q, k,
+// v. y8's rows lie pitch16(C) bytes apart, as the c_proj GEMM reads them.
+//
+// Heads wider than MAX_NARROW (any width up to 4,096) take the wide
+// form: the pass keeps the head's first kept_rows(hd) rows on chip (227
+// KB / (4 hd)) and reads the rest again from device memory, a float at a
+// time; its qkv8 rows are hd rounded up to the products' k step of 32.
+// The tile, attention_int8_wide_kernel, gives each (64-query tile, head,
+// batch) one block per PIECE = 128 output columns. Each block recomputes
+// the integer scores over the whole head, a 64-key stage at a time, in k
+// steps of 32 over 128-column chunks of k8 streamed through shared
+// memory (q8's fragments read from device memory, L2, per chunk), then
+// the same two passes as the narrow tile with P@V on its piece of v8.
+// The scores and P@V are s8 x s8 -> s32 sums, exact in any order, so
+// every piece sees the same row max and the same p8, and each output
+// equals one unsplit product's; l is summed in the narrow tile's order.
+// A simple form that is right: the score work is (hd / 128)x the narrow
+// tile's and nothing is double-buffered; its times are in PERF.md.
 #pragma once
 
 #include "common.cuh"
@@ -89,7 +107,12 @@ constexpr int VROW = TT + 16;   // bytes a V^T row (a stage's 64 keys)
 constexpr int QUANT_THREADS = 256;
 constexpr int QUANT_ROWS = 384;         // rows of a head kept on chip by
                                         // the quantizing pass (96 KB at
-                                        // head width 64)
+                                        // head width 64) ...
+constexpr int QUANT_SMEM = 231424;      // ... and at most these bytes (the
+                                        // 227 KB of a block less the
+                                        // pass's static 1 KB)
+constexpr int MAX_NARROW = 128;         // the widest head on Tile<HD>
+constexpr int PIECE = 128;              // output columns a wide block
 
 // The tile of (padded) head width HD: 32, 64 or 128, the s8 products'
 // k in steps of 32. A head of real width hd < HD (PAD) is held in qkv8
@@ -109,10 +132,28 @@ __host__ __device__ constexpr int padded(int t) {
   return (t + TT - 1) / TT * TT;
 }
 
+// the width of a head's rows in qkv8: the tile's 32, 64 or 128, and
+// past MAX_NARROW hd rounded up to the s8 products' k step of 32
+__host__ __device__ constexpr int head_width(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= MAX_NARROW ? 128
+                                                          : (hd + 31) / 32 * 32;
+}
+
+// the wide form's blocks a head: one per PIECE output columns
+__host__ __device__ constexpr int pieces(int hd) {
+  return (hd + PIECE - 1) / PIECE;
+}
+
+// rows of a head of width hd that the pass keeps on chip
+__host__ __device__ constexpr int kept_rows(int hd) {
+  return QUANT_SMEM / (4 * hd) < QUANT_ROWS ? QUANT_SMEM / (4 * hd)
+                                            : QUANT_ROWS;
+}
+
 // the pass's dynamic shared memory: the head's first rows at its real
-// width hd
+// width hd (t rows, or all it keeps)
 inline size_t quant_smem(int t, int hd) {
-  return sizeof(float) * hd * (size_t)(t < QUANT_ROWS ? t : QUANT_ROWS);
+  return sizeof(float) * hd * (size_t)(t < kept_rows(hd) ? t : kept_rows(hd));
 }
 
 // the key stored at position p of a 32-key group of v8
@@ -193,16 +234,17 @@ __device__ __forceinline__ float head_absmax(const float* src, float* xs,
   return mx;
 }
 
-// head_quant_kernel's padded case: the head's hw columns as f32 (c3
-// floats a row at src), its scale to *scale, and its HD-wide rows of
-// qkv8 at dst, zero from hw on and past t; a value at a time.
-template <int HD>
+// head_quant_kernel's padded case and the wide form's pass: the head's
+// hw columns as f32 (c3 floats a row at src), its scale to *scale, and
+// its HD-wide rows of qkv8 at dst (HD a multiple of 32: the tile's width,
+// a constant, or head_width(hw) past MAX_NARROW), zero from hw on and
+// past t; a value at a time.
 __device__ __forceinline__ void head_quant_padded(const float* src,
                                                   float* scale, int8_t* dst,
                                                   float* xs, float* red,
                                                   int t, int kept, int hw,
-                                                  int c3) {
-  constexpr int CH = HD / 4;               // 4-value chunks a row
+                                                  int c3, int HD) {
+  const int CH = HD / 4;                   // 4-value chunks a row
   const int tid = threadIdx.x, tp = padded(t);
   const float s = __fdiv_rn(
       127.0f, fmaxf(head_absmax(src, xs, red, t, kept, hw, c3), 1e-6f));
@@ -255,16 +297,16 @@ head_quant_kernel(const float* __restrict__ qkv, float* __restrict__ scales,
   const int hw = PAD ? hd : HD;            // the real head width
   const int h = blockIdx.x, which = blockIdx.y, b = blockIdx.z;
   const int c3 = 3 * n_head * hw, tp = padded(t);
-  const int kept = min(t, QUANT_ROWS);
+  const int kept = min(t, kept_rows(hw));
   const float* src = qkv + (size_t)b * t * c3 + which * (c3 / 3) + h * hw;
   int8_t* dst =
       qkv8 + (((size_t)b * n_head + h) * 3 + which) * (size_t)tp * HD;
   const int tid = threadIdx.x;
 
   if constexpr (PAD) {
-    head_quant_padded<HD>(src, scales + ((size_t)b * 3 + which) * n_head + h,
-                          dst, reinterpret_cast<float*>(xs4), red, t, kept,
-                          hw, c3);
+    head_quant_padded(src, scales + ((size_t)b * 3 + which) * n_head + h,
+                      dst, reinterpret_cast<float*>(xs4), red, t, kept, hw,
+                      c3, HD);
     return;
   }
   for (int i = tid; i < kept * CH; i += QUANT_THREADS)
@@ -432,7 +474,7 @@ __device__ __forceinline__ void pv_stage(int (&o)[HD / 8][4], float (&l)[2],
 
 // Grid (n_head, batch, ceil(t / 64)), THREADS threads: the heaviest
 // query tiles of every (batch, head) first. y8 (batch, t, C), C =
-// n_head * hd; without PAD hd is HD.
+// n_head * hd, rows pitch16(C) bytes apart; without PAD hd is HD.
 template <int HD, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 attention_int8_kernel(const int8_t* __restrict__ qkv8,
@@ -506,14 +548,14 @@ attention_int8_kernel(const int8_t* __restrict__ qkv8,
   }
 
   const int hw = PAD ? hd : HD;       // the real head width
-  const int c = n_head * hw;
+  const int pitch = pitch16(n_head * hw);
   const float qs = *qscale, dq = __fmul_rn(127.0f, sv);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (rows[r] >= t) continue;
-    int8_t* yr = y8 + ((size_t)b * t + rows[r]) * c + h * hw + 2 * tg;
+    int8_t* yr = y8 + ((size_t)b * t + rows[r]) * pitch + h * hw + 2 * tg;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
       const int8_t y0 =
@@ -527,6 +569,174 @@ attention_int8_kernel(const int8_t* __restrict__ qkv8,
         if (e < hw) yr[8 * n] = y0;
         if (e + 1 < hw) yr[8 * n + 1] = y1;
       }
+    }
+  }
+}
+
+// The wide form's pass: grid (n_head, 3, batch), QUANT_THREADS threads,
+// quant_smem(t, hd) bytes of dynamic shared memory; any hd past
+// MAX_NARROW, its qkv8 rows head_width(hd) bytes wide.
+__global__ void __launch_bounds__(QUANT_THREADS)
+head_quant_wide_kernel(const float* __restrict__ qkv,
+                       float* __restrict__ scales, int8_t* __restrict__ qkv8,
+                       int t, int n_head, int hd) {
+  extern __shared__ float4 xs4[];
+  __shared__ float red[QUANT_THREADS / 32];
+  const int h = blockIdx.x, which = blockIdx.y, b = blockIdx.z;
+  const int hw8 = head_width(hd), c3 = 3 * n_head * hd, tp = padded(t);
+  head_quant_padded(
+      qkv + (size_t)b * t * c3 + which * (c3 / 3) + h * hd,
+      scales + ((size_t)b * 3 + which) * n_head + h,
+      qkv8 + (((size_t)b * n_head + h) * 3 + which) * (size_t)tp * hw8,
+      reinterpret_cast<float*>(xs4), red, t, min(t, kept_rows(hd)), hd, c3,
+      hw8);
+}
+
+// The wide tile: block (h * pieces(hd) + piece, b, z) = blockIdx, THREADS
+// threads, writes y8's columns [PIECE piece, PIECE (piece + 1)) of the
+// head's rows. A stage's scores s[j] (8-key block j, mma's accumulator
+// layout) are carried over the head's 128-column chunks of k8 (staged in
+// ks) and q8 (fragments from device memory); pass 1 keeps the row's
+// largest integer score, pass 2 forms p, l and p8 as pv_stage does and
+// multiplies p8 by the piece's v8^T rows (staged in vs with the stage's
+// first chunk). The masks and the 8-key blocks a warp skips are the
+// narrow tile's.
+__global__ void __launch_bounds__(THREADS)
+attention_int8_wide_kernel(const int8_t* __restrict__ qkv8,
+                           const float* __restrict__ head_scales,
+                           const float* __restrict__ qscale,
+                           int8_t* __restrict__ y8, int t, int n_head,
+                           float sm_scale, int hd) {
+  constexpr int KROW = PIECE + 16;     // a K chunk's row in shared memory
+  __shared__ __align__(16) int8_t ks[TT * KROW];
+  __shared__ __align__(16) int8_t vs[PIECE * VROW];
+  const int hw8 = head_width(hd), np = pieces(hd), tp = padded(t);
+  const int h = blockIdx.x / np, piece = blockIdx.x % np, b = blockIdx.y;
+  const int p0 = PIECE * piece, pw = min(PIECE, hw8 - p0);  // v8^T rows
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TT;
+  const int8_t* qh = qkv8 + ((size_t)b * n_head + h) * 3 * (size_t)tp * hw8;
+  const int8_t* kh = qh + (size_t)tp * hw8;      // k8, then v8^T
+  const int8_t* vh = kh + (size_t)tp * hw8;
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, tg = lane % 4;
+  const int r0 = q0 + tid / 32 * 16;                  // the warp's rows
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  const float* hs = head_scales + (size_t)b * 3 * n_head + h;
+  const float sq = hs[0], sk = hs[n_head], sv = hs[2 * n_head];
+  const float factor = __fdiv_rn(sm_scale, __fmul_rn(sq, sk));
+
+  const int n_kt = (min(t, q0 + TT) + TT - 1) / TT;   // key tiles a pass
+  int smax[2] = {INT_MIN, INT_MIN};
+  float mx[2] = {0.0f, 0.0f}, l[2] = {0.0f, 0.0f};
+  int o[PIECE / 8][4] = {};
+  for (int step = 0; step < 2 * n_kt; ++step) {
+    const bool pass2 = step >= n_kt;
+    const int k0 = (step % n_kt) * TT;
+    const bool live = k0 <= r0 + 15;   // else every key is past the rows
+    // 8-key blocks this warp needs: up to its last row and below T
+    const int jn =
+        live ? min(min(8, (r0 + 15 - k0) / 8 + 1), (t - k0 + 7) / 8) : 0;
+    if (pass2)
+      for (int i = tid; i < pw * (TT / 16); i += THREADS) {
+        const int r = i / (TT / 16), ch = i % (TT / 16) * 16;
+        cp_async16(vs + r * VROW + ch, vh + (size_t)(p0 + r) * tp + k0 + ch);
+      }
+    int s[8][4] = {};
+    for (int e0 = 0; e0 < hw8; e0 += PIECE) {
+      const int kch = min(PIECE, hw8 - e0) / 16;    // a row's 16-byte chunks
+      for (int i = tid; i < TT * kch; i += THREADS) {
+        const int r = i / kch, ch = i % kch * 16;
+        cp_async16(ks + r * KROW + ch, kh + (size_t)(k0 + r) * hw8 + e0 + ch);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < PIECE / 32; ++kk) {
+        if (kk < kch / 2 && jn > 0) {
+          uint32_t qa[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            qa[i] = ld32(qh + (size_t)rows[i % 2] * hw8 + e0 + 32 * kk +
+                         i / 2 * 16 + 4 * tg);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j < jn) {
+              const int8_t* kr = ks + (8 * j + g) * KROW + 32 * kk + 4 * tg;
+              mma_s8(s[j], qa, ld32(kr), ld32(kr + 16));
+            }
+          }
+        }
+      }
+      __syncthreads();      // the chunk is consumed before the next
+    }
+    if (!pass2) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kj = k0 + 8 * j + 2 * tg + i % 2;
+          if (j < jn && kj <= rows[i / 2] && kj < t)
+            smax[i / 2] = max(smax[i / 2], s[j][i]);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        if (4 * kk >= jn) break;
+        uint32_t pa[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * kk + jj;
+          if (j >= jn) break;
+          uint32_t p8[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kj = k0 + 8 * j + 2 * tg + i % 2;
+            float p = 0.0f;
+            if (kj <= rows[i / 2] && kj < t) {
+              p = expf(__fmul_rn((float)s[j][i], factor) - mx[i / 2]);
+              l[i / 2] += p;
+            }
+            p8[i] = (uint32_t)__float2int_rn(__fmul_rn(p, 127.0f));
+          }
+          const int reg = jj / 2 * 2, sh = jj % 2 * 16;
+          pa[reg] |= (p8[0] | p8[1] << 8) << sh;
+          pa[reg + 1] |= (p8[2] | p8[3] << 8) << sh;
+        }
+#pragma unroll
+        for (int n = 0; n < PIECE / 8; ++n) {
+          if (8 * n < pw) {
+            const int8_t* vr = vs + (8 * n + g) * VROW + 32 * kk + 4 * tg;
+            mma_s8(o[n], pa, ld32(vr), ld32(vr + 16));
+          }
+        }
+      }
+    }
+    if (step == n_kt - 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        smax[r] = max(smax[r], __shfl_xor_sync(0xffffffffu, smax[r], 1));
+        smax[r] = max(smax[r], __shfl_xor_sync(0xffffffffu, smax[r], 2));
+        mx[r] = __fmul_rn((float)smax[r], factor);
+      }
+    __syncthreads();        // vs is consumed before it is refilled
+  }
+
+  const int pitch = pitch16(n_head * hd);
+  const float qs = *qscale, dq = __fmul_rn(127.0f, sv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (rows[r] >= t) continue;
+    int8_t* yr = y8 + ((size_t)b * t + rows[r]) * pitch + h * hd + p0;
+#pragma unroll
+    for (int n = 0; n < PIECE / 8; ++n) {
+      const int e = 8 * n + 2 * tg;
+      if (p0 + e < hd)
+        yr[e] = q8(__fdiv_rn(__fdiv_rn((float)o[n][2 * r], dq), l[r]), qs);
+      if (p0 + e + 1 < hd)
+        yr[e + 1] =
+            q8(__fdiv_rn(__fdiv_rn((float)o[n][2 * r + 1], dq), l[r]), qs);
     }
   }
 }

@@ -25,14 +25,14 @@
 // [ln1_s, ln1_b, ln2_s, ln2_b, deq_proj, b_proj]; v3c (2, 3C) f32 rows
 // [deq_qkv, b_qkv]. Scratch: h8a (B*T, C) int8, qkv (B*T, 3C) f32,
 // y8 (B*T, C) int8; int8_attn only: head_scales (B, 3, n_head) f32 and
-// qkv8 (B, n_head, 3, T_pad * HD) int8, the attention's int8 operands,
-// HD the head width C / n_head padded to 32, 64 or 128
-// (attention_int8.cuh).
+// qkv8 (B, n_head, 3, T_pad * HW) int8, the attention's int8 operands,
+// HW the head width C / n_head padded to 32, 64 or 128, or past 128 to a
+// multiple of 32 (attention_int8.cuh::head_width).
 // Outputs: x_mid (B*T, C) f32, h8 (B*T, C) int8; rail_rows (B*T,) int32
 // or null: each row's count of h8 at +-127.
 // sm_scale: 1/sqrt(C / n_head), rounded to f32 by the caller.
-// C from 1 to 4,096 (int8_attn: int8_attn_ok); every int8 matrix, the
-// weights included, in rows pitch16 of its width bytes apart.
+// C from 1 to 4,096 in any heads, both values of int8_attn; every int8
+// matrix, the weights included, in rows pitch16 of its width bytes apart.
 extern "C" int attn_block_quant(const void* x, const void* w_qkv,
                                 const void* w_proj, const void* scales,
                                 const void* vc, const void* v3c, void* h8a,
@@ -41,9 +41,7 @@ extern "C" int attn_block_quant(const void* x, const void* w_qkv,
                                 void* rail_rows, int batch, int t, int c,
                                 int n_head, float sm_scale, int int8_attn,
                                 void* stream) {
-  if (int8_attn ? !arcweld::int8_attn_ok(c, n_head)
-                : !arcweld::heads_ok(c, n_head))
-    return cudaErrorInvalidValue;
+  if (!arcweld::heads_ok(c, n_head)) return cudaErrorInvalidValue;
   return arcweld::launch_attn_half(
       static_cast<const float*>(x), static_cast<const int8_t*>(w_qkv),
       static_cast<const int8_t*>(w_proj), static_cast<const float*>(scales),
@@ -70,5 +68,6 @@ extern "C" int ln_q8(const void* x, const void* scale, const void* bias,
       static_cast<cudaStream_t>(stream));
 }
 
-// the widest head the int8 attention takes (#2 and #6 with int8_attn)
+// the widest head on the attentions' tiles (#2 and #6, both values of
+// int8_attn); wider ones run on their wide forms
 extern "C" int attention_max_head_dim() { return arcweld::MAX_HEAD_DIM; }

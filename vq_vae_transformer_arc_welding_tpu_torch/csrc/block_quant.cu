@@ -18,9 +18,9 @@
 // vc (8, C) rows [ln1_s, ln1_b, ln2_s, ln2_b, deq_proj, b_proj, deq_mp,
 // b_mp]; v3c (2, 3C) [deq_qkv, b_qkv]; v4c (2, C4) [deq_fc, b_fc].
 // Scratch: h8a, y8, h8 (B*T, C) int8, qkv (B*T, 3C) f32, head_scales
-// (B, 3, n_head) f32 and qkv8 (B, n_head, 3, T_pad * HD) int8 (int8_attn
+// (B, 3, n_head) f32 and qkv8 (B, n_head, 3, T_pad * HW) int8 (int8_attn
 // only), x_mid (B*T, C) f32, g8 (B*T, C4) int8. Output: out (B*T, C) f32.
-// C from 1 to 4,096 (int8_attn: int8_attn_ok), C4 >= 1; every int8
+// C from 1 to 4,096 in any heads, C4 >= 1; every int8
 // matrix in rows pitch16 of its width bytes apart.
 extern "C" int block_quant(const void* x, const void* w_qkv,
                            const void* w_proj, const void* w_fc,
@@ -31,9 +31,7 @@ extern "C" int block_quant(const void* x, const void* w_qkv,
                            void* out, int batch, int t, int c, int c4,
                            int n_head, float sm_scale, int int8_attn,
                            void* stream) {
-  if ((int8_attn ? !arcweld::int8_attn_ok(c, n_head)
-                 : !arcweld::heads_ok(c, n_head)) ||
-      c4 < 1)
+  if (!arcweld::heads_ok(c, n_head) || c4 < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scales);

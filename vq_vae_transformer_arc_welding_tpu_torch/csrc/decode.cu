@@ -13,9 +13,11 @@
 //
 // What bounds it on an H100: bytes. At C = 512 a block's f32 weights are
 // 12.6 MB and the cache rows 0..pos of B = 16 streams 10.5 MB at pos 160,
-// against 0.1 GFLOP of products: 6.9 us at 3.35 TB/s. The TPU kernels run
-// one program per sample, each streaming every weight through VMEM; here
-// the weights are read once by the whole card:
+// against 0.1 GFLOP of products: 6.9 us at 3.35 TB/s; at GPT-2 XL's C =
+// 1,600 the weights are 12 x 1,600^2 x 4 B = 123 MB, 36.7 us, and at C =
+// 4,096 805 MB, 0.24 ms, plus the cache rows. The TPU kernels run one
+// program per sample, each streaming every weight through VMEM; here the
+// weights are read once by the whole card:
 //
 //  - One cooperative launch: a persistent grid of one block per SM
 //    (cudaLaunchCooperativeKernel, so that a grid the card cannot hold at
@@ -30,14 +32,30 @@
 //    x KC. At C = 512 on 132 SMs that is ~95 KB a block, all of it on chip
 //    ~6 us into the launch. Where a block's weights do not fit (C = 768
 //    and up), the chunks stream through a ring of slots in the order they
-//    are used, each slot refilled once every warp is done with it.
+//    are used, each slot refilled once every warp is done with it. A
+//    block's columns of a product are walked in column groups of up to
+//    MAX_COLS = 32 (the accumulators a thread holds): at C = 4,096, c_fc's
+//    16,384 columns over 132 SMs are four groups a block, the A tiles read
+//    again for each.
+//  - Any C from 1 to 4,096 and any MLP width: the products' depths are
+//    padded with zeros to multiples of 64 (pad64), so that every 1-D TMA
+//    copy moves a multiple of 16 bytes from a 16-byte-aligned row. The
+//    wrapper packs the weights so (ops/fused_decode.py::_padded_weights,
+//    once a generation in BlockDecodeStack) and hands x, and takes out,
+//    in rows of pad64(C) floats; the scratch rows are padded alike and
+//    zero past C. The added columns add exact 0s to every sum; where C
+//    and the MLP width are multiples of 64 (the bench model's 512)
+//    nothing is padded.
 //  - The activations, x, y, x_mid and g, are read whole by every block:
 //    a row tile of 16 rows x KC columns at a time comes into shared
 //    memory by TMA too (one copy where the rows are one range), NBUF
 //    tiles in flight. Read as mma fragments straight from L2, the 132
 //    blocks' scattered 4-byte loads of the same few KB took 5-9 us a
 //    product. LayerNorm's statistics come from the tile where it holds
-//    the rows whole, else from L2.
+//    the rows whole, else from L2 in two passes (the mean, then the
+//    squares; any C), lane L taking the float4s L + 32 i in order; a row's
+//    float4 past C reads the zero padding, whose squares are taken off
+//    after the sum (row_var).
 //  - m_proj (k = c4) is split over the grid by k pieces: a block reads
 //    one piece of g and not all four, and the last block of a column
 //    range to finish adds the pieces' partial sums in order.
@@ -61,7 +79,11 @@
 //    block), so any T is taken and no score leaves the registers. Other
 //    head widths (up to 128): a head up to 64 wide on 16 lanes a key, up
 //    to 128 on a warp a key, its lanes past the real width holding zeros
-//    (Attend); the 64-wide head keeps its own instantiation.
+//    (Attend); the 64-wide head keeps its own instantiation. A head past
+//    128 takes the whole block (attention_wide): q in shared memory, each
+//    key's score formed by a warp over the whole head and reduced before
+//    the softmax, P@V a float4 of every 1,024 columns a thread; rows read
+//    a float at a time where they are not 16-byte aligned.
 //  - Deterministic: every sum runs in a fixed order and no float atomic
 //    is used, so two calls give the same bits. FMA contraction is allowed:
 //    the contract with the plain version is a tolerance.
@@ -89,15 +111,19 @@ constexpr int ROWS = 16;           // a row tile: mma's m16
 constexpr int NCOL = 8;            // weight rows (output columns) a chunk: n8
 constexpr int MAX_KC = 512;        // a chunk's k extent, at most
 constexpr int KBLOCKS = MAX_KC / (16 * WARPS);  // 16-column blocks a warp
-constexpr int MAX_CG = 4;          // chunks of a product in one k piece
-constexpr int MAX_COLS = MAX_CG * NCOL;        // a block's columns a product
+constexpr int MAX_CG = 4;          // chunks of a column group: a block's
+                                   // columns of a product are walked a
+                                   // group at a time
+constexpr int MAX_COLS = MAX_CG * NCOL;        // a column group's columns
 constexpr int NBUF = 3;            // A tiles in flight
 constexpr int MAX_BARS = 64;       // chunks (resident) or ring slots
 constexpr int UNROLL = 16;         // keys a half warp has in flight
-constexpr int LN_VEC = 8;          // float4s of a LayerNorm row a lane:
-                                   // C <= 1024
 constexpr int N_PRODUCTS = 4;      // qkv, c_proj, c_fc, m_proj
 constexpr int MAX_GRID = 1024;     // blocks; the barrier's counts follow
+constexpr int MAX_C = 4096;        // the widest stream
+constexpr int WIDE = 0;            // Attend's LPK for heads past MAX_HD
+constexpr int KB = 256;            // keys a run of the wide attention
+constexpr int WIDE_V4 = MAX_C / (4 * THREADS);  // its float4s a thread
 
 // shared memory: mbarriers (the ring's, then the A tiles') | weight ring |
 // NBUF A tiles | partial sums | LN statistics | the attention's partial
@@ -119,13 +145,16 @@ enum Epilogue { QKV, RESIDUAL, GELU };
 }  // namespace
 
 // The operands of one block, packed once by the wrapper (a ctypes
-// Structure of the same layout in ops/fused_decode.py). w_* are (n, k);
-// the caches' element (b, h, t, e) is at b*sb + h*sh + t*st + e; scratch
-// holds q, y, x_mid (batch x C each), g (batch x c4) and m_proj's
-// partial sums (c4 / KC x batch x C); barrier is 2 + MAX_GRID words, the
-// grid barrier's arrival count and generation, then m_proj's counts per
-// column range, all counts 0 between launches. #12 leaves the MLP's
-// pointers null and c4 0.
+// Structure of the same layout in ops/fused_decode.py). The products'
+// depths are padded with zeros to multiples of 64 (pad64: cp of C, c4p of
+// c4; zeros add exact 0s to every sum): w_* are (n, k) with k padded,
+// rows k apart, and ln1_*, ln2_* hold cp floats, zero past C. The
+// caches' element (b, h, t, e) is at b*sb + h*sh + t*st + e; scratch
+// holds q (batch x C), y, x_mid (batch x cp each), g (batch x c4p) and
+// m_proj's partial sums (c4p / KC x batch x C), the columns past C (c4)
+// zero; barrier is 2 + MAX_GRID words, the grid barrier's arrival count
+// and generation, then m_proj's counts per column range, all counts 0
+// between launches. #12 leaves the MLP's pointers null and c4 0.
 struct DecodeArgs {
   const float* ln1_s;
   const float* ln1_b;
@@ -150,26 +179,33 @@ struct DecodeArgs {
 
 namespace {
 
-// the largest multiple of 64 up to MAX_KC that divides C and c4
-__host__ __device__ inline int chunk_k(int c, int c4) {
+// n rounded up to a multiple of 64: a product's padded depth, and the
+// row pitch of the activations it reads
+__host__ __device__ inline int pad64(int n) { return (n + 63) / 64 * 64; }
+
+// the largest multiple of 64 up to MAX_KC that divides cp and c4p
+__host__ __device__ inline int chunk_k(int cp, int c4p) {
   for (int kc = MAX_KC; kc >= 64; kc -= 64)
-    if (c % kc == 0 && c4 % kc == 0) return kc;
+    if (cp % kc == 0 && c4p % kc == 0) return kc;
   return 0;
 }
 
-// product p's output columns and input width
+// product p's output columns and (padded) input width
 __host__ __device__ inline int cols_of(const DecodeArgs& a, int p) {
   return p == 0 ? 3 * a.c : p == 2 ? a.c4 : a.c;
 }
 __host__ __device__ inline int k_of(const DecodeArgs& a, int p) {
-  return p == 3 ? a.c4 : a.c;
+  return pad64(p == 3 ? a.c4 : a.c);
 }
 
 // One product's share in this block: columns [c0, c0 + ncol) of w (n,
 // k), its k pieces q0 .. q0 + nq - 1 of kc, in chunks of up to 8 columns
-// (ncg a piece). Resident: chunk (q, cg) has mbarrier cbase + q ncg + cg
-// and its rows start at ring row rbase + q ncol + 8 cg. Streaming: its
-// use at row tile rt is the ring's use ubase + (rt nq + q) ncg + cg.
+// (ncg a piece), walked in column groups of up to MAX_CG chunks (gi, of
+// gn chunks: cg = MAX_CG gi + cgl). Resident: chunk (q, cg) has mbarrier
+// cbase + q ncg + cg and its rows start at ring row rbase + q ncol + 8
+// cg. Streaming: its use at row tile rt is the ring's use ubase + gi
+// n_rt nq MAX_CG + (rt nq + q) gn + cgl, the groups in turn (ubase + (rt
+// nq + q) ncg + cg where one group holds them all).
 //
 // m_proj (k = c4, four pieces at C = 512) is split over the grid by
 // pieces where that fits: nsplit groups of blocks, one a piece, each
@@ -234,7 +270,7 @@ struct Plan {
 __device__ __forceinline__ Plan make_plan(const DecodeArgs& a, bool mlp) {
   Plan pl;
   pl.np = mlp ? 4 : 2;
-  pl.kc = chunk_k(a.c, mlp ? a.c4 : 0);
+  pl.kc = chunk_k(pad64(a.c), mlp ? pad64(a.c4) : 0);
   pl.n_rt = (a.batch + ROWS - 1) / ROWS;
   // the bases of a product past the last are the totals (#12's MLP
   // products have no k pieces: c4 is 0)
@@ -251,19 +287,30 @@ __device__ __forceinline__ Plan make_plan(const DecodeArgs& a, bool mlp) {
 }
 
 // Where chunk i of product P lands (i counted from the product's first:
-// resident, i = q ncg + cg; streaming, i = (rt nq + q) ncg + cg): its
+// resident, i = q ncg + cg; streaming, the product's use as above): its
 // columns, k piece, mbarrier, parity and first ring row.
 struct Chunk {
   int col0, rows, q, bar, row0;
   uint32_t parity;
 };
 
+// GENERAL: the kernel's general form (column groups, padded depths); its
+// first form takes one column group a product (ncg <= MAX_CG)
+template <bool GENERAL>
 __device__ __forceinline__ Chunk locate(const Plan& pl, const Product& P,
                                         int i) {
   Chunk ch;
-  const int in_rt = i % (P.nq * P.ncg);
-  const int cg = in_rt % P.ncg;
-  ch.q = in_rt / P.ncg;
+  int cg;
+  if (GENERAL && !pl.resident) {
+    const int per_g = pl.n_rt * P.nq * MAX_CG, gi = i / per_g;
+    const int gn = min(MAX_CG, P.ncg - MAX_CG * gi), rem = i % per_g;
+    cg = MAX_CG * gi + rem % gn;
+    ch.q = rem / gn % P.nq;
+  } else {
+    const int in_rt = i % (P.nq * P.ncg);
+    cg = in_rt % P.ncg;
+    ch.q = in_rt / P.ncg;
+  }
   ch.col0 = P.c0 + NCOL * cg;
   ch.rows = min(NCOL, P.ncol - NCOL * cg);
   if (pl.resident) {
@@ -317,6 +364,7 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 // products in order, whose number is `mine` modulo `warps`: per chunk
 // lane 0 arms its mbarrier with the bytes to come, then lane r copies
 // weight row r.
+template <bool GENERAL>
 __device__ void issue(const Plan& pl, const DecodeArgs& a, float* ring,
                       uint64_t* bars, int from, int to, int mine = 0,
                       int warps = 1) {
@@ -332,7 +380,7 @@ __device__ void issue(const Plan& pl, const DecodeArgs& a, float* ring,
     const int n = P.nq * P.ncg * (pl.resident ? 1 : pl.n_rt);
     for (int i = max(from, first); i < min(to, first + n); ++i) {
       if (i % warps != mine) continue;
-      const Chunk ch = locate(pl, P, i - first);
+      const Chunk ch = locate<GENERAL>(pl, P, i - first);
       const uint32_t bar = smem_u32(&bars[ch.bar]);
       float* dst = ring + (size_t)ch.row0 * pl.kc;
       const float* src =
@@ -414,41 +462,42 @@ __device__ void grid_sync(unsigned* bar) {
   __syncthreads();
 }
 
+// A row's float4s are walked by lane L at L + 32 i, in order; the last
+// may reach past k into the row's zero padding (the rows are pad64
+// wide), which adds exact 0s to the mean, and (0 - mean)^2 to the sum of
+// squares for each of its pad = 4 ceil(k / 4) - k columns, taken off
+// after the lanes' sums are added (none where k is a multiple of 4).
+__device__ __forceinline__ float row_var(float q, float mean, int k) {
+  const int pad = (k + 3) / 4 * 4 - k;
+  return (arcweld::warp_sum(q) - (float)pad * mean * mean) / (float)k;
+}
+
 // mean and 1 / sqrt(variance + eps) of rows [row0, row0 + 16) of a
-// (batch, k), rows w and w + 8 in warp w, both loaded at once and kept in
-// registers for the second pass (k <= 4 * 32 * LN_VEC); rows past batch
-// are left out
-__device__ void row_stats(const float* a, int row0, int batch, int k,
+// (batch, k), rows ld floats apart, rows w and w + 8 in warp w, read from
+// L2 twice (the mean, then the squares), any k up to MAX_C; rows past
+// batch are left out
+__device__ void row_stats(const float* a, int ld, int row0, int batch, int k,
                           float* stats) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k4 = k / 4;
-  float4 v[2][LN_VEC];
+  const int k4 = (k + 3) / 4;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = min(row0 + warp + 8 * h, batch - 1);
-    const float4* src = reinterpret_cast<const float4*>(a + (size_t)row * k);
-#pragma unroll
-    for (int i = 0; i < LN_VEC; ++i)
-      v[h][i] = __ldcg(src + min(lane + 32 * i, k4 - 1));
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
+    const float4* src = reinterpret_cast<const float4*>(a + (size_t)row * ld);
     float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < LN_VEC; ++i)
-      if (lane + 32 * i < k4)
-        s += (v[h][i].x + v[h][i].y) + (v[h][i].z + v[h][i].w);
+    for (int i = lane; i < k4; i += 32) {
+      const float4 v = __ldcg(src + i);
+      s += (v.x + v.y) + (v.z + v.w);
+    }
     const float mean = arcweld::warp_sum(s) / (float)k;
     float q = 0.0f;
-#pragma unroll
-    for (int i = 0; i < LN_VEC; ++i) {
-      if (lane + 32 * i < k4) {
-        const float dx = v[h][i].x - mean, dy = v[h][i].y - mean,
-                    dz = v[h][i].z - mean, dw = v[h][i].w - mean;
-        q += (dx * dx + dy * dy) + (dz * dz + dw * dw);
-      }
+    for (int i = lane; i < k4; i += 32) {
+      const float4 v = __ldcg(src + i);
+      const float dx = v.x - mean, dy = v.y - mean, dz = v.z - mean,
+                  dw = v.w - mean;
+      q += (dx * dx + dy * dy) + (dz * dz + dw * dw);
     }
-    const float var = arcweld::warp_sum(q) / (float)k;
+    const float var = row_var(q, mean, k);
     if (lane == 0) {
       stats[warp + 8 * h] = mean;
       stats[ROWS + warp + 8 * h] = 1.0f / sqrtf(var + 1e-5f);
@@ -456,18 +505,18 @@ __device__ void row_stats(const float* a, int row0, int batch, int k,
   }
 }
 
-// The same from an A tile holding the rows whole (k = kc, rows k floats
-// apart in shared memory), where the row tile's copy is all the product
+// The same from an A tile holding the rows whole (ld = kc floats apart in
+// shared memory, k <= kc), where the row tile's copy is all the product
 // reads of them
-__device__ void tile_stats(const float* tile, int row0, int batch, int k,
-                           float* stats) {
+__device__ void tile_stats(const float* tile, int row0, int batch, int ld,
+                           int k, float* stats) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k4 = k / 4;
+  const int k4 = (k + 3) / 4;
   constexpr int VEC = MAX_KC / 128;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = warp + 8 * h;
-    const float4* src = reinterpret_cast<const float4*>(tile + r * k);
+    const float4* src = reinterpret_cast<const float4*>(tile + r * ld);
     float4 v[VEC];
     float s = 0.0f;
 #pragma unroll
@@ -486,7 +535,7 @@ __device__ void tile_stats(const float* tile, int row0, int batch, int k,
         q += (dx * dx + dy * dy) + (dz * dz + dw * dw);
       }
     }
-    const float var = arcweld::warp_sum(q) / (float)k;
+    const float var = row_var(q, mean, k);
     if (lane == 0 && row0 + r < batch) {
       stats[r] = mean;
       stats[ROWS + r] = 1.0f / sqrtf(var + 1e-5f);
@@ -554,7 +603,7 @@ struct Cursor {
 // the cursor after the product.
 // HW: the head width the QKV epilogue writes the caches at, 0 for
 // a.c / a.n_head read at run time.
-template <Epilogue EPI, bool LN, int HW = 64>
+template <Epilogue EPI, bool LN, int HW, bool GENERAL>
 __device__ Cursor product(const Plan& pl, const DecodeArgs& a, int p,
                           const float* A, const float* ln_s,
                           const float* ln_b, const float* bias,
@@ -578,204 +627,222 @@ __device__ Cursor product(const Plan& pl, const DecodeArgs& a, int p,
   const int nkb = (kw + 15) / 16;
   const bool half = kw % 16 != 0 && tg >= 2;
   const int n = cols_of(a, p);
+  // the rows' pitch of the stream (x, y, x_mid, the residuals) and of out
+  const int cp = GENERAL ? pad64(a.c) : a.c;
+  const int c4p = GENERAL ? pad64(a.c4) : a.c4;
+  const int ldo = EPI == QKV ? a.c : EPI == GELU ? c4p : cp;
   constexpr int OUTS = MAX_CG * ROWS * NCOL / THREADS;   // a thread's
-  // the product's tiles: lt = rt nq + q, the kernel's t0 + lt; the
-  // first NBUF - 1 now, each later one while the tile NBUF - 1 before it
-  // is read
-  const int n_tiles = pl.n_rt * P.nq, t0 = cur.tile;
+  const int ngr = GENERAL ? (P.ncg + MAX_CG - 1) / MAX_CG : 1;  // groups
+  const int per_g = pl.n_rt * P.nq * MAX_CG;   // a group's streamed uses
+  // the product's tiles: lt = (gi n_rt + rt) nq + q, the kernel's t0 +
+  // lt; the first NBUF - 1 now, each later one while the tile NBUF - 1
+  // before it is read
+  const int n_tiles = ngr * pl.n_rt * P.nq, t0 = cur.tile;
   if (warp == 0) {
     for (int lt = first_issued ? 1 : 0; lt < min(NBUF - 1, n_tiles); ++lt)
-      issue_tile(pl, A, P.k, lt / P.nq * ROWS, (P.q0 + lt % P.nq) * pl.kc,
-                 a.batch, tiles.at(t0 + lt), tiles.bar(t0 + lt));
+      issue_tile(pl, A, P.k, lt / P.nq % pl.n_rt * ROWS,
+                 (P.q0 + lt % P.nq) * pl.kc, a.batch, tiles.at(t0 + lt),
+                 tiles.bar(t0 + lt));
   }
   cur.tile = t0 + n_tiles;
-  for (int rt = 0; rt < pl.n_rt; ++rt) {
-    const int row0 = rt * ROWS;
-    // the epilogue's bias and residual of this thread's outputs
-    float eb[OUTS], er[OUTS];
+  for (int gi = 0; gi < ngr; ++gi) {
+    const int cg0 = MAX_CG * gi;
+    const int gn = GENERAL ? min(MAX_CG, P.ncg - cg0) : P.ncg;
+    for (int rt = 0; rt < pl.n_rt; ++rt) {
+      const int row0 = rt * ROWS, lt0 = (gi * pl.n_rt + rt) * P.nq;
+      // the epilogue's bias and residual of this thread's outputs
+      float eb[OUTS], er[OUTS];
 #pragma unroll
-    for (int o = 0; o < OUTS; ++o) {
-      const int idx = tid + o * THREADS;
-      const int row = min(row0 + idx / NCOL % ROWS, a.batch - 1);
-      const int col = P.c0 + min(idx / NCOL / ROWS * NCOL + idx % NCOL,
-                                 P.ncol - 1);
-      eb[o] = __ldg(bias + col);
-      er[o] = 0.0f;
-      if constexpr (EPI == RESIDUAL)
-        er[o] = __ldcg(resid + (size_t)row * n + col);
-    }
-    if (LN && P.nq > 1) {          // rows wider than a tile: from L2
-      row_stats(A, row0, a.batch, P.k, stats);
-      __syncthreads();
-    }
-    float acc[MAX_CG][2][4];
+      for (int o = 0; o < OUTS; ++o) {
+        const int idx = tid + o * THREADS;
+        const int row = min(row0 + idx / NCOL % ROWS, a.batch - 1);
+        const int col =
+            P.c0 + min(NCOL * cg0 + idx / NCOL / ROWS * NCOL + idx % NCOL,
+                       P.ncol - 1);
+        eb[o] = __ldg(bias + col);
+        er[o] = 0.0f;
+        if constexpr (EPI == RESIDUAL)
+          er[o] = __ldcg(resid + (size_t)row * cp + col);
+      }
+      if (LN && P.nq > 1) {          // rows wider than a tile: from L2
+        row_stats(A, P.k, row0, a.batch, a.c, stats);
+        __syncthreads();
+      }
+      float acc[MAX_CG][2][4];
 #pragma unroll
-    for (int cg = 0; cg < MAX_CG; ++cg)
+      for (int cg = 0; cg < MAX_CG; ++cg)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[cg][i / 4][i % 4] = 0.0f;
-    for (int q = 0; q < P.nq; ++q) {
-      const int t = t0 + rt * P.nq + q;
-      // the tile NBUF - 1 ahead, into the buffer whose last reader
-      // finished before the barrier that ended the previous piece
-      const int j = rt * P.nq + q + NBUF - 1;
-      if (j < n_tiles && warp == 0)
-        issue_tile(pl, A, P.k, j / P.nq * ROWS, (P.q0 + j % P.nq) * pl.kc,
-                   a.batch, tiles.at(t0 + j), tiles.bar(t0 + j));
-      // this warp's k slice of the tile, as mma's A fragments: in each
-      // 16-column block, thread tg's columns 4 tg .. 4 tg + 3 are its
-      // fragment columns tg, tg + 4 of step 2 m (the first two) and of
-      // step 2 m + 1; rows g and g + 8; LayerNorm applied, rows past
-      // batch zero
-      float4 av[KBLOCKS][2];
-      const int kb = warp * kw + 4 * tg;
-      {
-        float4 lw[KBLOCKS], lb[KBLOCKS];
-        if constexpr (LN) {
-#pragma unroll
-          for (int m = 0; m < KBLOCKS; ++m) {
-            const int col = min((P.q0 + q) * pl.kc + kb +
-                                    16 * min(m, nkb - 1), P.k - 4);
-            lw[m] = __ldg(reinterpret_cast<const float4*>(ln_s + col));
-            lb[m] = __ldg(reinterpret_cast<const float4*>(ln_b + col));
-          }
-        }
-        tiles.wait(t);
-        const float* tile = tiles.at(t);
-        if (LN && P.nq == 1) {       // the tile holds the rows whole
-          tile_stats(tile, row0, a.batch, P.k, stats);
-          __syncthreads();
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = g + 8 * h;
-          const bool live = row0 + r < a.batch;
-          float mean = 0.0f, rstd = 0.0f;
+        for (int i = 0; i < 8; ++i) acc[cg][i / 4][i % 4] = 0.0f;
+      for (int q = 0; q < P.nq; ++q) {
+        const int t = t0 + lt0 + q;
+        // the tile NBUF - 1 ahead, into the buffer whose last reader
+        // finished before the barrier that ended the previous piece
+        const int j = lt0 + q + NBUF - 1;
+        if (j < n_tiles && warp == 0)
+          issue_tile(pl, A, P.k, j / P.nq % pl.n_rt * ROWS,
+                     (P.q0 + j % P.nq) * pl.kc, a.batch, tiles.at(t0 + j),
+                     tiles.bar(t0 + j));
+        // this warp's k slice of the tile, as mma's A fragments: in each
+        // 16-column block, thread tg's columns 4 tg .. 4 tg + 3 are its
+        // fragment columns tg, tg + 4 of step 2 m (the first two) and of
+        // step 2 m + 1; rows g and g + 8; LayerNorm applied, rows past
+        // batch zero
+        float4 av[KBLOCKS][2];
+        const int kb = warp * kw + 4 * tg;
+        {
+          float4 lw[KBLOCKS], lb[KBLOCKS];
           if constexpr (LN) {
-            mean = stats[r];
-            rstd = stats[ROWS + r];
+#pragma unroll
+            for (int m = 0; m < KBLOCKS; ++m) {
+              const int col = min((P.q0 + q) * pl.kc + kb +
+                                      16 * min(m, nkb - 1), P.k - 4);
+              lw[m] = __ldg(reinterpret_cast<const float4*>(ln_s + col));
+              lb[m] = __ldg(reinterpret_cast<const float4*>(ln_b + col));
+            }
+          }
+          tiles.wait(t);
+          const float* tile = tiles.at(t);
+          if (LN && P.nq == 1) {       // the tile holds the rows whole
+            tile_stats(tile, row0, a.batch, pl.kc, a.c, stats);
+            __syncthreads();
           }
 #pragma unroll
-          for (int m = 0; m < KBLOCKS; ++m) {
-            if (m < nkb) {
-              float4 v = *reinterpret_cast<const float4*>(
-                  tile + r * pl.kc + kb + 16 * m);
-              if constexpr (LN) {
-                v.x = (v.x - mean) * rstd * lw[m].x + lb[m].x;
-                v.y = (v.y - mean) * rstd * lw[m].y + lb[m].y;
-                v.z = (v.z - mean) * rstd * lw[m].z + lb[m].z;
-                v.w = (v.w - mean) * rstd * lw[m].w + lb[m].w;
+          for (int h = 0; h < 2; ++h) {
+            const int r = g + 8 * h;
+            const bool live = row0 + r < a.batch;
+            float mean = 0.0f, rstd = 0.0f;
+            if constexpr (LN) {
+              mean = stats[r];
+              rstd = stats[ROWS + r];
+            }
+#pragma unroll
+            for (int m = 0; m < KBLOCKS; ++m) {
+              if (m < nkb) {
+                float4 v = *reinterpret_cast<const float4*>(
+                    tile + r * pl.kc + kb + 16 * m);
+                if constexpr (LN) {
+                  v.x = (v.x - mean) * rstd * lw[m].x + lb[m].x;
+                  v.y = (v.y - mean) * rstd * lw[m].y + lb[m].y;
+                  v.z = (v.z - mean) * rstd * lw[m].z + lb[m].z;
+                  v.w = (v.w - mean) * rstd * lw[m].w + lb[m].w;
+                }
+                av[m][h] = live && !(half && m == nkb - 1)
+                               ? v
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
               }
-              av[m][h] = live && !(half && m == nkb - 1)
-                             ? v
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
             }
           }
         }
+        // the piece's chunks of this group, each warp's row of them
+        // (columns past a chunk's rows read its first row; their sums are
+        // dropped)
+        const float* wr[MAX_CG];
+#pragma unroll
+        for (int cg = 0; cg < MAX_CG; ++cg) {
+          wr[cg] = ring;
+          if (cg < gn) {
+            const Chunk ch = locate<GENERAL>(
+                pl, P,
+                pl.resident ? q * P.ncg + cg0 + cg
+                            : gi * per_g + (rt * P.nq + q) * gn + cg);
+            mbar_wait(smem_u32(&bars[ch.bar]), ch.parity);
+            wr[cg] = ring +
+                     (size_t)(ch.row0 + (g < ch.rows ? g : 0)) * pl.kc + kb;
+          }
+        }
+        // the chunks' products interleaved, two accumulators a chunk (one
+        // per k8 step of a 16-column block), so that the tensor core's
+        // dependent chains are short
+#pragma unroll
+        for (int m = 0; m < KBLOCKS; ++m) {
+          if (m < nkb) {
+            const float4 r0 = av[m][0], r8 = av[m][1];
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              split(s ? r0.z : r0.x, ah[s][0], al[s][0]);
+              split(s ? r8.z : r8.x, ah[s][1], al[s][1]);
+              split(s ? r0.w : r0.y, ah[s][2], al[s][2]);
+              split(s ? r8.w : r8.y, ah[s][3], al[s][3]);
+            }
+#pragma unroll
+            for (int cg = 0; cg < MAX_CG; ++cg) {
+              if (cg < gn) {
+                float4 w4 =
+                    *reinterpret_cast<const float4*>(wr[cg] + 16 * m);
+                if (half && m == nkb - 1)
+                  w4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+                for (int s = 0; s < 2; ++s) {
+                  uint32_t bh0, bl0, bh1, bl1;
+                  split(s ? w4.z : w4.x, bh0, bl0);
+                  split(s ? w4.w : w4.y, bh1, bl1);
+                  mma_tf32(acc[cg][s], al[s], bh0, bh1);
+                  mma_tf32(acc[cg][s], ah[s], bl0, bl1);
+                  mma_tf32(acc[cg][s], ah[s], bh0, bh1);
+                }
+              }
+            }
+          }
+        }
+        // every warp is done with this tile and this piece's ring slots
+        __syncthreads();
+        if (!pl.resident) {
+          const int done =
+              P.ubase + gi * per_g + (rt * P.nq + q + 1) * gn;
+          const int to = min(pl.total, done + pl.nslot);
+          if (warp == 0 && to > cur.issued)
+            issue<GENERAL>(pl, a, ring, bars, cur.issued, to);
+          cur.issued = max(cur.issued, to);
+        }
       }
-      // the piece's chunks, each warp's row of them (columns past a
-      // chunk's rows read its first row; their sums are dropped)
-      const float* wr[MAX_CG];
+      // the warps' partial sums, added in a fixed order
 #pragma unroll
       for (int cg = 0; cg < MAX_CG; ++cg) {
-        wr[cg] = ring;
-        if (cg < P.ncg) {
-          const Chunk ch = locate(
-              pl, P, (pl.resident ? q : rt * P.nq + q) * P.ncg + cg);
-          mbar_wait(smem_u32(&bars[ch.bar]), ch.parity);
-          wr[cg] = ring + (size_t)(ch.row0 + (g < ch.rows ? g : 0)) * pl.kc +
-                   kb;
+        if (cg < gn) {
+          float* r = red + (warp * MAX_CG + cg) * ROWS * NCOL;
+          float v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = acc[cg][0][i] + acc[cg][1][i];
+          r[g * NCOL + 2 * tg] = v[0];
+          r[g * NCOL + 2 * tg + 1] = v[1];
+          r[(g + 8) * NCOL + 2 * tg] = v[2];
+          r[(g + 8) * NCOL + 2 * tg + 1] = v[3];
         }
       }
-      // the chunks' products interleaved, two accumulators a chunk (one
-      // per k8 step of a 16-column block), so that the tensor core's
-      // dependent chains are short
-#pragma unroll
-      for (int m = 0; m < KBLOCKS; ++m) {
-        if (m < nkb) {
-          const float4 r0 = av[m][0], r8 = av[m][1];
-          uint32_t ah[2][4], al[2][4];
-#pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            split(s ? r0.z : r0.x, ah[s][0], al[s][0]);
-            split(s ? r8.z : r8.x, ah[s][1], al[s][1]);
-            split(s ? r0.w : r0.y, ah[s][2], al[s][2]);
-            split(s ? r8.w : r8.y, ah[s][3], al[s][3]);
-          }
-#pragma unroll
-          for (int cg = 0; cg < MAX_CG; ++cg) {
-            if (cg < P.ncg) {
-              float4 w4 = *reinterpret_cast<const float4*>(wr[cg] + 16 * m);
-              if (half && m == nkb - 1)
-                w4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-              for (int s = 0; s < 2; ++s) {
-                uint32_t bh0, bl0, bh1, bl1;
-                split(s ? w4.z : w4.x, bh0, bl0);
-                split(s ? w4.w : w4.y, bh1, bl1);
-                mma_tf32(acc[cg][s], al[s], bh0, bh1);
-                mma_tf32(acc[cg][s], ah[s], bl0, bl1);
-                mma_tf32(acc[cg][s], ah[s], bh0, bh1);
-              }
-            }
-          }
-        }
-      }
-      // every warp is done with this tile and this piece's ring slots
       __syncthreads();
-      if (!pl.resident) {
-        const int done = P.ubase + (rt * P.nq + q + 1) * P.ncg;
-        const int to = min(pl.total, done + pl.nslot);
-        if (warp == 0 && to > cur.issued)
-          issue(pl, a, ring, bars, cur.issued, to);
-        cur.issued = max(cur.issued, to);
-      }
-    }
-    // the warps' partial sums, added in a fixed order
 #pragma unroll
-    for (int cg = 0; cg < MAX_CG; ++cg) {
-      if (cg < P.ncg) {
-        float* r = red + (warp * MAX_CG + cg) * ROWS * NCOL;
-        float v[4];
+      for (int o = 0; o < OUTS; ++o) {
+        const int idx = tid + o * THREADS;
+        const int cg = idx / (ROWS * NCOL), r = idx / NCOL % ROWS,
+                  cc = idx % NCOL;
+        const int row = row0 + r, j = NCOL * (cg0 + cg) + cc;
+        if (cg >= gn || row >= a.batch || j >= P.ncol) continue;
+        float sum = 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = acc[cg][0][i] + acc[cg][1][i];
-        r[g * NCOL + 2 * tg] = v[0];
-        r[g * NCOL + 2 * tg + 1] = v[1];
-        r[(g + 8) * NCOL + 2 * tg] = v[2];
-        r[(g + 8) * NCOL + 2 * tg + 1] = v[3];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int o = 0; o < OUTS; ++o) {
-      const int idx = tid + o * THREADS;
-      const int cg = idx / (ROWS * NCOL), r = idx / NCOL % ROWS,
-                cc = idx % NCOL;
-      const int row = row0 + r, j = NCOL * cg + cc;
-      if (cg >= P.ncg || row >= a.batch || j >= P.ncol) continue;
-      float sum = 0.0f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w)
-        sum += red[(w * MAX_CG + cg) * ROWS * NCOL + r * NCOL + cc];
-      const int col = P.c0 + j;
-      const float y = sum + eb[o];
-      if constexpr (EPI == QKV) {
-        if (col < a.c) {
-          out[(size_t)row * a.c + col] = y;
+        for (int w = 0; w < WARPS; ++w)
+          sum += red[(w * MAX_CG + cg) * ROWS * NCOL + r * NCOL + cc];
+        const int col = P.c0 + j;
+        const float y = sum + eb[o];
+        if constexpr (EPI == QKV) {
+          if (col < a.c) {
+            out[(size_t)row * ldo + col] = y;
+          } else {
+            const int cc2 = (col - a.c) % a.c, hd = HW ? HW : a.c / a.n_head;
+            float* dst = col < 2 * a.c ? a.kc : a.vc;
+            dst[row * a.sb + (cc2 / hd) * a.sh + pos * a.st + cc2 % hd] = y;
+          }
+        } else if constexpr (EPI == RESIDUAL) {
+          if (P.nsplit > 1)             // this piece's share, no bias
+            partial[((size_t)P.q0 * a.batch + row) * n + col] = sum;
+          else
+            out[(size_t)row * ldo + col] = er[o] + y;
         } else {
-          const int cc2 = (col - a.c) % a.c, hd = HW ? HW : a.c / a.n_head;
-          float* dst = col < 2 * a.c ? a.kc : a.vc;
-          dst[row * a.sb + (cc2 / hd) * a.sh + pos * a.st + cc2 % hd] = y;
+          out[(size_t)row * ldo + col] = arcweld::new_gelu(y);
         }
-      } else if constexpr (EPI == RESIDUAL) {
-        if (P.nsplit > 1)             // this piece's share, no bias
-          partial[((size_t)P.q0 * a.batch + row) * n + col] = sum;
-        else
-          out[(size_t)row * n + col] = er[o] + y;
-      } else {
-        out[(size_t)row * n + col] = arcweld::new_gelu(y);
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
   if (P.nsplit > 1) {
     // the last block of the column range to finish adds the partial
@@ -798,8 +865,8 @@ __device__ Cursor product(const Plan& pl, const DecodeArgs& a, int p,
         float sum = 0.0f;
         for (int s = 0; s < P.nsplit; ++s)
           sum += __ldcg(partial + ((size_t)s * a.batch + row) * n + col);
-        out[(size_t)row * n + col] =
-            __ldcg(resid + (size_t)row * n + col) + (sum + __ldg(bias + col));
+        out[(size_t)row * ldo + col] =
+            __ldcg(resid + (size_t)row * cp + col) + (sum + __ldg(bias + col));
       }
     }
   }
@@ -866,10 +933,11 @@ __device__ __forceinline__ void load_keys(const DecodeArgs& a, int item,
 // pos, loaded before the grid barrier that makes row pos and q visible.
 // Each group keeps its keys' softmax online (a running max, the sum and
 // P@V rescaled when the max grows), and the NG groups are merged in a
-// fixed order at the end. q, y (batch, C).
+// fixed order at the end. q (batch, C), y (batch, ldy).
 template <int LPK, bool PAD>
 __device__ void attention(const DecodeArgs& a, int pos, const float* q,
-                          float* y, float* part, float* ml, Keys& r) {
+                          float* y, int ldy, float* part, float* ml,
+                          Keys& r) {
   constexpr int NG = Attend<LPK, PAD>::NG, HDP = Attend<LPK, PAD>::HDP;
   const int tid = threadIdx.x, hw = tid / LPK, l = tid % LPK;
   const int hd = PAD ? a.c / a.n_head : HDP;
@@ -952,15 +1020,116 @@ __device__ void attention(const DecodeArgs& a, int pos, const float* q,
         o += w * part[i * HDP + tid];
         den += w * ml[NG + i];
       }
-      y[(size_t)b * a.c + h * hd + tid] = o / den;
+      y[(size_t)b * ldy + h * hd + tid] = o / den;
     }
     __syncthreads();
   }
 }
 
-// LPK, PAD: the attention's split (Attend); the head width 64 runs at
-// <16, false>
-template <bool MLP, int LPK, bool PAD>
+// floats e .. e + 3 of a row at p + e, zero from hd on: one float4 load
+// where vec (the rows 16-byte aligned and hd a multiple of 4), else a
+// float at a time
+__device__ __forceinline__ float4 ld4(const float* p, int e, int hd,
+                                      bool vec) {
+  if (!vec) return ld_head4(p + e, e, hd);
+  return e < hd ? __ldcg(reinterpret_cast<const float4*>(p + e))
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The attention for heads wider than MAX_HD, the same function as
+// attention() above: a (sample, head) per block at a time, the whole block
+// on it. q comes into shared memory (qs, zero up to a multiple of 128).
+// The keys go in runs of KB: warp w takes keys w, w + 8, .. of a run and
+// forms each score with its lanes splitting the head, lane L the float4s
+// at columns 4 L + 128 i in order of i, then a butterfly over the lanes;
+// the run's scores land in sc. Every thread then takes the run's max,
+// rescales its sum and its P@V, and walks the run's keys in order: p =
+// exp(s - max), l += p, o += p v at its own columns 4 t + 1024 i. Every
+// sum runs in a fixed order; the cache rows are read a float4 at a time
+// where they are 16-byte aligned, else a float at a time.
+__device__ void attention_wide(const DecodeArgs& a, int pos, const float* q,
+                               float* y, float* qs, float* sc) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hd = a.c / a.n_head, n = pos + 1;
+  const bool vec = hd % 4 == 0 && (a.sb | a.sh | a.st) % 4 == 0;
+  for (int item = blockIdx.x; item < a.batch * a.n_head;
+       item += gridDim.x) {
+    const int b = item / a.n_head, h = item % a.n_head;
+    const float* qrow = q + (size_t)b * a.c + h * hd;
+    for (int e = tid; e < (hd + 127) / 128 * 128; e += THREADS)
+      qs[e] = e < hd ? __ldcg(qrow + e) : 0.0f;
+    const long long base = b * a.sb + h * a.sh;
+    float m = -INFINITY, l = 0.0f;
+    float4 o[WIDE_V4];
+#pragma unroll
+    for (int i = 0; i < WIDE_V4; ++i)
+      o[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncthreads();
+    for (int j0 = 0; j0 < n; j0 += KB) {
+      const int nk = min(KB, n - j0);
+      for (int jj = warp; jj < nk; jj += WARPS) {
+        const float* kr = a.kc + base + (long long)(j0 + jj) * a.st;
+        float d = 0.0f;
+        for (int e = 4 * lane; e < hd; e += 128) {
+          const float4 kv = ld4(kr, e, hd, vec);
+          const float4 qv = *reinterpret_cast<const float4*>(qs + e);
+          d += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+        }
+        d = arcweld::warp_sum(d);
+        if (lane == 0) sc[jj] = d * a.sm_scale;
+      }
+      __syncthreads();
+      float mx = m;
+      for (int jj = 0; jj < nk; ++jj) mx = fmaxf(mx, sc[jj]);
+      const float alpha = expf(m - mx);       // 0 while m is -inf
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < WIDE_V4; ++i) {
+        o[i].x *= alpha;
+        o[i].y *= alpha;
+        o[i].z *= alpha;
+        o[i].w *= alpha;
+      }
+      for (int jj = 0; jj < nk; ++jj) {
+        const float pj = expf(sc[jj] - mx);
+        l += pj;
+        const float* vr = a.vc + base + (long long)(j0 + jj) * a.st;
+#pragma unroll
+        for (int i = 0; i < WIDE_V4; ++i) {
+          const int e = 4 * tid + 4 * THREADS * i;
+          if (e < hd) {
+            const float4 v = ld4(vr, e, hd, vec);
+            o[i].x += pj * v.x;
+            o[i].y += pj * v.y;
+            o[i].z += pj * v.z;
+            o[i].w += pj * v.w;
+          }
+        }
+      }
+      m = mx;
+      __syncthreads();      // sc is read before the next run's scores
+    }
+    float* yr = y + (size_t)b * pad64(a.c) + h * hd;
+#pragma unroll
+    for (int i = 0; i < WIDE_V4; ++i) {
+      const int e = 4 * tid + 4 * THREADS * i;
+      if (e < hd) yr[e] = o[i].x / l;
+      if (e + 1 < hd) yr[e + 1] = o[i].y / l;
+      if (e + 2 < hd) yr[e + 2] = o[i].z / l;
+      if (e + 3 < hd) yr[e + 3] = o[i].w / l;
+    }
+    __syncthreads();        // qs is read before the next item's
+  }
+  // qs lies in the A tiles' buffers, which TMA fills next
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// LPK, PAD: the attention's split (Attend), WIDE for heads past MAX_HD;
+// the head width 64 runs at <16, false>. GENERAL: the general form
+// (padded depths, column groups); the first form is the code of the
+// shapes it took before them (C and c4 multiples of 64, a product's
+// columns one group a block), which keep its bits and its time.
+template <bool MLP, int LPK, bool PAD, bool GENERAL>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_kernel(const DecodeArgs a, const float* __restrict__ x,
               float* __restrict__ out, int pos) {
@@ -971,13 +1140,16 @@ decode_kernel(const DecodeArgs a, const float* __restrict__ x,
   float* red = tile_buf + NBUF * TILE_FLOATS;
   float* stats = red + RED_FLOATS;
   float* part = stats + STAT_FLOATS;
-  float* ml = part + Attend<LPK, PAD>::NG * Attend<LPK, PAD>::HDP;
 
-  const size_t bc = (size_t)a.batch * a.c;
+  // the scratch: q (batch, C), y and x_mid (batch, cp), g (batch, c4p),
+  // then m_proj's partial sums
+  const int cp = GENERAL ? pad64(a.c) : a.c;
+  const int c4p = GENERAL ? pad64(a.c4) : a.c4;
+  const size_t bcp = (size_t)a.batch * cp;
   float* q = a.scratch;
-  float* y = q + bc;
-  float* x_mid = MLP ? y + bc : out;
-  float* g = y + 2 * bc;
+  float* y = q + (size_t)a.batch * a.c;
+  float* x_mid = MLP ? y + bcp : out;
+  float* g = y + 2 * bcp;
 
   const Plan pl = make_plan(a, MLP);
   const Tiles tiles{tile_buf, bars + MAX_BARS};
@@ -1002,65 +1174,79 @@ decode_kernel(const DecodeArgs a, const float* __restrict__ x,
   // not the launch's (scripts/bench_decode_variants.py)
   Cursor cur{0, pl.resident ? pl.total : min(pl.total, pl.nslot)};
   if (threadIdx.x < 32)
-    issue_tile(pl, x, a.c, 0, 0, a.batch, tiles.at(0), tiles.bar(0));
-  issue(pl, a, ring, bars, 0, cur.issued, threadIdx.x / 32, WARPS);
+    issue_tile(pl, x, cp, 0, 0, a.batch, tiles.at(0), tiles.bar(0));
+  issue<GENERAL>(pl, a, ring, bars, 0, cur.issued, threadIdx.x / 32, WARPS);
   stamp(1);
 
-  cur = product<QKV, true, PAD ? 0 : 4 * LPK>(pl, a, 0, x, a.ln1_s, a.ln1_b,
-                                             a.b_qkv, nullptr, q, pos, ring,
-                                             bars, tiles, cur, true, red,
-                                             stats);
-  // the attention's first keys (all but row pos, which the qkv product
-  // has just written) fly over the barrier
-  Keys keys;
-  if ((int)blockIdx.x < a.batch * a.n_head)
-    load_keys<LPK, PAD>(a, blockIdx.x, 0, pos + 1, pos, keys);
-  stamp(2);
-  grid_sync(a.barrier);
-  stamp(3);
-  attention<LPK, PAD>(a, pos, q, y, part, ml, keys);
+  cur = product<QKV, true, PAD ? 0 : 4 * LPK, GENERAL>(
+      pl, a, 0, x, a.ln1_s, a.ln1_b, a.b_qkv, nullptr, q, pos, ring, bars,
+      tiles, cur, true, red, stats);
+  if constexpr (LPK == WIDE) {
+    stamp(2);
+    grid_sync(a.barrier);
+    stamp(3);
+    attention_wide(a, pos, q, y, tile_buf, part);
+  } else {
+    // the attention's first keys (all but row pos, which the qkv product
+    // has just written) fly over the barrier
+    Keys keys;
+    if ((int)blockIdx.x < a.batch * a.n_head)
+      load_keys<LPK, PAD>(a, blockIdx.x, 0, pos + 1, pos, keys);
+    stamp(2);
+    grid_sync(a.barrier);
+    stamp(3);
+    attention<LPK, PAD>(a, pos, q, y, cp, part,
+                        part + Attend<LPK, PAD>::NG * Attend<LPK, PAD>::HDP,
+                        keys);
+  }
   stamp(4);
   grid_sync(a.barrier);
   stamp(5);
-  cur = product<RESIDUAL, false>(pl, a, 1, y, nullptr, nullptr, a.b_proj,
-                                 x, x_mid, pos, ring, bars, tiles, cur, false,
-                                 red, stats);
+  cur = product<RESIDUAL, false, 64, GENERAL>(
+      pl, a, 1, y, nullptr, nullptr, a.b_proj, x, x_mid, pos, ring, bars,
+      tiles, cur, false, red, stats);
   stamp(6);
   if constexpr (MLP) {
     grid_sync(a.barrier);
     stamp(7);
-    cur = product<GELU, true>(pl, a, 2, x_mid, a.ln2_s, a.ln2_b, a.b_fc,
-                              nullptr, g, pos, ring, bars, tiles, cur, false,
-                              red, stats);
+    cur = product<GELU, true, 64, GENERAL>(
+        pl, a, 2, x_mid, a.ln2_s, a.ln2_b, a.b_fc, nullptr, g, pos, ring,
+        bars, tiles, cur, false, red, stats);
     stamp(8);
     grid_sync(a.barrier);
     stamp(9);
-    product<RESIDUAL, false>(pl, a, 3, g, nullptr, nullptr, a.b_mp, x_mid,
-                             out, pos, ring, bars, tiles, cur, false, red,
-                             stats, g + (size_t)a.batch * a.c4);
+    product<RESIDUAL, false, 64, GENERAL>(
+        pl, a, 3, g, nullptr, nullptr, a.b_mp, x_mid, out, pos, ring, bars,
+        tiles, cur, false, red, stats, g + (size_t)a.batch * c4p);
     stamp(10);
   }
 }
 
-// the shapes the kernel takes; the grid's columns a block at most
+// the shapes the kernel takes: C from 1 to MAX_C in any heads, any c4
+// up to 4 MAX_C (#13)
 bool valid(const DecodeArgs& a, int pos, bool mlp, int grid) {
-  if (a.batch < 1 || a.n_head < 1 || a.c % a.n_head != 0 ||
-      a.c / a.n_head > MAX_HD ||
-      a.c > 4 * 32 * LN_VEC || pos < 0 || pos >= a.t || grid < 1)
+  if (a.batch < 1 || a.n_head < 1 || a.c < 1 || a.c > MAX_C ||
+      a.c % a.n_head != 0 || pos < 0 || pos >= a.t || grid < 1 ||
+      grid > MAX_GRID)
     return false;
-  if (mlp && (a.c4 < 64 || a.c4 % 64)) return false;
-  if (!mlp && a.c4 != 0) return false;
-  if (chunk_k(a.c, a.c4) == 0 || grid > MAX_GRID) return false;
+  if (mlp ? a.c4 < 1 || a.c4 > 4 * MAX_C : a.c4 != 0) return false;
   for (int p = 0; p < (mlp ? 4 : 2); ++p)
-    if ((cols_of(a, p) + grid - 1) / grid > MAX_COLS ||
-        (long long)cols_of(a, p) * grid >= (1LL << 31))
-      return false;
+    if ((long long)cols_of(a, p) * grid >= (1LL << 31)) return false;
+  return true;
+}
+
+// whether the kernel's first form takes the shape: C and c4 multiples of
+// 64 and one column group of every product a block
+bool first_form(const DecodeArgs& a, bool mlp, int grid) {
+  if (a.c % 64 != 0 || a.c4 % 64 != 0) return false;
+  for (int p = 0; p < (mlp ? 4 : 2); ++p)
+    if ((cols_of(a, p) + grid - 1) / grid > MAX_COLS) return false;
   return true;
 }
 
 // once per device and kernel: the shared memory attribute, and the grid
 // (one block per SM, checked against the occupancy the card reports)
-template <bool MLP, int LPK, bool PAD>
+template <bool MLP, int LPK, bool PAD, bool GENERAL>
 cudaError_t grid_of(int* grid) {
   constexpr int MAX_DEVICES = 64;
   static std::once_flag once[MAX_DEVICES];
@@ -1076,11 +1262,11 @@ cudaError_t grid_of(int* grid) {
                                       dev);
     if (err[dev] == cudaSuccess)
       err[dev] = cudaFuncSetAttribute(
-          decode_kernel<MLP, LPK, PAD>,
+          decode_kernel<MLP, LPK, PAD, GENERAL>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err[dev] == cudaSuccess)
       err[dev] = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, decode_kernel<MLP, LPK, PAD>, THREADS, SMEM);
+          &per_sm, decode_kernel<MLP, LPK, PAD, GENERAL>, THREADS, SMEM);
     if (err[dev] == cudaSuccess && per_sm < 1)
       err[dev] = cudaErrorCooperativeLaunchTooLarge;
     blocks[dev] = sms;
@@ -1089,26 +1275,42 @@ cudaError_t grid_of(int* grid) {
   return err[dev];
 }
 
-template <bool MLP, int LPK, bool PAD>
-int launch_at(const DecodeArgs* a, const void* x, void* out, int pos,
-              void* stream) {
+template <bool MLP, int LPK, bool PAD, bool GENERAL>
+int launch_form(const DecodeArgs* a, const void* x, void* out, int pos,
+                void* stream) {
   int grid;
-  cudaError_t e = grid_of<MLP, LPK, PAD>(&grid);
+  cudaError_t e = grid_of<MLP, LPK, PAD, GENERAL>(&grid);
   if (e != cudaSuccess) return e;
-  if (a == nullptr || !valid(*a, pos, MLP, grid)) return cudaErrorInvalidValue;
   DecodeArgs args = *a;
   const float* xp = static_cast<const float*>(x);
   float* op = static_cast<float*>(out);
   void* params[] = {&args, &xp, &op, &pos};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(decode_kernel<MLP, LPK, PAD>), dim3(grid),
-      dim3(THREADS), params, SMEM, static_cast<cudaStream_t>(stream));
+      reinterpret_cast<const void*>(decode_kernel<MLP, LPK, PAD, GENERAL>),
+      dim3(grid), dim3(THREADS), params, SMEM,
+      static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+// the first form where it takes the shape, else the general one (heads
+// past MAX_HD always)
+template <bool MLP, int LPK, bool PAD>
+int launch_at(const DecodeArgs* a, const void* x, void* out, int pos,
+              void* stream) {
+  int grid;
+  cudaError_t e = grid_of<MLP, LPK, PAD, true>(&grid);
+  if (e != cudaSuccess) return e;
+  if (a == nullptr || !valid(*a, pos, MLP, grid)) return cudaErrorInvalidValue;
+  if constexpr (LPK != WIDE)
+    if (first_form(*a, MLP, grid))
+      return launch_form<MLP, LPK, PAD, false>(a, x, out, pos, stream);
+  return launch_form<MLP, LPK, PAD, true>(a, x, out, pos, stream);
+}
+
 // the instantiation of the block's head width: 64 on <16, false>, up
-// to 64 padded on 16 lanes a key, up to 128 on 32
+// to 64 padded on 16 lanes a key, up to 128 on 32, wider on the block
+// (attention_wide)
 template <bool MLP>
 int launch(const DecodeArgs* a, const void* x, void* out, int pos,
            void* stream) {
@@ -1116,22 +1318,23 @@ int launch(const DecodeArgs* a, const void* x, void* out, int pos,
   const int hd = a->c / a->n_head;
   if (hd == 64) return launch_at<MLP, 16, false>(a, x, out, pos, stream);
   if (hd < 64) return launch_at<MLP, 16, true>(a, x, out, pos, stream);
-  return launch_at<MLP, 32, true>(a, x, out, pos, stream);
+  if (hd <= MAX_HD) return launch_at<MLP, 32, true>(a, x, out, pos, stream);
+  return launch_at<MLP, WIDE, true>(a, x, out, pos, stream);
 }
 
 }  // namespace
 
-// Kernel #12. x, out (batch, C) f32; the caches (batch, n_head, t, hd),
-// hd = C / n_head up to 128,
-// row `pos` written in place; the scratch batch * 3 C floats. One
-// cooperative launch.
+// Kernel #12. x, out (batch, cp) f32, cp = pad64(C), zero past C; the
+// caches (batch, n_head, t, hd), hd = C / n_head, row `pos` written in
+// place; the scratch batch * (C + 2 cp) floats. One cooperative launch.
 extern "C" int decode_attn_f32(const DecodeArgs* a, const void* x, void* out,
                                int pos, void* stream) {
   return launch<false>(a, x, out, pos, stream);
 }
 
 // Kernel #13. As #12 with the caches (batch, t, C) time-major, then the
-// MLP; the scratch batch * (3 C + c4 + c4 / KC * C) floats.
+// MLP; the scratch batch * (C + 2 cp + c4p + c4p / KC * C) floats, zero
+// past C (c4) in its rows of cp (c4p).
 extern "C" int block_decode_f32(const DecodeArgs* a, const void* x, void* out,
                                 int pos, void* stream) {
   return launch<true>(a, x, out, pos, stream);

@@ -31,8 +31,10 @@
 // values is exact in f32; P, which is f32, in three bf16 terms), P kept
 // in registers between the two, the softmax in f32 and the output y / l
 // rounded to bf16 to nearest even, as JAX's astype rounds. Head widths up
-// to 128 on its 16, 32, 64 and 128 instantiations. At (16, 8, 321, 64)
-// its bound is the 21 MB of q, k, v and the output (0.0063 ms).
+// to 128 on its 16, 32, 64 and 128 instantiations, wider ones (up to
+// 4,096) on its wide tile, a block for each 128 output columns. At (16,
+// 8, 321, 64) its bound is the 21 MB of q, k, v and the output (0.0063
+// ms).
 #include "attention_bf16.cuh"
 #include "attention_tc.cuh"
 
@@ -120,6 +122,27 @@ cudaError_t launch_bf16(const attn_bf16::Operands& in,
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(attn_bf16::THREADS, 1)
+flash_attention_bf16_wide_kernel(
+    const __grid_constant__ attn_bf16::Operands in,
+    const __grid_constant__ attn_bf16::Output out) {
+  attn_bf16::causal_attention_bf16_tile_wide(in, out);
+}
+
+cudaError_t launch_bf16_wide(const attn_bf16::Operands& in,
+                             const attn_bf16::Output& out, int batch,
+                             int n_head, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bf16_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn_bf16::WIDE_SMEM);
+  if (e != cudaSuccess) return e;
+  flash_attention_bf16_wide_kernel<<<
+      attn_bf16::wide_grid(batch, n_head, in.t, in.hd), attn_bf16::THREADS,
+      attn_bf16::WIDE_SMEM, stream>>>(in, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v (batch, n_head, t, hd) f32, hd <= 4,096, read through the
@@ -161,10 +184,11 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
 
 // The same on bf16 q, k, v and o (strides in elements), o written in
 // bf16: the tile of attention_bf16.cuh at the smallest of 16, 32, 64 and
-// 128 that holds hd. Rows are read 16 bytes at a time where the pointers
-// are 16-byte aligned and the strides and hd multiples of 8, else an
-// element at a time; o is written two elements at a time where hd and
-// its offsets are even from a 4-byte-aligned pointer, else one.
+// 128 that holds hd, a wider hd (up to 4,096) on its wide tile. Rows are
+// read 16 bytes at a time where the pointers are 16-byte aligned and the
+// strides and hd multiples of 8, else an element at a time; o is written
+// two elements at a time where hd and its offsets are even from a
+// 4-byte-aligned pointer, else one.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int batch,
                                     int n_head, int t, int hd, long long sb,
@@ -172,7 +196,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     long long soh, long long sot,
                                     float sm_scale, void* stream) {
   if (batch < 1 || batch > 65535 || n_head < 1 || t < 1 || hd < 1 ||
-      hd > attn_bf16::MAX_HD)
+      hd > attn_bf16::MAX_WIDE_HD)
     return cudaErrorInvalidValue;
   const attn_bf16::Operands in{
       static_cast<const __nv_bfloat16*>(q),
@@ -184,6 +208,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       (hd | sob | soh | sot) % 2 == 0 &&
           reinterpret_cast<uintptr_t>(o) % 4 == 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > attn_bf16::MAX_HD)
+    return launch_bf16_wide(in, out, batch, n_head, s);
   switch (attn_bf16::padded_head(hd)) {
     case 16:
       return launch_bf16<16>(in, out, batch, n_head, s);

@@ -42,10 +42,12 @@
 // 52.6 MB at batch 80), the traffic the TPU kernels avoided. The TPU's
 // 8-row padding of T has no counterpart: every kernel masks the ragged
 // edge (the int8 attention pads its int8 operands with zeros to 64 rows).
-// The int8 attention takes any head width up to MAX_HEAD_DIM (64 on its
-// 64 instantiation, another on the smallest of 32, 64 and 128 that
-// holds it, padded with zero columns: attention_int8.cuh); the f32
-// attention the same, and wider heads on attention_tc.cuh's wide tile.
+// Both attentions take any head width: up to MAX_HEAD_DIM on their
+// tiles (64 on its own instantiation, another on the smallest of 32, 64
+// and 128 that holds it, padded with zero columns), wider heads on their
+// wide forms (attention_tc.cuh's causal_attention_tile_wide,
+// attention_int8.cuh's attention_int8_wide_kernel), a block for each
+// 128 output columns.
 // Off the multiples of 64 (and above 1,024) the pieces run on their
 // general forms: the GEMM's GENERAL instantiation, ln_q8_any_kernel and
 // q8_rows_kernel, the int8 rows pitch16(C) bytes apart.
@@ -63,8 +65,9 @@ namespace {
 namespace attn_tc = arcweld::attn_tc;
 namespace attn8 = arcweld::attn8;
 
-static_assert(arcweld::MAX_HEAD_DIM == attn_tc::MAX_HD,
-              "one widest head for the attentions");
+static_assert(arcweld::MAX_HEAD_DIM == attn_tc::MAX_HD &&
+                  arcweld::MAX_HEAD_DIM == attn8::MAX_NARROW,
+              "one widest narrow head for the attentions");
 
 __global__ void __launch_bounds__(256)
 q8_kernel(const float4* __restrict__ x, const float* __restrict__ qscale,
@@ -192,7 +195,7 @@ cudaError_t launch_attention_int8_at(const float* qkv, const float* qscale,
   cudaError_t e = cudaFuncSetAttribute(
       attn8::head_quant_kernel<HD, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn8::quant_smem(attn8::QUANT_ROWS, hd));
+      (int)attn8::quant_smem(INT_MAX, hd));
   if (e != cudaSuccess) return e;
   attn8::head_quant_kernel<HD, PAD>
       <<<dim3(n_head, 3, batch), attn8::QUANT_THREADS,
@@ -206,6 +209,30 @@ cudaError_t launch_attention_int8_at(const float* qkv, const float* qscale,
   return cudaGetLastError();
 }
 
+// heads wider than attn8::MAX_NARROW: the int8 attention's wide form
+cudaError_t launch_attention_int8_wide(const float* qkv, const float* qscale,
+                                       int8_t* y8, float* head_scales,
+                                       int8_t* qkv8, int batch, int t, int c,
+                                       int n_head, float sm_scale,
+                                       cudaStream_t s) {
+  const int hd = c / n_head;
+  cudaError_t e = cudaFuncSetAttribute(
+      attn8::head_quant_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)attn8::quant_smem(INT_MAX, hd));
+  if (e != cudaSuccess) return e;
+  attn8::head_quant_wide_kernel<<<dim3(n_head, 3, batch),
+                                  attn8::QUANT_THREADS,
+                                  attn8::quant_smem(t, hd), s>>>(
+      qkv, head_scales, qkv8, t, n_head, hd);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attn8::attention_int8_wide_kernel<<<
+      dim3(n_head * attn8::pieces(hd), batch, (t + attn8::TT - 1) / attn8::TT),
+      attn8::THREADS, 0, s>>>(qkv8, head_scales, qscale, y8, t, n_head,
+                              sm_scale, hd);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 namespace arcweld {
@@ -213,8 +240,7 @@ namespace arcweld {
 cudaError_t launch_ln_q8(const float* x, const float* scale,
                          const float* bias, const float* qscale, int8_t* out,
                          int* rail_rows, int rows, int c, cudaStream_t s) {
-  static_assert(lnq8::MAX_C == INT8_ATTN_MAX_C && lnq8::MAX_ANY_C == MAX_C,
-                "LayerNorm rows: the template's widths and the widest");
+  static_assert(lnq8::MAX_ANY_C == MAX_C, "LayerNorm rows: the widest");
   return lnq8::launch(x, scale, bias, qscale, out, rail_rows, rows, c, s);
 }
 
@@ -257,11 +283,6 @@ bool heads_ok(int c, int n_head) {
   return n_head >= 1 && c >= n_head && c % n_head == 0 && c <= MAX_C;
 }
 
-bool int8_attn_ok(int c, int n_head) {
-  return heads_ok(c, n_head) && c % 64 == 0 && c <= INT8_ATTN_MAX_C &&
-         c / n_head <= MAX_HEAD_DIM;
-}
-
 cudaError_t launch_attention(const float* qkv, const float* qscale,
                              int8_t* y8, int batch, int t, int c, int n_head,
                              float sm_scale, cudaStream_t s) {
@@ -291,9 +312,12 @@ cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
                                   int8_t* qkv8, int batch, int t, int c,
                                   int n_head, float sm_scale, cudaStream_t s) {
   if (batch < 1 || batch > 65535 || t < 1 || t > 65535 * attn8::TT ||
-      !int8_attn_ok(c, n_head) || head_scales == nullptr || qkv8 == nullptr)
+      !heads_ok(c, n_head) || head_scales == nullptr || qkv8 == nullptr)
     return cudaErrorInvalidValue;
   const int hd = c / n_head;
+  if (hd > attn8::MAX_NARROW)
+    return launch_attention_int8_wide(qkv, qscale, y8, head_scales, qkv8,
+                                      batch, t, c, n_head, sm_scale, s);
   switch (attn_tc::padded_head(hd)) {
     case 32:
       return launch_attention_int8_at<32, true>(
@@ -322,8 +346,7 @@ cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              int n_head, float sm_scale, bool int8_attn,
                              cudaStream_t s) {
   const int rows = batch * t;
-  if (int8_attn ? !int8_attn_ok(c, n_head) : !heads_ok(c, n_head))
-    return cudaErrorInvalidValue;
+  if (!heads_ok(c, n_head)) return cudaErrorInvalidValue;
   cudaError_t e;
   if ((e = launch_ln_q8(x, vc, vc + c, scales + 0, h8a, nullptr, rows, c,
                         s)) != cudaSuccess)

@@ -9,17 +9,16 @@
 // Widths: C (d_model) from 1 to MAX_C, any n_head that divides it. Every
 // int8 matrix of c values a row lies in rows pitch16(c) bytes apart
 // (int8_gemm_sm90.cuh: the pitch a tensor map takes), f32 ones
-// contiguous. The int8 attention keeps its narrower limits
-// (int8_attn_ok).
+// contiguous; the int8 attention too (heads past MAX_HEAD_DIM on its
+// wide form).
 #pragma once
 
 #include "common.cuh"
 
 namespace arcweld {
 
-constexpr int MAX_HEAD_DIM = 128;  // widest head the int8 attention takes
-constexpr int INT8_ATTN_MAX_C = 1024;  // widest C where it runs
-constexpr int MAX_C = 4096;  // widest C of every other kernel here
+constexpr int MAX_HEAD_DIM = 128;  // widest head on the attentions' tiles
+constexpr int MAX_C = 4096;  // widest C of every kernel here
 
 // out[r, :] = q8(LN(x[r, :]) * scale + bias, *qscale); x (rows, c) f32,
 // c up to MAX_C; rail_rows (rows,) int32 or null: rail_rows[r] = the
@@ -48,14 +47,10 @@ cudaError_t launch_gemm_gelu_q8(const int8_t* a, const int8_t* w,
                                 int8_t* out, int rows, int n_cols, int k,
                                 cudaStream_t s);
 
-// C up to MAX_C, split into n_head heads: the shapes the f32 attention
-// takes (attention_tc.cuh: heads up to 128 on its tile, wider ones on
-// its wide tile)
+// C up to MAX_C, split into n_head heads: the shapes both attentions
+// take (heads up to MAX_HEAD_DIM on their tiles, wider ones on their
+// wide forms)
 bool heads_ok(int c, int n_head);
-
-// and the int8 attention's: C a multiple of 64 up to INT8_ATTN_MAX_C,
-// heads up to MAX_HEAD_DIM
-bool int8_attn_ok(int c, int n_head);
 
 // y8 (batch, t, C) = q8(causal attention of qkv (batch, t, 3C), *qscale),
 // n_head heads of width C / n_head, the f32 attention (attention_tc.cuh).
@@ -66,8 +61,8 @@ cudaError_t launch_attention(const float* qkv, const float* qscale,
 // The same with int8_attn (attention_int8.cuh): scores and P@V on int8
 // operands quantized with per (batch, head) scales, which are written to
 // head_scales (batch, 3, n_head) f32, the operands to qkv8 (batch,
-// n_head, 3, T_pad * HD) int8 (attn8::padded(t) rows, HD the head width
-// padded to 32, 64 or 128; layout there).
+// n_head, 3, T_pad * HW) int8 (attn8::padded(t) rows, HW =
+// attn8::head_width(C / n_head); layout there).
 cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
                                   int8_t* y8, float* head_scales,
                                   int8_t* qkv8, int batch, int t, int c,
@@ -79,8 +74,7 @@ cudaError_t launch_attention_int8(const float* qkv, const float* qscale,
 //   h8 = q8(LN2(x_mid)).
 // scales (4,) [s_attn, s_proj, s_fc, s_mproj]; vc rows [ln1_s, ln1_b,
 // ln2_s, ln2_b, deq_proj, b_proj]; v3c rows [deq_qkv, b_qkv]. head_scales
-// and qkv8: launch_attention_int8's, read only when int8_attn (and then
-// int8_attn_ok(c, n_head)). rail_rows
+// and qkv8: launch_attention_int8's, read only when int8_attn. rail_rows
 // (batch * t,) int32 or null: each row's count of h8 at +-127.
 cudaError_t launch_attn_half(const float* x, const int8_t* w_qkv,
                              const int8_t* w_proj, const float* scales,

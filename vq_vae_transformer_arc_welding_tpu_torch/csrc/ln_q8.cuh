@@ -25,8 +25,8 @@
 //    time, all of the row's loads issued before the first sum;
 //  - the q8 outputs leave as one 4-byte (2-byte) store a lane per 32 V
 //    columns, a warp writing 128 neighbouring bytes at once;
-//  - C is a template constant (every multiple of 64 up to MAX_C has its
-//    instantiation), so a lane holds exactly its row's share in registers;
+//  - C is a template constant (every multiple of 64 up to TEMPLATE_C has
+//    its instantiation), so a lane holds exactly its row's share in registers;
 //  - the sums keep the earlier kernel's order, lane L adding the columns
 //    L + 32 i in order before the warp adds the lanes' sums pairwise: the
 //    row goes through shared memory once to reach the lanes in that
@@ -35,10 +35,10 @@
 //    per-head scales, and from there whole rows).
 //
 // Any other C up to MAX_ANY_C (a width off the multiples of 64, above
-// MAX_C, or rows not aligned for the wide loads) takes ln_q8_any_kernel:
-// C a runtime value, one warp a row, the row staged once in shared
-// memory by lane L at columns L + 32 i, each lane reading back its own
-// columns. Its sums run in the order above, so where the template runs
+// TEMPLATE_C, or rows not aligned for the wide loads) takes
+// ln_q8_any_kernel: C a runtime value, one warp a row, the row staged
+// once in shared memory by lane L at columns L + 32 i, each lane reading
+// back its own columns. Its sums run in the order above, so where the template runs
 // it writes the same bits. Its output rows lie pitch16(C) bytes apart
 // (the int8 GEMM's operand pitch, int8_gemm_sm90.cuh), a byte a store.
 #pragma once
@@ -48,7 +48,7 @@
 namespace arcweld {
 namespace lnq8 {
 
-constexpr int MAX_C = 1024;      // widest row of the template
+constexpr int TEMPLATE_C = 1024; // widest row of the template
 constexpr int WARPS = 8;         // rows a block
 constexpr int MAX_ANY_C = 4096;  // widest row of ln_q8_any_kernel
 constexpr int ANY_WARPS = 4;     // its rows a block: 64 KB at MAX_ANY_C
@@ -197,7 +197,7 @@ inline bool aligned_to(const void* p, size_t bytes) {
 
 // x (rows, c) f32, scale and bias (c,) f32, out (rows, c) int8 in rows
 // pitch16(c) bytes apart, rail_rows (rows,) int32 or null (written,
-// not added to); c from 1 to MAX_ANY_C. A multiple of 64 up to MAX_C
+// not added to); c from 1 to MAX_ANY_C. A multiple of 64 up to TEMPLATE_C
 // with x, scale and bias 16-byte aligned (8 where c % 128 != 0) and out
 // 4-byte (2) takes its template, any other row ln_q8_any_kernel.
 inline cudaError_t launch(const float* x, const float* scale,
@@ -206,7 +206,7 @@ inline cudaError_t launch(const float* x, const float* scale,
   if (rows < 1 || c < 1 || c > MAX_ANY_C) return cudaErrorInvalidValue;
   const bool v4 = c % 128 == 0;
   const size_t al = v4 ? 16 : 8;
-  if (c % 64 != 0 || c > MAX_C || !aligned_to(x, al) ||
+  if (c % 64 != 0 || c > TEMPLATE_C || !aligned_to(x, al) ||
       !aligned_to(scale, al) || !aligned_to(bias, al) ||
       !aligned_to(out, al / 4)) {
     const size_t smem = sizeof(float) * ANY_WARPS * c;

@@ -106,19 +106,16 @@ VARIANTS = {"attn_block_quant": "attn_block_quant_int8attn",
 launches = {name: 0 for name in (*_SIGNATURES, *VARIANTS.values())}
 
 # The widest d_model C of the transformer's kernels (csrc/int8_block.cuh's
-# MAX_C): the int8 GEMM, LN+q8 and the f32 attention (#2, #6, #8, #9,
-# #10, #11) take any C from 1 to it, split into any number of heads; a
-# head past 128 runs on the f32 attention's wide tile.
+# MAX_C): every one of them (#2, #6, #8, #9 on f32 and bf16, #10 to #13,
+# the int8 attention of #2 and #6 too) takes any C from 1 to it, split
+# into any number of heads (`require_heads`' defaults).
 MAX_WIDTH = 4096
-# The narrower limits of the int8 attention (#2 and #6 with int8_attn),
-# #9's bf16 tile and the decode kernels (#12, #13): C a multiple of 64
-# (up to 1,024 for the int8 attention and decode) in heads up to
-# MAX_HEAD_DIM wide (csrc/int8_block.cuh's MAX_HEAD_DIM, which the
-# library reports as attention_max_head_dim()). A narrower head runs on
-# the kernels' tile of `padded_head_width(hd)`, its columns past hd zero.
+# The widest head on the attention kernels' narrow tiles
+# (csrc/int8_block.cuh's MAX_HEAD_DIM, which the library reports as
+# attention_max_head_dim()). A narrower head runs on the tile of
+# `padded_head_width(hd)`, its columns past hd zero; a wider one on the
+# kernel's wide form, a block for each 128 output columns.
 MAX_HEAD_DIM = 128
-NARROW = dict(max_head=MAX_HEAD_DIM, multiple=64)
-INT8_ATTN = dict(NARROW, max_c=1024)
 
 
 def reset_launch_counts() -> None:
@@ -199,18 +196,16 @@ def padded_head_width(hd: int) -> int:
 
 
 def require_heads(name: str, c: int, n_head: int, *,
-                  max_c: int | None = MAX_WIDTH, max_head: int | None = None,
-                  multiple: int = 1) -> None:
+                  max_c: int | None = MAX_WIDTH,
+                  max_head: int | None = None) -> None:
     """Raise unless a kernel takes width C with n_head heads: C from 1
-    up to max_c (None: any) and a multiple of `multiple`, split into
-    n_head heads of a width up to max_head (None: any). The defaults are
-    the f32 attention's, the GEMM's and LN+q8's limits; NARROW and
-    INT8_ATTN the other kernels'. Needs no card."""
-    if (n_head < 1 or c < 1 or c % n_head or c % multiple
+    up to max_c (None: any), split into n_head heads of a width up to
+    max_head (None: any). The defaults are every transformer kernel's
+    limits. Needs no card."""
+    if (n_head < 1 or c < 1 or c % n_head
             or (max_c is not None and c > max_c)
             or (max_head is not None and c // n_head > max_head)):
-        limit = "C" + (f" a multiple of {multiple}" if multiple > 1 else "")
-        limit += f" up to {max_c}" if max_c is not None else ""
+        limit = "C" + (f" up to {max_c}" if max_c is not None else "")
         if max_head is not None:
             limit += f" and a head width C / n_head up to {max_head}"
         raise ValueError(f"{name}: C={c} with {n_head} heads not supported: "

@@ -25,8 +25,9 @@ the tensor cores), on bf16 ones that of csrc/attention_bf16.cuh (64
 queries). On f32 operands it takes any head width up to
 `kernels.MAX_WIDTH` (the columns past D zero in shared memory where the
 tile is wider; a head past 128 on the tile's wide form, a block for
-each 128 output columns); on bf16 ones any up to 128 with C = H * D a
-multiple of 64 (`kernels.NARROW`). Other shapes raise.
+each 128 output columns); on bf16 ones any C = H * D up to
+`kernels.MAX_WIDTH` in any heads, a head past 128 on the bf16 tile's
+wide form likewise. Other shapes raise.
 
 The kernel reads q, k and v through their strides, so the views that
 `split_heads` cuts out of a packed (B, T, 3C) qkv are read in place; the
@@ -88,7 +89,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     b, h, t, d = q.shape
     dev = q.device
     kernels.require_heads(name, h * d, h,
-                          **(kernels.NARROW if q.dtype == torch.bfloat16
+                          **({} if q.dtype == torch.bfloat16
                              else dict(max_c=None,
                                        max_head=kernels.MAX_WIDTH)))
     for what, z in (("q", q), ("k", k), ("v", v)):

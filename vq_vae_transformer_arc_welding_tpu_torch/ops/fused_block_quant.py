@@ -38,10 +38,10 @@ with the full-block rows: the attention half reads `vc[:6]`, the MLP
 matrices, rows `kernels.pitch16` of their width bytes apart (the
 weights themselves where C is a multiple of 16).
 
-Widths: any C from 1 to `kernels.MAX_WIDTH` in any number of heads; with
-`int8_attn`, the int8 attention's `kernels.INT8_ATTN` limits. The
-kernels' int8 intermediates and the h8 that #2 returns lie in such
-rows too (`kernels.empty_pitched`).
+Widths: any C from 1 to `kernels.MAX_WIDTH` in any number of heads,
+both values of `int8_attn` (a head past `kernels.MAX_HEAD_DIM` on the
+attentions' wide forms). The kernels' int8 intermediates and the h8
+that #2 returns lie in such rows too (`kernels.empty_pitched`).
 """
 from __future__ import annotations
 
@@ -176,10 +176,14 @@ def v_key_order() -> torch.Tensor:
 
 
 def qkv8_head_width(c: int, n_head: int) -> int:
-    """The width of a head's rows in qkv8: the head width C / n_head
-    padded with zeros to the int8 attention's tile (32, 64 or 128; the
-    s8 products take k in steps of 32)."""
-    return kernels.padded_head_width(c // n_head)
+    """The width of a head's rows in qkv8 (attention_int8.cuh::
+    head_width): the head width C / n_head padded with zeros to the int8
+    attention's tile (32, 64 or 128), and past 128 to a multiple of 32,
+    the s8 products' k step."""
+    hd = c // n_head
+    if hd <= kernels.MAX_HEAD_DIM:
+        return kernels.padded_head_width(hd)
+    return -(-hd // 32) * 32
 
 
 def quantize_heads_reference(qkv: torch.Tensor, n_head: int):
@@ -279,8 +283,7 @@ def attn_block_quant(x, w_qkv, w_proj, scales, vc, v3c, *, n_head: int,
         raise ValueError(f"{_ATTN}: no kernel for device {x.device}")
     b, t, c = x.shape
     dev = x.device
-    kernels.require_heads(_ATTN, c, n_head,
-                          **(kernels.INT8_ATTN if int8_attn else {}))
+    kernels.require_heads(_ATTN, c, n_head)
     kernels.require(x, "x", torch.float32, (b, t, c), dev)
     w_qkv = kernels.pitched(w_qkv, "w_qkv", (3 * c, c), dev)
     w_proj = kernels.pitched(w_proj, "w_proj", (c, c), dev)
@@ -326,8 +329,7 @@ def block_quant(x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c, *,
     b, t, c = x.shape
     c4 = w_fc.shape[0]
     dev = x.device
-    kernels.require_heads(_FULL, c, n_head,
-                          **(kernels.INT8_ATTN if int8_attn else {}))
+    kernels.require_heads(_FULL, c, n_head)
     kernels.require(x, "x", torch.float32, (b, t, c), dev)
     w_qkv = kernels.pitched(w_qkv, "w_qkv", (3 * c, c), dev)
     w_proj = kernels.pitched(w_proj, "w_proj", (c, c), dev)

@@ -40,6 +40,17 @@ What the TPU shaped and this port drops:
   for the encoder kernels, whose ids must equal the plain encoder's but
   for near-ties).
 
+Widths: any C from 1 to `kernels.MAX_WIDTH` in any heads, any MLP
+width. The kernels' products read their depth in pieces of a multiple of
+64 through 1-D TMA copies, so every operand a product reads is padded
+with zeros to a depth of a multiple of 64 (`pad64`; zeros add exact 0s
+to every sum): the weights (n, k) to (n, pad64(k)), the LayerNorm
+vectors to pad64(C), and the stream x and the outputs to rows of
+pad64(C) floats (`_padded_weights`, `_padded_rows`). Where C and the MLP
+width are multiples of 64, as at the bench model, nothing is padded or
+copied. `BlockDecodeStack` pads a generation's weights once; the
+per-call wrappers pad per call.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back. For the card's times see
 PERF.md.
@@ -59,9 +70,7 @@ from .norm import layer_norm
 
 _ATTN = "decode_attn_f32"
 _BLOCK = "block_decode_f32"
-MAX_COLS = 32       # a product's columns one block of the grid takes
-MAX_C = 1024        # the widest stream csrc/decode.cu normalises
-MAX_KC = 512        # the widest k piece of its products
+MAX_KC = 512        # the widest k piece of csrc/decode.cu's products
 MAX_GRID = 1024     # its blocks; the barrier holds a count for each
 
 
@@ -131,16 +140,50 @@ def _check_x(name, x, b, c, dev):
     kernels.require(x, "x", torch.float32, (b, 1, c), dev)
 
 
+def pad64(n: int) -> int:
+    """n rounded up to a multiple of 64: a product's padded depth
+    (csrc/decode.cu::pad64)."""
+    return -(-n // 64) * 64
+
+
+def _pad_cols(p: torch.Tensor, k: int) -> torch.Tensor:
+    """p (..., n) with zero columns up to k; p itself where n == k."""
+    if p.shape[-1] == k:
+        return p
+    out = p.new_zeros((*p.shape[:-1], k))
+    out[..., :p.shape[-1]] = p
+    return out
+
+
+def _padded_weights(operands, c: int, c4: int) -> list:
+    """The block's tensors in DecodeArgs' order, each product's depth
+    padded with zeros to pad64 (the LayerNorm vectors to pad64(C))."""
+    depth = {"ln_1.weight": c, "ln_1.bias": c, "c_attn.weight": c,
+             "attn.c_proj.weight": c, "ln_2.weight": c, "ln_2.bias": c,
+             "c_fc.weight": c, "mlp.c_proj.weight": c4}
+    return [_pad_cols(p, pad64(depth[label])) if label in depth else p
+            for label, p, _ in operands]
+
+
+class _Operands(tuple):
+    """(the pointers of a block's weights in DecodeArgs' order, c4);
+    `.tensors`: the (padded) tensors behind the pointers, which must
+    outlive every launch that reads them."""
+
+    def __new__(cls, ptrs, c4, tensors):
+        self = super().__new__(cls, (ptrs, c4))
+        self.tensors = tensors
+        return self
+
+
 def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev):
     """Raise unless the kernel takes the block and the caches; the
-    pointers of the block's weights in DecodeArgs' order, and c4."""
+    block's `_Operands`."""
     c = blk.ln_1.weight.shape[0]
-    kernels.require_heads(name, c, n_head, **kernels.NARROW, max_c=MAX_C)
+    kernels.require_heads(name, c, n_head)
     kernels.require(kc, "kc", torch.float32, cache_shape, dev)
     kernels.require(vc, "vc", torch.float32, cache_shape, dev)
     c4 = blk.mlp.c_fc.weight.shape[0] if mlp else 0
-    if c4 % 64:
-        raise ValueError(f"{name}: the MLP's width {c4} is no multiple of 64")
     operands = [("ln_1.weight", blk.ln_1.weight, (c,)),
                 ("ln_1.bias", blk.ln_1.bias, (c,)),
                 ("c_attn.weight", blk.attn.c_attn.weight, (3 * c, c)),
@@ -156,21 +199,16 @@ def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev):
                      ("mlp.c_proj.bias", blk.mlp.c_proj.bias, (c,))]
     for label, p, shape in operands:
         kernels.require(p, label, torch.float32, shape, dev)
+    padded = _padded_weights(operands, c, c4)
+    for (label, _, _), p in zip(operands, padded):
         if p.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
-    if dev.type == "cuda":
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        for n in (3 * c, c4):
-            if -(-n // sms) > MAX_COLS:
-                raise ValueError(f"{name}: {n} columns over {sms} SMs: more "
-                                 f"than {MAX_COLS} a block")
-    return ([p.data_ptr() for _, p, _ in operands] + [None] * (12 - len(
-        operands)), c4)
+    return _Operands([p.data_ptr() for p in padded]
+                     + [None] * (12 - len(padded)), c4, padded)
 
 
 def _checked(name, x, blk, kc, vc, cache_shape, pos, n_head, mlp: bool):
-    """Raise unless the kernel takes these operands; the pointers of the
-    block's weights in DecodeArgs' order, and c4 (0 without the MLP)."""
+    """Raise unless the kernel takes these operands; as _check_operands."""
     b, c = x.shape[0], x.shape[-1]
     _check_x(name, x, b, c, x.device)
     checked = _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp,
@@ -191,17 +229,36 @@ def _barrier(device: torch.device) -> torch.Tensor:
 
 def _chunk_k(c: int, c4: int) -> int:
     """The kernels' k piece: the largest multiple of 64 up to MAX_KC that
-    divides C and c4."""
+    divides pad64(C) and pad64(c4)."""
     return next(kc for kc in range(MAX_KC, 0, -64)
-                if c % kc == 0 and c4 % kc == 0)
+                if pad64(c) % kc == 0 and pad64(c4) % kc == 0)
+
+
+def _is_padded(c: int, c4: int) -> bool:
+    return pad64(c) != c or pad64(c4) != c4
 
 
 def _scratch(b, c, c4, dev) -> torch.Tensor:
-    """q, y, x_mid (b x C each), g (b x c4) and m_proj's partial sums
-    (c4 / KC x b x C), f32."""
-    parts = c4 // _chunk_k(c, c4) * c if c4 else 0
-    return torch.empty(b * (3 * c + c4 + parts), dtype=torch.float32,
-                       device=dev)
+    """q (b x C), y, x_mid (b x pad64(C) each), g (b x pad64(c4)) and
+    m_proj's partial sums (pad64(c4) / KC x b x C), f32; zero where the
+    rows are padded (the kernels never write the columns past C, c4)."""
+    cp, c4p = pad64(c), pad64(c4)
+    parts = c4p // _chunk_k(c, c4) * c if c4 else 0
+    make = torch.zeros if _is_padded(c, c4) else torch.empty
+    return make(b * (c + 2 * cp + c4p + parts), dtype=torch.float32,
+                device=dev)
+
+
+def _padded_rows(x: torch.Tensor, c: int, c4: int) -> torch.Tensor:
+    """x (B, 1, C) as the kernels read the stream: rows of pad64(C)
+    floats, zero past C (x itself where nothing is padded)."""
+    return _pad_cols(x, pad64(c)) if _is_padded(c, c4) else x
+
+
+def _rows_out(b: int, c: int, c4: int, dev) -> torch.Tensor:
+    """An output buffer for the stream (B, 1, pad64(C)), zero past C."""
+    make = torch.zeros if _is_padded(c, c4) else torch.empty
+    return make((b, 1, pad64(c)), dtype=torch.float32, device=dev)
 
 
 def _pack(ptrs, kc, vc, strides, scratch, b, t, c, c4, n_head) -> DecodeArgs:
@@ -233,14 +290,17 @@ def fused_decode_attn(x, blk, kc, vc, pos: int, *, n_head: int):
     b, _, c = x.shape
     t = kc.shape[2] if kc.dim() == 4 else -1
     hd = c // n_head
-    ptrs, _ = _checked(_ATTN, x, blk, kc, vc, (b, n_head, t, hd), pos,
+    # `checked` holds the padded weights until the launch is queued
+    checked = _checked(_ATTN, x, blk, kc, vc, (b, n_head, t, hd), pos,
                        n_head, mlp=False)
+    ptrs = checked[0]
     scratch = _scratch(b, c, 0, x.device)
-    x_mid = torch.empty_like(x)
+    x_mid = _rows_out(b, c, 0, x.device)
     args = _pack(ptrs, kc, vc, (n_head * t * hd, t * hd, hd), scratch, b, t,
                  c, 0, n_head)
-    _launch(_ATTN, args, x, x_mid, pos, kernels.stream_ptr(x.device))
-    return x_mid, kc, vc
+    _launch(_ATTN, args, _padded_rows(x, c, 0), x_mid, pos,
+            kernels.stream_ptr(x.device))
+    return x_mid[..., :c].contiguous(), kc, vc
 
 
 def fused_block_decode(x, blk, kc, vc, pos: int, *, n_head: int):
@@ -258,22 +318,25 @@ def fused_block_decode(x, blk, kc, vc, pos: int, *, n_head: int):
         raise ValueError(f"{_BLOCK}: no kernel for device {x.device}")
     b, _, c = x.shape
     t = kc.shape[1] if kc.dim() == 3 else -1
-    ptrs, c4 = _checked(_BLOCK, x, blk, kc, vc, (b, t, c), pos, n_head,
-                        mlp=True)
+    # `checked` holds the padded weights until the launch is queued
+    checked = _checked(_BLOCK, x, blk, kc, vc, (b, t, c), pos, n_head,
+                       mlp=True)
+    ptrs, c4 = checked
     scratch = _scratch(b, c, c4, x.device)
-    out = torch.empty_like(x)
+    out = _rows_out(b, c, c4, x.device)
     args = _pack(ptrs, kc, vc, (t * c, c // n_head, c), scratch, b, t, c, c4,
                  n_head)
-    _launch(_BLOCK, args, x, out, pos, kernels.stream_ptr(x.device))
-    return out, kc, vc
+    _launch(_BLOCK, args, _padded_rows(x, c, c4), out, pos,
+            kernels.stream_ptr(x.device))
+    return out[..., :c].contiguous(), kc, vc
 
 
 def check_stack(blocks, caches, *, n_head: int) -> list:
     """Raise unless kernel #13 takes every block with its caches, (B, T,
     C) f32 each: the checks of `fused_block_decode` but x and pos, once
-    for a generation. [(pointers of the block's weights in DecodeArgs'
-    order, c4)] per block. Device-agnostic: on CPU tensors it checks what
-    the card would refuse."""
+    for a generation. The `_Operands` (pointers of the block's weights in
+    DecodeArgs' order, c4) per block. Device-agnostic: on CPU tensors it
+    checks what the card would refuse."""
     kc0 = caches[0][0]
     if kc0.dim() != 3:
         raise ValueError(f"{_BLOCK}: the caches must be (B, T, C), got "
@@ -297,12 +360,14 @@ class BlockDecodeStack:
     blocks: the model's transformer Blocks; caches: [(kc, vc)] per
     block, (B, T, C) f32 time-major, updated in place. On the card the
     operands of every block are checked here, once (`check_stack`), and
-    packed into one DecodeArgs each, with the scratch and two output rows
-    allocated once. A call `stack(x, pos)` then checks x and pos
-    (`check_step`) and costs one C call (one launch, counted in
-    kernels.launches) a block. It returns the stream after the last
-    block, in a buffer that the next call reuses. On the CPU each block
-    goes through `fused_block_decode`, the plain version."""
+    packed into one DecodeArgs each (the weights padded to the kernel's
+    depths where C or the MLP width is no multiple of 64), with the
+    scratch and two output rows allocated once. A call `stack(x, pos)`
+    then checks x and pos (`check_step`) and costs one C call (one
+    launch, counted in kernels.launches) a block. It returns the stream
+    after the last block, in (a view of) a buffer that the next call
+    reuses. On the CPU each block goes through `fused_block_decode`, the
+    plain version."""
 
     def __init__(self, blocks, caches, *, n_head: int):
         self.blocks, self.caches, self.n_head = list(blocks), caches, n_head
@@ -313,12 +378,17 @@ class BlockDecodeStack:
             raise ValueError(f"{_BLOCK}: no kernel for device {self.device}")
         checked = check_stack(self.blocks, caches, n_head=n_head)
         b, t, c = caches[0][0].shape
-        self._scratch = _scratch(b, c, checked[0][1], self.device)
-        self._outs = [torch.empty((b, 1, c), dtype=torch.float32,
-                                  device=self.device) for _ in range(2)]
+        c4 = checked[0][1]
+        self._c = c
+        self._weights = [ops.tensors for ops in checked]
+        self._scratch = _scratch(b, c, c4, self.device)
+        # the stream in the kernel's rows where C is padded
+        self._x = (_rows_out(b, c, c4, self.device)
+                   if _is_padded(c, c4) else None)
+        self._outs = [_rows_out(b, c, c4, self.device) for _ in range(2)]
         self._args = [_pack(ptrs, kc, vc, (t * c, c // n_head, c),
-                            self._scratch, b, t, c, c4, n_head)
-                      for (ptrs, c4), (kc, vc) in zip(checked, caches)]
+                            self._scratch, b, t, c, c4_, n_head)
+                      for (ptrs, c4_), (kc, vc) in zip(checked, caches)]
         self._fn = getattr(kernels.library(), _BLOCK)
 
     def __call__(self, x, pos: int):
@@ -328,6 +398,9 @@ class BlockDecodeStack:
                                              n_head=self.n_head)
             return x
         check_step(x, pos, self.caches)
+        if self._x is not None:
+            self._x[..., :self._c] = x
+            x = self._x
         stream = kernels.stream_ptr(self.device)
         for i, args in enumerate(self._args):
             out = self._outs[i % 2]
@@ -336,7 +409,7 @@ class BlockDecodeStack:
                            out.data_ptr(), pos, stream)
             kernels.check(err, _BLOCK)
             x = out
-        return x
+        return x[..., :self._c]
 
 
 def block_decode_stack_reference(blocks, caches, *, n_head: int):
