@@ -534,6 +534,22 @@ NW_SHAPES = ((200, 8), (192, 1), (1100, 4), (1600, 25), (1800, 6),
 NW_BATCH = 4
 NW_POS = 160
 NW_REPS = 3
+# wide_heads_phase: the wide attention tiles (heads past 128, clusters of
+# kernels.wide_cluster(hd) blocks) on their slice's path, a transformer
+# of WIDE_TR (8 heads of 256, the bench model's depth) on the bench
+# VQ-VAE from seed 0 (entry.build), served at WIDE_REQUEST windows
+# through classify, 'attn', 'full' and fused_attention (#2, #6, #10, #11
+# on the f32 wide tile, a launch a block) and trained one step at
+# WIDE_TRAIN_BATCH in f32 and in bf16 with attention_impl='pallas' (#9's
+# two wide tiles, a launch a block); then each wide tile alone (#9 f32
+# and bf16, #11) at WIDE_ALONE (batch, heads, T, head width): the
+# TSHAPES_HEADS past 128 at NW_BATCH, and the path's own shape
+WIDE_TR = dict(d_model=2048, n_heads=8, n_blocks=8)
+WIDE_REQUEST = 80
+WIDE_TRAIN_BATCH = 16
+WIDE_ALONE = tuple((NW_BATCH, max(1, 512 // hd), 321, hd)
+                   for hd in TSHAPES_HEADS if hd > 128) + ((80, 8, 321, 256),)
+WIDE_REPS = 3
 # torch's defaults, which the training phase runs under
 TORCH_DEFAULT_TF32 = dict(matmul=False, cudnn=True)
 # the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
@@ -860,7 +876,8 @@ PTXAS_KERNELS = ("attention_kernel", "flash_attention_bf16_kernel",
                  "exit_kernel", "attention_wide_kernel", "ln_q8_any_kernel",
                  "q8_rows_kernel", "head_quant_wide_kernel",
                  "attention_int8_wide_kernel",
-                 "flash_attention_bf16_wide_kernel")
+                 "flash_attention_bf16_wide_kernel",
+                 "flash_attention_bf16_chunks_kernel")
 # the sources whose kernels must use no stack either (1b and #7)
 NO_STACK = ("encoder_chain_bf16.cu", "nearest_codes.cu")
 # kernels whose setmaxnreg requests assume ptxas gave them 65536 / 384
@@ -873,18 +890,21 @@ SETMAXNREG_REGS = {"encoder_chain_bf16_kernel": 168,
 # what each source's PTX must hold: Hopper's tensor-core product (in
 # TF32, with A split by cvt.rna, for the f32 encoder; bf16 for 1b), TMA
 # copies, the int8 attention's s8 products, #9's bf16 tile's bf16
-# mma.sync fed by ldmatrix beside the f32 tile's split TF32, the decode kernels'
-# split-TF32 mma.sync fed by 1-D bulk copies and their grid barrier's
-# arrival
+# mma.sync fed by ldmatrix beside the f32 tile's split TF32, the wide
+# tiles' cluster barriers and distributed shared memory (mapa), the
+# decode kernels' split-TF32 mma.sync fed by 1-D bulk copies and their
+# grid barrier's arrival
 PTX_OPS = {
     "encoder_chain_bf16.cu": (
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
         "cp.async.bulk.tensor"),
     "flash_attn.cu": ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
                       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
-                      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"),
+                      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                      "barrier.cluster.arrive", "mapa"),
     "int8_block.cu": ("wgmma.mma_async", "cp.async.bulk.tensor",
-                      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"),
+                      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32",
+                      "barrier.cluster.arrive", "mapa"),
     "encoder_chain.cu": ("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32",
                          "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32",
                          "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32",
@@ -1641,6 +1661,26 @@ def kernel_trace(fns: dict, calls: int = 10) -> dict:
     return out
 
 
+def log_library(what: str, times: tuple, lib, plain, smi: str) -> tuple:
+    """Log scaled_dot_product_attention's time (events, in turns with the
+    kernel and plain: `times`), its device time a call on cold operands
+    (kernel_trace), the backend its kernels show (the trace's names) and
+    its largest difference from the plain version. Returns (its device
+    ms or None, the difference)."""
+    import torch
+    ms, _, names = kernel_trace({what: lib})[what]
+    with torch.inference_mode():
+        err = float((lib().float() - plain().float()).abs().max())
+    log(f"{what}: scaled_dot_product_attention(is_causal=True) on the same "
+        f"operands {fmt_ms(times)}; device "
+        + ("not measured" if ms is None else f"{ms:.4f} ms a call")
+        + f"; its kernels: "
+        + ("; ".join(f"{key[:60]} x {cnt:.1f}" for key, cnt, _ in names[:4])
+           or "none traced")
+        + f"; largest difference from plain {err:.3e}; gpu {smi}")
+    return ms, err
+
+
 def is_kernel(key: str, name: str) -> bool:
     """Whether a trace's kernel name is `name`'s, any instantiation of
     it (its template arguments) and any namespace."""
@@ -2320,7 +2360,8 @@ def global_norm(grads: dict) -> float:
 
 
 def one_step_against_plain(name: str, model, task, batch, kernel: str,
-                           per_step: int, smi: str) -> tuple:
+                           per_step: int, smi: str,
+                           loss_gate: bool = True) -> tuple:
     """One training forward and backward of `task` on `batch` with the
     dropouts off, through the kernel path at the TF32 flags the caller
     set and through the plain path with both flags off (f32
@@ -2331,7 +2372,8 @@ def one_step_against_plain(name: str, model, task, batch, kernel: str,
     largest per-tensor gradient difference. Returns (the ids the VQ's
     search gave on each path, empty for the transformer; the kernel
     path's loss and gradients). A bf16 model's plain path is bf16 too:
-    only the kernels are replaced."""
+    only the kernels are replaced. loss_gate=False logs the loss against
+    plain and leaves its check to the caller."""
     import torch
     from vq_vae_transformer_arc_welding_tpu_torch.ops import fused_vq as fvq
     ids = {}
@@ -2374,7 +2416,8 @@ def one_step_against_plain(name: str, model, task, batch, kernel: str,
         f"gradient norm {n_k:.9g} / {n_p:.9g} (relative {rel_norm:.3e}, "
         f"bound {MAX_TRAIN_GNORM_REL}); largest gradient difference "
         f"{worst[0]:.3e} in {worst[1]} (of {len(g_k)} tensors); gpu {smi}")
-    check(math.isfinite(loss_k) and rel_loss <= MAX_TRAIN_LOSS_REL,
+    check(math.isfinite(loss_k)
+          and (rel_loss <= MAX_TRAIN_LOSS_REL or not loss_gate),
           f"{name}: loss {loss_k} against plain {loss_p}")
     check(math.isfinite(n_k) and rel_norm <= MAX_TRAIN_GNORM_REL,
           f"{name}: gradient norm {n_k} against plain {n_p}")
@@ -4065,6 +4108,7 @@ def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
         CYCLE_LEN, WeldingQualityPipeline, with_start_token)
     from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
         TransformerGenTask)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     t_phase = time.perf_counter()
     dev = torch.device(device)
@@ -4303,7 +4347,8 @@ def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
     del trp
 
     # -- X4. every widened kernel against plain, timed in turns ----------
-    fns, bounds, errs = {}, {}, {}
+    # (#9 also beside scaled_dot_product_attention on its operands)
+    fns, bounds, errs, libs = {}, {}, {}, {}
     m = TSHAPES_ROWS
     with torch.inference_mode():
         for c in TSHAPES_C:
@@ -4402,11 +4447,15 @@ def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
                 key = (name, f"head {hd} ({nh} heads)")
                 errs[key], fns[key] = err, (kfn, pfn)
                 bounds[key] = bound_of(work[name])
+            libs[FLASH, f"head {hd} ({nh} heads)"] = (
+                lambda q=q, k=k, v=v: sdpa(q, k, v, is_causal=True))
         # the kernels' device time a call (torch.profiler, cold operands):
         # events around one call hold the host's launch
         traced = kernel_trace({key: pair[0] for key, pair in fns.items()})
         for key, (kfn, pfn) in fns.items():
-            t_k = timed_in_turns({"kernel": kfn, "plain": pfn},
+            lib = libs.get(key)
+            t_k = timed_in_turns({"kernel": kfn, "plain": pfn,
+                                  **({"library": lib} if lib else {})},
                                  reps=SHAPES_REPS, warmup=1)
             bound, by = bounds[key]
             ms = traced[key][0]
@@ -4420,6 +4469,9 @@ def transformer_shapes_phase(smi: str, device: str = "cuda") -> dict:
                 + ("" if ms is None else f" ({bound / ms:.1%} of the device "
                                          f"time)")
                 + f"; worst difference from plain {errs[key]:.3e}; gpu {smi}")
+            if lib:
+                log_library(f"transformer shapes {key[0]} at {key[1]}",
+                            t_k["library"], lib, pfn, smi)
     log(f"transformer shapes phase: {time.perf_counter() - t_phase:.1f} s; "
         f"gpu {smi}")
     return out
@@ -4649,7 +4701,9 @@ def narrow_widths_phase(smi: str, cli: dict, device: str = "cuda") -> dict:
         del trp
 
     # -- N4. each kernel alone at NW_SHAPES ----------------------------------
-    fns, bounds, errs = {}, {}, {}
+    # (#9 bf16 also beside scaled_dot_product_attention on its operands)
+    fns, bounds, errs, libs = {}, {}, {}, {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     t = 321
     with torch.inference_mode():
         for c, nh in NW_SHAPES:
@@ -4733,6 +4787,8 @@ def narrow_widths_phase(smi: str, cli: dict, device: str = "cuda") -> dict:
                 lambda a=(q, k, v): fflash.flash_attention_forward(*a),
                 lambda a=(q, k, v): fflash.flash_causal_attention_reference(
                     *a))
+            libs[FLASH_BF16, shape] = (
+                lambda a=(q, k, v): sdpa(*a, is_causal=True))
             # #12 and #13 on random caches
             _, trd = build(d_model=c, n_heads=nh, n_blocks=1, hidden=16,
                            n_res=1, k=WIDTH_MODEL["k"], d=WIDTH_MODEL["d"],
@@ -4776,7 +4832,9 @@ def narrow_widths_phase(smi: str, cli: dict, device: str = "cuda") -> dict:
             del trd
         traced = kernel_trace({key: pair[0] for key, pair in fns.items()})
         for key, (kfn, pfn) in fns.items():
-            t_k = timed_in_turns({"kernel": kfn, "plain": pfn},
+            lib = libs.get(key)
+            t_k = timed_in_turns({"kernel": kfn, "plain": pfn,
+                                  **({"library": lib} if lib else {})},
                                  reps=NW_REPS, warmup=1)
             bound, by = bounds[key]
             ms = traced[key][0]
@@ -4788,7 +4846,276 @@ def narrow_widths_phase(smi: str, cli: dict, device: str = "cuda") -> dict:
                 + ("" if ms is None else f" ({bound / ms:.1%} of the device "
                                          f"time)")
                 + f"; worst difference from plain {errs[key]:.3e}; gpu {smi}")
+            if lib:
+                log_library(f"narrow widths {key[0]} at {key[1]}",
+                            t_k["library"], lib, pfn, smi)
     log(f"narrow widths phase: {time.perf_counter() - t_phase:.1f} s; "
+        f"gpu {smi}")
+    return out
+
+
+def wide_heads_phase(smi: str, device: str = "cuda") -> dict:
+    """The wide attention tiles on their slice's path (see the WIDE_*
+    constants): the d2048 model of 8 heads of 256 served through
+    classify, 'attn', 'full', fused_attention (#10) and fused_attention
+    with fused_qkv=False (#11), each launching exactly its kernels, a
+    launch a block, its f32 attention in clusters of
+    kernels.wide_cluster(256) (the library's record), labels equal to
+    the plain path's outside the margin, classify's device time and the
+    wide tile's share of it (torch.profiler); an f32 and a bf16
+    attention_impl='pallas' training step against plain (#9's two wide
+    tiles); then #9 f32, #9 bf16 and #11 alone at WIDE_ALONE against
+    plain, timed in turns with it and with scaled_dot_product_attention
+    (#9), device ms on cold operands, beside the bound of kernel_work.
+    Returns {"launched": {kernel: (path, launches)}, "cluster": {kernel:
+    cluster size}, "held": {kernel: [shapes]}, "device_ms": {kernel:
+    ms a launch on the path's shape}, "library_ms": {kernel: SDPA's}}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch import kernels
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import (
+        build, make_pipeline_quantized)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_attn as fflash, fused_attn_quant as fattn)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.attention import (
+        causal_attention_core, split_heads)
+    from vq_vae_transformer_arc_welding_tpu_torch.serve import (
+        CYCLE_LEN, WeldingQualityPipeline)
+    from vq_vae_transformer_arc_welding_tpu_torch.train.tasks import (
+        TransformerGenTask)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    out = {"launched": {}, "cluster": {}, "held": {}, "device_ms": {},
+           "library_ms": {}}
+    c, nh, depth = (WIDE_TR[k] for k in ("d_model", "n_heads", "n_blocks"))
+    what = f"d{c} ({nh} heads of {c // nh}, {depth} blocks)"
+
+    def note(counts, path, shape):
+        """Record a run's launches and the cluster its wide tile ran in."""
+        for name, n in counts.items():
+            out["launched"].setdefault(name, (path, n))
+            if name in (ENC, GEMM):
+                continue
+            n_cl = kernels.last_cluster(name)
+            check(n_cl == kernels.wide_cluster(shape[3]),
+                  f"wide heads {path}: {name} ran its attention in clusters "
+                  f"of {n_cl}, expected {kernels.wide_cluster(shape[3])}")
+            out["cluster"][name] = n_cl
+            held = out["held"].setdefault(name, [])
+            if list(shape) not in held:
+                held.append(list(shape))
+
+    # -- W1. the d2048 model served ------------------------------------------
+    vq, tr = build(d_model=c, n_heads=nh, n_blocks=depth, seed=SEED)
+    t = tr.seq_len
+    shape = (WIDE_REQUEST, nh, t, c // nh)
+    width = N_CYCLES * CYCLE_LEN
+    calib = rng.standard_normal((2, width, 2)).astype(np.float32)
+    req = rng.standard_normal((WIDE_REQUEST, width, 2)).astype(np.float32)
+    xreq = torch.from_numpy(req).to(dev)
+    pipe = WeldingQualityPipeline(vq, tr, n_cycles=N_CYCLES, max_batch=80,
+                                  precision="int8", encoder_impl="fused")
+    pipe.calibrate(calib)
+    (labels, probs), counts = counted(lambda: pipe.classify(req))
+    check(set(counts) == {ENC, ATTN, GEMM} and counts[ATTN] == depth,
+          f"wide heads classify {what} launched {json.dumps(counts)}")
+    note(counts, f"wide heads classify {what}", shape)
+    with plain_path():
+        labels_p, probs_p = pipe.classify(req)
+    sure = np.abs(probs_p[:, 0] - probs_p[:, 1]) > LABEL_MARGIN
+    check(bool(np.isfinite(probs).all())
+          and bool((labels == labels_p)[sure].all()),
+          f"wide heads classify {what}: labels differ from the plain "
+          f"path's on {int((labels != labels_p)[sure].sum())} windows "
+          f"outside the margin")
+    parts = [f"classify {json.dumps(counts)}, {int(sure.sum())} of "
+             f"{len(labels)} windows sure, max |dp| "
+             f"{float(np.abs(probs - probs_p).max()):.3e}"]
+    with torch.inference_mode():
+        for name, kw, want in (
+                ("attn", {"block_fusion": "attn"}, {ENC, ATTN, GEMM}),
+                ("full", {"block_fusion": "full"}, {ENC, FULL}),
+                ("fused_attention", {"block_fusion": None,
+                                     "fused_attention": True}, {ENC, QKV}),
+                ("fused_attention+fused_qkv=False",
+                 {"block_fusion": None, "fused_attention": True,
+                  "fused_qkv": False}, {ENC, CAUSAL})):
+            fn = make_pipeline_quantized(vq, tr, pipe.qparams, **kw)
+            lk, counts = counted(lambda: fn(xreq))
+            check(set(counts) == want and all(
+                counts[k] == depth for k in want - {ENC, GEMM}),
+                f"wide heads {name} {what} launched {json.dumps(counts)}")
+            note(counts, f"wide heads {name} {what}", shape)
+            with plain_path():
+                lp = fn(xreq)
+            ok = (lp[:, 0] - lp[:, 1]).abs() > LABEL_MARGIN
+            same = lk.argmax(-1) == lp.argmax(-1)
+            check(bool(torch.isfinite(lk).all()) and bool(same[ok].all()),
+                  f"wide heads {name} {what}: labels differ from the plain "
+                  f"path's on {int((~same)[ok].sum())} windows outside the "
+                  f"margin")
+            parts.append(f"{name} {json.dumps(counts)}, {int(ok.sum())} "
+                         f"sure, max |dlogit| "
+                         f"{float((lk - lp).abs().max()):.3e}")
+    n_ops, busy, names = device_profile(lambda: pipe.classify(req))
+    if busy is None:
+        parts.append("classify's device trace: no device event, not "
+                     "measured")
+    else:
+        got = [(cnt, ms) for key, cnt, ms in names
+               if is_kernel(key, "attention_wide_kernel")]
+        n, ms = (sum(v) for v in zip(*got)) if got else (0, 0.0)
+        check(n == depth, f"wide heads classify's trace holds {n} "
+                          f"launches of attention_wide_kernel")
+        out["device_ms"][ATTN] = ms / n
+        parts.append(f"classify's device time {busy:.4f} ms a call "
+                     f"({n_ops} device operations), the f32 wide tile "
+                     f"(attention_wide_kernel) x {n}: {ms:.4f} ms "
+                     f"({ms / busy:.1%}), {ms / n:.4f} ms a launch")
+    log(f"wide heads {what} on the bench VQ-VAE, {len(req)} windows, "
+        f"T={t}: " + "; ".join(parts) + f"; gpu {smi}")
+    del pipe, vq, tr
+
+    # -- W2. training steps on #9's two wide tiles -------------------------
+    # f32 and bf16 at the model's depth; through 8 bf16 blocks the kernel
+    # path's loss parts from the plain bf16 path's by ~1.2e-5 of itself
+    # though each launch is within the bf16 gate (the parts add up over
+    # the blocks), so there the bf16 loss is held, as training_phase's
+    # bf16 steps are, to the f32 step's within MAX_BF16_LOSS_REL, and the
+    # 1e-5 gate against plain to a one-block model of the same width
+    loss32 = None
+    for dtype, kernel, blocks in ((torch.float32, FLASH, depth),
+                                  (torch.bfloat16, FLASH_BF16, depth),
+                                  (torch.bfloat16, FLASH_BF16, 1)):
+        _, trp = build(d_model=c, n_heads=nh, n_blocks=blocks, seed=SEED,
+                       attention_impl="pallas")
+        if dtype == torch.bfloat16:
+            trp.compute_dtype = dtype
+        trp.requires_grad_(True)
+        trp.res_dropout = trp.att_dropout = 0.0
+        batch = tuple(a.to(dev) for a in (
+            torch.randint(0, trp.n_classes, (WIDE_TRAIN_BATCH, t),
+                          generator=torch.Generator().manual_seed(SEED)),
+            torch.randint(0, 2, (WIDE_TRAIN_BATCH,),
+                          generator=torch.Generator().manual_seed(SEED)),
+            torch.randint(0, trp.n_classes, (WIDE_TRAIN_BATCH, t),
+                          generator=torch.Generator().manual_seed(SEED + 1))))
+        step = (f"wide heads {str(dtype)[6:]} d{c} ({nh} heads of "
+                f"{c // nh}, {blocks} blocks)")
+        gated = dtype == torch.float32 or blocks == 1
+        with tf32_flags(**TORCH_DEFAULT_TF32):
+            _, loss_k, _ = one_step_against_plain(
+                step, trp, TransformerGenTask(trp), batch, kernel, blocks,
+                smi, loss_gate=gated)
+        if dtype == torch.float32:
+            loss32 = loss_k
+        elif not gated:
+            rel = abs(loss_k - loss32) / abs(loss32)
+            log(f"{step}: loss {loss_k:.9g} against the f32 step's "
+                f"{loss32:.9g} (relative {rel:.3e}, bound "
+                f"{MAX_BF16_LOSS_REL})")
+            check(rel <= MAX_BF16_LOSS_REL,
+                  f"{step}: loss {loss_k} against the f32 step's {loss32}")
+        note({kernel: blocks}, step, (WIDE_TRAIN_BATCH, nh, t, c // nh))
+        del trp
+
+    # -- W3. each wide tile alone ------------------------------------------------
+    fns, errs, bounds, libs = {}, {}, {}, {}
+    with torch.inference_mode():
+        for b, h, tt, hd in WIDE_ALONE:
+            cw = h * hd
+            at = f"({b}, {h}, {tt}, {hd})"
+            qkv = (torch.randn(b, tt, 3 * cw, generator=gen) * 2).to(dev)
+            work = kernel_work(1, cw, 1, 1, 1, 1, 1, b, tt, h, 1, 1)
+            exact = None
+            for dtype, kernel in ((torch.float32, FLASH),
+                                  (torch.bfloat16, FLASH_BF16)):
+                q, k, v = (split_heads(z, h) for z in
+                           qkv.to(dtype).split(cw, dim=-1))
+                o, counts = counted(lambda: fflash.flash_attention_forward(
+                    q, k, v))
+                check(counts == {kernel: 1}, f"wide heads {kernel} at {at} "
+                                             f"launched {counts}")
+                note(counts, "wide heads kernels", (b, h, tt, hd))
+                ref = fflash.flash_causal_attention_reference(q, k, v)
+                if dtype == torch.float32:
+                    e = float((o - ref).abs().max())
+                    check(e <= MAX_ROW_ERR, f"wide heads {kernel} at {at}: "
+                                            f"{e} from plain")
+                else:
+                    share, far = bf16_gate(o, ref)
+                    against = "plain"
+                    if far or share > MAX_BF16_DIFF_SHARE:
+                        # where plain's own f32 sums miss the gate against
+                        # the float64 attention (a head of 4,096)
+                        exact = causal_attention_core(
+                            q.double(), k.double(), v.double()).to(dtype)
+                        plain = bf16_gate(ref, exact)
+                        check(plain[1] > 0 or plain[0] > MAX_BF16_DIFF_SHARE,
+                              f"wide heads {kernel} at {at}: {share:.2e} "
+                              f"differ from plain, {far} beyond")
+                        share, far = bf16_gate(o, exact)
+                        against = "float64"
+                    check(far == 0 and share <= MAX_BF16_DIFF_SHARE,
+                          f"wide heads {kernel} at {at}: {share:.2e} of the "
+                          f"entries differ from {against}, {far} beyond one "
+                          f"bf16 step and {MAX_ROW_ERR}")
+                    e = float((o.float() - ref.float()).abs().max())
+                    log(f"wide heads {kernel} at {at}: {share:.2e} of the "
+                        f"entries differ from {against}, none beyond one "
+                        f"bf16 step and {MAX_ROW_ERR}")
+                key = (kernel, at)
+                errs[key] = e
+                fns[key] = (lambda a=(q, k, v): fflash.flash_attention_forward(
+                    *a), lambda a=(q, k, v):
+                    fflash.flash_causal_attention_reference(*a))
+                libs[key] = lambda a=(q, k, v): sdpa(*a, is_causal=True)
+                bounds[key] = bound_of(work[kernel])
+            ys = torch.tensor(30.0, device=dev)
+            y8, counts = counted(lambda: fattn.fused_causal_attention_quant(
+                qkv, ys, n_head=h))
+            frac, step8 = int8_diff(y8, fattn.causal_attention_quant_reference(
+                qkv, ys, n_head=h))
+            check(counts == {CAUSAL: 1} and frac <= MAX_INT8_DIFF_FRAC
+                  and step8 <= MAX_INT8_STEP,
+                  f"wide heads {CAUSAL} at {at}: launches {counts}, y8 "
+                  f"differs in {frac} by {step8}")
+            note(counts, "wide heads kernels", (b, h, tt, hd))
+            key = (CAUSAL, at)
+            errs[key] = float(step8)
+            fns[key] = (lambda a=(qkv, ys), h=h:
+                        fattn.fused_causal_attention_quant(*a, n_head=h),
+                        lambda a=(qkv, ys), h=h:
+                        fattn.causal_attention_quant_reference(*a, n_head=h))
+            bounds[key] = bound_of(work[CAUSAL])
+        traced = kernel_trace({key: pair[0] for key, pair in fns.items()})
+        for key, (kfn, pfn) in fns.items():
+            lib = libs.get(key)
+            t_k = timed_in_turns({"kernel": kfn, "plain": pfn,
+                                  **({"library": lib} if lib else {})},
+                                 reps=WIDE_REPS, warmup=1)
+            bound, by = bounds[key]
+            ms = traced[key][0]
+            log(f"wide heads kernel {key[0]} at {key[1]}: "
+                f"{fmt_ms(t_k['kernel'])}, plain {fmt_ms(t_k['plain'])}; "
+                f"device " + ("not measured" if ms is None
+                              else f"{ms:.4f} ms a call")
+                + f"; bound {bound:.4f} ms by {by}"
+                + ("" if ms is None else f" ({bound / ms:.1%} of the device "
+                                         f"time)")
+                + f"; worst difference from plain {errs[key]:.3e}; gpu {smi}")
+            lib_ms = None
+            if lib:
+                lib_ms, _ = log_library(f"wide heads {key[0]} at {key[1]}",
+                                        t_k["library"], lib, pfn, smi)
+            if key[1] == str(WIDE_ALONE[-1]):
+                out["device_ms"].setdefault(key[0], ms)
+                if lib_ms is not None:
+                    out["library_ms"][key[0]] = lib_ms
+    log(f"wide heads phase: {time.perf_counter() - t_phase:.1f} s; "
         f"gpu {smi}")
     return out
 
@@ -6241,6 +6568,10 @@ def main() -> int:
     for name, ran_at in narrow["held"].items():
         tshapes_at = tshapes["held"].setdefault(name, [])
         tshapes_at += [x for x in ran_at if x not in tshapes_at]
+    # -- 13e. the wide attention tiles (heads past 128, in clusters) on
+    # their slice's path: a d2048 model of 8 heads of 256 served and
+    # trained a step, then each wide tile alone ----------------------------
+    wheads = wide_heads_phase(smi)
     launched[LN_ALONE] = tshapes["launched"][LN_ALONE]
     times[LN_ALONE], work[LN_ALONE] = tshapes["times"], tshapes["work"]
     enc_err[LN_ALONE] = tshapes["err"]
@@ -6293,6 +6624,16 @@ def main() -> int:
              "transformer_shapes_launches": tshapes["launched"][name][1],
              "transformer_shapes": tshapes["held"].get(name, [])}
             if name in tshapes["launched"] else {}),
+         # the wide heads phase: its paths' launches, the cluster its
+         # wide tile ran in, the shapes held there and, at the path's
+         # shape, its device ms a launch and SDPA's
+         **({"wide_heads_path": wheads["launched"][name][0],
+             "wide_heads_launches": wheads["launched"][name][1],
+             "wide_heads_cluster": wheads["cluster"].get(name),
+             "wide_heads_shapes": wheads["held"].get(name, []),
+             "wide_heads_device_ms": wheads["device_ms"].get(name),
+             "wide_heads_library_ms": wheads["library_ms"].get(name)}
+            if name in wheads["launched"] else {}),
          # the CLI phase's scorer, over the checkpoints the CLIs wrote
          **({"cli_path": cli["launches"][name][0],
              "cli_launches": cli["launches"][name][1]}

@@ -20,7 +20,14 @@ bf16), #10 (`qkv_attention_quant`), #11 (`fused_causal_attention_quant`),
 the int8 GEMM alone at its four shapes in a block (c_fc also with the
 monitor's clip counts) and #13 (`fused_block_decode` on a block built
 from seed 0, 16 streams at pos 160 of (16, 321, 512) caches; its output
-and the written cache rows), and reports for each:
+and the written cache rows). Then the wide attention tiles (heads past
+128) at WIDE_SHAPES (batch, heads, T, head width): #9 on f32 and on
+bf16 q, k, v, each beside its plain version
+(`flash_causal_attention_reference`) and
+`scaled_dot_product_attention(is_causal=True)` on the same operands
+(both the same code in every tree: torch's), and #2 at C 2,048 in 8
+heads of 256 (WIDE_BLOCK), whose f32 attention runs the f32 wide tile.
+It reports for each:
 
 - a sha256 of every output and intermediate it returns, so that two
   trees whose arithmetic is the same can be seen to give the same bits;
@@ -49,11 +56,14 @@ REPO = Path(__file__).resolve().parent.parent
 B, T, C, HEADS = 80, 321, 512, 8
 FLASH_B = 16                # #9's batch, and #13's streams
 DECODE_POS = 160
+# the wide tiles' shapes: (batch, heads, T, head width)
+WIDE_SHAPES = ((4, 1, T, 4096), (4, 6, T, 300), (80, 8, T, 256))
+WIDE_BLOCK = (2048, 8)      # #2's (C, heads) on the f32 wide tile
 
 
 def device_ms(fn, calls=5):
-    """Device ms per call of all of fn's kernels, by torch.profiler (two
-    warm-up rounds, then one traced)."""
+    """(device ms per call of all of fn's kernels, their names), by
+    torch.profiler (two warm-up rounds, then one traced)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
@@ -64,8 +74,10 @@ def device_ms(fn, calls=5):
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() / 1e3 for e in events) / calls,
+            sorted({e.name[:60] for e in events}))
 
 
 def event_ms(fn, reps=10, warmup=3):
@@ -92,13 +104,15 @@ def row_ms(fn, calls=20, reps=10):
                     warmup=1) / calls
 
 
-def operands():
-    """A calibrated block's operands at magnitudes like the card tests'
-    (tests/test_torch_cuda.py::_block_operands), and x."""
+def operands(c: int = C):
+    """A calibrated block's operands at width c, at magnitudes like the
+    card tests' (tests/test_torch_cuda.py::_block_operands; the
+    dequantization rows scaled by sqrt(C / c), so that the products keep
+    their size at every width), and x."""
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
-    c = C
+    r = (C / c) ** 0.5
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).cuda()
@@ -109,12 +123,12 @@ def operands():
     scales = t(np.array([30.0, 200.0, 30.0, 30.0], np.float32))
     vc = t(np.stack([rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
                      rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
-                     np.full(c, 2e-5), rng.standard_normal(c) * 0.01,
-                     np.full(c, 2e-5), rng.standard_normal(c) * 0.01]
+                     np.full(c, 2e-5 * r), rng.standard_normal(c) * 0.01,
+                     np.full(c, 2e-5 * r), rng.standard_normal(c) * 0.01]
                     ).astype(np.float32))
-    v3c = t(np.stack([np.full(3 * c, 1e-3),
+    v3c = t(np.stack([np.full(3 * c, 1e-3 * r),
                       rng.standard_normal(3 * c) * 0.1]).astype(np.float32))
-    v4c = t(np.stack([np.full(4 * c, 3e-5),
+    v4c = t(np.stack([np.full(4 * c, 3e-5 * r),
                       rng.standard_normal(4 * c) * 0.1]).astype(np.float32))
     x = t(rng.standard_normal((B, T, c)).astype(np.float32))
     return x, w_qkv, w_proj, w_fc, w_mp, scales, vc, v3c, v4c
@@ -223,11 +237,44 @@ def measure(tree: Path) -> dict:
         "gemm m_proj": lambda: [int8_gemm.int8_gemm(g8, w_mp, vc[6], vc[7],
                                                     resid=x2)],
     }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(0)
+    for b, nh, t, hd in WIDE_SHAPES:
+        c = nh * hd
+        qkv_w = (torch.randn(b, t, 3 * c, generator=gen) * 2).cuda()
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16,
+                                                     "bf16")):
+            qw, kw, vw = (split_heads(z, nh) for z in
+                          qkv_w.to(dtype).split(c, dim=-1))
+            shape = f"({b}, {nh}, {t}, {hd})"
+            cases[f"#9 flash_attention_{name} {shape}"] = (
+                lambda a=(qw, kw, vw): [fflash.flash_attention_forward(*a)])
+            cases[f"#9 {name} plain {shape}"] = (
+                lambda a=(qw, kw, vw): [
+                    fflash.flash_causal_attention_reference(*a)])
+            cases[f"#9 {name} sdpa {shape}"] = (
+                lambda a=(qw, kw, vw): [sdpa(*a, is_causal=True)])
+    cw, hw = WIDE_BLOCK
+    xw, wqw, wpw, _, _, sw, vcw, v3w, _ = operands(cw)
+
+    def attn_wide():
+        s = {}
+        xm, h8 = fbq.attn_block_quant(xw, wqw, wpw, sw, vcw[:6], v3w,
+                                      n_head=hw, scratch=s)
+        return [xm, h8, s["h8a"], s["qkv"], s["y8"]]
+
+    cases[f"#2 attn_block_quant C={cw} {hw} heads"] = attn_wide
     out = {"tree": str(tree)}
+    plain = {}
     with torch.inference_mode():
         for name, fn in cases.items():
             got = fn()
             torch.cuda.synchronize()
+            if " plain " in name:
+                plain[name.replace(" plain ", " sdpa ")] = got[0]
+            if name in plain:       # SDPA's largest difference from plain
+                out[f"{name} max err"] = float(
+                    (got[0].float() - plain.pop(name).float()).abs().max())
             digest = hashlib.sha256()
             for t in got:
                 digest.update(t.contiguous().cpu().view(torch.uint8)
@@ -235,7 +282,9 @@ def measure(tree: Path) -> dict:
             out[f"{name} sha256"] = digest.hexdigest()[:16]
             out[f"{name} ms"] = event_ms(fn)
             out[f"{name} in a row ms"] = row_ms(fn)
-            out[f"{name} device ms"] = device_ms(fn)
+            out[f"{name} device ms"], names = device_ms(fn)
+            if " sdpa " in name:    # the backend torch chose, by its kernels
+                out[f"{name} kernels"] = ", ".join(names)
     return out
 
 

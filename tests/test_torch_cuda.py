@@ -1984,26 +1984,99 @@ def test_general_forms_give_the_template_bits(dev, c):
         assert torch.equal(a, b)
 
 
+# (B, heads, head width, T) of the wide tiles: every cluster size (2 for
+# 130-256, 4 for 300 and 512, 8 from 640: one cluster with empty chunk
+# segments in bf16, 1,100 in two, 4,096 in four, the f32 tile's Q
+# streamed past 8 pieces), and the slice's path at batch 80 (8 heads of
+# 256)
+WIDE_GRID = [(2, 2, 192, 70), (2, 1, 256, 321), (2, 3, 130, 129),
+             (2, 1, 300, 45), (2, 2, 512, 65), (2, 1, 640, 100),
+             (2, 1, 1100, 70), (2, 1, 4096, 33), (80, 8, 256, 321)]
+
+
 @pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
-@pytest.mark.parametrize("h,d,t", [(2, 192, 70), (1, 256, 321), (3, 130, 129),
-                                   (1, 300, 45), (2, 512, 65),
-                                   (1, 4096, 33)])
-def test_flash_attention_wide_heads_match_plain(dev, h, d, t, packed):
-    """#9 at heads past 128 (once refused) on the wide tile: within
-    #9's 2e-5 of the plain core."""
+@pytest.mark.parametrize("b,h,d,t", WIDE_GRID)
+def test_flash_attention_wide_heads_match_plain(dev, b, h, d, t, packed):
+    """#9 at heads past 128 on the wide tile, launched in clusters of
+    `kernels.wide_cluster(d)` (the library's read-back): within #9's
+    2e-5 of the plain core."""
     g = torch.Generator().manual_seed(d + t)
     if packed:
-        qkv = (torch.randn(2, t, 3 * h * d, generator=g) * 2).to(dev)
+        qkv = (torch.randn(b, t, 3 * h * d, generator=g) * 2).to(dev)
         q, k, v = (attention.split_heads(z, h)
                    for z in qkv.split(h * d, dim=-1))
     else:
-        q, k, v = ((torch.randn(2, h, t, d, generator=g) * 2).to(dev)
+        q, k, v = ((torch.randn(b, h, t, d, generator=g) * 2).to(dev)
                    for _ in range(3))
     out = _launched("flash_attention_f32",
                     lambda: fused_attn.flash_causal_attention(q, k, v))
+    assert kernels.last_cluster("flash_attention_f32") == \
+        kernels.wide_cluster(d)
     ref = fused_attn.flash_causal_attention_reference(q, k, v)
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 2e-5
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
+@pytest.mark.parametrize("b,h,d,t", WIDE_GRID)
+def test_flash_attention_bf16_wide_heads_match_plain(dev, b, h, d, t,
+                                                     packed):
+    """#9 on bf16 q, k, v at the same grid, on the bf16 wide tile in
+    clusters of `kernels.wide_cluster(d)`: the bf16 gate against the
+    plain version (or the float64 attention where plain misses it)."""
+    q, k, v = _bf16_qkv(b, h, d, t, packed, seed=d + t)
+    out = _launched("flash_attention_bf16",
+                    lambda: fused_attn.flash_causal_attention(q, k, v))
+    assert kernels.last_cluster("flash_attention_bf16") == \
+        kernels.wide_cluster(d)
+    _assert_bf16_gate_wide(out, q, k, v, f"bf16 #9 at {(b, h, d, t)}")
+
+
+@pytest.mark.parametrize("kernel", ["attn_block_quant",
+                                    "causal_attention_quant"])
+@pytest.mark.parametrize("b,h,d,t", WIDE_GRID)
+def test_wide_attention_int8_kernels_match_plain(dev, b, h, d, t, kernel):
+    """#2 and #11 at heads past 128, their f32 attention on the wide tile
+    (csrc/int8_block.cu::attention_wide_kernel) in clusters of
+    `kernels.wide_cluster(d)`: y8 within the int8 contract of the plain
+    attention on the kernel's own qkv; #2 held stage by stage, each
+    stage fed the kernel's own input (at T = 321 an h8a step, an ulp of
+    LayerNorm, moves a score's argmax and with it a y8 row: a block-a-piece
+    tile gave the same x_mid), qkv and x_mid within 1e-3, h8 within the
+    contract; a narrow head's launch reads back 0."""
+    c = h * d
+    g = torch.Generator().manual_seed(c + t)
+    if kernel == "attn_block_quant":
+        x = torch.randn(b, t, c, generator=g).to(dev)
+        w_qkv, w_proj, scales, vc, v3c = (a.to(dev).contiguous()
+                                          for a in _block_operands(c))
+        args = (x, w_qkv, w_proj, scales, vc, v3c)
+        sc = {}
+        xm, h8 = _launched(kernel, lambda: fbq.attn_block_quant(
+            *args, n_head=h, scratch=sc))
+        assert kernels.last_cluster(kernel) == kernels.wide_cluster(d)
+        _int8_close(sc["h8a"], fbq.ln_q8_reference(x, vc[0], vc[1],
+                                                   scales[0]))
+        qkv = int8.int8_matmul(sc["h8a"], w_qkv).float() * v3c[0] + v3c[1]
+        assert (sc["qkv"] - qkv).abs().max() <= 1e-3
+        _int8_close(sc["y8"], fattn.causal_attention_quant_reference(
+            sc["qkv"], scales[1], n_head=h))
+        xm_ref = x + (int8.int8_matmul(sc["y8"], w_proj).float() * vc[4]
+                      + vc[5])
+        assert (xm - xm_ref).abs().max() <= 1e-3
+        _int8_close(h8, fbq.ln_q8_reference(xm, vc[2], vc[3], scales[2]))
+    else:
+        qkv = (torch.randn(b, t, 3 * c, generator=g) * 2).to(dev)
+        y_scale = torch.tensor(30.0, device=dev)
+        y8 = _launched(kernel, lambda: fattn.fused_causal_attention_quant(
+            qkv, y_scale, n_head=h))
+        assert kernels.last_cluster(kernel) == kernels.wide_cluster(d)
+        _int8_close(y8, fattn.causal_attention_quant_reference(
+            qkv, y_scale, n_head=h))
+        narrow = qkv[..., :3 * 64 * h].contiguous()
+        _launched(kernel, lambda: fattn.fused_causal_attention_quant(
+            narrow, y_scale, n_head=h))
+        assert kernels.last_cluster(kernel) == 0
 
 
 # every transformer width the CLI can build: heads of 25, one head of 192,

@@ -61,25 +61,58 @@
 // HD + 8 elements apart: 16-byte rows whose eight ldmatrix addresses fall
 // in eight different bank groups.
 //
-// A head wider than MAX_HD (up to 4,096) runs on the wide tile
-// (causal_attention_bf16_tile_wide): one block per PIECE = 128 output
-// columns, folded into blockIdx.x beside the head. For each 64-key stage
-// the block stages Q's and K's 128-column chunks of the head in turn
-// through shared memory (no registers hold Q). Each chunk's eight k16
-// steps (WIDE_SUM_STEPS) go into a fresh accumulator, which the tensor
-// core truncates at each step, and that is added to the running f32
-// scores with one rounded add, the chunks in the head's order: the same
-// chain in every piece, so every piece's softmax is the same. One
-// accumulator carried over the whole head, as the narrow tile's, loses
-// a truncation a step to a sum that grows with the head: at a head of
-// 4,096 that moved 4.6e-3 of the bf16 outputs from the float64
-// attention's, past the gate; a fresh one a chunk, 4.9e-4
+// A head wider than MAX_HD (up to 4,096) runs on a wide form: one block
+// per PIECE = 128 output columns, the blocks of one (head, row tile)
+// launched as clusters of n = wide_cluster(hd) along x (2 for 2 pieces,
+// 4 for 3-4, 8 from 5; more than 8 pieces take ceil(pieces / 8)
+// clusters, whose blocks past the head's pieces store nothing), each
+// cluster forming a stage's scores once. The sum order is fixed:
+// for each 128-column chunk of the head in order, its eight k16 steps
+// (WIDE_SUM_STEPS) into a fresh accumulator, which the tensor core
+// truncates at each step, added to the running f32 scores with one
+// rounded add. One accumulator carried over the whole head, as the
+// narrow tile's, loses a truncation a step to a sum that grows with the
+// head: at a head of 4,096 that moved 4.6e-3 of the bf16 outputs from
+// the float64 attention's, past the gate; a fresh one a chunk, 4.9e-4
 // (scripts/bench_flash_bf16_wide_sums.py, which also builds a fresh
-// accumulator a step, with rounded or compensated adds; PERF.md). Then
-// the softmax and P@V on the three bf16 terms of P, as the narrow
-// tile's, for the block's piece of V. The scores are formed once a piece, (hd /
-// 128)x the narrow tile's work, and nothing is double-buffered: a simple
-// form that is right; its times are in PERF.md.
+// accumulator a step, with rounded or compensated adds; PERF.md). Every
+// score keeps that order element by element, so the outputs are the
+// same bits in every form and cluster size. Then softmax_pv, as the
+// narrow tile's, on the three bf16 terms of P for the block's piece of
+// V. The score work is ceil(pieces / 8) times a head's (a block a piece
+// forming them alone would form them once a piece).
+//   Up to 4 pieces (causal_attention_bf16_tile_wide): the 64 x 64 score
+// tile is cut into 32 units of 16 rows x 8 keys, and the cluster's 4n
+// warps take 8 / n units each, in order (block r: rows 32 r .. at n = 2,
+// row block r at 4), over the whole head; each block writes its units
+// to one of two slots in its shared memory, one cluster barrier a stage
+// makes them visible, and each warp reads its 16 rows x 64 keys from the
+// blocks that formed them through distributed shared memory. Shared
+// memory: Q of the block's rows for the whole head (32 rows x 2 chunks
+// at n = 2, 16 x 4 at 4; 136 elements a row), a ring of three places of
+// K's chunk (64 keys), V's piece (64 rows, single, copied at the start of
+// a stage while its scores form), two f32 slots of the block's units: at
+// n = 2, 17,408 + 3 x 17,408 + 17,408 + 2 x 8,192 = 103,424 bytes (Wide,
+// checked against 227 KB below): two blocks an SM.
+//   From 5 pieces (causal_attention_bf16_tile_chunks, clusters of 8):
+// that split leaves every block reading Q's and K's rows over the whole
+// head (384 KB a stage at 4,096, the key halves' K four times over a
+// cluster), and at 4,096 it held 2.5 TB/s of L2 reads for 1.66x the
+// speed of a block a piece (PERF.md). Here block r takes whole chunks of
+// the head, [r np / 8, (r + 1) np / 8) (none where empty): each warp
+// forms its 16 rows x 64 keys in a fresh accumulator a chunk (the steps
+// above), each chunk's partial goes to its slot; after a cluster barrier each block
+// sums its 8 rows over every chunk of the head in order from 0, the
+// other blocks' slots read through distributed shared memory; after a
+// second barrier each warp reads its rows' sums from the two blocks that
+// hold them. Shared memory at seg = ceil(pieces / 8) chunks a block: Q
+// of the 64 rows for them, three places of K's chunk, V's piece, seg
+// slots of 64 x 72 f32 partials and 8 x 72 sums: at 4,096 (seg 4)
+// 69,632 + 52,224 + 17,408 + 73,728 + 2,304 = 215,296 bytes, one block
+// an SM; up to 8 pieces 107,776, two (Chunks::smem).
+//   Barriers: every thread of every block joins each stage's cluster
+// barriers and the one after the loop, and no block returns before that
+// last one, after which no peer reads its shared memory.
 //
 // What bounds it on an H100 at (16, 8, 321, 64): the 21 MB of q, k, v and
 // the output (0.0063 ms at 3.35 TB/s); the products, Q K^T once and P@V
@@ -91,6 +124,7 @@
 // (scripts/bench_flash_bf16_variants.py; PERF.md).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -138,18 +172,81 @@ inline dim3 grid(int batch, int n_head, int t) {
   return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
 }
 
-// the wide tile's blocks a head, its grid and its shared memory: Q's
-// chunk, K's chunk and V's piece
+// The wide tile: a head of width hd in pieces of PIECE output columns,
+// clusters of wide_cluster(hd) blocks, wide_groups(hd) clusters a (head,
+// row tile); its grid: (head, group, rank) folded into x, batch, row
+// tiles
+constexpr int WIDE_MAX_CLUSTER = 8;
+
 __host__ __device__ constexpr int pieces(int hd) {
   return (hd + PIECE - 1) / PIECE;
 }
 
-inline dim3 wide_grid(int batch, int n_head, int t, int hd) {
-  return dim3(n_head * pieces(hd), batch, (t + QROWS - 1) / QROWS);
+__host__ __device__ constexpr int wide_cluster(int hd) {
+  return pieces(hd) <= 2 ? 2 : pieces(hd) <= 4 ? 4 : WIDE_MAX_CLUSTER;
 }
 
-constexpr size_t WIDE_SMEM =
-    sizeof(__nv_bfloat16) * (QROWS + 2 * KT) * Shape<PIECE>::RS;
+__host__ __device__ constexpr int wide_groups(int hd) {
+  return (pieces(hd) + wide_cluster(hd) - 1) / wide_cluster(hd);
+}
+
+inline dim3 wide_grid(int batch, int n_head, int t, int hd) {
+  return dim3(n_head * wide_groups(hd) * wide_cluster(hd), batch,
+              (t + QROWS - 1) / QROWS);
+}
+
+// The wide tile's shapes for clusters of N = 2 or 4 (up to 4 pieces):
+// units of 16 rows x 8 keys, PER_BLOCK a block (whole row blocks, all
+// KT keys) and U a warp; the block's QR rows of Q (N chunks at most,
+// held); a ring of STAGES places of K's chunk, V's piece and two f32
+// slots of the block's units
+template <int N>
+struct Wide {
+  static_assert(N == 2 || N == 4, "a cluster of 2 or 4");
+  static constexpr int RS = Shape<PIECE>::RS;
+  static constexpr int UNITS = (QROWS / WROWS) * (KT / 8);
+  static constexpr int PER_BLOCK = UNITS / N;
+  static constexpr int U = PER_BLOCK / WARPS;
+  static constexpr int QR = PER_BLOCK / 8 * WROWS;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_ELEMS = N * QR * RS;
+  static constexpr int RING = KT * RS;
+  static constexpr int SLOT = PER_BLOCK * WROWS * 8;   // floats
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (Q_ELEMS + STAGES * RING + KT * RS) +
+      sizeof(float) * 2 * SLOT;
+  static_assert(PER_BLOCK % 8 == 0, "whole row blocks a block");
+  static_assert(SMEM <= 232448, "227 KB of shared memory a block");
+  static_assert(WIDE_SUM_STEPS * 16 == PIECE, "a fresh accumulator a chunk");
+};
+
+// The chunked form's shapes (5 pieces and more, clusters of 8): a
+// block's segment of at most seg(hd) <= MAXL chunks of the head, Q of
+// all QROWS rows for them (held, CHUNK_Q elements a chunk), a ring of
+// STAGES places of K's chunk, V's piece; a slot of f32 partial scores a
+// chunk of the segment (QROWS x KT, rows SRS floats apart) and the sums
+// of the block's ROWS rows; smem(seg) bytes
+struct Chunks {
+  static constexpr int N = WIDE_MAX_CLUSTER;
+  static constexpr int MAXL = MAX_WIDE_HD / PIECE / N;
+  static constexpr int RS = Shape<PIECE>::RS;
+  static constexpr int SRS = KT + 8;
+  static constexpr int ROWS = QROWS / N;
+  static constexpr int STAGES = 3;
+  static constexpr int CHUNK_Q = QROWS * RS;
+  static constexpr int RING = KT * RS;
+  static constexpr int SLOT = QROWS * SRS;             // floats
+  __host__ __device__ static constexpr int seg(int hd) {
+    return (pieces(hd) + N - 1) / N;
+  }
+  __host__ __device__ static constexpr size_t smem(int seg) {
+    return sizeof(__nv_bfloat16) * (seg * CHUNK_Q + STAGES * RING + KT * RS) +
+           sizeof(float) * (seg * SLOT + ROWS * SRS);
+  }
+  static_assert(ROWS * KT == 4 * THREADS, "four sums a thread");
+};
+static_assert(Chunks::smem(Chunks::MAXL) <= 232448,
+              "227 KB of shared memory a block");
 
 // q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e; vec16: every row
 // starts 16-byte aligned and hd is a multiple of 8, so rows are copied 16
@@ -569,26 +666,39 @@ __device__ __forceinline__ void causal_attention_bf16_tile(
   }
 }
 
-// The wide tile (a head of in.hd > MAX_HD columns): block (h *
-// pieces(hd) + p, b, z) = blockIdx, THREADS threads, WIDE_SMEM bytes of
-// dynamic shared memory; writes columns [PIECE p, PIECE (p + 1)) of the
-// head's rows. For each stage of KT keys: V's piece is copied, then for
-// each 128-column chunk of the head in order Q's and K's chunks (zero
-// past the head and past T), the chunk's k16 steps into a fresh
-// accumulator and that added to the scores; then softmax_pv as in the
-// tile above.
+// The wide tile (a head of in.hd > MAX_HD columns) in clusters of N
+// along x: block (h * groups * N + group * N + rank, b, z) = blockIdx,
+// THREADS threads, Wide<N>::SMEM bytes of dynamic shared memory; writes
+// columns [PIECE p, PIECE (p + 1)) of the head's rows, p = group * N +
+// rank, where p < pieces(hd). For each stage of KT keys, the head's
+// 128-column chunks of K in turn through the ring (zero past the head
+// and past T), each chunk's k16 steps of the warp's units into a fresh
+// accumulator added to their scores; then the units to a slot, a
+// cluster barrier, the warp's rows' scores from the blocks that formed
+// them, softmax_pv as in the tile above.
+template <int N>
 __device__ __forceinline__ void causal_attention_bf16_tile_wide(
     const Operands& in, const Output& out) {
+  namespace cg = cooperative_groups;
+  using W = Wide<N>;
   constexpr int HD = PIECE;
-  constexpr int RS = Shape<HD>::RS;
+  constexpr int RS = W::RS;
   constexpr int ND = HD / 8;           // 8-column blocks of the output
+  constexpr int U = W::U;
+  constexpr int S = W::STAGES;
   extern __shared__ float4 smem4[];
   __nv_bfloat16* const q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* const k_s = q_s + QROWS * RS;
-  __nv_bfloat16* const v_s = k_s + KT * RS;
+  __nv_bfloat16* const ring = q_s + W::Q_ELEMS;       // S x RING
+  __nv_bfloat16* const v_s = ring + S * W::RING;      // KT x RS
+  float* const slots = reinterpret_cast<float*>(v_s + KT * RS);
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int np = pieces(in.hd);
-  const int h = blockIdx.x / np, b = blockIdx.y;
-  const int c0 = PIECE * (blockIdx.x % np);      // this block's columns
+  const int per_head = wide_groups(in.hd) * N;
+  const int h = blockIdx.x / per_head, piece = blockIdx.x % per_head;
+  const bool stores = piece < np;                // a piece of the head
+  const int b = blockIdx.y;
+  const int c0 = PIECE * piece;                  // this block's columns
   const int q_end = in.t - QROWS * (int)blockIdx.z;      // rows < q_end
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tg = lane % 4;
@@ -596,56 +706,124 @@ __device__ __forceinline__ void causal_attention_bf16_tile_wide(
   const int w_end = w0 + WROWS;
   const long long base = b * in.sb + h * in.sh;
   const int n_tiles = (q_end + KT - 1) / KT;
+  const int n_units = n_tiles * np;
   const int lim0 = max(w0 + g, 0), lim1 = max(w0 + g + 8, 0);
-  const __nv_bfloat16* k_row = k_row_of<RS>(k_s);
+  // the block's units from first (row block rb0, all keys); the
+  // warp's: row block urb, key blocks uj .. uj + U - 1
+  const int first = rank * W::PER_BLOCK;
+  const int rb0 = first / 8;
+  const int unit0 = first + warp * U;
+  const int urb = unit0 / 8, uj = unit0 % 8;
+  const int q_first = q_end - QROWS + WROWS * rb0;
+  const int u_end = q_end - QROWS + WROWS * (urb + 1);
+  const int q_lane = (WROWS * (urb - rb0) + lane % 16) * RS + 8 * (lane / 16);
+
+  // unit u: K's chunk u % np of stage u / np, the block's keys
+  auto fetch = [&](int u) {
+    if (u < n_units) {
+      const int c = u % np;
+      RowCopy<HD>(in.k + base + PIECE * c, in.st, in.t,
+                  min(PIECE, in.hd - PIECE * c), in.vec16)
+          .template rows<KT>(ring + (u % S) * W::RING, KT * (u / np));
+    }
+    cp_async_commit();
+  };
+
+  for (int c = 0; c < np; ++c)
+    RowCopy<HD>(in.q + base + PIECE * c, in.st, in.t,
+                min(PIECE, in.hd - PIECE * c), in.vec16)
+        .template rows<W::QR>(q_s + c * W::QR * RS, q_first);
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) fetch(i);      // Q joins unit 0's group
 
   float o[ND][4] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * KT;
-    const int nc = min(max((w_end - k0 + KC - 1) / KC, 0), NC);
-    const bool mask = k0 + KT - 1 > max(w0, 0);
-    RowCopy<HD>(in.v + base + c0, in.st, in.t, min(PIECE, in.hd - c0),
-                in.vec16)
-        .rows<KT>(v_s, k0);
-    float s[2 * NC][4] = {};
-    for (int e0 = 0; e0 < in.hd; e0 += PIECE) {
-      const int cw = min(PIECE, in.hd - e0);
-      RowCopy<HD>(in.q + base + e0, in.st, in.t, cw, in.vec16)
-          .rows<QROWS>(q_s, q_end - QROWS);
-      RowCopy<HD>(in.k + base + e0, in.st, in.t, cw, in.vec16)
-          .rows<KT>(k_s, k0);
-      cp_async_commit();
-      cp_async_wait<0>();   // this chunk (and, the first time, V) landed
-      __syncthreads();
-      if (nc > 0) {
+    // the warp's units below its row block's last row
+    const int nu =
+        2 * min(max((u_end - k0 + KC - 1) / KC, 0), NC) - uj;
+    float sp[U][4] = {};
+    for (int c = 0; c < np; ++c) {
+      const int u = it * np + c;
+      cp_async_wait<S - 2>();   // unit u has landed
+      __syncthreads();          // ... for every thread, which have all
+                                // read unit u - 1: its place takes u + S - 1
+      if (c == 0 && stores)     // V's piece, read after the stage's units
+        RowCopy<HD>(in.v + base + c0, in.st, in.t, min(PIECE, in.hd - c0),
+                    in.vec16)
+            .template rows<KT>(v_s, k0);
+      fetch(u + S - 1);         // one cp.async group a unit (V's in it)
+      if (nu > 0) {
+        const int cw = min(PIECE, in.hd - PIECE * c);
+        const __nv_bfloat16* q_c = q_s + c * W::QR * RS + q_lane;
+        const __nv_bfloat16* k_row = k_row_of<RS>(
+            ring + (u % S) * W::RING + 8 * uj * RS);
+        float part[U][4] = {};
 #pragma unroll
-        for (int k0s = 0; k0s < HD / 16; k0s += WIDE_SUM_STEPS) {
-          float part[2 * NC][4] = {};
+        for (int kk = 0; kk < WIDE_SUM_STEPS; ++kk) {
+          if (16 * kk < cw) {
+            uint32_t qf[4];
+            ldsm_x4(qf, q_c + 16 * kk);
 #pragma unroll
-          for (int kk = k0s; kk < k0s + WIDE_SUM_STEPS; ++kk) {
-            if (16 * kk < cw) {
-              uint32_t qf[4];
-              ldsm_x4(qf, q_s + (WROWS * warp + lane % 16) * RS + 16 * kk +
-                              8 * (lane / 16));
-              score_step<RS>(part, qf, k_row + 16 * kk);
+            for (int j = 0; j < U; j += 2) {
+              // B fragments of the key blocks uj + j and uj + j + 1
+              uint32_t kf[4];
+              ldsm_x4(kf, k_row + 8 * j * RS + 16 * kk);
+              mma_bf16(part[j], qf, kf[0], kf[1]);
+              mma_bf16(part[j + 1], qf, kf[2], kf[3]);
             }
           }
-#pragma unroll
-          for (int j = 0; j < 2 * NC; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              s[j][i] = __fadd_rn(s[j][i], part[j][i]);
         }
+#pragma unroll
+        for (int j = 0; j < U; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            sp[j][i] = __fadd_rn(sp[j][i], part[j][i]);
       }
-      __syncthreads();      // the chunk is consumed before the next
     }
-    if (nc > 0)
-      softmax_pv<HD>(s, o, m, l, v_s, nc, mask, k0, lim0, lim1, in.sm_scale);
-    __syncthreads();        // V's piece is consumed before it is refilled
+    // the units to this stage's slot: unit j of the warp at (warp U + j)
+    // x 128, rows g and g + 8 of it, keys 2 tg, 2 tg + 1
+    float* slot = slots + (it & 1) * W::SLOT;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (j < nu) {
+        float* dst = slot + (warp * U + j) * WROWS * 8 + g * 8 + 2 * tg;
+        *reinterpret_cast<float2*>(dst) = make_float2(sp[j][0], sp[j][1]);
+        *reinterpret_cast<float2*>(dst + 64) =
+            make_float2(sp[j][2], sp[j][3]);
+      }
+    }
+    cp_async_wait<0>();         // V's piece has landed
+    cluster.sync();             // every block's units of the stage written
+    const int nc = min(max((w_end - k0 + KC - 1) / KC, 0), NC);
+    if (stores && nc > 0) {
+      // row block `warp`: unit 8 warp + j in block (8 warp + j) / PER_BLOCK
+      float s[2 * NC][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NC; ++j) {
+        float2 x0 = make_float2(0.0f, 0.0f), x1 = x0;
+        if (j < 2 * nc) {
+          const int unit = 8 * warp + j, owner = unit / W::PER_BLOCK;
+          const float* src = cluster.map_shared_rank(slot, owner) +
+                             (unit - owner * W::PER_BLOCK) * WROWS * 8 +
+                             g * 8 + 2 * tg;
+          x0 = *reinterpret_cast<const float2*>(src);
+          x1 = *reinterpret_cast<const float2*>(src + 64);
+        }
+        s[j][0] = x0.x;
+        s[j][1] = x0.y;
+        s[j][2] = x1.x;
+        s[j][3] = x1.y;
+      }
+      const bool mask = k0 + KT - 1 > max(w0, 0);
+      softmax_pv<HD>(s, o, m, l, v_s, nc, mask, k0, lim0, lim1,
+                     in.sm_scale);
+    }
   }
+  cluster.sync();               // no peer reads this block's slots now
 
-  if (w_end <= 0) return;
+  if (!stores || w_end <= 0) return;
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
 #pragma unroll
@@ -658,6 +836,198 @@ __device__ __forceinline__ void causal_attention_bf16_tile_wide(
     for (int n = 0; n < ND; ++n) {
       const int col = 8 * n + 2 * tg;
       const float y0 = o[n][2 * r] / l[r], y1 = o[n][2 * r + 1] / l[r];
+      if (out.pairs) {
+        if (c0 + col < in.hd)
+          *reinterpret_cast<__nv_bfloat162*>(o_row + col) =
+              __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (c0 + col < in.hd) o_row[col] = __float2bfloat16_rn(y0);
+        if (c0 + col + 1 < in.hd) o_row[col + 1] = __float2bfloat16_rn(y1);
+      }
+    }
+  }
+}
+
+// The chunked form (5 pieces and more: clusters of N = 8 along x, block
+// (h * groups * N + group * N + rank, b, z) = blockIdx, THREADS threads,
+// Chunks::smem(Chunks::seg(hd)) bytes of dynamic shared memory; writes
+// columns [PIECE p,
+// PIECE (p + 1)) of the head's rows, p = group * N + rank, where p <
+// pieces(hd)). Block r takes the head's chunks [r np / N, (r + 1) np /
+// N) (none where that is empty), Q of the tile's rows for them held. For
+// each stage of KT keys: V's piece is copied; for each of the block's
+// chunks, K's chunk through the ring and each warp's 16 rows x 64 keys
+// in a fresh accumulator through the chunk's k16 steps (score_step, as
+// the tile above), the partial to the chunk's slot; a cluster barrier; the
+// block sums its ROWS rows' partials over every chunk of the head in the
+// head's order from 0 (rounded adds, the other blocks' slots through
+// distributed shared memory); a cluster barrier; each warp reads its
+// rows' sums from the blocks that formed them, and softmax_pv on V's
+// piece.
+__device__ __forceinline__ void causal_attention_bf16_tile_chunks(
+    const Operands& in, const Output& out) {
+  namespace cg = cooperative_groups;
+  using C = Chunks;
+  constexpr int N = C::N;
+  constexpr int HD = PIECE;
+  constexpr int RS = C::RS;
+  constexpr int ND = HD / 8;           // 8-column blocks of the output
+  constexpr int S = C::STAGES;
+  const int seg = C::seg(in.hd);
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* const q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* const ring = q_s + seg * C::CHUNK_Q;  // S x RING
+  __nv_bfloat16* const v_s = ring + S * C::RING;       // KT x RS
+  float* const slots = reinterpret_cast<float*>(v_s + KT * RS);  // seg x SLOT
+  float* const sums = slots + seg * C::SLOT;           // ROWS x SRS
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int np = pieces(in.hd);
+  const int per_head = wide_groups(in.hd) * N;
+  const int h = blockIdx.x / per_head, piece = blockIdx.x % per_head;
+  const bool stores = piece < np;                // a piece of the head
+  const int b = blockIdx.y;
+  const int c0 = PIECE * piece;                  // this block's columns
+  const int q_end = in.t - QROWS * (int)blockIdx.z;      // rows < q_end
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int w0 = q_end - QROWS + WROWS * warp;           // may be < 0
+  const int w_end = w0 + WROWS;
+  const long long base = b * in.sb + h * in.sh;
+  const int n_tiles = (q_end + KT - 1) / KT;
+  const int lim0 = max(w0 + g, 0), lim1 = max(w0 + g + 8, 0);
+  // the block's chunks of the head, its units (a chunk of a stage)
+  const int seg0 = rank * np / N, len = (rank + 1) * np / N - seg0;
+  const int n_units = n_tiles * len;
+  const __nv_bfloat16* q_lane =
+      q_s + (WROWS * warp + lane % 16) * RS + 8 * (lane / 16);
+
+  // unit u: K's chunk seg0 + u % len of stage u / len
+  auto fetch = [&](int u) {
+    if (u < n_units) {
+      const int c = seg0 + u % len;
+      RowCopy<HD>(in.k + base + PIECE * c, in.st, in.t,
+                  min(PIECE, in.hd - PIECE * c), in.vec16)
+          .template rows<KT>(ring + (u % S) * C::RING, KT * (u / len));
+    }
+    cp_async_commit();
+  };
+
+  for (int l = 0; l < len; ++l)
+    RowCopy<HD>(in.q + base + PIECE * (seg0 + l), in.st, in.t,
+                min(PIECE, in.hd - PIECE * (seg0 + l)), in.vec16)
+        .template rows<QROWS>(q_s + l * C::CHUNK_Q, q_end - QROWS);
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) fetch(i);      // Q joins unit 0's group
+
+  float o[ND][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l_sum[2] = {0.0f, 0.0f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    const int nc = min(max((w_end - k0 + KC - 1) / KC, 0), NC);
+    __syncthreads();            // the last stage's P@V has read V's piece
+    if (stores)                 // V's piece, read after the stage's sums
+      RowCopy<HD>(in.v + base + c0, in.st, in.t, min(PIECE, in.hd - c0),
+                  in.vec16)
+          .template rows<KT>(v_s, k0);
+    cp_async_commit();
+    for (int l = 0; l < len; ++l) {
+      const int u = it * len + l;
+      cp_async_wait<S - 2>();   // unit u has landed
+      __syncthreads();          // ... for every thread, which have all
+                                // read unit u - 1: its place takes u + S - 1
+      fetch(u + S - 1);
+      if (nc > 0) {
+        const int cw = min(PIECE, in.hd - PIECE * (seg0 + l));
+        const __nv_bfloat16* k_row =
+            k_row_of<RS>(ring + (u % S) * C::RING);
+        float part[2 * NC][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < WIDE_SUM_STEPS; ++kk) {
+          if (16 * kk < cw) {
+            uint32_t qf[4];
+            ldsm_x4(qf, q_lane + l * C::CHUNK_Q + 16 * kk);
+            score_step<RS>(part, qf, k_row + 16 * kk);
+          }
+        }
+        // the partial to its slot: rows g and g + 8 of the warp's, keys
+        // 8 j + 2 tg, + 1
+        float* dst = slots + l * C::SLOT + (WROWS * warp + g) * C::SRS +
+                     2 * tg;
+#pragma unroll
+        for (int j = 0; j < 2 * NC; ++j) {
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(part[j][0], part[j][1]);
+          *reinterpret_cast<float2*>(dst + 8 * C::SRS + 8 * j) =
+              make_float2(part[j][2], part[j][3]);
+        }
+      }
+    }
+    cp_async_wait<0>();         // V's piece has landed
+    cluster.sync();             // every block's partials of the stage
+    {
+      // this block's rows: four keys a thread, the head's chunks in
+      // order from 0, block by block
+      const int row = C::ROWS * rank + threadIdx.x / (KT / 4);
+      const int key = 4 * (threadIdx.x % (KT / 4));
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int r = 0; r < N; ++r) {
+        const int s0 = r * np / N, n_r = (r + 1) * np / N - s0;
+        const float* src =
+            cluster.map_shared_rank(slots, r) + row * C::SRS + key;
+        for (int l = 0; l < n_r; ++l) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(src + l * C::SLOT);
+          acc.x = __fadd_rn(acc.x, x.x);
+          acc.y = __fadd_rn(acc.y, x.y);
+          acc.z = __fadd_rn(acc.z, x.z);
+          acc.w = __fadd_rn(acc.w, x.w);
+        }
+      }
+      *reinterpret_cast<float4*>(sums + (row - C::ROWS * rank) * C::SRS +
+                                 key) = acc;
+    }
+    cluster.sync();             // every block's sums of the stage
+    if (stores && nc > 0) {
+      // row w0 + g from block 2 warp, w0 + g + 8 from block 2 warp + 1
+      const float* lo =
+          cluster.map_shared_rank(sums, 2 * warp) + g * C::SRS + 2 * tg;
+      const float* hi =
+          cluster.map_shared_rank(sums, 2 * warp + 1) + g * C::SRS + 2 * tg;
+      float s[2 * NC][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NC; ++j) {
+        float2 x0 = make_float2(0.0f, 0.0f), x1 = x0;
+        if (j < 2 * nc) {
+          x0 = *reinterpret_cast<const float2*>(lo + 8 * j);
+          x1 = *reinterpret_cast<const float2*>(hi + 8 * j);
+        }
+        s[j][0] = x0.x;
+        s[j][1] = x0.y;
+        s[j][2] = x1.x;
+        s[j][3] = x1.y;
+      }
+      const bool mask = k0 + KT - 1 > max(w0, 0);
+      softmax_pv<HD>(s, o, m, l_sum, v_s, nc, mask, k0, lim0, lim1,
+                     in.sm_scale);
+    }
+  }
+  cluster.sync();               // no peer reads this block's sums now
+
+  if (!stores || w_end <= 0) return;
+  l_sum[0] = quad_sum(l_sum[0]);
+  l_sum[1] = quad_sum(l_sum[1]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + g + 8 * r;
+    if (row < 0) continue;
+    __nv_bfloat16* o_row =
+        out.o + b * out.sb + h * out.sh + row * out.st + c0;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int col = 8 * n + 2 * tg;
+      const float y0 = o[n][2 * r] / l_sum[r];
+      const float y1 = o[n][2 * r + 1] / l_sum[r];
       if (out.pairs) {
         if (c0 + col < in.hd)
           *reinterpret_cast<__nv_bfloat162*>(o_row + col) =

@@ -46,16 +46,44 @@
 // block an SM.
 //
 // A head wider than 128 (up to MAX_WIDE_HD) runs on the wide tile
-// (causal_attention_tile_wide): a grid axis over pieces of PIECE = 128
-// output columns, folded into blockIdx.x beside the head. Each block
-// computes the whole head's scores, one FMA chain over the head dims in
-// order whose accumulators carry across 128-column chunks of Q and K
-// staged through shared memory in turn, so the scores round as the
-// narrow tile's (and the plain GEMM's) do; then the same online softmax,
-// and P@V for its own piece of V. The scores are computed once a piece,
-// (hd / 128)x the score work; no double buffer (135 KB, one block an
-// SM). A simple form that is right; its time is in PERF.md.
-//
+// (causal_attention_tile_wide), a block per PIECE = 128 output columns,
+// the blocks of one (head, row tile) launched as clusters of n =
+// wide_cluster(hd) blocks along x (n = 2 for 2 pieces, 4 for 3-4, 8
+// from 5: the portable limit). A head of more than 8 pieces takes
+// ceil(pieces / 8) cluster groups, each a cluster of 8 blocks (the last
+// group's blocks past the head's pieces store nothing). Each cluster
+// forms a stage's scores once: the stage's 128 x 64 score tile is cut
+// into 64 units of 16 rows x 8 keys (a row block, a key block), and its
+// 8n warps take 8 / n units each, in order, so block r of the cluster
+// takes the rows [128 r / n, 128 (r + 1) / n) and all 64 keys. Each unit
+// is one FMA chain over every head dim in order (the chunks of
+// 128 columns in turn, zero-filled past the head), so the scores keep
+// the unchunked chain's bits, the plain GEMM's order (the design that
+// instead gave each block a 128-column chunk with its own chain and
+// added the chunks' sums in order missed #9's 2e-5 against plain by less
+// than a factor 2 of margin at a head of 300; tests/test_torch_wide_
+// attention.py). Each block writes its units to one of two slots in its
+// shared memory, one cluster barrier makes them visible, and every warp
+// reads its 16 rows x 64 keys through distributed shared memory from the
+// block that formed them; then the narrow tile's softmax_step and
+// pv_step for the block's own 128 columns of V. The score work is
+// ceil(pieces / 8) times a head's (a block a piece forming them alone
+// would form them once a piece).
+//   Shared memory a block (f32): Q of the block's 128 / n rows for the
+// whole head where the head fits in 8 pieces ((128 / n) x 132 floats a
+// chunk, 67,584 bytes at most), else streamed with K a chunk at a time;
+// a ring of K chunks (64 x 132 floats, with Q's 16 x 132 when streamed)
+// of 2 places (4 streamed); V's piece, single (64 x 132), copied at the
+// start of a stage while its scores form; two score slots of 64 / n
+// units x 128 floats. n = 2: 67,584 + 2 x 33,792 + 33,792 + 2 x 16,384
+// = 201,728 bytes; a head past 8 pieces: 4 x 42,240 + 33,792 + 2 x
+// 4,096 = 210,944 (Wide::SMEM, checked against 227 KB below): one
+// block an SM.
+//   Barriers: every thread of every block joins each stage's cluster
+// barrier and the last one after the loop (causally idle rows and the
+// blocks past the head's pieces too), and no block returns before that
+// last one, after which no peer reads its slots.
+
 // What bounds it on an H100 (at the bench shape, T = 321, B = 80, H = 8):
 // the bytes of q, k, v and the output (210 MB f32, 3.35 TB/s: 0.063 ms);
 // both products in split TF32 would take 6 x 4.2 GFLOP at 495 TFLOP/s
@@ -66,6 +94,8 @@
 // warp nearly halve the reads per FMA, but their registers leave an SM 8
 // warps instead of 16, and that tile was slower (PERF.md, Findings).
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -106,18 +136,54 @@ inline dim3 grid(int batch, int n_head, int t) {
   return dim3(n_head, batch, (t + QROWS - 1) / QROWS);
 }
 
-// the wide tile's pieces of a head of width hd, and its grid: (head,
-// piece) pairs, batch, row tiles; Q's chunk, K's chunk and V's piece in
-// shared memory
+// The wide tile: a head of width hd in pieces of PIECE output columns,
+// clusters of wide_cluster(hd) blocks, wide_groups(hd) clusters a (head,
+// row tile); its grid: (head, group, rank) folded into x, batch, row
+// tiles
+constexpr int WIDE_MAX_CLUSTER = 8;
+
 __host__ __device__ constexpr int pieces(int hd) {
   return (hd + PIECE - 1) / PIECE;
 }
 
-inline dim3 wide_grid(int batch, int n_head, int t, int hd) {
-  return dim3(n_head * pieces(hd), batch, (t + QROWS - 1) / QROWS);
+__host__ __device__ constexpr int wide_cluster(int hd) {
+  return pieces(hd) <= 2 ? 2 : pieces(hd) <= 4 ? 4 : WIDE_MAX_CLUSTER;
 }
 
-constexpr size_t WIDE_SMEM = sizeof(float) * (QROWS + 2 * KT) * (PIECE + 4);
+__host__ __device__ constexpr int wide_groups(int hd) {
+  return (pieces(hd) + wide_cluster(hd) - 1) / wide_cluster(hd);
+}
+
+// Q stays in shared memory for the whole launch up to 8 pieces
+__host__ __device__ constexpr bool wide_resident(int hd) {
+  return pieces(hd) <= WIDE_MAX_CLUSTER;
+}
+
+inline dim3 wide_grid(int batch, int n_head, int t, int hd) {
+  return dim3(n_head * wide_groups(hd) * wide_cluster(hd), batch,
+              (t + QROWS - 1) / QROWS);
+}
+
+// The wide tile's shapes for clusters of N with Q resident (QRES) or
+// streamed, in floats: QR rows of Q a block, U units (16 rows x 8 keys)
+// a warp; the ring of STAGES places (K's chunk, and Q's when streamed),
+// V's piece, two slots of the block's units
+template <int N, bool QRES>
+struct Wide {
+  static_assert(N == 2 || N == 4 || N == 8, "a cluster of 2, 4 or 8");
+  static_assert(QRES || N == WIDE_MAX_CLUSTER, "Q streamed past 8 pieces");
+  static constexpr int RS = PIECE + 4;
+  static constexpr int QR = QROWS / N;
+  static constexpr int UNITS = (QROWS / WROWS) * NB;
+  static constexpr int U = UNITS / (N * WARPS);
+  static constexpr int STAGES = QRES ? 2 : 4;
+  static constexpr int Q_FLOATS = QRES ? N * QR * RS : 0;
+  static constexpr int RING = (QRES ? 0 : QR * RS) + KT * RS;
+  static constexpr int SLOT = UNITS / N * WROWS * 8;
+  static constexpr size_t SMEM =
+      sizeof(float) * (Q_FLOATS + STAGES * RING + KT * RS + 2 * SLOT);
+  static_assert(SMEM <= 232448, "227 KB of shared memory a block");
+};
 
 // q, k, v element (b, h, i, e) at b*sb + h*sh + i*st + e (floats).
 // vec16: every row starts 16-byte aligned (the pointers and the strides,
@@ -459,37 +525,116 @@ __device__ __forceinline__ void causal_attention_tile(const Operands& in,
   }
 }
 
-// The wide tile (a head of in.hd > MAX_HD columns): block (h * pieces +
-// p, b, z) = blockIdx, THREADS threads, WIDE_SMEM bytes of dynamic shared
-// memory, writes columns [PIECE p, PIECE (p + 1)) of the head's rows
-// through store.one. For each stage of KT keys: V's piece is copied, then
-// for each 128-column chunk of the head in order Q's and K's chunks are
-// copied and the score chain carried on; then the softmax and P@V as in
-// the tile above.
-template <class Store>
+// s[r][j][c] = fma(q_e, k_e, s) over e = 0 .. PIECE - 1 in order,
+// carried on from s: the score chain of score_chain<PIECE> for a warp's
+// U units, keys 8 j + 2 tg + c from k_s, j < nu
+template <int U>
+__device__ __forceinline__ void unit_chain(float (&s)[R][U][2],
+                                           const float* q_row,
+                                           const float* k_s, int nu,
+                                           int tg) {
+  constexpr int RS = Shape<PIECE>::RS;
+#pragma unroll 2
+  for (int e = 0; e < PIECE; e += 4) {
+    float4 x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      x[r] = *reinterpret_cast<const float4*>(q_row + 8 * r * RS + e);
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (j < nu) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              k_s + (8 * j + 2 * tg + c) * RS + e);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float& a = s[r][j][c];
+            a = fmaf(x[r].x, kv.x, a);
+            a = fmaf(x[r].y, kv.y, a);
+            a = fmaf(x[r].z, kv.z, a);
+            a = fmaf(x[r].w, kv.w, a);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The wide tile (a head of in.hd > MAX_HD columns) in clusters of N
+// along x: block (h * groups * N + group * N + rank, b, z) = blockIdx,
+// THREADS threads, Wide<N, QRES>::SMEM bytes of dynamic shared memory;
+// writes columns [PIECE p, PIECE (p + 1)) of the head's rows through
+// store.one, p = group * N + rank, where p < pieces(hd). For each stage
+// of KT keys, the head's chunks in turn through the ring (a unit of the
+// walk: chunk c of stage it), each carrying on the chain of the warp's
+// units; then the units to a slot, a cluster barrier, the warp's rows'
+// scores from their block's slot, softmax_step and pv_step on V's piece.
+template <int N, bool QRES, class Store>
 __device__ __forceinline__ void causal_attention_tile_wide(
     const Operands& in, const Store& store) {
+  namespace cg = cooperative_groups;
+  using W = Wide<N, QRES>;
   constexpr int HD = PIECE;
-  constexpr int RS = Shape<HD>::RS;
+  constexpr int RS = W::RS;
+  constexpr int U = W::U;
+  constexpr int S = W::STAGES;
   extern __shared__ float4 smem4[];
-  float* const q_s = reinterpret_cast<float*>(smem4);  // QROWS x RS
-  float* const k_s = q_s + QROWS * RS;                  // KT x RS
-  float* const v_s = k_s + KT * RS;                     // KT x RS
+  float* const q_s = reinterpret_cast<float*>(smem4);  // chunks of QR x RS
+  float* const ring = q_s + W::Q_FLOATS;                // S x RING
+  float* const v_s = ring + S * W::RING;                // KT x RS
+  float* const slots = v_s + KT * RS;                   // 2 x SLOT
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int np = pieces(in.hd);
-  const int h = blockIdx.x / np, piece = blockIdx.x % np;
+  const int per_head = wide_groups(in.hd) * N;
+  const int h = blockIdx.x / per_head, piece = blockIdx.x % per_head;
+  const bool stores = piece < np;               // a piece of the head
   const int b = blockIdx.y;
   const int c0 = PIECE * piece;                 // this block's columns
   const int q_end = in.t - QROWS * (int)blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tg = lane % 4;
-  const int w_first = WROWS * warp;
-  const int w0 = q_end - QROWS + w_first;
-  const int w_end = w0 + WROWS;
   const long long base = b * in.sb + h * in.sh;
   const int n_tiles = (q_end + KT - 1) / KT;
+  const int n_units = n_tiles * np;
+  // P@V: the warp's 16 rows, as in the narrow tile
+  const int w0 = q_end - QROWS + WROWS * warp;
+  const int w_end = w0 + WROWS;
   int lim[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) lim[r] = max(w0 + g + 8 * r, 0);
+  // the scores: the warp's units, row block urb (the block's rows from
+  // q_first), key blocks uj .. uj + U - 1; the block's rows' owner of
+  // each row block is block rb * N / WARPS of the cluster
+  const int unit0 = (rank * WARPS + warp) * U;
+  const int urb = unit0 / NB, uj = unit0 % NB;
+  const int q_first = q_end - QROWS + W::QR * rank;
+  const int u_end = q_end - QROWS + WROWS * (urb + 1);
+  const int q_off = (WROWS * urb - W::QR * rank + g) * RS;
+
+  // unit u: chunk u % np of stage u / np (K's, and Q's when streamed)
+  auto fetch = [&](int u) {
+    if (u < n_units) {
+      const int c = u % np, cw = min(PIECE, in.hd - PIECE * c);
+      float* dst = ring + (u % S) * W::RING;
+      if (!QRES)
+        copy_rows<W::QR, HD, true>(dst, in.q, base + PIECE * c, in.st,
+                                   q_first, in.t, in.vec16, cw);
+      copy_rows<KT, HD, true>(dst + (QRES ? 0 : W::QR * RS), in.k,
+                              base + PIECE * c, in.st, KT * (u / np), in.t,
+                              in.vec16, cw);
+    }
+    cp_async_commit();
+  };
+
+  if (QRES)
+    for (int c = 0; c < np; ++c)
+      copy_rows<W::QR, HD, true>(q_s + c * W::QR * RS, in.q,
+                                 base + PIECE * c, in.st, q_first, in.t,
+                                 in.vec16, min(PIECE, in.hd - PIECE * c));
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) fetch(i);     // Q joins unit 0's group
 
   float o[HD / 8][4] = {};
   float m[R], l[R];
@@ -498,38 +643,69 @@ __device__ __forceinline__ void causal_attention_tile_wide(
     m[r] = -INFINITY;
     l[r] = 0.0f;
   }
-  const float* q_row = q_s + (w_first + g) * RS;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * KT;
-    const int nb = min(max((w_end - k0 + 7) / 8, 0), NB);
-    copy_rows<KT, HD, true>(v_s, in.v, base + c0, in.st, k0, in.t, in.vec16,
-                            min(PIECE, in.hd - c0));
-    float s[R][NB][2];
+    // the warp's units below its row block's last row
+    const int nu = min(max((u_end - k0 + 7) / 8, 0), NB) - uj;
+    float sp[R][U][2];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int j = 0; j < NB; ++j) s[r][j][0] = s[r][j][1] = 0.0f;
-    for (int e0 = 0; e0 < in.hd; e0 += PIECE) {
-      const int cw = min(PIECE, in.hd - e0);
-      copy_rows<QROWS, HD, true>(q_s, in.q, base + e0, in.st, q_end - QROWS,
-                                 in.t, in.vec16, cw);
-      copy_rows<KT, HD, true>(k_s, in.k, base + e0, in.st, k0, in.t,
-                              in.vec16, cw);
-      cp_async_commit();
-      cp_async_wait<0>();   // this chunk (and, the first time, V) landed
-      __syncthreads();
-      if (nb > 0) score_chain<HD>(s, q_row, k_s, nb, tg);
-      __syncthreads();      // the chunk is consumed before the next
+      for (int j = 0; j < U; ++j) sp[r][j][0] = sp[r][j][1] = 0.0f;
+    for (int c = 0; c < np; ++c) {
+      const int u = it * np + c;
+      cp_async_wait<S - 2>();   // unit u has landed
+      __syncthreads();          // ... for every thread, which have all
+                                // read unit u - 1: its place takes u + S - 1
+      if (c == 0 && stores)     // V's piece, read after the stage's units
+        copy_rows<KT, HD, true>(v_s, in.v, base + c0, in.st, k0, in.t,
+                                in.vec16, min(PIECE, in.hd - c0));
+      fetch(u + S - 1);         // one cp.async group a unit (V's in it)
+      const float* buf = ring + (u % S) * W::RING;
+      if (nu > 0)
+        unit_chain<U>(sp, (QRES ? q_s + c * W::QR * RS : buf) + q_off,
+                      buf + (QRES ? 0 : W::QR * RS) + 8 * uj * RS, nu, tg);
     }
-    if (nb > 0) {
+    // the units to this stage's slot: unit j of the warp at (warp U + j)
+    // x 128, rows g and g + 8 of it, keys 2 tg, 2 tg + 1
+    float* slot = slots + (it & 1) * W::SLOT;
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (j < nu)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          *reinterpret_cast<float2*>(slot + (warp * U + j) * WROWS * 8 +
+                                     (g + 8 * r) * 8 + 2 * tg) =
+              make_float2(sp[r][j][0], sp[r][j][1]);
+    cp_async_wait<0>();         // V's piece has landed
+    cluster.sync();             // every block's units of the stage written
+    const int nb = min(max((w_end - k0 + 7) / 8, 0), NB);
+    if (stores && nb > 0) {
+      // row block `warp`: units 8 warp + j of block `owner`
+      const int owner = warp * N / WARPS;
+      const float* src = cluster.map_shared_rank(slot, owner) +
+                         (NB * warp - owner * (W::UNITS / N)) * WROWS * 8;
+      float s[R][NB][2];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float2 x = make_float2(0.0f, 0.0f);
+          if (j < nb)
+            x = *reinterpret_cast<const float2*>(
+                src + j * WROWS * 8 + (g + 8 * r) * 8 + 2 * tg);
+          s[r][j][0] = x.x;
+          s[r][j][1] = x.y;
+        }
+      }
       softmax_step<HD>(s, o, m, l, lim, nb, k0, tg, in.sm_scale);
       pv_step<HD>(o, s, v_s, nb, g, tg);
     }
-    __syncthreads();        // V's piece is consumed before it is refilled
   }
+  cluster.sync();               // no peer reads this block's slots now
 
-  if (w_end <= 0) return;
+  if (!stores || w_end <= 0) return;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     l[r] = quad_sum(l[r]);

@@ -15,6 +15,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace arcweld {
 
 // the row pitch in bytes of an int8 matrix n values wide: a tensor map's
@@ -66,6 +68,38 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// kernel<<<grid, threads, smem, s>>>(args...) in clusters of `cluster`
+// blocks along x (grid.x a multiple of it), by cudaLaunchKernelEx. Errors
+// come back as they are; cudaErrorLaunchOutOfResources where no cluster
+// of that size fits on the card at this shared memory.
+template <class... P, class... A>
+inline cudaError_t launch_cluster(void (*kernel)(P...), dim3 grid,
+                                  int threads, size_t smem, int cluster,
+                                  cudaStream_t s, A&&... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fits = 0;
+  e = cudaOccupancyMaxActiveClusters(&fits, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (fits < 1) return cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace arcweld

@@ -16,7 +16,10 @@
 // Any head width up to 128: 64 on the tile's 64 instantiation, another
 // on 32, 64 or 128 with its columns past hd zero in shared memory
 // (attention_tc.cuh); wider heads, up to 4,096, on its wide tile, a
-// block for each 128 output columns.
+// block for each 128 output columns, launched in clusters of 2, 4 or 8
+// (cudaLaunchKernelEx) that form each stage's scores once and share them
+// through distributed shared memory. flash_attention_cluster reads back
+// the cluster size of an entry's last launch.
 //
 // What bounds it on an H100 at the bench shape: operations, 4.2 GFLOP of
 // FP32 score FMAs (0.063 ms) and 3 x 4.2 GFLOP of TF32 products (0.026
@@ -32,7 +35,9 @@
 // in registers between the two, the softmax in f32 and the output y / l
 // rounded to bf16 to nearest even, as JAX's astype rounds. Head widths up
 // to 128 on its 16, 32, 64 and 128 instantiations, wider ones (up to
-// 4,096) on its wide tile, a block for each 128 output columns. At (16,
+// 4,096) on its wide forms, a block for each 128 output columns in
+// clusters (attention_bf16.cuh: up to 4 pieces the score tile split as
+// the f32 tile's, from 5 whole chunks a block). At (16,
 // 8, 321, 64) its bound is the 21 MB of q, k, v and the output (0.0063
 // ms).
 #include "attention_bf16.cuh"
@@ -82,22 +87,40 @@ cudaError_t launch(const Operands& in, const StoreF32& out, int batch,
   return cudaGetLastError();
 }
 
+template <int N, bool QRES>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_wide_kernel(const __grid_constant__ Operands in,
                             const __grid_constant__ StoreF32 out) {
-  causal_attention_tile_wide(in, out);
+  causal_attention_tile_wide<N, QRES>(in, out);
 }
 
+template <int N, bool QRES>
+cudaError_t launch_wide_at(const Operands& in, const StoreF32& out, int batch,
+                           int n_head, cudaStream_t stream) {
+  return arcweld::launch_cluster(flash_attention_wide_kernel<N, QRES>,
+                                 wide_grid(batch, n_head, in.t, in.hd),
+                                 THREADS, Wide<N, QRES>::SMEM, N, stream, in,
+                                 out);
+}
+
+// the wide tile in clusters of wide_cluster(hd)
 cudaError_t launch_wide(const Operands& in, const StoreF32& out, int batch,
                         int n_head, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_wide_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WIDE_SMEM);
-  if (e != cudaSuccess) return e;
-  flash_attention_wide_kernel<<<wide_grid(batch, n_head, in.t, in.hd),
-                                THREADS, WIDE_SMEM, stream>>>(in, out);
-  return cudaGetLastError();
+  switch (wide_cluster(in.hd)) {
+    case 2:
+      return launch_wide_at<2, true>(in, out, batch, n_head, stream);
+    case 4:
+      return launch_wide_at<4, true>(in, out, batch, n_head, stream);
+    default:
+      return wide_resident(in.hd)
+                 ? launch_wide_at<8, true>(in, out, batch, n_head, stream)
+                 : launch_wide_at<8, false>(in, out, batch, n_head, stream);
+  }
 }
+
+// the cluster size of each entry's last launch (0: a narrow tile's, or
+// none), read back by flash_attention_cluster
+int last_cluster[2] = {0, 0};
 
 template <int HD>
 __global__ void __launch_bounds__(attn_bf16::THREADS,
@@ -122,25 +145,49 @@ cudaError_t launch_bf16(const attn_bf16::Operands& in,
   return cudaGetLastError();
 }
 
+template <int N>
 __global__ void __launch_bounds__(attn_bf16::THREADS, 1)
 flash_attention_bf16_wide_kernel(
     const __grid_constant__ attn_bf16::Operands in,
     const __grid_constant__ attn_bf16::Output out) {
-  attn_bf16::causal_attention_bf16_tile_wide(in, out);
+  attn_bf16::causal_attention_bf16_tile_wide<N>(in, out);
 }
 
+template <int N>
+cudaError_t launch_bf16_wide_at(const attn_bf16::Operands& in,
+                                const attn_bf16::Output& out, int batch,
+                                int n_head, cudaStream_t stream) {
+  return arcweld::launch_cluster(
+      flash_attention_bf16_wide_kernel<N>,
+      attn_bf16::wide_grid(batch, n_head, in.t, in.hd), attn_bf16::THREADS,
+      attn_bf16::Wide<N>::SMEM, N, stream, in, out);
+}
+
+__global__ void __launch_bounds__(attn_bf16::THREADS, 1)
+flash_attention_bf16_chunks_kernel(
+    const __grid_constant__ attn_bf16::Operands in,
+    const __grid_constant__ attn_bf16::Output out) {
+  attn_bf16::causal_attention_bf16_tile_chunks(in, out);
+}
+
+// the bf16 wide tile in clusters of wide_cluster(hd): up to 4 pieces the
+// blocks split the score tile, past them each takes whole chunks
 cudaError_t launch_bf16_wide(const attn_bf16::Operands& in,
                              const attn_bf16::Output& out, int batch,
                              int n_head, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_bf16_wide_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_bf16::WIDE_SMEM);
-  if (e != cudaSuccess) return e;
-  flash_attention_bf16_wide_kernel<<<
-      attn_bf16::wide_grid(batch, n_head, in.t, in.hd), attn_bf16::THREADS,
-      attn_bf16::WIDE_SMEM, stream>>>(in, out);
-  return cudaGetLastError();
+  switch (attn_bf16::wide_cluster(in.hd)) {
+    case 2:
+      return launch_bf16_wide_at<2>(in, out, batch, n_head, stream);
+    case 4:
+      return launch_bf16_wide_at<4>(in, out, batch, n_head, stream);
+    default:
+      return arcweld::launch_cluster(
+          flash_attention_bf16_chunks_kernel,
+          attn_bf16::wide_grid(batch, n_head, in.t, in.hd),
+          attn_bf16::THREADS,
+          attn_bf16::Chunks::smem(attn_bf16::Chunks::seg(in.hd)),
+          attn_bf16::Chunks::N, stream, in, out);
+  }
 }
 
 }  // namespace
@@ -170,7 +217,12 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                     rows_aligned16(q, k, v, sb, sh, st, hd), hd};
   const StoreF32 out{static_cast<float*>(o), sob, soh, sot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd > MAX_HD) return launch_wide(in, out, batch, n_head, s);
+  last_cluster[0] = 0;
+  if (hd > MAX_HD) {
+    const cudaError_t e = launch_wide(in, out, batch, n_head, s);
+    if (e == cudaSuccess) last_cluster[0] = wide_cluster(hd);
+    return e;
+  }
   switch (padded_head(hd)) {
     case 32:
       return launch<32, true>(in, out, batch, n_head, s);
@@ -208,8 +260,12 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       (hd | sob | soh | sot) % 2 == 0 &&
           reinterpret_cast<uintptr_t>(o) % 4 == 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd > attn_bf16::MAX_HD)
-    return launch_bf16_wide(in, out, batch, n_head, s);
+  last_cluster[1] = 0;
+  if (hd > attn_bf16::MAX_HD) {
+    const cudaError_t e = launch_bf16_wide(in, out, batch, n_head, s);
+    if (e == cudaSuccess) last_cluster[1] = attn_bf16::wide_cluster(hd);
+    return e;
+  }
   switch (attn_bf16::padded_head(hd)) {
     case 16:
       return launch_bf16<16>(in, out, batch, n_head, s);
@@ -220,4 +276,11 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     default:
       return launch_bf16<128>(in, out, batch, n_head, s);
   }
+}
+
+// the cluster size of the last launch of flash_attention_f32 (bf16 = 0)
+// or flash_attention_bf16 (bf16 = 1): wide_cluster(hd) where the wide
+// tile ran, else 0
+extern "C" int flash_attention_cluster(int bf16) {
+  return last_cluster[bf16 != 0];
 }

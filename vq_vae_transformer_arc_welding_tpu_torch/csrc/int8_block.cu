@@ -45,7 +45,8 @@
 // Both attentions take any head width: up to MAX_HEAD_DIM on their
 // tiles (64 on its own instantiation, another on the smallest of 32, 64
 // and 128 that holds it, padded with zero columns), wider heads on their
-// wide forms (attention_tc.cuh's causal_attention_tile_wide,
+// wide forms (attention_tc.cuh's causal_attention_tile_wide, in
+// clusters of 2, 4 or 8 blocks that form a stage's scores once;
 // attention_int8.cuh's attention_int8_wide_kernel), a block for each
 // 128 output columns.
 // Off the multiples of 64 (and above 1,024) the pieces run on their
@@ -135,7 +136,8 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ qscale
       in, StoreQ8<HD>{y8, t, arcweld::pitch16(c), *qscale, hw});
 }
 
-// heads wider than attn_tc::MAX_HD: the wide tile
+// heads wider than attn_tc::MAX_HD: the wide tile, in clusters of N
+template <int N, bool QRES>
 __global__ void __launch_bounds__(attn_tc::THREADS, 1)
 attention_wide_kernel(const float* __restrict__ qkv,
                       const float* __restrict__ qscale,
@@ -144,27 +146,49 @@ attention_wide_kernel(const float* __restrict__ qkv,
   const int c = n_head * hd;
   const attn_tc::Operands in{qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
                              hd, 3LL * c, t, sm_scale, vec16, hd};
-  attn_tc::causal_attention_tile_wide(
+  attn_tc::causal_attention_tile_wide<N, QRES>(
       in, StoreQ8<attn_tc::PIECE>{y8, t, arcweld::pitch16(c), *qscale, hd});
+}
+
+template <int N, bool QRES>
+cudaError_t launch_attention_wide_at(const float* qkv, const float* qscale,
+                                     int8_t* y8, int batch, int t, int c,
+                                     int n_head, float sm_scale,
+                                     cudaStream_t s) {
+  const int hd = c / n_head;
+  return arcweld::launch_cluster(
+      attention_wide_kernel<N, QRES>, attn_tc::wide_grid(batch, n_head, t, hd),
+      attn_tc::THREADS, attn_tc::Wide<N, QRES>::SMEM, N, s, qkv, qscale, y8,
+      t, n_head, sm_scale,
+      attn_tc::rows_aligned16(qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
+                              hd, 3LL * c, hd),
+      hd);
 }
 
 cudaError_t launch_attention_wide(const float* qkv, const float* qscale,
                                   int8_t* y8, int batch, int t, int c,
                                   int n_head, float sm_scale,
                                   cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)attn_tc::WIDE_SMEM);
-  if (e != cudaSuccess) return e;
   const int hd = c / n_head;
-  attention_wide_kernel<<<attn_tc::wide_grid(batch, n_head, t, hd),
-                          attn_tc::THREADS, attn_tc::WIDE_SMEM, s>>>(
-      qkv, qscale, y8, t, n_head, sm_scale,
-      attn_tc::rows_aligned16(qkv, qkv + c, qkv + 2 * c, (long long)t * 3 * c,
-                              hd, 3LL * c, hd),
-      hd);
-  return cudaGetLastError();
+  switch (attn_tc::wide_cluster(hd)) {
+    case 2:
+      return launch_attention_wide_at<2, true>(qkv, qscale, y8, batch, t, c,
+                                               n_head, sm_scale, s);
+    case 4:
+      return launch_attention_wide_at<4, true>(qkv, qscale, y8, batch, t, c,
+                                               n_head, sm_scale, s);
+    default:
+      return attn_tc::wide_resident(hd)
+                 ? launch_attention_wide_at<8, true>(qkv, qscale, y8, batch,
+                                                     t, c, n_head, sm_scale, s)
+                 : launch_attention_wide_at<8, false>(
+                       qkv, qscale, y8, batch, t, c, n_head, sm_scale, s);
+  }
 }
+
+// the cluster size of the f32 attention's last launch (0: a narrow
+// tile's, or none), read back by attention_cluster
+int last_attention_cluster = 0;
 
 template <int HD, bool PAD>
 cudaError_t launch_attention_at(const float* qkv, const float* qscale,
@@ -289,9 +313,13 @@ cudaError_t launch_attention(const float* qkv, const float* qscale,
   if (batch < 1 || batch > 65535 || t < 1 || !heads_ok(c, n_head))
     return cudaErrorInvalidValue;
   const int hd = c / n_head;
-  if (hd > attn_tc::MAX_HD)
-    return launch_attention_wide(qkv, qscale, y8, batch, t, c, n_head,
-                                 sm_scale, s);
+  last_attention_cluster = 0;
+  if (hd > attn_tc::MAX_HD) {
+    const cudaError_t e = launch_attention_wide(qkv, qscale, y8, batch, t, c,
+                                                n_head, sm_scale, s);
+    if (e == cudaSuccess) last_attention_cluster = attn_tc::wide_cluster(hd);
+    return e;
+  }
   switch (attn_tc::padded_head(hd)) {
     case 32:
       return launch_attention_at<32, true>(qkv, qscale, y8, batch, t, c,
@@ -380,3 +408,7 @@ cudaError_t launch_mlp(const int8_t* h8, const int8_t* w_fc,
 }
 
 }  // namespace arcweld
+
+// the cluster size of the last launch of the f32 attention (#2, #6, #10,
+// #11 without int8_attn): wide_cluster(hd) where a wide tile ran, else 0
+extern "C" int attention_cluster() { return last_attention_cluster; }

@@ -118,6 +118,40 @@ MAX_WIDTH = 4096
 MAX_HEAD_DIM = 128
 
 
+# The attention tiles' wide forms (heads past MAX_HEAD_DIM) run a block
+# per WIDE_PIECE output columns, in clusters of `wide_cluster(hd)` blocks
+# (csrc/attention_tc.cuh and csrc/attention_bf16.cuh::wide_cluster).
+WIDE_PIECE = 128
+WIDE_MAX_CLUSTER = 8
+# the kernels whose f32 attention (csrc/int8_block.cu::launch_attention)
+# or #9 tile runs the wide forms, and how the library reads back the
+# cluster size of their last launch: (C entry, its argument or None)
+_CLUSTER_READ = {
+    "flash_attention_f32": ("flash_attention_cluster", 0),
+    "flash_attention_bf16": ("flash_attention_cluster", 1),
+    **{name: ("attention_cluster", None) for name in (
+        "attn_block_quant", "block_quant", "qkv_attention_quant",
+        "causal_attention_quant")}}
+
+
+def wide_cluster(hd: int) -> int:
+    """The cluster size of the wide tiles at head width hd > 128: 2 for
+    two pieces of 128 columns, 4 for three or four, 8 from five (more
+    than eight pieces take several clusters of 8)."""
+    pieces = -(-hd // WIDE_PIECE)
+    return 2 if pieces <= 2 else 4 if pieces <= 4 else WIDE_MAX_CLUSTER
+
+
+def last_cluster(name: str) -> int:
+    """The cluster size in which `name`'s last launch on the card ran its
+    attention (#9's tile, or the f32 attention of #2, #6, #10, #11
+    without int8_attn), as the library recorded it: `wide_cluster(hd)`
+    where the wide tile ran, 0 where a narrow tile ran."""
+    entry, arg = _CLUSTER_READ[name]
+    fn = getattr(library(), entry)
+    return int(fn() if arg is None else fn(arg))
+
+
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
@@ -176,6 +210,10 @@ def library() -> ctypes.CDLL:
     lib.arcweld_error_string.restype = ctypes.c_char_p
     lib.attention_max_head_dim.argtypes = []
     lib.attention_max_head_dim.restype = ctypes.c_int
+    lib.flash_attention_cluster.argtypes = [ctypes.c_int]
+    lib.flash_attention_cluster.restype = ctypes.c_int
+    lib.attention_cluster.argtypes = []
+    lib.attention_cluster.restype = ctypes.c_int
     return lib
 
 

@@ -25,9 +25,11 @@ the tensor cores), on bf16 ones that of csrc/attention_bf16.cuh (64
 queries). On f32 operands it takes any head width up to
 `kernels.MAX_WIDTH` (the columns past D zero in shared memory where the
 tile is wider; a head past 128 on the tile's wide form, a block for
-each 128 output columns); on bf16 ones any C = H * D up to
+each 128 output columns in clusters of `kernels.wide_cluster(D)` that
+form the scores once); on bf16 ones any C = H * D up to
 `kernels.MAX_WIDTH` in any heads, a head past 128 on the bf16 tile's
-wide form likewise. Other shapes raise.
+wide form likewise. Other shapes raise. `kernels.last_cluster(name)`
+reads back the cluster size of the last launch.
 
 The kernel reads q, k and v through their strides, so the views that
 `split_heads` cuts out of a packed (B, T, 3C) qkv are read in place; the
