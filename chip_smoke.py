@@ -266,8 +266,19 @@ step); then the int8 attention (#2 and #6 stage by stage), #9 on bf16
 (the bf16 gate) and #12, #13 (residual 1e-4, written row 2e-5, at three
 positions) alone at (C, heads) (200, 8), (192, 1), (1,100, 4), (1,600,
 25), (1,800, 6), (2,048, 8) and (4,096, 1), timed in turns with plain
-beside their bounds; the record's `transformer_shapes` of those kernels
-lists the (C, heads) they ran at.
+beside their bounds (#13 through `BlockDecodeStack`, the decode
+kernels' device ms their own launches'); the record's
+`transformer_shapes` of those kernels lists the (C, heads) they ran at.
+
+Then the decode kernels' general form on its path (`wide_decode_phase`):
+an 8-block transformer at d_model 1,800 in 6 heads of 300 (a width the
+transformer CLI builds) on the bench VQ-VAE's codebook, weights from
+seed 0, sampled by `generate_kv` at batch 16 for 320 steps: 'fused'
+must launch #13 exactly 8 x 320 times and nothing else, its forced step
+logits within 1e-4 of 'xla''s; ms per token of both in turns, #13's
+device ms a launch and its share of a token's device time; #12 through
+`fused_decode_attn` on every block for 64 forced steps, logits within
+1e-4 (the record's `wide_decode_*` keys).
 
 Last, the training CLIs chained into the scorer (`cli_phase`), in a
 temporary working directory on one synthetic CSV (24 runs of 160
@@ -550,6 +561,17 @@ WIDE_TRAIN_BATCH = 16
 WIDE_ALONE = tuple((NW_BATCH, max(1, 512 // hd), 321, hd)
                    for hd in TSHAPES_HEADS if hd > 128) + ((80, 8, 321, 256),)
 WIDE_REPS = 3
+# wide_decode_phase: the decode kernels' general form on its slice's
+# path, an 8-block transformer of WDEC_TR (6 heads of 300, a width the
+# transformer CLI builds; T=321) on the bench VQ-VAE's codebook from seed
+# 0, sampled by generate_kv at SAMPLE_BATCH streams for SAMPLE_STEPS
+# steps: 'fused' (#13 a block and token) against 'xla' by forced
+# sequence, ms per token of both in turns (WDEC_REPS), #13's device ms a
+# launch and its share of a token's device time; then #12 through
+# fused_decode_attn on every block for WDEC_ATTN_STEPS forced steps
+WDEC_TR = dict(d_model=1800, n_heads=6, n_blocks=8)
+WDEC_ATTN_STEPS = 64
+WDEC_REPS = 2
 # torch's defaults, which the training phase runs under
 TORCH_DEFAULT_TF32 = dict(matmul=False, cudnn=True)
 # the int8 GEMM of #2, #6, #8 and #10, launched alone by the GEMM phase;
@@ -871,6 +893,7 @@ PTXAS_KERNELS = ("attention_kernel", "flash_attention_bf16_kernel",
                  "encoder_chain_kernel", "resblock_kernel",
                  "encoder_entry_kernel", "encoder_exit_kernel", "embed_rows",
                  "nearest_rows", QUANT_PASS, INT8_ATTENTION, "decode_kernel",
+                 "decode_general",
                  LN_Q8, "encoder_chain_bf16_kernel", "nearest_codes_kernel",
                  "nearest_codes_chunked", "product_kernel", "embed_kernel",
                  "exit_kernel", "attention_wide_kernel", "ln_q8_any_kernel",
@@ -1679,6 +1702,12 @@ def log_library(what: str, times: tuple, lib, plain, smi: str) -> tuple:
            or "none traced")
         + f"; largest difference from plain {err:.3e}; gpu {smi}")
     return ms, err
+
+
+def is_decode(key: str) -> bool:
+    """Whether a trace's kernel is #12's or #13's, on either form
+    (csrc/decode.cu's decode_kernel, decode_general)."""
+    return "decode_kernel" in key or "decode_general" in key
 
 
 def is_kernel(key: str, name: str) -> bool:
@@ -4822,9 +4851,18 @@ def narrow_widths_phase(smi: str, cli: dict, device: str = "cuda") -> dict:
                     worst_e = max(worst_e, e)
                 note({name: 1}, "narrow widths kernels", shape)
                 errs[name, shape] = worst_e
-                fns[name, shape] = (
+                # #13 timed as generate_kv runs it: through a stack that
+                # packs the weights once where the general form runs (the
+                # per-call wrapper hands them in rows, padded per call
+                # where C is no multiple of 64)
+                kernel = (
                     lambda kfn=kfn, a=(xt, blk, *kv, NW_POS), nh=nh:
-                    kfn(*a, n_head=nh),
+                    kfn(*a, n_head=nh)) if name == DEC_ATTN else (
+                    lambda st=fdec.BlockDecodeStack([blk], [tuple(kv)],
+                                                    n_head=nh), xt=xt:
+                    st(xt, NW_POS))
+                fns[name, shape] = (
+                    kernel,
                     lambda pfn=pfn, a=(xt, blk, *kv, NW_POS), nh=nh:
                     pfn(*a, n_head=nh))
             for name in (ATTN8, FULL8, FLASH_BF16, DEC_ATTN, DEC_BLOCK):
@@ -4837,11 +4875,18 @@ def narrow_widths_phase(smi: str, cli: dict, device: str = "cuda") -> dict:
                                   **({"library": lib} if lib else {})},
                                  reps=NW_REPS, warmup=1)
             bound, by = bounds[key]
-            ms = traced[key][0]
+            ms = call_ms = traced[key][0]
+            alone = ""
+            if key[0] in (DEC_ATTN, DEC_BLOCK) and ms is not None:
+                # the kernel's launches alone, beside the whole call's
+                # (the padding copies of a width off the multiples of 64)
+                ms = sum(cnt * each for k, cnt, each in traced[key][2]
+                         if is_decode(k))
+                alone = f" ({ms:.4f} ms the kernel's launches)"
             log(f"narrow widths kernel {key[0]} at {key[1]}: "
                 f"{fmt_ms(t_k['kernel'])}, plain {fmt_ms(t_k['plain'])}; "
                 f"device " + ("not measured" if ms is None
-                              else f"{ms:.4f} ms a call")
+                              else f"{call_ms:.4f} ms a call{alone}")
                 + f"; bound {bound:.4f} ms by {by}"
                 + ("" if ms is None else f" ({bound / ms:.1%} of the device "
                                          f"time)")
@@ -5116,6 +5161,132 @@ def wide_heads_phase(smi: str, device: str = "cuda") -> dict:
                 if lib_ms is not None:
                     out["library_ms"][key[0]] = lib_ms
     log(f"wide heads phase: {time.perf_counter() - t_phase:.1f} s; "
+        f"gpu {smi}")
+    return out
+
+
+def wide_decode_phase(smi: str, device: str = "cuda") -> dict:
+    """The decode kernels' general form on its slice's path (see the
+    WDEC_* constants): generate_kv(decode_impl='fused') of the d1800
+    model, exactly n_blocks x SAMPLE_STEPS launches of #13 and nothing
+    else, its forced step logits within MAX_STEP_ERR of 'xla''s; ms per
+    token of both; #13's device ms a launch and its share of a token's
+    device time (torch.profiler); #12 through fused_decode_attn per block
+    over WDEC_ATTN_STEPS forced steps within MAX_STEP_ERR. Returns
+    {"launched": {kernel: (path, launches)}, "device_ms": {kernel: ms a
+    launch}, "ms_per_token": {"xla": ms, "fused": ms}}."""
+    import torch
+    from vq_vae_transformer_arc_welding_tpu_torch.entry import build
+    from vq_vae_transformer_arc_welding_tpu_torch.models.transformer import (
+        linear)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops import (
+        fused_decode as fdec)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.activations import (
+        new_gelu)
+    from vq_vae_transformer_arc_welding_tpu_torch.ops.norm import layer_norm
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    c, nh, depth = (WDEC_TR[k] for k in ("d_model", "n_heads", "n_blocks"))
+    bs, steps = SAMPLE_BATCH, SAMPLE_STEPS
+    what = f"d{c} ({nh} heads of {c // nh}, {depth} blocks)"
+    out = {"launched": {}, "device_ms": {}, "ms_per_token": {}}
+    vq, tr = build(d_model=c, n_heads=nh, n_blocks=depth, seed=SEED)
+    t, hd = tr.seq_len, c // nh
+    start = torch.full((bs, 1), vq.num_embeddings, dtype=torch.int32,
+                       device=dev)
+    ids, counts = counted(lambda: tr.generate_kv(start, num_steps=steps))
+    check(counts == {} and tuple(ids.shape) == (bs, 1 + steps),
+          f"wide decode 'xla' {what}: ids {tuple(ids.shape)}, launches "
+          f"{json.dumps(counts)}")
+
+    def forced(run):
+        seen = []
+
+        def draw(last, *_args, **_kw):
+            seen.append(last.float().clone())
+            return ids[:, len(seen)]
+
+        with mock.patch.object(tr, "_sample_from_logits", draw):
+            _, counts = counted(run)
+        check(len(seen) == steps, f"forced run drew {len(seen)} times")
+        return torch.stack(seen), counts
+
+    plain, _ = forced(lambda: tr.generate_kv(start, num_steps=steps))
+    got, counts = forced(lambda: tr.generate_kv(start, num_steps=steps,
+                                                decode_impl="fused"))
+    check(counts == {DEC_BLOCK: depth * steps},
+          f"wide decode generate_kv fused {what} launched "
+          f"{json.dumps(counts)}, expected {depth * steps} of {DEC_BLOCK}")
+    out["launched"][DEC_BLOCK] = (
+        f"wide decode generate_kv(decode_impl='fused') {what}",
+        counts[DEC_BLOCK])
+    e13 = float((got - plain).abs().max())
+    check(e13 <= MAX_STEP_ERR, f"wide decode generate_kv fused {what}: "
+                               f"forced step logits within {e13} of 'xla'")
+
+    # #12 per block, the plain MLP after it, on the same forced ids
+    def step_attn_half(tok, pos, caches):
+        x = tr._embed_token(tok, pos)
+        for blk, (k_c, v_c) in zip(tr.blocks, caches):
+            x, _, _ = fdec.fused_decode_attn(x, blk, k_c, v_c, pos,
+                                             n_head=nh)
+            h = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
+            x = x + linear(new_gelu(linear(h, blk.mlp.c_fc)), blk.mlp.c_proj)
+        ln_f = tr.transformer.ln_f
+        return layer_norm(x, ln_f.weight, ln_f.bias)[:, 0] \
+            @ tr.lm_head.weight.t()
+
+    n12 = min(WDEC_ATTN_STEPS, steps - 1)
+    with torch.inference_mode():
+        caches = [(torch.zeros(bs, nh, t, hd, device=dev),
+                   torch.zeros(bs, nh, t, hd, device=dev))
+                  for _ in range(depth)]
+        tr._prefill(ids[:, :1], caches)
+        got12, counts12 = counted(lambda: torch.stack(
+            [step_attn_half(ids[:, p], p, caches)
+             for p in range(1, 1 + n12)]))
+        del caches
+    check(counts12 == {DEC_ATTN: depth * n12},
+          f"wide decode fused_decode_attn {what} launched "
+          f"{json.dumps(counts12)}")
+    out["launched"][DEC_ATTN] = (
+        f"wide decode fused_decode_attn per block {what}, {n12} token steps",
+        counts12[DEC_ATTN])
+    e12 = float((got12 - plain[1:1 + n12]).abs().max())
+    check(e12 <= MAX_STEP_ERR, f"wide decode fused_decode_attn {what}: "
+                               f"step logits within {e12} of 'xla'")
+
+    tm = timed_in_turns(
+        {"xla": lambda: tr.generate_kv(start, num_steps=steps),
+         "fused": lambda: tr.generate_kv(start, num_steps=steps,
+                                         decode_impl="fused")},
+        reps=WDEC_REPS, warmup=1, per=steps)
+    out["ms_per_token"] = {name: v[0] for name, v in tm.items()}
+    n_ops, busy, names = device_profile(lambda: tr.generate_kv(
+        start, num_steps=steps, decode_impl="fused"))
+    if busy is None:
+        traced = "device trace: no device event, not measured"
+    else:
+        # the launches are counted exactly above (`counts`); the trace
+        # may lose an event (device_profile), which the count logged
+        # here shows, and holds no more than were launched
+        mine = [(cnt, ms) for key, cnt, ms in names if is_decode(key)]
+        n, ms = (sum(v) for v in zip(*mine)) if mine else (0, 0.0)
+        check(0 < n <= depth * steps, f"wide decode: the trace holds {n} "
+                                      f"launches of the decode kernels")
+        out["device_ms"][DEC_BLOCK] = ms / n
+        traced = (f"device time {busy / steps:.4f} ms a token ({n_ops / steps:.1f} "
+                  f"device operations), #13 {ms / n:.4f} ms a launch over "
+                  f"the {n} of {depth * steps} launches the trace holds, "
+                  f"{ms / busy:.1%} of it")
+    log(f"wide decode {what}, batch {bs}, {steps} steps: generate_kv "
+        f"fused {json.dumps(counts)}, forced step logits within {e13:.3e} "
+        f"of 'xla' (bound {MAX_STEP_ERR}); fused_decode_attn per block "
+        f"{json.dumps(counts12)} over {n12} steps, logits within "
+        f"{e12:.3e}; ms per token 'xla' {fmt_ms(tm['xla'])}, 'fused' "
+        f"{fmt_ms(tm['fused'])}; {traced}; gpu {smi}")
+    log(f"wide decode phase: {time.perf_counter() - t_phase:.1f} s; "
         f"gpu {smi}")
     return out
 
@@ -6572,6 +6743,10 @@ def main() -> int:
     # their slice's path: a d2048 model of 8 heads of 256 served and
     # trained a step, then each wide tile alone ----------------------------
     wheads = wide_heads_phase(smi)
+    # -- 13f. the decode kernels' general form on its slice's path: a
+    # d1800 model of 6 heads of 300 sampled through generate_kv, 'fused'
+    # against 'xla', and #12 per block ------------------------------------
+    wdec = wide_decode_phase(smi)
     launched[LN_ALONE] = tshapes["launched"][LN_ALONE]
     times[LN_ALONE], work[LN_ALONE] = tshapes["times"], tshapes["work"]
     enc_err[LN_ALONE] = tshapes["err"]
@@ -6634,6 +6809,14 @@ def main() -> int:
              "wide_heads_device_ms": wheads["device_ms"].get(name),
              "wide_heads_library_ms": wheads["library_ms"].get(name)}
             if name in wheads["launched"] else {}),
+         # the wide decode phase: its paths' launches and #13's device ms
+         # a launch there, and ms per token of 'xla' and 'fused'
+         **({"wide_decode_path": wdec["launched"][name][0],
+             "wide_decode_launches": wdec["launched"][name][1],
+             "wide_decode_device_ms": wdec["device_ms"].get(name),
+             **({"wide_decode_ms_per_token": wdec["ms_per_token"]}
+                if name == DEC_BLOCK else {})}
+            if name in wdec["launched"] else {}),
          # the CLI phase's scorer, over the checkpoints the CLIs wrote
          **({"cli_path": cli["launches"][name][0],
              "cli_launches": cli["launches"][name][1]}

@@ -1237,7 +1237,9 @@ def test_decode_kernel_grid_barrier_holds_over_a_thousand_calls(dev):
     again, _, _ = fused_decode.fused_block_decode(x, blk, kc, vc, 999 % 321,
                                                   n_head=8)
     assert torch.equal(out, again)
-    assert int(fused_decode._barrier(dev)[0]) == 0
+    # the kernels' words on the caches' device (cuda:0: `dev` is "cuda",
+    # another key of _barrier's cache)
+    assert int(fused_decode._barrier(kc.device)[0]) == 0
 
 
 def test_block_decode_stack_launches_once_a_block(dev):
@@ -2178,14 +2180,16 @@ def test_flash_attention_bf16_at_every_width(dev, c, n_head, packed):
 
 @pytest.mark.parametrize("c,n_head", NEW_WIDTHS)
 def test_decode_kernels_at_every_width(dev, c, n_head):
-    """#13 and #12 at widths once refused: C off the multiples of 64 (the
-    products' depths zero-padded), above 1,024 (LayerNorm in two passes
-    from L2, more than 32 columns of a product a block) and heads past
-    128 (the block's attention): the residual stream within 1e-4 of the
-    plain version, the written cache row within 2e-5, every other row
-    bit-equal."""
+    """#13 and #12 at widths once refused, on the general form: C off the
+    multiples of 64 (the products' depths zero-padded), above 1,024
+    (LayerNorm in two passes from L2, more than 32 columns of a product a
+    block, several k pieces) and heads past 128 (the keys over warps and,
+    where the items are fewer than half the grid, key ranges over
+    blocks), at T = 321 with pos 0, 255, 256 and 320, so that the ranges'
+    edges move: the residual stream within 1e-4 of the plain version, the
+    written cache row within 2e-5, every other row bit-equal."""
     blk = _decode_block(dev, c, n_head)
-    b, t, hd = 16, 40, c // n_head
+    b, t, hd = 16, 321, c // n_head
     g = torch.Generator().manual_seed(c + 1)
     x = torch.randn(b, 1, c, generator=g).to(dev)
     for fn, shape in (("fused_block_decode", (b, t, c)),
@@ -2194,7 +2198,7 @@ def test_decode_kernels_at_every_width(dev, c, n_head):
         vc = torch.randn(*shape, generator=g).to(dev)
         name = ("block_decode_f32" if fn == "fused_block_decode"
                 else "decode_attn_f32")
-        for pos in (0, 23, t - 1):
+        for pos in (0, 255, 256, t - 1):
             k0, v0 = kc.clone(), vc.clone()
             kr, vr = kc.clone(), vc.clone()
             out, _, _ = _launched(name, lambda: getattr(fused_decode, fn)(
@@ -2213,7 +2217,7 @@ def test_decode_kernels_at_every_width(dev, c, n_head):
                 assert torch.equal(got[keep], before[keep])
 
 
-@pytest.mark.parametrize("c,n_head", [(200, 8), (1100, 4)])
+@pytest.mark.parametrize("c,n_head", [(200, 8), (1100, 4), (1800, 6)])
 def test_block_decode_stack_at_padded_widths(dev, c, n_head):
     """BlockDecodeStack pads the weights once and a token's stream each
     call where C is no multiple of 64: one launch a block, the stream
@@ -2234,6 +2238,100 @@ def test_block_decode_stack_at_padded_widths(dev, c, n_head):
         torch.cuda.synchronize()
         assert kernels.launches["block_decode_f32"] == before + len(blocks)
         assert (out - run(x, pos)).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("c,n_head", [(1800, 6), (4096, 1)])
+@pytest.mark.parametrize("fn", ["fused_block_decode", "fused_decode_attn"])
+def test_general_form_gives_the_same_bits_twice(dev, c, n_head, fn):
+    """The general form's sums run in a fixed order, the wide attention's
+    key ranges merged by whichever block ends last in the ranges' order,
+    and no float atomic: two calls give bit-equal outputs and cache
+    rows (16 streams, pos 300: 8 key ranges at one head of 4,096)."""
+    blk = _decode_block(dev, c, n_head)
+    x, kc, vc = _decode_operands(
+        dev, c=c, n_head=n_head,
+        layout="flat" if fn == "fused_block_decode" else "heads")
+    k2, v2 = kc.clone(), vc.clone()
+    out1, _, _ = getattr(fused_decode, fn)(x, blk, kc, vc, 300,
+                                           n_head=n_head)
+    out2, _, _ = getattr(fused_decode, fn)(x, blk, k2, v2, 300,
+                                           n_head=n_head)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
+
+
+def test_general_form_counts_back_at_zero_after_a_thousand_calls(dev):
+    """1,000 launches of #13's general form at C 1,800 in heads of 300
+    (m_proj split in two ranges of pieces; at batch 2 the 12 items'
+    keys in up to 11 ranges) through BlockDecodeStack, every position of
+    a 321-row cache three times over: the grid barrier's arrival count
+    and every merge count are 0 after them, and the last output equals
+    a fresh call's."""
+    blk = _decode_block(dev, 1800, 6)
+    x, kc, vc = _decode_operands(dev, b=2, c=1800, n_head=6)
+    stack = fused_decode.BlockDecodeStack([blk], [(kc, vc)], n_head=6)
+    before = kernels.launches["block_decode_f32"]
+    for i in range(1000):
+        out = stack(x, i % 321)
+    torch.cuda.synchronize()
+    assert kernels.launches["block_decode_f32"] == before + 1000
+    out = out.clone()
+    again, _, _ = fused_decode.fused_block_decode(x, blk, kc, vc, 999 % 321,
+                                                  n_head=6)
+    assert torch.equal(out, again)
+    # the kernels' words on the caches' device (cuda:0: `dev` is "cuda",
+    # another key of _barrier's cache)
+    words = fused_decode._barrier(kc.device)
+    assert int(words[0]) == 0 and not words[2:].any()
+
+
+@pytest.mark.parametrize("c,n_head", [(200, 8), (1800, 6), (2048, 8),
+                                      (4096, 1)])
+def test_general_form_reads_rows_and_packed_weights_alike(dev, c, n_head):
+    """The general form reads the weights in rows (the per-call wrappers:
+    the block's own tensors where C is a multiple of 64) or packed
+    (BlockDecodeStack, as csrc/decode.cu's decode_general_form asks):
+    the same sums, so bit-equal outputs and cache rows, #13 and #12; and
+    the form the card reports is the one csrc/decode.cu::first_form
+    gives on its SMs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for mlp in (True, False):
+        c4 = 4 * c if mlp else 0
+        first = (c % 64 == 0 and c // n_head <= 128
+                 and all(-(-n // sms) <= fused_decode.MAX_COLS
+                         for n in ((3 * c, c, c4, c) if mlp else (3 * c, c))))
+        assert fused_decode._general(c, c4, n_head, mlp, dev) == (not first)
+    blk = _decode_block(dev, c, n_head)
+    x, kc, vc = _decode_operands(dev, c=c, n_head=n_head)
+    k2, v2 = kc.clone(), vc.clone()
+    stack = fused_decode.BlockDecodeStack([blk], [(kc, vc)], n_head=n_head)
+    assert stack._args[0].packed == 1
+    packed = stack(x, 300).clone()
+    rows, _, _ = fused_decode.fused_block_decode(x, blk, k2, v2, 300,
+                                                 n_head=n_head)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, rows)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
+    # #12 on packed weights, launched as the wrapper launches its rows
+    x, kc, vc = _decode_operands(dev, c=c, n_head=n_head, layout="heads")
+    k2, v2 = kc.clone(), vc.clone()
+    b, t, hd = x.shape[0], kc.shape[2], c // n_head
+    ops = fused_decode._check_operands("decode_attn_f32", blk, kc, vc,
+                                       tuple(kc.shape), n_head, False, dev,
+                                       packed=True)
+    scratch = fused_decode._scratch(b, c, 0, n_head, dev)
+    out = fused_decode._rows_out(b, c, 0, dev)
+    args = fused_decode._pack(ops, kc, vc, (n_head * t * hd, t * hd, hd),
+                              scratch, b, t, c, 0, n_head)
+    _launched("decode_attn_f32", lambda: fused_decode._launch(
+        "decode_attn_f32", args, fused_decode._padded_rows(x, c, 0), out,
+        300, kernels.stream_ptr(dev)))
+    rows, _, _ = fused_decode.fused_decode_attn(x, blk, k2, v2, 300,
+                                                n_head=n_head)
+    torch.cuda.synchronize()
+    assert torch.equal(out[..., :c], rows)
+    assert torch.equal(kc, k2) and torch.equal(vc, v2)
 
 
 def test_widened_kernels_raise_past_4096(dev):

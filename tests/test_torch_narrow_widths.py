@@ -20,9 +20,10 @@ and batch <= 2:
 - both decode wrappers' plain versions against JAX's `pallas_decode`
   kernels in interpret mode (1e-5 on the stream, 1e-6 on the cache
   rows), the padded depths of csrc/decode.cu (zeros add exact 0s, the
-  LayerNorm over a padded row), the block-wide attention of heads past
-  128 emulated, and `generate_kv(decode_impl='fused')` against JAX's at
-  C 200;
+  weights packed for its general form, the LayerNorm over a padded row),
+  and `generate_kv(decode_impl='fused')` against JAX's at C 200 (the
+  general form's order of sums and its attention of heads past 128:
+  tests/test_torch_decode_general.py);
 - the wide bf16 tile (csrc/attention_bf16.cuh::
   causal_attention_bf16_tile_wide) emulated at heads of 192 and 300
   within the bf16 gate of the JAX kernel in interpret mode and of the
@@ -318,10 +319,10 @@ def test_decode_plain_versions_match_jax_kernels(c, n_head):
                          ids=[IDS[0], IDS[3]])
 def test_padded_depths_give_the_same_sums(c, n_head):
     """The decode kernels' operands padded to depths of a multiple of 64
-    (`fused_decode._padded_weights`, the stream in rows of pad64(C)):
-    every added column is zero, and a product over the padded depth
-    equals the unpadded one exactly (integer-valued operands, whose sums
-    are exact in any order)."""
+    (`fused_decode._padded_weights`, the weights packed for the general
+    form, the stream in rows of pad64(C)): every added column is zero,
+    and a product over the padded depth equals the unpadded one exactly
+    (integer-valued operands, whose sums are exact in any order)."""
     _, tr = entry.build(d_model=c, n_blocks=1, n_heads=n_head, hidden=16,
                         n_res=1, k=32, d=8, seed=0, device="cpu")
     ops, c4, tensors = _operands(tr.blocks[0])
@@ -329,11 +330,15 @@ def test_padded_depths_give_the_same_sums(c, n_head):
     shapes = [(cp,), (cp,), (3 * c, cp), (3 * c,), (c, cp), (c,), (cp,),
               (cp,), (c4, cp), (c4,), (c, c4p), (c,)]
     for t, (_, p, _), shape in zip(tensors, ops, shapes):
+        if len(shape) == 2:          # packed: the padded matrix unpacked
+            t = fdec._unpacked(t, shape[0], p.shape[1])
         assert tuple(t.shape) == shape
         assert torch.equal(t[..., :p.shape[-1]], p)
         assert not t[..., p.shape[-1]:].any()
-    assert (fdec._scratch(2, c, c4, torch.device("cpu")).numel()
-            == 2 * (c + 2 * cp + c4p + c4p // fdec._chunk_k(c, c4) * c))
+    parts = max(c4p // fdec._chunk_k(c, c4), -(-c4p // fdec.PIECE))
+    assert (fdec._scratch(2, c, c4, n_head, torch.device("cpu")).numel()
+            == 2 * (c + 2 * cp + c4p + parts * c)
+            + fdec._wide_units(2, n_head, c))
     g = torch.Generator().manual_seed(c)
     x = torch.randint(-8, 9, (3, c), generator=g).float()
     w = torch.randint(-8, 9, (5, c), generator=g).float()
@@ -348,7 +353,7 @@ def _operands(blk):
     caches = torch.zeros(1, 4, c)
     checked = fdec._check_operands("block_decode_f32", blk, caches, caches,
                                    (1, 4, c), 1, True,
-                                   torch.device("cpu"))
+                                   torch.device("cpu"), packed=None)
     mods = [blk.ln_1.weight, blk.ln_1.bias, blk.attn.c_attn.weight,
             blk.attn.c_attn.bias, blk.attn.c_proj.weight,
             blk.attn.c_proj.bias, blk.ln_2.weight, blk.ln_2.bias,
@@ -397,53 +402,6 @@ def test_layer_norm_over_a_padded_row(c):
     ones = torch.ones(c)
     ref = layer_norm(x, ones, torch.zeros(c))
     assert float(((x - mean) * rstd - ref).abs().max()) <= 1e-6
-
-
-def wide_decode_attention(q, kc, vc, pos: int, run: int = 256):
-    """csrc/decode.cu::attention_wide for one (sample, head): runs of
-    `run` keys, each score a butterfly over 32 lanes of the float4s at
-    4 L + 128 i; the run's max, then p, l and P@V walked over the run's
-    keys in order. q (hd,), kc, vc (T, hd)."""
-    hd = q.shape[0]
-    n = pos + 1
-    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
-    qp = torch.nn.functional.pad(q, (0, -hd % 128)).view(-1, 32, 4)
-    m, l = torch.tensor(-math.inf), torch.tensor(0.0)
-    o = torch.zeros(hd)
-    for j0 in range(0, n, run):
-        sc = []
-        for j in range(j0, min(n, j0 + run)):
-            kp = torch.nn.functional.pad(kc[j], (0, -hd % 128)).view(
-                -1, 32, 4)
-            lanes = (qp * kp).sum(-1).sum(0)         # lane L, i in order
-            for off in (16, 8, 4, 2, 1):
-                lanes = lanes + lanes[torch.arange(32) ^ off]
-            sc.append(lanes[0] * scale)
-        sc = torch.stack(sc)
-        mx = torch.maximum(m, sc.max())
-        alpha = torch.exp(m - mx)
-        l, o = l * alpha, o * alpha
-        for jj, s in enumerate(sc):
-            p = torch.exp(s - mx)
-            l = l + p
-            o = o + p * vc[j0 + jj]
-        m = mx
-    return o / l
-
-
-@pytest.mark.parametrize("hd,pos", [(192, 40), (275, 299), (300, 257)])
-def test_wide_decode_attention_matches_plain(hd, pos):
-    """Heads past 128 in the decode kernels (one block a head, runs of
-    256 keys, so pos 257 and 299 take two): within 1e-5 of
-    softmax(q K^T / sqrt(hd)) V over rows 0..pos."""
-    rng = np.random.default_rng(hd)
-    t = 300
-    q, kc, vc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-                 for s in ((hd,), (t, hd), (t, hd)))
-    got = wide_decode_attention(q, kc, vc, pos)
-    ref = fdec._attend(q[None, None, None], kc[None, None, :pos + 1],
-                       vc[None, None, :pos + 1])[0, 0, 0]
-    assert float((got - ref).abs().max()) <= 1e-5
 
 
 def test_generate_kv_fused_equals_jax_at_c200():

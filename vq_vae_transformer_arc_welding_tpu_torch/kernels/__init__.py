@@ -214,6 +214,8 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_cluster.restype = ctypes.c_int
     lib.attention_cluster.argtypes = []
     lib.attention_cluster.restype = ctypes.c_int
+    lib.decode_general_form.argtypes = [_P, _I, _I]
+    lib.decode_general_form.restype = ctypes.c_int
     return lib
 
 

@@ -41,15 +41,21 @@ What the TPU shaped and this port drops:
   for near-ties).
 
 Widths: any C from 1 to `kernels.MAX_WIDTH` in any heads, any MLP
-width. The kernels' products read their depth in pieces of a multiple of
-64 through 1-D TMA copies, so every operand a product reads is padded
-with zeros to a depth of a multiple of 64 (`pad64`; zeros add exact 0s
-to every sum): the weights (n, k) to (n, pad64(k)), the LayerNorm
-vectors to pad64(C), and the stream x and the outputs to rows of
-pad64(C) floats (`_padded_weights`, `_padded_rows`). Where C and the MLP
-width are multiples of 64, as at the bench model, nothing is padded or
-copied. `BlockDecodeStack` pads a generation's weights once; the
-per-call wrappers pad per call.
+width. The kernels read every product's depth zero-padded to a multiple
+of 64 (`pad64`; zeros add exact 0s to every sum): the LayerNorm vectors
+padded to pad64(C), and the stream x and the outputs in rows of pad64(C)
+floats (`_padded_rows`). A weight (n, k) is read in rows of pad64(k)
+floats, as it is where k is a multiple of 64 (`_pad_cols`), or packed
+(`_packed`). csrc/decode.cu has two forms and picks one for the shape:
+the first form, at the shapes it took first (C and the MLP width
+multiples of 64 up to C 1,024, heads up to 128: the bench model), reads
+the rows; the general form, at every other shape, walks the depth in
+pieces of up to `PIECE` floats and the columns in chunks of 8, and
+reads either, the packed weights one bulk copy a chunk and the rows a
+copy a row. `BlockDecodeStack` packs a generation's weights once, where
+the kernel says it runs the general form (`_general`), a second copy of
+them for the generation; the per-call wrappers copy nothing where C and
+the MLP width are multiples of 64, and pad the rows per call where not.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back. For the card's times see
@@ -71,7 +77,13 @@ from .norm import layer_norm
 _ATTN = "decode_attn_f32"
 _BLOCK = "block_decode_f32"
 MAX_KC = 512        # the widest k piece of csrc/decode.cu's products
+PIECE = MAX_KC      # the general form's k piece (decode.cu's PIECE_K)
 MAX_GRID = 1024     # its blocks; the barrier holds a count for each
+NCOL = 8            # output columns a chunk of a product
+MAX_COLS = 32       # a column group's columns
+# the general form's attention of heads past kernels.MAX_HEAD_DIM: the
+# key ranges an item may be split in (decode.cu's MAX_RANGES)
+MAX_RANGES = 16
 
 
 class DecodeArgs(ctypes.Structure):
@@ -85,7 +97,7 @@ class DecodeArgs(ctypes.Structure):
         + [(name, ctypes.c_longlong) for name in ("sb", "sh", "st")]
         + [(name, ctypes.c_int) for name in ("batch", "t", "c", "c4",
                                              "n_head")]
-        + [("sm_scale", ctypes.c_float)])
+        + [("sm_scale", ctypes.c_float), ("packed", ctypes.c_int)])
 
 
 def _dense(x: torch.Tensor, p) -> torch.Tensor:
@@ -155,30 +167,85 @@ def _pad_cols(p: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
-def _padded_weights(operands, c: int, c4: int) -> list:
+def _packed(w: torch.Tensor, k: int) -> torch.Tensor:
+    """w (n, k_real) as csrc/decode.cu's general form reads it, flat: the
+    depth zero-padded to k = pad64(k_real) and cut in pieces of PIECE
+    floats (the last one shorter), the rows zero-padded to 8 n8; piece q
+    holds the chunks j = 0 .. n8 - 1 in turn, chunk j its 8 rows of the
+    piece's kq floats, so chunk j of piece q lies at 8 n8 PIECE q + 8 j kq
+    floats, one range."""
+    n, kp = w.shape[0], pad64(k)
+    rows = -(-n // NCOL) * NCOL
+    full = w.new_zeros((rows, kp))
+    full[:n, :w.shape[1]] = w
+    return torch.cat([full[:, s:s + PIECE].reshape(-1)
+                      for s in range(0, kp, PIECE)])
+
+
+def _unpacked(flat: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The (n, pad64(k)) matrix that `_packed` laid out in `flat`."""
+    kp = pad64(k)
+    rows = -(-n // NCOL) * NCOL
+    parts, at = [], 0
+    for s in range(0, kp, PIECE):
+        kq = min(PIECE, kp - s)
+        parts.append(flat[at:at + rows * kq].view(rows, kq))
+        at += rows * kq
+    return torch.cat(parts, dim=1)[:n]
+
+
+def _padded_weights(operands, c: int, c4: int, packed: bool) -> list:
     """The block's tensors in DecodeArgs' order, each product's depth
-    padded with zeros to pad64 (the LayerNorm vectors to pad64(C))."""
+    padded with zeros to pad64, the weights packed (`_packed`) where
+    `packed`; the LayerNorm vectors padded to pad64(C)."""
     depth = {"ln_1.weight": c, "ln_1.bias": c, "c_attn.weight": c,
              "attn.c_proj.weight": c, "ln_2.weight": c, "ln_2.bias": c,
              "c_fc.weight": c, "mlp.c_proj.weight": c4}
-    return [_pad_cols(p, pad64(depth[label])) if label in depth else p
-            for label, p, _ in operands]
+    out = []
+    for label, p, _ in operands:
+        if label not in depth:
+            out.append(p)
+        elif packed and p.dim() == 2:
+            out.append(_packed(p, depth[label]))
+        else:
+            out.append(_pad_cols(p, pad64(depth[label])))
+    return out
+
+
+def _general(c: int, c4: int, n_head: int, mlp: bool, dev) -> bool:
+    """Whether csrc/decode.cu runs its general form at this shape on
+    `dev`, the only one that reads packed weights (where its first form
+    does not take the shape; a CPU tensor: the general one)."""
+    if dev.type != "cuda":
+        return True
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    args = DecodeArgs(c=c, c4=c4, n_head=n_head)
+    form = kernels.library().decode_general_form(ctypes.addressof(args),
+                                                 int(mlp), index)
+    if form < 0:
+        kernels.check(-form, "decode_general_form")
+    return bool(form)
 
 
 class _Operands(tuple):
     """(the pointers of a block's weights in DecodeArgs' order, c4);
-    `.tensors`: the (padded) tensors behind the pointers, which must
-    outlive every launch that reads them."""
+    `.tensors`: the (padded, packed) tensors behind the pointers, which
+    must outlive every launch that reads them; `.packed`: whether the
+    weights are packed (`_packed`)."""
 
-    def __new__(cls, ptrs, c4, tensors):
+    def __new__(cls, ptrs, c4, tensors, packed):
         self = super().__new__(cls, (ptrs, c4))
         self.tensors = tensors
+        self.packed = packed
         return self
 
 
-def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev):
+def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev, *,
+                    packed: bool | None = False):
     """Raise unless the kernel takes the block and the caches; the
-    block's `_Operands`."""
+    block's `_Operands`, the weights in rows of pad64(k) floats or, where
+    `packed`, packed (which only the general form reads; None: packed
+    where the kernel runs the general form on `dev`)."""
     c = blk.ln_1.weight.shape[0]
     kernels.require_heads(name, c, n_head)
     kernels.require(kc, "kc", torch.float32, cache_shape, dev)
@@ -199,12 +266,14 @@ def _check_operands(name, blk, kc, vc, cache_shape, n_head, mlp, dev):
                      ("mlp.c_proj.bias", blk.mlp.c_proj.bias, (c,))]
     for label, p, shape in operands:
         kernels.require(p, label, torch.float32, shape, dev)
-    padded = _padded_weights(operands, c, c4)
+    if packed is None:
+        packed = _general(c, c4, n_head, mlp, dev)
+    padded = _padded_weights(operands, c, c4, packed)
     for (label, _, _), p in zip(operands, padded):
         if p.data_ptr() % 16:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
     return _Operands([p.data_ptr() for p in padded]
-                     + [None] * (12 - len(padded)), c4, padded)
+                     + [None] * (12 - len(padded)), c4, padded, packed)
 
 
 def _checked(name, x, blk, kc, vc, cache_shape, pos, n_head, mlp: bool):
@@ -238,15 +307,28 @@ def _is_padded(c: int, c4: int) -> bool:
     return pad64(c) != c or pad64(c4) != c4
 
 
-def _scratch(b, c, c4, dev) -> torch.Tensor:
-    """q (b x C), y, x_mid (b x pad64(C) each), g (b x pad64(c4)) and
-    m_proj's partial sums (pad64(c4) / KC x b x C), f32; zero where the
-    rows are padded (the kernels never write the columns past C, c4)."""
+def _wide_units(b: int, n_head: int, c: int) -> int:
+    """The floats of the general form's wide attention (heads past
+    kernels.MAX_HEAD_DIM) in the scratch: (max, sum, output) of every
+    (sample, head, key range) unit where the items may be split
+    (decode.cu::wide_unit_floats)."""
+    hd, items = c // n_head, b * n_head
+    if hd <= kernels.MAX_HEAD_DIM or items >= MAX_GRID:
+        return 0
+    return min(items * MAX_RANGES, MAX_GRID) * (hd + 2)
+
+
+def _scratch(b, c, c4, n_head, dev) -> torch.Tensor:
+    """q (b x C), y, x_mid (b x pad64(C) each), g (b x pad64(c4)), the
+    wide attention's units (`_wide_units`) and m_proj's partial sums (up
+    to its pieces of either form x b x C), f32; zero where the rows are
+    padded (the kernels never write the columns past C, c4)."""
     cp, c4p = pad64(c), pad64(c4)
-    parts = c4p // _chunk_k(c, c4) * c if c4 else 0
+    parts = (max(c4p // _chunk_k(c, c4), -(-c4p // PIECE)) * c if c4
+             else 0)
     make = torch.zeros if _is_padded(c, c4) else torch.empty
-    return make(b * (c + 2 * cp + c4p + parts), dtype=torch.float32,
-                device=dev)
+    return make(b * (c + 2 * cp + c4p + parts) + _wide_units(b, n_head, c),
+                dtype=torch.float32, device=dev)
 
 
 def _padded_rows(x: torch.Tensor, c: int, c4: int) -> torch.Tensor:
@@ -261,11 +343,12 @@ def _rows_out(b: int, c: int, c4: int, dev) -> torch.Tensor:
     return make((b, 1, pad64(c)), dtype=torch.float32, device=dev)
 
 
-def _pack(ptrs, kc, vc, strides, scratch, b, t, c, c4, n_head) -> DecodeArgs:
-    return DecodeArgs(*ptrs, kc.data_ptr(), vc.data_ptr(),
+def _pack(ops: _Operands, kc, vc, strides, scratch, b, t, c, c4,
+          n_head) -> DecodeArgs:
+    return DecodeArgs(*ops[0], kc.data_ptr(), vc.data_ptr(),
                       scratch.data_ptr(), _barrier(kc.device).data_ptr(),
                       *strides, b, t, c, c4, n_head,
-                      1.0 / math.sqrt(c // n_head))
+                      1.0 / math.sqrt(c // n_head), int(ops.packed))
 
 
 def _launch(name, args: DecodeArgs, x, out, pos, stream) -> None:
@@ -293,11 +376,10 @@ def fused_decode_attn(x, blk, kc, vc, pos: int, *, n_head: int):
     # `checked` holds the padded weights until the launch is queued
     checked = _checked(_ATTN, x, blk, kc, vc, (b, n_head, t, hd), pos,
                        n_head, mlp=False)
-    ptrs = checked[0]
-    scratch = _scratch(b, c, 0, x.device)
+    scratch = _scratch(b, c, 0, n_head, x.device)
     x_mid = _rows_out(b, c, 0, x.device)
-    args = _pack(ptrs, kc, vc, (n_head * t * hd, t * hd, hd), scratch, b, t,
-                 c, 0, n_head)
+    args = _pack(checked, kc, vc, (n_head * t * hd, t * hd, hd), scratch, b,
+                 t, c, 0, n_head)
     _launch(_ATTN, args, _padded_rows(x, c, 0), x_mid, pos,
             kernels.stream_ptr(x.device))
     return x_mid[..., :c].contiguous(), kc, vc
@@ -321,11 +403,11 @@ def fused_block_decode(x, blk, kc, vc, pos: int, *, n_head: int):
     # `checked` holds the padded weights until the launch is queued
     checked = _checked(_BLOCK, x, blk, kc, vc, (b, t, c), pos, n_head,
                        mlp=True)
-    ptrs, c4 = checked
-    scratch = _scratch(b, c, c4, x.device)
+    c4 = checked[1]
+    scratch = _scratch(b, c, c4, n_head, x.device)
     out = _rows_out(b, c, c4, x.device)
-    args = _pack(ptrs, kc, vc, (t * c, c // n_head, c), scratch, b, t, c, c4,
-                 n_head)
+    args = _pack(checked, kc, vc, (t * c, c // n_head, c), scratch, b, t, c,
+                 c4, n_head)
     _launch(_BLOCK, args, _padded_rows(x, c, c4), out, pos,
             kernels.stream_ptr(x.device))
     return out[..., :c].contiguous(), kc, vc
@@ -335,14 +417,15 @@ def check_stack(blocks, caches, *, n_head: int) -> list:
     """Raise unless kernel #13 takes every block with its caches, (B, T,
     C) f32 each: the checks of `fused_block_decode` but x and pos, once
     for a generation. The `_Operands` (pointers of the block's weights in
-    DecodeArgs' order, c4) per block. Device-agnostic: on CPU tensors it
-    checks what the card would refuse."""
+    DecodeArgs' order, c4) per block, the weights packed where the kernel
+    runs its general form. Device-agnostic: on CPU tensors it checks what
+    the card would refuse (and packs)."""
     kc0 = caches[0][0]
     if kc0.dim() != 3:
         raise ValueError(f"{_BLOCK}: the caches must be (B, T, C), got "
                          f"{tuple(kc0.shape)}")
     return [_check_operands(_BLOCK, blk, kc, vc, tuple(kc0.shape), n_head,
-                            True, kc0.device)
+                            True, kc0.device, packed=None)
             for blk, (kc, vc) in zip(blocks, caches)]
 
 
@@ -360,8 +443,8 @@ class BlockDecodeStack:
     blocks: the model's transformer Blocks; caches: [(kc, vc)] per
     block, (B, T, C) f32 time-major, updated in place. On the card the
     operands of every block are checked here, once (`check_stack`), and
-    packed into one DecodeArgs each (the weights padded to the kernel's
-    depths where C or the MLP width is no multiple of 64), with the
+    packed into one DecodeArgs each (the weights packed, `_packed`, where
+    the kernel runs its general form), with the
     scratch and two output rows allocated once. A call `stack(x, pos)`
     then checks x and pos (`check_step`) and costs one C call (one
     launch, counted in kernels.launches) a block. It returns the stream
@@ -381,14 +464,14 @@ class BlockDecodeStack:
         c4 = checked[0][1]
         self._c = c
         self._weights = [ops.tensors for ops in checked]
-        self._scratch = _scratch(b, c, c4, self.device)
+        self._scratch = _scratch(b, c, c4, n_head, self.device)
         # the stream in the kernel's rows where C is padded
         self._x = (_rows_out(b, c, c4, self.device)
                    if _is_padded(c, c4) else None)
         self._outs = [_rows_out(b, c, c4, self.device) for _ in range(2)]
-        self._args = [_pack(ptrs, kc, vc, (t * c, c // n_head, c),
-                            self._scratch, b, t, c, c4_, n_head)
-                      for (ptrs, c4_), (kc, vc) in zip(checked, caches)]
+        self._args = [_pack(ops, kc, vc, (t * c, c // n_head, c),
+                            self._scratch, b, t, c, c4, n_head)
+                      for ops, (kc, vc) in zip(checked, caches)]
         self._fn = getattr(kernels.library(), _BLOCK)
 
     def __call__(self, x, pos: int):
